@@ -1,0 +1,236 @@
+// Shared pieces of the two forward attention kernels (flash_attention_fwd.cu,
+// dilated_attention_fwd.cu): tile geometry, the shared-memory plan, dtype
+// conversion and the online-softmax update of a group of query rows.
+//
+// A block owns kBlockQ query rows. Their softmax state lives in shared
+// memory (running max m, running sum l, fp32 accumulator acc[row][d]) so
+// that any subset of the rows can be updated against any key tile: the
+// dilated kernel updates a different subset of rows for every branch.
+// One warp updates kRowsPerWarp rows against one key tile at a time, so
+// that every k and v element it reads from shared memory serves four rows:
+// for q.k the lanes split the keys, for p.V they split the (row, head
+// dimension) pairs, 8 lanes per row.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace mt {
+
+constexpr float kNegInf = -1e9f;          // NEG_INF of the Python side
+constexpr float kMaskThreshold = -5e8f;   // a key with bias <= NEG_INF/2 is masked
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBlockQ = 64;               // query rows per block
+constexpr int kBlockK = 64;               // keys per shared-memory tile
+constexpr int kKeysPerLane = kBlockK / 32;
+constexpr int kRowsPerWarp = 4;
+constexpr int kLanesPerRow = 32 / kRowsPerWarp;
+constexpr int kPStride = kBlockK + 1;     // p rows of a warp on distinct banks
+
+template <typename T> __device__ __forceinline__ float to_float(T x);
+template <> __device__ __forceinline__ float to_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Shared-memory plan, in floats, for a padded head dimension DP (a multiple
+// of 16, so each of a row's 8 p.V lanes owns an even number of dimensions).
+// q and k rows are padded by 4 floats: float4 reads of k[lane + 32c][...]
+// then fall on distinct banks within each 8-lane phase.
+template <int DP>
+struct Plan {
+  static constexpr int QS = DP + 4;
+  static constexpr int KS = DP + 4;
+  static constexpr int q_off = 0;
+  static constexpr int k_off = q_off + kBlockQ * QS;
+  static constexpr int v_off = k_off + kBlockK * KS;
+  static constexpr int acc_off = v_off + kBlockK * DP;
+  static constexpr int p_off = acc_off + kBlockQ * DP;
+  static constexpr int m_off = p_off + kWarps * kRowsPerWarp * kPStride;
+  static constexpr int l_off = m_off + kBlockQ;
+  static constexpr int bias_off = l_off + kBlockQ;
+  static constexpr int floats = bias_off + kBlockK;
+  static constexpr size_t bytes = sizeof(float) * floats;
+};
+
+template <int DP>
+struct Tiles {
+  float* q;     // [kBlockQ][QS], pre-multiplied by the softmax scale
+  float* k;     // [kBlockK][KS]
+  float* v;     // [kBlockK][DP]
+  float* acc;   // [kBlockQ][DP]
+  float* p;     // [kWarps][kRowsPerWarp][kPStride]
+  float* m;     // [kBlockQ]
+  float* l;     // [kBlockQ]
+  float* bias;  // [kBlockK] additive key bias; <= kMaskThreshold masks the key
+
+  __device__ explicit Tiles(float* s)
+      : q(s + Plan<DP>::q_off), k(s + Plan<DP>::k_off), v(s + Plan<DP>::v_off),
+        acc(s + Plan<DP>::acc_off), p(s + Plan<DP>::p_off), m(s + Plan<DP>::m_off),
+        l(s + Plan<DP>::l_off), bias(s + Plan<DP>::bias_off) {}
+
+  // Zero the accumulator, start every row's max at NEG_INF and sum at 0.
+  __device__ void init_state() {
+    for (int i = threadIdx.x; i < kBlockQ * DP; i += kThreads) acc[i] = 0.f;
+    for (int i = threadIdx.x; i < kBlockQ; i += kThreads) {
+      m[i] = kNegInf;
+      l[i] = 0.f;
+    }
+  }
+};
+
+// Load `n` rows of a (.., D) tensor into a padded fp32 tile, scaled by
+// `scale`; row i starts at base + row_offset(i). Padding columns and rows
+// past n are zero.
+template <int DP, int ROWS, int STRIDE, typename T, typename RowOffset>
+__device__ __forceinline__ void load_rows(float* dst, const T* base, int n, int D, float scale,
+                                          RowOffset row_offset) {
+  for (int i = threadIdx.x; i < ROWS * DP; i += kThreads) {
+    const int r = i / DP, d = i - r * DP;
+    float x = 0.f;
+    if (r < n && d < D) x = to_float<T>(base[row_offset(r) + d]) * scale;
+    dst[r * STRIDE + d] = x;
+  }
+}
+
+// Fold keys [0, nk) of the current tile into the query rows
+// row0 + stride * i, i < nr <= kRowsPerWarp: the flash-attention
+// online-softmax update, executed by one warp.
+// A masked key gets exactly zero weight even when the whole tile is masked:
+// its score is -inf, while the running max never drops below NEG_INF.
+template <int DP>
+__device__ __forceinline__ void fold_rows(const Tiles<DP>& t, int row0, int stride, int nr,
+                                          int nk, int warp, int lane) {
+  constexpr int QS = Plan<DP>::QS, KS = Plan<DP>::KS;
+  constexpr int R = kRowsPerWarp;
+  int rows[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) rows[i] = row0 + stride * (i < nr ? i : 0);
+
+  // scores: lane owns keys lane + 32c for every row
+  float s[R][kKeysPerLane];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int c = 0; c < kKeysPerLane; ++c) s[i][c] = 0.f;
+#pragma unroll 4
+  for (int d4 = 0; d4 < DP / 4; ++d4) {
+    float4 kv[kKeysPerLane];
+#pragma unroll
+    for (int c = 0; c < kKeysPerLane; ++c)
+      kv[c] = reinterpret_cast<const float4*>(t.k + (lane + 32 * c) * KS)[d4];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const float4 qa = reinterpret_cast<const float4*>(t.q + rows[i] * QS)[d4];
+#pragma unroll
+      for (int c = 0; c < kKeysPerLane; ++c) {
+        s[i][c] = fmaf(qa.x, kv[c].x, s[i][c]);
+        s[i][c] = fmaf(qa.y, kv[c].y, s[i][c]);
+        s[i][c] = fmaf(qa.z, kv[c].z, s[i][c]);
+        s[i][c] = fmaf(qa.w, kv[c].w, s[i][c]);
+      }
+    }
+  }
+
+  float* p = t.p + warp * R * kPStride;
+  float corr[R], psum[R], m_new[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < kKeysPerLane; ++c) {
+      const int j = lane + 32 * c;
+      s[i][c] = (j < nk && t.bias[j] > kMaskThreshold) ? s[i][c] + t.bias[j] : -INFINITY;
+      tmax = fmaxf(tmax, s[i][c]);
+    }
+    const float m_old = t.m[rows[i]];
+    m_new[i] = fmaxf(m_old, warp_max(tmax));
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < kKeysPerLane; ++c) {
+      const float e = __expf(s[i][c] - m_new[i]);  // exp(-inf) == 0 for masked keys
+      p[i * kPStride + lane + 32 * c] = e;
+      sum += e;
+    }
+    psum[i] = warp_sum(sum);
+    corr[i] = __expf(m_old - m_new[i]);
+  }
+  __syncwarp();
+
+  // p.V: lane owns row lane / 8 and dimensions [(lane % 8) * ND, + ND)
+  constexpr int ND = DP / kLanesPerRow;
+  const int i = lane / kLanesPerRow;
+  const int d0 = (lane % kLanesPerRow) * ND;
+  if (i < nr) {
+    float c = corr[0];
+#pragma unroll
+    for (int r = 1; r < R; ++r) c = i == r ? corr[r] : c;
+    float* acc = t.acc + (row0 + stride * i) * DP + d0;
+    float a[ND];
+#pragma unroll
+    for (int e = 0; e < ND; ++e) a[e] = acc[e] * c;
+    const float* pi = p + i * kPStride;
+#pragma unroll 4
+    for (int j = 0; j < nk; ++j) {
+      const float pj = pi[j];
+      const float2* v2 = reinterpret_cast<const float2*>(t.v + j * DP + d0);
+#pragma unroll
+      for (int e = 0; e < ND / 2; ++e) {
+        const float2 vv = v2[e];
+        a[2 * e] = fmaf(pj, vv.x, a[2 * e]);
+        a[2 * e + 1] = fmaf(pj, vv.y, a[2 * e + 1]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < ND; ++e) acc[e] = a[e];
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r < nr) {
+        t.m[rows[r]] = m_new[r];
+        t.l[rows[r]] = t.l[rows[r]] * corr[r] + psum[r];
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// Smallest padded head dimension with a compiled kernel, or -1.
+inline int padded_head_dim(int D) {
+  if (D < 1) return -1;
+  if (D <= 16) return 16;
+  if (D <= 32) return 32;
+  if (D <= 48) return 48;
+  if (D <= 64) return 64;
+  if (D <= 128) return 128;
+  return -1;
+}
+
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace mt

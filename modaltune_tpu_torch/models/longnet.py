@@ -1,0 +1,146 @@
+"""LongNet dilated-attention encoder (the frozen GigaPath backbone's layers).
+
+Counterpart of ``modaltune_tpu/models/longnet.py``: pre-norm sub-LN
+encoder layers whose self-attention is
+:func:`..ops.dilated_mega.mega_dilated_attention` (the K1 kernel on CUDA)
+and whose FFN is fc1 -> exact fp32 GELU -> sub-LN -> fc2. Padded tokens
+are masked out of every attention and re-zeroed after every layer. The
+JAX package's span stacking, comb layouts and remat are TPU machinery and
+have no counterpart: the layers are a plain ``nn.ModuleList`` and
+:meth:`LongNetEncoder.run_layers` runs any ``[lo, hi)``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..configs import LongNetConfig
+from ..ops.activations import gelu_exact
+from ..ops.dilated_mega import mega_dilated_attention
+from .layers import Dense, DropPath
+
+
+class DilatedSelfAttention(nn.Module):
+    """q/k/v/out projections around multi-branch dilated attention, with
+    the sub-LN ``inner_attn_ln`` before the output projection."""
+
+    def __init__(self, cfg: LongNetConfig):
+        super().__init__()
+        d = cfg.embed_dim
+        self.cfg = cfg
+        self.q_proj = Dense(d, d)
+        self.k_proj = Dense(d, d)
+        self.v_proj = Dense(d, d)
+        self.out_proj = Dense(d, d)
+        self.inner_attn_ln = (nn.LayerNorm(d, eps=cfg.layernorm_eps)
+                              if cfg.subln else None)
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        c = self.cfg
+        b, length, d = x.shape
+
+        def split(t):
+            return t.view(b, length, c.num_heads, c.head_dim)
+
+        out = mega_dilated_attention(
+            split(self.q_proj(x)), split(self.k_proj(x)),
+            split(self.v_proj(x)), segment_lengths=c.segment_lengths,
+            dilated_ratios=c.dilated_ratios,
+            mask=mask if c.mask_padding else None)
+        out = out.reshape(b, length, d)
+        if self.inner_attn_ln is not None:
+            out = self.inner_attn_ln(out)
+        return self.out_proj(out)
+
+
+class FeedForwardNetwork(nn.Module):
+    """fc1 -> exact GELU (fp32) -> dropout -> [sub-LN] -> fc2 -> dropout."""
+
+    def __init__(self, cfg: LongNetConfig):
+        super().__init__()
+        self.fc1 = Dense(cfg.embed_dim, cfg.ffn_dim)
+        self.fc2 = Dense(cfg.ffn_dim, cfg.embed_dim)
+        self.ffn_layernorm = (nn.LayerNorm(cfg.ffn_dim, eps=cfg.layernorm_eps)
+                              if cfg.subln else None)
+        self.activation_dropout = nn.Dropout(cfg.activation_dropout)
+        self.dropout = nn.Dropout(cfg.dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.activation_dropout(gelu_exact(self.fc1(x)))
+        if self.ffn_layernorm is not None:
+            x = self.ffn_layernorm(x)
+        return self.dropout(self.fc2(x))
+
+
+class LongNetEncoderLayer(nn.Module):
+    """Pre-norm encoder layer; padded positions are re-zeroed at the end."""
+
+    def __init__(self, cfg: LongNetConfig, drop_path_rate: float = 0.0):
+        super().__init__()
+        d = cfg.embed_dim
+        self.cfg = cfg
+        self.self_attn_layer_norm = nn.LayerNorm(d, eps=cfg.layernorm_eps)
+        self.self_attn = DilatedSelfAttention(cfg)
+        self.dropout = nn.Dropout(cfg.dropout)
+        self.final_layer_norm = nn.LayerNorm(d, eps=cfg.layernorm_eps)
+        self.ffn = FeedForwardNetwork(cfg)
+        self.drop_path = DropPath(drop_path_rate)
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.self_attn(self.self_attn_layer_norm(x), mask)
+        x = x + self.drop_path(self.dropout(h))
+        x = x + self.drop_path(self.ffn(self.final_layer_norm(x)))
+        if mask is not None and self.cfg.mask_padding:
+            x = x * mask[..., None].to(x.dtype)
+        return x
+
+
+class LongNetEncoder(nn.Module):
+    """The encoder with the split API the Modal Adapter needs:
+    :meth:`prepare` (embedding dropout, zero padded positions),
+    :meth:`run_layers` over any ``[lo, hi)``, and :meth:`finalize` (the
+    encoder LayerNorm, used only when the backbone pools by itself)."""
+
+    def __init__(self, cfg: LongNetConfig, with_final_norm: bool = True):
+        super().__init__()
+        n = cfg.num_layers
+        rates = ([cfg.drop_path_rate * i / (n - 1) for i in range(n)]
+                 if cfg.drop_path_rate > 0 and n > 1 else [0.0] * n)
+        self.cfg = cfg
+        self.embed_dropout = nn.Dropout(cfg.dropout)
+        self.layers = nn.ModuleList(
+            LongNetEncoderLayer(cfg, rates[i]) for i in range(n))
+        self.layer_norm = (
+            nn.LayerNorm(cfg.embed_dim, eps=cfg.layernorm_eps)
+            if with_final_norm and cfg.normalize_output
+            and cfg.normalize_before else None)
+
+    def prepare(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.embed_dropout(x)
+        if mask is not None:
+            x = x * mask[..., None].to(x.dtype)
+        return x
+
+    def run_layers(self, x: torch.Tensor, lo: int, hi: int,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if not 0 <= lo <= hi <= len(self.layers):
+            raise ValueError(f"run_layers({lo}, {hi}) outside "
+                             f"[0, {len(self.layers)}]")
+        for layer in self.layers[lo:hi]:
+            x = layer(x, mask)
+        return x
+
+    def finalize(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.layer_norm is None else self.layer_norm(x)
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.prepare(x, mask)
+        x = self.run_layers(x, 0, len(self.layers), mask)
+        return self.finalize(x)

@@ -1,0 +1,158 @@
+"""LongNet dilated attention as plain PyTorch: the oracle of the kernel in
+``csrc/dilated_attention_fwd.cu``.
+
+Counterpart of ``modaltune_tpu/ops/dilated.py`` ("diagonal" layout). Per
+(segment length ``w``, dilation ratio ``r``) branch:
+
+1. the sequence is cut into ``sl = min(w, L)``-token segments, the last
+   one padded;
+2. inside a segment, head group ``g`` (heads ``g*hg .. (g+1)*hg - 1`` once
+   the heads are padded to a multiple of ``r``) attends the positions
+   ``≡ g (mod r)`` — the head-rotated gather of :func:`dense_to_sparse`;
+3. each branch runs :func:`flash_attention_reference` and returns
+   ``(out, lse)``, scattered back to dense layout by
+   :func:`sparse_to_dense` (off-pattern slots get lse ``NEG_INF``);
+4. the branches are mixed per token and head with fp32 ``softmax(lse)``
+   weights.
+
+Padded positions, both past ``L`` and past the segment length inside the
+sparse layout, are always masked out of the softmax. (The JAX oracle
+attends zero-valued padding slots when ``mask`` is None and ``sl % r != 0``;
+with a mask, and on every shape its mega kernel accepts, the two agree.)
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .flash_attention import NEG_INF, flash_attention_reference
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def dense_to_sparse(x: torch.Tensor, ratio: int) -> torch.Tensor:
+    """Head-rotated dilation gather.
+
+    x: ``(B, S, H, ...)`` segments. Returns ``(B, ceil(S/r), H, ...)``
+    where the entry for head ``g*hg + j`` at sparse position ``l`` is the
+    dense entry at position ``l*r + g`` (``hg = round_up(H, r) / r``).
+    Positions past ``S`` are zero.
+    """
+    if ratio == 1:
+        return x
+    b, s, h = x.shape[:3]
+    trailing = tuple(x.shape[3:])
+    sp, hp = _round_up(s, ratio), _round_up(h, ratio)
+    if sp != s or hp != h:
+        pad = [0, 0] * len(trailing) + [0, hp - h, 0, sp - s]
+        x = F.pad(x, pad)
+    hg = hp // ratio
+    # (B, S/r, r1, r2, hg, ...) with position = l*r + r1, head = r2*hg + j
+    x = x.reshape((b, sp // ratio, ratio, ratio, hg) + trailing)
+    x = torch.diagonal(x, dim1=2, dim2=3)        # (B, S/r, hg, ..., r)
+    x = torch.movedim(x, -1, 2)                  # (B, S/r, r, hg, ...)
+    x = x.reshape((b, sp // ratio, hp) + trailing)
+    return x[:, :, :h]
+
+
+def sparse_to_dense(out: torch.Tensor, lse: torch.Tensor, ratio: int,
+                    seg_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of :func:`dense_to_sparse` for a branch's ``(out, lse)``.
+
+    out: ``(B, S/r, H, D)``; lse: ``(B, S/r, H)``. Returns dense
+    ``out (B, seg_len, H, D)`` and ``lse (B, seg_len, H)``; (position,
+    head) slots outside the dilation pattern get 0 and ``NEG_INF``.
+    """
+    if ratio == 1:
+        return out[:, :seg_len], lse[:, :seg_len]
+    b, ls, h, d = out.shape
+    hp = _round_up(h, ratio)
+    if hp != h:
+        out = F.pad(out, (0, 0, 0, hp - h))
+        lse = F.pad(lse, (0, hp - h), value=NEG_INF)
+    hg = hp // ratio
+    # dense[:, l, r1, r2] holds sparse[:, l, r2] where r1 == r2: write the
+    # diagonal of a (B, S/r, r1, r2, hg, ...) block
+    dense_out = out.new_zeros(b, ls, ratio, ratio, hg, d)
+    dense_lse = lse.new_full((b, ls, ratio, ratio, hg), NEG_INF)
+    dense_out.diagonal(dim1=2, dim2=3).copy_(
+        out.reshape(b, ls, ratio, hg, d).movedim(2, -1))
+    dense_lse.diagonal(dim1=2, dim2=3).copy_(
+        lse.reshape(b, ls, ratio, hg).movedim(2, -1))
+    dense_out = dense_out.reshape(b, ls * ratio, hp, d)
+    dense_lse = dense_lse.reshape(b, ls * ratio, hp)
+    return dense_out[:, :seg_len, :h], dense_lse[:, :seg_len, :h]
+
+
+def _branch(q, k, v, mask, seg_len: int, ratio: int, scale: float):
+    """One (segment_length, dilation_ratio) branch.
+
+    q/k/v: ``(B, L, H, D)``; mask: ``(B, L)`` bool. Returns dense fp32
+    ``out (B, L, H, D)`` and ``lse (B, L, H)``.
+    """
+    b, length, h, d = q.shape
+    sl = min(seg_len, length)
+    lp = _round_up(length, sl)
+    n = lp // sl
+
+    def seg(x):
+        if lp != length:
+            pad = [0, 0] * (x.dim() - 2) + [0, lp - length]
+            x = F.pad(x, pad)
+        return x.reshape((b * n, sl) + tuple(x.shape[2:]))
+
+    qs = dense_to_sparse(seg(q), ratio)          # (B*n, S, H, D)
+    ks = dense_to_sparse(seg(k), ratio)
+    vs = dense_to_sparse(seg(v), ratio)
+    ms = dense_to_sparse(seg(mask[..., None].expand(b, length, h)), ratio)
+
+    bn, s = qs.shape[0], qs.shape[1]
+    # (B*n*H, S, D) layout for the attention
+    qk = qs.movedim(2, 1).reshape(bn * h, s, d)
+    kk = ks.movedim(2, 1).reshape(bn * h, s, d)
+    vk = vs.movedim(2, 1).reshape(bn * h, s, d)
+    bias = torch.where(ms.movedim(2, 1).reshape(bn * h, s), 0.0, NEG_INF)
+    out, lse = flash_attention_reference(qk, kk, vk, bias, scale)
+
+    out = out.reshape(bn, h, s, d).movedim(1, 2)  # (B*n, S, H, D)
+    lse = lse.reshape(bn, h, s).movedim(1, 2)     # (B*n, S, H)
+    out, lse = sparse_to_dense(out.float(), lse, ratio, sl)
+    out = out.reshape(b, lp, h, d)[:, :length]
+    lse = lse.reshape(b, lp, h)[:, :length]
+    return out, lse
+
+
+def dilated_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      segment_lengths: Sequence[int],
+                      dilated_ratios: Sequence[int],
+                      mask: Optional[torch.Tensor] = None,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """Multi-branch LongNet dilated attention, plain PyTorch.
+
+    q/k/v: ``(B, L, H, D)`` (after the projections); mask: ``(B, L)`` bool
+    token validity, None meaning all valid. Returns ``(B, L, H, D)`` in
+    q's dtype: the branches' outputs mixed per (token, head) with fp32
+    ``softmax(lse)`` weights.
+    """
+    if len(segment_lengths) != len(dilated_ratios):
+        raise ValueError("one dilation ratio per segment length")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if mask is None:
+        mask = torch.ones(q.shape[:2], dtype=torch.bool, device=q.device)
+    outs, lses = [], []
+    for sl, r in zip(segment_lengths, dilated_ratios):
+        o, l = _branch(q, k, v, mask.bool(), int(sl), int(r), float(scale))
+        outs.append(o)
+        lses.append(l)
+    if len(outs) == 1:
+        return outs[0].to(q.dtype)
+    lse = torch.stack(lses)                       # (n_br, B, L, H)
+    w = torch.softmax(lse, dim=0)
+    out = sum(o * wi[..., None] for o, wi in zip(outs, w))
+    return out.to(q.dtype)

@@ -1,0 +1,3 @@
+from .convert import params_from_jax
+
+__all__ = ["params_from_jax"]

@@ -1,0 +1,104 @@
+"""Carry the JAX package's ModalTune parameters into the port.
+
+``params_from_jax(tree, model)`` takes the parameter tree of
+``modaltune_tpu.models.ModalTuneModel`` (nested dicts of numpy arrays, as
+``jax.device_get(params)`` gives them) and returns a ``state_dict`` for
+the port's :class:`~modaltune_tpu_torch.models.ModalTuneModel`, so that
+the two compute the same function. The names line up by rule:
+
+* ``backbone/encoder/span_k/<leaf>`` holds the layers of span k stacked on
+  a leading axis; the spans tile the encoder in order, so span k's layer
+  j is ``backbone.encoder.layers.{offset_k + j}``;
+* ``interactions_i``, ``extra_extractor_j``, ``prompt_sa_i`` and
+  ``mix{i}_<part>`` become ``interactions.i``, ``extra_extractors.j``,
+  ``prompt_sa.{i-1}`` and ``mix.i.<part>``;
+* a Dense ``kernel`` (in, out) becomes ``weight`` (out, in), a LayerNorm
+  ``scale`` becomes ``weight``; the gene mixer's raw parameters
+  (``snn1_kernel``, ``mix0_token/w1``, ``compress_kernel``, ...) are
+  carried as they are.
+
+It raises on a JAX key that maps to no port parameter, on a port
+parameter that no JAX key sets, and on a shape that differs.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+from modaltune_tpu.utils.params_io import flatten_params
+
+_INDEXED = re.compile(r"(interactions|extra_extractor|prompt_sa)_(\d+)$")
+_MIXER = re.compile(r"mix(\d+)_(token_norm|token|chan_norm|chan)$")
+_SPAN = re.compile(r"span_(\d+)$")
+
+
+def _port_parts(parts):
+    out = []
+    for p in parts:
+        m = _INDEXED.match(p)
+        mm = _MIXER.match(p)
+        if m:
+            name, i = m.group(1), int(m.group(2))
+            out += {"interactions": ["interactions", str(i)],
+                    "extra_extractor": ["extra_extractors", str(i)],
+                    "prompt_sa": ["prompt_sa", str(i - 1)]}[name]
+        elif mm:
+            out += ["mix", mm.group(1), mm.group(2)]
+        else:
+            out.append(p)
+    return out
+
+
+def _leaf(parts, arr: np.ndarray):
+    """Rename a leaf the JAX way -> the torch way, transposing kernels."""
+    if parts[-1] == "kernel":
+        return parts[:-1] + ["weight"], arr.T
+    if parts[-1] == "scale":
+        return parts[:-1] + ["weight"], arr
+    return parts, arr
+
+
+def params_from_jax(tree: dict, model: nn.Module) -> Dict[str, torch.Tensor]:
+    """JAX ModalTune parameter tree -> the port model's ``state_dict``."""
+    flat = flatten_params(tree)
+    spans = {}
+    for key, arr in flat.items():
+        parts = key.split("/")
+        if parts[:2] == ["backbone", "encoder"] and _SPAN.match(parts[2]):
+            spans[int(_SPAN.match(parts[2]).group(1))] = arr.shape[0]
+    offsets, n = {}, 0
+    for k in sorted(spans):
+        offsets[k], n = n, n + spans[k]
+
+    out: Dict[str, np.ndarray] = {}
+    for key, arr in flat.items():
+        parts = key.split("/")
+        if parts[:2] == ["backbone", "encoder"] and _SPAN.match(parts[2]):
+            off = offsets[int(_SPAN.match(parts[2]).group(1))]
+            for j in range(arr.shape[0]):
+                name, val = _leaf(["backbone", "encoder", "layers",
+                                   str(off + j)] + _port_parts(parts[3:]),
+                                  arr[j])
+                out[".".join(name)] = val
+        else:
+            name, val = _leaf(_port_parts(parts), arr)
+            out[".".join(name)] = val
+
+    want = model.state_dict()
+    unused = sorted(set(out) - set(want))
+    unset = sorted(set(want) - set(out))
+    if unused or unset:
+        raise KeyError(f"JAX keys with no port parameter: {unused}; "
+                       f"port parameters no JAX key sets: {unset}")
+    sd = {}
+    for name, val in out.items():
+        if tuple(val.shape) != tuple(want[name].shape):
+            raise ValueError(f"{name}: JAX shape {tuple(val.shape)} != port "
+                             f"shape {tuple(want[name].shape)}")
+        sd[name] = torch.tensor(np.asarray(val, np.float32))
+    return sd
