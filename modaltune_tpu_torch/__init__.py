@@ -7,16 +7,25 @@ framework-free layers (its configs and numpy data loader, through
 ``configs`` and ``data`` here; ``params_io`` in ``utils.convert``) and
 never imports ``jax``.
 
-So far it runs the forward-only embed step of ModalTune-GigaPath
-(``longnetvit_gene_adapter`` and its clinical variant).
+So far it runs ModalTune-GigaPath (``longnetvit_gene_adapter`` and its
+clinical variant): the embed step, and the train step (KD loss, AdamW on
+the Modal Adapter, gradients through the frozen backbone), with the eval
+and grad steps beside it.
 """
 
-from .models import ModalTuneModel, create_aggregator, init_weights
-from .train import make_embed_step, multitask_logits, tile_tasks
-from .utils import params_from_jax
+from .models import (ModalTuneModel, create_aggregator, dropout_generator,
+                     init_weights)
+from .train import (TextProjector, freeze_backbone, kd_loss, make_embed_step,
+                    make_eval_step, make_grad_step, make_optimizer,
+                    make_train_step, multitask_logits, project_text,
+                    tile_tasks)
+from .utils import params_from_jax, projector_from_jax
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
-__all__ = ["ModalTuneModel", "create_aggregator", "init_weights",
-           "make_embed_step", "multitask_logits", "params_from_jax",
+__all__ = ["ModalTuneModel", "TextProjector", "create_aggregator",
+           "dropout_generator", "freeze_backbone", "init_weights", "kd_loss",
+           "make_embed_step", "make_eval_step", "make_grad_step",
+           "make_optimizer", "make_train_step", "multitask_logits",
+           "params_from_jax", "project_text", "projector_from_jax",
            "tile_tasks"]

@@ -1,6 +1,7 @@
-// Shared pieces of the two forward attention kernels (flash_attention_fwd.cu,
-// dilated_attention_fwd.cu): tile geometry, the shared-memory plan, dtype
-// conversion and the online-softmax update of a group of query rows.
+// Shared pieces of the attention kernels (flash_attention_{fwd,bwd}.cu,
+// dilated_attention_{fwd,bwd}.cu): tile geometry, the forward's shared-memory
+// plan, dtype conversion, the online-softmax update of a group of query rows,
+// and the LongNet branch geometry.
 //
 // A block owns kBlockQ query rows. Their softmax state lives in shared
 // memory (running max m, running sum l, fp32 accumulator acc[row][d]) so
@@ -214,6 +215,42 @@ __device__ __forceinline__ void fold_rows(const Tiles<DP>& t, int row0, int stri
     }
   }
   __syncwarp();
+}
+
+// LongNet branches (segment length w, dilation ratio r), passed by value.
+constexpr int kMaxBranches = 8;
+
+struct Branches {
+  int n;
+  int seg[kMaxBranches];
+  int ratio[kMaxBranches];
+};
+
+__device__ __forceinline__ int ceil_div_nonneg(int a, int b) { return a <= 0 ? 0 : (a + b - 1) / b; }
+
+// Head group of head h in a branch of ratio r: heads are padded to a
+// multiple of r and split into r groups of round_up(H, r) / r heads.
+__device__ __forceinline__ int head_group(int h, int H, int r) { return h / ((H + r - 1) / r); }
+
+// Branch geometry, shared by the forward and both backward kernels. With
+// sl = min(w, L), segment s covers positions [s*sl, min((s+1)*sl, L)); a
+// position at segment offset o takes part in head group g's attention iff
+// o % r == g, and it meets exactly the positions of its segment in the same
+// residue class. The relation is symmetric, so a block that owns the
+// positions [p0, p0 + n) finds its partners the same way whether it owns
+// queries or keys. For every segment with own positions taking part, calls
+//   f(row0, n_rows, first, n_partners):
+// the own rows are row0 + r*i (i < n_rows) relative to p0, and the
+// segment's partners are the positions first + r*j (j < n_partners).
+template <typename F>
+__device__ __forceinline__ void for_each_segment(int p0, int n, int L, int sl, int r, int g, F f) {
+  for (int seg = p0 / sl; seg <= (p0 + n - 1) / sl; ++seg) {
+    const int s0 = seg * sl, s1 = min(s0 + sl, L);
+    const int u_lo = ceil_div_nonneg(max(p0, s0) - s0 - g, r);
+    const int u_hi = ceil_div_nonneg(min(p0 + n, s1) - s0 - g, r);
+    if (u_hi <= u_lo) continue;
+    f(s0 + g + r * u_lo - p0, u_hi - u_lo, s0 + g, ceil_div_nonneg(s1 - s0 - g, r));
+  }
 }
 
 // Smallest padded head dimension with a compiled kernel, or -1.

@@ -1,0 +1,283 @@
+// LongNet multi-branch dilated attention backward (K1b).
+//
+// Replaces: modaltune_tpu/ops/dilated_mega.py::_mega_bwd_call (the Pallas TPU
+// kernel that recomputes every branch's probabilities from the saved
+// per-branch lse and demixes the output gradient with stop-gradient weights).
+//
+// Semantics (the plain oracle is autograd through ops/dilated.py). The
+// forward (dilated_attention_fwd.cu, training variant) saved stats
+// (B*H, n_br + 2, L) = [lse_0 .. lse_{n-1}, m, Z] and every branch's output
+// o_b (n_br, B, L, H, D). With dmix the gradient of the mixed output and the
+// mix weights taken as constants, for each branch b:
+//   w_b     = exp(lse_b - m) / Z on rows with a valid lse_b, else 0
+//   dO_b    = dmix * w_b
+//   delta_b = rowsum(dO_b * o_b)
+//   P_b     = exp(s - lse_b)  (0 for a masked key; a row without a valid key
+//                              uses +|NEG_INF/2| in lse's place)
+//   dS_b    = P_b * (dO_b v^T - delta_b)
+// and dq, dk, dv sum dS_b k * scale, dS_b^T q * scale and P_b^T dO_b over
+// the branches, each over the branch's (segment, residue class) pairs.
+//
+// Three launches: a prep kernel writes w_b and delta_b (B*H, n_br, L) fp32 (a
+// warp per (token, head), lanes over D); the dq kernel's block owns 64 query
+// positions of one (batch, head) and streams, for every branch and segment,
+// the residue-class keys, exactly as the forward does; the dk/dv kernel's
+// block owns 64 key positions and streams their queries, found with the same
+// segment and phase arithmetic (for_each_segment): the relation "shares a
+// segment and a residue class mod r" is symmetric. No atomics.
+//
+// What bounds it on the H100: five products per query-key pair (q.k and
+// dmix.v in both kernels, dS k in one, P dmix and dS q in the other) against
+// the forward's two, all on CUDA cores in fp32, so like the forward it is
+// bound by fp32 issue and shared-memory bandwidth (attention_bwd_common.cuh).
+// Reading o_b instead of recomputing it saves the two products a recompute
+// would cost. Tensor cores are left for later work.
+#include "attention_bwd_common.cuh"
+
+namespace mt {
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dilated_bwd_prep_kernel(const T* __restrict__ dmix, const float* __restrict__ stats,
+                        const T* __restrict__ branch_out, float* __restrict__ w,
+                        float* __restrict__ delta, int B, int L, int H, int D, int nbr) {
+  const size_t gw = (static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (gw >= static_cast<size_t>(B) * L * H) return;
+  const int h = static_cast<int>(gw % H);
+  const int l = static_cast<int>((gw / H) % L);
+  const int b = static_cast<int>(gw / (static_cast<size_t>(H) * L));
+  const size_t bh = static_cast<size_t>(b) * H + h;
+  const float* st = stats + bh * (nbr + 2) * L + l;
+  const float m = st[static_cast<size_t>(nbr) * L];
+  const float z = st[static_cast<size_t>(nbr + 1) * L];
+  const float zs = z > 0.f ? z : 1.f;
+  const size_t off = gw * D;  // (b, l, h) row of a (B, L, H, D) tensor
+  const size_t plane = static_cast<size_t>(B) * L * H * D;
+  for (int bi = 0; bi < nbr; ++bi) {
+    const float lse = st[static_cast<size_t>(bi) * L];
+    const float wb = lse > kMaskThreshold ? expf(lse - m) / zs : 0.f;
+    float dot = 0.f;
+    for (int d = lane; d < D; d += 32)
+      dot += to_float<T>(dmix[off + d]) * to_float<T>(branch_out[bi * plane + off + d]);
+    dot = warp_sum(dot);
+    if (lane == 0) {
+      w[(bh * nbr + bi) * L + l] = wb;
+      delta[(bh * nbr + bi) * L + l] = wb * dot;
+    }
+  }
+}
+
+// Per-branch row statistics of query positions pos(i), i < n, into the
+// tile's lse/w/delta arrays (rows past n get values that zero P).
+template <int DP, bool DUAL, typename Pos>
+__device__ __forceinline__ void load_row_stats(const BwdTiles<DP, DUAL>& t, const float* stats,
+                                               const float* w, const float* delta, size_t bh,
+                                               int nbr, int bi, int L, int n, Pos pos) {
+  const float* st = stats + (bh * (nbr + 2) + bi) * L;
+  const float* wb = w + (bh * nbr + bi) * L;
+  const float* db = delta + (bh * nbr + bi) * L;
+  for (int i = threadIdx.x; i < kBlockQ; i += kThreads) {
+    const bool in = i < n;
+    const int p = in ? pos(i) : 0;
+    t.lse[i] = in ? lse_for_bwd(st[p]) : -kMaskThreshold;
+    t.w[i] = in ? wb[p] : 0.f;
+    t.delta[i] = in ? db[p] : 0.f;
+  }
+}
+
+template <int DP, typename T>
+__global__ void __launch_bounds__(kThreads)
+dilated_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const unsigned char* __restrict__ mask, const T* __restrict__ dmix,
+                      const float* __restrict__ stats, const float* __restrict__ w,
+                      const float* __restrict__ delta, T* __restrict__ dq, int L, int H, int D,
+                      float scale, Branches br) {
+  extern __shared__ float4 smem4[];
+  BwdTiles<DP, false> t(reinterpret_cast<float*>(smem4));
+  constexpr int S = BwdPlan<DP, false>::S;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int p0 = blockIdx.x * kBlockQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = static_cast<size_t>(b) * H + h;
+  const int nq = min(kBlockQ, L - p0);
+  const size_t tok = static_cast<size_t>(H) * D;
+  const size_t head0 = static_cast<size_t>(b) * L * tok + static_cast<size_t>(h) * D;
+  const unsigned char* maskb = mask == nullptr ? nullptr : mask + static_cast<size_t>(b) * L;
+  const auto own = [p0, tok](int i) { return (p0 + i) * tok; };
+
+  load_rows<DP, kBlockQ, S>(t.a1, q + head0, nq, D, scale, own);
+  load_rows<DP, kBlockQ, S>(t.a2, dmix + head0, nq, D, 1.f, own);
+  t.zero_acc();
+
+  for (int bi = 0; bi < br.n; ++bi) {
+    const int sl = min(br.seg[bi], L);
+    const int r = br.ratio[bi];
+    __syncthreads();  // the previous branch's folds are done with lse/w/delta
+    load_row_stats(t, stats, w, delta, bh, br.n, bi, L, nq, [p0](int i) { return p0 + i; });
+    for_each_segment(p0, nq, L, sl, r, head_group(h, H, r),
+                     [&](int row0, int n_rows, int first, int n_keys) {
+      for (int t0 = 0; t0 < n_keys; t0 += kBlockK) {
+        const int nk = min(kBlockK, n_keys - t0);
+        const int pos0 = first + r * t0;  // position of key j is pos0 + r*j
+        __syncthreads();  // the previous tile is consumed
+        const auto row = [pos0, r, tok](int j) {
+          return static_cast<size_t>(pos0 + r * j) * tok;
+        };
+        load_rows<DP, kBlockK, S>(t.b1, k + head0, nk, D, 1.f, row);
+        load_rows<DP, kBlockK, S>(t.b2, v + head0, nk, D, 1.f, row);
+        for (int j = threadIdx.x; j < kBlockK; j += kThreads)
+          t.bias[j] = (j < nk && (maskb == nullptr || maskb[pos0 + r * j])) ? 0.f : kNegInf;
+        __syncthreads();
+        for (int i = warp * kRowsPerWarp; i < n_rows; i += kWarps * kRowsPerWarp)
+          bwd_fold<DP, false>(t, row0 + r * i, r, min(kRowsPerWarp, n_rows - i), nk, warp, lane);
+      }
+    });
+  }
+  __syncthreads();
+  store_rows<DP>(dq + head0, t.acc1, nq, D, scale, own);
+}
+
+template <int DP, typename T>
+__global__ void __launch_bounds__(kThreads)
+dilated_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                       const unsigned char* __restrict__ mask, const T* __restrict__ dmix,
+                       const float* __restrict__ stats, const float* __restrict__ w,
+                       const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                       int L, int H, int D, float scale, Branches br) {
+  extern __shared__ float4 smem4[];
+  BwdTiles<DP, true> t(reinterpret_cast<float*>(smem4));
+  constexpr int S = BwdPlan<DP, true>::S;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int p0 = blockIdx.x * kBlockK;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = static_cast<size_t>(b) * H + h;
+  const int nk = min(kBlockK, L - p0);
+  const size_t tok = static_cast<size_t>(H) * D;
+  const size_t head0 = static_cast<size_t>(b) * L * tok + static_cast<size_t>(h) * D;
+  const unsigned char* maskb = mask == nullptr ? nullptr : mask + static_cast<size_t>(b) * L;
+  const auto own = [p0, tok](int i) { return (p0 + i) * tok; };
+
+  load_rows<DP, kBlockK, S>(t.a1, k + head0, nk, D, 1.f, own);
+  load_rows<DP, kBlockK, S>(t.a2, v + head0, nk, D, 1.f, own);
+  // a masked key gets no probability in any branch, so zero gradients
+  for (int j = threadIdx.x; j < kBlockK; j += kThreads)
+    t.bias[j] = (j < nk && (maskb == nullptr || maskb[p0 + j])) ? 0.f : kNegInf;
+  t.zero_acc();
+
+  for (int bi = 0; bi < br.n; ++bi) {
+    const int sl = min(br.seg[bi], L);
+    const int r = br.ratio[bi];
+    for_each_segment(p0, nk, L, sl, r, head_group(h, H, r),
+                     [&](int row0, int n_rows, int first, int n_queries) {
+      for (int t0 = 0; t0 < n_queries; t0 += kBlockQ) {
+        const int nq = min(kBlockQ, n_queries - t0);
+        const int pos0 = first + r * t0;  // position of query i is pos0 + r*i
+        __syncthreads();  // the previous tile is consumed
+        const auto row = [pos0, r, tok](int i) {
+          return static_cast<size_t>(pos0 + r * i) * tok;
+        };
+        load_rows<DP, kBlockQ, S>(t.b1, q + head0, nq, D, scale, row);
+        load_rows<DP, kBlockQ, S>(t.b2, dmix + head0, nq, D, 1.f, row);
+        load_row_stats(t, stats, w, delta, bh, br.n, bi, L, nq,
+                       [pos0, r](int i) { return pos0 + r * i; });
+        __syncthreads();
+        for (int j = warp * kRowsPerWarp; j < n_rows; j += kWarps * kRowsPerWarp)
+          bwd_fold<DP, true>(t, row0 + r * j, r, min(kRowsPerWarp, n_rows - j), nq, warp, lane);
+      }
+    });
+  }
+  __syncthreads();
+  store_rows<DP>(dv + head0, t.acc1, nk, D, 1.f, own);
+  store_rows<DP>(dk + head0, t.acc2, nk, D, 1.f, own);
+}
+
+template <int DP, typename T>
+cudaError_t launch_dilated_bwd(const void* q, const void* k, const void* v,
+                               const unsigned char* mask, const void* dmix, const float* stats,
+                               const void* branch_out, float* w, float* delta, void* dq, void* dk,
+                               void* dv, int B, int L, int H, int D, float scale,
+                               const Branches& br, cudaStream_t stream) {
+  auto kq = dilated_bwd_dq_kernel<DP, T>;
+  auto kkv = dilated_bwd_dkv_kernel<DP, T>;
+  cudaError_t err = allow_smem(kq, BwdPlan<DP, false>::bytes);
+  if (err == cudaSuccess) err = allow_smem(kkv, BwdPlan<DP, true>::bytes);
+  if (err != cudaSuccess) return err;
+  const auto tq = static_cast<const T*>(q);
+  const auto tk = static_cast<const T*>(k);
+  const auto tv = static_cast<const T*>(v);
+  const auto tdm = static_cast<const T*>(dmix);
+  const size_t warps = static_cast<size_t>(B) * L * H;
+  const unsigned prep_blocks = static_cast<unsigned>((warps + kWarps - 1) / kWarps);
+  dilated_bwd_prep_kernel<T><<<prep_blocks, kThreads, 0, stream>>>(
+      tdm, stats, static_cast<const T*>(branch_out), w, delta, B, L, H, D, br.n);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + kBlockQ - 1) / kBlockQ, H, B);
+  kq<<<grid, kThreads, BwdPlan<DP, false>::bytes, stream>>>(
+      tq, tk, tv, mask, tdm, stats, w, delta, static_cast<T*>(dq), L, H, D, scale, br);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  kkv<<<grid, kThreads, BwdPlan<DP, true>::bytes, stream>>>(
+      tq, tk, tv, mask, tdm, stats, w, delta, static_cast<T*>(dk), static_cast<T*>(dv), L, H, D,
+      scale, br);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_dilated_bwd(int DP, const void* q, const void* k, const void* v,
+                                 const unsigned char* m, const void* dmix, const float* stats,
+                                 const void* bo, float* w, float* delta, void* dq, void* dk,
+                                 void* dv, int B, int L, int H, int D, float scale,
+                                 const Branches& br, cudaStream_t s) {
+  switch (DP) {
+#define MT_CASE(N)                                                                           \
+  case N:                                                                                    \
+    return launch_dilated_bwd<N, T>(q, k, v, m, dmix, stats, bo, w, delta, dq, dk, dv, B, L, \
+                                    H, D, scale, br, s);
+    MT_CASE(16)
+    MT_CASE(32)
+    MT_CASE(48)
+    MT_CASE(64)
+    MT_CASE(128)
+#undef MT_CASE
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace mt
+
+// q/k/v/dmix/dq/dk/dv (B, L, H, D) contiguous in one dtype (0 = float32,
+// 1 = bfloat16); mask (B, L) bytes (1 = valid) or null; stats and branch_out
+// as the forward wrote them; w and delta (B*H, n_branches, L) fp32 scratch.
+// Returns a cudaError_t; 0 means all three kernels were launched.
+extern "C" int mt_dilated_attention_bwd(const void* q, const void* k, const void* v,
+                                        const void* mask, const void* dmix, const void* stats,
+                                        const void* branch_out, void* w, void* delta, void* dq,
+                                        void* dk, void* dv, int B, int L, int H, int D,
+                                        const int* segments, const int* ratios, int n_branches,
+                                        float scale, int dtype, void* stream) {
+  const int DP = mt::padded_head_dim(D);
+  if (DP < 0 || B < 1 || B > 65535 || L < 1 || H < 1 || H > 65535 || n_branches < 1 ||
+      n_branches > mt::kMaxBranches)
+    return cudaErrorInvalidValue;
+  mt::Branches br{};
+  br.n = n_branches;
+  for (int i = 0; i < n_branches; ++i) {
+    if (segments[i] < 1 || ratios[i] < 1) return cudaErrorInvalidValue;
+    br.seg[i] = segments[i];
+    br.ratio[i] = ratios[i];
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto m = static_cast<const unsigned char*>(mask);
+  const auto st = static_cast<const float*>(stats);
+  const auto wf = static_cast<float*>(w);
+  const auto df = static_cast<float*>(delta);
+  if (dtype == 0)
+    return mt::dispatch_dilated_bwd<float>(DP, q, k, v, m, dmix, st, branch_out, wf, df, dq, dk,
+                                           dv, B, L, H, D, scale, br, s);
+  if (dtype == 1)
+    return mt::dispatch_dilated_bwd<__nv_bfloat16>(DP, q, k, v, m, dmix, st, branch_out, wf, df,
+                                                   dq, dk, dv, B, L, H, D, scale, br, s);
+  return cudaErrorInvalidValue;
+}

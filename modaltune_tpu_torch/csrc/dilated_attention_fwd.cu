@@ -2,7 +2,7 @@
 //
 // Replaces: modaltune_tpu/ops/dilated_mega.py::_mega_fwd_call (the Pallas TPU
 // "mega" kernel: every (segment, ratio) branch plus the softmax(lse) branch
-// mix in one kernel).
+// mix in one kernel, and the stats plane its backward reads).
 //
 // Semantics (the plain oracle is ops/dilated.py). For q/k/v (B, L, H, D) and
 // each branch (w, r): sl = min(w, L); segment n covers positions
@@ -13,7 +13,7 @@
 // excluded (never attended as zeros). The branches are mixed per (token,
 // head) with weights softmax_b(lse_b).
 //
-// Mix: this kernel uses the identity
+// Mix, inference (no stats): this kernel uses the identity
 //   sum_b softmax_b(lse_b) out_b = sum_b sum_{j in b} e^{s_j} v_j / sum_b sum_{j in b} e^{s_j},
 // i.e. the forward mix equals ONE softmax over the concatenation of every
 // branch's key set (a key present in two branches counts twice). So a query
@@ -22,11 +22,19 @@
 // A branch in which the row does not take part contributes nothing, exactly
 // as its NEG_INF lse gives it weight 0 in the oracle's mix.
 //
+// Mix, training (stats): the backward needs each branch's lse and output.
+// The online softmax then runs on branch-local (m_b, l_b, acc_b); when a
+// branch ends, the block writes lse_b (NEG_INF for a row outside the branch
+// or without a valid key) and o_b = acc_b / l_b, and folds o_b into a running
+// mix with the JAX kernel's algebra (m = max_b lse_b, Z = sum_b e^{lse_b - m},
+// acc = sum_b e^{lse_b - m} o_b). It writes stats (B*H, n_br + 2, L) =
+// [lse_0 .. lse_{n-1}, m, Z] and branch_out (n_br, B, L, H, D).
+//
 // What bounds it on the H100: GigaPath's schedule at L = 10,240 is about
 // 6 GFLOP per (batch, head) per layer, 300 GFLOP per layer at B*T = 3. This
 // version runs the inner products on CUDA cores in fp32, so it is bound by
 // fp32 issue and shared-memory bandwidth, not by device memory (q/k/v of a
-// layer are 47 MB in bf16).
+// layer are 47 MB in bf16; branch_out adds 236 MB of writes in training).
 //
 // What the design does about it: a block owns 64 consecutive query positions
 // of one (batch, head). For each branch and each segment the tile touches
@@ -40,26 +48,43 @@
 
 namespace mt {
 
-constexpr int kMaxBranches = 8;
-
-struct Branches {
-  int n;
-  int seg[kMaxBranches];
-  int ratio[kMaxBranches];
+// Extra shared memory of the training variant, after Plan<DP>: the
+// branch-local accumulator, its (m_b, l_b), and three per-row coefficients
+// of the branch-end mix.
+template <int DP>
+struct StatsPlan {
+  static constexpr int acc_off = Plan<DP>::floats;
+  static constexpr int m_off = acc_off + kBlockQ * DP;
+  static constexpr int l_off = m_off + kBlockQ;
+  static constexpr int coef_off = l_off + kBlockQ;
+  static constexpr int floats = coef_off + 3 * kBlockQ;
+  static constexpr size_t bytes = sizeof(float) * floats;
 };
 
-__device__ __forceinline__ int ceil_div_nonneg(int a, int b) { return a <= 0 ? 0 : (a + b - 1) / b; }
-
-template <int DP, typename T>
+template <int DP, typename T, bool STATS>
 __global__ void __launch_bounds__(kThreads)
 dilated_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                   const unsigned char* __restrict__ mask, T* __restrict__ out, int L, int H,
+                   const unsigned char* __restrict__ mask, T* __restrict__ out,
+                   float* __restrict__ stats, T* __restrict__ branch_out, int B, int L, int H,
                    int D, float scale, Branches br) {
   extern __shared__ float4 smem4[];
-  Tiles<DP> t(reinterpret_cast<float*>(smem4));
+  float* smem = reinterpret_cast<float*>(smem4);
+  // t: the union state (inference) or the running branch mix (training:
+  // m = max lse_b so far, l = Z, acc = sum_b e^{lse_b - m} o_b).
+  Tiles<DP> t(smem);
+  // tb: the state the online softmax updates; branch-local in training.
+  Tiles<DP> tb = t;
+  float* coef = nullptr;
+  if constexpr (STATS) {
+    tb.acc = smem + StatsPlan<DP>::acc_off;
+    tb.m = smem + StatsPlan<DP>::m_off;
+    tb.l = smem + StatsPlan<DP>::l_off;
+    coef = smem + StatsPlan<DP>::coef_off;
+  }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int p0 = blockIdx.x * kBlockQ;
   const int h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h;
   const int nq = min(kBlockQ, L - p0);
   const size_t tok = static_cast<size_t>(H) * D;  // stride between positions
   const size_t head0 = static_cast<size_t>(b) * L * tok + static_cast<size_t>(h) * D;
@@ -68,35 +93,56 @@ dilated_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   load_rows<DP, kBlockQ, Plan<DP>::QS>(t.q, q + head0, nq, D, scale,
                                        [p0, tok](int r) { return (p0 + r) * tok; });
   t.init_state();
+  if constexpr (STATS) tb.init_state();
 
   for (int bi = 0; bi < br.n; ++bi) {
     const int sl = min(br.seg[bi], L);
     const int r = br.ratio[bi];
-    const int hg = (H + r - 1) / r;  // heads per group: round_up(H, r) / r
-    const int g = h / hg;
-    for (int n = p0 / sl; n <= (p0 + nq - 1) / sl; ++n) {
-      const int s0 = n * sl, s1 = min(s0 + sl, L);
-      // participating rows: positions s0 + g + r*u in [max(p0, s0), min(p0 + nq, s1))
-      const int u_lo = ceil_div_nonneg(max(p0, s0) - s0 - g, r);
-      const int u_hi = ceil_div_nonneg(min(p0 + nq, s1) - s0 - g, r);
-      const int n_rows = u_hi - u_lo;
-      if (n_rows <= 0) continue;
-      const int row0 = s0 + g + r * u_lo - p0;
-      const int n_keys = ceil_div_nonneg(s1 - s0 - g, r);
+    for_each_segment(p0, nq, L, sl, r, head_group(h, H, r),
+                     [&](int row0, int n_rows, int first, int n_keys) {
       for (int t0 = 0; t0 < n_keys; t0 += kBlockK) {
         const int nk = min(kBlockK, n_keys - t0);
-        const int first = s0 + g + r * t0;  // position of key j is first + r*j
+        const int pos0 = first + r * t0;  // position of key j is pos0 + r*j
         __syncthreads();  // the previous tile is consumed
-        const auto row = [first, r, tok](int j) {
-          return static_cast<size_t>(first + r * j) * tok;
+        const auto row = [pos0, r, tok](int j) {
+          return static_cast<size_t>(pos0 + r * j) * tok;
         };
         load_rows<DP, kBlockK, Plan<DP>::KS>(t.k, k + head0, nk, D, 1.f, row);
         load_rows<DP, kBlockK, DP>(t.v, v + head0, nk, D, 1.f, row);
         for (int j = threadIdx.x; j < kBlockK; j += kThreads)
-          t.bias[j] = (j < nk && (maskb == nullptr || maskb[first + r * j])) ? 0.f : kNegInf;
+          t.bias[j] = (j < nk && (maskb == nullptr || maskb[pos0 + r * j])) ? 0.f : kNegInf;
         __syncthreads();
         for (int i = warp * kRowsPerWarp; i < n_rows; i += kWarps * kRowsPerWarp)
-          fold_rows<DP>(t, row0 + r * i, r, min(kRowsPerWarp, n_rows - i), nk, warp, lane);
+          fold_rows<DP>(tb, row0 + r * i, r, min(kRowsPerWarp, n_rows - i), nk, warp, lane);
+      }
+    });
+    if constexpr (STATS) {
+      __syncthreads();  // every fold of the branch is done
+      float* st = stats + (static_cast<size_t>(bh) * (br.n + 2) + bi) * L + p0;
+      for (int i = threadIdx.x; i < kBlockQ; i += kThreads) {
+        const float lb = tb.l[i];
+        const float lse = lb > 0.f ? tb.m[i] + logf(lb) : kNegInf;
+        const float m_new = fmaxf(t.m[i], lse);
+        const float m_safe = fmaxf(m_new, kMaskThreshold);
+        const float corr = expf(t.m[i] - m_safe);
+        coef[i] = corr;
+        // e^{lse - m_safe} o_b = e^{m_b - m_safe} acc_b
+        coef[kBlockQ + i] = lb > 0.f ? expf(tb.m[i] - m_safe) : 0.f;
+        coef[2 * kBlockQ + i] = lb > 0.f ? 1.f / lb : 0.f;
+        t.l[i] = t.l[i] * corr + expf(lse - m_safe);
+        t.m[i] = m_new;
+        tb.m[i] = kNegInf;
+        tb.l[i] = 0.f;
+        if (i < nq) st[i] = lse;
+      }
+      __syncthreads();
+      T* ob = branch_out + static_cast<size_t>(bi) * B * L * tok + head0;
+      for (int e = threadIdx.x; e < kBlockQ * DP; e += kThreads) {
+        const int i = e / DP, d = e - i * DP;
+        const float a = tb.acc[e];
+        t.acc[e] = t.acc[e] * coef[i] + coef[kBlockQ + i] * a;
+        tb.acc[e] = 0.f;
+        if (i < nq && d < D) ob[(p0 + i) * tok + d] = from_float<T>(a * coef[2 * kBlockQ + i]);
       }
     }
   }
@@ -107,49 +153,69 @@ dilated_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     const float inv = l > 0.f ? 1.f / l : 0.f;
     T* o = out + head0 + (p0 + i) * tok;
     for (int d = lane; d < D; d += 32) o[d] = from_float<T>(t.acc[i * DP + d] * inv);
+    if constexpr (STATS) {
+      if (lane == 0) {
+        float* st = stats + static_cast<size_t>(bh) * (br.n + 2) * L + p0 + i;
+        st[static_cast<size_t>(br.n) * L] = t.m[i];
+        st[static_cast<size_t>(br.n + 1) * L] = l;
+      }
+    }
   }
 }
 
-template <int DP, typename T>
+template <int DP, typename T, bool STATS>
 cudaError_t launch_dilated(const void* q, const void* k, const void* v, const unsigned char* mask,
-                           void* out, int B, int L, int H, int D, float scale, const Branches& br,
-                           cudaStream_t stream) {
-  auto kernel = dilated_fwd_kernel<DP, T>;
-  cudaError_t err = allow_smem(kernel, Plan<DP>::bytes);
+                           void* out, float* stats, void* branch_out, int B, int L, int H, int D,
+                           float scale, const Branches& br, cudaStream_t stream) {
+  auto kernel = dilated_fwd_kernel<DP, T, STATS>;
+  const size_t bytes = STATS ? StatsPlan<DP>::bytes : Plan<DP>::bytes;
+  cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((L + kBlockQ - 1) / kBlockQ, H, B);
-  kernel<<<grid, kThreads, Plan<DP>::bytes, stream>>>(
+  kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
-      static_cast<T*>(out), L, H, D, scale, br);
+      static_cast<T*>(out), stats, static_cast<T*>(branch_out), B, L, H, D, scale, br);
   return cudaGetLastError();
+}
+
+template <typename T, bool STATS>
+cudaError_t dispatch_dilated(int DP, const void* q, const void* k, const void* v,
+                             const unsigned char* m, void* out, float* st, void* bo, int B, int L,
+                             int H, int D, float scale, const Branches& br, cudaStream_t s) {
+  switch (DP) {
+    case 16: return launch_dilated<16, T, STATS>(q, k, v, m, out, st, bo, B, L, H, D, scale, br, s);
+    case 32: return launch_dilated<32, T, STATS>(q, k, v, m, out, st, bo, B, L, H, D, scale, br, s);
+    case 48: return launch_dilated<48, T, STATS>(q, k, v, m, out, st, bo, B, L, H, D, scale, br, s);
+    case 64: return launch_dilated<64, T, STATS>(q, k, v, m, out, st, bo, B, L, H, D, scale, br, s);
+    case 128: return launch_dilated<128, T, STATS>(q, k, v, m, out, st, bo, B, L, H, D, scale, br, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
 cudaError_t dispatch_dilated(int DP, const void* q, const void* k, const void* v,
-                             const unsigned char* m, void* out, int B, int L, int H, int D,
-                             float scale, const Branches& br, cudaStream_t s) {
-  switch (DP) {
-    case 16: return launch_dilated<16, T>(q, k, v, m, out, B, L, H, D, scale, br, s);
-    case 32: return launch_dilated<32, T>(q, k, v, m, out, B, L, H, D, scale, br, s);
-    case 48: return launch_dilated<48, T>(q, k, v, m, out, B, L, H, D, scale, br, s);
-    case 64: return launch_dilated<64, T>(q, k, v, m, out, B, L, H, D, scale, br, s);
-    case 128: return launch_dilated<128, T>(q, k, v, m, out, B, L, H, D, scale, br, s);
-    default: return cudaErrorInvalidValue;
-  }
+                             const unsigned char* m, void* out, float* st, void* bo, int B, int L,
+                             int H, int D, float scale, const Branches& br, cudaStream_t s) {
+  if (st == nullptr)
+    return dispatch_dilated<T, false>(DP, q, k, v, m, out, st, bo, B, L, H, D, scale, br, s);
+  return dispatch_dilated<T, true>(DP, q, k, v, m, out, st, bo, B, L, H, D, scale, br, s);
 }
 
 }  // namespace mt
 
 // q/k/v/out (B, L, H, D) contiguous; mask (B, L) bytes (1 = valid) or null.
+// stats (B*H, n_branches + 2, L) fp32 and branch_out (n_branches, B, L, H, D)
+// in the input dtype, both null (inference) or both given (training).
 // segments/ratios: n_branches host ints. dtype: 0 = float32, 1 = bfloat16.
 // Returns a cudaError_t; 0 means the kernel was launched.
 extern "C" int mt_dilated_attention_fwd(const void* q, const void* k, const void* v,
-                                        const void* mask, void* out, int B, int L, int H, int D,
-                                        const int* segments, const int* ratios, int n_branches,
-                                        float scale, int dtype, void* stream) {
+                                        const void* mask, void* out, void* stats, void* branch_out,
+                                        int B, int L, int H, int D, const int* segments,
+                                        const int* ratios, int n_branches, float scale, int dtype,
+                                        void* stream) {
   const int DP = mt::padded_head_dim(D);
   if (DP < 0 || B < 1 || B > 65535 || L < 1 || H < 1 || H > 65535 || n_branches < 1 ||
-      n_branches > mt::kMaxBranches)
+      n_branches > mt::kMaxBranches || (stats == nullptr) != (branch_out == nullptr))
     return cudaErrorInvalidValue;
   mt::Branches br{};
   br.n = n_branches;
@@ -160,8 +226,12 @@ extern "C" int mt_dilated_attention_fwd(const void* q, const void* k, const void
   }
   const auto s = static_cast<cudaStream_t>(stream);
   const auto m = static_cast<const unsigned char*>(mask);
-  if (dtype == 0) return mt::dispatch_dilated<float>(DP, q, k, v, m, out, B, L, H, D, scale, br, s);
+  const auto st = static_cast<float*>(stats);
+  if (dtype == 0)
+    return mt::dispatch_dilated<float>(DP, q, k, v, m, out, st, branch_out, B, L, H, D, scale, br,
+                                       s);
   if (dtype == 1)
-    return mt::dispatch_dilated<__nv_bfloat16>(DP, q, k, v, m, out, B, L, H, D, scale, br, s);
+    return mt::dispatch_dilated<__nv_bfloat16>(DP, q, k, v, m, out, st, branch_out, B, L, H, D,
+                                               scale, br, s);
   return cudaErrorInvalidValue;
 }

@@ -1,8 +1,8 @@
 from .adapter import Extractor, InteractionBlock, Injector
 from .gene import ChannelFeedForward, GeneMixerEncoder, TokenFeedForward
 from .layers import (AlphaDropout, CrossAttentionLayer, Dense, DropPath,
-                     FFNLayer, SelfAttentionLayer, TorchMHA, init_weights,
-                     mask_to_bias)
+                     Dropout, FFNLayer, SelfAttentionLayer, TorchMHA,
+                     dropout_generator, init_weights, mask_to_bias)
 from .longnet import (DilatedSelfAttention, FeedForwardNetwork,
                       LongNetEncoder, LongNetEncoderLayer)
 from .modaltune import ModalTuneModel
@@ -11,10 +11,12 @@ from .slide_encoder import LongNetViT, PatchEmbed, coords_pos_embed, sincos_1d
 
 __all__ = [
     "AGGREGATORS", "AlphaDropout", "ChannelFeedForward", "CrossAttentionLayer",
-    "Dense", "DilatedSelfAttention", "DropPath", "Extractor", "FFNLayer",
+    "Dense", "DilatedSelfAttention", "DropPath", "Dropout", "Extractor",
+    "FFNLayer",
     "FeedForwardNetwork", "GeneMixerEncoder", "Injector", "InteractionBlock",
     "LongNetEncoder", "LongNetEncoderLayer", "LongNetViT", "ModalTuneModel",
     "PatchEmbed", "SelfAttentionLayer", "TokenFeedForward", "TorchMHA",
-    "coords_pos_embed", "create_aggregator", "init_weights", "mask_to_bias",
+    "coords_pos_embed", "create_aggregator", "dropout_generator",
+    "init_weights", "mask_to_bias",
     "sincos_1d",
 ]

@@ -15,7 +15,7 @@ from torch import nn
 
 from ..configs import GeneEncoderConfig
 from ..ops.activations import gelu_exact
-from .layers import AlphaDropout, Dense
+from .layers import AlphaDropout, Dense, Dropout
 
 
 def _normal02(g: torch.Generator, *params: nn.Parameter) -> None:
@@ -33,7 +33,7 @@ class TokenFeedForward(nn.Module):
         self.b1 = nn.Parameter(torch.empty(inner))
         self.w2 = nn.Parameter(torch.empty(inner, groups))
         self.b2 = nn.Parameter(torch.empty(groups))
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     @torch.no_grad()
     def init_weights(self, g: torch.Generator) -> None:
@@ -56,7 +56,7 @@ class ChannelFeedForward(nn.Module):
         inner = int(dim * expansion)
         self.fc1 = Dense(dim, inner, "normal02")
         self.fc2 = Dense(inner, dim, "normal02")
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.dropout(gelu_exact(self.fc1(x)))

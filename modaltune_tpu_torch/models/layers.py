@@ -1,7 +1,7 @@
 """Shared building blocks of the Modal Adapter, and weight initialisation.
 
-Counterpart of ``modaltune_tpu/models/layers.py``: stochastic depth,
-alpha dropout, a torch ``nn.MultiheadAttention``-style attention with
+Counterpart of ``modaltune_tpu/models/layers.py``: dropout, stochastic
+depth, alpha dropout, a torch ``nn.MultiheadAttention``-style attention with
 separate q/k/v input widths whose inner product runs through
 :func:`..ops.flash_attention` (the K2 kernel on CUDA), and the pre-norm
 cross-attention, self-attention and FFN layers of the adapter.
@@ -11,16 +11,71 @@ onto the other by name.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 from torch import nn
 
 from ..ops.flash_attention import NEG_INF, flash_attention
 
-# torch's AlphaDropout is the SELU-preserving dropout the JAX module mirrors.
-AlphaDropout = nn.AlphaDropout
+_DROPOUT_GENERATOR: contextvars.ContextVar[Optional[torch.Generator]] = \
+    contextvars.ContextVar("dropout_generator", default=None)
+
+
+@contextlib.contextmanager
+def dropout_generator(g: torch.Generator) -> Iterator[torch.Generator]:
+    """Every dropout of a model in training mode run inside this context
+    draws its random bits from ``g`` (a generator on the tensors' device),
+    as the JAX modules draw from the ``"dropout"`` rng stream."""
+    token = _DROPOUT_GENERATOR.set(g)
+    try:
+        yield g
+    finally:
+        _DROPOUT_GENERATOR.reset(token)
+
+
+def _uniform(shape, x: torch.Tensor) -> torch.Tensor:
+    g = _DROPOUT_GENERATOR.get()
+    if g is None:
+        raise RuntimeError("dropout in training mode needs a generator: run "
+                           "the model inside dropout_generator(g)")
+    if g.device.type != x.device.type:
+        raise ValueError(f"dropout generator on {g.device}, tensor on "
+                         f"{x.device}")
+    return torch.rand(shape, generator=g, device=x.device)
+
+
+class Dropout(nn.Module):
+    """Element dropout scaling kept values by 1/keep; identity in eval mode
+    or at rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        return torch.where(_uniform(x.shape, x) < keep, x / keep, 0.0)
+
+
+class AlphaDropout(Dropout):
+    """SELU-preserving dropout (torch ``nn.AlphaDropout`` semantics)."""
+
+    ALPHA_P = -1.7580993408473766  # -scale * alpha of SELU
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        p = self.rate
+        a = ((1.0 - p) * (1.0 + p * self.ALPHA_P ** 2)) ** -0.5
+        b = -a * p * self.ALPHA_P
+        keep = _uniform(x.shape, x) < 1.0 - p
+        return a * torch.where(keep, x, self.ALPHA_P) + b
 
 
 class Dense(nn.Linear):
@@ -67,21 +122,16 @@ def init_weights(model: nn.Module, g: torch.Generator) -> nn.Module:
     return model
 
 
-class DropPath(nn.Module):
+class DropPath(Dropout):
     """Per-sample stochastic depth (timm semantics: scale kept samples by
     1/keep); identity in eval mode."""
-
-    def __init__(self, rate: float):
-        super().__init__()
-        self.rate = rate
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, device=x.device) < keep
-        return torch.where(mask, x / keep, 0.0)
+        return torch.where(_uniform(shape, x) < keep, x / keep, 0.0)
 
 
 def mask_to_bias(mask: torch.Tensor) -> torch.Tensor:
@@ -176,7 +226,7 @@ class SelfAttentionLayer(nn.Module):
             self.q_proj = Dense(d_model, inner, "xavier")
             self.output_proj = Dense(inner, d_model, "xavier")
         self.self_attn = TorchMHA(inner, nheads, kdim=d_model, vdim=d_model)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, tgt: torch.Tensor,
                 query_pos: Optional[torch.Tensor] = None) -> torch.Tensor:

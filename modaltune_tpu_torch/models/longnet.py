@@ -20,7 +20,7 @@ from torch import nn
 from ..configs import LongNetConfig
 from ..ops.activations import gelu_exact
 from ..ops.dilated_mega import mega_dilated_attention
-from .layers import Dense, DropPath
+from .layers import Dense, DropPath, Dropout
 
 
 class DilatedSelfAttention(nn.Module):
@@ -66,8 +66,8 @@ class FeedForwardNetwork(nn.Module):
         self.fc2 = Dense(cfg.ffn_dim, cfg.embed_dim)
         self.ffn_layernorm = (nn.LayerNorm(cfg.ffn_dim, eps=cfg.layernorm_eps)
                               if cfg.subln else None)
-        self.activation_dropout = nn.Dropout(cfg.activation_dropout)
-        self.dropout = nn.Dropout(cfg.dropout)
+        self.activation_dropout = Dropout(cfg.activation_dropout)
+        self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.activation_dropout(gelu_exact(self.fc1(x)))
@@ -85,7 +85,7 @@ class LongNetEncoderLayer(nn.Module):
         self.cfg = cfg
         self.self_attn_layer_norm = nn.LayerNorm(d, eps=cfg.layernorm_eps)
         self.self_attn = DilatedSelfAttention(cfg)
-        self.dropout = nn.Dropout(cfg.dropout)
+        self.dropout = Dropout(cfg.dropout)
         self.final_layer_norm = nn.LayerNorm(d, eps=cfg.layernorm_eps)
         self.ffn = FeedForwardNetwork(cfg)
         self.drop_path = DropPath(drop_path_rate)
@@ -112,7 +112,7 @@ class LongNetEncoder(nn.Module):
         rates = ([cfg.drop_path_rate * i / (n - 1) for i in range(n)]
                  if cfg.drop_path_rate > 0 and n > 1 else [0.0] * n)
         self.cfg = cfg
-        self.embed_dropout = nn.Dropout(cfg.dropout)
+        self.embed_dropout = Dropout(cfg.dropout)
         self.layers = nn.ModuleList(
             LongNetEncoderLayer(cfg, rates[i]) for i in range(n))
         self.layer_norm = (

@@ -92,8 +92,13 @@ class ModalTuneModel(nn.Module):
         if self.gene_cls is not None:
             self.gene_cls.normal_(0.0, 0.02, generator=g)
 
-    @property
-    def dtype(self) -> torch.dtype:
+    def compute_dtype(self, device: torch.device) -> torch.dtype:
+        """The dtype every input is cast to: autocast's dtype on
+        ``device`` while autocast is on (bf16 compute over fp32 trainable
+        and bf16 frozen parameters, as the JAX package trains), else the
+        parameters' dtype."""
+        if torch.is_autocast_enabled(device.type):
+            return torch.get_autocast_dtype(device.type)
         return self.gene_pe.dtype
 
     def forward(self, bag: torch.Tensor, coords: torch.Tensor,
@@ -105,7 +110,7 @@ class ModalTuneModel(nn.Module):
         clinical (B, clinfeat_dim); bag_mask (B, L) bool validity.
         Returns (B, output_dim) task-conditioned embeddings."""
         a = self.cfg.adapter
-        dt = self.dtype
+        dt = self.compute_dtype(bag.device)
         h, seq_mask = self.backbone.embed(bag.to(dt), coords, bag_mask)
 
         modal = self.gene_encoder(genes.to(dt))               # (B, G', D)

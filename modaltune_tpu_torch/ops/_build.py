@@ -1,7 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared
-library with a plain C interface, which is loaded with :mod:`ctypes`.
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` into an object file,
+one process per source, all started together, and links them into one
+shared library with a plain C interface, which is loaded with
+:mod:`ctypes`.
 The library's file name carries a hash of the sources and the flags, so
 an edited source is rebuilt and an unchanged one is loaded from
 ``build/``. Nothing here runs at import time.
@@ -22,7 +24,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -30,8 +32,13 @@ _I = ctypes.c_int
 SIGNATURES = {
     "mt_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                ctypes.c_float, _I, _P],
-    "mt_dilated_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
-                                 _I, ctypes.c_float, _I, _P],
+    "mt_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, ctypes.c_float, _I, _P],
+    "mt_dilated_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _P, _P, _I, ctypes.c_float, _I, _P],
+    "mt_dilated_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _I, _I, _I, _I, _P, _P, _I,
+                                 ctypes.c_float, _I, _P],
 }
 
 
@@ -59,24 +66,45 @@ def build_library() -> dict:
 
     Returns ``{"path", "seconds", "log"}``; ``seconds`` is 0.0 and ``log``
     empty when the library was already built. Raises ``RuntimeError``
-    with nvcc's output when the build fails."""
+    with nvcc's output when a compile or the link fails."""
     lib = _library_path()
     if lib.exists():
         return {"path": str(lib), "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]]
+    nvcc = find_nvcc()
+    tag = f"{lib.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
+    jobs = []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{out}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = lib.with_name(f"{tag}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+               *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, lib)
-    log = proc.stdout + proc.stderr
+    seconds = time.perf_counter() - t0
+    log = "".join(log)
     lib.with_suffix(".log").write_text(log)
     return {"path": str(lib), "seconds": seconds, "log": log}
 

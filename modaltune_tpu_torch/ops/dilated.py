@@ -1,5 +1,5 @@
-"""LongNet dilated attention as plain PyTorch: the oracle of the kernel in
-``csrc/dilated_attention_fwd.cu``.
+"""LongNet dilated attention as plain PyTorch: the oracle of the kernels in
+``csrc/dilated_attention_fwd.cu`` and ``csrc/dilated_attention_bwd.cu``.
 
 Counterpart of ``modaltune_tpu/ops/dilated.py`` ("diagonal" layout). Per
 (segment length ``w``, dilation ratio ``r``) branch:
@@ -13,7 +13,7 @@ Counterpart of ``modaltune_tpu/ops/dilated.py`` ("diagonal" layout). Per
    ``(out, lse)``, scattered back to dense layout by
    :func:`sparse_to_dense` (off-pattern slots get lse ``NEG_INF``);
 4. the branches are mixed per token and head with fp32 ``softmax(lse)``
-   weights.
+   weights, which carry no gradient.
 
 Padded positions, both past ``L`` and past the segment length inside the
 sparse layout, are always masked out of the softmax. (The JAX oracle
@@ -28,7 +28,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from .flash_attention import NEG_INF, flash_attention_reference
+from .flash_attention import (MASK_THRESHOLD, NEG_INF,
+                              flash_attention_reference)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -127,6 +128,18 @@ def _branch(q, k, v, mask, seg_len: int, ratio: int, scale: float):
     return out, lse
 
 
+def _branches(q, k, v, mask, segment_lengths, dilated_ratios, scale):
+    """Every branch's dense ``(out, lse)``; see :func:`_branch`."""
+    if len(segment_lengths) != len(dilated_ratios):
+        raise ValueError("one dilation ratio per segment length")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if mask is None:
+        mask = torch.ones(q.shape[:2], dtype=torch.bool, device=q.device)
+    return zip(*(_branch(q, k, v, mask.bool(), int(sl), int(r), float(scale))
+                 for sl, r in zip(segment_lengths, dilated_ratios)))
+
+
 def dilated_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       segment_lengths: Sequence[int],
                       dilated_ratios: Sequence[int],
@@ -137,22 +150,39 @@ def dilated_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q/k/v: ``(B, L, H, D)`` (after the projections); mask: ``(B, L)`` bool
     token validity, None meaning all valid. Returns ``(B, L, H, D)`` in
     q's dtype: the branches' outputs mixed per (token, head) with fp32
-    ``softmax(lse)`` weights.
+    ``softmax(lse)`` weights. The weights carry no gradient (the JAX
+    package's ``stop_gradient``, which the K1 backward assumes).
     """
-    if len(segment_lengths) != len(dilated_ratios):
-        raise ValueError("one dilation ratio per segment length")
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    if mask is None:
-        mask = torch.ones(q.shape[:2], dtype=torch.bool, device=q.device)
-    outs, lses = [], []
-    for sl, r in zip(segment_lengths, dilated_ratios):
-        o, l = _branch(q, k, v, mask.bool(), int(sl), int(r), float(scale))
-        outs.append(o)
-        lses.append(l)
+    outs, lses = _branches(q, k, v, mask, segment_lengths, dilated_ratios,
+                           scale)
     if len(outs) == 1:
         return outs[0].to(q.dtype)
-    lse = torch.stack(lses)                       # (n_br, B, L, H)
-    w = torch.softmax(lse, dim=0)
+    w = torch.softmax(torch.stack(lses).detach(), dim=0)  # (n_br, B, L, H)
     out = sum(o * wi[..., None] for o, wi in zip(outs, w))
     return out.to(q.dtype)
+
+
+def dilated_attention_stats(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *,
+                            segment_lengths: Sequence[int],
+                            dilated_ratios: Sequence[int],
+                            mask: Optional[torch.Tensor] = None,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """The statistics the K1 forward saves for its backward, plain PyTorch.
+
+    Returns fp32 ``(B*H, n_br + 2, L)``: rows ``0..n_br-1`` each branch's
+    lse (``NEG_INF`` where a token takes no part in the branch or sees no
+    valid key), row ``n_br`` ``m = max_b lse_b``, row ``n_br + 1``
+    ``Z = sum_b exp(lse_b - m)`` over the branches with a valid lse (0
+    when there is none). The layout of the JAX package's stats plane.
+    """
+    with torch.no_grad():
+        _, lses = _branches(q, k, v, mask, segment_lengths, dilated_ratios,
+                            scale)
+        lse = torch.stack(lses)                   # (n_br, B, L, H)
+        m = lse.amax(dim=0)
+        z = torch.where(lse > MASK_THRESHOLD, torch.exp(lse - m), 0.0).sum(0)
+        stats = torch.cat([lse, m[None], z[None]])  # (n_br + 2, B, L, H)
+        b, length, h = m.shape
+        return stats.permute(1, 3, 0, 2).reshape(b * h, -1, length) \
+            .contiguous()

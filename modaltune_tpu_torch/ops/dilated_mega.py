@@ -2,24 +2,33 @@
 
 Counterpart of ``modaltune_tpu/ops/dilated_mega.py::mega_dilated_attention``:
 same signature and semantics as :func:`.dilated.dilated_attention`. A CUDA
-tensor goes to the hand-written Hopper kernel
-``csrc/dilated_attention_fwd.cu`` (every branch and the branch mix in one
-launch, q/k/v read in place); a CPU tensor goes to the plain version
-:func:`.dilated.dilated_attention`.
+tensor goes to the hand-written Hopper kernels: ``csrc/dilated_attention_fwd.cu``
+(K1f: every branch and the branch mix in one launch, q/k/v read in place)
+and, for the gradient, ``csrc/dilated_attention_bwd.cu`` (K1b). A CPU
+tensor goes to the plain version :func:`.dilated.dilated_attention`, and
+autograd differentiates it.
+
+When the forward is recorded for autograd, K1f also writes what K1b needs:
+``stats (B*H, n_br + 2, L)`` fp32 (each branch's lse, then
+``m = max_b lse_b`` and ``Z = sum_b exp(lse_b - m)``, the layout of
+:func:`.dilated.dilated_attention_stats`) and every branch's own output
+``(n_br, B, L, H, D)`` in q's dtype, from which K1b takes
+``delta_b = rowsum(dO_b * o_b)`` without recomputing ``o_b``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from ._build import check_launch, load_library
 from .dilated import dilated_attention
 
-# Kernel launches since the last reset (read by chip_smoke.py).
+# Kernel launches since the last reset (read by chip_smoke.py): K1f and K1b.
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 MAX_BRANCHES = 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -54,33 +63,111 @@ def _check(q, k, v, mask, segment_lengths, dilated_ratios):
                              f"tensor on {q.device}")
 
 
+def _branch_args(segment_lengths, dilated_ratios):
+    segs = [int(w) for w in segment_lengths]
+    ratios = [int(r) for r in dilated_ratios]
+    n = len(segs)
+    return (segs, ratios, ctypes.cast((ctypes.c_int * n)(*segs), ctypes.c_void_p),
+            ctypes.cast((ctypes.c_int * n)(*ratios), ctypes.c_void_p))
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def mega_dilated_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, mask: Optional[torch.Tensor],
                                 segment_lengths: Sequence[int],
                                 dilated_ratios: Sequence[int],
-                                scale: float) -> torch.Tensor:
-    """Launch the CUDA kernel on ``q``'s device and current stream."""
+                                scale: float, with_stats: bool = False):
+    """Launch the K1f kernel on ``q``'s device and current stream.
+
+    Returns ``out``, or with ``with_stats`` ``(out, stats, branch_out)``
+    (see the module docstring)."""
     global LAUNCHES
-    segs = [int(w) for w in segment_lengths]
-    ratios = [int(r) for r in dilated_ratios]
+    segs, ratios, c_segs, c_ratios = _branch_args(segment_lengths,
+                                                  dilated_ratios)
     _check(q, k, v, mask, segs, ratios)
     b, length, h, d = q.shape
-    out = torch.empty_like(q)
     n = len(segs)
-    c_segs = (ctypes.c_int * n)(*segs)
-    c_ratios = (ctypes.c_int * n)(*ratios)
+    out = torch.empty_like(q)
+    stats = branch_out = None
+    if with_stats:
+        stats = torch.empty((b * h, n + 2, length), dtype=torch.float32,
+                            device=q.device)
+        branch_out = torch.empty((n,) + tuple(q.shape), dtype=q.dtype,
+                                 device=q.device)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mt_dilated_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(),
-            b, length, h, d, ctypes.cast(c_segs, ctypes.c_void_p),
-            ctypes.cast(c_ratios, ctypes.c_void_p), n, float(scale),
-            _DTYPE_CODES[q.dtype], stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
+            out.data_ptr(), _ptr(stats), _ptr(branch_out), b, length, h, d,
+            c_segs, c_ratios, n, float(scale), _DTYPE_CODES[q.dtype], stream)
     check_launch(err, "mt_dilated_attention_fwd")
     LAUNCHES += 1
-    return out
+    return (out, stats, branch_out) if with_stats else out
+
+
+def mega_dilated_attention_backward_cuda(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        mask: Optional[torch.Tensor], dmix: torch.Tensor, stats: torch.Tensor,
+        branch_out: torch.Tensor, segment_lengths: Sequence[int],
+        dilated_ratios: Sequence[int], scale: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch K1b (the mix weights and ``delta_b``, then dq, then dk/dv) on
+    ``q``'s device and current stream; returns ``(dq, dk, dv)``."""
+    global BWD_LAUNCHES
+    segs, ratios, c_segs, c_ratios = _branch_args(segment_lengths,
+                                                  dilated_ratios)
+    _check(q, k, v, mask, segs, ratios)
+    b, length, h, d = q.shape
+    n = len(segs)
+    if dmix.shape != q.shape or dmix.dtype != q.dtype or \
+            dmix.device != q.device or not dmix.is_contiguous():
+        raise ValueError(f"dmix must be a contiguous {q.dtype} "
+                         f"{tuple(q.shape)} tensor on {q.device}")
+    if stats.shape != (b * h, n + 2, length) or stats.dtype != torch.float32 \
+            or not stats.is_contiguous() or \
+            branch_out.shape != (n,) + tuple(q.shape) or \
+            branch_out.dtype != q.dtype or not branch_out.is_contiguous():
+        raise ValueError("stats/branch_out do not match the forward's")
+    # per-branch mix weight w_b and delta_b, (B*H, n_br, L) fp32 each
+    wd = torch.empty((2, b * h, n, length), dtype=torch.float32,
+                     device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.mt_dilated_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
+            dmix.data_ptr(), stats.data_ptr(), branch_out.data_ptr(),
+            wd[0].data_ptr(), wd[1].data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, length, h, d, c_segs, c_ratios, n, float(scale),
+            _DTYPE_CODES[q.dtype], stream)
+    check_launch(err, "mt_dilated_attention_bwd")
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+class _MegaDilatedAttention(torch.autograd.Function):
+    """K1f (with stats) forward, K1b backward; CUDA tensors only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, segment_lengths, dilated_ratios, scale):
+        out, stats, branch_out = mega_dilated_attention_cuda(
+            q, k, v, mask, segment_lengths, dilated_ratios, scale,
+            with_stats=True)
+        ctx.save_for_backward(q, k, v, mask, stats, branch_out)
+        ctx.branches = (segment_lengths, dilated_ratios, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dmix):
+        q, k, v, mask, stats, branch_out = ctx.saved_tensors
+        dq, dk, dv = mega_dilated_attention_backward_cuda(
+            q, k, v, mask, dmix.contiguous(), stats, branch_out, *ctx.branches)
+        return dq, dk, dv, None, None, None, None
 
 
 def mega_dilated_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -88,17 +175,23 @@ def mega_dilated_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            dilated_ratios: Sequence[int],
                            mask: Optional[torch.Tensor] = None,
                            scale: Optional[float] = None) -> torch.Tensor:
-    """Multi-branch LongNet dilated attention.
+    """Multi-branch LongNet dilated attention, differentiable in q, k, v.
 
     q/k/v ``(B, L, H, D)``, optional ``(B, L)`` bool validity mask, output
-    ``(B, L, H, D)`` in q's dtype. CUDA tensors run the kernel (or raise),
-    CPU tensors the plain version.
+    ``(B, L, H, D)`` in q's dtype. CUDA tensors run the kernels (or
+    raise): K1f alone when no gradient is needed, K1f with stats and K1b
+    behind an autograd Function otherwise. CPU tensors run the plain
+    version.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cuda":
-        return mega_dilated_attention_cuda(q, k, v, mask, segment_lengths,
-                                           dilated_ratios, float(scale))
+        branches = (tuple(int(w) for w in segment_lengths),
+                    tuple(int(r) for r in dilated_ratios), float(scale))
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return _MegaDilatedAttention.apply(q, k, v, mask, *branches)
+        return mega_dilated_attention_cuda(q, k, v, mask, *branches)
     if q.device.type != "cpu":
         raise ValueError(f"mega_dilated_attention: unsupported device "
                          f"{q.device}")

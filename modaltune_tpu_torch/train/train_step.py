@@ -1,20 +1,32 @@
-"""Multi-task forward and the embed step.
+"""Multi-task forward, and the train, grad, eval and embed steps.
 
-Counterpart of ``modaltune_tpu/train/train_step.py`` (``tile_tasks``,
-``multitask_logits`` and ``make_embed_step``): the three task tokens run
-as one batched forward, the bag tiled across them, slide b / task t at
-row ``b * T + t``.
+Counterpart of ``modaltune_tpu/train/train_step.py``: the three task
+tokens run as one batched forward, the bag tiled across them, slide b /
+task t at row ``b * T + t``. The train step runs the model in training
+mode (dropout on, its bits drawn from the generator the caller passes),
+the KD loss, the backward through the frozen backbone into the adapter,
+and one optimizer step. Where the frozen backbone was cast below the
+trainable parameters' precision (``freeze_backbone(model, torch.bfloat16)``,
+JAX's ``frozen_dtype``), every step computes under autocast to the
+backbone's dtype, so that the attention kernels see bf16 q/k/v while the
+trainable parameters stay fp32, as the JAX package trains.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import contextlib
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..configs import TrainConfig
 from ..data import Batch
+from ..models.layers import dropout_generator
+from .losses import kd_kl_per_slide, kd_loss
+from .state import FROZEN_KEY, TrainOptimizer
+
+Inputs = Dict[str, Optional[torch.Tensor]]
 
 
 def batch_to_device(batch: Batch, device) -> Dict[str, Optional[torch.Tensor]]:
@@ -70,5 +82,85 @@ def make_embed_step(model: nn.Module, cfg: TrainConfig
         model.eval()
         with torch.inference_mode():
             return multitask_logits(model, batch, cfg.num_tasks)
+
+    return step
+
+
+def _autocast(model: nn.Module, device: torch.device):
+    """Autocast to the frozen backbone's dtype where it is lower than the
+    trainable parameters' (bf16 compute over an fp32 adapter); else none."""
+    frozen = next(getattr(model, FROZEN_KEY).parameters()).dtype
+    trainable = next(p for n, p in model.named_parameters()
+                     if n.split(".")[0] != FROZEN_KEY).dtype
+    if frozen.itemsize >= trainable.itemsize:
+        return contextlib.nullcontext()
+    return torch.autocast(device.type, dtype=frozen)
+
+
+def _train_loss(model: nn.Module, cfg: TrainConfig, batch: Inputs,
+                text_targets: torch.Tensor,
+                generator: torch.Generator) -> torch.Tensor:
+    model.train()
+    with dropout_generator(generator), \
+            _autocast(model, batch["bag"].device):
+        logits = multitask_logits(model, batch, cfg.num_tasks)
+    return kd_loss(logits, text_targets, temperature=cfg.temperature,
+                   scale=cfg.kd_loss_scale)
+
+
+def make_train_step(model: nn.Module, cfg: TrainConfig,
+                    optimizer: TrainOptimizer
+                    ) -> Callable[[Inputs, torch.Tensor, torch.Generator],
+                                  torch.Tensor]:
+    """``step(batch, text_targets, generator) -> loss``: the KD loss of the
+    batch (before the update), its gradient into the trainable parameters
+    and one ``optimizer.step()``. ``text_targets``: (B, T, D) projected,
+    normalised text targets (``losses.project_text``)."""
+
+    def step(batch: Inputs, text_targets: torch.Tensor,
+             generator: torch.Generator) -> torch.Tensor:
+        loss = _train_loss(model, cfg, batch, text_targets, generator)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def make_grad_step(model: nn.Module, cfg: TrainConfig
+                   ) -> Callable[..., Tuple[torch.Tensor,
+                                            Dict[str, torch.Tensor]]]:
+    """``step(batch, text_targets, generator) -> (loss, grads)`` without the
+    update: ``grads`` maps each trainable parameter's name to its
+    gradient (the local half of data-parallel training)."""
+
+    def step(batch: Inputs, text_targets: torch.Tensor,
+             generator: torch.Generator):
+        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        loss = _train_loss(model, cfg, batch, text_targets, generator)
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+        return loss.detach(), {n: g for (n, _), g in zip(named, grads)}
+
+    return step
+
+
+def make_eval_step(model: nn.Module, cfg: TrainConfig
+                   ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
+    """``step(batch, text_targets, row_valid) -> (logits, loss)``: the raw
+    (B, T, D) embeddings in eval mode and the KD loss on their normalised
+    form, averaged over the rows with ``row_valid`` (B,) set (padded rows
+    of a short last batch are excluded)."""
+
+    def step(batch: Inputs, text_targets: torch.Tensor,
+             row_valid: torch.Tensor):
+        model.eval()
+        with torch.inference_mode(), _autocast(model, batch["bag"].device):
+            logits = multitask_logits(model, batch, cfg.num_tasks)
+            per = kd_kl_per_slide(logits, text_targets,
+                                  temperature=cfg.temperature)
+            rv = row_valid.to(torch.float32)
+            loss = (per * rv).sum() / rv.sum().clamp_min(1.0) \
+                * (cfg.temperature ** 2) * cfg.kd_loss_scale
+        return logits, loss
 
     return step

@@ -19,6 +19,10 @@ the two compute the same function. The names line up by rule:
 
 It raises on a JAX key that maps to no port parameter, on a port
 parameter that no JAX key sets, and on a shape that differs.
+
+``projector_from_jax(tree)`` does the same for the frozen random text
+projector of the KD loss (``modaltune_tpu.train.TextProjector``), so that
+both packages distil towards the same targets.
 """
 
 from __future__ import annotations
@@ -102,3 +106,13 @@ def params_from_jax(tree: dict, model: nn.Module) -> Dict[str, torch.Tensor]:
                              f"shape {tuple(want[name].shape)}")
         sd[name] = torch.tensor(np.asarray(val, np.float32))
     return sd
+
+
+def projector_from_jax(tree: dict):
+    """JAX ``TextProjector`` parameters -> the port's frozen
+    :class:`~modaltune_tpu_torch.train.TextProjector` holding them."""
+    from ..train.losses import TextProjector
+    in_dim, out_dim = np.asarray(tree["conv1"]["kernel"]).shape
+    projector = TextProjector(in_dim, out_dim)
+    projector.load_state_dict(params_from_jax(tree, projector))
+    return projector.requires_grad_(False).eval()

@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""Device-time profile of one full-width ModalTune-GigaPath train step on
+one NVIDIA GPU.
+
+    python3 profile_train.py [--bucket 10239] [--warmup 2] [--out FILE]
+
+Builds the train step as ``chip_smoke.py`` does (frozen backbone in bf16,
+adapter in fp32, bf16 autocast, dropout on, random weights from a seed,
+one synthetic bag padded to ``--bucket``), runs ``--warmup`` steps, then
+one step under ``torch.profiler`` with CUDA activity. Prints the step's
+wall time, the device's busy time (the union of every kernel, memcpy and
+memset interval) and its share of the wall time, the device time of each
+group of kernels (K1b, K1f, K2f, K2b, GEMMs, LayerNorm, the rest) with
+its share of the busy time, and the 25 kernels with the most device time.
+Writes the profiler's whole table to ``--out``. Exits non-zero when no
+CUDA device is available or the profiler records no device time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+# (group, substrings of the kernel name), first match wins
+GROUPS = [
+    ("K1b", ("dilated_bwd",)),
+    ("K1f", ("dilated_fwd",)),
+    ("K2b", ("flash_bwd",)),
+    ("K2f", ("flash_fwd",)),
+    ("GEMM", ("gemm", "nvjet", "cutlass", "xmma")),
+    ("LayerNorm", ("layer_norm", "LayerNorm")),
+]
+
+
+def group_of(name: str) -> str:
+    for group, keys in GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "other (elementwise, reductions, copies)"
+
+
+def union_ms(intervals) -> float:
+    """Total length of the union of (start, end) intervals in us, in ms."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--bucket", type=int, default=10239)
+    ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--out", default=os.path.join("chiprun_out",
+                                                  "profile_train.txt"))
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_train: no CUDA device", file=sys.stderr)
+        return 1
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+
+    from modaltune_tpu_torch import make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda:0")
+    print("card (nvidia-smi name, power.limit):")
+    print(chip_smoke._last_line(["nvidia-smi", "--query-gpu=name,power.limit",
+                                 "--format=csv,noheader", "--id=0"]))
+    model, tcfg, opt, text, batch = chip_smoke.build_train(
+        device, bucket=args.bucket,
+        bag_range=(min(9000, args.bucket * 7 // 8), args.bucket))
+    step = make_train_step(model, tcfg, opt)
+    gen = torch.Generator(device=device).manual_seed(1)
+    for _ in range(args.warmup):
+        step(batch, text, gen)
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(batch, text, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    # device-side kernels, copies and sets; not the ranges that annotate them
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    if not dev:
+        print("profile_train: the profiler recorded no device time",
+              file=sys.stderr)
+        return 1
+    busy = union_ms((e.time_range.start, e.time_range.end) for e in dev)
+    by_group, by_name, calls = {}, {}, {}
+    for e in dev:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        by_group[group_of(e.name)] = by_group.get(group_of(e.name), 0) + ms
+        by_name[e.name] = by_name.get(e.name, 0) + ms
+        calls[e.name] = calls.get(e.name, 0) + 1
+
+    print(f"train step at bucket {args.bucket}: wall {wall:.2f} ms, device "
+          f"busy {busy:.2f} ms (busy share {busy / wall:.3f}), peak "
+          f"allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    print(f"{'group':<42} {'device ms':>10} {'of busy':>8}")
+    for group, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"{group:<42} {ms:>10.2f} {ms / busy:>8.1%}")
+    print(f"{'kernel':<80} {'calls':>5} {'device ms':>10}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
+        print(f"{name[:80]:<80} {calls[name]:>5} {ms:>10.2f}")
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total",
+                                          row_limit=-1))
+    print(f"profiler table -> {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

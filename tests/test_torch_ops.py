@@ -158,6 +158,27 @@ def test_gelu_exact_matches_jax():
     assert gelu_exact(xb).dtype == torch.bfloat16
 
 
+def test_gelu_exact_grad_matches_jax():
+    """The lean backward (erf derivative from the saved input, in fp32)
+    against JAX's custom VJP, in fp32 and on a bf16 input."""
+    rng = np.random.RandomState(4)
+    x = rng.randn(64, 96).astype(np.float32) * 3
+    cot = rng.randn(64, 96).astype(np.float32)
+    want = jax.grad(lambda a: jnp.sum(j_gelu(a) * cot))(jnp.asarray(x))
+    tx = _t(x).requires_grad_()
+    (gelu_exact(tx) * _t(cot)).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want),
+                               atol=1e-6, rtol=1e-6)
+    xb = _t(x).to(torch.bfloat16).requires_grad_()
+    (gelu_exact(xb).float() * _t(cot)).sum().backward()
+    assert xb.grad.dtype == torch.bfloat16
+    want_b = jax.grad(lambda a: jnp.sum(j_gelu(a).astype(jnp.float32) * cot))(
+        jnp.asarray(x).astype(jnp.bfloat16))
+    np.testing.assert_allclose(xb.grad.float().numpy(),
+                               np.asarray(want_b, np.float32), rtol=1e-2,
+                               atol=1e-2)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     """The CUDA-side argument checks run before any launch; exercised here
     on CPU tensors through the checking helpers."""
