@@ -4,19 +4,31 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``modaltune_tpu_torch/csrc``, holds
-each against its plain PyTorch version at the shapes of the
-ModalTune-GigaPath embed and train steps (the forward kernels K1f, K2f
-and K1f's statistics; the backward kernels K1b, K2b), then drives both
-steps end to end at full published width (12-layer / 768-d / 16-head
-LongNet backbone, Modal Adapter, gene mixer over 331 pathways, 3 task
-tokens) with random weights from a seeded generator: the embed step on
-three synthetic 10,239-patch slides, and a few train steps (KD loss,
-AdamW on the adapter, bf16 compute, dropout on) on one. Every phase
-prints its results on lines of its own; any failure raises and the
-script exits non-zero. The last line is one JSON object
+each against its plain PyTorch version at the shapes of the model steps
+(the forward kernels K1f, K2f, K4f and K1f's statistics; the backward
+kernels K1b, K2b, K4b), times each beside its plain version and, where
+one PyTorch call computes the same function, beside that call
+(``scaled_dot_product_attention``; timed here, used nowhere in the port),
+and computes the least time the card could take for the same work.
+Then it drives four paths end to end at full published width with random
+weights from a seeded generator, each with every launch count set to 0
+just before and read just after:
+
+* ModalTune-GigaPath (12-layer / 768-d / 16-head LongNet backbone, Modal
+  Adapter, gene mixer over 331 pathways, 3 task tokens): the embed step on
+  three synthetic 10,239-patch slides, and a few train steps (KD loss,
+  AdamW on the adapter, bf16 compute, dropout on) on one;
+* ModalTune-TITAN (6-block / 768-d / 12-head ViT with 2-D ALiBi attention
+  and a 128-query attentional pooler, the same adapter over
+  interactions ((0,1),(2,3),(4,5)) with concatenated tokens): the embed
+  step on three synthetic slides grid-scattered into the 16,383-cell
+  bucket, and a few train steps on one.
+
+Every phase prints its results on lines of its own; any failure raises
+and the script exits non-zero. The last line is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
-of the two paths with its launches, error and time against its plain
-version.
+with its launches on those paths, error, time, plain version's time,
+bound and library call's time.
 
 Exits non-zero without a result when no CUDA device is available.
 """
@@ -27,6 +39,7 @@ import copy
 import importlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -66,19 +79,110 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def timed_once(fn):
+    """``(fn(), milliseconds)`` of one call, by CUDA events."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+# NVIDIA H100 SXM, dense rates of the data sheet: bf16 tensor cores, HBM3.
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+
+
+def bound_ms(flops: float, nbytes: float):
+    """The least time the card could take: ``(ms, "operations" or
+    "bytes")``, the larger of flops over the bf16 peak and bytes (each
+    input read once, each output written once) over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def attention_bound(pairs: float, d: int, tensors, backward: bool):
+    """Bound of an attention kernel over ``pairs`` (query, unmasked key)
+    pairs of head dimension ``d``: two products forward (q.k, p.v), five
+    backward (q.k, dout.v, dS.k, dS^T.q, P^T.dout), 2 flop per
+    multiply-add; ``tensors`` are its inputs and outputs."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors
+                 if t is not None)
+    return bound_ms((10 if backward else 4) * pairs * d, nbytes)
+
+
+# name -> (module of the wrapper, its launch counter)
+COUNTERS = {
+    "K1f": ("modaltune_tpu_torch.ops.dilated_mega", "LAUNCHES"),
+    "K1b": ("modaltune_tpu_torch.ops.dilated_mega", "BWD_LAUNCHES"),
+    "K2f": ("modaltune_tpu_torch.ops.flash_attention", "LAUNCHES"),
+    "K2b": ("modaltune_tpu_torch.ops.flash_attention", "BWD_LAUNCHES"),
+    "K4f": ("modaltune_tpu_torch.ops.alibi_flash", "LAUNCHES"),
+    "K4b": ("modaltune_tpu_torch.ops.alibi_flash", "BWD_LAUNCHES"),
+}
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    for module, attr in COUNTERS.values():
+        setattr(importlib.import_module(module), attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(importlib.import_module(module), attr)
+            for name, (module, attr) in COUNTERS.items()}
+
+
+def calls_per_forward(model) -> dict:
+    """Kernel calls of one forward of ``model``: K1 once per LongNet
+    layer, K4 once per TITAN block, K2 once per adapter attention
+    (Injector and Extractor of every interaction, the extra extractors,
+    the prompt self-attentions)."""
+    bb = model.backbone
+    return {
+        "K1": len(bb.encoder.layers) if hasattr(bb, "encoder") else 0,
+        "K2": (sum(2 + len(blk.extra_extractors)
+                   for blk in model.interactions) + len(model.prompt_sa)),
+        "K4": len(bb.blocks) if hasattr(bb, "blocks") else 0,
+    }
+
+
 # ---------------------------------------------------------------------------
 # K2: flash attention with key bias
 # ---------------------------------------------------------------------------
 
 # (name, BH, Lq, Lk, D, fraction of keys masked, a bh with every key masked)
 # B = 1 slide x 3 tasks x 12 adapter heads at inner width 192 -> D = 16;
-# the last shape is the plain dilated path's D = 48.
+# d48 is the plain dilated path's D = 48; the last two are the TITAN
+# adapter's cross-attentions over the 16,383-cell bucket.
 K2_SHAPES = [
     ("injector", 36, 10239, 65, 16, 0.0, False),
     ("extractor", 36, 65, 10239, 16, 1239 / 10239, True),
     ("prompt_sa", 36, 65, 65, 16, 0.0, False),
     ("d48", 48, 1024, 1024, 48, 0.12, False),
+    ("titan_injector", 36, 16383, 65, 16, 0.0, False),
+    ("titan_extractor", 36, 65, 16383, 16, 1800 / 16383, True),
 ]
+
+
+def k2_pairs(bh, lq, lk, bias):
+    """(query, unmasked key) pairs of a K2 call."""
+    if bias is None:
+        return float(bh * lq * lk)
+    return float(lq * int((bias > -5e8).sum()))
+
+
+def sdpa_key_bias(q, k, v, bias):
+    """The library call beside K2f: one
+    ``scaled_dot_product_attention`` with the key bias as its mask. It
+    returns ``out`` without the lse."""
+    import torch.nn.functional as F
+    mask = None if bias is None else bias[None, :, None, :].to(q.dtype)
+    return F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                          attn_mask=mask)[0]
 
 
 def k2_inputs(bh, lq, lk, d, masked, dead, dtype, device, seed):
@@ -108,6 +212,46 @@ def compare(got, want, tol_rel, what):
     check(err <= tol_rel * scale,
           f"{what}: max|err| {err:.3e} > {tol_rel:.1e} x {scale:.3g}")
     return err
+
+
+# Limits of :func:`grad_readings`, (rel-L2, row), by dtype. bf16: the
+# result rounded to bf16 alone reads (1.7e-3, 3.9e-3), and the tensor-core
+# kernels round P and dS to bf16 besides; fp32: the sums run in another
+# order than the plain version's.
+GRAD_LIMITS = {"float32": (1e-5, 5e-5), "bfloat16": (1e-2, 2e-2)}
+
+
+def grad_readings(got, want, dout):
+    """Two readings of a gradient tensor that do not hang on its largest
+    element (the cls key's dk and dv are a hundred times a typical one):
+    ``rel``, ||got - want|| / ||want||, and ``row``, the largest over rows
+    (the last axis) of max|err| / max|want| of that row, a row smaller
+    than the tensor's RMS taken against that RMS. A gradient is linear in
+    ``dout``: where ``want`` is an exact 0 plus rounding noise (a cls-only
+    batch row's dq and dk), the floors 1e-3 ||dout|| and 1e-3 max|dout|
+    stand in for the norm and the row scale."""
+    import torch
+    got, want, dout = got.float(), want.float(), dout.float()
+    err = got - want
+    rel = err.norm() / torch.maximum(want.norm(), 1e-3 * dout.norm())
+    rms = want.pow(2).mean().sqrt()
+    scale = want.abs().amax(dim=-1).clamp_min(
+        torch.maximum(rms, 1e-3 * dout.abs().max()))
+    return rel.item(), (err.abs().amax(dim=-1) / scale).max().item()
+
+
+def check_grads(names, got, want, dout, dtype_name, what):
+    """Hold every gradient to :data:`GRAD_LIMITS`; returns the worst
+    (rel, row) of them."""
+    rel_lim, row_lim = GRAD_LIMITS[dtype_name]
+    worst_rel = worst_row = 0.0
+    for gn, gt, wt in zip(names, got, want):
+        rel, row = grad_readings(gt, wt, dout)
+        check(rel <= rel_lim and row <= row_lim,
+              f"{what} {gn}: rel-L2 {rel:.3e} (limit {rel_lim:.0e}), "
+              f"row-scaled max|err| {row:.3e} (limit {row_lim:.0e})")
+        worst_rel, worst_row = max(worst_rel, rel), max(worst_row, row)
+    return worst_rel, worst_row
 
 
 def phase_k2(device, shapes=K2_SHAPES, iters=20):
@@ -141,13 +285,19 @@ def phase_k2(device, shapes=K2_SHAPES, iters=20):
                                     iters)
                 res["plain_ms"] = time_ms(
                     lambda: fa.flash_attention_reference(q, k, v, bias), iters)
+                res["library_ms"] = time_ms(
+                    lambda: sdpa_key_bias(q, k, v, bias), iters)
+                res["bound_ms"], res["bound_by"] = attention_bound(
+                    k2_pairs(bh, lq, lk, bias), d,
+                    (q, k, v, bias, got_o, got_l), backward=False)
         print(f"K2 {name} BH={bh} Lq={lq} Lk={lk} D={d}: "
               f"fp32 out {res['float32']['out_err']:.3e} "
               f"lse {res['float32']['lse_err']:.3e} | "
               f"bf16 out {res['bfloat16']['out_err']:.3e} "
               f"lse {res['bfloat16']['lse_err']:.3e} | "
-              f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms",
-              flush=True)
+              f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+              f"library (SDPA, no lse) {res['library_ms']:.4f} ms, bound "
+              f"{res['bound_ms']:.5f} ms ({res['bound_by']})", flush=True)
         results[name] = res
     return results
 
@@ -181,6 +331,9 @@ def phase_k2b(device, shapes=K2_SHAPES, iters=20):
                 (compare(gt, wt, tol, f"{tag} {gn}"),
                  tol * max(1.0, wt.abs().max().item()))
                 for gn, gt, wt in zip(("dq", "dk", "dv"), got, want))
+            res[str(dtype)[6:] + "_rel"], res[str(dtype)[6:] + "_row"] = \
+                check_grads(("dq", "dk", "dv"), got, want, dout,
+                            str(dtype)[6:], tag)
             if dead:
                 check(all(bool((gt[0] == 0).all()) for gt in got),
                       f"{tag}: a bh with every key masked has non-zero "
@@ -191,11 +344,25 @@ def phase_k2b(device, shapes=K2_SHAPES, iters=20):
                 res["plain_ms"] = time_ms(
                     lambda: fa.flash_attention_backward_reference(
                         q, k, v, bias, out, lse, dout), iters)
+                leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+                lib_out = sdpa_key_bias(*leaves, bias)
+                res["library_ms"] = time_ms(lambda: torch.autograd.grad(
+                    lib_out, leaves, dout, retain_graph=True), iters)
+                del lib_out, leaves
+                res["bound_ms"], res["bound_by"] = attention_bound(
+                    k2_pairs(bh, lq, lk, bias), d,
+                    (q, k, v, bias, out, lse, dout, *got), backward=True)
         print(f"K2b {name} BH={bh} Lq={lq} Lk={lk} D={d}: "
               f"fp32 dq/dk/dv {res['float32']:.3e} (bound "
-              f"{res['float32_bound']:.2e}) | bf16 {res['bfloat16']:.3e} "
-              f"(bound {res['bfloat16_bound']:.2e}) | "
-              f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms",
+              f"{res['float32_bound']:.2e}), rel-L2 "
+              f"{res['float32_rel']:.3e}, row-scaled {res['float32_row']:.3e} "
+              f"| bf16 {res['bfloat16']:.3e} (bound "
+              f"{res['bfloat16_bound']:.2e}), rel-L2 "
+              f"{res['bfloat16_rel']:.3e}, row-scaled "
+              f"{res['bfloat16_row']:.3e} | "
+              f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+              f"library (autograd through SDPA) {res['library_ms']:.4f} ms, "
+              f"bound {res['bound_ms']:.5f} ms ({res['bound_by']})",
               flush=True)
         results[name] = res
     return results
@@ -204,6 +371,25 @@ def phase_k2b(device, shapes=K2_SHAPES, iters=20):
 # ---------------------------------------------------------------------------
 # K1: multi-branch dilated attention
 # ---------------------------------------------------------------------------
+
+def dilated_pairs(length, n_valid, segments, ratios, heads) -> float:
+    """(query, unmasked key) pairs of one batch row of a K1 call, summed
+    over its heads: in branch (w, r) a query meets the keys of its segment
+    (of length min(w, L)) in its residue class mod r, for the heads of that
+    class's group; keys past ``n_valid`` are masked and need no work."""
+    total = 0
+    for w, r in zip(segments, ratios):
+        sl = min(w, length)
+        per_group = -(-heads // r)
+        for s0 in range(0, length, sl):
+            s1 = min(s0 + sl, length)
+            for g in range(r):
+                n_heads = max(0, min(per_group, heads - g * per_group))
+                n_q = len(range(s0 + g, s1, r))
+                n_k = len(range(s0 + g, min(s1, n_valid), r))
+                total += n_heads * n_q * n_k
+    return float(total)
+
 
 def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
              segments=None, ratios=None, iters=20):
@@ -238,10 +424,14 @@ def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
                                                                   **kw), iters)
             res["plain_ms"] = time_ms(lambda: dilated_attention(q, k, v, **kw),
                                       iters)
+            res["bound_ms"], res["bound_by"] = attention_bound(
+                b * dilated_pairs(length, n_valid, segments, ratios, h), d,
+                (q, k, v, mask, got), backward=False)
     print(f"K1 B={b} L={length} H={h} D={d} valid={n_valid} "
           f"segments={tuple(segments)} ratios={tuple(ratios)}: "
           f"fp32 out {res['float32']:.3e} | bf16 out {res['bfloat16']:.3e} | "
-          f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms",
+          f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
+          f"{res['bound_ms']:.5f} ms ({res['bound_by']}), no library call",
           flush=True)
     return res
 
@@ -313,133 +503,426 @@ def phase_k1b(device, shape=(3, 10240, 16, 48), n_valid=9000,
                 plain_out, leaves, dmix, retain_graph=True), plain_iters,
                 warmup=1)
             del plain_out, leaves
+            res["bound_ms"], res["bound_by"] = attention_bound(
+                b * dilated_pairs(length, n_valid, segments, ratios, h), d,
+                (q, k, v, mask, dmix, stats, branch_out, *got), backward=True)
         torch.cuda.empty_cache()
     print(f"K1b B={b} L={length} H={h} D={d} valid={n_valid}: "
           f"stats fp32 {res['float32']['stats_err']:.3e} "
           f"bf16 {res['bfloat16']['stats_err']:.3e} | dq/dk/dv fp32 "
           f"{res['float32']['grad_err']:.3e} bf16 "
           f"{res['bfloat16']['grad_err']:.3e} | K1b kernel {res['ms']:.4f} "
-          f"ms, plain backward {res['plain_ms']:.4f} ms | K1f with stats "
-          f"{res['fwd_stats_ms']:.4f} ms", flush=True)
+          f"ms, plain backward {res['plain_ms']:.4f} ms, bound "
+          f"{res['bound_ms']:.5f} ms ({res['bound_by']}), no library call | "
+          f"K1f with stats {res['fwd_stats_ms']:.4f} ms", flush=True)
     return res
+
+
+# ---------------------------------------------------------------------------
+# K4: flash attention with the 2-D ALiBi bias (TITAN)
+# ---------------------------------------------------------------------------
+
+# (B, H, N, D, head chunk): 1 slide x 3 tasks, TITAN's 12 heads of 64, the
+# cls token + the 4,095- and 16,383-cell buckets. The plain version keeps
+# (B, H, N, N) fp32 scores: whole at 4,096 (2.4 GB a tensor), and at
+# 16,384 on slices of one batch row and `head chunk` heads (heads are
+# independent), whose times add up to the plain version's.
+K4_SHAPES = [
+    ("n4096", 3, 12, 4096, 64, 12),
+    ("n16384", 3, 12, 16384, 64, 2),
+]
+
+
+def k4_inputs(b, h, n, d, dtype, device, seed, masked=0.12):
+    """q/k/v/dout (B, H, N, D); coords3 with the cls row first and cells
+    of a 225 x 225 grid; the last ``masked`` share of the keys masked, and
+    batch row 0 with every key masked but the cls token; dout weighs the
+    valid query rows only."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v, dout = (torch.randn(b, h, n, d, generator=g) for _ in range(4))
+    coords3 = torch.zeros(b, n, 3)
+    coords3[:, 1:, :2] = torch.randint(0, 225, (b, n - 1, 2),
+                                       generator=g).float()
+    coords3[:, 0, 2] = 1.0
+    key_mask = torch.ones(b, n, dtype=torch.bool)
+    key_mask[:, n - int(round(masked * n)):] = False
+    key_mask[0, 1:] = False
+    dout = dout * key_mask[:, None, :, None]
+    slopes = torch.tensor([2.0 ** (-8.0 * (i + 1) / h) for i in range(h)])
+    return (*(t.to(device, dtype) for t in (q, k, v, dout)),
+            coords3.to(device), slopes.to(device), key_mask.to(device))
+
+
+def k4_slices(b, h, chunk):
+    """(batch row, head range) slices that the plain version fits in."""
+    return [(slice(i, i + 1), slice(j, j + chunk))
+            for i in range(b) for j in range(0, h, chunk)]
+
+
+def dense_alibi_bias(coords3, slopes, key_mask, dtype):
+    """The (B, H, N, N) additive mask the library call needs (ALiBi term
+    plus NEG_INF on masked keys), built one (row, head) plane at a time."""
+    import torch
+    from modaltune_tpu_torch.ops.alibi_flash import (NEG_INF,
+                                                     alibi_scores_bias)
+    b, n = key_mask.shape
+    out = torch.empty((b, slopes.numel(), n, n), dtype=dtype,
+                      device=coords3.device)
+    for i in range(b):
+        for j in range(slopes.numel()):
+            plane = alibi_scores_bias(coords3[i:i + 1], slopes[j:j + 1])[0, 0]
+            out[i, j] = torch.where(key_mask[i][None, :], plane, NEG_INF)
+    return out
+
+
+def phase_k4(device, shapes=K4_SHAPES, iters=10):
+    """K4f against its plain version, fp32 and bf16 (the plain version in
+    fp32 on the same values), whole or slice by slice; times in bf16 of
+    the kernel, the plain version and one ``scaled_dot_product_attention``
+    call with the dense bias built beforehand (its build is not timed; it
+    returns no lse). Returns {name: result dict}."""
+    import torch
+    import torch.nn.functional as F
+    af = importlib.import_module("modaltune_tpu_torch.ops.alibi_flash")
+    results = {}
+    for i, (name, b, h, n, d, chunk) in enumerate(shapes):
+        res = {}
+        scale = d ** -0.5
+        for dtype, out_tol, lse_tol in ((torch.float32, 2e-4, 1e-4),
+                                        (torch.bfloat16, 1.6e-2, 1e-2)):
+            q, k, v, _, coords3, slopes, key_mask = k4_inputs(
+                b, h, n, d, dtype, device, seed=400 + i)
+            got_o, got_l = af.alibi_flash_attention_cuda(
+                q, k, v, coords3, slopes, key_mask, scale)
+            torch.cuda.synchronize()
+            tag = f"K4 {name} {str(dtype)[6:]}"
+            err_o = err_l = 0.0
+            for bs, hs in k4_slices(b, h, chunk):
+                want_o, want_l = af.alibi_attention_reference(
+                    q[bs, hs].float(), k[bs, hs].float(), v[bs, hs].float(),
+                    coords3[bs], slopes[hs], key_mask[bs])
+                err_o = max(err_o, compare(got_o[bs, hs], want_o, out_tol,
+                                           f"{tag} out {bs} {hs}"))
+                e = (got_l[bs, hs] - want_l).abs().max().item()
+                check(e <= lse_tol, f"{tag} lse {bs} {hs}: max|err| {e:.3e}")
+                err_l = max(err_l, e)
+                del want_o, want_l
+            # batch row 0 keeps the cls key alone: every row's out is v[cls]
+            check(bool(torch.allclose(
+                got_o[0].float(), v[0, :, :1].float().expand_as(got_o[0]),
+                atol=1e-6)), f"{tag}: a cls-only row is not v[cls]")
+            res[str(dtype)[6:]] = dict(out_err=err_o, lse_err=err_l)
+            if dtype == torch.bfloat16:
+                # the plain version's time on the bf16 tensors the kernel
+                # gets: the sum over its slices, the first one warmed up
+                def plain(bs, hs):
+                    return af.alibi_attention_reference(
+                        q[bs, hs], k[bs, hs], v[bs, hs], coords3[bs],
+                        slopes[hs], key_mask[bs])
+                plain(*k4_slices(b, h, chunk)[0])
+                res["plain_ms"] = sum(
+                    timed_once(lambda: plain(bs, hs))[1]
+                    for bs, hs in k4_slices(b, h, chunk))
+                res["ms"] = time_ms(lambda: af.alibi_flash_attention_cuda(
+                    q, k, v, coords3, slopes, key_mask, scale), iters,
+                    warmup=1)
+                res["bound_ms"], res["bound_by"] = attention_bound(
+                    float(h * n * int(key_mask.sum())), d,
+                    (q, k, v, coords3, slopes, key_mask, got_o, got_l),
+                    backward=False)
+                del got_o, got_l
+                torch.cuda.empty_cache()
+                dense = dense_alibi_bias(coords3, slopes, key_mask, dtype)
+                res["library_ms"] = time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=dense), iters, warmup=1)
+                del dense
+            torch.cuda.empty_cache()
+        print(f"K4 {name} B={b} H={h} N={n} D={d} (plain version in "
+              f"{len(k4_slices(b, h, chunk))} slice(s)): "
+              f"fp32 out {res['float32']['out_err']:.3e} "
+              f"lse {res['float32']['lse_err']:.3e} | "
+              f"bf16 out {res['bfloat16']['out_err']:.3e} "
+              f"lse {res['bfloat16']['lse_err']:.3e} | "
+              f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+              f"library (SDPA with a dense bias, no lse) "
+              f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.5f} ms "
+              f"({res['bound_by']})", flush=True)
+        results[name] = res
+    return results
+
+
+def phase_k4b(device, shapes=K4_SHAPES, iters=10):
+    """K4b against its plain version from the same out and lse (K4f's),
+    fp32 and bf16, whole or slice by slice; times in bf16 of the kernel,
+    the plain version and autograd through one
+    ``scaled_dot_product_attention`` call with the dense bias. Returns
+    {name: result dict}."""
+    import torch
+    import torch.nn.functional as F
+    af = importlib.import_module("modaltune_tpu_torch.ops.alibi_flash")
+    results = {}
+    for i, (name, b, h, n, d, chunk) in enumerate(shapes):
+        res = {}
+        scale = d ** -0.5
+        for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
+            q, k, v, dout, coords3, slopes, key_mask = k4_inputs(
+                b, h, n, d, dtype, device, seed=500 + i)
+            out, lse = af.alibi_flash_attention_cuda(
+                q, k, v, coords3, slopes, key_mask, scale)
+            got = af.alibi_flash_attention_backward_cuda(
+                q, k, v, coords3, slopes, key_mask, out, lse, dout, scale)
+            torch.cuda.synchronize()
+            tag = f"K4b {name} {str(dtype)[6:]}"
+            err = bound = plain_ms = rel = row = 0.0
+            for n_done, (bs, hs) in enumerate(k4_slices(b, h, chunk)):
+                def plain(cast=torch.Tensor.float):
+                    return af.alibi_attention_backward_reference(
+                        cast(q[bs, hs]), cast(k[bs, hs]), cast(v[bs, hs]),
+                        coords3[bs], slopes[hs], key_mask[bs],
+                        cast(out[bs, hs]), lse[bs, hs], cast(dout[bs, hs]))
+                want = plain()
+                for gn, gt, wt in zip(("dq", "dk", "dv"), got, want):
+                    e = compare(gt[bs, hs], wt, tol, f"{tag} {gn} {bs} {hs}")
+                    if e > err:     # the worst gradient and its bound
+                        err, bound = e, tol * max(1.0, wt.abs().max().item())
+                # per slice and per tensor, against the slice's own norms
+                rel, row = map(max, (rel, row), check_grads(
+                    ("dq", "dk", "dv"), [gt[bs, hs] for gt in got], want,
+                    dout[bs, hs], str(dtype)[6:], f"{tag} {bs} {hs}"))
+                del want
+                if dtype == torch.bfloat16:
+                    if n_done == 0:
+                        plain(lambda t: t)
+                    plain_ms += timed_once(lambda: plain(lambda t: t))[1]
+            check(all(bool((gt[0, :, 1:] == 0).all()) for gt in got[1:]),
+                  f"{tag}: masked keys of the cls-only row have non-zero "
+                  f"dk or dv")
+            res[str(dtype)[6:]], res[str(dtype)[6:] + "_bound"] = err, bound
+            res[str(dtype)[6:] + "_rel"], res[str(dtype)[6:] + "_row"] = \
+                rel, row
+            if dtype == torch.bfloat16:
+                res["plain_ms"] = plain_ms
+                res["ms"] = time_ms(
+                    lambda: af.alibi_flash_attention_backward_cuda(
+                        q, k, v, coords3, slopes, key_mask, out, lse, dout,
+                        scale), iters, warmup=1)
+                res["bound_ms"], res["bound_by"] = attention_bound(
+                    float(h * n * int(key_mask.sum())), d,
+                    (q, k, v, coords3, slopes, key_mask, out, lse, dout,
+                     *got), backward=True)
+                del got
+                torch.cuda.empty_cache()
+                dense = dense_alibi_bias(coords3, slopes, key_mask, dtype)
+                leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+                lib_out = F.scaled_dot_product_attention(*leaves,
+                                                         attn_mask=dense)
+                res["library_ms"] = time_ms(lambda: torch.autograd.grad(
+                    lib_out, leaves, dout, retain_graph=True), iters,
+                    warmup=1)
+                del dense, leaves, lib_out
+            torch.cuda.empty_cache()
+        print(f"K4b {name} B={b} H={h} N={n} D={d}: fp32 dq/dk/dv "
+              f"{res['float32']:.3e} (bound {res['float32_bound']:.2e}), "
+              f"rel-L2 {res['float32_rel']:.3e}, row-scaled "
+              f"{res['float32_row']:.3e} | bf16 {res['bfloat16']:.3e} (bound "
+              f"{res['bfloat16_bound']:.2e}), rel-L2 "
+              f"{res['bfloat16_rel']:.3e}, row-scaled "
+              f"{res['bfloat16_row']:.3e} | kernel {res['ms']:.4f} ms, "
+              f"plain {res['plain_ms']:.4f} ms, library (autograd through "
+              f"SDPA with a dense bias) {res['library_ms']:.4f} ms, bound "
+              f"{res['bound_ms']:.5f} ms ({res['bound_by']})", flush=True)
+        results[name] = res
+    return results
 
 
 # ---------------------------------------------------------------------------
 # The slice: ModalTune-GigaPath embed step
 # ---------------------------------------------------------------------------
 
-def build_slice(device, dtype, cfg=None, n_genes=4987, n_groups=331,
-                max_size=100, in_chans=1536, bag_range=(9000, 10239),
-                bucket=10239, n_slides=3, seed=0):
-    """Model (random weights, Injector gammas non-zero), embed step and
-    the slides' batches on ``device``, built through the public entry
-    points."""
-    from modaltune_tpu_torch import make_embed_step
-    from modaltune_tpu_torch.configs import TrainConfig
-    from modaltune_tpu_torch.train import batch_to_device
-    model, host = build_model_and_data(
-        cfg, n_genes, n_groups, max_size, in_chans, bag_range, bucket,
-        n_slides, seed)
-    model = model.to(device=device, dtype=dtype).eval()
-    batches = [batch_to_device(b, device) for b in host]
-    return model, make_embed_step(model, TrainConfig()), batches
+# What differs between the two models' paths; everything else is shared.
+# ``config`` names the model configuration's factory in the port's
+# ``configs`` module; ``grid`` says that bags are grid-scattered first.
+GIGAPATH = dict(name="longnetvit_gene_adapter",
+                config="gigapath_modaltune_config", grid=False,
+                in_chans=1536, bag_range=(9000, 10239), bucket=10239)
+GIGAPATH_2047 = dict(bucket=2047, bag_range=(1791, 2047))
+# SyntheticSlideDataset draws patch coordinates on a 900 x 900 lattice of
+# 256-px tiles, a 225 x 225 grid of TITAN's 1,024-px cells: 17,000-19,500
+# patches scatter to about 14,400-16,200 foreground cells, inside the
+# 16,383-cell bucket (checked in ``build_batches``).
+TITAN = dict(name="titan_gene_adapter", config="TitanModalTuneConfig",
+             grid=True, in_chans=768, bag_range=(17000, 19500), bucket=16383)
+# the buckets the plain path fits: ~3,400-4,030 and ~1,670-2,010 cells
+TITAN_4095 = dict(bucket=4095, bag_range=(3500, 4200))
+TITAN_2047 = dict(bucket=2047, bag_range=(1700, 2050))
 
 
-def build_model_and_data(cfg=None, n_genes=4987, n_groups=331, max_size=100,
-                         in_chans=1536, bag_range=(9000, 10239), bucket=10239,
-                         n_slides=3, seed=0):
-    """The model on the CPU (random fp32 weights from ``seed``, Injector
-    gammas non-zero) and the host batches of ``n_slides`` synthetic slides
-    padded to ``bucket``, through the public entry points."""
-    import torch
-    from modaltune_tpu_torch import create_aggregator, init_weights
-    from modaltune_tpu_torch.configs import gigapath_modaltune_config
-    from modaltune_tpu_torch.data import (BucketedLoader, GenePacker,
-                                          SyntheticSlideDataset,
-                                          synthetic_pathways)
-    cfg = cfg or gigapath_modaltune_config()
+def synthetic_packer(n_genes=4987, n_groups=331, max_size=100):
+    """The gene packer of a synthetic pathway table."""
+    from modaltune_tpu_torch.data import GenePacker, synthetic_pathways
     groups = synthetic_pathways(n_genes=n_genes, n_groups=n_groups,
                                 max_size=max_size, seed=0)
-    packer = GenePacker.build(groups, [f"g{i}" for i in range(n_genes)])
-    model = create_aggregator("longnetvit_gene_adapter", cfg=cfg,
+    return GenePacker.build(groups, [f"g{i}" for i in range(n_genes)])
+
+
+def model_config(config):
+    """The model configuration that the factory ``config`` of the port's
+    ``configs`` module makes."""
+    return getattr(importlib.import_module("modaltune_tpu_torch.configs"),
+                   config)()
+
+
+def build_batches(name, config, grid, in_chans, bag_range, bucket,
+                  n_genes=4987, n_groups=331, max_size=100, n_slides=3,
+                  seed=0):
+    """The host batches of ``n_slides`` synthetic slides padded to
+    ``bucket`` (grid-scattered first where ``grid``), through the port's
+    data layer."""
+    from modaltune_tpu_torch.data import (BucketedLoader,
+                                          SyntheticSlideDataset,
+                                          TitanGridDataset)
+    ds = SyntheticSlideDataset(
+        n_cases=n_slides, in_chans=in_chans, bag_range=bag_range,
+        packer=synthetic_packer(n_genes, n_groups, max_size),
+        n_genes=n_genes, seed=seed)
+    if grid:
+        ds = TitanGridDataset(ds, model_config(config).backbone.patch_size_lv0)
+    # a bag over the bucket would be cut: every slide must fit it whole
+    lengths = [ds.get(i, None).bag.shape[0] for i in range(n_slides)]
+    check(max(lengths) <= bucket,
+          f"{name}: bags of {lengths} tokens do not fit the {bucket} bucket")
+    return list(BucketedLoader(ds, buckets=(bucket,), batch_size=1,
+                               shuffle=False, prefetch=0,
+                               device_prefetch=False))
+
+
+def build_model(device, name, config, n_genes=4987, n_groups=331,
+                max_size=100, seed=0, **_data_kw):
+    """The model ``name`` on ``device`` through the public entry points:
+    random fp32 weights from ``seed``, Injector gammas non-zero."""
+    import torch
+    from modaltune_tpu_torch import create_aggregator, init_weights
+    from modaltune_tpu_torch.models import fill_normal_
+    packer = synthetic_packer(n_genes, n_groups, max_size)
+    model = create_aggregator(name, device=device, cfg=model_config(config),
                               n_gene_groups=packer.n_groups,
                               max_group_len=packer.max_group_len)
     g = torch.Generator().manual_seed(seed)
     init_weights(model, g)
     with torch.no_grad():   # init_values = 0 would make the Injectors no-ops
         for block in model.interactions:
-            block.injector.gamma.normal_(0.0, 0.1, generator=g)
-    ds = SyntheticSlideDataset(n_cases=n_slides, in_chans=in_chans,
-                               bag_range=bag_range, packer=packer,
-                               n_genes=n_genes, seed=seed)
-    loader = BucketedLoader(ds, buckets=(bucket,), batch_size=1,
-                            shuffle=False, prefetch=0, device_prefetch=False)
-    return model, list(loader)
+            fill_normal_(block.injector.gamma, 0.1, g)
+    return model
+
+
+def build_slice(device, dtype, **data_kw):
+    """Model in ``dtype``, embed step and the slides' batches on
+    ``device``; ``data_kw`` goes to :func:`build_model` and
+    :func:`build_batches`."""
+    from modaltune_tpu_torch import make_embed_step
+    from modaltune_tpu_torch.configs import TrainConfig
+    from modaltune_tpu_torch.train import batch_to_device
+    model = build_model(device, **data_kw).to(dtype=dtype).eval()
+    batches = [batch_to_device(b, device) for b in build_batches(**data_kw)]
+    return model, make_embed_step(model, TrainConfig()), batches
 
 
 def plain_kernels():
-    """Patch the model's kernel entry points with their plain versions (a
+    """Patch the models' kernel entry points with their plain versions (a
     comparison path of this script only); autograd differentiates them."""
+    from modaltune_tpu_torch.ops.alibi_flash import alibi_attention_reference
     from modaltune_tpu_torch.ops.dilated import dilated_attention
     from modaltune_tpu_torch.ops.flash_attention import \
         flash_attention_reference
+
+    def plain_alibi(q, k, v, coords3, slopes, key_mask=None, scale=None):
+        return alibi_attention_reference(q, k, v, coords3, slopes, key_mask,
+                                         scale)[0]
+
     return [mock.patch("modaltune_tpu_torch.models.longnet."
                        "mega_dilated_attention", dilated_attention),
             mock.patch("modaltune_tpu_torch.models.layers.flash_attention",
-                       flash_attention_reference)]
+                       flash_attention_reference),
+            mock.patch("modaltune_tpu_torch.models.titan."
+                       "alibi_flash_attention", plain_alibi)]
 
 
-def phase_slice(device, dtype, build_kw=None, timing_rounds=3, card=""):
-    import torch
-    fa = importlib.import_module("modaltune_tpu_torch.ops.flash_attention")
-    dm = importlib.import_module("modaltune_tpu_torch.ops.dilated_mega")
-    t0 = time.perf_counter()
-    model, step, batches = build_slice(device, dtype, **(build_kw or {}))
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"slice: model built in {time.perf_counter() - t0:.1f} s, "
-          f"{n_params} parameters, {len(batches)} slides of bucket "
-          f"{batches[0]['bag'].shape[1]}", flush=True)
-
-    # the main path: every launch count starts at 0 just before it
-    fa.LAUNCHES = 0
-    dm.LAUNCHES = 0
-    outs = [step(b) for b in batches]
-    torch.cuda.synchronize()
-    launches = {"K1": dm.LAUNCHES, "K2": fa.LAUNCHES}
-    n_layers = len(model.backbone.encoder.layers)
-    n_k2 = (sum(2 + len(blk.extra_extractors) for blk in model.interactions)
-            + len(model.prompt_sa))
-    for i, out in enumerate(outs):
-        check(tuple(out.shape) == (1, 3, model.cfg.adapter.output_dim),
-              f"slide {i}: embedding shape {tuple(out.shape)}")
-        check(bool(torch.isfinite(out.float()).all()),
-              f"slide {i}: non-finite embedding")
-    check(launches == {"K1": n_layers * len(batches),
-                       "K2": n_k2 * len(batches)},
-          f"launch counts {launches} != {n_layers} K1 and {n_k2} K2 per "
-          f"slide")
-    print(f"slice: {len(outs)} embeddings {tuple(outs[0].shape)} finite; "
-          f"launches K1 {launches['K1']} ({n_layers}/slide), "
-          f"K2 {launches['K2']} ({n_k2}/slide)", flush=True)
-
-    # the same slide through the plain versions
+def run_plain(fn):
+    """``fn()`` with every kernel entry point patched to its plain
+    version."""
     patches = plain_kernels()
     for p in patches:
         p.start()
     try:
-        plain = step(batches[0])
-        torch.cuda.synchronize()
+        return fn()
     finally:
         for p in patches:
             p.stop()
-    a, b = outs[0].float().flatten(), plain.float().flatten()
+
+
+def phase_slice(device, dtype, build_kw=None, timing_rounds=3, card="",
+                tag="slice", compare_kw=None):
+    """The full-width embed step on the slides of ``build_kw``: shapes,
+    finite values and the launch counts of the main path (K1f once per
+    LongNet layer, K4f once per TITAN block, K2f once per adapter
+    attention, no backward kernel); the embeddings against the plain path,
+    on slide 0, or where the plain path does not fit the bucket on a
+    slide of ``compare_kw``'s bucket and bag range; ms/slide and peak
+    memory."""
+    import torch
+    from modaltune_tpu_torch.train import batch_to_device
+    build_kw = build_kw or GIGAPATH
+    t0 = time.perf_counter()
+    model, step, batches = build_slice(device, dtype, **build_kw)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{tag}: model built in {time.perf_counter() - t0:.1f} s, "
+          f"{n_params} parameters, {len(batches)} slides of bucket "
+          f"{batches[0]['bag'].shape[1]} with "
+          f"{[int(b['mask'].sum()) for b in batches]} valid tokens",
+          flush=True)
+
+    # the main path: every launch count starts at 0 just before it
+    reset_counts()
+    outs = [step(b) for b in batches]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    per = calls_per_forward(model)
+    for i, out in enumerate(outs):
+        check(tuple(out.shape) == (1, 3, model.cfg.adapter.output_dim),
+              f"{tag} slide {i}: embedding shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out.float()).all()),
+              f"{tag} slide {i}: non-finite embedding")
+    want = {"K1f": per["K1"], "K1b": 0, "K2f": per["K2"], "K2b": 0,
+            "K4f": per["K4"], "K4b": 0}
+    check(launches == {k: n * len(batches) for k, n in want.items()},
+          f"{tag}: launch counts {launches} != {want} per slide")
+    print(f"{tag}: {len(outs)} embeddings {tuple(outs[0].shape)} finite; "
+          f"launches per slide K1f {per['K1']}, K2f {per['K2']}, K4f "
+          f"{per['K4']} (total {launches})", flush=True)
+
+    # one slide through the kernels and through the plain versions
+    if compare_kw is None:
+        batch, got = batches[0], outs[0]
+    else:
+        (host,) = build_batches(**{**build_kw, **compare_kw}, n_slides=1)
+        batch = batch_to_device(host, device)
+        got = step(batch)
+    plain = run_plain(lambda: step(batch))
+    torch.cuda.synchronize()
+    a, b = got.float().flatten(), plain.float().flatten()
     cos = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
     rel = ((a - b).norm() / b.norm()).item()
-    print(f"slice: kernel vs plain embeddings of slide 0: cosine {cos:.6f}, "
-          f"rel-L2 {rel:.3e}", flush=True)
+    print(f"{tag}: kernel vs plain embeddings of a slide at bucket "
+          f"{batch['bag'].shape[1]}: cosine {cos:.6f}, rel-L2 {rel:.3e}",
+          flush=True)
     check(cos >= 0.999 and rel <= 2e-2,
-          f"kernel vs plain embeddings: cosine {cos:.6f}, rel-L2 {rel:.3e}")
+          f"{tag} kernel vs plain embeddings: cosine {cos:.6f}, rel-L2 "
+          f"{rel:.3e}")
+    del plain, got
+    torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -451,11 +934,11 @@ def phase_slice(device, dtype, build_kw=None, timing_rounds=3, card=""):
             times.append((time.perf_counter() - t) * 1e3)
     ms = statistics.median(times)
     peak = torch.cuda.max_memory_allocated()
-    print(f"slice: embed step {ms:.2f} ms/slide median of {len(times)} "
+    print(f"{tag}: embed step {ms:.2f} ms/slide median of {len(times)} "
           f"({1e3 / ms:.3f} slides/s), peak allocated {peak / 2**30:.3f} GiB"
           f"{'; ' + card if card else ''}", flush=True)
     return dict(launches=launches, cosine=cos, rel_l2=rel, ms=ms,
-                peak_bytes=peak, n_per_slide={"K1": n_layers, "K2": n_k2})
+                peak_bytes=peak, per_slide=per)
 
 
 # Trainable tensors whose gradient is exactly zero in exact arithmetic and
@@ -468,40 +951,41 @@ NULL_GRAD = ("k_proj.bias", "token.b2", "compress_bias")
 def build_train(device, seed=0, **data_kw):
     """The train step's model (frozen backbone in bf16, trainable adapter
     in fp32), optimizer, projected text targets and batch on ``device``;
-    ``data_kw`` goes to :func:`build_model_and_data`."""
+    ``data_kw`` goes to :func:`build_model` and :func:`build_batches`."""
     import torch
     from modaltune_tpu_torch import (TextProjector, freeze_backbone,
                                      init_weights, make_optimizer,
                                      project_text)
     from modaltune_tpu_torch.configs import TrainConfig
     from modaltune_tpu_torch.train import batch_to_device
-    model, host = build_model_and_data(n_slides=1, seed=seed, **data_kw)
-    model = model.to(device)
+    model = build_model(device, seed=seed, **data_kw)
+    (host,) = build_batches(n_slides=1, seed=seed, **data_kw)
     tcfg = TrainConfig()
     opt = make_optimizer(tcfg, freeze_backbone(model, torch.bfloat16),
                          steps_per_epoch=1)
     projector = init_weights(TextProjector(),
                              torch.Generator().manual_seed(seed + 99))
     projector = projector.to(device).requires_grad_(False)
-    text = project_text(projector, torch.from_numpy(host[0].text).to(device))
-    return model, tcfg, opt, text, batch_to_device(host[0], device)
+    text = project_text(projector, torch.from_numpy(host.text).to(device))
+    return model, tcfg, opt, text, batch_to_device(host, device)
 
 
-def phase_train(device, steps=3, timed_steps=5, compare_bucket=2047,
-                card="", build_kw=None):
+def phase_train(device, steps=3, timed_steps=5, compare_kw=None,
+                card="", build_kw=None, tag="train"):
     """The full-width train step: ``steps`` steps with the launch counts
-    checked (K1f, K1b once per backbone layer, K2f, K2b once per adapter
-    attention), loss finite, trainable parameters moved, frozen backbone
-    bit-identical; then ms/step and peak memory over ``timed_steps``; then
-    the step's loss and adapter gradients against the plain path at the
-    ``compare_bucket`` bucket, where the plain path's saved scores fit
-    (about 12 x 0.67 GB at 2,047): in bf16 as a whole, and in fp32 each
-    gradient tensor on its own."""
+    checked (K1f and K1b once per LongNet layer, K4f and K4b once per
+    TITAN block, K2f and K2b once per adapter attention), loss finite,
+    trainable parameters moved, frozen backbone bit-identical; then
+    ms/step and peak memory over ``timed_steps``; then the step's loss and
+    adapter gradients against the plain path at ``compare_kw``'s bucket
+    (2,047 unless given), where the plain path's saved scores fit (about
+    12 x 0.67 GB for LongNet at 2,047): in bf16 as a whole, and in fp32
+    each gradient tensor on its own."""
     import torch
     from modaltune_tpu_torch import make_grad_step, make_train_step
-    fa = importlib.import_module("modaltune_tpu_torch.ops.flash_attention")
-    dm = importlib.import_module("modaltune_tpu_torch.ops.dilated_mega")
-    build_kw = build_kw or {}
+    build_kw = build_kw or GIGAPATH
+    compare_kw = compare_kw or GIGAPATH_2047
+    compare_bucket = compare_kw["bucket"]
     t0 = time.perf_counter()
     model, tcfg, opt, text, batch = build_train(device, **build_kw)
     step = make_train_step(model, tcfg, opt)
@@ -511,38 +995,33 @@ def phase_train(device, steps=3, timed_steps=5, compare_bucket=2047,
               if p.requires_grad}
     gen = torch.Generator(device=device).manual_seed(1)
     torch.cuda.synchronize()
-    print(f"train: model built in {time.perf_counter() - t0:.1f} s, "
+    print(f"{tag}: model built in {time.perf_counter() - t0:.1f} s, "
           f"{sum(p.numel() for p in before.values())} trainable fp32 and "
           f"{sum(p.numel() for p in frozen.values())} frozen bf16 "
-          f"parameters, bucket {batch['bag'].shape[1]}", flush=True)
+          f"parameters, bucket {batch['bag'].shape[1]} with "
+          f"{int(batch['mask'].sum())} valid tokens", flush=True)
 
     # the main path: every launch count starts at 0 just before it
-    fa.LAUNCHES = fa.BWD_LAUNCHES = 0
-    dm.LAUNCHES = dm.BWD_LAUNCHES = 0
+    reset_counts()
     losses = [float(step(batch, text, gen)) for _ in range(steps)]
     torch.cuda.synchronize()
-    launches = {"K1f": dm.LAUNCHES, "K1b": dm.BWD_LAUNCHES,
-                "K2f": fa.LAUNCHES, "K2b": fa.BWD_LAUNCHES}
-    n_layers = len(model.backbone.encoder.layers)
-    n_k2 = (sum(2 + len(blk.extra_extractors) for blk in model.interactions)
-            + len(model.prompt_sa))
-    per_step = {"K1f": n_layers, "K1b": n_layers, "K2f": n_k2, "K2b": n_k2}
+    launches = read_counts()
+    per = calls_per_forward(model)
+    per_step = {f"{k}{d}": n for k, n in per.items() for d in "fb"}
     check(launches == {k: n * steps for k, n in per_step.items()},
-          f"train launch counts {launches} != {per_step} per step x {steps}")
-    check(all(math.isfinite(x) for x in losses), f"train losses {losses}")
+          f"{tag} launch counts {launches} != {per_step} per step x {steps}")
+    check(all(math.isfinite(x) for x in losses), f"{tag} losses {losses}")
     # every trainable tensor moves, except perhaps the NULL_GRAD ones
     still = [n for n, p in model.named_parameters()
              if p.requires_grad and torch.equal(p.detach(), before[n])]
     check(all(n.endswith(NULL_GRAD) for n in still),
-          f"trainable tensors did not move: {still}")
+          f"{tag}: trainable tensors did not move: {still}")
     moved = len(before) - len(still)
     check(all(torch.equal(p.detach(), frozen[n])
               for n, p in model.named_parameters() if not p.requires_grad),
-          "the frozen backbone changed")
-    print(f"train: {steps} steps, losses {[round(x, 6) for x in losses]}, "
-          f"launches per step K1f {launches['K1f'] // steps} K1b "
-          f"{launches['K1b'] // steps} K2f {launches['K2f'] // steps} K2b "
-          f"{launches['K2b'] // steps}; {moved} of {len(before)} trainable "
+          f"{tag}: the frozen backbone changed")
+    print(f"{tag}: {steps} steps, losses {[round(x, 6) for x in losses]}, "
+          f"launches per step {per_step}; {moved} of {len(before)} trainable "
           f"tensors moved, backbone bit-identical", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
@@ -554,7 +1033,7 @@ def phase_train(device, steps=3, timed_steps=5, compare_bucket=2047,
         times.append((time.perf_counter() - t) * 1e3)
     ms = statistics.median(times)
     peak = torch.cuda.max_memory_allocated()
-    print(f"train: step {ms:.2f} ms median of {len(times)} "
+    print(f"{tag}: step {ms:.2f} ms median of {len(times)} "
           f"({[round(x, 2) for x in times]}), peak allocated "
           f"{peak / 2**30:.3f} GiB{'; ' + card if card else ''}", flush=True)
     del model, opt, step, frozen, before, batch
@@ -565,27 +1044,19 @@ def phase_train(device, steps=3, timed_steps=5, compare_bucket=2047,
     # bf16 as the step trains, and in fp32 (the backbone cast up, so no
     # autocast), where rounding is small enough to hold each tensor alone
     model, tcfg, _, text, batch = build_train(
-        device, bucket=compare_bucket,
-        bag_range=(compare_bucket * 7 // 8, compare_bucket), **{
-            k: v for k, v in build_kw.items()
-            if k not in ("bucket", "bag_range")})
+        device, **{**build_kw, **compare_kw})
     model32 = copy.deepcopy(model)
     model32.backbone.float()
     runs = {}
     for dt, m in (("bf16", model), ("fp32", model32)):
         for plain in (False, True):
-            patches = plain_kernels() if plain else []
-            for p in patches:
-                p.start()
-            try:
+            def grad_step(m=m):
                 gen = torch.Generator(device=device).manual_seed(2)
                 loss, grads = make_grad_step(m, tcfg)(batch, text, gen)
-                runs[dt, plain] = (float(loss), {
-                    n: g.float().flatten() for n, g in grads.items()})
                 torch.cuda.synchronize()
-            finally:
-                for p in patches:
-                    p.stop()
+                return float(loss), {n: g.float().flatten()
+                                     for n, g in grads.items()}
+            runs[dt, plain] = run_plain(grad_step) if plain else grad_step()
     (loss_k, g_k), (loss_p, g_p) = runs["bf16", False], runs["bf16", True]
     (loss_k32, g_k32), (loss_32, g_32) = (runs["fp32", False],
                                           runs["fp32", True])
@@ -612,19 +1083,19 @@ def phase_train(device, steps=3, timed_steps=5, compare_bucket=2047,
         e_k[n], e_p[n] = rel_l2(g_k[n], g_32[n]), rel_l2(g_p[n], g_32[n])
     w32, wnull = max(err32, key=err32.get), max(null32, key=null32.get)
     wk, wp = max(e_k, key=e_k.get), max(e_p, key=e_p.get)
-    print(f"train: kernel vs plain at bucket {compare_bucket}, bf16: loss "
+    print(f"{tag}: kernel vs plain at bucket {compare_bucket}, bf16: loss "
           f"{loss_k:.6f} vs {loss_p:.6f} (rel {rel:.3e}); adapter gradients "
           f"cosine {cos:.6f}; largest per-tensor rel-L2 from the fp32 plain "
           f"path {e_k[wk]:.3e} ({wk}) vs {e_p[wp]:.3e} plain ({wp})",
           flush=True)
-    print(f"train: kernel vs plain at bucket {compare_bucket}, fp32: loss "
+    print(f"{tag}: kernel vs plain at bucket {compare_bucket}, fp32: loss "
           f"rel {rel32:.3e}; largest rel-L2 of a tensor (of {len(err32)}) "
           f"{err32[w32]:.3e} ({w32}); {len(null32)} NULL_GRAD tensors "
           f"{NULL_GRAD}: largest max|kernel - plain| / max|g| "
           f"{null32[wnull]:.3e} ({wnull}), max|g| {g_all:.3e}", flush=True)
     check(cos >= 0.999 and rel <= 1e-2 and e_k[wk] <= 2 * e_p[wp]
           and rel32 <= 1e-5 and err32[w32] <= 1e-4 and null32[wnull] <= 1e-4,
-          f"train kernel vs plain: bf16 gradient cosine {cos:.6f}, loss rel "
+          f"{tag} kernel vs plain: bf16 gradient cosine {cos:.6f}, loss rel "
           f"{rel:.3e}, worst tensor {e_k[wk]:.3e} vs {e_p[wp]:.3e} plain; "
           f"fp32 loss rel {rel32:.3e}, worst tensor {w32} {err32[w32]:.3e}, "
           f"NULL_GRAD max|err| / max|g| {null32[wnull]:.3e}")
@@ -656,59 +1127,86 @@ def main() -> int:
     info = _build.build_library()
     _build.load_library()
     print(f"build: {info['seconds']:.1f} s -> {info['path']}")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"build: {line.strip()}")
+    # ptxas -v, summed up (the whole log lies beside the library)
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", info["log"])]
+    spills = [int(m) for m in re.findall(r"(\d+) bytes spill loads",
+                                         info["log"])]
+    if regs:
+        print(f"build: {len(regs)} kernels, at most {max(regs)} registers; "
+              f"{sum(1 for x in spills if x)} spill, at most {max(spills)} "
+              f"bytes of spill loads")
 
-    # 3-6. kernels against their plain versions
+    # 3-8. kernels against their plain versions
     k2 = phase_k2(device, iters=10)
     k2b = phase_k2b(device, iters=10)
     k1 = phase_k1(device, iters=10)
     k1b = phase_k1b(device)
+    k4 = phase_k4(device)
+    k4b = phase_k4b(device)
 
-    # 7. the embed step
-    sl = phase_slice(device, torch.bfloat16, card=card, timing_rounds=2)
+    # 9-10. ModalTune-GigaPath: the embed step, the train step
+    paths = {
+        "gigapath_embed": phase_slice(device, torch.bfloat16, card=card,
+                                      build_kw=GIGAPATH, timing_rounds=2),
+        "gigapath_train": phase_train(device, card=card, build_kw=GIGAPATH,
+                                      compare_kw=GIGAPATH_2047),
+    }
+    # 11-12. ModalTune-TITAN: the embed step, the train step
+    paths["titan_embed"] = phase_slice(
+        device, torch.bfloat16, card=card, build_kw=TITAN, timing_rounds=2,
+        tag="titan slice", compare_kw=TITAN_4095)
+    paths["titan_train"] = phase_train(
+        device, card=card, build_kw=TITAN, compare_kw=TITAN_2047,
+        tag="titan train")
 
-    # 8. the train step
-    tr = phase_train(device, card=card)
+    def kernel(key, name, replaces, err, res, by_shape=None):
+        """One entry of the kernels line. launches: the sum over the four
+        paths' runs (by_path: each run's own count, every count set to 0
+        just before it); max_abs_err: the largest output or gradient error
+        of any comparison above; ms, plain_ms, bound_ms, library_ms: at
+        K1's one shape, K2's Extractor shape, K4's N = 16,384 (by_shape:
+        the others)."""
+        by_path = {p: r["launches"][key] for p, r in paths.items()}
+        out = {"name": name, "route": "cuda",
+               "source": f"modaltune_tpu_torch/csrc/{name}.cu",
+               "replaces": replaces, "launches": sum(by_path.values()),
+               "launches_by_path": by_path, "max_abs_err": err,
+               "ms": res["ms"], "plain_ms": res["plain_ms"],
+               "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+               "library_ms": res.get("library_ms")}
+        if by_shape:
+            out["by_shape"] = {
+                shape: {k: r.get(k) for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")}
+                for shape, r in by_shape.items()}
+        check(out["launches"] > 0, f"{name} was launched on no path")
+        return out
 
+    both = ("float32", "bfloat16")
     kernels = [
-        {"name": "dilated_attention_fwd", "route": "cuda",
-         "source": "modaltune_tpu_torch/csrc/dilated_attention_fwd.cu",
-         "replaces": "modaltune_tpu/ops/dilated_mega.py:426",
-         "launches": tr["launches"]["K1f"],
-         "launches_embed": sl["launches"]["K1"],
-         "max_abs_err": max(k1["float32"], k1["bfloat16"]),
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
-        {"name": "dilated_attention_bwd", "route": "cuda",
-         "source": "modaltune_tpu_torch/csrc/dilated_attention_bwd.cu",
-         "replaces": "modaltune_tpu/ops/dilated_mega.py:641",
-         "launches": tr["launches"]["K1b"],
-         "max_abs_err": max(k1b[dt]["grad_err"]
-                            for dt in ("float32", "bfloat16")),
-         "ms": k1b["ms"], "plain_ms": k1b["plain_ms"]},
-        {"name": "flash_attention_fwd", "route": "cuda",
-         "source": "modaltune_tpu_torch/csrc/flash_attention_fwd.cu",
-         "replaces": "modaltune_tpu/ops/flash_attention.py:101",
-         "launches": tr["launches"]["K2f"],
-         "launches_embed": sl["launches"]["K2"],
-         "max_abs_err": max(r[dt]["out_err"] for r in k2.values()
-                            for dt in ("float32", "bfloat16")),
-         "ms": k2["extractor"]["ms"],
-         "plain_ms": k2["extractor"]["plain_ms"]},
-        {"name": "flash_attention_bwd", "route": "cuda",
-         "source": "modaltune_tpu_torch/csrc/flash_attention_bwd.cu",
-         "replaces": "modaltune_tpu/ops/flash_attention.py:214",
-         "launches": tr["launches"]["K2b"],
-         "max_abs_err": max(r[dt] for r in k2b.values()
-                            for dt in ("float32", "bfloat16")),
-         "ms": k2b["extractor"]["ms"],
-         "plain_ms": k2b["extractor"]["plain_ms"]},
+        kernel("K1f", "dilated_attention_fwd",
+               "modaltune_tpu/ops/dilated_mega.py:426",
+               max(k1[dt] for dt in both), k1),
+        kernel("K1b", "dilated_attention_bwd",
+               "modaltune_tpu/ops/dilated_mega.py:641",
+               max(k1b[dt]["grad_err"] for dt in both), k1b),
+        kernel("K2f", "flash_attention_fwd",
+               "modaltune_tpu/ops/flash_attention.py:155",
+               max(r[dt]["out_err"] for r in k2.values() for dt in both),
+               k2["extractor"], k2),
+        kernel("K2b", "flash_attention_bwd",
+               "modaltune_tpu/ops/flash_attention.py:292",
+               max(r[dt] for r in k2b.values() for dt in both),
+               k2b["extractor"], k2b),
+        kernel("K4f", "alibi_attention_fwd",
+               "modaltune_tpu/ops/alibi_flash.py:552",
+               max(r[dt]["out_err"] for r in k4.values() for dt in both),
+               k4["n16384"], k4),
+        kernel("K4b", "alibi_attention_bwd",
+               "modaltune_tpu/ops/alibi_flash.py:594",
+               max(r[dt] for r in k4b.values() for dt in both),
+               k4b["n16384"], k4b),
     ]
-    # launches: the train step's run (launches_embed: the embed step's);
-    # max_abs_err: the largest output or gradient error of any comparison
-    # above; ms and plain_ms: K1f/K1b at their one shape, K2f/K2b at the
-    # Extractor shape
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

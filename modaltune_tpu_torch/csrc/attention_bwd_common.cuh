@@ -75,9 +75,11 @@ __device__ __forceinline__ float lse_for_bwd(float lse) {
 // other rows [0, no) of the current tile. KEYS_OWN = false: the own rows are
 // queries, acc1 += dS k. KEYS_OWN = true: the own rows are keys,
 // acc1 += P w dmix (dv) and acc2 += dS q*scale (dk).
-template <int DP, bool KEYS_OWN>
+// `term(query, key)` is one more additive term of the score (see NoTerm).
+template <int DP, bool KEYS_OWN, typename Term = NoTerm>
 __device__ __forceinline__ void bwd_fold(const BwdTiles<DP, KEYS_OWN>& t, int row0, int stride,
-                                         int nr, int no, int warp, int lane) {
+                                         int nr, int no, int warp, int lane,
+                                         Term term = Term()) {
   constexpr int S = BwdPlan<DP, KEYS_OWN>::S;
   constexpr int R = kRowsPerWarp;
   constexpr int C = kKeysPerLane;
@@ -130,7 +132,8 @@ __device__ __forceinline__ void bwd_fold(const BwdTiles<DP, KEYS_OWN>& t, int ro
       if (j < no) {
         const int qi = KEYS_OWN ? j : r;  // the query of the pair
         const int kj = KEYS_OWN ? r : j;  // the key of the pair
-        if (t.bias[kj] > kMaskThreshold) p = __expf(x[i][c] + t.bias[kj] - t.lse[qi]);
+        if (t.bias[kj] > kMaskThreshold)
+          p = __expf(x[i][c] + t.bias[kj] + term(qi, kj) - t.lse[qi]);
         ds = p * (t.w[qi] * y[i][c] - t.delta[qi]);
         if (KEYS_OWN) p *= t.w[qi];
       }

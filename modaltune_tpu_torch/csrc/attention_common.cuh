@@ -1,6 +1,7 @@
 // Shared pieces of the attention kernels (flash_attention_{fwd,bwd}.cu,
-// dilated_attention_{fwd,bwd}.cu): tile geometry, the forward's shared-memory
-// plan, dtype conversion, the online-softmax update of a group of query rows,
+// dilated_attention_{fwd,bwd}.cu, alibi_attention_{fwd,bwd}.cu): tile
+// geometry, the forward's shared-memory plan, dtype conversion, the
+// online-softmax update of a group of query rows, the 2-D ALiBi score term,
 // and the LongNet branch geometry.
 //
 // A block owns kBlockQ query rows. Their softmax state lives in shared
@@ -114,14 +115,51 @@ __device__ __forceinline__ void load_rows(float* dst, const T* base, int n, int 
   }
 }
 
+// The score of a (query row, key) pair of the current tiles may carry one
+// more additive term than the key bias: term(row, j), with both indices
+// local to their tiles. Plain attention has none.
+struct NoTerm {
+  __device__ __forceinline__ float operator()(int, int) const { return 0.f; }
+};
+
+// The 2-D ALiBi term of the TITAN attention (alibi_attention_{fwd,bwd}.cu):
+//   -slope * ||c_i - c_j||_2 * (1 - cls_i) * (1 - cls_j).
+// qc and kc are [3][64] planes in shared memory: row, column, and the factor
+// of the pair's weight that the side owns (slope * (1 - cls) for the
+// queries, 1 - cls for the keys). The distance is taken directly, not as
+// |c_i|^2 + |c_j|^2 - 2 c_i.c_j: no cancellation for any coordinates.
+struct AlibiTerm {
+  const float* qc;
+  const float* kc;
+  __device__ __forceinline__ float operator()(int qi, int kj) const {
+    const float dy = qc[qi] - kc[kj];
+    const float dx = qc[kBlockQ + qi] - kc[kBlockK + kj];
+    return -(qc[2 * kBlockQ + qi] * kc[2 * kBlockK + kj]) * sqrtf(dy * dy + dx * dx);
+  }
+};
+
+// Load the coordinate planes of `n` tokens starting at token t0 of a
+// (N, 3) [row, col, is_cls] array; the third plane is w * (1 - is_cls).
+// Rows past n get coordinates 0 and weight 0.
+__device__ __forceinline__ void load_coords(float* plane, const float* coords, int t0, int n,
+                                            float w) {
+  static_assert(kBlockQ == kBlockK, "one plane stride serves either side");
+  for (int i = threadIdx.x; i < kBlockQ; i += kThreads) {
+    const float* c = coords + static_cast<size_t>(t0 + i) * 3;
+    plane[i] = i < n ? c[0] : 0.f;
+    plane[kBlockQ + i] = i < n ? c[1] : 0.f;
+    plane[2 * kBlockQ + i] = i < n ? w * (1.f - c[2]) : 0.f;
+  }
+}
+
 // Fold keys [0, nk) of the current tile into the query rows
 // row0 + stride * i, i < nr <= kRowsPerWarp: the flash-attention
 // online-softmax update, executed by one warp.
 // A masked key gets exactly zero weight even when the whole tile is masked:
 // its score is -inf, while the running max never drops below NEG_INF.
-template <int DP>
+template <int DP, typename Term = NoTerm>
 __device__ __forceinline__ void fold_rows(const Tiles<DP>& t, int row0, int stride, int nr,
-                                          int nk, int warp, int lane) {
+                                          int nk, int warp, int lane, Term term = Term()) {
   constexpr int QS = Plan<DP>::QS, KS = Plan<DP>::KS;
   constexpr int R = kRowsPerWarp;
   int rows[R];
@@ -161,7 +199,8 @@ __device__ __forceinline__ void fold_rows(const Tiles<DP>& t, int row0, int stri
 #pragma unroll
     for (int c = 0; c < kKeysPerLane; ++c) {
       const int j = lane + 32 * c;
-      s[i][c] = (j < nk && t.bias[j] > kMaskThreshold) ? s[i][c] + t.bias[j] : -INFINITY;
+      s[i][c] = (j < nk && t.bias[j] > kMaskThreshold) ? s[i][c] + t.bias[j] + term(rows[i], j)
+                                                       : -INFINITY;
       tmax = fmaxf(tmax, s[i][c]);
     }
     const float m_old = t.m[rows[i]];

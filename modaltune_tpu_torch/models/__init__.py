@@ -2,15 +2,21 @@ from .adapter import Extractor, InteractionBlock, Injector
 from .gene import ChannelFeedForward, GeneMixerEncoder, TokenFeedForward
 from .layers import (AlphaDropout, CrossAttentionLayer, Dense, DropPath,
                      Dropout, FFNLayer, SelfAttentionLayer, TorchMHA,
-                     dropout_generator, init_weights, mask_to_bias)
+                     dropout_generator, fill_normal_, init_weights,
+                     mask_to_bias)
 from .longnet import (DilatedSelfAttention, FeedForwardNetwork,
                       LongNetEncoder, LongNetEncoderLayer)
 from .modaltune import ModalTuneModel
 from .registry import AGGREGATORS, create_aggregator
 from .slide_encoder import LongNetViT, PatchEmbed, coords_pos_embed, sincos_1d
+from .titan import (AttentionalPooler, BiasedMHA, TitanBlock,
+                    TitanModalTuneModel, TitanViT, alibi_bias, alibi_slopes,
+                    grid_scatter_bag)
 
 __all__ = [
-    "AGGREGATORS", "AlphaDropout", "ChannelFeedForward", "CrossAttentionLayer",
+    "AGGREGATORS", "AlphaDropout", "AttentionalPooler", "BiasedMHA",
+    "TitanBlock", "TitanModalTuneModel", "TitanViT", "alibi_bias",
+    "alibi_slopes", "fill_normal_", "grid_scatter_bag", "ChannelFeedForward", "CrossAttentionLayer",
     "Dense", "DilatedSelfAttention", "DropPath", "Dropout", "Extractor",
     "FFNLayer",
     "FeedForwardNetwork", "GeneMixerEncoder", "Injector", "InteractionBlock",

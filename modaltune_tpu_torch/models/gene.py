@@ -15,12 +15,12 @@ from torch import nn
 
 from ..configs import GeneEncoderConfig
 from ..ops.activations import gelu_exact
-from .layers import AlphaDropout, Dense, Dropout
+from .layers import AlphaDropout, Dense, Dropout, fill_normal_
 
 
 def _normal02(g: torch.Generator, *params: nn.Parameter) -> None:
     for p in params:
-        p.normal_(0.0, 0.02, generator=g)
+        fill_normal_(p, 0.02, g)
 
 
 class TokenFeedForward(nn.Module):

@@ -78,13 +78,20 @@ class AlphaDropout(Dropout):
         return a * torch.where(keep, x, self.ALPHA_P) + b
 
 
+def fill_normal_(p: torch.Tensor, std: float, g: torch.Generator) -> None:
+    """``p <- N(0, std)`` drawn on ``g``'s device (the CPU, as a rule) and
+    copied to ``p``'s, so the values do not depend on where ``p`` lies."""
+    p.copy_(torch.empty(p.shape, dtype=torch.float32, device=g.device)
+            .normal_(0.0, std, generator=g))
+
+
 class Dense(nn.Linear):
     """``nn.Linear`` that names the JAX package's initialiser for it:
     ``"lecun"`` (flax's Dense default), ``"xavier"`` or ``"normal02"``."""
 
     def __init__(self, in_features: int, out_features: int,
-                 init: str = "lecun"):
-        super().__init__(in_features, out_features)
+                 init: str = "lecun", bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
         if init not in ("lecun", "xavier", "normal02"):
             raise ValueError(f"unknown initialiser {init!r}")
         self.init_name = init
@@ -94,11 +101,13 @@ class Dense(nn.Linear):
         fan_out, fan_in = self.weight.shape
         if self.init_name == "xavier":
             bound = math.sqrt(6.0 / (fan_in + fan_out))
-            self.weight.uniform_(-bound, bound, generator=g)
+            self.weight.copy_(torch.empty(self.weight.shape, device=g.device)
+                              .uniform_(-bound, bound, generator=g))
         else:
             std = 0.02 if self.init_name == "normal02" else fan_in ** -0.5
-            self.weight.normal_(0.0, std, generator=g)
-        self.bias.zero_()
+            fill_normal_(self.weight, std, g)
+        if self.bias is not None:
+            self.bias.zero_()
 
 
 def init_weights(model: nn.Module, g: torch.Generator) -> nn.Module:

@@ -23,7 +23,7 @@ from torch import nn
 from ..configs import ModalTuneConfig
 from .adapter import InteractionBlock
 from .gene import GeneMixerEncoder
-from .layers import Dense, SelfAttentionLayer
+from .layers import Dense, SelfAttentionLayer, fill_normal_
 from .slide_encoder import LongNetViT
 
 
@@ -34,7 +34,7 @@ class ModalTuneModel(nn.Module):
         a, b = cfg.adapter, cfg.backbone
         d = b.embed_dim
         self.cfg = cfg
-        self.backbone = LongNetViT(b, pool_head=False)
+        self.backbone = self.build_backbone(b)
 
         gene_cfg = cfg.gene
         if gene_cfg.output_dim != d:
@@ -86,11 +86,15 @@ class ModalTuneModel(nn.Module):
         self.final_norm = nn.LayerNorm(d * n_cat, eps=1e-5)
         self.final_project = Dense(d * n_cat, a.output_dim, "normal02")
 
+    def build_backbone(self, cfg) -> nn.Module:
+        """The frozen slide encoder (``self.backbone``) for ``cfg.backbone``."""
+        return LongNetViT(cfg, pool_head=False)
+
     @torch.no_grad()
     def init_weights(self, g: torch.Generator) -> None:
-        self.gene_pe.normal_(0.0, 0.02, generator=g)
+        fill_normal_(self.gene_pe, 0.02, g)
         if self.gene_cls is not None:
-            self.gene_cls.normal_(0.0, 0.02, generator=g)
+            fill_normal_(self.gene_cls, 0.02, g)
 
     def compute_dtype(self, device: torch.device) -> torch.dtype:
         """The dtype every input is cast to: autocast's dtype on
@@ -101,18 +105,12 @@ class ModalTuneModel(nn.Module):
             return torch.get_autocast_dtype(device.type)
         return self.gene_pe.dtype
 
-    def forward(self, bag: torch.Tensor, coords: torch.Tensor,
-                genes: torch.Tensor, task_token: Optional[torch.Tensor] = None,
-                clinical: Optional[torch.Tensor] = None,
-                bag_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """bag (B, L, in_chans) padded tile features; coords (B, L, 2);
-        genes (B, n_groups, max_group_len); task_token (B, n_tasks) one-hot;
-        clinical (B, clinfeat_dim); bag_mask (B, L) bool validity.
-        Returns (B, output_dim) task-conditioned embeddings."""
+    def modal_tokens(self, genes: torch.Tensor,
+                     task_token: Optional[torch.Tensor],
+                     clinical: Optional[torch.Tensor],
+                     dt: torch.dtype) -> torch.Tensor:
+        """-> (B, n_modal, D): [clinical][task][gene cls][gene tokens]."""
         a = self.cfg.adapter
-        dt = self.compute_dtype(bag.device)
-        h, seq_mask = self.backbone.embed(bag.to(dt), coords, bag_mask)
-
         modal = self.gene_encoder(genes.to(dt))               # (B, G', D)
         bsz, d = modal.shape[0], modal.shape[-1]
         if self.gene_cls is not None:
@@ -128,34 +126,13 @@ class ModalTuneModel(nn.Module):
             ce = torch.relu(self.clinical_fc1(clinical.to(dt)))
             ce = self.clinical_norm(self.clinical_fc2(ce))[:, None]
             modal = torch.cat([ce, modal], dim=1)
-        gene_pe = self.gene_pe
+        return modal
 
-        idx = a.interaction_indexes
-        if idx[0][0] != 0:
-            h = self.backbone.run_layers(h, 0, idx[0][0], seq_mask)
-
-        cls, x = h[:, :1], h[:, 1:]
-        x_mask = None if seq_mask is None else seq_mask[:, 1:]
-        for i, block in enumerate(self.interactions):
-            lo, hi = idx[i]
-            if 1 <= i <= len(self.prompt_sa):
-                modal = self.prompt_sa[i - 1](modal, query_pos=gene_pe)
-
-            def run_span(t, lo=lo, hi=hi):
-                return self.backbone.run_layers(t, lo, hi + 1, seq_mask)
-
-            x, modal, cls = block(x, modal, cls, run_span, query_pos=gene_pe,
-                                  x_mask=x_mask)
-
-        if self.cfg.backbone.global_pool:
-            if x_mask is not None:
-                m = x_mask[..., None].to(x.dtype)
-                img = ((x * m).sum(1) / m.sum(1).clamp_min(1.0))[:, None]
-            else:
-                img = x.mean(dim=1, keepdim=True)
-        else:
-            img = cls
-
+    def fuse(self, img: torch.Tensor, modal: torch.Tensor) -> torch.Tensor:
+        """Image outcome ``img`` (B, 1, D) and the modal tokens after the
+        last interaction -> (B, output_dim): sum or concatenation of the
+        image, task, gene and clinical tokens, LayerNorm, projection."""
+        a = self.cfg.adapter
         off = 0
         clin_out = task_out = None
         if a.with_clinical:
@@ -181,3 +158,53 @@ class ModalTuneModel(nn.Module):
             outcome = torch.cat(parts, dim=-1)
         outcome = self.final_project(self.final_norm(outcome))
         return outcome[:, 0]
+
+    def interact(self, h: torch.Tensor, modal: torch.Tensor, run_layers,
+                 x_mask: Optional[torch.Tensor]):
+        """The adapter's loop over the frozen backbone. ``h`` (B, 1 + L, D)
+        is the embedded sequence, cls token first; ``run_layers(t, lo,
+        hi)`` runs the backbone's layers lo..hi-1 on it; ``x_mask`` (B, L)
+        marks the valid tokens. Returns (cls, x, modal) after the last
+        interaction."""
+        idx = self.cfg.adapter.interaction_indexes
+        if idx[0][0] != 0:
+            h = run_layers(h, 0, idx[0][0])
+        cls, x = h[:, :1], h[:, 1:]
+        for i, block in enumerate(self.interactions):
+            lo, hi = idx[i]
+            if 1 <= i <= len(self.prompt_sa):
+                modal = self.prompt_sa[i - 1](modal, query_pos=self.gene_pe)
+
+            def run_span(t, lo=lo, hi=hi):
+                return run_layers(t, lo, hi + 1)
+
+            x, modal, cls = block(x, modal, cls, run_span,
+                                  query_pos=self.gene_pe, x_mask=x_mask)
+        return cls, x, modal
+
+    def forward(self, bag: torch.Tensor, coords: torch.Tensor,
+                genes: torch.Tensor, task_token: Optional[torch.Tensor] = None,
+                clinical: Optional[torch.Tensor] = None,
+                bag_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """bag (B, L, in_chans) padded tile features; coords (B, L, 2);
+        genes (B, n_groups, max_group_len); task_token (B, n_tasks) one-hot;
+        clinical (B, clinfeat_dim); bag_mask (B, L) bool validity.
+        Returns (B, output_dim) task-conditioned embeddings."""
+        dt = self.compute_dtype(bag.device)
+        h, seq_mask = self.backbone.embed(bag.to(dt), coords, bag_mask)
+        modal = self.modal_tokens(genes, task_token, clinical, dt)
+        x_mask = None if seq_mask is None else seq_mask[:, 1:]
+        cls, x, modal = self.interact(
+            h, modal,
+            lambda t, lo, hi: self.backbone.run_layers(t, lo, hi, seq_mask),
+            x_mask)
+
+        if self.cfg.backbone.global_pool:
+            if x_mask is not None:
+                m = x_mask[..., None].to(x.dtype)
+                img = ((x * m).sum(1) / m.sum(1).clamp_min(1.0))[:, None]
+            else:
+                img = x.mean(dim=1, keepdim=True)
+        else:
+            img = cls
+        return self.fuse(img, modal)

@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from ..configs import SlideEncoderConfig
-from .layers import Dense
+from .layers import Dense, fill_normal_
 from .longnet import LongNetEncoder
 
 
@@ -71,7 +71,7 @@ class LongNetViT(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, g: torch.Generator) -> None:
-        self.cls_token.normal_(0.0, 0.02, generator=g)
+        fill_normal_(self.cls_token, 0.02, g)
 
     def embed(self, x: torch.Tensor, coords: torch.Tensor,
               mask: Optional[torch.Tensor] = None

@@ -39,6 +39,10 @@ SIGNATURES = {
     "mt_dilated_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _P, _I, _I, _I, _I, _P, _P, _I,
                                  ctypes.c_float, _I, _P],
+    "mt_alibi_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               ctypes.c_float, _I, _P],
+    "mt_alibi_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, ctypes.c_float, _I, _P],
 }
 
 

@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from ..configs import TrainConfig
-from ..data import Batch
+from ..data import Batch, device_put
 from ..models.layers import dropout_generator
 from .losses import kd_kl_per_slide, kd_loss
 from .state import FROZEN_KEY, TrainOptimizer
@@ -29,22 +29,13 @@ from .state import FROZEN_KEY, TrainOptimizer
 Inputs = Dict[str, Optional[torch.Tensor]]
 
 
-def batch_to_device(batch: Batch, device) -> Dict[str, Optional[torch.Tensor]]:
+def batch_to_device(batch: Batch, device=None
+                    ) -> Dict[str, Optional[torch.Tensor]]:
     """Host numpy batch -> dict of tensors on ``device`` (bag, coords, mask,
-    genes, clinical), copied asynchronously from pinned memory on CUDA."""
-    device = torch.device(device)
-
-    def put(a):
-        if a is None:
-            return None
-        t = torch.from_numpy(a)
-        if device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(device, non_blocking=True)
-
-    return dict(bag=put(batch.bag), coords=put(batch.coords),
-                mask=put(batch.mask), genes=put(batch.genes),
-                clinical=put(batch.clinical))
+    genes, clinical). ``device=None`` is the card (an error where there is
+    none), reached by an asynchronous copy from pinned memory."""
+    return {name: device_put(getattr(batch, name), device)
+            for name in ("bag", "coords", "mask", "genes", "clinical")}
 
 
 def tile_tasks(inputs: Dict[str, Optional[torch.Tensor]],

@@ -1,9 +1,9 @@
 """Carry the JAX package's ModalTune parameters into the port.
 
 ``params_from_jax(tree, model)`` takes the parameter tree of
-``modaltune_tpu.models.ModalTuneModel`` (nested dicts of numpy arrays, as
-``jax.device_get(params)`` gives them) and returns a ``state_dict`` for
-the port's :class:`~modaltune_tpu_torch.models.ModalTuneModel`, so that
+``modaltune_tpu.models.ModalTuneModel`` or ``TitanModalTuneModel`` (nested
+dicts of numpy arrays, as ``jax.device_get(params)`` gives them) and
+returns a ``state_dict`` for the port's model of the same name, so that
 the two compute the same function. The names line up by rule:
 
 * ``backbone/encoder/span_k/<leaf>`` holds the layers of span k stacked on
@@ -12,6 +12,10 @@ the two compute the same function. The names line up by rule:
 * ``interactions_i``, ``extra_extractor_j``, ``prompt_sa_i`` and
   ``mix{i}_<part>`` become ``interactions.i``, ``extra_extractors.j``,
   ``prompt_sa.{i-1}`` and ``mix.i.<part>``;
+* the TITAN backbone's ``blocks_N``, ``mlp_fc{1,2}`` and
+  ``patch_embed_fc{1,2}`` become ``blocks.N``, ``mlp.fc{1,2}`` and
+  ``patch_embed.fc{1,2}``, the original checkpoint's names (no span
+  stacking there);
 * a Dense ``kernel`` (in, out) becomes ``weight`` (out, in), a LayerNorm
   ``scale`` becomes ``weight``; the gene mixer's raw parameters
   (``snn1_kernel``, ``mix0_token/w1``, ``compress_kernel``, ...) are
@@ -34,11 +38,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from modaltune_tpu.utils.params_io import flatten_params
+from .params_io import flatten_params
 
 _INDEXED = re.compile(r"(interactions|extra_extractor|prompt_sa)_(\d+)$")
 _MIXER = re.compile(r"mix(\d+)_(token_norm|token|chan_norm|chan)$")
 _SPAN = re.compile(r"span_(\d+)$")
+_TITAN_BLOCK = re.compile(r"blocks_(\d+)$")
+_TITAN_FC = re.compile(r"(mlp|patch_embed)_(fc\d)$")
 
 
 def _port_parts(parts):
@@ -46,7 +52,12 @@ def _port_parts(parts):
     for p in parts:
         m = _INDEXED.match(p)
         mm = _MIXER.match(p)
-        if m:
+        tb, tf = _TITAN_BLOCK.match(p), _TITAN_FC.match(p)
+        if tb:
+            out += ["blocks", tb.group(1)]
+        elif tf:
+            out += [tf.group(1), tf.group(2)]
+        elif m:
             name, i = m.group(1), int(m.group(2))
             out += {"interactions": ["interactions", str(i)],
                     "extra_extractor": ["extra_extractors", str(i)],

@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Device-time profile of one full-width ModalTune-GigaPath train step on
-one NVIDIA GPU.
+"""Device-time profile of one full-width ModalTune train step on one
+NVIDIA GPU, over the GigaPath backbone or the TITAN backbone.
 
-    python3 profile_train.py [--bucket 10239] [--warmup 2] [--out FILE]
+    python3 profile_train.py [--model gigapath|titan] [--bucket N]
+                             [--warmup 2] [--out FILE]
+    (--bucket: GigaPath only)
 
 Builds the train step as ``chip_smoke.py`` does (frozen backbone in bf16,
 adapter in fp32, bf16 autocast, dropout on, random weights from a seed,
-one synthetic bag padded to ``--bucket``), runs ``--warmup`` steps, then
-one step under ``torch.profiler`` with CUDA activity. Prints the step's
+one synthetic bag: padded to ``--bucket``, 10,239 patches unless given,
+for GigaPath; grid-scattered into the 16,383-cell bucket for TITAN),
+runs ``--warmup``
+steps, then one step under ``torch.profiler`` with CUDA activity. Prints the step's
 wall time, the device's busy time (the union of every kernel, memcpy and
 memset interval) and its share of the wall time, the device time of each
-group of kernels (K1b, K1f, K2f, K2b, GEMMs, LayerNorm, the rest) with
+group of kernels (K1b, K1f, K2f, K2b, K4b, K4f, GEMMs, LayerNorm, the
+rest) with
 its share of the busy time, and the 25 kernels with the most device time.
 Writes the profiler's whole table to ``--out``. Exits non-zero when no
 CUDA device is available or the profiler records no device time.
@@ -29,6 +34,8 @@ GROUPS = [
     ("K1f", ("dilated_fwd",)),
     ("K2b", ("flash_bwd",)),
     ("K2f", ("flash_fwd",)),
+    ("K4b", ("alibi_bwd",)),
+    ("K4f", ("alibi_fwd",)),
     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma")),
     ("LayerNorm", ("layer_norm", "LayerNorm")),
 ]
@@ -56,11 +63,17 @@ def union_ms(intervals) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--bucket", type=int, default=10239)
+    ap.add_argument("--model", choices=("gigapath", "titan"),
+                    default="gigapath")
+    ap.add_argument("--bucket", type=int, default=None,
+                    help="GigaPath bag bucket (default 10239)")
     ap.add_argument("--warmup", type=int, default=2)
-    ap.add_argument("--out", default=os.path.join("chiprun_out",
-                                                  "profile_train.txt"))
+    ap.add_argument("--out", default=None,
+                    help="default: chiprun_out/profile_train[_titan].txt")
     args = ap.parse_args()
+    if args.out is None:
+        tail = "_titan" if args.model == "titan" else ""
+        args.out = os.path.join("chiprun_out", f"profile_train{tail}.txt")
     import torch
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
@@ -76,9 +89,17 @@ def main() -> int:
     print("card (nvidia-smi name, power.limit):")
     print(chip_smoke._last_line(["nvidia-smi", "--query-gpu=name,power.limit",
                                  "--format=csv,noheader", "--id=0"]))
-    model, tcfg, opt, text, batch = chip_smoke.build_train(
-        device, bucket=args.bucket,
-        bag_range=(min(9000, args.bucket * 7 // 8), args.bucket))
+    if args.model == "titan":
+        if args.bucket is not None:
+            ap.error("--bucket applies to --model gigapath; the TITAN step "
+                     "is profiled at chip_smoke.TITAN's bucket")
+        build_kw = dict(chip_smoke.TITAN)
+    else:
+        bucket = args.bucket or chip_smoke.GIGAPATH["bucket"]
+        build_kw = dict(chip_smoke.GIGAPATH, bucket=bucket,
+                        bag_range=(min(9000, bucket * 7 // 8), bucket))
+    args.bucket = build_kw["bucket"]
+    model, tcfg, opt, text, batch = chip_smoke.build_train(device, **build_kw)
     step = make_train_step(model, tcfg, opt)
     gen = torch.Generator(device=device).manual_seed(1)
     for _ in range(args.warmup):
@@ -106,7 +127,7 @@ def main() -> int:
         by_name[e.name] = by_name.get(e.name, 0) + ms
         calls[e.name] = calls.get(e.name, 0) + 1
 
-    print(f"train step at bucket {args.bucket}: wall {wall:.2f} ms, device "
+    print(f"{args.model} train step at bucket {args.bucket}: wall {wall:.2f} ms, device "
           f"busy {busy:.2f} ms (busy share {busy / wall:.3f}), peak "
           f"allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     print(f"{'group':<42} {'device ms':>10} {'of busy':>8}")

@@ -11,8 +11,11 @@ These cover the edge cases that the full-size shapes of ``chip_smoke.py``
 do not: ragged tile edges, head dimensions that pad, segments shorter
 than a query tile, head groups without heads, a missing mask, a row whose
 keys are all masked, and the wrappers raising on what the kernels do not
-take; for the forward kernels (K1f, K2f) and the backward ones (K1b, K2b),
-and for K1f's statistics.
+take; for the forward kernels (K1f, K2f, K4f) and the backward ones (K1b,
+K2b, K4b), and for K1f's statistics. For the ALiBi kernels (K4) besides:
+a sequence of the cls token and a handful of cells, masks and coordinates
+that differ between batch rows (the kernels index them by ``bh / H``), and
+a batch row whose keys are all masked but the cls token.
 """
 
 import importlib
@@ -24,8 +27,22 @@ from modaltune_tpu_torch.ops import NEG_INF
 from modaltune_tpu_torch.ops.dilated import (_branches, dilated_attention,
                                              dilated_attention_stats)
 
+def _load_chip_smoke():
+    """``chip_smoke.py`` of the repository root as a module: the gradient
+    readings are its ``grad_readings``."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+chip_smoke = _load_chip_smoke()
 fa = importlib.import_module("modaltune_tpu_torch.ops.flash_attention")
 dm = importlib.import_module("modaltune_tpu_torch.ops.dilated_mega")
+af = importlib.import_module("modaltune_tpu_torch.ops.alibi_flash")
 
 pytestmark = pytest.mark.cuda
 
@@ -266,3 +283,164 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError):                    # stats of other branches
         dm.mega_dilated_attention_backward_cuda(
             w, w, w, None, w, stats, bo, (8, 16), (1, 2), 0.25)
+
+
+# ---------------------------------------------------------------------------
+# K4: ALiBi flash attention
+# ---------------------------------------------------------------------------
+
+# (B, H, N, D, mask): N off the 64-row tile, N = 1 + a handful, D that pads
+# (16 of 16, 40 of 48) and 64; "rows" masks a different tail per batch row,
+# "cls_only" leaves batch row 0 the cls key alone, "dead" masks every key
+# of batch row 1, None passes no mask.
+ALIBI_CASES = [
+    (2, 3, 200, 64, "rows"),
+    (3, 4, 6, 16, "rows"),
+    (2, 2, 129, 16, None),
+    (2, 3, 70, 40, "cls_only"),
+    (1, 12, 257, 64, "rows"),
+    (2, 2, 64, 16, "dead"),
+]
+
+
+def _alibi_inputs(b, h, n, d, mask, device, dtype=torch.float32, seed=20):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, dout = (torch.randn(b, h, n, d, generator=g).to(device, dtype)
+                     for _ in range(4))
+    coords3 = torch.zeros(b, n, 3)
+    # a different grid per batch row
+    coords3[:, 1:, :2] = torch.randint(0, 12, (b, n - 1, 2),
+                                       generator=g).float()
+    coords3[:, 0, 2] = 1.0
+    slopes = torch.tensor([2.0 ** (-8.0 * (i + 1) / h) for i in range(h)])
+    key_mask = None
+    if mask is not None:
+        key_mask = torch.ones(b, n, dtype=torch.bool)
+        for i in range(b):                      # a different tail per row
+            key_mask[i, n - 1 - (i + 1) * (n // 5):] = False
+        if mask == "cls_only":
+            key_mask[0, 1:] = False
+        if mask == "dead":
+            key_mask[1] = False
+        key_mask = key_mask.to(device)
+    return q, k, v, dout, coords3.to(device), slopes.to(device), key_mask
+
+
+# fp32 runs the CUDA-core kernels, bf16 the tensor-core kernels: there the
+# plain version computes in fp32 on the same bf16 values, and the kernel
+# rounds its probabilities (dS in the backward) and its results to bf16.
+ALIBI_DTYPES = [(torch.float32, TOL, 1e-4, GRAD_TOL),
+                (torch.bfloat16, 1.6e-2, 1e-2, 2e-2)]
+ALIBI_IDS = ["fp32", "bf16"]
+# A gradient's largest element (the cls key's dk and dv, which every query
+# reaches without a distance term) is many times a typical one, so the
+# max-scaled tolerance above says little about the rest. Two readings that
+# do not hang on it, as (rel-L2, row) limits by dtype; bf16 rounds P, dS
+# and the result to 2^-9 each.
+ALIBI_GRAD_LIMITS = {torch.float32: (1e-4, 2e-4),
+                     torch.bfloat16: (1e-2, 2e-2)}
+
+
+def _assert_grad_readings(got, want, dout, what):
+    """``chip_smoke.grad_readings`` (rel-L2, and max|err| of a row over
+    max|want| of that row) within ALIBI_GRAD_LIMITS."""
+    rel_lim, row_lim = ALIBI_GRAD_LIMITS[got.dtype]
+    rel, row = chip_smoke.grad_readings(got, want, dout)
+    assert rel <= rel_lim and row <= row_lim, \
+        f"{what}: rel-L2 {rel:.3e}, row-scaled max|err| {row:.3e}"
+
+
+@pytest.mark.parametrize("dtype,tol,lse_tol,_", ALIBI_DTYPES, ids=ALIBI_IDS)
+@pytest.mark.parametrize("b,h,n,d,mask", ALIBI_CASES)
+def test_alibi_kernel_matches_plain(cuda_device, b, h, n, d, mask, dtype, tol,
+                                    lse_tol, _):
+    q, k, v, _, coords3, slopes, key_mask = _alibi_inputs(
+        b, h, n, d, mask, cuda_device, dtype)
+    got_o, got_l = af.alibi_flash_attention_cuda(q, k, v, coords3, slopes,
+                                                 key_mask, d ** -0.5)
+    want_o, want_l = af.alibi_attention_reference(
+        q.float(), k.float(), v.float(), coords3, slopes, key_mask)
+    torch.cuda.synchronize()
+    assert got_o.dtype == dtype and torch.isfinite(got_o).all()
+    assert (got_o.float() - want_o).abs().max().item() <= tol * max(
+        1.0, want_o.abs().max().item())
+    assert (got_l - want_l).abs().max().item() <= lse_tol
+    if mask == "cls_only":
+        assert torch.allclose(got_o[0], v[0, :, :1].expand_as(got_o[0]),
+                              atol=1e-6)
+    if mask == "dead":
+        assert (got_o[1] == 0).all() and (got_l[1] == NEG_INF).all()
+
+
+@pytest.mark.parametrize("dtype,_,__,tol", ALIBI_DTYPES, ids=ALIBI_IDS)
+@pytest.mark.parametrize("b,h,n,d,mask", ALIBI_CASES)
+def test_alibi_backward_kernel_matches_plain(cuda_device, b, h, n, d, mask,
+                                             dtype, _, __, tol):
+    q, k, v, dout, coords3, slopes, key_mask = _alibi_inputs(
+        b, h, n, d, mask, cuda_device, dtype)
+    if key_mask is not None:    # the loss weighs valid query rows only
+        dout = dout * key_mask[:, None, :, None]
+    out, lse = af.alibi_attention_reference(q, k, v, coords3, slopes,
+                                            key_mask)
+    got = af.alibi_flash_attention_backward_cuda(
+        q, k, v, coords3, slopes, key_mask, out, lse, dout, d ** -0.5)
+    want = af.alibi_attention_backward_reference(
+        q.float(), k.float(), v.float(), coords3, slopes, key_mask,
+        out.float(), lse, dout.float())
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and torch.isfinite(g).all(), name
+        err = (g.float() - w).abs().max().item()
+        assert err <= tol * max(1.0, w.abs().max().item()), \
+            f"alibi {name} {(b, h, n, d, mask)}: max|err| {err:.3e}"
+        _assert_grad_readings(g, w, dout,
+                              f"alibi {name} {(b, h, n, d, mask)}")
+    if key_mask is not None:    # masked keys: exactly zero dk and dv
+        dead = ~key_mask[:, None, :, None].expand_as(got[1])
+        assert (got[1][dead] == 0).all() and (got[2][dead] == 0).all()
+    if mask == "dead":
+        assert all((g[1] == 0).all() for g in got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_alibi_function_runs_both_kernels(cuda_device, dtype):
+    """The autograd Function launches K4f and K4b once each and agrees
+    with autograd through the plain version (in bf16: within bf16
+    rounding of the gradients)."""
+    q, k, v, dout, coords3, slopes, key_mask = _alibi_inputs(
+        2, 3, 150, 64, "rows", cuda_device, dtype)
+    dout = dout * key_mask[:, None, :, None]
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    af.LAUNCHES = af.BWD_LAUNCHES = 0
+    out = af.alibi_flash_attention(*leaves, coords3, slopes,
+                                   key_mask=key_mask)
+    got = torch.autograd.grad(out, leaves, dout)
+    assert (af.LAUNCHES, af.BWD_LAUNCHES) == (1, 1)
+    ref = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(
+        af.alibi_attention_reference(*ref, coords3, slopes, key_mask)[0],
+        ref, dout.float())
+    torch.cuda.synchronize()
+    tol = GRAD_TOL if dtype == torch.float32 else 2e-2
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype
+        err = (g.float() - w).abs().max().item()
+        assert err <= tol * max(1.0, w.abs().max().item()), (name, err)
+        _assert_grad_readings(g, w, dout, name)
+
+
+def test_alibi_wrapper_raises_instead_of_falling_back(cuda_device):
+    q, k, v, _, coords3, slopes, key_mask = _alibi_inputs(
+        1, 2, 20, 16, "rows", cuda_device)
+    with pytest.raises(TypeError):
+        af.alibi_flash_attention(q.half(), k.half(), v.half(), coords3,
+                                 slopes, key_mask=key_mask)
+    with pytest.raises(ValueError):             # q not contiguous
+        af.alibi_flash_attention(q.transpose(1, 2).contiguous()
+                                 .transpose(1, 2), k, v, coords3, slopes)
+    with pytest.raises(ValueError):             # coords on another device
+        af.alibi_flash_attention_cuda(q, k, v, coords3.cpu(), slopes,
+                                      key_mask, 0.25)
+    z = torch.zeros(1, 2, 20, 136, device=cuda_device)     # D > 128
+    with pytest.raises(ValueError):
+        af.alibi_flash_attention(z, z, z, coords3, slopes)

@@ -116,7 +116,7 @@ def case(request):
 def _port_model(case):
     name = ("longnetvit_gene_clinical_adapter" if case["cfg"].adapter.
             with_clinical else "longnetvit_gene_adapter")
-    return create_aggregator(name, cfg=case["cfg"],
+    return create_aggregator(name, device="cpu", cfg=case["cfg"],
                              n_gene_groups=case["packer"].n_groups,
                              max_group_len=case["packer"].max_group_len)
 
@@ -154,7 +154,7 @@ def test_random_init_embed_step():
 
     def build():
         return create_aggregator(
-            "longnetvit_gene_clinical_adapter", cfg=cfg,
+            "longnetvit_gene_clinical_adapter", device="cpu", cfg=cfg,
             n_gene_groups=packer.n_groups,
             max_group_len=packer.max_group_len)
 

@@ -417,7 +417,7 @@ def test_train_step_matches_jax():
         state, loss = jstep(state, jb, jtext, jax.random.PRNGKey(i))
         jlosses.append(float(loss))
 
-    model = create_aggregator("longnetvit_gene_adapter", cfg=cfg,
+    model = create_aggregator("longnetvit_gene_adapter", device="cpu", cfg=cfg,
                               n_gene_groups=packer.n_groups,
                               max_group_len=packer.max_group_len)
     p0 = params_from_jax(params, model)
