@@ -5,19 +5,24 @@
 
 Builds the port's CUDA kernels from ``modaltune_tpu_torch/csrc``, holds
 each against its plain PyTorch version at the shapes of the model steps
-(the forward kernels K1f, K2f, K4f and K1f's statistics; the backward
-kernels K1b, K2b, K4b), times each beside its plain version and, where
-one PyTorch call computes the same function, beside that call
-(``scaled_dot_product_attention``; timed here, used nowhere in the port),
-and computes the least time the card could take for the same work.
-Then it drives four paths end to end at full published width with random
-weights from a seeded generator, each with every launch count set to 0
-just before and read just after:
+(the forward kernels K1f, K2f, K3f, K4f, K5f and the statistics of K1f and
+K3f; the backward kernels K1b, K2b, K3b, K4b, K5b), times each beside its
+plain version and, where one PyTorch call computes the same function,
+beside that call (``scaled_dot_product_attention``; timed here, used
+nowhere in the port), and computes the least time the card could take for
+the same work. Then it drives six paths end to end at full published width
+with random weights from a seeded generator, each with every launch count
+set to 0 just before and read just after:
 
 * ModalTune-GigaPath (12-layer / 768-d / 16-head LongNet backbone, Modal
   Adapter, gene mixer over 331 pathways, 3 task tokens): the embed step on
   three synthetic 10,239-patch slides, and a few train steps (KD loss,
   AdamW on the adapter, bf16 compute, dropout on) on one;
+* the same model on its other kernel route (``mega_attention=False``: the
+  per-branch attention kernels K3 in place of K1; ``fused_gelu_ln=True``:
+  the fused GELU -> LayerNorm K5 in place of two ops), the same two steps
+  on the same slides and weights, its embeddings held to the first
+  route's;
 * ModalTune-TITAN (6-block / 768-d / 12-head ViT with 2-D ALiBi attention
   and a 128-query attentional pooler, the same adapter over
   interactions ((0,1),(2,3),(4,5)) with concatenated tokens): the embed
@@ -91,17 +96,24 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-# NVIDIA H100 SXM, dense rates of the data sheet: bf16 tensor cores, HBM3.
+# NVIDIA H100 SXM, dense rates of the data sheet: bf16 tensor cores, fp32
+# outside the tensor cores (elementwise work has no other unit), HBM3.
 PEAK_FLOPS = 989e12
+PEAK_FLOPS_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 
 
-def bound_ms(flops: float, nbytes: float):
+def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_FLOPS):
     """The least time the card could take: ``(ms, "operations" or
-    "bytes")``, the larger of flops over the bf16 peak and bytes (each
-    input read once, each output written once) over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    "bytes")``, the larger of flops over the peak rate for their type (the
+    bf16 tensor cores unless given) and bytes (each input read once, each
+    output written once) over the memory rate."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def attention_bound(pairs: float, d: int, tensors, backward: bool):
@@ -109,9 +121,7 @@ def attention_bound(pairs: float, d: int, tensors, backward: bool):
     pairs of head dimension ``d``: two products forward (q.k, p.v), five
     backward (q.k, dout.v, dS.k, dS^T.q, P^T.dout), 2 flop per
     multiply-add; ``tensors`` are its inputs and outputs."""
-    nbytes = sum(t.numel() * t.element_size() for t in tensors
-                 if t is not None)
-    return bound_ms((10 if backward else 4) * pairs * d, nbytes)
+    return bound_ms((10 if backward else 4) * pairs * d, tensor_bytes(tensors))
 
 
 # name -> (module of the wrapper, its launch counter)
@@ -120,8 +130,12 @@ COUNTERS = {
     "K1b": ("modaltune_tpu_torch.ops.dilated_mega", "BWD_LAUNCHES"),
     "K2f": ("modaltune_tpu_torch.ops.flash_attention", "LAUNCHES"),
     "K2b": ("modaltune_tpu_torch.ops.flash_attention", "BWD_LAUNCHES"),
+    "K3f": ("modaltune_tpu_torch.ops.dilated_fused", "LAUNCHES"),
+    "K3b": ("modaltune_tpu_torch.ops.dilated_fused", "BWD_LAUNCHES"),
     "K4f": ("modaltune_tpu_torch.ops.alibi_flash", "LAUNCHES"),
     "K4b": ("modaltune_tpu_torch.ops.alibi_flash", "BWD_LAUNCHES"),
+    "K5f": ("modaltune_tpu_torch.ops.gelu_ln", "LAUNCHES"),
+    "K5b": ("modaltune_tpu_torch.ops.gelu_ln", "BWD_LAUNCHES"),
 }
 
 
@@ -137,16 +151,21 @@ def read_counts() -> dict:
 
 
 def calls_per_forward(model) -> dict:
-    """Kernel calls of one forward of ``model``: K1 once per LongNet
-    layer, K4 once per TITAN block, K2 once per adapter attention
-    (Injector and Extractor of every interaction, the extra extractors,
-    the prompt self-attentions)."""
+    """Kernel calls of one forward of ``model``: per LongNet layer one K1
+    (``mega_attention``) or one K3, and one K5 where the FFN runs the
+    fused GELU -> LayerNorm; K4 once per TITAN block; K2 once per adapter
+    attention (Injector and Extractor of every interaction, the extra
+    extractors, the prompt self-attentions)."""
     bb = model.backbone
+    layers = list(bb.encoder.layers) if hasattr(bb, "encoder") else []
+    mega = bool(layers) and bb.encoder.cfg.mega_attention
     return {
-        "K1": len(bb.encoder.layers) if hasattr(bb, "encoder") else 0,
+        "K1": len(layers) if mega else 0,
         "K2": (sum(2 + len(blk.extra_extractors)
                    for blk in model.interactions) + len(model.prompt_sa)),
+        "K3": 0 if mega else len(layers),
         "K4": len(bb.blocks) if hasattr(bb, "blocks") else 0,
+        "K5": sum(1 for layer in layers if layer.ffn.fused_gelu_ln),
     }
 
 
@@ -391,6 +410,17 @@ def dilated_pairs(length, n_valid, segments, ratios, heads) -> float:
     return float(total)
 
 
+def k1_inputs(shape, n_valid, device, dtype, seed, n_tensors=3):
+    """Seeded (B, L, H, D) tensors and the (B, L) mask of ``n_valid``."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    tensors = [torch.randn(shape, generator=g).to(device, dtype)
+               for _ in range(n_tensors)]
+    mask = torch.zeros(shape[:2], dtype=torch.bool)
+    mask[:, :n_valid] = True
+    return tensors, mask.to(device)
+
+
 def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
              segments=None, ratios=None, iters=20):
     import torch
@@ -401,15 +431,10 @@ def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
         ln = SlideEncoderConfig().longnet()
         segments, ratios = ln.segment_lengths, ln.dilated_ratios
     b, length, h, d = shape
-    mask = torch.zeros(b, length, dtype=torch.bool)
-    mask[:, :n_valid] = True
-    mask = mask.to(device)
-    valid = mask[:, :, None, None]
     res = {}
     for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 1.6e-2)):
-        g = torch.Generator(device="cpu").manual_seed(7)
-        q, k, v = (torch.randn(shape, generator=g).to(device, dtype)
-                   for _ in range(3))
+        (q, k, v), mask = k1_inputs(shape, n_valid, device, dtype, seed=7)
+        valid = mask[:, :, None, None]
         kw = dict(segment_lengths=segments, dilated_ratios=ratios, mask=mask)
         got = dm.mega_dilated_attention(q, k, v, **kw)
         want = dilated_attention(q.float(), k.float(), v.float(), **kw)
@@ -454,16 +479,12 @@ def phase_k1b(device, shape=(3, 10240, 16, 48), n_valid=9000,
         segments, ratios = ln.segment_lengths, ln.dilated_ratios
     b, length, h, d = shape
     scale = d ** -0.5
-    mask = torch.zeros(b, length, dtype=torch.bool)
-    mask[:, :n_valid] = True
-    mask = mask.to(device)
-    valid = mask[:, :, None, None]
-    kw = dict(segment_lengths=segments, dilated_ratios=ratios, mask=mask)
     res = {}
     for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 3e-2)):
-        g = torch.Generator(device="cpu").manual_seed(9)
-        q, k, v, dmix = (torch.randn(shape, generator=g).to(device, dtype)
-                         for _ in range(4))
+        (q, k, v, dmix), mask = k1_inputs(shape, n_valid, device, dtype,
+                                          seed=9, n_tensors=4)
+        valid = mask[:, :, None, None]
+        kw = dict(segment_lengths=segments, dilated_ratios=ratios, mask=mask)
         dmix = dmix * valid
         out, stats, branch_out = dm.mega_dilated_attention_cuda(
             q, k, v, mask, segments, ratios, scale, with_stats=True)
@@ -515,6 +536,305 @@ def phase_k1b(device, shape=(3, 10240, 16, 48), n_valid=9000,
           f"ms, plain backward {res['plain_ms']:.4f} ms, bound "
           f"{res['bound_ms']:.5f} ms ({res['bound_by']}), no library call | "
           f"K1f with stats {res['fwd_stats_ms']:.4f} ms", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# K3: per-branch dilated attention and the mix (K1's function, other kernels)
+# ---------------------------------------------------------------------------
+
+def phase_k3(device, shape=(3, 10240, 16, 48), n_valid=9000,
+             segments=None, ratios=None, iters=10):
+    """K3f at K1's shape, fp32 and bf16: the mixed output against
+    ``dilated_attention``, ``(m, Z)`` against ``dilated_attention_stats``,
+    every branch's compact ``(out_b, lse_b)`` against the plain branch, and
+    the mix kernel alone against the plain mix of the kernel's own compact
+    pieces; times in bf16, K1f's on the same inputs beside them."""
+    import torch
+    from modaltune_tpu_torch.configs import SlideEncoderConfig
+    from modaltune_tpu_torch.ops.dilated import (dilated_attention,
+                                                 dilated_attention_stats)
+    df = importlib.import_module("modaltune_tpu_torch.ops.dilated_fused")
+    dm = importlib.import_module("modaltune_tpu_torch.ops.dilated_mega")
+    if segments is None:
+        ln = SlideEncoderConfig().longnet()
+        segments, ratios = ln.segment_lengths, ln.dilated_ratios
+    b, length, h, d = shape
+    scale = d ** -0.5
+    n = len(segments)
+    res = {}
+    for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 1.6e-2)):
+        (q, k, v), mask = k1_inputs(shape, n_valid, device, dtype, seed=7)
+        valid = mask[:, :, None, None]
+        kw = dict(segment_lengths=segments, dilated_ratios=ratios, mask=mask)
+        mixed, out_c, lse_c, stats = df.fused_dilated_attention_cuda(
+            q, k, v, mask, segments, ratios, scale)
+        qf, kf, vf = q.float(), k.float(), v.float()
+        want = dilated_attention(qf, kf, vf, **kw)
+        torch.cuda.synchronize()
+        tag = f"K3 {str(dtype)[6:]}"
+        check(bool(torch.isfinite(mixed.float()).all()),
+              f"{tag}: non-finite output (padded rows included)")
+        err = compare(mixed.float() * valid, want * valid, tol, f"{tag} out")
+        del want
+        want_st = dilated_attention_stats(qf, kf, vf, **kw)[:, n:]
+        got_st = stats.reshape(2, b * h, length).transpose(0, 1)
+        st_err = (got_st - want_st).abs().max().item()
+        check(st_err <= 1e-3 and bool(((got_st == -1e9) ==
+                                       (want_st == -1e9)).all()),
+              f"{tag} (m, Z): max|err| {st_err:.3e}")
+        del want_st
+        outs = df.split_branches(out_c, length, segments, ratios)
+        lses = df.split_branches(lse_c, length, segments, ratios)
+        piece_err = lse_err = 0.0
+        for i, (w, r) in enumerate(zip(segments, ratios)):
+            want_o, want_l = df.fused_branch_reference(qf, kf, vf, mask,
+                                                       int(w), int(r), scale)
+            piece_err = max(piece_err, compare(
+                outs[i], want_o, tol, f"{tag} branch {i} compact out"))
+            e = (lses[i] - want_l).abs().max().item()
+            check(e <= 1e-3 and bool(((lses[i] == -1e9) ==
+                                      (want_l == -1e9)).all()),
+                  f"{tag} branch {i} compact lse: max|err| {e:.3e}")
+            lse_err = max(lse_err, e)
+            del want_o, want_l
+        want_mix, _, _ = df.fused_mix_reference(outs, lses, length, segments,
+                                                ratios)
+        mix_err = compare(mixed, want_mix, tol, f"{tag} mix kernel")
+        del want_mix
+        res[str(dtype)[6:]] = dict(out_err=err, stats_err=st_err,
+                                   piece_err=piece_err, lse_err=lse_err,
+                                   mix_err=mix_err)
+        if dtype == torch.bfloat16:
+            res["ms"] = time_ms(lambda: df.fused_dilated_attention_cuda(
+                q, k, v, mask, segments, ratios, scale), iters)
+            res["k1f_ms"] = time_ms(lambda: dm.mega_dilated_attention_cuda(
+                q, k, v, mask, segments, ratios, scale), iters)
+            res["k1f_stats_ms"] = time_ms(
+                lambda: dm.mega_dilated_attention_cuda(
+                    q, k, v, mask, segments, ratios, scale, with_stats=True),
+                iters)
+            res["plain_ms"] = time_ms(lambda: dilated_attention(q, k, v, **kw),
+                                      iters)
+            res["bound_ms"], res["bound_by"] = attention_bound(
+                b * dilated_pairs(length, n_valid, segments, ratios, h), d,
+                (q, k, v, mask, mixed, out_c, lse_c, stats), backward=False)
+        del mixed, out_c, lse_c, stats, outs, lses
+        torch.cuda.empty_cache()
+    f32, bf = res["float32"], res["bfloat16"]
+    print(f"K3 B={b} L={length} H={h} D={d} valid={n_valid}, "
+          f"{df.total_rows(length, segments, ratios)} compact rows per head: "
+          f"fp32 out {f32['out_err']:.3e}, compact out {f32['piece_err']:.3e} "
+          f"lse {f32['lse_err']:.3e}, (m, Z) {f32['stats_err']:.3e}, mix "
+          f"{f32['mix_err']:.3e} | bf16 out {bf['out_err']:.3e}, compact out "
+          f"{bf['piece_err']:.3e} lse {bf['lse_err']:.3e}, (m, Z) "
+          f"{bf['stats_err']:.3e}, mix {bf['mix_err']:.3e} | kernel "
+          f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
+          f"{res['bound_ms']:.5f} ms ({res['bound_by']}), no library call | "
+          f"K1f on the same inputs {res['k1f_ms']:.4f} ms, with stats "
+          f"{res['k1f_stats_ms']:.4f} ms", flush=True)
+    return res
+
+
+def phase_k3b(device, shape=(3, 10240, 16, 48), n_valid=9000,
+              segments=None, ratios=None, iters=10, plain_iters=3):
+    """K3b against autograd through the plain version at the train step's
+    shape, fp32 and bf16, on the valid rows, by the max-scaled bound and
+    by :func:`check_grads`; times in bf16, K1b's on the same inputs beside
+    them. The plain side's memory is :func:`phase_k1b`'s."""
+    import torch
+    from modaltune_tpu_torch.configs import SlideEncoderConfig
+    from modaltune_tpu_torch.ops.dilated import dilated_attention
+    df = importlib.import_module("modaltune_tpu_torch.ops.dilated_fused")
+    dm = importlib.import_module("modaltune_tpu_torch.ops.dilated_mega")
+    if segments is None:
+        ln = SlideEncoderConfig().longnet()
+        segments, ratios = ln.segment_lengths, ln.dilated_ratios
+    b, length, h, d = shape
+    scale = d ** -0.5
+    res = {}
+    for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 3e-2)):
+        (q, k, v, dmix), mask = k1_inputs(shape, n_valid, device, dtype,
+                                          seed=9, n_tensors=4)
+        valid = mask[:, :, None, None]
+        dmix = dmix * valid
+        kw = dict(segment_lengths=segments, dilated_ratios=ratios, mask=mask)
+        _, out_c, lse_c, stats = df.fused_dilated_attention_cuda(
+            q, k, v, mask, segments, ratios, scale)
+        got = df.fused_dilated_attention_backward_cuda(
+            q, k, v, mask, dmix, out_c, lse_c, stats, segments, ratios, scale)
+        torch.cuda.synchronize()
+        tag = f"K3b {str(dtype)[6:]}"
+        leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
+        torch.autograd.backward(dilated_attention(*leaves, **kw),
+                                dmix.float())
+        want = [x.grad * valid for x in leaves]
+        del leaves
+        torch.cuda.synchronize()
+        got_valid = [gt * valid for gt in got]
+        err = max(compare(gt, wt, tol, f"{tag} {gn}")
+                  for gn, gt, wt in zip(("dq", "dk", "dv"), got_valid, want))
+        rel, row = check_grads(("dq", "dk", "dv"), got_valid, want, dmix,
+                               str(dtype)[6:], tag)
+        res[str(dtype)[6:]] = dict(grad_err=err, rel=rel, row=row)
+        del want, got_valid
+        if dtype == torch.bfloat16:
+            res["ms"] = time_ms(
+                lambda: df.fused_dilated_attention_backward_cuda(
+                    q, k, v, mask, dmix, out_c, lse_c, stats, segments,
+                    ratios, scale), iters)
+            res["bound_ms"], res["bound_by"] = attention_bound(
+                b * dilated_pairs(length, n_valid, segments, ratios, h), d,
+                (q, k, v, mask, dmix, out_c, lse_c, stats, *got),
+                backward=True)
+            res["saved_bytes"] = tensor_bytes((out_c, lse_c, stats))
+            del out_c, lse_c, stats, got
+            _, k1_stats, k1_branch_out = dm.mega_dilated_attention_cuda(
+                q, k, v, mask, segments, ratios, scale, with_stats=True)
+            res["k1b_ms"] = time_ms(
+                lambda: dm.mega_dilated_attention_backward_cuda(
+                    q, k, v, mask, dmix, k1_stats, k1_branch_out, segments,
+                    ratios, scale), iters)
+            res["k1_saved_bytes"] = tensor_bytes((k1_stats, k1_branch_out))
+            del k1_stats, k1_branch_out
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            plain_out = dilated_attention(*leaves, **kw)
+            res["plain_ms"] = time_ms(lambda: torch.autograd.grad(
+                plain_out, leaves, dmix, retain_graph=True), plain_iters,
+                warmup=1)
+            del plain_out, leaves
+        torch.cuda.empty_cache()
+    f32, bf = res["float32"], res["bfloat16"]
+    print(f"K3b B={b} L={length} H={h} D={d} valid={n_valid}: dq/dk/dv fp32 "
+          f"{f32['grad_err']:.3e}, rel-L2 {f32['rel']:.3e}, row-scaled "
+          f"{f32['row']:.3e} | bf16 {bf['grad_err']:.3e}, rel-L2 "
+          f"{bf['rel']:.3e}, row-scaled {bf['row']:.3e} | kernel "
+          f"{res['ms']:.4f} ms, plain backward {res['plain_ms']:.4f} ms, "
+          f"bound {res['bound_ms']:.5f} ms ({res['bound_by']}), no library "
+          f"call | K1b on the same inputs {res['k1b_ms']:.4f} ms | saved for "
+          f"the backward besides q, k, v: {res['saved_bytes'] / 1e6:.1f} MB "
+          f"(K1: {res['k1_saved_bytes'] / 1e6:.1f} MB)", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# K5: fused exact GELU -> LayerNorm
+# ---------------------------------------------------------------------------
+
+def k5_inputs(shape, device, dtype, seed):
+    """x and dy ``shape``, gamma and beta (F,), all in ``dtype`` (the
+    frozen backbone holds its LayerNorm parameters in the compute dtype)."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = (torch.randn(shape, generator=g) * 1.5).to(device, dtype)
+    dy = torch.randn(shape, generator=g).to(device, dtype)
+    scale = (1.0 + 0.2 * torch.randn(shape[-1], generator=g)).to(device, dtype)
+    bias = (0.1 * torch.randn(shape[-1], generator=g)).to(device, dtype)
+    return x, dy, scale, bias
+
+
+def unfused_gelu_ln(x, scale, bias, eps):
+    """The chain the model runs on its default route: ``gelu_exact``, then
+    ``layer_norm``."""
+    import torch.nn.functional as F
+    from modaltune_tpu_torch.ops import gelu_exact
+    return F.layer_norm(gelu_exact(x), x.shape[-1:], scale, bias, eps)
+
+
+def phase_k5(device, shape=(30720, 3072), eps=1e-5, iters=20):
+    """K5f against its plain version at the FFN's shape (3 tasks x 10,240
+    tokens, ffn 3072), fp32 and bf16; times in bf16 beside the unfused
+    chain (``plain_ms``) and the plain version. No single PyTorch call
+    computes GELU -> LayerNorm, so there is no library time."""
+    import torch
+    gl = importlib.import_module("modaltune_tpu_torch.ops.gelu_ln")
+    res = {}
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1.6e-2)):
+        x, _, scale, bias = k5_inputs(shape, device, dtype, seed=11)
+        got = gl.gelu_ln_cuda(x, scale, bias, eps)
+        want = gl.gelu_ln_reference(x, scale, bias, eps)
+        torch.cuda.synchronize()
+        tag = f"K5 {str(dtype)[6:]}"
+        res[str(dtype)[6:]] = compare(got, want, tol, f"{tag} out")
+        res[str(dtype)[6:] + "_vs_unfused"] = (
+            got.float() - unfused_gelu_ln(x, scale, bias, eps).float()
+        ).abs().max().item()
+        del want
+        if dtype == torch.bfloat16:
+            res["ms"] = time_ms(lambda: gl.gelu_ln_cuda(x, scale, bias, eps),
+                                iters)
+            res["plain_ms"] = time_ms(
+                lambda: unfused_gelu_ln(x, scale, bias, eps), iters)
+            res["reference_ms"] = time_ms(
+                lambda: gl.gelu_ln_reference(x, scale, bias, eps), iters)
+            # erf, two products and the statistics: ~30 fp32 flop an element
+            res["bound_ms"], res["bound_by"] = bound_ms(
+                30.0 * x.numel(), tensor_bytes((x, scale, bias, got)),
+                PEAK_FLOPS_FP32)
+        del got
+        torch.cuda.empty_cache()
+    print(f"K5 x={tuple(shape)}: fp32 out {res['float32']:.3e} (from the "
+          f"unfused chain {res['float32_vs_unfused']:.3e}) | bf16 out "
+          f"{res['bfloat16']:.3e} (from the unfused chain "
+          f"{res['bfloat16_vs_unfused']:.3e}) | kernel {res['ms']:.4f} ms, "
+          f"unfused chain {res['plain_ms']:.4f} ms, plain version "
+          f"{res['reference_ms']:.4f} ms, bound {res['bound_ms']:.5f} ms "
+          f"({res['bound_by']}), no library call", flush=True)
+    return res
+
+
+def phase_k5b(device, shape=(30720, 3072), eps=1e-5, iters=20):
+    """K5b against its plain version at the FFN's shape, fp32 and bf16: dx,
+    dgamma and dbeta each by :func:`check_grads` (dgamma and dbeta against
+    the plain version's fp32 sums); times in bf16 beside autograd through
+    the unfused chain (``plain_ms``) and the plain version."""
+    import torch
+    gl = importlib.import_module("modaltune_tpu_torch.ops.gelu_ln")
+    names = ("dx", "dgamma", "dbeta")
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dy, scale, bias = k5_inputs(shape, device, dtype, seed=12)
+        got = gl.gelu_ln_backward_cuda(x, scale, dy, eps)
+        dx, _, _ = gl.gelu_ln_backward_reference(x, scale, dy, eps)
+        _, dg, db = gl.gelu_ln_backward_reference(x, scale.float(), dy, eps)
+        torch.cuda.synchronize()
+        tag = f"K5b {str(dtype)[6:]}"
+        for gn, gt in zip(names, got):
+            check(bool(torch.isfinite(gt.float()).all()),
+                  f"{tag} {gn}: non-finite values")
+        res[str(dtype)[6:]] = max(
+            (gt.float() - wt.float()).abs().max().item()
+            for gt, wt in zip(got, (dx, dg, db)))
+        res[str(dtype)[6:] + "_rel"], res[str(dtype)[6:] + "_row"] = \
+            check_grads(names, got, (dx, dg, db), dy, str(dtype)[6:], tag)
+        again = gl.gelu_ln_backward_cuda(x, scale, dy, eps)
+        check(all(torch.equal(a, g) for a, g in zip(again, got)),
+              f"{tag}: two runs differ")
+        del dx, dg, db, again
+        if dtype == torch.bfloat16:
+            res["ms"] = time_ms(
+                lambda: gl.gelu_ln_backward_cuda(x, scale, dy, eps), iters)
+            res["reference_ms"] = time_ms(
+                lambda: gl.gelu_ln_backward_reference(x, scale, dy, eps),
+                iters)
+            res["bound_ms"], res["bound_by"] = bound_ms(
+                60.0 * x.numel(), tensor_bytes((x, scale, dy, *got)),
+                PEAK_FLOPS_FP32)
+            del got
+            leaves = [t.detach().requires_grad_() for t in (x, scale, bias)]
+            out = unfused_gelu_ln(*leaves, eps)
+            res["plain_ms"] = time_ms(lambda: torch.autograd.grad(
+                out, leaves, dy, retain_graph=True), iters)
+            del out, leaves
+        torch.cuda.empty_cache()
+    print(f"K5b x={tuple(shape)}: dx/dgamma/dbeta fp32 max|err| "
+          f"{res['float32']:.3e}, rel-L2 {res['float32_rel']:.3e}, row-scaled "
+          f"{res['float32_row']:.3e} | bf16 {res['bfloat16']:.3e}, rel-L2 "
+          f"{res['bfloat16_rel']:.3e}, row-scaled {res['bfloat16_row']:.3e}; "
+          f"two runs bit-identical | kernel {res['ms']:.4f} ms, autograd "
+          f"through the unfused chain {res['plain_ms']:.4f} ms, plain version "
+          f"{res['reference_ms']:.4f} ms, bound {res['bound_ms']:.5f} ms "
+          f"({res['bound_by']}), no library call", flush=True)
     return res
 
 
@@ -748,6 +1068,8 @@ GIGAPATH = dict(name="longnetvit_gene_adapter",
                 config="gigapath_modaltune_config", grid=False,
                 in_chans=1536, bag_range=(9000, 10239), bucket=10239)
 GIGAPATH_2047 = dict(bucket=2047, bag_range=(1791, 2047))
+# the same model, slides and weights on its other kernel route
+GIGAPATH_FUSED = dict(GIGAPATH, route="fused")
 # SyntheticSlideDataset draws patch coordinates on a 900 x 900 lattice of
 # 256-px tiles, a 225 x 225 grid of TITAN's 1,024-px cells: 17,000-19,500
 # patches scatter to about 14,400-16,200 foreground cells, inside the
@@ -776,10 +1098,11 @@ def model_config(config):
 
 def build_batches(name, config, grid, in_chans, bag_range, bucket,
                   n_genes=4987, n_groups=331, max_size=100, n_slides=3,
-                  seed=0):
+                  seed=0, route=None, cfg=None):
     """The host batches of ``n_slides`` synthetic slides padded to
     ``bucket`` (grid-scattered first where ``grid``), through the port's
-    data layer."""
+    data layer; the same on either ``route`` of the model. ``cfg``
+    overrides the factory's configuration, as in :func:`build_model`."""
     from modaltune_tpu_torch.data import (BucketedLoader,
                                           SyntheticSlideDataset,
                                           TitanGridDataset)
@@ -788,7 +1111,8 @@ def build_batches(name, config, grid, in_chans, bag_range, bucket,
         packer=synthetic_packer(n_genes, n_groups, max_size),
         n_genes=n_genes, seed=seed)
     if grid:
-        ds = TitanGridDataset(ds, model_config(config).backbone.patch_size_lv0)
+        cfg = model_config(config) if cfg is None else cfg
+        ds = TitanGridDataset(ds, cfg.backbone.patch_size_lv0)
     # a bag over the bucket would be cut: every slide must fit it whole
     lengths = [ds.get(i, None).bag.shape[0] for i in range(n_slides)]
     check(max(lengths) <= bucket,
@@ -798,17 +1122,32 @@ def build_batches(name, config, grid, in_chans, bag_range, bucket,
                                device_prefetch=False))
 
 
+def route_kw(cfg, route):
+    """``create_aggregator``'s keywords for a kernel route of the LongNet
+    backbone: None is the default (K1, the unfused FFN chain), "fused" the
+    per-branch attention kernels (K3) and the fused GELU -> LayerNorm (K5)."""
+    if route is None:
+        return {}
+    check(route == "fused", f"unknown route {route!r}")
+    return dict(longnet=cfg.backbone.longnet(mega_attention=False),
+                fused_gelu_ln=True)
+
+
 def build_model(device, name, config, n_genes=4987, n_groups=331,
-                max_size=100, seed=0, **_data_kw):
+                max_size=100, seed=0, route=None, cfg=None, **_data_kw):
     """The model ``name`` on ``device`` through the public entry points:
-    random fp32 weights from ``seed``, Injector gammas non-zero."""
+    random fp32 weights from ``seed`` (the same on either ``route``),
+    Injector gammas non-zero. ``cfg`` overrides the factory's
+    configuration (a narrow one, to rehearse on the CPU)."""
     import torch
     from modaltune_tpu_torch import create_aggregator, init_weights
     from modaltune_tpu_torch.models import fill_normal_
     packer = synthetic_packer(n_genes, n_groups, max_size)
-    model = create_aggregator(name, device=device, cfg=model_config(config),
+    cfg = model_config(config) if cfg is None else cfg
+    model = create_aggregator(name, device=device, cfg=cfg,
                               n_gene_groups=packer.n_groups,
-                              max_group_len=packer.max_group_len)
+                              max_group_len=packer.max_group_len,
+                              **route_kw(cfg, route))
     g = torch.Generator().manual_seed(seed)
     init_weights(model, g)
     with torch.no_grad():   # init_values = 0 would make the Injectors no-ops
@@ -836,6 +1175,7 @@ def plain_kernels():
     from modaltune_tpu_torch.ops.dilated import dilated_attention
     from modaltune_tpu_torch.ops.flash_attention import \
         flash_attention_reference
+    from modaltune_tpu_torch.ops.gelu_ln import gelu_ln_reference
 
     def plain_alibi(q, k, v, coords3, slopes, key_mask=None, scale=None):
         return alibi_attention_reference(q, k, v, coords3, slopes, key_mask,
@@ -843,6 +1183,10 @@ def plain_kernels():
 
     return [mock.patch("modaltune_tpu_torch.models.longnet."
                        "mega_dilated_attention", dilated_attention),
+            mock.patch("modaltune_tpu_torch.models.longnet."
+                       "fused_dilated_attention", dilated_attention),
+            mock.patch("modaltune_tpu_torch.models.longnet.gelu_ln",
+                       gelu_ln_reference),
             mock.patch("modaltune_tpu_torch.models.layers.flash_attention",
                        flash_attention_reference),
             mock.patch("modaltune_tpu_torch.models.titan."
@@ -863,14 +1207,15 @@ def run_plain(fn):
 
 
 def phase_slice(device, dtype, build_kw=None, timing_rounds=3, card="",
-                tag="slice", compare_kw=None):
+                tag="slice", compare_kw=None, agree_with=None):
     """The full-width embed step on the slides of ``build_kw``: shapes,
-    finite values and the launch counts of the main path (K1f once per
-    LongNet layer, K4f once per TITAN block, K2f once per adapter
-    attention, no backward kernel); the embeddings against the plain path,
-    on slide 0, or where the plain path does not fit the bucket on a
-    slide of ``compare_kw``'s bucket and bag range; ms/slide and peak
-    memory."""
+    finite values and the launch counts of the main path (per LongNet
+    layer K1f or, on the fused route, K3f and K5f; K4f once per TITAN
+    block; K2f once per adapter attention; no backward kernel); the
+    embeddings against the plain path, on slide 0, or where the plain path
+    does not fit the bucket on a slide of ``compare_kw``'s bucket and bag
+    range; against ``agree_with``, another route's embeddings of the same
+    slides from the same weights; ms/slide and peak memory."""
     import torch
     from modaltune_tpu_torch.train import batch_to_device
     build_kw = build_kw or GIGAPATH
@@ -895,13 +1240,31 @@ def phase_slice(device, dtype, build_kw=None, timing_rounds=3, card="",
               f"{tag} slide {i}: embedding shape {tuple(out.shape)}")
         check(bool(torch.isfinite(out.float()).all()),
               f"{tag} slide {i}: non-finite embedding")
-    want = {"K1f": per["K1"], "K1b": 0, "K2f": per["K2"], "K2b": 0,
-            "K4f": per["K4"], "K4b": 0}
+    want = {f"{k}{d}": n * (d == "f") for k, n in per.items() for d in "fb"}
     check(launches == {k: n * len(batches) for k, n in want.items()},
           f"{tag}: launch counts {launches} != {want} per slide")
     print(f"{tag}: {len(outs)} embeddings {tuple(outs[0].shape)} finite; "
-          f"launches per slide K1f {per['K1']}, K2f {per['K2']}, K4f "
-          f"{per['K4']} (total {launches})", flush=True)
+          f"launches per slide "
+          f"{', '.join(f'{k}f {n}' for k, n in per.items())} "
+          f"(total {launches})", flush=True)
+
+    def agreement(a, b):
+        a, b = a.float().flatten(), b.float().flatten()
+        return (torch.nn.functional.cosine_similarity(a, b, dim=0).item(),
+                ((a - b).norm() / b.norm()).item())
+
+    # the same slides and weights through another route's kernels
+    if agree_with is not None:
+        readings = [agreement(o, w.to(device))
+                    for o, w in zip(outs, agree_with)]
+        worst_cos = min(c for c, _ in readings)
+        worst_rel = max(r for _, r in readings)
+        print(f"{tag}: embeddings against the default route's, worst of "
+              f"{len(outs)} slides: cosine {worst_cos:.6f}, rel-L2 "
+              f"{worst_rel:.3e}", flush=True)
+        check(worst_cos >= 0.999 and worst_rel <= 2e-2,
+              f"{tag} vs the default route: cosine {worst_cos:.6f}, rel-L2 "
+              f"{worst_rel:.3e}")
 
     # one slide through the kernels and through the plain versions
     if compare_kw is None:
@@ -912,9 +1275,7 @@ def phase_slice(device, dtype, build_kw=None, timing_rounds=3, card="",
         got = step(batch)
     plain = run_plain(lambda: step(batch))
     torch.cuda.synchronize()
-    a, b = got.float().flatten(), plain.float().flatten()
-    cos = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
-    rel = ((a - b).norm() / b.norm()).item()
+    cos, rel = agreement(got, plain)
     print(f"{tag}: kernel vs plain embeddings of a slide at bucket "
           f"{batch['bag'].shape[1]}: cosine {cos:.6f}, rel-L2 {rel:.3e}",
           flush=True)
@@ -938,7 +1299,8 @@ def phase_slice(device, dtype, build_kw=None, timing_rounds=3, card="",
           f"({1e3 / ms:.3f} slides/s), peak allocated {peak / 2**30:.3f} GiB"
           f"{'; ' + card if card else ''}", flush=True)
     return dict(launches=launches, cosine=cos, rel_l2=rel, ms=ms,
-                peak_bytes=peak, per_slide=per)
+                peak_bytes=peak, per_slide=per,
+                outs=[o.detach().cpu() for o in outs])
 
 
 # Trainable tensors whose gradient is exactly zero in exact arithmetic and
@@ -973,8 +1335,9 @@ def build_train(device, seed=0, **data_kw):
 def phase_train(device, steps=3, timed_steps=5, compare_kw=None,
                 card="", build_kw=None, tag="train"):
     """The full-width train step: ``steps`` steps with the launch counts
-    checked (K1f and K1b once per LongNet layer, K4f and K4b once per
-    TITAN block, K2f and K2b once per adapter attention), loss finite,
+    checked (per LongNet layer K1f and K1b or, on the fused route, K3f,
+    K3b, K5f and K5b; K4f and K4b once per TITAN block; K2f and K2b once
+    per adapter attention), loss finite,
     trainable parameters moved, frozen backbone bit-identical; then
     ms/step and peak memory over ``timed_steps``; then the step's loss and
     adapter gradients against the plain path at ``compare_kw``'s bucket
@@ -1136,22 +1499,35 @@ def main() -> int:
               f"{sum(1 for x in spills if x)} spill, at most {max(spills)} "
               f"bytes of spill loads")
 
-    # 3-8. kernels against their plain versions
+    # 3-12. kernels against their plain versions
     k2 = phase_k2(device, iters=10)
     k2b = phase_k2b(device, iters=10)
     k1 = phase_k1(device, iters=10)
     k1b = phase_k1b(device)
+    k3 = phase_k3(device)
+    k3b = phase_k3b(device)
+    k5 = phase_k5(device)
+    k5b = phase_k5b(device)
     k4 = phase_k4(device)
     k4b = phase_k4b(device)
 
-    # 9-10. ModalTune-GigaPath: the embed step, the train step
+    # ModalTune-GigaPath: the embed step, the train step
     paths = {
         "gigapath_embed": phase_slice(device, torch.bfloat16, card=card,
                                       build_kw=GIGAPATH, timing_rounds=2),
         "gigapath_train": phase_train(device, card=card, build_kw=GIGAPATH,
                                       compare_kw=GIGAPATH_2047),
     }
-    # 11-12. ModalTune-TITAN: the embed step, the train step
+    # the same on the fused route (K3 for K1, K5 for the FFN chain), its
+    # embeddings held to the default route's
+    paths["gigapath_fused_embed"] = phase_slice(
+        device, torch.bfloat16, card=card, build_kw=GIGAPATH_FUSED,
+        timing_rounds=2, tag="fused slice",
+        agree_with=paths["gigapath_embed"]["outs"])
+    paths["gigapath_fused_train"] = phase_train(
+        device, card=card, build_kw=GIGAPATH_FUSED, compare_kw=GIGAPATH_2047,
+        tag="fused train")
+    # ModalTune-TITAN: the embed step, the train step
     paths["titan_embed"] = phase_slice(
         device, torch.bfloat16, card=card, build_kw=TITAN, timing_rounds=2,
         tag="titan slice", compare_kw=TITAN_4095)
@@ -1160,12 +1536,12 @@ def main() -> int:
         tag="titan train")
 
     def kernel(key, name, replaces, err, res, by_shape=None):
-        """One entry of the kernels line. launches: the sum over the four
+        """One entry of the kernels line. launches: the sum over the six
         paths' runs (by_path: each run's own count, every count set to 0
         just before it); max_abs_err: the largest output or gradient error
         of any comparison above; ms, plain_ms, bound_ms, library_ms: at
-        K1's one shape, K2's Extractor shape, K4's N = 16,384 (by_shape:
-        the others)."""
+        K1's, K3's and K5's one shape, K2's Extractor shape, K4's
+        N = 16,384 (by_shape: the others)."""
         by_path = {p: r["launches"][key] for p, r in paths.items()}
         out = {"name": name, "route": "cuda",
                "source": f"modaltune_tpu_torch/csrc/{name}.cu",
@@ -1198,6 +1574,13 @@ def main() -> int:
                "modaltune_tpu/ops/flash_attention.py:292",
                max(r[dt] for r in k2b.values() for dt in both),
                k2b["extractor"], k2b),
+        kernel("K3f", "dilated_fused_fwd",
+               "modaltune_tpu/ops/dilated_fused.py:468",
+               max(max(k3[dt][e] for e in ("out_err", "piece_err", "mix_err"))
+                   for dt in both), k3),
+        kernel("K3b", "dilated_fused_bwd",
+               "modaltune_tpu/ops/dilated_fused.py:676",
+               max(k3b[dt]["grad_err"] for dt in both), k3b),
         kernel("K4f", "alibi_attention_fwd",
                "modaltune_tpu/ops/alibi_flash.py:552",
                max(r[dt]["out_err"] for r in k4.values() for dt in both),
@@ -1206,6 +1589,10 @@ def main() -> int:
                "modaltune_tpu/ops/alibi_flash.py:594",
                max(r[dt] for r in k4b.values() for dt in both),
                k4b["n16384"], k4b),
+        kernel("K5f", "gelu_ln_fwd", "modaltune_tpu/ops/gelu_ln.py:169",
+               max(k5[dt] for dt in both), k5),
+        kernel("K5b", "gelu_ln_bwd", "modaltune_tpu/ops/gelu_ln.py:189",
+               max(k5b[dt] for dt in both), k5b),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

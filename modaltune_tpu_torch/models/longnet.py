@@ -3,8 +3,12 @@
 Counterpart of ``modaltune_tpu/models/longnet.py``: pre-norm sub-LN
 encoder layers whose self-attention is
 :func:`..ops.dilated_mega.mega_dilated_attention` (the K1 kernel on CUDA)
-and whose FFN is fc1 -> exact fp32 GELU -> sub-LN -> fc2. Padded tokens
-are masked out of every attention and re-zeroed after every layer. The
+or, with ``LongNetConfig.mega_attention`` off,
+:func:`..ops.dilated_fused.fused_dilated_attention` (K3), and whose FFN is
+fc1 -> exact fp32 GELU -> sub-LN -> fc2, the GELU and the sub-LN as two ops
+or, when asked for, as the one fused op :func:`..ops.gelu_ln.gelu_ln` (K5).
+Padded tokens are masked out of every attention and re-zeroed after every
+layer. The
 JAX package's span stacking, comb layouts and remat are TPU machinery and
 have no counterpart: the layers are a plain ``nn.ModuleList`` and
 :meth:`LongNetEncoder.run_layers` runs any ``[lo, hi)``.
@@ -12,6 +16,7 @@ have no counterpart: the layers are a plain ``nn.ModuleList`` and
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -19,13 +24,17 @@ from torch import nn
 
 from ..configs import LongNetConfig
 from ..ops.activations import gelu_exact
+from ..ops.dilated_fused import fused_dilated_attention
 from ..ops.dilated_mega import mega_dilated_attention
+from ..ops.gelu_ln import gelu_ln
 from .layers import Dense, DropPath, Dropout
 
 
 class DilatedSelfAttention(nn.Module):
     """q/k/v/out projections around multi-branch dilated attention, with
-    the sub-LN ``inner_attn_ln`` before the output projection."""
+    the sub-LN ``inner_attn_ln`` before the output projection. The
+    attention is the one-launch K1 with ``cfg.mega_attention``, else the
+    per-branch K3; both compute one function."""
 
     def __init__(self, cfg: LongNetConfig):
         super().__init__()
@@ -46,7 +55,9 @@ class DilatedSelfAttention(nn.Module):
         def split(t):
             return t.view(b, length, c.num_heads, c.head_dim)
 
-        out = mega_dilated_attention(
+        attn = (mega_dilated_attention if c.mega_attention
+                else fused_dilated_attention)
+        out = attn(
             split(self.q_proj(x)), split(self.k_proj(x)),
             split(self.v_proj(x)), segment_lengths=c.segment_lengths,
             dilated_ratios=c.dilated_ratios,
@@ -57,11 +68,26 @@ class DilatedSelfAttention(nn.Module):
         return self.out_proj(out)
 
 
-class FeedForwardNetwork(nn.Module):
-    """fc1 -> exact GELU (fp32) -> dropout -> [sub-LN] -> fc2 -> dropout."""
+def fused_gelu_ln_requested() -> bool:
+    """The JAX package's switch for the fused GELU -> LayerNorm FFN route,
+    the environment variable ``MODALTUNE_FUSED_GELU_LN``."""
+    return os.environ.get("MODALTUNE_FUSED_GELU_LN", "0") == "1"
 
-    def __init__(self, cfg: LongNetConfig):
+
+class FeedForwardNetwork(nn.Module):
+    """fc1 -> exact GELU (fp32) -> dropout -> [sub-LN] -> fc2 -> dropout.
+
+    With ``fused_gelu_ln`` (``None`` reads ``MODALTUNE_FUSED_GELU_LN`` once,
+    here), sub-LN, and no activation dropout to apply, the GELU and the
+    LayerNorm run as the one op :func:`..ops.gelu_ln.gelu_ln` on
+    ``ffn_layernorm``'s parameters; the ``state_dict`` is the same on
+    either route."""
+
+    def __init__(self, cfg: LongNetConfig,
+                 fused_gelu_ln: Optional[bool] = None):
         super().__init__()
+        self.fused_gelu_ln = (fused_gelu_ln_requested()
+                              if fused_gelu_ln is None else bool(fused_gelu_ln))
         self.fc1 = Dense(cfg.embed_dim, cfg.ffn_dim)
         self.fc2 = Dense(cfg.ffn_dim, cfg.embed_dim)
         self.ffn_layernorm = (nn.LayerNorm(cfg.ffn_dim, eps=cfg.layernorm_eps)
@@ -70,16 +96,23 @@ class FeedForwardNetwork(nn.Module):
         self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.activation_dropout(gelu_exact(self.fc1(x)))
-        if self.ffn_layernorm is not None:
-            x = self.ffn_layernorm(x)
+        x = self.fc1(x)
+        ln = self.ffn_layernorm
+        if self.fused_gelu_ln and ln is not None and not (
+                self.training and self.activation_dropout.rate > 0):
+            x = gelu_ln(x, ln.weight, ln.bias, ln.eps)
+        else:
+            x = self.activation_dropout(gelu_exact(x))
+            if ln is not None:
+                x = ln(x)
         return self.dropout(self.fc2(x))
 
 
 class LongNetEncoderLayer(nn.Module):
     """Pre-norm encoder layer; padded positions are re-zeroed at the end."""
 
-    def __init__(self, cfg: LongNetConfig, drop_path_rate: float = 0.0):
+    def __init__(self, cfg: LongNetConfig, drop_path_rate: float = 0.0,
+                 fused_gelu_ln: Optional[bool] = None):
         super().__init__()
         d = cfg.embed_dim
         self.cfg = cfg
@@ -87,7 +120,7 @@ class LongNetEncoderLayer(nn.Module):
         self.self_attn = DilatedSelfAttention(cfg)
         self.dropout = Dropout(cfg.dropout)
         self.final_layer_norm = nn.LayerNorm(d, eps=cfg.layernorm_eps)
-        self.ffn = FeedForwardNetwork(cfg)
+        self.ffn = FeedForwardNetwork(cfg, fused_gelu_ln)
         self.drop_path = DropPath(drop_path_rate)
 
     def forward(self, x: torch.Tensor,
@@ -106,7 +139,8 @@ class LongNetEncoder(nn.Module):
     :meth:`run_layers` over any ``[lo, hi)``, and :meth:`finalize` (the
     encoder LayerNorm, used only when the backbone pools by itself)."""
 
-    def __init__(self, cfg: LongNetConfig, with_final_norm: bool = True):
+    def __init__(self, cfg: LongNetConfig, with_final_norm: bool = True,
+                 fused_gelu_ln: Optional[bool] = None):
         super().__init__()
         n = cfg.num_layers
         rates = ([cfg.drop_path_rate * i / (n - 1) for i in range(n)]
@@ -114,7 +148,8 @@ class LongNetEncoder(nn.Module):
         self.cfg = cfg
         self.embed_dropout = Dropout(cfg.dropout)
         self.layers = nn.ModuleList(
-            LongNetEncoderLayer(cfg, rates[i]) for i in range(n))
+            LongNetEncoderLayer(cfg, rates[i], fused_gelu_ln)
+            for i in range(n))
         self.layer_norm = (
             nn.LayerNorm(cfg.embed_dim, eps=cfg.layernorm_eps)
             if with_final_norm and cfg.normalize_output

@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..configs import ModalTuneConfig
+from ..configs import LongNetConfig, ModalTuneConfig
 from .adapter import InteractionBlock
 from .gene import GeneMixerEncoder
 from .layers import Dense, SelfAttentionLayer, fill_normal_
@@ -28,12 +28,24 @@ from .slide_encoder import LongNetViT
 
 
 class ModalTuneModel(nn.Module):
+    """``longnet`` and ``fused_gelu_ln`` pick the LongNet backbone's kernel
+    route (:class:`.slide_encoder.LongNetViT`): ``longnet=
+    cfg.backbone.longnet(mega_attention=False)`` runs the per-branch
+    attention kernels, ``fused_gelu_ln=True`` the fused GELU -> LayerNorm."""
+
     def __init__(self, cfg: ModalTuneConfig, n_gene_groups: int,
-                 max_group_len: int):
+                 max_group_len: int, longnet: Optional[LongNetConfig] = None,
+                 fused_gelu_ln: Optional[bool] = None):
         super().__init__()
         a, b = cfg.adapter, cfg.backbone
         d = b.embed_dim
         self.cfg = cfg
+        if (longnet is not None or fused_gelu_ln is not None) and \
+                type(self).build_backbone is not ModalTuneModel.build_backbone:
+            raise ValueError(f"{type(self).__name__} has no LongNet backbone "
+                             f"to route")
+        self._longnet_route = dict(longnet=longnet,
+                                   fused_gelu_ln=fused_gelu_ln)
         self.backbone = self.build_backbone(b)
 
         gene_cfg = cfg.gene
@@ -88,7 +100,7 @@ class ModalTuneModel(nn.Module):
 
     def build_backbone(self, cfg) -> nn.Module:
         """The frozen slide encoder (``self.backbone``) for ``cfg.backbone``."""
-        return LongNetViT(cfg, pool_head=False)
+        return LongNetViT(cfg, pool_head=False, **self._longnet_route)
 
     @torch.no_grad()
     def init_weights(self, g: torch.Generator) -> None:

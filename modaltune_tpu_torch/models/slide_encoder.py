@@ -12,7 +12,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..configs import SlideEncoderConfig
+from ..configs import LongNetConfig, SlideEncoderConfig
 from .layers import Dense, fill_normal_
 from .longnet import LongNetEncoder
 
@@ -58,14 +58,21 @@ class LongNetViT(nn.Module):
     ``pool_head=False`` leaves out the encoder and ViT output LayerNorms,
     which only :meth:`pool` uses; ModalTune never pools through the
     backbone, and the JAX package's ModalTune parameters have neither.
+    ``longnet`` overrides the encoder configuration ``cfg.longnet()`` (to
+    turn ``mega_attention`` off, say); ``fused_gelu_ln`` picks the FFN
+    route (:class:`.longnet.FeedForwardNetwork`).
     """
 
-    def __init__(self, cfg: SlideEncoderConfig, pool_head: bool = True):
+    def __init__(self, cfg: SlideEncoderConfig, pool_head: bool = True,
+                 longnet: Optional[LongNetConfig] = None,
+                 fused_gelu_ln: Optional[bool] = None):
         super().__init__()
         self.cfg = cfg
         self.patch_embed = PatchEmbed(cfg.in_chans, cfg.embed_dim)
         self.cls_token = nn.Parameter(torch.empty(1, 1, cfg.embed_dim))
-        self.encoder = LongNetEncoder(cfg.longnet(), with_final_norm=pool_head)
+        self.encoder = LongNetEncoder(
+            cfg.longnet() if longnet is None else longnet,
+            with_final_norm=pool_head, fused_gelu_ln=fused_gelu_ln)
         self.norm = (nn.LayerNorm(cfg.embed_dim, eps=cfg.norm_eps)
                      if pool_head else None)
 

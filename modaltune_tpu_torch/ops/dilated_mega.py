@@ -36,7 +36,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _check(q, k, v, mask, segment_lengths, dilated_ratios):
     if q.dim() != 4:
-        raise ValueError("mega_dilated_attention takes (B, L, H, D) q/k/v")
+        raise ValueError("dilated attention takes (B, L, H, D) q/k/v")
     b, length, h, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "

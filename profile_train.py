@@ -2,9 +2,11 @@
 """Device-time profile of one full-width ModalTune train step on one
 NVIDIA GPU, over the GigaPath backbone or the TITAN backbone.
 
-    python3 profile_train.py [--model gigapath|titan] [--bucket N]
-                             [--warmup 2] [--out FILE]
-    (--bucket: GigaPath only)
+    python3 profile_train.py [--model gigapath|titan] [--route fused]
+                             [--bucket N] [--warmup 2] [--out FILE]
+    (--route, --bucket: GigaPath only; ``--route fused`` profiles the step
+    on the per-branch attention kernels K3 and the fused GELU -> LayerNorm
+    K5 in place of K1 and the unfused FFN chain)
 
 Builds the train step as ``chip_smoke.py`` does (frozen backbone in bf16,
 adapter in fp32, bf16 autocast, dropout on, random weights from a seed,
@@ -14,8 +16,8 @@ runs ``--warmup``
 steps, then one step under ``torch.profiler`` with CUDA activity. Prints the step's
 wall time, the device's busy time (the union of every kernel, memcpy and
 memset interval) and its share of the wall time, the device time of each
-group of kernels (K1b, K1f, K2f, K2b, K4b, K4f, GEMMs, LayerNorm, the
-rest) with
+group of kernels (K1b, K1f, K2f, K2b, K3b, K3f, K4b, K4f, K5b, K5f, GEMMs,
+LayerNorm, the rest) with
 its share of the busy time, and the 25 kernels with the most device time.
 Writes the profiler's whole table to ``--out``. Exits non-zero when no
 CUDA device is available or the profiler records no device time.
@@ -34,8 +36,12 @@ GROUPS = [
     ("K1f", ("dilated_fwd",)),
     ("K2b", ("flash_bwd",)),
     ("K2f", ("flash_fwd",)),
+    ("K3b", ("fused_bwd", "fused_combine")),
+    ("K3f", ("fused_branch_fwd", "fused_mix")),
     ("K4b", ("alibi_bwd",)),
     ("K4f", ("alibi_fwd",)),
+    ("K5b", ("gelu_ln_bwd",)),
+    ("K5f", ("gelu_ln_fwd",)),
     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma")),
     ("LayerNorm", ("layer_norm", "LayerNorm")),
 ]
@@ -65,14 +71,21 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=("gigapath", "titan"),
                     default="gigapath")
+    ap.add_argument("--route", choices=("default", "fused"),
+                    default="default",
+                    help="GigaPath kernel route: K1 and the unfused FFN "
+                         "chain (default), or K3 and K5")
     ap.add_argument("--bucket", type=int, default=None,
                     help="GigaPath bag bucket (default 10239)")
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--out", default=None,
-                    help="default: chiprun_out/profile_train[_titan].txt")
+                    help="default: chiprun_out/profile_train[_titan|_fused]"
+                         ".txt")
     args = ap.parse_args()
+    fused = args.route == "fused"
     if args.out is None:
-        tail = "_titan" if args.model == "titan" else ""
+        tail = "_titan" if args.model == "titan" else \
+            "_fused" if fused else ""
         args.out = os.path.join("chiprun_out", f"profile_train{tail}.txt")
     import torch
     if not torch.cuda.is_available():
@@ -90,13 +103,14 @@ def main() -> int:
     print(chip_smoke._last_line(["nvidia-smi", "--query-gpu=name,power.limit",
                                  "--format=csv,noheader", "--id=0"]))
     if args.model == "titan":
-        if args.bucket is not None:
-            ap.error("--bucket applies to --model gigapath; the TITAN step "
-                     "is profiled at chip_smoke.TITAN's bucket")
+        if args.bucket is not None or fused:
+            ap.error("--bucket and --route apply to --model gigapath; the "
+                     "TITAN step is profiled at chip_smoke.TITAN's bucket")
         build_kw = dict(chip_smoke.TITAN)
     else:
         bucket = args.bucket or chip_smoke.GIGAPATH["bucket"]
-        build_kw = dict(chip_smoke.GIGAPATH, bucket=bucket,
+        build_kw = dict(chip_smoke.GIGAPATH_FUSED if fused
+                        else chip_smoke.GIGAPATH, bucket=bucket,
                         bag_range=(min(9000, bucket * 7 // 8), bucket))
     args.bucket = build_kw["bucket"]
     model, tcfg, opt, text, batch = chip_smoke.build_train(device, **build_kw)
@@ -127,7 +141,8 @@ def main() -> int:
         by_name[e.name] = by_name.get(e.name, 0) + ms
         calls[e.name] = calls.get(e.name, 0) + 1
 
-    print(f"{args.model} train step at bucket {args.bucket}: wall {wall:.2f} ms, device "
+    print(f"{args.model} train step ({args.route} route) at bucket "
+          f"{args.bucket}: wall {wall:.2f} ms, device "
           f"busy {busy:.2f} ms (busy share {busy / wall:.3f}), peak "
           f"allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     print(f"{'group':<42} {'device ms':>10} {'of busy':>8}")

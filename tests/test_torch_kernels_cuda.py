@@ -12,7 +12,12 @@ do not: ragged tile edges, head dimensions that pad, segments shorter
 than a query tile, head groups without heads, a missing mask, a row whose
 keys are all masked, and the wrappers raising on what the kernels do not
 take; for the forward kernels (K1f, K2f, K4f) and the backward ones (K1b,
-K2b, K4b), and for K1f's statistics. For the ALiBi kernels (K4) besides:
+K2b, K4b), and for K1f's statistics; for the per-branch dilated kernels
+(K3f, K3b) the same geometries, a length no segment divides, sixteen heads
+at ratio 16, one valid key and a dead batch row, compact pieces included;
+for the fused GELU -> LayerNorm (K5f, K5b) widths that do and do not take
+4-wide loads, one row, and parameters in either dtype. For the ALiBi
+kernels (K4) besides:
 a sequence of the cls token and a handful of cells, masks and coordinates
 that differ between batch rows (the kernels index them by ``bh / H``), and
 a batch row whose keys are all masked but the cls token.
@@ -43,6 +48,8 @@ chip_smoke = _load_chip_smoke()
 fa = importlib.import_module("modaltune_tpu_torch.ops.flash_attention")
 dm = importlib.import_module("modaltune_tpu_torch.ops.dilated_mega")
 af = importlib.import_module("modaltune_tpu_torch.ops.alibi_flash")
+df = importlib.import_module("modaltune_tpu_torch.ops.dilated_fused")
+gl = importlib.import_module("modaltune_tpu_torch.ops.gelu_ln")
 
 pytestmark = pytest.mark.cuda
 
@@ -444,3 +451,249 @@ def test_alibi_wrapper_raises_instead_of_falling_back(cuda_device):
     z = torch.zeros(1, 2, 20, 136, device=cuda_device)     # D > 128
     with pytest.raises(ValueError):
         af.alibi_flash_attention(z, z, z, coords3, slopes)
+
+
+# ---------------------------------------------------------------------------
+# K3: per-branch dilated attention and the mix
+# ---------------------------------------------------------------------------
+
+# (B, L, H, D, segments, ratios, mask): DILATED_CASES' geometries, then a
+# length no segment divides with sixteen heads at ratio 16 ("tail": a
+# different valid length per batch row), one valid key ("one"), and a
+# batch row without a valid key ("dead").
+FUSED_CASES = [c[:6] + ("tail" if c[6] else None,) for c in DILATED_CASES] + [
+    (2, 777, 16, 48, (100, 300, 777), (1, 4, 16), "tail"),
+    (1, 130, 4, 16, (64, 130), (1, 2), "one"),
+    (2, 200, 4, 32, (64, 128, 512), (1, 2, 4), "dead"),
+]
+FUSED_DTYPES = [(torch.float32, TOL, GRAD_TOL), (torch.bfloat16, 1.6e-2, 3e-2)]
+
+
+def _fused_inputs(b, length, h, d, mask, device, dtype):
+    q, k, v, dmix = (_randn((b, length, h, d), s, device, dtype)
+                     for s in (5, 6, 7, 8))
+    m = None
+    if mask is not None:
+        lens = torch.tensor([length, max(1, length * 2 // 3)])[:b]
+        m = torch.arange(length)[None, :] < lens[:, None]
+        if mask == "one":
+            m[:] = False
+            m[:, 70] = True
+        if mask == "dead":
+            m[1] = False
+        m = m.to(device)
+    valid = (torch.ones(b, length, dtype=torch.bool, device=device)
+             if m is None else m)[:, :, None, None]
+    return q, k, v, dmix * valid, m, valid
+
+
+@pytest.mark.parametrize("dtype,tol,_", FUSED_DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,length,h,d,segs,ratios,mask", FUSED_CASES)
+def test_fused_kernel_matches_plain(cuda_device, b, length, h, d, segs, ratios,
+                                    mask, dtype, tol, _):
+    """K3f: the mixed output against ``dilated_attention``, the compact
+    pieces and ``(m, Z)`` against the plain pieces (in fp32 on the same
+    values) and against ``dilated_attention_stats``."""
+    q, k, v, _, m, valid = _fused_inputs(b, length, h, d, mask, cuda_device,
+                                         dtype)
+    kw = dict(segment_lengths=segs, dilated_ratios=ratios, mask=m)
+    scale = d ** -0.5
+    mixed, out_c, lse_c, stats = df.fused_dilated_attention_cuda(
+        q, k, v, m, segs, ratios, scale)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = dilated_attention(qf, kf, vf, **kw)
+    want_st = dilated_attention_stats(qf, kf, vf, **kw)
+    torch.cuda.synchronize()
+    assert mixed.dtype == dtype and torch.isfinite(mixed).all()
+    err = ((mixed.float() - want) * valid).abs().max().item()
+    assert err <= tol * max(1.0, want.abs().max().item()), err
+    n = len(segs)
+    torch.testing.assert_close(stats.reshape(2, b * h, length),
+                               want_st[:, n:].transpose(0, 1), atol=1e-4,
+                               rtol=1e-5)
+    outs = df.split_branches(out_c, length, segs, ratios)
+    lses = df.split_branches(lse_c, length, segs, ratios)
+    for i, (w, r) in enumerate(zip(segs, ratios)):
+        want_o, want_l = df.fused_branch_reference(qf, kf, vf, m, w, r, scale)
+        assert ((lses[i] == NEG_INF) == (want_l == NEG_INF)).all()
+        torch.testing.assert_close(lses[i], want_l, atol=1e-4, rtol=1e-5)
+        err = (outs[i].float() - want_o).abs().max().item()
+        assert err <= tol * max(1.0, want_o.abs().max().item()), (i, err)
+        assert (outs[i][want_l == NEG_INF] == 0).all()
+    if mask == "dead":
+        assert (mixed[1] == 0).all() and (stats[1, 1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype,_,tol", FUSED_DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,length,h,d,segs,ratios,mask", FUSED_CASES)
+def test_fused_backward_kernel_matches_autograd(cuda_device, b, length, h, d,
+                                                segs, ratios, mask, dtype, _,
+                                                tol):
+    """K3b: dq/dk/dv against autograd through the plain version (in fp32
+    on the same values), and its compact gradients against the plain
+    branch backward."""
+    q, k, v, dmix, m, valid = _fused_inputs(b, length, h, d, mask,
+                                            cuda_device, dtype)
+    kw = dict(segment_lengths=segs, dilated_ratios=ratios, mask=m)
+    scale = d ** -0.5
+    leaves = [x.float().requires_grad_() for x in (q, k, v)]
+    torch.autograd.backward(dilated_attention(*leaves, **kw), dmix.float())
+    _, out_c, lse_c, stats = df.fused_dilated_attention_cuda(
+        q, k, v, m, segs, ratios, scale)
+    dq, dk, dv, grads_c = df.fused_dilated_attention_backward_cuda(
+        q, k, v, m, dmix, out_c, lse_c, stats, segs, ratios, scale,
+        return_compact=True)
+    torch.cuda.synchronize()
+    for name, g_, x in zip(("dq", "dk", "dv"), (dq, dk, dv), leaves):
+        assert g_.dtype == dtype and torch.isfinite(g_).all(), name
+        err = ((g_.float() - x.grad) * valid).abs().max().item()
+        assert err <= tol * max(1.0, x.grad.abs().max().item()), (name, err)
+        _assert_grad_readings(g_ * valid, x.grad * valid, dmix, name)
+        if mask is not None and name != "dq":
+            assert (g_ * ~valid == 0).all(), f"{name} of masked keys"
+    lses = df.split_branches(lse_c, length, segs, ratios)
+    for i, (w, r) in enumerate(zip(segs, ratios)):
+        want = df.fused_branch_backward_reference(
+            q.float(), k.float(), v.float(), m, lses[i], stats[0], stats[1],
+            dmix.float(), w, r, scale)
+        for g_, w_ in zip(df.split_branches(grads_c.movedim(0, -1), length,
+                                            segs, ratios)[i].unbind(-1), want):
+            # bf16: delta comes from the saved out_b, rounded to bf16
+            err = (g_ - w_).abs().max().item()
+            assert err <= (GRAD_TOL if dtype == torch.float32 else 2e-2) * \
+                max(1.0, w_.abs().max().item()), (i, err)
+    if mask == "dead":
+        assert all((g_[1] == 0).all() for g_ in (dq, dk, dv))
+
+
+def test_fused_function_runs_both_kernels(cuda_device):
+    q, k, v = (_randn((2, 128, 4, 16), s, cuda_device).requires_grad_()
+               for s in (19, 20, 21))
+    kw = dict(segment_lengths=(32, 128), dilated_ratios=(1, 2))
+    df.LAUNCHES = df.BWD_LAUNCHES = dm.LAUNCHES = 0
+    df.fused_dilated_attention(q, k, v, **kw).sum().backward()
+    assert (df.LAUNCHES, df.BWD_LAUNCHES, dm.LAUNCHES) == (1, 1, 0)
+    got = [x.grad.clone() for x in (q, k, v)]
+    for x in (q, k, v):
+        x.grad = None
+    dilated_attention(q, k, v, **kw).sum().backward()
+    for g_, x in zip(got, (q, k, v)):
+        _assert_grad_close(g_, x.grad, "grad")
+    with torch.no_grad():
+        out = df.fused_dilated_attention(q, k, v, **kw)
+    assert (df.LAUNCHES, df.BWD_LAUNCHES) == (2, 1)
+    torch.testing.assert_close(out, dm.mega_dilated_attention(
+        q.detach(), k.detach(), v.detach(), **kw), atol=TOL, rtol=TOL)
+
+
+def test_fused_wrapper_raises_instead_of_falling_back(cuda_device):
+    y = _randn((2, 16, 4, 16), 9, cuda_device).transpose(1, 2)
+    with pytest.raises(ValueError):
+        df.fused_dilated_attention(y, y, y, segment_lengths=(8,),
+                                   dilated_ratios=(1,))
+    x = _randn((1, 16, 4, 16), 9, cuda_device)
+    with pytest.raises(TypeError):
+        df.fused_dilated_attention(x.half(), x.half(), x.half(),
+                                   segment_lengths=(8,), dilated_ratios=(1,))
+    _, out_c, lse_c, stats = df.fused_dilated_attention_cuda(
+        x, x, x, None, (8,), (1,), 0.25)
+    with pytest.raises(ValueError):                    # other branches' rows
+        df.fused_dilated_attention_backward_cuda(
+            x, x, x, None, x, out_c, lse_c, stats, (8, 16), (1, 2), 0.25)
+
+
+# ---------------------------------------------------------------------------
+# K5: fused GELU -> LayerNorm
+# ---------------------------------------------------------------------------
+
+# (rows shape, F, dtype of x, dtype of gamma/beta): F = 3072 and 384 take
+# 4-wide loads, 1000 too, 77 and 3 do not; one row; bf16 parameters as the
+# frozen backbone holds them, fp32 ones as an unfrozen model would.
+GELU_LN_CASES = [
+    ((33,), 3072, torch.float32, torch.float32),
+    ((3, 50), 384, torch.float32, torch.float32),
+    ((1,), 3072, torch.float32, torch.float32),
+    ((7,), 77, torch.float32, torch.float32),
+    ((5,), 3, torch.float32, torch.float32),
+    ((600,), 1000, torch.float32, torch.float32),
+    ((33,), 3072, torch.bfloat16, torch.bfloat16),
+    ((3, 50), 384, torch.bfloat16, torch.float32),
+    ((1,), 3072, torch.bfloat16, torch.bfloat16),
+    ((7,), 77, torch.bfloat16, torch.bfloat16),
+    ((2000,), 256, torch.bfloat16, torch.bfloat16),
+]
+
+
+def _gelu_ln_inputs(rows, f, dtype, pdtype, device):
+    g = torch.Generator().manual_seed(31)
+    x = (torch.randn(rows + (f,), generator=g) * 1.5).to(device, dtype)
+    dy = torch.randn(rows + (f,), generator=g).to(device, dtype)
+    scale = (1.0 + 0.2 * torch.randn(f, generator=g)).to(device, pdtype)
+    bias = (0.1 * torch.randn(f, generator=g)).to(device, pdtype)
+    return x, dy, scale, bias
+
+
+@pytest.mark.parametrize("rows,f,dtype,pdtype", GELU_LN_CASES)
+def test_gelu_ln_kernel_matches_plain(cuda_device, rows, f, dtype, pdtype):
+    x, _, scale, bias = _gelu_ln_inputs(rows, f, dtype, pdtype, cuda_device)
+    got = gl.gelu_ln_cuda(x, scale, bias, 1e-5)
+    want = gl.gelu_ln_reference(x, scale, bias, 1e-5)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    # fp32: the row sums run in another order; bf16: one ulp of the result
+    # where the fp32 values straddle a rounding boundary
+    tol = 2e-5 if dtype == torch.float32 else 1.6e-2
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * max(1.0, want.float().abs().max().item()), err
+
+
+@pytest.mark.parametrize("rows,f,dtype,pdtype", GELU_LN_CASES)
+def test_gelu_ln_backward_kernel_matches_plain(cuda_device, rows, f, dtype,
+                                               pdtype):
+    x, dy, scale, _ = _gelu_ln_inputs(rows, f, dtype, pdtype, cuda_device)
+    got = gl.gelu_ln_backward_cuda(x, scale, dy, 1e-5)
+    want = gl.gelu_ln_backward_reference(x, scale, dy, 1e-5)
+    # dgamma, dbeta: the plain version's fp32 sums, before its last cast
+    want32 = gl.gelu_ln_backward_reference(x, scale.float(), dy, 1e-5)
+    torch.cuda.synchronize()
+    assert got[0].dtype == dtype and got[1].dtype == pdtype
+    for name, g_, w_ in zip(("dx", "dgamma", "dbeta"), got,
+                            (want[0], want32[1], want32[2])):
+        assert torch.isfinite(g_).all(), name
+        _assert_grad_readings(g_.reshape(-1, f), w_.reshape(-1, f),
+                              dy.reshape(-1, f), name)
+    again = gl.gelu_ln_backward_cuda(x, scale, dy, 1e-5)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again)), \
+        "the backward is not deterministic"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gelu_ln_function_runs_both_kernels(cuda_device, dtype):
+    x, dy, scale, bias = _gelu_ln_inputs((40,), 384, dtype, torch.float32,
+                                         cuda_device)
+    leaves = [t.detach().requires_grad_() for t in (x, scale, bias)]
+    gl.LAUNCHES = gl.BWD_LAUNCHES = 0
+    got = torch.autograd.grad(gl.gelu_ln(*leaves), leaves, dy)
+    assert (gl.LAUNCHES, gl.BWD_LAUNCHES) == (1, 1)
+    want = gl.gelu_ln_backward_reference(x, scale, dy)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        err = (g_.float() - w_.float()).abs().max().item()
+        assert err <= (GRAD_TOL if dtype == torch.float32 else 2e-2) * max(
+            1.0, w_.float().abs().max().item())
+
+
+def test_gelu_ln_wrapper_raises_instead_of_falling_back(cuda_device):
+    x, dy, scale, bias = _gelu_ln_inputs((4,), 64, torch.float32,
+                                         torch.float32, cuda_device)
+    with pytest.raises(TypeError):
+        gl.gelu_ln(x.half(), scale.half(), bias.half())
+    with pytest.raises(ValueError):                    # F over the range
+        wide = torch.zeros(2, gl.MAX_FEATURES + 4, device=cuda_device)
+        gl.gelu_ln(wide, wide[0], wide[0])
+    with pytest.raises(ValueError):                    # bf16 gamma, fp32 x
+        gl.gelu_ln_cuda(x, scale.bfloat16(), bias.bfloat16())
+    with pytest.raises(ValueError):                    # scale on the host
+        gl.gelu_ln_cuda(x, scale.cpu(), bias)
+    with pytest.raises(ValueError):                    # dy of another shape
+        gl.gelu_ln_backward_cuda(x, scale, dy[:2])

@@ -21,6 +21,7 @@ The CUDA kernels do not run here; ``chip_smoke.py`` holds each against
 these plain versions on the card.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -355,6 +356,11 @@ def _kd_loss_floor(logits, targets, n_orders=16):
 
 
 def test_train_step_matches_jax():
+    """(f) on the default route of both packages."""
+    train_step_against_jax()
+
+
+def train_step_against_jax(port_kw=None, jax_backbone_kw=None):
     """(f) JAX ``make_train_step`` and the port's from the same parameters
     (``params_from_jax``) and text projector (``projector_from_jax``),
     dropout off (the tiny config has none), three steps on one bag.
@@ -373,8 +379,14 @@ def test_train_step_matches_jax():
       AdamW's eps (1e-8): there the step is proportional to the gradient.
       At the default scale the first AdamW step is lr * sign(g) for every
       element, and an element whose gradient is within fp32 noise of zero
-      steps +-lr at random in each framework."""
+      steps +-lr at random in each framework.
+
+    ``port_kw`` goes to the port's ``create_aggregator`` (a kernel route);
+    ``jax_backbone_kw`` replaces fields of the JAX model's backbone
+    configuration (a route of the JAX package)."""
     cfg = tiny_test_config(depth=4)
+    jcfg = cfg if jax_backbone_kw is None else dataclasses.replace(
+        cfg, backbone=dataclasses.replace(cfg.backbone, **jax_backbone_kw))
     tcfg = TrainConfig(lr=0.2, kd_loss_scale=1e-8)
     spe = 3                 # three steps of the first warmup epoch
     groups = synthetic_pathways(n_genes=N_GENES, n_groups=12, max_size=7,
@@ -385,7 +397,7 @@ def test_train_step_matches_jax():
     (batch,) = list(BucketedLoader(ds, buckets=(511,), batch_size=1,
                                    shuffle=False, prefetch=0,
                                    device_prefetch=False))
-    jmodel = JaxModalTune(cfg, n_gene_groups=packer.n_groups,
+    jmodel = JaxModalTune(jcfg, n_gene_groups=packer.n_groups,
                           max_group_len=packer.max_group_len)
     jb = dict(bag=jnp.asarray(batch.bag), coords=jnp.asarray(batch.coords),
               mask=jnp.asarray(batch.mask), genes=jnp.asarray(batch.genes),
@@ -419,7 +431,8 @@ def test_train_step_matches_jax():
 
     model = create_aggregator("longnetvit_gene_adapter", device="cpu", cfg=cfg,
                               n_gene_groups=packer.n_groups,
-                              max_group_len=packer.max_group_len)
+                              max_group_len=packer.max_group_len,
+                              **(port_kw or {}))
     p0 = params_from_jax(params, model)
     model.load_state_dict(p0)
     opt = make_optimizer(tcfg, freeze_backbone(model), spe)
