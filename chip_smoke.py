@@ -853,11 +853,14 @@ K4_SHAPES = [
 ]
 
 
-def k4_inputs(b, h, n, d, dtype, device, seed, masked=0.12):
+def k4_inputs(b, h, n, d, dtype, device, seed, masked=0.12, holes=False):
     """q/k/v/dout (B, H, N, D); coords3 with the cls row first and cells
     of a 225 x 225 grid; the last ``masked`` share of the keys masked, and
     batch row 0 with every key masked but the cls token; dout weighs the
-    valid query rows only."""
+    valid query rows only. ``holes``: besides, runs of masked keys inside
+    the valid range (background cells are not only a tail): every seventh
+    stretch of 96 keys, so whole 64-key tiles die between live ones and
+    their neighbours are masked in part, in another phase per batch row."""
     import torch
     g = torch.Generator(device="cpu").manual_seed(seed)
     q, k, v, dout = (torch.randn(b, h, n, d, generator=g) for _ in range(4))
@@ -867,6 +870,10 @@ def k4_inputs(b, h, n, d, dtype, device, seed, masked=0.12):
     coords3[:, 0, 2] = 1.0
     key_mask = torch.ones(b, n, dtype=torch.bool)
     key_mask[:, n - int(round(masked * n)):] = False
+    if holes:
+        run = torch.arange(n) // 96
+        for i in range(b):
+            key_mask[i, (run % 7 == (3 + i) % 7) & (run > 0)] = False
     key_mask[0, 1:] = False
     dout = dout * key_mask[:, None, :, None]
     slopes = torch.tensor([2.0 ** (-8.0 * (i + 1) / h) for i in range(h)])
@@ -896,12 +903,42 @@ def dense_alibi_bias(coords3, slopes, key_mask, dtype):
     return out
 
 
+def k4_forward_errors(af, tensors, chunk, out_tol, lse_tol, tag):
+    """K4f on ``tensors`` (as ``k4_inputs`` returns them) against the plain
+    version, slice by slice; fails over a tolerance. Returns (largest out
+    error, largest lse error, the kernel's out, its lse)."""
+    import torch
+    q, k, v, _, coords3, slopes, key_mask = tensors
+    b, h, _, d = q.shape
+    got_o, got_l = af.alibi_flash_attention_cuda(q, k, v, coords3, slopes,
+                                                 key_mask, d ** -0.5)
+    torch.cuda.synchronize()
+    err_o = err_l = 0.0
+    for bs, hs in k4_slices(b, h, chunk):
+        want_o, want_l = af.alibi_attention_reference(
+            q[bs, hs].float(), k[bs, hs].float(), v[bs, hs].float(),
+            coords3[bs], slopes[hs], key_mask[bs])
+        err_o = max(err_o, compare(got_o[bs, hs], want_o, out_tol,
+                                   f"{tag} out {bs} {hs}"))
+        e = (got_l[bs, hs] - want_l).abs().max().item()
+        check(e <= lse_tol, f"{tag} lse {bs} {hs}: max|err| {e:.3e}")
+        err_l = max(err_l, e)
+        del want_o, want_l
+    # batch row 0 keeps the cls key alone: every row's out is v[cls]
+    check(bool(torch.allclose(
+        got_o[0].float(), v[0, :, :1].float().expand_as(got_o[0]),
+        atol=1e-6)), f"{tag}: a cls-only row is not v[cls]")
+    return err_o, err_l, got_o, got_l
+
+
 def phase_k4(device, shapes=K4_SHAPES, iters=10):
     """K4f against its plain version, fp32 and bf16 (the plain version in
-    fp32 on the same values), whole or slice by slice; times in bf16 of
-    the kernel, the plain version and one ``scaled_dot_product_attention``
-    call with the dense bias built beforehand (its build is not timed; it
-    returns no lse). Returns {name: result dict}."""
+    fp32 on the same values), whole or slice by slice, in bf16 also on a
+    mask with dead key tiles between live ones, and two runs bit-equal;
+    times in bf16 of the kernel, the plain version and one
+    ``scaled_dot_product_attention`` call with the dense bias built
+    beforehand (its build is not timed; it returns no lse). Returns
+    {name: result dict}."""
     import torch
     import torch.nn.functional as F
     af = importlib.import_module("modaltune_tpu_torch.ops.alibi_flash")
@@ -911,29 +948,19 @@ def phase_k4(device, shapes=K4_SHAPES, iters=10):
         scale = d ** -0.5
         for dtype, out_tol, lse_tol in ((torch.float32, 2e-4, 1e-4),
                                         (torch.bfloat16, 1.6e-2, 1e-2)):
-            q, k, v, _, coords3, slopes, key_mask = k4_inputs(
-                b, h, n, d, dtype, device, seed=400 + i)
-            got_o, got_l = af.alibi_flash_attention_cuda(
-                q, k, v, coords3, slopes, key_mask, scale)
-            torch.cuda.synchronize()
+            tensors = k4_inputs(b, h, n, d, dtype, device, seed=400 + i)
+            q, k, v, _, coords3, slopes, key_mask = tensors
             tag = f"K4 {name} {str(dtype)[6:]}"
-            err_o = err_l = 0.0
-            for bs, hs in k4_slices(b, h, chunk):
-                want_o, want_l = af.alibi_attention_reference(
-                    q[bs, hs].float(), k[bs, hs].float(), v[bs, hs].float(),
-                    coords3[bs], slopes[hs], key_mask[bs])
-                err_o = max(err_o, compare(got_o[bs, hs], want_o, out_tol,
-                                           f"{tag} out {bs} {hs}"))
-                e = (got_l[bs, hs] - want_l).abs().max().item()
-                check(e <= lse_tol, f"{tag} lse {bs} {hs}: max|err| {e:.3e}")
-                err_l = max(err_l, e)
-                del want_o, want_l
-            # batch row 0 keeps the cls key alone: every row's out is v[cls]
-            check(bool(torch.allclose(
-                got_o[0].float(), v[0, :, :1].float().expand_as(got_o[0]),
-                atol=1e-6)), f"{tag}: a cls-only row is not v[cls]")
+            err_o, err_l, got_o, got_l = k4_forward_errors(
+                af, tensors, chunk, out_tol, lse_tol, tag)
             res[str(dtype)[6:]] = dict(out_err=err_o, lse_err=err_l)
             if dtype == torch.bfloat16:
+                again = af.alibi_flash_attention_cuda(
+                    q, k, v, coords3, slopes, key_mask, scale)
+                check(torch.equal(again[0], got_o)
+                      and torch.equal(again[1], got_l),
+                      f"{tag}: two runs are not bit-equal")
+                del again
                 # the plain version's time on the bf16 tensors the kernel
                 # gets: the sum over its slices, the first one warmed up
                 def plain(bs, hs):
@@ -958,25 +985,86 @@ def phase_k4(device, shapes=K4_SHAPES, iters=10):
                     lambda: F.scaled_dot_product_attention(
                         q, k, v, attn_mask=dense), iters, warmup=1)
                 del dense
+                # dead key tiles between live ones
+                holes = k4_inputs(b, h, n, d, dtype, device, seed=450 + i,
+                                  holes=True)
+                res["holes"] = dict(zip(("out_err", "lse_err"),
+                                        k4_forward_errors(
+                    af, holes, chunk, out_tol, lse_tol, f"{tag} holes")[:2]))
+                res["holes"]["live_tiles"] = af.live_key_tiles(
+                    af.padded_key_mask(holes[6], b, n, device)).sum(
+                        dim=-1).tolist()
+                del holes
             torch.cuda.empty_cache()
         print(f"K4 {name} B={b} H={h} N={n} D={d} (plain version in "
               f"{len(k4_slices(b, h, chunk))} slice(s)): "
               f"fp32 out {res['float32']['out_err']:.3e} "
               f"lse {res['float32']['lse_err']:.3e} | "
               f"bf16 out {res['bfloat16']['out_err']:.3e} "
-              f"lse {res['bfloat16']['lse_err']:.3e} | "
+              f"lse {res['bfloat16']['lse_err']:.3e}, two runs bit-equal | "
+              f"bf16 with dead tiles between live ones (live 64-key tiles "
+              f"per batch row {res['holes']['live_tiles']} of "
+              f"{-(-n // 64)}) out {res['holes']['out_err']:.3e} lse "
+              f"{res['holes']['lse_err']:.3e} | "
               f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
               f"library (SDPA with a dense bias, no lse) "
               f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.5f} ms "
               f"({res['bound_by']})", flush=True)
+        print(f"K4 {name}: kernel / library = "
+              f"{res['ms'] / res['library_ms']:.3f}", flush=True)
         results[name] = res
     return results
 
 
+def k4_backward_errors(af, tensors, chunk, tol, dtype_name, tag,
+                       time_plain=False):
+    """K4b on ``tensors`` (as ``k4_inputs`` returns them) from K4f's out and
+    lse against the plain version, slice by slice; fails over a limit.
+    Returns a dict of the readings, the kernel's gradients, out and lse."""
+    import torch
+    q, k, v, dout, coords3, slopes, key_mask = tensors
+    b, h, _, d = q.shape
+    scale = d ** -0.5
+    out, lse = af.alibi_flash_attention_cuda(q, k, v, coords3, slopes,
+                                             key_mask, scale)
+    got = af.alibi_flash_attention_backward_cuda(
+        q, k, v, coords3, slopes, key_mask, out, lse, dout, scale)
+    torch.cuda.synchronize()
+    err = bound = plain_ms = rel = row = 0.0
+    for n_done, (bs, hs) in enumerate(k4_slices(b, h, chunk)):
+        def plain(cast=torch.Tensor.float):
+            return af.alibi_attention_backward_reference(
+                cast(q[bs, hs]), cast(k[bs, hs]), cast(v[bs, hs]),
+                coords3[bs], slopes[hs], key_mask[bs],
+                cast(out[bs, hs]), lse[bs, hs], cast(dout[bs, hs]))
+        want = plain()
+        for gn, gt, wt in zip(("dq", "dk", "dv"), got, want):
+            e = compare(gt[bs, hs], wt, tol, f"{tag} {gn} {bs} {hs}")
+            if e > err:     # the worst gradient and its bound
+                err, bound = e, tol * max(1.0, wt.abs().max().item())
+        # per slice and per tensor, against the slice's own norms
+        rel, row = map(max, (rel, row), check_grads(
+            ("dq", "dk", "dv"), [gt[bs, hs] for gt in got], want,
+            dout[bs, hs], dtype_name, f"{tag} {bs} {hs}"))
+        del want
+        if time_plain:
+            if n_done == 0:
+                plain(lambda t: t)
+            plain_ms += timed_once(lambda: plain(lambda t: t))[1]
+    check(all(bool((gt[0, :, 1:] == 0).all()) for gt in got[1:]),
+          f"{tag}: masked keys of the cls-only row have non-zero dk or dv")
+    dead = ~key_mask
+    check(all(bool((gt.transpose(1, 2)[dead] == 0).all()) for gt in got[1:]),
+          f"{tag}: a masked key has non-zero dk or dv")
+    return (dict(err=err, bound=bound, rel=rel, row=row, plain_ms=plain_ms),
+            got, out, lse)
+
+
 def phase_k4b(device, shapes=K4_SHAPES, iters=10):
     """K4b against its plain version from the same out and lse (K4f's),
-    fp32 and bf16, whole or slice by slice; times in bf16 of the kernel,
-    the plain version and autograd through one
+    fp32 and bf16, whole or slice by slice, in bf16 also on a mask with
+    dead key tiles between live ones, and two runs bit-equal; times in
+    bf16 of the kernel, the plain version and autograd through one
     ``scaled_dot_product_attention`` call with the dense bias. Returns
     {name: result dict}."""
     import torch
@@ -987,47 +1075,24 @@ def phase_k4b(device, shapes=K4_SHAPES, iters=10):
         res = {}
         scale = d ** -0.5
         for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
-            q, k, v, dout, coords3, slopes, key_mask = k4_inputs(
-                b, h, n, d, dtype, device, seed=500 + i)
-            out, lse = af.alibi_flash_attention_cuda(
-                q, k, v, coords3, slopes, key_mask, scale)
-            got = af.alibi_flash_attention_backward_cuda(
-                q, k, v, coords3, slopes, key_mask, out, lse, dout, scale)
-            torch.cuda.synchronize()
-            tag = f"K4b {name} {str(dtype)[6:]}"
-            err = bound = plain_ms = rel = row = 0.0
-            for n_done, (bs, hs) in enumerate(k4_slices(b, h, chunk)):
-                def plain(cast=torch.Tensor.float):
-                    return af.alibi_attention_backward_reference(
-                        cast(q[bs, hs]), cast(k[bs, hs]), cast(v[bs, hs]),
-                        coords3[bs], slopes[hs], key_mask[bs],
-                        cast(out[bs, hs]), lse[bs, hs], cast(dout[bs, hs]))
-                want = plain()
-                for gn, gt, wt in zip(("dq", "dk", "dv"), got, want):
-                    e = compare(gt[bs, hs], wt, tol, f"{tag} {gn} {bs} {hs}")
-                    if e > err:     # the worst gradient and its bound
-                        err, bound = e, tol * max(1.0, wt.abs().max().item())
-                # per slice and per tensor, against the slice's own norms
-                rel, row = map(max, (rel, row), check_grads(
-                    ("dq", "dk", "dv"), [gt[bs, hs] for gt in got], want,
-                    dout[bs, hs], str(dtype)[6:], f"{tag} {bs} {hs}"))
-                del want
-                if dtype == torch.bfloat16:
-                    if n_done == 0:
-                        plain(lambda t: t)
-                    plain_ms += timed_once(lambda: plain(lambda t: t))[1]
-            check(all(bool((gt[0, :, 1:] == 0).all()) for gt in got[1:]),
-                  f"{tag}: masked keys of the cls-only row have non-zero "
-                  f"dk or dv")
-            res[str(dtype)[6:]], res[str(dtype)[6:] + "_bound"] = err, bound
-            res[str(dtype)[6:] + "_rel"], res[str(dtype)[6:] + "_row"] = \
-                rel, row
+            tensors = k4_inputs(b, h, n, d, dtype, device, seed=500 + i)
+            q, k, v, dout, coords3, slopes, key_mask = tensors
+            dt = str(dtype)[6:]
+            tag = f"K4b {name} {dt}"
+            r, got, out, lse = k4_backward_errors(
+                af, tensors, chunk, tol, dt, tag,
+                time_plain=dtype == torch.bfloat16)
+            res[dt], res[dt + "_bound"] = r["err"], r["bound"]
+            res[dt + "_rel"], res[dt + "_row"] = r["rel"], r["row"]
             if dtype == torch.bfloat16:
-                res["plain_ms"] = plain_ms
-                res["ms"] = time_ms(
-                    lambda: af.alibi_flash_attention_backward_cuda(
+                def kernel():
+                    return af.alibi_flash_attention_backward_cuda(
                         q, k, v, coords3, slopes, key_mask, out, lse, dout,
-                        scale), iters, warmup=1)
+                        scale)
+                check(all(torch.equal(x, y) for x, y in zip(kernel(), got)),
+                      f"{tag}: two runs are not bit-equal")
+                res["plain_ms"] = r["plain_ms"]
+                res["ms"] = time_ms(kernel, iters, warmup=1)
                 res["bound_ms"], res["bound_by"] = attention_bound(
                     float(h * n * int(key_mask.sum())), d,
                     (q, k, v, coords3, slopes, key_mask, out, lse, dout,
@@ -1042,6 +1107,13 @@ def phase_k4b(device, shapes=K4_SHAPES, iters=10):
                     lib_out, leaves, dout, retain_graph=True), iters,
                     warmup=1)
                 del dense, leaves, lib_out
+                # dead key tiles between live ones
+                holes = k4_inputs(b, h, n, d, dtype, device, seed=550 + i,
+                                  holes=True)
+                res["holes"] = k4_backward_errors(
+                    af, holes, chunk, tol, dt, f"{tag} holes")[0]
+                del holes
+            del tensors, q, k, v, dout, out, lse
             torch.cuda.empty_cache()
         print(f"K4b {name} B={b} H={h} N={n} D={d}: fp32 dq/dk/dv "
               f"{res['float32']:.3e} (bound {res['float32_bound']:.2e}), "
@@ -1049,10 +1121,15 @@ def phase_k4b(device, shapes=K4_SHAPES, iters=10):
               f"{res['float32_row']:.3e} | bf16 {res['bfloat16']:.3e} (bound "
               f"{res['bfloat16_bound']:.2e}), rel-L2 "
               f"{res['bfloat16_rel']:.3e}, row-scaled "
-              f"{res['bfloat16_row']:.3e} | kernel {res['ms']:.4f} ms, "
+              f"{res['bfloat16_row']:.3e}, two runs bit-equal | bf16 with "
+              f"dead tiles between live ones rel-L2 "
+              f"{res['holes']['rel']:.3e}, row-scaled "
+              f"{res['holes']['row']:.3e} | kernel {res['ms']:.4f} ms, "
               f"plain {res['plain_ms']:.4f} ms, library (autograd through "
               f"SDPA with a dense bias) {res['library_ms']:.4f} ms, bound "
               f"{res['bound_ms']:.5f} ms ({res['bound_by']})", flush=True)
+        print(f"K4b {name}: kernel / library = "
+              f"{res['ms'] / res['library_ms']:.3f}", flush=True)
         results[name] = res
     return results
 

@@ -40,9 +40,10 @@ SIGNATURES = {
                                  _P, _I, _I, _I, _I, _P, _P, _I,
                                  ctypes.c_float, _I, _P],
     "mt_alibi_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               ctypes.c_float, _I, _P],
+                               ctypes.c_float, _I, _P, _P, _P, _P],
     "mt_alibi_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, ctypes.c_float, _I, _P],
+                               _I, _I, _I, _I, ctypes.c_float, _I, _P, _P, _P,
+                               _P, _P, _P],
     "mt_dilated_fused_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _P, _P, _I, ctypes.c_float, _I, _P],
     "mt_dilated_fused_bwd": [_P] * 17 + [_I, _I, _I, _I, _P, _P, _I,

@@ -3,8 +3,11 @@
 
 Counterpart of ``modaltune_tpu/ops/alibi_flash.py``. A CUDA tensor goes to
 the hand-written Hopper kernels ``csrc/alibi_attention_fwd.cu`` (K4f) and,
-for the gradient, ``csrc/alibi_attention_bwd.cu`` (K4b), which run bf16
-inputs on the tensor cores and fp32 inputs on CUDA cores; a CPU tensor goes
+for the gradient, ``csrc/alibi_attention_bwd.cu`` (K4b): bf16 at D = 64
+(the model's case) on the Hopper frame ``csrc/attention_wgmma.cuh``, which
+reads the side inputs made here once per forward and kept for its backward
+(lane-major coordinates, a key term of 0 or ``-inf``, the live 64-key
+tiles); fp32, and bf16 at any other D, on CUDA cores. A CPU tensor goes
 to :func:`alibi_attention_reference` and
 :func:`alibi_attention_backward_reference`, the plain PyTorch versions of
 the same functions, which are also the kernels' oracles.
@@ -29,6 +32,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ._build import check_launch, load_library
 from .flash_attention import _DTYPE_CODES, MASK_THRESHOLD, NEG_INF
@@ -115,6 +119,75 @@ def alibi_attention_backward_reference(q, k, v, coords3, slopes, key_mask,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# The Hopper frame of the bf16 kernels at D = 64 (csrc/attention_wgmma.cuh)
+# works on 64-row tiles.
+TILE = 64
+WGMMA_HEAD_DIM = 64
+# a row without a valid key has lse NEG_INF; the backward puts this in its
+# place so that the row's P underflows to 0 (log2 units)
+_LSE_DEAD = 1e30
+_LOG2E = 1.4426950408889634
+
+
+def uses_wgmma(q: torch.Tensor) -> bool:
+    """Whether K4f/K4b take ``q`` to the Hopper frame (bf16, D = 64) rather
+    than to the CUDA-core kernels (fp32, and bf16 at any other D)."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] == WGMMA_HEAD_DIM
+
+
+def lane_major_coords(coords3: torch.Tensor) -> torch.Tensor:
+    """``(B, N, 3)`` [row, col, is_cls] -> ``(B, 3, NP)`` contiguous fp32
+    planes row, col and is_cls, NP = N rounded up to a multiple of 64, zeros
+    past N: 64 keys' worth of one plane is one 256-byte copy."""
+    planes = coords3.to(torch.float32).transpose(1, 2)
+    return F.pad(planes, (0, -coords3.shape[1] % TILE)).contiguous()
+
+
+def padded_key_mask(key_mask: Optional[torch.Tensor], b: int, n: int,
+                    device) -> torch.Tensor:
+    """``(B, NP)`` bool: the key mask (all valid if None), False past N."""
+    pad = -n % TILE
+    if key_mask is None:
+        return (torch.arange(n + pad, device=device) < n).expand(b, -1)
+    if pad == 0:
+        return key_mask
+    return torch.cat((key_mask, key_mask.new_zeros((b, pad))), dim=1)
+
+
+def live_key_tiles(valid: torch.Tensor) -> torch.Tensor:
+    """Which 64-key tiles of each batch row hold a valid key, from the
+    padded ``(B, NP)`` mask: int32 ``(B, NP / 64)``, 1 for a live tile. The
+    kernels visit a row's live tiles in ascending order and never load the
+    others."""
+    return valid.reshape(valid.shape[0], -1, TILE).any(dim=-1).to(torch.int32)
+
+
+def key_terms(valid: torch.Tensor) -> torch.Tensor:
+    """``(B, NP)`` fp32: 0 for a valid key, ``-inf`` for a masked one or
+    one past N, added to the score so that its weight is exactly 0."""
+    return torch.where(valid, 0.0, -torch.inf).contiguous()
+
+
+def wgmma_side_inputs(coords3, key_mask, b: int, n: int):
+    """What the Hopper kernels read beside q, k and v:
+    ``[lane_major_coords, key_terms, live_key_tiles]``. The forward's serve
+    its backward too."""
+    valid = padded_key_mask(key_mask, b, n, coords3.device)
+    return [lane_major_coords(coords3), key_terms(valid),
+            live_key_tiles(valid)]
+
+
+def backward_rows(lse: torch.Tensor, delta: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-query rows the Hopper backward streams, ``(B, H, NP)`` fp32:
+    lse in log2 units, with ``_LSE_DEAD`` for a row without a valid key and
+    past N (so that the row's P underflows to 0), and delta, 0 past N."""
+    pad = -lse.shape[-1] % TILE
+    lse2 = torch.where(lse > MASK_THRESHOLD, lse * _LOG2E, _LSE_DEAD)
+    return (F.pad(lse2, (0, pad), value=_LSE_DEAD).contiguous(),
+            F.pad(delta, (0, pad)).contiguous())
+
+
 def _key_bias(key_mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     if key_mask is None:
         return None
@@ -149,34 +222,46 @@ def _check(q, k, v, coords3, slopes, key_mask):
                          f"{q.device}")
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def alibi_flash_attention_cuda(q, k, v, coords3, slopes, key_mask,
-                               scale: float
+                               scale: float, side=None
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the K4f kernel on ``q``'s device and current stream."""
+    """Launch the K4f kernel on ``q``'s device and current stream. ``side``:
+    :func:`wgmma_side_inputs` of these coords and mask, where the caller
+    holds them already."""
     global LAUNCHES
     _check(q, k, v, coords3, slopes, key_mask)
     b, h, n, d = q.shape
-    bias = _key_bias(key_mask)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    bias = None
+    if not uses_wgmma(q):
+        bias, side = _key_bias(key_mask), [None] * 3
+    elif side is None:
+        side = wgmma_side_inputs(coords3, key_mask, b, n)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mt_alibi_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), coords3.data_ptr(),
-            slopes.data_ptr(), None if bias is None else bias.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), b, h, n, d, float(scale),
-            _DTYPE_CODES[q.dtype], stream)
+            slopes.data_ptr(), _ptr(bias), out.data_ptr(), lse.data_ptr(),
+            b, h, n, d, float(scale), _DTYPE_CODES[q.dtype],
+            *map(_ptr, side), stream)
     check_launch(err, "mt_alibi_attention_fwd")
     LAUNCHES += 1
     return out, lse
 
 
 def alibi_flash_attention_backward_cuda(q, k, v, coords3, slopes, key_mask,
-                                        out, lse, dout, scale: float):
+                                        out, lse, dout, scale: float,
+                                        side=None):
     """Launch the K4b kernels (dq, then dk/dv) on ``q``'s device and current
     stream. ``delta = rowsum(dout * out)`` is computed here in torch, as
-    the JAX package computes it outside its Pallas kernels."""
+    the JAX package computes it outside its Pallas kernels. ``side``: the
+    forward's :func:`wgmma_side_inputs`, where the caller kept them."""
     global BWD_LAUNCHES
     _check(q, k, v, coords3, slopes, key_mask)
     b, h, n, d = q.shape
@@ -188,18 +273,24 @@ def alibi_flash_attention_backward_cuda(q, k, v, coords3, slopes, key_mask,
             not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous float32 {(b, h, n)} "
                          f"tensor")
-    bias = _key_bias(key_mask)
     delta = (dout.float() * out.float()).sum(dim=-1).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    bias = None
+    if not uses_wgmma(q):
+        bias, side = _key_bias(key_mask), [None] * 5
+    else:
+        if side is None:
+            side = wgmma_side_inputs(coords3, key_mask, b, n)
+        side = [*side, *backward_rows(lse, delta)]
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mt_alibi_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), coords3.data_ptr(),
-            slopes.data_ptr(), None if bias is None else bias.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, h, n, d, float(scale),
-            _DTYPE_CODES[q.dtype], stream)
+            slopes.data_ptr(), _ptr(bias), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, n, d, float(scale), _DTYPE_CODES[q.dtype],
+            *map(_ptr, side), stream)
     check_launch(err, "mt_alibi_attention_bwd")
     BWD_LAUNCHES += 1
     return dq, dk, dv
@@ -207,13 +298,18 @@ def alibi_flash_attention_backward_cuda(q, k, v, coords3, slopes, key_mask,
 
 class _AlibiFlashAttention(torch.autograd.Function):
     """K4f forward, K4b backward on CUDA tensors; the plain versions on
-    CPU tensors. ``lse`` is an output without a gradient."""
+    CPU tensors. ``lse`` is an output without a gradient. The Hopper
+    frame's side inputs are made in the forward and kept for the backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, coords3, slopes, key_mask, scale):
+        ctx.side = None
         if q.device.type == "cuda":
-            out, lse = alibi_flash_attention_cuda(q, k, v, coords3, slopes,
-                                                  key_mask, scale)
+            if uses_wgmma(q):
+                ctx.side = wgmma_side_inputs(coords3, key_mask, q.shape[0],
+                                             q.shape[2])
+            out, lse = alibi_flash_attention_cuda(
+                q, k, v, coords3, slopes, key_mask, scale, side=ctx.side)
         else:
             out, lse = alibi_attention_reference(q, k, v, coords3, slopes,
                                                  key_mask, scale)
@@ -228,7 +324,7 @@ class _AlibiFlashAttention(torch.autograd.Function):
         if q.device.type == "cuda":
             grads = alibi_flash_attention_backward_cuda(
                 q, k, v, coords3, slopes, key_mask, out, lse,
-                dout.contiguous(), ctx.scale)
+                dout.contiguous(), ctx.scale, side=ctx.side)
         else:
             grads = alibi_attention_backward_reference(
                 q, k, v, coords3, slopes, key_mask, out, lse, dout, ctx.scale)

@@ -321,3 +321,313 @@ def test_gradient_gate_tells_a_fault_from_bf16_rounding(fault):
     else:
         with pytest.raises(cs.SmokeFailure):
             cs.check_grads(*args)
+
+
+# ---------------------------------------------------------------------------
+# (d) the Hopper kernels' algorithm, step by step in plain PyTorch
+# ---------------------------------------------------------------------------
+# The bf16 kernels at D = 64 (csrc/attention_wgmma.cuh) cannot run here. What
+# they do beyond the plain version is emulated below from the wrapper's own
+# side inputs: the live 64-key tiles visited in ascending order, one
+# distance tile per (query rows, key tile) reused by a group of G heads,
+# scores in log2 units with the scale, the slopes and log2(e) folded, an
+# online softmax whose P is rounded to bf16 before the second product, and a
+# backward in two passes (dq over the live key tiles; dk/dv per own key tile
+# over every query tile) whose P and dS are rounded to bf16.
+
+from modaltune_tpu_torch.ops import alibi_flash as af  # noqa: E402
+
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+
+
+def _round(x, on):
+    return x.bfloat16().float() if on else x
+
+
+def _pad_rows(x, n_pad):
+    """(.., N, D) -> (.., NP, D), zero rows past N as the tile copy fills
+    them."""
+    out = x.new_zeros((*x.shape[:-2], n_pad, x.shape[-1]))
+    out[..., :x.shape[-2], :] = x
+    return out
+
+
+def _distance_tile(planes_b, rows, cols, counter):
+    """dist * not_cls of the token ranges ``rows`` x ``cols`` of one batch
+    row's lane-major planes; counts how often a tile is computed."""
+    counter[0] += 1
+    y, x, is_cls = planes_b
+    d = torch.sqrt((y[rows, None] - y[None, cols]) ** 2
+                   + (x[rows, None] - x[None, cols]) ** 2)
+    return d * ((1 - is_cls)[rows, None] * (1 - is_cls)[None, cols])
+
+
+def emulate_forward(q, k, v, coords3, slopes, key_mask, group, rounding):
+    """K4f on the Hopper frame, one (batch row, head group) at a time."""
+    b, h, n, d = q.shape
+    scale2 = d ** -0.5 * LOG2E
+    planes = af.lane_major_coords(coords3)
+    valid = af.padded_key_mask(key_mask, b, n, q.device)
+    tile_live = af.live_key_tiles(valid)
+    key_add = af.key_terms(valid)
+    n_pad = planes.shape[-1]
+    qp, kp, vp = (_pad_rows(_round(t.float(), rounding), n_pad)
+                  for t in (q, k, v))
+    out = torch.zeros(b, h, n_pad, d)
+    lse = torch.zeros(b, h, n_pad)
+    tiles = [0]
+    every = slice(0, n_pad)
+    for bi in range(b):
+        for h0 in range(0, h, group):
+            heads = range(h0, min(h0 + group, h))
+            m = {g: torch.full((n_pad,), NEG_INF) for g in heads}
+            l = {g: torch.zeros(n_pad) for g in heads}
+            o = {g: torch.zeros(n_pad, d) for g in heads}
+            for kt in range(n_pad // af.TILE):
+                if not tile_live[bi, kt]:
+                    continue                   # never loaded
+                cols = slice(kt * af.TILE, kt * af.TILE + af.TILE)
+                dnc = _distance_tile(planes[bi], every, cols, tiles)
+                for g in heads:
+                    s = (qp[bi, g] @ kp[bi, g, cols].T) * scale2 \
+                        + (-slopes[g] * LOG2E) * dnc + key_add[bi, cols]
+                    m_new = torch.maximum(m[g], s.amax(dim=-1))
+                    c_old = torch.exp2(m[g] - m_new)
+                    p = torch.exp2(s - m_new[:, None])
+                    l[g] = l[g] * c_old + p.sum(dim=-1)
+                    o[g] = o[g] * c_old[:, None] \
+                        + _round(p, rounding) @ vp[bi, g, cols]
+                    m[g] = m_new
+            for g in heads:
+                live = l[g] > 0
+                out[bi, g] = o[g] * torch.where(live, 1 / l[g], 0.0)[:, None]
+                lse[bi, g] = torch.where(
+                    live, (m[g] + torch.log2(l[g])) * LN2, NEG_INF)
+    # one distance tile per live key tile and head group
+    assert tiles[0] == int(tile_live.sum()) * -(-h // group)
+    return _round(out[:, :, :n], rounding), lse[:, :, :n]
+
+
+def emulate_backward(q, k, v, coords3, slopes, key_mask, out, lse, dout,
+                     group, rounding):
+    """K4b on the Hopper frame: the dq pass, then the dk/dv pass."""
+    b, h, n, d = q.shape
+    scale = d ** -0.5
+    scale2 = scale * LOG2E
+    planes = af.lane_major_coords(coords3)
+    valid = af.padded_key_mask(key_mask, b, n, q.device)
+    tile_live = af.live_key_tiles(valid)
+    key_add = af.key_terms(valid)
+    delta = (dout.float() * out.float()).sum(dim=-1)
+    lse2, delta_p = af.backward_rows(lse, delta)
+    n_pad = planes.shape[-1]
+    qp, kp, vp, dop = (_pad_rows(_round(t.float(), rounding), n_pad)
+                       for t in (q, k, v, dout))
+    dq, dk, dv = (torch.zeros(b, h, n_pad, d) for _ in range(3))
+    tiles = [0]
+    every = slice(0, n_pad)
+
+    def p_of(bi, g, rows, cols, dnc):
+        s = (qp[bi, g, rows] @ kp[bi, g, cols].T) * scale2 \
+            + (-slopes[g] * LOG2E) * dnc + key_add[bi, cols]
+        return torch.exp2(s - lse2[bi, g, rows, None])
+
+    for bi in range(b):
+        for h0 in range(0, h, group):          # dq: live key tiles, G heads
+            for kt in range(n_pad // af.TILE):
+                if not tile_live[bi, kt]:
+                    continue
+                cols = slice(kt * af.TILE, kt * af.TILE + af.TILE)
+                dnc = _distance_tile(planes[bi], every, cols, tiles)
+                for g in range(h0, min(h0 + group, h)):
+                    p = p_of(bi, g, every, cols, dnc)
+                    dp = dop[bi, g] @ vp[bi, g, cols].T
+                    ds = p * (dp - delta_p[bi, g, :, None])
+                    dq[bi, g] += _round(ds, rounding) @ kp[bi, g, cols]
+        for kt in range(n_pad // af.TILE):     # dk/dv: own key tile, 1 head
+            if not tile_live[bi, kt]:
+                continue                       # the block writes zeros
+            cols = slice(kt * af.TILE, kt * af.TILE + af.TILE)
+            for g in range(h):
+                for qt in range(n_pad // af.TILE):
+                    rows = slice(qt * af.TILE, qt * af.TILE + af.TILE)
+                    dnc = _distance_tile(planes[bi], rows, cols, [0])
+                    p = p_of(bi, g, rows, cols, dnc)
+                    dp = dop[bi, g, rows] @ vp[bi, g, cols].T
+                    ds = p * (dp - delta_p[bi, g, rows, None])
+                    dv[bi, g, cols] += _round(p, rounding).T @ dop[bi, g, rows]
+                    dk[bi, g, cols] += _round(ds, rounding).T @ qp[bi, g, rows]
+    return tuple(_round(t[:, :, :n], rounding)
+                 for t in (dq * scale, dk * scale, dv))
+
+
+def _mask_layout(c, layout):
+    """Key-mask layouts on top of ``_case``'s tail mask."""
+    km = c["key_mask"]
+    n = km.shape[1]
+    if layout == "dead_between":      # a dead tile and a ragged one inside
+        km[:, 64:128] = False
+        km[:, 130:150] = False
+    elif layout == "cls_only":
+        km[0, 1:] = False
+    elif layout == "fully_masked":
+        km[1] = False
+    elif layout == "single_key_tile":
+        km[:, 64:] = False
+        km[:, min(n - 1, 100)] = True
+    return c
+
+
+def _hold_emulation(c, group, rounding, jax_too=False):
+    """Forward and backward emulation against the plain versions (and
+    JAX's Pallas kernels in interpret mode): fp32 at 1e-5 / 1e-4 with the
+    rounding off, at the card's bf16 limits with it on."""
+    cs = _chip_smoke()
+    args = [_t(c[x]) for x in ("q", "k", "v", "coords3", "slopes",
+                               "key_mask")]
+    if rounding:
+        args[:3] = [a.bfloat16().float() for a in args[:3]]
+    cot = _t(c["cot"]) * args[5][:, None, :, None]
+    cot = cot.bfloat16().float() if rounding else cot
+    want_o, want_l = alibi_attention_reference(*args)
+    got_o, got_l = emulate_forward(*args, group, rounding)
+    out_tol, lse_tol = (1.6e-2, 1e-2) if rounding else (OUT_TOL, OUT_TOL)
+    np.testing.assert_allclose(got_o.numpy(), want_o.numpy(), atol=out_tol,
+                               rtol=out_tol)
+    np.testing.assert_allclose(got_l.numpy(), want_l.numpy(), atol=lse_tol,
+                               rtol=lse_tol)
+    # the backward starts from the forward's own out and lse, as on the card
+    want = alibi_attention_backward_reference(*args, got_o, got_l, cot)
+    got = emulate_backward(*args, got_o, got_l, cot, group, rounding)
+    dead = ~args[5]
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if rounding:
+            rel, row = cs.grad_readings(g, w, cot)
+            lim = cs.GRAD_LIMITS["bfloat16"]
+            assert rel <= lim[0] and row <= lim[1], (name, rel, row)
+        else:
+            np.testing.assert_allclose(g.numpy(), w.numpy(), atol=GRAD_TOL,
+                                       rtol=GRAD_TOL, err_msg=name)
+        if name != "dq":    # masked keys: exactly zero
+            assert torch.all(g.transpose(1, 2)[dead] == 0)
+    if jax_too:
+        m = c["key_mask"][:, None, :, None]
+        np.testing.assert_allclose(got_o.numpy() * m,
+                                   _jax_out(c, **INTERPRET) * m,
+                                   atol=OUT_TOL, rtol=OUT_TOL)
+        for name, g, w in zip(("dq", "dk", "dv"), got,
+                              _jax_grads(c, **INTERPRET)):
+            np.testing.assert_allclose(g.numpy(), w, atol=GRAD_TOL,
+                                       rtol=GRAD_TOL, err_msg=name)
+    return got_o, got_l, got
+
+
+@pytest.mark.parametrize("rounding", [False, True])
+@pytest.mark.parametrize("h,group", [(3, 2), (12, 5)])
+@pytest.mark.parametrize("n", [6, 70, 200, 257])
+def test_hopper_emulation_matches_plain(n, h, group, rounding):
+    """Every N off a tile edge, head groups that do not divide H, a tail
+    mask."""
+    c = _case(n, b=2, h=h, seed=10 + n, masked=min(6, n // 2))
+    _hold_emulation(c, group, rounding)
+
+
+@pytest.mark.parametrize("n", [70, 200])
+def test_hopper_emulation_matches_jax_interpret(n):
+    """The fp32 emulation against JAX's Pallas kernels in interpret mode,
+    out and gradients."""
+    c = _case(n, b=2, h=3, seed=20 + n)
+    _hold_emulation(c, 2, False, jax_too=True)
+
+
+@pytest.mark.parametrize("rounding", [False, True])
+@pytest.mark.parametrize("layout", ["dead_between", "cls_only",
+                                    "fully_masked", "single_key_tile"])
+def test_hopper_emulation_mask_layouts(layout, rounding):
+    """Dead tiles between live ones, a row that keeps the cls key alone, a
+    row without a valid key, one valid key in a far tile."""
+    c = _mask_layout(_case(200, b=2, h=3, seed=30), layout)
+    out, lse, grads = _hold_emulation(c, 2, rounding)
+    v = _t(c["v"])
+    v = v.bfloat16().float() if rounding else v
+    if layout == "cls_only":
+        assert torch.equal(out[0], v[0, :, :1].expand_as(out[0]))
+    if layout == "fully_masked":
+        assert torch.all(out[1] == 0) and torch.all(lse[1] == NEG_INF)
+        assert all(torch.all(g[1] == 0) for g in grads)
+
+
+def test_live_key_tiles_and_side_inputs():
+    """The wrapper's helpers: shapes, dtypes, one valid key keeps a tile
+    live, a row without one has none."""
+    km = torch.zeros(3, 200, dtype=torch.bool)
+    km[0, :70] = True               # tiles 0, 1
+    km[0, 199] = True               # the ragged last tile, one key
+    km[1, 129] = True               # tile 2 alone
+    valid = af.padded_key_mask(km, 3, 200, "cpu")
+    assert valid.shape == (3, 256) and valid.dtype == torch.bool
+    assert not valid[:, 200:].any() and torch.equal(valid[:, :200], km)
+    tile_live = af.live_key_tiles(valid)
+    assert tile_live.shape == (3, 4) and tile_live.dtype == torch.int32
+    assert tile_live.is_contiguous()
+    assert tile_live.tolist() == [[1, 1, 0, 1], [0, 0, 1, 0], [0, 0, 0, 0]]
+    add = af.key_terms(valid)
+    assert add.dtype == torch.float32 and add.shape == (3, 256)
+    assert add.is_contiguous()
+    assert torch.all(add[valid] == 0) and torch.all(add[~valid] == -torch.inf)
+    # no mask: every key up to N is valid, the padding is not
+    every = af.padded_key_mask(None, 2, 70, "cpu")
+    assert every[:, :70].all() and not every[:, 70:].any()
+    assert af.live_key_tiles(every).tolist() == [[1, 1], [1, 1]]
+    assert af.key_terms(every).is_contiguous()
+    # N on a tile edge: nothing is padded
+    assert af.padded_key_mask(km[:, :128], 3, 128, "cpu").shape == (3, 128)
+    side = af.wgmma_side_inputs(torch.zeros(3, 200, 3), km, 3, 200)
+    assert [tuple(t.shape) for t in side] == [(3, 3, 256), (3, 256), (3, 4)]
+    assert [t.dtype for t in side] == [torch.float32, torch.float32,
+                                       torch.int32]
+    assert all(t.is_contiguous() for t in side)
+
+
+def test_side_inputs_take_a_strided_key_mask():
+    """A key mask that is a view (here N on a tile edge, so nothing is
+    copied for padding) gives the side inputs of its contiguous copy."""
+    km = torch.rand(128, 3, generator=torch.Generator().manual_seed(3)) < 0.5
+    km[:64, 1] = False              # a dead tile in batch row 1
+    strided = km.t()
+    assert not strided.is_contiguous()
+    got = af.wgmma_side_inputs(torch.zeros(3, 128, 3), strided, 3, 128)
+    want = af.wgmma_side_inputs(torch.zeros(3, 128, 3), strided.contiguous(),
+                                3, 128)
+    assert all(torch.equal(g, w) and g.is_contiguous()
+               for g, w in zip(got, want))
+    assert got[2][1].tolist() == [0, 1]
+
+
+def test_lane_major_coords_and_backward_rows():
+    c = _case(70, b=2, h=3)
+    planes = af.lane_major_coords(_t(c["coords3"]))
+    assert planes.shape == (2, 3, 128) and planes.dtype == torch.float32
+    assert planes.is_contiguous() and torch.all(planes[:, :, 70:] == 0)
+    np.testing.assert_array_equal(planes[:, 0, :70], c["coords3"][..., 0])
+    np.testing.assert_array_equal(planes[:, 1, :70], c["coords3"][..., 1])
+    np.testing.assert_array_equal(planes[:, 2, :70], c["coords3"][..., 2])
+    assert af.lane_major_coords(torch.zeros(1, 128, 3)).shape == (1, 3, 128)
+    lse = torch.randn(2, 3, 70)
+    lse[1, :, 5] = NEG_INF
+    lse2, delta = af.backward_rows(lse, torch.ones(2, 3, 70))
+    assert lse2.shape == delta.shape == (2, 3, 128)
+    assert torch.all(lse2[..., 70:] >= 1e29)
+    assert torch.all(lse2[1, :, 5] >= 1e29)
+    assert torch.all(delta[..., 70:] == 0) and torch.all(delta[..., :70] == 1)
+    assert lse2.is_contiguous() and delta.is_contiguous()
+    np.testing.assert_allclose(lse2[0, :, :70], lse[0] * LOG2E, rtol=1e-6)
+
+
+def test_uses_wgmma_only_for_bf16_at_64():
+    for dtype, d, want in ((torch.bfloat16, 64, True), (torch.float32, 64,
+                                                        False),
+                           (torch.bfloat16, 48, False),
+                           (torch.bfloat16, 128, False)):
+        assert af.uses_wgmma(torch.zeros(1, 1, 2, d, dtype=dtype)) is want

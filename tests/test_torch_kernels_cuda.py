@@ -299,7 +299,12 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
 # (B, H, N, D, mask): N off the 64-row tile, N = 1 + a handful, D that pads
 # (16 of 16, 40 of 48) and 64; "rows" masks a different tail per batch row,
 # "cls_only" leaves batch row 0 the cls key alone, "dead" masks every key
-# of batch row 1, None passes no mask.
+# of batch row 1, None passes no mask. bf16 at D = 64 runs the Hopper frame
+# (a ring of 4 stages, heads in groups of 2 or 3): N = 64 * 5 + 1 wraps the
+# ring and ends one row into a tile, N = 40 is less than a tile, H = 5 and 7
+# leave a ragged head group, "holes" masks stretches of keys in the middle
+# so that whole 64-key tiles die between live ones; every other D in bf16
+# runs the CUDA-core kernels, as fp32 does.
 ALIBI_CASES = [
     (2, 3, 200, 64, "rows"),
     (3, 4, 6, 16, "rows"),
@@ -307,6 +312,14 @@ ALIBI_CASES = [
     (2, 3, 70, 40, "cls_only"),
     (1, 12, 257, 64, "rows"),
     (2, 2, 64, 16, "dead"),
+    (2, 5, 321, 64, "rows"),
+    (1, 7, 40, 64, "rows"),
+    (2, 3, 321, 64, None),
+    (2, 4, 700, 64, "holes"),
+    (2, 5, 1000, 64, "cls_only"),
+    (2, 2, 300, 64, "dead"),
+    (2, 2, 130, 32, "holes"),
+    (1, 2, 100, 128, "rows"),
 ]
 
 
@@ -325,6 +338,10 @@ def _alibi_inputs(b, h, n, d, mask, device, dtype=torch.float32, seed=20):
         key_mask = torch.ones(b, n, dtype=torch.bool)
         for i in range(b):                      # a different tail per row
             key_mask[i, n - 1 - (i + 1) * (n // 5):] = False
+        if mask == "holes":     # dead 64-key tiles between live ones
+            run = torch.arange(n) // 96
+            for i in range(b):
+                key_mask[i, (run % 3 == (1 + i) % 3) & (run > 0)] = False
         if mask == "cls_only":
             key_mask[0, 1:] = False
         if mask == "dead":
@@ -333,9 +350,10 @@ def _alibi_inputs(b, h, n, d, mask, device, dtype=torch.float32, seed=20):
     return q, k, v, dout, coords3.to(device), slopes.to(device), key_mask
 
 
-# fp32 runs the CUDA-core kernels, bf16 the tensor-core kernels: there the
-# plain version computes in fp32 on the same bf16 values, and the kernel
-# rounds its probabilities (dS in the backward) and its results to bf16.
+# fp32 runs the CUDA-core kernels, bf16 at D = 64 the tensor-core kernels:
+# there the plain version computes in fp32 on the same bf16 values, and the
+# kernel rounds its probabilities (dS in the backward) and its results to
+# bf16.
 ALIBI_DTYPES = [(torch.float32, TOL, 1e-4, GRAD_TOL),
                 (torch.bfloat16, 1.6e-2, 1e-2, 2e-2)]
 ALIBI_IDS = ["fp32", "bf16"]
@@ -407,6 +425,56 @@ def test_alibi_backward_kernel_matches_plain(cuda_device, b, h, n, d, mask,
         assert (got[1][dead] == 0).all() and (got[2][dead] == 0).all()
     if mask == "dead":
         assert all((g[1] == 0).all() for g in got)
+
+
+@pytest.mark.parametrize("b,h,n,d,mask", [(2, 5, 321, 64, "rows"),
+                                          (2, 4, 700, 64, "holes"),
+                                          (2, 3, 70, 40, "cls_only")])
+def test_alibi_bf16_reruns_are_bit_equal(cuda_device, b, h, n, d, mask):
+    """No atomics anywhere: two runs of K4f and of K4b give the same bits,
+    on the Hopper frame (D = 64) and on the CUDA-core kernels."""
+    q, k, v, dout, coords3, slopes, key_mask = _alibi_inputs(
+        b, h, n, d, mask, cuda_device, torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        out, lse = af.alibi_flash_attention_cuda(q, k, v, coords3, slopes,
+                                                 key_mask, d ** -0.5)
+        runs.append((out, lse, *af.alibi_flash_attention_backward_cuda(
+            q, k, v, coords3, slopes, key_mask, out, lse, dout, d ** -0.5)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+@pytest.mark.parametrize("h", [1, 2, 4, 5, 7])
+def test_alibi_hopper_configurations_agree(cuda_device, h):
+    """The Hopper frame's head groups (3 heads a block in the forward, 2 in
+    the dq kernel) against the plain version for head counts that fill,
+    underfill and leave ragged groups, dead tiles in the middle; the
+    backward with the forward's side inputs handed on gives the same bits
+    as the backward that makes its own."""
+    b, n, d = 2, 450, 64
+    q, k, v, dout, coords3, slopes, key_mask = _alibi_inputs(
+        b, h, n, d, "holes", cuda_device, torch.bfloat16)
+    dout = dout * key_mask[:, None, :, None]
+    side = af.wgmma_side_inputs(coords3, key_mask, b, n)
+    out, lse = af.alibi_flash_attention_cuda(q, k, v, coords3, slopes,
+                                             key_mask, d ** -0.5, side=side)
+    want_o, want_l = af.alibi_attention_reference(
+        q.float(), k.float(), v.float(), coords3, slopes, key_mask)
+    assert (out.float() - want_o).abs().max().item() <= 1.6e-2
+    assert (lse - want_l).abs().max().item() <= 1e-2
+    got = af.alibi_flash_attention_backward_cuda(
+        q, k, v, coords3, slopes, key_mask, out, lse, dout, d ** -0.5,
+        side=side)
+    own = af.alibi_flash_attention_backward_cuda(
+        q, k, v, coords3, slopes, key_mask, out, lse, dout, d ** -0.5)
+    want = af.alibi_attention_backward_reference(
+        q.float(), k.float(), v.float(), coords3, slopes, key_mask,
+        out.float(), lse, dout.float())
+    torch.cuda.synchronize()
+    for name, g, o, w in zip(("dq", "dk", "dv"), got, own, want):
+        _assert_grad_readings(g, w, dout, f"{name} H = {h}")
+        assert torch.equal(g, o), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
