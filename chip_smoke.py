@@ -84,6 +84,30 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time of one ``fn()`` call: the summed duration of the
+    kernels, copies and sets that ``iters`` calls ran on the card, from
+    ``torch.profiler``, over ``iters``. Unlike :func:`time_ms` it leaves
+    out the host's time to enqueue them, which a call of a few tens of
+    microseconds on the card does not hide."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    check(bool(dev), "the profiler recorded no device time")
+    return sum(e.time_range.end - e.time_range.start for e in dev) \
+        / iters / 1e3
+
+
 def timed_once(fn):
     """``(fn(), milliseconds)`` of one call, by CUDA events."""
     import torch
@@ -273,14 +297,25 @@ def check_grads(names, got, want, dout, dtype_name, what):
     return worst_rel, worst_row
 
 
+def check_out(got, want, dtype_name, what):
+    """Hold an attention output to :data:`GRAD_LIMITS` by the readings of
+    :func:`grad_readings`, which scale the error by the values compared:
+    over thousands of keys a typical |out| is about 0.01, where the bound
+    of :func:`compare`, scaled by max(1, max|want|), is as large as the
+    values themselves. Returns (rel, row)."""
+    return check_grads(("out",), (got,), (want,), want, dtype_name, what)
+
+
 def phase_k2(device, shapes=K2_SHAPES, iters=20):
-    """Kernel vs plain version at every shape, fp32 and bf16; times in
-    bf16. Returns {name: result dict}."""
+    """Kernel vs plain version at every shape, fp32 and bf16, the bf16
+    output also by :func:`check_out`; times in bf16, where a rerun must
+    give the same bits. Each shape names the kernel family that ran in
+    bf16 (fp32 runs the CUDA-core kernels). Returns {name: result dict}."""
     import torch
     fa = importlib.import_module("modaltune_tpu_torch.ops.flash_attention")
     results = {}
     for i, (name, bh, lq, lk, d, masked, dead) in enumerate(shapes):
-        res = {}
+        res = {"family": fa.card_family(lq, lk, d, torch.bfloat16)}
         for dtype, out_tol, lse_tol in ((torch.float32, 2e-4, 1e-4),
                                         (torch.bfloat16, 1.6e-2, 1e-2)):
             q, k, v, bias = k2_inputs(bh, lq, lk, d, masked, dead, dtype,
@@ -300,36 +335,55 @@ def phase_k2(device, shapes=K2_SHAPES, iters=20):
                       f"{tag}: a fully masked row is not 0 / NEG_INF")
             res[str(dtype)[6:]] = dict(out_err=err_o, lse_err=err_l)
             if dtype == torch.bfloat16:
+                res["out_rel"], res["out_row"] = check_out(
+                    got_o, want_o, "bfloat16", f"{tag} out")
+                again = fa.flash_attention(q, k, v, bias)
+                check(torch.equal(again[0], got_o) and
+                      torch.equal(again[1], got_l),
+                      f"{tag}: a rerun gives other bits")
                 res["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, bias),
                                     iters)
                 res["plain_ms"] = time_ms(
                     lambda: fa.flash_attention_reference(q, k, v, bias), iters)
                 res["library_ms"] = time_ms(
                     lambda: sdpa_key_bias(q, k, v, bias), iters)
+                res["device_ms"] = device_ms(
+                    lambda: fa.flash_attention(q, k, v, bias))
+                res["library_device_ms"] = device_ms(
+                    lambda: sdpa_key_bias(q, k, v, bias))
                 res["bound_ms"], res["bound_by"] = attention_bound(
                     k2_pairs(bh, lq, lk, bias), d,
                     (q, k, v, bias, got_o, got_l), backward=False)
         print(f"K2 {name} BH={bh} Lq={lq} Lk={lk} D={d}: "
               f"fp32 out {res['float32']['out_err']:.3e} "
               f"lse {res['float32']['lse_err']:.3e} | "
-              f"bf16 out {res['bfloat16']['out_err']:.3e} "
-              f"lse {res['bfloat16']['lse_err']:.3e} | "
+              f"bf16 ({res['family']}) out {res['bfloat16']['out_err']:.3e} "
+              f"(rel-L2 {res['out_rel']:.3e}, row-scaled "
+              f"{res['out_row']:.3e}) lse {res['bfloat16']['lse_err']:.3e}, "
+              f"rerun bit-equal | "
               f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
-              f"library (SDPA, no lse) {res['library_ms']:.4f} ms, bound "
+              f"library (SDPA, no lse) {res['library_ms']:.4f} ms, "
+              f"kernel / library {res['ms'] / res['library_ms']:.3f}; on the "
+              f"card alone (profiler) kernel {res['device_ms']:.4f} ms, "
+              f"library {res['library_device_ms']:.4f} ms, kernel / library "
+              f"{res['device_ms'] / res['library_device_ms']:.3f}; bound "
               f"{res['bound_ms']:.5f} ms ({res['bound_by']})", flush=True)
         results[name] = res
     return results
 
 
 def phase_k2b(device, shapes=K2_SHAPES, iters=20):
-    """The K2 backward kernel against its plain version at every shape,
+    """The K2 backward kernels against their plain version at every shape,
     fp32 and bf16 (the plain version in fp32 on the same values); times in
-    bf16. Returns {name: result dict}."""
+    bf16, where a rerun must give the same bits and the gradients from the
+    kernel's own out and lse are held to the same limits, so that a fault
+    of the forward reaches them too; the bf16 family as in
+    :func:`phase_k2`. Returns {name: result dict}."""
     import torch
     fa = importlib.import_module("modaltune_tpu_torch.ops.flash_attention")
     results = {}
     for i, (name, bh, lq, lk, d, masked, dead) in enumerate(shapes):
-        res = {}
+        res = {"family": fa.card_family(lq, lk, d, torch.bfloat16)}
         scale = d ** -0.5
         for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
             q, k, v, bias = k2_inputs(bh, lq, lk, d, masked, dead, dtype,
@@ -358,6 +412,17 @@ def phase_k2b(device, shapes=K2_SHAPES, iters=20):
                       f"{tag}: a bh with every key masked has non-zero "
                       f"gradients")
             if dtype == torch.bfloat16:
+                again = fa.flash_attention_backward_cuda(q, k, v, bias, out,
+                                                         lse, dout, scale)
+                check(all(torch.equal(a, b) for a, b in zip(again, got)),
+                      f"{tag}: a rerun gives other bits")
+                own = fa.flash_attention_backward_cuda(
+                    q, k, v, bias, *fa.flash_attention_cuda(q, k, v, bias,
+                                                            scale),
+                    dout, scale)
+                res["own_rel"], res["own_row"] = check_grads(
+                    ("dq", "dk", "dv"), own, want, dout, "bfloat16",
+                    f"{tag} from the kernel's out and lse")
                 res["ms"] = time_ms(lambda: fa.flash_attention_backward_cuda(
                     q, k, v, bias, out, lse, dout, scale), iters)
                 res["plain_ms"] = time_ms(
@@ -365,8 +430,15 @@ def phase_k2b(device, shapes=K2_SHAPES, iters=20):
                         q, k, v, bias, out, lse, dout), iters)
                 leaves = [x.detach().requires_grad_() for x in (q, k, v)]
                 lib_out = sdpa_key_bias(*leaves, bias)
-                res["library_ms"] = time_ms(lambda: torch.autograd.grad(
-                    lib_out, leaves, dout, retain_graph=True), iters)
+
+                def library():
+                    return torch.autograd.grad(lib_out, leaves, dout,
+                                               retain_graph=True)
+                res["library_ms"] = time_ms(library, iters)
+                res["device_ms"] = device_ms(
+                    lambda: fa.flash_attention_backward_cuda(
+                        q, k, v, bias, out, lse, dout, scale))
+                res["library_device_ms"] = device_ms(library)
                 del lib_out, leaves
                 res["bound_ms"], res["bound_by"] = attention_bound(
                     k2_pairs(bh, lq, lk, bias), d,
@@ -375,12 +447,18 @@ def phase_k2b(device, shapes=K2_SHAPES, iters=20):
               f"fp32 dq/dk/dv {res['float32']:.3e} (bound "
               f"{res['float32_bound']:.2e}), rel-L2 "
               f"{res['float32_rel']:.3e}, row-scaled {res['float32_row']:.3e} "
-              f"| bf16 {res['bfloat16']:.3e} (bound "
+              f"| bf16 ({res['family']}) {res['bfloat16']:.3e} (bound "
               f"{res['bfloat16_bound']:.2e}), rel-L2 "
               f"{res['bfloat16_rel']:.3e}, row-scaled "
-              f"{res['bfloat16_row']:.3e} | "
+              f"{res['bfloat16_row']:.3e}, rerun bit-equal, from the "
+              f"kernel's own out and lse rel-L2 {res['own_rel']:.3e}, "
+              f"row-scaled {res['own_row']:.3e} | "
               f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
               f"library (autograd through SDPA) {res['library_ms']:.4f} ms, "
+              f"kernel / library {res['ms'] / res['library_ms']:.3f}; on the "
+              f"card alone (profiler) kernel {res['device_ms']:.4f} ms, "
+              f"library {res['library_device_ms']:.4f} ms, kernel / library "
+              f"{res['device_ms'] / res['library_device_ms']:.3f}; "
               f"bound {res['bound_ms']:.5f} ms ({res['bound_by']})",
               flush=True)
         results[name] = res
@@ -1612,16 +1690,19 @@ def main() -> int:
         device, card=card, build_kw=TITAN, compare_kw=TITAN_2047,
         tag="titan train")
 
-    def kernel(key, name, replaces, err, res, by_shape=None):
+    def kernel(key, name, replaces, err, res, by_shape=None, source=None):
         """One entry of the kernels line. launches: the sum over the six
         paths' runs (by_path: each run's own count, every count set to 0
         just before it); max_abs_err: the largest output or gradient error
         of any comparison above; ms, plain_ms, bound_ms, library_ms: at
         K1's, K3's and K5's one shape, K2's Extractor shape, K4's
-        N = 16,384 (by_shape: the others)."""
+        N = 16,384 (by_shape: the others, with K2's kernel family and
+        the kernel's and library call's time on the card alone).
+        source: the file of the kernels the paths run, ``name``.cu unless
+        given."""
         by_path = {p: r["launches"][key] for p, r in paths.items()}
         out = {"name": name, "route": "cuda",
-               "source": f"modaltune_tpu_torch/csrc/{name}.cu",
+               "source": f"modaltune_tpu_torch/csrc/{source or name}.cu",
                "replaces": replaces, "launches": sum(by_path.values()),
                "launches_by_path": by_path, "max_abs_err": err,
                "ms": res["ms"], "plain_ms": res["plain_ms"],
@@ -1632,6 +1713,10 @@ def main() -> int:
                 shape: {k: r.get(k) for k in ("ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms")}
                 for shape, r in by_shape.items()}
+            for shape, r in by_shape.items():   # K2's family, device times
+                for k in ("family", "device_ms", "library_device_ms"):
+                    if k in r:
+                        out["by_shape"][shape][k] = r[k]
         check(out["launches"] > 0, f"{name} was launched on no path")
         return out
 
@@ -1643,14 +1728,16 @@ def main() -> int:
         kernel("K1b", "dilated_attention_bwd",
                "modaltune_tpu/ops/dilated_mega.py:641",
                max(k1b[dt]["grad_err"] for dt in both), k1b),
+        # the adapter's calls run the short-side family (bf16, D = 16);
+        # fp32 and the d48 shape the CUDA-core kernels of `name`.cu
         kernel("K2f", "flash_attention_fwd",
                "modaltune_tpu/ops/flash_attention.py:155",
                max(r[dt]["out_err"] for r in k2.values() for dt in both),
-               k2["extractor"], k2),
+               k2["extractor"], k2, source="flash_short_side_fwd"),
         kernel("K2b", "flash_attention_bwd",
                "modaltune_tpu/ops/flash_attention.py:292",
                max(r[dt] for r in k2b.values() for dt in both),
-               k2b["extractor"], k2b),
+               k2b["extractor"], k2b, source="flash_short_side_bwd"),
         kernel("K3f", "dilated_fused_fwd",
                "modaltune_tpu/ops/dilated_fused.py:468",
                max(max(k3[dt][e] for e in ("out_err", "piece_err", "mix_err"))

@@ -22,9 +22,13 @@
 // What the design does about it: two kernels and no atomics. The dq kernel's
 // block owns 64 query rows and streams 64-key tiles; the dk/dv kernel's
 // block owns 64 key rows and streams 64-query tiles (attention_bwd_common.cuh
-// has the shared update). Splitting the long side over blocks (split-K) for
-// the few-row shapes, and tensor cores, are left for later work.
+// has the shared update). The adapter's own shapes (bf16, D = 16, one side
+// of at most 128 rows) do not come here: the entry point below hands them to
+// the short-side family (flash_short_side_bwd.cu), which splits the long side
+// over the card, makes delta itself and runs its products on the tensor
+// cores. This file serves fp32 (the oracle family) and every other bf16 shape.
 #include "attention_bwd_common.cuh"
+#include "flash_short_side.cuh"
 
 namespace mt {
 
@@ -161,20 +165,33 @@ cudaError_t dispatch_flash_bwd(int DP, const void* q, const void* k, const void*
 
 }  // namespace mt
 
-// q/k/v/dout/dq/dk/dv (BH, L, D) contiguous in one dtype (0 = float32,
+// q/k/v/dout/out/dq/dk/dv (BH, L, D) contiguous in one dtype (0 = float32,
 // 1 = bfloat16); bias (BH, Lk) fp32 or null; lse and delta (BH, Lq) fp32.
-// Returns a cudaError_t; 0 means both kernels were launched.
+// The CUDA-core kernels read delta = rowsum(dout * out) and not out; the
+// short-side family reads out, makes delta itself, and takes chunks and the
+// fp32 scratch `work` that the wrapper sizes (ops/flash_attention.py).
+// Returns a cudaError_t; 0 means every kernel was launched.
 extern "C" int mt_flash_attention_bwd(const void* q, const void* k, const void* v,
-                                      const void* bias, const void* dout, const void* lse,
-                                      const void* delta, void* dq, void* dk, void* dv, int BH,
-                                      int Lq, int Lk, int D, float scale, int dtype,
-                                      void* stream) {
+                                      const void* bias, const void* dout, const void* out,
+                                      const void* lse, const void* delta, void* dq, void* dk,
+                                      void* dv, int BH, int Lq, int Lk, int D, float scale,
+                                      int dtype, int chunks, void* work, void* stream) {
   const int DP = mt::padded_head_dim(D);
   if (DP < 0 || BH < 1 || BH > 65535 || Lq < 1 || Lk < 1) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto b = static_cast<const float*>(bias);
   const auto l = static_cast<const float*>(lse);
+  const int fam = mt::ss::family(Lq, Lk, D, dtype);
+  if (fam != mt::ss::kCudaCores) {
+    using mt::bf16;
+    return mt::ss::launch_bwd(fam, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                              static_cast<const bf16*>(v), b, static_cast<const bf16*>(dout),
+                              static_cast<const bf16*>(out), l, static_cast<bf16*>(dq),
+                              static_cast<bf16*>(dk), static_cast<bf16*>(dv), BH, Lq, Lk, scale,
+                              chunks, static_cast<float*>(work), s);
+  }
   const auto dl = static_cast<const float*>(delta);
+  if (dl == nullptr) return cudaErrorInvalidValue;
   if (dtype == 0)
     return mt::dispatch_flash_bwd<float>(DP, q, k, v, b, dout, l, dl, dq, dk, dv, BH, Lq, Lk, D,
                                          scale, s);

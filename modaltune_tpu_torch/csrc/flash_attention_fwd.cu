@@ -24,9 +24,13 @@
 // shared memory, so K/V are read from device memory once per query tile.
 // One warp updates four rows per key tile with the online-softmax recurrence
 // (lanes over keys for q.k, over (row, head dimension) for p.V). It runs
-// on CUDA cores in fp32; tensor cores, split-K for the few-query shape and
-// TMA are left for later work.
+// on CUDA cores in fp32. The adapter's own shapes (bf16, D = 16, one side of
+// at most 128 rows) do not come here: the entry point below hands them to the
+// short-side family (flash_short_side_fwd.cu), which splits the long side
+// over the card and runs its products on the tensor cores. This file serves
+// fp32 (the oracle family) and every other bf16 shape.
 #include "attention_common.cuh"
+#include "flash_short_side.cuh"
 
 namespace mt {
 
@@ -109,16 +113,33 @@ extern "C" const char* mt_error_name(int err) {
   return cudaGetErrorName(static_cast<cudaError_t>(err));
 }
 
-// dtype: 0 = float32, 1 = bfloat16. bias may be null (no masking).
-// Returns a cudaError_t; 0 means the kernel was launched.
+// Which kernels serve a call (mt::ss::Family): 0 the CUDA-core kernels of
+// this file, 1 short keys, 2 short queries.
+extern "C" int mt_flash_attention_family(int Lq, int Lk, int D, int dtype) {
+  return mt::ss::family(Lq, Lk, D, dtype);
+}
+
+// dtype: 0 = float32, 1 = bfloat16. bias may be null (no masking). chunks and
+// work: the split of the long side and the fp32 scratch of the short-side
+// family, which the wrapper sizes (ops/flash_attention.py); the CUDA-core
+// kernels take neither. Returns a cudaError_t; 0 means the kernels were
+// launched.
 extern "C" int mt_flash_attention_fwd(const void* q, const void* k, const void* v,
                                       const void* bias, void* out, void* lse, int BH, int Lq,
-                                      int Lk, int D, float scale, int dtype, void* stream) {
+                                      int Lk, int D, float scale, int dtype, int chunks,
+                                      void* work, void* stream) {
   const int DP = mt::padded_head_dim(D);
   if (DP < 0 || BH < 1 || BH > 65535 || Lq < 1 || Lk < 1) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto b = static_cast<const float*>(bias);
   const auto l = static_cast<float*>(lse);
+  const int fam = mt::ss::family(Lq, Lk, D, dtype);
+  if (fam != mt::ss::kCudaCores) {
+    using mt::bf16;
+    return mt::ss::launch_fwd(fam, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                              static_cast<const bf16*>(v), b, static_cast<bf16*>(out), l, BH, Lq,
+                              Lk, scale, chunks, static_cast<float*>(work), s);
+  }
   if (dtype == 0) return mt::dispatch_flash<float>(DP, q, k, v, b, out, l, BH, Lq, Lk, D, scale, s);
   if (dtype == 1)
     return mt::dispatch_flash<__nv_bfloat16>(DP, q, k, v, b, out, l, BH, Lq, Lk, D, scale, s);

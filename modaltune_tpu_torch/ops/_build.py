@@ -31,9 +31,10 @@ _I = ctypes.c_int
 # name -> argtypes of the C entry points (see csrc/*.cu)
 SIGNATURES = {
     "mt_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               ctypes.c_float, _I, _P],
-    "mt_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _I, ctypes.c_float, _I, _P],
+                               ctypes.c_float, _I, _I, _P, _P],
+    "mt_flash_attention_bwd": [_P] * 11 + [_I, _I, _I, _I, ctypes.c_float, _I,
+                                           _I, _P, _P],
+    "mt_flash_attention_family": [_I, _I, _I, _I],
     "mt_dilated_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _P, _P, _I, ctypes.c_float, _I, _P],
     "mt_dilated_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -1,9 +1,20 @@
 """Flash attention with an additive key bias, returning the log-sum-exp.
 
 Counterpart of ``modaltune_tpu/ops/flash_attention.py``. A CUDA tensor
-goes to the hand-written Hopper kernels ``csrc/flash_attention_fwd.cu``
-(K2f) and, for the gradient, ``csrc/flash_attention_bwd.cu`` (K2b); a CPU
-tensor goes to :func:`flash_attention_reference` and
+goes to the hand-written Hopper kernels of K2f and, for the gradient, K2b,
+in one of two families that the C entry points choose from the shape and
+the dtype (:func:`card_family`; :func:`family` is its copy for the CPU):
+
+* the short-side family (``csrc/flash_short_side_{fwd,bwd}.cu``): bf16 at
+  head dimension 16 with one side of at most :data:`SHORT_SIDE` rows, which
+  is every adapter attention of the models. That side is resident in every
+  block, the other is split into :func:`long_side_chunks` chunks streamed
+  once, and the chunks' partials are added in a fixed order in fp32 scratch
+  that this module allocates (:func:`workspace_floats`);
+* the CUDA-core kernels (``csrc/flash_attention_{fwd,bwd}.cu``) for fp32
+  and every other bf16 shape.
+
+A CPU tensor goes to :func:`flash_attention_reference` and
 :func:`flash_attention_backward_reference`, the plain PyTorch versions of
 the same functions, which are also the kernels' oracles.
 
@@ -16,6 +27,7 @@ cotangent is dropped, as the JAX package's ``_bwd_pallas`` drops it.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -30,6 +42,100 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The short-side family (csrc/flash_short_side.cuh): bf16 at head dimension
+# SHORT_SIDE_D with one side of at most SHORT_SIDE rows. The long side is cut
+# into TILE-row tiles and split into chunks of MIN_CHUNK_TILES to
+# MAX_CHUNK_TILES tiles, one block per (bh, chunk), aiming at BLOCKS_PER_SM
+# blocks on each SM of the card.
+SHORT_SIDE = 128
+SHORT_SIDE_D = 16
+TILE = 64
+BLOCKS_PER_SM = 4
+MIN_CHUNK_TILES, MAX_CHUNK_TILES = 2, 64
+
+
+# csrc/flash_short_side.cuh::Family, by code
+FAMILIES = ("cuda_cores", "short_keys", "short_queries")
+
+
+def family(lq: int, lk: int, d: int, dtype: torch.dtype) -> str:
+    """The kernels that serve a call: ``"short_keys"`` (at most
+    :data:`SHORT_SIDE` keys, the Injector and the prompt self-attention),
+    ``"short_queries"`` (at most that many queries, the Extractor), both
+    bf16 at D = 16, or ``"cuda_cores"`` (fp32, and every other bf16 shape).
+
+    The C entry points own this rule (``csrc/flash_short_side.cuh::family``)
+    and the card's calls ask them (:func:`card_family`). This copy serves
+    the CPU, where no library is built: the step-by-step emulation and the
+    chunk plan's tests. ``tests/test_torch_kernels_cuda.py`` holds it equal
+    to the library's on the card.
+    """
+    if dtype == torch.bfloat16 and d == SHORT_SIDE_D:
+        if lk <= SHORT_SIDE:
+            return "short_keys"
+        if lq <= SHORT_SIDE:
+            return "short_queries"
+    return "cuda_cores"
+
+
+def long_side_chunks(bh: int, long_len: int, n_sms: int) -> int:
+    """How many chunks the short-side family splits the long side of each
+    bh into: enough that ``bh`` times as many blocks give each of ``n_sms``
+    SMs about :data:`BLOCKS_PER_SM`, at least :data:`MIN_CHUNK_TILES` tiles
+    a chunk where the side allows, at most :data:`MAX_CHUNK_TILES` (the
+    chunk's bias or lse entries live in shared memory)."""
+    tiles = -(-long_len // TILE)
+    chunks = min(-(-BLOCKS_PER_SM * n_sms // bh),
+                 max(1, tiles // MIN_CHUNK_TILES))
+    return max(chunks, -(-tiles // MAX_CHUNK_TILES))
+
+
+def workspace_floats(fam: str, backward: bool, bh: int, lq: int, lk: int,
+                     chunks: int) -> int:
+    """fp32 scratch of a short-side call: the forward's short-queries
+    partials (acc, m, l of every (bh, chunk, padded query)), the backward's
+    partial dk and dv (short keys) or dq (short queries) of every (bh,
+    chunk, padded resident row); 0 where the family needs none."""
+    if fam == "cuda_cores" or (fam == "short_keys" and not backward):
+        return 0
+    short = -(-(lk if fam == "short_keys" else lq) // 16) * 16
+    rows = bh * chunks * short
+    if not backward:
+        return rows * (SHORT_SIDE_D + 2)
+    return rows * SHORT_SIDE_D * (2 if fam == "short_keys" else 1)
+
+
+def card_family(lq: int, lk: int, d: int, dtype: torch.dtype) -> str:
+    """The family that the C entry points choose for a call on the card
+    (``mt_flash_attention_family``); builds the library on first use."""
+    code = load_library().mt_flash_attention_family(lq, lk, d,
+                                                   _DTYPE_CODES[dtype])
+    return FAMILIES[code]
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _short_side_plan(q, k, backward, tensors):
+    """``(family, chunks, scratch or None)`` of a call on the card, the
+    family as the C entry points choose it. The short-side family's bulk
+    copies need 16-byte aligned q/k/v/dout/out."""
+    bh, lq, d = q.shape
+    lk = k.shape[1]
+    fam = card_family(lq, lk, d, q.dtype)
+    if fam == "cuda_cores":
+        return fam, 0, None
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the short-side flash attention kernels take "
+                         "16-byte aligned tensors")
+    long_len = lq if fam == "short_keys" else lk
+    chunks = long_side_chunks(bh, long_len, _sm_count(q.device.index or 0))
+    n = workspace_floats(fam, backward, bh, lq, lk, chunks)
+    work = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
+    return fam, chunks, work
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -116,10 +222,13 @@ def _check(q, k, v, bias):
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          bias: Optional[torch.Tensor], scale: float
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the K2f kernel on ``q``'s device and current stream."""
+    """Launch K2f on ``q``'s device and current stream: the short-side
+    family's kernel (and, for short queries, its combine) or the CUDA-core
+    kernel, as :func:`card_family` says."""
     global LAUNCHES
     _check(q, k, v, bias)
     bh, lq, d = q.shape
+    _, chunks, work = _short_side_plan(q, k, False, (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((bh, lq), dtype=torch.float32, device=q.device)
     lib = load_library()
@@ -129,27 +238,34 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(),
             out.data_ptr(), lse.data_ptr(), bh, lq, k.shape[1], d,
-            float(scale), _DTYPE_CODES[q.dtype], stream)
+            float(scale), _DTYPE_CODES[q.dtype], chunks,
+            None if work is None else work.data_ptr(), stream)
     check_launch(err, "mt_flash_attention_fwd")
     LAUNCHES += 1
     return out, lse
 
 
 def flash_attention_backward_cuda(q, k, v, bias, out, lse, dout, scale: float):
-    """Launch the K2b kernels (dq, then dk/dv) on ``q``'s device and current
-    stream. ``delta = rowsum(dout * out)`` is computed here in torch, as
-    the JAX package computes it outside its Pallas kernels."""
+    """Launch the K2b kernels on ``q``'s device and current stream: the
+    short-side family's gradient kernel and its fixed-order sum, which make
+    ``delta = rowsum(dout * out)`` themselves, or the CUDA-core dq and dk/dv
+    kernels, for which it is computed here in torch, as the JAX package
+    computes it outside its Pallas kernels."""
     global BWD_LAUNCHES
     _check(q, k, v, bias)
     bh, lq, d = q.shape
-    if dout.shape != q.shape or dout.dtype != q.dtype or \
-            dout.device != q.device or not dout.is_contiguous():
-        raise ValueError(f"dout must be a contiguous {q.dtype} "
-                         f"{tuple(q.shape)} tensor on {q.device}")
+    for name, t in (("dout", dout), ("out", out)):
+        if t.shape != q.shape or t.dtype != q.dtype or \
+                t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {q.dtype} "
+                             f"{tuple(q.shape)} tensor on {q.device}")
     if lse.shape != (bh, lq) or lse.dtype != torch.float32 or \
             not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous float32 {(bh, lq)} tensor")
-    delta = (dout.float() * out.float()).sum(dim=-1).contiguous()
+    fam, chunks, work = _short_side_plan(q, k, True, (q, k, v, dout, out))
+    delta = None
+    if fam == "cuda_cores":
+        delta = (dout.float() * out.float()).sum(dim=-1).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = load_library()
     with torch.cuda.device(q.device):
@@ -157,9 +273,11 @@ def flash_attention_backward_cuda(q, k, v, bias, out, lse, dout, scale: float):
         err = lib.mt_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), bh, lq, k.shape[1], d, float(scale),
-            _DTYPE_CODES[q.dtype], stream)
+            out.data_ptr(), lse.data_ptr(),
+            None if delta is None else delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), bh, lq, k.shape[1], d,
+            float(scale), _DTYPE_CODES[q.dtype], chunks,
+            None if work is None else work.data_ptr(), stream)
     check_launch(err, "mt_flash_attention_bwd")
     BWD_LAUNCHES += 1
     return dq, dk, dv

@@ -37,11 +37,8 @@ from modaltune_tpu_torch.ops.alibi_flash import (
     NEG_INF, alibi_attention_backward_reference, alibi_attention_reference,
     alibi_flash_attention)
 
-# One thread: with two, the first vectorised sqrt after a process's first
-# GEMM was seen to come back at reduced accuracy (relative 2e-4) in one
-# thread's share of the elements on some CPU builds of torch (MKL 2024.2),
-# which the 1e-5 gate below then reads as a fault of the plain version.
-torch.set_num_threads(1)
+from _one_thread import one_thread  # noqa: F401  (one CPU thread a test)
+
 
 # Both sides run the same fp32 algorithm on two CPU backends; only the
 # summation order and libm rounding differ.

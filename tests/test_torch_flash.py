@@ -1,0 +1,420 @@
+"""The short-side family of the key-bias flash attention kernels (K2f, K2b)
+emulated step by step on the CPU, against the plain versions and JAX's
+Pallas kernels.
+
+``csrc/flash_short_side_{fwd,bwd}.cu`` cannot run here. What they compute
+is written out below in the order the card computes it:
+
+* the short side (at most ``SHORT_SIDE`` rows) resident, padded with zero
+  rows to a multiple of 16, padded keys with the additive term -inf;
+* the long side cut into 64-row tiles and split into C chunks of whole
+  tiles (``csrc/flash_short_side.cuh::Chunk``), scores in base 2;
+* short keys: the whole softmax of a row in one pass; short queries: the
+  online softmax of every resident row over each chunk's keys into a
+  partial (acc, m, l), a chunk without a valid key skipped, then the
+  partials merged in chunk order;
+* the backward: delta made from the dout and out rows read, the resident
+  side's gradient complete, the long side's as a partial per chunk, the
+  partials added in chunk order, the scale applied where the kernels
+  apply it;
+* in bf16, P and dS entering every product that takes them as two bf16
+  parts, hi = bf16(x) and lo = bf16(x - hi), and the results rounded to
+  bf16.
+
+The same numpy inputs, made from a seed, go through the emulation, the
+port's plain versions (``flash_attention_reference`` and
+``flash_attention_backward_reference``, the kernels' oracles) and JAX's
+Pallas kernels in interpret mode (``_fwd_pallas``, and ``_bwd_pallas``
+called directly: with a key bias ``jax.grad`` through them raises, ROADMAP
+F6). The family choice and the chunk plan of
+``modaltune_tpu_torch/ops/flash_attention.py`` are pure functions and are
+tested as such. ``tests/test_torch_kernels_cuda.py`` and ``chip_smoke.py``
+hold the kernels themselves against the plain versions on the card.
+"""
+
+import functools
+import importlib.util
+import math
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from modaltune_tpu.ops.flash_attention import _bwd_pallas, _fwd_pallas
+from modaltune_tpu_torch.ops.flash_attention import (
+    MASK_THRESHOLD, MAX_CHUNK_TILES, NEG_INF, SHORT_SIDE, TILE, family,
+    flash_attention_backward_reference, flash_attention_reference,
+    long_side_chunks, workspace_floats)
+
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+
+# fp32 against JAX: the same algorithm in another summation order, with
+# exp2 of base-2 scores for exp: a few ulp of values of order 1.
+TOL = 1e-5
+# bf16 against the plain fp32 version on the same bf16 values: the limits
+# of chip_smoke.py. out at 1.6e-2 x max(1, max|want|) and, since that
+# bound is as large as a typical |out| over hundreds of keys, also by
+# check_out, rel-L2 1e-2 and row-scaled 2e-2 (GRAD_LIMITS); lse at 1e-2;
+# the gradients by GRAD_LIMITS. The result's rounding to bf16 reads about
+# 1e-3 of each; P and dS as hi + lo parts add about 2^-16 of theirs.
+OUT_LIMIT, LSE_LIMIT = 1.6e-2, 1e-2
+
+
+def _load_chip_smoke():
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+chip_smoke = _load_chip_smoke()
+
+
+def _round(x, on):
+    return x.bfloat16().float() if on else x
+
+
+def _parts(x, on):
+    """x as the kernels' products take P and dS in bf16: hi + lo."""
+    if not on:
+        return x
+    hi = x.bfloat16().float()
+    return hi + (x - hi).bfloat16().float()
+
+
+def _pad16(n):
+    return -(-n // 16) * 16
+
+
+def _pad_rows(x, n, value=0.0):
+    """(.., L, ...) -> (.., n, ...) along dim 1, filled with ``value``."""
+    out = x.new_full((x.shape[0], n, *x.shape[2:]), value)
+    out[:, :x.shape[1]] = x
+    return out
+
+
+def _chunk(c, chunks, length):
+    """Rows [r0, r1) of chunk c: tiles [c T / C, (c + 1) T / C)."""
+    tiles = -(-length // TILE)
+    t0, t1 = c * tiles // chunks, (c + 1) * tiles // chunks
+    return t0 * TILE, min(t1 * TILE, length)
+
+
+def _key_terms(bias, bh, lk, n):
+    """bias * log2(e) for a valid key, -inf for a masked or padded one."""
+    b = torch.zeros(bh, lk) if bias is None else bias
+    add = torch.where(b > MASK_THRESHOLD, b * LOG2E, -math.inf)
+    return _pad_rows(add, n, -math.inf)
+
+
+def emulate_forward(q, k, v, bias, scale, chunks, rounding):
+    """K2f's short-side kernels. Returns (out, lse, chunks skipped)."""
+    bh, lq, d = q.shape
+    lk = k.shape[1]
+    scale2 = scale * LOG2E
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    out, lse = torch.zeros(bh, lq, d), torch.zeros(bh, lq)
+    skipped = 0
+    if lk <= SHORT_SIDE:                       # short keys
+        kp = _pad16(lk)
+        kr, vr = _pad_rows(kf, kp), _pad_rows(vf, kp)
+        kadd = _key_terms(bias, bh, lk, kp)
+        for b in range(bh):
+            for c in range(chunks):
+                r0, r1 = _chunk(c, chunks, lq)
+                for t0 in range(r0, r1, TILE):
+                    rows = slice(t0, min(t0 + TILE, r1))
+                    s = qf[b, rows] @ kr[b].T * scale2 + kadd[b]
+                    mx = s.amax(dim=-1).clamp_min(NEG_INF)
+                    p = torch.exp2(s - mx[:, None])
+                    l = p.sum(dim=-1)
+                    o = _parts(p, rounding) @ vr[b]
+                    live = l > 0
+                    out[b, rows] = o * torch.where(live, 1 / l, 0.0)[:, None]
+                    lse[b, rows] = torch.where(
+                        live, (mx + torch.log2(l)) * LN2, NEG_INF)
+        return _round(out, rounding), lse, skipped
+    qp = _pad16(lq)                            # short queries
+    qr = _pad_rows(qf, qp)
+    kadd = _key_terms(bias, bh, lk, lk)
+    for b in range(bh):
+        parts = []
+        for c in range(chunks):
+            r0, r1 = _chunk(c, chunks, lk)
+            if not bool((kadd[b, r0:r1] > -math.inf).any()):
+                skipped += 1                   # no tile is loaded
+                parts.append((torch.zeros(qp, d), torch.full((qp,), NEG_INF),
+                              torch.zeros(qp)))
+                continue
+            m, l = torch.full((qp,), NEG_INF), torch.zeros(qp)
+            acc = torch.zeros(qp, d)
+            for t0 in range(r0, r1, TILE):
+                cols = slice(t0, min(t0 + TILE, r1))
+                s = qr[b] @ kf[b, cols].T * scale2 + kadd[b, cols]
+                m_new = torch.maximum(m, s.amax(dim=-1))
+                corr = torch.exp2(m - m_new)
+                p = torch.exp2(s - m_new[:, None])
+                l = l * corr + p.sum(dim=-1)
+                acc = acc * corr[:, None] + _parts(p, rounding) @ vf[b, cols]
+                m = m_new
+            parts.append((acc, m, l))
+        # the combine: chunk order, a partial with l = 0 takes no part
+        mx = torch.full((qp,), NEG_INF)
+        for _, m, l in parts:
+            mx = torch.where(l > 0, torch.maximum(mx, m), mx)
+        total_l, total_o = torch.zeros(qp), torch.zeros(qp, d)
+        for acc, m, l in parts:
+            w = torch.where(l > 0, torch.exp2(m - mx), 0.0)
+            total_l = total_l + w * l
+            total_o = total_o + w[:, None] * acc
+        live = total_l > 0
+        out[b] = (total_o * torch.where(live, 1 / total_l, 0.0)[:, None])[:lq]
+        lse[b] = torch.where(live, (mx + torch.log2(total_l)) * LN2,
+                             NEG_INF)[:lq]
+    return _round(out, rounding), lse, skipped
+
+
+def emulate_backward(q, k, v, bias, out, lse, dout, scale, chunks, rounding):
+    """K2b's short-side kernels and their fixed-order sums: (dq, dk, dv)."""
+    bh, lq, d = q.shape
+    lk = k.shape[1]
+    scale2 = scale * LOG2E
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    delta = (dof * out.float()).sum(dim=-1)
+    lse2 = torch.where(lse > MASK_THRESHOLD, lse, -MASK_THRESHOLD) * LOG2E
+    dq, dk, dv = (torch.zeros(bh, n, d) for n in (lq, lk, lk))
+    if lk <= SHORT_SIDE:                       # short keys
+        kp = _pad16(lk)
+        kr, vr = _pad_rows(kf, kp), _pad_rows(vf, kp)
+        kadd = _key_terms(bias, bh, lk, kp)
+        for b in range(bh):
+            dk_sum, dv_sum = torch.zeros(kp, d), torch.zeros(kp, d)
+            for c in range(chunks):
+                dk_c, dv_c = torch.zeros(kp, d), torch.zeros(kp, d)
+                r0, r1 = _chunk(c, chunks, lq)
+                for t0 in range(r0, r1, TILE):
+                    rows = slice(t0, min(t0 + TILE, r1))
+                    p = torch.exp2(qf[b, rows] @ kr[b].T * scale2 + kadd[b]
+                                   - lse2[b, rows, None])
+                    dp = dof[b, rows] @ vr[b].T
+                    ds = p * (dp - delta[b, rows, None])
+                    dq[b, rows] = _parts(ds, rounding) @ kr[b] * scale
+                    dv_c += _parts(p, rounding).T @ dof[b, rows]
+                    dk_c += _parts(ds, rounding).T @ qf[b, rows]
+                dk_sum, dv_sum = dk_sum + dk_c, dv_sum + dv_c
+            dk[b], dv[b] = dk_sum[:lk] * scale, dv_sum[:lk]
+        return tuple(_round(t, rounding) for t in (dq, dk, dv))
+    qp = _pad16(lq)                            # short queries
+    qr, dor = _pad_rows(qf, qp), _pad_rows(dof, qp)
+    lq2 = _pad_rows(lse2, qp, -MASK_THRESHOLD * LOG2E)
+    deltap = _pad_rows(delta, qp)
+    kadd = _key_terms(bias, bh, lk, lk)
+    for b in range(bh):
+        dq_sum = torch.zeros(qp, d)
+        for c in range(chunks):
+            r0, r1 = _chunk(c, chunks, lk)
+            dq_c = torch.zeros(qp, d)
+            if bool((kadd[b, r0:r1] > -math.inf).any()):
+                for t0 in range(r0, r1, TILE):
+                    cols = slice(t0, min(t0 + TILE, r1))
+                    pt = torch.exp2(kf[b, cols] @ qr[b].T * scale2
+                                    + kadd[b, cols, None] - lq2[b][None, :])
+                    dpt = vf[b, cols] @ dor[b].T
+                    dst = pt * (dpt - deltap[b][None, :])
+                    dv[b, cols] = _parts(pt, rounding) @ dor[b]
+                    dk[b, cols] = _parts(dst, rounding) @ qr[b] * scale
+                    dq_c += _parts(dst, rounding).T @ kf[b, cols]
+            dq_sum = dq_sum + dq_c             # a dead chunk adds zeros
+        dq[b] = dq_sum[:lq] * scale
+    return tuple(_round(t, rounding) for t in (dq, dk, dv))
+
+
+# name -> (BH, Lq, Lk, chunk counts to emulate, key mask):
+# "tail12": 12 % of the keys masked at random, key 0 kept; "stretch": keys
+# [150, 500) masked, which empties chunk 1 of 3 over 11 tiles; "dead_bh":
+# "tail12" and the last bh with every key masked.
+CASES = {
+    "injector": (4, 300, 65, (1, 2, 5), "tail12"),
+    "extractor": (4, 65, 300, (1, 2, 5), "tail12"),
+    "dead_chunk": (2, 65, 700, (3,), "stretch"),
+    "dead_bh_keys": (3, 200, 65, (2,), "dead_bh"),
+    "dead_bh_queries": (3, 65, 200, (2,), "dead_bh"),
+    "one_key": (3, 200, 1, (1, 4), None),
+    "keys_128": (2, 300, 128, (3,), "tail12"),
+    "queries_128": (2, 128, 300, (3,), "tail12"),
+    "prompt_sa": (4, 65, 65, (1,), None),
+}
+
+
+def _case(name, seed=0):
+    bh, lq, lk, chunk_counts, mask = CASES[name]
+    rng = np.random.RandomState(seed)
+    q, k, v, cot = (rng.randn(bh, n, 16).astype(np.float32)
+                    for n in (lq, lk, lk, lq))
+    bias = None
+    if mask is not None:
+        valid = rng.rand(bh, lk) >= 0.12
+        valid[:, 0] = True
+        if mask == "stretch":
+            valid[:, 150:500] = False
+        if mask == "dead_bh":
+            valid[-1] = False
+        bias = np.where(valid, 0.0, NEG_INF).astype(np.float32)
+    return q, k, v, bias, cot, chunk_counts
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(np.array(a))
+
+
+def _jax(q, k, v, bias, cot, scale):
+    """JAX's Pallas forward and backward in interpret mode, one block per
+    axis."""
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    jb = None if bias is None else jnp.asarray(bias)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pl, "pallas_call",
+                   functools.partial(pl.pallas_call, interpret=True))
+        jout, jlse = _fwd_pallas(jq, jk, jv, jb, scale, 1024, 1024)
+        grads = _bwd_pallas(scale, 1024, 1024, (jq, jk, jv, jb, jout, jlse),
+                            (jnp.asarray(cot), None))[:3]
+    return (np.asarray(jout), np.asarray(jlse)), [np.asarray(g) for g in grads]
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_emulation_matches_jax_kernels_in_fp32(name):
+    """In fp32 the emulated kernels compute JAX's Pallas kernels' function
+    at every chunk count: out and lse, then dq, dk, dv from JAX's out and
+    lse."""
+    q, k, v, bias, cot, chunk_counts = _case(name)
+    scale = 16 ** -0.5
+    (jout, jlse), jgrads = _jax(q, k, v, bias, cot, scale)
+    tq, tk, tv, tb, tcot = (_t(x) for x in (q, k, v, bias, cot))
+    for chunks in chunk_counts:
+        out, lse, _ = emulate_forward(tq, tk, tv, tb, scale, chunks, False)
+        np.testing.assert_allclose(out.numpy(), jout, atol=TOL, rtol=TOL,
+                                   err_msg=f"out, C = {chunks}")
+        np.testing.assert_allclose(lse.numpy(), jlse, atol=TOL, rtol=TOL,
+                                   err_msg=f"lse, C = {chunks}")
+        grads = emulate_backward(tq, tk, tv, tb, _t(jout), _t(jlse), tcot,
+                                 scale, chunks, False)
+        for g, w, n in zip(grads, jgrads, ("dq", "dk", "dv")):
+            np.testing.assert_allclose(g.numpy(), w, atol=TOL, rtol=TOL,
+                                       err_msg=f"{n}, C = {chunks}")
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_emulation_in_bf16_holds_the_chip_limits(name):
+    """With bf16 inputs, P and dS as hi + lo bf16 parts and the results
+    rounded to bf16, the emulated kernels stay within chip_smoke.py's
+    limits of the plain fp32 versions on the same values, and their
+    gradients as close to them as the results' own rounding: within 1.2x
+    the rel-L2 of the plain gradients rounded to bf16 (P and dS rounded
+    once to bf16 read about 1.5x)."""
+    q, k, v, bias, cot, chunk_counts = _case(name, seed=1)
+    tq, tk, tv, tcot = (_t(x).bfloat16() for x in (q, k, v, cot))
+    tb = _t(bias)
+    scale = 16 ** -0.5
+    want_o, want_l = flash_attention_reference(tq.float(), tk.float(),
+                                               tv.float(), tb, scale)
+    for chunks in chunk_counts:
+        out, lse, _ = emulate_forward(tq, tk, tv, tb, scale, chunks, True)
+        chip_smoke.compare(out, want_o, OUT_LIMIT, f"out, C = {chunks}")
+        chip_smoke.check_out(out, want_o, "bfloat16", f"out, C = {chunks}")
+        assert (lse - want_l).abs().max().item() <= LSE_LIMIT
+        out16 = out.bfloat16()
+        grads = emulate_backward(tq, tk, tv, tb, out16, lse, tcot, scale,
+                                 chunks, True)
+        want = flash_attention_backward_reference(
+            tq.float(), tk.float(), tv.float(), tb, out16.float(), lse,
+            tcot.float(), scale)
+        chip_smoke.check_grads(("dq", "dk", "dv"), grads, want, tcot,
+                               "bfloat16", f"{name}, C = {chunks}")
+        for g, w in zip(grads, want):
+            floor = chip_smoke.grad_readings(w.bfloat16(), w, tcot)[0]
+            assert chip_smoke.grad_readings(g, w, tcot)[0] <= 1.2 * floor
+
+
+@pytest.mark.parametrize("name", ["dead_chunk", "dead_bh_keys",
+                                  "dead_bh_queries", "injector"])
+def test_emulation_masks_exactly(name):
+    """A masked key gets exactly zero dk and dv, a bh without a valid key
+    exactly out 0, lse NEG_INF and zero gradients, and a chunk without a
+    valid key is skipped, in bf16 as the card runs it."""
+    q, k, v, bias, cot, chunk_counts = _case(name, seed=2)
+    tq, tk, tv, tcot = (_t(x).bfloat16() for x in (q, k, v, cot))
+    tb = _t(bias)
+    chunks = chunk_counts[-1]
+    out, lse, skipped = emulate_forward(tq, tk, tv, tb, 0.25, chunks, True)
+    grads = emulate_backward(tq, tk, tv, tb, out, lse, tcot, 0.25, chunks,
+                             True)
+    masked = tb <= MASK_THRESHOLD
+    assert (grads[1][masked] == 0).all() and (grads[2][masked] == 0).all()
+    dead = masked.all(dim=-1)
+    if CASES[name][4] == "dead_bh":
+        assert dead[-1]
+    assert (out[dead] == 0).all() and (lse[dead] == NEG_INF).all()
+    assert all((g[dead] == 0).all() for g in grads)
+    assert (skipped > 0) == (name in ("dead_chunk", "dead_bh_queries"))
+
+
+# (Lq, Lk, D, dtype) -> family: the adapter's five shapes, both sides
+# long, D = 48, fp32, and the domain's edge at 128 / 129 rows.
+FAMILY_CASES = [
+    (10239, 65, 16, torch.bfloat16, "short_keys"),
+    (65, 10239, 16, torch.bfloat16, "short_queries"),
+    (65, 65, 16, torch.bfloat16, "short_keys"),
+    (16383, 65, 16, torch.bfloat16, "short_keys"),
+    (65, 16383, 16, torch.bfloat16, "short_queries"),
+    (1024, 1024, 48, torch.bfloat16, "cuda_cores"),
+    (10239, 65, 16, torch.float32, "cuda_cores"),
+    (65, 10239, 48, torch.bfloat16, "cuda_cores"),
+    (300, 128, 16, torch.bfloat16, "short_keys"),
+    (128, 300, 16, torch.bfloat16, "short_queries"),
+    (300, 129, 16, torch.bfloat16, "cuda_cores"),
+    (129, 300, 16, torch.bfloat16, "cuda_cores"),
+    (129, 129, 16, torch.bfloat16, "cuda_cores"),
+    (300, 1, 16, torch.bfloat16, "short_keys"),
+]
+
+
+@pytest.mark.parametrize("lq,lk,d,dtype,want", FAMILY_CASES)
+def test_family_choice(lq, lk, d, dtype, want):
+    assert family(lq, lk, d, dtype) == want
+
+
+def test_chunk_plan():
+    """C from the SM count: 15 chunks of 10-11 tiles for the adapter's 36
+    bh at 10,239 and 16,383 rows on 132 SMs, one for the 65-row prompt
+    self-attention; every chunk within MAX_CHUNK_TILES tiles, no chunk
+    empty, and the scratch a few MB at the adapter's shapes."""
+    assert long_side_chunks(36, 10239, 132) == 15
+    assert long_side_chunks(36, 16383, 132) == 15
+    assert long_side_chunks(36, 65, 132) == 1
+    for bh in (1, 3, 36, 500):
+        for length in (1, 64, 65, 1000, 10239, 16383, 300000):
+            for sms in (1, 132):
+                chunks = long_side_chunks(bh, length, sms)
+                tiles = -(-length // TILE)
+                assert 1 <= chunks <= tiles
+                assert -(-tiles // chunks) <= MAX_CHUNK_TILES
+                assert all(_chunk(c, chunks, length)[1]
+                           > _chunk(c, chunks, length)[0]
+                           for c in range(chunks))
+    for lq, lk in ((10239, 65), (65, 10239), (16383, 65), (65, 16383)):
+        fam = family(lq, lk, 16, torch.bfloat16)
+        chunks = long_side_chunks(36, max(lq, lk), 132)
+        for backward in (False, True):
+            mb = workspace_floats(fam, backward, 36, lq, lk, chunks) * 4e-6
+            assert mb <= 8.0
+    assert workspace_floats("short_keys", False, 36, 10239, 65, 15) == 0
+    assert workspace_floats("short_queries", False, 36, 65, 10239, 15) == \
+        36 * 15 * 80 * 18
+    assert workspace_floats("short_keys", True, 36, 10239, 65, 15) == \
+        36 * 15 * 80 * 32
+    assert workspace_floats("cuda_cores", True, 48, 1024, 1024, 1) == 0

@@ -40,6 +40,7 @@ from modaltune_tpu_torch.ops import dilated_fused as df
 from modaltune_tpu_torch.ops.dilated import dilated_attention_stats
 from modaltune_tpu_torch.train import batch_to_device
 
+from _one_thread import one_thread  # noqa: F401  (one CPU thread a test)
 from test_torch_slice import _batch, _config
 from test_torch_train import _t, train_step_against_jax
 

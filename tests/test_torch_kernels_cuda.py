@@ -16,7 +16,12 @@ K2b, K4b), and for K1f's statistics; for the per-branch dilated kernels
 (K3f, K3b) the same geometries, a length no segment divides, sixteen heads
 at ratio 16, one valid key and a dead batch row, compact pieces included;
 for the fused GELU -> LayerNorm (K5f, K5b) widths that do and do not take
-4-wide loads, one row, and parameters in either dtype. For the ALiBi
+4-wide loads, one row, and parameters in either dtype. For the key-bias
+kernels' short-side family (bf16, D = 16): the adapter's five shapes, a
+short side of every remainder mod 16 on either side, chunks without a
+valid key, a dead bh, bit-equal reruns, the C entry points' family choice
+against the CPU's copy of the rule, and the CUDA-core kernels still serving
+the other bf16 shapes. For the ALiBi
 kernels (K4) besides:
 a sequence of the cls token and a handful of cells, masks and coordinates
 that differ between batch rows (the kernels index them by ``bh / H``), and
@@ -290,6 +295,141 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError):                    # stats of other branches
         dm.mega_dilated_attention_backward_cuda(
             w, w, w, None, w, stats, bo, (8, 16), (1, 2), 0.25)
+
+
+# ---------------------------------------------------------------------------
+# K2: the short-side family (bf16, D = 16, one side of at most 128 rows)
+# ---------------------------------------------------------------------------
+
+# (BH, Lq, Lk, masked keys, a bh with every key masked). The five adapter
+# shapes of the models, then a short side of every remainder mod 16 (1, 8,
+# 17, 31, 65, 80, 99, 113, 128) on either side against a long side that ends
+# one row into a tile, masked keys as (start, stop) fractions of Lk: the
+# tail, or a stretch wide enough that whole chunks hold no valid key.
+SHORT_SIDE_CASES = [
+    (36, 10239, 65, None, False),
+    (36, 65, 10239, (9000 / 10239, 1.0), True),
+    (36, 65, 65, None, False),
+    (36, 16383, 65, None, False),
+    (36, 65, 16383, (14583 / 16383, 1.0), True),
+    *((3, 333, n, (0.75, 1.0), True) for n in (1, 8, 17, 31, 65, 80, 99, 113,
+                                              128)),
+    *((3, n, 333, (0.75, 1.0), True) for n in (1, 8, 17, 31, 65, 80, 99, 113,
+                                              128)),
+    (2, 65, 5000, (0.2, 0.6), False),        # dead chunks between live ones
+    (64, 8191, 65, (0.5, 1.0), True),        # chunks of many tiles
+    (64, 65, 8191, (0.3, 0.9), True),
+]
+SHORT_SIDE_IDS = [f"{bh}x{lq}x{lk}" + ("-dead" if dead else "")
+                  for bh, lq, lk, _, dead in SHORT_SIDE_CASES]
+
+
+def _short_side_inputs(bh, lq, lk, masked, dead, device, seed=30):
+    q, k, v = (_randn((bh, n, 16), seed + i, device, torch.bfloat16)
+               for i, n in enumerate((lq, lk, lk)))
+    dout = _randn((bh, lq, 16), seed + 3, device, torch.bfloat16)
+    valid = torch.ones(bh, lk, dtype=torch.bool)
+    if masked is not None:
+        valid[:, int(masked[0] * lk):int(masked[1] * lk)] = False
+        valid[:, 0] = True
+    if dead:
+        valid[0] = False
+    bias = torch.where(valid, 0.0, NEG_INF).to(device)
+    return q, k, v, dout, bias, valid.to(device)
+
+
+@pytest.mark.parametrize("bh,lq,lk,masked,dead", SHORT_SIDE_CASES,
+                         ids=SHORT_SIDE_IDS)
+def test_short_side_kernels_match_plain(cuda_device, bh, lq, lk, masked,
+                                        dead):
+    """Forward and backward of the short-side family against the plain
+    versions in fp32 on the same bf16 values, at ``chip_smoke.py``'s
+    limits, out also relative to itself (``check_out``) and the gradients
+    from the kernel's out and lse against the plain ones from the plain
+    forward's (its out in bf16, as the plain path keeps it), so that a
+    fault of the forward reaches them; a dead bh
+    gives exactly 0 and NEG_INF and zero gradients, a masked key exactly
+    zero dk and dv, and a rerun the same bits."""
+    assert fa.card_family(lq, lk, 16, torch.bfloat16) != "cuda_cores"
+    q, k, v, dout, bias, valid = _short_side_inputs(bh, lq, lk, masked, dead,
+                                                    cuda_device)
+    out, lse = fa.flash_attention_cuda(q, k, v, bias, 0.25)
+    want_o, want_l = fa.flash_attention_reference(q.float(), k.float(),
+                                                  v.float(), bias, 0.25)
+    grads = fa.flash_attention_backward_cuda(q, k, v, bias, out, lse, dout,
+                                             0.25)
+    want = fa.flash_attention_backward_reference(
+        q.float(), k.float(), v.float(), bias, want_o.to(q.dtype).float(),
+        want_l, dout.float(), 0.25)
+    again = (*fa.flash_attention_cuda(q, k, v, bias, 0.25),
+             *fa.flash_attention_backward_cuda(q, k, v, bias, out, lse, dout,
+                                               0.25))
+    torch.cuda.synchronize()
+    chip_smoke.compare(out, want_o, 1.6e-2, "out")
+    chip_smoke.check_out(out, want_o, "bfloat16", "out")
+    assert (lse - want_l).abs().max().item() <= 1e-2
+    for name, g_, w_ in zip(("dq", "dk", "dv"), grads, want):
+        _assert_grad_readings(g_, w_, dout, name)
+    assert ((grads[1] == 0) | valid[..., None]).all()      # masked keys
+    assert ((grads[2] == 0) | valid[..., None]).all()
+    if dead:
+        assert (out[0] == 0).all() and (lse[0] == NEG_INF).all()
+        assert all((g_[0] == 0).all() for g_ in grads)
+    for a, b in zip((out, lse, *grads), again):
+        assert torch.equal(a, b)
+
+
+def test_short_side_family_matches_the_entry_points(cuda_device):
+    """The C entry points, which choose the family on the card
+    (:func:`fa.card_family`), and the CPU's copy of their rule
+    (:func:`fa.family`) agree."""
+    for lq, lk, d, dtype in [(10239, 65, 16, torch.bfloat16),
+                             (65, 10239, 16, torch.bfloat16),
+                             (65, 65, 16, torch.bfloat16),
+                             (129, 129, 16, torch.bfloat16),
+                             (128, 4000, 16, torch.bfloat16),
+                             (4000, 128, 16, torch.bfloat16),
+                             (1024, 1024, 48, torch.bfloat16),
+                             (10239, 65, 16, torch.float32),
+                             (65, 10239, 48, torch.bfloat16)]:
+        assert fa.card_family(lq, lk, d, dtype) == fa.family(lq, lk, d, dtype)
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", [(4, 300, 200, 16), (6, 130, 129, 16),
+                                        (4, 200, 65, 48)])
+def test_cuda_core_family_serves_other_bf16_shapes(cuda_device, bh, lq, lk,
+                                                   d):
+    """bf16 outside the short-side domain (both sides long, D = 48) runs
+    the CUDA-core kernels, at the bf16 limits."""
+    assert fa.card_family(lq, lk, d, torch.bfloat16) == "cuda_cores"
+    q, k, v = (_randn((bh, n, d), 40 + i, cuda_device, torch.bfloat16)
+               for i, n in enumerate((lq, lk, lk)))
+    dout = _randn((bh, lq, d), 43, cuda_device, torch.bfloat16)
+    g = torch.Generator().manual_seed(44)
+    valid = torch.rand(bh, lk, generator=g) > 0.12
+    valid[-1] = False
+    bias = torch.where(valid, 0.0, NEG_INF).to(cuda_device)
+    out, lse = fa.flash_attention_cuda(q, k, v, bias, d ** -0.5)
+    want_o, want_l = fa.flash_attention_reference(q.float(), k.float(),
+                                                  v.float(), bias)
+    grads = fa.flash_attention_backward_cuda(q, k, v, bias, out, lse, dout,
+                                             d ** -0.5)
+    want = fa.flash_attention_backward_reference(
+        q.float(), k.float(), v.float(), bias, out.float(), lse, dout.float())
+    torch.cuda.synchronize()
+    chip_smoke.compare(out, want_o, 1.6e-2, "out")
+    chip_smoke.check_out(out, want_o, "bfloat16", "out")
+    assert (lse - want_l).abs().max().item() <= 1e-2
+    for name, g_, w_ in zip(("dq", "dk", "dv"), grads, want):
+        _assert_grad_readings(g_, w_, dout, name)
+
+
+def test_short_side_wrapper_raises_on_a_misaligned_tensor(cuda_device):
+    base = _randn((2 * 300 * 16 + 4,), 45, cuda_device, torch.bfloat16)
+    q = base[4:].view(2, 300, 16)                   # 8 bytes off
+    k = _randn((2, 65, 16), 46, cuda_device, torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, k)
 
 
 # ---------------------------------------------------------------------------
