@@ -96,14 +96,19 @@ def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-           and not getattr(e, "is_user_annotation", False)]
-    check(bool(dev), "the profiler recorded no device time")
+    # now and then a profiler run hands back no device events at all (seen
+    # at a K2 shape): profile again, up to three times
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+        if dev:
+            break
+    check(bool(dev), "the profiler recorded no device time in three runs")
     return sum(e.time_range.end - e.time_range.start for e in dev) \
         / iters / 1e3
 
@@ -543,21 +548,24 @@ def phase_k1b(device, shape=(3, 10240, 16, 48), n_valid=9000,
               segments=None, ratios=None, iters=10, plain_iters=3):
     """K1f's statistics and the K1 backward kernel against the plain
     version (its statistics, and autograd through it) at the train step's
-    shape, fp32 and bf16, on the valid rows; times in bf16. The plain
-    side keeps every branch's fp32 probabilities for its backward, 6.9 GB
-    at this shape (35.9 M query-key pairs per (batch, head) x 48 x 4
-    bytes), about 15 GB at its peak: it fits at B = 3."""
+    shape, fp32 and bf16, on the valid rows, by the max-scaled bound and by
+    :func:`check_grads`; in bf16 a rerun bit-equal, the family the C entry
+    points chose, times on both clocks. The plain side keeps every branch's
+    fp32 probabilities for its backward, 6.9 GB at this shape (35.9 M
+    query-key pairs per (batch, head) x 48 x 4 bytes), about 15 GB at its
+    peak: it fits at B = 3."""
     import torch
     from modaltune_tpu_torch.configs import SlideEncoderConfig
     from modaltune_tpu_torch.ops.dilated import (dilated_attention,
                                                  dilated_attention_stats)
     dm = importlib.import_module("modaltune_tpu_torch.ops.dilated_mega")
+    df = importlib.import_module("modaltune_tpu_torch.ops.dilated_fused")
     if segments is None:
         ln = SlideEncoderConfig().longnet()
         segments, ratios = ln.segment_lengths, ln.dilated_ratios
     b, length, h, d = shape
     scale = d ** -0.5
-    res = {}
+    res = {"family": df.card_bwd_family(d, torch.bfloat16)}
     for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 3e-2)):
         (q, k, v, dmix), mask = k1_inputs(shape, n_valid, device, dtype,
                                           seed=9, n_tensors=4)
@@ -566,8 +574,12 @@ def phase_k1b(device, shape=(3, 10240, 16, 48), n_valid=9000,
         dmix = dmix * valid
         out, stats, branch_out = dm.mega_dilated_attention_cuda(
             q, k, v, mask, segments, ratios, scale, with_stats=True)
-        got = dm.mega_dilated_attention_backward_cuda(
-            q, k, v, mask, dmix, stats, branch_out, segments, ratios, scale)
+
+        def kernel():
+            return dm.mega_dilated_attention_backward_cuda(
+                q, k, v, mask, dmix, stats, branch_out, segments, ratios,
+                scale)
+        got = kernel()
         torch.cuda.synchronize()
         tag = f"K1b {str(dtype)[6:]}"
         want_st = dilated_attention_stats(q.float(), k.float(), v.float(),
@@ -580,40 +592,50 @@ def phase_k1b(device, shape=(3, 10240, 16, 48), n_valid=9000,
         leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
         torch.autograd.backward(dilated_attention(*leaves, **kw),
                                 dmix.float())
-        want = [x.grad for x in leaves]
+        want = [x.grad * valid for x in leaves]
         del leaves
         torch.cuda.synchronize()
-        err = max(compare(gt * valid, wt * valid, tol, f"{tag} {gn}")
-                  for gn, gt, wt in zip(("dq", "dk", "dv"), got, want))
-        res[str(dtype)[6:]] = dict(grad_err=err, stats_err=st_err)
-        del want
+        got_valid = [gt * valid for gt in got]
+        err = max(compare(gt, wt, tol, f"{tag} {gn}")
+                  for gn, gt, wt in zip(("dq", "dk", "dv"), got_valid, want))
+        rel, row = check_grads(("dq", "dk", "dv"), got_valid, want, dmix,
+                               str(dtype)[6:], tag)
+        res[str(dtype)[6:]] = dict(grad_err=err, stats_err=st_err, rel=rel,
+                                   row=row)
+        del want, got_valid
         if dtype == torch.bfloat16:
-            res["ms"] = time_ms(
-                lambda: dm.mega_dilated_attention_backward_cuda(
-                    q, k, v, mask, dmix, stats, branch_out, segments, ratios,
-                    scale), iters)
+            check(all(torch.equal(a, b_) for a, b_ in zip(kernel(), got)),
+                  f"{tag}: a rerun gives other bits")
+            res["ms"] = time_ms(kernel, iters)
+            res["device_ms"] = device_ms(kernel, iters=3, warmup=1)
             res["fwd_stats_ms"] = time_ms(
                 lambda: dm.mega_dilated_attention_cuda(
                     q, k, v, mask, segments, ratios, scale, with_stats=True),
                 iters)
             leaves = [x.detach().requires_grad_() for x in (q, k, v)]
             plain_out = dilated_attention(*leaves, **kw)
-            res["plain_ms"] = time_ms(lambda: torch.autograd.grad(
-                plain_out, leaves, dmix, retain_graph=True), plain_iters,
-                warmup=1)
+
+            def plain():
+                return torch.autograd.grad(plain_out, leaves, dmix,
+                                           retain_graph=True)
+            res["plain_ms"] = time_ms(plain, plain_iters, warmup=1)
+            res["plain_device_ms"] = device_ms(plain, iters=1, warmup=0)
             del plain_out, leaves
             res["bound_ms"], res["bound_by"] = attention_bound(
                 b * dilated_pairs(length, n_valid, segments, ratios, h), d,
                 (q, k, v, mask, dmix, stats, branch_out, *got), backward=True)
         torch.cuda.empty_cache()
+    f32, bf = res["float32"], res["bfloat16"]
     print(f"K1b B={b} L={length} H={h} D={d} valid={n_valid}: "
-          f"stats fp32 {res['float32']['stats_err']:.3e} "
-          f"bf16 {res['bfloat16']['stats_err']:.3e} | dq/dk/dv fp32 "
-          f"{res['float32']['grad_err']:.3e} bf16 "
-          f"{res['bfloat16']['grad_err']:.3e} | K1b kernel {res['ms']:.4f} "
-          f"ms, plain backward {res['plain_ms']:.4f} ms, bound "
-          f"{res['bound_ms']:.5f} ms ({res['bound_by']}), no library call | "
-          f"K1f with stats {res['fwd_stats_ms']:.4f} ms", flush=True)
+          f"stats fp32 {f32['stats_err']:.3e} bf16 {bf['stats_err']:.3e} | "
+          f"dq/dk/dv fp32 {f32['grad_err']:.3e}, rel-L2 {f32['rel']:.3e}, "
+          f"row-scaled {f32['row']:.3e} | bf16 ({res['family']}) "
+          f"{bf['grad_err']:.3e}, rel-L2 {bf['rel']:.3e}, row-scaled "
+          f"{bf['row']:.3e}, rerun bit-equal | K1b kernel {res['ms']:.4f} "
+          f"ms (card {res['device_ms']:.4f}), plain backward "
+          f"{res['plain_ms']:.4f} ms (card {res['plain_device_ms']:.4f}), "
+          f"bound {res['bound_ms']:.5f} ms ({res['bound_by']}), no library "
+          f"call | K1f with stats {res['fwd_stats_ms']:.4f} ms", flush=True)
     return res
 
 
@@ -718,8 +740,9 @@ def phase_k3b(device, shape=(3, 10240, 16, 48), n_valid=9000,
               segments=None, ratios=None, iters=10, plain_iters=3):
     """K3b against autograd through the plain version at the train step's
     shape, fp32 and bf16, on the valid rows, by the max-scaled bound and
-    by :func:`check_grads`; times in bf16, K1b's on the same inputs beside
-    them. The plain side's memory is :func:`phase_k1b`'s."""
+    by :func:`check_grads`; in bf16 a rerun bit-equal, the family, times
+    on both clocks, K1b's on the same inputs beside them. The plain side's
+    memory is :func:`phase_k1b`'s."""
     import torch
     from modaltune_tpu_torch.configs import SlideEncoderConfig
     from modaltune_tpu_torch.ops.dilated import dilated_attention
@@ -730,7 +753,7 @@ def phase_k3b(device, shape=(3, 10240, 16, 48), n_valid=9000,
         segments, ratios = ln.segment_lengths, ln.dilated_ratios
     b, length, h, d = shape
     scale = d ** -0.5
-    res = {}
+    res = {"family": df.card_bwd_family(d, torch.bfloat16)}
     for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 3e-2)):
         (q, k, v, dmix), mask = k1_inputs(shape, n_valid, device, dtype,
                                           seed=9, n_tensors=4)
@@ -739,8 +762,12 @@ def phase_k3b(device, shape=(3, 10240, 16, 48), n_valid=9000,
         kw = dict(segment_lengths=segments, dilated_ratios=ratios, mask=mask)
         _, out_c, lse_c, stats = df.fused_dilated_attention_cuda(
             q, k, v, mask, segments, ratios, scale)
-        got = df.fused_dilated_attention_backward_cuda(
-            q, k, v, mask, dmix, out_c, lse_c, stats, segments, ratios, scale)
+
+        def kernel():
+            return df.fused_dilated_attention_backward_cuda(
+                q, k, v, mask, dmix, out_c, lse_c, stats, segments, ratios,
+                scale)
+        got = kernel()
         torch.cuda.synchronize()
         tag = f"K3b {str(dtype)[6:]}"
         leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
@@ -757,10 +784,10 @@ def phase_k3b(device, shape=(3, 10240, 16, 48), n_valid=9000,
         res[str(dtype)[6:]] = dict(grad_err=err, rel=rel, row=row)
         del want, got_valid
         if dtype == torch.bfloat16:
-            res["ms"] = time_ms(
-                lambda: df.fused_dilated_attention_backward_cuda(
-                    q, k, v, mask, dmix, out_c, lse_c, stats, segments,
-                    ratios, scale), iters)
+            check(all(torch.equal(a, b_) for a, b_ in zip(kernel(), got)),
+                  f"{tag}: a rerun gives other bits")
+            res["ms"] = time_ms(kernel, iters)
+            res["device_ms"] = device_ms(kernel, iters=3, warmup=1)
             res["bound_ms"], res["bound_by"] = attention_bound(
                 b * dilated_pairs(length, n_valid, segments, ratios, h), d,
                 (q, k, v, mask, dmix, out_c, lse_c, stats, *got),
@@ -777,19 +804,23 @@ def phase_k3b(device, shape=(3, 10240, 16, 48), n_valid=9000,
             del k1_stats, k1_branch_out
             leaves = [x.detach().requires_grad_() for x in (q, k, v)]
             plain_out = dilated_attention(*leaves, **kw)
-            res["plain_ms"] = time_ms(lambda: torch.autograd.grad(
-                plain_out, leaves, dmix, retain_graph=True), plain_iters,
-                warmup=1)
+
+            def plain():
+                return torch.autograd.grad(plain_out, leaves, dmix,
+                                           retain_graph=True)
+            res["plain_ms"] = time_ms(plain, plain_iters, warmup=1)
+            res["plain_device_ms"] = device_ms(plain, iters=1, warmup=0)
             del plain_out, leaves
         torch.cuda.empty_cache()
     f32, bf = res["float32"], res["bfloat16"]
     print(f"K3b B={b} L={length} H={h} D={d} valid={n_valid}: dq/dk/dv fp32 "
           f"{f32['grad_err']:.3e}, rel-L2 {f32['rel']:.3e}, row-scaled "
-          f"{f32['row']:.3e} | bf16 {bf['grad_err']:.3e}, rel-L2 "
-          f"{bf['rel']:.3e}, row-scaled {bf['row']:.3e} | kernel "
-          f"{res['ms']:.4f} ms, plain backward {res['plain_ms']:.4f} ms, "
-          f"bound {res['bound_ms']:.5f} ms ({res['bound_by']}), no library "
-          f"call | K1b on the same inputs {res['k1b_ms']:.4f} ms | saved for "
+          f"{f32['row']:.3e} | bf16 ({res['family']}) {bf['grad_err']:.3e}, "
+          f"rel-L2 {bf['rel']:.3e}, row-scaled {bf['row']:.3e}, rerun "
+          f"bit-equal | kernel {res['ms']:.4f} ms (card "
+          f"{res['device_ms']:.4f}), plain backward {res['plain_ms']:.4f} ms "
+          f"(card {res['plain_device_ms']:.4f}), bound {res['bound_ms']:.5f} "
+          f"ms ({res['bound_by']}), no library call | K1b on the same inputs {res['k1b_ms']:.4f} ms | saved for "
           f"the backward besides q, k, v: {res['saved_bytes'] / 1e6:.1f} MB "
           f"(K1: {res['k1_saved_bytes'] / 1e6:.1f} MB)", flush=True)
     return res
@@ -1690,7 +1721,8 @@ def main() -> int:
         device, card=card, build_kw=TITAN, compare_kw=TITAN_2047,
         tag="titan train")
 
-    def kernel(key, name, replaces, err, res, by_shape=None, source=None):
+    def kernel(key, name, replaces, err, res, by_shape=None, source=None,
+               family=None):
         """One entry of the kernels line. launches: the sum over the six
         paths' runs (by_path: each run's own count, every count set to 0
         just before it); max_abs_err: the largest output or gradient error
@@ -1699,7 +1731,9 @@ def main() -> int:
         N = 16,384 (by_shape: the others, with K2's kernel family and
         the kernel's and library call's time on the card alone).
         source: the file of the kernels the paths run, ``name``.cu unless
-        given."""
+        given; family: the kernel family of the paths' bf16 calls, as the
+        C entry points chose it where they export their rule (K1b, K2,
+        K3b), else ``family``; device_ms where measured."""
         by_path = {p: r["launches"][key] for p, r in paths.items()}
         out = {"name": name, "route": "cuda",
                "source": f"modaltune_tpu_torch/csrc/{source or name}.cu",
@@ -1708,6 +1742,9 @@ def main() -> int:
                "ms": res["ms"], "plain_ms": res["plain_ms"],
                "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
                "library_ms": res.get("library_ms")}
+        out["family"] = res.get("family", family)
+        if "device_ms" in res:
+            out["device_ms"] = res["device_ms"]
         if by_shape:
             out["by_shape"] = {
                 shape: {k: r.get(k) for k in ("ms", "plain_ms", "bound_ms",
@@ -1724,10 +1761,13 @@ def main() -> int:
     kernels = [
         kernel("K1f", "dilated_attention_fwd",
                "modaltune_tpu/ops/dilated_mega.py:426",
-               max(k1[dt] for dt in both), k1),
+               max(k1[dt] for dt in both), k1, family="cuda_cores"),
+        # bf16 at D = 48 runs the tensor-core core of dilated_bwd_wgmma.cu
+        # behind each route's prep; fp32 the CUDA-core kernels of `name`.cu
         kernel("K1b", "dilated_attention_bwd",
                "modaltune_tpu/ops/dilated_mega.py:641",
-               max(k1b[dt]["grad_err"] for dt in both), k1b),
+               max(k1b[dt]["grad_err"] for dt in both), k1b,
+               source="dilated_bwd_wgmma"),
         # the adapter's calls run the short-side family (bf16, D = 16);
         # fp32 and the d48 shape the CUDA-core kernels of `name`.cu
         kernel("K2f", "flash_attention_fwd",
@@ -1741,22 +1781,23 @@ def main() -> int:
         kernel("K3f", "dilated_fused_fwd",
                "modaltune_tpu/ops/dilated_fused.py:468",
                max(max(k3[dt][e] for e in ("out_err", "piece_err", "mix_err"))
-                   for dt in both), k3),
+                   for dt in both), k3, family="cuda_cores"),
         kernel("K3b", "dilated_fused_bwd",
                "modaltune_tpu/ops/dilated_fused.py:676",
-               max(k3b[dt]["grad_err"] for dt in both), k3b),
+               max(k3b[dt]["grad_err"] for dt in both), k3b,
+               source="dilated_bwd_wgmma"),
         kernel("K4f", "alibi_attention_fwd",
                "modaltune_tpu/ops/alibi_flash.py:552",
                max(r[dt]["out_err"] for r in k4.values() for dt in both),
-               k4["n16384"], k4),
+               k4["n16384"], k4, family="wgmma"),
         kernel("K4b", "alibi_attention_bwd",
                "modaltune_tpu/ops/alibi_flash.py:594",
                max(r[dt] for r in k4b.values() for dt in both),
-               k4b["n16384"], k4b),
+               k4b["n16384"], k4b, family="wgmma"),
         kernel("K5f", "gelu_ln_fwd", "modaltune_tpu/ops/gelu_ln.py:169",
-               max(k5[dt] for dt in both), k5),
+               max(k5[dt] for dt in both), k5, family="cuda_cores"),
         kernel("K5b", "gelu_ln_bwd", "modaltune_tpu/ops/gelu_ln.py:189",
-               max(k5b[dt] for dt in both), k5b),
+               max(k5b[dt] for dt in both), k5b, family="cuda_cores"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -18,21 +18,34 @@
 // and dq, dk, dv sum dS_b k * scale, dS_b^T q * scale and P_b^T dO_b over
 // the branches, each over the branch's (segment, residue class) pairs.
 //
-// Three launches: a prep kernel writes w_b and delta_b (B*H, n_br, L) fp32 (a
-// warp per (token, head), lanes over D); the dq kernel's block owns 64 query
-// positions of one (batch, head) and streams, for every branch and segment,
-// the residue-class keys, exactly as the forward does; the dk/dv kernel's
-// block owns 64 key positions and streams their queries, found with the same
-// segment and phase arithmetic (for_each_segment): the relation "shares a
-// segment and a residue class mod r" is symmetric. No atomics.
+// Two families (mt::dilated_bwd_family), neither with atomics:
+// * bf16 at D = 48 (GigaPath's head size), four launches: a prep kernel
+//   (dilated_bwd_compact_prep_kernel) reads the saved planes at every
+//   compact row of ops/dilated_fused.py's layout (dilated_fused_common.cuh)
+//   and writes lse_b, w_b and delta_b there, (B, H, M) fp32 each; the
+//   tensor-core gradient core (dilated_bwd_wgmma.cu), which K3b shares,
+//   writes fp32 compact dq, dk, dv, (B, H, M, D) each; K3b's combine sums
+//   them into dense gradients in branch order. Compact tiles keep every row
+//   of a 64-row wgmma tile in one (segment, head group); this kernel's own
+//   blocks of 64 consecutive positions hold 64 / r rows of a branch of
+//   ratio r, 2.56 times the products at GigaPath's shape.
+// * fp32 at any D and bf16 at any other D, three launches on CUDA cores: a
+//   prep kernel writes w_b and delta_b (B*H, n_br, L) fp32 (a warp per
+//   (token, head), lanes over D); the dq kernel's block owns 64 query
+//   positions of one (batch, head) and streams, for every branch and
+//   segment, the residue-class keys, exactly as the forward does; the dk/dv
+//   kernel's block owns 64 key positions and streams their queries, found
+//   with the same segment and phase arithmetic (for_each_segment): the
+//   relation "shares a segment and a residue class mod r" is symmetric.
 //
 // What bounds it on the H100: five products per query-key pair (q.k and
 // dmix.v in both kernels, dS k in one, P dmix and dS q in the other) against
-// the forward's two, all on CUDA cores in fp32, so like the forward it is
-// bound by fp32 issue and shared-memory bandwidth (attention_bwd_common.cuh).
-// Reading o_b instead of recomputing it saves the two products a recompute
-// would cost. Tensor cores are left for later work.
+// the forward's two: operations (dilated_bwd_wgmma.cu). The CUDA-core
+// kernels run them in fp32 and are bound by the fp32 instruction rate and
+// shared-memory bandwidth (attention_bwd_common.cuh). Reading o_b instead
+// of recomputing it saves the two products a recompute would cost.
 #include "attention_bwd_common.cuh"
+#include "dilated_bwd_wgmma.cuh"
 
 namespace mt {
 
@@ -66,6 +79,77 @@ dilated_bwd_prep_kernel(const T* __restrict__ dmix, const float* __restrict__ st
       delta[(bh * nbr + bi) * L + l] = wb * dot;
     }
   }
+}
+
+// K1's saved planes at every compact row (a warp per row, lanes over D):
+// lse_b (NEG_INF where the row is no real position), w_b and delta_b, each
+// (B, H, M) fp32; the tensor-core family's prep.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dilated_bwd_compact_prep_kernel(const T* __restrict__ dmix, const float* __restrict__ stats,
+                                const T* __restrict__ branch_out, float* __restrict__ lse_c,
+                                float* __restrict__ w_c, float* __restrict__ delta_c, int B, int L,
+                                int H, int D, FusedBranches fb) {
+  const size_t gw = (static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  const int M = fb.off[fb.n], nbr = fb.n;
+  if (gw >= static_cast<size_t>(B) * H * M) return;
+  const int row = static_cast<int>(gw % M);
+  const size_t bh = gw / M;
+  const int h = static_cast<int>(bh % H);
+  const int b = static_cast<int>(bh / H);
+  int bi = 0;
+  while (bi + 1 < nbr && row >= fb.off[bi + 1]) ++bi;
+  const int m = fb.m[bi], sl = fb.seg[bi], r = fb.ratio[bi];
+  const int seg = (row - fb.off[bi]) / m, l = (row - fb.off[bi]) - seg * m;
+  const int o = l * r + head_group(h, H, r);
+  const int p = seg * sl + o;
+  float lse = kNegInf, wb = 0.f, delta = 0.f;
+  if (o < sl && p < L) {
+    const float* st = stats + bh * (nbr + 2) * L + p;
+    lse = st[static_cast<size_t>(bi) * L];
+    if (lse > kMaskThreshold) {
+      const float mm = st[static_cast<size_t>(nbr) * L];
+      const float z = st[static_cast<size_t>(nbr + 1) * L];
+      wb = expf(lse - mm) / (z > 0.f ? z : 1.f);
+      const size_t off = ((static_cast<size_t>(b) * L + p) * H + h) * D;
+      const T* ob = branch_out + static_cast<size_t>(bi) * B * L * H * D + off;
+      float dot = 0.f;
+      for (int d = lane; d < D; d += 32) dot += to_float<T>(dmix[off + d]) * to_float<T>(ob[d]);
+      delta = wb * warp_sum(dot);
+    }
+  }
+  if (lane == 0) {
+    lse_c[gw] = lse;
+    w_c[gw] = wb;
+    delta_c[gw] = delta;
+  }
+}
+
+// The tensor-core family: the compact prep, the gradient core, the combine.
+// rows_c (3, B, H, M) and grads_c (3, B, H, M, 48) fp32 scratch.
+inline cudaError_t launch_dilated_bwd_wgmma(const void* q, const void* k, const void* v,
+                                            const unsigned char* mask, const void* dmix,
+                                            const float* stats, const void* branch_out,
+                                            float* rows_c, float* grads_c, void* dq, void* dk,
+                                            void* dv, int B, int L, int H, float scale,
+                                            const FusedBranches& fb, cudaStream_t stream) {
+  const size_t rows = static_cast<size_t>(B) * H * fb.off[fb.n];
+  float *lse_c = rows_c, *w_c = rows_c + rows, *delta_c = rows_c + 2 * rows;
+  float *dq_c = grads_c, *dk_c = grads_c + rows * kWgmmaBwdD, *dv_c = dk_c + rows * kWgmmaBwdD;
+  dilated_bwd_compact_prep_kernel<__nv_bfloat16>
+      <<<static_cast<unsigned>((rows + kWarps - 1) / kWarps), kThreads, 0, stream>>>(
+          static_cast<const __nv_bfloat16*>(dmix), stats,
+          static_cast<const __nv_bfloat16*>(branch_out), lse_c, w_c, delta_c, B, L, H,
+          kWgmmaBwdD, fb);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const DilatedBwdCore c{q, k, v, dmix, mask, lse_c, w_c, delta_c, dq_c, dk_c, dv_c,
+                         B, L, H, scale};
+  err = launch_dilated_bwd_core(c, fb, stream);
+  if (err != cudaSuccess) return err;
+  return launch_compact_combine(dq_c, dk_c, dv_c, dq, dk, dv, B, L, H, kWgmmaBwdD, fb, 1,
+                                stream);
 }
 
 // Per-branch row statistics of query positions pos(i), i < n, into the
@@ -249,12 +333,17 @@ cudaError_t dispatch_dilated_bwd(int DP, const void* q, const void* k, const voi
 
 // q/k/v/dmix/dq/dk/dv (B, L, H, D) contiguous in one dtype (0 = float32,
 // 1 = bfloat16); mask (B, L) bytes (1 = valid) or null; stats and branch_out
-// as the forward wrote them; w and delta (B*H, n_branches, L) fp32 scratch.
-// Returns a cudaError_t; 0 means all three kernels were launched.
+// as the forward wrote them. fp32 scratch by family (mt::dilated_bwd_family):
+// the CUDA-core kernels take w and delta (B*H, n_branches, L); the
+// tensor-core family (bf16, D = 48; q/k/v/dmix 16-byte aligned) takes rows_c
+// (3, B, H, M) and grads_c (3, B, H, M, D), M the compact rows of a head
+// (ops/dilated_fused.py::total_rows). Returns a cudaError_t; 0 means every
+// kernel was launched.
 extern "C" int mt_dilated_attention_bwd(const void* q, const void* k, const void* v,
                                         const void* mask, const void* dmix, const void* stats,
-                                        const void* branch_out, void* w, void* delta, void* dq,
-                                        void* dk, void* dv, int B, int L, int H, int D,
+                                        const void* branch_out, void* w, void* delta,
+                                        void* rows_c, void* grads_c, void* dq, void* dk,
+                                        void* dv, int B, int L, int H, int D,
                                         const int* segments, const int* ratios, int n_branches,
                                         float scale, int dtype, void* stream) {
   const int DP = mt::padded_head_dim(D);
@@ -271,6 +360,16 @@ extern "C" int mt_dilated_attention_bwd(const void* q, const void* k, const void
   const auto s = static_cast<cudaStream_t>(stream);
   const auto m = static_cast<const unsigned char*>(mask);
   const auto st = static_cast<const float*>(stats);
+  if (mt::dilated_bwd_family(D, dtype) == 1) {
+    mt::FusedBranches fb{};
+    if (rows_c == nullptr || grads_c == nullptr ||
+        !mt::make_fused_branches(fb, L, segments, ratios, n_branches))
+      return cudaErrorInvalidValue;
+    return mt::launch_dilated_bwd_wgmma(q, k, v, m, dmix, st, branch_out,
+                                        static_cast<float*>(rows_c), static_cast<float*>(grads_c),
+                                        dq, dk, dv, B, L, H, scale, fb, s);
+  }
+  if (w == nullptr || delta == nullptr) return cudaErrorInvalidValue;
   const auto wf = static_cast<float*>(w);
   const auto df = static_cast<float*>(delta);
   if (dtype == 0)

@@ -1,0 +1,576 @@
+// The gradient core of the dilated attention backward on Hopper's tensor
+// cores: bf16 at head dimension 48, K1b's and K3b's family for GigaPath.
+//
+// Replaces, with the prep and combine kernels of the two routes
+// (dilated_attention_bwd.cu, dilated_fused_bwd.cu):
+// modaltune_tpu/ops/dilated_mega.py::_mega_bwd_call and
+// modaltune_tpu/ops/dilated_fused.py::_branch_bwd_call (the Pallas TPU
+// kernels that recompute every branch's probabilities from its lse).
+//
+// Semantics, per compact row i (query) and j (key) of one (batch, head,
+// branch, segment), with lse_i, w_i and delta_i from the prep
+// (dilated_bwd_wgmma.cuh):
+//   P_ij  = exp(q_i.k_j * scale - lse_i)   (0 for a masked key, a row that
+//                                            is no real position, or a row
+//                                            whose lse is NEG_INF)
+//   dS_ij = P_ij (w_i dmix_i.v_j - delta_i)
+//   dq_i = scale sum_j dS_ij k_j,  dk_j = scale sum_i dS_ij q_i,
+//   dv_j = sum_i P_ij w_i dmix_i
+// written as fp32 compact rows. The plain oracle is
+// ops/dilated_fused.py::fused_branch_backward_reference.
+//
+// What bounds it on the H100: operations. The five products are 10 pairs D
+// flop, 0.669 ms at the train step's (3, 10240, 16, 48) and 9,000 valid
+// tokens; one exp2 a pair in each kernel on the special-function units and
+// the elementwise work of P and dS run beside them.
+//
+// The design (the card's choices, each a decision of this file):
+// * Two kernels without atomics, so two runs give the same bits: the dq
+//   kernel's block owns 64 query rows and streams the key tiles, the dk/dv
+//   kernel's owns 64 key rows and streams the query tiles, both on K4's
+//   frame: W = 1 consumer warpgroup running every product as wgmma with fp32
+//   accumulation, one producer warpgroup filling a ring of four stages,
+//   setmaxnreg moving registers to the consumer, two blocks an SM. q.k and
+//   dmix.v run in both kernels (seven products for five), as in K4b.
+// * Compact tiles (K3's geometry, locate_tile): every row of a block's tile
+//   belongs to its (segment, head group), so a 64-row wgmma tile wastes
+//   products only at a group's ragged end; K1b reaches the same tiles
+//   through its own prep, where its old blocks of 64 consecutive positions
+//   held 64 / r rows of a branch.
+// * D = 48, rows of 96 bytes: a tile is three 16-column slabs of 64 rows x
+//   32 bytes in the 32-byte swizzle (wgmma layout type 3). A slab is one
+//   16-deep step of the K-major products (S = q k^T, dP = dmix v^T: three
+//   steps) and the three slabs are the N = 48 of the MN-major ones
+//   (dq += dS k, dk += dS^T q, dv += P^T dmix: m64n48k16, four steps over
+//   the 64 rows). Nothing is padded to 64 columns: a neighbouring head's
+//   columns never enter a product.
+// * Gathered rows: row l of a group is position first + r l, so a tile's
+//   rows lie r H 96 bytes apart. The producer warpgroup gathers them with
+//   16-byte cp.async (two threads a row, three chunks each, zero-filled past
+//   the group's n_real, so the gather needs no L % r and never reads past
+//   a tensor), each thread's copies arriving on the stage's barrier when
+//   they land (cp.async.mbarrier.arrive.noinc); a TMA map per ratio would
+//   need L % r == 0 and 20 maps in the kernel parameters. The consumer
+//   fences the async proxy before its products read the stage.
+// * Masking without a branch: a key's term is 0 or -inf (its tile's mask
+//   bytes, read by the producer), a query's lse2 is lse log2(e) or +1e30,
+//   and P = exp2(s scale log2(e) + key term - lse2) is exactly 0 for every
+//   masked pair. The dq kernel's producer ORs each key tile's validity over
+//   its warpgroup (bar.red.or) and never loads a dead tile; a sentinel stage
+//   ends the stream. A dk/dv block whose own keys are all masked writes
+//   zeros and leaves (the combine reads those rows).
+// * Precision: P and dS enter every product that takes them as two bf16
+//   parts, hi = bf16(x) and lo = bf16(x - hi) (two wgmma into one fp32
+//   accumulator), as K2's short-side kernels take them: rounded once, the
+//   CPU emulation (tests/test_torch_dilated_bwd.py) reads 1.4x the
+//   gradients' own bf16 rounding, and in K2 sums over thousands of rows
+//   that cancel failed the train step's per-tensor gradient gate.
+#include "attention_wgmma.cuh"
+#include "dilated_bwd_wgmma.cuh"
+
+namespace mt {
+namespace dwg {
+
+constexpr int kD = kWgmmaBwdD;
+constexpr int kTile = 64;
+constexpr int kSlabBytes = kTile * 32;        // 64 rows x 16 bf16
+constexpr int kTileBytes = 3 * kSlabBytes;    // 6 KB
+constexpr int kRowBytes = kTile * 4;          // 64 floats
+constexpr int kStages = 4;
+constexpr int kThreads = 2 * wg::kWgThreads;  // consumer, producer
+// The descriptor strides of a tile (bytes): 8-row groups of a slab, and
+// slab to slab along N in the MN-major products.
+constexpr uint32_t kGroupBytes = 8 * 32;
+static_assert(kTileBytes == kTile * kD * 2, "three slabs of 16 columns");
+
+// Byte offset of 16-byte chunk c (0..5) of row `row` in a tile: slab c / 2,
+// the pair of chunks of a 32-byte row swapped on rows 4..7 of every 8 (the
+// 32-byte swizzle; a tile's base is 1024-byte aligned).
+__device__ __forceinline__ int chunk_offset(int row, int c) {
+  return (c >> 1) * kSlabBytes + row * 32 + (((c & 1) ^ ((row >> 2) & 1)) << 4);
+}
+
+__device__ __forceinline__ uint64_t desc32(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((wg::smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (uint64_t{3} << 62);
+}
+
+// d (64 x 64) = A B^T over the 48 columns, A and B tiles (K-major): one
+// 16-deep step a slab.
+__device__ __forceinline__ void product_ss(float (&d)[32], const unsigned char* a,
+                                           const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < 3; ++kk)
+    wg::wgmma_ss(d, desc32(a + kk * kSlabBytes, 16, kGroupBytes),
+                 desc32(b + kk * kSlabBytes, 16, kGroupBytes), kk > 0);
+}
+
+#define MT_WGMMA_D24                                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23}"
+#define MT_WGMMA_D24_ARGS(d)                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),     \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),          \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),       \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+
+// d (64 x 48) += A B for one 16-deep step: A a register fragment, B rows
+// [16 kk, + 16) of a tile, MN-major (its 48 columns are N).
+__device__ __forceinline__ void wgmma_rs48(float (&d)[24], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 " MT_WGMMA_D24
+      ", {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n"
+      "}\n"
+      : MT_WGMMA_D24_ARGS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// d += X B over the 64 rows of tile B, X the packed register tile.
+__device__ __forceinline__ void product_rs(float (&d)[24], const uint32_t (&x)[16],
+                                           const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs48(d, x + 4 * kk, desc32(b + kk * 16 * 32, kSlabBytes, kGroupBytes));
+}
+
+template <int N>
+__device__ __forceinline__ void hold(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A 64 x 64 fp32 register tile as two bf16 A-fragment tiles, hi = bf16(x)
+// and lo = bf16(x - hi).
+__device__ __forceinline__ void pack_parts(uint32_t (&hi)[16], uint32_t (&lo)[16],
+                                           const float (&x)[32]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+    const float2 hf = __bfloat1622float2(h);
+    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[i] = wg::pack_bf16(x[2 * i] - hf.x, x[2 * i + 1] - hf.y);
+  }
+}
+
+// ---- the gather --------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(wg::smem_u32(dst)),
+               "l"(src), "r"(fill ? 16 : 0)
+               : "memory");
+}
+// One arrival on `bar` when this thread's earlier cp.async have landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   wg::smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// Shared memory written by the generic proxy (cp.async, stores), read next
+// by wgmma (the async proxy).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// OR of x over the 128 threads of the producer warpgroup (named barrier 1).
+__device__ __forceinline__ bool producer_any(bool x) {
+  uint32_t r;
+  asm volatile(
+      "{\n"
+      ".reg .pred p, q;\n"
+      "setp.ne.u32 p, %1, 0;\n"
+      "bar.red.or.pred q, 1, 128, p;\n"
+      "selp.u32 %0, 1, 0, q;\n"
+      "}\n"
+      : "=r"(r)
+      : "r"(static_cast<uint32_t>(x))
+      : "memory");
+  return r != 0;
+}
+
+// The block's tile and its (segment, group), with the addressing of rows.
+struct Group {
+  FusedTile ft;
+  int b, h, L, H;
+  size_t rows0;  // compact row of the group's row 0 in a (B, H, M) tensor
+  __device__ Group(const FusedBranches& fb, int tile, int h_, int b_, int L_, int H_)
+      : ft(locate_tile(fb, tile, h_, H_, L_)), b(b_), h(h_), L(L_), H(H_) {
+    rows0 = (static_cast<size_t>(b) * H + h) * fb.off[fb.n] + ft.seg_row;
+  }
+  __device__ int position(int l) const { return ft.first + ft.r * l; }
+  // element offset of row l of a (B, L, H, 48) tensor at this head
+  __device__ size_t element(int l) const {
+    return ((static_cast<size_t>(b) * L + position(l)) * H + h) * kD;
+  }
+  __device__ bool valid_key(int l, const unsigned char* mask) const {
+    return l < ft.n_real && (mask == nullptr || mask[static_cast<size_t>(b) * L + position(l)]);
+  }
+  __device__ int n_tiles() const { return (ft.n_real + kTile - 1) / kTile; }
+};
+
+// Producer thread p (0..127) gathers its three chunks of row p / 2 of group
+// tile t of x0 and x1 into tiles d0 and d1; rows past n_real arrive as zeros.
+__device__ __forceinline__ void gather(unsigned char* d0, unsigned char* d1, const bf16* x0,
+                                       const bf16* x1, const Group& g, int t, int p) {
+  const int i = p >> 1, l = t * kTile + i;
+  const bool real = l < g.ft.n_real;
+  const size_t e = real ? g.element(l) : 0;
+#pragma unroll
+  for (int cc = 0; cc < 3; ++cc) {
+    const int c = 3 * (p & 1) + cc;
+    cp_async16(d0 + chunk_offset(i, c), x0 + e + 8 * c, real);
+    cp_async16(d1 + chunk_offset(i, c), x1 + e + 8 * c, real);
+  }
+}
+
+// Shared memory of either kernel: the own tiles (two), then the ring; a
+// stage is two tiles and 1 KB of per-row terms; then the barriers.
+struct Smem {
+  static constexpr int kTerms = 2 * kTileBytes;   // floats of the stage's rows
+  static constexpr int kEnd = kTerms + 3 * kRowBytes;
+  static constexpr int kStageBytes = 2 * kTileBytes + 1024;
+  static constexpr int kRing = 2 * kTileBytes;
+  static constexpr int kBars = kRing + kStages * kStageBytes;
+  static constexpr size_t bytes = 1024 + kBars + (2 * kStages + 1) * sizeof(uint64_t);
+  static_assert(kEnd + 16 <= kStageBytes && kStageBytes % 1024 == 0, "stage layout");
+  static_assert(2 * bytes <= 232448, "two blocks an SM");
+};
+
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
+                                          ~static_cast<uintptr_t>(1023));
+}
+
+__device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty,
+                                              uint64_t* own_bar) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      // every producer thread arrives twice: its copies landed, its stores
+      wg::mbar_init(full + s, 2 * wg::kWgThreads);
+      wg::mbar_init(empty + s, 4);
+    }
+    wg::mbar_init(own_bar, wg::kWgThreads);
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// The end of a stream: one more stage whose flag is set.
+__device__ __forceinline__ void producer_finish(unsigned char* ring, uint64_t* full,
+                                                uint64_t* empty, wg::Ring r, int p) {
+  wg::mbar_wait(empty + r.stage, r.phase ^ 1);
+  if (p == 0) *reinterpret_cast<int*>(ring + r.stage * Smem::kStageBytes + Smem::kEnd) = 1;
+  cp_async_arrive(full + r.stage);
+  wg::mbar_arrive(full + r.stage);
+  cp_async_wait_all();
+}
+
+// Zero rows [0, n) of compact fp32 gradients at `dst`, the whole block.
+__device__ __forceinline__ void zero_rows(float* dst, int n) {
+  for (int i = threadIdx.x; i < n * kD / 4; i += kThreads)
+    reinterpret_cast<float4*>(dst)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+__device__ __forceinline__ float lse2_of(float lse, bool real) {
+  return real && lse > kMaskThreshold ? lse * wg::kLog2e : 1e30f;
+}
+
+// Rows row0 + lane's row and + 8 of a 64 x 48 accumulator times `scale`
+// into fp32 compact rows at `dst` (row stride 48), rows below n only; rows
+// past the group's n_real hold zeros (their P is 0).
+__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[24], int n,
+                                           float scale, const wg::Lane& ln) {
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = ln.row0 + 8 * rr;
+    if (row >= n) continue;
+    float* d = dst + static_cast<size_t>(row) * kD + ln.col0;
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      const int i = 4 * j + 2 * rr;
+      *reinterpret_cast<float2*>(d + 8 * j) = make_float2(acc[i] * scale, acc[i + 1] * scale);
+    }
+  }
+}
+
+// dq: the own rows are queries (their q and dmix tiles stay in shared
+// memory; lse2, w and delta in registers); a stage is a live key tile's k and
+// v with the keys' terms (0 or -inf).
+__global__ void __launch_bounds__(kThreads, 2)
+dilated_bwd_dq_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dmix,
+                         const unsigned char* __restrict__ mask, const float* __restrict__ lse_c,
+                         const float* __restrict__ w_c, const float* __restrict__ delta_c,
+                         float* __restrict__ dq_c, int L, int H, float scale, FusedBranches fb) {
+  const Group g(fb, blockIdx.x, blockIdx.y, blockIdx.z, L, H);
+  const int n_own = g.ft.n_own, n_rows = g.ft.n_rows;
+  if (n_own == 0) {   // no real row: zeros, as every row past n_real gets
+    zero_rows(dq_c + (g.rows0 + g.ft.l0) * kD, n_rows);
+    return;
+  }
+  extern __shared__ unsigned char smem_dwg[];
+  unsigned char* smem = aligned_smem(smem_dwg);
+  unsigned char* ring = smem + Smem::kRing;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Smem::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* own_bar = empty + kStages;
+  const int own_t = g.ft.l0 / kTile;
+  init_barriers(full, empty, own_bar);
+
+  if (threadIdx.x >= wg::kWgThreads) {
+    // ---- producer warpgroup: gathers the own tiles, then the live key tiles
+    wg::give_registers<wg::kProducerRegs>();
+    const int p = threadIdx.x - wg::kWgThreads;
+    gather(smem, smem + kTileBytes, q, dmix, g, own_t, p);
+    cp_async_arrive(own_bar);
+    wg::Ring r;
+    for (int t = 0; t < g.n_tiles(); ++t) {
+      const int l = t * kTile + (p >> 1);
+      const bool valid = g.valid_key(l, mask);
+      if (!producer_any(valid)) continue;   // a dead key tile is never loaded
+      wg::mbar_wait(empty + r.stage, r.phase ^ 1);
+      unsigned char* st = ring + r.stage * Smem::kStageBytes;
+      gather(st, st + kTileBytes, k, v, g, t, p);
+      cp_async_arrive(full + r.stage);
+      if ((p & 1) == 0)
+        reinterpret_cast<float*>(st + Smem::kTerms)[p >> 1] = valid ? 0.f : -INFINITY;
+      if (p == 0) *reinterpret_cast<int*>(st + Smem::kEnd) = 0;
+      wg::mbar_arrive(full + r.stage);
+      r.advance<kStages>();
+    }
+    producer_finish(ring, full, empty, r, p);
+    return;
+  }
+
+  // ---- consumer warpgroup: own query rows [l0, l0 + 64) of the group ----
+  wg::take_registers<wg::kConsumerRegs<1>>();
+  const wg::Lane ln;
+  const float scale2 = scale * wg::kLog2e;
+  float lse2[2], w[2], delta[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = ln.row0 + 8 * rr;
+    const bool real = row < n_own;
+    const size_t at = g.rows0 + g.ft.l0 + (real ? row : 0);
+    lse2[rr] = lse2_of(lse_c[at], real);
+    w[rr] = real ? w_c[at] : 0.f;
+    delta[rr] = real ? delta_c[at] : 0.f;
+  }
+  float acc[24];
+#pragma unroll
+  for (int i = 0; i < 24; ++i) acc[i] = 0.f;
+  wg::mbar_wait(own_bar, 0);
+  fence_async_shared();
+
+  wg::Ring r;
+  for (;;) {
+    wg::mbar_wait(full + r.stage, r.phase);
+    const unsigned char* st = ring + r.stage * Smem::kStageBytes;
+    if (*reinterpret_cast<const volatile int*>(st + Smem::kEnd) != 0) break;
+    fence_async_shared();
+    float s[32], dp[32];
+    wg::wgmma_fence();
+    product_ss(s, smem, st);                                  // q k^T
+    product_ss(dp, smem + kTileBytes, st + kTileBytes);       // dmix v^T
+    wg::wgmma_commit();
+    const float* kterm = reinterpret_cast<const float*>(st + Smem::kTerms);
+    wg::wgmma_wait<0>();
+    wg::hold(s);
+    wg::hold(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 kt = *reinterpret_cast<const float2*>(kterm + 8 * j + ln.col0);
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int i = 4 * j + 2 * rr;
+        const float p0 = wg::exp2_fast(fmaf(s[i], scale2, kt.x - lse2[rr]));
+        const float p1 = wg::exp2_fast(fmaf(s[i + 1], scale2, kt.y - lse2[rr]));
+        s[i] = p0 * fmaf(w[rr], dp[i], -delta[rr]);          // dS
+        s[i + 1] = p1 * fmaf(w[rr], dp[i + 1], -delta[rr]);
+      }
+    }
+    uint32_t hi[16], lo[16];
+    pack_parts(hi, lo, s);
+    wg::wgmma_fence();
+    product_rs(acc, hi, st);                                  // dq += dS k
+    product_rs(acc, lo, st);
+    wg::wgmma_commit();
+    wg::wgmma_wait<0>();
+    hold(acc);
+    wg::hold(hi);
+    wg::hold(lo);
+    if (threadIdx.x % 32 == 0) wg::mbar_arrive(empty + r.stage);
+    r.advance<kStages>();
+  }
+  store_rows(dq_c + (g.rows0 + g.ft.l0) * kD, acc, n_rows, scale, ln);
+}
+
+// dk/dv: the own rows are keys (their k and v tiles stay in shared memory,
+// their terms in registers); a stage is a query tile's q and dmix with the
+// queries' lse2, w and delta (+1e30, 0, 0 past n_real). The score tiles are
+// computed transposed, S^T = k q^T and dP^T = v dmix^T, and P^T w and dS^T
+// feed dv += (P^T w) dmix and dk += dS^T q from registers.
+__global__ void __launch_bounds__(kThreads, 2)
+dilated_bwd_dkv_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dmix,
+                          const unsigned char* __restrict__ mask, const float* __restrict__ lse_c,
+                          const float* __restrict__ w_c, const float* __restrict__ delta_c,
+                          float* __restrict__ dk_c, float* __restrict__ dv_c, int L, int H,
+                          float scale, FusedBranches fb) {
+  const Group g(fb, blockIdx.x, blockIdx.y, blockIdx.z, L, H);
+  const int n_rows = g.ft.n_rows;
+  const size_t own_row0 = g.rows0 + g.ft.l0;
+  const int own_t = g.ft.l0 / kTile;
+  const bool live =
+      __syncthreads_or(threadIdx.x < kTile && g.valid_key(g.ft.l0 + threadIdx.x, mask));
+  if (!live) {   // every own key masked, or no real row: zero gradients
+    zero_rows(dk_c + own_row0 * kD, n_rows);
+    zero_rows(dv_c + own_row0 * kD, n_rows);
+    return;
+  }
+  extern __shared__ unsigned char smem_dwg[];
+  unsigned char* smem = aligned_smem(smem_dwg);
+  unsigned char* ring = smem + Smem::kRing;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Smem::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* own_bar = empty + kStages;
+  init_barriers(full, empty, own_bar);
+
+  if (threadIdx.x >= wg::kWgThreads) {
+    // ---- producer warpgroup: the own tiles, then every query tile ----
+    wg::give_registers<wg::kProducerRegs>();
+    const int p = threadIdx.x - wg::kWgThreads;
+    gather(smem, smem + kTileBytes, k, v, g, own_t, p);
+    cp_async_arrive(own_bar);
+    wg::Ring r;
+    for (int t = 0; t < g.n_tiles(); ++t) {
+      wg::mbar_wait(empty + r.stage, r.phase ^ 1);
+      unsigned char* st = ring + r.stage * Smem::kStageBytes;
+      gather(st, st + kTileBytes, q, dmix, g, t, p);
+      cp_async_arrive(full + r.stage);
+      if ((p & 1) == 0) {
+        const int l = t * kTile + (p >> 1);
+        const bool real = l < g.ft.n_real;
+        const size_t at = g.rows0 + (real ? l : 0);
+        float* terms = reinterpret_cast<float*>(st + Smem::kTerms) + (p >> 1);
+        terms[0] = lse2_of(lse_c[at], real);
+        terms[kTile] = real ? w_c[at] : 0.f;
+        terms[2 * kTile] = real ? delta_c[at] : 0.f;
+      }
+      if (p == 0) *reinterpret_cast<int*>(st + Smem::kEnd) = 0;
+      wg::mbar_arrive(full + r.stage);
+      r.advance<kStages>();
+    }
+    producer_finish(ring, full, empty, r, p);
+    return;
+  }
+
+  // ---- consumer warpgroup: own key rows [l0, l0 + 64) of the group ----
+  wg::take_registers<wg::kConsumerRegs<1>>();
+  const wg::Lane ln;
+  const float scale2 = scale * wg::kLog2e;
+  float kterm[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr)
+    kterm[rr] = g.valid_key(g.ft.l0 + ln.row0 + 8 * rr, mask) ? 0.f : -INFINITY;
+  float acc_dk[24], acc_dv[24];
+#pragma unroll
+  for (int i = 0; i < 24; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  wg::mbar_wait(own_bar, 0);
+  fence_async_shared();
+
+  wg::Ring r;
+  for (;;) {
+    wg::mbar_wait(full + r.stage, r.phase);
+    const unsigned char* st = ring + r.stage * Smem::kStageBytes;
+    if (*reinterpret_cast<const volatile int*>(st + Smem::kEnd) != 0) break;
+    fence_async_shared();
+    float s[32], dp[32];
+    wg::wgmma_fence();
+    product_ss(s, smem, st);                                  // k q^T
+    product_ss(dp, smem + kTileBytes, st + kTileBytes);       // v dmix^T
+    wg::wgmma_commit();
+    const float* terms = reinterpret_cast<const float*>(st + Smem::kTerms);
+    wg::wgmma_wait<0>();
+    wg::hold(s);
+    wg::hold(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + ln.col0;
+      const float2 ls = *reinterpret_cast<const float2*>(terms + c);
+      const float2 ww = *reinterpret_cast<const float2*>(terms + kTile + c);
+      const float2 dl = *reinterpret_cast<const float2*>(terms + 2 * kTile + c);
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int i = 4 * j + 2 * rr;
+        const float p0 = wg::exp2_fast(fmaf(s[i], scale2, kterm[rr] - ls.x));
+        const float p1 = wg::exp2_fast(fmaf(s[i + 1], scale2, kterm[rr] - ls.y));
+        dp[i] = p0 * fmaf(ww.x, dp[i], -dl.x);               // dS^T
+        dp[i + 1] = p1 * fmaf(ww.y, dp[i + 1], -dl.y);
+        s[i] = p0 * ww.x;                                    // P^T w
+        s[i + 1] = p1 * ww.y;
+      }
+    }
+    uint32_t p_hi[16], p_lo[16], ds_hi[16], ds_lo[16];
+    pack_parts(p_hi, p_lo, s);
+    pack_parts(ds_hi, ds_lo, dp);
+    wg::wgmma_fence();
+    product_rs(acc_dv, p_hi, st + kTileBytes);                // dv += P^T w dmix
+    product_rs(acc_dv, p_lo, st + kTileBytes);
+    product_rs(acc_dk, ds_hi, st);                            // dk += dS^T q
+    product_rs(acc_dk, ds_lo, st);
+    wg::wgmma_commit();
+    wg::wgmma_wait<0>();
+    hold(acc_dv);
+    hold(acc_dk);
+    wg::hold(p_hi);
+    wg::hold(p_lo);
+    wg::hold(ds_hi);
+    wg::hold(ds_lo);
+    if (threadIdx.x % 32 == 0) wg::mbar_arrive(empty + r.stage);
+    r.advance<kStages>();
+  }
+  store_rows(dk_c + own_row0 * kD, acc_dk, n_rows, scale, ln);
+  store_rows(dv_c + own_row0 * kD, acc_dv, n_rows, 1.f, ln);
+}
+
+}  // namespace dwg
+
+cudaError_t launch_dilated_bwd_core(const DilatedBwdCore& a, const FusedBranches& fb,
+                                    cudaStream_t stream) {
+  using dwg::Smem;
+  const void* rows[4] = {a.q, a.k, a.v, a.dmix};   // cp.async reads 16-byte chunks
+  for (const void* p : rows)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorMisalignedAddress;
+  auto kq = dwg::dilated_bwd_dq_wg_kernel;
+  auto kkv = dwg::dilated_bwd_dkv_wg_kernel;
+  cudaError_t err = allow_smem(kq, Smem::bytes);
+  if (err == cudaSuccess) err = allow_smem(kkv, Smem::bytes);
+  if (err != cudaSuccess) return err;
+  const auto q = static_cast<const bf16*>(a.q);
+  const auto k = static_cast<const bf16*>(a.k);
+  const auto v = static_cast<const bf16*>(a.v);
+  const auto dm = static_cast<const bf16*>(a.dmix);
+  const dim3 grid(fb.tile0[fb.n], a.H, a.B);
+  kq<<<grid, dwg::kThreads, Smem::bytes, stream>>>(q, k, v, dm, a.mask, a.lse_c, a.w_c,
+                                                    a.delta_c, a.dq_c, a.L, a.H, a.scale, fb);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  kkv<<<grid, dwg::kThreads, Smem::bytes, stream>>>(q, k, v, dm, a.mask, a.lse_c, a.w_c,
+                                                     a.delta_c, a.dk_c, a.dv_c, a.L, a.H,
+                                                     a.scale, fb);
+  return cudaGetLastError();
+}
+
+}  // namespace mt
+
+// Which kernels serve a dilated attention backward (mt::dilated_bwd_family):
+// 0 the CUDA-core kernels, 1 the tensor-core core of this file.
+extern "C" int mt_dilated_bwd_family(int D, int dtype) {
+  return mt::dilated_bwd_family(D, dtype);
+}

@@ -24,22 +24,29 @@
 // the forward's saved out_b instead (the two are equal).
 //
 // Four launches, each covering every branch: a prep kernel writes w and delta
-// per compact row (a warp per row, lanes over D); the dq kernel's block owns
-// 64 compact query rows of one (segment, head group) and streams its keys;
-// the dk/dv kernel's block owns 64 compact key rows and streams its queries;
-// the combine kernel (a warp per (token, head)) adds the branches' rows. The
-// compact gradients are an fp32 scratch, so bf16 inputs round each dense
-// gradient once. No atomics.
+// per compact row (a warp per row, lanes over D); a dq kernel whose block
+// owns 64 compact query rows of one (segment, head group) and streams its
+// keys; a dk/dv kernel whose block owns 64 compact key rows and streams its
+// queries; the combine kernel (a warp per (token, head)) adds the branches'
+// rows. The compact gradients are an fp32 scratch, so bf16 inputs round each
+// dense gradient once. No atomics. Two families of the dq and dk/dv kernels
+// (mt::dilated_bwd_family):
+// * bf16 at D = 48 (GigaPath's head size): the tensor-core gradient core of
+//   dilated_bwd_wgmma.cu, which K1b shares;
+// * fp32 at any D and bf16 at any other D: the CUDA-core kernels below.
 //
-// What bounds it on the H100: as K1b (dilated_attention_bwd.cu), five
-// products per query-key pair on CUDA cores in fp32: the fp32 arithmetic
-// rate and shared-memory bandwidth. The prep and combine kernels are bound by device
-// memory (about 2 and 12.5 times q's bytes).
+// What bounds it on the H100: operations, five products per query-key pair
+// (dilated_bwd_wgmma.cu). The CUDA-core kernels run them in fp32 and are
+// bound by that arithmetic rate and shared-memory bandwidth. The prep and
+// combine kernels are bound by device memory (about 2 and 12.5 times q's
+// bytes).
 //
-// What the design does about it: q/k/v/dmix are read in place with strided
-// rows; every row of a block's tile takes part in every streamed tile; the
-// gradient update is K1b's and K2b's (attention_bwd_common.cuh).
-#include "dilated_fused_common.cuh"
+// What the CUDA-core kernels do about it: q/k/v/dmix are read in place with
+// strided rows; every row of a block's tile takes part in every streamed
+// tile; the gradient update is K1b's and K2b's (attention_bwd_common.cuh).
+#include <type_traits>
+
+#include "dilated_bwd_wgmma.cuh"
 
 namespace mt {
 
@@ -247,6 +254,18 @@ struct FusedBwdArgs {
   float scale;
 };
 
+template <typename T>
+cudaError_t launch_fused_bwd_prep(const FusedBwdArgs& a, const FusedBranches& fb,
+                                  cudaStream_t stream) {
+  const size_t warps = static_cast<size_t>(a.B) * a.H * fb.off[fb.n];
+  fused_bwd_prep_kernel<T><<<static_cast<unsigned>((warps + kWarps - 1) / kWarps), kThreads, 0,
+                             stream>>>(
+      static_cast<const T*>(a.dmix), static_cast<const T*>(a.out_c), a.lse_c, a.m_in, a.z_in,
+      a.w_c, a.delta_c, a.B, a.L, a.H, a.D, fb);
+  return cudaGetLastError();
+}
+
+// The CUDA-core family: prep, dq, dk/dv, combine.
 template <int DP, typename T>
 cudaError_t launch_fused_bwd(const FusedBwdArgs& a, const FusedBranches& fb,
                              cudaStream_t stream) {
@@ -254,20 +273,12 @@ cudaError_t launch_fused_bwd(const FusedBwdArgs& a, const FusedBranches& fb,
   auto kkv = fused_bwd_dkv_kernel<DP, T>;
   cudaError_t err = allow_smem(kq, BwdPlan<DP, false>::bytes);
   if (err == cudaSuccess) err = allow_smem(kkv, BwdPlan<DP, true>::bytes);
+  if (err == cudaSuccess) err = launch_fused_bwd_prep<T>(a, fb, stream);
   if (err != cudaSuccess) return err;
   const auto tq = static_cast<const T*>(a.q);
   const auto tk = static_cast<const T*>(a.k);
   const auto tv = static_cast<const T*>(a.v);
   const auto tdm = static_cast<const T*>(a.dmix);
-  const auto blocks_for = [](size_t warps) {
-    return static_cast<unsigned>((warps + kWarps - 1) / kWarps);
-  };
-  const size_t compact_rows = static_cast<size_t>(a.B) * a.H * fb.off[fb.n];
-  fused_bwd_prep_kernel<T><<<blocks_for(compact_rows), kThreads, 0, stream>>>(
-      tdm, static_cast<const T*>(a.out_c), a.lse_c, a.m_in, a.z_in, a.w_c, a.delta_c, a.B, a.L,
-      a.H, a.D, fb);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
   const dim3 grid(fb.tile0[fb.n], a.H, a.B);
   kq<<<grid, kThreads, BwdPlan<DP, false>::bytes, stream>>>(
       tq, tk, tv, a.mask, tdm, a.lse_c, a.w_c, a.delta_c, a.dq_c, a.L, a.H, a.D, a.scale, fb);
@@ -278,10 +289,23 @@ cudaError_t launch_fused_bwd(const FusedBwdArgs& a, const FusedBranches& fb,
       a.scale, fb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t slots = static_cast<size_t>(a.B) * a.L * a.H;
-  fused_combine_kernel<T><<<blocks_for(slots), kThreads, 0, stream>>>(
-      a.dq_c, a.dk_c, a.dv_c, static_cast<T*>(a.dq), static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.B, a.L, a.H, a.D, fb);
+  return launch_compact_combine(a.dq_c, a.dk_c, a.dv_c, a.dq, a.dk, a.dv, a.B, a.L, a.H, a.D,
+                                fb, std::is_same<T, float>::value ? 0 : 1, stream);
+}
+
+cudaError_t launch_compact_combine(const float* dq_c, const float* dk_c, const float* dv_c,
+                                   void* dq, void* dk, void* dv, int B, int L, int H, int D,
+                                   const FusedBranches& fb, int dtype, cudaStream_t stream) {
+  const size_t slots = static_cast<size_t>(B) * L * H;
+  const unsigned blocks = static_cast<unsigned>((slots + kWarps - 1) / kWarps);
+  if (dtype == 0)
+    fused_combine_kernel<float><<<blocks, kThreads, 0, stream>>>(
+        dq_c, dk_c, dv_c, static_cast<float*>(dq), static_cast<float*>(dk),
+        static_cast<float*>(dv), B, L, H, D, fb);
+  else
+    fused_combine_kernel<__nv_bfloat16><<<blocks, kThreads, 0, stream>>>(
+        dq_c, dk_c, dv_c, static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), B, L, H, D, fb);
   return cudaGetLastError();
 }
 
@@ -298,12 +322,26 @@ cudaError_t dispatch_fused_bwd(int DP, const FusedBwdArgs& a, const FusedBranche
   }
 }
 
+// The tensor-core family: prep, the gradient core, combine.
+inline cudaError_t launch_fused_bwd_wgmma(const FusedBwdArgs& a, const FusedBranches& fb,
+                                          cudaStream_t s) {
+  cudaError_t err = launch_fused_bwd_prep<__nv_bfloat16>(a, fb, s);
+  if (err != cudaSuccess) return err;
+  const DilatedBwdCore c{a.q,    a.k,     a.v,       a.dmix, a.mask, a.lse_c, a.w_c, a.delta_c,
+                         a.dq_c, a.dk_c,  a.dv_c,    a.B,    a.L,    a.H,     a.scale};
+  err = launch_dilated_bwd_core(c, fb, s);
+  if (err != cudaSuccess) return err;
+  return launch_compact_combine(a.dq_c, a.dk_c, a.dv_c, a.dq, a.dk, a.dv, a.B, a.L, a.H, a.D,
+                                fb, 1, s);
+}
+
 }  // namespace mt
 
 // q/k/v/dmix/dq/dk/dv (B, L, H, D) contiguous in one dtype (0 = float32,
 // 1 = bfloat16); mask (B, L) bytes (1 = valid) or null; out_c (B, H, M, D),
 // lse_c (B, H, M), m_in and z_in (B, H, L) as the forward wrote them; w_c and
-// delta_c (B, H, M) and dq_c, dk_c, dv_c (B, H, M, D) fp32 scratch.
+// delta_c (B, H, M) and dq_c, dk_c, dv_c (B, H, M, D) fp32 scratch; the
+// tensor-core family (bf16 at D = 48) takes q/k/v/dmix 16-byte aligned.
 // Returns a cudaError_t; 0 means all four kernels were launched.
 extern "C" int mt_dilated_fused_bwd(const void* q, const void* k, const void* v, const void* mask,
                                     const void* dmix, const void* out_c, const void* lse_c,
@@ -324,6 +362,7 @@ extern "C" int mt_dilated_fused_bwd(const void* q, const void* k, const void* v,
                            static_cast<float*>(dk_c), static_cast<float*>(dv_c), dq, dk, dv,
                            B, L, H, D, scale};
   const auto s = static_cast<cudaStream_t>(stream);
+  if (mt::dilated_bwd_family(D, dtype) == 1) return mt::launch_fused_bwd_wgmma(a, fb, s);
   if (dtype == 0) return mt::dispatch_fused_bwd<float>(DP, a, fb, s);
   if (dtype == 1) return mt::dispatch_fused_bwd<__nv_bfloat16>(DP, a, fb, s);
   return cudaErrorInvalidValue;

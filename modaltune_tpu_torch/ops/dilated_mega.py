@@ -4,9 +4,12 @@ Counterpart of ``modaltune_tpu/ops/dilated_mega.py::mega_dilated_attention``:
 same signature and semantics as :func:`.dilated.dilated_attention`. A CUDA
 tensor goes to the hand-written Hopper kernels: ``csrc/dilated_attention_fwd.cu``
 (K1f: every branch and the branch mix in one launch, q/k/v read in place)
-and, for the gradient, ``csrc/dilated_attention_bwd.cu`` (K1b). A CPU
-tensor goes to the plain version :func:`.dilated.dilated_attention`, and
-autograd differentiates it.
+and, for the gradient, ``csrc/dilated_attention_bwd.cu`` (K1b), in the family
+that the C entry points choose (:func:`.dilated_fused.card_bwd_family`): at
+bf16 and D = 48 a prep onto K3's compact rows, the tensor-core gradient core
+``csrc/dilated_bwd_wgmma.cu`` that K3b shares, and K3b's combine; else
+CUDA-core kernels. A CPU tensor goes to the plain version
+:func:`.dilated.dilated_attention`, and autograd differentiates it.
 
 When the forward is recorded for autograd, K1f also writes what K1b needs:
 ``stats (B*H, n_br + 2, L)`` fp32 (each branch's lse, then
@@ -115,8 +118,13 @@ def mega_dilated_attention_backward_cuda(
         branch_out: torch.Tensor, segment_lengths: Sequence[int],
         dilated_ratios: Sequence[int], scale: float
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch K1b (the mix weights and ``delta_b``, then dq, then dk/dv) on
-    ``q``'s device and current stream; returns ``(dq, dk, dv)``."""
+    """Launch K1b on ``q``'s device and current stream: in the tensor-core
+    family the compact prep, the dq and dk/dv kernels of the gradient core
+    and the combine, over fp32 compact scratch (``(3, B, H, M)`` row
+    statistics and ``(3, B, H, M, D)`` gradients, 567 MB at the train
+    step's shape); in the CUDA-core family the mix weights and ``delta_b``,
+    then dq, then dk/dv. Returns ``(dq, dk, dv)``."""
+    from .dilated_fused import card_bwd_family, total_rows
     global BWD_LAUNCHES
     segs, ratios, c_segs, c_ratios = _branch_args(segment_lengths,
                                                   dilated_ratios)
@@ -132,9 +140,14 @@ def mega_dilated_attention_backward_cuda(
             branch_out.shape != (n,) + tuple(q.shape) or \
             branch_out.dtype != q.dtype or not branch_out.is_contiguous():
         raise ValueError("stats/branch_out do not match the forward's")
-    # per-branch mix weight w_b and delta_b, (B*H, n_br, L) fp32 each
-    wd = torch.empty((2, b * h, n, length), dtype=torch.float32,
-                     device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    wd = rows_c = grads_c = None
+    if card_bwd_family(d, q.dtype) == "wgmma":
+        rows = total_rows(length, segs, ratios)
+        rows_c = torch.empty((3, b, h, rows), **f32)
+        grads_c = torch.empty((3, b, h, rows, d), **f32)
+    else:   # per-branch mix weight w_b and delta_b, (B*H, n_br, L) each
+        wd = torch.empty((2, b * h, n, length), **f32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = load_library()
     with torch.cuda.device(q.device):
@@ -142,7 +155,9 @@ def mega_dilated_attention_backward_cuda(
         err = lib.mt_dilated_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
             dmix.data_ptr(), stats.data_ptr(), branch_out.data_ptr(),
-            wd[0].data_ptr(), wd[1].data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            *((None, None) if wd is None else (wd[0].data_ptr(),
+                                              wd[1].data_ptr())),
+            _ptr(rows_c), _ptr(grads_c), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), b, length, h, d, c_segs, c_ratios, n, float(scale),
             _DTYPE_CODES[q.dtype], stream)
     check_launch(err, "mt_dilated_attention_bwd")

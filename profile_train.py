@@ -30,6 +30,10 @@ import os
 import sys
 import time
 
+# Kernels that K1b and K3b share (the tensor-core gradient core of
+# csrc/dilated_bwd_wgmma.cu and the combine): they count to the backward of
+# the route that is profiled.
+SHARED_BWD = ("dilated_bwd_dq_wg", "dilated_bwd_dkv_wg", "fused_combine")
 # (group, substrings of the kernel name), first match wins
 GROUPS = [
     ("K1b", ("dilated_bwd",)),
@@ -47,7 +51,11 @@ GROUPS = [
 ]
 
 
-def group_of(name: str) -> str:
+def group_of(name: str, backward: str = "K1b") -> str:
+    """The group of a kernel; ``backward`` is the profiled route's dilated
+    backward, K1b or K3b, which owns the shared kernels."""
+    if any(k in name for k in SHARED_BWD):
+        return backward
     for group, keys in GROUPS:
         if any(k in name for k in keys):
             return group
@@ -137,7 +145,8 @@ def main() -> int:
     by_group, by_name, calls = {}, {}, {}
     for e in dev:
         ms = (e.time_range.end - e.time_range.start) / 1e3
-        by_group[group_of(e.name)] = by_group.get(group_of(e.name), 0) + ms
+        group = group_of(e.name, "K3b" if fused else "K1b")
+        by_group[group] = by_group.get(group, 0) + ms
         by_name[e.name] = by_name.get(e.name, 0) + ms
         calls[e.name] = calls.get(e.name, 0) + 1
 

@@ -21,7 +21,13 @@ kernels' short-side family (bf16, D = 16): the adapter's five shapes, a
 short side of every remainder mod 16 on either side, chunks without a
 valid key, a dead bh, bit-equal reruns, the C entry points' family choice
 against the CPU's copy of the rule, and the CUDA-core kernels still serving
-the other bf16 shapes. For the ALiBi
+the other bf16 shapes. For the tensor-core family of K1b and K3b (bf16,
+D = 48): every ratio at a length no segment divides with L % 16 != 0, one
+and three batch rows, a prefix mask and masked stretches that leave dead
+key tiles between live ones, a batch row without a valid key, reruns
+bit-equal, masked keys' dk and dv exactly 0, both routes against each
+other, and the family rule of the C entry points against the CPU's copy
+(K3b's compact gradients at D = 48 are the K3 cases' above). For the ALiBi
 kernels (K4) besides:
 a sequence of the cls token and a handful of cells, masks and coordinates
 that differ between batch rows (the kernels index them by ``bh / H``), and
@@ -808,6 +814,122 @@ def test_fused_wrapper_raises_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError):                    # other branches' rows
         df.fused_dilated_attention_backward_cuda(
             x, x, x, None, x, out_c, lse_c, stats, (8, 16), (1, 2), 0.25)
+
+
+# ---------------------------------------------------------------------------
+# K1b and K3b: the tensor-core family (bf16, D = 48)
+# ---------------------------------------------------------------------------
+
+# (B, L, H, segments, ratios, mask): every ratio of GigaPath at a length no
+# segment divides and L % 16 != 0, three batch rows (all valid, dead tiles
+# between live ones, a prefix); GigaPath's geometry at 2,048 tokens behind a
+# prefix mask; small groups and a batch row without a valid key; no mask.
+WGMMA_CASES = [
+    (3, 777, 16, (100, 300, 500, 600, 700), (1, 2, 4, 8, 16), "holes"),
+    (1, 2048, 16, (256, 1024, 2048, 2048, 2048), (1, 2, 4, 8, 16), "prefix"),
+    (2, 300, 4, (64, 128, 160), (1, 2, 4), "dead"),
+    (1, 333, 8, (64, 128, 333), (1, 2, 4), None),
+]
+WGMMA_IDS = ["every_ratio", "gigapath_2048", "dead_row", "no_mask"]
+ROUTES = ["mega", "fused"]
+
+
+def _wgmma_inputs(b, length, h, mask, device):
+    q, k, v, dmix = (_randn((b, length, h, 48), s, device, torch.bfloat16)
+                     for s in (31, 32, 33, 34))
+    m = torch.ones(b, length, dtype=torch.bool)
+    pos = torch.arange(length)
+    if mask == "holes":     # row 1: two masked stretches; row 2: a prefix
+        m[1] = ((pos < 150) | (pos >= 330)) & ((pos < 520) | (pos >= 700))
+        m[2] = pos < 500
+    if mask == "prefix":
+        m[0] = pos < 1800
+    if mask == "dead":
+        m[0] = pos < 250
+        m[1] = False
+    m = m.to(device)
+    return q, k, v, dmix * m[:, :, None, None], m, None if mask is None else m
+
+
+def _wgmma_backward(route, q, k, v, m, dmix, segs, ratios):
+    scale = 48 ** -0.5
+    if route == "mega":
+        _, stats, branch_out = dm.mega_dilated_attention_cuda(
+            q, k, v, m, segs, ratios, scale, with_stats=True)
+        return dm.mega_dilated_attention_backward_cuda(
+            q, k, v, m, dmix, stats, branch_out, segs, ratios, scale)
+    _, out_c, lse_c, stats = df.fused_dilated_attention_cuda(
+        q, k, v, m, segs, ratios, scale)
+    return df.fused_dilated_attention_backward_cuda(
+        q, k, v, m, dmix, out_c, lse_c, stats, segs, ratios, scale)
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("b,length,h,segs,ratios,mask", WGMMA_CASES,
+                         ids=WGMMA_IDS)
+def test_wgmma_backward_matches_autograd(cuda_device, route, b, length, h,
+                                         segs, ratios, mask):
+    """K1b and K3b in the tensor-core family against autograd through the
+    plain version (fp32 on the same bf16 values) on the valid rows, by
+    ``chip_smoke.check_grads`` (rel-L2 <= 1e-2, row-scaled <= 2e-2) and by
+    the max-scaled bound 3e-2; a masked key's dk and dv exactly 0, a batch
+    row without a valid key all 0, and a rerun bit-equal."""
+    assert df.card_bwd_family(48, torch.bfloat16) == "wgmma"
+    q, k, v, dmix, m, arg = _wgmma_inputs(b, length, h, mask, cuda_device)
+    valid = m[:, :, None, None]
+    leaves = [x.float().requires_grad_() for x in (q, k, v)]
+    torch.autograd.backward(dilated_attention(
+        *leaves, segment_lengths=segs, dilated_ratios=ratios, mask=arg),
+        dmix.float())
+    want = [x.grad * valid for x in leaves]
+    got = _wgmma_backward(route, q, k, v, arg, dmix, segs, ratios)
+    torch.cuda.synchronize()
+    got_valid = [g_ * valid for g_ in got]
+    for name, g_, w_ in zip(("dq", "dk", "dv"), got_valid, want):
+        assert g_.dtype == torch.bfloat16 and torch.isfinite(g_).all(), name
+        chip_smoke.compare(g_, w_, 3e-2, f"{route} {name}")
+    chip_smoke.check_grads(("dq", "dk", "dv"), got_valid, want, dmix,
+                           "bfloat16", route)
+    for name, g_ in zip(("dk", "dv"), got[1:]):
+        assert (g_[~m] == 0).all(), f"{name} of masked keys"
+    if mask == "dead":
+        assert all((g_[1] == 0).all() for g_ in got)
+    again = _wgmma_backward(route, q, k, v, arg, dmix, segs, ratios)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+def test_wgmma_routes_agree(cuda_device):
+    """K1b and K3b share the gradient core and the combine; from the same
+    inputs they differ only through their forwards' saved planes (K1f's
+    and K3f's bf16 branch outputs) and their preps."""
+    b, length, h, segs, ratios, mask = WGMMA_CASES[0]
+    q, k, v, dmix, _, m = _wgmma_inputs(b, length, h, mask, cuda_device)
+    g1 = _wgmma_backward("mega", q, k, v, m, dmix, segs, ratios)
+    g3 = _wgmma_backward("fused", q, k, v, m, dmix, segs, ratios)
+    for name, a, b_ in zip(("dq", "dk", "dv"), g1, g3):
+        rel, row = chip_smoke.grad_readings(a, b_, dmix)
+        assert rel <= 5e-3 and row <= 2e-2, (name, rel, row)
+
+
+def test_dilated_bwd_family_matches_the_entry_points(cuda_device):
+    """The C rule (``mt_dilated_bwd_family``, which the wrappers ask) and
+    the CPU's copy (``df.bwd_family``) agree."""
+    for d in (8, 16, 24, 32, 40, 48, 64, 72, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            assert df.card_bwd_family(d, dtype) == df.bwd_family(d, dtype)
+
+
+def test_wgmma_family_raises_on_a_misaligned_tensor(cuda_device):
+    """The gather reads 16-byte chunks: an operand off 16 bytes raises."""
+    x = _randn((1, 64 * 16 * 48 + 4), 35, cuda_device, torch.bfloat16)
+    q = x[0, 4:].view(1, 64, 16, 48)       # 8 bytes off the allocation
+    scale = 48 ** -0.5
+    _, out_c, lse_c, stats = df.fused_dilated_attention_cuda(
+        q, q, q, None, (64,), (1,), scale)
+    with pytest.raises(RuntimeError):
+        df.fused_dilated_attention_backward_cuda(
+            q, q, q, None, q.contiguous(), out_c, lse_c, stats, (64,), (1,),
+            scale)
 
 
 # ---------------------------------------------------------------------------
