@@ -90,6 +90,12 @@ def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     ``torch.profiler``, over ``iters``. Unlike :func:`time_ms` it leaves
     out the host's time to enqueue them, which a call of a few tens of
     microseconds on the card does not hide."""
+    return device_times(fn, iters, warmup)[0]
+
+
+def device_times(fn, iters: int = 10, warmup: int = 2):
+    """``(ms, {kernel name: ms})``: :func:`device_ms` and its split by the
+    name of what ran, each per call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -109,8 +115,11 @@ def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         if dev:
             break
     check(bool(dev), "the profiler recorded no device time in three runs")
-    return sum(e.time_range.end - e.time_range.start for e in dev) \
-        / iters / 1e3
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            (e.time_range.end - e.time_range.start) / iters / 1e3
+    return sum(by_name.values()), by_name
 
 
 def timed_once(fn):
@@ -504,43 +513,130 @@ def k1_inputs(shape, n_valid, device, dtype, seed, n_tensors=3):
     return tensors, mask.to(device)
 
 
+def plain_branch_out(qf, kf, vf, mask, segments, ratios, scale, i):
+    """Branch ``i``'s own output by the plain version, dense ``(B, L, H, D)``
+    fp32, zeros where the branch does not cover the slot (K1f's
+    ``branch_out[i]``)."""
+    df = importlib.import_module("modaltune_tpu_torch.ops.dilated_fused")
+    w, r = int(segments[i]), int(ratios[i])
+    out_b, _ = df.fused_branch_reference(qf, kf, vf, mask, w, r, scale)
+    return df.from_compact(out_b, qf.shape[1], w, r).permute(0, 2, 1, 3)
+
+
+def mix_share(by_name) -> float:
+    """The mix kernel's device ms in a :func:`device_times` split."""
+    return sum(ms for name, ms in by_name.items() if "fused_mix" in name)
+
+
 def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
              segments=None, ratios=None, iters=20):
+    """K1f against the plain version at the GigaPath steps' shape, fp32 and
+    bf16, on the valid rows: the output by the max-scaled bound and, in
+    bf16, by :func:`check_out`; with stats its plane against
+    ``dilated_attention_stats`` (within 1e-3, NEG_INF exactly where the
+    plain version has it) and ``branch_out`` against the plain branch
+    outputs the same two ways. In bf16 a rerun of either variant
+    bit-equal, the family the C entry points chose, and times on both
+    clocks without and with stats, the mix kernel's among them."""
     import torch
     from modaltune_tpu_torch.configs import SlideEncoderConfig
     dm = importlib.import_module("modaltune_tpu_torch.ops.dilated_mega")
-    from modaltune_tpu_torch.ops.dilated import dilated_attention
+    df = importlib.import_module("modaltune_tpu_torch.ops.dilated_fused")
+    from modaltune_tpu_torch.ops.dilated import (dilated_attention,
+                                                 dilated_attention_stats)
     if segments is None:
         ln = SlideEncoderConfig().longnet()
         segments, ratios = ln.segment_lengths, ln.dilated_ratios
     b, length, h, d = shape
-    res = {}
+    scale = d ** -0.5
+    res = {"family": df.card_family(d, torch.bfloat16)}
     for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 1.6e-2)):
+        dtn = str(dtype)[6:]
         (q, k, v), mask = k1_inputs(shape, n_valid, device, dtype, seed=7)
         valid = mask[:, :, None, None]
         kw = dict(segment_lengths=segments, dilated_ratios=ratios, mask=mask)
+        qf, kf, vf = q.float(), k.float(), v.float()
         got = dm.mega_dilated_attention(q, k, v, **kw)
-        want = dilated_attention(q.float(), k.float(), v.float(), **kw)
+        want = dilated_attention(qf, kf, vf, **kw)
         torch.cuda.synchronize()
+        tag = f"K1 {dtn}"
         check(bool(torch.isfinite(got.float()).all()),
-              f"K1 {dtype}: non-finite output (padded rows included)")
-        tag = f"K1 {str(dtype)[6:]}"
-        err = compare(got.float() * valid, want * valid, tol, f"{tag} out")
-        res[str(dtype)[6:]] = err
+              f"{tag}: non-finite output (padded rows included)")
+        r = dict(out_err=compare(got.float() * valid, want * valid, tol,
+                                 f"{tag} out"))
         if dtype == torch.bfloat16:
-            res["ms"] = time_ms(lambda: dm.mega_dilated_attention(q, k, v,
-                                                                  **kw), iters)
+            r["rel"], r["row"] = check_out(got.float() * valid, want * valid,
+                                           dtn, f"{tag} out")
+        del want
+
+        def with_stats():
+            return dm.mega_dilated_attention_cuda(
+                q, k, v, mask, segments, ratios, scale, with_stats=True)
+        _, stats, branch_out = with_stats()
+        want_st = dilated_attention_stats(qf, kf, vf, **kw)
+        torch.cuda.synchronize()
+        r["stats_err"] = (stats - want_st).abs().max().item()
+        check(r["stats_err"] <= 1e-3 and bool(((stats == -1e9) ==
+                                                (want_st == -1e9)).all()),
+              f"{tag} stats: max|err| {r['stats_err']:.3e}")
+        del want_st
+        r["branch_err"] = r["branch_rel"] = r["branch_row"] = 0.0
+        for i in range(len(segments)):
+            want_o = plain_branch_out(qf, kf, vf, mask, segments, ratios,
+                                      scale, i)
+            r["branch_err"] = max(r["branch_err"], compare(
+                branch_out[i], want_o, tol, f"{tag} branch_out {i}"))
+            if dtype == torch.bfloat16:
+                rel, row = check_out(branch_out[i].float(), want_o, dtn,
+                                     f"{tag} branch_out {i}")
+                r["branch_rel"] = max(r["branch_rel"], rel)
+                r["branch_row"] = max(r["branch_row"], row)
+            del want_o
+        res[dtn] = r
+        if dtype == torch.bfloat16:
+            check(torch.equal(dm.mega_dilated_attention(q, k, v, **kw), got),
+                  f"{tag}: a rerun gives other bits")
+            again = with_stats()
+            check(torch.equal(again[1], stats) and
+                  torch.equal(again[2], branch_out),
+                  f"{tag} with stats: a rerun gives other bits")
+            del again
+
+            def inference():
+                return dm.mega_dilated_attention(q, k, v, **kw)
+            res["ms"] = time_ms(inference, iters)
+            res["device_ms"], split = device_times(inference, iters=3,
+                                                   warmup=1)
+            res["mix_device_ms"] = mix_share(split)
+            res["stats_ms"] = time_ms(with_stats, iters)
+            res["stats_device_ms"], split = device_times(with_stats, iters=3,
+                                                         warmup=1)
+            res["stats_mix_device_ms"] = mix_share(split)
             res["plain_ms"] = time_ms(lambda: dilated_attention(q, k, v, **kw),
                                       iters)
+            pairs = b * dilated_pairs(length, n_valid, segments, ratios, h)
             res["bound_ms"], res["bound_by"] = attention_bound(
-                b * dilated_pairs(length, n_valid, segments, ratios, h), d,
-                (q, k, v, mask, got), backward=False)
+                pairs, d, (q, k, v, mask, got), backward=False)
+            res["stats_bound_ms"], _ = attention_bound(
+                pairs, d, (q, k, v, mask, got, stats, branch_out),
+                backward=False)
+        del stats, branch_out
+        torch.cuda.empty_cache()
+    f32, bf = res["float32"], res["bfloat16"]
     print(f"K1 B={b} L={length} H={h} D={d} valid={n_valid} "
           f"segments={tuple(segments)} ratios={tuple(ratios)}: "
-          f"fp32 out {res['float32']:.3e} | bf16 out {res['bfloat16']:.3e} | "
-          f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
-          f"{res['bound_ms']:.5f} ms ({res['bound_by']}), no library call",
-          flush=True)
+          f"fp32 out {f32['out_err']:.3e}, stats {f32['stats_err']:.3e}, "
+          f"branch_out {f32['branch_err']:.3e} | bf16 ({res['family']}) out "
+          f"{bf['out_err']:.3e}, rel-L2 {bf['rel']:.3e}, row-scaled "
+          f"{bf['row']:.3e}, stats {bf['stats_err']:.3e}, branch_out "
+          f"{bf['branch_err']:.3e}, rel-L2 {bf['branch_rel']:.3e}, row-scaled "
+          f"{bf['branch_row']:.3e}, reruns bit-equal | kernel "
+          f"{res['ms']:.4f} ms (card {res['device_ms']:.4f}, mix "
+          f"{res['mix_device_ms']:.4f}), with stats {res['stats_ms']:.4f} ms "
+          f"(card {res['stats_device_ms']:.4f}, mix "
+          f"{res['stats_mix_device_ms']:.4f}), plain {res['plain_ms']:.4f} "
+          f"ms, bound {res['bound_ms']:.5f} ms ({res['bound_by']}; with "
+          f"stats {res['stats_bound_ms']:.5f}), no library call", flush=True)
     return res
 
 
@@ -565,7 +661,7 @@ def phase_k1b(device, shape=(3, 10240, 16, 48), n_valid=9000,
         segments, ratios = ln.segment_lengths, ln.dilated_ratios
     b, length, h, d = shape
     scale = d ** -0.5
-    res = {"family": df.card_bwd_family(d, torch.bfloat16)}
+    res = {"family": df.card_family(d, torch.bfloat16)}
     for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 3e-2)):
         (q, k, v, dmix), mask = k1_inputs(shape, n_valid, device, dtype,
                                           seed=9, n_tensors=4)
@@ -646,10 +742,12 @@ def phase_k1b(device, shape=(3, 10240, 16, 48), n_valid=9000,
 def phase_k3(device, shape=(3, 10240, 16, 48), n_valid=9000,
              segments=None, ratios=None, iters=10):
     """K3f at K1's shape, fp32 and bf16: the mixed output against
-    ``dilated_attention``, ``(m, Z)`` against ``dilated_attention_stats``,
+    ``dilated_attention`` (by the max-scaled bound and, in bf16, by
+    :func:`check_out`), ``(m, Z)`` against ``dilated_attention_stats``,
     every branch's compact ``(out_b, lse_b)`` against the plain branch, and
     the mix kernel alone against the plain mix of the kernel's own compact
-    pieces; times in bf16, K1f's on the same inputs beside them."""
+    pieces; in bf16 a rerun bit-equal, the family, times on both clocks (the
+    mix kernel's among them), K1f's on the same inputs beside them."""
     import torch
     from modaltune_tpu_torch.configs import SlideEncoderConfig
     from modaltune_tpu_torch.ops.dilated import (dilated_attention,
@@ -662,58 +760,69 @@ def phase_k3(device, shape=(3, 10240, 16, 48), n_valid=9000,
     b, length, h, d = shape
     scale = d ** -0.5
     n = len(segments)
-    res = {}
+    res = {"family": df.card_family(d, torch.bfloat16)}
     for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 1.6e-2)):
+        dtn = str(dtype)[6:]
         (q, k, v), mask = k1_inputs(shape, n_valid, device, dtype, seed=7)
         valid = mask[:, :, None, None]
         kw = dict(segment_lengths=segments, dilated_ratios=ratios, mask=mask)
-        mixed, out_c, lse_c, stats = df.fused_dilated_attention_cuda(
-            q, k, v, mask, segments, ratios, scale)
+
+        def kernel():
+            return df.fused_dilated_attention_cuda(q, k, v, mask, segments,
+                                                   ratios, scale)
+        mixed, out_c, lse_c, stats = kernel()
         qf, kf, vf = q.float(), k.float(), v.float()
         want = dilated_attention(qf, kf, vf, **kw)
         torch.cuda.synchronize()
-        tag = f"K3 {str(dtype)[6:]}"
+        tag = f"K3 {dtn}"
         check(bool(torch.isfinite(mixed.float()).all()),
               f"{tag}: non-finite output (padded rows included)")
-        err = compare(mixed.float() * valid, want * valid, tol, f"{tag} out")
+        r = dict(out_err=compare(mixed.float() * valid, want * valid, tol,
+                                 f"{tag} out"))
+        if dtype == torch.bfloat16:
+            r["rel"], r["row"] = check_out(mixed.float() * valid,
+                                           want * valid, dtn, f"{tag} out")
         del want
         want_st = dilated_attention_stats(qf, kf, vf, **kw)[:, n:]
         got_st = stats.reshape(2, b * h, length).transpose(0, 1)
-        st_err = (got_st - want_st).abs().max().item()
-        check(st_err <= 1e-3 and bool(((got_st == -1e9) ==
-                                       (want_st == -1e9)).all()),
-              f"{tag} (m, Z): max|err| {st_err:.3e}")
+        r["stats_err"] = (got_st - want_st).abs().max().item()
+        check(r["stats_err"] <= 1e-3 and bool(((got_st == -1e9) ==
+                                                (want_st == -1e9)).all()),
+              f"{tag} (m, Z): max|err| {r['stats_err']:.3e}")
         del want_st
         outs = df.split_branches(out_c, length, segments, ratios)
         lses = df.split_branches(lse_c, length, segments, ratios)
-        piece_err = lse_err = 0.0
-        for i, (w, r) in enumerate(zip(segments, ratios)):
+        r["piece_err"] = r["lse_err"] = r["piece_rel"] = r["piece_row"] = 0.0
+        for i, (w, ra) in enumerate(zip(segments, ratios)):
             want_o, want_l = df.fused_branch_reference(qf, kf, vf, mask,
-                                                       int(w), int(r), scale)
-            piece_err = max(piece_err, compare(
+                                                       int(w), int(ra), scale)
+            r["piece_err"] = max(r["piece_err"], compare(
                 outs[i], want_o, tol, f"{tag} branch {i} compact out"))
+            if dtype == torch.bfloat16:
+                rel, row = check_out(outs[i].float(), want_o, dtn,
+                                     f"{tag} branch {i} compact out")
+                r["piece_rel"] = max(r["piece_rel"], rel)
+                r["piece_row"] = max(r["piece_row"], row)
             e = (lses[i] - want_l).abs().max().item()
             check(e <= 1e-3 and bool(((lses[i] == -1e9) ==
                                       (want_l == -1e9)).all()),
                   f"{tag} branch {i} compact lse: max|err| {e:.3e}")
-            lse_err = max(lse_err, e)
+            r["lse_err"] = max(r["lse_err"], e)
             del want_o, want_l
         want_mix, _, _ = df.fused_mix_reference(outs, lses, length, segments,
                                                 ratios)
-        mix_err = compare(mixed, want_mix, tol, f"{tag} mix kernel")
+        r["mix_err"] = compare(mixed, want_mix, tol, f"{tag} mix kernel")
         del want_mix
-        res[str(dtype)[6:]] = dict(out_err=err, stats_err=st_err,
-                                   piece_err=piece_err, lse_err=lse_err,
-                                   mix_err=mix_err)
+        res[dtn] = r
         if dtype == torch.bfloat16:
-            res["ms"] = time_ms(lambda: df.fused_dilated_attention_cuda(
-                q, k, v, mask, segments, ratios, scale), iters)
+            check(all(torch.equal(x, y) for x, y in
+                      zip(kernel(), (mixed, out_c, lse_c, stats))),
+                  f"{tag}: a rerun gives other bits")
+            res["ms"] = time_ms(kernel, iters)
+            res["device_ms"], split = device_times(kernel, iters=3, warmup=1)
+            res["mix_device_ms"] = mix_share(split)
             res["k1f_ms"] = time_ms(lambda: dm.mega_dilated_attention_cuda(
                 q, k, v, mask, segments, ratios, scale), iters)
-            res["k1f_stats_ms"] = time_ms(
-                lambda: dm.mega_dilated_attention_cuda(
-                    q, k, v, mask, segments, ratios, scale, with_stats=True),
-                iters)
             res["plain_ms"] = time_ms(lambda: dilated_attention(q, k, v, **kw),
                                       iters)
             res["bound_ms"], res["bound_by"] = attention_bound(
@@ -726,13 +835,16 @@ def phase_k3(device, shape=(3, 10240, 16, 48), n_valid=9000,
           f"{df.total_rows(length, segments, ratios)} compact rows per head: "
           f"fp32 out {f32['out_err']:.3e}, compact out {f32['piece_err']:.3e} "
           f"lse {f32['lse_err']:.3e}, (m, Z) {f32['stats_err']:.3e}, mix "
-          f"{f32['mix_err']:.3e} | bf16 out {bf['out_err']:.3e}, compact out "
-          f"{bf['piece_err']:.3e} lse {bf['lse_err']:.3e}, (m, Z) "
-          f"{bf['stats_err']:.3e}, mix {bf['mix_err']:.3e} | kernel "
-          f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
-          f"{res['bound_ms']:.5f} ms ({res['bound_by']}), no library call | "
-          f"K1f on the same inputs {res['k1f_ms']:.4f} ms, with stats "
-          f"{res['k1f_stats_ms']:.4f} ms", flush=True)
+          f"{f32['mix_err']:.3e} | bf16 ({res['family']}) out "
+          f"{bf['out_err']:.3e}, rel-L2 {bf['rel']:.3e}, row-scaled "
+          f"{bf['row']:.3e}, compact out {bf['piece_err']:.3e}, rel-L2 "
+          f"{bf['piece_rel']:.3e}, row-scaled {bf['piece_row']:.3e}, lse "
+          f"{bf['lse_err']:.3e}, (m, Z) {bf['stats_err']:.3e}, mix "
+          f"{bf['mix_err']:.3e}, rerun bit-equal | kernel {res['ms']:.4f} ms "
+          f"(card {res['device_ms']:.4f}, mix {res['mix_device_ms']:.4f}), "
+          f"plain {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.5f} ms "
+          f"({res['bound_by']}), no library call | K1f on the same inputs "
+          f"{res['k1f_ms']:.4f} ms", flush=True)
     return res
 
 
@@ -753,7 +865,7 @@ def phase_k3b(device, shape=(3, 10240, 16, 48), n_valid=9000,
         segments, ratios = ln.segment_lengths, ln.dilated_ratios
     b, length, h, d = shape
     scale = d ** -0.5
-    res = {"family": df.card_bwd_family(d, torch.bfloat16)}
+    res = {"family": df.card_family(d, torch.bfloat16)}
     for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 3e-2)):
         (q, k, v, dmix), mask = k1_inputs(shape, n_valid, device, dtype,
                                           seed=9, n_tensors=4)
@@ -1732,8 +1844,9 @@ def main() -> int:
         the kernel's and library call's time on the card alone).
         source: the file of the kernels the paths run, ``name``.cu unless
         given; family: the kernel family of the paths' bf16 calls, as the
-        C entry points chose it where they export their rule (K1b, K2,
-        K3b), else ``family``; device_ms where measured."""
+        C entry points chose it where they export their rule (K1, K2,
+        K3), else ``family``; device_ms where measured, and K1f's and
+        K3f's mix kernel on the card and K1f's times with stats."""
         by_path = {p: r["launches"][key] for p, r in paths.items()}
         out = {"name": name, "route": "cuda",
                "source": f"modaltune_tpu_torch/csrc/{source or name}.cu",
@@ -1743,8 +1856,10 @@ def main() -> int:
                "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
                "library_ms": res.get("library_ms")}
         out["family"] = res.get("family", family)
-        if "device_ms" in res:
-            out["device_ms"] = res["device_ms"]
+        for k in ("device_ms", "mix_device_ms", "stats_ms",
+                  "stats_device_ms", "stats_mix_device_ms"):
+            if k in res:
+                out[k] = res[k]
         if by_shape:
             out["by_shape"] = {
                 shape: {k: r.get(k) for k in ("ms", "plain_ms", "bound_ms",
@@ -1759,9 +1874,13 @@ def main() -> int:
 
     both = ("float32", "bfloat16")
     kernels = [
+        # bf16 at D = 48 runs the tensor-core forward core of
+        # dilated_fwd_wgmma.cu and the mix; fp32 the CUDA-core kernel of
+        # `name`.cu
         kernel("K1f", "dilated_attention_fwd",
                "modaltune_tpu/ops/dilated_mega.py:426",
-               max(k1[dt] for dt in both), k1, family="cuda_cores"),
+               max(max(k1[dt]["out_err"], k1[dt]["branch_err"])
+                   for dt in both), k1, source="dilated_fwd_wgmma"),
         # bf16 at D = 48 runs the tensor-core core of dilated_bwd_wgmma.cu
         # behind each route's prep; fp32 the CUDA-core kernels of `name`.cu
         kernel("K1b", "dilated_attention_bwd",
@@ -1781,7 +1900,7 @@ def main() -> int:
         kernel("K3f", "dilated_fused_fwd",
                "modaltune_tpu/ops/dilated_fused.py:468",
                max(max(k3[dt][e] for e in ("out_err", "piece_err", "mix_err"))
-                   for dt in both), k3, family="cuda_cores"),
+                   for dt in both), k3, source="dilated_fwd_wgmma"),
         kernel("K3b", "dilated_fused_bwd",
                "modaltune_tpu/ops/dilated_fused.py:676",
                max(k3b[dt]["grad_err"] for dt in both), k3b,

@@ -18,7 +18,7 @@
 // and dq, dk, dv sum dS_b k * scale, dS_b^T q * scale and P_b^T dO_b over
 // the branches, each over the branch's (segment, residue class) pairs.
 //
-// Two families (mt::dilated_bwd_family), neither with atomics:
+// Two families (mt::dilated_family), neither with atomics:
 // * bf16 at D = 48 (GigaPath's head size), four launches: a prep kernel
 //   (dilated_bwd_compact_prep_kernel) reads the saved planes at every
 //   compact row of ops/dilated_fused.py's layout (dilated_fused_common.cuh)
@@ -45,7 +45,7 @@
 // shared-memory bandwidth (attention_bwd_common.cuh). Reading o_b instead
 // of recomputing it saves the two products a recompute would cost.
 #include "attention_bwd_common.cuh"
-#include "dilated_bwd_wgmma.cuh"
+#include "dilated_wgmma.cuh"
 
 namespace mt {
 
@@ -136,19 +136,19 @@ inline cudaError_t launch_dilated_bwd_wgmma(const void* q, const void* k, const 
                                             const FusedBranches& fb, cudaStream_t stream) {
   const size_t rows = static_cast<size_t>(B) * H * fb.off[fb.n];
   float *lse_c = rows_c, *w_c = rows_c + rows, *delta_c = rows_c + 2 * rows;
-  float *dq_c = grads_c, *dk_c = grads_c + rows * kWgmmaBwdD, *dv_c = dk_c + rows * kWgmmaBwdD;
+  float *dq_c = grads_c, *dk_c = grads_c + rows * kWgmmaD, *dv_c = dk_c + rows * kWgmmaD;
   dilated_bwd_compact_prep_kernel<__nv_bfloat16>
       <<<static_cast<unsigned>((rows + kWarps - 1) / kWarps), kThreads, 0, stream>>>(
           static_cast<const __nv_bfloat16*>(dmix), stats,
           static_cast<const __nv_bfloat16*>(branch_out), lse_c, w_c, delta_c, B, L, H,
-          kWgmmaBwdD, fb);
+          kWgmmaD, fb);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const DilatedBwdCore c{q, k, v, dmix, mask, lse_c, w_c, delta_c, dq_c, dk_c, dv_c,
                          B, L, H, scale};
   err = launch_dilated_bwd_core(c, fb, stream);
   if (err != cudaSuccess) return err;
-  return launch_compact_combine(dq_c, dk_c, dv_c, dq, dk, dv, B, L, H, kWgmmaBwdD, fb, 1,
+  return launch_compact_combine(dq_c, dk_c, dv_c, dq, dk, dv, B, L, H, kWgmmaD, fb, 1,
                                 stream);
 }
 
@@ -333,7 +333,7 @@ cudaError_t dispatch_dilated_bwd(int DP, const void* q, const void* k, const voi
 
 // q/k/v/dmix/dq/dk/dv (B, L, H, D) contiguous in one dtype (0 = float32,
 // 1 = bfloat16); mask (B, L) bytes (1 = valid) or null; stats and branch_out
-// as the forward wrote them. fp32 scratch by family (mt::dilated_bwd_family):
+// as the forward wrote them. fp32 scratch by family (mt::dilated_family):
 // the CUDA-core kernels take w and delta (B*H, n_branches, L); the
 // tensor-core family (bf16, D = 48; q/k/v/dmix 16-byte aligned) takes rows_c
 // (3, B, H, M) and grads_c (3, B, H, M, D), M the compact rows of a head
@@ -360,7 +360,7 @@ extern "C" int mt_dilated_attention_bwd(const void* q, const void* k, const void
   const auto s = static_cast<cudaStream_t>(stream);
   const auto m = static_cast<const unsigned char*>(mask);
   const auto st = static_cast<const float*>(stats);
-  if (mt::dilated_bwd_family(D, dtype) == 1) {
+  if (mt::dilated_family(D, dtype) == 1) {
     mt::FusedBranches fb{};
     if (rows_c == nullptr || grads_c == nullptr ||
         !mt::make_fused_branches(fb, L, segments, ratios, n_branches))

@@ -13,38 +13,44 @@
 // excluded (never attended as zeros). The branches are mixed per (token,
 // head) with weights softmax_b(lse_b).
 //
-// Mix, inference (no stats): this kernel uses the identity
-//   sum_b softmax_b(lse_b) out_b = sum_b sum_{j in b} e^{s_j} v_j / sum_b sum_{j in b} e^{s_j},
-// i.e. the forward mix equals ONE softmax over the concatenation of every
-// branch's key set (a key present in two branches counts twice). So a query
-// row keeps one running (m, l, acc) and streams branch after branch through
-// the same online-softmax update; no per-branch output or lse is written.
-// A branch in which the row does not take part contributes nothing, exactly
-// as its NEG_INF lse gives it weight 0 in the oracle's mix.
+// With stats (training) K1f also writes what the backward needs: stats
+// (B*H, n_br + 2, L) = [lse_0 .. lse_{n-1}, m, Z], with m = max_b lse_b and
+// Z = sum_b e^{lse_b - m} (lse_b NEG_INF where branch b does not cover the
+// slot or the row has no valid key), and branch_out (n_br, B, L, H, D), each
+// branch's own output (zeros where it does not cover the slot).
 //
-// Mix, training (stats): the backward needs each branch's lse and output.
-// The online softmax then runs on branch-local (m_b, l_b, acc_b); when a
-// branch ends, the block writes lse_b (NEG_INF for a row outside the branch
-// or without a valid key) and o_b = acc_b / l_b, and folds o_b into a running
-// mix with the JAX kernel's algebra (m = max_b lse_b, Z = sum_b e^{lse_b - m},
-// acc = sum_b e^{lse_b - m} o_b). It writes stats (B*H, n_br + 2, L) =
-// [lse_0 .. lse_{n-1}, m, Z] and branch_out (n_br, B, L, H, D).
-//
-// What bounds it on the H100: GigaPath's schedule at L = 10,240 is about
-// 6 GFLOP per (batch, head) per layer, 300 GFLOP per layer at B*T = 3. This
-// version runs the inner products on CUDA cores in fp32, so it is bound by
-// fp32 issue and shared-memory bandwidth, not by device memory (q/k/v of a
-// layer are 47 MB in bf16; branch_out adds 236 MB of writes in training).
-//
-// What the design does about it: a block owns 64 consecutive query positions
-// of one (batch, head). For each branch and each segment the tile touches
-// (tiles straddle segment boundaries, e.g. w = 5792), the block gathers the
-// segment's residue-class keys in 64-key tiles into shared memory once and
-// updates only the rows that take part, found by per-row segment and phase
-// arithmetic; K/V tiles are therefore shared by every participating row of
-// the block. Tensor-core matmuls, TMA and a per-branch query permutation
-// that keeps all 64 rows busy for r > 1 are left for later work.
-#include "attention_common.cuh"
+// Two families (mt::dilated_family), neither with atomics:
+// * bf16 at D = 48 (GigaPath's head size, every call of the model), two
+//   launches with or without stats: the tensor-core forward core
+//   (dilated_fwd_wgmma.cu, which K3f shares) writes every branch's compact
+//   out_b and lse_b into scratch (ops/dilated_fused.py's layout, 98 MB at
+//   (3, 10240, 16, 48)); K3f's mix kernel (dilated_fused_fwd.cu) writes out
+//   and, with stats, the planes above. The branches are attended apart, so
+//   the inference variant computes the mix from each branch's (out_b,
+//   lse_b) as the training variant does; the union-softmax identity below
+//   serves the CUDA-core kernel alone. What bounds it is operations
+//   (dilated_fwd_wgmma.cu: 0.268 ms at that shape); compact tiles keep every
+//   row of a 64-row wgmma tile in one (segment, head group), where this
+//   file's blocks of 64 consecutive positions hold 64 / r rows of a branch
+//   of ratio r (2.56 times the products at GigaPath's shape).
+// * fp32 at any D and bf16 at any other D: dilated_fwd_kernel, one launch on
+//   CUDA cores in fp32, bound by fp32 issue and shared-memory bandwidth. A
+//   block owns 64 consecutive query positions of one (batch, head). For each
+//   branch and each segment the tile touches (tiles straddle segment
+//   boundaries, e.g. w = 5792), the block gathers the segment's
+//   residue-class keys in 64-key tiles into shared memory once and updates
+//   only the rows that take part, found by per-row segment and phase
+//   arithmetic. Without stats it uses the identity
+//     sum_b softmax_b(lse_b) out_b = sum_b sum_{j in b} e^{s_j} v_j / sum_b sum_{j in b} e^{s_j},
+//   i.e. the mix equals ONE softmax over the concatenation of every branch's
+//   key set (a key present in two branches counts twice): a query row keeps
+//   one running (m, l, acc) through every branch, and a branch in which the
+//   row does not take part contributes nothing, exactly as its NEG_INF lse
+//   gives it weight 0 in the oracle's mix. With stats the online softmax
+//   runs on branch-local (m_b, l_b, acc_b); when a branch ends, the block
+//   writes lse_b and o_b = acc_b / l_b and folds o_b into a running mix with
+//   the JAX kernel's algebra.
+#include "dilated_wgmma.cuh"
 
 namespace mt {
 
@@ -192,6 +198,27 @@ cudaError_t dispatch_dilated(int DP, const void* q, const void* k, const void* v
   }
 }
 
+// The tensor-core family: the forward core into compact scratch, then the
+// mix, which writes out and, with stats, K1's planes.
+inline cudaError_t launch_dilated_fwd_wgmma(const void* q, const void* k, const void* v,
+                                            const unsigned char* mask, void* out, float* stats,
+                                            void* branch_out, void* out_c, float* lse_c, int B,
+                                            int L, int H, float scale, const FusedBranches& fb,
+                                            cudaStream_t stream) {
+  const DilatedFwdCore c{q, k, v, mask, out_c, lse_c, B, L, H, scale};
+  const cudaError_t err = launch_dilated_fwd_core(c, fb, stream);
+  if (err != cudaSuccess) return err;
+  const int n = fb.n;
+  const size_t plane = static_cast<size_t>(L);
+  const MixOut o{out,
+                 stats == nullptr ? nullptr : stats + n * plane,
+                 stats == nullptr ? nullptr : stats + (n + 1) * plane,
+                 (n + 2) * plane,
+                 stats,
+                 branch_out};
+  return launch_compact_mix(out_c, lse_c, o, B, L, H, kWgmmaD, fb, 1, stream);
+}
+
 template <typename T>
 cudaError_t dispatch_dilated(int DP, const void* q, const void* k, const void* v,
                              const unsigned char* m, void* out, float* st, void* bo, int B, int L,
@@ -207,12 +234,16 @@ cudaError_t dispatch_dilated(int DP, const void* q, const void* k, const void* v
 // stats (B*H, n_branches + 2, L) fp32 and branch_out (n_branches, B, L, H, D)
 // in the input dtype, both null (inference) or both given (training).
 // segments/ratios: n_branches host ints. dtype: 0 = float32, 1 = bfloat16.
-// Returns a cudaError_t; 0 means the kernel was launched.
+// The tensor-core family (mt::dilated_family: bf16, D = 48; q/k/v 16-byte
+// aligned) takes compact scratch out_c (B, H, M, 48) bf16 and lse_c (B, H, M)
+// fp32, M the compact rows of a head (ops/dilated_fused.py::total_rows);
+// the CUDA-core kernels take them null.
+// Returns a cudaError_t; 0 means every kernel was launched.
 extern "C" int mt_dilated_attention_fwd(const void* q, const void* k, const void* v,
                                         const void* mask, void* out, void* stats, void* branch_out,
-                                        int B, int L, int H, int D, const int* segments,
-                                        const int* ratios, int n_branches, float scale, int dtype,
-                                        void* stream) {
+                                        void* out_c, void* lse_c, int B, int L, int H, int D,
+                                        const int* segments, const int* ratios, int n_branches,
+                                        float scale, int dtype, void* stream) {
   const int DP = mt::padded_head_dim(D);
   if (DP < 0 || B < 1 || B > 65535 || L < 1 || H < 1 || H > 65535 || n_branches < 1 ||
       n_branches > mt::kMaxBranches || (stats == nullptr) != (branch_out == nullptr))
@@ -227,6 +258,14 @@ extern "C" int mt_dilated_attention_fwd(const void* q, const void* k, const void
   const auto s = static_cast<cudaStream_t>(stream);
   const auto m = static_cast<const unsigned char*>(mask);
   const auto st = static_cast<float*>(stats);
+  if (mt::dilated_family(D, dtype) == 1) {
+    mt::FusedBranches fb{};
+    if (out_c == nullptr || lse_c == nullptr ||
+        !mt::make_fused_branches(fb, L, segments, ratios, n_branches))
+      return cudaErrorInvalidValue;
+    return mt::launch_dilated_fwd_wgmma(q, k, v, m, out, st, branch_out, out_c,
+                                        static_cast<float*>(lse_c), B, L, H, scale, fb, s);
+  }
   if (dtype == 0)
     return mt::dispatch_dilated<float>(DP, q, k, v, m, out, st, branch_out, B, L, H, D, scale, br,
                                        s);

@@ -9,7 +9,7 @@
 //
 // Semantics, per compact row i (query) and j (key) of one (batch, head,
 // branch, segment), with lse_i, w_i and delta_i from the prep
-// (dilated_bwd_wgmma.cuh):
+// (dilated_wgmma.cuh):
 //   P_ij  = exp(q_i.k_j * scale - lse_i)   (0 for a masked key, a row that
 //                                            is no real position, or a row
 //                                            whose lse is NEG_INF)
@@ -37,111 +37,28 @@
 //   products only at a group's ragged end; K1b reaches the same tiles
 //   through its own prep, where its old blocks of 64 consecutive positions
 //   held 64 / r rows of a branch.
-// * D = 48, rows of 96 bytes: a tile is three 16-column slabs of 64 rows x
-//   32 bytes in the 32-byte swizzle (wgmma layout type 3). A slab is one
-//   16-deep step of the K-major products (S = q k^T, dP = dmix v^T: three
-//   steps) and the three slabs are the N = 48 of the MN-major ones
-//   (dq += dS k, dk += dS^T q, dv += P^T dmix: m64n48k16, four steps over
-//   the 64 rows). Nothing is padded to 64 columns: a neighbouring head's
-//   columns never enter a product.
-// * Gathered rows: row l of a group is position first + r l, so a tile's
-//   rows lie r H 96 bytes apart. The producer warpgroup gathers them with
-//   16-byte cp.async (two threads a row, three chunks each, zero-filled past
-//   the group's n_real, so the gather needs no L % r and never reads past
-//   a tensor), each thread's copies arriving on the stage's barrier when
-//   they land (cp.async.mbarrier.arrive.noinc); a TMA map per ratio would
-//   need L % r == 0 and 20 maps in the kernel parameters. The consumer
-//   fences the async proxy before its products read the stage.
+// * The frame of dilated_wgmma_frame.cuh, which the forward core shares:
+//   tiles of three 16-column slabs in the 32-byte swizzle, S = q k^T and
+//   dP = dmix v^T as K-major products, dq += dS k, dk += dS^T q and
+//   dv += P^T dmix as m64n48k16 (nothing padded to 64 columns), rows
+//   gathered by a producer warpgroup with cp.async, zero-filled past a
+//   group's end.
 // * Masking without a branch: a key's term is 0 or -inf (its tile's mask
 //   bytes, read by the producer), a query's lse2 is lse log2(e) or +1e30,
 //   and P = exp2(s scale log2(e) + key term - lse2) is exactly 0 for every
-//   masked pair. The dq kernel's producer ORs each key tile's validity over
-//   its warpgroup (bar.red.or) and never loads a dead tile; a sentinel stage
-//   ends the stream. A dk/dv block whose own keys are all masked writes
-//   zeros and leaves (the combine reads those rows).
+//   masked pair. The dq kernel streams only the live key tiles, as the
+//   forward core does (produce_key_tiles). A dk/dv block whose own keys
+//   are all masked writes zeros and leaves (the combine reads those rows).
 // * Precision: P and dS enter every product that takes them as two bf16
 //   parts, hi = bf16(x) and lo = bf16(x - hi) (two wgmma into one fp32
 //   accumulator), as K2's short-side kernels take them: rounded once, the
 //   CPU emulation (tests/test_torch_dilated_bwd.py) reads 1.4x the
 //   gradients' own bf16 rounding, and in K2 sums over thousands of rows
 //   that cancel failed the train step's per-tensor gradient gate.
-#include "attention_wgmma.cuh"
-#include "dilated_bwd_wgmma.cuh"
+#include "dilated_wgmma_frame.cuh"
 
 namespace mt {
 namespace dwg {
-
-constexpr int kD = kWgmmaBwdD;
-constexpr int kTile = 64;
-constexpr int kSlabBytes = kTile * 32;        // 64 rows x 16 bf16
-constexpr int kTileBytes = 3 * kSlabBytes;    // 6 KB
-constexpr int kRowBytes = kTile * 4;          // 64 floats
-constexpr int kStages = 4;
-constexpr int kThreads = 2 * wg::kWgThreads;  // consumer, producer
-// The descriptor strides of a tile (bytes): 8-row groups of a slab, and
-// slab to slab along N in the MN-major products.
-constexpr uint32_t kGroupBytes = 8 * 32;
-static_assert(kTileBytes == kTile * kD * 2, "three slabs of 16 columns");
-
-// Byte offset of 16-byte chunk c (0..5) of row `row` in a tile: slab c / 2,
-// the pair of chunks of a 32-byte row swapped on rows 4..7 of every 8 (the
-// 32-byte swizzle; a tile's base is 1024-byte aligned).
-__device__ __forceinline__ int chunk_offset(int row, int c) {
-  return (c >> 1) * kSlabBytes + row * 32 + (((c & 1) ^ ((row >> 2) & 1)) << 4);
-}
-
-__device__ __forceinline__ uint64_t desc32(const void* p, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((wg::smem_u32(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (uint64_t{3} << 62);
-}
-
-// d (64 x 64) = A B^T over the 48 columns, A and B tiles (K-major): one
-// 16-deep step a slab.
-__device__ __forceinline__ void product_ss(float (&d)[32], const unsigned char* a,
-                                           const unsigned char* b) {
-#pragma unroll
-  for (int kk = 0; kk < 3; ++kk)
-    wg::wgmma_ss(d, desc32(a + kk * kSlabBytes, 16, kGroupBytes),
-                 desc32(b + kk * kSlabBytes, 16, kGroupBytes), kk > 0);
-}
-
-#define MT_WGMMA_D24                                                                      \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23}"
-#define MT_WGMMA_D24_ARGS(d)                                                              \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),     \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),          \
-      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),       \
-      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-
-// d (64 x 48) += A B for one 16-deep step: A a register fragment, B rows
-// [16 kk, + 16) of a tile, MN-major (its 48 columns are N).
-__device__ __forceinline__ void wgmma_rs48(float (&d)[24], const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 " MT_WGMMA_D24
-      ", {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n"
-      "}\n"
-      : MT_WGMMA_D24_ARGS(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
-}
-
-// d += X B over the 64 rows of tile B, X the packed register tile.
-__device__ __forceinline__ void product_rs(float (&d)[24], const uint32_t (&x)[16],
-                                           const unsigned char* b) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs48(d, x + 4 * kk, desc32(b + kk * 16 * 32, kSlabBytes, kGroupBytes));
-}
-
-template <int N>
-__device__ __forceinline__ void hold(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // A 64 x 64 fp32 register tile as two bf16 A-fragment tiles, hi = bf16(x)
 // and lo = bf16(x - hi).
@@ -154,120 +71,6 @@ __device__ __forceinline__ void pack_parts(uint32_t (&hi)[16], uint32_t (&lo)[16
     hi[i] = *reinterpret_cast<const uint32_t*>(&h);
     lo[i] = wg::pack_bf16(x[2 * i] - hf.x, x[2 * i + 1] - hf.y);
   }
-}
-
-// ---- the gather --------------------------------------------------------------
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(wg::smem_u32(dst)),
-               "l"(src), "r"(fill ? 16 : 0)
-               : "memory");
-}
-// One arrival on `bar` when this thread's earlier cp.async have landed.
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   wg::smem_u32(bar))
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-// Shared memory written by the generic proxy (cp.async, stores), read next
-// by wgmma (the async proxy).
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// OR of x over the 128 threads of the producer warpgroup (named barrier 1).
-__device__ __forceinline__ bool producer_any(bool x) {
-  uint32_t r;
-  asm volatile(
-      "{\n"
-      ".reg .pred p, q;\n"
-      "setp.ne.u32 p, %1, 0;\n"
-      "bar.red.or.pred q, 1, 128, p;\n"
-      "selp.u32 %0, 1, 0, q;\n"
-      "}\n"
-      : "=r"(r)
-      : "r"(static_cast<uint32_t>(x))
-      : "memory");
-  return r != 0;
-}
-
-// The block's tile and its (segment, group), with the addressing of rows.
-struct Group {
-  FusedTile ft;
-  int b, h, L, H;
-  size_t rows0;  // compact row of the group's row 0 in a (B, H, M) tensor
-  __device__ Group(const FusedBranches& fb, int tile, int h_, int b_, int L_, int H_)
-      : ft(locate_tile(fb, tile, h_, H_, L_)), b(b_), h(h_), L(L_), H(H_) {
-    rows0 = (static_cast<size_t>(b) * H + h) * fb.off[fb.n] + ft.seg_row;
-  }
-  __device__ int position(int l) const { return ft.first + ft.r * l; }
-  // element offset of row l of a (B, L, H, 48) tensor at this head
-  __device__ size_t element(int l) const {
-    return ((static_cast<size_t>(b) * L + position(l)) * H + h) * kD;
-  }
-  __device__ bool valid_key(int l, const unsigned char* mask) const {
-    return l < ft.n_real && (mask == nullptr || mask[static_cast<size_t>(b) * L + position(l)]);
-  }
-  __device__ int n_tiles() const { return (ft.n_real + kTile - 1) / kTile; }
-};
-
-// Producer thread p (0..127) gathers its three chunks of row p / 2 of group
-// tile t of x0 and x1 into tiles d0 and d1; rows past n_real arrive as zeros.
-__device__ __forceinline__ void gather(unsigned char* d0, unsigned char* d1, const bf16* x0,
-                                       const bf16* x1, const Group& g, int t, int p) {
-  const int i = p >> 1, l = t * kTile + i;
-  const bool real = l < g.ft.n_real;
-  const size_t e = real ? g.element(l) : 0;
-#pragma unroll
-  for (int cc = 0; cc < 3; ++cc) {
-    const int c = 3 * (p & 1) + cc;
-    cp_async16(d0 + chunk_offset(i, c), x0 + e + 8 * c, real);
-    cp_async16(d1 + chunk_offset(i, c), x1 + e + 8 * c, real);
-  }
-}
-
-// Shared memory of either kernel: the own tiles (two), then the ring; a
-// stage is two tiles and 1 KB of per-row terms; then the barriers.
-struct Smem {
-  static constexpr int kTerms = 2 * kTileBytes;   // floats of the stage's rows
-  static constexpr int kEnd = kTerms + 3 * kRowBytes;
-  static constexpr int kStageBytes = 2 * kTileBytes + 1024;
-  static constexpr int kRing = 2 * kTileBytes;
-  static constexpr int kBars = kRing + kStages * kStageBytes;
-  static constexpr size_t bytes = 1024 + kBars + (2 * kStages + 1) * sizeof(uint64_t);
-  static_assert(kEnd + 16 <= kStageBytes && kStageBytes % 1024 == 0, "stage layout");
-  static_assert(2 * bytes <= 232448, "two blocks an SM");
-};
-
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
-                                          ~static_cast<uintptr_t>(1023));
-}
-
-__device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty,
-                                              uint64_t* own_bar) {
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      // every producer thread arrives twice: its copies landed, its stores
-      wg::mbar_init(full + s, 2 * wg::kWgThreads);
-      wg::mbar_init(empty + s, 4);
-    }
-    wg::mbar_init(own_bar, wg::kWgThreads);
-    wg::mbar_init_fence();
-  }
-  __syncthreads();
-}
-
-// The end of a stream: one more stage whose flag is set.
-__device__ __forceinline__ void producer_finish(unsigned char* ring, uint64_t* full,
-                                                uint64_t* empty, wg::Ring r, int p) {
-  wg::mbar_wait(empty + r.stage, r.phase ^ 1);
-  if (p == 0) *reinterpret_cast<int*>(ring + r.stage * Smem::kStageBytes + Smem::kEnd) = 1;
-  cp_async_arrive(full + r.stage);
-  wg::mbar_arrive(full + r.stage);
-  cp_async_wait_all();
 }
 
 // Zero rows [0, n) of compact fp32 gradients at `dst`, the whole block.
@@ -320,30 +123,16 @@ dilated_bwd_dq_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   uint64_t* empty = full + kStages;
   uint64_t* own_bar = empty + kStages;
   const int own_t = g.ft.l0 / kTile;
-  init_barriers(full, empty, own_bar);
+  init_barriers(full, empty, own_bar, 4);
 
   if (threadIdx.x >= wg::kWgThreads) {
     // ---- producer warpgroup: gathers the own tiles, then the live key tiles
     wg::give_registers<wg::kProducerRegs>();
     const int p = threadIdx.x - wg::kWgThreads;
-    gather(smem, smem + kTileBytes, q, dmix, g, own_t, p);
+    gather(smem, q, g, own_t, p);
+    gather(smem + kTileBytes, dmix, g, own_t, p);
     cp_async_arrive(own_bar);
-    wg::Ring r;
-    for (int t = 0; t < g.n_tiles(); ++t) {
-      const int l = t * kTile + (p >> 1);
-      const bool valid = g.valid_key(l, mask);
-      if (!producer_any(valid)) continue;   // a dead key tile is never loaded
-      wg::mbar_wait(empty + r.stage, r.phase ^ 1);
-      unsigned char* st = ring + r.stage * Smem::kStageBytes;
-      gather(st, st + kTileBytes, k, v, g, t, p);
-      cp_async_arrive(full + r.stage);
-      if ((p & 1) == 0)
-        reinterpret_cast<float*>(st + Smem::kTerms)[p >> 1] = valid ? 0.f : -INFINITY;
-      if (p == 0) *reinterpret_cast<int*>(st + Smem::kEnd) = 0;
-      wg::mbar_arrive(full + r.stage);
-      r.advance<kStages>();
-    }
-    producer_finish(ring, full, empty, r, p);
+    produce_key_tiles(ring, full, empty, k, v, mask, g, p);
     return;
   }
 
@@ -369,10 +158,8 @@ dilated_bwd_dq_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   wg::Ring r;
   for (;;) {
-    wg::mbar_wait(full + r.stage, r.phase);
-    const unsigned char* st = ring + r.stage * Smem::kStageBytes;
-    if (*reinterpret_cast<const volatile int*>(st + Smem::kEnd) != 0) break;
-    fence_async_shared();
+    const unsigned char* st;
+    if (!next_stage(st, ring, full, r)) break;
     float s[32], dp[32];
     wg::wgmma_fence();
     product_ss(s, smem, st);                                  // q k^T
@@ -439,19 +226,21 @@ dilated_bwd_dkv_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + Smem::kBars);
   uint64_t* empty = full + kStages;
   uint64_t* own_bar = empty + kStages;
-  init_barriers(full, empty, own_bar);
+  init_barriers(full, empty, own_bar, 4);
 
   if (threadIdx.x >= wg::kWgThreads) {
     // ---- producer warpgroup: the own tiles, then every query tile ----
     wg::give_registers<wg::kProducerRegs>();
     const int p = threadIdx.x - wg::kWgThreads;
-    gather(smem, smem + kTileBytes, k, v, g, own_t, p);
+    gather(smem, k, g, own_t, p);
+    gather(smem + kTileBytes, v, g, own_t, p);
     cp_async_arrive(own_bar);
     wg::Ring r;
     for (int t = 0; t < g.n_tiles(); ++t) {
       wg::mbar_wait(empty + r.stage, r.phase ^ 1);
       unsigned char* st = ring + r.stage * Smem::kStageBytes;
-      gather(st, st + kTileBytes, q, dmix, g, t, p);
+      gather(st, q, g, t, p);
+      gather(st + kTileBytes, dmix, g, t, p);
       cp_async_arrive(full + r.stage);
       if ((p & 1) == 0) {
         const int l = t * kTile + (p >> 1);
@@ -486,10 +275,8 @@ dilated_bwd_dkv_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
   wg::Ring r;
   for (;;) {
-    wg::mbar_wait(full + r.stage, r.phase);
-    const unsigned char* st = ring + r.stage * Smem::kStageBytes;
-    if (*reinterpret_cast<const volatile int*>(st + Smem::kEnd) != 0) break;
-    fence_async_shared();
+    const unsigned char* st;
+    if (!next_stage(st, ring, full, r)) break;
     float s[32], dp[32];
     wg::wgmma_fence();
     product_ss(s, smem, st);                                  // k q^T
@@ -569,8 +356,9 @@ cudaError_t launch_dilated_bwd_core(const DilatedBwdCore& a, const FusedBranches
 
 }  // namespace mt
 
-// Which kernels serve a dilated attention backward (mt::dilated_bwd_family):
-// 0 the CUDA-core kernels, 1 the tensor-core core of this file.
-extern "C" int mt_dilated_bwd_family(int D, int dtype) {
-  return mt::dilated_bwd_family(D, dtype);
+// Which kernels serve a dilated attention, forward and backward
+// (mt::dilated_family): 0 the CUDA-core kernels, 1 the tensor-core cores of
+// this file and dilated_fwd_wgmma.cu.
+extern "C" int mt_dilated_family(int D, int dtype) {
+  return mt::dilated_family(D, dtype);
 }

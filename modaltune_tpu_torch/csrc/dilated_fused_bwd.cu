@@ -30,7 +30,7 @@
 // queries; the combine kernel (a warp per (token, head)) adds the branches'
 // rows. The compact gradients are an fp32 scratch, so bf16 inputs round each
 // dense gradient once. No atomics. Two families of the dq and dk/dv kernels
-// (mt::dilated_bwd_family):
+// (mt::dilated_family):
 // * bf16 at D = 48 (GigaPath's head size): the tensor-core gradient core of
 //   dilated_bwd_wgmma.cu, which K1b shares;
 // * fp32 at any D and bf16 at any other D: the CUDA-core kernels below.
@@ -46,7 +46,7 @@
 // tile; the gradient update is K1b's and K2b's (attention_bwd_common.cuh).
 #include <type_traits>
 
-#include "dilated_bwd_wgmma.cuh"
+#include "dilated_wgmma.cuh"
 
 namespace mt {
 
@@ -362,7 +362,7 @@ extern "C" int mt_dilated_fused_bwd(const void* q, const void* k, const void* v,
                            static_cast<float*>(dk_c), static_cast<float*>(dv_c), dq, dk, dv,
                            B, L, H, D, scale};
   const auto s = static_cast<cudaStream_t>(stream);
-  if (mt::dilated_bwd_family(D, dtype) == 1) return mt::launch_fused_bwd_wgmma(a, fb, s);
+  if (mt::dilated_family(D, dtype) == 1) return mt::launch_fused_bwd_wgmma(a, fb, s);
   if (dtype == 0) return mt::dispatch_fused_bwd<float>(DP, a, fb, s);
   if (dtype == 1) return mt::dispatch_fused_bwd<__nv_bfloat16>(DP, a, fb, s);
   return cudaErrorInvalidValue;

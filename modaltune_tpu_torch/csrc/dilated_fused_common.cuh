@@ -13,7 +13,10 @@
 //
 // A block owns kBlockQ consecutive compact rows of one (batch, head, branch,
 // segment). blockIdx.x enumerates the tiles of every branch, branch after
-// branch: branch bi owns [tile0[bi], tile0[bi + 1]).
+// branch: branch bi owns [tile0[bi], tile0[bi + 1]). A block that owns a
+// span of two consecutive tiles of one (segment, head group) enumerates the
+// spans the same way, [span0[bi], span0[bi + 1]); the second tile of a
+// group's last span may hold no row.
 #pragma once
 
 #include "attention_bwd_common.cuh"
@@ -31,6 +34,7 @@ struct FusedBranches {
   int m[kMaxBranches];      // compact rows per (segment, head)
   int off[kMaxBranches + 1];
   int tile0[kMaxBranches + 1];
+  int span0[kMaxBranches + 1];  // spans of two tiles
 };
 
 // Fills fb; false when the arguments are out of range.
@@ -38,7 +42,7 @@ inline bool make_fused_branches(FusedBranches& fb, int L, const int* segments, c
                                 int n) {
   if (L < 1 || n < 1 || n > kMaxBranches) return false;
   fb.n = n;
-  long long off = 0, tiles = 0;
+  long long off = 0, tiles = 0, spans = 0;
   for (int i = 0; i < n; ++i) {
     if (segments[i] < 1 || ratios[i] < 1) return false;
     const int sl = segments[i] < L ? segments[i] : L;
@@ -48,13 +52,17 @@ inline bool make_fused_branches(FusedBranches& fb, int L, const int* segments, c
     fb.m[i] = (sl + ratios[i] - 1) / ratios[i];
     fb.off[i] = static_cast<int>(off);
     fb.tile0[i] = static_cast<int>(tiles);
+    fb.span0[i] = static_cast<int>(spans);
+    const int per_seg = (fb.m[i] + kBlockQ - 1) / kBlockQ;
     off += static_cast<long long>(fb.nseg[i]) * fb.m[i];
-    tiles += static_cast<long long>(fb.nseg[i]) * ((fb.m[i] + kBlockQ - 1) / kBlockQ);
+    tiles += static_cast<long long>(fb.nseg[i]) * per_seg;
+    spans += static_cast<long long>(fb.nseg[i]) * ((per_seg + 1) / 2);
     if (off > 0x3fffffff || tiles > 0x3fffffff) return false;
   }
   for (int i = n; i <= kMaxBranches; ++i) {
     fb.off[i] = static_cast<int>(off);
     fb.tile0[i] = static_cast<int>(tiles);
+    fb.span0[i] = static_cast<int>(spans);
   }
   return true;
 }
@@ -70,13 +78,17 @@ struct FusedTile {
   int seg_row; // compact row of the (segment, group)'s row 0 (within one head)
 };
 
+// Tile `tile` (SPAN = 1), or tile `sub` of span `tile` (SPAN = 2).
+template <int SPAN = 1>
 __device__ __forceinline__ FusedTile locate_tile(const FusedBranches& fb, int tile, int h, int H,
-                                                 int L) {
+                                                 int L, int sub = 0) {
+  static_assert(SPAN == 1 || SPAN == 2, "a block owns one tile or a span of two");
+  const int* start = SPAN == 1 ? fb.tile0 : fb.span0;
   int bi = 0;
-  while (bi + 1 < fb.n && tile >= fb.tile0[bi + 1]) ++bi;
+  while (bi + 1 < fb.n && tile >= start[bi + 1]) ++bi;
   const int m = fb.m[bi], sl = fb.seg[bi], r = fb.ratio[bi];
-  const int per_seg = (m + kBlockQ - 1) / kBlockQ;
-  const int t = tile - fb.tile0[bi];
+  const int per_seg = ((m + kBlockQ - 1) / kBlockQ + SPAN - 1) / SPAN;
+  const int t = tile - start[bi];
   const int seg = t / per_seg;
   const int g = head_group(h, H, r);
   const int s0 = seg * sl, s1 = min(s0 + sl, L);
@@ -84,8 +96,8 @@ __device__ __forceinline__ FusedTile locate_tile(const FusedBranches& fb, int ti
   ft.r = r;
   ft.first = s0 + g;
   ft.n_real = ceil_div_nonneg(s1 - s0 - g, r);
-  ft.l0 = (t - seg * per_seg) * kBlockQ;
-  ft.n_rows = min(kBlockQ, m - ft.l0);
+  ft.l0 = ((t - seg * per_seg) * SPAN + sub) * kBlockQ;
+  ft.n_rows = max(0, min(kBlockQ, m - ft.l0));
   ft.n_own = max(0, min(kBlockQ, ft.n_real - ft.l0));
   ft.seg_row = fb.off[bi] + seg * m;
   return ft;

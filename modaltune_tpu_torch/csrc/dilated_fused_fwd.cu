@@ -20,18 +20,21 @@
 // enumerates the 64-row tiles of all branches), the mix kernel every
 // (token, head).
 //
-// What bounds it on the H100: the branch kernel, like K1f
-// (dilated_attention_fwd.cu), runs its products on CUDA cores in fp32 and is
-// bound by the fp32 arithmetic rate and shared-memory bandwidth; the mix kernel moves
-// about three times q's bytes and is bound by device memory.
+// Two families of the branch kernel (mt::dilated_family), neither with
+// atomics; the mix kernel serves both, and K1f's tensor-core family too:
+// * bf16 at D = 48 (GigaPath's head size): the tensor-core forward core of
+//   dilated_fwd_wgmma.cu, which K1f shares; bound by operations.
+// * fp32 at any D and bf16 at any other D: fused_branch_fwd_kernel below,
+//   products on CUDA cores in fp32, bound by the fp32 arithmetic rate and
+//   shared-memory bandwidth. q/k/v are read in place in (B, L, H, D) with
+//   strided rows, so no gathered copy of them is ever written; a block's 64
+//   query rows all belong to one (segment, head group), so every row of the
+//   tile takes part in every key tile it loads, whatever the ratio. The
+//   online softmax, its tiles and the fold are K2f's (attention_common.cuh).
+// The mix kernel moves about three times q's bytes (K1's planes add the
+// branch outputs, five times q's) and is bound by device memory.
 //
-// What the design does about it: q/k/v are read in place in (B, L, H, D)
-// with strided rows, so no gathered copy of them is ever written; a block's
-// 64 query rows all belong to one (segment, head group), so unlike K1f's
-// position tiles every row of the tile takes part in every key tile it
-// loads, whatever the ratio. The online softmax, its tiles and the fold are
-// K1f's and K2f's (attention_common.cuh).
-#include "dilated_fused_common.cuh"
+#include "dilated_wgmma.cuh"
 
 namespace mt {
 
@@ -86,15 +89,58 @@ fused_branch_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
   }
 }
 
-// A warp per (token, head), lanes over D.
+// Eight consecutive elements of a row, as fp32: one 16-byte access in bf16,
+// two in fp32 (rows of D % 8 == 0 elements from 16-byte aligned bases).
 template <typename T>
+__device__ __forceinline__ void load8(float (&x)[8], const T* src) {
+  if constexpr (sizeof(T) == 2) {
+    const uint4 u = *reinterpret_cast<const uint4*>(src);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float4 f = reinterpret_cast<const float4*>(src)[i];
+      x[4 * i] = f.x;
+      x[4 * i + 1] = f.y;
+      x[4 * i + 2] = f.z;
+      x[4 * i + 3] = f.w;
+    }
+  }
+}
+template <typename T>
+__device__ __forceinline__ void store8(T* dst, const float (&x)[8]) {
+  if constexpr (sizeof(T) == 2) {
+    uint4 u;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+    *reinterpret_cast<uint4*>(dst) = u;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      reinterpret_cast<float4*>(dst)[i] =
+          make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+  }
+}
+
+// A thread per eight elements of a (token, head): D / 8 threads share a
+// slot, each finding the covering rows itself. With PLANES (K1's stats)
+// also every branch's lse and output at the slot (MixOut).
+template <typename T, bool PLANES>
 __global__ void __launch_bounds__(kThreads)
-fused_mix_kernel(const T* __restrict__ out_c, const float* __restrict__ lse_c,
-                 T* __restrict__ mixed, float* __restrict__ m_out, float* __restrict__ z_out,
-                 int B, int L, int H, int D, FusedBranches fb) {
-  const size_t gw = (static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (gw >= static_cast<size_t>(B) * L * H) return;
+fused_mix_kernel(const T* __restrict__ out_c, const float* __restrict__ lse_c, MixOut mo, int B,
+                 int L, int H, int D, FusedBranches fb) {
+  const int chunks = D / 8;
+  const size_t t = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (t >= static_cast<size_t>(B) * L * H * chunks) return;
+  const size_t gw = t / chunks;             // the (b, p, h) slot
+  const int c = static_cast<int>(t - gw * chunks);
   const int h = static_cast<int>(gw % H);
   const int p = static_cast<int>((gw / H) % L);
   const int b = static_cast<int>(gw / (static_cast<size_t>(H) * L));
@@ -114,34 +160,64 @@ fused_mix_kernel(const T* __restrict__ out_c, const float* __restrict__ lse_c,
       m = fmaxf(m, lse[bi]);
     }
   }
-  float z = 0.f;
-  float acc[kMaxDimsPerLane];
+  float z = 0.f, acc[8];
 #pragma unroll
-  for (int e = 0; e < kMaxDimsPerLane; ++e) acc[e] = 0.f;
+  for (int e = 0; e < 8; ++e) acc[e] = 0.f;
 #pragma unroll
   for (int bi = 0; bi < kMaxBranches; ++bi) {
-    if (bi < fb.n && lse[bi] > kMaskThreshold) {
-      const float wb = expf(lse[bi] - m);
-      z += wb;
-      const T* o = out_c + (rows0 + row[bi]) * D;
+    if (bi >= fb.n) continue;
+    const bool take = lse[bi] > kMaskThreshold;
+    const float wb = take ? expf(lse[bi] - m) : 0.f;
+    z += wb;
+    if (!take && !PLANES) continue;
+    // a covering row without a valid key holds zeros, as an uncovered slot
+    float x[8];
+    if (row[bi] >= 0) {
+      load8(x, out_c + (rows0 + row[bi]) * D + 8 * c);
+    } else {
 #pragma unroll
-      for (int e = 0; e < kMaxDimsPerLane; ++e) {
-        const int d = lane + 32 * e;
-        if (d < D) acc[e] = fmaf(wb, to_float<T>(o[d]), acc[e]);
-      }
+      for (int e = 0; e < 8; ++e) x[e] = 0.f;
+    }
+    if (take) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] = fmaf(wb, x[e], acc[e]);
+    }
+    if constexpr (PLANES) {
+      T* ob = static_cast<T*>(mo.branch_out) + (static_cast<size_t>(bi) * B * L * H + gw) * D;
+      store8(ob + 8 * c, x);
+      if (c == 0) mo.planes[bh * mo.stride + static_cast<size_t>(bi) * L + p] = lse[bi];
     }
   }
   const float inv = z > 0.f ? 1.f / z : 0.f;
-  T* dst = mixed + gw * D;  // (b, p, h) row of a (B, L, H, D) tensor
 #pragma unroll
-  for (int e = 0; e < kMaxDimsPerLane; ++e) {
-    const int d = lane + 32 * e;
-    if (d < D) dst[d] = from_float<T>(acc[e] * inv);
+  for (int e = 0; e < 8; ++e) acc[e] *= inv;
+  // (b, p, h) row of a (B, L, H, D) tensor
+  store8(static_cast<T*>(mo.mixed) + gw * D + 8 * c, acc);
+  if (c == 0 && mo.m != nullptr) {
+    mo.m[bh * mo.stride + p] = m;
+    mo.z[bh * mo.stride + p] = z;
   }
-  if (lane == 0) {
-    m_out[bh * L + p] = m;
-    z_out[bh * L + p] = z;
-  }
+}
+
+template <typename T>
+cudaError_t launch_mix(const void* out_c, const float* lse_c, const MixOut& o, int B, int L,
+                       int H, int D, const FusedBranches& fb, cudaStream_t stream) {
+  const size_t threads = static_cast<size_t>(B) * L * H * (D / 8);
+  const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+  if (o.planes != nullptr)
+    fused_mix_kernel<T, true><<<blocks, kThreads, 0, stream>>>(static_cast<const T*>(out_c),
+                                                               lse_c, o, B, L, H, D, fb);
+  else
+    fused_mix_kernel<T, false><<<blocks, kThreads, 0, stream>>>(static_cast<const T*>(out_c),
+                                                                lse_c, o, B, L, H, D, fb);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_compact_mix(const void* out_c, const float* lse_c, const MixOut& o, int B,
+                               int L, int H, int D, const FusedBranches& fb, int dtype,
+                               cudaStream_t stream) {
+  if (dtype == 0) return launch_mix<float>(out_c, lse_c, o, B, L, H, D, fb, stream);
+  return launch_mix<__nv_bfloat16>(out_c, lse_c, o, B, L, H, D, fb, stream);
 }
 
 template <int DP, typename T>
@@ -158,11 +234,8 @@ cudaError_t launch_fused_fwd(const void* q, const void* k, const void* v,
       static_cast<T*>(out_c), lse_c, L, H, D, scale, fb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t warps = static_cast<size_t>(B) * L * H;
-  const unsigned blocks = static_cast<unsigned>((warps + kWarps - 1) / kWarps);
-  fused_mix_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(out_c), lse_c, static_cast<T*>(mixed), m_out, z_out, B, L, H, D, fb);
-  return cudaGetLastError();
+  const MixOut o{mixed, m_out, z_out, static_cast<size_t>(L), nullptr, nullptr};
+  return launch_mix<T>(out_c, lse_c, o, B, L, H, D, fb, stream);
 }
 
 template <typename T>
@@ -208,6 +281,13 @@ extern "C" int mt_dilated_fused_fwd(const void* q, const void* k, const void* v,
   const auto lc = static_cast<float*>(lse_c);
   const auto mo = static_cast<float*>(m_out);
   const auto zo = static_cast<float*>(z_out);
+  if (mt::dilated_family(D, dtype) == 1) {
+    const mt::DilatedFwdCore c{q, k, v, m, out_c, lc, B, L, H, scale};
+    cudaError_t err = mt::launch_dilated_fwd_core(c, fb, s);
+    if (err != cudaSuccess) return err;
+    const mt::MixOut o{mixed, mo, zo, static_cast<size_t>(L), nullptr, nullptr};
+    return mt::launch_compact_mix(out_c, lc, o, B, L, H, D, fb, dtype, s);
+  }
   if (dtype == 0)
     return mt::dispatch_fused_fwd<float>(DP, q, k, v, m, mixed, out_c, lc, mo, zo, B, L, H, D,
                                          scale, fb, s);

@@ -1,0 +1,90 @@
+// The tensor-core family of the dilated attention kernels (K1 and K3 at bf16,
+// D = 48, GigaPath's head size): one forward core (dilated_fwd_wgmma.cu) and
+// one gradient core (dilated_bwd_wgmma.cu) on the Hopper frame
+// (attention_wgmma.cuh, dilated_wgmma_frame.cuh), which both routes reach;
+// declared here with the two kernels around them that both routes share, the
+// mix (dilated_fused_fwd.cu) and the combine (dilated_fused_bwd.cu).
+//
+// The cores work on the compact rows of dilated_fused_common.cuh: a block
+// owns one 64-row compact tile of one (batch, head, branch, segment) and
+// streams the 64-row tiles of the same (segment, head group), whose rows are
+// at once its queries and its keys. Their inputs are q, k, v (and dmix) in
+// place, (B, L, H, 48) bf16, and the (B, L) mask.
+// * The forward core writes per compact row the branch's output out_c
+//   (B, H, M, 48) bf16 and lse_c (B, H, M) fp32 (natural log): 0 and NEG_INF
+//   where the row is no real position or has no valid key, as K3f's
+//   CUDA-core branch kernel writes them. The mix turns them into a route's
+//   outputs.
+// * The gradient core takes per compact row the branch's lse, the demix
+//   weight w and delta = w * rowsum(dmix * o_b), each (B, H, M) fp32, which
+//   a route's prep kernel writes, and writes the fp32 compact gradients dq_c,
+//   dk_c, dv_c (B, H, M, 48), zeros in every row that is no real position;
+//   the combine sums them into dense dq, dk, dv in branch order.
+#pragma once
+
+#include "dilated_fused_common.cuh"
+
+namespace mt {
+
+// Which kernels serve a dilated attention, forward and backward alike, by
+// code: 0 the CUDA-core kernels (fp32 at any D, bf16 at any other D), 1 the
+// cores of this header (bf16 at D = 48). The C entry points own the rule
+// (mt_dilated_family); ops/dilated_fused.py::family is its copy.
+constexpr int kWgmmaD = 48;
+inline int dilated_family(int D, int dtype) { return dtype == 1 && D == kWgmmaD ? 1 : 0; }
+
+struct DilatedFwdCore {
+  const void *q, *k, *v;             // (B, L, H, 48) bf16, 16-byte aligned
+  const unsigned char* mask;         // (B, L), 1 = valid; or null
+  void* out_c;                       // (B, H, M, 48) bf16
+  float* lse_c;                      // (B, H, M)
+  int B, L, H;
+  float scale;
+};
+
+// The forward core (dilated_fwd_wgmma.cu); cudaErrorMisalignedAddress when
+// q, k or v is not 16-byte aligned.
+cudaError_t launch_dilated_fwd_core(const DilatedFwdCore& a, const FusedBranches& fb,
+                                    cudaStream_t stream);
+
+struct DilatedBwdCore {
+  const void *q, *k, *v, *dmix;      // (B, L, H, 48) bf16, 16-byte aligned
+  const unsigned char* mask;         // (B, L), 1 = valid; or null
+  const float *lse_c, *w_c, *delta_c;
+  float *dq_c, *dk_c, *dv_c;
+  int B, L, H;
+  float scale;
+};
+
+// The dq kernel, then the dk/dv kernel (dilated_bwd_wgmma.cu).
+cudaError_t launch_dilated_bwd_core(const DilatedBwdCore& a, const FusedBranches& fb,
+                                    cudaStream_t stream);
+
+// Where the mix writes, per (token, head) of batch row b, head h, position p
+// with bh = b H + h: mixed (B, L, H, D); m and Z at m[bh * stride + p] and
+// z[bh * stride + p] (K3: two (B, H, L) planes; K1: rows n and n + 1 of its
+// (B*H, n + 2, L) stats); with `planes` (K1 with stats) also every branch's
+// lse at planes[bh * stride + bi * L + p] and its output at branch_out
+// (n, B, L, H, D), NEG_INF and zeros where the branch does not cover the
+// slot. m and z may be null (K1 without stats).
+struct MixOut {
+  void* mixed;
+  float *m, *z;
+  size_t stride;
+  float* planes;
+  void* branch_out;
+};
+
+// fused_mix_kernel (dilated_fused_fwd.cu), in dtype (0 = float32,
+// 1 = bfloat16), from compact (out_c, lse_c).
+cudaError_t launch_compact_mix(const void* out_c, const float* lse_c, const MixOut& o, int B,
+                               int L, int H, int D, const FusedBranches& fb, int dtype,
+                               cudaStream_t stream);
+
+// fused_combine_kernel (dilated_fused_bwd.cu): dense dq, dk, dv (B, L, H, D)
+// in dtype (0 = float32, 1 = bfloat16) from the compact fp32 gradients.
+cudaError_t launch_compact_combine(const float* dq_c, const float* dk_c, const float* dv_c,
+                                   void* dq, void* dk, void* dv, int B, int L, int H, int D,
+                                   const FusedBranches& fb, int dtype, cudaStream_t stream);
+
+}  // namespace mt

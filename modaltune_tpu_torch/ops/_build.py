@@ -35,11 +35,11 @@ SIGNATURES = {
     "mt_flash_attention_bwd": [_P] * 11 + [_I, _I, _I, _I, ctypes.c_float, _I,
                                            _I, _P, _P],
     "mt_flash_attention_family": [_I, _I, _I, _I],
-    "mt_dilated_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _P, _P, _I, ctypes.c_float, _I, _P],
+    "mt_dilated_attention_fwd": [_P] * 9 + [_I, _I, _I, _I, _P, _P, _I,
+                                            ctypes.c_float, _I, _P],
     "mt_dilated_attention_bwd": [_P] * 14 + [_I, _I, _I, _I, _P, _P, _I,
                                             ctypes.c_float, _I, _P],
-    "mt_dilated_bwd_family": [_I, _I],
+    "mt_dilated_family": [_I, _I],
     "mt_alibi_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                ctypes.c_float, _I, _P, _P, _P, _P],
     "mt_alibi_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -18,11 +18,12 @@ rows are concatenated along that axis (``branch_rows`` gives the offsets).
 A CUDA tensor goes to the hand-written Hopper kernels
 ``csrc/dilated_fused_fwd.cu`` (K3f: the branch attention and the mix) and,
 for the gradient, ``csrc/dilated_fused_bwd.cu`` (K3b: the demix weights and
-``delta``, the branch dq and dk/dv kernels, the combine), whose dq and dk/dv
-kernels at bf16 and D = 48 are the tensor-core core
-``csrc/dilated_bwd_wgmma.cu`` that K1b shares (:func:`card_bwd_family`). A
-CPU tensor goes to the plain version :func:`.dilated.dilated_attention`
-under autograd. The four ``fused_*_reference`` functions are the plain
+``delta``, the branch dq and dk/dv kernels, the combine). At bf16 and
+D = 48 (:func:`card_family`) the branch attention is the tensor-core forward
+core ``csrc/dilated_fwd_wgmma.cu`` and the dq and dk/dv kernels the
+gradient core ``csrc/dilated_bwd_wgmma.cu``, both shared with K1. A CPU
+tensor goes to the plain version :func:`.dilated.dilated_attention` under
+autograd. The four ``fused_*_reference`` functions are the plain
 versions of the four kernels, piece by piece.
 
 For the backward the forward saves q, k, v, the mask, the compact branch
@@ -235,31 +236,31 @@ def split_branches(x: torch.Tensor, length: int,
 
 
 # ---------------------------------------------------------------------------
-# The backward's kernel families
+# The kernel families
 # ---------------------------------------------------------------------------
 
-# csrc/dilated_bwd_wgmma.cuh::dilated_bwd_family, by code
-BWD_FAMILIES = ("cuda_cores", "wgmma")
+# csrc/dilated_wgmma.cuh::dilated_family, by code
+FAMILIES = ("cuda_cores", "wgmma")
 WGMMA_D = 48    # the head dimension of the tensor-core family
 
 
-def bwd_family(d: int, dtype: torch.dtype) -> str:
-    """The kernels that serve a dilated attention backward, K1b's and
-    K3b's alike: ``"wgmma"`` (the compact-tile tensor-core core, bf16 at
-    D = :data:`WGMMA_D`, GigaPath's head size) or ``"cuda_cores"`` (fp32 at
-    any D, bf16 at any other D). The C entry points own the rule
-    (``mt_dilated_bwd_family``) and the wrappers ask them
-    (:func:`card_bwd_family`); this copy serves the CPU tests, and
-    ``tests/test_torch_kernels_cuda.py`` holds it equal to the library's."""
+def family(d: int, dtype: torch.dtype) -> str:
+    """The kernels that serve a dilated attention, forward and backward,
+    K1's and K3's alike: ``"wgmma"`` (the compact-tile tensor-core cores,
+    bf16 at D = :data:`WGMMA_D`, GigaPath's head size) or ``"cuda_cores"``
+    (fp32 at any D, bf16 at any other D). The C entry points own the rule
+    (``mt_dilated_family``) and the wrappers ask them (:func:`card_family`);
+    this copy serves the CPU tests, and ``tests/test_torch_kernels_cuda.py``
+    holds it equal to the library's."""
     return "wgmma" if dtype == torch.bfloat16 and d == WGMMA_D \
         else "cuda_cores"
 
 
-def card_bwd_family(d: int, dtype: torch.dtype) -> str:
+def card_family(d: int, dtype: torch.dtype) -> str:
     """The family the C entry points choose on the card; builds the
     library on first use."""
-    code = load_library().mt_dilated_bwd_family(d, _DTYPE_CODES[dtype])
-    return BWD_FAMILIES[code]
+    code = load_library().mt_dilated_family(d, _DTYPE_CODES[dtype])
+    return FAMILIES[code]
 
 
 # ---------------------------------------------------------------------------

@@ -2,13 +2,15 @@
 
 Counterpart of ``modaltune_tpu/ops/dilated_mega.py::mega_dilated_attention``:
 same signature and semantics as :func:`.dilated.dilated_attention`. A CUDA
-tensor goes to the hand-written Hopper kernels: ``csrc/dilated_attention_fwd.cu``
-(K1f: every branch and the branch mix in one launch, q/k/v read in place)
-and, for the gradient, ``csrc/dilated_attention_bwd.cu`` (K1b), in the family
-that the C entry points choose (:func:`.dilated_fused.card_bwd_family`): at
-bf16 and D = 48 a prep onto K3's compact rows, the tensor-core gradient core
-``csrc/dilated_bwd_wgmma.cu`` that K3b shares, and K3b's combine; else
-CUDA-core kernels. A CPU tensor goes to the plain version
+tensor goes to the hand-written Hopper kernels ``csrc/dilated_attention_fwd.cu``
+(K1f) and, for the gradient, ``csrc/dilated_attention_bwd.cu`` (K1b), in the
+family that the C entry points choose (:func:`.dilated_fused.card_family`):
+at bf16 and D = 48 K1f is the tensor-core forward core
+``csrc/dilated_fwd_wgmma.cu`` into K3's compact rows and K3f's mix, and K1b
+a prep onto those rows, the tensor-core gradient core
+``csrc/dilated_bwd_wgmma.cu`` and K3b's combine, every core shared with K3;
+else K1f is one CUDA-core kernel (every branch and the mix, q/k/v read in
+place) and K1b CUDA-core kernels. A CPU tensor goes to the plain version
 :func:`.dilated.dilated_attention`, and autograd differentiates it.
 
 When the forward is recorded for autograd, K1f also writes what K1b needs:
@@ -83,16 +85,26 @@ def mega_dilated_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                                 segment_lengths: Sequence[int],
                                 dilated_ratios: Sequence[int],
                                 scale: float, with_stats: bool = False):
-    """Launch the K1f kernel on ``q``'s device and current stream.
+    """Launch K1f on ``q``'s device and current stream: in the tensor-core
+    family the forward core into compact scratch (``(B, H, M, D)`` in q's
+    dtype and ``(B, H, M)`` fp32, 98 MB at the train step's shape) and the
+    mix; in the CUDA-core family one kernel.
 
     Returns ``out``, or with ``with_stats`` ``(out, stats, branch_out)``
     (see the module docstring)."""
+    from .dilated_fused import card_family, total_rows
     global LAUNCHES
     segs, ratios, c_segs, c_ratios = _branch_args(segment_lengths,
                                                   dilated_ratios)
     _check(q, k, v, mask, segs, ratios)
     b, length, h, d = q.shape
     n = len(segs)
+    out_c = lse_c = None
+    if card_family(d, q.dtype) == "wgmma":
+        rows = total_rows(length, segs, ratios)
+        out_c = torch.empty((b, h, rows, d), dtype=q.dtype, device=q.device)
+        lse_c = torch.empty((b, h, rows), dtype=torch.float32,
+                            device=q.device)
     out = torch.empty_like(q)
     stats = branch_out = None
     if with_stats:
@@ -105,8 +117,9 @@ def mega_dilated_attention_cuda(q: torch.Tensor, k: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mt_dilated_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
-            out.data_ptr(), _ptr(stats), _ptr(branch_out), b, length, h, d,
-            c_segs, c_ratios, n, float(scale), _DTYPE_CODES[q.dtype], stream)
+            out.data_ptr(), _ptr(stats), _ptr(branch_out), _ptr(out_c),
+            _ptr(lse_c), b, length, h, d, c_segs, c_ratios, n, float(scale),
+            _DTYPE_CODES[q.dtype], stream)
     check_launch(err, "mt_dilated_attention_fwd")
     LAUNCHES += 1
     return (out, stats, branch_out) if with_stats else out
@@ -124,7 +137,7 @@ def mega_dilated_attention_backward_cuda(
     statistics and ``(3, B, H, M, D)`` gradients, 567 MB at the train
     step's shape); in the CUDA-core family the mix weights and ``delta_b``,
     then dq, then dk/dv. Returns ``(dq, dk, dv)``."""
-    from .dilated_fused import card_bwd_family, total_rows
+    from .dilated_fused import card_family, total_rows
     global BWD_LAUNCHES
     segs, ratios, c_segs, c_ratios = _branch_args(segment_lengths,
                                                   dilated_ratios)
@@ -142,7 +155,7 @@ def mega_dilated_attention_backward_cuda(
         raise ValueError("stats/branch_out do not match the forward's")
     f32 = dict(dtype=torch.float32, device=q.device)
     wd = rows_c = grads_c = None
-    if card_bwd_family(d, q.dtype) == "wgmma":
+    if card_family(d, q.dtype) == "wgmma":
         rows = total_rows(length, segs, ratios)
         rows_c = torch.empty((3, b, h, rows), **f32)
         grads_c = torch.empty((3, b, h, rows, d), **f32)

@@ -31,9 +31,11 @@ import sys
 import time
 
 # Kernels that K1b and K3b share (the tensor-core gradient core of
-# csrc/dilated_bwd_wgmma.cu and the combine): they count to the backward of
-# the route that is profiled.
+# csrc/dilated_bwd_wgmma.cu and the combine), and K1f and K3f (the
+# tensor-core forward core of csrc/dilated_fwd_wgmma.cu and the mix): they
+# count to the backward or the forward of the route that is profiled.
 SHARED_BWD = ("dilated_bwd_dq_wg", "dilated_bwd_dkv_wg", "fused_combine")
+SHARED_FWD = ("dilated_fwd_wg", "fused_mix")
 # (group, substrings of the kernel name), first match wins
 GROUPS = [
     ("K1b", ("dilated_bwd",)),
@@ -51,11 +53,14 @@ GROUPS = [
 ]
 
 
-def group_of(name: str, backward: str = "K1b") -> str:
-    """The group of a kernel; ``backward`` is the profiled route's dilated
-    backward, K1b or K3b, which owns the shared kernels."""
+def group_of(name: str, backward: str = "K1b", forward: str = "K1f") -> str:
+    """The group of a kernel; ``backward`` and ``forward`` are the profiled
+    route's dilated backward and forward, K1b and K1f or K3b and K3f, which
+    own the shared kernels."""
     if any(k in name for k in SHARED_BWD):
         return backward
+    if any(k in name for k in SHARED_FWD):
+        return forward
     for group, keys in GROUPS:
         if any(k in name for k in keys):
             return group
@@ -145,7 +150,8 @@ def main() -> int:
     by_group, by_name, calls = {}, {}, {}
     for e in dev:
         ms = (e.time_range.end - e.time_range.start) / 1e3
-        group = group_of(e.name, "K3b" if fused else "K1b")
+        group = group_of(e.name, *(("K3b", "K3f") if fused else
+                                   ("K1b", "K1f")))
         by_group[group] = by_group.get(group, 0) + ms
         by_name[e.name] = by_name.get(e.name, 0) + ms
         calls[e.name] = calls.get(e.name, 0) + 1

@@ -2,7 +2,7 @@
 bf16, D = 48) emulated step by step on the CPU, against the plain versions
 and JAX's Pallas kernels.
 
-``csrc/dilated_bwd_wgmma.cuh`` cannot run here. What it computes is written
+``csrc/dilated_bwd_wgmma.cu`` cannot run here. What it computes is written
 out below in the order the card computes it:
 
 * a prep writes per compact row (``ops/dilated_fused.py``'s layout) the
@@ -574,7 +574,7 @@ FAMILY_CASES = [
 
 @pytest.mark.parametrize("d,dtype,want", FAMILY_CASES)
 def test_family_choice(d, dtype, want):
-    assert df.bwd_family(d, dtype) == want
+    assert df.family(d, dtype) == want
 
 
 GIGAPATH = (10240, (1024, 5792, 10240, 10240, 10240), (1, 2, 4, 8, 16))

@@ -27,7 +27,11 @@ and three batch rows, a prefix mask and masked stretches that leave dead
 key tiles between live ones, a batch row without a valid key, reruns
 bit-equal, masked keys' dk and dv exactly 0, both routes against each
 other, and the family rule of the C entry points against the CPU's copy
-(K3b's compact gradients at D = 48 are the K3 cases' above). For the ALiBi
+(K3b's compact gradients at D = 48 are the K3 cases' above); for the same
+family of K1f (with and without stats) and K3f the same geometries, the
+outputs by ``chip_smoke.check_out``, K1's stats plane and ``branch_out``,
+K3's compact pieces and (m, Z), reruns bit-equal, both routes' outputs
+bit-equal, and a misaligned operand raising in either forward. For the ALiBi
 kernels (K4) besides:
 a sequence of the cls token and a handful of cells, masks and coordinates
 that differ between batch rows (the kernels index them by ``bh / H``), and
@@ -874,7 +878,7 @@ def test_wgmma_backward_matches_autograd(cuda_device, route, b, length, h,
     ``chip_smoke.check_grads`` (rel-L2 <= 1e-2, row-scaled <= 2e-2) and by
     the max-scaled bound 3e-2; a masked key's dk and dv exactly 0, a batch
     row without a valid key all 0, and a rerun bit-equal."""
-    assert df.card_bwd_family(48, torch.bfloat16) == "wgmma"
+    assert df.card_family(48, torch.bfloat16) == "wgmma"
     q, k, v, dmix, m, arg = _wgmma_inputs(b, length, h, mask, cuda_device)
     valid = m[:, :, None, None]
     leaves = [x.float().requires_grad_() for x in (q, k, v)]
@@ -912,24 +916,128 @@ def test_wgmma_routes_agree(cuda_device):
 
 
 def test_dilated_bwd_family_matches_the_entry_points(cuda_device):
-    """The C rule (``mt_dilated_bwd_family``, which the wrappers ask) and
-    the CPU's copy (``df.bwd_family``) agree."""
+    """The C rule (``mt_dilated_family``, which the wrappers ask) and
+    the CPU's copy (``df.family``) agree."""
     for d in (8, 16, 24, 32, 40, 48, 64, 72, 128):
         for dtype in (torch.float32, torch.bfloat16):
-            assert df.card_bwd_family(d, dtype) == df.bwd_family(d, dtype)
+            assert df.card_family(d, dtype) == df.family(d, dtype)
 
 
 def test_wgmma_family_raises_on_a_misaligned_tensor(cuda_device):
-    """The gather reads 16-byte chunks: an operand off 16 bytes raises."""
+    """The gathers read 16-byte chunks: an operand off 16 bytes raises, in
+    either route's forward and in the backward."""
     x = _randn((1, 64 * 16 * 48 + 4), 35, cuda_device, torch.bfloat16)
     q = x[0, 4:].view(1, 64, 16, 48)       # 8 bytes off the allocation
     scale = 48 ** -0.5
+    with pytest.raises(RuntimeError):
+        df.fused_dilated_attention_cuda(q, q, q, None, (64,), (1,), scale)
+    with pytest.raises(RuntimeError):
+        dm.mega_dilated_attention_cuda(q, q, q, None, (64,), (1,), scale)
+    a = q.clone()                          # a fresh, aligned allocation
     _, out_c, lse_c, stats = df.fused_dilated_attention_cuda(
-        q, q, q, None, (64,), (1,), scale)
+        a, a, a, None, (64,), (1,), scale)
     with pytest.raises(RuntimeError):
         df.fused_dilated_attention_backward_cuda(
-            q, q, q, None, q.contiguous(), out_c, lse_c, stats, (64,), (1,),
-            scale)
+            q, q, q, None, a, out_c, lse_c, stats, (64,), (1,), scale)
+
+
+# ---------------------------------------------------------------------------
+# K1f and K3f: the tensor-core family (bf16, D = 48)
+# ---------------------------------------------------------------------------
+
+FWD_ROUTES = ["mega", "mega_stats", "fused"]
+
+
+def _wgmma_forward(route, q, k, v, m, segs, ratios):
+    """``(out, planes)``: the route's output and its saved planes, K1's
+    ``(stats, branch_out)`` or K3's ``(out_c, lse_c, stats)``."""
+    scale = 48 ** -0.5
+    if route == "fused":
+        mixed, *planes = df.fused_dilated_attention_cuda(q, k, v, m, segs,
+                                                         ratios, scale)
+        return mixed, planes
+    if route == "mega":
+        return dm.mega_dilated_attention_cuda(q, k, v, m, segs, ratios,
+                                              scale), []
+    out, *planes = dm.mega_dilated_attention_cuda(q, k, v, m, segs, ratios,
+                                                  scale, with_stats=True)
+    return out, planes
+
+
+@pytest.mark.parametrize("route", FWD_ROUTES)
+@pytest.mark.parametrize("b,length,h,segs,ratios,mask", WGMMA_CASES,
+                         ids=WGMMA_IDS)
+def test_wgmma_forward_matches_plain(cuda_device, route, b, length, h, segs,
+                                     ratios, mask):
+    """K1f (with and without stats) and K3f in the tensor-core family
+    against the plain versions (fp32 on the same bf16 values): the output
+    by ``chip_smoke.check_out`` (rel-L2 <= 1e-2, row-scaled <= 2e-2) and
+    the max-scaled bound 1.6e-2 on the valid rows; K1's stats plane and
+    K3's (m, Z) and compact lse within 1e-3 with NEG_INF exactly where the
+    plain version has it; every branch output (K1's ``branch_out``, K3's
+    compact ``out_b``) by ``check_out``; a batch row without a valid key
+    all 0; a rerun bit-equal; the family the entry points' rule names."""
+    assert df.card_family(48, torch.bfloat16) == \
+        df.family(48, torch.bfloat16) == "wgmma"
+    q, k, v, _, m, arg = _wgmma_inputs(b, length, h, mask, cuda_device)
+    valid = m[:, :, None, None]
+    kw = dict(segment_lengths=segs, dilated_ratios=ratios, mask=arg)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    scale = 48 ** -0.5
+    got, planes = _wgmma_forward(route, q, k, v, arg, segs, ratios)
+    want = dilated_attention(qf, kf, vf, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    chip_smoke.compare(got.float() * valid, want * valid, 1.6e-2, route)
+    chip_smoke.check_out(got.float() * valid, want * valid, "bfloat16",
+                         route)
+    n = len(segs)
+    want_st = dilated_attention_stats(qf, kf, vf, **kw)
+    branches = [df.fused_branch_reference(qf, kf, vf, arg, w, r, scale)
+                for w, r in zip(segs, ratios)]
+    if route == "mega_stats":
+        stats, branch_out = planes
+        assert ((stats == NEG_INF) == (want_st == NEG_INF)).all()
+        assert (stats - want_st).abs().max().item() <= 1e-3
+        for i, ((o, _), w, r) in enumerate(zip(branches, segs, ratios)):
+            dense = df.from_compact(o, length, w, r).permute(0, 2, 1, 3)
+            assert torch.isfinite(branch_out[i].float()).all()
+            chip_smoke.check_out(branch_out[i].float(), dense, "bfloat16",
+                                 f"branch_out {i}")
+            covered = df.from_compact(torch.ones_like(o[..., 0]), length, w,
+                                      r).permute(0, 2, 1).bool()
+            assert (branch_out[i][~covered] == 0).all()
+    if route == "fused":
+        out_c, lse_c, stats = planes
+        got_st = stats.reshape(2, b * h, length).transpose(0, 1)
+        assert ((got_st == NEG_INF) == (want_st[:, n:] == NEG_INF)).all()
+        assert (got_st - want_st[:, n:]).abs().max().item() <= 1e-3
+        outs = df.split_branches(out_c, length, segs, ratios)
+        lses = df.split_branches(lse_c, length, segs, ratios)
+        for i, (want_o, want_l) in enumerate(branches):
+            assert ((lses[i] == NEG_INF) == (want_l == NEG_INF)).all()
+            assert (lses[i] - want_l).abs().max().item() <= 1e-3
+            chip_smoke.check_out(outs[i].float(), want_o, "bfloat16",
+                                 f"out_c {i}")
+            assert (outs[i][want_l == NEG_INF] == 0).all()
+    if mask == "dead":
+        assert (got[1] == 0).all()
+    again, planes_again = _wgmma_forward(route, q, k, v, arg, segs, ratios)
+    assert torch.equal(got, again)
+    assert all(torch.equal(x, y) for x, y in zip(planes, planes_again))
+
+
+def test_wgmma_forward_routes_agree(cuda_device):
+    """K1f and K3f share the forward core and the mix: from the same inputs
+    their outputs are the same bits, and K1's stats carry K3's (m, Z)."""
+    b, length, h, segs, ratios, mask = WGMMA_CASES[0]
+    q, k, v, _, _, m = _wgmma_inputs(b, length, h, mask, cuda_device)
+    out1, (stats, _) = _wgmma_forward("mega_stats", q, k, v, m, segs, ratios)
+    out3, (_, _, mz) = _wgmma_forward("fused", q, k, v, m, segs, ratios)
+    n = len(segs)
+    assert torch.equal(out1, out3)
+    assert torch.equal(stats[:, n:], mz.reshape(2, b * h, length)
+                       .transpose(0, 1))
 
 
 # ---------------------------------------------------------------------------
