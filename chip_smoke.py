@@ -177,10 +177,36 @@ COUNTERS = {
 }
 
 
+# K5's launches by route and backward variant (``ops/gelu_ln.py``): of the
+# K5f and K5b launches, those of the row-resident kernels, and the K5b
+# launches without dgamma and dbeta.
+K5_ROUTES = ("ROWS_LAUNCHES", "BWD_ROWS_LAUNCHES", "BWD_DX_ONLY_LAUNCHES")
+
+
 def reset_counts() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count to 0, K5's by route too."""
     for module, attr in COUNTERS.values():
         setattr(importlib.import_module(module), attr, 0)
+    gl = importlib.import_module(COUNTERS["K5f"][0])
+    for attr in K5_ROUTES:
+        setattr(gl, attr, 0)
+
+
+def check_k5_routes(tag: str, launches: dict) -> None:
+    """On a path's run: every K5f and K5b launch took the row-resident
+    kernels, and every K5b launch the variant without dgamma and dbeta
+    (the train steps freeze the backbone)."""
+    gl = importlib.import_module(COUNTERS["K5f"][0])
+    rows_f, rows_b, dx_only = (getattr(gl, a) for a in K5_ROUTES)
+    check((rows_f, rows_b, dx_only) ==
+          (launches["K5f"], launches["K5b"], launches["K5b"]),
+          f"{tag}: K5 launches {launches['K5f']} forward, {launches['K5b']} "
+          f"backward, of which row-resident {rows_f} and {rows_b}, without "
+          f"dgamma/dbeta {dx_only}")
+    if launches["K5f"]:
+        print(f"{tag}: K5f {rows_f} and K5b {rows_b} launches, all on the "
+              f"row-resident kernels; K5b without dgamma/dbeta {dx_only}",
+              flush=True)
 
 
 def read_counts() -> dict:
@@ -964,26 +990,39 @@ def unfused_gelu_ln(x, scale, bias, eps):
 
 def phase_k5(device, shape=(30720, 3072), eps=1e-5, iters=20):
     """K5f against its plain version at the FFN's shape (3 tasks x 10,240
-    tokens, ffn 3072), fp32 and bf16; times in bf16 beside the unfused
-    chain (``plain_ms``) and the plain version. No single PyTorch call
-    computes GELU -> LayerNorm, so there is no library time."""
+    tokens, ffn 3072), fp32 (the generic kernel) and bf16 (the row-resident
+    kernel, which it must take; its output also by :func:`check_out`,
+    since over 94 M outputs max|y| is several times a typical one); times
+    in bf16 beside the unfused chain
+    (``plain_ms``) and the plain version. No single PyTorch call computes
+    GELU -> LayerNorm, so there is no library time."""
     import torch
     gl = importlib.import_module("modaltune_tpu_torch.ops.gelu_ln")
     res = {}
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1.6e-2)):
         x, _, scale, bias = k5_inputs(shape, device, dtype, seed=11)
+        rows_before = gl.ROWS_LAUNCHES
         got = gl.gelu_ln_cuda(x, scale, bias, eps)
         want = gl.gelu_ln_reference(x, scale, bias, eps)
         torch.cuda.synchronize()
         tag = f"K5 {str(dtype)[6:]}"
+        res[str(dtype)[6:] + "_route"] = (
+            "rows" if gl.ROWS_LAUNCHES > rows_before else "generic")
         res[str(dtype)[6:]] = compare(got, want, tol, f"{tag} out")
         res[str(dtype)[6:] + "_vs_unfused"] = (
             got.float() - unfused_gelu_ln(x, scale, bias, eps).float()
         ).abs().max().item()
+        if dtype == torch.bfloat16:
+            res["out_rel"], res["out_row"] = check_out(
+                got, want, "bfloat16", f"{tag} out")
         del want
         if dtype == torch.bfloat16:
+            check(torch.equal(gl.gelu_ln_cuda(x, scale, bias, eps), got),
+                  f"{tag}: two runs differ")
             res["ms"] = time_ms(lambda: gl.gelu_ln_cuda(x, scale, bias, eps),
                                 iters)
+            res["device_ms"] = device_ms(
+                lambda: gl.gelu_ln_cuda(x, scale, bias, eps))
             res["plain_ms"] = time_ms(
                 lambda: unfused_gelu_ln(x, scale, bias, eps), iters)
             res["reference_ms"] = time_ms(
@@ -994,68 +1033,119 @@ def phase_k5(device, shape=(30720, 3072), eps=1e-5, iters=20):
                 PEAK_FLOPS_FP32)
         del got
         torch.cuda.empty_cache()
-    print(f"K5 x={tuple(shape)}: fp32 out {res['float32']:.3e} (from the "
-          f"unfused chain {res['float32_vs_unfused']:.3e}) | bf16 out "
-          f"{res['bfloat16']:.3e} (from the unfused chain "
-          f"{res['bfloat16_vs_unfused']:.3e}) | kernel {res['ms']:.4f} ms, "
-          f"unfused chain {res['plain_ms']:.4f} ms, plain version "
-          f"{res['reference_ms']:.4f} ms, bound {res['bound_ms']:.5f} ms "
-          f"({res['bound_by']}), no library call", flush=True)
+    check(res["bfloat16_route"] == "rows",
+          "K5 bf16 at the FFN's shape did not take the row-resident kernel")
+    res["family"] = "rows"
+    print(f"K5 x={tuple(shape)}: fp32 ({res['float32_route']}) out "
+          f"{res['float32']:.3e} (from the unfused chain "
+          f"{res['float32_vs_unfused']:.3e}) | bf16 ({res['bfloat16_route']}) "
+          f"out {res['bfloat16']:.3e}, rel-L2 {res['out_rel']:.3e}, "
+          f"row-scaled {res['out_row']:.3e} (from the unfused chain "
+          f"{res['bfloat16_vs_unfused']:.3e}), rerun bit-equal | kernel "
+          f"{res['ms']:.4f} ms (card {res['device_ms']:.4f}), unfused chain "
+          f"{res['plain_ms']:.4f} ms, plain version {res['reference_ms']:.4f} "
+          f"ms, bound {res['bound_ms']:.5f} ms ({res['bound_by']}), no "
+          f"library call", flush=True)
     return res
 
 
 def phase_k5b(device, shape=(30720, 3072), eps=1e-5, iters=20):
-    """K5b against its plain version at the FFN's shape, fp32 and bf16: dx,
-    dgamma and dbeta each by :func:`check_grads` (dgamma and dbeta against
-    the plain version's fp32 sums); times in bf16 beside autograd through
-    the unfused chain (``plain_ms``) and the plain version."""
+    """K5b against its plain version at the FFN's shape, fp32 (the generic
+    kernels) and bf16 (the row-resident ones, which it must take), in both
+    variants: with dgamma and dbeta, dx, dgamma and dbeta each by
+    :func:`check_grads` (dgamma and dbeta against the plain version's fp32
+    sums); without them (the train step's variant), dx the same bits; two
+    runs of each bit-identical. Times in bf16, each variant beside its
+    bound and autograd through the unfused chain, and the plain version:
+    ``ms``, ``plain_ms`` (x, gamma and beta leaves) and ``bound_ms`` are
+    the variant with dgamma and dbeta, the function the TPU kernel
+    computes; ``dx_only_*`` the train step's variant (``dx_only_plain_ms``:
+    x alone a leaf, as in the train step)."""
     import torch
     gl = importlib.import_module("modaltune_tpu_torch.ops.gelu_ln")
     names = ("dx", "dgamma", "dbeta")
     res = {}
     for dtype in (torch.float32, torch.bfloat16):
         x, dy, scale, bias = k5_inputs(shape, device, dtype, seed=12)
+        rows_before = gl.BWD_ROWS_LAUNCHES
         got = gl.gelu_ln_backward_cuda(x, scale, dy, eps)
+        dx_only = gl.gelu_ln_backward_cuda(x, scale, dy, eps,
+                                           param_grads=False)
         dx, _, _ = gl.gelu_ln_backward_reference(x, scale, dy, eps)
         _, dg, db = gl.gelu_ln_backward_reference(x, scale.float(), dy, eps)
         torch.cuda.synchronize()
-        tag = f"K5b {str(dtype)[6:]}"
+        dt = str(dtype)[6:]
+        tag = f"K5b {dt}"
+        res[dt + "_route"] = ("rows" if gl.BWD_ROWS_LAUNCHES - rows_before == 2
+                              else "generic")
         for gn, gt in zip(names, got):
             check(bool(torch.isfinite(gt.float()).all()),
                   f"{tag} {gn}: non-finite values")
-        res[str(dtype)[6:]] = max(
+        res[dt] = max(
             (gt.float() - wt.float()).abs().max().item()
             for gt, wt in zip(got, (dx, dg, db)))
-        res[str(dtype)[6:] + "_rel"], res[str(dtype)[6:] + "_row"] = \
-            check_grads(names, got, (dx, dg, db), dy, str(dtype)[6:], tag)
+        res[dt + "_rel"], res[dt + "_row"] = \
+            check_grads(names, got, (dx, dg, db), dy, dt, tag)
+        check(dx_only[1] is None and dx_only[2] is None
+              and torch.equal(dx_only[0], got[0]),
+              f"{tag}: the variant without dgamma/dbeta gives another dx")
         again = gl.gelu_ln_backward_cuda(x, scale, dy, eps)
         check(all(torch.equal(a, g) for a, g in zip(again, got)),
               f"{tag}: two runs differ")
+        check(torch.equal(gl.gelu_ln_backward_cuda(
+            x, scale, dy, eps, param_grads=False)[0], dx_only[0]),
+              f"{tag}: two runs of the variant without dgamma/dbeta differ")
         del dx, dg, db, again
         if dtype == torch.bfloat16:
             res["ms"] = time_ms(
                 lambda: gl.gelu_ln_backward_cuda(x, scale, dy, eps), iters)
+            res["dx_only_ms"] = time_ms(lambda: gl.gelu_ln_backward_cuda(
+                x, scale, dy, eps, param_grads=False), iters)
+            res["device_ms"] = device_ms(
+                lambda: gl.gelu_ln_backward_cuda(x, scale, dy, eps))
+            res["dx_only_device_ms"] = device_ms(
+                lambda: gl.gelu_ln_backward_cuda(x, scale, dy, eps,
+                                                 param_grads=False))
             res["reference_ms"] = time_ms(
                 lambda: gl.gelu_ln_backward_reference(x, scale, dy, eps),
                 iters)
+            # erf, exp and the two row sums: ~60 fp32 flop an element
             res["bound_ms"], res["bound_by"] = bound_ms(
                 60.0 * x.numel(), tensor_bytes((x, scale, dy, *got)),
                 PEAK_FLOPS_FP32)
-            del got
-            leaves = [t.detach().requires_grad_() for t in (x, scale, bias)]
-            out = unfused_gelu_ln(*leaves, eps)
-            res["plain_ms"] = time_ms(lambda: torch.autograd.grad(
-                out, leaves, dy, retain_graph=True), iters)
-            del out, leaves
+            res["dx_only_bound_ms"], res["dx_only_bound_by"] = bound_ms(
+                60.0 * x.numel(), tensor_bytes((x, scale, dy, dx_only[0])),
+                PEAK_FLOPS_FP32)
+            del got, dx_only
+            for key, grads in (("plain_ms", (True, True, True)),
+                               ("dx_only_plain_ms", (True, False, False))):
+                leaves = [t.detach().requires_grad_(r)
+                          for t, r in zip((x, scale, bias), grads)]
+                out = unfused_gelu_ln(*leaves, eps)
+                wrt = [t for t in leaves if t.requires_grad]
+                res[key] = time_ms(lambda: torch.autograd.grad(
+                    out, wrt, dy, retain_graph=True), iters)
+                del out, leaves, wrt
         torch.cuda.empty_cache()
-    print(f"K5b x={tuple(shape)}: dx/dgamma/dbeta fp32 max|err| "
-          f"{res['float32']:.3e}, rel-L2 {res['float32_rel']:.3e}, row-scaled "
-          f"{res['float32_row']:.3e} | bf16 {res['bfloat16']:.3e}, rel-L2 "
+    check(res["bfloat16_route"] == "rows",
+          "K5b bf16 at the FFN's shape did not take the row-resident kernels")
+    res["family"] = "rows"
+    print(f"K5b x={tuple(shape)}: dx/dgamma/dbeta fp32 "
+          f"({res['float32_route']}) max|err| {res['float32']:.3e}, rel-L2 "
+          f"{res['float32_rel']:.3e}, row-scaled {res['float32_row']:.3e} | "
+          f"bf16 ({res['bfloat16_route']}) {res['bfloat16']:.3e}, rel-L2 "
           f"{res['bfloat16_rel']:.3e}, row-scaled {res['bfloat16_row']:.3e}; "
-          f"two runs bit-identical | kernel {res['ms']:.4f} ms, autograd "
-          f"through the unfused chain {res['plain_ms']:.4f} ms, plain version "
-          f"{res['reference_ms']:.4f} ms, bound {res['bound_ms']:.5f} ms "
-          f"({res['bound_by']}), no library call", flush=True)
+          f"dx of both variants the same bits, two runs of each bit-identical",
+          flush=True)
+    print(f"K5b x={tuple(shape)} bf16: with dgamma/dbeta {res['ms']:.4f} ms "
+          f"(card {res['device_ms']:.4f}; bound {res['bound_ms']:.5f} ms, "
+          f"{res['bound_by']}; autograd through the unfused chain "
+          f"{res['plain_ms']:.4f} ms) | without them (the train step's) "
+          f"{res['dx_only_ms']:.4f} ms (card {res['dx_only_device_ms']:.4f}; "
+          f"bound {res['dx_only_bound_ms']:.5f} ms, "
+          f"{res['dx_only_bound_by']}; unfused chain, x alone "
+          f"{res['dx_only_plain_ms']:.4f} ms) | plain version "
+          f"{res['reference_ms']:.4f} ms, no library call", flush=True)
     return res
 
 
@@ -1532,6 +1622,7 @@ def phase_slice(device, dtype, build_kw=None, timing_rounds=3, card="",
     outs = [step(b) for b in batches]
     torch.cuda.synchronize()
     launches = read_counts()
+    check_k5_routes(tag, launches)
     per = calls_per_forward(model)
     for i, out in enumerate(outs):
         check(tuple(out.shape) == (1, 3, model.cfg.adapter.output_dim),
@@ -1667,6 +1758,7 @@ def phase_train(device, steps=3, timed_steps=5, compare_kw=None,
     losses = [float(step(batch, text, gen)) for _ in range(steps)]
     torch.cuda.synchronize()
     launches = read_counts()
+    check_k5_routes(tag, launches)
     per = calls_per_forward(model)
     per_step = {f"{k}{d}": n for k, n in per.items() for d in "fb"}
     check(launches == {k: n * steps for k, n in per_step.items()},
@@ -1857,7 +1949,10 @@ def main() -> int:
                "library_ms": res.get("library_ms")}
         out["family"] = res.get("family", family)
         for k in ("device_ms", "mix_device_ms", "stats_ms",
-                  "stats_device_ms", "stats_mix_device_ms"):
+                  "stats_device_ms", "stats_mix_device_ms", "out_rel",
+                  "out_row", "dx_only_ms", "dx_only_device_ms",
+                  "dx_only_plain_ms", "dx_only_bound_ms",
+                  "dx_only_bound_by"):
             if k in res:
                 out[k] = res[k]
         if by_shape:
@@ -1913,10 +2008,13 @@ def main() -> int:
                "modaltune_tpu/ops/alibi_flash.py:594",
                max(r[dt] for r in k4b.values() for dt in both),
                k4b["n16384"], k4b, family="wgmma"),
+        # bf16 at F = 3072 runs the row-resident kernels; fp32 the generic
+        # ones; K5b's ms, plain_ms and bound the variant with dgamma/dbeta
+        # (the TPU kernel's function), dx_only_* the train step's without
         kernel("K5f", "gelu_ln_fwd", "modaltune_tpu/ops/gelu_ln.py:169",
-               max(k5[dt] for dt in both), k5, family="cuda_cores"),
+               max(k5[dt] for dt in both), k5),
         kernel("K5b", "gelu_ln_bwd", "modaltune_tpu/ops/gelu_ln.py:189",
-               max(k5b[dt] for dt in both), k5b, family="cuda_cores"),
+               max(k5b[dt] for dt in both), k5b),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

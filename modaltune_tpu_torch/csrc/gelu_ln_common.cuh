@@ -1,8 +1,17 @@
 // Shared pieces of the fused GELU -> LayerNorm kernels (gelu_ln_fwd.cu,
-// gelu_ln_bwd.cu): the fp32 erf GELU, rounding at the operand dtype, the
-// affine parameters in either dtype, 4-wide loads and stores, and a block
-// sum whose order is fixed (every thread adds the warps' sums in the same
-// order), so the kernels are deterministic.
+// gelu_ln_bwd.cu): the fp32 erf GELU, rounding at the operand dtype, and
+// two frames whose sums run in a fixed order, so the kernels are
+// deterministic.
+//
+// The row-resident frame (bf16 x, F = 3072, every pointer aligned to 16
+// bytes): a group of kRowWarps warps owns a row, each lane
+// holds its share in registers as 16-byte vectors of 8 bf16, and the row's
+// sums are a butterfly in each warp plus one exchange of kRowWarps floats
+// among the group's warps behind a named barrier.
+//
+// The generic frame (fp32 x, other widths, unaligned pointers): a block
+// owns a row at a time with the row in shared memory, 4-wide or scalar
+// accesses, and a block sum.
 #pragma once
 
 #include <cstdint>
@@ -118,6 +127,144 @@ template <typename T> inline bool can_vectorize(int F, const void* a, const void
   const uintptr_t bits = reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
                          reinterpret_cast<uintptr_t>(c);
   return F % 4 == 0 && bits % (4 * sizeof(T)) == 0;
+}
+
+// ---------------------------------------------------------------------------
+// The row-resident frame (bf16, F = kRowWidth)
+// ---------------------------------------------------------------------------
+//
+// Lane t (0 <= t < kRowLanes) of a group holds the row's 16-byte vectors t,
+// t + kRowLanes, ..., t + (kRowVectors - 1) kRowLanes: columns
+// (i kRowLanes + t) 8 to + 8. Its element j (0 <= j < kRowElems) is column
+// (j / 8 * kRowLanes + t) * 8 + j % 8, the low half of 32-bit word j / 2
+// when j is even. Group i of block b takes rows b kRowGroups + i, then every
+// gridDim.x kRowGroups-th row after it, and loads each next row before the
+// current row's sums. ops/gelu_ln.py keeps a copy of the constants
+// (ROW_WIDTH, ROW_WARPS, ROW_GROUPS) and of row_route for the CPU;
+// mt_gelu_ln_row_frame and mt_gelu_ln_route export them, and the card tests
+// hold the copies equal.
+
+constexpr int kRowWidth = 3072;      // F of the frame: the model's FFN
+constexpr int kRowWarps = 4;         // warps that own one row
+constexpr int kRowLanes = 32 * kRowWarps;
+constexpr int kRowGroups = 2;        // groups a block
+constexpr int kRowThreads = kRowLanes * kRowGroups;
+constexpr int kRowVectors = kRowWidth / (8 * kRowLanes);  // 16-byte vectors a lane
+constexpr int kRowWords = 4 * kRowVectors;                 // 32-bit words a lane
+constexpr int kRowElems = 8 * kRowVectors;                 // elements a lane
+static_assert(kRowVectors * 8 * kRowLanes == kRowWidth, "kRowWarps must tile kRowWidth");
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+// element j of a lane's words
+__device__ __forceinline__ float bf16_at(const uint32_t* w, int j) {
+  return j % 2 ? bf16_hi(w[j / 2]) : bf16_lo(w[j / 2]);
+}
+// two floats rounded to bf16, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// A lane's words of row `row` of a (rows, kRowWidth) bf16 tensor.
+__device__ __forceinline__ void load_row(const __nv_bfloat16* base, int row, int t,
+                                         uint32_t (&w)[kRowWords]) {
+  const uint4* p = reinterpret_cast<const uint4*>(base) + static_cast<size_t>(row) * kRowWidth / 8;
+#pragma unroll
+  for (int i = 0; i < kRowVectors; ++i) {
+    const uint4 u = __ldg(p + i * kRowLanes + t);
+    w[4 * i] = u.x; w[4 * i + 1] = u.y; w[4 * i + 2] = u.z; w[4 * i + 3] = u.w;
+  }
+}
+
+__device__ __forceinline__ void store_row(__nv_bfloat16* base, int row, int t,
+                                          const uint32_t (&w)[kRowWords]) {
+  uint4* p = reinterpret_cast<uint4*>(base) + static_cast<size_t>(row) * kRowWidth / 8;
+#pragma unroll
+  for (int i = 0; i < kRowVectors; ++i)
+    p[i * kRowLanes + t] = make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
+}
+
+// gamma or beta at a lane's columns, held in registers in their dtype P and
+// read as 16-byte vectors.
+template <typename P> struct ParamRow;
+
+template <> struct ParamRow<__nv_bfloat16> {
+  uint32_t w[kRowWords];
+  __device__ __forceinline__ void load(const __nv_bfloat16* p, int t) { load_row(p, 0, t, w); }
+  __device__ __forceinline__ float at(int j) const { return bf16_at(w, j); }
+};
+
+template <> struct ParamRow<float> {
+  float f[kRowElems];
+  __device__ __forceinline__ void load(const float* p, int t) {
+    const float4* q = reinterpret_cast<const float4*>(p);
+#pragma unroll
+    for (int i = 0; i < kRowVectors; ++i) {
+      const float4* v = q + 2 * (i * kRowLanes + t);
+      const float4 a = __ldg(v), b = __ldg(v + 1);
+      f[8 * i] = a.x; f[8 * i + 1] = a.y; f[8 * i + 2] = a.z; f[8 * i + 3] = a.w;
+      f[8 * i + 4] = b.x; f[8 * i + 5] = b.y; f[8 * i + 6] = b.z; f[8 * i + 7] = b.w;
+    }
+  }
+  __device__ __forceinline__ float at(int j) const { return f[j]; }
+};
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The group's sums of a and of b, the same bits in every lane: a butterfly
+// in each warp, then the warps' sums in warp order. red: the group's
+// 2 kRowWarps slots; consecutive calls alternate between their halves
+// (`half`), so one named barrier (1 + the group's index) a call suffices:
+// a lane writes a half only after every lane of the group has passed the
+// barrier of the call between, and so has read that half.
+__device__ __forceinline__ float2 group_sum2(float a, float b, float2* red, int& half, int group) {
+  a = warp_sum(a);
+  b = warp_sum(b);
+  float2* slot = red + half * kRowWarps;
+  if (threadIdx.x % 32 == 0) slot[threadIdx.x / 32 % kRowWarps] = make_float2(a, b);
+  named_barrier(1 + group, kRowLanes);
+  float2 s = slot[0];
+#pragma unroll
+  for (int w = 1; w < kRowWarps; ++w) {
+    s.x += slot[w].x;
+    s.y += slot[w].y;
+  }
+  half ^= 1;
+  return s;
+}
+
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Whether rows of width F in dtype (0 = float32, 1 = bfloat16) whose
+// tensors are all 16-byte aligned take the row-resident kernels.
+inline bool row_route(int dtype, int F, bool aligned) {
+  return dtype == 1 && F == kRowWidth && aligned;
+}
+
+// Blocks of `kernel` an SM can hold, or 0 if the card cannot be asked. The
+// launchers keep it in a static, one per kernel: a row-resident kernel's
+// launch asks the card nothing it has asked before.
+template <typename Kernel>
+inline int row_blocks_per_sm(Kernel kernel) {
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kRowThreads, 0) != cudaSuccess)
+    return 0;
+  return per_sm;
+}
+
+// Blocks of a row-resident kernel: as many as the card holds at once
+// (per_sm of row_blocks_per_sm), and no more than the rows need. 0 if the
+// card cannot be asked.
+inline int row_grid(int per_sm, int rows) {
+  int dev = 0, sms = 0;
+  if (per_sm < 1 || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  const int want = (rows + kRowGroups - 1) / kRowGroups;
+  return want < sms * per_sm ? want : sms * per_sm;
 }
 
 }  // namespace mt

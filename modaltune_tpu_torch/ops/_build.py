@@ -49,9 +49,13 @@ SIGNATURES = {
                              _I, _P, _P, _I, ctypes.c_float, _I, _P],
     "mt_dilated_fused_bwd": [_P] * 17 + [_I, _I, _I, _I, _P, _P, _I,
                                          ctypes.c_float, _I, _P],
-    "mt_gelu_ln_fwd": [_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P],
+    "mt_gelu_ln_fwd": [_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _I,
+                       _P],
     "mt_gelu_ln_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I,
-                       _I, _P],
+                       _I, _I, _P],
+    "mt_gelu_ln_bwd_blocks": [_I] * 6,
+    "mt_gelu_ln_route": [_I, _I, _I],
+    "mt_gelu_ln_row_frame": [_I],
 }
 
 

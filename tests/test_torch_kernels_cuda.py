@@ -16,7 +16,11 @@ K2b, K4b), and for K1f's statistics; for the per-branch dilated kernels
 (K3f, K3b) the same geometries, a length no segment divides, sixteen heads
 at ratio 16, one valid key and a dead batch row, compact pieces included;
 for the fused GELU -> LayerNorm (K5f, K5b) widths that do and do not take
-4-wide loads, one row, and parameters in either dtype. For the key-bias
+4-wide loads, one row, and parameters in either dtype; its row-resident
+route (bf16, F = 3072) at row counts that do not fill the last group or
+make groups walk several rows, both backward variants (the one
+without dgamma/dbeta chosen by autograd when they are frozen), reruns
+bit-identical, and unaligned rows taking the generic route. For the key-bias
 kernels' short-side family (bf16, D = 16): the adapter's five shapes, a
 short side of every remainder mod 16 on either side, chunks without a
 valid key, a dead bh, bit-equal reruns, the C entry points' family choice
@@ -1135,3 +1139,133 @@ def test_gelu_ln_wrapper_raises_instead_of_falling_back(cuda_device):
         gl.gelu_ln_cuda(x, scale.cpu(), bias)
     with pytest.raises(ValueError):                    # dy of another shape
         gl.gelu_ln_backward_cuda(x, scale, dy[:2])
+
+
+# The row-resident route (bf16 x, F = ROW_WIDTH, every pointer 16-byte
+# aligned; GELU_LN_CASES's bf16 F = 3072 cases take it too): one row, row
+# counts that leave the last group of a block empty (odd), two rows for
+# each of an H100's 132 SMs, and more rows than the grid has groups (a
+# group walks several), rows of a 3-D tensor, gamma and beta in either
+# dtype.
+GELU_LN_ROW_CASES = [
+    ((1,), 3072, torch.bfloat16),
+    ((3,), 3072, torch.float32),
+    ((2, 257), 3072, torch.bfloat16),
+    ((264,), 3072, torch.bfloat16),
+    ((5001,), 3072, torch.bfloat16),
+    ((5001,), 3072, torch.float32),
+    ((2, 3, 13), 3072, torch.float32),
+]
+
+
+@pytest.mark.parametrize("rows,f,pdtype", GELU_LN_ROW_CASES)
+def test_gelu_ln_row_route_matches_plain(cuda_device, rows, f, pdtype):
+    """Both kernels and both backward variants on the row-resident route
+    against the plain versions (the bf16 limits of chip_smoke.py, the
+    output also by ``chip_smoke.check_out``), the variant without
+    dgamma/dbeta giving the same dx bits, and reruns of each
+    bit-identical."""
+    x, dy, scale, bias = _gelu_ln_inputs(rows, f, torch.bfloat16, pdtype,
+                                         cuda_device)
+    assert gl.route(x.dtype, f, x.data_ptr(), dy.data_ptr(),
+                    scale.data_ptr(), bias.data_ptr()) == "rows"
+    gl.ROWS_LAUNCHES = gl.BWD_ROWS_LAUNCHES = gl.BWD_DX_ONLY_LAUNCHES = 0
+    y = gl.gelu_ln_cuda(x, scale, bias, 1e-5)
+    full = gl.gelu_ln_backward_cuda(x, scale, dy, 1e-5)
+    dx_only = gl.gelu_ln_backward_cuda(x, scale, dy, 1e-5, param_grads=False)
+    torch.cuda.synchronize()
+    assert (gl.ROWS_LAUNCHES, gl.BWD_ROWS_LAUNCHES,
+            gl.BWD_DX_ONLY_LAUNCHES) == (1, 2, 1)
+    want = gl.gelu_ln_reference(x, scale, bias, 1e-5)
+    err = (y.float() - want.float()).abs().max().item()
+    assert err <= 1.6e-2 * max(1.0, want.float().abs().max().item()), err
+    chip_smoke.check_out(y, want, "bfloat16", "K5f out")
+    want_dx = gl.gelu_ln_backward_reference(x, scale, dy, 1e-5)[0]
+    want32 = gl.gelu_ln_backward_reference(x, scale.float(), dy, 1e-5)
+    assert full[1].dtype == pdtype
+    for name, g_, w_ in zip(("dx", "dgamma", "dbeta"), full,
+                            (want_dx, want32[1], want32[2])):
+        assert torch.isfinite(g_).all(), name
+        _assert_grad_readings(g_.reshape(-1, f), w_.reshape(-1, f),
+                              dy.reshape(-1, f), name)
+    assert dx_only[1] is None and dx_only[2] is None
+    assert torch.equal(dx_only[0], full[0])
+    assert torch.equal(gl.gelu_ln_cuda(x, scale, bias, 1e-5), y)
+    again = gl.gelu_ln_backward_cuda(x, scale, dy, 1e-5)
+    assert all(torch.equal(a, b_) for a, b_ in zip(full, again))
+    assert torch.equal(gl.gelu_ln_backward_cuda(
+        x, scale, dy, 1e-5, param_grads=False)[0], dx_only[0])
+
+
+@pytest.mark.parametrize("frozen", [True, False])
+def test_gelu_ln_function_skips_param_grads_when_frozen(cuda_device, frozen):
+    """Through autograd: with gamma and beta frozen (the train step) the
+    backward runs the variant without dgamma/dbeta; unfrozen, the one with
+    them; both on the row-resident route, against the plain version."""
+    x, dy, scale, bias = _gelu_ln_inputs((3, 100), 3072, torch.bfloat16,
+                                         torch.bfloat16, cuda_device)
+    leaves = [x.detach().requires_grad_(),
+              scale.detach().requires_grad_(not frozen),
+              bias.detach().requires_grad_(not frozen)]
+    gl.ROWS_LAUNCHES = gl.BWD_ROWS_LAUNCHES = gl.BWD_DX_ONLY_LAUNCHES = 0
+    gl.gelu_ln(*leaves).backward(dy)
+    torch.cuda.synchronize()
+    assert (gl.ROWS_LAUNCHES, gl.BWD_ROWS_LAUNCHES,
+            gl.BWD_DX_ONLY_LAUNCHES) == (1, 1, int(frozen))
+    want = gl.gelu_ln_backward_reference(x, scale.float(), dy)
+    _assert_grad_readings(leaves[0].grad.reshape(-1, 3072),
+                          gl.gelu_ln_backward_reference(x, scale, dy)[0]
+                          .reshape(-1, 3072), dy.reshape(-1, 3072), "dx")
+    if frozen:
+        assert leaves[1].grad is None and leaves[2].grad is None
+    else:
+        for name, g_, w_ in zip(("dgamma", "dbeta"), leaves[1:], want[1:]):
+            _assert_grad_readings(g_.grad[None], w_[None],
+                                  dy.reshape(-1, 3072), name)
+
+
+def test_gelu_ln_route_and_frame_match_the_entry_points(cuda_device):
+    """The C rule (``mt_gelu_ln_route``, which the wrappers ask) and the
+    CPU's copy (``gl.route``) agree, and the frame's constants that the
+    wrapper and the CPU emulation copy equal the library's."""
+    aligned, off = (1 << 20, 1 << 21), (1 << 20, (1 << 21) + 8)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for f in (384, 1024, 2048, 3064, 3072, 3080, 4096):
+            for ptrs in (aligned, off):
+                assert gl.card_route(dtype, f, *ptrs) == \
+                    gl.route(dtype, f, *ptrs), (dtype, f, ptrs)
+    assert gl.card_row_frame() == (gl.ROW_WIDTH, gl.ROW_WARPS,
+                                   gl.ROW_GROUPS, gl.REDUCE_ROWS)
+
+
+def test_gelu_ln_unaligned_rows_take_the_generic_route(cuda_device):
+    """bf16 rows at F = 3072 that start 8 bytes off a 16-byte boundary run
+    the generic kernels, right; the C entry points refuse them, and bf16
+    rows of another width, on the row-resident route."""
+    base = _randn((4 * 3072 + 4,), 33, cuda_device, torch.bfloat16)
+    x = base[4:].view(4, 3072)
+    _, dy, scale, bias = _gelu_ln_inputs((4,), 3072, torch.bfloat16,
+                                         torch.bfloat16, cuda_device)
+    assert gl.route(x.dtype, 3072, x.data_ptr()) == "generic"
+    gl.ROWS_LAUNCHES = gl.BWD_ROWS_LAUNCHES = 0
+    y = gl.gelu_ln_cuda(x, scale, bias)
+    dx = gl.gelu_ln_backward_cuda(x, scale, dy, param_grads=False)[0]
+    torch.cuda.synchronize()
+    assert (gl.ROWS_LAUNCHES, gl.BWD_ROWS_LAUNCHES) == (0, 0)
+    want = gl.gelu_ln_reference(x, scale, bias)
+    assert (y.float() - want.float()).abs().max().item() <= 1.6e-2 * max(
+        1.0, want.float().abs().max().item())
+    _assert_grad_readings(dx, gl.gelu_ln_backward_reference(x, scale, dy)[0],
+                          dy, "dx")
+    lib = gl.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.mt_gelu_ln_fwd(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                             torch.empty_like(dy).data_ptr(), 4, 3072, 1e-5,
+                             1, 1, 1, stream)
+    assert err != 0
+    narrow = torch.zeros(4, 2048, dtype=torch.bfloat16, device=cuda_device)
+    err = lib.mt_gelu_ln_fwd(narrow.data_ptr(), narrow[0].data_ptr(),
+                             narrow[0].data_ptr(), torch.empty_like(
+                                 narrow).data_ptr(), 4, 2048, 1e-5, 1, 1, 1,
+                             stream)
+    assert err != 0
