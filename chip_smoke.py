@@ -10,9 +10,9 @@ K3f; the backward kernels K1b, K2b, K3b, K4b, K5b), times each beside its
 plain version and, where one PyTorch call computes the same function,
 beside that call (``scaled_dot_product_attention``; timed here, used
 nowhere in the port), and computes the least time the card could take for
-the same work. Then it drives six paths end to end at full published width
-with random weights from a seeded generator, each with every launch count
-set to 0 just before and read just after:
+the same work. Then it drives seven paths end to end at full published
+width with random weights from a seeded generator, each with every launch
+count set to 0 just before and read just after:
 
 * ModalTune-GigaPath (12-layer / 768-d / 16-head LongNet backbone, Modal
   Adapter, gene mixer over 331 pathways, 3 task tokens): the embed step on
@@ -27,7 +27,12 @@ set to 0 just before and read just after:
   and a 128-query attentional pooler, the same adapter over
   interactions ((0,1),(2,3),(4,5)) with concatenated tokens): the embed
   step on three synthetic slides grid-scattered into the 16,383-cell
-  bucket, and a few train steps on one.
+  bucket, and a few train steps on one;
+* the port's train CLI (``modaltune_tpu_torch.tools.train.run_one_seed``)
+  on ModalTune-GigaPath, on the reference's file formats written at full
+  width (``.pt`` and ``.mtbc`` feature bags, split JSONs, text ``.pt``,
+  gene and pathway CSVs): two epochs with the in-loop readout, test with
+  the best weights, a checkpoint every epoch, deploy.
 
 Every phase prints its results on lines of its own; any failure raises
 and the script exits non-zero. The last line is one JSON object
@@ -49,6 +54,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 from unittest import mock
 
 
@@ -1857,6 +1863,292 @@ def phase_train(device, steps=3, timed_steps=5, compare_kw=None,
                 grad_rel_fp32=err32[w32])
 
 
+# ---------------------------------------------------------------------------
+# The trainer: the port's CLI on the reference's file formats
+# ---------------------------------------------------------------------------
+
+# tests/test_dropin_e2e.py's layout at full width: GigaPath tile features
+# on a 256-px grid; train one case of two slides (concatenated with the
+# +1,500 y-offset) and three of one, val and test two cases each in one
+# packed container; 4,987 genes in 331 pathways of at most 100
+TRAINER_DATA = dict(in_chans=1536, two_slides=(4800, 5100),
+                    one_slide=(9000, 10239), n_genes=4987, n_groups=331,
+                    max_size=100)
+TRAINER_FLAGS = ["--mil_name", "longnetvit_gene_adapter", "--bf16", "1",
+                 "--threshold", "25000", "--buckets", "10239",
+                 "--num_epochs", "2", "--eval_interval", "1",
+                 "--save_interval", "1", "--save_embeddings", "--seed", "0"]
+
+
+def write_reference_files(root, in_chans, two_slides, one_slide, n_genes,
+                          n_groups, max_size, seed=0):
+    """The reference's on-disk formats under ``root``: per-slide
+    ``*_featvec.pt`` dicts (train), one ``.mtbc`` container written by
+    ``pack_feature_files`` (val and test), split JSONs ``{"data": rows}``
+    with alternating ``primary_class`` and seeded ``durations`` and
+    ``vital_status``, a ``.pt`` dict of (4, 512) text embeddings, the gene
+    CSV and the pathway-membership CSV. -> the CLI's data flags."""
+    import numpy as np
+    import torch
+    from modaltune_tpu_torch.data import synthetic_pathways
+    from modaltune_tpu_torch.data.bagcache import pack_feature_files
+    rng = np.random.default_rng(seed)
+    feats = root / "features"
+    feats.mkdir()
+
+    def slide(name, length_range):
+        n = int(rng.integers(*length_range))
+        path = feats / f"{name}_featvec.pt"
+        torch.save({"features": torch.from_numpy(rng.standard_normal(
+            (n, in_chans), dtype=np.float32)),
+            "coords": torch.from_numpy((rng.integers(0, 900, (n, 2)) * 256.0)
+                                       .astype(np.float32))}, path)
+        return str(path)
+
+    genes = [f"g{i}" for i in range(n_genes)]
+    cache = root / "features.mtbc"
+    text, gene_rows, flags, to_pack = {}, [], [], []
+    for split, n_cases in (("train", 4), ("val", 2), ("test", 2)):
+        rows = []
+        for i in range(n_cases):
+            sub = f"TCGA-{split[:2].upper()}-{i:04d}"
+            cid = f"{sub}-case"
+            n_slides = 2 if (split == "train" and i == 0) else 1
+            meta = {"case_id": cid, "case_submitter_id": sub,
+                    "project_id": "TCGA-BRCA", "primary_class": i % 2,
+                    "durations": float(rng.integers(2, 100)),
+                    "vital_status": int(rng.random() < 0.7)}
+            for s in range(n_slides):
+                path = slide(f"{sub}-DX{s + 1}",
+                             two_slides if n_slides == 2 else one_slide)
+                if split != "train":       # into the packed container
+                    to_pack.append(path)
+                    path = f"{cache}:{len(to_pack) - 1}"
+                rows.append(dict(meta, slide_submitter_id=f"{sub}-DX{s + 1}",
+                                 features_path=path))
+            text[cid] = torch.from_numpy(rng.standard_normal(
+                (4, 512), dtype=np.float32))
+            gene_rows.append((sub, rng.standard_normal(n_genes)))
+        with open(root / f"{split}.json", "w") as f:
+            json.dump({"data": rows}, f)
+        flags += [f"--{split}_json", str(root / f"{split}.json")]
+    pack_feature_files(to_pack, str(cache))
+    for path in to_pack:
+        Path(path).unlink()
+    torch.save(text, root / "text.pt")
+    with open(root / "genes.csv", "w") as f:
+        f.write("case_id," + ",".join(genes) + "\n")
+        for sub, vec in gene_rows:
+            f.write(sub + "," + ",".join(f"{v:.5f}" for v in vec) + "\n")
+    groups = synthetic_pathways(n_genes=n_genes, n_groups=n_groups,
+                                max_size=max_size, seed=0)
+    member = np.zeros((n_genes, n_groups), np.int64)
+    for j, names in groups.items():
+        member[[int(g[1:]) for g in names], j] = 1
+    with open(root / "pathways.csv", "w") as f:
+        f.write("gene," + ",".join(f"P{j}" for j in range(n_groups)) + "\n")
+        for g, row in zip(genes, member):
+            f.write(g + "," + ",".join(map(str, row)) + "\n")
+    return flags + ["--genomics_csv_path", str(root / "genes.csv"),
+                    "--pathway_csv", str(root / "pathways.csv"),
+                    "--text_location", str(root / "text.pt")]
+
+
+def phase_trainer(device, card="", data_kw=None, flags=None):
+    """The port's train CLI (``run_one_seed``) in-process on the
+    reference's file formats at ``data_kw``'s sizes (``TRAINER_DATA``):
+    two epochs of training with the in-loop readout on val, test with the
+    best weights, a full-state checkpoint every epoch, deploy. Prints the
+    trainer's median ms/step (each step ends when its loss reaches the
+    host, after the update), s/epoch, the loader's host ms per batch (the
+    time the epoch loop blocks in the train loader's next()), eval and
+    deploy seconds, peak memory and the readout rows. Checks: finite
+    losses; the best weights reload strictly in a fresh trainer and a file
+    missing one tensor is refused; the checkpoint restores bit-equal; the
+    deploy's results and embeddings; the test embeddings equal the embed
+    step of the reloaded model on the same batches; every ``.mtbc`` read
+    took the native reader; K1f, K1b, K2f and K2b launched."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from modaltune_tpu_torch import create_aggregator, make_embed_step
+    from modaltune_tpu_torch.data import BucketedLoader
+    from modaltune_tpu_torch.data import datasets as data_mod
+    from modaltune_tpu_torch.tools import train as cli
+    from modaltune_tpu_torch.train import trainer as trainer_mod
+    from modaltune_tpu_torch.train import batch_to_device
+    data_kw = data_kw or TRAINER_DATA
+    flags = TRAINER_FLAGS if flags is None else flags
+    Trainer = trainer_mod.ModalTuneTrainer
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        data_flags = write_reference_files(root, **data_kw)
+        args = cli.build_parser().parse_args(
+            flags + data_flags + ["--output_path", str(root / "results"),
+                                  "--device", device.type])
+        print(f"trainer: reference files written in "
+              f"{time.perf_counter() - t0:.1f} s "
+              f"({sum(f.stat().st_size for f in root.rglob('*') if f.is_file()) / 2**30:.3f} GiB)",
+              flush=True)
+
+        trainers, seconds = [], {}
+        init = Trainer.__init__
+
+        def spy_init(self, *a, **k):
+            init(self, *a, **k)
+            trainers.append(self)
+
+        def timed(name):
+            fn = getattr(Trainer, name)
+
+            def wrapper(self, *a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(self, *a, **k)
+                torch.cuda.synchronize()
+                seconds.setdefault(name, []).append(time.perf_counter() - t)
+                return out
+            return mock.patch.object(Trainer, name, wrapper)
+
+        patches = [mock.patch.object(Trainer, "__init__", spy_init)] + [
+            timed(n) for n in ("train_one_epoch", "fit_readout_heads",
+                               "evaluate", "deploy")]
+        data_mod._BAGCACHE_READERS.clear()
+        torch.cuda.reset_peak_memory_stats()
+        for p in patches:
+            p.start()
+        # the main path: every launch count starts at 0 just before it
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            cli.run_one_seed(args)
+        finally:
+            for p in patches:
+                p.stop()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        (trainer,) = trainers
+        run = root / "results" / "seed_0"
+
+        rows = [json.loads(line) for line in open(run / "run_metrics.jsonl")]
+        losses = [r["train_loss"] for r in rows if "train_loss" in r]
+        check(len(losses) == trainer.cfg.num_epochs and
+              all(math.isfinite(x) for x in losses),
+              f"trainer: epoch losses {losses}")
+        step_ms = statistics.median(trainer.step_ms)
+        loader_ms = trainer.loader_ms
+        print(f"trainer: {len(trainer.step_ms)} train steps, median "
+              f"{step_ms:.2f} ms/step ({[round(x, 2) for x in trainer.step_ms]}); "
+              f"s/epoch {[round(x, 2) for x in seconds['train_one_epoch']]}; "
+              f"epoch losses {losses}; {card}", flush=True)
+        print(f"trainer: loader host ms per batch (blocked in next()) mean "
+              f"{statistics.mean(loader_ms):.3f}, median "
+              f"{statistics.median(loader_ms):.3f}, max {max(loader_ms):.3f} "
+              f"({[round(x, 3) for x in loader_ms]})", flush=True)
+        print(f"trainer: readout fits {sum(seconds['fit_readout_heads']):.2f} "
+              f"s ({len(seconds['fit_readout_heads'])} fits), evaluate "
+              f"{sum(seconds['evaluate']):.2f} s "
+              f"({len(seconds['evaluate'])} splits), deploy "
+              f"{sum(seconds['deploy']):.2f} s; run_one_seed {wall:.1f} s; "
+              f"peak allocated {peak / 2**30:.3f} GiB; launches {launches}",
+              flush=True)
+        for r in rows:
+            if "val_cls_loss" in r or "test_cls_loss" in r:
+                print(f"trainer: readout {json.dumps(r)}", flush=True)
+
+        # best weights: a fresh trainer loads them strictly; its embed step
+        # gives the deploy's test embeddings on the same batches; a file
+        # with one tensor removed is refused
+        best = run / "best_model_weights.pt"
+        check(best.exists(), "trainer: no best_model_weights.pt")
+        datasets, packer = cli.load_real_datasets(args)
+        model = create_aggregator(
+            args.mil_name, device=device, cfg=cli.model_config(args),
+            n_gene_groups=packer.n_groups, max_group_len=packer.max_group_len)
+
+        def fresh_trainer(name):
+            t = Trainer(model, trainer.cfg, datasets, str(root / name),
+                        buckets=trainer.buckets)
+            t.init_state(cli.initial_params(model, args),
+                         frozen_dtype=torch.bfloat16)
+            return t
+
+        fresh = fresh_trainer("fresh")
+        fresh.load_weights(str(best))
+        deploy = json.load(open(run / "deploy_results.json"))
+        check(all(all(k in deploy.get(t, {}) for k in ("c_index", "acc"))
+                  for t in ("General", "Diagnosis", "Survival")),
+              f"trainer: deploy results {deploy}")
+        feats = {}
+        for split in ("train", "val", "test"):
+            x = np.load(run / "data" / f"x_feats_{split}.npy")
+            n = len(trainer.datasets[split])
+            check(x.shape == (n, 3, 256) and np.isfinite(x).all(),
+                  f"trainer: x_feats_{split} {x.shape}")
+            feats[split] = x
+        loader = BucketedLoader(datasets["test"], buckets=trainer.buckets,
+                                shuffle=False, prefetch=0)
+        embed = make_embed_step(model, trainer.cfg)
+        again = np.concatenate([
+            embed(batch_to_device(b, device)).float().cpu().numpy()
+            for b in loader])
+        diff = float(np.abs(again - feats["test"]).max())
+        check(diff == 0.0, f"trainer: deploy's test embeddings differ from "
+              f"the reloaded model's embed step by {diff}")
+        sd = torch.load(best, map_location="cpu", weights_only=True)
+        dropped = sorted(sd)[len(sd) // 2]
+        del sd[dropped]
+        torch.save(sd, root / "broken.pt")
+        try:
+            fresh.load_weights(str(root / "broken.pt"))
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, f"trainer: weights without {dropped} were accepted")
+
+        # the checkpoint restores bit-equal
+        restored = fresh_trainer("restored")
+        restored.out_dir = run
+        ck = torch.load(run / "ckpt.pt", map_location="cpu",
+                        weights_only=True)
+        check(restored.restore_checkpoint(), "trainer: no checkpoint")
+        same_params = all(torch.equal(p.detach().cpu(), ck["trainable"][n])
+                          for n, p in model.named_parameters()
+                          if p.requires_grad)
+        want, got = (trainer.optimizer.adamw.state_dict()["state"],
+                     restored.optimizer.adamw.state_dict()["state"])
+        same_adamw = want.keys() == got.keys() and all(
+            torch.equal(want[i][k].cpu(), got[i][k].cpu())
+            for i in want for k in want[i])
+        check(restored.current_epoch == trainer.cfg.num_epochs and
+              restored.optimizer.updates == trainer.optimizer.updates and
+              same_params and same_adamw,
+              f"trainer: restored epoch {restored.current_epoch}, updates "
+              f"{restored.optimizer.updates} (saved "
+              f"{trainer.optimizer.updates}), trainable equal {same_params}, "
+              f"AdamW equal {same_adamw}")
+        print(f"trainer: best weights reloaded strictly, a file without "
+              f"{dropped} refused; checkpoint restored at epoch "
+              f"{restored.current_epoch}, {restored.optimizer.updates} "
+              f"updates, {len(ck['trainable'])} trainable tensors and "
+              f"{len(got)} AdamW states bit-equal", flush=True)
+        readers = list(data_mod._BAGCACHE_READERS.values())
+        check(readers and all(r.native for r in readers),
+              f"trainer: .mtbc readers native: {[r.native for r in readers]}")
+        print(f"trainer: deploy {json.dumps(deploy)}", flush=True)
+        print(f"trainer: x_feats {[feats[s].shape for s in feats]} finite; "
+              f"test embeddings equal the reloaded model's embed step; "
+              f"{len(readers)} .mtbc reader(s), all native", flush=True)
+    check(all(launches[k] > 0 for k in ("K1f", "K1b", "K2f", "K2b")),
+          f"trainer: launches {launches}")
+    return dict(launches=launches, ms=step_ms, loader_ms=loader_ms,
+                peak_bytes=peak, losses=losses, seconds=seconds)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1924,10 +2216,13 @@ def main() -> int:
     paths["titan_train"] = phase_train(
         device, card=card, build_kw=TITAN, compare_kw=TITAN_2047,
         tag="titan train")
+    # the trainer slice: the port's train CLI, train -> val -> test ->
+    # deploy, on the reference's file formats at full width
+    paths["gigapath_trainer"] = phase_trainer(device, card=card)
 
     def kernel(key, name, replaces, err, res, by_shape=None, source=None,
                family=None):
-        """One entry of the kernels line. launches: the sum over the six
+        """One entry of the kernels line. launches: the sum over the seven
         paths' runs (by_path: each run's own count, every count set to 0
         just before it); max_abs_err: the largest output or gradient error
         of any comparison above; ms, plain_ms, bound_ms, library_ms: at

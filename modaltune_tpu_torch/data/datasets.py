@@ -16,16 +16,22 @@ TPU execution:
 * gene dicts of 331 ragged tensors become one dense
   ``(n_groups, max_group_len)`` block (see ``pathways.GenePacker``).
 
-The readers of cached feature bags, embedding tables, split files and
-gene tables (``FeatureBagDataset``, ``load_feature_bag``, ``bagcache``)
-are not part of this copy yet: no path of the port reads a file so far.
+Feature bags load from ``.npz`` (keys ``features``/``coords``), the
+reference's torch ``.pt`` caches, or the packed container of
+``bagcache.py`` (``cache.mtbc:IDX``). The port's copy reads CSV tables
+with the ``csv`` module where the JAX package's uses pandas, and loads
+``.pt`` files with ``weights_only=True``: the reference's feature, text
+and clinical files are dicts of tensors.
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
+import json
 import threading
 import queue as queue_mod
+from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -119,8 +125,142 @@ def collate(examples: Sequence[Example], bucket: int) -> Batch:
     )
 
 
+_BAGCACHE_READERS: Dict[str, object] = {}
+
+
+def load_feature_bag(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Load one slide's cached tile features: (features, coords).
+
+    Supports per-slide ``.npz``/``.pt`` files and the packed native
+    container via ``cache.mtbc:IDX`` paths (see data/bagcache.py)."""
+    if ".mtbc:" in str(path):
+        base, idx = str(path).rsplit(":", 1)
+        from .bagcache import BagCacheReader
+        reader = _BAGCACHE_READERS.get(base)
+        if reader is None:
+            reader = BagCacheReader(base)
+            _BAGCACHE_READERS[base] = reader
+        return reader.read(int(idx))
+    p = Path(path)
+    if p.suffix == ".npz":
+        z = np.load(p)
+        return np.asarray(z["features"], np.float32), \
+            np.asarray(z["coords"], np.float32)
+    if p.suffix in (".pt", ".pth"):
+        import torch
+        d = torch.load(p, map_location="cpu", weights_only=True)
+        return d["features"].numpy().astype(np.float32), \
+            d["coords"].numpy().astype(np.float32)
+    raise ValueError(f"Unsupported feature file: {path}")
+
+
+def load_embedding_dict(path: str) -> Dict[str, np.ndarray]:
+    """Load a ``case_id -> array`` embedding table.
+
+    Accepts ``.npz`` archives and the reference's torch ``.pt``/``.pth``
+    dicts as-is (text embeddings and clinical features are distributed
+    that way: ``data_utils/datasets.py:180,203`` torch.loads
+    ``text_location``/``clinical_location``), so a reference user's
+    existing artifacts drop straight in."""
+    p = Path(path)
+    if p.suffix == ".npz":
+        z = np.load(p)
+        return {k: np.asarray(z[k], np.float32) for k in z.files}
+    if p.suffix in (".pt", ".pth"):
+        import torch
+        d = torch.load(p, map_location="cpu", weights_only=True)
+        return {str(k): np.asarray(v.numpy() if hasattr(v, "numpy")
+                                   else v, np.float32)
+                for k, v in d.items()}
+    raise ValueError(f"Unsupported embedding table: {path}")
+
+
+class FeatureBagDataset:
+    """Case-wise multi-modal dataset over a split datalist.
+
+    Args:
+      datalist: list of per-slide dicts (the reference's split-JSON rows:
+        ``case_id``, ``case_submitter_id``, ``features_path``, label
+        fields, ``vital_status``, ``durations``, ``project_id``...).
+      gene_matrix: (n_cases, n_genes) float32, already normalized.
+      gene_case_ids: row order of ``gene_matrix`` (case_submitter_id).
+      packer: GenePacker for pathway blocks.
+      text_embeddings: case_id -> (4, 512) array.
+      clinical: case_id -> (clinfeat_dim,) array, or None.
+      labelset: which field is the class label.
+      threshold: max patches per bag (random sorted subsample above it).
+      site_label: project_id -> int site mapping (pan-cancer), optional.
+    """
+
+    def __init__(self, datalist: List[dict], gene_matrix: np.ndarray,
+                 gene_case_ids: Sequence[str], packer: GenePacker,
+                 text_embeddings: Dict[str, np.ndarray],
+                 clinical: Optional[Dict[str, np.ndarray]] = None,
+                 labelset: str = "primary_class", threshold: int = 25000,
+                 site_label: Optional[Dict[str, int]] = None):
+        self.packer = packer
+        self.text_embeddings = text_embeddings
+        self.clinical = clinical
+        self.labelset = labelset
+        self.threshold = threshold
+        self.site_label = site_label or {}
+        self.gene_rows = {cid: i for i, cid in enumerate(gene_case_ids)}
+        self.gene_matrix = np.asarray(gene_matrix, np.float32)
+
+        # keep only cases present in the gene table (datasets.py:192-197)
+        self.by_case: Dict[str, List[dict]] = {}
+        for row in datalist:
+            if row["case_submitter_id"] not in self.gene_rows:
+                continue
+            self.by_case.setdefault(row["case_id"], []).append(row)
+        self.case_ids = sorted(self.by_case)
+
+    def __len__(self) -> int:
+        return len(self.case_ids)
+
+    def metadata(self) -> List[dict]:
+        """First slide row per case (for eval label frames)."""
+        return [self.by_case[c][0] for c in self.case_ids]
+
+    def get(self, index: int, rng: np.random.RandomState) -> Example:
+        case_id = self.case_ids[index]
+        rows = self.by_case[case_id]
+        bags, coords = [], []
+        offset = 0.0
+        for row in rows:
+            f, c = load_feature_bag(row["features_path"])
+            c = c + np.array([0.0, offset], np.float32)
+            # +1500 between slides, like datasets.py:236-238
+            offset = float(c[:, 1].max()) + 1500.0
+            bags.append(f)
+            coords.append(c)
+        bag = np.concatenate(bags)
+        coord = np.concatenate(coords)
+        if bag.shape[0] > self.threshold:
+            idx = np.sort(rng.permutation(bag.shape[0])[:self.threshold])
+            bag, coord = bag[idx], coord[idx]
+
+        meta = rows[0]
+        gene_vec = self.gene_matrix[self.gene_rows[meta["case_submitter_id"]]]
+        label = meta.get(self.labelset, -1)
+        label = int(label) if label is not None and str(label) != "nan" \
+            else -1
+        dur = meta.get("durations", float("nan"))
+        dur = float(dur) if dur is not None else float("nan")
+        ev = meta.get("vital_status", 0)
+        clin = None
+        if self.clinical is not None:
+            clin = np.asarray(self.clinical[case_id], np.float32)
+        return Example(
+            bag=bag, coords=coord, genes=self.packer.pack(gene_vec),
+            text=np.asarray(self.text_embeddings[case_id], np.float32),
+            clinical=clin, label=label, duration=dur, event=int(ev),
+            case_id=case_id,
+            site=self.site_label.get(meta.get("project_id", ""), 0))
+
+
 class SyntheticSlideDataset:
-    """Random dataset with the case-wise dataset interface, for tests and
+    """Random dataset with the FeatureBagDataset interface, for tests and
     benchmarks (stands in for cached TCGA GigaPath features)."""
 
     def __init__(self, n_cases: int = 16, in_chans: int = 1536,
@@ -392,3 +532,26 @@ def kfold_splits(dataset, n_folds: int, seed: int = 0):
         out.append((SubsetDataset(dataset, train_idx.tolist()),
                     SubsetDataset(dataset, val_idx.tolist())))
     return out
+
+
+def load_split_json(path: str) -> List[dict]:
+    with open(path) as f:
+        return json.load(f)
+
+
+def load_gene_csv(path: str):
+    """Gene CSV (first column case_id) -> (matrix, case_ids, gene_names),
+    StandardScaler-normalized over all rows like ``datasets.py:185-188``.
+    An empty cell reads as NaN, as pandas reads it."""
+    with open(path, newline="") as f:
+        reader = csv.reader(f)
+        header = next(reader)
+        rows = [row for row in reader if row]
+    case_ids = [row[0] for row in rows]
+    genes = header[1:]
+    x = np.array([[float(v) if v.strip() else np.nan for v in row[1:]]
+                  for row in rows], np.float64).reshape(len(rows), len(genes))
+    mean = x.mean(axis=0)
+    std = x.std(axis=0)
+    std[std == 0] = 1.0
+    return ((x - mean) / std).astype(np.float32), case_ids, genes

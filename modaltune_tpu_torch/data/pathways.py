@@ -11,6 +11,7 @@ static shapes.
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 from typing import Dict, List, Optional, Sequence
 
@@ -22,15 +23,23 @@ def pathway_gene_groups(pathway_csv: str) -> Dict[int, List[str]]:
 
     CSV layout: first column ``gene``, remaining columns one per pathway
     with 0/1 membership (``gene_pathway_processed_v2.csv``: 4987 genes x
-    331 pathways in the reference's dataset).
+    331 pathways in the reference's dataset). Read with the ``csv`` module:
+    a cell is a member where it reads as the number 1, as pandas's
+    ``df[col] == 1`` has it in the JAX package's copy.
     """
-    import pandas as pd
-    df = pd.read_csv(pathway_csv)
-    genes = df.iloc[:, 0]
-    groups: Dict[int, List[str]] = {}
-    for i, col in enumerate(df.columns[1:]):
-        groups[i] = genes[df[col] == 1].tolist()
-    return groups
+    with open(pathway_csv, newline="") as f:
+        reader = csv.reader(f)
+        header = next(reader)
+        rows = [row for row in reader if row]
+    return {i: [row[0] for row in rows if _is_one(row[i + 1])]
+            for i in range(len(header) - 1)}
+
+
+def _is_one(cell: str) -> bool:
+    try:
+        return float(cell) == 1.0
+    except ValueError:
+        return False
 
 
 @dataclasses.dataclass

@@ -4,7 +4,9 @@ Counterpart of ``modaltune_tpu/models/longnet.py``: pre-norm sub-LN
 encoder layers whose self-attention is
 :func:`..ops.dilated_mega.mega_dilated_attention` (the K1 kernel on CUDA)
 or, with ``LongNetConfig.mega_attention`` off,
-:func:`..ops.dilated_fused.fused_dilated_attention` (K3), and whose FFN is
+:func:`..ops.dilated_fused.fused_dilated_attention` (K3) or, with
+``LongNetConfig.fused_attention`` off, :func:`..ops.dilated.dilated_attention`
+with every branch on the K2 flash kernels, and whose FFN is
 fc1 -> exact fp32 GELU -> sub-LN -> fc2, the GELU and the sub-LN as two ops
 or, when asked for, as the one fused op :func:`..ops.gelu_ln.gelu_ln` (K5).
 Padded tokens are masked out of every attention and re-zeroed after every
@@ -16,6 +18,7 @@ have no counterpart: the layers are a plain ``nn.ModuleList`` and
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional
 
@@ -24,6 +27,7 @@ from torch import nn
 
 from ..configs import LongNetConfig
 from ..ops.activations import gelu_exact
+from ..ops.dilated import dilated_attention
 from ..ops.dilated_fused import fused_dilated_attention
 from ..ops.dilated_mega import mega_dilated_attention
 from ..ops.gelu_ln import gelu_ln
@@ -34,7 +38,10 @@ class DilatedSelfAttention(nn.Module):
     """q/k/v/out projections around multi-branch dilated attention, with
     the sub-LN ``inner_attn_ln`` before the output projection. The
     attention is the one-launch K1 with ``cfg.mega_attention``, else the
-    per-branch K3; both compute one function."""
+    per-branch K3; with ``cfg.fused_attention`` off (the CLI's
+    ``--fused_attention 0``) it is :func:`..ops.dilated.dilated_attention`
+    with each branch on the K2 flash kernels, as the JAX package then runs
+    ``dilated_attention(use_pallas=None)``. All compute one function."""
 
     def __init__(self, cfg: LongNetConfig):
         super().__init__()
@@ -55,8 +62,12 @@ class DilatedSelfAttention(nn.Module):
         def split(t):
             return t.view(b, length, c.num_heads, c.head_dim)
 
-        attn = (mega_dilated_attention if c.mega_attention
-                else fused_dilated_attention)
+        if not c.fused_attention:
+            attn = functools.partial(dilated_attention, kernel=True)
+        elif c.mega_attention:
+            attn = mega_dilated_attention
+        else:
+            attn = fused_dilated_attention
         out = attn(
             split(self.q_proj(x)), split(self.k_proj(x)),
             split(self.v_proj(x)), segment_lengths=c.segment_lengths,

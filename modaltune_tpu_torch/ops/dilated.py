@@ -9,7 +9,10 @@ Counterpart of ``modaltune_tpu/ops/dilated.py`` ("diagonal" layout). Per
 2. inside a segment, head group ``g`` (heads ``g*hg .. (g+1)*hg - 1`` once
    the heads are padded to a multiple of ``r``) attends the positions
    ``≡ g (mod r)`` — the head-rotated gather of :func:`dense_to_sparse`;
-3. each branch runs :func:`flash_attention_reference` and returns
+3. each branch runs :func:`flash_attention_reference` (or, with
+   ``kernel=True``, :func:`flash_attention`: K2f and K2b on CUDA tensors,
+   the JAX package's per-branch route with ``fused_attention=False``) and
+   returns
    ``(out, lse)``, scattered back to dense layout by
    :func:`sparse_to_dense` (off-pattern slots get lse ``NEG_INF``);
 4. the branches are mixed per token and head with fp32 ``softmax(lse)``
@@ -28,7 +31,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from .flash_attention import (MASK_THRESHOLD, NEG_INF,
+from .flash_attention import (MASK_THRESHOLD, NEG_INF, flash_attention,
                               flash_attention_reference)
 
 
@@ -90,8 +93,11 @@ def sparse_to_dense(out: torch.Tensor, lse: torch.Tensor, ratio: int,
     return dense_out[:, :seg_len, :h], dense_lse[:, :seg_len, :h]
 
 
-def _branch(q, k, v, mask, seg_len: int, ratio: int, scale: float):
-    """One (segment_length, dilation_ratio) branch.
+def _branch(q, k, v, mask, seg_len: int, ratio: int, scale: float,
+            attention):
+    """One (segment_length, dilation_ratio) branch, its attention computed
+    by ``attention`` (:func:`flash_attention_reference` or
+    :func:`flash_attention`).
 
     q/k/v: ``(B, L, H, D)``; mask: ``(B, L)`` bool. Returns dense fp32
     ``out (B, L, H, D)`` and ``lse (B, L, H)``.
@@ -114,11 +120,11 @@ def _branch(q, k, v, mask, seg_len: int, ratio: int, scale: float):
 
     bn, s = qs.shape[0], qs.shape[1]
     # (B*n*H, S, D) layout for the attention
-    qk = qs.movedim(2, 1).reshape(bn * h, s, d)
-    kk = ks.movedim(2, 1).reshape(bn * h, s, d)
-    vk = vs.movedim(2, 1).reshape(bn * h, s, d)
+    qk = qs.movedim(2, 1).reshape(bn * h, s, d).contiguous()
+    kk = ks.movedim(2, 1).reshape(bn * h, s, d).contiguous()
+    vk = vs.movedim(2, 1).reshape(bn * h, s, d).contiguous()
     bias = torch.where(ms.movedim(2, 1).reshape(bn * h, s), 0.0, NEG_INF)
-    out, lse = flash_attention_reference(qk, kk, vk, bias, scale)
+    out, lse = attention(qk, kk, vk, bias.contiguous(), scale)
 
     out = out.reshape(bn, h, s, d).movedim(1, 2)  # (B*n, S, H, D)
     lse = lse.reshape(bn, h, s).movedim(1, 2)     # (B*n, S, H)
@@ -128,15 +134,18 @@ def _branch(q, k, v, mask, seg_len: int, ratio: int, scale: float):
     return out, lse
 
 
-def _branches(q, k, v, mask, segment_lengths, dilated_ratios, scale):
+def _branches(q, k, v, mask, segment_lengths, dilated_ratios, scale,
+              kernel=False):
     """Every branch's dense ``(out, lse)``; see :func:`_branch`."""
+    attention = flash_attention if kernel else flash_attention_reference
     if len(segment_lengths) != len(dilated_ratios):
         raise ValueError("one dilation ratio per segment length")
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if mask is None:
         mask = torch.ones(q.shape[:2], dtype=torch.bool, device=q.device)
-    return zip(*(_branch(q, k, v, mask.bool(), int(sl), int(r), float(scale))
+    return zip(*(_branch(q, k, v, mask.bool(), int(sl), int(r), float(scale),
+                         attention)
                  for sl, r in zip(segment_lengths, dilated_ratios)))
 
 
@@ -144,7 +153,8 @@ def dilated_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       segment_lengths: Sequence[int],
                       dilated_ratios: Sequence[int],
                       mask: Optional[torch.Tensor] = None,
-                      scale: Optional[float] = None) -> torch.Tensor:
+                      scale: Optional[float] = None,
+                      kernel: bool = False) -> torch.Tensor:
     """Multi-branch LongNet dilated attention, plain PyTorch.
 
     q/k/v: ``(B, L, H, D)`` (after the projections); mask: ``(B, L)`` bool
@@ -152,9 +162,11 @@ def dilated_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q's dtype: the branches' outputs mixed per (token, head) with fp32
     ``softmax(lse)`` weights. The weights carry no gradient (the JAX
     package's ``stop_gradient``, which the K1 backward assumes).
+    ``kernel=True`` runs each branch's attention through
+    :func:`flash_attention` (the K2 kernels on CUDA tensors).
     """
     outs, lses = _branches(q, k, v, mask, segment_lengths, dilated_ratios,
-                           scale)
+                           scale, kernel)
     if len(outs) == 1:
         return outs[0].to(q.dtype)
     w = torch.softmax(torch.stack(lses).detach(), dim=0)  # (n_br, B, L, H)

@@ -31,10 +31,19 @@ Inputs = Dict[str, Optional[torch.Tensor]]
 
 def batch_to_device(batch: Batch, device=None
                     ) -> Dict[str, Optional[torch.Tensor]]:
-    """Host numpy batch -> dict of tensors on ``device`` (bag, coords, mask,
-    genes, clinical). ``device=None`` is the card (an error where there is
-    none), reached by an asynchronous copy from pinned memory."""
-    return {name: device_put(getattr(batch, name), device)
+    """Batch -> dict of tensors on ``device`` (bag, coords, mask, genes,
+    clinical). ``device=None`` is the card (an error where there is none),
+    reached by an asynchronous copy from pinned memory. A field that is a
+    tensor already (a loader's device prefetch put it there) is moved only
+    if it lies elsewhere."""
+    target = torch.device("cuda" if device is None else device)
+
+    def put(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(target, non_blocking=True)
+        return device_put(a, target)
+
+    return {name: put(getattr(batch, name))
             for name in ("bag", "coords", "mask", "genes", "clinical")}
 
 
@@ -67,11 +76,12 @@ def make_embed_step(model: nn.Module, cfg: TrainConfig
                     ) -> Callable[[Dict[str, Optional[torch.Tensor]]],
                                   torch.Tensor]:
     """Feature-extraction step: ``step(batch) -> (B, T, output_dim)``
-    embeddings, the model in eval mode and no autograd state kept."""
+    embeddings, the model in eval mode and no autograd state kept, under
+    the same autocast as the train and eval steps."""
 
     def step(batch: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
         model.eval()
-        with torch.inference_mode():
+        with torch.inference_mode(), _autocast(model, batch["bag"].device):
             return multitask_logits(model, batch, cfg.num_tasks)
 
     return step

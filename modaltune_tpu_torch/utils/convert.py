@@ -22,7 +22,9 @@ the two compute the same function. The names line up by rule:
   carried as they are.
 
 It raises on a JAX key that maps to no port parameter, on a port
-parameter that no JAX key sets, and on a shape that differs.
+parameter that no JAX key sets, and on a shape that differs; with
+``subtree="backbone"`` it converts the backbone alone (the CLI's
+``--backbone_weights``). ``port_names`` is the renaming alone.
 
 ``projector_from_jax(tree)`` does the same for the frozen random text
 projector of the KD loss (``modaltune_tpu.train.TextProjector``), so that
@@ -32,7 +34,7 @@ both packages distil towards the same targets.
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -78,8 +80,9 @@ def _leaf(parts, arr: np.ndarray):
     return parts, arr
 
 
-def params_from_jax(tree: dict, model: nn.Module) -> Dict[str, torch.Tensor]:
-    """JAX ModalTune parameter tree -> the port model's ``state_dict``."""
+def port_names(tree: dict) -> Dict[str, np.ndarray]:
+    """JAX ModalTune parameter tree -> ``{port parameter name: array}`` by
+    the rules above, unchecked against any model."""
     flat = flatten_params(tree)
     spans = {}
     for key, arr in flat.items():
@@ -103,8 +106,20 @@ def params_from_jax(tree: dict, model: nn.Module) -> Dict[str, torch.Tensor]:
         else:
             name, val = _leaf(_port_parts(parts), arr)
             out[".".join(name)] = val
+    return out
 
+
+def params_from_jax(tree: dict, model: nn.Module,
+                    subtree: Optional[str] = None) -> Dict[str, torch.Tensor]:
+    """JAX ModalTune parameter tree -> the port model's ``state_dict``.
+
+    With ``subtree`` (``"backbone"``), ``tree`` holds that one top-level
+    key and the result sets exactly the model's parameters under it."""
+    out = port_names(tree)
     want = model.state_dict()
+    if subtree is not None:
+        want = {k: v for k, v in want.items()
+                if k.split(".")[0] == subtree}
     unused = sorted(set(out) - set(want))
     unset = sorted(set(want) - set(out))
     if unused or unset:

@@ -3,11 +3,15 @@ framework-free layers have not drifted.
 
 * No module of ``modaltune_tpu_torch``, nor ``chip_smoke.py`` nor
   ``profile_train.py``, imports ``jax``, ``flax``, ``optax`` or anything of
-  ``modaltune_tpu`` (walked with ``ast``, so an import inside a function
-  counts too).
+  ``modaltune_tpu``, nor ``sklearn`` or ``pandas``, which the card's
+  machine does not have (walked with ``ast``, so an import inside a
+  function counts too).
 * The copied ``configs`` dataclasses equal the JAX package's field for
-  field, default for default, and the copied data layer (all of it but
-  the file readers) gives the same arrays for a seed.
+  field, default for default; the copied data layer gives the same arrays
+  for a seed (its file readers: ``test_torch_data_readers.py``); the
+  verbatim copies (``utils/constants.py``, ``utils/logging.py``,
+  ``native/bagcache.cpp``, the readout's numpy functions) are the same
+  text; ``params_io`` reads and writes the same ``.npz`` files.
 """
 
 import ast
@@ -26,6 +30,8 @@ from modaltune_tpu_torch.utils import params_io as p_params_io
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "optax", "modaltune_tpu")
+# not installed beside the card
+FORBIDDEN_HOST = ("sklearn", "pandas")
 PORT_FILES = sorted((REPO / "modaltune_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "profile_train.py"]
 
@@ -46,7 +52,11 @@ def test_port_files_are_found():
             "modaltune_tpu_torch/data/datasets.py",
             "modaltune_tpu_torch/models/titan.py",
             "modaltune_tpu_torch/ops/alibi_flash.py",
-            "modaltune_tpu_torch/utils/convert.py", "chip_smoke.py",
+            "modaltune_tpu_torch/utils/convert.py",
+            "modaltune_tpu_torch/data/bagcache.py",
+            "modaltune_tpu_torch/eval/readout.py",
+            "modaltune_tpu_torch/train/trainer.py",
+            "modaltune_tpu_torch/tools/train.py", "chip_smoke.py",
             "profile_train.py"} <= names
 
 
@@ -56,6 +66,15 @@ def test_port_files_are_found():
 def test_port_imports_nothing_of_jax(path):
     bad = [m for m in _imports(path)
            if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=[p.relative_to(REPO).as_posix()
+                             for p in PORT_FILES])
+def test_port_imports_no_sklearn_or_pandas(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in FORBIDDEN_HOST]
     assert not bad, f"{path.name} imports {bad}"
 
 
@@ -92,12 +111,6 @@ def test_config_functions_equal_jax():
     assert set(j_configs.__all__) <= set(dir(p_configs))
 
 
-# what the port's copy of the data layer leaves out until something of the
-# port reads a file
-FILE_READERS = {"FeatureBagDataset", "load_embedding_dict",
-                "load_feature_bag", "load_gene_csv", "load_split_json"}
-
-
 def _batches(data, titan):
     groups = data.synthetic_pathways(n_genes=60, n_groups=12, max_size=7,
                                      seed=0)
@@ -129,7 +142,7 @@ def test_data_copy_equals_jax(titan):
             else:
                 assert a == b, f.name
     assert p_data.DEFAULT_BUCKETS == j_data.DEFAULT_BUCKETS
-    assert set(j_data.__all__) - FILE_READERS <= set(p_data.__all__)
+    assert set(j_data.__all__) <= set(p_data.__all__)
 
 
 def test_kfold_splits_copy_equals_jax():
@@ -160,6 +173,28 @@ def test_device_prefetch_puts_tensors_on_the_device(monkeypatch):
     assert p_data.device_put(None, "cpu") is None
 
 
+def test_batch_to_device_passes_device_tensors_through():
+    """A batch whose fields a device prefetch already made tensors on the
+    target device is handed to the step as it is; numpy fields are
+    copied."""
+    import torch
+    from modaltune_tpu_torch.train import batch_to_device
+    (batch,) = _batches(p_data, False)[:1]
+    loader = p_data.BucketedLoader(None, device_prefetch=True)
+    with pytest.MonkeyPatch.context() as mp:
+        from modaltune_tpu_torch.data import datasets
+        mp.setattr(datasets, "device_put",
+                   lambda a, device=None: p_data.device_put(a, "cpu"))
+        moved = loader._to_device(batch)
+    got = batch_to_device(moved, "cpu")
+    for name in ("bag", "coords", "mask", "genes", "clinical"):
+        assert got[name] is getattr(moved, name), name
+    fresh = batch_to_device(batch, "cpu")
+    for name in ("bag", "coords", "mask", "genes", "clinical"):
+        assert isinstance(fresh[name], torch.Tensor)
+        assert np.array_equal(fresh[name].numpy(), getattr(batch, name))
+
+
 def test_params_io_copy_equals_jax():
     tree = {"a": {"b": np.arange(3), "c": {"d": np.ones((2, 2))}},
             "e": np.zeros(1)}
@@ -170,3 +205,52 @@ def test_params_io_copy_equals_jax():
     back = p_params_io.unflatten_params(got)
     assert back.keys() == tree.keys() and \
         np.array_equal(back["a"]["c"]["d"], tree["a"]["c"]["d"])
+
+
+VERBATIM = [("modaltune_tpu/utils/constants.py",
+             "modaltune_tpu_torch/utils/constants.py"),
+            ("modaltune_tpu/utils/logging.py",
+             "modaltune_tpu_torch/utils/logging.py"),
+            ("modaltune_tpu/native/bagcache.cpp",
+             "modaltune_tpu_torch/native/bagcache.cpp")]
+
+
+@pytest.mark.parametrize("jax_file,port_file", VERBATIM,
+                         ids=[p for _, p in VERBATIM])
+def test_verbatim_copies_equal_jax(jax_file, port_file):
+    assert (REPO / port_file).read_text() == (REPO / jax_file).read_text()
+
+
+def test_readout_numpy_code_equals_jax():
+    """The readout's numpy-only names are the JAX package's code as it
+    is; only the sklearn-backed fits and metrics are rebuilt."""
+    import inspect
+    from modaltune_tpu.eval import readout as j_readout
+    from modaltune_tpu_torch.eval import readout as p_readout
+    assert p_readout.TASK_NAMES == j_readout.TASK_NAMES
+    for name in ("filter_labelset", "concordance_index", "CoxPH",
+                 "perform_testing"):
+        assert inspect.getsource(getattr(p_readout, name)) == \
+            inspect.getsource(getattr(j_readout, name)), name
+
+
+def test_params_npz_files_equal_jax(tmp_path):
+    """Either package reads the other's ``.npz``; bf16 leaves come back
+    from the port's reader as the float32 values they were saved as."""
+    import ml_dtypes
+    tree = {"a": {"b": np.arange(6, dtype=np.float32).reshape(2, 3),
+                  "c": np.asarray([1.5, -2.25], ml_dtypes.bfloat16)},
+            "d": np.ones(2, np.int32)}
+    j_params_io.save_params_npz(str(tmp_path / "j.npz"), tree)
+    p_params_io.save_params_npz(str(tmp_path / "p.npz"), tree)
+    for name in ("j.npz", "p.npz"):
+        want = j_params_io.flatten_params(
+            j_params_io.load_params_npz(str(tmp_path / name)))
+        got = p_params_io.flatten_params(
+            p_params_io.load_params_npz(str(tmp_path / name)))
+        assert list(got) == list(want) == ["a/b", "a/c", "d"]
+        assert want["a/c"].dtype == ml_dtypes.bfloat16
+        assert got["a/c"].dtype == np.float32
+        for k in want:
+            np.testing.assert_array_equal(got[k],
+                                          want[k].astype(got[k].dtype))
