@@ -10,7 +10,7 @@ K3f; the backward kernels K1b, K2b, K3b, K4b, K5b), times each beside its
 plain version and, where one PyTorch call computes the same function,
 beside that call (``scaled_dot_product_attention``; timed here, used
 nowhere in the port), and computes the least time the card could take for
-the same work. Then it drives seven paths end to end at full published
+the same work. Then it drives eight paths end to end at full published
 width with random weights from a seeded generator, each with every launch
 count set to 0 just before and read just after:
 
@@ -32,7 +32,16 @@ count set to 0 just before and read just after:
   on ModalTune-GigaPath, on the reference's file formats written at full
   width (``.pt`` and ``.mtbc`` feature bags, split JSONs, text ``.pt``,
   gene and pathway CSVs): two epochs with the in-loop readout, test with
-  the best weights, a checkpoint every epoch, deploy.
+  the best weights, a checkpoint every epoch, deploy;
+* the same CLI with ``--pancancer 1 --reference_quirks 1`` on four TCGA
+  projects' files at the 2,047 bucket: full epochs, the per-site readout
+  and the 4-way site classifier, the pan-cancer deploy.
+
+Then it trains the supervised baselines through the CLI (ABMIL, TransMIL
+"(cat)" survival, the gene-only model; they run no kernel of the port, so
+they are not a path of the kernels line), holds one batch of each on the
+card against the CPU, and times one TransMIL train step of four bags at
+the 25,599 bucket.
 
 Every phase prints its results on lines of its own; any failure raises
 and the script exits non-zero. The last line is one JSON object
@@ -1881,13 +1890,19 @@ TRAINER_FLAGS = ["--mil_name", "longnetvit_gene_adapter", "--bf16", "1",
 
 
 def write_reference_files(root, in_chans, two_slides, one_slide, n_genes,
-                          n_groups, max_size, seed=0):
+                          n_groups, max_size, seed=0,
+                          projects=("TCGA-BRCA",), cases=(4, 2, 2)):
     """The reference's on-disk formats under ``root``: per-slide
     ``*_featvec.pt`` dicts (train), one ``.mtbc`` container written by
     ``pack_feature_files`` (val and test), split JSONs ``{"data": rows}``
-    with alternating ``primary_class`` and seeded ``durations`` and
-    ``vital_status``, a ``.pt`` dict of (4, 512) text embeddings, the gene
-    CSV and the pathway-membership CSV. -> the CLI's data flags."""
+    with ``cases`` (train, val, test) cases of each of ``projects`` (one
+    project after another), alternating ``primary_class`` and seeded
+    ``durations`` and ``vital_status``, a ``.pt`` dict of (4, 512) text
+    embeddings, the gene CSV and the pathway-membership CSV. The first
+    train case has two slides. In each project's split the first case is
+    the earliest death and the second a death too, so every site's split
+    holds a comparable pair and every site's train split two events.
+    -> the CLI's data flags."""
     import numpy as np
     import torch
     from modaltune_tpu_torch.data import synthetic_pathways
@@ -1908,16 +1923,22 @@ def write_reference_files(root, in_chans, two_slides, one_slide, n_genes,
     genes = [f"g{i}" for i in range(n_genes)]
     cache = root / "features.mtbc"
     text, gene_rows, flags, to_pack = {}, [], [], []
-    for split, n_cases in (("train", 4), ("val", 2), ("test", 2)):
+    for split, n_cases in zip(("train", "val", "test"), cases):
         rows = []
-        for i in range(n_cases):
-            sub = f"TCGA-{split[:2].upper()}-{i:04d}"
+        for k in range(n_cases * len(projects)):
+            i = k % n_cases
+            sub = f"TCGA-{split[:2].upper()}-{k:04d}"
             cid = f"{sub}-case"
-            n_slides = 2 if (split == "train" and i == 0) else 1
+            n_slides = 2 if (split == "train" and k == 0) else 1
             meta = {"case_id": cid, "case_submitter_id": sub,
-                    "project_id": "TCGA-BRCA", "primary_class": i % 2,
+                    "project_id": projects[k // n_cases],
+                    "primary_class": i % 2,
                     "durations": float(rng.integers(2, 100)),
                     "vital_status": int(rng.random() < 0.7)}
+            if i < 2:
+                meta["vital_status"] = 1
+            if i == 0:
+                meta["durations"] = 1.0
             for s in range(n_slides):
                 path = slide(f"{sub}-DX{s + 1}",
                              two_slides if n_slides == 2 else one_slide)
@@ -1954,6 +1975,65 @@ def write_reference_files(root, in_chans, two_slides, one_slide, n_genes,
                     "--text_location", str(root / "text.pt")]
 
 
+def written_files(root, tag, data_kw):
+    """:func:`write_reference_files` under ``root``, its time and size
+    printed -> the CLI's data flags."""
+    t0 = time.perf_counter()
+    flags = write_reference_files(root, **data_kw)
+    size = sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+    print(f"{tag}: reference files written in {time.perf_counter() - t0:.1f}"
+          f" s ({size / 2**30:.3f} GiB)", flush=True)
+    return flags
+
+
+def run_cli(cli, args, Trainer, methods):
+    """``cli.run_one_seed(args)`` in-process, every launch count set to 0
+    just before it -> (the one ``Trainer`` it built, the seconds of each
+    call of each of ``methods`` with the device synchronised around it, the
+    launch counts just after, the peak allocated bytes, the run's wall
+    seconds)."""
+    import torch
+    from modaltune_tpu_torch.data import datasets as data_mod
+    trainers, seconds = [], {}
+    init = Trainer.__init__
+
+    def spy_init(self, *a, **k):
+        init(self, *a, **k)
+        trainers.append(self)
+
+    def timed(name):
+        fn = getattr(Trainer, name)
+
+        def wrapper(self, *a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(self, *a, **k)
+            torch.cuda.synchronize()
+            seconds.setdefault(name, []).append(time.perf_counter() - t)
+            return out
+        return mock.patch.object(Trainer, name, wrapper)
+
+    patches = [mock.patch.object(Trainer, "__init__", spy_init)] + [
+        timed(n) for n in methods]
+    data_mod._BAGCACHE_READERS.clear()
+    torch.cuda.reset_peak_memory_stats()
+    for p in patches:
+        p.start()
+    # the main path: every launch count starts at 0 just before it
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        cli.run_one_seed(args)
+    finally:
+        for p in patches:
+            p.stop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    (trainer,) = trainers
+    return (trainer, seconds, read_counts(), torch.cuda.max_memory_allocated(),
+            wall)
+
+
 def phase_trainer(device, card="", data_kw=None, flags=None):
     """The port's train CLI (``run_one_seed``) in-process on the
     reference's file formats at ``data_kw``'s sizes (``TRAINER_DATA``):
@@ -1983,55 +2063,14 @@ def phase_trainer(device, card="", data_kw=None, flags=None):
     Trainer = trainer_mod.ModalTuneTrainer
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
-        t0 = time.perf_counter()
-        data_flags = write_reference_files(root, **data_kw)
+        data_flags = written_files(root, "trainer", data_kw)
         args = cli.build_parser().parse_args(
             flags + data_flags + ["--output_path", str(root / "results"),
                                   "--device", device.type])
-        print(f"trainer: reference files written in "
-              f"{time.perf_counter() - t0:.1f} s "
-              f"({sum(f.stat().st_size for f in root.rglob('*') if f.is_file()) / 2**30:.3f} GiB)",
-              flush=True)
 
-        trainers, seconds = [], {}
-        init = Trainer.__init__
-
-        def spy_init(self, *a, **k):
-            init(self, *a, **k)
-            trainers.append(self)
-
-        def timed(name):
-            fn = getattr(Trainer, name)
-
-            def wrapper(self, *a, **k):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                out = fn(self, *a, **k)
-                torch.cuda.synchronize()
-                seconds.setdefault(name, []).append(time.perf_counter() - t)
-                return out
-            return mock.patch.object(Trainer, name, wrapper)
-
-        patches = [mock.patch.object(Trainer, "__init__", spy_init)] + [
-            timed(n) for n in ("train_one_epoch", "fit_readout_heads",
-                               "evaluate", "deploy")]
-        data_mod._BAGCACHE_READERS.clear()
-        torch.cuda.reset_peak_memory_stats()
-        for p in patches:
-            p.start()
-        # the main path: every launch count starts at 0 just before it
-        reset_counts()
-        t0 = time.perf_counter()
-        try:
-            cli.run_one_seed(args)
-        finally:
-            for p in patches:
-                p.stop()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = read_counts()
-        peak = torch.cuda.max_memory_allocated()
-        (trainer,) = trainers
+        trainer, seconds, launches, peak, wall = run_cli(
+            cli, args, Trainer, ("train_one_epoch", "fit_readout_heads",
+                                 "evaluate", "deploy"))
         run = root / "results" / "seed_0"
 
         rows = [json.loads(line) for line in open(run / "run_metrics.jsonl")]
@@ -2149,6 +2188,278 @@ def phase_trainer(device, card="", data_kw=None, flags=None):
                 peak_bytes=peak, losses=losses, seconds=seconds)
 
 
+# the pan-cancer trainer's cohort: four sites (SITE_LABEL's 0-3), 6 train,
+# 3 val and 3 test cases each, bags of 1,500-2,000 tiles (the first train
+# case of two slides of 750-1,000), at full width
+PANCANCER_DATA = dict(TRAINER_DATA, two_slides=(750, 1000),
+                      one_slide=(1500, 2000),
+                      projects=("TCGA-BRCA", "TCGA-GBM", "TCGA-LUAD",
+                                "TCGA-KIRC"), cases=(6, 3, 3))
+PANCANCER_FLAGS = ["--mil_name", "longnetvit_gene_adapter", "--pancancer", "1",
+                   "--reference_quirks", "1", "--bf16", "1", "--threshold",
+                   "25000", "--buckets", "2047", "--num_epochs", "2",
+                   "--eval_interval", "1", "--save_embeddings", "--seed", "0"]
+PANCANCER_SITES = ("TCGA-BRCA", "TCGA-GBMLGG", "TCGA-NSCLC", "TCGA-RCC")
+TASKS = ("General", "Diagnosis", "Survival")
+
+
+def phase_pancancer(device, card="", data_kw=None, flags=None):
+    """The port's train CLI with ``--pancancer 1 --reference_quirks 1``
+    (``run_one_seed`` in-process) on the reference's file formats of four
+    TCGA projects (``PANCANCER_DATA``): two epochs with the per-site readout
+    on val, test with the best weights, deploy. Prints the trainer's median
+    ms/step, s/epoch, the loader's host ms per batch, eval and deploy
+    seconds and peak memory. Checks: every epoch ran every batch (no
+    6-step cap: pan-cancer has none); finite losses; each val row holds
+    ``site{s}_bal_acc`` and ``site{s}_c_index`` of the four sites and
+    ``cancer_site_acc``; ``deploy_results_pancancer.json`` holds the four
+    combined sites, each with the three tasks' finite ``c_index`` and
+    ``pooled_c_index``, and ``site_classification`` for the three tasks;
+    K1f, K1b, K2f and K2b launched."""
+    import tempfile
+
+    import torch
+    from modaltune_tpu_torch.tools import train as cli
+    from modaltune_tpu_torch.train.pancancer_trainer import PanCancerTrainer
+    data_kw = data_kw or PANCANCER_DATA
+    flags = PANCANCER_FLAGS if flags is None else flags
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        data_flags = written_files(root, "pancancer", data_kw)
+        args = cli.build_parser().parse_args(
+            flags + data_flags + ["--output_path", str(root / "results"),
+                                  "--device", device.type])
+        trainer, seconds, launches, peak, wall = run_cli(
+            cli, args, PanCancerTrainer, ("train_one_epoch",
+                                          "fit_readout_heads", "evaluate",
+                                          "deploy"))
+        run = root / "results" / "seed_0"
+        rows = [json.loads(line) for line in open(run / "run_metrics.jsonl")]
+        deploy = json.load(open(run / "deploy_results_pancancer.json"))
+
+    epochs = trainer.cfg.num_epochs
+    steps = len(trainer.train_loader)
+    losses = [r["train_loss"] for r in rows if "train_loss" in r]
+    check(len(trainer.step_ms) == epochs * steps,
+          f"pancancer: {len(trainer.step_ms)} train steps in {epochs} epochs "
+          f"of {steps} batches")
+    check(len(losses) == epochs and all(math.isfinite(x) for x in losses),
+          f"pancancer: epoch losses {losses}")
+    val = [r for r in rows if "val_cls_loss" in r]
+    want = [f"val_site{s}_{m}" for s in range(4)
+            for m in ("bal_acc", "c_index")] + ["val_cancer_site_acc"]
+    check(len(val) == epochs and all(all(k in r for k in want) for r in val),
+          f"pancancer: val rows {val}")
+    check(set(PANCANCER_SITES) | {"site_classification"} <= set(deploy) and
+          all(all(math.isfinite(deploy[s][t][k]) for t in TASKS
+                  for k in ("c_index", "pooled_c_index"))
+              for s in PANCANCER_SITES) and
+          set(deploy["site_classification"]) == set(TASKS),
+          f"pancancer: deploy results {deploy}")
+    step_ms = statistics.median(trainer.step_ms)
+    loader_ms = trainer.loader_ms
+    print(f"pancancer: {len(trainer.step_ms)} train steps ({epochs} epochs of "
+          f"{steps}, no cap under --reference_quirks 1), median "
+          f"{step_ms:.2f} ms/step; s/epoch "
+          f"{[round(x, 2) for x in seconds['train_one_epoch']]}; epoch "
+          f"losses {losses}; {card}", flush=True)
+    print(f"pancancer: loader host ms per batch (blocked in next()) mean "
+          f"{statistics.mean(loader_ms):.3f}, median "
+          f"{statistics.median(loader_ms):.3f}, max {max(loader_ms):.3f}",
+          flush=True)
+    print(f"pancancer: readout fits {sum(seconds['fit_readout_heads']):.2f} s "
+          f"({len(seconds['fit_readout_heads'])} fits), evaluate "
+          f"{sum(seconds['evaluate']):.2f} s ({len(seconds['evaluate'])} "
+          f"splits), deploy {sum(seconds['deploy']):.2f} s; run_one_seed "
+          f"{wall:.1f} s; peak allocated {peak / 2**30:.3f} GiB; launches "
+          f"{launches}", flush=True)
+    for r in rows:
+        if "val_cls_loss" in r or "test_cls_loss" in r:
+            print(f"pancancer: readout {json.dumps(r)}", flush=True)
+    print(f"pancancer: deploy {json.dumps(deploy)}", flush=True)
+    check(all(launches[k] > 0 for k in ("K1f", "K1b", "K2f", "K2b")),
+          f"pancancer: launches {launches}")
+    return dict(launches=launches, ms=step_ms, loader_ms=loader_ms,
+                peak_bytes=peak, losses=losses, seconds=seconds)
+
+
+# the supervised baselines through the CLI, on TRAINER_DATA's files at the
+# 10,239 bucket: (name, flags, rel-L2 limit of card against CPU in fp32)
+BASELINE_RUNS = (
+    ("abmil", ["--mil_name", "abmil"], 1e-4),
+    ("transmil_cat_survival", ["--mil_name", "transmil", "--fusion", "cat",
+                               "--mode", "survival"], 1e-3),
+    ("gene_mixer_group", ["--mil_name", "gene_mixer_group"], 1e-4),
+)
+BASELINE_FLAGS = ["--threshold", "25000", "--buckets", "10239",
+                  "--num_epochs", "2", "--eval_interval", "1", "--seed", "0"]
+# one TransMIL train step at the reference's threshold: B = 4 (the MIL
+# trainer's batch size) at the 25,599 bucket
+TRANSMIL_BIG = dict(batch=4, bucket=25599, valid=(25599, 24000, 22000, 20000))
+
+
+def rel_l2(got, want) -> float:
+    return float((got.double() - want.double()).norm() /
+                 want.double().norm().clamp_min(1e-30))
+
+
+def step_times(trainer, inputs, y, events, steps=3):
+    """ms of each of ``steps`` train steps of a baseline trainer on one
+    batch, after one warm-up, by CUDA events; each loss finite."""
+    trainer.train_step(inputs, y, events)
+    times = []
+    for _ in range(steps):
+        loss, ms = timed_once(lambda: trainer.train_step(inputs, y, events))
+        check(math.isfinite(float(loss)), f"train step: loss {loss}")
+        times.append(ms)
+    return times
+
+
+def head_input(model, inputs):
+    """The input of the model's head LayerNorm (``final_norm``) on
+    ``inputs``, in eval mode."""
+    import torch
+    seen = []
+    norm = getattr(model, "head", model).final_norm
+    hook = norm.register_forward_pre_hook(lambda m, a: seen.append(a[0]))
+    try:
+        with torch.no_grad():
+            model(*inputs)
+    finally:
+        hook.remove()
+    return seen[0]
+
+
+def phase_baselines(device, card="", data_kw=None, runs=BASELINE_RUNS,
+                    flags=None, big=TRANSMIL_BIG):
+    """The port's train CLI for the supervised baselines (ABMIL classifier,
+    TransMIL "(cat)" survival, the gene-only model), two epochs each, on the
+    reference's files at full width (1,536-d tiles, 4,987 genes in 331
+    pathways, hidden 512). Each prints its ms/step, s/epoch and peak memory.
+    Checks: finite losses; the best weights written and held by the model
+    after the run (reloaded for the test split); the test metrics; for one
+    val batch, the model's outputs on the card against the same model and
+    weights on the CPU in fp32, rel-L2 at most the run's limit; no kernel of
+    the port launched. Then one TransMIL train step of ``big`` (timed, its
+    peak memory), loss finite."""
+    import copy
+    import tempfile
+
+    import torch
+    from modaltune_tpu_torch.data import BucketedLoader
+    from modaltune_tpu_torch.tools import train as cli
+    from modaltune_tpu_torch.train.gene_trainer import (BEST,
+                                                        GeneBaselineTrainer)
+    data_kw = data_kw or TRAINER_DATA
+    flags = BASELINE_FLAGS if flags is None else flags
+    out, trainers = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        data_flags = written_files(root, "baselines", data_kw)
+        for name, run_flags, limit in runs:
+            run = root / name / "seed_0"
+            args = cli.build_parser().parse_args(
+                run_flags + flags + data_flags +
+                ["--output_path", str(root / name), "--device", device.type])
+            trainer, seconds, launches, peak, wall = run_cli(
+                cli, args, GeneBaselineTrainer, ("train_one_epoch",
+                                                 "evaluate"))
+            rows = [json.loads(line)
+                    for line in open(run / "run_metrics.jsonl")]
+            losses = [r["train_loss"] for r in rows if "train_loss" in r]
+            check(len(losses) == trainer.cfg.num_epochs and
+                  all(math.isfinite(x) for x in losses),
+                  f"{name}: epoch losses {losses}")
+            best = torch.load(run / BEST, map_location="cpu",
+                              weights_only=True)
+            held = trainer.model.state_dict()
+            check(best.keys() == held.keys() and
+                  all(torch.equal(best[k], held[k].cpu()) for k in best),
+                  f"{name}: the model does not hold {BEST}")
+            key = "test_c_index" if trainer.model.mode == "survival" \
+                else "test_bal_acc"
+            test = [r for r in rows if key in r]
+            check(len(test) == 1 and math.isfinite(test[0][key]),
+                  f"{name}: test rows {test}")
+            check(not any(launches.values()),
+                  f"{name}: kernels launched {launches}")
+
+            def first_batch(split):
+                loader = trainer.loaders[split]
+                return next(iter(BucketedLoader(
+                    trainer.datasets[split], buckets=loader.buckets,
+                    batch_size=loader.batch_size, shuffle=False,
+                    prefetch=0)))
+
+            # one val batch on the card against the CPU, fp32; and the
+            # head LayerNorm's input, whose norm over its centred norm is
+            # the factor by which the norm scales a relative error
+            model = trainer.model.eval()
+            cpu_model = copy.deepcopy(model).cpu()
+            batch = first_batch("val")
+            inputs = trainer._model_inputs(batch)
+            cpu_inputs = [t.cpu() for t in inputs]
+            with torch.no_grad():
+                card_out, cpu_out = model(*inputs), cpu_model(*cpu_inputs)
+            if isinstance(card_out, tuple):     # hazards, S (not the bin)
+                pairs = list(zip(card_out[:2], cpu_out[:2]))
+            else:
+                pairs = [(card_out, cpu_out)]
+            errs = [rel_l2(g.cpu(), w) for g, w in pairs]
+            h_cpu = head_input(cpu_model, cpu_inputs)
+            h_err = rel_l2(head_input(model, inputs).cpu(), h_cpu)
+            centred = h_cpu - h_cpu.mean(-1, keepdim=True)
+            gain = float((h_cpu.norm(dim=-1) / centred.norm(dim=-1)).max())
+            check(all(e <= limit for e in errs),
+                  f"{name}: card vs CPU rel-L2 {errs} > {limit}")
+            # the train step alone, on the first train batch
+            tb = first_batch("train")
+            times = step_times(trainer, trainer._model_inputs(tb),
+                               *trainer._targets(tb))
+            print(f"{name}: train step {[round(t, 2) for t in times]} ms "
+                  f"(median {statistics.median(times):.2f}, B = "
+                  f"{tb.bag.shape[0]} at {tb.bag.shape[1]}); in the CLI "
+                  f"{len(trainer.step_ms)} steps "
+                  f"{[round(t, 2) for t in trainer.step_ms]} "
+                  f"ms (the first warms up); s/epoch "
+                  f"{[round(x, 2) for x in seconds['train_one_epoch']]}; "
+                  f"evaluate {sum(seconds['evaluate']):.2f} s; run_one_seed "
+                  f"{wall:.1f} s; peak allocated {peak / 2**30:.3f} GiB; "
+                  f"losses {losses}; {key} {test[0][key]:.4f}; {card}",
+                  flush=True)
+            print(f"{name}: card vs CPU (fp32, batch of {batch.bag.shape[0]} "
+                  f"at {batch.bag.shape[1]}) rel-L2 "
+                  f"{[f'{e:.3g}' for e in errs]} (limit {limit:g}); the head "
+                  f"LayerNorm's input {h_err:.3g}, which the norm's centring "
+                  f"scales up to {gain:.3g}x", flush=True)
+            out[name] = dict(ms=statistics.median(times), errs=errs,
+                             peak_bytes=peak)
+            trainers[name] = trainer
+
+    # TransMIL at the reference's threshold
+    trainer = trainers["transmil_cat_survival"]
+    g = torch.Generator(device=device).manual_seed(0)
+    b, n = big["batch"], big["bucket"]
+    bag = torch.randn(b, n, trainer.model.fc1.in_features, generator=g,
+                      device=device)
+    mask = torch.arange(n, device=device)[None, :] < torch.tensor(
+        big["valid"], device=device)[:, None]
+    enc = trainer.model.head.gene_encoder
+    genes = torch.randn(b, enc.n_groups, enc.max_group_len, generator=g,
+                        device=device)
+    y = torch.arange(b, device=device) % trainer.model.n_classes
+    events = torch.ones(b, dtype=torch.int32, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    times = step_times(trainer, (bag, mask, genes), y, events)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"transmil @ {n}: one train step of B = {b} ({big['valid']} valid "
+          f"tiles), {[round(t, 2) for t in times]} ms, median "
+          f"{statistics.median(times):.2f} ms; peak allocated "
+          f"{peak / 2**30:.3f} GiB; {card}", flush=True)
+    out["transmil_big"] = dict(ms=statistics.median(times), peak_bytes=peak)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2219,10 +2530,15 @@ def main() -> int:
     # the trainer slice: the port's train CLI, train -> val -> test ->
     # deploy, on the reference's file formats at full width
     paths["gigapath_trainer"] = phase_trainer(device, card=card)
+    # the pan-cancer trainer through the CLI on four sites' files
+    paths["gigapath_pancancer"] = phase_pancancer(device, card=card)
+    # the supervised baselines: no kernel of the port, so not a path of the
+    # kernels line
+    phase_baselines(device, card=card)
 
     def kernel(key, name, replaces, err, res, by_shape=None, source=None,
                family=None):
-        """One entry of the kernels line. launches: the sum over the seven
+        """One entry of the kernels line. launches: the sum over the eight
         paths' runs (by_path: each run's own count, every count set to 0
         just before it); max_abs_err: the largest output or gradient error
         of any comparison above; ms, plain_ms, bound_ms, library_ms: at

@@ -12,10 +12,13 @@ on the GPU unless the caller asks for the CPU.
 
 It runs ModalTune-GigaPath (``longnetvit_gene_adapter`` and its clinical
 variant) and ModalTune-TITAN (``titan_gene_adapter`` and its clinical
-variant) single-site: the file readers of the reference's formats, the
-embed, train, eval and grad steps, the trainer (KD training, in-loop
-LogReg/CoxPH readout, best weights, checkpoint and resume, deploy, k-fold)
-and the train CLI.
+variant), single-site and pan-cancer: the file readers of the reference's
+formats, the embed, train, eval and grad steps, the trainers (KD training,
+in-loop LogReg/CoxPH readout, per site for pan-cancer, best weights,
+checkpoint and resume, deploy, k-fold) and the train CLI; and the
+supervised baselines (ABMIL, TransMIL and the gene-only model, in
+classifier or survival mode, with the gene mixer's "(cat)" fusion) with
+their trainers.
 """
 
 from .data import (FeatureBagDataset, load_embedding_dict, load_feature_bag,

@@ -45,6 +45,12 @@ from .pathways import GenePacker
 # (+2.5 ms fwd / +8.5 ms bwd per layer at the 10k bucket).
 DEFAULT_BUCKETS = (1023, 2047, 4095, 8191, 16383, 25599)
 
+# BucketedLoader's worker re-checks its stop flag between timed puts; a
+# consumer that leaves early waits at most JOIN_WAIT_S for the worker to
+# finish the batch it is building
+PUT_WAIT_S = 0.05
+JOIN_WAIT_S = 10.0
+
 
 def choose_bucket(length: int, buckets: Sequence[int]) -> int:
     for b in buckets:
@@ -440,29 +446,61 @@ class BucketedLoader:
             yield batch
 
     def __iter__(self) -> Iterator[Batch]:
+        """Batches in order, built ``prefetch`` ahead on a worker thread.
+        A consumer that stops early (``break``, ``close()``, an exception)
+        stops the worker too: the generator's ``finally`` sets ``stop``,
+        the worker's timed puts see it, and the queued batches are
+        dropped. An error in the worker is raised here."""
         self.epoch += 1
         if self.prefetch <= 0:
             yield from self._iter_batches()
             return
         q: queue_mod.Queue = queue_mod.Queue(maxsize=self.prefetch)
-        sentinel = object()
+        stop = threading.Event()
+        done = object()
+        failed: List[BaseException] = []
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=PUT_WAIT_S)
+                    return True
+                except queue_mod.Full:
+                    pass
+            return False
 
         def worker():
             try:
                 for b in self._iter_batches():
+                    if stop.is_set():
+                        break
                     if self.device_prefetch:
                         b = self._to_device(b)
-                    q.put(b)
+                    if not put(b):
+                        break
+            except BaseException as e:  # handed to the consumer
+                failed.append(e)
             finally:
-                q.put(sentinel)
+                put(done)
 
         t = threading.Thread(target=worker, daemon=True)
         t.start()
-        while True:
-            item = q.get()
-            if item is sentinel:
-                break
-            yield item
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    break
+                yield item
+            if failed:
+                raise failed[0]
+        finally:
+            stop.set()
+            t.join(timeout=JOIN_WAIT_S)
+            while True:
+                try:
+                    q.get_nowait()
+                except queue_mod.Empty:
+                    break
 
 
 class TitanGridDataset:

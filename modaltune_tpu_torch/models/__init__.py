@@ -1,11 +1,15 @@
 from .adapter import Extractor, InteractionBlock, Injector
-from .gene import ChannelFeedForward, GeneMixerEncoder, TokenFeedForward
+from .gene import (ChannelFeedForward, GeneMixerEncoder, GeneOnlyModel,
+                   TokenFeedForward)
+from .heads import classifier_logits, survival_from_logits
 from .layers import (AlphaDropout, CrossAttentionLayer, Dense, DropPath,
                      Dropout, FFNLayer, SelfAttentionLayer, TorchMHA,
                      dropout_generator, fill_normal_, init_weights,
                      mask_to_bias)
 from .longnet import (DilatedSelfAttention, FeedForwardNetwork,
                       LongNetEncoder, LongNetEncoderLayer)
+from .mil import (AbmilModel, GatedAttentionPool, NystromSelfAttention, PPEG,
+                  TransMilModel)
 from .modaltune import ModalTuneModel
 from .registry import AGGREGATORS, create_aggregator
 from .slide_encoder import LongNetViT, PatchEmbed, coords_pos_embed, sincos_1d
@@ -14,7 +18,10 @@ from .titan import (AttentionalPooler, BiasedMHA, TitanBlock,
                     grid_scatter_bag)
 
 __all__ = [
-    "AGGREGATORS", "AlphaDropout", "AttentionalPooler", "BiasedMHA",
+    "AGGREGATORS", "AbmilModel", "AlphaDropout", "GatedAttentionPool",
+    "GeneOnlyModel", "NystromSelfAttention", "PPEG", "TransMilModel",
+    "classifier_logits", "survival_from_logits", "AttentionalPooler",
+    "BiasedMHA",
     "TitanBlock", "TitanModalTuneModel", "TitanViT", "alibi_bias",
     "alibi_slopes", "fill_normal_", "grid_scatter_bag", "ChannelFeedForward", "CrossAttentionLayer",
     "Dense", "DilatedSelfAttention", "DropPath", "Dropout", "Extractor",

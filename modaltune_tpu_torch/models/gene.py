@@ -1,6 +1,8 @@
-"""Pathway-grouped gene encoder: S-MLP blocks, MLP-Mixer, compression.
+"""Pathway-grouped gene encoder: S-MLP blocks, MLP-Mixer, compression;
+and the genomics-only baseline on it.
 
-Counterpart of ``modaltune_tpu/models/gene.py::GeneMixerEncoder``. The
+Counterpart of ``modaltune_tpu/models/gene.py`` (``GeneMixerEncoder``,
+``GeneOnlyModel``). The
 data layer packs the genes into a zero-padded ``(n_groups, max_group_len)``
 block, so the per-pathway SNN layers are stacked einsums; zero-padded
 gene slots contribute nothing to the first layer. The raw parameters keep
@@ -15,6 +17,7 @@ from torch import nn
 
 from ..configs import GeneEncoderConfig
 from ..ops.activations import gelu_exact
+from .heads import add_head, check_mode, head_outputs, init_head
 from .layers import AlphaDropout, Dense, Dropout, fill_normal_
 
 
@@ -130,3 +133,31 @@ class GeneMixerEncoder(nn.Module):
         x = self.mixer_out(self.mixer_norm(x))
         return torch.einsum("bgc,gf->bfc", x, self.compress_kernel) \
             + self.compress_bias[None, :, None]
+
+
+class GeneOnlyModel(nn.Module):
+    """Genomics-only baseline (``gene_mixer_group``): the gene mixer, then
+    the mode's output. ``feature`` returns the gene tokens (B,
+    final_groups, output_dim); ``classifier`` the logits of the fp32 mean
+    over tokens through LayerNorm and the head; ``survival`` the cumprod
+    hazard tuple of those logits."""
+
+    def __init__(self, cfg: GeneEncoderConfig, n_gene_groups: int,
+                 max_group_len: int, n_classes: int = 2,
+                 mode: str = "classifier"):
+        super().__init__()
+        self.n_classes, self.mode = n_classes, check_mode(mode)
+        self.gene_encoder = GeneMixerEncoder(cfg, n_gene_groups,
+                                             max_group_len)
+        if mode != "feature":
+            add_head(self, cfg.output_dim, n_classes)
+
+    def init_weights(self, g: torch.Generator) -> None:
+        if self.mode != "feature":
+            init_head(self, g)
+
+    def forward(self, genes: torch.Tensor):
+        x = self.gene_encoder(genes)
+        if self.mode == "feature":
+            return x
+        return head_outputs(self, x.float().mean(dim=1), self.mode)

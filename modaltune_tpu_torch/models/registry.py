@@ -1,13 +1,16 @@
 """Aggregator registry: the reference's public model names -> model class.
 
-Counterpart of ``modaltune_tpu/models/registry.py`` for the models the
-port has so far.
+Counterpart of ``modaltune_tpu/models/registry.py``: the ModalTune models
+and the supervised baselines (``gene_mixer_group``, ``abmil``,
+``transmil``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .gene import GeneOnlyModel
+from .mil import AbmilModel, TransMilModel
 from .modaltune import ModalTuneModel
 from .titan import TitanModalTuneModel
 
@@ -16,6 +19,9 @@ AGGREGATORS = {
     "longnetvit_gene_clinical_adapter": ModalTuneModel,
     "titan_gene_adapter": TitanModalTuneModel,
     "titan_gene_clinical_adapter": TitanModalTuneModel,
+    "gene_mixer_group": GeneOnlyModel,
+    "abmil": AbmilModel,
+    "transmil": TransMilModel,
 }
 
 

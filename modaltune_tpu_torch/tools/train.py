@@ -4,10 +4,13 @@ The port's counterpart of the JAX package's ``tools/train.py``, with the
 same flags and defaults plus ``--device``: loads split JSONs, gene CSV,
 pathway CSV, text embeddings and optional clinical features (or makes
 synthetic data), builds the model from the aggregator registry, runs
-:class:`~modaltune_tpu_torch.train.trainer.ModalTuneTrainer` (or an
-eval-only deploy with ``--eval_only``), and handles ``--multi_seed``
-triplets and ``--num_folds``. It runs on the GPU unless given
-``--device cpu``; without a GPU it stops and says so.
+:class:`~modaltune_tpu_torch.train.trainer.ModalTuneTrainer`, or
+:class:`~modaltune_tpu_torch.train.pancancer_trainer.PanCancerTrainer`
+with ``--pancancer 1`` (or an eval-only deploy with ``--eval_only``), and
+handles ``--multi_seed`` triplets and ``--num_folds``. ``--mil_name
+gene_mixer_group``, ``abmil`` or ``transmil`` trains a supervised baseline
+instead (``--mode``, ``--num_classes``, ``--fusion cat``). It runs on the
+GPU unless given ``--device cpu``; without a GPU it stops and says so.
 
 Example (synthetic smoke on the CPU):
   python -m modaltune_tpu_torch.tools.train --tiny 1 --synthetic 1 \\
@@ -24,9 +27,8 @@ Real data on the GPU:
     --backbone_weights gigapath_backbone.npz
 
 Not ported yet, refused with the ROADMAP item that brings them:
-``--pancancer 1`` (queue 1 item 5), ``--distributed 1`` and ``--dp``
-over more than one GPU (item 6), ``--mil_name gene_mixer_group``,
-``abmil``, ``transmil`` (item 7).
+``--distributed 1`` and ``--dp`` over more than one GPU (queue 1 item 2,
+multi-GPU).
 """
 
 from __future__ import annotations
@@ -39,8 +41,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-
-BASELINES = ("gene_mixer_group", "abmil", "transmil")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -77,16 +77,17 @@ def build_parser() -> argparse.ArgumentParser:
                             "gene_mixer_group", "abmil", "transmil"])
     p.add_argument("--fusion", default="none", choices=["none", "cat"],
                    help="'cat' adds the gene-mixer late-fusion branch to "
-                        "the abmil/transmil baselines (not ported yet)")
+                        "the abmil/transmil baselines (the paper's "
+                        "'(cat)' rows)")
     p.add_argument("--num_tasks", default=3, type=int)
     p.add_argument("--num_classes", default=2, type=int,
-                   help="classifier/survival head width for the "
-                        "genomics-only baseline (not ported yet)")
+                   help="classifier/survival head width of the "
+                        "baselines (gene_mixer_group, abmil, transmil)")
     p.add_argument("--mode", default="classifier",
                    choices=["classifier", "survival"],
-                   help="output head for gene_mixer_group (not ported "
-                        "yet; the adapter models always run in 'feature' "
-                        "mode, like train_modaltune.py:80)")
+                   help="output head of the baselines (the adapter "
+                        "models always run in 'feature' mode, like "
+                        "train_modaltune.py:80)")
     p.add_argument("--backbone_weights", default="", type=str,
                    help="converted backbone .npz (tools/convert_gigapath)")
     p.add_argument("--pancancer", default=0, type=int)
@@ -138,13 +139,6 @@ def build_parser() -> argparse.ArgumentParser:
 def check_supported(args) -> torch.device:
     """-> the device to run on; stops with the reason on a flag whose path
     is not ported yet, or on ``cuda`` without a GPU."""
-    if args.mil_name in BASELINES:
-        raise SystemExit(f"--mil_name {args.mil_name}: the MIL and "
-                         f"genomics-only baselines are not ported yet "
-                         f"(ROADMAP queue 1 item 7)")
-    if args.pancancer:
-        raise SystemExit("--pancancer 1: the pan-cancer trainer is not "
-                         "ported yet (ROADMAP queue 1 item 5)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device is available; the port trains on "
@@ -156,13 +150,14 @@ def check_supported(args) -> torch.device:
     if args.distributed or n_data > 1:
         raise SystemExit("--distributed 1 / --dp over more than one GPU: "
                          "data parallelism is not ported yet (ROADMAP "
-                         "queue 1 item 6); pass --dp 1")
+                         "queue 1 item 2, multi-GPU); pass --dp 1")
     return device
 
 
 def load_real_datasets(args):
     from ..data import (FeatureBagDataset, GenePacker, load_embedding_dict,
                         load_gene_csv, load_split_json, pathway_gene_groups)
+    from ..utils.constants import SITE_LABEL
     matrix, case_ids, gene_names = load_gene_csv(args.genomics_csv_path)
     groups = pathway_gene_groups(args.pathway_csv)
     packer = GenePacker.build(groups, gene_names)
@@ -178,7 +173,8 @@ def load_real_datasets(args):
             rows = rows["data"]
         datasets[name] = FeatureBagDataset(
             rows, matrix, case_ids, packer, text, clinical=clinical,
-            labelset=args.labelset, threshold=args.threshold)
+            labelset=args.labelset, threshold=args.threshold,
+            site_label=SITE_LABEL if args.pancancer else None)
     return datasets, packer
 
 
@@ -193,7 +189,8 @@ def load_synthetic_datasets(args, in_chans: int = 1536,
         name: SyntheticSlideDataset(
             n_cases=n_cases, in_chans=in_chans, bag_range=bag_range,
             packer=packer, clinical_dim=clin, threshold=args.threshold,
-            seed=i, learnable=learnable)
+            seed=i, n_sites=4 if args.pancancer else 1,
+            learnable=learnable)
         for i, name in enumerate(("train", "val", "test"))}
     return datasets, packer
 
@@ -251,9 +248,63 @@ def initial_params(model, args) -> dict:
     return params
 
 
+def baseline_train_config(args):
+    from ..configs import TrainConfig
+    return TrainConfig(lr=args.lr, weight_decay=args.weight_decay,
+                       beta1=args.beta1, beta2=args.beta2,
+                       num_epochs=args.num_epochs, seed=args.seed,
+                       eval_interval=args.eval_interval)
+
+
+def run_gene_baseline(args, datasets, packer, device):
+    """Genomics-only baseline: ``gene_mixer_group`` with a classifier or
+    survival head (BASELINE.md's Gene-Mixer rows), batches of at least 8."""
+    from ..configs import GeneEncoderConfig
+    from ..models import create_aggregator
+    from ..train.gene_trainer import GeneBaselineTrainer
+    model = create_aggregator(
+        "gene_mixer_group", device=device, cfg=GeneEncoderConfig(),
+        n_gene_groups=packer.n_groups, max_group_len=packer.max_group_len,
+        n_classes=args.num_classes, mode=args.mode)
+    out_dir = Path(args.output_path) / f"seed_{args.seed}"
+    trainer = GeneBaselineTrainer(model, baseline_train_config(args),
+                                  datasets, str(out_dir),
+                                  batch_size=max(args.batch_size, 8))
+    best = trainer.run(initial_params(model, args))
+    print(f"seed {args.seed}: best val metric = {best:.4f}")
+    return best
+
+
+def run_mil_baseline(args, datasets, packer, device):
+    """Supervised ABMIL / TransMIL over cached feature bags (BASELINE.json
+    target configs #1-#2), with ``--fusion cat`` the gene mixer's late
+    fusion; batches of at least 4."""
+    from ..configs import GeneEncoderConfig
+    from ..models import create_aggregator
+    from ..train.mil_trainer import MilBaselineTrainer
+    ex = datasets["train"].get(0, np.random.RandomState(0))
+    kwargs = dict(in_dim=ex.bag.shape[1], n_classes=args.num_classes,
+                  mode=args.mode)
+    if args.fusion == "cat":
+        kwargs.update(gene_cfg=GeneEncoderConfig(),
+                      n_gene_groups=packer.n_groups,
+                      max_group_len=packer.max_group_len)
+    model = create_aggregator(args.mil_name, device=device, **kwargs)
+    buckets = tuple(int(b) for b in args.buckets.split(","))
+    out_dir = Path(args.output_path) / f"seed_{args.seed}"
+    trainer = MilBaselineTrainer(model, baseline_train_config(args),
+                                 datasets, str(out_dir),
+                                 batch_size=max(args.batch_size, 4),
+                                 buckets=buckets)
+    best = trainer.run(initial_params(model, args))
+    print(f"seed {args.seed}: best val metric = {best:.4f}")
+    return best
+
+
 def run_one_seed(args):
     from ..configs import TrainConfig, tiny_test_config
     from ..models import create_aggregator
+    from ..train.pancancer_trainer import PanCancerTrainer
     from ..train.trainer import ModalTuneTrainer
 
     device = check_supported(args)
@@ -273,6 +324,11 @@ def run_one_seed(args):
         datasets, packer = load_synthetic_datasets(args)
     else:
         datasets, packer = load_real_datasets(args)
+
+    if args.mil_name == "gene_mixer_group":
+        return run_gene_baseline(args, datasets, packer, device)
+    if args.mil_name in ("abmil", "transmil"):
+        return run_mil_baseline(args, datasets, packer, device)
 
     if args.mil_name.startswith("titan"):
         # TITAN consumes grid-scattered cells, not raw patch bags
@@ -297,12 +353,11 @@ def run_one_seed(args):
     buckets = tuple(int(b) for b in args.buckets.split(","))
     out_dir = Path(args.output_path) / f"seed_{args.seed}"
     params = initial_params(model, args)
+    cls = PanCancerTrainer if args.pancancer else ModalTuneTrainer
 
     if args.eval_only:
-        trainer = ModalTuneTrainer(model, tcfg, datasets, str(out_dir),
-                                   buckets=buckets,
-                                   batch_size=args.batch_size,
-                                   model_cfg=model_cfg)
+        trainer = cls(model, tcfg, datasets, str(out_dir), buckets=buckets,
+                      batch_size=args.batch_size, model_cfg=model_cfg)
         trainer.init_state(params, frozen_dtype=dtype)
         return trainer.deploy(weights_path=args.eval_weights or None)
 
@@ -314,20 +369,18 @@ def run_one_seed(args):
                                                   seed=args.seed)):
             fold_sets = dict(datasets)
             fold_sets["train"], fold_sets["val"] = tr, va
-            fold_trainer = ModalTuneTrainer(model, tcfg, fold_sets,
-                                            str(out_dir / f"fold_{k}"),
-                                            buckets=buckets,
-                                            batch_size=args.batch_size,
-                                            model_cfg=model_cfg)
+            fold_trainer = cls(model, tcfg, fold_sets,
+                               str(out_dir / f"fold_{k}"), buckets=buckets,
+                               batch_size=args.batch_size,
+                               model_cfg=model_cfg)
             fold_metrics.append(fold_trainer.run(params,
                                                  frozen_dtype=dtype))
         print(f"k-fold metrics: {fold_metrics} "
               f"mean={np.mean(fold_metrics):.4f}")
         return float(np.mean(fold_metrics))
 
-    trainer = ModalTuneTrainer(model, tcfg, datasets, str(out_dir),
-                               buckets=buckets, batch_size=args.batch_size,
-                               model_cfg=model_cfg)
+    trainer = cls(model, tcfg, datasets, str(out_dir), buckets=buckets,
+                  batch_size=args.batch_size, model_cfg=model_cfg)
     best = trainer.run(params, frozen_dtype=dtype)
     print(f"seed {args.seed}: best val metric = {best:.4f}")
     if args.save_embeddings:

@@ -1,5 +1,6 @@
-from .losses import (TEXT_PROMPT_ROWS, TextProjector, kd_kl_per_slide,
-                     kd_loss, l2_normalize, project_text)
+from .losses import (TEXT_PROMPT_ROWS, TextProjector, cross_entropy_loss,
+                     kd_kl_per_slide, kd_loss, l2_normalize, project_text,
+                     survival_nll_loss)
 from .state import (TrainOptimizer, freeze_backbone, make_optimizer,
                     warmup_cosine_epoch_schedule)
 from .train_step import (batch_to_device, make_embed_step, make_eval_step,
@@ -8,8 +9,9 @@ from .train_step import (batch_to_device, make_embed_step, make_eval_step,
 
 __all__ = [
     "TEXT_PROMPT_ROWS", "TextProjector", "TrainOptimizer", "batch_to_device",
-    "freeze_backbone", "kd_kl_per_slide", "kd_loss", "l2_normalize",
-    "make_embed_step", "make_eval_step", "make_grad_step", "make_optimizer",
-    "make_train_step", "multitask_logits", "project_text", "tile_tasks",
+    "cross_entropy_loss", "freeze_backbone", "kd_kl_per_slide", "kd_loss",
+    "l2_normalize", "make_embed_step", "make_eval_step", "make_grad_step", "make_optimizer",
+    "make_train_step", "multitask_logits", "project_text",
+    "survival_nll_loss", "tile_tasks",
     "warmup_cosine_epoch_schedule",
 ]

@@ -1,4 +1,4 @@
-"""KD loss and the frozen text projector.
+"""KD loss, the frozen text projector, and the baselines' losses.
 
 Counterpart of ``modaltune_tpu/train/losses.py``: the task-conditioned
 embeddings are L2-normalised and distilled (KL over the embedding axis,
@@ -6,7 +6,9 @@ temperature T, summed per slide, x T^2 x 10) against L2-normalised
 projections of the per-case CONCH text embeddings for prompt rows
 [0 general, 1 diagnosis, 3 survival]. The text projector is frozen
 random; ``utils.convert.projector_from_jax`` carries the JAX package's
-parameters across so that both packages distil towards the same targets.
+parameters across so that both packages distil towards the same targets. The supervised baselines
+train on ``cross_entropy_loss`` (classifier heads) or ``survival_nll_loss``
+(the cumprod-hazard survival head).
 """
 
 from __future__ import annotations
@@ -56,6 +58,33 @@ def kd_loss(logits: torch.Tensor, text_proj: torch.Tensor,
     targets already cut to the task rows."""
     per_slide = kd_kl_per_slide(logits, text_proj, temperature)
     return per_slide.mean() * (temperature ** 2) * scale
+
+
+def cross_entropy_loss(logits: torch.Tensor,
+                       labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy, the log-softmax in fp32."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, labels[:, None].long())[:, 0].mean()
+
+
+def survival_nll_loss(hazards: torch.Tensor, s: torch.Tensor,
+                      y_bins: torch.Tensor, events: torch.Tensor,
+                      alpha: float = 0.4, eps: float = 1e-7) -> torch.Tensor:
+    """Discrete-time censored survival NLL over duration bins for the
+    ``hazards = sigmoid(logits)``, ``S = cumprod(1 - hazards)`` head
+    (Zadeh & Schmid 2020): ``events == 1`` means the event was observed
+    (uncensored); the uncensored term is weighted up by ``alpha``."""
+    y = y_bins[:, None].long()
+    c = 1.0 - events.float()            # censorship indicator
+    s_pad = torch.cat([torch.ones_like(s[:, :1]), s], dim=1)
+    s_prev = s_pad.gather(1, y)[:, 0]
+    s_cur = s_pad.gather(1, y + 1)[:, 0]
+    h_cur = hazards.gather(1, y)[:, 0]
+    uncensored = -(1.0 - c) * (torch.log(s_prev.clamp_min(eps))
+                               + torch.log(h_cur.clamp_min(eps)))
+    censored = -c * torch.log(s_cur.clamp_min(eps))
+    neg_l = censored + uncensored
+    return ((1.0 - alpha) * neg_l + alpha * uncensored).mean()
 
 
 def project_text(projector: TextProjector, text: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,7 @@ epoch-cap quirk, in-loop LogReg/CoxPH readout on val, best weights on val
 balanced accuracy, test with the best weights, full-state checkpoint and
 resume, embedding export and deploy, k-fold. The JAX package's device
 mesh and multi-host branches are not part of this copy (ROADMAP queue 1
-item 6); asking for them raises.
+item 2, multi-GPU); asking for them raises.
 
 What differs from the JAX trainer by design:
 
@@ -49,7 +49,7 @@ from .train_step import (batch_to_device, make_embed_step, make_eval_step,
                          make_train_step)
 
 NOT_PORTED = ("data-parallel and multi-host training are not ported yet "
-              "(ROADMAP queue 1 item 6)")
+              "(ROADMAP queue 1 item 2)")
 
 
 def set_seed(seed: int) -> np.random.RandomState:
@@ -187,19 +187,22 @@ class ModalTuneTrainer:
         total, n = 0.0, 0
         cap = self._epoch_cap()
         batches = iter(self.train_loader)
-        while True:
-            t0 = time.perf_counter()
-            batch = next(batches, None)
-            t1 = time.perf_counter()
-            if batch is None or n >= cap:
-                break
-            self.loader_ms.append((t1 - t0) * 1e3)
-            loss = self._train_step(self._batch(batch),
-                                    self._text_targets(batch),
-                                    self._step_gen)
-            total += float(loss)
-            self.step_ms.append((time.perf_counter() - t1) * 1e3)
-            n += 1
+        try:
+            while True:
+                t0 = time.perf_counter()
+                batch = next(batches, None)
+                t1 = time.perf_counter()
+                if batch is None or n >= cap:
+                    break
+                self.loader_ms.append((t1 - t0) * 1e3)
+                loss = self._train_step(self._batch(batch),
+                                        self._text_targets(batch),
+                                        self._step_gen)
+                total += float(loss)
+                self.step_ms.append((time.perf_counter() - t1) * 1e3)
+                n += 1
+        finally:
+            batches.close()     # a cut epoch stops the prefetch thread now
         return total / max(n, 1)
 
     def extract_embeddings(self, loader, task0_only: bool = False):

@@ -1,8 +1,9 @@
-"""Carry the JAX package's ModalTune parameters into the port.
+"""Carry the JAX package's model parameters into the port.
 
 ``params_from_jax(tree, model)`` takes the parameter tree of
-``modaltune_tpu.models.ModalTuneModel`` or ``TitanModalTuneModel`` (nested
-dicts of numpy arrays, as ``jax.device_get(params)`` gives them) and
+``modaltune_tpu.models.ModalTuneModel``, ``TitanModalTuneModel`` or one of
+the baselines (``GeneOnlyModel``, ``AbmilModel``, ``TransMilModel``;
+nested dicts of numpy arrays, as ``jax.device_get(params)`` gives them) and
 returns a ``state_dict`` for the port's model of the same name, so that
 the two compute the same function. The names line up by rule:
 
@@ -16,10 +17,13 @@ the two compute the same function. The names line up by rule:
   ``patch_embed_fc{1,2}`` become ``blocks.N``, ``mlp.fc{1,2}`` and
   ``patch_embed.fc{1,2}``, the original checkpoint's names (no span
   stacking there);
-* a Dense ``kernel`` (in, out) becomes ``weight`` (out, in), a LayerNorm
-  ``scale`` becomes ``weight``; the gene mixer's raw parameters
-  (``snn1_kernel``, ``mix0_token/w1``, ``compress_kernel``, ...) are
-  carried as they are.
+* a Dense ``kernel`` (in, out) becomes ``weight`` (out, in), a Conv
+  ``kernel`` (kh, kw, in / groups, out) becomes ``weight`` (out,
+  in / groups, kh, kw) (TransMIL's PPEG; a plain ``.T`` would swap kh and
+  kw), a LayerNorm ``scale`` becomes ``weight``; raw parameters (the gene
+  mixer's ``snn1_kernel``, ``mix0_token/w1``, ``compress_kernel``, the
+  heads' ``classifier_kernel``, TransMIL's ``res_conv``, ...) are carried
+  as they are.
 
 It raises on a JAX key that maps to no port parameter, on a port
 parameter that no JAX key sets, and on a shape that differs; with
@@ -73,6 +77,8 @@ def _port_parts(parts):
 
 def _leaf(parts, arr: np.ndarray):
     """Rename a leaf the JAX way -> the torch way, transposing kernels."""
+    if parts[-1] == "kernel" and np.ndim(arr) == 4:     # Conv, HWIO
+        return parts[:-1] + ["weight"], np.transpose(arr, (3, 2, 0, 1))
     if parts[-1] == "kernel":
         return parts[:-1] + ["weight"], arr.T
     if parts[-1] == "scale":
@@ -81,7 +87,7 @@ def _leaf(parts, arr: np.ndarray):
 
 
 def port_names(tree: dict) -> Dict[str, np.ndarray]:
-    """JAX ModalTune parameter tree -> ``{port parameter name: array}`` by
+    """JAX parameter tree -> ``{port parameter name: array}`` by
     the rules above, unchecked against any model."""
     flat = flatten_params(tree)
     spans = {}
@@ -111,7 +117,7 @@ def port_names(tree: dict) -> Dict[str, np.ndarray]:
 
 def params_from_jax(tree: dict, model: nn.Module,
                     subtree: Optional[str] = None) -> Dict[str, torch.Tensor]:
-    """JAX ModalTune parameter tree -> the port model's ``state_dict``.
+    """JAX parameter tree -> the port model's ``state_dict``.
 
     With ``subtree`` (``"backbone"``), ``tree`` holds that one top-level
     key and the result sets exactly the model's parameters under it."""

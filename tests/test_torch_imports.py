@@ -10,8 +10,8 @@ framework-free layers have not drifted.
   field, default for default; the copied data layer gives the same arrays
   for a seed (its file readers: ``test_torch_data_readers.py``); the
   verbatim copies (``utils/constants.py``, ``utils/logging.py``,
-  ``native/bagcache.cpp``, the readout's numpy functions) are the same
-  text; ``params_io`` reads and writes the same ``.npz`` files.
+  ``native/bagcache.cpp``, ``eval/pancancer.py``, the readout's numpy
+  functions) are the same text; ``params_io`` reads and writes the same ``.npz`` files.
 """
 
 import ast
@@ -56,6 +56,8 @@ def test_port_files_are_found():
             "modaltune_tpu_torch/data/bagcache.py",
             "modaltune_tpu_torch/eval/readout.py",
             "modaltune_tpu_torch/train/trainer.py",
+            "modaltune_tpu_torch/train/pancancer_trainer.py",
+            "modaltune_tpu_torch/models/mil.py",
             "modaltune_tpu_torch/tools/train.py", "chip_smoke.py",
             "profile_train.py"} <= names
 
@@ -212,7 +214,9 @@ VERBATIM = [("modaltune_tpu/utils/constants.py",
             ("modaltune_tpu/utils/logging.py",
              "modaltune_tpu_torch/utils/logging.py"),
             ("modaltune_tpu/native/bagcache.cpp",
-             "modaltune_tpu_torch/native/bagcache.cpp")]
+             "modaltune_tpu_torch/native/bagcache.cpp"),
+            ("modaltune_tpu/eval/pancancer.py",
+             "modaltune_tpu_torch/eval/pancancer.py")]
 
 
 @pytest.mark.parametrize("jax_file,port_file", VERBATIM,

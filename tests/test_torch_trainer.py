@@ -386,13 +386,11 @@ def test_cli_refuses_without_a_gpu_and_unported_paths(tmp_path):
     assert done.returncode != 0
     assert "--device cpu" in done.stderr
     assert not (tmp_path / "seed_0").exists()
-    for flags, item in ((["--pancancer", "1"], "item 5"),
-                        (["--distributed", "1"], "item 6"),
-                        (["--mil_name", "abmil"], "item 7")):
-        args = cli.build_parser().parse_args(["--device", "cpu", *flags])
-        with pytest.raises(SystemExit, match=item):
-            cli.run_one_seed(args)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    args = cli.build_parser().parse_args(["--device", "cpu",
+                                          "--distributed", "1"])
+    with pytest.raises(SystemExit, match="item 2, multi-GPU"):
+        cli.run_one_seed(args)
+    with pytest.raises(NotImplementedError, match="item 2"):
         ModalTuneTrainer(_port_model()[0], TrainConfig(), {}, str(tmp_path),
                          process_shard=(0, 2))
 
