@@ -6,11 +6,12 @@
 Builds the port's CUDA kernels from ``modaltune_tpu_torch/csrc``, holds
 each against its plain PyTorch version at the shapes of the model steps
 (the forward kernels K1f, K2f, K3f, K4f, K5f and the statistics of K1f and
-K3f; the backward kernels K1b, K2b, K3b, K4b, K5b), times each beside its
+K3f; the backward kernels K1b, K2b, K3b, K4b, K5b; K1f and K1b also with a
+``q_token_range``, a sequence-parallel shard's rows), times each beside its
 plain version and, where one PyTorch call computes the same function,
 beside that call (``scaled_dot_product_attention``; timed here, used
 nowhere in the port), and computes the least time the card could take for
-the same work. Then it drives eight paths end to end at full published
+the same work. Then it drives ten paths end to end at full published
 width with random weights from a seeded generator, each with every launch
 count set to 0 just before and read just after:
 
@@ -35,7 +36,13 @@ count set to 0 just before and read just after:
   the best weights, a checkpoint every epoch, deploy;
 * the same CLI with ``--pancancer 1 --reference_quirks 1`` on four TCGA
   projects' files at the 2,047 bucket: full epochs, the per-site readout
-  and the 4-way site classifier, the pan-cancer deploy.
+  and the 4-way site classifier, the pan-cancer deploy;
+* data parallelism: ModalTune-GigaPath's ``make_dp_train_step`` on a data
+  mesh over a world of one NCCL process, against the single-device step;
+* sequence parallelism: a ModalTune-GigaPath grad step at 10,239 on two
+  processes that share the card over gloo, each running the backbone on
+  its half of the tokens (K1f and K1b with its ``q_token_range``), against
+  the single-process step.
 
 Then it trains the supervised baselines through the CLI (ABMIL, TransMIL
 "(cat)" survival, the gene-only model; they run no kernel of the port, so
@@ -108,17 +115,26 @@ def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return device_times(fn, iters, warmup)[0]
 
 
+# device_times calls, and those of them timed by CUDA events because the
+# profiler handed back no device event
+DEVICE_TIMES = {"calls": 0, "by_events": 0}
+
+
 def device_times(fn, iters: int = 10, warmup: int = 2):
     """``(ms, {kernel name: ms})``: :func:`device_ms` and its split by the
-    name of what ran, each per call."""
+    name of what ran, each per call. Now and then a profiler run hands
+    back no device event at all, at any shape: it is profiled again, up
+    to three times, and if none of the three holds a device event the
+    ``iters`` calls are timed by CUDA events instead (the host's enqueue
+    time included), the split is ``None``, and the fallback is printed
+    and counted in :data:`DEVICE_TIMES`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    DEVICE_TIMES["calls"] += 1
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    # now and then a profiler run hands back no device events at all (seen
-    # at a K2 shape): profile again, up to three times
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -129,12 +145,30 @@ def device_times(fn, iters: int = 10, warmup: int = 2):
                and not getattr(e, "is_user_annotation", False)]
         if dev:
             break
-    check(bool(dev), "the profiler recorded no device time in three runs")
+    else:
+        DEVICE_TIMES["by_events"] += 1
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / iters
+        print(f"device time: the profiler recorded no device event in three "
+              f"runs; {iters} calls timed by CUDA events instead, {ms:.4f} "
+              f"ms a call (host enqueue included)", flush=True)
+        return ms, None
     by_name = {}
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + \
             (e.time_range.end - e.time_range.start) / iters / 1e3
     return sum(by_name.values()), by_name
+
+
+def fmt_ms(ms) -> str:
+    """``ms`` to four places, or "not measured" for ``None``."""
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def timed_once(fn):
@@ -524,11 +558,14 @@ def phase_k2b(device, shapes=K2_SHAPES, iters=20):
 # K1: multi-branch dilated attention
 # ---------------------------------------------------------------------------
 
-def dilated_pairs(length, n_valid, segments, ratios, heads) -> float:
+def dilated_pairs(length, n_valid, segments, ratios, heads,
+                  q_range=None) -> float:
     """(query, unmasked key) pairs of one batch row of a K1 call, summed
     over its heads: in branch (w, r) a query meets the keys of its segment
     (of length min(w, L)) in its residue class mod r, for the heads of that
-    class's group; keys past ``n_valid`` are masked and need no work."""
+    class's group; keys past ``n_valid`` are masked and need no work. With
+    ``q_range=(p0, p1)`` only the queries at positions in [p0, p1)."""
+    p0, p1 = q_range or (0, length)
     total = 0
     for w, r in zip(segments, ratios):
         sl = min(w, length)
@@ -537,7 +574,7 @@ def dilated_pairs(length, n_valid, segments, ratios, heads) -> float:
             s1 = min(s0 + sl, length)
             for g in range(r):
                 n_heads = max(0, min(per_group, heads - g * per_group))
-                n_q = len(range(s0 + g, s1, r))
+                n_q = sum(1 for p in range(s0 + g, s1, r) if p0 <= p < p1)
                 n_k = len(range(s0 + g, min(s1, n_valid), r))
                 total += n_heads * n_q * n_k
     return float(total)
@@ -564,8 +601,11 @@ def plain_branch_out(qf, kf, vf, mask, segments, ratios, scale, i):
     return df.from_compact(out_b, qf.shape[1], w, r).permute(0, 2, 1, 3)
 
 
-def mix_share(by_name) -> float:
-    """The mix kernel's device ms in a :func:`device_times` split."""
+def mix_share(by_name):
+    """The mix kernel's device ms in a :func:`device_times` split, ``None``
+    where the split was not measured."""
+    if by_name is None:
+        return None
     return sum(ms for name, ms in by_name.items() if "fused_mix" in name)
 
 
@@ -673,11 +713,12 @@ def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
           f"{bf['branch_err']:.3e}, rel-L2 {bf['branch_rel']:.3e}, row-scaled "
           f"{bf['branch_row']:.3e}, reruns bit-equal | kernel "
           f"{res['ms']:.4f} ms (card {res['device_ms']:.4f}, mix "
-          f"{res['mix_device_ms']:.4f}), with stats {res['stats_ms']:.4f} ms "
-          f"(card {res['stats_device_ms']:.4f}, mix "
-          f"{res['stats_mix_device_ms']:.4f}), plain {res['plain_ms']:.4f} "
-          f"ms, bound {res['bound_ms']:.5f} ms ({res['bound_by']}; with "
-          f"stats {res['stats_bound_ms']:.5f}), no library call", flush=True)
+          f"{fmt_ms(res['mix_device_ms'])}), with stats "
+          f"{res['stats_ms']:.4f} ms (card {res['stats_device_ms']:.4f}, "
+          f"mix {fmt_ms(res['stats_mix_device_ms'])}), plain "
+          f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.5f} ms "
+          f"({res['bound_by']}; with stats {res['stats_bound_ms']:.5f}), no "
+          f"library call", flush=True)
     return res
 
 
@@ -773,6 +814,171 @@ def phase_k1b(device, shape=(3, 10240, 16, 48), n_valid=9000,
           f"{res['plain_ms']:.4f} ms (card {res['plain_device_ms']:.4f}), "
           f"bound {res['bound_ms']:.5f} ms ({res['bound_by']}), no library "
           f"call | K1f with stats {res['fwd_stats_ms']:.4f} ms", flush=True)
+    return res
+
+
+def phase_k1_qrange(device, shape=(3, 10240, 16, 48), n_valid=9000,
+                    shards=(2, 4), segments=None, ratios=None, iters=10):
+    """K1f and K1b with a ``q_token_range``, the rows of one shard of a
+    sequence-parallel group, at K1's shape in fp32 and bf16, the sequence
+    cut into ``n`` equal shards for each n of ``shards``:
+
+    * every shard's K1f rows, concatenated, against the full K1f (bf16
+      bit-equal; fp32 by the max-scaled bound at 1e-5) and against the
+      plain version with the range (:func:`check_out`, the valid rows);
+      rows outside the range exactly 0, and with stats the range's planes
+      equal to the full call's;
+    * K1b with each shard's range: dq exactly 0 outside it, the shards' dq
+      rows and the sum of their dk, dv against the full K1b by
+      :func:`check_grads`;
+    * in bf16 one middle shard's time against the full call, K1f and K1b,
+      on both clocks, beside the bound at the range's share of the pairs."""
+    import torch
+    from modaltune_tpu_torch.configs import SlideEncoderConfig
+    from modaltune_tpu_torch.ops.dilated import dilated_attention
+    dm = importlib.import_module("modaltune_tpu_torch.ops.dilated_mega")
+    if segments is None:
+        ln = SlideEncoderConfig().longnet()
+        segments, ratios = ln.segment_lengths, ln.dilated_ratios
+    b, length, h, d = shape
+    scale = d ** -0.5
+    res = {"fwd_err": 0.0, "bwd_err": 0.0, "plain_rel": 0.0,
+           "bwd_rel": 0.0, "by_n": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        dtn = str(dtype)[6:]
+        (q, k, v, dmix), mask = k1_inputs(shape, n_valid, device, dtype,
+                                          seed=11, n_tensors=4)
+        valid = mask[:, :, None, None]
+        dmix = dmix * valid
+        kw = dict(segment_lengths=segments, dilated_ratios=ratios, mask=mask)
+        full = dm.mega_dilated_attention(q, k, v, **kw)
+        f_out, f_st, f_bo = dm.mega_dilated_attention_cuda(
+            q, k, v, mask, segments, ratios, scale, with_stats=True)
+        f_grads = dm.mega_dilated_attention_backward_cuda(
+            q, k, v, mask, dmix, f_st, f_bo, segments, ratios, scale)
+        plain = dilated_attention(q.float(), k.float(), v.float(), **kw)
+        torch.cuda.synchronize()
+        for n in shards:
+            tag = f"K1 q_token_range {dtn} n={n}"
+            sl = length // n
+            rows, dq_rows = [], []
+            dk_sum = torch.zeros(shape, dtype=torch.float32, device=device)
+            dv_sum = torch.zeros_like(dk_sum)
+            for i in range(n):
+                rng = (i * sl, (i + 1) * sl)
+                part = dm.mega_dilated_attention(q, k, v, q_token_range=rng,
+                                                 **kw)
+                out, st, bo = dm.mega_dilated_attention_cuda(
+                    q, k, v, mask, segments, ratios, scale, with_stats=True,
+                    q_token_range=rng)
+                if dtype == torch.bfloat16:   # one mix, the same bits
+                    check(torch.equal(out, part), f"{tag}: with stats, "
+                          f"other output rows")
+                else:   # the CUDA-core kernel mixes otherwise with stats
+                    compare(out, part, 1e-5, f"{tag} with stats")
+                outside = torch.ones(length, dtype=torch.bool, device=device)
+                outside[rng[0]:rng[1]] = False
+                check(not bool(part[:, outside].any()),
+                      f"{tag} shard {i}: rows outside the range not 0")
+                if dtype == torch.bfloat16:
+                    check(torch.equal(st[..., rng[0]:rng[1]],
+                                      f_st[..., rng[0]:rng[1]]),
+                          f"{tag} shard {i}: stats of the range differ")
+                else:
+                    compare(st[..., rng[0]:rng[1]], f_st[..., rng[0]:rng[1]],
+                            1e-5, f"{tag} shard {i} stats")
+                dq, dk, dv = dm.mega_dilated_attention_backward_cuda(
+                    q, k, v, mask, dmix, st, bo, segments, ratios, scale,
+                    q_token_range=rng)
+                check(not bool(dq[:, outside].any()),
+                      f"{tag} shard {i}: dq outside the range not 0")
+                rows.append(part[:, rng[0]:rng[1]])
+                dq_rows.append(dq[:, rng[0]:rng[1]])
+                dk_sum += dk.float()
+                dv_sum += dv.float()
+                del out, st, bo, dq, dk, dv, part
+            got = torch.cat(rows, dim=1)
+            if dtype == torch.bfloat16:
+                check(torch.equal(got, full),
+                      f"{tag}: shards' rows differ from the full K1f's bits")
+            err = compare(got.float(), full.float(), 1e-5, f"{tag} vs full")
+            rel, row = check_out(got.float() * valid, plain * valid, dtn,
+                                 f"{tag} vs plain")
+            grels = check_grads(
+                ("dq", "dk", "dv"),
+                (torch.cat(dq_rows, dim=1) * valid, dk_sum * valid,
+                 dv_sum * valid),
+                [g.float() * valid for g in f_grads], dmix, dtn,
+                f"{tag} K1b vs full K1b")
+            bwd_err = max((torch.cat(dq_rows, dim=1).float() - f_grads[0]
+                           .float()).abs().max().item(),
+                          (dk_sum - f_grads[1].float()).abs().max().item(),
+                          (dv_sum - f_grads[2].float()).abs().max().item())
+            res["fwd_err"] = max(res["fwd_err"], err)
+            res["bwd_err"] = max(res["bwd_err"], bwd_err)
+            res["plain_rel"] = max(res["plain_rel"], rel)
+            res["bwd_rel"] = max(res["bwd_rel"], grels[0])
+            print(f"{tag}: rows vs full K1f max|err| {err:.3e}"
+                  f"{' (bit-equal)' if dtype == torch.bfloat16 else ''}, vs "
+                  f"plain rel-L2 {rel:.3e} row-scaled {row:.3e}; K1b shards "
+                  f"vs full rel-L2 {grels[0]:.3e} row-scaled {grels[1]:.3e}, "
+                  f"max|err| {bwd_err:.3e}; outside rows and dq 0",
+                  flush=True)
+            del rows, dq_rows, dk_sum, dv_sum, got
+            if dtype == torch.bfloat16:
+                i = n // 2
+                rng = (i * sl, (i + 1) * sl)
+                _, st, bo = dm.mega_dilated_attention_cuda(
+                    q, k, v, mask, segments, ratios, scale, with_stats=True,
+                    q_token_range=rng)
+
+                def fwd(rng=rng):
+                    return dm.mega_dilated_attention(q, k, v,
+                                                     q_token_range=rng, **kw)
+
+                def bwd(st=st, bo=bo, rng=rng):
+                    return dm.mega_dilated_attention_backward_cuda(
+                        q, k, v, mask, dmix, st, bo, segments, ratios, scale,
+                        q_token_range=rng)
+                pairs = b * dilated_pairs(length, n_valid, segments, ratios,
+                                          h, q_range=rng)
+                q_rows = q[:, rng[0]:rng[1]]
+                r = dict(ms=time_ms(fwd, iters),
+                         device_ms=device_ms(fwd, iters=3, warmup=1),
+                         bwd_ms=time_ms(bwd, iters),
+                         bwd_device_ms=device_ms(bwd, iters=3, warmup=1),
+                         pairs_share=pairs / (b * dilated_pairs(
+                             length, n_valid, segments, ratios, h)))
+                r["bound_ms"], r["bound_by"] = attention_bound(
+                    pairs, d, (q_rows, k, v, mask, full), backward=False)
+                r["bwd_bound_ms"], r["bwd_bound_by"] = attention_bound(
+                    pairs, d, (q_rows, k, v, mask, dmix[:, rng[0]:rng[1]],
+                               st, bo, q_rows, k, v), backward=True)
+                res["by_n"][n] = r
+                del st, bo
+        if dtype == torch.bfloat16:
+            res["full_ms"] = time_ms(
+                lambda: dm.mega_dilated_attention(q, k, v, **kw), iters)
+            res["full_device_ms"] = device_ms(
+                lambda: dm.mega_dilated_attention(q, k, v, **kw), iters=3,
+                warmup=1)
+            res["full_bwd_ms"] = time_ms(
+                lambda: dm.mega_dilated_attention_backward_cuda(
+                    q, k, v, mask, dmix, f_st, f_bo, segments, ratios, scale),
+                iters)
+        del full, f_out, f_st, f_bo, f_grads, plain
+        torch.cuda.empty_cache()
+    for n, r in res["by_n"].items():
+        print(f"K1 q_token_range bf16 one shard of {n} (middle): K1f "
+              f"{r['ms']:.4f} ms (card {r['device_ms']:.4f}) against the full "
+              f"call's {res['full_ms']:.4f} ms (card {res['full_device_ms']:.4f}"
+              f"), ratio {r['ms'] / res['full_ms']:.3f}; K1b {r['bwd_ms']:.4f} "
+              f"ms (card {r['bwd_device_ms']:.4f}) against "
+              f"{res['full_bwd_ms']:.4f} ms, ratio "
+              f"{r['bwd_ms'] / res['full_bwd_ms']:.3f}; the range's share of "
+              f"the pairs {r['pairs_share']:.4f}, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}), backward {r['bwd_bound_ms']:.5f} ms "
+              f"({r['bwd_bound_by']})", flush=True)
     return res
 
 
@@ -882,7 +1088,8 @@ def phase_k3(device, shape=(3, 10240, 16, 48), n_valid=9000,
           f"{bf['piece_rel']:.3e}, row-scaled {bf['piece_row']:.3e}, lse "
           f"{bf['lse_err']:.3e}, (m, Z) {bf['stats_err']:.3e}, mix "
           f"{bf['mix_err']:.3e}, rerun bit-equal | kernel {res['ms']:.4f} ms "
-          f"(card {res['device_ms']:.4f}, mix {res['mix_device_ms']:.4f}), "
+          f"(card {res['device_ms']:.4f}, mix "
+          f"{fmt_ms(res['mix_device_ms'])}), "
           f"plain {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.5f} ms "
           f"({res['bound_by']}), no library call | K1f on the same inputs "
           f"{res['k1f_ms']:.4f} ms", flush=True)
@@ -1873,6 +2080,261 @@ def phase_train(device, steps=3, timed_steps=5, compare_kw=None,
 
 
 # ---------------------------------------------------------------------------
+# Data and sequence parallelism (parallel/, ops/dilated_sp.py)
+# ---------------------------------------------------------------------------
+
+SEQ_AXES = ("data", "seq")
+SP_RANKS = 2
+
+
+def gigapath_without_dropout(seq_axes=None):
+    """ModalTune-GigaPath at full width with every dropout and drop-path
+    rate 0 (the sequence-parallel step draws a rank's dropout bits for its
+    token shard, so only a step without them can equal the single-process
+    one), and ``seq_axes``."""
+    import dataclasses
+    from modaltune_tpu_torch.configs import gigapath_modaltune_config
+    cfg = gigapath_modaltune_config()
+    return dataclasses.replace(
+        cfg, backbone=dataclasses.replace(cfg.backbone, dropout=0.0,
+                                          drop_path_rate=0.0,
+                                          seq_axes=seq_axes),
+        adapter=dataclasses.replace(cfg.adapter, drop_path_rate=0.0),
+        gene=dataclasses.replace(cfg.gene, dropout=0.0))
+
+
+def read_counts_qrange() -> dict:
+    """:func:`read_counts` and K1's launches with a ``q_token_range``
+    (``K1f_qrange``, ``K1b_qrange``)."""
+    dm = importlib.import_module(COUNTERS["K1f"][0])
+    return dict(read_counts(), K1f_qrange=dm.QRANGE_LAUNCHES,
+                K1b_qrange=dm.BWD_QRANGE_LAUNCHES)
+
+
+def reset_counts_qrange() -> None:
+    reset_counts()
+    dm = importlib.import_module(COUNTERS["K1f"][0])
+    dm.QRANGE_LAUNCHES = dm.BWD_QRANGE_LAUNCHES = 0
+
+
+def sp_grad_step(device, seed, mesh=None, **data_kw):
+    """One grad step of GigaPath without dropout, ``seq_axes`` set, at
+    ``data_kw``'s bucket (10,239 unless given), under ``mesh`` as the
+    ambient mesh where given: ``(loss, {name: fp32 grad on the CPU},
+    launches, ms of a second step, peak bytes)``."""
+    import torch
+    from modaltune_tpu_torch import make_grad_step
+    from modaltune_tpu_torch.ops.dilated_sp import use_mesh
+    model, tcfg, _, text, batch = build_train(
+        device, **{**GIGAPATH, "cfg": gigapath_without_dropout(SEQ_AXES),
+                   **data_kw})
+
+    def step():
+        gen = torch.Generator(device=device).manual_seed(seed)
+        if mesh is None:
+            return make_grad_step(model, tcfg)(batch, text, gen)
+        with use_mesh(mesh):
+            return make_grad_step(model, tcfg)(batch, text, gen)
+    torch.cuda.synchronize()
+    reset_counts_qrange()
+    loss, grads = step()
+    torch.cuda.synchronize()
+    launches = read_counts_qrange()
+    torch.cuda.reset_peak_memory_stats()
+    _, ms = timed_once(step)
+    peak = torch.cuda.max_memory_allocated()
+    per = calls_per_forward(model)
+    return (float(loss), {n: g.float().cpu() for n, g in grads.items()},
+            launches, ms, peak, per)
+
+
+def _sp_rank(rank, n, run_dir, seed):
+    """Rank ``rank`` of the sequence-parallel step: a process of an
+    ``n``-rank gloo group on the one card (NCCL refuses two ranks on one
+    GPU), a ``(1, n)`` mesh, :func:`sp_grad_step`; its results saved to
+    ``run_dir``."""
+    import torch
+    import torch.distributed as dist
+    from modaltune_tpu_torch.ops import _build
+    from modaltune_tpu_torch.parallel.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    _build.load_library()
+    dist.init_process_group("gloo", init_method=f"file://{run_dir}/init",
+                            rank=rank, world_size=n)
+    try:
+        out = sp_grad_step(torch.device("cuda:0"), seed,
+                           mesh=make_mesh(n_data=1, n_seq=n))
+        torch.save(out, f"{run_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(device, card="", sp_kw=None, dp_kw=None, timeout=600):
+    """The port's data and sequence parallelism on the one card, each
+    against the single-device step.
+
+    * A world of one over NCCL: ``make_dp_train_step`` on a one-rank data
+      mesh against ``make_train_step`` from the same weights and dropout
+      bits (GigaPath at full width, the 2,047 bucket; the launch counts of
+      the step checked), ``DdpGradSync``'s mean of a grad step against the
+      gradients, ``allgather_embeddings`` of the embed step's output with
+      its id, ``process_sum`` and ``global_steps_min``, each through the
+      NCCL group.
+    * A 2-rank sequence-parallel GigaPath grad step at 10,239 (dropout
+      off, ``seq_axes`` set): two processes share the card over gloo, each
+      runs the 12 layers on its 5,120 tokens with K1f and K1b on its
+      ``q_token_range`` (12 each and no plain K1 launch per rank); their
+      loss and adapter gradients against the same model's single-process
+      step by :func:`grad_readings` at the bf16 limits, and the two
+      ranks' gradients equal."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from modaltune_tpu_torch import (make_embed_step, make_grad_step,
+                                     make_train_step)
+    from modaltune_tpu_torch.parallel import multihost as mh
+    from modaltune_tpu_torch.parallel.mesh import (make_dp_train_step,
+                                                   make_mesh)
+    dp_kw = dp_kw or {**GIGAPATH, **GIGAPATH_2047}
+    res = {}
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+
+    # ---- a world of one over NCCL ----
+    dist.init_process_group("nccl", init_method=f"file://{run_dir}/nccl",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(n_data=1)
+        params, losses = {}, {}
+        for kind in ("single", "dp"):
+            model, tcfg, opt, text, batch = build_train(device, **dp_kw)
+            gen = torch.Generator(device=device).manual_seed(5)
+            step = make_train_step(model, tcfg, opt) if kind == "single" \
+                else make_dp_train_step(model, tcfg, opt, mesh)
+            torch.cuda.synchronize()
+            reset_counts()
+            losses[kind] = float(step(batch, text, gen))
+            torch.cuda.synchronize()
+            if kind == "dp":
+                res["dp_launches"] = read_counts()
+                per = calls_per_forward(model)
+                want = {f"{k}{d}": n for k, n in per.items() for d in "fb"}
+                check(res["dp_launches"] == want, f"dp train launches "
+                      f"{res['dp_launches']} != {want}")
+            params[kind] = {n: p.detach().float().clone()
+                            for n, p in model.named_parameters()
+                            if p.requires_grad}
+        check(losses["dp"] == losses["single"], f"dp step loss "
+              f"{losses['dp']} != the single-device step's "
+              f"{losses['single']}")
+        dp_err = max((params["dp"][n] - p).abs().max().item()
+                     for n, p in params["single"].items())
+        check(dp_err == 0.0, f"dp step parameters differ from the "
+              f"single-device step's by {dp_err:.3e}")
+        gen = torch.Generator(device=device).manual_seed(6)
+        loss, grads = make_grad_step(model, tcfg)(batch, text, gen)
+        trainable = {n: p for n, p in model.named_parameters()
+                     if p.requires_grad}
+        mean, mloss = mh.DdpGradSync(opt, trainable).mean(grads, loss)
+        check(all(torch.equal(mean[n], grads[n].to(mean[n].dtype))
+                  for n in grads) and float(mloss) == float(loss),
+              "DdpGradSync's mean over a world of one changed the gradients")
+        emb = make_embed_step(model, tcfg)(batch).float().cpu().numpy()
+        x, ids = mh.allgather_embeddings(emb, ["case-0"])
+        check(ids == ["case-0"] and (x == emb).all(),
+              "allgather_embeddings over a world of one changed its input")
+        check(list(mh.process_sum([1.5, 2.0])) == [1.5, 2.0] and
+              mh.global_steps_min(7) == 7,
+              "process_sum / global_steps_min over a world of one")
+        del model, opt, params, grads, mean
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print(f"parallel: a world of one over NCCL at bucket "
+          f"{dp_kw['bucket']}: make_dp_train_step loss {losses['dp']:.6f} and "
+          f"parameters bit-equal to make_train_step's, launches "
+          f"{res['dp_launches']}; DdpGradSync mean, allgather_embeddings, "
+          f"process_sum, global_steps_min through the NCCL group unchanged",
+          flush=True)
+
+    # ---- the 2-rank sequence-parallel step, against one process ----
+    sp_kw = sp_kw or {}
+    loss1, grads1, launches1, ms1, peak1, per = sp_grad_step(
+        device, seed=7, **sp_kw)
+    check(launches1["K1f"] == per["K1"] and launches1["K1f_qrange"] == 0,
+          f"single-process step launches {launches1}")
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_sp_rank, args=(r, SP_RANKS, run_dir, 7))
+             for r in range(SP_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(max(1.0, timeout - (time.perf_counter() - t0)))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    check(not alive and all(p.exitcode == 0 for p in procs),
+          f"sequence-parallel ranks: exit codes "
+          f"{[p.exitcode for p in procs]} (killed after {timeout} s: "
+          f"{bool(alive)})")
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(f"{run_dir}/rank{r}.pt", weights_only=False)
+             for r in range(SP_RANKS)]
+    sp_launches = {k: sum(r[2][k] for r in ranks) for k in ranks[0][2]}
+    for r in ranks:
+        got = r[2]
+        check(got["K1f_qrange"] == got["K1b_qrange"] == per["K1"] and
+              got["K1f"] == got["K1b"] == 0 and
+              got["K2f"] == got["K2b"] == per["K2"],
+              f"sequence-parallel rank launches {got}, want "
+              f"{per['K1']} K1f/K1b with a range and {per['K2']} K2f/K2b")
+    for n in grads1:
+        check(torch.equal(ranks[0][1][n], ranks[1][1][n]),
+              f"sequence-parallel ranks' {n} gradients differ")
+    loss_sp, grads_sp = ranks[0][0], ranks[0][1]
+    loss_rel = abs(loss_sp - loss1) / abs(loss1)
+    g_all = max(g.abs().max().item() for g in grads1.values())
+    rel_lim, row_lim = GRAD_LIMITS["bfloat16"]
+    worst = (0.0, 0.0, "")
+    null_worst = 0.0
+    for n, want in grads1.items():
+        got = grads_sp[n]
+        if n.endswith(NULL_GRAD):
+            null_worst = max(null_worst,
+                             (got - want).abs().max().item() / g_all)
+            continue
+        rel, row = grad_readings(got, want, want)
+        if rel > worst[0]:
+            worst = (rel, row, n)
+        check(rel <= rel_lim and row <= row_lim,
+              f"sequence-parallel {n}: rel-L2 {rel:.3e}, row-scaled "
+              f"{row:.3e} against the single-process step")
+    check(loss_rel <= 1e-3 and null_worst <= 1e-2,
+          f"sequence-parallel loss {loss_sp} vs {loss1} (rel {loss_rel:.3e})"
+          f", NULL_GRAD max|err| / max|g| {null_worst:.3e}")
+    res.update(sp_launches=sp_launches, sp_loss_rel=loss_rel,
+               sp_worst_rel=worst[0], sp_ms=[r[3] for r in ranks],
+               sp_peak=[r[4] for r in ranks], single_ms=ms1,
+               single_peak=peak1)
+    print(f"parallel: {SP_RANKS}-rank sequence-parallel grad step at bucket "
+          f"{sp_kw.get('bucket', GIGAPATH['bucket'])} over gloo on one card "
+          f"(dropout off): loss {loss_sp:.6f} vs {loss1:.6f} one process "
+          f"(rel {loss_rel:.3e}); adapter gradients: largest rel-L2 "
+          f"{worst[0]:.3e} (row-scaled {worst[1]:.3e}, {worst[2]}), "
+          f"NULL_GRAD max|err| / max|g| {null_worst:.3e}; ranks' gradients "
+          f"bit-equal; launches per rank {ranks[0][2]}; second step "
+          f"{[round(r[3], 2) for r in ranks]} ms a rank (one process "
+          f"{ms1:.2f} ms), peak {[round(r[4] / 2**30, 3) for r in ranks]} "
+          f"GiB a rank (one process {peak1 / 2**30:.3f}); the ranks' run "
+          f"{wall:.1f} s{'; ' + card if card else ''}", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # The trainer: the port's CLI on the reference's file formats
 # ---------------------------------------------------------------------------
 
@@ -2497,6 +2959,7 @@ def main() -> int:
     k2b = phase_k2b(device, iters=10)
     k1 = phase_k1(device, iters=10)
     k1b = phase_k1b(device)
+    k1q = phase_k1_qrange(device)
     k3 = phase_k3(device)
     k3b = phase_k3b(device)
     k5 = phase_k5(device)
@@ -2527,6 +2990,11 @@ def main() -> int:
     paths["titan_train"] = phase_train(
         device, card=card, build_kw=TITAN, compare_kw=TITAN_2047,
         tag="titan train")
+    # data parallelism over a world of one (NCCL) and the 2-rank
+    # sequence-parallel step (gloo), each held to the single-device step
+    par = phase_parallel(device, card=card)
+    paths["gigapath_dp_train"] = dict(launches=par["dp_launches"])
+    paths["gigapath_sp_train"] = dict(launches=par["sp_launches"])
     # the trainer slice: the port's train CLI, train -> val -> test ->
     # deploy, on the reference's file formats at full width
     paths["gigapath_trainer"] = phase_trainer(device, card=card)
@@ -2551,6 +3019,8 @@ def main() -> int:
         K3), else ``family``; device_ms where measured, and K1f's and
         K3f's mix kernel on the card and K1f's times with stats."""
         by_path = {p: r["launches"][key] for p, r in paths.items()}
+        qrange = {p: r["launches"].get(f"{key}_qrange", 0)
+                  for p, r in paths.items()}
         out = {"name": name, "route": "cuda",
                "source": f"modaltune_tpu_torch/csrc/{source or name}.cu",
                "replaces": replaces, "launches": sum(by_path.values()),
@@ -2566,6 +3036,28 @@ def main() -> int:
                   "dx_only_bound_by"):
             if k in res:
                 out[k] = res[k]
+        if key in ("K1f", "K1b"):
+            # with a q_token_range: launches on the paths (the
+            # sequence-parallel step's ranks), the shards' largest error
+            # against the whole call, the middle shard of 2's time and
+            # bound, and every shard count's readings
+            bwd = key == "K1b"
+            half = k1q["by_n"][2]
+            out.update(
+                qrange_launches=sum(qrange.values()),
+                qrange_launches_by_path={p: n for p, n in qrange.items()
+                                         if n},
+                qrange_max_abs_err=k1q["bwd_err" if bwd else "fwd_err"],
+                qrange_ms=half["bwd_ms" if bwd else "ms"],
+                qrange_device_ms=half["bwd_device_ms" if bwd
+                                      else "device_ms"],
+                qrange_bound_ms=half["bwd_bound_ms" if bwd else "bound_ms"],
+                qrange_by_n={n: {k: r[k] for k in (
+                    ("bwd_ms", "bwd_device_ms", "bwd_bound_ms") if bwd else
+                    ("ms", "device_ms", "bound_ms"))} for n, r in
+                    k1q["by_n"].items()})
+            check(out["qrange_launches"] > 0,
+                  f"{name} with a q_token_range was launched on no path")
         if by_shape:
             out["by_shape"] = {
                 shape: {k: r.get(k) for k in ("ms", "plain_ms", "bound_ms",
@@ -2627,6 +3119,9 @@ def main() -> int:
         kernel("K5b", "gelu_ln_bwd", "modaltune_tpu/ops/gelu_ln.py:189",
                max(k5b[dt] for dt in both), k5b),
     ]
+    print(f"device times: {DEVICE_TIMES['by_events']} of "
+          f"{DEVICE_TIMES['calls']} timed by CUDA events, the profiler having "
+          f"recorded no device event", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

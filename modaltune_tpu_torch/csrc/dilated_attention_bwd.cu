@@ -38,6 +38,13 @@
 //   with the same segment and phase arithmetic (for_each_segment): the
 //   relation "shares a segment and a residue class mod r" is symmetric.
 //
+// With the forward's query range [q0, q1) dq is 0 outside it and dk/dv sum
+// over the range's queries alone (this shard's partial dk/dv). The prep
+// gives the rows outside lse NEG_INF, w = delta = 0, so they add nothing; the
+// dq grids cover only the range's tiles (the combine, or range_fill_kernel,
+// writes dq = 0 elsewhere) and the dk/dv kernels stream only the query tiles
+// of a (segment, head group) that hold a row of the range.
+//
 // What bounds it on the H100: five products per query-key pair (q.k and
 // dmix.v in both kernels, dS k in one, P dmix and dS q in the other) against
 // the forward's two: operations (dilated_bwd_wgmma.cu). The CUDA-core
@@ -104,8 +111,8 @@ dilated_bwd_compact_prep_kernel(const T* __restrict__ dmix, const float* __restr
   const int seg = (row - fb.off[bi]) / m, l = (row - fb.off[bi]) - seg * m;
   const int o = l * r + head_group(h, H, r);
   const int p = seg * sl + o;
-  float lse = kNegInf, wb = 0.f, delta = 0.f;
-  if (o < sl && p < L) {
+  float lse = kNegInf, wb = 0.f, delta = 0.f;   // P = 0 for this row
+  if (o < sl && p < L && in_query_range(fb, p)) {
     const float* st = stats + bh * (nbr + 2) * L + p;
     lse = st[static_cast<size_t>(bi) * L];
     if (lse > kMaskThreshold) {
@@ -176,15 +183,15 @@ dilated_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
                       const unsigned char* __restrict__ mask, const T* __restrict__ dmix,
                       const float* __restrict__ stats, const float* __restrict__ w,
                       const float* __restrict__ delta, T* __restrict__ dq, int L, int H, int D,
-                      float scale, Branches br) {
+                      float scale, Branches br, int q0, int q1) {
   extern __shared__ float4 smem4[];
   BwdTiles<DP, false> t(reinterpret_cast<float*>(smem4));
   constexpr int S = BwdPlan<DP, false>::S;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int p0 = blockIdx.x * kBlockQ;
+  const int p0 = q0 + blockIdx.x * kBlockQ;   // the blocks cover [q0, q1)
   const int h = blockIdx.y, b = blockIdx.z;
   const size_t bh = static_cast<size_t>(b) * H + h;
-  const int nq = min(kBlockQ, L - p0);
+  const int nq = min(kBlockQ, q1 - p0);
   const size_t tok = static_cast<size_t>(H) * D;
   const size_t head0 = static_cast<size_t>(b) * L * tok + static_cast<size_t>(h) * D;
   const unsigned char* maskb = mask == nullptr ? nullptr : mask + static_cast<size_t>(b) * L;
@@ -228,7 +235,7 @@ dilated_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
                        const unsigned char* __restrict__ mask, const T* __restrict__ dmix,
                        const float* __restrict__ stats, const float* __restrict__ w,
                        const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                       int L, int H, int D, float scale, Branches br) {
+                       int L, int H, int D, float scale, Branches br, int q0, int q1) {
   extern __shared__ float4 smem4[];
   BwdTiles<DP, true> t(reinterpret_cast<float*>(smem4));
   constexpr int S = BwdPlan<DP, true>::S;
@@ -254,8 +261,11 @@ dilated_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
     const int r = br.ratio[bi];
     for_each_segment(p0, nk, L, sl, r, head_group(h, H, r),
                      [&](int row0, int n_rows, int first, int n_queries) {
-      for (int t0 = 0; t0 < n_queries; t0 += kBlockQ) {
-        const int nq = min(kBlockQ, n_queries - t0);
+      // only the queries at positions of [q0, q1): first + r u, u in [u_lo, u_hi)
+      const int u_lo = ceil_div_nonneg(q0 - first, r);
+      const int u_hi = min(n_queries, ceil_div_nonneg(q1 - first, r));
+      for (int t0 = u_lo; t0 < u_hi; t0 += kBlockQ) {
+        const int nq = min(kBlockQ, u_hi - t0);
         const int pos0 = first + r * t0;  // position of query i is pos0 + r*i
         __syncthreads();  // the previous tile is consumed
         const auto row = [pos0, r, tok](int i) {
@@ -281,7 +291,7 @@ cudaError_t launch_dilated_bwd(const void* q, const void* k, const void* v,
                                const unsigned char* mask, const void* dmix, const float* stats,
                                const void* branch_out, float* w, float* delta, void* dq, void* dk,
                                void* dv, int B, int L, int H, int D, float scale,
-                               const Branches& br, cudaStream_t stream) {
+                               const Branches& br, int q0, int q1, cudaStream_t stream) {
   auto kq = dilated_bwd_dq_kernel<DP, T>;
   auto kkv = dilated_bwd_dkv_kernel<DP, T>;
   cudaError_t err = allow_smem(kq, BwdPlan<DP, false>::bytes);
@@ -297,14 +307,18 @@ cudaError_t launch_dilated_bwd(const void* q, const void* k, const void* v,
       tdm, stats, static_cast<const T*>(branch_out), w, delta, B, L, H, D, br.n);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid((L + kBlockQ - 1) / kBlockQ, H, B);
-  kq<<<grid, kThreads, BwdPlan<DP, false>::bytes, stream>>>(
-      tq, tk, tv, mask, tdm, stats, w, delta, static_cast<T*>(dq), L, H, D, scale, br);
+  // dq on the blocks of the query range, 0 elsewhere; dk/dv on every block
+  const dim3 grid_q((q1 - q0 + kBlockQ - 1) / kBlockQ, H, B);
+  kq<<<grid_q, kThreads, BwdPlan<DP, false>::bytes, stream>>>(
+      tq, tk, tv, mask, tdm, stats, w, delta, static_cast<T*>(dq), L, H, D, scale, br, q0, q1);
   err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = launch_range_fill<T>(dq, nullptr, nullptr, B, L, H, D, 0, q0, q1, stream);
   if (err != cudaSuccess) return err;
+  const dim3 grid((L + kBlockQ - 1) / kBlockQ, H, B);
   kkv<<<grid, kThreads, BwdPlan<DP, true>::bytes, stream>>>(
       tq, tk, tv, mask, tdm, stats, w, delta, static_cast<T*>(dk), static_cast<T*>(dv), L, H, D,
-      scale, br);
+      scale, br, q0, q1);
   return cudaGetLastError();
 }
 
@@ -313,12 +327,12 @@ cudaError_t dispatch_dilated_bwd(int DP, const void* q, const void* k, const voi
                                  const unsigned char* m, const void* dmix, const float* stats,
                                  const void* bo, float* w, float* delta, void* dq, void* dk,
                                  void* dv, int B, int L, int H, int D, float scale,
-                                 const Branches& br, cudaStream_t s) {
+                                 const Branches& br, int q0, int q1, cudaStream_t s) {
   switch (DP) {
 #define MT_CASE(N)                                                                           \
   case N:                                                                                    \
     return launch_dilated_bwd<N, T>(q, k, v, m, dmix, stats, bo, w, delta, dq, dk, dv, B, L, \
-                                    H, D, scale, br, s);
+                                    H, D, scale, br, q0, q1, s);
     MT_CASE(16)
     MT_CASE(32)
     MT_CASE(48)
@@ -337,18 +351,21 @@ cudaError_t dispatch_dilated_bwd(int DP, const void* q, const void* k, const voi
 // the CUDA-core kernels take w and delta (B*H, n_branches, L); the
 // tensor-core family (bf16, D = 48; q/k/v/dmix 16-byte aligned) takes rows_c
 // (3, B, H, M) and grads_c (3, B, H, M, D), M the compact rows of a head
-// (ops/dilated_fused.py::total_rows). Returns a cudaError_t; 0 means every
-// kernel was launched.
+// (ops/dilated_fused.py::total_rows). [q0, q1) is the forward's query range
+// (0, L: every row): dq is 0 outside it, and dk/dv sum over its queries
+// alone, this shard's part of the whole gradient; an empty range or one
+// outside [0, L) is refused. Returns a cudaError_t; 0 means every kernel was
+// launched.
 extern "C" int mt_dilated_attention_bwd(const void* q, const void* k, const void* v,
                                         const void* mask, const void* dmix, const void* stats,
                                         const void* branch_out, void* w, void* delta,
                                         void* rows_c, void* grads_c, void* dq, void* dk,
                                         void* dv, int B, int L, int H, int D,
                                         const int* segments, const int* ratios, int n_branches,
-                                        float scale, int dtype, void* stream) {
+                                        float scale, int dtype, int q0, int q1, void* stream) {
   const int DP = mt::padded_head_dim(D);
   if (DP < 0 || B < 1 || B > 65535 || L < 1 || H < 1 || H > 65535 || n_branches < 1 ||
-      n_branches > mt::kMaxBranches)
+      n_branches > mt::kMaxBranches || q0 < 0 || q1 > L || q0 >= q1)
     return cudaErrorInvalidValue;
   mt::Branches br{};
   br.n = n_branches;
@@ -363,7 +380,8 @@ extern "C" int mt_dilated_attention_bwd(const void* q, const void* k, const void
   if (mt::dilated_family(D, dtype) == 1) {
     mt::FusedBranches fb{};
     if (rows_c == nullptr || grads_c == nullptr ||
-        !mt::make_fused_branches(fb, L, segments, ratios, n_branches))
+        !mt::make_fused_branches(fb, L, segments, ratios, n_branches) ||
+        !mt::set_query_range(fb, L, q0, q1))
       return cudaErrorInvalidValue;
     return mt::launch_dilated_bwd_wgmma(q, k, v, m, dmix, st, branch_out,
                                         static_cast<float*>(rows_c), static_cast<float*>(grads_c),
@@ -374,9 +392,9 @@ extern "C" int mt_dilated_attention_bwd(const void* q, const void* k, const void
   const auto df = static_cast<float*>(delta);
   if (dtype == 0)
     return mt::dispatch_dilated_bwd<float>(DP, q, k, v, m, dmix, st, branch_out, wf, df, dq, dk,
-                                           dv, B, L, H, D, scale, br, s);
+                                           dv, B, L, H, D, scale, br, q0, q1, s);
   if (dtype == 1)
     return mt::dispatch_dilated_bwd<__nv_bfloat16>(DP, q, k, v, m, dmix, st, branch_out, wf, df,
-                                                   dq, dk, dv, B, L, H, D, scale, br, s);
+                                                   dq, dk, dv, B, L, H, D, scale, br, q0, q1, s);
   return cudaErrorInvalidValue;
 }

@@ -19,6 +19,15 @@
 // slot or the row has no valid key), and branch_out (n_br, B, L, H, D), each
 // branch's own output (zeros where it does not cover the slot).
 //
+// With a query range [q0, q1) (the Pallas kernel's qrange, the
+// sequence-parallel shard's rows; ops/dilated_sp.py) only those query rows
+// are computed, against every key; the rows outside come back as rows
+// without a valid key (out 0; lse_b, m NEG_INF; Z 0). The grids skip the
+// work outside: the tensor-core core runs only the compact tiles of each
+// branch that may hold a row of the range (dilated_fused_common.cuh,
+// query_tiles) and the mix writes the zeros; the CUDA-core kernel's blocks
+// start at q0 and range_fill_kernel writes the rows outside.
+//
 // Two families (mt::dilated_family), neither with atomics:
 // * bf16 at D = 48 (GigaPath's head size, every call of the model), two
 //   launches with or without stats: the tensor-core forward core
@@ -72,7 +81,7 @@ __global__ void __launch_bounds__(kThreads)
 dilated_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const unsigned char* __restrict__ mask, T* __restrict__ out,
                    float* __restrict__ stats, T* __restrict__ branch_out, int B, int L, int H,
-                   int D, float scale, Branches br) {
+                   int D, float scale, Branches br, int q0, int q1) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   // t: the union state (inference) or the running branch mix (training:
@@ -88,10 +97,10 @@ dilated_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     coef = smem + StatsPlan<DP>::coef_off;
   }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int p0 = blockIdx.x * kBlockQ;
+  const int p0 = q0 + blockIdx.x * kBlockQ;   // the blocks cover [q0, q1)
   const int h = blockIdx.y, b = blockIdx.z;
   const int bh = b * H + h;
-  const int nq = min(kBlockQ, L - p0);
+  const int nq = min(kBlockQ, q1 - p0);
   const size_t tok = static_cast<size_t>(H) * D;  // stride between positions
   const size_t head0 = static_cast<size_t>(b) * L * tok + static_cast<size_t>(h) * D;
   const unsigned char* maskb = mask == nullptr ? nullptr : mask + static_cast<size_t>(b) * L;
@@ -172,28 +181,36 @@ dilated_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 template <int DP, typename T, bool STATS>
 cudaError_t launch_dilated(const void* q, const void* k, const void* v, const unsigned char* mask,
                            void* out, float* stats, void* branch_out, int B, int L, int H, int D,
-                           float scale, const Branches& br, cudaStream_t stream) {
+                           float scale, const Branches& br, int q0, int q1, cudaStream_t stream) {
   auto kernel = dilated_fwd_kernel<DP, T, STATS>;
   const size_t bytes = STATS ? StatsPlan<DP>::bytes : Plan<DP>::bytes;
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((L + kBlockQ - 1) / kBlockQ, H, B);
+  const dim3 grid((q1 - q0 + kBlockQ - 1) / kBlockQ, H, B);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
-      static_cast<T*>(out), stats, static_cast<T*>(branch_out), B, L, H, D, scale, br);
-  return cudaGetLastError();
+      static_cast<T*>(out), stats, static_cast<T*>(branch_out), B, L, H, D, scale, br, q0, q1);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_range_fill<T>(out, stats, branch_out, B, L, H, D, br.n, q0, q1, stream);
 }
 
 template <typename T, bool STATS>
 cudaError_t dispatch_dilated(int DP, const void* q, const void* k, const void* v,
                              const unsigned char* m, void* out, float* st, void* bo, int B, int L,
-                             int H, int D, float scale, const Branches& br, cudaStream_t s) {
+                             int H, int D, float scale, const Branches& br, int q0, int q1,
+                             cudaStream_t s) {
   switch (DP) {
-    case 16: return launch_dilated<16, T, STATS>(q, k, v, m, out, st, bo, B, L, H, D, scale, br, s);
-    case 32: return launch_dilated<32, T, STATS>(q, k, v, m, out, st, bo, B, L, H, D, scale, br, s);
-    case 48: return launch_dilated<48, T, STATS>(q, k, v, m, out, st, bo, B, L, H, D, scale, br, s);
-    case 64: return launch_dilated<64, T, STATS>(q, k, v, m, out, st, bo, B, L, H, D, scale, br, s);
-    case 128: return launch_dilated<128, T, STATS>(q, k, v, m, out, st, bo, B, L, H, D, scale, br, s);
+#define MT_CASE(N)                                                                        \
+  case N:                                                                                 \
+    return launch_dilated<N, T, STATS>(q, k, v, m, out, st, bo, B, L, H, D, scale, br, q0, \
+                                       q1, s);
+    MT_CASE(16)
+    MT_CASE(32)
+    MT_CASE(48)
+    MT_CASE(64)
+    MT_CASE(128)
+#undef MT_CASE
     default: return cudaErrorInvalidValue;
   }
 }
@@ -222,10 +239,12 @@ inline cudaError_t launch_dilated_fwd_wgmma(const void* q, const void* k, const 
 template <typename T>
 cudaError_t dispatch_dilated(int DP, const void* q, const void* k, const void* v,
                              const unsigned char* m, void* out, float* st, void* bo, int B, int L,
-                             int H, int D, float scale, const Branches& br, cudaStream_t s) {
+                             int H, int D, float scale, const Branches& br, int q0, int q1,
+                             cudaStream_t s) {
   if (st == nullptr)
-    return dispatch_dilated<T, false>(DP, q, k, v, m, out, st, bo, B, L, H, D, scale, br, s);
-  return dispatch_dilated<T, true>(DP, q, k, v, m, out, st, bo, B, L, H, D, scale, br, s);
+    return dispatch_dilated<T, false>(DP, q, k, v, m, out, st, bo, B, L, H, D, scale, br, q0, q1,
+                                      s);
+  return dispatch_dilated<T, true>(DP, q, k, v, m, out, st, bo, B, L, H, D, scale, br, q0, q1, s);
 }
 
 }  // namespace mt
@@ -238,15 +257,20 @@ cudaError_t dispatch_dilated(int DP, const void* q, const void* k, const void* v
 // aligned) takes compact scratch out_c (B, H, M, 48) bf16 and lse_c (B, H, M)
 // fp32, M the compact rows of a head (ops/dilated_fused.py::total_rows);
 // the CUDA-core kernels take them null.
+// [q0, q1): the query range (K1's q_token_range; 0, L: every row). Only the
+// query tiles that meet it are computed; every slot outside it gets out 0,
+// with stats lse_b and m NEG_INF and Z 0 and branch_out 0 (a row without a
+// valid key). An empty range or one outside [0, L) is refused.
 // Returns a cudaError_t; 0 means every kernel was launched.
 extern "C" int mt_dilated_attention_fwd(const void* q, const void* k, const void* v,
                                         const void* mask, void* out, void* stats, void* branch_out,
                                         void* out_c, void* lse_c, int B, int L, int H, int D,
                                         const int* segments, const int* ratios, int n_branches,
-                                        float scale, int dtype, void* stream) {
+                                        float scale, int dtype, int q0, int q1, void* stream) {
   const int DP = mt::padded_head_dim(D);
   if (DP < 0 || B < 1 || B > 65535 || L < 1 || H < 1 || H > 65535 || n_branches < 1 ||
-      n_branches > mt::kMaxBranches || (stats == nullptr) != (branch_out == nullptr))
+      n_branches > mt::kMaxBranches || (stats == nullptr) != (branch_out == nullptr) ||
+      q0 < 0 || q1 > L || q0 >= q1)
     return cudaErrorInvalidValue;
   mt::Branches br{};
   br.n = n_branches;
@@ -261,16 +285,17 @@ extern "C" int mt_dilated_attention_fwd(const void* q, const void* k, const void
   if (mt::dilated_family(D, dtype) == 1) {
     mt::FusedBranches fb{};
     if (out_c == nullptr || lse_c == nullptr ||
-        !mt::make_fused_branches(fb, L, segments, ratios, n_branches))
+        !mt::make_fused_branches(fb, L, segments, ratios, n_branches) ||
+        !mt::set_query_range(fb, L, q0, q1))
       return cudaErrorInvalidValue;
     return mt::launch_dilated_fwd_wgmma(q, k, v, m, out, st, branch_out, out_c,
                                         static_cast<float*>(lse_c), B, L, H, scale, fb, s);
   }
   if (dtype == 0)
     return mt::dispatch_dilated<float>(DP, q, k, v, m, out, st, branch_out, B, L, H, D, scale, br,
-                                       s);
+                                       q0, q1, s);
   if (dtype == 1)
     return mt::dispatch_dilated<__nv_bfloat16>(DP, q, k, v, m, out, st, branch_out, B, L, H, D,
-                                               scale, br, s);
+                                               scale, br, q0, q1, s);
   return cudaErrorInvalidValue;
 }

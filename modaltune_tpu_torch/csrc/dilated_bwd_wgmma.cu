@@ -236,7 +236,9 @@ dilated_bwd_dkv_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     gather(smem + kTileBytes, v, g, own_t, p);
     cp_async_arrive(own_bar);
     wg::Ring r;
-    for (int t = 0; t < g.n_tiles(); ++t) {
+    int t_lo, t_hi;   // a query tile wholly outside fb's range adds nothing
+    g.query_tiles(fb.q0, fb.q1, t_lo, t_hi);
+    for (int t = t_lo; t < t_hi; ++t) {
       wg::mbar_wait(empty + r.stage, r.phase ^ 1);
       unsigned char* st = ring + r.stage * Smem::kStageBytes;
       gather(st, q, g, t, p);
@@ -343,11 +345,15 @@ cudaError_t launch_dilated_bwd_core(const DilatedBwdCore& a, const FusedBranches
   const auto k = static_cast<const bf16*>(a.k);
   const auto v = static_cast<const bf16*>(a.v);
   const auto dm = static_cast<const bf16*>(a.dmix);
-  const dim3 grid(fb.tile0[fb.n], a.H, a.B);
-  kq<<<grid, dwg::kThreads, Smem::bytes, stream>>>(q, k, v, dm, a.mask, a.lse_c, a.w_c,
-                                                    a.delta_c, a.dq_c, a.L, a.H, a.scale, fb);
+  // dq only on the tiles of the query range (the combine reads no other
+  // row of dq_c); dk/dv on every key tile, over the range's query tiles
+  const FusedBranches fq = query_tiles(fb, a.L);
+  const dim3 grid_q(fq.tile0[fq.n], a.H, a.B);
+  kq<<<grid_q, dwg::kThreads, Smem::bytes, stream>>>(q, k, v, dm, a.mask, a.lse_c, a.w_c,
+                                                      a.delta_c, a.dq_c, a.L, a.H, a.scale, fq);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  const dim3 grid(fb.tile0[fb.n], a.H, a.B);
   kkv<<<grid, dwg::kThreads, Smem::bytes, stream>>>(q, k, v, dm, a.mask, a.lse_c, a.w_c,
                                                      a.delta_c, a.dk_c, a.dv_c, a.L, a.H,
                                                      a.scale, fb);

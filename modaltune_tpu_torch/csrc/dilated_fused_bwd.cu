@@ -212,6 +212,7 @@ fused_combine_kernel(const float* __restrict__ dq_c, const float* __restrict__ d
   const int p = static_cast<int>((gw / H) % L);
   const int b = static_cast<int>(gw / (static_cast<size_t>(H) * L));
   const size_t rows0 = (static_cast<size_t>(b) * H + h) * fb.off[fb.n];
+  const bool query = in_query_range(fb, p);  // dq is 0 outside the range
   float acc[3][kMaxDimsPerLane];
 #pragma unroll
   for (int g = 0; g < 3; ++g)
@@ -225,7 +226,7 @@ fused_combine_kernel(const float* __restrict__ dq_c, const float* __restrict__ d
     for (int e = 0; e < kMaxDimsPerLane; ++e) {
       const int d = lane + 32 * e;
       if (d < D) {
-        acc[0][e] += dq_c[at + d];
+        if (query) acc[0][e] += dq_c[at + d];
         acc[1][e] += dk_c[at + d];
         acc[2][e] += dv_c[at + d];
       }

@@ -17,6 +17,14 @@
 // span of two consecutive tiles of one (segment, head group) enumerates the
 // spans the same way, [span0[bi], span0[bi + 1]); the second tile of a
 // group's last span may hold no row.
+//
+// A query range [q0, q1) (K1's q_token_range, the sequence-parallel shard's
+// rows): query_tiles() gives the enumeration of the tiles (spans) that may
+// hold a position of the range, branch by branch, as a run of the full
+// enumeration's (segment, tile) order that starts at tfirst[bi] (sfirst[bi])
+// and is bounded over every head group at once; every kernel reads q0 and q1
+// to zero or skip what lies outside. make_fused_branches() sets them to 0
+// and L (every row).
 #pragma once
 
 #include "attention_bwd_common.cuh"
@@ -35,6 +43,9 @@ struct FusedBranches {
   int off[kMaxBranches + 1];
   int tile0[kMaxBranches + 1];
   int span0[kMaxBranches + 1];  // spans of two tiles
+  int tfirst[kMaxBranches];     // the branch's first tile (span) of the
+  int sfirst[kMaxBranches];     // full enumeration: 0 unless restricted
+  int q0, q1;                   // query positions [q0, q1)
 };
 
 // Fills fb; false when the arguments are out of range.
@@ -64,7 +75,95 @@ inline bool make_fused_branches(FusedBranches& fb, int L, const int* segments, c
     fb.tile0[i] = static_cast<int>(tiles);
     fb.span0[i] = static_cast<int>(spans);
   }
+  for (int i = 0; i < kMaxBranches; ++i) fb.tfirst[i] = fb.sfirst[i] = 0;
+  fb.q0 = 0;
+  fb.q1 = L;
   return true;
+}
+
+// Sets the query range [q0, q1) of fb (made for length L); false when it is
+// empty or out of [0, L).
+inline bool set_query_range(FusedBranches& fb, int L, int q0, int q1) {
+  if (q0 < 0 || q1 > L || q0 >= q1) return false;
+  fb.q0 = q0;
+  fb.q1 = q1;
+  return true;
+}
+
+// fb's enumeration restricted to the tiles (and spans) of its query range:
+// in branch bi, the segments from the range's first to its last position,
+// from the tile of row (q0 - s0) / r of the first (no head group's first row
+// of the range lies before it) to the tile of row ceil((q1 - s0') / r) - 1
+// of the last (none's last after it). The full range leaves fb as it is.
+inline FusedBranches query_tiles(const FusedBranches& fb, int L) {
+  if (fb.q0 == 0 && fb.q1 == L) return fb;
+  FusedBranches fq = fb;
+  int tiles = 0, spans = 0;
+  for (int i = 0; i < fb.n; ++i) {
+    const int sl = fb.seg[i], r = fb.ratio[i], m = fb.m[i];
+    const int per_seg = (m + kBlockQ - 1) / kBlockQ, pss = (per_seg + 1) / 2;
+    const int seg_lo = fb.q0 / sl, seg_hi = (fb.q1 - 1) / sl;
+    const int t_lo = (fb.q0 - seg_lo * sl) / r / kBlockQ;
+    const int rows_hi = (fb.q1 - seg_hi * sl + r - 1) / r;
+    const int l_hi = rows_hi < m ? rows_hi : m;
+    const int t_hi = (l_hi + kBlockQ - 1) / kBlockQ;
+    fq.tfirst[i] = seg_lo * per_seg + t_lo;
+    fq.sfirst[i] = seg_lo * pss + t_lo / 2;
+    fq.tile0[i] = tiles;
+    fq.span0[i] = spans;
+    tiles += seg_hi * per_seg + t_hi - fq.tfirst[i];
+    spans += seg_hi * pss + (t_hi + 1) / 2 - fq.sfirst[i];
+  }
+  for (int i = fb.n; i <= kMaxBranches; ++i) {
+    fq.tile0[i] = tiles;
+    fq.span0[i] = spans;
+  }
+  return fq;
+}
+
+// Whether position p is a query of fb's range.
+__device__ __forceinline__ bool in_query_range(const FusedBranches& fb, int p) {
+  return p >= fb.q0 && p < fb.q1;
+}
+
+// The slots (b, p, h) outside a query range [q0, q1), which K1's CUDA-core
+// kernels, their grids restricted to the range, never reach: `rows`
+// (B, L, H, D) zero; with `stats` (B*H, nbr + 2, L) every branch's lse and m
+// NEG_INF and Z 0 (a row without a valid key), and the rows of `branch_out`
+// (nbr, B, L, H, D) zero. A thread a slot.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+range_fill_kernel(T* __restrict__ rows, float* __restrict__ stats, T* __restrict__ branch_out,
+                  int B, int L, int H, int D, int nbr, int q0, int q1) {
+  const int outside = L - (q1 - q0);
+  const size_t slot = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (slot >= static_cast<size_t>(B) * outside * H) return;
+  const int h = static_cast<int>(slot % H);
+  const int j = static_cast<int>((slot / H) % outside);
+  const int b = static_cast<int>(slot / (static_cast<size_t>(H) * outside));
+  const int p = j < q0 ? j : j + (q1 - q0);
+  const size_t row = (static_cast<size_t>(b) * L + p) * H + h;
+  const T zero = from_float<T>(0.f);
+  for (int d = 0; d < D; ++d) rows[row * D + d] = zero;
+  if (stats == nullptr) return;
+  float* st = stats + (static_cast<size_t>(b) * H + h) * (nbr + 2) * L + p;
+  for (int i = 0; i <= nbr; ++i) st[static_cast<size_t>(i) * L] = kNegInf;
+  st[static_cast<size_t>(nbr + 1) * L] = 0.f;
+  for (int i = 0; i < nbr; ++i)
+    for (int d = 0; d < D; ++d)
+      branch_out[(static_cast<size_t>(i) * B * L * H + row) * D + d] = zero;
+}
+
+template <typename T>
+inline cudaError_t launch_range_fill(void* rows, float* stats, void* branch_out, int B, int L,
+                                     int H, int D, int nbr, int q0, int q1,
+                                     cudaStream_t stream) {
+  const size_t slots = static_cast<size_t>(B) * (L - (q1 - q0)) * H;
+  if (slots == 0) return cudaSuccess;
+  range_fill_kernel<T><<<static_cast<unsigned>((slots + kThreads - 1) / kThreads), kThreads, 0,
+                         stream>>>(static_cast<T*>(rows), stats, static_cast<T*>(branch_out), B,
+                                   L, H, D, nbr, q0, q1);
+  return cudaGetLastError();
 }
 
 // One block's tile.
@@ -88,7 +187,7 @@ __device__ __forceinline__ FusedTile locate_tile(const FusedBranches& fb, int ti
   while (bi + 1 < fb.n && tile >= start[bi + 1]) ++bi;
   const int m = fb.m[bi], sl = fb.seg[bi], r = fb.ratio[bi];
   const int per_seg = ((m + kBlockQ - 1) / kBlockQ + SPAN - 1) / SPAN;
-  const int t = tile - start[bi];
+  const int t = tile - start[bi] + (SPAN == 1 ? fb.tfirst[bi] : fb.sfirst[bi]);
   const int seg = t / per_seg;
   const int g = head_group(h, H, r);
   const int s0 = seg * sl, s1 = min(s0 + sl, L);

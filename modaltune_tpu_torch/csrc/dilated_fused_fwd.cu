@@ -147,6 +147,8 @@ fused_mix_kernel(const T* __restrict__ out_c, const float* __restrict__ lse_c, M
   const size_t bh = static_cast<size_t>(b) * H + h;
   const size_t rows0 = bh * fb.off[fb.n];
 
+  // a slot outside the query range is covered by no branch: zeros, NEG_INF
+  const bool in_range = in_query_range(fb, p);
   float lse[kMaxBranches];
   int row[kMaxBranches];
   float m = kNegInf;
@@ -154,7 +156,7 @@ fused_mix_kernel(const T* __restrict__ out_c, const float* __restrict__ lse_c, M
   for (int bi = 0; bi < kMaxBranches; ++bi) {
     lse[bi] = kNegInf;
     row[bi] = -1;
-    if (bi < fb.n) {
+    if (bi < fb.n && in_range) {
       row[bi] = covering_row(fb, bi, p, h, H);
       if (row[bi] >= 0) lse[bi] = lse_c[rows0 + row[bi]];
       m = fmaxf(m, lse[bi]);

@@ -207,11 +207,14 @@ cudaError_t launch_dilated_fwd_core(const DilatedFwdCore& a, const FusedBranches
   auto kernel = dwg::dilated_fwd_wg_kernel<W>;
   const cudaError_t err = allow_smem(kernel, Smem::bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(W == 1 ? fb.tile0[fb.n] : fb.span0[fb.n], a.H, a.B);
+  // only the tiles of the query range (K1's q_token_range); the mix reads
+  // no other compact row
+  const FusedBranches fq = query_tiles(fb, a.L);
+  const dim3 grid(W == 1 ? fq.tile0[fq.n] : fq.span0[fq.n], a.H, a.B);
   kernel<<<grid, (W + 1) * wg::kWgThreads, Smem::bytes, stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), a.mask, static_cast<bf16*>(a.out_c), a.lse_c, a.L, a.H,
-      a.scale, fb);
+      a.scale, fq);
   return cudaGetLastError();
 }
 

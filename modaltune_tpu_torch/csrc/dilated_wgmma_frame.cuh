@@ -159,6 +159,13 @@ struct Group {
     return l < ft.n_real && (mask == nullptr || mask[static_cast<size_t>(b) * L + position(l)]);
   }
   __device__ int n_tiles() const { return (ft.n_real + kTile - 1) / kTile; }
+  // [t_lo, t_hi): the tiles holding a real row at a position of [q0, q1)
+  __device__ void query_tiles(int q0, int q1, int& t_lo, int& t_hi) const {
+    const int l_lo = ceil_div_nonneg(q0 - ft.first, ft.r);
+    const int l_hi = min(ft.n_real, ceil_div_nonneg(q1 - ft.first, ft.r));
+    t_lo = l_lo / kTile;
+    t_hi = l_hi > l_lo ? (l_hi + kTile - 1) / kTile : t_lo;
+  }
 };
 
 // Producer thread p (0..127) gathers its three chunks of row p / 2 of group

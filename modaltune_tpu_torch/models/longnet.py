@@ -14,6 +14,16 @@ layer. The
 JAX package's span stacking, comb layouts and remat are TPU machinery and
 have no counterpart: the layers are a plain ``nn.ModuleList`` and
 :meth:`LongNetEncoder.run_layers` runs any ``[lo, hi)``.
+
+With ``LongNetConfig.seq_axes`` set and an ambient mesh
+(:func:`..ops.dilated_sp.use_mesh`) that the shape suits
+(:func:`..ops.dilated_sp.span_shard`), a span runs on this rank's token
+shard of the ``seq`` group: it enters by a slice, every layer's attention
+is the sequence-parallel island (:func:`..ops.dilated_sp.sp_island_attention`,
+which takes the place of K1 and K3) and every other op is position-wise,
+and it leaves by a gather. The JAX package partitions the whole model along
+tokens instead (GSPMD); outside the spans the port's adapter runs
+replicated on every rank.
 """
 
 from __future__ import annotations
@@ -30,6 +40,8 @@ from ..ops.activations import gelu_exact
 from ..ops.dilated import dilated_attention
 from ..ops.dilated_fused import fused_dilated_attention
 from ..ops.dilated_mega import mega_dilated_attention
+from ..ops.dilated_sp import (enter_span, leave_span, local_tokens,
+                              sp_island_attention, span_shard)
 from ..ops.gelu_ln import gelu_ln
 from .layers import Dense, DropPath, Dropout
 
@@ -41,7 +53,8 @@ class DilatedSelfAttention(nn.Module):
     per-branch K3; with ``cfg.fused_attention`` off (the CLI's
     ``--fused_attention 0``) it is :func:`..ops.dilated.dilated_attention`
     with each branch on the K2 flash kernels, as the JAX package then runs
-    ``dilated_attention(use_pallas=None)``. All compute one function."""
+    ``dilated_attention(use_pallas=None)``. In a span sharded over tokens
+    (``sharded``) it is the island. All compute one function."""
 
     def __init__(self, cfg: LongNetConfig):
         super().__init__()
@@ -54,15 +67,17 @@ class DilatedSelfAttention(nn.Module):
         self.inner_attn_ln = (nn.LayerNorm(d, eps=cfg.layernorm_eps)
                               if cfg.subln else None)
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                sharded: bool = False) -> torch.Tensor:
         c = self.cfg
         b, length, d = x.shape
 
         def split(t):
             return t.view(b, length, c.num_heads, c.head_dim)
 
-        if not c.fused_attention:
+        if sharded:
+            attn = self._island
+        elif not c.fused_attention:
             attn = functools.partial(dilated_attention, kernel=True)
         elif c.mega_attention:
             attn = mega_dilated_attention
@@ -77,6 +92,16 @@ class DilatedSelfAttention(nn.Module):
         if self.inner_attn_ln is not None:
             out = self.inner_attn_ln(out)
         return self.out_proj(out)
+
+    def _island(self, q, k, v, *, segment_lengths, dilated_ratios, mask):
+        out = sp_island_attention(
+            q, k, v, mask, segment_lengths=segment_lengths,
+            dilated_ratios=dilated_ratios, batch_axis=self.cfg.seq_axes[0],
+            seq_axis=self.cfg.seq_axes[1])
+        if out is None:
+            raise RuntimeError("the sequence-parallel island refused a span "
+                               "that span_shard sharded")
+        return out
 
 
 def fused_gelu_ln_requested() -> bool:
@@ -134,9 +159,9 @@ class LongNetEncoderLayer(nn.Module):
         self.ffn = FeedForwardNetwork(cfg, fused_gelu_ln)
         self.drop_path = DropPath(drop_path_rate)
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.self_attn(self.self_attn_layer_norm(x), mask)
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                sharded: bool = False) -> torch.Tensor:
+        h = self.self_attn(self.self_attn_layer_norm(x), mask, sharded)
         x = x + self.drop_path(self.dropout(h))
         x = x + self.drop_path(self.ffn(self.final_layer_norm(x)))
         if mask is not None and self.cfg.mask_padding:
@@ -178,9 +203,15 @@ class LongNetEncoder(nn.Module):
         if not 0 <= lo <= hi <= len(self.layers):
             raise ValueError(f"run_layers({lo}, {hi}) outside "
                              f"[0, {len(self.layers)}]")
+        shard = span_shard(self.cfg, x.shape[1]) if hi > lo else None
+        if shard is None:
+            for layer in self.layers[lo:hi]:
+                x = layer(x, mask)
+            return x
+        x, mask = enter_span(x, shard), local_tokens(mask, shard)
         for layer in self.layers[lo:hi]:
-            x = layer(x, mask)
-        return x
+            x = layer(x, mask, sharded=True)
+        return leave_span(x, shard)
 
     def finalize(self, x: torch.Tensor) -> torch.Tensor:
         return x if self.layer_norm is None else self.layer_norm(x)

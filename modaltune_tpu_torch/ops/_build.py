@@ -36,9 +36,9 @@ SIGNATURES = {
                                            _I, _P, _P],
     "mt_flash_attention_family": [_I, _I, _I, _I],
     "mt_dilated_attention_fwd": [_P] * 9 + [_I, _I, _I, _I, _P, _P, _I,
-                                            ctypes.c_float, _I, _P],
+                                            ctypes.c_float, _I, _I, _I, _P],
     "mt_dilated_attention_bwd": [_P] * 14 + [_I, _I, _I, _I, _P, _P, _I,
-                                            ctypes.c_float, _I, _P],
+                                             ctypes.c_float, _I, _I, _I, _P],
     "mt_dilated_family": [_I, _I],
     "mt_alibi_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                ctypes.c_float, _I, _P, _P, _P, _P],

@@ -18,6 +18,11 @@ Counterpart of ``modaltune_tpu/ops/dilated.py`` ("diagonal" layout). Per
 4. the branches are mixed per token and head with fp32 ``softmax(lse)``
    weights, which carry no gradient.
 
+With ``q_token_range=(p0, p1)`` the result is the full one with every row
+outside ``[p0, p1)`` zeroed, so autograd gives dq zero there and only the
+range's queries' share of dk/dv: the oracle of K1's range variant, the
+sequence-parallel shard's work (:mod:`.dilated_sp`).
+
 Padded positions, both past ``L`` and past the segment length inside the
 sparse layout, are always masked out of the softmax. (The JAX oracle
 attends zero-valued padding slots when ``mask`` is None and ``sl % r != 0``;
@@ -149,12 +154,43 @@ def _branches(q, k, v, mask, segment_lengths, dilated_ratios, scale,
                  for sl, r in zip(segment_lengths, dilated_ratios)))
 
 
+def check_q_token_range(q_token_range: Tuple[int, int],
+                        dilated_ratios: Sequence[int],
+                        length: int) -> Tuple[int, int]:
+    """``(p0, p1)`` as ints, or ``ValueError``: the bounds must be
+    multiples of R = max ratio (the JAX package's rule and text) and
+    ``0 <= p0 < p1 <= length``."""
+    r_max = max(int(r) for r in dilated_ratios)
+    p0, p1 = q_token_range
+    if p0 % r_max or p1 % r_max:
+        raise ValueError(f"q_token_range {q_token_range} must be multiples "
+                         f"of R={r_max}")
+    if not 0 <= p0 < p1 <= length:
+        raise ValueError(f"q_token_range {q_token_range} must lie in "
+                         f"[0, {length}] and not be empty")
+    return int(p0), int(p1)
+
+
+def keep_query_rows(out: torch.Tensor,
+                    q_token_range: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """``out (B, L, ...)`` with the rows outside ``q_token_range`` zeroed
+    (``out`` itself when there is no range)."""
+    if q_token_range is None:
+        return out
+    p0, p1 = q_token_range
+    pos = torch.arange(out.shape[1], device=out.device)
+    keep = ((pos >= p0) & (pos < p1)).to(out.dtype)
+    return out * keep.view((1, -1) + (1,) * (out.dim() - 2))
+
+
 def dilated_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       segment_lengths: Sequence[int],
                       dilated_ratios: Sequence[int],
                       mask: Optional[torch.Tensor] = None,
                       scale: Optional[float] = None,
-                      kernel: bool = False) -> torch.Tensor:
+                      kernel: bool = False,
+                      q_token_range: Optional[Tuple[int, int]] = None
+                      ) -> torch.Tensor:
     """Multi-branch LongNet dilated attention, plain PyTorch.
 
     q/k/v: ``(B, L, H, D)`` (after the projections); mask: ``(B, L)`` bool
@@ -164,14 +200,19 @@ def dilated_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     package's ``stop_gradient``, which the K1 backward assumes).
     ``kernel=True`` runs each branch's attention through
     :func:`flash_attention` (the K2 kernels on CUDA tensors).
+    ``q_token_range=(p0, p1)`` zeroes the rows outside ``[p0, p1)`` (see
+    the module docstring; the bounds as :func:`check_q_token_range` asks).
     """
+    if q_token_range is not None:
+        q_token_range = check_q_token_range(q_token_range, dilated_ratios,
+                                            q.shape[1])
     outs, lses = _branches(q, k, v, mask, segment_lengths, dilated_ratios,
                            scale, kernel)
     if len(outs) == 1:
-        return outs[0].to(q.dtype)
+        return keep_query_rows(outs[0], q_token_range).to(q.dtype)
     w = torch.softmax(torch.stack(lses).detach(), dim=0)  # (n_br, B, L, H)
     out = sum(o * wi[..., None] for o, wi in zip(outs, w))
-    return out.to(q.dtype)
+    return keep_query_rows(out, q_token_range).to(q.dtype)
 
 
 def dilated_attention_stats(q: torch.Tensor, k: torch.Tensor,

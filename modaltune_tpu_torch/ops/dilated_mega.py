@@ -19,21 +19,33 @@ When the forward is recorded for autograd, K1f also writes what K1b needs:
 :func:`.dilated.dilated_attention_stats`) and every branch's own output
 ``(n_br, B, L, H, D)`` in q's dtype, from which K1b takes
 ``delta_b = rowsum(dO_b * o_b)`` without recomputing ``o_b``.
+
+``q_token_range=(p0, p1)`` (the JAX kernel's ``qrange``, the
+sequence-parallel shard's rows, :mod:`.dilated_sp`) computes only the
+query rows ``[p0, p1)`` against every key; the rows outside come back zero
+(and, in the stats, as rows without a valid key), and the backward gives dq
+zero outside and the range's share of dk/dv. The kernels skip the query
+tiles outside the range; :func:`query_tile_plan` is the CPU copy of the
+tensor-core family's plan. Range launches are counted apart, in
+``QRANGE_LAUNCHES`` and ``BWD_QRANGE_LAUNCHES``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from ._build import check_launch, load_library
-from .dilated import dilated_attention
+from .dilated import check_q_token_range, dilated_attention
 
-# Kernel launches since the last reset (read by chip_smoke.py): K1f and K1b.
+# Kernel launches since the last reset (read by chip_smoke.py): K1f and K1b,
+# and apart from them their launches with a q_token_range.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+QRANGE_LAUNCHES = 0
+BWD_QRANGE_LAUNCHES = 0
 
 MAX_BRANCHES = 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -80,24 +92,53 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def query_tile_plan(length: int, segment_lengths: Sequence[int],
+                    dilated_ratios: Sequence[int], q0: int, q1: int,
+                    span: int = 1) -> List[Tuple[int, int]]:
+    """The tensor-core family's tiles (``span=1``) or spans of two tiles
+    (``span=2``) of the query range ``[q0, q1)``, per branch ``(first,
+    count)`` in the branch's full enumeration (segment-major, 64-row
+    compact tiles): the CPU copy of ``query_tiles`` in
+    ``csrc/dilated_fused_common.cuh``. The run starts at the tile of row
+    ``(q0 - s0) // r`` of the range's first segment and ends with the tile
+    of row ``ceil((q1 - s0') / r) - 1`` of its last."""
+    plan = []
+    for w, r in zip(segment_lengths, dilated_ratios):
+        sl, r = min(int(w), length), int(r)
+        m = -(-sl // r)
+        per_seg = -(-m // 64)
+        units = -(-per_seg // span)
+        seg_lo, seg_hi = q0 // sl, (q1 - 1) // sl
+        t_lo = (q0 - seg_lo * sl) // r // 64
+        t_hi = -(-min(m, -(-(q1 - seg_hi * sl) // r)) // 64)
+        first = seg_lo * units + t_lo // span
+        plan.append((first, seg_hi * units + -(-t_hi // span) - first))
+    return plan
+
+
 def mega_dilated_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, mask: Optional[torch.Tensor],
                                 segment_lengths: Sequence[int],
                                 dilated_ratios: Sequence[int],
-                                scale: float, with_stats: bool = False):
+                                scale: float, with_stats: bool = False,
+                                q_token_range: Optional[Tuple[int, int]]
+                                = None):
     """Launch K1f on ``q``'s device and current stream: in the tensor-core
     family the forward core into compact scratch (``(B, H, M, D)`` in q's
     dtype and ``(B, H, M)`` fp32, 98 MB at the train step's shape) and the
-    mix; in the CUDA-core family one kernel.
+    mix; in the CUDA-core family one kernel (and, with a range, the fill of
+    the rows outside it).
 
     Returns ``out``, or with ``with_stats`` ``(out, stats, branch_out)``
     (see the module docstring)."""
     from .dilated_fused import card_family, total_rows
-    global LAUNCHES
+    global LAUNCHES, QRANGE_LAUNCHES
     segs, ratios, c_segs, c_ratios = _branch_args(segment_lengths,
                                                   dilated_ratios)
     _check(q, k, v, mask, segs, ratios)
     b, length, h, d = q.shape
+    q0, q1 = (0, length) if q_token_range is None else \
+        check_q_token_range(q_token_range, ratios, length)
     n = len(segs)
     out_c = lse_c = None
     if card_family(d, q.dtype) == "wgmma":
@@ -119,9 +160,12 @@ def mega_dilated_attention_cuda(q: torch.Tensor, k: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
             out.data_ptr(), _ptr(stats), _ptr(branch_out), _ptr(out_c),
             _ptr(lse_c), b, length, h, d, c_segs, c_ratios, n, float(scale),
-            _DTYPE_CODES[q.dtype], stream)
+            _DTYPE_CODES[q.dtype], q0, q1, stream)
     check_launch(err, "mt_dilated_attention_fwd")
-    LAUNCHES += 1
+    if q_token_range is None:
+        LAUNCHES += 1
+    else:
+        QRANGE_LAUNCHES += 1
     return (out, stats, branch_out) if with_stats else out
 
 
@@ -129,20 +173,24 @@ def mega_dilated_attention_backward_cuda(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask: Optional[torch.Tensor], dmix: torch.Tensor, stats: torch.Tensor,
         branch_out: torch.Tensor, segment_lengths: Sequence[int],
-        dilated_ratios: Sequence[int], scale: float
+        dilated_ratios: Sequence[int], scale: float,
+        q_token_range: Optional[Tuple[int, int]] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K1b on ``q``'s device and current stream: in the tensor-core
     family the compact prep, the dq and dk/dv kernels of the gradient core
     and the combine, over fp32 compact scratch (``(3, B, H, M)`` row
     statistics and ``(3, B, H, M, D)`` gradients, 567 MB at the train
     step's shape); in the CUDA-core family the mix weights and ``delta_b``,
-    then dq, then dk/dv. Returns ``(dq, dk, dv)``."""
+    then dq, then dk/dv. Returns ``(dq, dk, dv)``; with the forward's
+    ``q_token_range``, dq zero outside it and the range's share of dk/dv."""
     from .dilated_fused import card_family, total_rows
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, BWD_QRANGE_LAUNCHES
     segs, ratios, c_segs, c_ratios = _branch_args(segment_lengths,
                                                   dilated_ratios)
     _check(q, k, v, mask, segs, ratios)
     b, length, h, d = q.shape
+    q0, q1 = (0, length) if q_token_range is None else \
+        check_q_token_range(q_token_range, ratios, length)
     n = len(segs)
     if dmix.shape != q.shape or dmix.dtype != q.dtype or \
             dmix.device != q.device or not dmix.is_contiguous():
@@ -172,9 +220,12 @@ def mega_dilated_attention_backward_cuda(
                                               wd[1].data_ptr())),
             _ptr(rows_c), _ptr(grads_c), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), b, length, h, d, c_segs, c_ratios, n, float(scale),
-            _DTYPE_CODES[q.dtype], stream)
+            _DTYPE_CODES[q.dtype], q0, q1, stream)
     check_launch(err, "mt_dilated_attention_bwd")
-    BWD_LAUNCHES += 1
+    if q_token_range is None:
+        BWD_LAUNCHES += 1
+    else:
+        BWD_QRANGE_LAUNCHES += 1
     return dq, dk, dv
 
 
@@ -182,12 +233,13 @@ class _MegaDilatedAttention(torch.autograd.Function):
     """K1f (with stats) forward, K1b backward; CUDA tensors only."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, segment_lengths, dilated_ratios, scale):
+    def forward(ctx, q, k, v, mask, segment_lengths, dilated_ratios, scale,
+                q_token_range):
         out, stats, branch_out = mega_dilated_attention_cuda(
             q, k, v, mask, segment_lengths, dilated_ratios, scale,
-            with_stats=True)
+            with_stats=True, q_token_range=q_token_range)
         ctx.save_for_backward(q, k, v, mask, stats, branch_out)
-        ctx.branches = (segment_lengths, dilated_ratios, scale)
+        ctx.branches = (segment_lengths, dilated_ratios, scale, q_token_range)
         return out
 
     @staticmethod
@@ -195,34 +247,42 @@ class _MegaDilatedAttention(torch.autograd.Function):
         q, k, v, mask, stats, branch_out = ctx.saved_tensors
         dq, dk, dv = mega_dilated_attention_backward_cuda(
             q, k, v, mask, dmix.contiguous(), stats, branch_out, *ctx.branches)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def mega_dilated_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, segment_lengths: Sequence[int],
                            dilated_ratios: Sequence[int],
                            mask: Optional[torch.Tensor] = None,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None,
+                           q_token_range: Optional[Tuple[int, int]] = None
+                           ) -> torch.Tensor:
     """Multi-branch LongNet dilated attention, differentiable in q, k, v.
 
     q/k/v ``(B, L, H, D)``, optional ``(B, L)`` bool validity mask, output
     ``(B, L, H, D)`` in q's dtype. CUDA tensors run the kernels (or
     raise): K1f alone when no gradient is needed, K1f with stats and K1b
     behind an autograd Function otherwise. CPU tensors run the plain
-    version.
+    version. ``q_token_range=(p0, p1)``, multiples of R = max ratio: only
+    those query rows, the others zero (see the module docstring).
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if q_token_range is not None:
+        q_token_range = check_q_token_range(q_token_range, dilated_ratios,
+                                            q.shape[1])
     if q.device.type == "cuda":
         branches = (tuple(int(w) for w in segment_lengths),
                     tuple(int(r) for r in dilated_ratios), float(scale))
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
-            return _MegaDilatedAttention.apply(q, k, v, mask, *branches)
-        return mega_dilated_attention_cuda(q, k, v, mask, *branches)
+            return _MegaDilatedAttention.apply(q, k, v, mask, *branches,
+                                               q_token_range)
+        return mega_dilated_attention_cuda(q, k, v, mask, *branches,
+                                           q_token_range=q_token_range)
     if q.device.type != "cpu":
         raise ValueError(f"mega_dilated_attention: unsupported device "
                          f"{q.device}")
     return dilated_attention(q, k, v, segment_lengths=segment_lengths,
                              dilated_ratios=dilated_ratios, mask=mask,
-                             scale=scale)
+                             scale=scale, q_token_range=q_token_range)

@@ -1,0 +1,341 @@
+"""Sequence-parallel dilated attention over a process group (the island).
+
+Counterpart of ``modaltune_tpu/ops/dilated_sp.py``. The reference's
+``gather_kv`` (``torchscale/component/dilated_attention.py:61-80``)
+all-gathers K/V across the sequence-parallel group whenever a dilated
+segment exceeds the local token shard. JAX partitions the whole model along
+tokens under GSPMD and drops dilated attention into a ``shard_map``
+island; PyTorch has no partitioner, so the port shards where the cost is:
+a model whose ``LongNetConfig.seq_axes`` is set runs every span of its
+frozen backbone on this rank's token shard (``models/longnet.py``), and
+each layer's attention is the island here:
+
+* forward: ``all_gather`` q, k, v and the mask along tokens over the
+  ``seq`` group, K1 with ``q_token_range`` = this rank's tokens
+  (:func:`.dilated_mega.mega_dilated_attention_cuda`; the plain version on
+  CPU tensors), keep the local rows;
+* backward: K1b with the range; dq is local, and the partial dk/dv of every
+  rank are summed and scattered over the group (the transpose of the
+  gather; :func:`..parallel.collectives.reduce_scatter_dim`).
+
+The ambient mesh (JAX's ``jax.set_mesh``) is set with :func:`use_mesh`; the
+island and the span sharding read it. :func:`sp_mega_eligible` keeps the
+JAX package's rule, the kernel's whole comb slabs, and with it the JAX
+kernel's own eligibility (:func:`mega_eligible`, the Pallas kernel's VMEM
+budget included, so that both packages shard the same shapes).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple, Optional, Sequence
+
+import torch
+
+from ..parallel.collectives import all_gather_dim, reduce_scatter_dim
+from .dilated import dilated_attention
+from .dilated_mega import (mega_dilated_attention_backward_cuda,
+                           mega_dilated_attention_cuda)
+
+# ---------------------------------------------------------------------------
+# The JAX package's mega-kernel eligibility (ops/dilated_mega.py::mega_mode),
+# copied with its default budgets.
+# ---------------------------------------------------------------------------
+
+_FWD_SCORE_BUDGET = 6 * 1024 * 1024
+_BWD_SCORE_BUDGET = 4 * 1024 * 1024
+_MAX_BQ = 512
+_MAX_BRANCHES = 8
+_VMEM_BUDGET = 118 * 1024 * 1024
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _pick_bq(wr: int, budget: int) -> int:
+    bq = _MAX_BQ
+    while bq > 8 and bq * wr * 4 > budget:
+        bq //= 2
+    return bq if bq * wr * 4 <= budget else -1
+
+
+def _max_window_rows(w: int, r: int, S: int, R: int) -> int:
+    """The JAX kernel's largest key window of a branch, in comb rows of its
+    head group (``_MegaPlan.max_wr``)."""
+    mb, cw, best = S // R, w // R, 0
+    for n in range(-(-S // w)):
+        t0, t1 = n * cw, min((n + 1) * cw, mb)
+        krows = min(_round_up(t1, 8), mb) - (t0 // 8) * 8
+        best = max(best, (R // r) * krows)
+    return best
+
+
+def _lanes(n: int) -> int:
+    return _round_up(max(n, 1), 128)
+
+
+def _vmem(S: int, D: int, nbr: int, max_wr: int, itemsize: int) -> bool:
+    """Whether the JAX kernel's forward and one of its backward flavours
+    fit its VMEM budget (``_vmem_estimate*``)."""
+    lane_d, stats = _lanes(D), _round_up(nbr + 2, 8) * S * 4
+    fwd = (S * lane_d * 4 + S * _lanes(_MAX_BRANCHES + 3) * 4
+           + 3 * max_wr * _lanes(D + 1) * itemsize
+           + 2 * (3 * S * lane_d * itemsize + 8 * S * 4)
+           + 2 * (S * lane_d * itemsize + stats))
+    bwd_scr = (3 * S * lane_d * 4 + S * _lanes(_MAX_BRANCHES + 8) * 4
+               + 5 * max_wr * _lanes(D + 1) * itemsize
+               + 2 * max_wr * lane_d * 4)
+    mono = bwd_scr + 2 * (4 * S * lane_d * itemsize + 8 * S * 4 + stats) \
+        + 2 * 3 * S * lane_d * itemsize
+    if mono <= _VMEM_BUDGET:
+        return True
+    hbm = bwd_scr + 2 * S * lane_d * itemsize + \
+        2 * (2 * S * lane_d * itemsize + 8 * S * 4 + stats)
+    return fwd <= _VMEM_BUDGET and hbm <= _VMEM_BUDGET
+
+
+def mega_eligible(S: int, H: int, D: int, segment_lengths: Sequence[int],
+                  dilated_ratios: Sequence[int], itemsize: int = 2) -> bool:
+    """The JAX package's ``mega_eligible``: whole comb slabs (R = max ratio
+    divides S, S / R rows a multiple of 8, every segment a multiple of R,
+    every ratio dividing H and R, a branch of ratio 1), key windows the
+    Pallas kernel can tile, and its VMEM budget."""
+    if len(segment_lengths) != len(dilated_ratios) or \
+            len(segment_lengths) > _MAX_BRANCHES:
+        return False
+    R = max(int(r) for r in dilated_ratios)
+    if R < 2 or S % R or (S // R) % 8:
+        return False
+    if not any(int(r) == 1 for r in dilated_ratios):
+        return False
+    max_wr = 0
+    for w, r in zip(segment_lengths, dilated_ratios):
+        w, r = min(int(w), S), int(r)
+        if w % R or H % r or R % r or w // R < 1:
+            return False
+        wr = _max_window_rows(w, r, S, R)
+        max_wr = max(max_wr, wr)
+        if wr > 8192 or _pick_bq(wr, _FWD_SCORE_BUDGET) < 8 or \
+                _pick_bq(wr, _BWD_SCORE_BUDGET) < 8:
+            return False
+    return _vmem(S, D, len(segment_lengths), max_wr, itemsize)
+
+
+def sp_mega_eligible(S: int, n_shards: int, H: int, D: int,
+                     segment_lengths: Sequence[int],
+                     dilated_ratios: Sequence[int]) -> bool:
+    """Static eligibility of the sequence-parallel path (the JAX rule): the
+    full sequence must be mega-eligible and each shard's token range whole
+    comb slabs (``S / n_shards`` a multiple of R = max ratio)."""
+    if n_shards < 2 or S % n_shards:
+        return False
+    if not mega_eligible(S, H, D, segment_lengths, dilated_ratios):
+        return False
+    R = max(int(r) for r in dilated_ratios)
+    return (S // n_shards) % R == 0
+
+
+# ---------------------------------------------------------------------------
+# The ambient mesh
+# ---------------------------------------------------------------------------
+
+_MESH = None
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Make ``mesh`` (a ``DeviceMesh``, ``parallel.mesh.make_mesh``) the
+    ambient mesh of the island and the span sharding while the block runs
+    (JAX's ``jax.set_mesh``)."""
+    global _MESH
+    previous, _MESH = _MESH, mesh
+    try:
+        yield mesh
+    finally:
+        _MESH = previous
+
+
+class SeqShard(NamedTuple):
+    """This rank's place in a ``seq`` group: its tokens are the
+    ``rank``-th of ``n`` equal shards."""
+    group: object
+    rank: int
+    n: int
+
+
+def seq_shard(batch_axis: str, seq_axis: str) -> Optional[SeqShard]:
+    """The ambient mesh's ``seq_axis`` group, or None where the mesh is
+    missing, lacks either axis, or holds one rank along ``seq_axis``."""
+    mesh = _MESH
+    if mesh is None or mesh.mesh_dim_names is None:
+        return None
+    names = tuple(mesh.mesh_dim_names)
+    if seq_axis not in names or batch_axis not in names:
+        return None
+    n = mesh[seq_axis].size()
+    if n < 2:
+        return None
+    return SeqShard(mesh.get_group(seq_axis), mesh.get_local_rank(seq_axis),
+                    n)
+
+
+# ---------------------------------------------------------------------------
+# The island
+# ---------------------------------------------------------------------------
+
+class _SpMega(torch.autograd.Function):
+    """One rank's rows of the dilated attention over the gathered
+    sequence; see the module docstring."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, shard, segment_lengths, dilated_ratios,
+                scale):
+        qf, kf, vf = (all_gather_dim(t, 1, shard.group) for t in (q, k, v))
+        mf = None if mask is None else all_gather_dim(mask, 1, shard.group)
+        s_loc = q.shape[1]
+        rng = (shard.rank * s_loc, (shard.rank + 1) * s_loc)
+        branches = (segment_lengths, dilated_ratios, scale)
+        if q.device.type == "cuda":
+            out, stats, branch_out = mega_dilated_attention_cuda(
+                qf, kf, vf, mf, *branches, with_stats=True,
+                q_token_range=rng)
+            saved = (qf, kf, vf, mf, stats, branch_out)
+        else:
+            out = dilated_attention(qf, kf, vf,
+                                    segment_lengths=segment_lengths,
+                                    dilated_ratios=dilated_ratios, mask=mf,
+                                    scale=scale, q_token_range=rng)
+            saved = (qf, kf, vf, mf)
+        ctx.save_for_backward(*saved)
+        ctx.args = (shard, branches, rng)
+        return out[:, rng[0]:rng[1]].contiguous()
+
+    @staticmethod
+    def backward(ctx, dout):
+        shard, branches, rng = ctx.args
+        qf, kf, vf, mf = ctx.saved_tensors[:4]
+        dmix = dout.new_zeros(qf.shape)
+        dmix[:, rng[0]:rng[1]] = dout
+        if qf.device.type == "cuda":
+            stats, branch_out = ctx.saved_tensors[4:]
+            dq, dk, dv = mega_dilated_attention_backward_cuda(
+                qf, kf, vf, mf, dmix, stats, branch_out, *branches,
+                q_token_range=rng)
+        else:
+            leaves = [t.detach().requires_grad_() for t in (qf, kf, vf)]
+            with torch.enable_grad():
+                out = dilated_attention(
+                    *leaves, segment_lengths=branches[0],
+                    dilated_ratios=branches[1], mask=mf, scale=branches[2],
+                    q_token_range=rng)
+                dq, dk, dv = torch.autograd.grad(out, leaves, dmix)
+        # this rank's partial dk/dv, summed over the group in fp32
+        dk, dv = (reduce_scatter_dim(g.float(), 1, shard.group).to(g.dtype)
+                  for g in (dk, dv))
+        return (dq[:, rng[0]:rng[1]].contiguous(), dk, dv, None, None, None,
+                None, None)
+
+
+class _EnterSpan(torch.autograd.Function):
+    """Replicated ``(B, S, ...)`` -> this rank's token shard; the
+    gradient of the shard is gathered back to the whole sequence."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return torch.chunk(x, shard.n, dim=1)[shard.rank].contiguous()
+
+    @staticmethod
+    def backward(ctx, dx):
+        return all_gather_dim(dx.contiguous(), 1, ctx.shard.group), None
+
+
+class _LeaveSpan(torch.autograd.Function):
+    """This rank's token shard -> the gathered, replicated sequence; the
+    gradient is the local slice of the replicated one (every rank computes
+    the same gradient downstream, so no sum)."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return all_gather_dim(x, 1, shard.group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        shard = ctx.shard
+        return torch.chunk(dy, shard.n, dim=1)[shard.rank].contiguous(), None
+
+
+def enter_span(x: torch.Tensor, shard: SeqShard) -> torch.Tensor:
+    """A span's entry: the rank's tokens of a replicated sequence."""
+    return _EnterSpan.apply(x, shard)
+
+
+def leave_span(x: torch.Tensor, shard: SeqShard) -> torch.Tensor:
+    """A span's exit: the group's shards gathered into the sequence."""
+    return _LeaveSpan.apply(x, shard)
+
+
+def local_tokens(x: Optional[torch.Tensor], shard: SeqShard):
+    """The rank's tokens of ``x`` (a mask: no gradient), or None."""
+    return None if x is None else \
+        torch.chunk(x, shard.n, dim=1)[shard.rank].contiguous()
+
+
+def span_shard(cfg, length: int) -> Optional[SeqShard]:
+    """How a span of a LongNet of ``cfg`` (a ``LongNetConfig``) over
+    ``length`` tokens runs: on this rank's token shard (its
+    :class:`SeqShard`) when ``cfg.seq_axes`` is set, the attention is on a
+    kernel route (``fused_attention``), the ambient mesh holds both axes
+    with more than one rank along the second, and :func:`sp_mega_eligible`
+    takes the shape; else None, and the span runs whole (the same
+    function)."""
+    if cfg.seq_axes is None or not cfg.fused_attention:
+        return None
+    shard = seq_shard(*cfg.seq_axes)
+    if shard is None or not sp_mega_eligible(
+            length, shard.n, cfg.num_heads, cfg.head_dim,
+            cfg.segment_lengths, cfg.dilated_ratios):
+        return None
+    return shard
+
+
+def sp_mega_dilated_attention(q, k, v, mask, *, shard: SeqShard,
+                              segment_lengths: Sequence[int],
+                              dilated_ratios: Sequence[int],
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """This rank's ``(B, S_loc, H, D)`` attention rows from its local
+    q/k/v ``(B, S_loc, H, D)`` and mask ``(B, S_loc)`` (or None), the
+    sequence being the concatenation of the group's shards in rank order;
+    differentiable in q, k, v."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _SpMega.apply(q, k, v, mask, shard,
+                         tuple(int(w) for w in segment_lengths),
+                         tuple(int(r) for r in dilated_ratios), float(scale))
+
+
+def sp_island_attention(q, k, v, mask, *, segment_lengths: Sequence[int],
+                        dilated_ratios: Sequence[int], batch_axis: str,
+                        seq_axis: str, scale: Optional[float] = None
+                        ) -> Optional[torch.Tensor]:
+    """The island for a span that runs on this rank's token shard: q/k/v
+    are the local ``(B, S_loc, H, D)`` rows, ``mask`` the local ``(B,
+    S_loc)`` validity (or None). Returns the local attention rows, or None
+    where JAX's returns None: no ambient mesh (:func:`use_mesh`), a mesh
+    without ``batch_axis`` or ``seq_axis``, one rank along ``seq_axis``, or
+    a sequence (``S_loc`` times the ranks) that :func:`sp_mega_eligible`
+    refuses. (The rows were split over ``batch_axis`` before the model ran,
+    so every rank's batch is whole.)"""
+    shard = seq_shard(batch_axis, seq_axis)
+    if shard is None:
+        return None
+    _, s_loc, heads, d = q.shape
+    if not sp_mega_eligible(s_loc * shard.n, shard.n, heads, d,
+                            segment_lengths, dilated_ratios):
+        return None
+    return sp_mega_dilated_attention(q, k, v, mask, shard=shard,
+                                     segment_lengths=segment_lengths,
+                                     dilated_ratios=dilated_ratios,
+                                     scale=scale)

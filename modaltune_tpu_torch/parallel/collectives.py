@@ -1,0 +1,73 @@
+"""Collectives over a process group, chosen by the group's backend.
+
+NCCL takes CUDA tensors as they are. Gloo takes CPU tensors; a CUDA tensor
+on a gloo group (two processes sharing one card, where NCCL refuses two
+ranks on one GPU) travels through a CPU copy. Only the list forms of the
+collectives are used (``all_gather``, ``reduce_scatter``), which every
+torch release of the port's range has under one name. Gloo's
+reduce-scatter is an ``all_reduce`` and this rank's slice of it: the same
+sum.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+
+def _staged(x: torch.Tensor, group) -> bool:
+    return x.device.type != "cpu" and dist.get_backend(group) == "gloo"
+
+
+def all_reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean of ``x`` over the group's ranks (a new tensor)."""
+    n = dist.get_world_size(group)
+    y = x.detach().cpu() if _staged(x, group) else x.detach().clone()
+    dist.all_reduce(y, group=group)
+    return y.to(x.device).div_(n)
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``x`` over the group's ranks (a new tensor)."""
+    y = x.detach().cpu() if _staged(x, group) else x.detach().clone()
+    dist.all_reduce(y, group=group)
+    return y.to(x.device)
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """Every rank's ``x`` (equal shapes) concatenated along ``dim`` in rank
+    order."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    staged = _staged(x, group)
+    y = (x.cpu() if staged else x).contiguous()
+    if y.dtype == torch.bool:       # gloo and NCCL move bytes, not bools
+        y = y.to(torch.uint8)
+    parts = [torch.empty_like(y) for _ in range(n)]
+    dist.all_gather(parts, y, group=group)
+    out = torch.cat(parts, dim=dim).to(x.device)
+    return out.bool() if x.dtype == torch.bool else out
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """The sum over the group's ranks of ``x``, cut into equal chunks along
+    ``dim``: this rank's chunk."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    rank = dist.get_rank(group)
+    if dist.get_backend(group) == "gloo":
+        return torch.chunk(all_reduce_sum(x, group), n, dim=dim)[rank] \
+            .contiguous()
+    chunks = [c.contiguous() for c in torch.chunk(x, n, dim=dim)]
+    out = torch.empty_like(chunks[rank])
+    dist.reduce_scatter(out, chunks, group=group)
+    return out
+
+
+def broadcast_object(obj, src: int = 0, group=None):
+    """``obj`` of rank ``src`` on every rank of the group."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, group=group)
+    return box[0]

@@ -26,9 +26,22 @@ Real data on the GPU:
     --mil_name longnetvit_gene_adapter \\
     --backbone_weights gigapath_backbone.npz
 
-Not ported yet, refused with the ROADMAP item that brings them:
-``--distributed 1`` and ``--dp`` over more than one GPU (queue 1 item 2,
-multi-GPU).
+Several GPUs, one process each (the JAX package drives every chip from one
+process; the port keeps PyTorch's idiom):
+
+* ``--dp N`` (``auto``: every local GPU when there is more than one)
+  spawns N workers on this host, one per GPU (``--device cpu``: N CPU
+  workers over gloo). Every worker draws the same global batches and the
+  steps split their rows over the ``data`` axis of a mesh
+  (``parallel/mesh.py``); ``--batch_size`` is rounded up to a multiple of
+  N.
+* ``--distributed 1`` bootstraps from the environment (torchrun's
+  ``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/``MASTER_PORT``/``LOCAL_RANK``,
+  or SLURM's): each process trains on its case-modulo shard with the
+  gradients averaged across processes (``parallel/multihost.py``)::
+
+    torchrun --nproc_per_node 8 -m modaltune_tpu_torch.tools.train \\
+      --distributed 1 ...
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 from pathlib import Path
 
@@ -121,12 +135,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "on the flash-attention kernels (K2) instead of "
                         "the dilated kernels (K1 or K3)")
     p.add_argument("--distributed", default=0, type=int,
-                   help="multi-host data parallelism (not ported yet)")
+                   help="bootstrap torch.distributed from SLURM/torchrun "
+                        "env for multi-host data parallelism")
     p.add_argument("--dp", default="auto", type=str,
-                   help="single-process multi-GPU data parallelism: "
-                        "'auto' uses every local device when >1, '0'/'1' "
-                        "disables, N uses N devices (more than one is not "
-                        "ported yet)")
+                   help="single-host multi-GPU data parallelism, one "
+                        "process per GPU: 'auto' uses every local device "
+                        "when >1, '0'/'1' disables, N uses N devices "
+                        "(batch size is rounded up to a multiple of N)")
     p.add_argument("--save_interval", default=0, type=int,
                    help="full-state (params+optimizer) checkpoint every "
                         "N epochs, with auto-resume at start; 0 = off")
@@ -137,21 +152,66 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_supported(args) -> torch.device:
-    """-> the device to run on; stops with the reason on a flag whose path
-    is not ported yet, or on ``cuda`` without a GPU."""
+    """-> the device to run on; stops with the reason on ``cuda`` without
+    a GPU."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device is available; the port trains on "
                          "the GPU (pass --device cpu to run on the CPU)")
-    n_gpus = torch.cuda.device_count() if device.type == "cuda" else 1
-    n_data = 1
-    if args.dp not in ("0", "1"):
-        n_data = n_gpus if args.dp == "auto" else min(int(args.dp), n_gpus)
-    if args.distributed or n_data > 1:
-        raise SystemExit("--distributed 1 / --dp over more than one GPU: "
-                         "data parallelism is not ported yet (ROADMAP "
-                         "queue 1 item 2, multi-GPU); pass --dp 1")
     return device
+
+
+def data_parallel_size(args, device: torch.device) -> int:
+    """The workers of ``--dp``: 'auto' every local GPU, N at most the
+    GPUs (on the CPU, N), '0'/'1' one."""
+    if args.dp in ("0", "1"):
+        return 1
+    if device.type != "cuda":
+        return 1 if args.dp == "auto" else int(args.dp)
+    n_gpus = torch.cuda.device_count()
+    return n_gpus if args.dp == "auto" else min(int(args.dp), n_gpus)
+
+
+def _dp_worker(rank: int, args, n: int, init_file: str, device_type: str,
+               results) -> None:
+    """One ``--dp`` worker: rank ``rank`` of an ``n``-process group on GPU
+    ``rank`` (or the CPU), a data mesh over the group, the run."""
+    import torch.distributed as dist
+    from ..parallel.mesh import make_mesh
+    if device_type == "cuda":
+        torch.cuda.set_device(rank)
+        device = torch.device("cuda", rank)
+    else:
+        device = torch.device("cpu")
+        torch.set_num_threads(max(1, (os.cpu_count() or n) // n))
+    dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
+                            init_method=f"file://{init_file}", rank=rank,
+                            world_size=n)
+    try:
+        result = train_one_seed(args, device, mesh=make_mesh(n_data=n))
+        if rank == 0:
+            results.put(result)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_data_parallel(args, n: int, device: torch.device):
+    """``--dp n``: ``n`` spawned workers, one per GPU, on the same global
+    batches (``batch_size`` rounded up to a multiple of ``n``, with the JAX
+    CLI's messages); returns rank 0's result."""
+    import tempfile
+    import torch.multiprocessing as mp
+    print(f"--dp: data-parallel over {n} devices")
+    if args.batch_size % n:
+        args.batch_size = n * ((args.batch_size + n - 1) // n)
+        print(f"--dp: batch_size rounded up to {args.batch_size} "
+              f"(multiple of the {n}-device data mesh)")
+    ctx = mp.get_context("spawn")
+    results = ctx.SimpleQueue()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_dp_worker, args=(args, n, os.path.join(tmp, "init"),
+                                   device.type, results), nprocs=n)
+    return results.get()
 
 
 def load_real_datasets(args):
@@ -302,12 +362,30 @@ def run_mil_baseline(args, datasets, packer, device):
 
 
 def run_one_seed(args):
+    """One seed's run: on this process, over the processes of the
+    environment (``--distributed 1``), or in ``--dp`` spawned workers."""
+    from ..parallel.multihost import init_distributed
+    device = check_supported(args)
+    baseline = args.mil_name in ("gene_mixer_group", "abmil", "transmil")
+    if args.distributed and not baseline:
+        rank, world = init_distributed(device=device.type)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        return train_one_seed(args, device, process_shard=(
+            (rank, world) if world > 1 else None))
+    n_data = 1 if baseline else data_parallel_size(args, device)
+    if n_data > 1:
+        return spawn_data_parallel(args, n_data, device)
+    return train_one_seed(args, device)
+
+
+def train_one_seed(args, device: torch.device, mesh=None,
+                   process_shard=None):
     from ..configs import TrainConfig, tiny_test_config
     from ..models import create_aggregator
     from ..train.pancancer_trainer import PanCancerTrainer
     from ..train.trainer import ModalTuneTrainer
 
-    device = check_supported(args)
     if args.tiny:
         tiny_chans = tiny_test_config().backbone.in_chans
         if not args.synthetic and Path(args.train_json).exists():
@@ -355,9 +433,11 @@ def run_one_seed(args):
     params = initial_params(model, args)
     cls = PanCancerTrainer if args.pancancer else ModalTuneTrainer
 
+    parallel = dict(mesh=mesh, process_shard=process_shard)
     if args.eval_only:
         trainer = cls(model, tcfg, datasets, str(out_dir), buckets=buckets,
-                      batch_size=args.batch_size, model_cfg=model_cfg)
+                      batch_size=args.batch_size, model_cfg=model_cfg,
+                      **parallel)
         trainer.init_state(params, frozen_dtype=dtype)
         return trainer.deploy(weights_path=args.eval_weights or None)
 
@@ -380,9 +460,11 @@ def run_one_seed(args):
         return float(np.mean(fold_metrics))
 
     trainer = cls(model, tcfg, datasets, str(out_dir), buckets=buckets,
-                  batch_size=args.batch_size, model_cfg=model_cfg)
+                  batch_size=args.batch_size, model_cfg=model_cfg,
+                  **parallel)
     best = trainer.run(params, frozen_dtype=dtype)
-    print(f"seed {args.seed}: best val metric = {best:.4f}")
+    if trainer.is_main:
+        print(f"seed {args.seed}: best val metric = {best:.4f}")
     if args.save_embeddings:
         trainer.deploy(weights_path=str(out_dir / "best_model_weights.pt"))
     return best
@@ -399,6 +481,9 @@ def main(argv=None):
     if len(results) > 1 and all(isinstance(r, float) for r in results):
         print(f"multi-seed mean={np.mean(results):.4f} "
               f"std={np.std(results):.4f}")
+    import torch.distributed as dist
+    if dist.is_initialized():       # --distributed 1
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

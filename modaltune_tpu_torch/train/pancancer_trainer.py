@@ -8,7 +8,10 @@ indexed by ``SITE_LABEL[project_id]`` plus a 4-way cancer-site classifier
 ``LogisticRegression_train`` :136-232, ``evaluate`` :234-365). Unlike the
 single-site trainer, a pan-cancer epoch has **no** 6-iteration cap, even
 with ``reference_quirks`` (the optimizer's schedule still counts 6 steps
-an epoch there, as the JAX trainer's does).
+an epoch there, as the JAX trainer's does). Under a mesh or multi-process
+DDP the base trainer's eval contract holds: the padded wrap rows stay out
+of the loss and of every site's pool, and every process scores the whole
+split; rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -117,6 +120,8 @@ class PanCancerTrainer(ModalTuneTrainer):
         results = perform_testing_pancancer(
             splits["train"][0], splits["train"][1],
             splits["test"][0], splits["test"][1], penalizer=penalizer)
-        with open(self.out_dir / "deploy_results_pancancer.json", "w") as f:
-            json.dump(results, f, indent=2)
+        if self.is_main:
+            with open(self.out_dir / "deploy_results_pancancer.json",
+                      "w") as f:
+                json.dump(results, f, indent=2)
         return results

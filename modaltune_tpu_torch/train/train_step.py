@@ -72,17 +72,28 @@ def multitask_logits(model: nn.Module, batch: Dict[str, Optional[torch.Tensor]],
     return out.reshape(batch["bag"].shape[0], num_tasks, -1)
 
 
-def make_embed_step(model: nn.Module, cfg: TrainConfig
+def make_embed_step(model: nn.Module, cfg: TrainConfig, mesh=None
                     ) -> Callable[[Dict[str, Optional[torch.Tensor]]],
                                   torch.Tensor]:
     """Feature-extraction step: ``step(batch) -> (B, T, output_dim)``
     embeddings, the model in eval mode and no autograd state kept, under
-    the same autocast as the train and eval steps."""
+    the same autocast as the train and eval steps. With ``mesh`` (a
+    ``parallel.mesh.make_mesh`` mesh) each rank embeds its rows of the
+    batch (split over ``data``) and every rank gets all of them back in
+    row order."""
 
     def step(batch: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
         model.eval()
+        n_rows = batch["bag"].shape[0]
+        if mesh is not None:
+            from ..parallel.mesh import shard_batch
+            batch = shard_batch(batch, mesh)
         with torch.inference_mode(), _autocast(model, batch["bag"].device):
-            return multitask_logits(model, batch, cfg.num_tasks)
+            out = multitask_logits(model, batch, cfg.num_tasks)
+        if mesh is not None:
+            from ..parallel.mesh import gather_rows
+            out = gather_rows(out, n_rows, mesh)
+        return out
 
     return step
 
@@ -145,22 +156,37 @@ def make_grad_step(model: nn.Module, cfg: TrainConfig
     return step
 
 
-def make_eval_step(model: nn.Module, cfg: TrainConfig
+def make_eval_step(model: nn.Module, cfg: TrainConfig, mesh=None
                    ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
     """``step(batch, text_targets, row_valid) -> (logits, loss)``: the raw
     (B, T, D) embeddings in eval mode and the KD loss on their normalised
     form, averaged over the rows with ``row_valid`` (B,) set (padded rows
-    of a short last batch are excluded)."""
+    of a short last batch are excluded). With ``mesh`` the batch, the text
+    targets and ``row_valid`` are split over ``data``, the loss is the
+    row-weighted mean over the real rows of every rank (its numerator and
+    denominator summed over ``data``), and the logits come back whole, in
+    row order, on every rank (JAX's ``_maybe_shard_eval`` contract)."""
 
     def step(batch: Inputs, text_targets: torch.Tensor,
              row_valid: torch.Tensor):
         model.eval()
+        n_rows = batch["bag"].shape[0]
+        if mesh is not None:
+            from ..parallel.mesh import data_rows, shard_batch
+            rows = data_rows(n_rows, mesh)
+            batch = shard_batch(batch, mesh)
+            text_targets, row_valid = text_targets[rows], row_valid[rows]
         with torch.inference_mode(), _autocast(model, batch["bag"].device):
             logits = multitask_logits(model, batch, cfg.num_tasks)
             per = kd_kl_per_slide(logits, text_targets,
                                   temperature=cfg.temperature)
             rv = row_valid.to(torch.float32)
-            loss = (per * rv).sum() / rv.sum().clamp_min(1.0) \
+            sums = torch.stack([(per * rv).sum(), rv.sum()])
+            if mesh is not None:
+                from ..parallel.mesh import data_sum, gather_rows
+                sums = data_sum(sums, n_rows, mesh)
+                logits = gather_rows(logits, n_rows, mesh)
+            loss = sums[0] / sums[1].clamp_min(1.0) \
                 * (cfg.temperature ** 2) * cfg.kd_loss_scale
         return logits, loss
 

@@ -1,12 +1,24 @@
 """Experiment lifecycle: the ModalTune trainer.
 
-Counterpart of ``modaltune_tpu/train/trainer.py``, method for method, on
-one device: seeding, run directory, config dump, epoch loop with the
-epoch-cap quirk, in-loop LogReg/CoxPH readout on val, best weights on val
-balanced accuracy, test with the best weights, full-state checkpoint and
-resume, embedding export and deploy, k-fold. The JAX package's device
-mesh and multi-host branches are not part of this copy (ROADMAP queue 1
-item 2, multi-GPU); asking for them raises.
+Counterpart of ``modaltune_tpu/train/trainer.py``, method for method:
+seeding, run directory, config dump, epoch loop with the epoch-cap quirk,
+in-loop LogReg/CoxPH readout on val, best weights on val balanced
+accuracy, test with the best weights, full-state checkpoint and resume,
+embedding export and deploy, k-fold; on one GPU, or on several, one
+process each (``parallel/``):
+
+* ``mesh`` (``--dp N``): every rank draws the same global batch
+  (``pad_to_batch``) and the steps split its rows over the mesh's ``data``
+  axis (``parallel.mesh.make_dp_train_step``; eval and embed gather the
+  rows back), so every rank holds every output;
+* ``process_shard=(rank, n)`` (``--distributed 1``): each process iterates
+  its case-modulo shard, the gradients are averaged across processes
+  (``parallel.multihost.DdpGradSync``) over the common step count, and
+  the eval outputs are gathered back into the dataset's case order.
+
+Rank 0 alone writes the run's files (``is_main``). The best weights that
+the test and deploy load are rank 0's, sent to every rank (the JAX
+trainer reloads them from each process's own directory, ROADMAP F2).
 
 What differs from the JAX trainer by design:
 
@@ -33,6 +45,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..configs import ModalTuneConfig, TrainConfig
@@ -46,10 +59,7 @@ from ..utils.params_io import load_params_npz
 from .losses import TextProjector, project_text
 from .state import FROZEN_KEY, TrainOptimizer, freeze_backbone
 from .train_step import (batch_to_device, make_embed_step, make_eval_step,
-                         make_train_step)
-
-NOT_PORTED = ("data-parallel and multi-host training are not ported yet "
-              "(ROADMAP queue 1 item 2)")
+                         make_grad_step, make_train_step)
 
 
 def set_seed(seed: int) -> np.random.RandomState:
@@ -73,6 +83,16 @@ def check_weights(cur: Dict[str, tuple], new: Dict[str, tuple],
             f"({len(missing)}/{len(unexpected)}/{len(bad_shape)} total)")
 
 
+class _NullLogger:
+    """The metrics logger of a rank that writes no files."""
+
+    def log(self, metrics: Dict, step: Optional[int] = None) -> None:
+        pass
+
+    def dump_summary(self) -> None:
+        pass
+
+
 class ModalTuneTrainer:
     """Single-site multi-task KD trainer.
 
@@ -88,6 +108,10 @@ class ModalTuneTrainer:
         CPU). On a CUDA device the train loader copies each batch to the
         device ahead of its step.
       projector: the frozen text projector; None draws one from torch.
+      mesh: a ``parallel.mesh.make_mesh`` mesh over this run's processes
+        (data parallelism over its ``data`` axis), or None.
+      process_shard: ``(rank, n_processes)`` of a multi-process DDP run, or
+        None.
     """
 
     def __init__(self, model: nn.Module, cfg: TrainConfig, datasets: Dict,
@@ -97,9 +121,6 @@ class ModalTuneTrainer:
                  model_cfg: Optional[ModalTuneConfig] = None,
                  device=None, projector: Optional[nn.Module] = None,
                  mesh=None, process_shard=None):
-        if mesh is not None or (process_shard is not None
-                                and process_shard[1] > 1):
-            raise NotImplementedError(NOT_PORTED)
         self.device = torch.device(device) if device is not None else \
             next(model.parameters()).device
         self.model = model.to(self.device)
@@ -108,21 +129,37 @@ class ModalTuneTrainer:
         self.out_dir = Path(out_dir)
         self.buckets = tuple(buckets)
         self.batch_size = batch_size
+        self.mesh = mesh
+        self.process_shard = process_shard
         self.rng = set_seed(cfg.seed)
-        self.logger = MetricsLogger(str(self.out_dir))
-        dump_config(str(self.out_dir), {
-            "train": dataclasses.asdict(cfg),
-            "model": dataclasses.asdict(model_cfg) if model_cfg else {},
-            "buckets": list(buckets),
-        })
+        # processes of this run and this one's rank: only rank 0 writes
+        # files (the reference's rank-0 guard, base_trainer.py:438-440)
+        ddp = process_shard is not None and process_shard[1] > 1
+        self.world = dist.get_world_size() if dist.is_initialized() and (
+            ddp or mesh is not None) else 1
+        self.rank = dist.get_rank() if self.world > 1 else 0
+        self.is_main = self.rank == 0 and (process_shard is None
+                                           or process_shard[0] == 0)
+        self.logger = MetricsLogger(str(self.out_dir)) if self.is_main \
+            else _NullLogger()
+        if self.is_main:
+            dump_config(str(self.out_dir), {
+                "train": dataclasses.asdict(cfg),
+                "model": dataclasses.asdict(model_cfg) if model_cfg else {},
+                "buckets": list(buckets),
+            })
+        # under a mesh the steps split each global batch's rows, so every
+        # rank draws the same batches, padded to batch_size by wrapping
         self.train_loader = BucketedLoader(
             datasets["train"], buckets=self.buckets, batch_size=batch_size,
             shuffle=True, seed=cfg.seed,
-            device_prefetch=self.device.type == "cuda")
+            device_prefetch=self.device.type == "cuda" and mesh is None,
+            process_shard=process_shard, pad_to_batch=mesh is not None)
         self.eval_loaders = {
             k: BucketedLoader(datasets[k], buckets=self.buckets,
                               batch_size=batch_size, shuffle=False,
-                              seed=cfg.seed)
+                              seed=cfg.seed, process_shard=process_shard,
+                              pad_to_batch=mesh is not None)
             for k in ("train", "val", "test") if k in datasets}
 
         # frozen random text projector (train_modaltune.py:113-116)
@@ -137,6 +174,7 @@ class ModalTuneTrainer:
         self.best_metric = float("-inf")
         self._lr_head = None
         self._cph = None
+        self._steps_cap = None
         # host clock of every train step of this trainer, ms: each step (it
         # ends when its loss reaches the host, which waits for the update)
         # and each wait in the train loader's next() before it
@@ -159,14 +197,43 @@ class ModalTuneTrainer:
         frozen_n = sum(p.numel() for p in
                        getattr(self.model, FROZEN_KEY).parameters())
         train_n = sum(p.numel() for p in trainable)
-        print(f"Initialized model: trainable={train_n:,} "
-              f"frozen={frozen_n:,}")
-        self._train_step = make_train_step(self.model, self.cfg,
-                                           self.optimizer)
-        self._eval_step = make_eval_step(self.model, self.cfg)
-        self._embed_step = make_embed_step(self.model, self.cfg)
+        if self.is_main:
+            print(f"Initialized model: trainable={train_n:,} "
+                  f"frozen={frozen_n:,}")
+        self._steps_cap = None
         self._step_gen = torch.Generator(device=self.device).manual_seed(
             self.cfg.seed)
+        if self.process_shard is not None and self.process_shard[1] > 1:
+            # multi-process DDP: the local grad step, then the gradient
+            # mean and the same update on every rank (the reference's DDP
+            # wrap, base_trainer.py:205-211)
+            from ..parallel.multihost import DdpGradSync, global_steps_min
+            gstep = make_grad_step(self.model, self.cfg)
+            sync = DdpGradSync(self.optimizer, self._trainable())
+
+            def ddp_step(batch, text_targets, generator):
+                loss, grads = gstep(batch, text_targets, generator)
+                return sync.step(grads, loss)
+
+            self._train_step = ddp_step
+            # dropout decorrelated across processes (JAX folds in the pid)
+            self._step_gen.manual_seed(int(np.random.SeedSequence(
+                [self.cfg.seed, self.process_shard[0]]).generate_state(1)[0]))
+            # every process runs the same number of synchronized steps
+            self._steps_cap = global_steps_min(len(self.train_loader))
+        elif self.mesh is not None:
+            from ..parallel.mesh import data_generator, make_dp_train_step
+            self._train_step = make_dp_train_step(self.model, self.cfg,
+                                                  self.optimizer, self.mesh)
+            self._step_gen = data_generator(self.cfg.seed, self.mesh,
+                                            self.device)
+        else:
+            self._train_step = make_train_step(self.model, self.cfg,
+                                               self.optimizer)
+        self._eval_step = make_eval_step(self.model, self.cfg,
+                                         mesh=self.mesh)
+        self._embed_step = make_embed_step(self.model, self.cfg,
+                                           mesh=self.mesh)
         return self.optimizer
 
     def _batch(self, batch: Batch) -> dict:
@@ -186,6 +253,8 @@ class ModalTuneTrainer:
     def train_one_epoch(self) -> float:
         total, n = 0.0, 0
         cap = self._epoch_cap()
+        if self._steps_cap is not None:
+            cap = min(cap, self._steps_cap)
         batches = iter(self.train_loader)
         try:
             while True:
@@ -216,9 +285,18 @@ class ModalTuneTrainer:
             real = len(batch.case_ids) - batch.pad_rows
             embs.append(out.float().cpu().numpy()[:real])
             ids.extend(batch.case_ids[:real])
+        # the empty placeholder carries the real (T, D) trailing shape, which
+        # the processes' gather needs when a split has fewer cases than
+        # processes
         out_dim = self.model.cfg.adapter.output_dim
         x = np.concatenate(embs) if embs else \
             np.zeros((0, self.cfg.num_tasks, out_dim), np.float32)
+        if self.process_shard is not None:
+            # every process's shard, back in the dataset's case order, so
+            # the head fits and deploy files equal a single-process run's
+            from ..parallel.multihost import allgather_embeddings
+            x, ids = allgather_embeddings(x, ids)
+            x, ids = _case_order(x, ids, loader.dataset)
         meta = [by_case[c] for c in ids]
         if task0_only:
             x = x[:, :1]
@@ -234,9 +312,26 @@ class ModalTuneTrainer:
         e = np.array([m.get("vital_status", 0) for m in meta], int)
         self._cph = CoxPH(penalizer=0.1).fit(x0, t, e)
 
+    def _gather_eval(self, x0, ids, loss_num: float, loss_den: int,
+                     dataset):
+        """The whole split's eval outputs under multi-process DDP (the
+        reference's rank-0 ``gather_distributed_outputs``,
+        base_trainer.py:379-421): every process's embeddings and case ids
+        (uneven counts absorbed) in the dataset's case order and the loss
+        sums over processes, so every process, and a single-process run on
+        the same data, scores the same metrics. Passthrough otherwise."""
+        if self.process_shard is None or self.process_shard[1] <= 1:
+            return x0, ids, loss_num, loss_den
+        from ..parallel.multihost import allgather_embeddings, process_sum
+        x0, ids = allgather_embeddings(x0, list(ids))
+        sums = process_sum(np.asarray([loss_num, float(loss_den)]))
+        x0, ids = _case_order(x0, ids, dataset)
+        return x0, ids, float(sums[0]), int(round(float(sums[1])))
+
     def _eval_outputs(self, stage: str):
         """Run the eval step over a split -> (x0 (N, D) task-0
-        embeddings, metadata rows, mean loss)."""
+        embeddings, metadata rows, mean loss), the whole split's under
+        multi-process DDP (:meth:`_gather_eval`)."""
         loader = self.eval_loaders[stage]
         by_case = {m["case_id"]: m for m in loader.dataset.metadata()}
         loss_num, loss_den, x0, ids = 0.0, 0, [], []
@@ -256,6 +351,8 @@ class ModalTuneTrainer:
         out_dim = self.model.cfg.adapter.output_dim
         x0 = np.concatenate(x0) if x0 else np.zeros((0, out_dim),
                                                     np.float32)
+        x0, ids, loss_num, loss_den = self._gather_eval(
+            x0, ids, loss_num, loss_den, loader.dataset)
         meta = [by_case[c] for c in ids]
         return x0, meta, loss_num / max(loss_den, 1)
 
@@ -277,11 +374,11 @@ class ModalTuneTrainer:
                 cm = m.pop("confusion_matrix", None)
                 roc = m.pop("roc_curve", None)
                 out.update({f"{stage}_cls_{k}": v for k, v in m.items()})
-                if cm is not None:
+                if cm is not None and self.is_main:
                     with open(self.out_dir / f"confusion_{stage}.json",
                               "w") as f:
                         json.dump(cm, f)
-                if roc:
+                if roc and self.is_main:
                     with open(self.out_dir / f"roc_{stage}.json", "w") as f:
                         json.dump(roc, f)
         if self._cph is not None:
@@ -290,7 +387,17 @@ class ModalTuneTrainer:
 
     # ------------------------------------------------------------------
     def save_weights(self, name: str) -> None:
-        torch.save(self.model.state_dict(), self.out_dir / name)
+        if self.is_main:
+            torch.save(self.model.state_dict(), self.out_dir / name)
+
+    def _from_main(self, read):
+        """``read()`` on rank 0, sent to every rank of a multi-process run
+        (the files are rank 0's: another rank may see no such file, or a
+        stale one)."""
+        if self.world == 1:
+            return read()
+        from ..parallel.collectives import broadcast_object
+        return broadcast_object(read() if self.rank == 0 else None)
 
     def load_weights(self, path: str, strict: bool = True) -> None:
         """Load weights written by :meth:`save_weights` (``.pt``) or by the
@@ -298,12 +405,14 @@ class ModalTuneTrainer:
         ``strict`` their names and shapes must be the model's exactly —
         the deploy-time ``load_state_dict`` strictness
         (``train_modaltune.py:546-548``), guarding against a model built
-        from drifted flags."""
-        if str(path).endswith(".npz"):
-            new = {k: torch.from_numpy(np.asarray(v, np.float32))
-                   for k, v in port_names(load_params_npz(path)).items()}
-        else:
-            new = torch.load(path, map_location="cpu", weights_only=True)
+        from drifted flags. In a multi-process run every rank loads rank
+        0's file."""
+        def read():
+            if str(path).endswith(".npz"):
+                return {k: torch.from_numpy(np.asarray(v, np.float32))
+                        for k, v in port_names(load_params_npz(path)).items()}
+            return torch.load(path, map_location="cpu", weights_only=True)
+        new = self._from_main(read)
         if strict:
             check_weights({k: tuple(v.shape) for k, v in
                            self.model.state_dict().items()},
@@ -321,6 +430,8 @@ class ModalTuneTrainer:
 
         ``resume_epoch`` records the epoch training should *continue
         from* (run() passes epoch+1 after finishing an epoch)."""
+        if not self.is_main:
+            return
         opt = self.optimizer
         epoch = self.current_epoch if resume_epoch is None else resume_epoch
         torch.save(dict(trainable={n: p.detach() for n, p in
@@ -332,9 +443,11 @@ class ModalTuneTrainer:
 
     def restore_checkpoint(self, name: str = "ckpt") -> bool:
         path = self.out_dir / f"{name}.pt"
-        if not path.exists():
+        ck = self._from_main(lambda: torch.load(
+            path, map_location="cpu", weights_only=True)
+            if path.exists() else None)
+        if ck is None:
             return False
-        ck = torch.load(path, map_location="cpu", weights_only=True)
         params = self._trainable()
         check_weights({n: tuple(p.shape) for n, p in params.items()},
                       {n: tuple(t.shape) for n, t in ck["trainable"].items()},
@@ -378,9 +491,11 @@ class ModalTuneTrainer:
             if self.cfg.save_interval and \
                     (epoch + 1) % self.cfg.save_interval == 0:
                 self.save_checkpoint(resume_epoch=epoch + 1)
-        # test with best weights, heads refit on train
-        if (self.out_dir / "best_model_weights.pt").exists():
-            self.load_weights(str(self.out_dir / "best_model_weights.pt"))
+        # test with best weights (rank 0's, on every rank), heads refit on
+        # train
+        best = self.out_dir / "best_model_weights.pt"
+        if self._from_main(best.exists):
+            self.load_weights(str(best))
         if "test" in self.eval_loaders:
             self.fit_readout_heads()
             test_row = self.evaluate("test")
@@ -396,22 +511,34 @@ class ModalTuneTrainer:
         if weights_path:
             self.load_weights(weights_path)
         data_dir = self.out_dir / "data"
-        data_dir.mkdir(parents=True, exist_ok=True)
+        if self.is_main:
+            data_dir.mkdir(parents=True, exist_ok=True)
         splits = {}
         for name in ("train", "val", "test"):
             if name not in self.eval_loaders:
                 continue
+            # every process holds the whole split; rank 0 writes it
             x, meta = self.extract_embeddings(self.eval_loaders[name])
             splits[name] = (x, meta)
-            np.save(data_dir / f"x_feats_{name}.npy", x)
-            with open(data_dir / f"meta_{name}.json", "w") as f:
-                json.dump(meta, f, default=str)
+            if self.is_main:
+                np.save(data_dir / f"x_feats_{name}.npy", x)
+                with open(data_dir / f"meta_{name}.json", "w") as f:
+                    json.dump(meta, f, default=str)
         results = perform_testing(splits["train"][0], splits["train"][1],
                                   splits["test"][0], splits["test"][1],
                                   penalizer=penalizer)
-        with open(self.out_dir / "deploy_results.json", "w") as f:
-            json.dump(results, f, indent=2)
+        if self.is_main:
+            with open(self.out_dir / "deploy_results.json", "w") as f:
+                json.dump(results, f, indent=2)
         return results
+
+
+def _case_order(x: np.ndarray, ids: List[str], dataset):
+    """``x`` and ``ids`` in the order of ``dataset.case_ids``."""
+    pos = {c: i for i, c in enumerate(dataset.case_ids)}
+    perm = np.argsort(np.asarray([pos[c] for c in ids], np.int64),
+                      kind="stable")
+    return x[perm], [ids[i] for i in perm]
 
 
 def run_kfold(make_trainer, params_fn, n_folds: int = 5) -> List[float]:

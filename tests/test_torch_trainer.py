@@ -386,13 +386,20 @@ def test_cli_refuses_without_a_gpu_and_unported_paths(tmp_path):
     assert done.returncode != 0
     assert "--device cpu" in done.stderr
     assert not (tmp_path / "seed_0").exists()
-    args = cli.build_parser().parse_args(["--device", "cpu",
-                                          "--distributed", "1"])
-    with pytest.raises(SystemExit, match="item 2, multi-GPU"):
-        cli.run_one_seed(args)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        ModalTuneTrainer(_port_model()[0], TrainConfig(), {}, str(tmp_path),
-                         process_shard=(0, 2))
+    # the multi-process flags are accepted (their runs:
+    # test_torch_multihost.py), and a trainer over a 2-process shard
+    # builds: rank 0 of two, iterating half of the cases
+    parse = cli.build_parser().parse_args
+    for flags in (["--distributed", "1"], ["--dp", "2"]):
+        assert cli.check_supported(parse(["--device", "cpu", *flags])) == \
+            torch.device("cpu")
+    assert cli.data_parallel_size(parse(["--device", "cpu", "--dp", "2"]),
+                                  torch.device("cpu")) == 2
+    datasets, _ = _splits(SyntheticSlideDataset, 4)
+    trainer = ModalTuneTrainer(_port_model()[0], TrainConfig(), datasets,
+                               str(tmp_path / "shard"), buckets=(96,),
+                               process_shard=(0, 2))
+    assert trainer.is_main and len(trainer.train_loader) == 2
 
 
 def test_backbone_weights_set_the_backbone_strictly(jax_run, tmp_path):
