@@ -11,7 +11,7 @@ K3f; the backward kernels K1b, K2b, K3b, K4b, K5b; K1f and K1b also with a
 plain version and, where one PyTorch call computes the same function,
 beside that call (``scaled_dot_product_attention``; timed here, used
 nowhere in the port), and computes the least time the card could take for
-the same work. Then it drives ten paths end to end at full published
+the same work. Then it drives twelve paths end to end at full published
 width with random weights from a seeded generator, each with every launch
 count set to 0 just before and read just after:
 
@@ -24,6 +24,12 @@ count set to 0 just before and read just after:
   the fused GELU -> LayerNorm K5 in place of two ops), the same two steps
   on the same slides and weights, its embeddings held to the first
   route's;
+* the same again on the per-branch route (``fused_attention=False``, the
+  CLI's ``--fused_attention 0``: each of a layer's five dilated branches
+  on the flash kernels K2f and K2b, their wgmma family at D = 48), its
+  embeddings held to the first route's, its gradients to the plain
+  path's as every train path's, and each K2 launch of its bf16 grad
+  step to the plain version on that launch's inputs;
 * ModalTune-TITAN (6-block / 768-d / 12-head ViT with 2-D ALiBi attention
   and a 128-query attentional pooler, the same adapter over
   interactions ((0,1),(2,3),(4,5)) with concatenated tokens): the embed
@@ -233,12 +239,37 @@ K5_ROUTES = ("ROWS_LAUNCHES", "BWD_ROWS_LAUNCHES", "BWD_DX_ONLY_LAUNCHES")
 
 
 def reset_counts() -> None:
-    """Set every kernel's launch count to 0, K5's by route too."""
+    """Set every kernel's launch count to 0, K5's by route and K2's by
+    family too."""
     for module, attr in COUNTERS.values():
         setattr(importlib.import_module(module), attr, 0)
     gl = importlib.import_module(COUNTERS["K5f"][0])
     for attr in K5_ROUTES:
         setattr(gl, attr, 0)
+    fa = importlib.import_module(COUNTERS["K2f"][0])
+    for counts in (fa.FAMILY_LAUNCHES, fa.BWD_FAMILY_LAUNCHES):
+        counts.update(dict.fromkeys(counts, 0))
+
+
+def check_k2_families(tag: str, launches: dict, d48: int) -> dict:
+    """On a path's run: its ``d48`` K2 calls at D = 48 (each launching K2f,
+    and K2b where ``launches`` counts one) all ran the wgmma family, the
+    rest the short-side family, and no K2 ran on the CUDA cores. Returns
+    the launches by family, forward and backward."""
+    fa = importlib.import_module(COUNTERS["K2f"][0])
+    fwd, bwd = dict(fa.FAMILY_LAUNCHES), dict(fa.BWD_FAMILY_LAUNCHES)
+    d48_b = d48 if launches["K2b"] else 0
+    check(fwd["wgmma"] == d48 and bwd["wgmma"] == d48_b and
+          fwd["cuda_cores"] == 0 and bwd["cuda_cores"] == 0 and
+          sum(fwd.values()) == launches["K2f"] and
+          sum(bwd.values()) == launches["K2b"],
+          f"{tag}: K2 launches by family {fwd} forward, {bwd} backward; "
+          f"want {d48} and {d48_b} on wgmma (D = 48), none on the CUDA "
+          f"cores")
+    if d48:
+        print(f"{tag}: K2f by family {fwd}, K2b {bwd}: every D = 48 call "
+              f"on wgmma, none on the CUDA cores", flush=True)
+    return dict(fwd=fwd, bwd=bwd)
 
 
 def check_k5_routes(tag: str, launches: dict) -> None:
@@ -263,20 +294,33 @@ def read_counts() -> dict:
             for name, (module, attr) in COUNTERS.items()}
 
 
+def k2_branch_calls(model) -> int:
+    """K2 calls of one forward of ``model`` at D = 48: on the per-branch
+    route (``fused_attention`` off) one per branch of every LongNet
+    layer, else none."""
+    bb = model.backbone
+    if not hasattr(bb, "encoder") or bb.encoder.cfg.fused_attention:
+        return 0
+    return len(bb.encoder.layers) * len(bb.encoder.cfg.segment_lengths)
+
+
 def calls_per_forward(model) -> dict:
     """Kernel calls of one forward of ``model``: per LongNet layer one K1
-    (``mega_attention``) or one K3, and one K5 where the FFN runs the
+    (``mega_attention``) or one K3 or, on the per-branch route, one K2 per
+    branch (:func:`k2_branch_calls`), and one K5 where the FFN runs the
     fused GELU -> LayerNorm; K4 once per TITAN block; K2 once per adapter
-    attention (Injector and Extractor of every interaction, the extra
-    extractors, the prompt self-attentions)."""
+    attention besides (Injector and Extractor of every interaction, the
+    extra extractors, the prompt self-attentions)."""
     bb = model.backbone
     layers = list(bb.encoder.layers) if hasattr(bb, "encoder") else []
+    branch = k2_branch_calls(model)
     mega = bool(layers) and bb.encoder.cfg.mega_attention
     return {
-        "K1": len(layers) if mega else 0,
+        "K1": len(layers) if mega and not branch else 0,
         "K2": (sum(2 + len(blk.extra_extractors)
-                   for blk in model.interactions) + len(model.prompt_sa)),
-        "K3": 0 if mega else len(layers),
+                   for blk in model.interactions) + len(model.prompt_sa)
+               + branch),
+        "K3": len(layers) if not mega and not branch else 0,
         "K4": len(bb.blocks) if hasattr(bb, "blocks") else 0,
         "K5": sum(1 for layer in layers if layer.ffn.fused_gelu_ln),
     }
@@ -288,13 +332,25 @@ def calls_per_forward(model) -> dict:
 
 # (name, BH, Lq, Lk, D, fraction of keys masked, a bh with every key masked)
 # B = 1 slide x 3 tasks x 12 adapter heads at inner width 192 -> D = 16;
-# d48 is the plain dilated path's D = 48; the last two are the TITAN
-# adapter's cross-attentions over the 16,383-cell bucket.
+# the d48_r* shapes are the five branches of the per-branch dilated
+# attention (``--fused_attention 0``) of a GigaPath layer at 10,240 tokens
+# (3 task rows x 16 heads, D = 48; segments from
+# ``configs.optimal_segment_lengths()`` at ratios 1, 2, 4, 8, 16; the first
+# has ten 1,024-token segments a row, its last one all padding at 9,000
+# valid tokens); the last two are the TITAN adapter's cross-attentions over
+# the 16,383-cell bucket.
+BRANCH_SHAPES = [
+    ("d48_r1", 480, 1024, 1024, 48, 0.12, True),
+    ("d48_r2", 96, 2896, 2896, 48, 0.12, False),
+    ("d48_r4", 48, 2560, 2560, 48, 0.12, False),
+    ("d48_r8", 48, 1280, 1280, 48, 0.12, False),
+    ("d48_r16", 48, 640, 640, 48, 0.12, False),
+]
 K2_SHAPES = [
     ("injector", 36, 10239, 65, 16, 0.0, False),
     ("extractor", 36, 65, 10239, 16, 1239 / 10239, True),
     ("prompt_sa", 36, 65, 65, 16, 0.0, False),
-    ("d48", 48, 1024, 1024, 48, 0.12, False),
+    *BRANCH_SHAPES,
     ("titan_injector", 36, 16383, 65, 16, 0.0, False),
     ("titan_extractor", 36, 65, 16383, 16, 1800 / 16383, True),
 ]
@@ -351,6 +407,11 @@ def compare(got, want, tol_rel, what):
 # kernels round P and dS to bf16 besides; fp32: the sums run in another
 # order than the plain version's.
 GRAD_LIMITS = {"float32": (1e-5, 5e-5), "bfloat16": (1e-2, 2e-2)}
+# lse's max|err| for each K2 launch of the per-branch route's grad step
+# (:func:`k2_call_readings`): :func:`phase_k2`'s fp32 limit, since the
+# kernel and the plain version both compute lse in fp32 from the same bf16
+# values
+K2_LSE_LIMIT = 1e-4
 
 
 def grad_readings(got, want, dout):
@@ -1678,8 +1739,9 @@ GIGAPATH = dict(name="longnetvit_gene_adapter",
                 config="gigapath_modaltune_config", grid=False,
                 in_chans=1536, bag_range=(9000, 10239), bucket=10239)
 GIGAPATH_2047 = dict(bucket=2047, bag_range=(1791, 2047))
-# the same model, slides and weights on its other kernel route
+# the same model, slides and weights on its other kernel routes
 GIGAPATH_FUSED = dict(GIGAPATH, route="fused")
+GIGAPATH_BRANCH = dict(GIGAPATH, route="branch")
 # SyntheticSlideDataset draws patch coordinates on a 900 x 900 lattice of
 # 256-px tiles, a 225 x 225 grid of TITAN's 1,024-px cells: 17,000-19,500
 # patches scatter to about 14,400-16,200 foreground cells, inside the
@@ -1735,10 +1797,15 @@ def build_batches(name, config, grid, in_chans, bag_range, bucket,
 def route_kw(cfg, route):
     """``create_aggregator``'s keywords for a kernel route of the LongNet
     backbone: None is the default (K1, the unfused FFN chain), "fused" the
-    per-branch attention kernels (K3) and the fused GELU -> LayerNorm (K5)."""
+    per-branch attention kernels (K3) and the fused GELU -> LayerNorm (K5),
+    "branch" the per-branch dilated attention with each branch on the K2
+    flash kernels (``fused_attention`` off, the CLI's ``--fused_attention
+    0``) and the unfused FFN chain."""
     if route is None:
         return {}
-    check(route == "fused", f"unknown route {route!r}")
+    check(route in ("fused", "branch"), f"unknown route {route!r}")
+    if route == "branch":
+        return dict(longnet=cfg.backbone.longnet(fused_attention=False))
     return dict(longnet=cfg.backbone.longnet(mega_attention=False),
                 fused_gelu_ln=True)
 
@@ -1799,6 +1866,8 @@ def plain_kernels():
                        gelu_ln_reference),
             mock.patch("modaltune_tpu_torch.models.layers.flash_attention",
                        flash_attention_reference),
+            mock.patch("modaltune_tpu_torch.ops.dilated.flash_attention",
+                       flash_attention_reference),
             mock.patch("modaltune_tpu_torch.models.titan."
                        "alibi_flash_attention", plain_alibi)]
 
@@ -1845,6 +1914,8 @@ def phase_slice(device, dtype, build_kw=None, timing_rounds=3, card="",
     torch.cuda.synchronize()
     launches = read_counts()
     check_k5_routes(tag, launches)
+    k2_families = check_k2_families(
+        tag, launches, k2_branch_calls(model) * len(batches))
     per = calls_per_forward(model)
     for i, out in enumerate(outs):
         check(tuple(out.shape) == (1, 3, model.cfg.adapter.output_dim),
@@ -1910,7 +1981,7 @@ def phase_slice(device, dtype, build_kw=None, timing_rounds=3, card="",
           f"({1e3 / ms:.3f} slides/s), peak allocated {peak / 2**30:.3f} GiB"
           f"{'; ' + card if card else ''}", flush=True)
     return dict(launches=launches, cosine=cos, rel_l2=rel, ms=ms,
-                peak_bytes=peak, per_slide=per,
+                peak_bytes=peak, per_slide=per, k2_families=k2_families,
                 outs=[o.detach().cpu() for o in outs])
 
 
@@ -1943,8 +2014,68 @@ def build_train(device, seed=0, **data_kw):
     return model, tcfg, opt, text, batch_to_device(host, device)
 
 
+def k2_call_readings(fn, tag):
+    """``(fn(), readings)``: every K2f and K2b launch while ``fn()`` runs
+    held to its plain version on the same inputs, computed in fp32 on the
+    same bf16 values (the plain versions turn autocast off, which the
+    train step's forward runs under): out by :func:`check_out`, lse
+    within :data:`K2_LSE_LIMIT`, dq, dk and dv by :func:`check_grads`, at
+    the bf16 limits. readings: by family, the launches and the worst
+    (rel-L2, row-scaled) of out and of the gradients, and lse's largest
+    max|err|."""
+    fa = importlib.import_module(COUNTERS["K2f"][0])
+    fwd, bwd = fa.flash_attention_cuda, fa.flash_attention_backward_cuda
+    seen = {}
+
+    def note(q, k, key, r):
+        fam = fa.card_family(q.shape[1], k.shape[1], q.shape[2], q.dtype)
+        got = seen.setdefault(fam, dict(fwd=0, bwd=0, out=(0.0, 0.0),
+                                        grads=(0.0, 0.0), lse=0.0))
+        if key == "lse":
+            got["lse"] = max(got["lse"], r)
+            return
+        got[key] = tuple(map(max, got[key], r))
+        got["fwd" if key == "out" else "bwd"] += 1
+
+    def fwd_read(q, k, v, bias, scale):
+        out, lse = fwd(q, k, v, bias, scale)
+        want_o, want_l = fa.flash_attention_reference(
+            q.float(), k.float(), v.float(), bias, scale)
+        what = f"{tag}: K2f {tuple(q.shape)} x {k.shape[1]} keys"
+        note(q, k, "out", check_out(out, want_o, "bfloat16", what))
+        err = (lse - want_l).abs().max().item()
+        check(err <= K2_LSE_LIMIT, f"{what} lse: max|err| {err:.3e}")
+        note(q, k, "lse", err)
+        return out, lse
+
+    def bwd_read(q, k, v, bias, out, lse, dout, scale):
+        got = bwd(q, k, v, bias, out, lse, dout, scale)
+        want = fa.flash_attention_backward_reference(
+            q.float(), k.float(), v.float(), bias, out.float(), lse,
+            dout.float(), scale)
+        note(q, k, "grads", check_grads(
+            ("dq", "dk", "dv"), got, want, dout, "bfloat16",
+            f"{tag}: K2b {tuple(q.shape)} x {k.shape[1]} keys"))
+        return got
+
+    with mock.patch.object(fa, "flash_attention_cuda", fwd_read), \
+            mock.patch.object(fa, "flash_attention_backward_cuda", bwd_read):
+        result = fn()
+    w = seen.get("wgmma", {})
+    check(w.get("fwd", 0) > 0 and w.get("bwd", 0) > 0,
+          f"{tag}: no wgmma K2 launch to hold in the grad step")
+    for fam, r in seen.items():
+        print(f"{tag}: the bf16 grad step's {fam} K2 launches held to the "
+              f"plain version on the same inputs: {r['fwd']} K2f, worst "
+              f"out rel-L2 {r['out'][0]:.3e}, "
+              f"row-scaled {r['out'][1]:.3e}, lse max|err| {r['lse']:.3e}; "
+              f"{r['bwd']} K2b, worst gradient rel-L2 {r['grads'][0]:.3e}, "
+              f"row-scaled {r['grads'][1]:.3e}", flush=True)
+    return result, seen
+
+
 def phase_train(device, steps=3, timed_steps=5, compare_kw=None,
-                card="", build_kw=None, tag="train"):
+                card="", build_kw=None, tag="train", k2_calls=False):
     """The full-width train step: ``steps`` steps with the launch counts
     checked (per LongNet layer K1f and K1b or, on the fused route, K3f,
     K3b, K5f and K5b; K4f and K4b once per TITAN block; K2f and K2b once
@@ -1953,8 +2084,13 @@ def phase_train(device, steps=3, timed_steps=5, compare_kw=None,
     ms/step and peak memory over ``timed_steps``; then the step's loss and
     adapter gradients against the plain path at ``compare_kw``'s bucket
     (2,047 unless given), where the plain path's saved scores fit (about
-    12 x 0.67 GB for LongNet at 2,047): in bf16 as a whole, and in fp32
-    each gradient tensor on its own."""
+    12 x 0.67 GB for LongNet at 2,047): in bf16 as a whole (gradient
+    cosine, loss, and the worst tensor's rel-L2 from the fp32 plain path
+    within 2x the bf16 plain path's worst), and in fp32 each gradient
+    tensor on its own. With ``k2_calls`` (the per-branch route, whose
+    attention is 70 K2 calls a step) every K2 launch of the bf16 grad step
+    is also held to its plain version on the same inputs
+    (:func:`k2_call_readings`)."""
     import torch
     from modaltune_tpu_torch import make_grad_step, make_train_step
     build_kw = build_kw or GIGAPATH
@@ -1981,6 +2117,8 @@ def phase_train(device, steps=3, timed_steps=5, compare_kw=None,
     torch.cuda.synchronize()
     launches = read_counts()
     check_k5_routes(tag, launches)
+    k2_families = check_k2_families(tag, launches,
+                                    k2_branch_calls(model) * steps)
     per = calls_per_forward(model)
     per_step = {f"{k}{d}": n for k, n in per.items() for d in "fb"}
     check(launches == {k: n * steps for k, n in per_step.items()},
@@ -2022,7 +2160,7 @@ def phase_train(device, steps=3, timed_steps=5, compare_kw=None,
         device, **{**build_kw, **compare_kw})
     model32 = copy.deepcopy(model)
     model32.backbone.float()
-    runs = {}
+    runs, held = {}, None
     for dt, m in (("bf16", model), ("fp32", model32)):
         for plain in (False, True):
             def grad_step(m=m):
@@ -2031,7 +2169,12 @@ def phase_train(device, steps=3, timed_steps=5, compare_kw=None,
                 torch.cuda.synchronize()
                 return float(loss), {n: g.float().flatten()
                                      for n, g in grads.items()}
-            runs[dt, plain] = run_plain(grad_step) if plain else grad_step()
+            if plain:
+                runs[dt, plain] = run_plain(grad_step)
+            elif dt == "bf16" and k2_calls:
+                runs[dt, plain], held = k2_call_readings(grad_step, tag)
+            else:
+                runs[dt, plain] = grad_step()
     (loss_k, g_k), (loss_p, g_p) = runs["bf16", False], runs["bf16", True]
     (loss_k32, g_k32), (loss_32, g_32) = (runs["fp32", False],
                                           runs["fp32", True])
@@ -2068,7 +2211,8 @@ def phase_train(device, steps=3, timed_steps=5, compare_kw=None,
           f"{err32[w32]:.3e} ({w32}); {len(null32)} NULL_GRAD tensors "
           f"{NULL_GRAD}: largest max|kernel - plain| / max|g| "
           f"{null32[wnull]:.3e} ({wnull}), max|g| {g_all:.3e}", flush=True)
-    check(cos >= 0.999 and rel <= 1e-2 and e_k[wk] <= 2 * e_p[wp]
+    check(cos >= 0.999 and rel <= 1e-2
+          and e_k[wk] <= 2 * e_p[wp]
           and rel32 <= 1e-5 and err32[w32] <= 1e-4 and null32[wnull] <= 1e-4,
           f"{tag} kernel vs plain: bf16 gradient cosine {cos:.6f}, loss rel "
           f"{rel:.3e}, worst tensor {e_k[wk]:.3e} vs {e_p[wp]:.3e} plain; "
@@ -2076,7 +2220,8 @@ def phase_train(device, steps=3, timed_steps=5, compare_kw=None,
           f"NULL_GRAD max|err| / max|g| {null32[wnull]:.3e}")
     return dict(launches=launches, per_step=per_step, ms=ms, peak_bytes=peak,
                 losses=losses, grad_cosine=cos, loss_rel=rel,
-                grad_rel_fp32=err32[w32])
+                grad_rel_fp32=err32[w32], k2_families=k2_families,
+                worst_tensor=(e_k[wk], e_p[wp]), k2_calls=held)
 
 
 # ---------------------------------------------------------------------------
@@ -2953,6 +3098,18 @@ def main() -> int:
         print(f"build: {len(regs)} kernels, at most {max(regs)} registers; "
               f"{sum(1 for x in spills if x)} spill, at most {max(spills)} "
               f"bytes of spill loads")
+    # K2's wgmma kernels one by one (namespace mt::fwg): none may spill
+    for block in info["log"].split("Compiling entry function")[1:]:
+        name = block.split("'")[1]
+        if "3fwg" not in name:
+            continue
+        used = re.search(r"Used (\d+) registers", block).group(1)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block).groups()
+        short = re.search(r"\d+(flash_\w+?_kernel)", name).group(1)
+        print(f"build: {short}: {used} registers at launch, spill stores "
+              f"{spill[0]}, loads {spill[1]} bytes")
+        check(spill == ("0", "0"), f"{short} spills registers")
 
     # 3-12. kernels against their plain versions
     k2 = phase_k2(device, iters=10)
@@ -2983,6 +3140,14 @@ def main() -> int:
     paths["gigapath_fused_train"] = phase_train(
         device, card=card, build_kw=GIGAPATH_FUSED, compare_kw=GIGAPATH_2047,
         tag="fused train")
+    # the same on the per-branch route (every branch on K2's wgmma family)
+    paths["gigapath_branch_embed"] = phase_slice(
+        device, torch.bfloat16, card=card, build_kw=GIGAPATH_BRANCH,
+        timing_rounds=2, tag="branch slice",
+        agree_with=paths["gigapath_embed"]["outs"])
+    paths["gigapath_branch_train"] = phase_train(
+        device, card=card, build_kw=GIGAPATH_BRANCH, compare_kw=GIGAPATH_2047,
+        tag="branch train", k2_calls=True)
     # ModalTune-TITAN: the embed step, the train step
     paths["titan_embed"] = phase_slice(
         device, torch.bfloat16, card=card, build_kw=TITAN, timing_rounds=2,
@@ -3005,8 +3170,8 @@ def main() -> int:
     phase_baselines(device, card=card)
 
     def kernel(key, name, replaces, err, res, by_shape=None, source=None,
-               family=None):
-        """One entry of the kernels line. launches: the sum over the eight
+               family=None, sources=None):
+        """One entry of the kernels line. launches: the sum over the twelve
         paths' runs (by_path: each run's own count, every count set to 0
         just before it); max_abs_err: the largest output or gradient error
         of any comparison above; ms, plain_ms, bound_ms, library_ms: at
@@ -3017,7 +3182,9 @@ def main() -> int:
         given; family: the kernel family of the paths' bf16 calls, as the
         C entry points chose it where they export their rule (K1, K2,
         K3), else ``family``; device_ms where measured, and K1f's and
-        K3f's mix kernel on the card and K1f's times with stats."""
+        K3f's mix kernel on the card and K1f's times with stats. sources
+        (K2): the file of each family, and the launches by family summed
+        over the paths that count them (``launches_by_family``)."""
         by_path = {p: r["launches"][key] for p, r in paths.items()}
         qrange = {p: r["launches"].get(f"{key}_qrange", 0)
                   for p, r in paths.items()}
@@ -3058,6 +3225,14 @@ def main() -> int:
                     k1q["by_n"].items()})
             check(out["qrange_launches"] > 0,
                   f"{name} with a q_token_range was launched on no path")
+        if sources:
+            side = "bwd" if key.endswith("b") else "fwd"
+            out["source_by_family"] = {
+                fam: f"modaltune_tpu_torch/csrc/{stem}.cu"
+                for fam, stem in sources.items()}
+            out["launches_by_family"] = {
+                fam: sum(r["k2_families"][side][fam] for r in paths.values()
+                         if "k2_families" in r) for fam in sources}
         if by_shape:
             out["by_shape"] = {
                 shape: {k: r.get(k) for k in ("ms", "plain_ms", "bound_ms",
@@ -3069,6 +3244,12 @@ def main() -> int:
                         out["by_shape"][shape][k] = r[k]
         check(out["launches"] > 0, f"{name} was launched on no path")
         return out
+
+    def k2_sources(side):
+        return {"cuda_cores": f"flash_attention_{side}",
+                "short_keys": f"flash_short_side_{side}",
+                "short_queries": f"flash_short_side_{side}",
+                "wgmma": f"flash_wgmma_{side}"}
 
     both = ("float32", "bfloat16")
     kernels = [
@@ -3085,16 +3266,19 @@ def main() -> int:
                "modaltune_tpu/ops/dilated_mega.py:641",
                max(k1b[dt]["grad_err"] for dt in both), k1b,
                source="dilated_bwd_wgmma"),
-        # the adapter's calls run the short-side family (bf16, D = 16);
-        # fp32 and the d48 shape the CUDA-core kernels of `name`.cu
+        # the adapter's calls run the short-side family (bf16, D = 16), the
+        # per-branch route's the wgmma family (bf16, D = 48); fp32 the
+        # CUDA-core kernels of `name`.cu
         kernel("K2f", "flash_attention_fwd",
                "modaltune_tpu/ops/flash_attention.py:155",
                max(r[dt]["out_err"] for r in k2.values() for dt in both),
-               k2["extractor"], k2, source="flash_short_side_fwd"),
+               k2["extractor"], k2, source="flash_short_side_fwd",
+               sources=k2_sources("fwd")),
         kernel("K2b", "flash_attention_bwd",
                "modaltune_tpu/ops/flash_attention.py:292",
                max(r[dt] for r in k2b.values() for dt in both),
-               k2b["extractor"], k2b, source="flash_short_side_bwd"),
+               k2b["extractor"], k2b, source="flash_short_side_bwd",
+               sources=k2_sources("bwd")),
         kernel("K3f", "dilated_fused_fwd",
                "modaltune_tpu/ops/dilated_fused.py:468",
                max(max(k3[dt][e] for e in ("out_err", "piece_err", "mix_err"))

@@ -60,27 +60,10 @@
 namespace mt {
 namespace dwg {
 
-// A 64 x 64 fp32 register tile as two bf16 A-fragment tiles, hi = bf16(x)
-// and lo = bf16(x - hi).
-__device__ __forceinline__ void pack_parts(uint32_t (&hi)[16], uint32_t (&lo)[16],
-                                           const float (&x)[32]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
-    const float2 hf = __bfloat1622float2(h);
-    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
-    lo[i] = wg::pack_bf16(x[2 * i] - hf.x, x[2 * i + 1] - hf.y);
-  }
-}
-
 // Zero rows [0, n) of compact fp32 gradients at `dst`, the whole block.
 __device__ __forceinline__ void zero_rows(float* dst, int n) {
   for (int i = threadIdx.x; i < n * kD / 4; i += kThreads)
     reinterpret_cast<float4*>(dst)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-__device__ __forceinline__ float lse2_of(float lse, bool real) {
-  return real && lse > kMaskThreshold ? lse * wg::kLog2e : 1e30f;
 }
 
 // Rows row0 + lane's row and + 8 of a 64 x 48 accumulator times `scale`

@@ -56,48 +56,6 @@ __device__ __forceinline__ void empty_rows(bf16* out_c, float* lse_c, size_t row
   for (int i = threadIdx.x; i < n; i += threads) lse_c[row0 + i] = kNegInf;
 }
 
-// One key tile's scores `s` (64 x 64, q k^T unscaled) into the online
-// softmax of the thread's two rows: P packed to bf16 into `p`, O rescaled.
-__device__ __forceinline__ void softmax_tile(float (&s)[32], uint32_t (&p)[16], float (&o)[24],
-                                             float (&m_run)[2], float (&l_run)[2],
-                                             const float* kterm, float scale2,
-                                             const wg::Lane& ln) {
-  float tmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float2 kt = *reinterpret_cast<const float2*>(kterm + 8 * j + ln.col0);
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int i = 4 * j + 2 * rr;
-      s[i] = fmaf(s[i], scale2, kt.x);
-      s[i + 1] = fmaf(s[i + 1], scale2, kt.y);
-      tmax[rr] = fmaxf(tmax[rr], fmaxf(s[i], s[i + 1]));
-    }
-  }
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    // never below NEG_INF, so finite: a row of masked keys keeps weight 0
-    const float m_new = fmaxf(m_run[rr], wg::quad_max(tmax[rr]));
-    const float c_old = wg::exp2_fast(m_run[rr] - m_new);
-    m_run[rr] = m_new;
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int i = 4 * j + 2 * rr;
-      s[i] = wg::exp2_fast(s[i] - m_new);
-      s[i + 1] = wg::exp2_fast(s[i + 1] - m_new);
-      sum += s[i] + s[i + 1];
-    }
-#pragma unroll
-    for (int j = 0; j < 6; ++j) {
-      o[4 * j + 2 * rr] *= c_old;
-      o[4 * j + 2 * rr + 1] *= c_old;
-    }
-    l_run[rr] = l_run[rr] * c_old + sum;
-  }
-  wg::pack_tile(p, s);
-}
-
 template <int W>
 __global__ void __launch_bounds__((W + 1) * wg::kWgThreads, W == 1 ? 2 : 1)
 dilated_fwd_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,

@@ -102,6 +102,69 @@ __device__ __forceinline__ void hold(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// ---- the consumers' arithmetic ----------------------------------------------
+
+// One key tile's scores `s` (64 x 64, q k^T unscaled) into the online
+// softmax of the thread's two rows: P packed to bf16 into `p`, O rescaled.
+__device__ __forceinline__ void softmax_tile(float (&s)[32], uint32_t (&p)[16], float (&o)[24],
+                                             float (&m_run)[2], float (&l_run)[2],
+                                             const float* kterm, float scale2,
+                                             const wg::Lane& ln) {
+  float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 kt = *reinterpret_cast<const float2*>(kterm + 8 * j + ln.col0);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int i = 4 * j + 2 * rr;
+      s[i] = fmaf(s[i], scale2, kt.x);
+      s[i + 1] = fmaf(s[i + 1], scale2, kt.y);
+      tmax[rr] = fmaxf(tmax[rr], fmaxf(s[i], s[i + 1]));
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    // never below NEG_INF, so finite: a row of masked keys keeps weight 0
+    const float m_new = fmaxf(m_run[rr], wg::quad_max(tmax[rr]));
+    const float c_old = wg::exp2_fast(m_run[rr] - m_new);
+    m_run[rr] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = 4 * j + 2 * rr;
+      s[i] = wg::exp2_fast(s[i] - m_new);
+      s[i + 1] = wg::exp2_fast(s[i + 1] - m_new);
+      sum += s[i] + s[i + 1];
+    }
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      o[4 * j + 2 * rr] *= c_old;
+      o[4 * j + 2 * rr + 1] *= c_old;
+    }
+    l_run[rr] = l_run[rr] * c_old + sum;
+  }
+  wg::pack_tile(p, s);
+}
+
+// A 64 x 64 fp32 register tile as two bf16 A-fragment tiles, hi = bf16(x)
+// and lo = bf16(x - hi).
+__device__ __forceinline__ void pack_parts(uint32_t (&hi)[16], uint32_t (&lo)[16],
+                                           const float (&x)[32]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+    const float2 hf = __bfloat1622float2(h);
+    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[i] = wg::pack_bf16(x[2 * i] - hf.x, x[2 * i + 1] - hf.y);
+  }
+}
+
+// A query's lse in base 2 for P = exp2(s + key term - lse2): +1e30 for a
+// row that is no real one or has no valid key, so its P is exactly 0.
+__device__ __forceinline__ float lse2_of(float lse, bool real) {
+  return real && lse > kMaskThreshold ? lse * wg::kLog2e : 1e30f;
+}
+
 // ---- the gather --------------------------------------------------------------
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {

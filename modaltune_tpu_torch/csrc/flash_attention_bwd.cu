@@ -26,9 +26,11 @@
 // of at most 128 rows) do not come here: the entry point below hands them to
 // the short-side family (flash_short_side_bwd.cu), which splits the long side
 // over the card, makes delta itself and runs its products on the tensor
-// cores. This file serves fp32 (the oracle family) and every other bf16 shape.
+// cores; bf16 at D = 48 (the per-branch dilated attention) goes to the wgmma
+// family (flash_wgmma_bwd.cu). This file serves fp32 (the oracle family) and
+// every other bf16 shape.
 #include "attention_bwd_common.cuh"
-#include "flash_short_side.cuh"
+#include "flash_wgmma.cuh"
 
 namespace mt {
 
@@ -169,7 +171,8 @@ cudaError_t dispatch_flash_bwd(int DP, const void* q, const void* k, const void*
 // 1 = bfloat16); bias (BH, Lk) fp32 or null; lse and delta (BH, Lq) fp32.
 // The CUDA-core kernels read delta = rowsum(dout * out) and not out; the
 // short-side family reads out, makes delta itself, and takes chunks and the
-// fp32 scratch `work` that the wrapper sizes (ops/flash_attention.py).
+// fp32 scratch `work` that the wrapper sizes (ops/flash_attention.py); the
+// wgmma family reads out and makes delta into `work`, (BH, Lq) floats.
 // Returns a cudaError_t; 0 means every kernel was launched.
 extern "C" int mt_flash_attention_bwd(const void* q, const void* k, const void* v,
                                       const void* bias, const void* dout, const void* out,
@@ -182,8 +185,14 @@ extern "C" int mt_flash_attention_bwd(const void* q, const void* k, const void* 
   const auto b = static_cast<const float*>(bias);
   const auto l = static_cast<const float*>(lse);
   const int fam = mt::ss::family(Lq, Lk, D, dtype);
+  using mt::bf16;
+  if (fam == mt::ss::kWgmma)
+    return mt::launch_flash_wgmma_bwd(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), b,
+        static_cast<const bf16*>(dout), static_cast<const bf16*>(out), l,
+        static_cast<float*>(work), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), BH, Lq, Lk, scale, s);
   if (fam != mt::ss::kCudaCores) {
-    using mt::bf16;
     return mt::ss::launch_bwd(fam, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                               static_cast<const bf16*>(v), b, static_cast<const bf16*>(dout),
                               static_cast<const bf16*>(out), l, static_cast<bf16*>(dq),

@@ -27,10 +27,12 @@
 // on CUDA cores in fp32. The adapter's own shapes (bf16, D = 16, one side of
 // at most 128 rows) do not come here: the entry point below hands them to the
 // short-side family (flash_short_side_fwd.cu), which splits the long side
-// over the card and runs its products on the tensor cores. This file serves
-// fp32 (the oracle family) and every other bf16 shape.
+// over the card and runs its products on the tensor cores; bf16 at D = 48 (the
+// per-branch dilated attention) goes to the wgmma family
+// (flash_wgmma_fwd.cu). This file serves fp32 (the oracle family) and every
+// other bf16 shape.
 #include "attention_common.cuh"
-#include "flash_short_side.cuh"
+#include "flash_wgmma.cuh"
 
 namespace mt {
 
@@ -114,7 +116,8 @@ extern "C" const char* mt_error_name(int err) {
 }
 
 // Which kernels serve a call (mt::ss::Family): 0 the CUDA-core kernels of
-// this file, 1 short keys, 2 short queries.
+// this file, 1 short keys, 2 short queries, 3 the wgmma family
+// (flash_wgmma.cuh).
 extern "C" int mt_flash_attention_family(int Lq, int Lk, int D, int dtype) {
   return mt::ss::family(Lq, Lk, D, dtype);
 }
@@ -122,8 +125,8 @@ extern "C" int mt_flash_attention_family(int Lq, int Lk, int D, int dtype) {
 // dtype: 0 = float32, 1 = bfloat16. bias may be null (no masking). chunks and
 // work: the split of the long side and the fp32 scratch of the short-side
 // family, which the wrapper sizes (ops/flash_attention.py); the CUDA-core
-// kernels take neither. Returns a cudaError_t; 0 means the kernels were
-// launched.
+// kernels and the wgmma family take neither. Returns a cudaError_t; 0 means
+// the kernels were launched.
 extern "C" int mt_flash_attention_fwd(const void* q, const void* k, const void* v,
                                       const void* bias, void* out, void* lse, int BH, int Lq,
                                       int Lk, int D, float scale, int dtype, int chunks,
@@ -134,8 +137,12 @@ extern "C" int mt_flash_attention_fwd(const void* q, const void* k, const void* 
   const auto b = static_cast<const float*>(bias);
   const auto l = static_cast<float*>(lse);
   const int fam = mt::ss::family(Lq, Lk, D, dtype);
+  using mt::bf16;
+  if (fam == mt::ss::kWgmma)
+    return mt::launch_flash_wgmma_fwd(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                      static_cast<const bf16*>(v), b, static_cast<bf16*>(out), l,
+                                      BH, Lq, Lk, scale, s);
   if (fam != mt::ss::kCudaCores) {
-    using mt::bf16;
     return mt::ss::launch_fwd(fam, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                               static_cast<const bf16*>(v), b, static_cast<bf16*>(out), l, BH, Lq,
                               Lk, scale, chunks, static_cast<float*>(work), s);

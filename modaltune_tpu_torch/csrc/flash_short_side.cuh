@@ -57,14 +57,22 @@ constexpr int kMaxChunkTiles = 64;              // the wrapper keeps a chunk wit
 constexpr int kWarps = 4;                       // except the short-queries forward: one per 16 rows
 constexpr float kLowerLse = 5e8f;               // +|NEG_INF/2|: P of a row without a valid key is 0
 
-enum Family { kCudaCores = 0, kShortKeys = 1, kShortQueries = 2 };
+enum Family { kCudaCores = 0, kShortKeys = 1, kShortQueries = 2, kWgmma = 3 };
 
-// Which kernels serve a call. dtype: 0 float32, 1 bfloat16. Both sides short
-// (the prompt self-attention) takes the short-keys kernels. The wrapper asks
-// this rule (mt_flash_attention_family); ops/flash_attention.py::family is
-// its copy for the CPU.
+// The head dimension of the wgmma family (flash_wgmma.cuh), GigaPath's: every
+// call of the per-branch dilated attention.
+constexpr int kWgmmaD = 48;
+
+// Which kernels serve a call. dtype: 0 float32, 1 bfloat16. bf16 at D = 48
+// takes the wgmma family at every Lq and Lk; bf16 at D = 16 with a short
+// side the short-side kernels, both sides short (the prompt
+// self-attention) the short-keys ones. The wrapper asks this rule
+// (mt_flash_attention_family); ops/flash_attention.py::family is its copy
+// for the CPU.
 inline int family(int Lq, int Lk, int D, int dtype) {
-  if (dtype != 1 || D != kD) return kCudaCores;
+  if (dtype != 1) return kCudaCores;
+  if (D == kWgmmaD) return kWgmma;
+  if (D != kD) return kCudaCores;
   if (Lk <= kMaxShort) return kShortKeys;
   if (Lq <= kMaxShort) return kShortQueries;
   return kCudaCores;

@@ -2,7 +2,7 @@
 
 Counterpart of ``modaltune_tpu/ops/flash_attention.py``. A CUDA tensor
 goes to the hand-written Hopper kernels of K2f and, for the gradient, K2b,
-in one of two families that the C entry points choose from the shape and
+in one of three families that the C entry points choose from the shape and
 the dtype (:func:`card_family`; :func:`family` is its copy for the CPU):
 
 * the short-side family (``csrc/flash_short_side_{fwd,bwd}.cu``): bf16 at
@@ -11,17 +11,28 @@ the dtype (:func:`card_family`; :func:`family` is its copy for the CPU):
   block, the other is split into :func:`long_side_chunks` chunks streamed
   once, and the chunks' partials are added in a fixed order in fp32 scratch
   that this module allocates (:func:`workspace_floats`);
+* the wgmma family (``csrc/flash_wgmma_{fwd,bwd}.cu``): bf16 at head
+  dimension :data:`WGMMA_D` (48), any Lq and Lk, which is every call of
+  the per-branch dilated attention (:mod:`.dilated`, the CLI's
+  ``--fused_attention 0``): 64-row tiles on the tensor cores, dead key
+  tiles skipped, P rounded once to bf16 in the forward, P and dS as hi +
+  lo bf16 parts in the backward, whose dq kernel makes delta into fp32
+  scratch that this module allocates;
 * the CUDA-core kernels (``csrc/flash_attention_{fwd,bwd}.cu``) for fp32
-  and every other bf16 shape.
+  (the oracle family) and every other bf16 shape.
+
+The short-side and wgmma families read their tensors in 16-byte chunks and
+raise on one that is not 16-byte aligned. No family falls back to another.
 
 A CPU tensor goes to :func:`flash_attention_reference` and
 :func:`flash_attention_backward_reference`, the plain PyTorch versions of
 the same functions, which are also the kernels' oracles.
 
-Semantics: ``bias`` is ``(BH, Lk)``, 0 for a valid key and ``NEG_INF``
-for a masked one. A masked key gets exactly zero weight (and zero
-gradient), and a row whose keys are all masked gets output 0, lse
-``NEG_INF`` and zero gradients. ``lse`` is not differentiated: its
+Semantics: ``bias`` is ``(BH, Lk)``, an additive float: 0 for a valid
+key and ``NEG_INF`` for a masked one on the model's calls, any value in
+general, a key with bias ``<= NEG_INF/2`` being masked. A masked key gets
+exactly zero weight (and zero gradient), and a row whose keys are all
+masked gets output 0, lse ``NEG_INF`` and zero gradients. ``lse`` is not differentiated: its
 cotangent is dropped, as the JAX package's ``_bwd_pallas`` drops it.
 """
 
@@ -55,12 +66,20 @@ BLOCKS_PER_SM = 4
 MIN_CHUNK_TILES, MAX_CHUNK_TILES = 2, 64
 
 
+# The wgmma family (csrc/flash_wgmma.cuh): bf16 at this head dimension.
+WGMMA_D = 48
+
 # csrc/flash_short_side.cuh::Family, by code
-FAMILIES = ("cuda_cores", "short_keys", "short_queries")
+FAMILIES = ("cuda_cores", "short_keys", "short_queries", "wgmma")
+
+# The same launches by family, keyed by FAMILIES (read by chip_smoke.py).
+FAMILY_LAUNCHES = dict.fromkeys(FAMILIES, 0)
+BWD_FAMILY_LAUNCHES = dict.fromkeys(FAMILIES, 0)
 
 
 def family(lq: int, lk: int, d: int, dtype: torch.dtype) -> str:
-    """The kernels that serve a call: ``"short_keys"`` (at most
+    """The kernels that serve a call: ``"wgmma"`` (bf16 at D =
+    :data:`WGMMA_D`, any Lq and Lk), ``"short_keys"`` (at most
     :data:`SHORT_SIDE` keys, the Injector and the prompt self-attention),
     ``"short_queries"`` (at most that many queries, the Extractor), both
     bf16 at D = 16, or ``"cuda_cores"`` (fp32, and every other bf16 shape).
@@ -71,6 +90,8 @@ def family(lq: int, lk: int, d: int, dtype: torch.dtype) -> str:
     chunk plan's tests. ``tests/test_torch_kernels_cuda.py`` holds it equal
     to the library's on the card.
     """
+    if dtype == torch.bfloat16 and d == WGMMA_D:
+        return "wgmma"
     if dtype == torch.bfloat16 and d == SHORT_SIDE_D:
         if lk <= SHORT_SIDE:
             return "short_keys"
@@ -93,10 +114,13 @@ def long_side_chunks(bh: int, long_len: int, n_sms: int) -> int:
 
 def workspace_floats(fam: str, backward: bool, bh: int, lq: int, lk: int,
                      chunks: int) -> int:
-    """fp32 scratch of a short-side call: the forward's short-queries
-    partials (acc, m, l of every (bh, chunk, padded query)), the backward's
-    partial dk and dv (short keys) or dq (short queries) of every (bh,
-    chunk, padded resident row); 0 where the family needs none."""
+    """fp32 scratch of a call: the short-side forward's short-queries
+    partials (acc, m, l of every (bh, chunk, padded query)), the short-side
+    backward's partial dk and dv (short keys) or dq (short queries) of
+    every (bh, chunk, padded resident row), the wgmma backward's delta of
+    every (bh, query); 0 where the family needs none."""
+    if fam == "wgmma":
+        return bh * lq if backward else 0
     if fam == "cuda_cores" or (fam == "short_keys" and not backward):
         return 0
     short = -(-(lk if fam == "short_keys" else lq) // 16) * 16
@@ -119,20 +143,24 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _short_side_plan(q, k, backward, tensors):
+def _plan(q, k, backward, tensors):
     """``(family, chunks, scratch or None)`` of a call on the card, the
     family as the C entry points choose it. The short-side family's bulk
-    copies need 16-byte aligned q/k/v/dout/out."""
+    copies and the wgmma family's 16-byte chunks need 16-byte aligned
+    ``tensors`` (q/k/v, dout/out, the gradients)."""
     bh, lq, d = q.shape
     lk = k.shape[1]
     fam = card_family(lq, lk, d, q.dtype)
     if fam == "cuda_cores":
         return fam, 0, None
     if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("the short-side flash attention kernels take "
-                         "16-byte aligned tensors")
-    long_len = lq if fam == "short_keys" else lk
-    chunks = long_side_chunks(bh, long_len, _sm_count(q.device.index or 0))
+        raise ValueError(f"the {fam} flash attention kernels take 16-byte "
+                         f"aligned tensors")
+    chunks = 0
+    if fam != "wgmma":
+        long_len = lq if fam == "short_keys" else lk
+        chunks = long_side_chunks(bh, long_len,
+                                  _sm_count(q.device.index or 0))
     n = workspace_floats(fam, backward, bh, lq, lk, chunks)
     work = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
     return fam, chunks, work
@@ -147,22 +175,26 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``q``: (BH, Lq, D); ``k``/``v``: (BH, Lk, D); ``bias``: (BH, Lk)
     additive. Returns ``(out (BH, Lq, D) in q's dtype, lse (BH, Lq) fp32)``.
     Out of place, so autograd differentiates ``out``; ``lse`` is detached.
+    Autocast is off inside, so the products stay in fp32 under the train
+    step's bf16 autocast too, as the JAX package's reference computes them
+    at HIGHEST precision.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    s = torch.bmm(q.float(), k.float().transpose(1, 2)) * scale
-    if bias is not None:
-        s = s + bias[:, None, :].float()
-    # the shift cancels in the softmax, so it carries no gradient
-    m = s.detach().amax(dim=-1, keepdim=True)
-    # With one valid key in a row, a masked key's exp(NEG_INF - m) is
-    # exactly 0; a row with none (m <= NEG_INF/2) is zeroed below.
-    p = torch.exp(s - m)
-    live = m > MASK_THRESHOLD
-    l_safe = torch.where(live, p.sum(dim=-1, keepdim=True), 1.0)
-    out = (torch.bmm(p, v.float()) / l_safe * live).to(q.dtype)
-    lse = torch.where(live[..., 0], m[..., 0] + torch.log(l_safe[..., 0]),
-                      NEG_INF)
+    with torch.autocast(q.device.type, enabled=False):
+        s = torch.bmm(q.float(), k.float().transpose(1, 2)) * scale
+        if bias is not None:
+            s = s + bias[:, None, :].float()
+        # the shift cancels in the softmax, so it carries no gradient
+        m = s.detach().amax(dim=-1, keepdim=True)
+        # With one valid key in a row, a masked key's exp(NEG_INF - m) is
+        # exactly 0; a row with none (m <= NEG_INF/2) is zeroed below.
+        p = torch.exp(s - m)
+        live = m > MASK_THRESHOLD
+        l_safe = torch.where(live, p.sum(dim=-1, keepdim=True), 1.0)
+        out = (torch.bmm(p, v.float()) / l_safe * live).to(q.dtype)
+        lse = torch.where(live[..., 0],
+                          m[..., 0] + torch.log(l_safe[..., 0]), NEG_INF)
     return out, lse.detach()
 
 
@@ -176,23 +208,25 @@ def flash_attention_backward_reference(q, k, v, bias, out, lse, dout,
     ``dq = dS K scale``, ``dk = dS^T Q scale``, ``dv = P^T dout``. A row
     whose keys are all masked (lse ``NEG_INF``) takes ``+|NEG_INF/2|`` in
     lse's place, so its P underflows to 0. Returns ``(dq, dk, dv)`` in
-    the dtypes of q, k and v.
+    the dtypes of q, k and v. In fp32 under autocast too, as
+    :func:`flash_attention_reference`.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
     qf, kf, vf, do = q.float(), k.float(), v.float(), dout.float()
-    delta = (do * out.float()).sum(dim=-1, keepdim=True)
-    s = torch.bmm(qf, kf.transpose(1, 2)) * scale
-    if bias is not None:
-        s = s + bias[:, None, :].float()
-    lse_use = torch.where(lse > MASK_THRESHOLD, lse, -MASK_THRESHOLD)
-    p = torch.exp(s - lse_use[..., None])
-    if bias is not None:
-        p = torch.where(bias[:, None, :] > MASK_THRESHOLD, p, 0.0)
-    ds = p * (torch.bmm(do, vf.transpose(1, 2)) - delta)
-    dq = torch.bmm(ds, kf) * scale
-    dk = torch.bmm(ds.transpose(1, 2), qf) * scale
-    dv = torch.bmm(p.transpose(1, 2), do)
+    with torch.autocast(q.device.type, enabled=False):
+        delta = (do * out.float()).sum(dim=-1, keepdim=True)
+        s = torch.bmm(qf, kf.transpose(1, 2)) * scale
+        if bias is not None:
+            s = s + bias[:, None, :].float()
+        lse_use = torch.where(lse > MASK_THRESHOLD, lse, -MASK_THRESHOLD)
+        p = torch.exp(s - lse_use[..., None])
+        if bias is not None:
+            p = torch.where(bias[:, None, :] > MASK_THRESHOLD, p, 0.0)
+        ds = p * (torch.bmm(do, vf.transpose(1, 2)) - delta)
+        dq = torch.bmm(ds, kf) * scale
+        dk = torch.bmm(ds.transpose(1, 2), qf) * scale
+        dv = torch.bmm(p.transpose(1, 2), do)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -222,14 +256,14 @@ def _check(q, k, v, bias):
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          bias: Optional[torch.Tensor], scale: float
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K2f on ``q``'s device and current stream: the short-side
-    family's kernel (and, for short queries, its combine) or the CUDA-core
-    kernel, as :func:`card_family` says."""
+    """Launch K2f on ``q``'s device and current stream: the wgmma family's
+    kernel, the short-side family's (and, for short queries, its combine)
+    or the CUDA-core kernel, as :func:`card_family` says."""
     global LAUNCHES
     _check(q, k, v, bias)
     bh, lq, d = q.shape
-    _, chunks, work = _short_side_plan(q, k, False, (q, k, v))
     out = torch.empty_like(q)
+    fam, chunks, work = _plan(q, k, False, (q, k, v, out))
     lse = torch.empty((bh, lq), dtype=torch.float32, device=q.device)
     lib = load_library()
     with torch.cuda.device(q.device):
@@ -242,13 +276,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             None if work is None else work.data_ptr(), stream)
     check_launch(err, "mt_flash_attention_fwd")
     LAUNCHES += 1
+    FAMILY_LAUNCHES[fam] += 1
     return out, lse
 
 
 def flash_attention_backward_cuda(q, k, v, bias, out, lse, dout, scale: float):
     """Launch the K2b kernels on ``q``'s device and current stream: the
-    short-side family's gradient kernel and its fixed-order sum, which make
-    ``delta = rowsum(dout * out)`` themselves, or the CUDA-core dq and dk/dv
+    wgmma family's dq and dk/dv kernels, or the short-side family's
+    gradient kernel and its fixed-order sum, which make ``delta =
+    rowsum(dout * out)`` themselves, or the CUDA-core dq and dk/dv
     kernels, for which it is computed here in torch, as the JAX package
     computes it outside its Pallas kernels."""
     global BWD_LAUNCHES
@@ -262,11 +298,11 @@ def flash_attention_backward_cuda(q, k, v, bias, out, lse, dout, scale: float):
     if lse.shape != (bh, lq) or lse.dtype != torch.float32 or \
             not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous float32 {(bh, lq)} tensor")
-    fam, chunks, work = _short_side_plan(q, k, True, (q, k, v, dout, out))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    fam, chunks, work = _plan(q, k, True, (q, k, v, dout, out, dq, dk, dv))
     delta = None
     if fam == "cuda_cores":
         delta = (dout.float() * out.float()).sum(dim=-1).contiguous()
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -280,6 +316,7 @@ def flash_attention_backward_cuda(q, k, v, bias, out, lse, dout, scale: float):
             None if work is None else work.data_ptr(), stream)
     check_launch(err, "mt_flash_attention_bwd")
     BWD_LAUNCHES += 1
+    BWD_FAMILY_LAUNCHES[fam] += 1
     return dq, dk, dv
 
 

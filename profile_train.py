@@ -2,11 +2,14 @@
 """Device-time profile of one full-width ModalTune train step on one
 NVIDIA GPU, over the GigaPath backbone or the TITAN backbone.
 
-    python3 profile_train.py [--model gigapath|titan] [--route fused]
+    python3 profile_train.py [--model gigapath|titan]
+                             [--route default|fused|branch]
                              [--bucket N] [--warmup 2] [--out FILE]
     (--route, --bucket: GigaPath only; ``--route fused`` profiles the step
     on the per-branch attention kernels K3 and the fused GELU -> LayerNorm
-    K5 in place of K1 and the unfused FFN chain)
+    K5 in place of K1 and the unfused FFN chain, ``--route branch`` with
+    ``fused_attention=False``: each branch's attention by K2 and the
+    branches gathered, scattered and mixed in torch, with the unfused FFN)
 
 Builds the train step as ``chip_smoke.py`` does (frozen backbone in bf16,
 adapter in fp32, bf16 autocast, dropout on, random weights from a seed,
@@ -84,21 +87,22 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=("gigapath", "titan"),
                     default="gigapath")
-    ap.add_argument("--route", choices=("default", "fused"),
+    ap.add_argument("--route", choices=("default", "fused", "branch"),
                     default="default",
                     help="GigaPath kernel route: K1 and the unfused FFN "
-                         "chain (default), or K3 and K5")
+                         "chain (default), K3 and K5 (fused), or K2 per "
+                         "branch and the unfused FFN chain (branch)")
     ap.add_argument("--bucket", type=int, default=None,
                     help="GigaPath bag bucket (default 10239)")
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--out", default=None,
-                    help="default: chiprun_out/profile_train[_titan|_fused]"
-                         ".txt")
+                    help="default: chiprun_out/profile_train"
+                         "[_titan|_fused|_branch].txt")
     args = ap.parse_args()
     fused = args.route == "fused"
     if args.out is None:
         tail = "_titan" if args.model == "titan" else \
-            "_fused" if fused else ""
+            "" if args.route == "default" else f"_{args.route}"
         args.out = os.path.join("chiprun_out", f"profile_train{tail}.txt")
     import torch
     if not torch.cuda.is_available():
@@ -116,14 +120,16 @@ def main() -> int:
     print(chip_smoke._last_line(["nvidia-smi", "--query-gpu=name,power.limit",
                                  "--format=csv,noheader", "--id=0"]))
     if args.model == "titan":
-        if args.bucket is not None or fused:
+        if args.bucket is not None or args.route != "default":
             ap.error("--bucket and --route apply to --model gigapath; the "
                      "TITAN step is profiled at chip_smoke.TITAN's bucket")
         build_kw = dict(chip_smoke.TITAN)
     else:
         bucket = args.bucket or chip_smoke.GIGAPATH["bucket"]
-        build_kw = dict(chip_smoke.GIGAPATH_FUSED if fused
-                        else chip_smoke.GIGAPATH, bucket=bucket,
+        route = dict(default=chip_smoke.GIGAPATH,
+                     fused=chip_smoke.GIGAPATH_FUSED,
+                     branch=chip_smoke.GIGAPATH_BRANCH)[args.route]
+        build_kw = dict(route, bucket=bucket,
                         bag_range=(min(9000, bucket * 7 // 8), bucket))
     args.bucket = build_kw["bucket"]
     model, tcfg, opt, text, batch = chip_smoke.build_train(device, **build_kw)

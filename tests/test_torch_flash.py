@@ -1,6 +1,6 @@
-"""The short-side family of the key-bias flash attention kernels (K2f, K2b)
-emulated step by step on the CPU, against the plain versions and JAX's
-Pallas kernels.
+"""The short-side and wgmma families of the key-bias flash attention
+kernels (K2f, K2b) emulated step by step on the CPU, against the plain
+versions and JAX's Pallas kernels.
 
 ``csrc/flash_short_side_{fwd,bwd}.cu`` cannot run here. What they compute
 is written out below in the order the card computes it:
@@ -20,6 +20,19 @@ is written out below in the order the card computes it:
 * in bf16, P and dS entering every product that takes them as two bf16
   parts, hi = bf16(x) and lo = bf16(x - hi), and the results rounded to
   bf16.
+
+``csrc/flash_wgmma_{fwd,bwd}.cu`` (bf16 at D = 48, the per-branch dilated
+attention's calls) likewise:
+
+* 64-row query tiles of each bh, and the bh's 64-key tiles in order with a
+  tile that holds no valid key skipped; rows past Lq or Lk (the ragged
+  tails) zero-filled, past Lk with the key term -inf;
+* the forward's online softmax in base 2 over the live tiles, P rounded
+  once to bf16 before P v and its row sum kept in fp32;
+* the backward's delta from the dout and out rows, the dq of a query tile
+  over the live key tiles, the dk and dv of a key tile over every query
+  tile (zeros for a tile without a valid key), P and dS as hi + lo bf16
+  parts, the scale applied where the kernels apply it.
 
 The same numpy inputs, made from a seed, go through the emulation, the
 port's plain versions (``flash_attention_reference`` and
@@ -234,6 +247,80 @@ def emulate_backward(q, k, v, bias, out, lse, dout, scale, chunks, rounding):
     return tuple(_round(t, rounding) for t in (dq, dk, dv))
 
 
+def emulate_wgmma_forward(q, k, v, bias, scale, rounding):
+    """K2f's wgmma kernel. Returns (out, lse, key tiles skipped)."""
+    bh, lq, d = q.shape
+    lk = k.shape[1]
+    scale2 = scale * LOG2E
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    kadd = _key_terms(bias, bh, lk, lk)
+    out, lse = torch.zeros(bh, lq, d), torch.zeros(bh, lq)
+    skipped = 0
+    for b in range(bh):
+        live = [t0 for t0 in range(0, lk, TILE)
+                if bool((kadd[b, t0:t0 + TILE] > -math.inf).any())]
+        skipped += -(-lk // TILE) - len(live)
+        for q0 in range(0, lq, TILE):
+            rows = slice(q0, min(q0 + TILE, lq))
+            n = rows.stop - rows.start
+            m, l = torch.full((n,), NEG_INF), torch.zeros(n)
+            acc = torch.zeros(n, d)
+            for t0 in live:
+                cols = slice(t0, min(t0 + TILE, lk))
+                s = qf[b, rows] @ kf[b, cols].T * scale2 + kadd[b, cols]
+                m_new = torch.maximum(m, s.amax(dim=-1))
+                corr = torch.exp2(m - m_new)
+                p = torch.exp2(s - m_new[:, None])
+                l = l * corr + p.sum(dim=-1)
+                acc = acc * corr[:, None] + _round(p, rounding) @ vf[b, cols]
+                m = m_new
+            ok = l > 0
+            out[b, rows] = acc * torch.where(ok, 1 / l, 0.0)[:, None]
+            lse[b, rows] = torch.where(ok, (m + torch.log2(l)) * LN2,
+                                       NEG_INF)
+    return _round(out, rounding), lse, skipped
+
+
+def emulate_wgmma_backward(q, k, v, bias, out, lse, dout, scale, rounding):
+    """K2b's wgmma kernels, the dq kernel then the dk/dv kernel:
+    (dq, dk, dv)."""
+    bh, lq, d = q.shape
+    lk = k.shape[1]
+    scale2 = scale * LOG2E
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    delta = (dof * out.float()).sum(dim=-1)
+    # a row without a valid key: lse2 = 1e30, so its P is exactly 0
+    lse2 = torch.where(lse > MASK_THRESHOLD, lse * LOG2E, 1e30)
+    kadd = _key_terms(bias, bh, lk, lk)
+    dq, dk, dv = (torch.zeros(bh, n, d) for n in (lq, lk, lk))
+    for b in range(bh):
+        tiles = [(t0, min(t0 + TILE, lk)) for t0 in range(0, lk, TILE)]
+        live = [(t0, t1) for t0, t1 in tiles
+                if bool((kadd[b, t0:t1] > -math.inf).any())]
+        for q0 in range(0, lq, TILE):           # the dq kernel
+            rows = slice(q0, min(q0 + TILE, lq))
+            acc = torch.zeros(rows.stop - rows.start, d)
+            for t0, t1 in live:
+                p = torch.exp2(qf[b, rows] @ kf[b, t0:t1].T * scale2
+                               + kadd[b, t0:t1] - lse2[b, rows, None])
+                ds = p * (dof[b, rows] @ vf[b, t0:t1].T
+                          - delta[b, rows, None])
+                acc = acc + _parts(ds, rounding) @ kf[b, t0:t1]
+            dq[b, rows] = acc * scale
+        for t0, t1 in live:                     # the dk/dv kernel
+            acc_k, acc_v = torch.zeros(t1 - t0, d), torch.zeros(t1 - t0, d)
+            for q0 in range(0, lq, TILE):
+                rows = slice(q0, min(q0 + TILE, lq))
+                pt = torch.exp2(kf[b, t0:t1] @ qf[b, rows].T * scale2
+                                + kadd[b, t0:t1, None] - lse2[b, None, rows])
+                dst = pt * (vf[b, t0:t1] @ dof[b, rows].T
+                            - delta[b, None, rows])
+                acc_v = acc_v + _parts(pt, rounding) @ dof[b, rows]
+                acc_k = acc_k + _parts(dst, rounding) @ qf[b, rows]
+            dk[b, t0:t1], dv[b, t0:t1] = acc_k * scale, acc_v
+    return tuple(_round(t, rounding) for t in (dq, dk, dv))
+
+
 # name -> (BH, Lq, Lk, chunk counts to emulate, key mask):
 # "tail12": 12 % of the keys masked at random, key 0 kept; "stretch": keys
 # [150, 500) masked, which empties chunk 1 of 3 over 11 tiles; "dead_bh":
@@ -364,22 +451,28 @@ def test_emulation_masks_exactly(name):
 
 
 # (Lq, Lk, D, dtype) -> family: the adapter's five shapes, both sides
-# long, D = 48, fp32, and the domain's edge at 128 / 129 rows.
+# long, D = 48 in bf16 (wgmma at every Lq and Lk) and fp32, D = 32, and the
+# short-side domain's edge at 128 / 129 rows.
 FAMILY_CASES = [
     (10239, 65, 16, torch.bfloat16, "short_keys"),
     (65, 10239, 16, torch.bfloat16, "short_queries"),
     (65, 65, 16, torch.bfloat16, "short_keys"),
     (16383, 65, 16, torch.bfloat16, "short_keys"),
     (65, 16383, 16, torch.bfloat16, "short_queries"),
-    (1024, 1024, 48, torch.bfloat16, "cuda_cores"),
+    (1024, 1024, 48, torch.bfloat16, "wgmma"),
     (10239, 65, 16, torch.float32, "cuda_cores"),
-    (65, 10239, 48, torch.bfloat16, "cuda_cores"),
+    (65, 10239, 48, torch.bfloat16, "wgmma"),
     (300, 128, 16, torch.bfloat16, "short_keys"),
     (128, 300, 16, torch.bfloat16, "short_queries"),
     (300, 129, 16, torch.bfloat16, "cuda_cores"),
     (129, 300, 16, torch.bfloat16, "cuda_cores"),
     (129, 129, 16, torch.bfloat16, "cuda_cores"),
     (300, 1, 16, torch.bfloat16, "short_keys"),
+    (2896, 2896, 48, torch.bfloat16, "wgmma"),
+    (65, 65, 48, torch.bfloat16, "wgmma"),
+    (1, 1, 48, torch.bfloat16, "wgmma"),
+    (2896, 2896, 48, torch.float32, "cuda_cores"),
+    (640, 640, 32, torch.bfloat16, "cuda_cores"),
 ]
 
 
@@ -418,3 +511,133 @@ def test_chunk_plan():
     assert workspace_floats("short_keys", True, 36, 10239, 65, 15) == \
         36 * 15 * 80 * 32
     assert workspace_floats("cuda_cores", True, 48, 1024, 1024, 1) == 0
+    # the wgmma family: the backward's delta, one float a (bh, query)
+    assert workspace_floats("wgmma", False, 96, 2896, 2896, 0) == 0
+    assert workspace_floats("wgmma", True, 96, 2896, 2896, 0) == 96 * 2896
+
+
+# name -> (BH, Lq, Lk, keys): small cuts of the per-branch route's five
+# shapes (a multiple of the 64-row tile, and the ragged lengths of a
+# 181- and 362-row branch), Lq != Lk, no bias. "tail12" masks the last
+# 12 % of the keys, "holes" a stretch of whole 64-key tiles between live
+# ones, "finite" adds a random finite bias to "tail12", "dead_bh" masks
+# every key of the last bh as well.
+WGMMA_CASES = {
+    "tiles": (6, 64, 64, "tail12"),
+    "ragged": (6, 181, 181, "tail12"),
+    "holes": (6, 362, 362, "holes"),
+    "finite_bias": (6, 181, 181, "finite"),
+    "dead_bh": (6, 362, 362, "dead_bh"),
+    "lq_lt_lk": (4, 100, 300, "tail12"),
+    "lq_gt_lk": (4, 300, 100, "finite"),
+    "no_bias": (3, 130, 70, None),
+}
+
+
+def _wgmma_case(name, seed=0):
+    bh, lq, lk, keys = WGMMA_CASES[name]
+    rng = np.random.RandomState(seed)
+    q, k, v, cot = (rng.randn(bh, n, 48).astype(np.float32)
+                    for n in (lq, lk, lk, lq))
+    if keys is None:
+        return q, k, v, None, cot
+    valid = np.ones((bh, lk), bool)
+    valid[:, lk - int(0.12 * lk):] = False
+    if keys == "holes":
+        valid[:, 64:192] = False
+    if keys == "dead_bh":
+        valid[-1] = False
+    bias = np.where(valid, 0.0, NEG_INF)
+    if keys == "finite":
+        bias = bias + 2.0 * rng.randn(bh, lk)
+    return q, k, v, bias.astype(np.float32), cot
+
+
+@pytest.mark.parametrize("name", list(WGMMA_CASES))
+def test_wgmma_emulation_matches_jax_kernels_in_fp32(name):
+    """In fp32 the emulated wgmma kernels compute JAX's Pallas kernels'
+    function: out and lse, then dq, dk, dv from JAX's out and lse."""
+    q, k, v, bias, cot = _wgmma_case(name)
+    scale = 48 ** -0.5
+    (jout, jlse), jgrads = _jax(q, k, v, bias, cot, scale)
+    tq, tk, tv, tb, tcot = (_t(x) for x in (q, k, v, bias, cot))
+    out, lse, _ = emulate_wgmma_forward(tq, tk, tv, tb, scale, False)
+    np.testing.assert_allclose(out.numpy(), jout, atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(lse.numpy(), jlse, atol=TOL, rtol=TOL)
+    grads = emulate_wgmma_backward(tq, tk, tv, tb, _t(jout), _t(jlse), tcot,
+                                   scale, False)
+    for g, w, n in zip(grads, jgrads, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), w, atol=TOL, rtol=TOL,
+                                   err_msg=n)
+
+
+@pytest.mark.parametrize("name", list(WGMMA_CASES))
+def test_wgmma_emulation_in_bf16_holds_the_chip_limits(name):
+    """With bf16 inputs, P rounded once to bf16 in the forward, P and dS
+    as hi + lo bf16 parts in the backward and the results rounded to
+    bf16, the emulated wgmma kernels stay within chip_smoke.py's limits of
+    the plain fp32 versions on the same values, and their gradients
+    within 1.2x the rel-L2 of the plain gradients rounded to bf16."""
+    q, k, v, bias, cot = _wgmma_case(name, seed=1)
+    tq, tk, tv, tcot = (_t(x).bfloat16() for x in (q, k, v, cot))
+    tb = _t(bias)
+    scale = 48 ** -0.5
+    want_o, want_l = flash_attention_reference(tq.float(), tk.float(),
+                                               tv.float(), tb, scale)
+    out, lse, _ = emulate_wgmma_forward(tq, tk, tv, tb, scale, True)
+    chip_smoke.compare(out, want_o, OUT_LIMIT, f"{name} out")
+    chip_smoke.check_out(out, want_o, "bfloat16", f"{name} out")
+    assert (lse - want_l).abs().max().item() <= LSE_LIMIT
+    out16 = out.bfloat16()
+    grads = emulate_wgmma_backward(tq, tk, tv, tb, out16, lse, tcot, scale,
+                                   True)
+    want = flash_attention_backward_reference(
+        tq.float(), tk.float(), tv.float(), tb, out16.float(), lse,
+        tcot.float(), scale)
+    chip_smoke.check_grads(("dq", "dk", "dv"), grads, want, tcot,
+                           "bfloat16", name)
+    for g, w in zip(grads, want):
+        floor = chip_smoke.grad_readings(w.bfloat16(), w, tcot)[0]
+        assert chip_smoke.grad_readings(g, w, tcot)[0] <= 1.2 * floor
+
+
+@pytest.mark.parametrize("name", ["holes", "dead_bh", "finite_bias"])
+def test_wgmma_emulation_masks_exactly(name):
+    """A masked key gets exactly zero dk and dv, a bh without a valid key
+    exactly out 0, lse NEG_INF and zero gradients, and a key tile without
+    a valid key is skipped, in bf16 as the card runs it."""
+    q, k, v, bias, cot = _wgmma_case(name, seed=2)
+    tq, tk, tv, tcot = (_t(x).bfloat16() for x in (q, k, v, cot))
+    tb = _t(bias)
+    out, lse, skipped = emulate_wgmma_forward(tq, tk, tv, tb, 0.2, True)
+    grads = emulate_wgmma_backward(tq, tk, tv, tb, out, lse, tcot, 0.2, True)
+    masked = tb <= MASK_THRESHOLD
+    assert (grads[1][masked] == 0).all() and (grads[2][masked] == 0).all()
+    dead = masked.all(dim=-1)
+    assert bool(dead[-1]) == (name == "dead_bh")
+    assert (out[dead] == 0).all() and (lse[dead] == NEG_INF).all()
+    assert all((g[dead] == 0).all() for g in grads)
+    # of a bh's six tiles at 362 keys, the last (320-361) lies in the
+    # masked tail: holes skips tiles 1, 2 and 5 of every bh, dead_bh tile
+    # 5 of five bh and all six of the last; at 181 keys the tail leaves
+    # valid keys in every tile
+    assert skipped == {"holes": 18, "dead_bh": 11, "finite_bias": 0}[name]
+
+
+def test_plain_versions_stay_fp32_under_autocast():
+    """The plain versions compute in fp32 under bf16 autocast too, as JAX's
+    reference does at HIGHEST precision: bit-equal to the calls outside
+    autocast, where autocast would otherwise round their products to bf16.
+    The train step runs its forward under bf16 autocast."""
+    q, k, v, bias, cot = _wgmma_case("finite_bias", seed=3)
+    tq, tk, tv, tcot = (_t(x).bfloat16() for x in (q, k, v, cot))
+    tb = _t(bias)
+    out, lse = flash_attention_reference(tq, tk, tv, tb, 0.2)
+    grads = flash_attention_backward_reference(tq, tk, tv, tb, out, lse,
+                                               tcot, 0.2)
+    with torch.autocast("cpu", dtype=torch.bfloat16):
+        out_a, lse_a = flash_attention_reference(tq, tk, tv, tb, 0.2)
+        grads_a = flash_attention_backward_reference(tq, tk, tv, tb, out,
+                                                     lse, tcot, 0.2)
+    assert torch.equal(out_a, out) and torch.equal(lse_a, lse)
+    assert all(torch.equal(a, g) for a, g in zip(grads_a, grads))

@@ -1,11 +1,11 @@
 """The port stands alone, and its copies of the JAX package's
 framework-free layers have not drifted.
 
-* No module of ``modaltune_tpu_torch``, nor ``chip_smoke.py`` nor
-  ``profile_train.py``, imports ``jax``, ``flax``, ``optax`` or anything of
-  ``modaltune_tpu``, nor ``sklearn`` or ``pandas``, which the card's
-  machine does not have (walked with ``ast``, so an import inside a
-  function counts too).
+* No module of ``modaltune_tpu_torch``, nor ``chip_smoke.py``,
+  ``profile_train.py`` or ``ab_branch_route.py``, imports ``jax``,
+  ``flax``, ``optax`` or anything of ``modaltune_tpu``, nor ``sklearn``
+  or ``pandas``, which the card's machine does not have (walked with
+  ``ast``, so an import inside a function counts too).
 * The copied ``configs`` dataclasses equal the JAX package's field for
   field, default for default; the copied data layer gives the same arrays
   for a seed (its file readers: ``test_torch_data_readers.py``); the
@@ -33,7 +33,8 @@ FORBIDDEN = ("jax", "flax", "optax", "modaltune_tpu")
 # not installed beside the card
 FORBIDDEN_HOST = ("sklearn", "pandas")
 PORT_FILES = sorted((REPO / "modaltune_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "profile_train.py"]
+    REPO / "chip_smoke.py", REPO / "profile_train.py",
+    REPO / "ab_branch_route.py"]
 
 
 def _imports(path):
@@ -59,7 +60,7 @@ def test_port_files_are_found():
             "modaltune_tpu_torch/train/pancancer_trainer.py",
             "modaltune_tpu_torch/models/mil.py",
             "modaltune_tpu_torch/tools/train.py", "chip_smoke.py",
-            "profile_train.py"} <= names
+            "profile_train.py", "ab_branch_route.py"} <= names
 
 
 @pytest.mark.parametrize(

@@ -25,8 +25,13 @@ kernels' short-side family (bf16, D = 16): the adapter's five shapes, a
 short side of every remainder mod 16 on either side, chunks without a
 valid key, a dead bh, bit-equal reruns, the C entry points' family choice
 against the CPU's copy of the rule, and the CUDA-core kernels still serving
-the other bf16 shapes. For the tensor-core family of K1b and K3b (bf16,
-D = 48): every ratio at a length no segment divides with L % 16 != 0, one
+the other bf16 shapes. For its wgmma family (bf16, D = 48, the per-branch
+dilated attention's): the five branch geometries at 2,048 tokens, lengths
+off the 64-row tile, Lq != Lk both ways, dead key tiles between live ones,
+a dead bh, a finite bias, bit-equal reruns, the launch counts by family, the
+family rule on both sides and a misaligned view raising. For the
+tensor-core family of K1b and K3b (bf16, D = 48): every ratio at a length
+no segment divides with L % 16 != 0, one
 and three batch rows, a prefix mask and masked stretches that leave dead
 key tiles between live ones, a batch row without a valid key, reruns
 bit-equal, masked keys' dk and dv exactly 0, both routes against each
@@ -410,11 +415,11 @@ def test_short_side_family_matches_the_entry_points(cuda_device):
 
 
 @pytest.mark.parametrize("bh,lq,lk,d", [(4, 300, 200, 16), (6, 130, 129, 16),
-                                        (4, 200, 65, 48)])
+                                        (4, 200, 65, 64)])
 def test_cuda_core_family_serves_other_bf16_shapes(cuda_device, bh, lq, lk,
                                                    d):
-    """bf16 outside the short-side domain (both sides long, D = 48) runs
-    the CUDA-core kernels, at the bf16 limits."""
+    """bf16 outside the short-side and wgmma domains (both sides long at
+    D = 16, D = 64) runs the CUDA-core kernels, at the bf16 limits."""
     assert fa.card_family(lq, lk, d, torch.bfloat16) == "cuda_cores"
     q, k, v = (_randn((bh, n, d), 40 + i, cuda_device, torch.bfloat16)
                for i, n in enumerate((lq, lk, lk)))
@@ -444,6 +449,143 @@ def test_short_side_wrapper_raises_on_a_misaligned_tensor(cuda_device):
     k = _randn((2, 65, 16), 46, cuda_device, torch.bfloat16)
     with pytest.raises(ValueError):
         fa.flash_attention(q, k, k)
+
+
+# ---------------------------------------------------------------------------
+# K2: the wgmma family (bf16, D = 48, any Lq and Lk)
+# ---------------------------------------------------------------------------
+
+# (BH, Lq, Lk, keys: "tail" masks the last 12 %, "holes" a stretch of whole
+# 64-key tiles between live ones, "finite" adds a random finite bias to the
+# tail's, None passes no bias; a bh with every key masked). First the five
+# branch geometries of the per-branch dilated attention at 2,048 tokens
+# (H = 16, B = 1; segments 1,024 / 5,792 / ... at ratios 1 / 2 / 4 / 8 / 16),
+# then lengths off the 64-row tile (the 10,240-token (5,792, 2) branch's
+# 2,896 rows end 16 into a tile), Lq != Lk both ways, one key, one query.
+WGMMA_FLASH_CASES = [
+    (32, 1024, 1024, "tail", False),
+    (16, 1024, 1024, "tail", False),
+    (16, 512, 512, "tail", False),
+    (16, 256, 256, "tail", False),
+    (16, 128, 128, "tail", False),
+    (6, 2896, 2896, "tail", True),
+    (6, 181, 181, "finite", False),
+    (5, 362, 362, "holes", True),
+    (4, 100, 300, "finite", True),
+    (4, 300, 100, "tail", False),
+    (3, 65, 1, None, False),
+    (3, 1, 700, "holes", False),
+]
+WGMMA_FLASH_IDS = [f"{bh}x{lq}x{lk}-{keys}" + ("-dead" if dead else "")
+                   for bh, lq, lk, keys, dead in WGMMA_FLASH_CASES]
+
+
+def _wgmma_flash_inputs(bh, lq, lk, keys, dead, device, seed=50):
+    q, k, v = (_randn((bh, n, 48), seed + i, device, torch.bfloat16)
+               for i, n in enumerate((lq, lk, lk)))
+    dout = _randn((bh, lq, 48), seed + 3, device, torch.bfloat16)
+    valid = torch.ones(bh, lk, dtype=torch.bool)
+    if keys in ("tail", "finite"):
+        valid[:, lk - int(0.12 * lk):] = False
+    if keys == "holes":
+        valid[:, lk // 5:lk // 5 + 192] = False
+    if dead:
+        valid[0] = False
+    if keys is None:
+        return q, k, v, dout, None, valid.to(device)
+    bias = torch.where(valid, 0.0, NEG_INF)
+    if keys == "finite":
+        g = torch.Generator().manual_seed(seed + 4)
+        bias = bias + 2.0 * torch.randn(bh, lk, generator=g)
+    return q, k, v, dout, bias.to(device), valid.to(device)
+
+
+@pytest.mark.parametrize("bh,lq,lk,keys,dead", WGMMA_FLASH_CASES,
+                         ids=WGMMA_FLASH_IDS)
+def test_wgmma_flash_kernels_match_plain(cuda_device, bh, lq, lk, keys,
+                                         dead):
+    """K2f and K2b of the wgmma family against the plain versions in fp32
+    on the same bf16 values, at ``chip_smoke.py``'s limits (out also by
+    ``check_out``, the gradients by ``grad_readings`` from the kernel's
+    own out and lse); a dead bh gives exactly 0, NEG_INF and zero
+    gradients, a masked key exactly zero dk and dv, a rerun the same
+    bits."""
+    assert fa.card_family(lq, lk, 48, torch.bfloat16) == "wgmma"
+    q, k, v, dout, bias, valid = _wgmma_flash_inputs(bh, lq, lk, keys, dead,
+                                                     cuda_device)
+    out, lse = fa.flash_attention_cuda(q, k, v, bias, 48 ** -0.5)
+    want_o, want_l = fa.flash_attention_reference(q.float(), k.float(),
+                                                  v.float(), bias)
+    grads = fa.flash_attention_backward_cuda(q, k, v, bias, out, lse, dout,
+                                             48 ** -0.5)
+    want = fa.flash_attention_backward_reference(
+        q.float(), k.float(), v.float(), bias, want_o.to(q.dtype).float(),
+        want_l, dout.float())
+    again = (*fa.flash_attention_cuda(q, k, v, bias, 48 ** -0.5),
+             *fa.flash_attention_backward_cuda(q, k, v, bias, out, lse, dout,
+                                               48 ** -0.5))
+    torch.cuda.synchronize()
+    chip_smoke.compare(out, want_o, 1.6e-2, "out")
+    chip_smoke.check_out(out, want_o, "bfloat16", "out")
+    assert (lse - want_l).abs().max().item() <= 1e-2
+    for name, g_, w_ in zip(("dq", "dk", "dv"), grads, want):
+        _assert_grad_readings(g_, w_, dout, name)
+    assert ((grads[1] == 0) | valid[..., None]).all()      # masked keys
+    assert ((grads[2] == 0) | valid[..., None]).all()
+    if dead:
+        assert (out[0] == 0).all() and (lse[0] == NEG_INF).all()
+        assert all((g_[0] == 0).all() for g_ in grads)
+    for a, b in zip((out, lse, *grads), again):
+        assert torch.equal(a, b)
+
+
+def test_wgmma_flash_family_matches_the_entry_points(cuda_device):
+    """bf16 at D = 48 takes the wgmma family at every Lq and Lk, on the
+    card (``mt_flash_attention_family``) and in the CPU's copy of the
+    rule; fp32 at D = 48 stays on the CUDA-core kernels."""
+    for lq, lk, d, dtype in [(1024, 1024, 48, torch.bfloat16),
+                             (65, 10239, 48, torch.bfloat16),
+                             (10239, 65, 48, torch.bfloat16),
+                             (1, 1, 48, torch.bfloat16),
+                             (2896, 2896, 48, torch.bfloat16),
+                             (1024, 1024, 48, torch.float32),
+                             (1024, 1024, 32, torch.bfloat16)]:
+        assert fa.card_family(lq, lk, d, dtype) == fa.family(lq, lk, d, dtype)
+    assert fa.card_family(640, 640, 48, torch.bfloat16) == "wgmma"
+    assert fa.card_family(640, 640, 48, torch.float32) == "cuda_cores"
+
+
+def test_wgmma_flash_function_counts_by_family(cuda_device):
+    """``flash_attention`` at bf16 / D = 48 runs the wgmma family forward
+    and backward, counted in LAUNCHES and by family; its gradients equal
+    the wrapper's called directly."""
+    q, k, v = (_randn((3, 200, 48), s, cuda_device, torch.bfloat16)
+               .requires_grad_() for s in (60, 61, 62))
+    fa.LAUNCHES = fa.BWD_LAUNCHES = 0
+    for counts in (fa.FAMILY_LAUNCHES, fa.BWD_FAMILY_LAUNCHES):
+        counts.update(dict.fromkeys(counts, 0))
+    out, lse = fa.flash_attention(q, k, v)
+    out.float().pow(2).sum().backward()
+    assert (fa.LAUNCHES, fa.BWD_LAUNCHES) == (1, 1)
+    assert fa.FAMILY_LAUNCHES["wgmma"] == fa.BWD_FAMILY_LAUNCHES["wgmma"] == 1
+    want = fa.flash_attention_backward_cuda(
+        q.detach(), k.detach(), v.detach(), None, out.detach(), lse,
+        2 * out.detach(), 48 ** -0.5)
+    for x, w_ in zip((q, k, v), want):
+        assert torch.equal(x.grad, w_)
+
+
+def test_wgmma_flash_wrapper_raises_on_a_misaligned_tensor(cuda_device):
+    """16-byte chunks: a view 8 bytes off raises, forward and backward,
+    where the CUDA-core kernels would take it; no fallback."""
+    base = _randn((2 * 300 * 48 + 4,), 63, cuda_device, torch.bfloat16)
+    q = base[4:].view(2, 300, 48)                   # 8 bytes off
+    k = _randn((2, 300, 48), 64, cuda_device, torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, k)
+    out, lse = fa.flash_attention_cuda(k, k, k, None, 0.25)
+    with pytest.raises(ValueError):
+        fa.flash_attention_backward_cuda(k, k, k, None, q, lse, out, 0.25)
 
 
 # ---------------------------------------------------------------------------

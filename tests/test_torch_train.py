@@ -360,6 +360,31 @@ def test_train_step_matches_jax():
     train_step_against_jax()
 
 
+def test_per_branch_route_train_step_matches_jax(monkeypatch):
+    """(f) on the per-branch route of both packages (``fused_attention``
+    off, the CLI's ``--fused_attention 0``): the port runs every dilated
+    branch through ``flash_attention`` (K2f, and K2b's autograd Function,
+    on CPU tensors their plain versions) and neither K1 nor K3, JAX its
+    own per-branch dilated attention."""
+    import modaltune_tpu_torch.models.longnet as port_longnet
+    import modaltune_tpu_torch.ops.dilated as port_dilated
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape)
+        return flash_attention(*args, **kw)
+
+    monkeypatch.setattr(port_dilated, "flash_attention", counted)
+    monkeypatch.setattr(port_longnet, "mega_dilated_attention", None)
+    monkeypatch.setattr(port_longnet, "fused_dilated_attention", None)
+    cfg = tiny_test_config(depth=4)     # train_step_against_jax's
+    train_step_against_jax(
+        port_kw=dict(longnet=cfg.backbone.longnet(fused_attention=False)),
+        jax_backbone_kw=dict(fused_attention=False))
+    n_branches = len(cfg.backbone.longnet().segment_lengths)
+    assert calls and len(calls) % (4 * n_branches) == 0
+
+
 def train_step_against_jax(port_kw=None, jax_backbone_kw=None):
     """(f) JAX ``make_train_step`` and the port's from the same parameters
     (``params_from_jax``) and text projector (``projector_from_jax``),
