@@ -11,7 +11,7 @@ K3f; the backward kernels K1b, K2b, K3b, K4b, K5b; K1f and K1b also with a
 plain version and, where one PyTorch call computes the same function,
 beside that call (``scaled_dot_product_attention``; timed here, used
 nowhere in the port), and computes the least time the card could take for
-the same work. Then it drives twelve paths end to end at full published
+the same work. Then it drives sixteen paths end to end at full published
 width with random weights from a seeded generator, each with every launch
 count set to 0 just before and read just after:
 
@@ -48,13 +48,27 @@ count set to 0 just before and read just after:
 * sequence parallelism: a ModalTune-GigaPath grad step at 10,239 on two
   processes that share the card over gloo, each running the backbone on
   its half of the tokens (K1f and K1b with its ``q_token_range``), against
-  the single-process step.
+  the single-process step;
+* ModalTune-GigaPath with the LoRA encoder variant (``lora_adapter``,
+  LoRA B nonzero): the embed step on one slide and a few train steps,
+  every branch of every layer on K2's wgmma family, each K2 launch of its
+  bf16 grad step held to the plain version;
+* dataset preparation: a synthetic TCGA site through
+  ``data/pipeline.py`` (labels, splits, clinical features, prompts, text
+  embeddings, the gene CSV) and ``data/extract.py`` (tile extraction with
+  stand-in encoders on the card), then the train CLI on the files it
+  wrote; and a TITAN extraction whose slide encoder is the port's
+  TitanViT (K4f).
 
 Then it trains the supervised baselines through the CLI (ABMIL, TransMIL
 "(cat)" survival, the gene-only model; they run no kernel of the port, so
 they are not a path of the kernels line), holds one batch of each on the
 card against the CPU, and times one TransMIL train step of four bags at
-the 25,599 bucket.
+the 25,599 bucket. It holds the LoRA encoder's gradients to the plain
+path's, the MoE FFN (top-1 and top-2, on the card against the CPU, its
+expert-parallel exchange over NCCL and over two gloo ranks), xPos and the
+T5 bias, and profiles two train steps with ``utils.profiling.trace``,
+holding ``tools/trace_report``'s device total to the profiler's.
 
 Every phase prints its results on lines of its own; any failure raises
 and the script exits non-zero. The last line is one JSON object
@@ -296,12 +310,16 @@ def read_counts() -> dict:
 
 def k2_branch_calls(model) -> int:
     """K2 calls of one forward of ``model`` at D = 48: on the per-branch
-    route (``fused_attention`` off) one per branch of every LongNet
-    layer, else none."""
+    route (``fused_attention`` off) and in the LoRA attention
+    (``lora_adapter``) one per branch of every LongNet layer, else
+    none."""
     bb = model.backbone
-    if not hasattr(bb, "encoder") or bb.encoder.cfg.fused_attention:
+    if not hasattr(bb, "encoder"):
         return 0
-    return len(bb.encoder.layers) * len(bb.encoder.cfg.segment_lengths)
+    c = bb.encoder.cfg
+    if c.fused_attention and not c.lora_adapter:
+        return 0
+    return len(bb.encoder.layers) * len(c.segment_lengths)
 
 
 def calls_per_forward(model) -> dict:
@@ -1742,6 +1760,9 @@ GIGAPATH_2047 = dict(bucket=2047, bag_range=(1791, 2047))
 # the same model, slides and weights on its other kernel routes
 GIGAPATH_FUSED = dict(GIGAPATH, route="fused")
 GIGAPATH_BRANCH = dict(GIGAPATH, route="branch")
+# ModalTune-GigaPath with the LoRA encoder variant (every layer's attention
+# per branch on K2, LoRA B nonzero), the same slides
+GIGAPATH_LORA = dict(GIGAPATH, route="lora")
 # SyntheticSlideDataset draws patch coordinates on a 900 x 900 lattice of
 # 256-px tiles, a 225 x 225 grid of TITAN's 1,024-px cells: 17,000-19,500
 # patches scatter to about 14,400-16,200 foreground cells, inside the
@@ -1800,12 +1821,16 @@ def route_kw(cfg, route):
     per-branch attention kernels (K3) and the fused GELU -> LayerNorm (K5),
     "branch" the per-branch dilated attention with each branch on the K2
     flash kernels (``fused_attention`` off, the CLI's ``--fused_attention
-    0``) and the unfused FFN chain."""
+    0``) and the unfused FFN chain, "lora" the LoRA encoder variant
+    (``lora_adapter``: per-modality LoRA deltas on q/k/v around the same
+    per-branch attention)."""
     if route is None:
         return {}
-    check(route in ("fused", "branch"), f"unknown route {route!r}")
+    check(route in ("fused", "branch", "lora"), f"unknown route {route!r}")
     if route == "branch":
         return dict(longnet=cfg.backbone.longnet(fused_attention=False))
+    if route == "lora":
+        return dict(longnet=cfg.backbone.longnet(lora_adapter=True))
     return dict(longnet=cfg.backbone.longnet(mega_attention=False),
                 fused_gelu_ln=True)
 
@@ -1813,9 +1838,10 @@ def route_kw(cfg, route):
 def build_model(device, name, config, n_genes=4987, n_groups=331,
                 max_size=100, seed=0, route=None, cfg=None, **_data_kw):
     """The model ``name`` on ``device`` through the public entry points:
-    random fp32 weights from ``seed`` (the same on either ``route``),
-    Injector gammas non-zero. ``cfg`` overrides the factory's
-    configuration (a narrow one, to rehearse on the CPU)."""
+    random fp32 weights from ``seed`` (the same on every ``route``),
+    Injector gammas non-zero, on the LoRA route the LoRA B matrices too.
+    ``cfg`` overrides the factory's configuration (a narrow one, to
+    rehearse on the CPU)."""
     import torch
     from modaltune_tpu_torch import create_aggregator, init_weights
     from modaltune_tpu_torch.models import fill_normal_
@@ -1830,7 +1856,22 @@ def build_model(device, name, config, n_genes=4987, n_groups=331,
     with torch.no_grad():   # init_values = 0 would make the Injectors no-ops
         for block in model.interactions:
             fill_normal_(block.injector.gamma, 0.1, g)
+        lora_b_nonzero(model, g)
     return model
+
+
+def lora_b_nonzero(model, g, std=0.02) -> int:
+    """Every LoRA B matrix of ``model`` drawn from N(0, ``std``) on ``g``
+    (they start at zero, which would make the deltas vanish); -> how many."""
+    import torch
+    from modaltune_tpu_torch.models import fill_normal_
+    n = 0
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "_lora_B_" in name:
+                fill_normal_(p, std, g)
+                n += 1
+    return n
 
 
 def build_slice(device, dtype, **data_kw):
@@ -2496,6 +2537,22 @@ TRAINER_FLAGS = ["--mil_name", "longnetvit_gene_adapter", "--bf16", "1",
                  "--save_interval", "1", "--save_embeddings", "--seed", "0"]
 
 
+def write_pathway_csv(path, n_genes, n_groups, max_size):
+    """The pathway-membership CSV (gene x pathway 0/1) of
+    ``synthetic_pathways`` over genes ``g0 .. g{n_genes - 1}``."""
+    import numpy as np
+    from modaltune_tpu_torch.data import synthetic_pathways
+    groups = synthetic_pathways(n_genes=n_genes, n_groups=n_groups,
+                                max_size=max_size, seed=0)
+    member = np.zeros((n_genes, n_groups), np.int64)
+    for j, names in groups.items():
+        member[[int(g[1:]) for g in names], j] = 1
+    with open(path, "w") as f:
+        f.write("gene," + ",".join(f"P{j}" for j in range(n_groups)) + "\n")
+        for i, row in enumerate(member):
+            f.write(f"g{i}," + ",".join(map(str, row)) + "\n")
+
+
 def write_reference_files(root, in_chans, two_slides, one_slide, n_genes,
                           n_groups, max_size, seed=0,
                           projects=("TCGA-BRCA",), cases=(4, 2, 2)):
@@ -2512,7 +2569,6 @@ def write_reference_files(root, in_chans, two_slides, one_slide, n_genes,
     -> the CLI's data flags."""
     import numpy as np
     import torch
-    from modaltune_tpu_torch.data import synthetic_pathways
     from modaltune_tpu_torch.data.bagcache import pack_feature_files
     rng = np.random.default_rng(seed)
     feats = root / "features"
@@ -2568,15 +2624,7 @@ def write_reference_files(root, in_chans, two_slides, one_slide, n_genes,
         f.write("case_id," + ",".join(genes) + "\n")
         for sub, vec in gene_rows:
             f.write(sub + "," + ",".join(f"{v:.5f}" for v in vec) + "\n")
-    groups = synthetic_pathways(n_genes=n_genes, n_groups=n_groups,
-                                max_size=max_size, seed=0)
-    member = np.zeros((n_genes, n_groups), np.int64)
-    for j, names in groups.items():
-        member[[int(g[1:]) for g in names], j] = 1
-    with open(root / "pathways.csv", "w") as f:
-        f.write("gene," + ",".join(f"P{j}" for j in range(n_groups)) + "\n")
-        for g, row in zip(genes, member):
-            f.write(g + "," + ",".join(map(str, row)) + "\n")
+    write_pathway_csv(root / "pathways.csv", n_genes, n_groups, max_size)
     return flags + ["--genomics_csv_path", str(root / "genes.csv"),
                     "--pathway_csv", str(root / "pathways.csv"),
                     "--text_location", str(root / "text.pt")]
@@ -3067,6 +3115,786 @@ def phase_baselines(device, card="", data_kw=None, runs=BASELINE_RUNS,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Dataset preparation: a synthetic TCGA site through data/pipeline.py and
+# data/extract.py, then the CLI on what they wrote
+# ---------------------------------------------------------------------------
+
+SITE_DIAGNOSES = ("Infiltrating duct carcinoma, NOS", "Lobular carcinoma, NOS")
+SITE_STAGES = ("Stage IA", "Stage IIA", "Stage IIB", "Stage IIIC", "Stage IV",
+               "Stage X", "'--")
+SITE_T = ("T1c", "T2", "T3", "T4b", "TX", "Tis", "'--")
+SITE_N = ("N0", "N0 (i+)", "N1a", "N2", "NX", "'--")
+SITE_M = ("M0", "M1", "MX", "cM0 (i+)", "'--")
+
+
+def write_tcga_site(root, seed=0, classes=(5, 4), project="TCGA-BRCA"):
+    """A synthetic TCGA site in GDC's ``clinical.tsv`` and ``slide.tsv``
+    columns under ``root``, drawn from ``seed``: ``classes[k]`` cases of
+    the site's class k with gene data, and besides one case of an unmapped
+    diagnosis (class -1), one without gene data, one without a diagnosis
+    and one without a slide. Every case has two clinical rows (two
+    treatments, as GDC lists them); every third case two slides; missing
+    values are ``'--``; one dead case lacks its death date, one follow-up
+    is negative, one vital status is "Not Reported". -> dict of the two
+    paths, ``slides`` (slide_submitter_id -> its case's submitter id),
+    ``gene_case_ids`` and ``n_cases``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    diagnoses = [SITE_DIAGNOSES[k] for k, n in enumerate(classes)
+                 for _ in range(n)]
+    diagnoses += ["Medullary carcinoma, NOS", SITE_DIAGNOSES[0], "'--",
+                  SITE_DIAGNOSES[1]]
+    order = rng.permutation(len(diagnoses) - 4)
+    diagnoses = [diagnoses[i] for i in order] + diagnoses[-4:]
+    no_gene, no_slide = len(diagnoses) - 3, len(diagnoses) - 1
+    columns = ["case_id", "case_submitter_id", "project_id", "age_at_index",
+               "days_to_death", "vital_status", "days_to_last_follow_up",
+               "ajcc_pathologic_m", "ajcc_pathologic_n",
+               "ajcc_pathologic_stage", "ajcc_pathologic_t", "gender",
+               "primary_diagnosis", "year_of_diagnosis", "treatment_type"]
+    clinical, slide_rows, slides, genes = [], [], {}, []
+
+    def pick(values):
+        return values[int(rng.integers(len(values)))]
+
+    for i, diag in enumerate(diagnoses):
+        sub = f"TCGA-{seed % 100:02d}-{i:04d}"
+        cid = f"{seed:04x}{i:04x}-5e1c-4d7a-9c4f-{rng.integers(16**12):012x}"
+        dead = rng.random() < 0.4 or i in (1, 2)
+        vital = "Dead" if dead else "Alive"
+        death = str(int(rng.integers(30, 3000))) if dead else "'--"
+        follow = str(int(rng.integers(10, 4000)))
+        if i == 1:
+            death = "'--"
+        if i == 3:
+            follow = "-" + follow
+        if i == 4:
+            vital = "Not Reported"
+        if i == 5:
+            follow = "'--"
+        age = "'--" if i == 6 else str(int(rng.integers(30, 86)))
+        row = dict(case_id=cid, case_submitter_id=sub, project_id=project,
+                   age_at_index=age, days_to_death=death, vital_status=vital,
+                   days_to_last_follow_up=follow,
+                   ajcc_pathologic_m=pick(SITE_M),
+                   ajcc_pathologic_n=pick(SITE_N),
+                   ajcc_pathologic_stage=pick(SITE_STAGES),
+                   ajcc_pathologic_t=pick(SITE_T),
+                   gender=pick(("female", "male")), primary_diagnosis=diag,
+                   year_of_diagnosis=pick(("2004", "2010", "'--")))
+        for treatment in ("Radiation Therapy, NOS",
+                          "Pharmaceutical Therapy, NOS"):
+            clinical.append(dict(row, treatment_type=treatment))
+        if i != no_gene:
+            genes.append(sub)
+        if i == no_slide:
+            continue
+        for s in range(2 if i % 3 == 0 else 1):
+            sid = f"{sub}-01Z-00-DX{s + 1}"
+            slides[sid] = sub
+            slide_rows.append(dict(case_id=cid, case_submitter_id=sub,
+                                   project_id=project,
+                                   slide_id=f"{cid[:8]}-slide-{s}",
+                                   slide_submitter_id=sid,
+                                   percent_tumor_cells=pick(("70", "'--"))))
+    paths = {}
+    for name, rows in (("clinical", clinical), ("slide", slide_rows)):
+        paths[name] = str(root / f"{name}.tsv")
+        cols = columns if name == "clinical" else list(rows[0])
+        with open(paths[name], "w") as f:
+            f.write("\t".join(cols) + "\n")
+            for r in rows:
+                f.write("\t".join(r[c] for c in cols) + "\n")
+    return dict(paths, slides=slides, gene_case_ids=genes,
+                n_cases=len(diagnoses))
+
+
+def synthetic_slide(seed, n_tiles, tile=256, tissue=0.75, downsample=64):
+    """A slide whose tissue, an ellipse over about ``tissue`` of the
+    slide, holds about ``n_tiles`` tiles of ``tile`` px, drawn from
+    ``seed``: ``(read_region, thumbnail, downsample)``. ``read_region(row,
+    col, size)`` makes the pixels of any window as it is read (one of four
+    seeded stain textures inside the tissue, white glass outside), so no
+    slide array is held; ``thumbnail`` is the RGB thumbnail at
+    1/``downsample``, from which ``extract.tissue_mask`` finds the
+    tissue."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    side = math.ceil(math.sqrt(n_tiles / tissue)) * tile
+    m = side // downsample
+    yy, xx = np.mgrid[0:m, 0:m] + 0.5
+    aspect = rng.uniform(0.8, 1.25)
+    r = m * math.sqrt(tissue / math.pi)
+    inside = ((yy - m / 2) / (r * aspect)) ** 2 + \
+        ((xx - m / 2) / (r / aspect)) ** 2 <= 1.0
+    textures = rng.integers(40, 170, (4, 512, 512, 3), dtype=np.uint8)
+    thumb = np.where(inside[..., None], textures[0, :m, :m].mean(axis=(0, 1))
+                     .astype(np.uint8), np.uint8(255))
+
+    def read_region(row, col, size):
+        ds = downsample
+        tex = textures[(row // size * 7 + col // size * 13) % 4,
+                       :size, :size]
+        win = inside[row // ds:(row + size - 1) // ds + 1,
+                     col // ds:(col + size - 1) // ds + 1]
+        if win.shape == (size // ds, size // ds) and win.all():
+            return tex
+        win = np.repeat(np.repeat(win, ds, 0), ds, 1)[
+            row % ds:row % ds + size, col % ds:col % ds + size]
+        full = np.zeros((size, size), bool)
+        full[:win.shape[0], :win.shape[1]] = win
+        return np.where(full[..., None], tex, np.uint8(255))
+
+    return read_region, thumb, downsample
+
+
+# ---------------------------------------------------------------------------
+# The LongNet extras: the LoRA encoder variant, MoE, xPos, the T5 bias
+# ---------------------------------------------------------------------------
+
+def lora_encoder_grads(device, bucket=10239, n_valid=9000, cfg=None):
+    """The LoRA encoder alone (ModalTune-GigaPath's 12 layers unless
+    ``cfg``, a ``LongNetConfig`` with ``lora_adapter``), every LoRA B
+    nonzero, on ``bucket + 1`` tokens with ``n_valid`` valid: the gradients
+    of ``sum(out * cot)`` to the LoRA parameters through the kernels in
+    bf16 (K2f and K2b per branch and layer, their launches by family
+    checked), and through the plain versions in bf16 and in fp32, each
+    layer checkpointed so that the plain scores of one layer at a time are
+    held. Checks: the image branch's B gets signal, the gene and task
+    deltas (zero contexts) none; bf16 gradient cosine against the plain
+    bf16 path >= 0.999 and the worst tensor's rel-L2 from the fp32 plain
+    path within 2x the bf16 plain path's (the train steps' gate)."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+    from modaltune_tpu_torch import init_weights
+    from modaltune_tpu_torch.models import LongNetEncoder
+    if cfg is None:
+        cfg = model_config(GIGAPATH["config"]).backbone.longnet(
+            lora_adapter=True, dropout=0.0, drop_path_rate=0.0)
+    check(cfg.lora_adapter, "lora_encoder_grads: the config has no LoRA")
+    g = torch.Generator().manual_seed(11)
+    enc = init_weights(LongNetEncoder(cfg, with_final_norm=False), g)
+    n_b = lora_b_nonzero(enc, g)
+    for name, p in enc.named_parameters():
+        p.requires_grad_("_lora_" in name)
+    length, d = bucket + 1, cfg.embed_dim
+    x = torch.randn(1, length, d, generator=g)
+    cot = torch.randn(1, length, d, generator=g).to(device)
+    mask = (torch.arange(length) < n_valid)[None].to(device)
+    models = {"bf16": enc.to(device, torch.bfloat16).eval(),
+              "fp32": copy.deepcopy(enc).to(device, torch.float32).eval()}
+
+    def grads(dtype, plain):
+        m = models[dtype]
+        m.zero_grad(set_to_none=True)
+
+        def run():
+            h = x.to(device, m.layers[0].final_layer_norm.weight.dtype)
+            for layer in m.layers:
+                h = checkpoint(layer, h, mask, use_reentrant=False) \
+                    if plain else layer(h, mask)
+            (h.float() * cot).sum().backward()
+        run_plain(run) if plain else run()
+        torch.cuda.synchronize()
+        return {n: p.grad.float().flatten() for n, p in m.named_parameters()
+                if p.requires_grad}
+
+    reset_counts()
+    got = grads("bf16", False)
+    launches = read_counts()
+    k2 = check_k2_families("lora encoder", launches,
+                           len(cfg.segment_lengths) * cfg.num_layers)
+    check(launches["K2f"] == launches["K2b"] ==
+          len(cfg.segment_lengths) * cfg.num_layers and
+          launches["K1f"] == launches["K3f"] == 0,
+          f"lora encoder launches {launches}")
+    plain, plain32 = grads("bf16", True), grads("fp32", True)
+    signal = [n for n in got if "_B_img" in n and got[n].abs().max() > 0]
+    silent = [n for n in got if ("_gene" in n or "_task" in n)
+              and got[n].abs().max() > 0]
+    check(len(signal) == 3 * cfg.num_layers and not silent,
+          f"lora encoder: B_img with gradient {len(signal)} of "
+          f"{3 * cfg.num_layers}; gene/task with gradient {silent}")
+    live = [n for n in got if "_img" in n]
+    cos = torch.nn.functional.cosine_similarity(
+        torch.cat([got[n] for n in live]), torch.cat([plain[n] for n in live]),
+        dim=0).item()
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+    e_k = {n: rel(got[n], plain32[n]) for n in live}
+    e_p = {n: rel(plain[n], plain32[n]) for n in live}
+    wk, wp = max(e_k, key=e_k.get), max(e_p, key=e_p.get)
+    print(f"lora encoder: {cfg.num_layers} layers at {length} tokens "
+          f"({n_valid} valid), {n_b} B matrices nonzero; gradients to "
+          f"{len(got)} LoRA tensors, launches {launches}; B_img of every "
+          f"layer has signal, gene/task none; kernel vs plain bf16 cosine "
+          f"{cos:.6f}; worst rel-L2 from the fp32 plain path "
+          f"{e_k[wk]:.3e} ({wk}) vs {e_p[wp]:.3e} plain bf16 ({wp})",
+          flush=True)
+    check(cos >= 0.999 and e_k[wk] <= 2 * e_p[wp],
+          f"lora encoder kernel vs plain: cosine {cos:.6f}, worst tensor "
+          f"{e_k[wk]:.3e} vs {e_p[wp]:.3e} plain")
+    del models
+    torch.cuda.empty_cache()
+    return dict(launches=launches, k2_families=k2, cosine=cos,
+                worst_tensor=(e_k[wk], e_p[wp]))
+
+
+def phase_lora(device, card="", build_kw=None, compare_kw=None,
+               encoder_kw=None):
+    """ModalTune-GigaPath with the LoRA encoder variant
+    (``lora_adapter``) at full width, LoRA B nonzero: one embed at the
+    10,239 bucket held to the plain path, three train steps (backbone and
+    its LoRA frozen, as the JAX package's ``FROZEN_KEY = "backbone"``
+    freezes them) held to the plain path by the train steps' gates, every
+    one of its 60 D = 48 K2f and K2b launches a step on the wgmma family
+    and each held to its plain version on its own inputs
+    (:func:`k2_call_readings`); then the encoder alone with gradients to
+    the LoRA parameters (:func:`lora_encoder_grads`)."""
+    import torch
+    build_kw = build_kw or GIGAPATH_LORA
+    res = {"gigapath_lora_embed": phase_slice(
+        device, torch.bfloat16, card=card, build_kw=dict(build_kw, n_slides=1),
+        timing_rounds=3, tag="lora slice")}
+    res["gigapath_lora_train"] = phase_train(
+        device, card=card, build_kw=build_kw,
+        compare_kw=compare_kw or GIGAPATH_2047, tag="lora train",
+        k2_calls=True)
+    res["encoder"] = lora_encoder_grads(device, **(encoder_kw or {}))
+    return res
+
+
+def _moe_run(model, x, cot, autocast, with_aux=True):
+    """``(out, aux, dx, {param: grad})`` of ``sum(out * cot)`` (+ aux
+    where asked), all fp32, the forward under bf16 autocast where
+    asked."""
+    import torch
+    x = x.clone().requires_grad_()
+    model.zero_grad(set_to_none=True)
+    with torch.autocast(x.device.type, dtype=torch.bfloat16,
+                        enabled=autocast):
+        out, aux = model(x)
+    loss = (out.float() * cot).sum()
+    (loss + aux if with_aux else loss).backward()
+    return (out.float().detach(), aux.item(), x.grad.float(),
+            {n: p.grad.float() for n, p in model.named_parameters()})
+
+
+def _moe_rank(rank, n, run_dir, experts, factors):
+    """Rank ``rank`` of the expert-parallel MoE: a process of an
+    ``n``-rank gloo group on the one card, its token rows of the
+    ``x`` and its share of the experts of the ``state`` that
+    ``run_dir/inputs.pt`` holds, on its device, for each (gate type,
+    capacity factor) of ``factors``, in fp32; its results saved to
+    ``run_dir``."""
+    import torch
+    import torch.distributed as dist
+    from modaltune_tpu_torch.models.extras import MoeFeedForward
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, state, dev = torch.load(f"{run_dir}/inputs.pt", weights_only=False)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{run_dir}/init",
+                            rank=rank, world_size=n)
+    try:
+        d, f = state["w1"].shape[1:]
+        local = experts // n
+        s = x.shape[1] // n
+        out = {}
+        for gate_type, factor in factors:
+            m = MoeFeedForward(d, f, experts, capacity_factor=factor,
+                               gate_type=gate_type,
+                               group=dist.group.WORLD).eval()
+            m.load_state_dict({k: v if k == "gate.weight" else
+                               v[rank * local:(rank + 1) * local]
+                               for k, v in state.items()})
+            xs = x[:, rank * s:(rank + 1) * s].to(dev)
+            got = _moe_run(m.to(dev), xs, torch.ones_like(xs), False,
+                           with_aux=False)
+            out[gate_type] = (got[0].cpu(), got[2].cpu(),
+                              {k: v.cpu() for k, v in got[3].items()})
+        torch.save(out, f"{run_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_moe(device, card="", tokens=10240, dim=768, ffn=3072, experts=8,
+              xpos_shape=(1, 10240, 48), bias_kw=None, timeout=300):
+    """The MoE FFN at GigaPath's widths (``dim``, ``ffn``, ``experts``
+    experts, ``tokens`` tokens): top-1 and top-2 gating, forward and
+    backward under bf16 autocast on the card against the same weights in
+    fp32 on the CPU (the routing equal, out and every gradient by
+    :func:`grad_readings` at the bf16 limits, aux within 1e-5); then
+    expert parallelism at a capacity that drops no token, in fp32: over a
+    world of one on NCCL (the exchange a copy: bit-equal to the model
+    without a group) and over two gloo ranks sharing the card, each with
+    half the tokens and half the experts (out and the gradients of
+    ``sum(out)`` within 1e-5 of the largest value of the single process's;
+    the aux loss is each rank's own); then ``apply_xpos`` at
+    ``xpos_shape`` and the T5 bias (16 heads, 1,024 x 1,024) on the card
+    against the CPU."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from modaltune_tpu_torch import init_weights
+    from modaltune_tpu_torch.models.extras import (
+        MoeFeedForward, RelativePositionBias, apply_xpos, top1_gating,
+        top2_gating)
+    g = torch.Generator().manual_seed(21)
+    x = torch.randn(1, tokens, dim, generator=g)
+    cot = torch.randn(1, tokens, dim, generator=g)
+    res = {}
+    for gate_type in ("top1", "top2"):
+        cpu = init_weights(MoeFeedForward(dim, ffn, experts,
+                                          gate_type=gate_type),
+                           torch.Generator().manual_seed(22)).eval()
+        with torch.no_grad():
+            for b in (cpu.b1, cpu.b2):
+                b.normal_(0.0, 0.02, generator=g)
+        card_m = copy.deepcopy(cpu).to(device)
+        gating = top1_gating if gate_type == "top1" else top2_gating
+        s, e = tokens, experts
+        cap = max(1, int((2 if gate_type == "top2" else 1) * s / e))
+        with torch.no_grad():
+            want_d = gating(cpu.gate(x.reshape(s, dim)), cap)[1]
+            got_d = gating(card_m.gate(x.to(device).reshape(s, dim)), cap)[1]
+        moved = int((got_d.cpu() != want_d).any(dim=(1, 2)).sum())
+        kept = int(want_d.any(dim=(1, 2)).sum())
+        want = _moe_run(cpu, x, cot, False)
+        got = _moe_run(card_m, x.to(device), cot.to(device), True)
+        torch.cuda.synchronize()
+        out_r = check_out(got[0], want[0].to(device), "bfloat16",
+                          f"moe {gate_type} out")
+        names = sorted(want[3])
+        grad_r = check_grads(["x"] + names,
+                             [got[2]] + [got[3][n] for n in names],
+                             [want[2].to(device)] + [want[3][n].to(device)
+                                                     for n in names],
+                             cot.to(device), "bfloat16",
+                             f"moe {gate_type} gradient")
+        aux_err = abs(got[1] - want[1])
+        check(moved == 0 and aux_err <= 1e-5,
+              f"moe {gate_type}: {moved} tokens routed otherwise on the "
+              f"card; aux {got[1]} vs {want[1]}")
+        xd, cd = x.to(device), cot.to(device)
+        ms = time_ms(lambda: _moe_run(card_m, xd, cd, True), iters=5,
+                     warmup=1)
+        res[gate_type] = dict(out=out_r, grads=grad_r, ms=ms, kept=kept)
+        print(f"moe {gate_type}: {tokens} tokens, {experts} experts of "
+              f"{dim} -> {ffn}, capacity {cap}: {kept} tokens routed, the "
+              f"same on the card and the CPU; bf16 card vs fp32 CPU: out "
+              f"rel-L2 {out_r[0]:.3e} (row-scaled {out_r[1]:.3e}), worst "
+              f"gradient of x and {len(names)} parameters rel-L2 "
+              f"{grad_r[0]:.3e} (row-scaled {grad_r[1]:.3e}), aux |err| "
+              f"{aux_err:.2e}; forward + backward {ms:.3f} ms"
+              f"{'; ' + card if card else ''}", flush=True)
+        del cpu, card_m, want, got
+
+    # expert parallelism in fp32, at capacities that drop no token
+    state = {k: v.detach().clone() for k, v in init_weights(
+        MoeFeedForward(dim, ffn, experts),
+        torch.Generator().manual_seed(23)).state_dict().items()}
+    factors = (("top1", float(experts)), ("top2", experts / 2.0))
+    single = {}
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    dist.init_process_group("nccl", init_method=f"file://{run_dir}/nccl",
+                            rank=0, world_size=1)
+    try:
+        for gate_type, factor in factors:
+            outs = []
+            for group in (None, dist.group.WORLD):
+                m = MoeFeedForward(dim, ffn, experts, capacity_factor=factor,
+                                   gate_type=gate_type, group=group).eval()
+                m.load_state_dict(state)
+                outs.append(_moe_run(m.to(device), x.to(device),
+                                     torch.ones_like(x, device=device),
+                                     False, with_aux=False))
+            same = torch.equal(outs[0][0], outs[1][0]) and torch.equal(
+                outs[0][2], outs[1][2]) and all(
+                torch.equal(outs[0][3][k], outs[1][3][k]) for k in state)
+            check(same, f"moe {gate_type}: a world of one over NCCL changed "
+                  f"the result")
+            single[gate_type] = outs[0]
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print("moe: expert parallelism over a world of one (NCCL): out and "
+          "gradients bit-equal to the model without a group, top-1 and "
+          "top-2", flush=True)
+    torch.save((x, state, device), f"{run_dir}/inputs.pt")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_moe_rank, args=(r, 2, run_dir, experts,
+                                                 factors))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(max(1.0, timeout - (time.perf_counter() - t0)))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    check(not alive and all(p.exitcode == 0 for p in procs),
+          f"expert-parallel ranks: exit codes {[p.exitcode for p in procs]}"
+          f" (killed after {timeout} s: {bool(alive)})")
+    ranks = [torch.load(f"{run_dir}/rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    worst = 0.0
+    for gate_type, _ in factors:
+        out, _, dx, gp = single[gate_type]
+        parts = [r[gate_type] for r in ranks]
+        pairs = [("out", torch.cat([p[0] for p in parts], 1), out),
+                 ("dx", torch.cat([p[1] for p in parts], 1), dx),
+                 ("gate.weight", parts[0][2]["gate.weight"]
+                  + parts[1][2]["gate.weight"], gp["gate.weight"])]
+        pairs += [(k, torch.cat([p[2][k] for p in parts]), gp[k])
+                  for k in ("w1", "b1", "w2", "b2")]
+        for name, got_t, want_t in pairs:
+            want_t = want_t.cpu()
+            err = (got_t - want_t).abs().max().item() / \
+                want_t.abs().max().item()
+            worst = max(worst, err)
+            check(err <= 1e-5, f"moe {gate_type} over two gloo ranks: "
+                  f"{name} max|err| / max {err:.3e}")
+    res["ep_worst"] = worst
+    print(f"moe: expert parallelism over two gloo ranks sharing the card "
+          f"(half the tokens and half the experts each), top-1 and top-2 "
+          f"in fp32: out and gradients against one process, largest "
+          f"max|err| / max {worst:.3e}", flush=True)
+
+    # xPos and the T5 bias on the card against the CPU
+    xp = torch.randn(*xpos_shape, generator=g)
+    errs = {}
+    for down in (False, True):
+        want = apply_xpos(xp, downscale=down)
+        got = apply_xpos(xp.to(device), downscale=down).cpu()
+        errs[down] = (got - want).abs().max().item() / \
+            want.abs().max().item()
+    bias_kw = bias_kw or dict(num_buckets=32, max_distance=128,
+                              num_heads=16, qlen=1024, klen=1024)
+    rpb = init_weights(RelativePositionBias(
+        bias_kw["num_buckets"], bias_kw["max_distance"],
+        bias_kw["num_heads"]), torch.Generator().manual_seed(24))
+    want_b = rpb(bias_kw["qlen"], bias_kw["klen"]).detach()
+    got_b = copy.deepcopy(rpb).to(device)(bias_kw["qlen"],
+                                          bias_kw["klen"]).detach().cpu()
+    check(max(errs.values()) <= 1e-5 and torch.equal(got_b, want_b),
+          f"xPos card vs CPU {errs}; T5 bias equal "
+          f"{torch.equal(got_b, want_b)}")
+    res.update(xpos_err=max(errs.values()))
+    print(f"extras: apply_xpos {tuple(xpos_shape)} card vs CPU max|err| / "
+          f"max {max(errs.values()):.3e} (up and down scaling); T5 bias "
+          f"{tuple(want_b.shape)} bit-equal", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Dataset preparation on the card (data/pipeline.py, data/extract.py)
+# ---------------------------------------------------------------------------
+
+def card_tile_encoder(device, out_dim, seed):
+    """A stand-in tile encoder on the card with seeded weights (the real
+    tile weights are external): uint8 tiles ``(N, s, s, 3)`` -> RGB
+    average-pooled to 16 x 16 -> a linear map to ``out_dim`` -> numpy
+    fp32 ``(N, out_dim)``."""
+    import torch
+    import torch.nn.functional as F
+    w = (torch.randn(768, out_dim, generator=torch.Generator().manual_seed(
+        seed)) / math.sqrt(768)).to(device)
+
+    def encode(tiles):
+        t = torch.from_numpy(tiles).to(device).permute(0, 3, 1, 2).float()
+        t = F.adaptive_avg_pool2d(t / 255.0, 16).flatten(1)
+        return (t @ w).cpu().numpy()
+    return encode
+
+
+def card_text_encoder(device, seed, dim=512):
+    """A stand-in text tower on the card with seeded weights (CONCH is
+    external): each prompt's byte histogram through a linear map to
+    ``dim``."""
+    import numpy as np
+    import torch
+    w = (torch.randn(256, dim, generator=torch.Generator().manual_seed(seed))
+         / 16.0).to(device)
+
+    def encode(texts):
+        counts = np.zeros((len(texts), 256), np.float32)
+        for i, t in enumerate(texts):
+            np.add.at(counts[i], np.frombuffer(t.encode(), np.uint8), 1.0)
+        return (torch.from_numpy(counts).to(device) @ w).cpu().numpy()
+    return encode
+
+
+PREPARE_FLAGS = ["--mil_name", "longnetvit_gene_adapter", "--bf16", "1",
+                 "--buckets", "2047", "--num_epochs", "1",
+                 "--eval_interval", "1", "--seed", "0"]
+
+
+def phase_prepare(device, card="", seed=0, tiles=1800, in_chans=1536,
+                  n_genes=4987, n_groups=331, max_size=100, flags=None,
+                  titan_tiles=2000, titan_cfg=None, titan_bucket=4095):
+    """Dataset preparation end to end on a synthetic TCGA site
+    (:func:`write_tcga_site`, seed ``seed``), then training on what it
+    wrote. ``pipeline.load_labelset`` (the available slides only) ->
+    ``make_splits`` (the split JSONs), ``prepare_clinical_features``,
+    ``generate_prompts`` and ``make_text_embeddings`` (a stand-in text
+    tower on the card), ``process_gene_matrix`` on a synthetic Xena
+    matrix (constant genes, a second sample of a case); every slide of
+    the splits through ``extract.extract_slide_features``
+    (:func:`synthetic_slide`, 256-px tiles, about ``tiles`` a case; a
+    stand-in tile encoder on the card, ``in_chans`` wide) into the
+    ``.npz`` bags the JSONs name; then the train CLI in-process on those
+    files (``PREPARE_FLAGS``: one epoch at the 2,047 bucket) with K1f,
+    K1b, K2f and K2b launched. Separately ``extract_slide_features_titan``
+    on a slide of about ``titan_tiles`` 512-px tiles (a 768-d stand-in
+    patch encoder) with the port's TitanViT in bf16 as its slide encoder
+    (``grid_scatter_bag`` into ``titan_bucket`` cells): 6 K4f launches,
+    the slide embedding held to the plain path. Prints the host seconds
+    of every step."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from modaltune_tpu_torch import init_weights
+    from modaltune_tpu_torch.data import extract, pipeline
+    from modaltune_tpu_torch.data import datasets as data_mod
+    from modaltune_tpu_torch.models import TitanViT, grid_scatter_bag
+    from modaltune_tpu_torch.tools import train as cli
+    from modaltune_tpu_torch.train import trainer as trainer_mod
+    flags = PREPARE_FLAGS if flags is None else flags
+    seconds = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        site = timed("write_site", lambda: write_tcga_site(root, seed))
+        df = timed("load_labelset", lambda: pipeline.load_labelset(
+            "brca", site["clinical"], site["slide"],
+            available_slide_ids=list(site["slides"])))
+        splits = timed("make_splits", lambda: pipeline.make_splits(
+            df, str(root / "features"), site["gene_case_ids"],
+            str(root / "splits"), "brca", seed=seed))
+        clinical = timed("prepare_clinical_features",
+                         lambda: pipeline.prepare_clinical_features(
+                             df, str(root / "clinical.npz")))
+        rows = pipeline.frame_records(pipeline.drop_duplicates(
+            df, ("case_id",)))
+        prompts = timed("generate_prompts",
+                        lambda: pipeline.generate_prompts(rows, "brca"))
+        text = timed("make_text_embeddings",
+                     lambda: pipeline.make_text_embeddings(
+                         rows, "brca", card_text_encoder(device, seed + 1),
+                         str(root / "text.npz")))
+        rng = np.random.default_rng(seed + 2)
+        samples = [f"{c}-01A" for c in site["gene_case_ids"]]
+        samples.append(f"{site['gene_case_ids'][0]}-11A")
+        expr = rng.standard_normal((n_genes + 3, len(samples)))
+        expr[-3:] = 2.0                      # constant genes
+        frame = {"sample": [f"g{i}" for i in range(n_genes)]
+                 + ["c0", "c1", "c2"]}
+        frame.update({s: expr[:, j].tolist() for j, s in enumerate(samples)})
+        genes = timed("process_gene_matrix",
+                      lambda: pipeline.process_gene_matrix(
+                          frame, [f"g{i}" for i in range(n_genes)],
+                          output_csv=str(root / "genes.csv")))
+        write_pathway_csv(root / "pathways.csv", n_genes, n_groups, max_size)
+        n_rows = {k: len(v) for k, v in splits.items()}
+        check(min(n_rows.values()) > 0 and len(clinical) == len(rows) and
+              all(len(v) == len(rows) for v in prompts.values()) and
+              all(v.shape == (4, 512) for v in text.values()) and
+              len(genes["case_id"]) == len(site["gene_case_ids"]) and
+              len(genes) == n_genes + 1,
+              f"prepare: split rows {n_rows}, {len(clinical)} clinical "
+              f"vectors, {len(text)} text tables, gene frame "
+              f"{len(genes['case_id'])} x {len(genes) - 1}")
+
+        # every slide the splits name, through the tile encoder on the card
+        encode = card_tile_encoder(device, in_chans, seed + 3)
+        (root / "features").mkdir()
+        slide_ids = sorted({r["slide_submitter_id"] for v in splits.values()
+                            for r in v})
+        per_case = {}
+        for r in rows:
+            per_case[r["case_id"]] = sum(
+                1 for v in splits.values() for x in v
+                if x["case_id"] == r["case_id"])
+        n_tiles = []
+
+        def extract_all():
+            for i, sid in enumerate(slide_ids):
+                case = next(r for v in splits.values() for r in v
+                            if r["slide_submitter_id"] == sid)
+                read_region, thumb, ds = synthetic_slide(
+                    seed * 1000 + i, tiles // per_case[case["case_id"]])
+                bag = extract.extract_slide_features(
+                    read_region, extract.tissue_mask(thumb), ds, encode,
+                    output_npz=case["features_path"])
+                n_tiles.append(len(bag["features"]))
+        timed("extract_slide_features", extract_all)
+        feats, _ = data_mod.load_feature_bag(splits["test"][0]
+                                             ["features_path"])
+        check(feats.shape[1] == in_chans and np.isfinite(feats).all(),
+              f"prepare: bag {feats.shape}")
+        print(f"prepare: site of {site['n_cases']} cases -> "
+              f"{len(rows)} cases with a slide and a diagnosis, split rows "
+              f"{n_rows}, {len(slide_ids)} slides of {min(n_tiles)}-"
+              f"{max(n_tiles)} tiles ({sum(n_tiles)} in all) encoded on the "
+              f"card to {in_chans}-d; gene CSV {len(genes['case_id'])} cases "
+              f"x {len(genes) - 1} genes", flush=True)
+
+        # the CLI on the prepared files
+        split_dir = root / "splits"
+        args = cli.build_parser().parse_args(flags + [
+            "--train_json", str(split_dir / "train_brca_cls_feat.json"),
+            "--val_json", str(split_dir / "val_brca_cls_feat.json"),
+            "--test_json", str(split_dir / "test_brca_cls_feat.json"),
+            "--genomics_csv_path", str(root / "genes.csv"),
+            "--pathway_csv", str(root / "pathways.csv"),
+            "--text_location", str(root / "text.npz"),
+            "--output_path", str(root / "results"),
+            "--device", device.type])
+        t = time.perf_counter()
+        trainer, run_s, launches, peak, wall = run_cli(
+            cli, args, trainer_mod.ModalTuneTrainer, ("train_one_epoch",))
+        seconds["train_cli"] = time.perf_counter() - t
+        metrics = [json.loads(line) for line in
+                   open(root / "results" / "seed_0" / "run_metrics.jsonl")]
+        losses = [r["train_loss"] for r in metrics if "train_loss" in r]
+        check(len(losses) == 1 and all(math.isfinite(x) for x in losses),
+              f"prepare: epoch losses {losses}")
+        check(all(launches[k] > 0 for k in ("K1f", "K1b", "K2f", "K2b")),
+              f"prepare: launches {launches}")
+        print(f"prepare: the train CLI on the prepared files: "
+              f"{len(trainer.step_ms)} steps, median "
+              f"{statistics.median(trainer.step_ms):.2f} ms/step, epoch "
+              f"loss {losses[0]:.6f}, run_one_seed {wall:.1f} s, peak "
+              f"allocated {peak / 2**30:.3f} GiB, launches {launches}"
+              f"{'; ' + card if card else ''}", flush=True)
+
+        # TITAN: 512-px tiles, a stand-in patch encoder, TitanViT in bf16
+        tcfg = titan_cfg or model_config(TITAN["config"]).backbone
+        vit = init_weights(TitanViT(tcfg), torch.Generator().manual_seed(
+            seed + 4)).to(device, torch.bfloat16).eval()
+
+        def slide_encoder(features, coords):
+            tokens, gc, valid = grid_scatter_bag(
+                features, coords, tcfg.patch_size_lv0, bucket=titan_bucket)
+            with torch.no_grad():
+                out = vit(torch.from_numpy(tokens)[None].to(
+                    device, torch.bfloat16),
+                    torch.from_numpy(gc)[None].to(device),
+                    torch.from_numpy(valid)[None].to(device))
+            return out.float()[0].cpu().numpy()
+
+        read_region, thumb, ds = synthetic_slide(seed + 5, titan_tiles,
+                                                 tile=512)
+        patch = card_tile_encoder(device, tcfg.in_dim, seed + 6)
+        reset_counts()
+        bag = timed("extract_slide_features_titan",
+                    lambda: extract.extract_slide_features_titan(
+                        read_region, extract.tissue_mask(thumb), ds, patch,
+                        slide_encoder=slide_encoder,
+                        output_npz=str(root / "titan.npz")))
+        titan_launches = read_counts()
+        want = {k: tcfg.depth * (k == "K4f") for k in titan_launches}
+        check(titan_launches == want,
+              f"titan extract launches {titan_launches} != {want}")
+        plain = run_plain(lambda: slide_encoder(bag["features"],
+                                                bag["coords"]))
+        emb = bag["slide_embedding"]
+        cos = float(emb @ plain / np.linalg.norm(emb) / np.linalg.norm(plain))
+        rel = float(np.linalg.norm(emb - plain) / np.linalg.norm(plain))
+        cells = int(grid_scatter_bag(bag["features"], bag["coords"],
+                                     tcfg.patch_size_lv0)[2].sum())
+        print(f"prepare: TITAN extraction: {len(bag['features'])} tiles of "
+              f"512 px -> {tcfg.in_dim}-d on the card, {cells} foreground "
+              f"cells in the {titan_bucket} bucket, slide embedding "
+              f"{emb.shape} by TitanViT in bf16 (K4f {titan_launches['K4f']})"
+              f"; against the plain path cosine {cos:.6f}, rel-L2 "
+              f"{rel:.3e}", flush=True)
+        check(np.isfinite(emb).all() and cos >= 0.999 and rel <= 2e-2,
+              f"titan extract vs plain: cosine {cos:.6f}, rel-L2 {rel:.3e}")
+    print(f"prepare: host seconds {json.dumps({k: round(v, 3) for k, v in seconds.items()})}",
+          flush=True)
+    return dict(gigapath_prepare=dict(launches=launches, seconds=seconds,
+                                      losses=losses, peak_bytes=peak),
+                titan_extract=dict(launches=titan_launches, cosine=cos,
+                                   rel_l2=rel))
+
+
+# ---------------------------------------------------------------------------
+# Profiling on the card (utils/profiling.py, tools/trace_report.py)
+# ---------------------------------------------------------------------------
+
+# substrings of the kernel names of each kernel on the default route's
+# train step (as profile_train.GROUPS names them)
+PROFILE_CLASSES = {"K1f": "dilated_fwd", "K1b": "dilated_bwd",
+                   "K2f": "flash_fwd", "K2b": "flash_bwd"}
+
+
+def phase_profile(device, card="", build_kw=None, steps=2):
+    """``utils.profiling.trace`` around ``steps`` GigaPath train steps
+    (default route, 10,239 unless ``build_kw``), each timed by a
+    ``StepTimer``, then ``tools/trace_report`` over the trace it wrote:
+    the report takes the device's events, names a class of each of K1f,
+    K1b, K2f and K2b, and its per-step device total lies within 10 % of
+    :func:`device_times` of the same step. Prints the ten classes with the
+    most device time and the timer's summary."""
+    import tempfile
+    import torch
+    from modaltune_tpu_torch import make_train_step
+    from modaltune_tpu_torch.tools import trace_report
+    from modaltune_tpu_torch.utils.profiling import StepTimer, trace
+    build_kw = build_kw or GIGAPATH
+    model, tcfg, opt, text, batch = build_train(device, **build_kw)
+    step = make_train_step(model, tcfg, opt)
+    gen = torch.Generator(device=device).manual_seed(3)
+    step(batch, text, gen)
+    torch.cuda.synchronize()
+    timer = StepTimer()
+    with tempfile.TemporaryDirectory() as log_dir:
+        with trace(log_dir):
+            for _ in range(steps):
+                timer.start()
+                timer.stop(step(batch, text, gen))
+        rep = trace_report.summarize(trace_report.load_events(log_dir),
+                                     steps=steps)
+    dev_ms, _ = device_times(lambda: step(batch, text, gen), iters=steps,
+                             warmup=0)
+    print(f"profile: trace_report over {steps} traced train steps at "
+          f"bucket {batch['bag'].shape[1]}, the ten op classes with the "
+          f"most device time:", flush=True)
+    trace_report.print_report(rep, top=10)
+    print(f"profile: StepTimer {json.dumps(timer.summary())}", flush=True)
+    classes = list(rep["ms_per_step"])
+    named = {k: [c for c in classes if sub in c]
+             for k, sub in PROFILE_CLASSES.items()}
+    total = rep["total_ms_per_step"]
+    off = abs(total - dev_ms) / dev_ms
+    print(f"profile: report's device total {total:.3f} ms/step against "
+          f"device_times {dev_ms:.3f} ms/step ({100 * off:.2f} % apart); "
+          f"kernel classes {json.dumps(named)}{'; ' + card if card else ''}",
+          flush=True)
+    check(rep["lane"] == "device" and all(named.values()) and off <= 0.10,
+          f"profile: lane {rep['lane']}, classes {named}, total {total:.3f} "
+          f"vs {dev_ms:.3f} ms")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return dict(total_ms=total, device_ms=dev_ms, summary=timer.summary(),
+                top=dict(list(rep["ms_per_step"].items())[:10]))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3168,10 +3996,22 @@ def main() -> int:
     # the supervised baselines: no kernel of the port, so not a path of the
     # kernels line
     phase_baselines(device, card=card)
+    # the LongNet extras: GigaPath with the LoRA encoder variant (every
+    # branch on K2's wgmma family), then MoE with its exchange, xPos and
+    # the T5 bias (no kernel of the port)
+    lora = phase_lora(device, card=card)
+    paths["gigapath_lora_embed"] = lora["gigapath_lora_embed"]
+    paths["gigapath_lora_train"] = lora["gigapath_lora_train"]
+    phase_moe(device, card=card)
+    # dataset preparation on a synthetic site, the CLI on what it wrote,
+    # and a TITAN extraction with the slide encoder on K4f
+    paths.update(phase_prepare(device, card=card))
+    # a trace of two train steps and its report
+    phase_profile(device, card=card)
 
     def kernel(key, name, replaces, err, res, by_shape=None, source=None,
                family=None, sources=None):
-        """One entry of the kernels line. launches: the sum over the twelve
+        """One entry of the kernels line. launches: the sum over the sixteen
         paths' runs (by_path: each run's own count, every count set to 0
         just before it); max_abs_err: the largest output or gradient error
         of any comparison above; ms, plain_ms, bound_ms, library_ms: at

@@ -1,4 +1,7 @@
 from .adapter import Extractor, InteractionBlock, Injector
+from .extras import (LoraDilatedSelfAttention, MoeFeedForward,
+                     RelativePositionBias, apply_xpos, top1_gating,
+                     top2_gating)
 from .gene import (ChannelFeedForward, GeneMixerEncoder, GeneOnlyModel,
                    TokenFeedForward)
 from .heads import classifier_logits, survival_from_logits
@@ -31,5 +34,6 @@ __all__ = [
     "PatchEmbed", "SelfAttentionLayer", "TokenFeedForward", "TorchMHA",
     "coords_pos_embed", "create_aggregator", "dropout_generator",
     "init_weights", "mask_to_bias",
-    "sincos_1d",
+    "sincos_1d", "LoraDilatedSelfAttention", "MoeFeedForward",
+    "RelativePositionBias", "apply_xpos", "top1_gating", "top2_gating",
 ]

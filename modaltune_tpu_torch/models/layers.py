@@ -37,7 +37,9 @@ def dropout_generator(g: torch.Generator) -> Iterator[torch.Generator]:
         _DROPOUT_GENERATOR.reset(token)
 
 
-def _uniform(shape, x: torch.Tensor) -> torch.Tensor:
+def ambient_generator(x: torch.Tensor) -> torch.Generator:
+    """The generator of the enclosing :func:`dropout_generator`, which
+    must lie on ``x``'s device type."""
     g = _DROPOUT_GENERATOR.get()
     if g is None:
         raise RuntimeError("dropout in training mode needs a generator: run "
@@ -45,7 +47,11 @@ def _uniform(shape, x: torch.Tensor) -> torch.Tensor:
     if g.device.type != x.device.type:
         raise ValueError(f"dropout generator on {g.device}, tensor on "
                          f"{x.device}")
-    return torch.rand(shape, generator=g, device=x.device)
+    return g
+
+
+def _uniform(shape, x: torch.Tensor) -> torch.Tensor:
+    return torch.rand(shape, generator=ambient_generator(x), device=x.device)
 
 
 class Dropout(nn.Module):
@@ -87,22 +93,26 @@ def fill_normal_(p: torch.Tensor, std: float, g: torch.Generator) -> None:
 
 class Dense(nn.Linear):
     """``nn.Linear`` that names the JAX package's initialiser for it:
-    ``"lecun"`` (flax's Dense default), ``"xavier"`` or ``"normal02"``."""
+    ``"lecun"`` (flax's Dense default), ``"xavier"``, ``"normal02"``,
+    ``"he_uniform"`` or ``"zeros"`` (a LoRA adapter's A and B)."""
 
     def __init__(self, in_features: int, out_features: int,
                  init: str = "lecun", bias: bool = True):
         super().__init__(in_features, out_features, bias=bias)
-        if init not in ("lecun", "xavier", "normal02"):
+        if init not in ("lecun", "xavier", "normal02", "he_uniform", "zeros"):
             raise ValueError(f"unknown initialiser {init!r}")
         self.init_name = init
 
     @torch.no_grad()
     def init_weights(self, g: torch.Generator) -> None:
         fan_out, fan_in = self.weight.shape
-        if self.init_name == "xavier":
-            bound = math.sqrt(6.0 / (fan_in + fan_out))
+        if self.init_name in ("xavier", "he_uniform"):
+            bound = math.sqrt(6.0 / (fan_in + fan_out)
+                              if self.init_name == "xavier" else 6.0 / fan_in)
             self.weight.copy_(torch.empty(self.weight.shape, device=g.device)
                               .uniform_(-bound, bound, generator=g))
+        elif self.init_name == "zeros":
+            self.weight.zero_()
         else:
             std = 0.02 if self.init_name == "normal02" else fan_in ** -0.5
             fill_normal_(self.weight, std, g)

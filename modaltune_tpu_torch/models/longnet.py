@@ -9,6 +9,9 @@ or, with ``LongNetConfig.mega_attention`` off,
 with every branch on the K2 flash kernels, and whose FFN is
 fc1 -> exact fp32 GELU -> sub-LN -> fc2, the GELU and the sub-LN as two ops
 or, when asked for, as the one fused op :func:`..ops.gelu_ln.gelu_ln` (K5).
+With ``LongNetConfig.lora_adapter`` the self-attention is
+:class:`.extras.LoraDilatedSelfAttention` (per-modality LoRA deltas on
+q/k/v, every branch on K2), as the JAX encoder builds it.
 Padded tokens are masked out of every attention and re-zeroed after every
 layer. The
 JAX package's span stacking, comb layouts and remat are TPU machinery and
@@ -145,7 +148,12 @@ class FeedForwardNetwork(nn.Module):
 
 
 class LongNetEncoderLayer(nn.Module):
-    """Pre-norm encoder layer; padded positions are re-zeroed at the end."""
+    """Pre-norm encoder layer; padded positions are re-zeroed at the end.
+
+    With ``cfg.lora_adapter`` its self-attention is
+    :class:`.extras.LoraDilatedSelfAttention` (the JAX package's
+    ``LongNetLoraAdapterEncoder`` variant), given a zero gene and task
+    context, as the JAX layer is when its caller passes none."""
 
     def __init__(self, cfg: LongNetConfig, drop_path_rate: float = 0.0,
                  fused_gelu_ln: Optional[bool] = None):
@@ -153,7 +161,13 @@ class LongNetEncoderLayer(nn.Module):
         d = cfg.embed_dim
         self.cfg = cfg
         self.self_attn_layer_norm = nn.LayerNorm(d, eps=cfg.layernorm_eps)
-        self.self_attn = DilatedSelfAttention(cfg)
+        if cfg.lora_adapter:
+            from .extras import LoraDilatedSelfAttention
+            self.self_attn = LoraDilatedSelfAttention(
+                cfg, lora_alpha=cfg.lora_alpha, img_rank=cfg.img_lora_dim,
+                mm_rank=cfg.mm_lora_dim, lora_dropout=cfg.lora_dropout)
+        else:
+            self.self_attn = DilatedSelfAttention(cfg)
         self.dropout = Dropout(cfg.dropout)
         self.final_layer_norm = nn.LayerNorm(d, eps=cfg.layernorm_eps)
         self.ffn = FeedForwardNetwork(cfg, fused_gelu_ln)
@@ -161,7 +175,15 @@ class LongNetEncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 sharded: bool = False) -> torch.Tensor:
-        h = self.self_attn(self.self_attn_layer_norm(x), mask, sharded)
+        h = self.self_attn_layer_norm(x)
+        if self.cfg.lora_adapter:
+            if sharded:
+                raise RuntimeError("the LoRA attention has no sequence-"
+                                   "parallel island; its spans run whole")
+            zero = h.new_zeros(h.shape[0], 1, h.shape[2])
+            h = self.self_attn(h, zero, zero, mask)
+        else:
+            h = self.self_attn(h, mask, sharded)
         x = x + self.drop_path(self.dropout(h))
         x = x + self.drop_path(self.ffn(self.final_layer_norm(x)))
         if mask is not None and self.cfg.mask_padding:

@@ -66,25 +66,28 @@ def alibi_attention_reference(q: torch.Tensor, k: torch.Tensor,
     fp32)``. The softmax runs over the valid keys only (a masked key's
     probability is exactly 0 and the rest sum to 1, as the JAX oracle
     re-normalises them). Out of place, so autograd differentiates
-    ``out``; ``lse`` is detached.
+    ``out``; ``lse`` is detached. Autocast is off inside, so the products
+    stay in fp32 under the train step's bf16 autocast too, as the JAX
+    package's reference computes them at HIGHEST precision.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale \
-        + alibi_scores_bias(coords3, slopes)
-    if key_mask is not None:
-        s = torch.where(key_mask[:, None, None, :], s, NEG_INF)
-    # the shift cancels in the softmax, so it carries no gradient
-    m = s.detach().amax(dim=-1, keepdim=True)
-    # next to a valid key a masked key's exp(NEG_INF - m) is exactly 0; a
-    # row with none (m <= NEG_INF/2) is zeroed below
-    p = torch.exp(s - m)
-    live = m > MASK_THRESHOLD
-    l_safe = torch.where(live, p.sum(dim=-1, keepdim=True), 1.0)
-    out = (torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / l_safe
-           * live).to(q.dtype)
-    lse = torch.where(live[..., 0], m[..., 0] + torch.log(l_safe[..., 0]),
-                      NEG_INF)
+    with torch.autocast(q.device.type, enabled=False):
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale \
+            + alibi_scores_bias(coords3, slopes)
+        if key_mask is not None:
+            s = torch.where(key_mask[:, None, None, :], s, NEG_INF)
+        # the shift cancels in the softmax, so it carries no gradient
+        m = s.detach().amax(dim=-1, keepdim=True)
+        # next to a valid key a masked key's exp(NEG_INF - m) is exactly 0;
+        # a row with none (m <= NEG_INF/2) is zeroed below
+        p = torch.exp(s - m)
+        live = m > MASK_THRESHOLD
+        l_safe = torch.where(live, p.sum(dim=-1, keepdim=True), 1.0)
+        out = (torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / l_safe
+               * live).to(q.dtype)
+        lse = torch.where(live[..., 0],
+                          m[..., 0] + torch.log(l_safe[..., 0]), NEG_INF)
     return out, lse.detach()
 
 
@@ -100,22 +103,24 @@ def alibi_attention_backward_reference(q, k, v, coords3, slopes, key_mask,
     ``dq = dS K scale``, ``dk = dS^T Q scale``, ``dv = P^T dout``. A row
     without a valid key (lse ``NEG_INF``) takes ``+|NEG_INF/2|`` in lse's
     place, so its P underflows to 0. Returns ``(dq, dk, dv)`` in the dtypes
-    of q, k and v.
+    of q, k and v. In fp32 under autocast too, as
+    :func:`alibi_attention_reference`.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
     qf, kf, vf, do = q.float(), k.float(), v.float(), dout.float()
-    delta = (do * out.float()).sum(dim=-1, keepdim=True)
-    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale \
-        + alibi_scores_bias(coords3, slopes)
-    lse_use = torch.where(lse > MASK_THRESHOLD, lse, -MASK_THRESHOLD)
-    p = torch.exp(s - lse_use[..., None])
-    if key_mask is not None:
-        p = torch.where(key_mask[:, None, None, :], p, 0.0)
-    ds = p * (torch.einsum("bhqd,bhkd->bhqk", do, vf) - delta)
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
+    with torch.autocast(q.device.type, enabled=False):
+        delta = (do * out.float()).sum(dim=-1, keepdim=True)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale \
+            + alibi_scores_bias(coords3, slopes)
+        lse_use = torch.where(lse > MASK_THRESHOLD, lse, -MASK_THRESHOLD)
+        p = torch.exp(s - lse_use[..., None])
+        if key_mask is not None:
+            p = torch.where(key_mask[:, None, None, :], p, 0.0)
+        ds = p * (torch.einsum("bhqd,bhkd->bhqk", do, vf) - delta)
+        dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+        dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+        dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

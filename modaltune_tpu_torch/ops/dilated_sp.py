@@ -287,11 +287,12 @@ def span_shard(cfg, length: int) -> Optional[SeqShard]:
     """How a span of a LongNet of ``cfg`` (a ``LongNetConfig``) over
     ``length`` tokens runs: on this rank's token shard (its
     :class:`SeqShard`) when ``cfg.seq_axes`` is set, the attention is on a
-    kernel route (``fused_attention``), the ambient mesh holds both axes
-    with more than one rank along the second, and :func:`sp_mega_eligible`
+    kernel route (``fused_attention``) and not the LoRA layer (which,
+    as in JAX, calls no island), the ambient mesh holds both axes with
+    more than one rank along the second, and :func:`sp_mega_eligible`
     takes the shape; else None, and the span runs whole (the same
     function)."""
-    if cfg.seq_axes is None or not cfg.fused_attention:
+    if cfg.seq_axes is None or not cfg.fused_attention or cfg.lora_adapter:
         return None
     shard = seq_shard(*cfg.seq_axes)
     if shard is None or not sp_mega_eligible(

@@ -4,9 +4,9 @@ NCCL takes CUDA tensors as they are. Gloo takes CPU tensors; a CUDA tensor
 on a gloo group (two processes sharing one card, where NCCL refuses two
 ranks on one GPU) travels through a CPU copy. Only the list forms of the
 collectives are used (``all_gather``, ``reduce_scatter``), which every
-torch release of the port's range has under one name. Gloo's
-reduce-scatter is an ``all_reduce`` and this rank's slice of it: the same
-sum.
+torch release of the port's range has under one name, and
+``all_to_all_single``. Gloo's reduce-scatter is an ``all_reduce`` and this
+rank's slice of it: the same sum.
 """
 
 from __future__ import annotations
@@ -71,3 +71,41 @@ def broadcast_object(obj, src: int = 0, group=None):
     box = [obj]
     dist.broadcast_object_list(box, src=src, group=group)
     return box[0]
+
+
+def _exchange(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"all_to_all_dim: dim {dim} of {tuple(x.shape)} "
+                         f"does not split into {n} chunks")
+    y = x.movedim(dim, 0)
+    y = (y.cpu() if _staged(x, group) else y).contiguous()
+    out = torch.empty_like(y)
+    dist.all_to_all_single(out, y, group=group)
+    return out.to(x.device).movedim(0, dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The exchange, differentiable: its gradient is the reverse exchange
+    of the gradient, as the reference's ``_AllToAll``
+    (``xmoe/moe_layer.py:49-64``); JAX differentiates ``all_to_all``
+    itself."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _exchange(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g.contiguous(), ctx.dim, ctx.group), None, None
+
+
+def all_to_all_dim(x: torch.Tensor, dim: int = 0, group=None) -> torch.Tensor:
+    """``x`` cut into as many equal chunks along ``dim`` as the group has
+    ranks: chunk i goes to rank i, and the result holds the chunks this
+    rank received, concatenated along ``dim`` in source-rank order
+    (``jax.lax.all_to_all(x, axis, dim, dim, tiled=True)``; with ``x.shape[0]``
+    equal to the world size and ``dim`` 0, the untiled form). Autograd
+    takes the gradient back by the reverse exchange."""
+    return _AllToAll.apply(x, dim, group)

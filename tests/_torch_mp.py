@@ -407,3 +407,40 @@ def mesh_pancancer_worker(rank, n, p):
     trainer.init_state({k: _t(v) for k, v in p["state"].items()})
     trainer.fit_readout_heads()
     return trainer.evaluate("val")
+
+
+def moe_worker(rank, n, p):
+    """Expert parallelism over the group, for each gate type of
+    ``p["gate_types"]``: this rank's token rows of ``p["x"]`` through
+    ``MoeFeedForward(group=WORLD)`` holding its share of the experts of
+    ``p["state"]``, loss ``sum(sin(out))``: (out, its gradient to x, to
+    the local w1/b1/w2/b2 and the gate); then ``all_to_all_dim`` alone on
+    dims 0 and 1 and its gradient."""
+    import torch.distributed as dist
+    from modaltune_tpu_torch.models.extras import MoeFeedForward
+    from modaltune_tpu_torch.parallel.collectives import all_to_all_dim
+    state = {k: _t(v) for k, v in p["state"].items()}
+    e, d, f = p["experts"], state["w1"].shape[1], state["w1"].shape[2]
+    local = e // n
+    s = p["x"].shape[1] // n
+    runs = {}
+    for gate_type in p["gate_types"]:
+        moe = MoeFeedForward(d, f, e, capacity_factor=p["capacity_factor"],
+                             gate_type=gate_type,
+                             group=dist.group.WORLD).eval()
+        moe.load_state_dict({k: v if k == "gate.weight"
+                             else v[rank * local:(rank + 1) * local]
+                             for k, v in state.items()})
+        x = _t(p["x"][:, rank * s:(rank + 1) * s]).requires_grad_()
+        out, _ = moe(x)
+        torch.sin(out).sum().backward()
+        runs[gate_type] = (out, x.grad, {k: v.grad for k, v in
+                                         moe.named_parameters()})
+
+    a = torch.arange(n * 6, dtype=torch.float32).reshape(n, 6) + 100 * rank
+    b = (torch.arange(2 * n * 3, dtype=torch.float32).reshape(2, n * 3)
+         + 100 * rank).requires_grad_()
+    ex_a = all_to_all_dim(a, 0)
+    ex_b = all_to_all_dim(b, 1)
+    (ex_b * (rank + 1)).sum().backward()
+    return _np((runs, ex_a, ex_b, b.grad))

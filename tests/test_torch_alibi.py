@@ -164,6 +164,27 @@ def test_alibi_backward_reference_matches_autograd(n, d):
                                        err_msg=f"{name} masked={masked}")
 
 
+def test_alibi_plain_versions_ignore_autocast():
+    """F15: under the train step's bf16 autocast (the CPU's here) the plain
+    forward and backward still compute in fp32, as the JAX oracle does at
+    HIGHEST precision: equal to their results outside autocast to 1e-6."""
+    c = _case(96, seed=4)
+    args = [_t(c[x]) for x in ("q", "k", "v", "coords3", "slopes",
+                               "key_mask")]
+    out, lse = alibi_attention_reference(*args)
+    grads = alibi_attention_backward_reference(*args, out, lse,
+                                               _t(c["cot"]))
+    with torch.autocast("cpu", dtype=torch.bfloat16):
+        auto = alibi_attention_reference(*args)
+        auto_grads = alibi_attention_backward_reference(*args, out, lse,
+                                                        _t(c["cot"]))
+    for name, got, want in zip(("out", "lse", "dq", "dk", "dv"),
+                               (*auto, *auto_grads), (out, lse, *grads)):
+        assert got.dtype == torch.float32, name
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                                   atol=1e-6, err_msg=name)
+
+
 @pytest.mark.parametrize("all_heads", [False, True])
 def test_alibi_cls_only_row(all_heads):
     """(b) a batch row whose keys are all masked but the cls token: every

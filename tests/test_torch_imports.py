@@ -10,8 +10,8 @@ framework-free layers have not drifted.
   field, default for default; the copied data layer gives the same arrays
   for a seed (its file readers: ``test_torch_data_readers.py``); the
   verbatim copies (``utils/constants.py``, ``utils/logging.py``,
-  ``native/bagcache.cpp``, ``eval/pancancer.py``, the readout's numpy
-  functions) are the same text; ``params_io`` reads and writes the same ``.npz`` files.
+  ``native/bagcache.cpp``, ``eval/pancancer.py``, ``data/extract.py``, the
+  readout's numpy functions) are the same text; ``params_io`` reads and writes the same ``.npz`` files.
 """
 
 import ast
@@ -59,7 +59,12 @@ def test_port_files_are_found():
             "modaltune_tpu_torch/train/trainer.py",
             "modaltune_tpu_torch/train/pancancer_trainer.py",
             "modaltune_tpu_torch/models/mil.py",
-            "modaltune_tpu_torch/tools/train.py", "chip_smoke.py",
+            "modaltune_tpu_torch/tools/train.py",
+            "modaltune_tpu_torch/tools/trace_report.py",
+            "modaltune_tpu_torch/models/extras.py",
+            "modaltune_tpu_torch/data/pipeline.py",
+            "modaltune_tpu_torch/data/extract.py",
+            "modaltune_tpu_torch/utils/profiling.py", "chip_smoke.py",
             "profile_train.py", "ab_branch_route.py"} <= names
 
 
@@ -217,7 +222,9 @@ VERBATIM = [("modaltune_tpu/utils/constants.py",
             ("modaltune_tpu/native/bagcache.cpp",
              "modaltune_tpu_torch/native/bagcache.cpp"),
             ("modaltune_tpu/eval/pancancer.py",
-             "modaltune_tpu_torch/eval/pancancer.py")]
+             "modaltune_tpu_torch/eval/pancancer.py"),
+            ("modaltune_tpu/data/extract.py",
+             "modaltune_tpu_torch/data/extract.py")]
 
 
 @pytest.mark.parametrize("jax_file,port_file", VERBATIM,
