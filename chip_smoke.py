@@ -11,9 +11,13 @@ K3f; the backward kernels K1b, K2b, K3b, K4b, K5b; K1f and K1b also with a
 plain version and, where one PyTorch call computes the same function,
 beside that call (``scaled_dot_product_attention``; timed here, used
 nowhere in the port), and computes the least time the card could take for
-the same work. Then it drives sixteen paths end to end at full published
-width with random weights from a seeded generator, each with every launch
-count set to 0 just before and read just after:
+the same work. Then it drives twenty-seven paths end to end at full
+published width with random weights from a seeded generator, each with
+every launch count set to 0 just before and read just after. Every train
+step runs the LongNet layers rematerialized under the configuration's
+default policy, ``"flash"`` (``models/longnet.py``): the backward runs
+each layer's FFN again (K5f twice a fused-route step) but no attention
+kernel. The paths:
 
 * ModalTune-GigaPath (12-layer / 768-d / 16-head LongNet backbone, Modal
   Adapter, gene mixer over 331 pathways, 3 task tokens): the embed step on
@@ -58,7 +62,15 @@ count set to 0 just before and read just after:
   embeddings, the gene CSV) and ``data/extract.py`` (tile extraction with
   stand-in encoders on the card), then the train CLI on the files it
   wrote; and a TITAN extraction whose slide encoder is the port's
-  TitanViT (K4f).
+  TitanViT (K4f);
+* the flagship, ModalTune-GigaPath at the reference's own geometry (the
+  25,599 bucket that ``--threshold 25000`` fills): the default route's
+  train step under remat off, ``"flash"`` and ``"full"`` (one grad step
+  of each held bit for bit to remat off), its embed step, the fused
+  route's train step with and without remat and its embed step, B = 2
+  under ``"flash"``, the train step at 10,239 and 2,047 with remat off
+  beside ``"flash"``, and the train CLI at ``--threshold 25000`` with the default
+  buckets on bags of 24,000-30,000 tiles.
 
 Then it trains the supervised baselines through the CLI (ABMIL, TransMIL
 "(cat)" survival, the gene-only model; they run no kernel of the port, so
@@ -68,7 +80,8 @@ the 25,599 bucket. It holds the LoRA encoder's gradients to the plain
 path's, the MoE FFN (top-1 and top-2, on the card against the CPU, its
 expert-parallel exchange over NCCL and over two gloo ranks), xPos and the
 T5 bias, and profiles two train steps with ``utils.profiling.trace``,
-holding ``tools/trace_report``'s device total to the profiler's.
+holding ``tools/trace_report``'s device total to the profiler's. It holds
+K1f and K1b at the flagship's (3, 25600, 16, 48) to their plain versions.
 
 Every phase prints its results on lines of its own; any failure raises
 and the script exits non-zero. The last line is one JSON object
@@ -82,6 +95,7 @@ Exits non-zero without a result when no CUDA device is available.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import importlib
 import json
 import math
@@ -265,14 +279,17 @@ def reset_counts() -> None:
         counts.update(dict.fromkeys(counts, 0))
 
 
-def check_k2_families(tag: str, launches: dict, d48: int) -> dict:
+def check_k2_families(tag: str, launches: dict, d48: int,
+                      again: int = 0) -> dict:
     """On a path's run: its ``d48`` K2 calls at D = 48 (each launching K2f,
-    and K2b where ``launches`` counts one) all ran the wgmma family, the
-    rest the short-side family, and no K2 ran on the CUDA cores. Returns
-    the launches by family, forward and backward."""
+    and K2b where ``launches`` counts one; ``again`` more K2f that the
+    backward's recompute runs) all ran the wgmma family, the rest the
+    short-side family, and no K2 ran on the CUDA cores. Returns the
+    launches by family, forward and backward."""
     fa = importlib.import_module(COUNTERS["K2f"][0])
     fwd, bwd = dict(fa.FAMILY_LAUNCHES), dict(fa.BWD_FAMILY_LAUNCHES)
     d48_b = d48 if launches["K2b"] else 0
+    d48 += again
     check(fwd["wgmma"] == d48 and bwd["wgmma"] == d48_b and
           fwd["cuda_cores"] == 0 and bwd["cuda_cores"] == 0 and
           sum(fwd.values()) == launches["K2f"] and
@@ -342,6 +359,23 @@ def calls_per_forward(model) -> dict:
         "K4": len(bb.blocks) if hasattr(bb, "blocks") else 0,
         "K5": sum(1 for layer in layers if layer.ffn.fused_gelu_ln),
     }
+
+
+def recomputed_per_step(model) -> dict:
+    """Forward kernel calls that a train step's backward runs again, by
+    the rematerialization of the LongNet layers (``LongNetConfig.remat``,
+    ``models/longnet.py``): under every policy the FFN past fc1 (one K5 a
+    layer on the fused route); under ``"full"`` the attention too (K1, K3
+    or the per-branch route's K2s). The attention's own forward kernel
+    never runs again under ``"flash"`` and ``"flash_ffn"``."""
+    bb = model.backbone
+    if not hasattr(bb, "encoder") or not bb.encoder.cfg.remat:
+        return {}
+    per = calls_per_forward(model)
+    again = {"K5": per["K5"]}
+    if bb.encoder.layers[0].keep is None:
+        again.update(K1=per["K1"], K3=per["K3"], K2=k2_branch_calls(model))
+    return again
 
 
 # ---------------------------------------------------------------------------
@@ -688,8 +722,19 @@ def mix_share(by_name):
     return sum(ms for name, ms in by_name.items() if "fused_mix" in name)
 
 
+def by_rows(fn, tensors, mask, rows):
+    """``fn(*tensors, mask)``, or with ``rows`` the same a batch row at a
+    time, concatenated along dim 0: the plain versions at the flagship's
+    shape, whose fp32 scores do not fit three rows at once."""
+    import torch
+    if not rows:
+        return fn(*tensors, mask)
+    return torch.cat([fn(*(t[i:i + 1] for t in tensors), mask[i:i + 1])
+                      for i in range(mask.shape[0])])
+
+
 def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
-             segments=None, ratios=None, iters=20):
+             segments=None, ratios=None, iters=20, plain_rows=False):
     """K1f against the plain version at the GigaPath steps' shape, fp32 and
     bf16, on the valid rows: the output by the max-scaled bound and, in
     bf16, by :func:`check_out`; with stats its plane against
@@ -697,7 +742,9 @@ def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
     plain version has it) and ``branch_out`` against the plain branch
     outputs the same two ways. In bf16 a rerun of either variant
     bit-equal, the family the C entry points chose, and times on both
-    clocks without and with stats, the mix kernel's among them."""
+    clocks without and with stats, the mix kernel's among them. With
+    ``plain_rows`` the plain versions run a batch row at a time
+    (:func:`by_rows`)."""
     import torch
     from modaltune_tpu_torch.configs import SlideEncoderConfig
     dm = importlib.import_module("modaltune_tpu_torch.ops.dilated_mega")
@@ -716,8 +763,12 @@ def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
         valid = mask[:, :, None, None]
         kw = dict(segment_lengths=segments, dilated_ratios=ratios, mask=mask)
         qf, kf, vf = q.float(), k.float(), v.float()
+
+        def plain(fn, tensors):
+            return by_rows(lambda *t: fn(*t[:-1], **dict(kw, mask=t[-1])),
+                           tensors, mask, plain_rows)
         got = dm.mega_dilated_attention(q, k, v, **kw)
-        want = dilated_attention(qf, kf, vf, **kw)
+        want = plain(dilated_attention, (qf, kf, vf))
         torch.cuda.synchronize()
         tag = f"K1 {dtn}"
         check(bool(torch.isfinite(got.float()).all()),
@@ -733,7 +784,7 @@ def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
             return dm.mega_dilated_attention_cuda(
                 q, k, v, mask, segments, ratios, scale, with_stats=True)
         _, stats, branch_out = with_stats()
-        want_st = dilated_attention_stats(qf, kf, vf, **kw)
+        want_st = plain(dilated_attention_stats, (qf, kf, vf))
         torch.cuda.synchronize()
         r["stats_err"] = (stats - want_st).abs().max().item()
         check(r["stats_err"] <= 1e-3 and bool(((stats == -1e9) ==
@@ -742,8 +793,9 @@ def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
         del want_st
         r["branch_err"] = r["branch_rel"] = r["branch_row"] = 0.0
         for i in range(len(segments)):
-            want_o = plain_branch_out(qf, kf, vf, mask, segments, ratios,
-                                      scale, i)
+            want_o = by_rows(
+                lambda *t: plain_branch_out(*t, segments, ratios, scale, i),
+                (qf, kf, vf), mask, plain_rows)
             r["branch_err"] = max(r["branch_err"], compare(
                 branch_out[i], want_o, tol, f"{tag} branch_out {i}"))
             if dtype == torch.bfloat16:
@@ -772,8 +824,8 @@ def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
             res["stats_device_ms"], split = device_times(with_stats, iters=3,
                                                          warmup=1)
             res["stats_mix_device_ms"] = mix_share(split)
-            res["plain_ms"] = time_ms(lambda: dilated_attention(q, k, v, **kw),
-                                      iters)
+            res["plain_ms"] = time_ms(
+                lambda: plain(dilated_attention, (q, k, v)), iters)
             pairs = b * dilated_pairs(length, n_valid, segments, ratios, h)
             res["bound_ms"], res["bound_by"] = attention_bound(
                 pairs, d, (q, k, v, mask, got), backward=False)
@@ -802,7 +854,8 @@ def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
 
 
 def phase_k1b(device, shape=(3, 10240, 16, 48), n_valid=9000,
-              segments=None, ratios=None, iters=10, plain_iters=3):
+              segments=None, ratios=None, iters=10, plain_iters=3,
+              plain_rows=False):
     """K1f's statistics and the K1 backward kernel against the plain
     version (its statistics, and autograd through it) at the train step's
     shape, fp32 and bf16, on the valid rows, by the max-scaled bound and by
@@ -810,7 +863,8 @@ def phase_k1b(device, shape=(3, 10240, 16, 48), n_valid=9000,
     points chose, times on both clocks. The plain side keeps every branch's
     fp32 probabilities for its backward, 6.9 GB at this shape (35.9 M
     query-key pairs per (batch, head) x 48 x 4 bytes), about 15 GB at its
-    peak: it fits at B = 3."""
+    peak: it fits at B = 3. With ``plain_rows`` the plain side runs a batch
+    row at a time (:func:`by_rows`), its time the sum of the rows'."""
     import torch
     from modaltune_tpu_torch.configs import SlideEncoderConfig
     from modaltune_tpu_torch.ops.dilated import (dilated_attention,
@@ -839,18 +893,28 @@ def phase_k1b(device, shape=(3, 10240, 16, 48), n_valid=9000,
         got = kernel()
         torch.cuda.synchronize()
         tag = f"K1b {str(dtype)[6:]}"
-        want_st = dilated_attention_stats(q.float(), k.float(), v.float(),
-                                          **kw)
+        rows = ([slice(i, i + 1) for i in range(b)] if plain_rows
+                else [slice(None)])
+        want_st = by_rows(
+            lambda *t: dilated_attention_stats(*t[:-1],
+                                               **dict(kw, mask=t[-1])),
+            (q.float(), k.float(), v.float()), mask, plain_rows)
         st_err = (stats - want_st).abs().max().item()
         check(st_err <= 1e-3 and bool(((stats == -1e9) ==
                                        (want_st == -1e9)).all()),
               f"K1f stats {str(dtype)[6:]}: max|err| {st_err:.3e}")
         del want_st
-        leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
-        torch.autograd.backward(dilated_attention(*leaves, **kw),
-                                dmix.float())
-        want = [x.grad * valid for x in leaves]
-        del leaves
+        want = [[], [], []]
+        for c in rows:
+            leaves = [x[c].detach().float().requires_grad_()
+                      for x in (q, k, v)]
+            torch.autograd.backward(
+                dilated_attention(*leaves, **dict(kw, mask=mask[c])),
+                dmix[c].float())
+            for w_, x in zip(want, leaves):
+                w_.append(x.grad)
+            del leaves
+        want = [torch.cat(w_) * valid for w_ in want]
         torch.cuda.synchronize()
         got_valid = [gt * valid for gt in got]
         err = max(compare(gt, wt, tol, f"{tag} {gn}")
@@ -869,15 +933,18 @@ def phase_k1b(device, shape=(3, 10240, 16, 48), n_valid=9000,
                 lambda: dm.mega_dilated_attention_cuda(
                     q, k, v, mask, segments, ratios, scale, with_stats=True),
                 iters)
-            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-            plain_out = dilated_attention(*leaves, **kw)
+            res["plain_ms"] = res["plain_device_ms"] = 0.0
+            for c in rows:
+                leaves = [x[c].detach().requires_grad_() for x in (q, k, v)]
+                plain_out = dilated_attention(*leaves,
+                                              **dict(kw, mask=mask[c]))
 
-            def plain():
-                return torch.autograd.grad(plain_out, leaves, dmix,
-                                           retain_graph=True)
-            res["plain_ms"] = time_ms(plain, plain_iters, warmup=1)
-            res["plain_device_ms"] = device_ms(plain, iters=1, warmup=0)
-            del plain_out, leaves
+                def plain():
+                    return torch.autograd.grad(plain_out, leaves, dmix[c],
+                                               retain_graph=True)
+                res["plain_ms"] += time_ms(plain, plain_iters, warmup=1)
+                res["plain_device_ms"] += device_ms(plain, iters=1, warmup=0)
+                del plain_out, leaves
             res["bound_ms"], res["bound_by"] = attention_bound(
                 b * dilated_pairs(length, n_valid, segments, ratios, h), d,
                 (q, k, v, mask, dmix, stats, branch_out, *got), backward=True)
@@ -1757,6 +1824,9 @@ GIGAPATH = dict(name="longnetvit_gene_adapter",
                 config="gigapath_modaltune_config", grid=False,
                 in_chans=1536, bag_range=(9000, 10239), bucket=10239)
 GIGAPATH_2047 = dict(bucket=2047, bag_range=(1791, 2047))
+# the reference's own geometry: the CLI's --threshold 25000 and default
+# buckets put a real cohort's bags in the 25,599 bucket (bench.py:38-41)
+GIGAPATH_25599 = dict(bucket=25599, bag_range=(24000, 25599))
 # the same model, slides and weights on its other kernel routes
 GIGAPATH_FUSED = dict(GIGAPATH, route="fused")
 GIGAPATH_BRANCH = dict(GIGAPATH, route="branch")
@@ -1791,11 +1861,12 @@ def model_config(config):
 
 def build_batches(name, config, grid, in_chans, bag_range, bucket,
                   n_genes=4987, n_groups=331, max_size=100, n_slides=3,
-                  seed=0, route=None, cfg=None):
+                  seed=0, route=None, cfg=None, batch_size=1):
     """The host batches of ``n_slides`` synthetic slides padded to
-    ``bucket`` (grid-scattered first where ``grid``), through the port's
-    data layer; the same on either ``route`` of the model. ``cfg``
-    overrides the factory's configuration, as in :func:`build_model`."""
+    ``bucket`` (grid-scattered first where ``grid``), ``batch_size`` a
+    batch, through the port's data layer; the same on either ``route`` of
+    the model. ``cfg`` overrides the factory's configuration, as in
+    :func:`build_model`."""
     from modaltune_tpu_torch.data import (BucketedLoader,
                                           SyntheticSlideDataset,
                                           TitanGridDataset)
@@ -1810,7 +1881,7 @@ def build_batches(name, config, grid, in_chans, bag_range, bucket,
     lengths = [ds.get(i, None).bag.shape[0] for i in range(n_slides)]
     check(max(lengths) <= bucket,
           f"{name}: bags of {lengths} tokens do not fit the {bucket} bucket")
-    return list(BucketedLoader(ds, buckets=(bucket,), batch_size=1,
+    return list(BucketedLoader(ds, buckets=(bucket,), batch_size=batch_size,
                                shuffle=False, prefetch=0,
                                device_prefetch=False))
 
@@ -2036,7 +2107,9 @@ NULL_GRAD = ("k_proj.bias", "token.b2", "compress_bias")
 def build_train(device, seed=0, **data_kw):
     """The train step's model (frozen backbone in bf16, trainable adapter
     in fp32), optimizer, projected text targets and batch on ``device``;
-    ``data_kw`` goes to :func:`build_model` and :func:`build_batches`."""
+    ``data_kw`` goes to :func:`build_model` and :func:`build_batches` (one
+    slide unless it names ``n_slides``, in batches of its
+    ``batch_size``)."""
     import torch
     from modaltune_tpu_torch import (TextProjector, freeze_backbone,
                                      init_weights, make_optimizer,
@@ -2044,7 +2117,7 @@ def build_train(device, seed=0, **data_kw):
     from modaltune_tpu_torch.configs import TrainConfig
     from modaltune_tpu_torch.train import batch_to_device
     model = build_model(device, seed=seed, **data_kw)
-    (host,) = build_batches(n_slides=1, seed=seed, **data_kw)
+    (host,) = build_batches(**{"n_slides": 1, **data_kw}, seed=seed)
     tcfg = TrainConfig()
     opt = make_optimizer(tcfg, freeze_backbone(model, torch.bfloat16),
                          steps_per_epoch=1)
@@ -2115,53 +2188,54 @@ def k2_call_readings(fn, tag):
     return result, seen
 
 
-def phase_train(device, steps=3, timed_steps=5, compare_kw=None,
-                card="", build_kw=None, tag="train", k2_calls=False):
-    """The full-width train step: ``steps`` steps with the launch counts
-    checked (per LongNet layer K1f and K1b or, on the fused route, K3f,
-    K3b, K5f and K5b; K4f and K4b once per TITAN block; K2f and K2b once
-    per adapter attention), loss finite,
-    trainable parameters moved, frozen backbone bit-identical; then
-    ms/step and peak memory over ``timed_steps``; then the step's loss and
-    adapter gradients against the plain path at ``compare_kw``'s bucket
-    (2,047 unless given), where the plain path's saved scores fit (about
-    12 x 0.67 GB for LongNet at 2,047): in bf16 as a whole (gradient
-    cosine, loss, and the worst tensor's rel-L2 from the fp32 plain path
-    within 2x the bf16 plain path's worst), and in fp32 each gradient
-    tensor on its own. With ``k2_calls`` (the per-branch route, whose
-    attention is 70 K2 calls a step) every K2 launch of the bf16 grad step
-    is also held to its plain version on the same inputs
-    (:func:`k2_call_readings`)."""
+def timed_build(device, tag, build_kw):
+    """:func:`build_train` of ``build_kw``, its time and sizes printed."""
     import torch
-    from modaltune_tpu_torch import make_grad_step, make_train_step
-    build_kw = build_kw or GIGAPATH
-    compare_kw = compare_kw or GIGAPATH_2047
-    compare_bucket = compare_kw["bucket"]
     t0 = time.perf_counter()
     model, tcfg, opt, text, batch = build_train(device, **build_kw)
+    torch.cuda.synchronize()
+    params = list(model.parameters())
+    print(f"{tag}: model built in {time.perf_counter() - t0:.1f} s, "
+          f"{sum(p.numel() for p in params if p.requires_grad)} trainable "
+          f"fp32 and {sum(p.numel() for p in params if not p.requires_grad)}"
+          f" frozen bf16 parameters, {batch['bag'].shape[0]} slide(s) of "
+          f"bucket {batch['bag'].shape[1]} with "
+          f"{batch['mask'].sum(1).tolist()} valid tokens", flush=True)
+    return model, tcfg, opt, text, batch
+
+
+def drive_train(device, model, tcfg, opt, text, batch, tag, card="",
+                steps=3, timed_steps=5):
+    """A train step's main path on ``model``: ``steps`` steps with the
+    launch counts checked (per LongNet layer K1f and K1b or, on the fused
+    route, K3f, K3b, K5f and K5b; K4f and K4b once per TITAN block; K2f and
+    K2b once per adapter attention; and the forward kernels that the
+    backward's remat runs again, :func:`recomputed_per_step`), loss
+    finite, trainable parameters moved, frozen backbone bit-identical;
+    then ms/step (median) and peak memory over ``timed_steps`` (and the
+    bytes allocated before them: weights, optimizer state, batch)."""
+    import torch
+    from modaltune_tpu_torch import make_train_step
     step = make_train_step(model, tcfg, opt)
     frozen = {n: p.detach().clone() for n, p in model.named_parameters()
               if not p.requires_grad}
     before = {n: p.detach().clone() for n, p in model.named_parameters()
               if p.requires_grad}
     gen = torch.Generator(device=device).manual_seed(1)
-    torch.cuda.synchronize()
-    print(f"{tag}: model built in {time.perf_counter() - t0:.1f} s, "
-          f"{sum(p.numel() for p in before.values())} trainable fp32 and "
-          f"{sum(p.numel() for p in frozen.values())} frozen bf16 "
-          f"parameters, bucket {batch['bag'].shape[1]} with "
-          f"{int(batch['mask'].sum())} valid tokens", flush=True)
 
     # the main path: every launch count starts at 0 just before it
     reset_counts()
     losses = [float(step(batch, text, gen)) for _ in range(steps)]
     torch.cuda.synchronize()
     launches = read_counts()
+    again = recomputed_per_step(model)
     check_k5_routes(tag, launches)
     k2_families = check_k2_families(tag, launches,
-                                    k2_branch_calls(model) * steps)
+                                    k2_branch_calls(model) * steps,
+                                    again.get("K2", 0) * steps)
     per = calls_per_forward(model)
-    per_step = {f"{k}{d}": n for k, n in per.items() for d in "fb"}
+    per_step = {f"{k}{d}": n + (again.get(k, 0) if d == "f" else 0)
+                for k, n in per.items() for d in "fb"}
     check(launches == {k: n * steps for k, n in per_step.items()},
           f"{tag} launch counts {launches} != {per_step} per step x {steps}")
     check(all(math.isfinite(x) for x in losses), f"{tag} losses {losses}")
@@ -2170,14 +2244,20 @@ def phase_train(device, steps=3, timed_steps=5, compare_kw=None,
              if p.requires_grad and torch.equal(p.detach(), before[n])]
     check(all(n.endswith(NULL_GRAD) for n in still),
           f"{tag}: trainable tensors did not move: {still}")
-    moved = len(before) - len(still)
+    n_trainable, moved = len(before), len(before) - len(still)
     check(all(torch.equal(p.detach(), frozen[n])
               for n, p in model.named_parameters() if not p.requires_grad),
           f"{tag}: the frozen backbone changed")
+    del frozen, before
+    enc = getattr(model.backbone, "encoder", None)
+    remat = ("off" if enc is None or not enc.cfg.remat
+             else f"{enc.cfg.remat_policy!r}")
     print(f"{tag}: {steps} steps, losses {[round(x, 6) for x in losses]}, "
-          f"launches per step {per_step}; {moved} of {len(before)} trainable "
+          f"launches per step {per_step} (remat {remat}; run again in the "
+          f"backward {again}); {moved} of {n_trainable} trainable "
           f"tensors moved, backbone bit-identical", flush=True)
 
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(timed_steps):
@@ -2190,7 +2270,33 @@ def phase_train(device, steps=3, timed_steps=5, compare_kw=None,
     print(f"{tag}: step {ms:.2f} ms median of {len(times)} "
           f"({[round(x, 2) for x in times]}), peak allocated "
           f"{peak / 2**30:.3f} GiB{'; ' + card if card else ''}", flush=True)
-    del model, opt, step, frozen, before, batch
+    return dict(launches=launches, per_step=per_step, ms=ms, peak_bytes=peak,
+                base_bytes=base, losses=losses, k2_families=k2_families,
+                times=times)
+
+
+def phase_train(device, steps=3, timed_steps=5, compare_kw=None,
+                card="", build_kw=None, tag="train", k2_calls=False):
+    """The full-width train step: :func:`drive_train`'s ``steps`` checked
+    steps and ``timed_steps`` timed ones; then the step's loss and
+    adapter gradients against the plain path at ``compare_kw``'s bucket
+    (2,047 unless given), where the plain path's saved scores fit (about
+    12 x 0.67 GB for LongNet at 2,047): in bf16 as a whole (gradient
+    cosine, loss, and the worst tensor's rel-L2 from the fp32 plain path
+    within 2x the bf16 plain path's worst), and in fp32 each gradient
+    tensor on its own. With ``k2_calls`` (the per-branch route, whose
+    attention is 70 K2 calls a step) every K2 launch of the bf16 grad step
+    is also held to its plain version on the same inputs
+    (:func:`k2_call_readings`)."""
+    import torch
+    from modaltune_tpu_torch import make_grad_step
+    build_kw = build_kw or GIGAPATH
+    compare_kw = compare_kw or GIGAPATH_2047
+    compare_bucket = compare_kw["bucket"]
+    model, tcfg, opt, text, batch = timed_build(device, tag, build_kw)
+    res = drive_train(device, model, tcfg, opt, text, batch, tag, card,
+                      steps, timed_steps)
+    del model, opt, batch
     torch.cuda.empty_cache()
 
     # kernel path vs plain path, one grad step each from the same weights
@@ -2259,10 +2365,9 @@ def phase_train(device, steps=3, timed_steps=5, compare_kw=None,
           f"{rel:.3e}, worst tensor {e_k[wk]:.3e} vs {e_p[wp]:.3e} plain; "
           f"fp32 loss rel {rel32:.3e}, worst tensor {w32} {err32[w32]:.3e}, "
           f"NULL_GRAD max|err| / max|g| {null32[wnull]:.3e}")
-    return dict(launches=launches, per_step=per_step, ms=ms, peak_bytes=peak,
-                losses=losses, grad_cosine=cos, loss_rel=rel,
-                grad_rel_fp32=err32[w32], k2_families=k2_families,
-                worst_tensor=(e_k[wk], e_p[wp]), k2_calls=held)
+    return dict(res, grad_cosine=cos, loss_rel=rel,
+                grad_rel_fp32=err32[w32], worst_tensor=(e_k[wk], e_p[wp]),
+                k2_calls=held)
 
 
 # ---------------------------------------------------------------------------
@@ -2689,7 +2794,8 @@ def run_cli(cli, args, Trainer, methods):
             wall)
 
 
-def phase_trainer(device, card="", data_kw=None, flags=None):
+def phase_trainer(device, card="", data_kw=None, flags=None, tag="trainer",
+                  want_bucket=None):
     """The port's train CLI (``run_one_seed``) in-process on the
     reference's file formats at ``data_kw``'s sizes (``TRAINER_DATA``):
     two epochs of training with the in-loop readout on val, test with the
@@ -2702,7 +2808,9 @@ def phase_trainer(device, card="", data_kw=None, flags=None):
     missing one tensor is refused; the checkpoint restores bit-equal; the
     deploy's results and embeddings; the test embeddings equal the embed
     step of the reloaded model on the same batches; every ``.mtbc`` read
-    took the native reader; K1f, K1b, K2f and K2b launched."""
+    took the native reader; K1f, K1b, K2f and K2b launched; with
+    ``want_bucket``, every batch the trainer ran (train, eval, deploy) in
+    that bucket."""
     import tempfile
 
     import numpy as np
@@ -2718,32 +2826,44 @@ def phase_trainer(device, card="", data_kw=None, flags=None):
     Trainer = trainer_mod.ModalTuneTrainer
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
-        data_flags = written_files(root, "trainer", data_kw)
+        data_flags = written_files(root, tag, data_kw)
         args = cli.build_parser().parse_args(
             flags + data_flags + ["--output_path", str(root / "results"),
                                   "--device", device.type])
 
-        trainer, seconds, launches, peak, wall = run_cli(
-            cli, args, Trainer, ("train_one_epoch", "fit_readout_heads",
-                                 "evaluate", "deploy"))
+        # the bucket of every batch the trainer moves to the card
+        buckets, to_device = [], Trainer._batch
+
+        def spy_batch(self, batch):
+            buckets.append(batch.bag.shape[1])
+            return to_device(self, batch)
+        with mock.patch.object(Trainer, "_batch", spy_batch):
+            trainer, seconds, launches, peak, wall = run_cli(
+                cli, args, Trainer, ("train_one_epoch", "fit_readout_heads",
+                                     "evaluate", "deploy"))
+        print(f"{tag}: {len(buckets)} batches in buckets "
+              f"{sorted(set(buckets))}", flush=True)
+        check(want_bucket is None or set(buckets) == {want_bucket},
+              f"{tag}: batches in buckets {sorted(set(buckets))}, not all in "
+              f"{want_bucket}")
         run = root / "results" / "seed_0"
 
         rows = [json.loads(line) for line in open(run / "run_metrics.jsonl")]
         losses = [r["train_loss"] for r in rows if "train_loss" in r]
         check(len(losses) == trainer.cfg.num_epochs and
               all(math.isfinite(x) for x in losses),
-              f"trainer: epoch losses {losses}")
+              f"{tag}: epoch losses {losses}")
         step_ms = statistics.median(trainer.step_ms)
         loader_ms = trainer.loader_ms
-        print(f"trainer: {len(trainer.step_ms)} train steps, median "
+        print(f"{tag}: {len(trainer.step_ms)} train steps, median "
               f"{step_ms:.2f} ms/step ({[round(x, 2) for x in trainer.step_ms]}); "
               f"s/epoch {[round(x, 2) for x in seconds['train_one_epoch']]}; "
               f"epoch losses {losses}; {card}", flush=True)
-        print(f"trainer: loader host ms per batch (blocked in next()) mean "
+        print(f"{tag}: loader host ms per batch (blocked in next()) mean "
               f"{statistics.mean(loader_ms):.3f}, median "
               f"{statistics.median(loader_ms):.3f}, max {max(loader_ms):.3f} "
               f"({[round(x, 3) for x in loader_ms]})", flush=True)
-        print(f"trainer: readout fits {sum(seconds['fit_readout_heads']):.2f} "
+        print(f"{tag}: readout fits {sum(seconds['fit_readout_heads']):.2f} "
               f"s ({len(seconds['fit_readout_heads'])} fits), evaluate "
               f"{sum(seconds['evaluate']):.2f} s "
               f"({len(seconds['evaluate'])} splits), deploy "
@@ -2752,13 +2872,13 @@ def phase_trainer(device, card="", data_kw=None, flags=None):
               flush=True)
         for r in rows:
             if "val_cls_loss" in r or "test_cls_loss" in r:
-                print(f"trainer: readout {json.dumps(r)}", flush=True)
+                print(f"{tag}: readout {json.dumps(r)}", flush=True)
 
         # best weights: a fresh trainer loads them strictly; its embed step
         # gives the deploy's test embeddings on the same batches; a file
         # with one tensor removed is refused
         best = run / "best_model_weights.pt"
-        check(best.exists(), "trainer: no best_model_weights.pt")
+        check(best.exists(), f"{tag}: no best_model_weights.pt")
         datasets, packer = cli.load_real_datasets(args)
         model = create_aggregator(
             args.mil_name, device=device, cfg=cli.model_config(args),
@@ -2776,22 +2896,27 @@ def phase_trainer(device, card="", data_kw=None, flags=None):
         deploy = json.load(open(run / "deploy_results.json"))
         check(all(all(k in deploy.get(t, {}) for k in ("c_index", "acc"))
                   for t in ("General", "Diagnosis", "Survival")),
-              f"trainer: deploy results {deploy}")
+              f"{tag}: deploy results {deploy}")
         feats = {}
         for split in ("train", "val", "test"):
             x = np.load(run / "data" / f"x_feats_{split}.npy")
             n = len(trainer.datasets[split])
             check(x.shape == (n, 3, 256) and np.isfinite(x).all(),
-                  f"trainer: x_feats_{split} {x.shape}")
+                  f"{tag}: x_feats_{split} {x.shape}")
             feats[split] = x
+        # the deploy was the test loader's last pass: the same seed and
+        # epoch draw the same subsample of a bag over the threshold
+        test_loader = trainer.eval_loaders["test"]
         loader = BucketedLoader(datasets["test"], buckets=trainer.buckets,
-                                shuffle=False, prefetch=0)
+                                shuffle=False, prefetch=0,
+                                seed=test_loader.seed)
+        loader.epoch = test_loader.epoch - 1
         embed = make_embed_step(model, trainer.cfg)
         again = np.concatenate([
             embed(batch_to_device(b, device)).float().cpu().numpy()
             for b in loader])
         diff = float(np.abs(again - feats["test"]).max())
-        check(diff == 0.0, f"trainer: deploy's test embeddings differ from "
+        check(diff == 0.0, f"{tag}: deploy's test embeddings differ from "
               f"the reloaded model's embed step by {diff}")
         sd = torch.load(best, map_location="cpu", weights_only=True)
         dropped = sorted(sd)[len(sd) // 2]
@@ -2802,14 +2927,14 @@ def phase_trainer(device, card="", data_kw=None, flags=None):
             refused = False
         except ValueError:
             refused = True
-        check(refused, f"trainer: weights without {dropped} were accepted")
+        check(refused, f"{tag}: weights without {dropped} were accepted")
 
         # the checkpoint restores bit-equal
         restored = fresh_trainer("restored")
         restored.out_dir = run
         ck = torch.load(run / "ckpt.pt", map_location="cpu",
                         weights_only=True)
-        check(restored.restore_checkpoint(), "trainer: no checkpoint")
+        check(restored.restore_checkpoint(), f"{tag}: no checkpoint")
         same_params = all(torch.equal(p.detach().cpu(), ck["trainable"][n])
                           for n, p in model.named_parameters()
                           if p.requires_grad)
@@ -2821,24 +2946,24 @@ def phase_trainer(device, card="", data_kw=None, flags=None):
         check(restored.current_epoch == trainer.cfg.num_epochs and
               restored.optimizer.updates == trainer.optimizer.updates and
               same_params and same_adamw,
-              f"trainer: restored epoch {restored.current_epoch}, updates "
+              f"{tag}: restored epoch {restored.current_epoch}, updates "
               f"{restored.optimizer.updates} (saved "
               f"{trainer.optimizer.updates}), trainable equal {same_params}, "
               f"AdamW equal {same_adamw}")
-        print(f"trainer: best weights reloaded strictly, a file without "
+        print(f"{tag}: best weights reloaded strictly, a file without "
               f"{dropped} refused; checkpoint restored at epoch "
               f"{restored.current_epoch}, {restored.optimizer.updates} "
               f"updates, {len(ck['trainable'])} trainable tensors and "
               f"{len(got)} AdamW states bit-equal", flush=True)
         readers = list(data_mod._BAGCACHE_READERS.values())
         check(readers and all(r.native for r in readers),
-              f"trainer: .mtbc readers native: {[r.native for r in readers]}")
-        print(f"trainer: deploy {json.dumps(deploy)}", flush=True)
-        print(f"trainer: x_feats {[feats[s].shape for s in feats]} finite; "
+              f"{tag}: .mtbc readers native: {[r.native for r in readers]}")
+        print(f"{tag}: deploy {json.dumps(deploy)}", flush=True)
+        print(f"{tag}: x_feats {[feats[s].shape for s in feats]} finite; "
               f"test embeddings equal the reloaded model's embed step; "
               f"{len(readers)} .mtbc reader(s), all native", flush=True)
     check(all(launches[k] > 0 for k in ("K1f", "K1b", "K2f", "K2b")),
-          f"trainer: launches {launches}")
+          f"{tag}: launches {launches}")
     return dict(launches=launches, ms=step_ms, loader_ms=loader_ms,
                 peak_bytes=peak, losses=losses, seconds=seconds)
 
@@ -3895,12 +4020,243 @@ def phase_profile(device, card="", build_kw=None, steps=2):
                 top=dict(list(rep["ms_per_step"].items())[:10]))
 
 
+# ---------------------------------------------------------------------------
+# The flagship: the reference's 25,599-token geometry, through the steps and
+# the CLI, and the LongNet layers' rematerialization
+# ---------------------------------------------------------------------------
+
+# (name, LongNetConfig.remat, remat_policy) of the train steps compared
+REMAT_RUNS = (("off", False, "flash"), ("flash", True, "flash"),
+              ("full", True, "full"))
+# the CLI's cohort at the reference's threshold: bags of 24,000-30,000
+# tiles (the first train case two slides of 12,000-15,000), which
+# --threshold 25000 cuts to 25,000 by its sorted subsample
+# (data/datasets.py:245-246), all in the default buckets' 25,599
+FLAGSHIP_DATA = dict(TRAINER_DATA, two_slides=(12000, 15000),
+                     one_slide=(24000, 30000))
+FLAGSHIP_FLAGS = ["--mil_name", "longnetvit_gene_adapter", "--bf16", "1",
+                  "--threshold", "25000", "--num_epochs", "2",
+                  "--eval_interval", "1", "--save_interval", "1",
+                  "--save_embeddings", "--seed", "0"]
+
+
+def with_remat(build_kw, remat, policy):
+    """``build_kw`` whose model configuration's backbone has ``remat`` and
+    ``remat_policy`` (``LongNetViTConfig`` forwards both to every LongNet
+    layer)."""
+    cfg = build_kw.get("cfg") or model_config(build_kw["config"])
+    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
+        cfg.backbone, remat=remat, remat_policy=policy))
+    return dict(build_kw, cfg=cfg)
+
+
+def grad_step_readings(device, model, tcfg, text, batch, layer=None,
+                       seed=3):
+    """One grad step (``make_grad_step``, no update) from ``model``'s
+    weights on ``batch`` with a generator seeded ``seed`` -> (loss, {name:
+    gradient on the host}, the device bytes that LongNet layer ``layer``
+    leaves allocated from its forward's start to its end: what the
+    backward keeps of it, its output included; None without ``layer``)."""
+    import torch
+    from modaltune_tpu_torch import make_grad_step
+    kept, hooks = [], []
+    if layer is not None:
+        mod = model.backbone.encoder.layers[layer]
+        hooks = [mod.register_forward_pre_hook(
+            lambda *_: kept.append(-torch.cuda.memory_allocated())),
+            mod.register_forward_hook(
+            lambda *_: kept.append(torch.cuda.memory_allocated()))]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    try:
+        loss, grads = make_grad_step(model, tcfg)(batch, text, gen)
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    grads = {n: g.detach().float().cpu() for n, g in grads.items()}
+    return float(loss), grads, sum(kept) if kept else None
+
+
+def step_difference(a, b):
+    """(largest |difference| of the loss or of any gradient element, the
+    tensors that differ) between two :func:`grad_step_readings`."""
+    import torch
+    (la, ga, _), (lb, gb, _) = a, b
+    check(ga.keys() == gb.keys(), "grad steps of different parameters")
+    differ = [n for n in ga if not torch.equal(ga[n], gb[n])]
+    worst = max([abs(la - lb)] + [(ga[n] - gb[n]).abs().max().item()
+                                  for n in differ])
+    return worst, differ
+
+
+def phase_flagship(device, card="", build_kw=None, ref_kws=None, layer=6,
+                   timed_steps=5, b2_steps=3, k1_kw=None, trainer_kw=None):
+    """ModalTune-GigaPath at the reference's 25,599 bucket
+    (``GIGAPATH_25599``; ``build_kw`` and ``ref_kws``, the 10,239 and
+    2,047 ones, to rehearse on the CPU), through the public entry
+    points:
+
+    * the default route's train step, B = 1, under remat off, ``"flash"``
+      and ``"full"`` (:func:`drive_train`: launch counts, K1f 12 a step
+      under ``"flash"`` and 24 under ``"full"``; ms/step and peak), each
+      model fresh from the same seed; first one grad step each from the
+      same weights, batch and generator state, held bit for bit to remat
+      off within remat off's own run-to-run difference (two runs), and
+      the bytes that LongNet layer ``layer`` keeps for the backward;
+    * the embed step there (:func:`phase_slice`);
+    * the fused route (K3 + K5), its train step under ``"flash"`` and with
+      remat off, its embeddings held to the default route's;
+    * B = 2 on the default route under ``"flash"``: ``b2_steps`` checked
+      steps, ms/step and peak; remat off's peak at B = 2 predicted from
+      B = 1's readings, not run;
+    * K1f and K1b at (3, 25,600, 16, 48), 24,000 valid tokens, against
+      their plain versions (run a batch row at a time) with the gates of
+      the 10,240 shape (``k1_kw`` overrides);
+    * the cost of ``"flash"`` against remat off at 10,239 and at 2,047
+      (where the step waits on the host), in turn;
+    * the train CLI at ``--threshold 25000`` with the default buckets on
+      ``FLAGSHIP_DATA``'s cohort, every batch in the 25,599 bucket
+      (:func:`phase_trainer`; ``trainer_kw`` overrides).
+
+    -> the paths' readings by name, K1's readings and the remat table."""
+    import torch
+    build_kw = build_kw or dict(GIGAPATH, **GIGAPATH_25599)
+    ref_kws = ref_kws or (GIGAPATH, dict(GIGAPATH, **GIGAPATH_2047))
+    paths, runs = {}, {}
+    names = {"off": "gigapath_flagship_off_train",
+             "flash": "gigapath_flagship_train",
+             "full": "gigapath_flagship_full_train"}
+    for name, remat, policy in REMAT_RUNS:
+        tag = f"flagship train remat {name}"
+        model, tcfg, opt, text, batch = timed_build(
+            device, tag, with_remat(build_kw, remat, policy))
+        reads = [grad_step_readings(device, model, tcfg, text, batch,
+                                    layer=layer)]
+        if name == "off":
+            reads.append(grad_step_readings(device, model, tcfg, text,
+                                            batch))
+        r = drive_train(device, model, tcfg, opt, text, batch, tag, card,
+                        timed_steps=timed_steps)
+        r.update(reads=reads, kept=reads[0][2],
+                 layers=len(model.backbone.encoder.layers))
+        runs[name] = paths[names[name]] = r
+        del model, opt, batch, reads
+        torch.cuda.empty_cache()
+    off = runs["off"]["reads"]
+    noise, noisy = step_difference(off[0], off[1])
+    print(f"flagship remat: remat off against itself, the same weights, "
+          f"batch and generator state: largest difference of the loss or "
+          f"a gradient {noise:.3e} ({len(noisy)} tensors differ"
+          f"{': ' if noisy else ''}{', '.join(noisy[:5])})", flush=True)
+    for name in ("flash", "full"):
+        diff, differ = step_difference(runs[name]["reads"][0], off[0])
+        runs[name]["difference"] = diff
+        print(f"flagship remat: {name!r} against remat off: largest "
+              f"difference {diff:.3e} ({len(differ)} tensors differ"
+              f"{': ' if differ else ''}{', '.join(differ[:5])})",
+              flush=True)
+        check(diff <= noise, f"flagship remat {name!r}: loss or gradients "
+              f"{diff:.3e} from remat off, its own run-to-run {noise:.3e}")
+    for name, r in runs.items():
+        print(f"flagship remat {name}: {r['ms']:.2f} ms/step, peak "
+              f"{r['peak_bytes'] / 2**30:.3f} GiB, LongNet layer {layer} "
+              f"keeps {r['kept'] / 2**20:.1f} MiB for the backward (its "
+              f"output included); {card}", flush=True)
+    flash = runs["flash"]
+    check(flash["launches"]["K1f"] == flash["layers"] * len(flash["losses"]),
+          f"flagship: K1f launched {flash['launches']['K1f']} times in "
+          f"{len(flash['losses'])} steps under 'flash', not once a layer")
+    print(f"flagship remat: K1f launched once a layer a step under 'flash' "
+          f"({flash['launches']['K1f']} in {len(flash['losses'])} steps of "
+          f"{flash['layers']} layers), twice under 'full' "
+          f"({runs['full']['launches']['K1f']})", flush=True)
+
+    embed = phase_slice(device, torch.bfloat16, card=card, build_kw=build_kw,
+                        timing_rounds=2, tag="flagship slice",
+                        compare_kw=GIGAPATH_2047)
+    paths["gigapath_flagship_embed"] = embed
+
+    for name, remat in (("flash", True), ("off", False)):
+        tag = f"flagship fused train remat {name}"
+        model, tcfg, opt, text, batch = timed_build(
+            device, tag, with_remat(dict(build_kw, route="fused"), remat,
+                                    "flash"))
+        key = ("gigapath_flagship_fused_train" if remat
+               else "gigapath_flagship_fused_off_train")
+        paths[key] = drive_train(device, model, tcfg, opt, text, batch, tag,
+                                 card, timed_steps=timed_steps)
+        del model, opt, batch
+        torch.cuda.empty_cache()
+    paths["gigapath_flagship_fused_embed"] = phase_slice(
+        device, torch.bfloat16, card=card,
+        build_kw=dict(build_kw, route="fused"), timing_rounds=2,
+        tag="flagship fused slice", compare_kw=GIGAPATH_2047,
+        agree_with=embed["outs"])
+
+    tag = "flagship B=2 train remat flash"
+    model, tcfg, opt, text, batch = timed_build(
+        device, tag, with_remat(dict(build_kw, n_slides=2, batch_size=2),
+                                True, "flash"))
+    b2 = drive_train(device, model, tcfg, opt, text, batch, tag, card,
+                     steps=b2_steps, timed_steps=b2_steps)
+    paths["gigapath_flagship_b2_train"] = b2
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    one = runs["off"]
+    predicted = one["base_bytes"] + 2 * (one["peak_bytes"] - one["base_bytes"])
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"flagship B=2: 'flash' {b2['ms']:.2f} ms/step, peak "
+          f"{b2['peak_bytes'] / 2**30:.3f} GiB of the card's "
+          f"{total / 2**30:.3f}; remat off at B = 2, not run, predicted from "
+          f"B = 1 (arithmetic: held {one['base_bytes'] / 2**30:.3f} GiB + 2 x "
+          f"{(one['peak_bytes'] - one['base_bytes']) / 2**30:.3f} GiB of "
+          f"step) {predicted / 2**30:.3f} GiB; {card}", flush=True)
+
+    k1_kw = dict(dict(shape=(3, 25600, 16, 48), n_valid=24000,
+                      plain_rows=True), **(k1_kw or {}))
+    k1 = phase_k1(device, iters=5, **k1_kw)
+    k1b = phase_k1b(device, **k1_kw)
+
+    for ref_kw in ref_kws:
+        bucket = ref_kw["bucket"]
+        for name, remat in (("off", False), ("flash", True)):
+            tag = f"remat {name} train @ {bucket}"
+            model, tcfg, opt, text, batch = timed_build(
+                device, tag, with_remat(ref_kw, remat, "flash"))
+            r = drive_train(device, model, tcfg, opt, text, batch, tag, card,
+                            timed_steps=timed_steps)
+            runs[f"{name}_{bucket}"] = r
+            if not remat:
+                paths[f"gigapath_{bucket}_off_train"] = r
+            del model, opt, batch
+            torch.cuda.empty_cache()
+        a, b = (runs[f"{n}_{bucket}"] for n in ("off", "flash"))
+        print(f"remat cost at {bucket}: 'flash' {b['ms']:.2f} against off "
+              f"{a['ms']:.2f} ms/step ({b['ms'] / a['ms']:.3f}x), peak "
+              f"{b['peak_bytes'] / 2**30:.3f} against "
+              f"{a['peak_bytes'] / 2**30:.3f} GiB; {card}", flush=True)
+
+    trainer_kw = trainer_kw or dict(data_kw=FLAGSHIP_DATA,
+                                    flags=FLAGSHIP_FLAGS, want_bucket=25599)
+    paths["gigapath_flagship_trainer"] = phase_trainer(
+        device, card=card, tag="flagship trainer", **trainer_kw)
+    return dict(paths=paths, k1=k1, k1b=k1b,
+                remat={n: {k: r[k] for k in ("ms", "peak_bytes", "kept")
+                           if k in r} for n, r in runs.items()})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 1
     from modaltune_tpu_torch.ops import _build
+    clock = [time.perf_counter()]
+
+    def lap(what):
+        """Print the seconds since the last lap, for the run's budget."""
+        clock.append(time.perf_counter())
+        print(f"time: {what} {clock[-1] - clock[-2]:.1f} s", flush=True)
 
     # 1. environment
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3939,18 +4295,24 @@ def main() -> int:
               f"{spill[0]}, loads {spill[1]} bytes")
         check(spill == ("0", "0"), f"{short} spills registers")
 
+    lap("environment and build")
+
     # 3-12. kernels against their plain versions
     k2 = phase_k2(device, iters=10)
     k2b = phase_k2b(device, iters=10)
+    lap("K2f, K2b")
     k1 = phase_k1(device, iters=10)
     k1b = phase_k1b(device)
     k1q = phase_k1_qrange(device)
+    lap("K1f, K1b, their q_token_range")
     k3 = phase_k3(device)
     k3b = phase_k3b(device)
     k5 = phase_k5(device)
     k5b = phase_k5b(device)
+    lap("K3f, K3b, K5f, K5b")
     k4 = phase_k4(device)
     k4b = phase_k4b(device)
+    lap("K4f, K4b")
 
     # ModalTune-GigaPath: the embed step, the train step
     paths = {
@@ -3976,6 +4338,7 @@ def main() -> int:
     paths["gigapath_branch_train"] = phase_train(
         device, card=card, build_kw=GIGAPATH_BRANCH, compare_kw=GIGAPATH_2047,
         tag="branch train", k2_calls=True)
+    lap("GigaPath embed and train steps, three routes")
     # ModalTune-TITAN: the embed step, the train step
     paths["titan_embed"] = phase_slice(
         device, torch.bfloat16, card=card, build_kw=TITAN, timing_rounds=2,
@@ -3985,39 +4348,56 @@ def main() -> int:
         tag="titan train")
     # data parallelism over a world of one (NCCL) and the 2-rank
     # sequence-parallel step (gloo), each held to the single-device step
+    lap("TITAN embed and train steps")
     par = phase_parallel(device, card=card)
+    lap("parallel")
     paths["gigapath_dp_train"] = dict(launches=par["dp_launches"])
     paths["gigapath_sp_train"] = dict(launches=par["sp_launches"])
     # the trainer slice: the port's train CLI, train -> val -> test ->
     # deploy, on the reference's file formats at full width
     paths["gigapath_trainer"] = phase_trainer(device, card=card)
+    lap("trainer")
     # the pan-cancer trainer through the CLI on four sites' files
     paths["gigapath_pancancer"] = phase_pancancer(device, card=card)
+    lap("pan-cancer")
     # the supervised baselines: no kernel of the port, so not a path of the
     # kernels line
     phase_baselines(device, card=card)
+    lap("baselines")
     # the LongNet extras: GigaPath with the LoRA encoder variant (every
     # branch on K2's wgmma family), then MoE with its exchange, xPos and
     # the T5 bias (no kernel of the port)
     lora = phase_lora(device, card=card)
     paths["gigapath_lora_embed"] = lora["gigapath_lora_embed"]
     paths["gigapath_lora_train"] = lora["gigapath_lora_train"]
+    lap("LoRA")
     phase_moe(device, card=card)
+    lap("MoE, xPos, T5 bias")
     # dataset preparation on a synthetic site, the CLI on what it wrote,
     # and a TITAN extraction with the slide encoder on K4f
     paths.update(phase_prepare(device, card=card))
+    lap("preparation")
     # a trace of two train steps and its report
     phase_profile(device, card=card)
+    lap("profile")
+    # the reference's 25,599-token geometry: the train step under each
+    # remat setting, the embed step, the fused route, B = 2, K1 at 25,600
+    # tokens, the cost of remat at 10,239, the CLI at --threshold 25000
+    flagship = phase_flagship(device, card=card)
+    paths.update(flagship["paths"])
+    lap("flagship")
+    print(f"time: the run {clock[-1] - clock[0]:.1f} s", flush=True)
 
     def kernel(key, name, replaces, err, res, by_shape=None, source=None,
                family=None, sources=None):
-        """One entry of the kernels line. launches: the sum over the sixteen
+        """One entry of the kernels line. launches: the sum over the
         paths' runs (by_path: each run's own count, every count set to 0
         just before it); max_abs_err: the largest output or gradient error
         of any comparison above; ms, plain_ms, bound_ms, library_ms: at
         K1's, K3's and K5's one shape, K2's Extractor shape, K4's
         N = 16,384 (by_shape: the others, with K2's kernel family and
-        the kernel's and library call's time on the card alone).
+        the kernel's and library call's time on the card alone; K1's
+        at_25600: the flagship's shape).
         source: the file of the kernels the paths run, ``name``.cu unless
         given; family: the kernel family of the paths' bf16 calls, as the
         C entry points chose it where they export their rule (K1, K2,
@@ -4044,6 +4424,13 @@ def main() -> int:
             if k in res:
                 out[k] = res[k]
         if key in ("K1f", "K1b"):
+            # at the flagship's (3, 25600, 16, 48), 24,000 valid tokens
+            big = flagship["k1b" if key == "K1b" else "k1"]
+            out["at_25600"] = dict(
+                {k: big[k] for k in ("ms", "device_ms", "plain_ms",
+                                     "bound_ms", "bound_by")},
+                max_abs_err=max(big[dt]["grad_err" if key == "K1b" else
+                                        "out_err"] for dt in both))
             # with a q_token_range: launches on the paths (the
             # sequence-parallel step's ranks), the shards' largest error
             # against the whole call, the middle shard of 2's time and

@@ -82,21 +82,34 @@ class LoraDilatedSelfAttention(nn.Module):
     def forward(self, x: torch.Tensor, gene: torch.Tensor,
                 task: torch.Tensor, mask: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
+        return self.output(self.attend(*self.project(x, gene, task), mask))
+
+    def project(self, x: torch.Tensor, gene: torch.Tensor,
+                task: torch.Tensor):
+        """x (B, L, d) and the contexts -> q, k, v (B, L, heads,
+        head_dim), each with its LoRA deltas."""
         c = self.cfg
-        b, length, d = x.shape
-
-        def split(t):
-            return t.view(b, length, c.num_heads, c.head_dim)
-
+        b, length, _ = x.shape
         contexts = (x, gene, task)
+        return tuple(self._proj(name, x, contexts)
+                     .view(b, length, c.num_heads, c.head_dim)
+                     for name in "qkv")
+
+    def attend(self, q, k, v, mask: Optional[torch.Tensor] = None,
+               shard=None) -> torch.Tensor:
+        """The per-branch dilated attention of q, k, v -> (B, L, d). It
+        has no sequence-parallel island: ``shard`` raises."""
+        if shard is not None:
+            raise RuntimeError("the LoRA attention has no sequence-parallel "
+                               "island; its spans run whole")
+        c = self.cfg
         out = dilated_attention(
-            split(self._proj("q", x, contexts)),
-            split(self._proj("k", x, contexts)),
-            split(self._proj("v", x, contexts)),
-            segment_lengths=c.segment_lengths,
+            q, k, v, segment_lengths=c.segment_lengths,
             dilated_ratios=c.dilated_ratios,
             mask=mask if c.mask_padding else None, kernel=True)
-        out = out.reshape(b, length, d)
+        return out.reshape(q.shape[0], q.shape[1], c.embed_dim)
+
+    def output(self, out: torch.Tensor) -> torch.Tensor:
         if self.inner_attn_ln is not None:
             out = self.inner_attn_ln(out)
         return self.out_proj(out)

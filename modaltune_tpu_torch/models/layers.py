@@ -14,10 +14,11 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import math
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import NEG_INF, flash_attention
 
@@ -48,6 +49,44 @@ def ambient_generator(x: torch.Tensor) -> torch.Generator:
         raise ValueError(f"dropout generator on {g.device}, tensor on "
                          f"{x.device}")
     return g
+
+
+def rematerialized(fn: Callable, *args):
+    """``fn(*args)`` with the tensors its backward needs dropped after the
+    forward and recomputed by running ``fn`` again in the backward
+    (non-reentrant ``torch.utils.checkpoint``: gradients reach ``args``,
+    none reaches a frozen parameter).
+
+    The recompute runs in a copy of this call's context, so inside the
+    enclosing :func:`dropout_generator` whatever thread the backward runs
+    on, with that generator set back to its state at this call: it draws
+    the forward's bits again, and the generator is left where the backward
+    found it. (``torch.utils.checkpoint``'s ``preserve_rng_state`` saves
+    only the default generators, from which the models draw nothing.)"""
+    g = _DROPOUT_GENERATOR.get()
+    state = None if g is None else g.get_state()
+    context = contextvars.copy_context()
+    calls = []
+
+    def run(*a):
+        if not calls:       # the forward
+            calls.append(True)
+            return fn(*a)
+        return context.run(_replay, g, state, fn, a)
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _replay(g: Optional[torch.Generator], state, fn: Callable, args):
+    if g is None:
+        return fn(*args)
+    now = g.get_state()
+    g.set_state(state)
+    try:
+        return fn(*args)
+    finally:
+        g.set_state(now)
 
 
 def _uniform(shape, x: torch.Tensor) -> torch.Tensor:

@@ -13,18 +13,30 @@ With ``LongNetConfig.lora_adapter`` the self-attention is
 :class:`.extras.LoraDilatedSelfAttention` (per-modality LoRA deltas on
 q/k/v, every branch on K2), as the JAX encoder builds it.
 Padded tokens are masked out of every attention and re-zeroed after every
-layer. The
-JAX package's span stacking, comb layouts and remat are TPU machinery and
-have no counterpart: the layers are a plain ``nn.ModuleList`` and
+layer. The JAX package's span stacking and comb layouts are TPU machinery
+and have no counterpart: the layers are a plain ``nn.ModuleList`` and
 :meth:`LongNetEncoder.run_layers` runs any ``[lo, hi)``.
+
+With ``LongNetConfig.remat`` every layer run under autograd is
+rematerialized (JAX's ``nn.remat`` around the scanned layer) under the
+policy named by ``remat_policy`` (:func:`remat_policy`): its activations
+are recomputed in the backward, the attention call's included or not.
+The kernels are reached through ``ctypes``, so no selective checkpoint
+policy can see them by name; the layer is split instead. One
+checkpointed region runs LayerNorm -> q/k/v, the attention call sits
+between, and a second region runs the output projection, the residuals,
+the FFN and the re-mask (``"flash_ffn"`` cuts that region after fc1).
+Under ``"full"`` the whole layer is one region. The forward-only steps
+run no grad, and there remat does nothing.
 
 With ``LongNetConfig.seq_axes`` set and an ambient mesh
 (:func:`..ops.dilated_sp.use_mesh`) that the shape suits
 (:func:`..ops.dilated_sp.span_shard`), a span runs on this rank's token
 shard of the ``seq`` group: it enters by a slice, every layer's attention
-is the sequence-parallel island (:func:`..ops.dilated_sp.sp_island_attention`,
-which takes the place of K1 and K3) and every other op is position-wise,
-and it leaves by a gather. The JAX package partitions the whole model along
+is the sequence-parallel island on that shard
+(:func:`..ops.dilated_sp.sp_mega_dilated_attention`, which takes the place
+of K1 and K3) and every other op is position-wise, and it leaves by a
+gather. The JAX package partitions the whole model along
 tokens instead (GSPMD); outside the spans the port's adapter runs
 replicated on every rank.
 """
@@ -33,7 +45,7 @@ from __future__ import annotations
 
 import functools
 import os
-from typing import Optional
+from typing import FrozenSet, Optional
 
 import torch
 from torch import nn
@@ -43,10 +55,31 @@ from ..ops.activations import gelu_exact
 from ..ops.dilated import dilated_attention
 from ..ops.dilated_fused import fused_dilated_attention
 from ..ops.dilated_mega import mega_dilated_attention
-from ..ops.dilated_sp import (enter_span, leave_span, local_tokens,
-                              sp_island_attention, span_shard)
+from ..ops.dilated_sp import (SeqShard, enter_span, leave_span,
+                              local_tokens, sp_mega_dilated_attention,
+                              span_shard)
 from ..ops.gelu_ln import gelu_ln
-from .layers import Dense, DropPath, Dropout
+from .layers import Dense, DropPath, Dropout, rematerialized
+
+
+def remat_policy(name: str) -> Optional[FrozenSet[str]]:
+    """What a rematerialized layer's backward reads back, by the JAX
+    package's policy name (``modaltune_tpu/models/longnet.py::
+    remat_policy``): None for ``"full"``, ``"none"`` and ``""``, which
+    keep nothing but the layer's input and recompute everything, the
+    attention's forward kernel included; for ``"flash"`` the attention
+    call's own saved tensors (K1's out, stats and ``branch_out``; K3's
+    compact out, lse and stats; the per-branch route's K2 out and lse)
+    with its inputs q/k/v, which JAX recomputes; for ``"flash_ffn"``
+    those and fc1's pre-activation. Any other name raises ValueError, as
+    JAX's does."""
+    if name in ("full", "none", ""):
+        return None
+    if name == "flash":
+        return frozenset(("attention", "attn_qkv"))
+    if name == "flash_ffn":
+        return frozenset(("attention", "attn_qkv", "ffn_fc1"))
+    raise ValueError(f"unknown remat policy {name!r}")
 
 
 class DilatedSelfAttention(nn.Module):
@@ -57,7 +90,9 @@ class DilatedSelfAttention(nn.Module):
     ``--fused_attention 0``) it is :func:`..ops.dilated.dilated_attention`
     with each branch on the K2 flash kernels, as the JAX package then runs
     ``dilated_attention(use_pallas=None)``. In a span sharded over tokens
-    (``sharded``) it is the island. All compute one function."""
+    (``shard``) it is the island on that shard. All compute one function.
+    :meth:`project`, :meth:`attend` and :meth:`output` are the three
+    steps of :meth:`forward`, which the encoder layer's remat calls apart."""
 
     def __init__(self, cfg: LongNetConfig):
         super().__init__()
@@ -71,40 +106,37 @@ class DilatedSelfAttention(nn.Module):
                               if cfg.subln else None)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                sharded: bool = False) -> torch.Tensor:
+                shard: Optional[SeqShard] = None) -> torch.Tensor:
+        return self.output(self.attend(*self.project(x), mask, shard))
+
+    def project(self, x: torch.Tensor):
+        """x (B, L, d) -> q, k, v (B, L, heads, head_dim)."""
+        b, length, _ = x.shape
         c = self.cfg
-        b, length, d = x.shape
+        return tuple(p(x).view(b, length, c.num_heads, c.head_dim)
+                     for p in (self.q_proj, self.k_proj, self.v_proj))
 
-        def split(t):
-            return t.view(b, length, c.num_heads, c.head_dim)
-
-        if sharded:
-            attn = self._island
+    def attend(self, q, k, v, mask: Optional[torch.Tensor] = None,
+               shard: Optional[SeqShard] = None) -> torch.Tensor:
+        """The attention of q, k, v -> (B, L, d)."""
+        c = self.cfg
+        if shard is not None:
+            attn = functools.partial(sp_mega_dilated_attention, shard=shard)
         elif not c.fused_attention:
             attn = functools.partial(dilated_attention, kernel=True)
         elif c.mega_attention:
             attn = mega_dilated_attention
         else:
             attn = fused_dilated_attention
-        out = attn(
-            split(self.q_proj(x)), split(self.k_proj(x)),
-            split(self.v_proj(x)), segment_lengths=c.segment_lengths,
-            dilated_ratios=c.dilated_ratios,
-            mask=mask if c.mask_padding else None)
-        out = out.reshape(b, length, d)
+        out = attn(q, k, v, segment_lengths=c.segment_lengths,
+                   dilated_ratios=c.dilated_ratios,
+                   mask=mask if c.mask_padding else None)
+        return out.reshape(q.shape[0], q.shape[1], c.embed_dim)
+
+    def output(self, out: torch.Tensor) -> torch.Tensor:
         if self.inner_attn_ln is not None:
             out = self.inner_attn_ln(out)
         return self.out_proj(out)
-
-    def _island(self, q, k, v, *, segment_lengths, dilated_ratios, mask):
-        out = sp_island_attention(
-            q, k, v, mask, segment_lengths=segment_lengths,
-            dilated_ratios=dilated_ratios, batch_axis=self.cfg.seq_axes[0],
-            seq_axis=self.cfg.seq_axes[1])
-        if out is None:
-            raise RuntimeError("the sequence-parallel island refused a span "
-                               "that span_shard sharded")
-        return out
 
 
 def fused_gelu_ln_requested() -> bool:
@@ -135,7 +167,10 @@ class FeedForwardNetwork(nn.Module):
         self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.fc1(x)
+        return self.after_fc1(self.fc1(x))
+
+    def after_fc1(self, x: torch.Tensor) -> torch.Tensor:
+        """Everything past fc1, on its pre-activation ``x``."""
         ln = self.ffn_layernorm
         if self.fused_gelu_ln and ln is not None and not (
                 self.training and self.activation_dropout.rate > 0):
@@ -153,13 +188,16 @@ class LongNetEncoderLayer(nn.Module):
     With ``cfg.lora_adapter`` its self-attention is
     :class:`.extras.LoraDilatedSelfAttention` (the JAX package's
     ``LongNetLoraAdapterEncoder`` variant), given a zero gene and task
-    context, as the JAX layer is when its caller passes none."""
+    context, as the JAX layer is when its caller passes none. With
+    ``cfg.remat`` and grad enabled it runs rematerialized (see the module
+    docstring); an unknown ``cfg.remat_policy`` raises here."""
 
     def __init__(self, cfg: LongNetConfig, drop_path_rate: float = 0.0,
                  fused_gelu_ln: Optional[bool] = None):
         super().__init__()
         d = cfg.embed_dim
         self.cfg = cfg
+        self.keep = remat_policy(cfg.remat_policy) if cfg.remat else None
         self.self_attn_layer_norm = nn.LayerNorm(d, eps=cfg.layernorm_eps)
         if cfg.lora_adapter:
             from .extras import LoraDilatedSelfAttention
@@ -174,18 +212,38 @@ class LongNetEncoderLayer(nn.Module):
         self.drop_path = DropPath(drop_path_rate)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                sharded: bool = False) -> torch.Tensor:
+                shard: Optional[SeqShard] = None) -> torch.Tensor:
+        if not (self.cfg.remat and torch.is_grad_enabled()):
+            return self._layer(x, mask, shard)
+        if self.keep is None:
+            return rematerialized(self._layer, x, mask, shard)
+        q, k, v = rematerialized(self._qkv, x)
+        out = self.self_attn.attend(q, k, v, mask, shard)
+        if "ffn_fc1" not in self.keep:
+            return rematerialized(self._rest, x, out, mask)
+        x, h = rematerialized(self._to_fc1, x, out)
+        return rematerialized(self._from_fc1, x, h, mask)
+
+    def _layer(self, x, mask, shard):
+        return self._rest(x, self.self_attn.attend(*self._qkv(x), mask, shard),
+                          mask)
+
+    def _qkv(self, x):
         h = self.self_attn_layer_norm(x)
         if self.cfg.lora_adapter:
-            if sharded:
-                raise RuntimeError("the LoRA attention has no sequence-"
-                                   "parallel island; its spans run whole")
             zero = h.new_zeros(h.shape[0], 1, h.shape[2])
-            h = self.self_attn(h, zero, zero, mask)
-        else:
-            h = self.self_attn(h, mask, sharded)
-        x = x + self.drop_path(self.dropout(h))
-        x = x + self.drop_path(self.ffn(self.final_layer_norm(x)))
+            return self.self_attn.project(h, zero, zero)
+        return self.self_attn.project(h)
+
+    def _rest(self, x, out, mask):
+        return self._from_fc1(*self._to_fc1(x, out), mask)
+
+    def _to_fc1(self, x, out):
+        x = x + self.drop_path(self.dropout(self.self_attn.output(out)))
+        return x, self.ffn.fc1(self.final_layer_norm(x))
+
+    def _from_fc1(self, x, h, mask):
+        x = x + self.drop_path(self.ffn.after_fc1(h))
         if mask is not None and self.cfg.mask_padding:
             x = x * mask[..., None].to(x.dtype)
         return x
@@ -232,7 +290,7 @@ class LongNetEncoder(nn.Module):
             return x
         x, mask = enter_span(x, shard), local_tokens(mask, shard)
         for layer in self.layers[lo:hi]:
-            x = layer(x, mask, sharded=True)
+            x = layer(x, mask, shard)
         return leave_span(x, shard)
 
     def finalize(self, x: torch.Tensor) -> torch.Tensor:

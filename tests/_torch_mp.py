@@ -108,14 +108,15 @@ def _t(x):
 # the tiny model, its data and its parameters (shared with the parents)
 # ---------------------------------------------------------------------------
 
-def tiny_config(seq_axes=None, depth=2):
+def tiny_config(seq_axes=None, depth=2, remat_policy="flash"):
     """``tiny_test_config`` (16 heads of 8 over 128 wide) with
-    ``seq_axes``: at 255 patches + the cls token every branch clamps to 256
-    tokens with R = 16, which 2 and 4 shards of 128 and 64 take."""
+    ``seq_axes`` and ``remat_policy``: at 255 patches + the cls token every
+    branch clamps to 256 tokens with R = 16, which 2 and 4 shards of 128
+    and 64 take."""
     from modaltune_tpu_torch.configs import tiny_test_config
     cfg = tiny_test_config(depth=depth)
     return dataclasses.replace(cfg, backbone=dataclasses.replace(
-        cfg.backbone, seq_axes=seq_axes))
+        cfg.backbone, seq_axes=seq_axes, remat_policy=remat_policy))
 
 
 def tiny_data(n_rows, seed=1, bag_range=(150, 250), bucket=255):
@@ -196,8 +197,9 @@ def _tiny_setup(p, seq_axes):
     from modaltune_tpu_torch import freeze_backbone
     from modaltune_tpu_torch.configs import TrainConfig
     packer, batch, text = tiny_data(p["rows"])
-    model = port_model(tiny_config(seq_axes, p.get("depth", 2)), packer,
-                       p["state"])
+    model = port_model(tiny_config(seq_axes, p.get("depth", 2),
+                                   p.get("remat_policy", "flash")),
+                       packer, p["state"])
     freeze_backbone(model)
     tcfg = TrainConfig(**p.get("tcfg", {}))
     targets = _t(p["targets"]) if "targets" in p else text_targets(text)

@@ -44,7 +44,10 @@ bit-equal, and a misaligned operand raising in either forward. For the ALiBi
 kernels (K4) besides:
 a sequence of the cls token and a handful of cells, masks and coordinates
 that differ between batch rows (the kernels index them by ``bh / H``), and
-a batch row whose keys are all masked but the cls token.
+a batch row whose keys are all masked but the cls token. And the LongNet
+layers' rematerialization: one full-width default-route grad step at the
+2,047 bucket under each policy bit-equal to remat off, with K1f's
+launches (once a layer, twice under ``"full"``).
 """
 
 import importlib
@@ -1411,3 +1414,33 @@ def test_gelu_ln_unaligned_rows_take_the_generic_route(cuda_device):
                                  narrow).data_ptr(), 4, 2048, 1e-5, 1, 1, 1,
                              stream)
     assert err != 0
+
+
+# ---------------------------------------------------------------------------
+# Rematerialization of the LongNet layers (models/longnet.py) on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("policy", ["flash", "flash_ffn", "full"])
+def test_remat_train_step_is_bit_equal_to_remat_off(cuda_device, policy):
+    """ModalTune-GigaPath at full width on the default route (K1), one
+    grad step at the 2,047 bucket from the same weights, batch and
+    generator state (dropout on) with remat off and under ``policy``: the
+    loss and every adapter gradient bit-equal; K1f launched once a layer
+    (twice under ``"full"``, whose backward runs the attention again) and
+    K1b once."""
+    kw = dict(chip_smoke.GIGAPATH, **chip_smoke.GIGAPATH_2047)
+    reads, launches = {}, {}
+    for name, remat in (("off", False), (policy, True)):
+        model, tcfg, _, text, batch = chip_smoke.build_train(
+            cuda_device, **chip_smoke.with_remat(kw, remat, policy))
+        dm.LAUNCHES = dm.BWD_LAUNCHES = 0
+        reads[name] = chip_smoke.grad_step_readings(cuda_device, model, tcfg,
+                                                    text, batch)
+        launches[name] = (dm.LAUNCHES, dm.BWD_LAUNCHES)
+        layers = len(model.backbone.encoder.layers)
+        del model
+    diff, differ = chip_smoke.step_difference(reads[policy], reads["off"])
+    assert diff == 0.0 and not differ, (diff, differ[:5])
+    assert launches["off"] == (layers, layers)
+    again = 2 if policy == "full" else 1
+    assert launches[policy] == (again * layers, layers), launches
