@@ -94,8 +94,10 @@ Exits non-zero without a result when no CUDA device is available.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import gc
 import importlib
 import json
 import math
@@ -120,6 +122,28 @@ def check(cond: bool, what: str) -> None:
 def _last_line(cmd) -> str:
     out = subprocess.run(cmd, capture_output=True, text=True, check=True)
     return [ln.strip() for ln in out.stdout.splitlines() if ln.strip()][-1]
+
+
+@contextlib.contextmanager
+def gc_timer():
+    """Within the block, the milliseconds Python's garbage collector ran
+    (``ms``), its collections and those of generation 2, as a dict that
+    grows while the block runs."""
+    res = {"ms": 0.0, "collections": 0, "gen2": 0}
+    start = [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            start[0] = time.perf_counter()
+            return
+        res["ms"] += (time.perf_counter() - start[0]) * 1e3
+        res["collections"] += 1
+        res["gen2"] += info["generation"] == 2
+    gc.callbacks.append(on_gc)
+    try:
+        yield res
+    finally:
+        gc.callbacks.remove(on_gc)
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -373,7 +397,7 @@ def recomputed_per_step(model) -> dict:
         return {}
     per = calls_per_forward(model)
     again = {"K5": per["K5"]}
-    if bb.encoder.layers[0].keep is None:
+    if bb.encoder.layers[0].split is None:
         again.update(K1=per["K1"], K3=per["K3"], K2=k2_branch_calls(model))
     return again
 
@@ -724,13 +748,17 @@ def mix_share(by_name):
 
 def by_rows(fn, tensors, mask, rows):
     """``fn(*tensors, mask)``, or with ``rows`` the same a batch row at a
-    time, concatenated along dim 0: the plain versions at the flagship's
-    shape, whose fp32 scores do not fit three rows at once."""
+    time, concatenated along dim 0 (each tensor of a tuple on its own):
+    the plain versions at the flagship's shape, whose fp32 scores do not
+    fit three rows at once."""
     import torch
     if not rows:
         return fn(*tensors, mask)
-    return torch.cat([fn(*(t[i:i + 1] for t in tensors), mask[i:i + 1])
-                      for i in range(mask.shape[0])])
+    parts = [fn(*(t[i:i + 1] for t in tensors), mask[i:i + 1])
+             for i in range(mask.shape[0])]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p) for p in zip(*parts))
+    return torch.cat(parts)
 
 
 def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
@@ -1133,14 +1161,16 @@ def phase_k1_qrange(device, shape=(3, 10240, 16, 48), n_valid=9000,
 # ---------------------------------------------------------------------------
 
 def phase_k3(device, shape=(3, 10240, 16, 48), n_valid=9000,
-             segments=None, ratios=None, iters=10):
+             segments=None, ratios=None, iters=10, plain_rows=False):
     """K3f at K1's shape, fp32 and bf16: the mixed output against
     ``dilated_attention`` (by the max-scaled bound and, in bf16, by
     :func:`check_out`), ``(m, Z)`` against ``dilated_attention_stats``,
     every branch's compact ``(out_b, lse_b)`` against the plain branch, and
     the mix kernel alone against the plain mix of the kernel's own compact
     pieces; in bf16 a rerun bit-equal, the family, times on both clocks (the
-    mix kernel's among them), K1f's on the same inputs beside them."""
+    mix kernel's among them), K1f's on the same inputs beside them. With
+    ``plain_rows`` the plain versions run a batch row at a time
+    (:func:`by_rows`)."""
     import torch
     from modaltune_tpu_torch.configs import SlideEncoderConfig
     from modaltune_tpu_torch.ops.dilated import (dilated_attention,
@@ -1163,9 +1193,13 @@ def phase_k3(device, shape=(3, 10240, 16, 48), n_valid=9000,
         def kernel():
             return df.fused_dilated_attention_cuda(q, k, v, mask, segments,
                                                    ratios, scale)
+
+        def plain(fn, tensors):
+            return by_rows(lambda *t: fn(*t[:-1], **dict(kw, mask=t[-1])),
+                           tensors, mask, plain_rows)
         mixed, out_c, lse_c, stats = kernel()
         qf, kf, vf = q.float(), k.float(), v.float()
-        want = dilated_attention(qf, kf, vf, **kw)
+        want = plain(dilated_attention, (qf, kf, vf))
         torch.cuda.synchronize()
         tag = f"K3 {dtn}"
         check(bool(torch.isfinite(mixed.float()).all()),
@@ -1176,7 +1210,7 @@ def phase_k3(device, shape=(3, 10240, 16, 48), n_valid=9000,
             r["rel"], r["row"] = check_out(mixed.float() * valid,
                                            want * valid, dtn, f"{tag} out")
         del want
-        want_st = dilated_attention_stats(qf, kf, vf, **kw)[:, n:]
+        want_st = plain(dilated_attention_stats, (qf, kf, vf))[:, n:]
         got_st = stats.reshape(2, b * h, length).transpose(0, 1)
         r["stats_err"] = (got_st - want_st).abs().max().item()
         check(r["stats_err"] <= 1e-3 and bool(((got_st == -1e9) ==
@@ -1187,8 +1221,10 @@ def phase_k3(device, shape=(3, 10240, 16, 48), n_valid=9000,
         lses = df.split_branches(lse_c, length, segments, ratios)
         r["piece_err"] = r["lse_err"] = r["piece_rel"] = r["piece_row"] = 0.0
         for i, (w, ra) in enumerate(zip(segments, ratios)):
-            want_o, want_l = df.fused_branch_reference(qf, kf, vf, mask,
-                                                       int(w), int(ra), scale)
+            want_o, want_l = by_rows(
+                lambda *t: df.fused_branch_reference(*t, int(w), int(ra),
+                                                     scale),
+                (qf, kf, vf), mask, plain_rows)
             r["piece_err"] = max(r["piece_err"], compare(
                 outs[i], want_o, tol, f"{tag} branch {i} compact out"))
             if dtype == torch.bfloat16:
@@ -1216,8 +1252,8 @@ def phase_k3(device, shape=(3, 10240, 16, 48), n_valid=9000,
             res["mix_device_ms"] = mix_share(split)
             res["k1f_ms"] = time_ms(lambda: dm.mega_dilated_attention_cuda(
                 q, k, v, mask, segments, ratios, scale), iters)
-            res["plain_ms"] = time_ms(lambda: dilated_attention(q, k, v, **kw),
-                                      iters)
+            res["plain_ms"] = time_ms(
+                lambda: plain(dilated_attention, (q, k, v)), iters)
             res["bound_ms"], res["bound_by"] = attention_bound(
                 b * dilated_pairs(length, n_valid, segments, ratios, h), d,
                 (q, k, v, mask, mixed, out_c, lse_c, stats), backward=False)
@@ -1243,12 +1279,14 @@ def phase_k3(device, shape=(3, 10240, 16, 48), n_valid=9000,
 
 
 def phase_k3b(device, shape=(3, 10240, 16, 48), n_valid=9000,
-              segments=None, ratios=None, iters=10, plain_iters=3):
+              segments=None, ratios=None, iters=10, plain_iters=3,
+              plain_rows=False):
     """K3b against autograd through the plain version at the train step's
     shape, fp32 and bf16, on the valid rows, by the max-scaled bound and
     by :func:`check_grads`; in bf16 a rerun bit-equal, the family, times
     on both clocks, K1b's on the same inputs beside them. The plain side's
-    memory is :func:`phase_k1b`'s."""
+    memory is :func:`phase_k1b`'s; with ``plain_rows`` it runs a batch row
+    at a time, its time the sum of the rows'."""
     import torch
     from modaltune_tpu_torch.configs import SlideEncoderConfig
     from modaltune_tpu_torch.ops.dilated import dilated_attention
@@ -1276,11 +1314,19 @@ def phase_k3b(device, shape=(3, 10240, 16, 48), n_valid=9000,
         got = kernel()
         torch.cuda.synchronize()
         tag = f"K3b {str(dtype)[6:]}"
-        leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
-        torch.autograd.backward(dilated_attention(*leaves, **kw),
-                                dmix.float())
-        want = [x.grad * valid for x in leaves]
-        del leaves
+        rows = ([slice(i, i + 1) for i in range(b)] if plain_rows
+                else [slice(None)])
+        want = [[], [], []]
+        for c in rows:
+            leaves = [x[c].detach().float().requires_grad_()
+                      for x in (q, k, v)]
+            torch.autograd.backward(
+                dilated_attention(*leaves, **dict(kw, mask=mask[c])),
+                dmix[c].float())
+            for w_, x in zip(want, leaves):
+                w_.append(x.grad)
+            del leaves
+        want = [torch.cat(w_) * valid for w_ in want]
         torch.cuda.synchronize()
         got_valid = [gt * valid for gt in got]
         err = max(compare(gt, wt, tol, f"{tag} {gn}")
@@ -1308,15 +1354,18 @@ def phase_k3b(device, shape=(3, 10240, 16, 48), n_valid=9000,
                     ratios, scale), iters)
             res["k1_saved_bytes"] = tensor_bytes((k1_stats, k1_branch_out))
             del k1_stats, k1_branch_out
-            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-            plain_out = dilated_attention(*leaves, **kw)
+            res["plain_ms"] = res["plain_device_ms"] = 0.0
+            for c in rows:
+                leaves = [x[c].detach().requires_grad_() for x in (q, k, v)]
+                plain_out = dilated_attention(*leaves,
+                                              **dict(kw, mask=mask[c]))
 
-            def plain():
-                return torch.autograd.grad(plain_out, leaves, dmix,
-                                           retain_graph=True)
-            res["plain_ms"] = time_ms(plain, plain_iters, warmup=1)
-            res["plain_device_ms"] = device_ms(plain, iters=1, warmup=0)
-            del plain_out, leaves
+                def plain():
+                    return torch.autograd.grad(plain_out, leaves, dmix[c],
+                                               retain_graph=True)
+                res["plain_ms"] += time_ms(plain, plain_iters, warmup=1)
+                res["plain_device_ms"] += device_ms(plain, iters=1, warmup=0)
+                del plain_out, leaves
         torch.cuda.empty_cache()
     f32, bf = res["float32"], res["bfloat16"]
     print(f"K3b B={b} L={length} H={h} D={d} valid={n_valid}: dq/dk/dv fp32 "
@@ -2213,7 +2262,9 @@ def drive_train(device, model, tcfg, opt, text, batch, tag, card="",
     backward's remat runs again, :func:`recomputed_per_step`), loss
     finite, trainable parameters moved, frozen backbone bit-identical;
     then ms/step (median) and peak memory over ``timed_steps`` (and the
-    bytes allocated before them: weights, optimizer state, batch)."""
+    bytes allocated before them: weights, optimizer state, batch), and the
+    time Python's garbage collector ran in those steps (``gc_ms``, the
+    median a step, :func:`gc_timer`)."""
     import torch
     from modaltune_tpu_torch import make_train_step
     step = make_train_step(model, tcfg, opt)
@@ -2259,20 +2310,27 @@ def drive_train(device, model, tcfg, opt, text, batch, tag, card="",
 
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(timed_steps):
-        t = time.perf_counter()
-        step(batch, text, gen)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
+    times, in_gc = [], []
+    with gc_timer() as collector:
+        for _ in range(timed_steps):
+            before = collector["ms"]
+            t = time.perf_counter()
+            step(batch, text, gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            in_gc.append(collector["ms"] - before)
     ms = statistics.median(times)
     peak = torch.cuda.max_memory_allocated()
     print(f"{tag}: step {ms:.2f} ms median of {len(times)} "
           f"({[round(x, 2) for x in times]}), peak allocated "
-          f"{peak / 2**30:.3f} GiB{'; ' + card if card else ''}", flush=True)
+          f"{peak / 2**30:.3f} GiB; Python's garbage collector "
+          f"{statistics.median(in_gc):.2f} ms a step, median "
+          f"({[round(x, 2) for x in in_gc]}; {collector['collections']} "
+          f"collections, {collector['gen2']} of generation 2)"
+          f"{'; ' + card if card else ''}", flush=True)
     return dict(launches=launches, per_step=per_step, ms=ms, peak_bytes=peak,
                 base_bytes=base, losses=losses, k2_families=k2_families,
-                times=times)
+                times=times, gc_ms=statistics.median(in_gc), gc_times=in_gc)
 
 
 def phase_train(device, steps=3, timed_steps=5, compare_kw=None,
@@ -4089,6 +4147,16 @@ def step_difference(a, b):
     return worst, differ
 
 
+def flagship_k2_shapes(length, n_valid):
+    """:data:`K2_SHAPES`' adapter calls at a bucket of ``length`` tokens
+    (the cls token included), ``n_valid`` of them valid: the injector and
+    the extractor, named by the bucket (the prompt's 65 x 65 does not
+    change)."""
+    lk = length - 1
+    return [(f"injector_{lk}", 36, lk, 65, 16, 0.0, False),
+            (f"extractor_{lk}", 36, 65, lk, 16, (lk - n_valid) / lk, True)]
+
+
 def phase_flagship(device, card="", build_kw=None, ref_kws=None, layer=6,
                    timed_steps=5, b2_steps=3, k1_kw=None, trainer_kw=None):
     """ModalTune-GigaPath at the reference's 25,599 bucket
@@ -4104,21 +4172,27 @@ def phase_flagship(device, card="", build_kw=None, ref_kws=None, layer=6,
       off within remat off's own run-to-run difference (two runs), and
       the bytes that LongNet layer ``layer`` keeps for the backward;
     * the embed step there (:func:`phase_slice`);
-    * the fused route (K3 + K5), its train step under ``"flash"`` and with
-      remat off, its embeddings held to the default route's;
+    * the fused route (K3 + K5), its train step with remat off and under
+      ``"flash"``, one grad step each held bit for bit to remat off as
+      above, its embeddings held to the default route's;
     * B = 2 on the default route under ``"flash"``: ``b2_steps`` checked
       steps, ms/step and peak; remat off's peak at B = 2 predicted from
       B = 1's readings, not run;
-    * K1f and K1b at (3, 25,600, 16, 48), 24,000 valid tokens, against
-      their plain versions (run a batch row at a time) with the gates of
-      the 10,240 shape (``k1_kw`` overrides);
+    * every kernel of these paths at the shapes they give it, against its
+      plain version with the gates of the 10,240 shape: K1f, K1b, K3f and
+      K3b at (3, 25,600, 16, 48), 24,000 valid tokens (the plain versions
+      run a batch row at a time; ``k1_kw`` overrides), K2f and K2b at the
+      adapter's injector and extractor over 25,599 tokens, K5f and K5b at
+      the FFN's (76,800, 3,072);
     * the cost of ``"flash"`` against remat off at 10,239 and at 2,047
-      (where the step waits on the host), in turn;
+      (where the step waits on the host; ``2 * timed_steps`` steps there),
+      in turn, with the time Python's garbage collector takes a step;
     * the train CLI at ``--threshold 25000`` with the default buckets on
       ``FLAGSHIP_DATA``'s cohort, every batch in the 25,599 bucket
       (:func:`phase_trainer`; ``trainer_kw`` overrides).
 
-    -> the paths' readings by name, K1's readings and the remat table."""
+    -> the paths' readings by name, the kernels' readings at the
+    flagship's shapes by kernel (``at_25600``) and the remat table."""
     import torch
     build_kw = build_kw or dict(GIGAPATH, **GIGAPATH_25599)
     ref_kws = ref_kws or (GIGAPATH, dict(GIGAPATH, **GIGAPATH_2047))
@@ -4176,17 +4250,29 @@ def phase_flagship(device, card="", build_kw=None, ref_kws=None, layer=6,
                         compare_kw=GIGAPATH_2047)
     paths["gigapath_flagship_embed"] = embed
 
-    for name, remat in (("flash", True), ("off", False)):
+    fused = {}
+    for name, remat in (("off", False), ("flash", True)):
         tag = f"flagship fused train remat {name}"
         model, tcfg, opt, text, batch = timed_build(
             device, tag, with_remat(dict(build_kw, route="fused"), remat,
                                     "flash"))
+        fused[name] = [grad_step_readings(device, model, tcfg, text, batch)
+                       for _ in range(2 if name == "off" else 1)]
         key = ("gigapath_flagship_fused_train" if remat
                else "gigapath_flagship_fused_off_train")
         paths[key] = drive_train(device, model, tcfg, opt, text, batch, tag,
                                  card, timed_steps=timed_steps)
         del model, opt, batch
         torch.cuda.empty_cache()
+    noise, _ = step_difference(*fused["off"])
+    diff, differ = step_difference(fused["flash"][0], fused["off"][0])
+    print(f"flagship fused remat: 'flash' against remat off: largest "
+          f"difference {diff:.3e} ({len(differ)} tensors differ"
+          f"{': ' if differ else ''}{', '.join(differ[:5])}); remat off "
+          f"against itself {noise:.3e}", flush=True)
+    check(diff <= noise, f"flagship fused remat 'flash': loss or gradients "
+          f"{diff:.3e} from remat off, its own run-to-run {noise:.3e}")
+    del fused
     paths["gigapath_flagship_fused_embed"] = phase_slice(
         device, torch.bfloat16, card=card,
         build_kw=dict(build_kw, route="fused"), timing_rounds=2,
@@ -4214,8 +4300,18 @@ def phase_flagship(device, card="", build_kw=None, ref_kws=None, layer=6,
 
     k1_kw = dict(dict(shape=(3, 25600, 16, 48), n_valid=24000,
                       plain_rows=True), **(k1_kw or {}))
-    k1 = phase_k1(device, iters=5, **k1_kw)
-    k1b = phase_k1b(device, **k1_kw)
+    shape, n_valid = k1_kw["shape"], k1_kw["n_valid"]
+    k2_shapes = flagship_k2_shapes(shape[1], n_valid)
+    big = {"K1f": phase_k1(device, iters=5, **k1_kw),
+           "K1b": phase_k1b(device, **k1_kw),
+           "K3f": phase_k3(device, iters=5, **k1_kw),
+           "K3b": phase_k3b(device, **k1_kw),
+           "K2f": phase_k2(device, shapes=k2_shapes, iters=10),
+           "K2b": phase_k2b(device, shapes=k2_shapes, iters=10),
+           "K5f": phase_k5(device, shape=(shape[0] * shape[1], 3072),
+                           iters=10),
+           "K5b": phase_k5b(device, shape=(shape[0] * shape[1], 3072),
+                            iters=10)}
 
     for ref_kw in ref_kws:
         bucket = ref_kw["bucket"]
@@ -4224,7 +4320,8 @@ def phase_flagship(device, card="", build_kw=None, ref_kws=None, layer=6,
             model, tcfg, opt, text, batch = timed_build(
                 device, tag, with_remat(ref_kw, remat, "flash"))
             r = drive_train(device, model, tcfg, opt, text, batch, tag, card,
-                            timed_steps=timed_steps)
+                            timed_steps=timed_steps * (2 if bucket < 4095
+                                                       else 1))
             runs[f"{name}_{bucket}"] = r
             if not remat:
                 paths[f"gigapath_{bucket}_off_train"] = r
@@ -4232,7 +4329,9 @@ def phase_flagship(device, card="", build_kw=None, ref_kws=None, layer=6,
             torch.cuda.empty_cache()
         a, b = (runs[f"{n}_{bucket}"] for n in ("off", "flash"))
         print(f"remat cost at {bucket}: 'flash' {b['ms']:.2f} against off "
-              f"{a['ms']:.2f} ms/step ({b['ms'] / a['ms']:.3f}x), peak "
+              f"{a['ms']:.2f} ms/step ({b['ms'] / a['ms']:.3f}x), of which "
+              f"Python's garbage collector {b['gc_ms']:.2f} against "
+              f"{a['gc_ms']:.2f} ms a step; peak "
               f"{b['peak_bytes'] / 2**30:.3f} against "
               f"{a['peak_bytes'] / 2**30:.3f} GiB; {card}", flush=True)
 
@@ -4240,8 +4339,9 @@ def phase_flagship(device, card="", build_kw=None, ref_kws=None, layer=6,
                                     flags=FLAGSHIP_FLAGS, want_bucket=25599)
     paths["gigapath_flagship_trainer"] = phase_trainer(
         device, card=card, tag="flagship trainer", **trainer_kw)
-    return dict(paths=paths, k1=k1, k1b=k1b,
-                remat={n: {k: r[k] for k in ("ms", "peak_bytes", "kept")
+    return dict(paths=paths, at_25600=big,
+                remat={n: {k: r[k] for k in ("ms", "peak_bytes", "kept",
+                                             "gc_ms")
                            if k in r} for n, r in runs.items()})
 
 
@@ -4388,16 +4488,19 @@ def main() -> int:
     lap("flagship")
     print(f"time: the run {clock[-1] - clock[0]:.1f} s", flush=True)
 
-    def kernel(key, name, replaces, err, res, by_shape=None, source=None,
+    def kernel(key, name, replaces, res, by_shape=None, source=None,
                family=None, sources=None):
         """One entry of the kernels line. launches: the sum over the
         paths' runs (by_path: each run's own count, every count set to 0
         just before it); max_abs_err: the largest output or gradient error
-        of any comparison above; ms, plain_ms, bound_ms, library_ms: at
-        K1's, K3's and K5's one shape, K2's Extractor shape, K4's
-        N = 16,384 (by_shape: the others, with K2's kernel family and
-        the kernel's and library call's time on the card alone; K1's
-        at_25600: the flagship's shape).
+        of any comparison above (``errors[key]``), the flagship's shapes
+        included; ms, plain_ms, bound_ms, library_ms: at K1's, K3's and
+        K5's one shape, K2's Extractor shape, K4's N = 16,384 (by_shape:
+        the others, with K2's kernel family and the kernel's and library
+        call's time on the card alone); at_25600: the same readings at the
+        shapes the flagship's paths give it (K1 and K3 (3, 25600, 16, 48),
+        K5 (76800, 3072), K2 by shape, the adapter's calls over 25,599
+        tokens).
         source: the file of the kernels the paths run, ``name``.cu unless
         given; family: the kernel family of the paths' bf16 calls, as the
         C entry points chose it where they export their rule (K1, K2,
@@ -4405,6 +4508,10 @@ def main() -> int:
         K3f's mix kernel on the card and K1f's times with stats. sources
         (K2): the file of each family, and the launches by family summed
         over the paths that count them (``launches_by_family``)."""
+        big = flagship["at_25600"].get(key)
+        err = errors[key](res if by_shape is None else by_shape)
+        if big is not None:
+            err = max(err, errors[key](big))
         by_path = {p: r["launches"][key] for p, r in paths.items()}
         qrange = {p: r["launches"].get(f"{key}_qrange", 0)
                   for p, r in paths.items()}
@@ -4423,14 +4530,17 @@ def main() -> int:
                   "dx_only_bound_by"):
             if k in res:
                 out[k] = res[k]
+        if big is not None:
+            def at(r, errs):
+                return dict({k: r[k] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library_device_ms", "family") if k in r},
+                    max_abs_err=errs)
+            out["at_25600"] = (
+                {shape: at(r, errors[key]({shape: r}))
+                 for shape, r in big.items()} if by_shape is not None
+                else at(big, errors[key](big)))
         if key in ("K1f", "K1b"):
-            # at the flagship's (3, 25600, 16, 48), 24,000 valid tokens
-            big = flagship["k1b" if key == "K1b" else "k1"]
-            out["at_25600"] = dict(
-                {k: big[k] for k in ("ms", "device_ms", "plain_ms",
-                                     "bound_ms", "bound_by")},
-                max_abs_err=max(big[dt]["grad_err" if key == "K1b" else
-                                        "out_err"] for dt in both))
             # with a q_token_range: launches on the paths (the
             # sequence-parallel step's ranks), the shards' largest error
             # against the whole call, the middle shard of 2's time and
@@ -4479,56 +4589,64 @@ def main() -> int:
                 "wgmma": f"flash_wgmma_{side}"}
 
     both = ("float32", "bfloat16")
+    # the largest output or gradient error of a kernel's readings (K2, K4:
+    # of every shape's)
+    errors = {
+        "K1f": lambda r: max(max(r[dt]["out_err"], r[dt]["branch_err"])
+                             for dt in both),
+        "K1b": lambda r: max(r[dt]["grad_err"] for dt in both),
+        "K2f": lambda rs: max(r[dt]["out_err"] for r in rs.values()
+                              for dt in both),
+        "K2b": lambda rs: max(r[dt] for r in rs.values() for dt in both),
+        "K3f": lambda r: max(r[dt][e] for dt in both
+                             for e in ("out_err", "piece_err", "mix_err")),
+        "K3b": lambda r: max(r[dt]["grad_err"] for dt in both),
+        "K4f": lambda rs: max(r[dt]["out_err"] for r in rs.values()
+                              for dt in both),
+        "K4b": lambda rs: max(r[dt] for r in rs.values() for dt in both),
+        "K5f": lambda r: max(r[dt] for dt in both),
+        "K5b": lambda r: max(r[dt] for dt in both),
+    }
     kernels = [
         # bf16 at D = 48 runs the tensor-core forward core of
         # dilated_fwd_wgmma.cu and the mix; fp32 the CUDA-core kernel of
         # `name`.cu
         kernel("K1f", "dilated_attention_fwd",
-               "modaltune_tpu/ops/dilated_mega.py:426",
-               max(max(k1[dt]["out_err"], k1[dt]["branch_err"])
-                   for dt in both), k1, source="dilated_fwd_wgmma"),
+               "modaltune_tpu/ops/dilated_mega.py:426", k1,
+               source="dilated_fwd_wgmma"),
         # bf16 at D = 48 runs the tensor-core core of dilated_bwd_wgmma.cu
         # behind each route's prep; fp32 the CUDA-core kernels of `name`.cu
         kernel("K1b", "dilated_attention_bwd",
-               "modaltune_tpu/ops/dilated_mega.py:641",
-               max(k1b[dt]["grad_err"] for dt in both), k1b,
+               "modaltune_tpu/ops/dilated_mega.py:641", k1b,
                source="dilated_bwd_wgmma"),
         # the adapter's calls run the short-side family (bf16, D = 16), the
         # per-branch route's the wgmma family (bf16, D = 48); fp32 the
         # CUDA-core kernels of `name`.cu
         kernel("K2f", "flash_attention_fwd",
                "modaltune_tpu/ops/flash_attention.py:155",
-               max(r[dt]["out_err"] for r in k2.values() for dt in both),
                k2["extractor"], k2, source="flash_short_side_fwd",
                sources=k2_sources("fwd")),
         kernel("K2b", "flash_attention_bwd",
                "modaltune_tpu/ops/flash_attention.py:292",
-               max(r[dt] for r in k2b.values() for dt in both),
                k2b["extractor"], k2b, source="flash_short_side_bwd",
                sources=k2_sources("bwd")),
         kernel("K3f", "dilated_fused_fwd",
-               "modaltune_tpu/ops/dilated_fused.py:468",
-               max(max(k3[dt][e] for e in ("out_err", "piece_err", "mix_err"))
-                   for dt in both), k3, source="dilated_fwd_wgmma"),
+               "modaltune_tpu/ops/dilated_fused.py:468", k3,
+               source="dilated_fwd_wgmma"),
         kernel("K3b", "dilated_fused_bwd",
-               "modaltune_tpu/ops/dilated_fused.py:676",
-               max(k3b[dt]["grad_err"] for dt in both), k3b,
+               "modaltune_tpu/ops/dilated_fused.py:676", k3b,
                source="dilated_bwd_wgmma"),
         kernel("K4f", "alibi_attention_fwd",
-               "modaltune_tpu/ops/alibi_flash.py:552",
-               max(r[dt]["out_err"] for r in k4.values() for dt in both),
-               k4["n16384"], k4, family="wgmma"),
+               "modaltune_tpu/ops/alibi_flash.py:552", k4["n16384"], k4,
+               family="wgmma"),
         kernel("K4b", "alibi_attention_bwd",
-               "modaltune_tpu/ops/alibi_flash.py:594",
-               max(r[dt] for r in k4b.values() for dt in both),
-               k4b["n16384"], k4b, family="wgmma"),
+               "modaltune_tpu/ops/alibi_flash.py:594", k4b["n16384"], k4b,
+               family="wgmma"),
         # bf16 at F = 3072 runs the row-resident kernels; fp32 the generic
         # ones; K5b's ms, plain_ms and bound the variant with dgamma/dbeta
         # (the TPU kernel's function), dx_only_* the train step's without
-        kernel("K5f", "gelu_ln_fwd", "modaltune_tpu/ops/gelu_ln.py:169",
-               max(k5[dt] for dt in both), k5),
-        kernel("K5b", "gelu_ln_bwd", "modaltune_tpu/ops/gelu_ln.py:189",
-               max(k5b[dt] for dt in both), k5b),
+        kernel("K5f", "gelu_ln_fwd", "modaltune_tpu/ops/gelu_ln.py:169", k5),
+        kernel("K5b", "gelu_ln_bwd", "modaltune_tpu/ops/gelu_ln.py:189", k5b),
     ]
     print(f"device times: {DEVICE_TIMES['by_events']} of "
           f"{DEVICE_TIMES['calls']} timed by CUDA events, the profiler having "

@@ -45,7 +45,7 @@ from __future__ import annotations
 
 import functools
 import os
-from typing import FrozenSet, Optional
+from typing import Optional
 
 import torch
 from torch import nn
@@ -62,23 +62,22 @@ from ..ops.gelu_ln import gelu_ln
 from .layers import Dense, DropPath, Dropout, rematerialized
 
 
-def remat_policy(name: str) -> Optional[FrozenSet[str]]:
-    """What a rematerialized layer's backward reads back, by the JAX
-    package's policy name (``modaltune_tpu/models/longnet.py::
-    remat_policy``): None for ``"full"``, ``"none"`` and ``""``, which
-    keep nothing but the layer's input and recompute everything, the
-    attention's forward kernel included; for ``"flash"`` the attention
-    call's own saved tensors (K1's out, stats and ``branch_out``; K3's
-    compact out, lse and stats; the per-branch route's K2 out and lse)
-    with its inputs q/k/v, which JAX recomputes; for ``"flash_ffn"``
-    those and fc1's pre-activation. Any other name raises ValueError, as
-    JAX's does."""
+def remat_policy(name: str) -> Optional[str]:
+    """How a rematerialized layer is cut, by the JAX package's policy name
+    (``modaltune_tpu/models/longnet.py::remat_policy``): None for
+    ``"full"``, ``"none"`` and ``""``, whose layer is one checkpointed
+    region, so its backward keeps nothing but the layer's input and
+    recomputes everything, the attention's forward kernel included; the
+    name itself for ``"flash"`` (two regions around the attention call,
+    which keeps its own saved tensors: K1's out, stats and ``branch_out``;
+    K3's compact out, lse and stats; the per-branch route's K2 out and
+    lse; and its inputs q/k/v, which JAX recomputes) and ``"flash_ffn"``
+    (the second region cut after fc1, whose pre-activation is kept too).
+    Any other name raises ValueError, as JAX's does."""
     if name in ("full", "none", ""):
         return None
-    if name == "flash":
-        return frozenset(("attention", "attn_qkv"))
-    if name == "flash_ffn":
-        return frozenset(("attention", "attn_qkv", "ffn_fc1"))
+    if name in ("flash", "flash_ffn"):
+        return name
     raise ValueError(f"unknown remat policy {name!r}")
 
 
@@ -197,7 +196,7 @@ class LongNetEncoderLayer(nn.Module):
         super().__init__()
         d = cfg.embed_dim
         self.cfg = cfg
-        self.keep = remat_policy(cfg.remat_policy) if cfg.remat else None
+        self.split = remat_policy(cfg.remat_policy) if cfg.remat else None
         self.self_attn_layer_norm = nn.LayerNorm(d, eps=cfg.layernorm_eps)
         if cfg.lora_adapter:
             from .extras import LoraDilatedSelfAttention
@@ -215,11 +214,11 @@ class LongNetEncoderLayer(nn.Module):
                 shard: Optional[SeqShard] = None) -> torch.Tensor:
         if not (self.cfg.remat and torch.is_grad_enabled()):
             return self._layer(x, mask, shard)
-        if self.keep is None:
+        if self.split is None:
             return rematerialized(self._layer, x, mask, shard)
         q, k, v = rematerialized(self._qkv, x)
         out = self.self_attn.attend(q, k, v, mask, shard)
-        if "ffn_fc1" not in self.keep:
+        if self.split == "flash":
             return rematerialized(self._rest, x, out, mask)
         x, h = rematerialized(self._to_fc1, x, out)
         return rematerialized(self._from_fc1, x, h, mask)

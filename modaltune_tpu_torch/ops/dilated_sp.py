@@ -328,7 +328,13 @@ def sp_island_attention(q, k, v, mask, *, segment_lengths: Sequence[int],
     without ``batch_axis`` or ``seq_axis``, one rank along ``seq_axis``, or
     a sequence (``S_loc`` times the ranks) that :func:`sp_mega_eligible`
     refuses. (The rows were split over ``batch_axis`` before the model ran,
-    so every rank's batch is whole.)"""
+    so every rank's batch is whole.)
+
+    The model does not call it: a LongNet span resolves its shard once
+    (:func:`span_shard`) and every layer calls
+    :func:`sp_mega_dilated_attention` with it. This function is the
+    counterpart of the JAX package's public ``sp_island_attention``, which
+    ``tests/test_torch_dilated_sp.py`` holds it against."""
     shard = seq_shard(batch_axis, seq_axis)
     if shard is None:
         return None

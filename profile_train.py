@@ -4,20 +4,28 @@ NVIDIA GPU, over the GigaPath backbone or the TITAN backbone.
 
     python3 profile_train.py [--model gigapath|titan]
                              [--route default|fused|branch]
-                             [--bucket N] [--warmup 2] [--out FILE]
+                             [--remat off|flash|flash_ffn|full]
+                             [--bucket N] [--warmup 2] [--steps 10]
+                             [--out FILE]
     (--route, --bucket: GigaPath only; ``--route fused`` profiles the step
     on the per-branch attention kernels K3 and the fused GELU -> LayerNorm
     K5 in place of K1 and the unfused FFN chain, ``--route branch`` with
     ``fused_attention=False``: each branch's attention by K2 and the
-    branches gathered, scattered and mixed in torch, with the unfused FFN)
+    branches gathered, scattered and mixed in torch, with the unfused FFN;
+    --remat, GigaPath only: the LongNet layers' rematerialization, off or
+    under a policy of ``LongNetConfig.remat_policy``, default the config's
+    own: on, ``"flash"``)
 
 Builds the train step as ``chip_smoke.py`` does (frozen backbone in bf16,
 adapter in fp32, bf16 autocast, dropout on, random weights from a seed,
 one synthetic bag: padded to ``--bucket``, 10,239 patches unless given,
 for GigaPath; grid-scattered into the 16,383-cell bucket for TITAN),
 runs ``--warmup``
-steps, then one step under ``torch.profiler`` with CUDA activity. Prints the step's
-wall time, the device's busy time (the union of every kernel, memcpy and
+steps, then ``--steps`` timed steps (their median wall time, and the time
+Python's garbage collector took in them, from ``gc.callbacks``), then one
+step under ``torch.profiler`` with CUDA activity. Prints the step's
+wall time, the host's side of it (the operators the profiler recorded on
+the host, their count, and the 10 with the most self time on the host), the device's busy time (the union of every kernel, memcpy and
 memset interval) and its share of the wall time, the device time of each
 group of kernels (K1b, K1f, K2f, K2b, K3b, K3f, K4b, K4f, K5b, K5f, GEMMs,
 LayerNorm, the rest) with
@@ -30,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import statistics
 import sys
 import time
 
@@ -94,7 +103,13 @@ def main() -> int:
                          "branch and the unfused FFN chain (branch)")
     ap.add_argument("--bucket", type=int, default=None,
                     help="GigaPath bag bucket (default 10239)")
+    ap.add_argument("--remat", default=None,
+                    choices=("off", "flash", "flash_ffn", "full"),
+                    help="GigaPath: the LongNet layers' rematerialization, "
+                         "off or a remat_policy (default: the config's)")
     ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--steps", type=int, default=10,
+                    help="steps timed without the profiler")
     ap.add_argument("--out", default=None,
                     help="default: chiprun_out/profile_train"
                          "[_titan|_fused|_branch].txt")
@@ -120,9 +135,11 @@ def main() -> int:
     print(chip_smoke._last_line(["nvidia-smi", "--query-gpu=name,power.limit",
                                  "--format=csv,noheader", "--id=0"]))
     if args.model == "titan":
-        if args.bucket is not None or args.route != "default":
-            ap.error("--bucket and --route apply to --model gigapath; the "
-                     "TITAN step is profiled at chip_smoke.TITAN's bucket")
+        if (args.bucket is not None or args.route != "default"
+                or args.remat is not None):
+            ap.error("--bucket, --route and --remat apply to --model "
+                     "gigapath; the TITAN step is profiled at "
+                     "chip_smoke.TITAN's bucket")
         build_kw = dict(chip_smoke.TITAN)
     else:
         bucket = args.bucket or chip_smoke.GIGAPATH["bucket"]
@@ -131,6 +148,10 @@ def main() -> int:
                      branch=chip_smoke.GIGAPATH_BRANCH)[args.route]
         build_kw = dict(route, bucket=bucket,
                         bag_range=(min(9000, bucket * 7 // 8), bucket))
+        if args.remat is not None:
+            build_kw = chip_smoke.with_remat(
+                build_kw, args.remat != "off",
+                "flash" if args.remat == "off" else args.remat)
     args.bucket = build_kw["bucket"]
     model, tcfg, opt, text, batch = chip_smoke.build_train(device, **build_kw)
     step = make_train_step(model, tcfg, opt)
@@ -138,6 +159,25 @@ def main() -> int:
     for _ in range(args.warmup):
         step(batch, text, gen)
     torch.cuda.synchronize()
+    enc = getattr(model.backbone, "encoder", None)
+    remat = ("off" if enc is None or not enc.cfg.remat
+             else enc.cfg.remat_policy)
+    walls, gc_ms = [], []
+    with chip_smoke.gc_timer() as in_gc:
+        for _ in range(args.steps):
+            before = in_gc["ms"]
+            t = time.perf_counter()
+            step(batch, text, gen)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+            gc_ms.append(in_gc["ms"] - before)
+    if walls:
+        print(f"{args.model} train step ({args.route} route, remat {remat}) "
+              f"at bucket {args.bucket}: wall {statistics.median(walls):.2f} "
+              f"ms median of {len(walls)} ({[round(x, 2) for x in walls]}); "
+              f"Python's garbage collector {statistics.median(gc_ms):.2f} ms "
+              f"a step, median ({in_gc['collections']} collections, "
+              f"{in_gc['gen2']} of generation 2)")
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -162,10 +202,20 @@ def main() -> int:
         by_name[e.name] = by_name.get(e.name, 0) + ms
         calls[e.name] = calls.get(e.name, 0) + 1
 
-    print(f"{args.model} train step ({args.route} route) at bucket "
-          f"{args.bucket}: wall {wall:.2f} ms, device "
+    host = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    kernels = sum(1 for e in dev if "memcpy" not in e.name.lower()
+                  and "memset" not in e.name.lower())
+    print(f"{args.model} train step ({args.route} route, remat {remat}) at "
+          f"bucket {args.bucket}, profiled: wall {wall:.2f} ms, device "
           f"busy {busy:.2f} ms (busy share {busy / wall:.3f}), peak "
-          f"allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+          f"allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+          f"{kernels} kernels and {len(dev) - kernels} copies or sets on the "
+          f"card, {len(host)} operators recorded on the host")
+    print(f"{'host operator':<60} {'calls':>6} {'self host ms':>12}")
+    for a in sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total
+                    )[:10]:
+        print(f"{a.key[:60]:<60} {a.count:>6} "
+              f"{a.self_cpu_time_total / 1e3:>12.2f}")
     print(f"{'group':<42} {'device ms':>10} {'of busy':>8}")
     for group, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"{group:<42} {ms:>10.2f} {ms / busy:>8.1%}")

@@ -1420,27 +1420,47 @@ def test_gelu_ln_unaligned_rows_take_the_generic_route(cuda_device):
 # Rematerialization of the LongNet layers (models/longnet.py) on the card
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("policy", ["flash", "flash_ffn", "full"])
-def test_remat_train_step_is_bit_equal_to_remat_off(cuda_device, policy):
-    """ModalTune-GigaPath at full width on the default route (K1), one
-    grad step at the 2,047 bucket from the same weights, batch and
-    generator state (dropout on) with remat off and under ``policy``: the
-    loss and every adapter gradient bit-equal; K1f launched once a layer
-    (twice under ``"full"``, whose backward runs the attention again) and
-    K1b once."""
-    kw = dict(chip_smoke.GIGAPATH, **chip_smoke.GIGAPATH_2047)
+def _launch_counts():
+    """(K1f, K1b, K3f, K3b, K5f, K5b) launches since the last reset."""
+    return (dm.LAUNCHES, dm.BWD_LAUNCHES, df.LAUNCHES, df.BWD_LAUNCHES,
+            gl.LAUNCHES, gl.BWD_LAUNCHES)
+
+
+@pytest.mark.parametrize("route,policy", [
+    *(pytest.param("default", p, id=p) for p in ("flash", "flash_ffn",
+                                                 "full")),
+    *(pytest.param("fused", p, id=f"fused-{p}") for p in ("flash", "full"))])
+def test_remat_train_step_is_bit_equal_to_remat_off(cuda_device, route,
+                                                    policy):
+    """ModalTune-GigaPath at full width, one grad step at the 2,047 bucket
+    from the same weights, batch and generator state (dropout on) with
+    remat off and under ``policy``: the loss and every adapter gradient
+    bit-equal. On the default route (K1) K1f launched once a layer (twice
+    under ``"full"``, whose backward runs the attention again) and K1b
+    once; on the fused route (K3 for K1, K5 for the FFN chain) K3f and K3b
+    the same, K5f twice (the backward runs the FFN past fc1 again under
+    every policy) and K5b once."""
+    kw = dict(chip_smoke.GIGAPATH if route == "default"
+              else chip_smoke.GIGAPATH_FUSED, **chip_smoke.GIGAPATH_2047)
     reads, launches = {}, {}
     for name, remat in (("off", False), (policy, True)):
         model, tcfg, _, text, batch = chip_smoke.build_train(
             cuda_device, **chip_smoke.with_remat(kw, remat, policy))
-        dm.LAUNCHES = dm.BWD_LAUNCHES = 0
+        dm.LAUNCHES = dm.BWD_LAUNCHES = df.LAUNCHES = df.BWD_LAUNCHES = 0
+        gl.LAUNCHES = gl.BWD_LAUNCHES = 0
         reads[name] = chip_smoke.grad_step_readings(cuda_device, model, tcfg,
                                                     text, batch)
-        launches[name] = (dm.LAUNCHES, dm.BWD_LAUNCHES)
+        launches[name] = _launch_counts()
         layers = len(model.backbone.encoder.layers)
         del model
     diff, differ = chip_smoke.step_difference(reads[policy], reads["off"])
     assert diff == 0.0 and not differ, (diff, differ[:5])
-    assert launches["off"] == (layers, layers)
     again = 2 if policy == "full" else 1
-    assert launches[policy] == (again * layers, layers), launches
+    if route == "default":
+        off, want = (layers, layers, 0, 0, 0, 0), (again * layers, layers,
+                                                   0, 0, 0, 0)
+    else:
+        off = (0, 0) + (layers,) * 4
+        want = (0, 0, again * layers, layers, 2 * layers, layers)
+    assert launches["off"] == off, launches
+    assert launches[policy] == want, launches

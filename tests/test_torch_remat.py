@@ -316,7 +316,7 @@ def test_sp_model_under_remat_matches_one_process(policy, tmp_path):
     p = dict(sp_payload(rows=2, depth=4), remat_policy=policy)
     ranks = tmp_ranks.run_ranks(tmp_ranks.sp_grad_worker, 2, tmp_path, p)
     model, tcfg, batch, text = tmp_ranks._tiny_setup(p, tmp_ranks.SEQ_AXES)
-    assert model.backbone.encoder.layers[0].keep == remat_policy(policy)
+    assert model.backbone.encoder.layers[0].split == remat_policy(policy)
     loss, grads = make_grad_step(model, tcfg)(
         batch, text, torch.Generator().manual_seed(0))
     want = {n: g.numpy() for n, g in grads.items()}
