@@ -728,16 +728,6 @@ def k1_inputs(shape, n_valid, device, dtype, seed, n_tensors=3):
     return tensors, mask.to(device)
 
 
-def plain_branch_out(qf, kf, vf, mask, segments, ratios, scale, i):
-    """Branch ``i``'s own output by the plain version, dense ``(B, L, H, D)``
-    fp32, zeros where the branch does not cover the slot (K1f's
-    ``branch_out[i]``)."""
-    df = importlib.import_module("modaltune_tpu_torch.ops.dilated_fused")
-    w, r = int(segments[i]), int(ratios[i])
-    out_b, _ = df.fused_branch_reference(qf, kf, vf, mask, w, r, scale)
-    return df.from_compact(out_b, qf.shape[1], w, r).permute(0, 2, 1, 3)
-
-
 def mix_share(by_name):
     """The mix kernel's device ms in a :func:`device_times` split, ``None``
     where the split was not measured."""
@@ -767,8 +757,7 @@ def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
     bf16, on the valid rows: the output by the max-scaled bound and, in
     bf16, by :func:`check_out`; with stats its plane against
     ``dilated_attention_stats`` (within 1e-3, NEG_INF exactly where the
-    plain version has it) and ``branch_out`` against the plain branch
-    outputs the same two ways. In bf16 a rerun of either variant
+    plain version has it). In bf16 a rerun of either variant
     bit-equal, the family the C entry points chose, and times on both
     clocks without and with stats, the mix kernel's among them. With
     ``plain_rows`` the plain versions run a batch row at a time
@@ -811,7 +800,7 @@ def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
         def with_stats():
             return dm.mega_dilated_attention_cuda(
                 q, k, v, mask, segments, ratios, scale, with_stats=True)
-        _, stats, branch_out = with_stats()
+        _, stats = with_stats()
         want_st = plain(dilated_attention_stats, (qf, kf, vf))
         torch.cuda.synchronize()
         r["stats_err"] = (stats - want_st).abs().max().item()
@@ -819,26 +808,12 @@ def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
                                                 (want_st == -1e9)).all()),
               f"{tag} stats: max|err| {r['stats_err']:.3e}")
         del want_st
-        r["branch_err"] = r["branch_rel"] = r["branch_row"] = 0.0
-        for i in range(len(segments)):
-            want_o = by_rows(
-                lambda *t: plain_branch_out(*t, segments, ratios, scale, i),
-                (qf, kf, vf), mask, plain_rows)
-            r["branch_err"] = max(r["branch_err"], compare(
-                branch_out[i], want_o, tol, f"{tag} branch_out {i}"))
-            if dtype == torch.bfloat16:
-                rel, row = check_out(branch_out[i].float(), want_o, dtn,
-                                     f"{tag} branch_out {i}")
-                r["branch_rel"] = max(r["branch_rel"], rel)
-                r["branch_row"] = max(r["branch_row"], row)
-            del want_o
         res[dtn] = r
         if dtype == torch.bfloat16:
             check(torch.equal(dm.mega_dilated_attention(q, k, v, **kw), got),
                   f"{tag}: a rerun gives other bits")
             again = with_stats()
-            check(torch.equal(again[1], stats) and
-                  torch.equal(again[2], branch_out),
+            check(torch.equal(again[0], got) and torch.equal(again[1], stats),
                   f"{tag} with stats: a rerun gives other bits")
             del again
 
@@ -858,19 +833,16 @@ def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
             res["bound_ms"], res["bound_by"] = attention_bound(
                 pairs, d, (q, k, v, mask, got), backward=False)
             res["stats_bound_ms"], _ = attention_bound(
-                pairs, d, (q, k, v, mask, got, stats, branch_out),
-                backward=False)
-        del stats, branch_out
+                pairs, d, (q, k, v, mask, got, stats), backward=False)
+        del stats
         torch.cuda.empty_cache()
     f32, bf = res["float32"], res["bfloat16"]
     print(f"K1 B={b} L={length} H={h} D={d} valid={n_valid} "
           f"segments={tuple(segments)} ratios={tuple(ratios)}: "
-          f"fp32 out {f32['out_err']:.3e}, stats {f32['stats_err']:.3e}, "
-          f"branch_out {f32['branch_err']:.3e} | bf16 ({res['family']}) out "
-          f"{bf['out_err']:.3e}, rel-L2 {bf['rel']:.3e}, row-scaled "
-          f"{bf['row']:.3e}, stats {bf['stats_err']:.3e}, branch_out "
-          f"{bf['branch_err']:.3e}, rel-L2 {bf['branch_rel']:.3e}, row-scaled "
-          f"{bf['branch_row']:.3e}, reruns bit-equal | kernel "
+          f"fp32 out {f32['out_err']:.3e}, stats {f32['stats_err']:.3e} | "
+          f"bf16 ({res['family']}) out {bf['out_err']:.3e}, rel-L2 "
+          f"{bf['rel']:.3e}, row-scaled {bf['row']:.3e}, stats "
+          f"{bf['stats_err']:.3e}, reruns bit-equal | kernel "
           f"{res['ms']:.4f} ms (card {res['device_ms']:.4f}, mix "
           f"{fmt_ms(res['mix_device_ms'])}), with stats "
           f"{res['stats_ms']:.4f} ms (card {res['stats_device_ms']:.4f}, "
@@ -911,13 +883,12 @@ def phase_k1b(device, shape=(3, 10240, 16, 48), n_valid=9000,
         valid = mask[:, :, None, None]
         kw = dict(segment_lengths=segments, dilated_ratios=ratios, mask=mask)
         dmix = dmix * valid
-        out, stats, branch_out = dm.mega_dilated_attention_cuda(
+        out, stats = dm.mega_dilated_attention_cuda(
             q, k, v, mask, segments, ratios, scale, with_stats=True)
 
         def kernel():
             return dm.mega_dilated_attention_backward_cuda(
-                q, k, v, mask, dmix, stats, branch_out, segments, ratios,
-                scale)
+                q, k, v, mask, dmix, stats, segments, ratios, scale)
         got = kernel()
         torch.cuda.synchronize()
         tag = f"K1b {str(dtype)[6:]}"
@@ -975,7 +946,7 @@ def phase_k1b(device, shape=(3, 10240, 16, 48), n_valid=9000,
                 del plain_out, leaves
             res["bound_ms"], res["bound_by"] = attention_bound(
                 b * dilated_pairs(length, n_valid, segments, ratios, h), d,
-                (q, k, v, mask, dmix, stats, branch_out, *got), backward=True)
+                (q, k, v, mask, dmix, stats, *got), backward=True)
         torch.cuda.empty_cache()
     f32, bf = res["float32"], res["bfloat16"]
     print(f"K1b B={b} L={length} H={h} D={d} valid={n_valid}: "
@@ -1026,10 +997,10 @@ def phase_k1_qrange(device, shape=(3, 10240, 16, 48), n_valid=9000,
         dmix = dmix * valid
         kw = dict(segment_lengths=segments, dilated_ratios=ratios, mask=mask)
         full = dm.mega_dilated_attention(q, k, v, **kw)
-        f_out, f_st, f_bo = dm.mega_dilated_attention_cuda(
+        f_out, f_st = dm.mega_dilated_attention_cuda(
             q, k, v, mask, segments, ratios, scale, with_stats=True)
         f_grads = dm.mega_dilated_attention_backward_cuda(
-            q, k, v, mask, dmix, f_st, f_bo, segments, ratios, scale)
+            q, k, v, mask, dmix, f_st, segments, ratios, scale)
         plain = dilated_attention(q.float(), k.float(), v.float(), **kw)
         torch.cuda.synchronize()
         for n in shards:
@@ -1042,7 +1013,7 @@ def phase_k1_qrange(device, shape=(3, 10240, 16, 48), n_valid=9000,
                 rng = (i * sl, (i + 1) * sl)
                 part = dm.mega_dilated_attention(q, k, v, q_token_range=rng,
                                                  **kw)
-                out, st, bo = dm.mega_dilated_attention_cuda(
+                out, st = dm.mega_dilated_attention_cuda(
                     q, k, v, mask, segments, ratios, scale, with_stats=True,
                     q_token_range=rng)
                 if dtype == torch.bfloat16:   # one mix, the same bits
@@ -1062,7 +1033,7 @@ def phase_k1_qrange(device, shape=(3, 10240, 16, 48), n_valid=9000,
                     compare(st[..., rng[0]:rng[1]], f_st[..., rng[0]:rng[1]],
                             1e-5, f"{tag} shard {i} stats")
                 dq, dk, dv = dm.mega_dilated_attention_backward_cuda(
-                    q, k, v, mask, dmix, st, bo, segments, ratios, scale,
+                    q, k, v, mask, dmix, st, segments, ratios, scale,
                     q_token_range=rng)
                 check(not bool(dq[:, outside].any()),
                       f"{tag} shard {i}: dq outside the range not 0")
@@ -1070,7 +1041,7 @@ def phase_k1_qrange(device, shape=(3, 10240, 16, 48), n_valid=9000,
                 dq_rows.append(dq[:, rng[0]:rng[1]])
                 dk_sum += dk.float()
                 dv_sum += dv.float()
-                del out, st, bo, dq, dk, dv, part
+                del out, st, dq, dk, dv, part
             got = torch.cat(rows, dim=1)
             if dtype == torch.bfloat16:
                 check(torch.equal(got, full),
@@ -1102,7 +1073,7 @@ def phase_k1_qrange(device, shape=(3, 10240, 16, 48), n_valid=9000,
             if dtype == torch.bfloat16:
                 i = n // 2
                 rng = (i * sl, (i + 1) * sl)
-                _, st, bo = dm.mega_dilated_attention_cuda(
+                _, st = dm.mega_dilated_attention_cuda(
                     q, k, v, mask, segments, ratios, scale, with_stats=True,
                     q_token_range=rng)
 
@@ -1110,9 +1081,9 @@ def phase_k1_qrange(device, shape=(3, 10240, 16, 48), n_valid=9000,
                     return dm.mega_dilated_attention(q, k, v,
                                                      q_token_range=rng, **kw)
 
-                def bwd(st=st, bo=bo, rng=rng):
+                def bwd(st=st, rng=rng):
                     return dm.mega_dilated_attention_backward_cuda(
-                        q, k, v, mask, dmix, st, bo, segments, ratios, scale,
+                        q, k, v, mask, dmix, st, segments, ratios, scale,
                         q_token_range=rng)
                 pairs = b * dilated_pairs(length, n_valid, segments, ratios,
                                           h, q_range=rng)
@@ -1127,9 +1098,9 @@ def phase_k1_qrange(device, shape=(3, 10240, 16, 48), n_valid=9000,
                     pairs, d, (q_rows, k, v, mask, full), backward=False)
                 r["bwd_bound_ms"], r["bwd_bound_by"] = attention_bound(
                     pairs, d, (q_rows, k, v, mask, dmix[:, rng[0]:rng[1]],
-                               st, bo, q_rows, k, v), backward=True)
+                               st, q_rows, k, v), backward=True)
                 res["by_n"][n] = r
-                del st, bo
+                del st
         if dtype == torch.bfloat16:
             res["full_ms"] = time_ms(
                 lambda: dm.mega_dilated_attention(q, k, v, **kw), iters)
@@ -1138,9 +1109,9 @@ def phase_k1_qrange(device, shape=(3, 10240, 16, 48), n_valid=9000,
                 warmup=1)
             res["full_bwd_ms"] = time_ms(
                 lambda: dm.mega_dilated_attention_backward_cuda(
-                    q, k, v, mask, dmix, f_st, f_bo, segments, ratios, scale),
+                    q, k, v, mask, dmix, f_st, segments, ratios, scale),
                 iters)
-        del full, f_out, f_st, f_bo, f_grads, plain
+        del full, f_out, f_st, f_grads, plain
         torch.cuda.empty_cache()
     for n, r in res["by_n"].items():
         print(f"K1 q_token_range bf16 one shard of {n} (middle): K1f "
@@ -1304,13 +1275,12 @@ def phase_k3b(device, shape=(3, 10240, 16, 48), n_valid=9000,
         valid = mask[:, :, None, None]
         dmix = dmix * valid
         kw = dict(segment_lengths=segments, dilated_ratios=ratios, mask=mask)
-        _, out_c, lse_c, stats = df.fused_dilated_attention_cuda(
+        _, _, lse_c, stats = df.fused_dilated_attention_cuda(
             q, k, v, mask, segments, ratios, scale)
 
         def kernel():
             return df.fused_dilated_attention_backward_cuda(
-                q, k, v, mask, dmix, out_c, lse_c, stats, segments, ratios,
-                scale)
+                q, k, v, mask, dmix, lse_c, stats, segments, ratios, scale)
         got = kernel()
         torch.cuda.synchronize()
         tag = f"K3b {str(dtype)[6:]}"
@@ -1342,18 +1312,17 @@ def phase_k3b(device, shape=(3, 10240, 16, 48), n_valid=9000,
             res["device_ms"] = device_ms(kernel, iters=3, warmup=1)
             res["bound_ms"], res["bound_by"] = attention_bound(
                 b * dilated_pairs(length, n_valid, segments, ratios, h), d,
-                (q, k, v, mask, dmix, out_c, lse_c, stats, *got),
-                backward=True)
-            res["saved_bytes"] = tensor_bytes((out_c, lse_c, stats))
-            del out_c, lse_c, stats, got
-            _, k1_stats, k1_branch_out = dm.mega_dilated_attention_cuda(
+                (q, k, v, mask, dmix, lse_c, stats, *got), backward=True)
+            res["saved_bytes"] = tensor_bytes((lse_c, stats))
+            del lse_c, stats, got
+            _, k1_stats = dm.mega_dilated_attention_cuda(
                 q, k, v, mask, segments, ratios, scale, with_stats=True)
             res["k1b_ms"] = time_ms(
                 lambda: dm.mega_dilated_attention_backward_cuda(
-                    q, k, v, mask, dmix, k1_stats, k1_branch_out, segments,
-                    ratios, scale), iters)
-            res["k1_saved_bytes"] = tensor_bytes((k1_stats, k1_branch_out))
-            del k1_stats, k1_branch_out
+                    q, k, v, mask, dmix, k1_stats, segments, ratios, scale),
+                iters)
+            res["k1_saved_bytes"] = tensor_bytes((k1_stats,))
+            del k1_stats
             res["plain_ms"] = res["plain_device_ms"] = 0.0
             for c in rows:
                 leaves = [x[c].detach().requires_grad_() for x in (q, k, v)]
@@ -1926,8 +1895,12 @@ def build_batches(name, config, grid, in_chans, bag_range, bucket,
     if grid:
         cfg = model_config(config) if cfg is None else cfg
         ds = TitanGridDataset(ds, cfg.backbone.patch_size_lv0)
-    # a bag over the bucket would be cut: every slide must fit it whole
-    lengths = [ds.get(i, None).bag.shape[0] for i in range(n_slides)]
+    # a bag over the bucket would be cut: every slide must fit it whole (a
+    # bag over the dataset's threshold comes out cut to it, as the loader
+    # cuts it)
+    import numpy as np
+    lengths = [ds.get(i, np.random.RandomState(0)).bag.shape[0]
+               for i in range(n_slides)]
     check(max(lengths) <= bucket,
           f"{name}: bags of {lengths} tokens do not fit the {bucket} bucket")
     return list(BucketedLoader(ds, buckets=(bucket,), batch_size=batch_size,
@@ -2454,16 +2427,19 @@ def gigapath_without_dropout(seq_axes=None):
 
 def read_counts_qrange() -> dict:
     """:func:`read_counts` and K1's launches with a ``q_token_range``
-    (``K1f_qrange``, ``K1b_qrange``)."""
+    (``K1f_qrange``, ``K1b_qrange``: K1b in two parts counts part 0 there
+    and part 1 in ``K1b_part1``)."""
     dm = importlib.import_module(COUNTERS["K1f"][0])
     return dict(read_counts(), K1f_qrange=dm.QRANGE_LAUNCHES,
-                K1b_qrange=dm.BWD_QRANGE_LAUNCHES)
+                K1b_qrange=dm.BWD_QRANGE_LAUNCHES,
+                K1b_part1=dm.BWD_PART1_LAUNCHES)
 
 
 def reset_counts_qrange() -> None:
     reset_counts()
     dm = importlib.import_module(COUNTERS["K1f"][0])
     dm.QRANGE_LAUNCHES = dm.BWD_QRANGE_LAUNCHES = 0
+    dm.BWD_PART1_LAUNCHES = 0
 
 
 def sp_grad_step(device, seed, mesh=None, **data_kw):
@@ -2611,7 +2587,8 @@ def phase_parallel(device, card="", sp_kw=None, dp_kw=None, timeout=600):
     sp_kw = sp_kw or {}
     loss1, grads1, launches1, ms1, peak1, per = sp_grad_step(
         device, seed=7, **sp_kw)
-    check(launches1["K1f"] == per["K1"] and launches1["K1f_qrange"] == 0,
+    check(launches1["K1f"] == per["K1"] and launches1["K1f_qrange"] ==
+          launches1["K1b_qrange"] == launches1["K1b_part1"] == 0,
           f"single-process step launches {launches1}")
     torch.cuda.empty_cache()
     ctx = mp.get_context("spawn")
@@ -2636,11 +2613,12 @@ def phase_parallel(device, card="", sp_kw=None, dp_kw=None, timeout=600):
     sp_launches = {k: sum(r[2][k] for r in ranks) for k in ranks[0][2]}
     for r in ranks:
         got = r[2]
-        check(got["K1f_qrange"] == got["K1b_qrange"] == per["K1"] and
-              got["K1f"] == got["K1b"] == 0 and
+        check(got["K1f_qrange"] == got["K1b_qrange"] == got["K1b_part1"]
+              == per["K1"] and got["K1f"] == got["K1b"] == 0 and
               got["K2f"] == got["K2b"] == per["K2"],
               f"sequence-parallel rank launches {got}, want "
-              f"{per['K1']} K1f/K1b with a range and {per['K2']} K2f/K2b")
+              f"{per['K1']} K1f, K1b part 0 and part 1 with a range and "
+              f"{per['K2']} K2f/K2b")
     for n in grads1:
         check(torch.equal(ranks[0][1][n], ranks[1][1][n]),
               f"sequence-parallel ranks' {n} gradients differ")
@@ -4108,22 +4086,69 @@ def with_remat(build_kw, remat, policy):
     return dict(build_kw, cfg=cfg)
 
 
+def live_storages():
+    """A dispatch mode that records, by weak reference, every storage an op
+    makes while it is on (not a view of its inputs'); ``alive()`` lists the
+    sizes of those still alive: what a layer's forward leaves for the
+    backward, in the bytes of its tensors rather than of the allocator's
+    blocks, which keep up to 1 MiB more where a cached block is not split."""
+    from torch.multiprocessing.reductions import StorageWeakRef
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    class Live(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.made = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            inputs = {t.untyped_storage().data_ptr()
+                      for t in tree_flatten((args, kwargs))[0]
+                      if hasattr(t, "untyped_storage")}
+            for t in tree_flatten(out)[0]:
+                if hasattr(t, "untyped_storage") and \
+                        t.untyped_storage().nbytes():
+                    st = t.untyped_storage()
+                    if st.data_ptr() not in inputs:
+                        self.made.append((StorageWeakRef(st), st.data_ptr(),
+                                          st.nbytes()))
+            return out
+
+        def alive(self):
+            return sorted({ptr: n for ref, ptr, n in self.made
+                           if not ref.expired()}.values(), reverse=True)
+    return Live()
+
+
 def grad_step_readings(device, model, tcfg, text, batch, layer=None,
                        seed=3):
     """One grad step (``make_grad_step``, no update) from ``model``'s
     weights on ``batch`` with a generator seeded ``seed`` -> (loss, {name:
     gradient on the host}, the device bytes that LongNet layer ``layer``
     leaves allocated from its forward's start to its end: what the
-    backward keeps of it, its output included; None without ``layer``)."""
+    backward keeps of it, its output included; None without ``layer``;
+    JAX's ``"flash"`` set for that layer by :func:`flash_keep_bytes`, or
+    None; the sizes of the storages its forward made that are alive at its
+    end (:func:`live_storages`), or None)."""
     import torch
     from modaltune_tpu_torch import make_grad_step
-    kept, hooks = [], []
+    kept, hooks, jax_set, live = [], [], [], []
     if layer is not None:
         mod = model.backbone.encoder.layers[layer]
-        hooks = [mod.register_forward_pre_hook(
-            lambda *_: kept.append(-torch.cuda.memory_allocated())),
-            mod.register_forward_hook(
-            lambda *_: kept.append(torch.cuda.memory_allocated()))]
+        mode = live_storages()
+
+        def before(*_):
+            kept.append(-torch.cuda.memory_allocated())
+            mode.__enter__()
+
+        def after(_, __, out):
+            mode.__exit__(None, None, None)
+            kept.append(torch.cuda.memory_allocated())
+            jax_set.append(flash_keep_bytes(mod.cfg, out))
+            live.append(mode.alive())
+        hooks = [mod.register_forward_pre_hook(before),
+                 mod.register_forward_hook(after)]
     gen = torch.Generator(device=device).manual_seed(seed)
     try:
         loss, grads = make_grad_step(model, tcfg)(batch, text, gen)
@@ -4132,14 +4157,30 @@ def grad_step_readings(device, model, tcfg, text, batch, layer=None,
             h.remove()
     torch.cuda.synchronize()
     grads = {n: g.detach().float().cpu() for n, g in grads.items()}
-    return float(loss), grads, sum(kept) if kept else None
+    return (float(loss), grads, sum(kept) if kept else None,
+            jax_set[0] if jax_set else None, live[0] if live else None)
+
+
+def flash_keep_bytes(cfg, out) -> int:
+    """What JAX's ``"flash"`` policy keeps of one LongNet layer of ``cfg``
+    (a ``LongNetConfig``) whose output is ``out`` (B, L, d), by
+    arithmetic: the output and the attention's output, ``out``'s size
+    each, and what the attention's backward kernel reads besides q/k/v:
+    K1's stats (B*H, n + 2, L) fp32, or on the fused route K3's compact
+    lses (B, H, M) and m, Z (2, B, H, L) fp32."""
+    from modaltune_tpu_torch.ops.dilated_fused import total_rows
+    b, length, _ = out.shape
+    h, segs, ratios = cfg.num_heads, cfg.segment_lengths, cfg.dilated_ratios
+    rows = (total_rows(length, segs, ratios) + 2 * length
+            if not cfg.mega_attention else (len(segs) + 2) * length)
+    return 2 * out.numel() * out.element_size() + 4 * b * h * rows
 
 
 def step_difference(a, b):
     """(largest |difference| of the loss or of any gradient element, the
     tensors that differ) between two :func:`grad_step_readings`."""
     import torch
-    (la, ga, _), (lb, gb, _) = a, b
+    (la, ga, *_), (lb, gb, *_) = a, b
     check(ga.keys() == gb.keys(), "grad steps of different parameters")
     differ = [n for n in ga if not torch.equal(ga[n], gb[n])]
     worst = max([abs(la - lb)] + [(ga[n] - gb[n]).abs().max().item()
@@ -4158,7 +4199,8 @@ def flagship_k2_shapes(length, n_valid):
 
 
 def phase_flagship(device, card="", build_kw=None, ref_kws=None, layer=6,
-                   timed_steps=5, b2_steps=3, k1_kw=None, trainer_kw=None):
+                   timed_steps=5, b2_steps=3, b4_steps=2, k1_kw=None,
+                   trainer_kw=None):
     """ModalTune-GigaPath at the reference's 25,599 bucket
     (``GIGAPATH_25599``; ``build_kw`` and ``ref_kws``, the 10,239 and
     2,047 ones, to rehearse on the CPU), through the public entry
@@ -4170,14 +4212,16 @@ def phase_flagship(device, card="", build_kw=None, ref_kws=None, layer=6,
       model fresh from the same seed; first one grad step each from the
       same weights, batch and generator state, held bit for bit to remat
       off within remat off's own run-to-run difference (two runs), and
-      the bytes that LongNet layer ``layer`` keeps for the backward;
+      the bytes that LongNet layer ``layer`` keeps for the backward, under
+      ``"flash"`` exactly JAX's ``"flash"`` set (:func:`flash_keep_bytes`);
     * the embed step there (:func:`phase_slice`);
     * the fused route (K3 + K5), its train step with remat off and under
       ``"flash"``, one grad step each held bit for bit to remat off as
-      above, its embeddings held to the default route's;
-    * B = 2 on the default route under ``"flash"``: ``b2_steps`` checked
-      steps, ms/step and peak; remat off's peak at B = 2 predicted from
-      B = 1's readings, not run;
+      above (the bytes layer ``layer`` keeps printed beside JAX's
+      ``"flash"`` set), its embeddings held to the default route's;
+    * B = 2 and B = 4 on the default route under ``"flash"``: ``b2_steps``
+      and ``b4_steps`` checked steps, ms/step and peak; remat off's peak at
+      B = 2 predicted from B = 1's readings, not run;
     * every kernel of these paths at the shapes they give it, against its
       plain version with the gates of the 10,240 shape: K1f, K1b, K3f and
       K3b at (3, 25,600, 16, 48), 24,000 valid tokens (the plain versions
@@ -4211,8 +4255,8 @@ def phase_flagship(device, card="", build_kw=None, ref_kws=None, layer=6,
                                             batch))
         r = drive_train(device, model, tcfg, opt, text, batch, tag, card,
                         timed_steps=timed_steps)
-        r.update(reads=reads, kept=reads[0][2],
-                 layers=len(model.backbone.encoder.layers))
+        r.update(reads=reads, kept=reads[0][2], jax_kept=reads[0][3],
+                 live=reads[0][4], layers=len(model.backbone.encoder.layers))
         runs[name] = paths[names[name]] = r
         del model, opt, batch, reads
         torch.cuda.empty_cache()
@@ -4234,9 +4278,17 @@ def phase_flagship(device, card="", build_kw=None, ref_kws=None, layer=6,
     for name, r in runs.items():
         print(f"flagship remat {name}: {r['ms']:.2f} ms/step, peak "
               f"{r['peak_bytes'] / 2**30:.3f} GiB, LongNet layer {layer} "
-              f"keeps {r['kept'] / 2**20:.1f} MiB for the backward (its "
-              f"output included); {card}", flush=True)
+              f"keeps {r['kept']} B ({r['kept'] / 2**20:.1f} MiB) for the "
+              f"backward (its output included); {card}", flush=True)
     flash = runs["flash"]
+    check(flash["kept"] == flash["jax_kept"] == sum(flash["live"]),
+          f"flagship remat 'flash': LongNet layer {layer} keeps "
+          f"{flash['kept']} B ({sum(flash['live'])} B in the storages "
+          f"{flash['live']}), JAX's 'flash' set {flash['jax_kept']} B")
+    print(f"flagship remat 'flash': LongNet layer {layer} keeps exactly "
+          f"JAX's 'flash' set, {flash['jax_kept']} B (arithmetic: the "
+          f"output, K1's output and its stats; no q/k/v, no branch "
+          f"output)", flush=True)
     check(flash["launches"]["K1f"] == flash["layers"] * len(flash["losses"]),
           f"flagship: K1f launched {flash['launches']['K1f']} times in "
           f"{len(flash['losses'])} steps under 'flash', not once a layer")
@@ -4256,12 +4308,28 @@ def phase_flagship(device, card="", build_kw=None, ref_kws=None, layer=6,
         model, tcfg, opt, text, batch = timed_build(
             device, tag, with_remat(dict(build_kw, route="fused"), remat,
                                     "flash"))
-        fused[name] = [grad_step_readings(device, model, tcfg, text, batch)
-                       for _ in range(2 if name == "off" else 1)]
+        fused[name] = [grad_step_readings(device, model, tcfg, text, batch,
+                                          layer=layer if i == 0 else None)
+                       for i in range(2 if name == "off" else 1)]
         key = ("gigapath_flagship_fused_train" if remat
                else "gigapath_flagship_fused_off_train")
-        paths[key] = drive_train(device, model, tcfg, opt, text, batch, tag,
-                                 card, timed_steps=timed_steps)
+        r = paths[key] = drive_train(device, model, tcfg, opt, text, batch,
+                                     tag, card, timed_steps=timed_steps)
+        r.update(kept=fused[name][0][2], jax_kept=fused[name][0][3],
+                 live=fused[name][0][4])
+        runs[f"fused_{name}"] = r
+        print(f"flagship fused remat {name}: LongNet layer {layer} keeps "
+              f"{r['kept']} B of allocator blocks for the backward (its "
+              f"output included), {sum(r['live'])} B in "
+              f"{r['live'] if remat else len(r['live'])} storages; JAX's "
+              f"'flash' set by arithmetic "
+              f"{r['jax_kept']} B (the output, K3's mixed output, its "
+              f"compact lses, m and Z); {card}", flush=True)
+        if remat:
+            check(sum(r["live"]) == r["jax_kept"],
+                  f"flagship fused remat 'flash': LongNet layer {layer}'s "
+                  f"storages {r['live']} hold {sum(r['live'])} B, JAX's "
+                  f"'flash' set {r['jax_kept']} B")
         del model, opt, batch
         torch.cuda.empty_cache()
     noise, _ = step_difference(*fused["off"])
@@ -4279,15 +4347,17 @@ def phase_flagship(device, card="", build_kw=None, ref_kws=None, layer=6,
         tag="flagship fused slice", compare_kw=GIGAPATH_2047,
         agree_with=embed["outs"])
 
-    tag = "flagship B=2 train remat flash"
-    model, tcfg, opt, text, batch = timed_build(
-        device, tag, with_remat(dict(build_kw, n_slides=2, batch_size=2),
-                                True, "flash"))
-    b2 = drive_train(device, model, tcfg, opt, text, batch, tag, card,
-                     steps=b2_steps, timed_steps=b2_steps)
-    paths["gigapath_flagship_b2_train"] = b2
-    del model, opt, batch
-    torch.cuda.empty_cache()
+    for n_rows, steps in ((2, b2_steps), (4, b4_steps)):
+        tag = f"flagship B={n_rows} train remat flash"
+        model, tcfg, opt, text, batch = timed_build(
+            device, tag, with_remat(dict(build_kw, n_slides=n_rows,
+                                         batch_size=n_rows), True, "flash"))
+        r = drive_train(device, model, tcfg, opt, text, batch, tag, card,
+                        steps=steps, timed_steps=steps)
+        runs[f"flash_b{n_rows}"] = paths[f"gigapath_flagship_b{n_rows}_train"] = r
+        del model, opt, batch
+        torch.cuda.empty_cache()
+    b2, b4 = runs["flash_b2"], runs["flash_b4"]
     one = runs["off"]
     predicted = one["base_bytes"] + 2 * (one["peak_bytes"] - one["base_bytes"])
     total = torch.cuda.get_device_properties(0).total_memory
@@ -4297,6 +4367,9 @@ def phase_flagship(device, card="", build_kw=None, ref_kws=None, layer=6,
           f"B = 1 (arithmetic: held {one['base_bytes'] / 2**30:.3f} GiB + 2 x "
           f"{(one['peak_bytes'] - one['base_bytes']) / 2**30:.3f} GiB of "
           f"step) {predicted / 2**30:.3f} GiB; {card}", flush=True)
+    print(f"flagship B=4: 'flash' {b4['ms']:.2f} ms/step, peak "
+          f"{b4['peak_bytes'] / 2**30:.3f} GiB of the card's "
+          f"{total / 2**30:.3f}; {card}", flush=True)
 
     k1_kw = dict(dict(shape=(3, 25600, 16, 48), n_valid=24000,
                       plain_rows=True), **(k1_kw or {}))
@@ -4340,9 +4413,12 @@ def phase_flagship(device, card="", build_kw=None, ref_kws=None, layer=6,
     paths["gigapath_flagship_trainer"] = phase_trainer(
         device, card=card, tag="flagship trainer", **trainer_kw)
     return dict(paths=paths, at_25600=big,
-                remat={n: {k: r[k] for k in ("ms", "peak_bytes", "kept",
-                                             "gc_ms")
-                           if k in r} for n, r in runs.items()})
+                remat={n: dict({k: r[k] for k in ("ms", "peak_bytes", "kept",
+                                                  "jax_kept", "gc_ms")
+                                if k in r},
+                               **({"kept_in_storages": sum(r["live"])}
+                                  if r.get("live") is not None else {}))
+                       for n, r in runs.items()})
 
 
 def main() -> int:
@@ -4562,6 +4638,11 @@ def main() -> int:
                     k1q["by_n"].items()})
             check(out["qrange_launches"] > 0,
                   f"{name} with a q_token_range was launched on no path")
+            if bwd:   # K1b in two parts: part 1's launches apart
+                part1 = {p: r["launches"].get("K1b_part1", 0)
+                         for p, r in paths.items()}
+                out["part1_launches_by_path"] = {p: n for p, n in
+                                                 part1.items() if n}
         if sources:
             side = "bwd" if key.endswith("b") else "fwd"
             out["source_by_family"] = {
@@ -4592,8 +4673,7 @@ def main() -> int:
     # the largest output or gradient error of a kernel's readings (K2, K4:
     # of every shape's)
     errors = {
-        "K1f": lambda r: max(max(r[dt]["out_err"], r[dt]["branch_err"])
-                             for dt in both),
+        "K1f": lambda r: max(r[dt]["out_err"] for dt in both),
         "K1b": lambda r: max(r[dt]["grad_err"] for dt in both),
         "K2f": lambda rs: max(r[dt]["out_err"] for r in rs.values()
                               for dt in both),

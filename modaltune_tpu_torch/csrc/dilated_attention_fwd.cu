@@ -16,8 +16,9 @@
 // With stats (training) K1f also writes what the backward needs: stats
 // (B*H, n_br + 2, L) = [lse_0 .. lse_{n-1}, m, Z], with m = max_b lse_b and
 // Z = sum_b e^{lse_b - m} (lse_b NEG_INF where branch b does not cover the
-// slot or the row has no valid key), and branch_out (n_br, B, L, H, D), each
-// branch's own output (zeros where it does not cover the slot).
+// slot or the row has no valid key). No branch's own output is kept: the
+// backward takes what it needs of it from q, k, v and the stats, as the
+// Pallas kernel's backward does.
 //
 // With a query range [q0, q1) (the Pallas kernel's qrange, the
 // sequence-parallel shard's rows; ops/dilated_sp.py) only those query rows
@@ -57,14 +58,14 @@
 //   row does not take part contributes nothing, exactly as its NEG_INF lse
 //   gives it weight 0 in the oracle's mix. With stats the online softmax
 //   runs on branch-local (m_b, l_b, acc_b); when a branch ends, the block
-//   writes lse_b and o_b = acc_b / l_b and folds o_b into a running mix with
-//   the JAX kernel's algebra.
+//   writes lse_b and folds o_b = acc_b / l_b into a running mix with the
+//   JAX kernel's algebra.
 #include "dilated_wgmma.cuh"
 
 namespace mt {
 
 // Extra shared memory of the training variant, after Plan<DP>: the
-// branch-local accumulator, its (m_b, l_b), and three per-row coefficients
+// branch-local accumulator, its (m_b, l_b), and two per-row coefficients
 // of the branch-end mix.
 template <int DP>
 struct StatsPlan {
@@ -72,7 +73,7 @@ struct StatsPlan {
   static constexpr int m_off = acc_off + kBlockQ * DP;
   static constexpr int l_off = m_off + kBlockQ;
   static constexpr int coef_off = l_off + kBlockQ;
-  static constexpr int floats = coef_off + 3 * kBlockQ;
+  static constexpr int floats = coef_off + 2 * kBlockQ;
   static constexpr size_t bytes = sizeof(float) * floats;
 };
 
@@ -80,8 +81,8 @@ template <int DP, typename T, bool STATS>
 __global__ void __launch_bounds__(kThreads)
 dilated_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const unsigned char* __restrict__ mask, T* __restrict__ out,
-                   float* __restrict__ stats, T* __restrict__ branch_out, int B, int L, int H,
-                   int D, float scale, Branches br, int q0, int q1) {
+                   float* __restrict__ stats, int L, int H, int D, float scale, Branches br,
+                   int q0, int q1) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   // t: the union state (inference) or the running branch mix (training:
@@ -143,7 +144,6 @@ dilated_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
         coef[i] = corr;
         // e^{lse - m_safe} o_b = e^{m_b - m_safe} acc_b
         coef[kBlockQ + i] = lb > 0.f ? expf(tb.m[i] - m_safe) : 0.f;
-        coef[2 * kBlockQ + i] = lb > 0.f ? 1.f / lb : 0.f;
         t.l[i] = t.l[i] * corr + expf(lse - m_safe);
         t.m[i] = m_new;
         tb.m[i] = kNegInf;
@@ -151,13 +151,10 @@ dilated_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
         if (i < nq) st[i] = lse;
       }
       __syncthreads();
-      T* ob = branch_out + static_cast<size_t>(bi) * B * L * tok + head0;
       for (int e = threadIdx.x; e < kBlockQ * DP; e += kThreads) {
-        const int i = e / DP, d = e - i * DP;
-        const float a = tb.acc[e];
-        t.acc[e] = t.acc[e] * coef[i] + coef[kBlockQ + i] * a;
+        const int i = e / DP;
+        t.acc[e] = t.acc[e] * coef[i] + coef[kBlockQ + i] * tb.acc[e];
         tb.acc[e] = 0.f;
-        if (i < nq && d < D) ob[(p0 + i) * tok + d] = from_float<T>(a * coef[2 * kBlockQ + i]);
       }
     }
   }
@@ -180,7 +177,7 @@ dilated_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 
 template <int DP, typename T, bool STATS>
 cudaError_t launch_dilated(const void* q, const void* k, const void* v, const unsigned char* mask,
-                           void* out, float* stats, void* branch_out, int B, int L, int H, int D,
+                           void* out, float* stats, int B, int L, int H, int D,
                            float scale, const Branches& br, int q0, int q1, cudaStream_t stream) {
   auto kernel = dilated_fwd_kernel<DP, T, STATS>;
   const size_t bytes = STATS ? StatsPlan<DP>::bytes : Plan<DP>::bytes;
@@ -189,21 +186,21 @@ cudaError_t launch_dilated(const void* q, const void* k, const void* v, const un
   const dim3 grid((q1 - q0 + kBlockQ - 1) / kBlockQ, H, B);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
-      static_cast<T*>(out), stats, static_cast<T*>(branch_out), B, L, H, D, scale, br, q0, q1);
+      static_cast<T*>(out), stats, L, H, D, scale, br, q0, q1);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_range_fill<T>(out, stats, branch_out, B, L, H, D, br.n, q0, q1, stream);
+  return launch_range_fill<T>(out, stats, B, L, H, D, br.n, q0, q1, stream);
 }
 
 template <typename T, bool STATS>
 cudaError_t dispatch_dilated(int DP, const void* q, const void* k, const void* v,
-                             const unsigned char* m, void* out, float* st, void* bo, int B, int L,
+                             const unsigned char* m, void* out, float* st, int B, int L,
                              int H, int D, float scale, const Branches& br, int q0, int q1,
                              cudaStream_t s) {
   switch (DP) {
 #define MT_CASE(N)                                                                        \
   case N:                                                                                 \
-    return launch_dilated<N, T, STATS>(q, k, v, m, out, st, bo, B, L, H, D, scale, br, q0, \
+    return launch_dilated<N, T, STATS>(q, k, v, m, out, st, B, L, H, D, scale, br, q0,     \
                                        q1, s);
     MT_CASE(16)
     MT_CASE(32)
@@ -219,8 +216,8 @@ cudaError_t dispatch_dilated(int DP, const void* q, const void* k, const void* v
 // mix, which writes out and, with stats, K1's planes.
 inline cudaError_t launch_dilated_fwd_wgmma(const void* q, const void* k, const void* v,
                                             const unsigned char* mask, void* out, float* stats,
-                                            void* branch_out, void* out_c, float* lse_c, int B,
-                                            int L, int H, float scale, const FusedBranches& fb,
+                                            void* out_c, float* lse_c, int B, int L, int H,
+                                            float scale, const FusedBranches& fb,
                                             cudaStream_t stream) {
   const DilatedFwdCore c{q, k, v, mask, out_c, lse_c, B, L, H, scale};
   const cudaError_t err = launch_dilated_fwd_core(c, fb, stream);
@@ -231,27 +228,25 @@ inline cudaError_t launch_dilated_fwd_wgmma(const void* q, const void* k, const 
                  stats == nullptr ? nullptr : stats + n * plane,
                  stats == nullptr ? nullptr : stats + (n + 1) * plane,
                  (n + 2) * plane,
-                 stats,
-                 branch_out};
+                 stats};
   return launch_compact_mix(out_c, lse_c, o, B, L, H, kWgmmaD, fb, 1, stream);
 }
 
 template <typename T>
 cudaError_t dispatch_dilated(int DP, const void* q, const void* k, const void* v,
-                             const unsigned char* m, void* out, float* st, void* bo, int B, int L,
+                             const unsigned char* m, void* out, float* st, int B, int L,
                              int H, int D, float scale, const Branches& br, int q0, int q1,
                              cudaStream_t s) {
   if (st == nullptr)
-    return dispatch_dilated<T, false>(DP, q, k, v, m, out, st, bo, B, L, H, D, scale, br, q0, q1,
+    return dispatch_dilated<T, false>(DP, q, k, v, m, out, st, B, L, H, D, scale, br, q0, q1,
                                       s);
-  return dispatch_dilated<T, true>(DP, q, k, v, m, out, st, bo, B, L, H, D, scale, br, q0, q1, s);
+  return dispatch_dilated<T, true>(DP, q, k, v, m, out, st, B, L, H, D, scale, br, q0, q1, s);
 }
 
 }  // namespace mt
 
 // q/k/v/out (B, L, H, D) contiguous; mask (B, L) bytes (1 = valid) or null.
-// stats (B*H, n_branches + 2, L) fp32 and branch_out (n_branches, B, L, H, D)
-// in the input dtype, both null (inference) or both given (training).
+// stats (B*H, n_branches + 2, L) fp32, or null (inference).
 // segments/ratios: n_branches host ints. dtype: 0 = float32, 1 = bfloat16.
 // The tensor-core family (mt::dilated_family: bf16, D = 48; q/k/v 16-byte
 // aligned) takes compact scratch out_c (B, H, M, 48) bf16 and lse_c (B, H, M)
@@ -259,18 +254,17 @@ cudaError_t dispatch_dilated(int DP, const void* q, const void* k, const void* v
 // the CUDA-core kernels take them null.
 // [q0, q1): the query range (K1's q_token_range; 0, L: every row). Only the
 // query tiles that meet it are computed; every slot outside it gets out 0,
-// with stats lse_b and m NEG_INF and Z 0 and branch_out 0 (a row without a
-// valid key). An empty range or one outside [0, L) is refused.
+// with stats lse_b and m NEG_INF and Z 0 (a row without a valid key). An
+// empty range or one outside [0, L) is refused.
 // Returns a cudaError_t; 0 means every kernel was launched.
 extern "C" int mt_dilated_attention_fwd(const void* q, const void* k, const void* v,
-                                        const void* mask, void* out, void* stats, void* branch_out,
-                                        void* out_c, void* lse_c, int B, int L, int H, int D,
+                                        const void* mask, void* out, void* stats, void* out_c,
+                                        void* lse_c, int B, int L, int H, int D,
                                         const int* segments, const int* ratios, int n_branches,
                                         float scale, int dtype, int q0, int q1, void* stream) {
   const int DP = mt::padded_head_dim(D);
   if (DP < 0 || B < 1 || B > 65535 || L < 1 || H < 1 || H > 65535 || n_branches < 1 ||
-      n_branches > mt::kMaxBranches || (stats == nullptr) != (branch_out == nullptr) ||
-      q0 < 0 || q1 > L || q0 >= q1)
+      n_branches > mt::kMaxBranches || q0 < 0 || q1 > L || q0 >= q1)
     return cudaErrorInvalidValue;
   mt::Branches br{};
   br.n = n_branches;
@@ -288,14 +282,14 @@ extern "C" int mt_dilated_attention_fwd(const void* q, const void* k, const void
         !mt::make_fused_branches(fb, L, segments, ratios, n_branches) ||
         !mt::set_query_range(fb, L, q0, q1))
       return cudaErrorInvalidValue;
-    return mt::launch_dilated_fwd_wgmma(q, k, v, m, out, st, branch_out, out_c,
+    return mt::launch_dilated_fwd_wgmma(q, k, v, m, out, st, out_c,
                                         static_cast<float*>(lse_c), B, L, H, scale, fb, s);
   }
   if (dtype == 0)
-    return mt::dispatch_dilated<float>(DP, q, k, v, m, out, st, branch_out, B, L, H, D, scale, br,
-                                       q0, q1, s);
+    return mt::dispatch_dilated<float>(DP, q, k, v, m, out, st, B, L, H, D, scale, br, q0, q1,
+                                       s);
   if (dtype == 1)
-    return mt::dispatch_dilated<__nv_bfloat16>(DP, q, k, v, m, out, st, branch_out, B, L, H, D,
-                                               scale, br, q0, q1, s);
+    return mt::dispatch_dilated<__nv_bfloat16>(DP, q, k, v, m, out, st, B, L, H, D, scale, br,
+                                               q0, q1, s);
   return cudaErrorInvalidValue;
 }

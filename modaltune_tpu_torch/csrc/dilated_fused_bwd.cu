@@ -7,29 +7,33 @@
 //
 // Semantics (the plain oracles are ops/dilated_fused.py::
 // fused_branch_backward_reference and ::fused_combine_reference; the layout
-// is in dilated_fused_common.cuh). With dmix the gradient of the mixed
-// output and the mix weights taken as constants, per branch b and compact
-// row i at position p:
+// is in dilated_fused_common.cuh). The forward saved each compact row's
+// lse_b and the mix statistics m and Z, and no branch output: the Pallas
+// kernels' residuals. With dmix the gradient of the mixed output and the
+// mix weights taken as constants, per branch b and compact row i at
+// position p:
 //   w_i     = exp(lse_b,i - m_p) / Z_p where lse_b,i > NEG_INF / 2, else 0
 //   dO_i    = w_i dmix_p
-//   delta_i = rowsum(dO_i * out_b,i)
 //   P_ij    = exp(q_i.k_j scale - lse_b,i)  (0 for a masked key; a row with a
 //                                            masked lse uses +|NEG_INF/2|)
+//   delta_i = rowsum_j(P_ij dO_i.v_j)       (= rowsum(dO_i * out_b,i))
 //   dS_ij   = P_ij (dO_i.v_j - delta_i)
 //   dq_b,i = sum_j dS_ij k_j scale, dk_b,j = sum_i dS_ij q_i scale,
 //   dv_b,j = sum_i P_ij dO_i
 // and dense dq, dk, dv at (p, head) sum the compact rows of the branches
 // that cover the slot. The Pallas kernel holds a whole score row and takes
-// delta from it as rowsum(P * dP); with streamed key tiles delta comes from
-// the forward's saved out_b instead (the two are equal).
+// delta from it as rowsum(P * dP); so do these kernels, over the streamed
+// key tiles.
 //
-// Four launches, each covering every branch: a prep kernel writes w and delta
-// per compact row (a warp per row, lanes over D); a dq kernel whose block
-// owns 64 compact query rows of one (segment, head group) and streams its
-// keys; a dk/dv kernel whose block owns 64 compact key rows and streams its
-// queries; the combine kernel (a warp per (token, head)) adds the branches'
-// rows. The compact gradients are an fp32 scratch, so bf16 inputs round each
-// dense gradient once. No atomics. Two families of the dq and dk/dv kernels
+// Four launches, each covering every branch: a prep kernel writes w per
+// compact row (and, for the CUDA-core kernels, delta, rebuilt over the
+// row's keys by window_pdp: a warp a row, a lane a key); a dq kernel whose
+// block owns 64 compact query rows of one (segment, head group) and streams
+// its keys (the tensor-core core's takes delta there); a dk/dv kernel whose
+// block owns 64 compact key rows and streams its queries; the combine
+// kernel (a warp per (token, head)) adds the branches' rows. The compact
+// gradients are an fp32 scratch, so bf16 inputs round each dense gradient
+// once. No atomics. Two families of the dq and dk/dv kernels
 // (mt::dilated_family):
 // * bf16 at D = 48 (GigaPath's head size): the tensor-core gradient core of
 //   dilated_bwd_wgmma.cu, which K1b shares;
@@ -37,9 +41,9 @@
 //
 // What bounds it on the H100: operations, five products per query-key pair
 // (dilated_bwd_wgmma.cu). The CUDA-core kernels run them in fp32 and are
-// bound by that arithmetic rate and shared-memory bandwidth. The prep and
-// combine kernels are bound by device memory (about 2 and 12.5 times q's
-// bytes).
+// bound by that arithmetic rate and shared-memory bandwidth. The combine
+// kernel is bound by device memory (about 12.5 times q's bytes), and so is
+// the tensor-core family's prep.
 //
 // What the CUDA-core kernels do about it: q/k/v/dmix are read in place with
 // strided rows; every row of a block's tile takes part in every streamed
@@ -50,42 +54,50 @@
 
 namespace mt {
 
-// A warp per compact row of a (B, H, M) tensor.
-template <typename T>
+// w per compact row of a (B, H, M) tensor, a thread a row; with DELTA (the
+// CUDA-core kernels) delta too, a warp a row.
+template <typename T, bool DELTA>
 __global__ void __launch_bounds__(kThreads)
-fused_bwd_prep_kernel(const T* __restrict__ dmix, const T* __restrict__ out_c,
+fused_bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const unsigned char* __restrict__ mask, const T* __restrict__ dmix,
                       const float* __restrict__ lse_c, const float* __restrict__ m_in,
                       const float* __restrict__ z_in, float* __restrict__ w_c,
-                      float* __restrict__ delta_c, int B, int L, int H, int D,
+                      float* __restrict__ delta_c, int B, int L, int H, int D, float scale,
                       FusedBranches fb) {
-  const size_t gw = (static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
+  __shared__ float qd[DELTA ? kWarps : 1][2 * 32 * kMaxDimsPerLane];
+  const size_t gw =
+      (static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x) / (DELTA ? 32 : 1);
+  const int lane = DELTA ? threadIdx.x % 32 : 0;
   const int M = fb.off[fb.n];
   if (gw >= static_cast<size_t>(B) * H * M) return;
   const int row = static_cast<int>(gw % M);
   const size_t bh = gw / M;
   const int h = static_cast<int>(bh % H);
-  const int b = static_cast<int>(bh / H);
   int bi = 0;
   while (bi + 1 < fb.n && row >= fb.off[bi + 1]) ++bi;
   const int m = fb.m[bi], sl = fb.seg[bi], r = fb.ratio[bi];
   const int seg = (row - fb.off[bi]) / m, l = (row - fb.off[bi]) - seg * m;
-  const int o = l * r + head_group(h, H, r);
+  const int g = head_group(h, H, r);
+  const int o = l * r + g;
   const int p = seg * sl + o;
   const float lse = lse_c[gw];
   float wb = 0.f, delta = 0.f;
   if (o < sl && p < L && lse > kMaskThreshold) {
     const float z = z_in[bh * L + p];
     wb = expf(lse - m_in[bh * L + p]) / (z > 0.f ? z : 1.f);
-    const T* dm = dmix + ((static_cast<size_t>(b) * L + p) * H + h) * D;
-    const T* oc = out_c + gw * D;
-    float dot = 0.f;
-    for (int d = lane; d < D; d += 32) dot += to_float<T>(dm[d]) * to_float<T>(oc[d]);
-    delta = wb * warp_sum(dot);
+    if constexpr (DELTA) {
+      const size_t b = bh / H, tok = static_cast<size_t>(H) * D;
+      const size_t head0 = b * L * tok + static_cast<size_t>(h) * D;
+      const int s0 = seg * sl;
+      delta = wb * window_pdp(q + head0 + p * tok, dmix + head0 + p * tok, k + head0, v + head0,
+                              tok, mask == nullptr ? nullptr : mask + b * L,
+                              s0 + g, r, ceil_div_nonneg(min(s0 + sl, L) - s0 - g, r), lse,
+                              scale, D, qd[threadIdx.x / 32]);
+    }
   }
   if (lane == 0) {
     w_c[gw] = wb;
-    delta_c[gw] = delta;
+    if (DELTA) delta_c[gw] = delta;
   }
 }
 
@@ -247,7 +259,7 @@ fused_combine_kernel(const float* __restrict__ dq_c, const float* __restrict__ d
 struct FusedBwdArgs {
   const void *q, *k, *v;
   const unsigned char* mask;
-  const void *dmix, *out_c;
+  const void* dmix;
   const float *lse_c, *m_in, *z_in;
   float *w_c, *delta_c, *dq_c, *dk_c, *dv_c;
   void *dq, *dk, *dv;
@@ -255,14 +267,16 @@ struct FusedBwdArgs {
   float scale;
 };
 
-template <typename T>
+template <typename T, bool DELTA>
 cudaError_t launch_fused_bwd_prep(const FusedBwdArgs& a, const FusedBranches& fb,
                                   cudaStream_t stream) {
-  const size_t warps = static_cast<size_t>(a.B) * a.H * fb.off[fb.n];
-  fused_bwd_prep_kernel<T><<<static_cast<unsigned>((warps + kWarps - 1) / kWarps), kThreads, 0,
-                             stream>>>(
-      static_cast<const T*>(a.dmix), static_cast<const T*>(a.out_c), a.lse_c, a.m_in, a.z_in,
-      a.w_c, a.delta_c, a.B, a.L, a.H, a.D, fb);
+  const size_t rows = static_cast<size_t>(a.B) * a.H * fb.off[fb.n];
+  const size_t per_block = DELTA ? kWarps : kThreads;
+  fused_bwd_prep_kernel<T, DELTA>
+      <<<static_cast<unsigned>((rows + per_block - 1) / per_block), kThreads, 0, stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+          a.mask, static_cast<const T*>(a.dmix), a.lse_c, a.m_in, a.z_in, a.w_c, a.delta_c, a.B,
+          a.L, a.H, a.D, a.scale, fb);
   return cudaGetLastError();
 }
 
@@ -274,7 +288,7 @@ cudaError_t launch_fused_bwd(const FusedBwdArgs& a, const FusedBranches& fb,
   auto kkv = fused_bwd_dkv_kernel<DP, T>;
   cudaError_t err = allow_smem(kq, BwdPlan<DP, false>::bytes);
   if (err == cudaSuccess) err = allow_smem(kkv, BwdPlan<DP, true>::bytes);
-  if (err == cudaSuccess) err = launch_fused_bwd_prep<T>(a, fb, stream);
+  if (err == cudaSuccess) err = launch_fused_bwd_prep<T, true>(a, fb, stream);
   if (err != cudaSuccess) return err;
   const auto tq = static_cast<const T*>(a.q);
   const auto tk = static_cast<const T*>(a.k);
@@ -326,7 +340,7 @@ cudaError_t dispatch_fused_bwd(int DP, const FusedBwdArgs& a, const FusedBranche
 // The tensor-core family: prep, the gradient core, combine.
 inline cudaError_t launch_fused_bwd_wgmma(const FusedBwdArgs& a, const FusedBranches& fb,
                                           cudaStream_t s) {
-  cudaError_t err = launch_fused_bwd_prep<__nv_bfloat16>(a, fb, s);
+  cudaError_t err = launch_fused_bwd_prep<__nv_bfloat16, false>(a, fb, s);
   if (err != cudaSuccess) return err;
   const DilatedBwdCore c{a.q,    a.k,     a.v,       a.dmix, a.mask, a.lse_c, a.w_c, a.delta_c,
                          a.dq_c, a.dk_c,  a.dv_c,    a.B,    a.L,    a.H,     a.scale};
@@ -339,13 +353,13 @@ inline cudaError_t launch_fused_bwd_wgmma(const FusedBwdArgs& a, const FusedBran
 }  // namespace mt
 
 // q/k/v/dmix/dq/dk/dv (B, L, H, D) contiguous in one dtype (0 = float32,
-// 1 = bfloat16); mask (B, L) bytes (1 = valid) or null; out_c (B, H, M, D),
-// lse_c (B, H, M), m_in and z_in (B, H, L) as the forward wrote them; w_c and
-// delta_c (B, H, M) and dq_c, dk_c, dv_c (B, H, M, D) fp32 scratch; the
-// tensor-core family (bf16 at D = 48) takes q/k/v/dmix 16-byte aligned.
+// 1 = bfloat16); mask (B, L) bytes (1 = valid) or null; lse_c (B, H, M),
+// m_in and z_in (B, H, L) as the forward wrote them; w_c and delta_c
+// (B, H, M) and dq_c, dk_c, dv_c (B, H, M, D) fp32 scratch; the tensor-core
+// family (bf16 at D = 48) takes q/k/v/dmix 16-byte aligned.
 // Returns a cudaError_t; 0 means all four kernels were launched.
 extern "C" int mt_dilated_fused_bwd(const void* q, const void* k, const void* v, const void* mask,
-                                    const void* dmix, const void* out_c, const void* lse_c,
+                                    const void* dmix, const void* lse_c,
                                     const void* m_in, const void* z_in, void* w_c, void* delta_c,
                                     void* dq_c, void* dk_c, void* dv_c, void* dq, void* dk,
                                     void* dv, int B, int L, int H, int D, const int* segments,
@@ -356,7 +370,7 @@ extern "C" int mt_dilated_fused_bwd(const void* q, const void* k, const void* v,
   if (DP < 0 || B < 1 || B > 65535 || H < 1 || H > 65535 ||
       !mt::make_fused_branches(fb, L, segments, ratios, n_branches))
     return cudaErrorInvalidValue;
-  const mt::FusedBwdArgs a{q, k, v, static_cast<const unsigned char*>(mask), dmix, out_c,
+  const mt::FusedBwdArgs a{q, k, v, static_cast<const unsigned char*>(mask), dmix,
                            static_cast<const float*>(lse_c), static_cast<const float*>(m_in),
                            static_cast<const float*>(z_in), static_cast<float*>(w_c),
                            static_cast<float*>(delta_c), static_cast<float*>(dq_c),

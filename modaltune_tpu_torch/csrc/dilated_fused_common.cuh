@@ -129,12 +129,11 @@ __device__ __forceinline__ bool in_query_range(const FusedBranches& fb, int p) {
 // The slots (b, p, h) outside a query range [q0, q1), which K1's CUDA-core
 // kernels, their grids restricted to the range, never reach: `rows`
 // (B, L, H, D) zero; with `stats` (B*H, nbr + 2, L) every branch's lse and m
-// NEG_INF and Z 0 (a row without a valid key), and the rows of `branch_out`
-// (nbr, B, L, H, D) zero. A thread a slot.
+// NEG_INF and Z 0 (a row without a valid key). A thread a slot.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-range_fill_kernel(T* __restrict__ rows, float* __restrict__ stats, T* __restrict__ branch_out,
-                  int B, int L, int H, int D, int nbr, int q0, int q1) {
+range_fill_kernel(T* __restrict__ rows, float* __restrict__ stats, int B, int L, int H, int D,
+                  int nbr, int q0, int q1) {
   const int outside = L - (q1 - q0);
   const size_t slot = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (slot >= static_cast<size_t>(B) * outside * H) return;
@@ -149,21 +148,50 @@ range_fill_kernel(T* __restrict__ rows, float* __restrict__ stats, T* __restrict
   float* st = stats + (static_cast<size_t>(b) * H + h) * (nbr + 2) * L + p;
   for (int i = 0; i <= nbr; ++i) st[static_cast<size_t>(i) * L] = kNegInf;
   st[static_cast<size_t>(nbr + 1) * L] = 0.f;
-  for (int i = 0; i < nbr; ++i)
-    for (int d = 0; d < D; ++d)
-      branch_out[(static_cast<size_t>(i) * B * L * H + row) * D + d] = zero;
 }
 
 template <typename T>
-inline cudaError_t launch_range_fill(void* rows, float* stats, void* branch_out, int B, int L,
-                                     int H, int D, int nbr, int q0, int q1,
-                                     cudaStream_t stream) {
+inline cudaError_t launch_range_fill(void* rows, float* stats, int B, int L, int H, int D,
+                                     int nbr, int q0, int q1, cudaStream_t stream) {
   const size_t slots = static_cast<size_t>(B) * (L - (q1 - q0)) * H;
   if (slots == 0) return cudaSuccess;
   range_fill_kernel<T><<<static_cast<unsigned>((slots + kThreads - 1) / kThreads), kThreads, 0,
-                         stream>>>(static_cast<T*>(rows), stats, static_cast<T*>(branch_out), B,
-                                   L, H, D, nbr, q0, q1);
+                         stream>>>(static_cast<T*>(rows), stats, B, L, H, D, nbr, q0, q1);
   return cudaGetLastError();
+}
+
+// rowsum(P dP) of one query row over its (segment, head group)'s keys, the
+// CUDA-core families' delta (the tensor-core core takes it in its dq
+// kernel): the keys lie at positions first + r j, j < n_keys, of the head's
+// rows `k` and `v` (position stride tok); P_j = exp(q.k_j scale - lse) for a
+// valid key (mask byte 1, or no mask), dP_j = dmix.v_j. A warp per row, a
+// lane per key, the query's q and dmix rows staged in `qd` (2 D floats of
+// the warp's shared memory); the lanes' sums added by warp_sum.
+template <typename T>
+__device__ float window_pdp(const T* q_row, const T* dm_row, const T* k, const T* v, size_t tok,
+                            const unsigned char* maskb, int first, int r, int n_keys, float lse,
+                            float scale, int D, float* qd) {
+  const int lane = threadIdx.x % 32;
+  for (int d = lane; d < D; d += 32) {
+    qd[d] = to_float<T>(q_row[d]) * scale;
+    qd[D + d] = to_float<T>(dm_row[d]);
+  }
+  __syncwarp();
+  float sum = 0.f;
+  for (int j = lane; j < n_keys; j += 32) {
+    const size_t pos = static_cast<size_t>(first) + static_cast<size_t>(r) * j;
+    if (maskb != nullptr && !maskb[pos]) continue;
+    const T* kr = k + pos * tok;
+    const T* vr = v + pos * tok;
+    float s = 0.f, dp = 0.f;
+    for (int d = 0; d < D; ++d) {
+      s = fmaf(qd[d], to_float<T>(kr[d]), s);
+      dp = fmaf(qd[D + d], to_float<T>(vr[d]), dp);
+    }
+    sum = fmaf(expf(s - lse), dp, sum);
+  }
+  __syncwarp();   // the warp's next row overwrites qd
+  return warp_sum(sum);
 }
 
 // One block's tile.

@@ -31,8 +31,8 @@
 //   query rows all belong to one (segment, head group), so every row of the
 //   tile takes part in every key tile it loads, whatever the ratio. The
 //   online softmax, its tiles and the fold are K2f's (attention_common.cuh).
-// The mix kernel moves about three times q's bytes (K1's planes add the
-// branch outputs, five times q's) and is bound by device memory.
+// The mix kernel moves about three times q's bytes and is bound by device
+// memory.
 //
 #include "dilated_wgmma.cuh"
 
@@ -131,7 +131,7 @@ __device__ __forceinline__ void store8(T* dst, const float (&x)[8]) {
 
 // A thread per eight elements of a (token, head): D / 8 threads share a
 // slot, each finding the covering rows itself. With PLANES (K1's stats)
-// also every branch's lse and output at the slot (MixOut).
+// also every branch's lse at the slot (MixOut).
 template <typename T, bool PLANES>
 __global__ void __launch_bounds__(kThreads)
 fused_mix_kernel(const T* __restrict__ out_c, const float* __restrict__ lse_c, MixOut mo, int B,
@@ -171,24 +171,14 @@ fused_mix_kernel(const T* __restrict__ out_c, const float* __restrict__ lse_c, M
     const bool take = lse[bi] > kMaskThreshold;
     const float wb = take ? expf(lse[bi] - m) : 0.f;
     z += wb;
-    if (!take && !PLANES) continue;
-    // a covering row without a valid key holds zeros, as an uncovered slot
-    float x[8];
-    if (row[bi] >= 0) {
-      load8(x, out_c + (rows0 + row[bi]) * D + 8 * c);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) x[e] = 0.f;
-    }
-    if (take) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[e] = fmaf(wb, x[e], acc[e]);
-    }
     if constexpr (PLANES) {
-      T* ob = static_cast<T*>(mo.branch_out) + (static_cast<size_t>(bi) * B * L * H + gw) * D;
-      store8(ob + 8 * c, x);
       if (c == 0) mo.planes[bh * mo.stride + static_cast<size_t>(bi) * L + p] = lse[bi];
     }
+    if (!take) continue;
+    float x[8];
+    load8(x, out_c + (rows0 + row[bi]) * D + 8 * c);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] = fmaf(wb, x[e], acc[e]);
   }
   const float inv = z > 0.f ? 1.f / z : 0.f;
 #pragma unroll
@@ -236,7 +226,7 @@ cudaError_t launch_fused_fwd(const void* q, const void* k, const void* v,
       static_cast<T*>(out_c), lse_c, L, H, D, scale, fb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const MixOut o{mixed, m_out, z_out, static_cast<size_t>(L), nullptr, nullptr};
+  const MixOut o{mixed, m_out, z_out, static_cast<size_t>(L), nullptr};
   return launch_mix<T>(out_c, lse_c, o, B, L, H, D, fb, stream);
 }
 
@@ -287,7 +277,7 @@ extern "C" int mt_dilated_fused_fwd(const void* q, const void* k, const void* v,
     const mt::DilatedFwdCore c{q, k, v, m, out_c, lc, B, L, H, scale};
     cudaError_t err = mt::launch_dilated_fwd_core(c, fb, s);
     if (err != cudaSuccess) return err;
-    const mt::MixOut o{mixed, mo, zo, static_cast<size_t>(L), nullptr, nullptr};
+    const mt::MixOut o{mixed, mo, zo, static_cast<size_t>(L), nullptr};
     return mt::launch_compact_mix(out_c, lc, o, B, L, H, D, fb, dtype, s);
   }
   if (dtype == 0)

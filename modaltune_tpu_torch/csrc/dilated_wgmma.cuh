@@ -15,11 +15,12 @@
 //   where the row is no real position or has no valid key, as K3f's
 //   CUDA-core branch kernel writes them. The mix turns them into a route's
 //   outputs.
-// * The gradient core takes per compact row the branch's lse, the demix
-//   weight w and delta = w * rowsum(dmix * o_b), each (B, H, M) fp32, which
-//   a route's prep kernel writes, and writes the fp32 compact gradients dq_c,
-//   dk_c, dv_c (B, H, M, 48), zeros in every row that is no real position;
-//   the combine sums them into dense dq, dk, dv in branch order.
+// * The gradient core takes per compact row the branch's lse and the demix
+//   weight w, (B, H, M) fp32 each, which a route's prep kernel writes, and
+//   writes delta = w * rowsum(dmix * o_b) there itself, from P and dP (no
+//   branch output is kept), and the fp32 compact gradients dq_c, dk_c, dv_c
+//   (B, H, M, 48), zeros in every row that is no real position; the combine
+//   sums them into dense dq, dk, dv in branch order.
 #pragma once
 
 #include "dilated_fused_common.cuh"
@@ -50,7 +51,8 @@ cudaError_t launch_dilated_fwd_core(const DilatedFwdCore& a, const FusedBranches
 struct DilatedBwdCore {
   const void *q, *k, *v, *dmix;      // (B, L, H, 48) bf16, 16-byte aligned
   const unsigned char* mask;         // (B, L), 1 = valid; or null
-  const float *lse_c, *w_c, *delta_c;
+  const float *lse_c, *w_c;
+  float *delta_c;                    // written by the dq kernel
   float *dq_c, *dk_c, *dv_c;
   int B, L, H;
   float scale;
@@ -59,20 +61,26 @@ struct DilatedBwdCore {
 // The dq kernel, then the dk/dv kernel (dilated_bwd_wgmma.cu).
 cudaError_t launch_dilated_bwd_core(const DilatedBwdCore& a, const FusedBranches& fb,
                                     cudaStream_t stream);
+// Either kernel alone: the dq kernel (and delta) on the query tiles of fb's
+// range; the dk/dv kernel on the tiles of fk's enumeration, each streaming
+// the query tiles of fk's range (query_tiles() of a key range with the
+// range then widened gives a key range's blocks over every query).
+cudaError_t launch_dilated_bwd_dq(const DilatedBwdCore& a, const FusedBranches& fb,
+                                  cudaStream_t stream);
+cudaError_t launch_dilated_bwd_dkv(const DilatedBwdCore& a, const FusedBranches& fk,
+                                   cudaStream_t stream);
 
 // Where the mix writes, per (token, head) of batch row b, head h, position p
 // with bh = b H + h: mixed (B, L, H, D); m and Z at m[bh * stride + p] and
 // z[bh * stride + p] (K3: two (B, H, L) planes; K1: rows n and n + 1 of its
 // (B*H, n + 2, L) stats); with `planes` (K1 with stats) also every branch's
-// lse at planes[bh * stride + bi * L + p] and its output at branch_out
-// (n, B, L, H, D), NEG_INF and zeros where the branch does not cover the
-// slot. m and z may be null (K1 without stats).
+// lse at planes[bh * stride + bi * L + p], NEG_INF where the branch does not
+// cover the slot. m and z may be null (K1 without stats).
 struct MixOut {
   void* mixed;
   float *m, *z;
   size_t stride;
   float* planes;
-  void* branch_out;
 };
 
 // fused_mix_kernel (dilated_fused_fwd.cu), in dtype (0 = float32,

@@ -21,6 +21,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import NEG_INF, flash_attention
+from ..ops.kept import KeptOutputs
 
 _DROPOUT_GENERATOR: contextvars.ContextVar[Optional[torch.Generator]] = \
     contextvars.ContextVar("dropout_generator", default=None)
@@ -51,7 +52,7 @@ def ambient_generator(x: torch.Tensor) -> torch.Generator:
     return g
 
 
-def rematerialized(fn: Callable, *args):
+def rematerialized(fn: Callable, *args, keep_attention: bool = False):
     """``fn(*args)`` with the tensors its backward needs dropped after the
     forward and recomputed by running ``fn`` again in the backward
     (non-reentrant ``torch.utils.checkpoint``: gradients reach ``args``,
@@ -62,31 +63,45 @@ def rematerialized(fn: Callable, *args):
     on, with that generator set back to its state at this call: it draws
     the forward's bits again, and the generator is left where the backward
     found it. (``torch.utils.checkpoint``'s ``preserve_rng_state`` saves
-    only the default generators, from which the models draw nothing.)"""
+    only the default generators, from which the models draw nothing.)
+
+    With ``keep_attention`` the attention Functions inside keep the outputs
+    their backward needs across the recompute (:mod:`..ops.kept`): the
+    recompute takes those back instead of running their forward kernels
+    again, and recomputes everything else, their inputs included."""
     g = _DROPOUT_GENERATOR.get()
     state = None if g is None else g.get_state()
     context = contextvars.copy_context()
+    outputs = KeptOutputs() if keep_attention else None
     calls = []
 
     def run(*a):
         if not calls:       # the forward
             calls.append(True)
-            return fn(*a)
-        return context.run(_replay, g, state, fn, a)
+            with _keeping(outputs, replay=False):
+                return fn(*a)
+        return context.run(_replay, g, state, fn, a, outputs)
 
     return checkpoint(run, *args, use_reentrant=False,
                       preserve_rng_state=False)
 
 
-def _replay(g: Optional[torch.Generator], state, fn: Callable, args):
-    if g is None:
-        return fn(*args)
-    now = g.get_state()
-    g.set_state(state)
-    try:
-        return fn(*args)
-    finally:
-        g.set_state(now)
+def _keeping(outputs: Optional[KeptOutputs], replay: bool):
+    return contextlib.nullcontext() if outputs is None else \
+        outputs.active(replay)
+
+
+def _replay(g: Optional[torch.Generator], state, fn: Callable, args,
+            outputs: Optional[KeptOutputs]):
+    with _keeping(outputs, replay=True):
+        if g is None:
+            return fn(*args)
+        now = g.get_state()
+        g.set_state(state)
+        try:
+            return fn(*args)
+        finally:
+            g.set_state(now)
 
 
 def _uniform(shape, x: torch.Tensor) -> torch.Tensor:

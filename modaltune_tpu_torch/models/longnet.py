@@ -22,10 +22,17 @@ rematerialized (JAX's ``nn.remat`` around the scanned layer) under the
 policy named by ``remat_policy`` (:func:`remat_policy`): its activations
 are recomputed in the backward, the attention call's included or not.
 The kernels are reached through ``ctypes``, so no selective checkpoint
-policy can see them by name; the layer is split instead. One
-checkpointed region runs LayerNorm -> q/k/v, the attention call sits
-between, and a second region runs the output projection, the residuals,
-the FFN and the re-mask (``"flash_ffn"`` cuts that region after fc1).
+policy can see them by name; the layer is split instead. Under
+``"flash"`` one checkpointed region runs LayerNorm -> q/k/v -> the
+attention call, whose Function keeps its kernel's outputs across the
+recompute (:mod:`..ops.kept`): the backward holds the layer's output, the
+attention's output and what the attention's backward kernel reads besides
+q/k/v (K1's stats; K3's compact lses and mix statistics; the per-branch
+route's K2 outputs and lses), JAX's tagged set, and recomputes q/k/v
+without launching the forward kernel again. A second region runs the
+output projection, the residuals, the FFN and the re-mask. Under
+``"flash_ffn"`` the first region ends at q/k/v, which the attention call
+keeps as JAX's ``attn_qkv`` tag does, and the second is cut after fc1.
 Under ``"full"`` the whole layer is one region. The forward-only steps
 run no grad, and there remat does nothing.
 
@@ -68,12 +75,14 @@ def remat_policy(name: str) -> Optional[str]:
     ``"full"``, ``"none"`` and ``""``, whose layer is one checkpointed
     region, so its backward keeps nothing but the layer's input and
     recomputes everything, the attention's forward kernel included; the
-    name itself for ``"flash"`` (two regions around the attention call,
-    which keeps its own saved tensors: K1's out, stats and ``branch_out``;
-    K3's compact out, lse and stats; the per-branch route's K2 out and
-    lse; and its inputs q/k/v, which JAX recomputes) and ``"flash_ffn"``
-    (the second region cut after fc1, whose pre-activation is kept too).
-    Any other name raises ValueError, as JAX's does."""
+    name itself for ``"flash"`` (a region through the attention call, which
+    keeps its kernel's outputs: K1's out and stats; K3's mixed out, compact
+    lses, m and Z; the per-branch route's K2 out and lse; the recompute
+    rebuilds q/k/v and launches no attention kernel; then a region of the
+    rest of the layer) and ``"flash_ffn"`` (the attention call between a
+    region that ends at q/k/v, which it keeps, and one cut after fc1,
+    whose pre-activation is kept too). Any other name raises ValueError,
+    as JAX's does."""
     if name in ("full", "none", ""):
         return None
     if name in ("flash", "flash_ffn"):
@@ -216,16 +225,20 @@ class LongNetEncoderLayer(nn.Module):
             return self._layer(x, mask, shard)
         if self.split is None:
             return rematerialized(self._layer, x, mask, shard)
+        if self.split == "flash":
+            out = rematerialized(self._attention, x, mask, shard,
+                                 keep_attention=True)
+            return rematerialized(self._rest, x, out, mask)
         q, k, v = rematerialized(self._qkv, x)
         out = self.self_attn.attend(q, k, v, mask, shard)
-        if self.split == "flash":
-            return rematerialized(self._rest, x, out, mask)
         x, h = rematerialized(self._to_fc1, x, out)
         return rematerialized(self._from_fc1, x, h, mask)
 
     def _layer(self, x, mask, shard):
-        return self._rest(x, self.self_attn.attend(*self._qkv(x), mask, shard),
-                          mask)
+        return self._rest(x, self._attention(x, mask, shard), mask)
+
+    def _attention(self, x, mask, shard):
+        return self.self_attn.attend(*self._qkv(x), mask, shard)
 
     def _qkv(self, x):
         h = self.self_attn_layer_norm(x)

@@ -35,10 +35,13 @@ SIGNATURES = {
     "mt_flash_attention_bwd": [_P] * 11 + [_I, _I, _I, _I, ctypes.c_float, _I,
                                            _I, _P, _P],
     "mt_flash_attention_family": [_I, _I, _I, _I],
-    "mt_dilated_attention_fwd": [_P] * 9 + [_I, _I, _I, _I, _P, _P, _I,
+    "mt_dilated_attention_fwd": [_P] * 8 + [_I, _I, _I, _I, _P, _P, _I,
                                             ctypes.c_float, _I, _I, _I, _P],
-    "mt_dilated_attention_bwd": [_P] * 14 + [_I, _I, _I, _I, _P, _P, _I,
+    "mt_dilated_attention_bwd": [_P] * 13 + [_I, _I, _I, _I, _P, _P, _I,
                                              ctypes.c_float, _I, _I, _I, _P],
+    "mt_dilated_attention_bwd_part": [_P] * 11 + [_I, _I, _I, _I, _P, _P, _I,
+                                                  ctypes.c_float, _I, _I, _I,
+                                                  _I, _P],
     "mt_dilated_family": [_I, _I],
     "mt_alibi_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                ctypes.c_float, _I, _P, _P, _P, _P],
@@ -47,7 +50,7 @@ SIGNATURES = {
                                _P, _P, _P],
     "mt_dilated_fused_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _P, _P, _I, ctypes.c_float, _I, _P],
-    "mt_dilated_fused_bwd": [_P] * 17 + [_I, _I, _I, _I, _P, _P, _I,
+    "mt_dilated_fused_bwd": [_P] * 16 + [_I, _I, _I, _I, _P, _P, _I,
                                          ctypes.c_float, _I, _P],
     "mt_gelu_ln_fwd": [_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _I,
                        _P],

@@ -27,9 +27,12 @@ autograd. The four ``fused_*_reference`` functions are the plain
 versions of the four kernels, piece by piece.
 
 For the backward the forward saves q, k, v, the mask, the compact branch
-outputs and lses, and the mix statistics ``m = max_b lse_b`` and
-``Z = sum_b exp(lse_b - m)``; ``delta_b = rowsum(dO_b * o_b)`` is taken from
-the saved outputs.
+lses and the mix statistics ``m = max_b lse_b`` and
+``Z = sum_b exp(lse_b - m)``, the Pallas kernels' residuals; the compact
+branch outputs are freed after the mix, and K3b takes
+``delta_b = rowsum(dO_b * o_b)`` as ``rowsum(P_b * dP_b)``. Under the
+``"flash"`` remat policy the layer recomputes q, k and v, and the Function
+keeps only its outputs (:mod:`.kept`).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from .dilated import _round_up, dense_to_sparse, dilated_attention
 from .dilated_mega import _DTYPE_CODES, _branch_args, _check, _ptr
 from .flash_attention import (MASK_THRESHOLD, NEG_INF,
                               flash_attention_reference)
+from .kept import kept
 
 # Kernel launches since the last reset (read by chip_smoke.py): K3f (one per
 # forward: the branch kernel and the mix kernel) and K3b (one per backward:
@@ -306,13 +310,14 @@ def fused_dilated_attention_cuda(q: torch.Tensor, k: torch.Tensor,
 
 def fused_dilated_attention_backward_cuda(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-        mask: Optional[torch.Tensor], dmix: torch.Tensor, out_c: torch.Tensor,
-        lse_c: torch.Tensor, stats: torch.Tensor,
+        mask: Optional[torch.Tensor], dmix: torch.Tensor, lse_c: torch.Tensor,
+        stats: torch.Tensor,
         segment_lengths: Sequence[int], dilated_ratios: Sequence[int],
         scale: float, return_compact: bool = False):
-    """Launch K3b (the demix weights and ``delta``, every branch's dq, every
-    branch's dk/dv, the combine; the dq and dk/dv kernels in the family
-    the C entry points choose) on ``q``'s device and current stream;
+    """Launch K3b (the demix weights, with the CUDA-core kernels also
+    ``delta``; every branch's dq, with the tensor-core core also ``delta``;
+    every branch's dk/dv; the combine; the dq and dk/dv kernels in the
+    family the C entry points choose) on ``q``'s device and current stream;
     returns ``(dq, dk, dv)``, and with ``return_compact`` also the fp32
     compact gradients ``(3, B, H, M, D)`` the combine summed."""
     global BWD_LAUNCHES
@@ -325,12 +330,11 @@ def fused_dilated_attention_backward_cuda(
             dmix.device != q.device or not dmix.is_contiguous():
         raise ValueError(f"dmix must be a contiguous {q.dtype} "
                          f"{tuple(q.shape)} tensor on {q.device}")
-    if out_c.shape != (b, h, rows, d) or out_c.dtype != q.dtype or \
-            not out_c.is_contiguous() or lse_c.shape != (b, h, rows) or \
-            lse_c.dtype != torch.float32 or not lse_c.is_contiguous() or \
+    if lse_c.shape != (b, h, rows) or lse_c.dtype != torch.float32 or \
+            not lse_c.is_contiguous() or \
             stats.shape != (2, b, h, length) or \
             stats.dtype != torch.float32 or not stats.is_contiguous():
-        raise ValueError("out_c/lse_c/stats do not match the forward's")
+        raise ValueError("lse_c/stats do not match the forward's")
     # per compact row: the demix weight and delta; then the compact grads
     wd = torch.empty((2, b, h, rows), dtype=torch.float32, device=q.device)
     grads_c = torch.empty((3, b, h, rows, d), dtype=torch.float32,
@@ -341,7 +345,7 @@ def fused_dilated_attention_backward_cuda(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mt_dilated_fused_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
-            dmix.data_ptr(), out_c.data_ptr(), lse_c.data_ptr(),
+            dmix.data_ptr(), lse_c.data_ptr(),
             stats[0].data_ptr(), stats[1].data_ptr(), wd[0].data_ptr(),
             wd[1].data_ptr(), grads_c[0].data_ptr(), grads_c[1].data_ptr(),
             grads_c[2].data_ptr(), dq.data_ptr(), dk.data_ptr(),
@@ -353,22 +357,27 @@ def fused_dilated_attention_backward_cuda(
 
 
 class _FusedDilatedAttention(torch.autograd.Function):
-    """K3f forward, K3b backward; CUDA tensors only."""
+    """K3f forward, K3b backward; CUDA tensors only. Saves q, k, v, the
+    mask, the compact lses and the mix statistics; a rematerialized
+    region's recompute takes K3f's ``(mixed, lse_c, stats)`` back
+    (:func:`.kept.kept`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, segment_lengths, dilated_ratios, scale):
-        mixed, out_c, lse_c, stats = fused_dilated_attention_cuda(
-            q, k, v, mask, segment_lengths, dilated_ratios, scale)
-        ctx.save_for_backward(q, k, v, mask, out_c, lse_c, stats)
+        def launch():
+            mixed, _, lse_c, stats = fused_dilated_attention_cuda(
+                q, k, v, mask, segment_lengths, dilated_ratios, scale)
+            return mixed, lse_c, stats   # the compact outputs are freed
+        mixed, lse_c, stats = kept(launch)
+        ctx.save_for_backward(q, k, v, mask, lse_c, stats)
         ctx.branches = (segment_lengths, dilated_ratios, scale)
         return mixed
 
     @staticmethod
     def backward(ctx, dmix):
-        q, k, v, mask, out_c, lse_c, stats = ctx.saved_tensors
+        q, k, v, mask, lse_c, stats = ctx.saved_tensors
         dq, dk, dv = fused_dilated_attention_backward_cuda(
-            q, k, v, mask, dmix.contiguous(), out_c, lse_c, stats,
-            *ctx.branches)
+            q, k, v, mask, dmix.contiguous(), lse_c, stats, *ctx.branches)
         return dq, dk, dv, None, None, None, None
 
 

@@ -16,9 +16,12 @@ place) and K1b CUDA-core kernels. A CPU tensor goes to the plain version
 When the forward is recorded for autograd, K1f also writes what K1b needs:
 ``stats (B*H, n_br + 2, L)`` fp32 (each branch's lse, then
 ``m = max_b lse_b`` and ``Z = sum_b exp(lse_b - m)``, the layout of
-:func:`.dilated.dilated_attention_stats`) and every branch's own output
-``(n_br, B, L, H, D)`` in q's dtype, from which K1b takes
-``delta_b = rowsum(dO_b * o_b)`` without recomputing ``o_b``.
+:func:`.dilated.dilated_attention_stats`). The Function keeps q, k, v, the
+mask and the stats, the Pallas kernel's residuals, and no branch output:
+K1b takes ``delta_b = rowsum(dO_b * o_b)`` as ``rowsum(P_b * dP_b)`` from
+the probabilities it recomputes. Under the ``"flash"`` remat policy the
+layer recomputes q, k and v, and the Function keeps only its outputs
+(:mod:`.kept`).
 
 ``q_token_range=(p0, p1)`` (the JAX kernel's ``qrange``, the
 sequence-parallel shard's rows, :mod:`.dilated_sp`) computes only the
@@ -27,7 +30,8 @@ query rows ``[p0, p1)`` against every key; the rows outside come back zero
 zero outside and the range's share of dk/dv. The kernels skip the query
 tiles outside the range; :func:`query_tile_plan` is the CPU copy of the
 tensor-core family's plan. Range launches are counted apart, in
-``QRANGE_LAUNCHES`` and ``BWD_QRANGE_LAUNCHES``.
+``QRANGE_LAUNCHES`` and ``BWD_QRANGE_LAUNCHES`` (K1b in two parts: part 0
+there, part 1 in ``BWD_PART1_LAUNCHES``).
 """
 
 from __future__ import annotations
@@ -39,13 +43,16 @@ import torch
 
 from ._build import check_launch, load_library
 from .dilated import check_q_token_range, dilated_attention
+from .kept import kept
 
 # Kernel launches since the last reset (read by chip_smoke.py): K1f and K1b,
-# and apart from them their launches with a q_token_range.
+# and apart from them their launches with a q_token_range (K1b in two parts:
+# part 0 with the range's, part 1 on its own).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 QRANGE_LAUNCHES = 0
 BWD_QRANGE_LAUNCHES = 0
+BWD_PART1_LAUNCHES = 0
 
 MAX_BRANCHES = 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -129,8 +136,8 @@ def mega_dilated_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     mix; in the CUDA-core family one kernel (and, with a range, the fill of
     the rows outside it).
 
-    Returns ``out``, or with ``with_stats`` ``(out, stats, branch_out)``
-    (see the module docstring)."""
+    Returns ``out``, or with ``with_stats`` ``(out, stats)`` (see the
+    module docstring)."""
     from .dilated_fused import card_family, total_rows
     global LAUNCHES, QRANGE_LAUNCHES
     segs, ratios, c_segs, c_ratios = _branch_args(segment_lengths,
@@ -147,18 +154,16 @@ def mega_dilated_attention_cuda(q: torch.Tensor, k: torch.Tensor,
         lse_c = torch.empty((b, h, rows), dtype=torch.float32,
                             device=q.device)
     out = torch.empty_like(q)
-    stats = branch_out = None
+    stats = None
     if with_stats:
         stats = torch.empty((b * h, n + 2, length), dtype=torch.float32,
                             device=q.device)
-        branch_out = torch.empty((n,) + tuple(q.shape), dtype=q.dtype,
-                                 device=q.device)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mt_dilated_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
-            out.data_ptr(), _ptr(stats), _ptr(branch_out), _ptr(out_c),
+            out.data_ptr(), _ptr(stats), _ptr(out_c),
             _ptr(lse_c), b, length, h, d, c_segs, c_ratios, n, float(scale),
             _DTYPE_CODES[q.dtype], q0, q1, stream)
     check_launch(err, "mt_dilated_attention_fwd")
@@ -166,22 +171,23 @@ def mega_dilated_attention_cuda(q: torch.Tensor, k: torch.Tensor,
         LAUNCHES += 1
     else:
         QRANGE_LAUNCHES += 1
-    return (out, stats, branch_out) if with_stats else out
+    return (out, stats) if with_stats else out
 
 
 def mega_dilated_attention_backward_cuda(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask: Optional[torch.Tensor], dmix: torch.Tensor, stats: torch.Tensor,
-        branch_out: torch.Tensor, segment_lengths: Sequence[int],
+        segment_lengths: Sequence[int],
         dilated_ratios: Sequence[int], scale: float,
         q_token_range: Optional[Tuple[int, int]] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K1b on ``q``'s device and current stream: in the tensor-core
     family the compact prep, the dq and dk/dv kernels of the gradient core
-    and the combine, over fp32 compact scratch (``(3, B, H, M)`` row
-    statistics and ``(3, B, H, M, D)`` gradients, 567 MB at the train
-    step's shape); in the CUDA-core family the mix weights and ``delta_b``,
-    then dq, then dk/dv. Returns ``(dq, dk, dv)``; with the forward's
+    (the dq kernel takes ``delta_b``) and the combine, over fp32 compact
+    scratch (``(3, B, H, M)`` row statistics and ``(3, B, H, M, D)``
+    gradients, 567 MB at the train step's shape); in the CUDA-core family
+    the mix weights and ``delta_b`` (rebuilt over each row's keys), then
+    dq, then dk/dv. Returns ``(dq, dk, dv)``; with the forward's
     ``q_token_range``, dq zero outside it and the range's share of dk/dv."""
     from .dilated_fused import card_family, total_rows
     global BWD_LAUNCHES, BWD_QRANGE_LAUNCHES
@@ -197,10 +203,8 @@ def mega_dilated_attention_backward_cuda(
         raise ValueError(f"dmix must be a contiguous {q.dtype} "
                          f"{tuple(q.shape)} tensor on {q.device}")
     if stats.shape != (b * h, n + 2, length) or stats.dtype != torch.float32 \
-            or not stats.is_contiguous() or \
-            branch_out.shape != (n,) + tuple(q.shape) or \
-            branch_out.dtype != q.dtype or not branch_out.is_contiguous():
-        raise ValueError("stats/branch_out do not match the forward's")
+            or not stats.is_contiguous():
+        raise ValueError("stats do not match the forward's")
     f32 = dict(dtype=torch.float32, device=q.device)
     wd = rows_c = grads_c = None
     if card_family(d, q.dtype) == "wgmma":
@@ -215,7 +219,7 @@ def mega_dilated_attention_backward_cuda(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mt_dilated_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
-            dmix.data_ptr(), stats.data_ptr(), branch_out.data_ptr(),
+            dmix.data_ptr(), stats.data_ptr(),
             *((None, None) if wd is None else (wd[0].data_ptr(),
                                               wd[1].data_ptr())),
             _ptr(rows_c), _ptr(grads_c), dq.data_ptr(), dk.data_ptr(),
@@ -229,24 +233,81 @@ def mega_dilated_attention_backward_cuda(
     return dq, dk, dv
 
 
+def mega_dilated_attention_backward_part_cuda(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        mask: Optional[torch.Tensor], dmix: torch.Tensor, stats: torch.Tensor,
+        segment_lengths: Sequence[int], dilated_ratios: Sequence[int],
+        scale: float, part: int, token_range: Tuple[int, int],
+        scratch: Tuple[torch.Tensor, torch.Tensor]
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1b of the tensor-core family in two parts over ``token_range`` (a
+    sequence-parallel rank's rows, :mod:`.dilated_sp`), on ``q``'s device
+    and current stream. ``scratch`` is ``(rows_c (3, B, H, M), grads_c (3,
+    B, H, M, D))`` fp32, the same for both parts (:func:`part_scratch`).
+    Part 0 (``dmix`` nonzero on the range's rows at least): ``dq`` of the
+    range, 0 elsewhere, and in ``rows_c[2]`` every compact row's delta, 0
+    outside the range's queries. Part 1, given every row's delta in
+    ``rows_c[2]``, the whole ``dmix`` and the whole stats plane: ``dk`` and
+    ``dv`` of the range's keys over every query, the whole call's bits
+    (the rows of other keys are not meaningful). Returns ``(dq, dk, dv)``;
+    part 0 counts one K1b launch with a range, part 1 one part-1 launch."""
+    global BWD_QRANGE_LAUNCHES, BWD_PART1_LAUNCHES
+    segs, ratios, c_segs, c_ratios = _branch_args(segment_lengths,
+                                                  dilated_ratios)
+    _check(q, k, v, mask, segs, ratios)
+    b, length, h, d = q.shape
+    r0, r1 = check_q_token_range(token_range, ratios, length)
+    rows_c, grads_c = scratch
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.mt_dilated_attention_bwd_part(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
+            dmix.data_ptr(), stats.data_ptr(), rows_c.data_ptr(),
+            grads_c.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, length, h, d, c_segs, c_ratios, len(segs), float(scale),
+            _DTYPE_CODES[q.dtype], int(part), r0, r1, stream)
+    check_launch(err, "mt_dilated_attention_bwd_part")
+    if part == 0:
+        BWD_QRANGE_LAUNCHES += 1
+    else:
+        BWD_PART1_LAUNCHES += 1
+    return dq, dk, dv
+
+
+def part_scratch(q: torch.Tensor, segment_lengths: Sequence[int],
+                 dilated_ratios: Sequence[int]):
+    """The fp32 scratch of :func:`mega_dilated_attention_backward_part_cuda`."""
+    from .dilated_fused import total_rows
+    b, length, h, d = q.shape
+    rows = total_rows(length, [int(w) for w in segment_lengths],
+                      [int(r) for r in dilated_ratios])
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return (torch.empty((3, b, h, rows), **f32),
+            torch.empty((3, b, h, rows, d), **f32))
+
+
 class _MegaDilatedAttention(torch.autograd.Function):
-    """K1f (with stats) forward, K1b backward; CUDA tensors only."""
+    """K1f (with stats) forward, K1b backward; CUDA tensors only. Saves
+    q, k, v, the mask and the stats; a rematerialized region's recompute
+    takes K1f's ``(out, stats)`` back (:func:`.kept.kept`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, segment_lengths, dilated_ratios, scale,
                 q_token_range):
-        out, stats, branch_out = mega_dilated_attention_cuda(
+        out, stats = kept(lambda: mega_dilated_attention_cuda(
             q, k, v, mask, segment_lengths, dilated_ratios, scale,
-            with_stats=True, q_token_range=q_token_range)
-        ctx.save_for_backward(q, k, v, mask, stats, branch_out)
+            with_stats=True, q_token_range=q_token_range))
+        ctx.save_for_backward(q, k, v, mask, stats)
         ctx.branches = (segment_lengths, dilated_ratios, scale, q_token_range)
         return out
 
     @staticmethod
     def backward(ctx, dmix):
-        q, k, v, mask, stats, branch_out = ctx.saved_tensors
+        q, k, v, mask, stats = ctx.saved_tensors
         dq, dk, dv = mega_dilated_attention_backward_cuda(
-            q, k, v, mask, dmix.contiguous(), stats, branch_out, *ctx.branches)
+            q, k, v, mask, dmix.contiguous(), stats, *ctx.branches)
         return dq, dk, dv, None, None, None, None, None
 
 

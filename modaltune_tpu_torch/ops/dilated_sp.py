@@ -14,9 +14,21 @@ each layer's attention is the island here:
   ``seq`` group, K1 with ``q_token_range`` = this rank's tokens
   (:func:`.dilated_mega.mega_dilated_attention_cuda`; the plain version on
   CPU tensors), keep the local rows;
-* backward: K1b with the range; dq is local, and the partial dk/dv of every
-  rank are summed and scattered over the group (the transpose of the
-  gather; :func:`..parallel.collectives.reduce_scatter_dim`).
+* backward: every rank's cotangent rows (and, on the card, its stats
+  columns) are gathered, and each rank takes dq of its own queries and
+  dk/dv of its own keys over every query, so the step's gradients are one
+  process's bits. In K1b's tensor-core family (bf16, D = 48, GigaPath's
+  path) each rank does half the work: K1b's part 0 gives its dq and its
+  queries' delta, the group sums the delta planes (each row is one
+  rank's), and part 1 streams every query tile over the rank's key tiles
+  in the whole call's order
+  (:func:`.dilated_mega.mega_dilated_attention_backward_part_cuda`).
+  Elsewhere (K1b's CUDA-core family, fp32 or another D; the plain version
+  on CPU tensors) the rank runs the whole sequence's backward and keeps
+  its rows. JAX's island instead sums every rank's partial dk/dv over the
+  group (a reduce-scatter): partial sums added across ranks round
+  otherwise than one sequential sum, which in bf16 read 2.344e-2 against
+  the 2e-2 row-scaled gate of ``chip_smoke.phase_parallel``.
 
 The ambient mesh (JAX's ``jax.set_mesh``) is set with :func:`use_mesh`; the
 island and the span sharding read it. :func:`sp_mega_eligible` keeps the
@@ -32,10 +44,13 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from ..parallel.collectives import all_gather_dim, reduce_scatter_dim
+from ..parallel.collectives import all_gather_dim, all_reduce_sum
 from .dilated import dilated_attention
+from .dilated_fused import card_family
 from .dilated_mega import (mega_dilated_attention_backward_cuda,
-                           mega_dilated_attention_cuda)
+                           mega_dilated_attention_backward_part_cuda,
+                           mega_dilated_attention_cuda, part_scratch)
+from .kept import kept
 
 # ---------------------------------------------------------------------------
 # The JAX package's mega-kernel eligibility (ops/dilated_mega.py::mega_mode),
@@ -197,15 +212,15 @@ class _SpMega(torch.autograd.Function):
         rng = (shard.rank * s_loc, (shard.rank + 1) * s_loc)
         branches = (segment_lengths, dilated_ratios, scale)
         if q.device.type == "cuda":
-            out, stats, branch_out = mega_dilated_attention_cuda(
+            out, stats = kept(lambda: mega_dilated_attention_cuda(
                 qf, kf, vf, mf, *branches, with_stats=True,
-                q_token_range=rng)
-            saved = (qf, kf, vf, mf, stats, branch_out)
+                q_token_range=rng))
+            saved = (qf, kf, vf, mf, stats)
         else:
-            out = dilated_attention(qf, kf, vf,
-                                    segment_lengths=segment_lengths,
-                                    dilated_ratios=dilated_ratios, mask=mf,
-                                    scale=scale, q_token_range=rng)
+            out, = kept(lambda: (dilated_attention(
+                qf, kf, vf, segment_lengths=segment_lengths,
+                dilated_ratios=dilated_ratios, mask=mf, scale=scale,
+                q_token_range=rng),))
             saved = (qf, kf, vf, mf)
         ctx.save_for_backward(*saved)
         ctx.args = (shard, branches, rng)
@@ -214,27 +229,50 @@ class _SpMega(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         shard, branches, rng = ctx.args
-        qf, kf, vf, mf = ctx.saved_tensors[:4]
-        dmix = dout.new_zeros(qf.shape)
-        dmix[:, rng[0]:rng[1]] = dout
-        if qf.device.type == "cuda":
-            stats, branch_out = ctx.saved_tensors[4:]
-            dq, dk, dv = mega_dilated_attention_backward_cuda(
-                qf, kf, vf, mf, dmix, stats, branch_out, *branches,
-                q_token_range=rng)
+        saved = ctx.saved_tensors   # read once: a checkpoint unpacks once
+        qf, kf, vf, mf = saved[:4]
+        r0, r1 = rng
+        if qf.device.type == "cuda" and \
+                card_family(qf.shape[-1], qf.dtype) == "wgmma":
+            grads = _split_backward(qf, kf, vf, mf, saved[4], dout, shard,
+                                    branches, rng)
         else:
-            leaves = [t.detach().requires_grad_() for t in (qf, kf, vf)]
-            with torch.enable_grad():
-                out = dilated_attention(
-                    *leaves, segment_lengths=branches[0],
-                    dilated_ratios=branches[1], mask=mf, scale=branches[2],
-                    q_token_range=rng)
-                dq, dk, dv = torch.autograd.grad(out, leaves, dmix)
-        # this rank's partial dk/dv, summed over the group in fp32
-        dk, dv = (reduce_scatter_dim(g.float(), 1, shard.group).to(g.dtype)
-                  for g in (dk, dv))
-        return (dq[:, rng[0]:rng[1]].contiguous(), dk, dv, None, None, None,
-                None, None)
+            dmix = all_gather_dim(dout.contiguous(), 1, shard.group)
+            if qf.device.type == "cuda":
+                stats = all_gather_dim(saved[4][..., r0:r1].contiguous(), 2,
+                                       shard.group)
+                grads = mega_dilated_attention_backward_cuda(
+                    qf, kf, vf, mf, dmix, stats, *branches)
+            else:
+                leaves = [t.detach().requires_grad_() for t in (qf, kf, vf)]
+                with torch.enable_grad():
+                    out = dilated_attention(
+                        *leaves, segment_lengths=branches[0],
+                        dilated_ratios=branches[1], mask=mf,
+                        scale=branches[2])
+                    grads = torch.autograd.grad(out, leaves, dmix)
+        return tuple(g[:, r0:r1].contiguous() for g in grads) + (None,) * 5
+
+
+def _split_backward(qf, kf, vf, mf, stats, dout, shard, branches, rng):
+    """K1b in two parts (see the module docstring): part 0 gives this
+    rank's dq and its queries' delta; with every rank's delta (summed:
+    each row is one rank's, 0 on the others), cotangent and stats columns,
+    part 1 gives dk and dv of this rank's keys over every query, in the
+    order the whole call sums them. Returns the whole sequence's (dq, dk,
+    dv), meaningful in this rank's rows."""
+    r0, r1 = rng
+    dmix = dout.new_zeros(qf.shape)
+    dmix[:, r0:r1] = dout
+    scratch = part_scratch(qf, *branches[:2])
+    dq, _, _ = mega_dilated_attention_backward_part_cuda(
+        qf, kf, vf, mf, dmix, stats, *branches, 0, rng, scratch)
+    scratch[0][2] = all_reduce_sum(scratch[0][2], shard.group)
+    dmix = all_gather_dim(dout.contiguous(), 1, shard.group)
+    stats = all_gather_dim(stats[..., r0:r1].contiguous(), 2, shard.group)
+    _, dk, dv = mega_dilated_attention_backward_part_cuda(
+        qf, kf, vf, mf, dmix, stats, *branches, 1, rng, scratch)
+    return dq, dk, dv
 
 
 class _EnterSpan(torch.autograd.Function):

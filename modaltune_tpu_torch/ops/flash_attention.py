@@ -44,6 +44,7 @@ from typing import Optional, Tuple
 import torch
 
 from ._build import check_launch, load_library
+from .kept import kept
 
 NEG_INF = -1e9
 MASK_THRESHOLD = NEG_INF * 0.5
@@ -322,14 +323,15 @@ def flash_attention_backward_cuda(q, k, v, bias, out, lse, dout, scale: float):
 
 class _FlashAttention(torch.autograd.Function):
     """K2f forward, K2b backward on CUDA tensors; the plain versions on
-    CPU tensors. ``lse`` is an output without a gradient."""
+    CPU tensors. ``lse`` is an output without a gradient. Saves q, k, v,
+    the bias, out and lse; a rematerialized region's recompute takes
+    ``(out, lse)`` back (:func:`.kept.kept`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale):
-        if q.device.type == "cuda":
-            out, lse = flash_attention_cuda(q, k, v, bias, scale)
-        else:
-            out, lse = flash_attention_reference(q, k, v, bias, scale)
+        out, lse = kept(lambda: (flash_attention_cuda if q.device.type ==
+                                 "cuda" else flash_attention_reference)(
+            q, k, v, bias, scale))
         ctx.save_for_backward(q, k, v, bias, out, lse)
         ctx.scale = scale
         ctx.mark_non_differentiable(lse)

@@ -2,11 +2,9 @@
 
 NCCL takes CUDA tensors as they are. Gloo takes CPU tensors; a CUDA tensor
 on a gloo group (two processes sharing one card, where NCCL refuses two
-ranks on one GPU) travels through a CPU copy. Only the list forms of the
-collectives are used (``all_gather``, ``reduce_scatter``), which every
-torch release of the port's range has under one name, and
-``all_to_all_single``. Gloo's reduce-scatter is an ``all_reduce`` and this
-rank's slice of it: the same sum.
+ranks on one GPU) travels through a CPU copy. Only the list form of
+``all_gather`` is used, which every torch release of the port's range has
+under one name, and ``all_to_all_single``.
 """
 
 from __future__ import annotations
@@ -48,22 +46,6 @@ def all_gather_dim(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     dist.all_gather(parts, y, group=group)
     out = torch.cat(parts, dim=dim).to(x.device)
     return out.bool() if x.dtype == torch.bool else out
-
-
-def reduce_scatter_dim(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
-    """The sum over the group's ranks of ``x``, cut into equal chunks along
-    ``dim``: this rank's chunk."""
-    n = dist.get_world_size(group)
-    if n == 1:
-        return x
-    rank = dist.get_rank(group)
-    if dist.get_backend(group) == "gloo":
-        return torch.chunk(all_reduce_sum(x, group), n, dim=dim)[rank] \
-            .contiguous()
-    chunks = [c.contiguous() for c in torch.chunk(x, n, dim=dim)]
-    out = torch.empty_like(chunks[rank])
-    dist.reduce_scatter(out, chunks, group=group)
-    return out
 
 
 def broadcast_object(obj, src: int = 0, group=None):

@@ -6,10 +6,10 @@ and JAX's Pallas kernels.
 out below in the order the card computes it:
 
 * a prep writes per compact row (``ops/dilated_fused.py``'s layout) the
-  branch's lse, the demix weight ``w = exp(lse - m) / Z`` and
-  ``delta = w * rowsum(dmix * o_b)``: K1b's from K1f's saved ``stats`` and
-  ``branch_out`` (dense, read at each compact row's position), K3b's from
-  K3f's compact ``out_c`` and ``lse_c`` and the mix statistics;
+  branch's lse and the demix weight ``w = exp(lse - m) / Z``: K1b's from
+  K1f's saved ``stats`` (dense, read at each compact row's position),
+  K3b's from K3f's compact ``lse_c`` and the mix statistics. No branch
+  output enters: the forward keeps none, as the Pallas kernels keep none;
 * the gradient core: a block owns one 64-row compact tile of one (batch,
   head, branch, segment) and streams the 64-row tiles of the same
   (segment, head group), rows past ``n_real`` zero-filled and masked; the
@@ -18,16 +18,23 @@ out below in the order the card computes it:
   ``s * scale * log2(e) + key term - lse * log2(e)``), bf16 operands with
   fp32 sums, P and dS entering ``dv += (P^T w) dmix``, ``dq += dS k`` and
   ``dk += dS^T q`` as two bf16 parts, hi = bf16(x) and lo = bf16(x - hi);
+* delta in the dq kernel, ``w * rowsum(P * dP)`` in fp32, each thread of
+  a row's quad summing its 16 columns of every live key tile in order and
+  the quad adding its four sums pairwise, in the one pass over the key
+  tiles with a second accumulator ``B = sum P k`` and
+  ``dq = scale (A - delta B)``, ``A = sum P w dP k``; the dk/dv kernel
+  reads the dq kernel's delta;
 * the combine: the branches' compact fp32 gradients summed in branch order
   per (token, head) and rounded once to the input dtype.
 
-The compact gradients start as NaN; the core writes every row, zeros in
-the rows that are no real position.
+The compact gradients and delta start as NaN; the core writes every row,
+zeros in the rows that are no real position.
 
 In fp32 the emulation is held against JAX's ``mega_dilated_attention`` and
 ``fused_dilated_attention`` (their backward Pallas kernels in interpret
 mode, through ``jax.grad`` as ``tests/test_torch_train.py`` and
-``tests/test_torch_fused.py`` run them) and against autograd through the
+``tests/test_torch_fused.py`` run them), fed the stats plane of JAX's own
+``_mega_fwd_call`` against JAX's VJP, and against autograd through the
 port's plain ``dilated_attention``; in bf16 against the plain version at
 ``chip_smoke.py``'s limits. The family rule of ``ops/dilated_fused.py`` and
 the compact-tile plan, the gather's rows and the tiles' liveness below are
@@ -173,47 +180,39 @@ def _compact_positions(length, heads, segs, ratios):
     return torch.cat(reals, dim=1), torch.cat(poss, dim=1)
 
 
-def emulate_prep_mega(stats, branch_out, dmix, segs, ratios):
-    """K1b's prep: ``(lse_c, w_c, delta_c)``, each (B, H, M) fp32, from
-    K1f's ``stats (B*H, n + 2, L)`` and ``branch_out (n, B, L, H, D)``,
-    read at each compact row's position; a row that is no real position
-    gets lse NEG_INF, w 0 and delta 0."""
-    b, length, h, _ = dmix.shape
-    n = len(segs)
-    st = stats.reshape(b, h, n + 2, length)
+def emulate_prep_mega(stats, heads, segs, ratios):
+    """K1b's prep: ``(lse_c, w_c)``, each (B, H, M) fp32, from K1f's
+    ``stats (B*H, n + 2, L)``, read at each compact row's position; a row
+    that is no real position gets lse NEG_INF and w 0."""
+    bh, _, length = stats.shape
+    n, h = len(segs), heads
+    st = stats.reshape(bh // h, h, n + 2, length)
     m, z = st[:, :, n], st[:, :, n + 1]
-    lse_c, w_c, delta_c = [], [], []
+    lse_c, w_c = [], []
     for bi, (w, r) in enumerate(zip(segs, ratios)):
         real, pos = df.compact_rows(length, h, int(w), int(r))
         take = functools.partial(torch.gather, dim=2,
-                                 index=pos[None].expand(b, h, -1))
+                                 index=pos[None].expand(bh // h, h, -1))
         lse = take(st[:, :, bi])
         live = real[None] & (lse > MASK_THRESHOLD)
-        wb = torch.where(live, torch.exp(lse - take(m))
-                         / torch.where(take(z) > 0, take(z), 1.0), 0.0)
-        dot = (dmix.float() * branch_out[bi].float()).sum(-1)  # (B, L, H)
-        dot = torch.gather(dot.permute(0, 2, 1), 2,
-                           pos[None].expand(b, h, -1))
         lse_c.append(torch.where(real[None], lse, NEG_INF))
-        w_c.append(wb)
-        delta_c.append(torch.where(live, wb * dot, 0.0))
-    return tuple(torch.cat(x, dim=2) for x in (lse_c, w_c, delta_c))
+        w_c.append(torch.where(live, torch.exp(lse - take(m))
+                               / torch.where(take(z) > 0, take(z), 1.0),
+                               0.0))
+    return tuple(torch.cat(x, dim=2) for x in (lse_c, w_c))
 
 
-def emulate_prep_fused(out_c, lse_c, m, z, dmix, segs, ratios):
-    """K3b's prep (``fused_bwd_prep_kernel``): ``(w_c, delta_c)`` from K3f's
-    compact ``out_c (B, H, M, D)``, ``lse_c`` and ``(m, Z) (B, H, L)``."""
-    b, length, h, _ = dmix.shape
+def emulate_prep_fused(lse_c, m, z, segs, ratios):
+    """K3b's prep (``fused_bwd_prep_kernel``, the tensor-core family's
+    variant): ``w_c (B, H, M)`` from K3f's compact ``lse_c`` and
+    ``(m, Z) (B, H, L)``."""
+    b, h, length = m.shape
     real, pos = _compact_positions(length, h, segs, ratios)
     idx = pos[None].expand(b, h, -1)
     mc, zc = torch.gather(m, 2, idx), torch.gather(z, 2, idx)
     live = real[None] & (lse_c > MASK_THRESHOLD)
-    wb = torch.where(live, torch.exp(lse_c - mc)
-                     / torch.where(zc > 0, zc, 1.0), 0.0)
-    dm = torch.gather(dmix.float().permute(0, 2, 1, 3), 2,
-                      idx[..., None].expand(-1, -1, -1, dmix.shape[-1]))
-    dot = (dm * out_c.float()).sum(-1)
-    return wb, torch.where(live, wb * dot, 0.0)
+    return torch.where(live, torch.exp(lse_c - mc)
+                       / torch.where(zc > 0, zc, 1.0), 0.0)
 
 
 def _gather_tile(x, b, h, ft, t, length):
@@ -227,102 +226,123 @@ def _gather_tile(x, b, h, ft, t, length):
     return rows * real_t[:, None], pos_t, real_t
 
 
-def emulate_core(q, k, v, mask, dmix, lse_c, w_c, delta_c, segs, ratios,
-                 scale, rounding):
+def _quad_rowsum(x):
+    """Per row of a 64 x 64 fp32 tile, as a row's quad sums it: thread c
+    takes columns 8 j + 2 c and + 1 for j = 0..7 in order -> (64, 4)."""
+    x = x.reshape(TILE, 8, 4, 2)
+    rs = torch.zeros(TILE, 4)
+    for j in range(8):
+        for e in range(2):
+            rs = rs + x[:, j, :, e]
+    return rs
+
+
+def emulate_core(q, k, v, mask, dmix, lse_c, w_c, segs, ratios, scale,
+                 rounding):
     """The dq and dk/dv kernels: compact fp32 ``(3, B, H, M, D)`` dq, dk,
-    dv, zeros in the rows that are no real position; a row no block writes
-    would stay NaN. ``rounding``: None (fp32),
-    ``"parts"`` (the card: bf16 operands, P and dS as hi + lo bf16 parts)
-    or ``"once"`` (P and dS rounded once to bf16). Returns the gradients
-    and the number of key tiles the dq kernel skipped."""
+    dv, zeros in the rows that are no real position, and the dq kernel's
+    ``delta_c (B, H, M)``; a row no block writes would stay NaN.
+    ``rounding``: None (fp32), ``"parts"`` (the card: bf16 operands, P and
+    dS as hi + lo bf16 parts) or ``"once"`` (P and dS rounded once to
+    bf16). Returns the gradients, delta and the number of key tiles the dq
+    kernel skipped."""
     b_, length, heads, d = q.shape
     valid = torch.ones(b_, length, dtype=torch.bool) if mask is None \
         else mask.bool()
     scale2 = scale * LOG2E
     grads = torch.full((3,) + tuple(lse_c.shape) + (d,), math.nan)
+    delta_c = torch.full(tuple(lse_c.shape), math.nan)
     n_tiles = tile_count(length, segs, ratios)
     skipped = 0
 
     def lse2_of(lse):
         return torch.where(lse > MASK_THRESHOLD, lse * LOG2E, 1e30)
 
-    for b in range(b_):
-        for h in range(heads):
-            for tile in range(n_tiles):
-                ft = locate_tile(length, segs, ratios, tile, h, heads)
-                n_own, n_rows = ft["n_own"], ft["n_rows"]
-                rows = slice(ft["seg_row"] + ft["l0"],
-                             ft["seg_row"] + ft["l0"] + n_rows)
-                if n_own == 0:
-                    grads[:, b, h, rows] = 0.0
-                    continue
-                own_t = ft["l0"] // TILE
-                stats = [x[b, h, ft["seg_row"]:ft["seg_row"] + ft["n_real"]]
-                         for x in (lse_c, w_c, delta_c)]
-                n_other = -(-ft["n_real"] // TILE)
-                live = live_tiles(valid[b], ft)
+    def other_stats(b, h, ft, t):
+        """lse2, w, delta of tile t of the block's group (past n_real:
+        +huge, 0, 0)."""
+        out = []
+        for x, fill in zip((lse_c, w_c, delta_c), (math.inf, 0.0, 0.0)):
+            rows = x[b, h, ft["seg_row"]:ft["seg_row"] + ft["n_real"]]
+            y = torch.full((TILE,), fill)
+            part = rows[t * TILE:(t + 1) * TILE]
+            y[:part.shape[0]] = part
+            out.append(y)
+        out[0] = torch.where(torch.isinf(out[0]), 1e30, lse2_of(out[0]))
+        return out
 
-                def other_stats(t):
-                    """lse2, w, delta of other tile t (past n_real: +huge,
-                    0, 0)."""
-                    out = []
-                    for x, fill in zip(stats, (math.inf, 0.0, 0.0)):
-                        y = torch.full((TILE,), fill)
-                        part = x[t * TILE:(t + 1) * TILE]
-                        y[:part.shape[0]] = part
-                        out.append(y)
-                    out[0] = torch.where(torch.isinf(out[0]), 1e30,
-                                         lse2_of(out[0]))
-                    return out
+    def key_term(b, pos, real):
+        return torch.where(real & valid[b, pos], 0.0, -math.inf)
 
-                def key_term(pos, real):
-                    return torch.where(real & valid[b, pos], 0.0, -math.inf)
+    def blocks():
+        for b in range(b_):
+            for h in range(heads):
+                for tile in range(n_tiles):
+                    ft = locate_tile(length, segs, ratios, tile, h, heads)
+                    rows = slice(ft["seg_row"] + ft["l0"],
+                                 ft["seg_row"] + ft["l0"] + ft["n_rows"])
+                    yield b, h, ft, rows
 
-                # ---- dq: own rows are queries ----
-                q_o, _, _ = _gather_tile(q, b, h, ft, own_t, length)
-                do_o, _, _ = _gather_tile(dmix, b, h, ft, own_t, length)
-                q_o, do_o = _round(q_o, rounding), _round(do_o, rounding)
-                lse2, w, delta = other_stats(own_t)
-                acc = torch.zeros(TILE, d)
-                for t in range(n_other):
-                    if not live[t]:
-                        skipped += 1
-                        continue
-                    k_t, pos, real = _gather_tile(k, b, h, ft, t, length)
-                    v_t, _, _ = _gather_tile(v, b, h, ft, t, length)
-                    k_t, v_t = _round(k_t, rounding), _round(v_t, rounding)
-                    s = q_o @ k_t.T
-                    dp = do_o @ v_t.T
-                    p = torch.exp2(s * scale2 + (key_term(pos, real)[None, :]
-                                                 - lse2[:, None]))
-                    ds = p * (w[:, None] * dp - delta[:, None])
-                    acc = acc + _operand(ds, rounding) @ k_t
-                grads[0, b, h, rows] = (acc * scale)[:n_rows]
+    # ---- the dq kernel: own rows are queries; delta, then dq ----
+    for b, h, ft, rows in blocks():
+        n_own, n_rows = ft["n_own"], ft["n_rows"]
+        if n_own == 0:
+            grads[0, b, h, rows] = 0.0
+            delta_c[b, h, rows] = 0.0
+            continue
+        own_t = ft["l0"] // TILE
+        live = live_tiles(valid[b], ft)
+        q_o, _, _ = _gather_tile(q, b, h, ft, own_t, length)
+        do_o, _, _ = _gather_tile(dmix, b, h, ft, own_t, length)
+        q_o, do_o = _round(q_o, rounding), _round(do_o, rounding)
+        lse2, w, _ = other_stats(b, h, ft, own_t)
 
-                # ---- dk/dv: own rows are keys ----
-                k_o, pos_o, real_o = _gather_tile(k, b, h, ft, own_t, length)
-                v_o, _, _ = _gather_tile(v, b, h, ft, own_t, length)
-                k_o, v_o = _round(k_o, rounding), _round(v_o, rounding)
-                kadd = key_term(pos_o, real_o)
-                acc_k, acc_v = torch.zeros(TILE, d), torch.zeros(TILE, d)
-                if live[own_t]:
-                    for t in range(n_other):
-                        q_t, _, _ = _gather_tile(q, b, h, ft, t, length)
-                        do_t, _, _ = _gather_tile(dmix, b, h, ft, t, length)
-                        q_t = _round(q_t, rounding)
-                        do_t = _round(do_t, rounding)
-                        lse2_t, w_t, delta_t = other_stats(t)
-                        st = k_o @ q_t.T
-                        dpt = v_o @ do_t.T
-                        pt = torch.exp2(st * scale2 + (kadd[:, None]
+        rs = torch.zeros(TILE, 4)
+        acc, acc_b = torch.zeros(TILE, d), torch.zeros(TILE, d)
+        for t in range(-(-ft["n_real"] // TILE)):   # the live key tiles
+            if not live[t]:
+                skipped += 1
+                continue
+            k_t, pos, real = _gather_tile(k, b, h, ft, t, length)
+            v_t, _, _ = _gather_tile(v, b, h, ft, t, length)
+            k_t, v_t = _round(k_t, rounding), _round(v_t, rounding)
+            p = torch.exp2((q_o @ k_t.T) * scale2 + (
+                key_term(b, pos, real)[None, :] - lse2[:, None]))
+            dp = do_o @ v_t.T
+            rs = rs + _quad_rowsum(p * dp)
+            acc = acc + _operand(p * (w[:, None] * dp), rounding) @ k_t
+            acc_b = acc_b + _operand(p, rounding) @ k_t
+        delta = w * ((rs[:, 0] + rs[:, 1]) + (rs[:, 2] + rs[:, 3]))
+        acc = acc - delta[:, None] * acc_b
+        delta = torch.where(torch.arange(TILE) < n_own, delta, 0.0)
+        grads[0, b, h, rows] = (acc * scale)[:n_rows]
+        delta_c[b, h, rows] = delta[:n_rows]
+
+    # ---- the dk/dv kernel: own rows are keys, after the dq kernel ----
+    for b, h, ft, rows in blocks():
+        n_rows = ft["n_rows"]
+        own_t = ft["l0"] // TILE
+        if ft["n_own"] == 0 or not live_tiles(valid[b], ft)[own_t]:
+            grads[1:, b, h, rows] = 0.0
+            continue
+        k_o, pos_o, real_o = _gather_tile(k, b, h, ft, own_t, length)
+        v_o, _, _ = _gather_tile(v, b, h, ft, own_t, length)
+        k_o, v_o = _round(k_o, rounding), _round(v_o, rounding)
+        kadd = key_term(b, pos_o, real_o)
+        acc_k, acc_v = torch.zeros(TILE, d), torch.zeros(TILE, d)
+        for t in range(-(-ft["n_real"] // TILE)):
+            q_t, _, _ = _gather_tile(q, b, h, ft, t, length)
+            do_t, _, _ = _gather_tile(dmix, b, h, ft, t, length)
+            q_t, do_t = _round(q_t, rounding), _round(do_t, rounding)
+            lse2_t, w_t, delta_t = other_stats(b, h, ft, t)
+            pt = torch.exp2((k_o @ q_t.T) * scale2 + (kadd[:, None]
                                                        - lse2_t[None, :]))
-                        dst = pt * (w_t[None, :] * dpt - delta_t[None, :])
-                        acc_v = acc_v + _operand(pt * w_t[None, :],
-                                                 rounding) @ do_t
-                        acc_k = acc_k + _operand(dst, rounding) @ q_t
-                grads[1, b, h, rows] = (acc_k * scale)[:n_rows]
-                grads[2, b, h, rows] = acc_v[:n_rows]
-    return grads, skipped
+            dst = pt * (w_t[None, :] * (v_o @ do_t.T) - delta_t[None, :])
+            acc_v = acc_v + _operand(pt * w_t[None, :], rounding) @ do_t
+            acc_k = acc_k + _operand(dst, rounding) @ q_t
+        grads[1, b, h, rows] = (acc_k * scale)[:n_rows]
+        grads[2, b, h, rows] = acc_v[:n_rows]
+    return grads, delta_c, skipped
 
 
 def emulate_combine(grads, length, segs, ratios, dtype):
@@ -342,43 +362,36 @@ def emulate_combine(grads, length, segs, ratios, dtype):
 
 
 def emulate_mega_backward(q, k, v, mask, dmix, segs, ratios, scale,
-                          rounding):
-    """K1b on the card, from the forward's saved planes (here the plain
-    versions', rounded to the input dtype as K1f writes branch_out)."""
+                          rounding, stats=None):
+    """K1b on the card, from the forward's saved stats plane (the plain
+    version's unless given)."""
     b, length, h, d = q.shape
-    qf, kf, vf = q.float(), k.float(), v.float()
-    stats = dilated_attention_stats(qf, kf, vf, segment_lengths=segs,
-                                    dilated_ratios=ratios, mask=mask,
-                                    scale=scale)
-    branch_out = torch.stack([
-        df.from_compact(df.fused_branch_reference(
-            qf, kf, vf, mask, int(w), int(r), scale)[0], length, int(w),
-            int(r)).permute(0, 2, 1, 3) for w, r in zip(segs, ratios)])
-    branch_out = branch_out.to(q.dtype)
-    lse_c, w_c, delta_c = emulate_prep_mega(stats, branch_out, dmix, segs,
-                                            ratios)
-    grads, skipped = emulate_core(q, k, v, mask, dmix, lse_c, w_c, delta_c,
-                                  segs, ratios, scale, rounding)
+    if stats is None:
+        stats = dilated_attention_stats(q.float(), k.float(), v.float(),
+                                        segment_lengths=segs,
+                                        dilated_ratios=ratios, mask=mask,
+                                        scale=scale)
+    lse_c, w_c = emulate_prep_mega(stats, h, segs, ratios)
+    grads, delta_c, skipped = emulate_core(q, k, v, mask, dmix, lse_c, w_c,
+                                           segs, ratios, scale, rounding)
     return (emulate_combine(grads, length, segs, ratios, q.dtype), grads,
             skipped)
 
 
 def emulate_fused_backward(q, k, v, mask, dmix, segs, ratios, scale,
                            rounding):
-    """K3b on the card, from K3f's saved compact outputs and lses and the
-    mix statistics (here the plain versions')."""
+    """K3b on the card, from K3f's saved compact lses and the mix
+    statistics (here the plain versions')."""
     _, length, _, _ = q.shape
     qf, kf, vf = q.float(), k.float(), v.float()
     outs, lses = zip(*(df.fused_branch_reference(qf, kf, vf, mask, int(w),
                                                  int(r), scale)
                        for w, r in zip(segs, ratios)))
     _, m, z = df.fused_mix_reference(outs, lses, length, segs, ratios)
-    out_c = torch.cat(outs, dim=2).to(q.dtype)
     lse_c = torch.cat(lses, dim=2)
-    w_c, delta_c = emulate_prep_fused(out_c, lse_c, m, z, dmix, segs,
-                                      ratios)
-    grads, skipped = emulate_core(q, k, v, mask, dmix, lse_c, w_c, delta_c,
-                                  segs, ratios, scale, rounding)
+    w_c = emulate_prep_fused(lse_c, m, z, segs, ratios)
+    grads, delta_c, skipped = emulate_core(q, k, v, mask, dmix, lse_c, w_c,
+                                           segs, ratios, scale, rounding)
     return (emulate_combine(grads, length, segs, ratios, q.dtype), grads,
             skipped)
 
@@ -433,9 +446,10 @@ def _plain_grads(q, k, v, mask, cot, segs, ratios):
 @pytest.mark.parametrize("route", ["mega", "fused"])
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_emulation_matches_plain_in_fp32(route, name):
-    """In fp32 both routes' emulation computes autograd through the plain
-    ``dilated_attention`` on every row (masked rows included); the core
-    writes every compact row, zeros where a row is no real position."""
+    """In fp32 both routes' emulation computes
+    autograd through the plain ``dilated_attention`` on every row (masked
+    rows included); the core writes every compact row, zeros where a row
+    is no real position."""
     q, k, v, mask, cot, segs, ratios = (_t(x) if i < 5 else x for i, x in
                                         enumerate(_case(name)))
     scale = 48 ** -0.5
@@ -495,6 +509,45 @@ def test_emulation_matches_jax_kernels_in_fp32(route):
                                    err_msg=f"{route} {n}")
 
 
+def test_k1b_contract_on_jax_stats_matches_jax_vjp():
+    """K1b's contract, the forward's residuals only (q, k, v, the mask and
+    the stats plane): the emulated K1b fed the stats plane of JAX's own
+    ``_mega_fwd_call`` (interpret mode, taken back from its comb order)
+    computes the gradients of JAX's VJP, its ``_mega_bwd_call`` on the
+    same residuals, on the valid rows, in fp32."""
+    from modaltune_tpu.ops.dilated_fused import comb, to_head_major, uncomb
+    from modaltune_tpu.ops.dilated_mega import (_mega_fwd_call,
+                                                make_mega_plans)
+    b, length, h, segs, ratios, lens = JAX_CASES["mega"]
+    rng = np.random.RandomState(5)
+    q, k, v, cot = (rng.randn(b, length, h, 48).astype(np.float32)
+                    for _ in range(4))
+    mask = np.arange(length)[None, :] < np.array(lens)[:, None]
+    cot = cot * mask[:, :, None, None]
+    scale = 48 ** -0.5
+    R, plans = make_mega_plans(length, segs, ratios)
+    qc, kc, vc = (comb(to_head_major(jnp.asarray(x)), R) for x in (q, k, v))
+    bias = jnp.where(comb(jnp.asarray(mask, jnp.float32), R) > 0.5, 0.0,
+                     float(NEG_INF)).astype(jnp.float32)[:, None, :]
+    _, stats = _mega_fwd_call(plans, qc, kc, vc, bias, length, h, scale,
+                              interpret=True)
+    stats = uncomb(jnp.swapaxes(stats, 1, 2), R)
+    stats = torch.from_numpy(np.array(jnp.swapaxes(stats, 1, 2)))
+    want_st = dilated_attention_stats(_t(q), _t(k), _t(v),
+                                      segment_lengths=segs,
+                                      dilated_ratios=ratios, mask=_t(mask))
+    np.testing.assert_allclose(stats.numpy(), want_st.numpy(), atol=1e-4,
+                               rtol=1e-5)
+    got, _, _ = emulate_mega_backward(_t(q), _t(k), _t(v), _t(mask),
+                                      _t(cot), segs, ratios, scale, None,
+                                      stats=stats)
+    want = _jax_grads(j_mega, q, k, v, mask, cot, segs, ratios)
+    m = mask[:, :, None, None]
+    for n, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy() * m, np.asarray(w) * m,
+                                   atol=JAX_TOL, rtol=JAX_TOL, err_msg=n)
+
+
 def _bf16_case(name, seed):
     q, k, v, mask, cot, segs, ratios = _case(name, seed)
     tq, tk, tv, tc = (_t(x).bfloat16() for x in (q, k, v, cot))
@@ -517,11 +570,12 @@ def _readings(route, name, rounding):
 @pytest.mark.parametrize("route", ["mega", "fused"])
 @pytest.mark.parametrize("name", ["no_segment_divides", "dead_tiles"])
 def test_emulation_in_bf16_holds_the_chip_limits(route, name):
-    """With bf16 inputs, P and dS as hi + lo bf16 parts and the results
-    rounded to bf16, both routes' emulated kernels hold chip_smoke.py's
-    limits (``check_grads``: rel-L2 <= 1e-2, row-scaled <= 2e-2 for each
-    gradient) and stay within 1.2x the rel-L2 of the plain gradients
-    rounded to bf16, the results' own rounding (they read 1.00-1.04x)."""
+    """With bf16 inputs, P, P w dP and dS as hi + lo bf16 parts and the
+    results rounded to bf16, both routes' emulated kernels hold
+    chip_smoke.py's limits (``check_grads``: rel-L2 <= 1e-2, row-scaled
+    <= 2e-2 for each gradient) and stay within
+    1.2x the rel-L2 of the plain gradients rounded to bf16, the results'
+    own rounding."""
     rel, floor, got, want, cot = _readings(route, name, "parts")
     chip_smoke.check_grads(("dq", "dk", "dv"), got, want, cot, "bfloat16",
                            f"{route} {name}")

@@ -16,10 +16,10 @@ out below in the order the card computes it:
   NEG_INF for a row that is no real position or has no valid key;
 * the mix, one kernel for both routes: per (token, head) ``m = max_b
   lse_b``, ``Z = sum_b exp(lse_b - m)`` over the lses above
-  ``MASK_THRESHOLD`` and the mixed output; K3 keeps ``(out_c, lse_c, m,
-  Z)``, K1 with stats writes its plane ``[lse_0 .. lse_{n-1}, m, Z]`` and
-  ``branch_out`` (zeros and NEG_INF where a branch does not cover the
-  slot).
+  ``MASK_THRESHOLD`` and the mixed output; K3 keeps ``(lse_c, m, Z)``
+  for its backward, K1 with stats writes its plane ``[lse_0 .. lse_{n-1},
+  m, Z]`` (NEG_INF where a branch does not cover the slot). Neither keeps
+  a branch's output.
 
 In fp32 the emulation is held against JAX's ``mega_dilated_attention`` and
 ``fused_dilated_attention`` in interpret mode and against the port's plain
@@ -139,49 +139,41 @@ def emulate_forward_core(q, k, v, mask, segs, ratios, scale, rounding):
 def emulate_mix(out_c, lse_c, length, segs, ratios, planes):
     """The mix kernel: ``(mixed (B, L, H, D) in out_c's dtype, m, Z (B, H,
     L))`` and, with ``planes`` (K1 with stats), K1's ``stats (B*H, n + 2,
-    L)`` and ``branch_out (n, B, L, H, D)`` (a branch's output copied as
-    the core wrote it, zeros and NEG_INF where it does not cover the slot);
-    else None, None."""
+    L)`` (NEG_INF where a branch does not cover the slot); else None."""
     outs = df.split_branches(out_c, length, segs, ratios)
     lses = df.split_branches(lse_c, length, segs, ratios)
     mixed, m, z = df.fused_mix_reference(outs, lses, length, segs, ratios)
     if not planes:
-        return mixed, m, z, None, None
+        return mixed, m, z, None
     b, h = out_c.shape[:2]
     dense_lse = [df.from_compact(x, length, int(w), int(r), fill=NEG_INF)
                  for x, w, r in zip(lses, segs, ratios)]
     stats = torch.stack(dense_lse + [m, z], dim=2).reshape(b * h, -1, length)
-    branch_out = torch.stack([
-        df.from_compact(x, length, int(w), int(r)).permute(0, 2, 1, 3)
-        for x, w, r in zip(outs, segs, ratios)])
-    return mixed, m, z, stats, branch_out
+    return mixed, m, z, stats
 
 
 def emulate_forward(q, k, v, mask, segs, ratios, rounding, planes=False):
     """K1f or K3f on the card: the core, then the mix."""
     out_c, lse_c, _ = emulate_forward_core(q, k, v, mask, segs, ratios,
                                            SCALE, rounding)
-    mixed, m, z, stats, branch_out = emulate_mix(out_c, lse_c, q.shape[1],
-                                                 segs, ratios, planes)
-    return dict(out=mixed, out_c=out_c, lse_c=lse_c, m=m, z=z, stats=stats,
-                branch_out=branch_out)
+    mixed, m, z, stats = emulate_mix(out_c, lse_c, q.shape[1], segs, ratios,
+                                     planes)
+    return dict(out=mixed, out_c=out_c, lse_c=lse_c, m=m, z=z, stats=stats)
 
 
 def emulate_backward(route, fwd, q, k, v, mask, dmix, segs, ratios):
-    """The card's backward from the emulated forward's planes: K1b's prep
-    from ``stats`` and ``branch_out``, K3b's from ``out_c``, ``lse_c``,
-    ``m`` and ``Z``; the gradient core with P and dS as hi + lo parts; the
-    combine."""
+    """The card's backward from what the emulated forward keeps: K1b's
+    prep from ``stats``, K3b's from ``lse_c``, ``m`` and ``Z``; the
+    gradient core with P and dS as hi + lo parts, delta taken in its dq
+    kernel; the combine."""
     if route == "mega":
-        lse_c, w_c, delta_c = emulate_prep_mega(fwd["stats"],
-                                                fwd["branch_out"], dmix,
-                                                segs, ratios)
+        lse_c, w_c = emulate_prep_mega(fwd["stats"], q.shape[2], segs,
+                                       ratios)
     else:
         lse_c = fwd["lse_c"]
-        w_c, delta_c = emulate_prep_fused(fwd["out_c"], lse_c, fwd["m"],
-                                          fwd["z"], dmix, segs, ratios)
-    grads, _ = emulate_core(q, k, v, mask, dmix, lse_c, w_c, delta_c, segs,
-                            ratios, SCALE, "parts")
+        w_c = emulate_prep_fused(lse_c, fwd["m"], fwd["z"], segs, ratios)
+    grads, _, _ = emulate_core(q, k, v, mask, dmix, lse_c, w_c, segs, ratios,
+                               SCALE, "parts")
     return emulate_combine(grads, q.shape[1], segs, ratios, q.dtype)
 
 
@@ -200,8 +192,8 @@ def test_emulation_matches_plain_in_fp32(name):
     """In fp32 the emulated core writes every compact row: each branch's
     out_b and lse_b are the plain branch's (0 and NEG_INF past the real
     rows); the mix gives ``dilated_attention`` on every row (masked rows
-    included), K1's plane is ``dilated_attention_stats`` with NEG_INF
-    exactly where it has it, and ``branch_out`` the plain branch outputs."""
+    included), and K1's plane is ``dilated_attention_stats`` with NEG_INF
+    exactly where it has it."""
     q, k, v, mask, _, segs, ratios = (_t(x) if i < 5 else x for i, x in
                                       enumerate(_case(name)))
     length = q.shape[1]
@@ -215,10 +207,6 @@ def test_emulation_matches_plain_in_fp32(name):
         np.testing.assert_allclose(lses[i].numpy(), want_l.numpy(),
                                    atol=PLAIN_TOL, rtol=PLAIN_TOL)
         np.testing.assert_allclose(outs[i].numpy(), want_o.numpy(),
-                                   atol=PLAIN_TOL, rtol=PLAIN_TOL)
-        dense = df.from_compact(want_o, length, segs[i], ratios[i])
-        np.testing.assert_allclose(fwd["branch_out"][i].numpy(),
-                                   dense.permute(0, 2, 1, 3).numpy(),
                                    atol=PLAIN_TOL, rtol=PLAIN_TOL)
     kw = dict(segment_lengths=segs, dilated_ratios=ratios, mask=mask)
     np.testing.assert_allclose(fwd["out"].numpy(),
@@ -283,9 +271,9 @@ def test_emulation_in_bf16_holds_the_chip_limits(name):
     """With bf16 inputs, P rounded once and the results rounded to bf16,
     the emulated forward holds chip_smoke.py's limits on the card: the
     output by ``check_out`` (rel-L2 <= 1e-2, row-scaled <= 2e-2) and the
-    max-scaled bound 1.6e-2 on the valid rows; every branch output and
-    compact piece by ``check_out``; K1's plane and K3's (m, Z) within
-    1e-3, NEG_INF exactly where the plain version has it."""
+    max-scaled bound 1.6e-2 on the valid rows; every compact piece by
+    ``check_out``; K1's plane and K3's (m, Z) within 1e-3, NEG_INF exactly
+    where the plain version has it."""
     fwd, want, (q, k, v, mask, _, segs, ratios) = _bf16_readings(name,
                                                                  "once")
     valid = _valid(mask, q)[:, :, None, None]
@@ -297,10 +285,6 @@ def test_emulation_in_bf16_holds_the_chip_limits(name):
     for i, (want_o, _) in enumerate(_plain_branches(q, k, v, mask, segs,
                                                     ratios)):
         chip_smoke.check_out(outs[i].float(), want_o, "bfloat16", f"out_c {i}")
-        dense = df.from_compact(want_o, length, segs[i], ratios[i])
-        chip_smoke.check_out(fwd["branch_out"][i].float(),
-                             dense.permute(0, 2, 1, 3), "bfloat16",
-                             f"branch_out {i}")
     kw = dict(segment_lengths=segs, dilated_ratios=ratios, mask=mask)
     want_st = dilated_attention_stats(q.float(), k.float(), v.float(), **kw)
     assert ((fwd["stats"] == NEG_INF) == (want_st == NEG_INF)).all()
@@ -335,8 +319,8 @@ def test_single_rounding_of_p_holds_the_gates(name):
 @pytest.mark.parametrize("route", ["mega", "fused"])
 @pytest.mark.parametrize("name", ["no_segment_divides", "dead_tiles"])
 def test_gradients_from_the_emulated_forward(route, name):
-    """The emulated bf16 forward's planes (K1's ``stats`` and
-    ``branch_out``, or K3's ``out_c``, ``lse_c``, ``m`` and ``Z``) through
+    """What the emulated bf16 forward keeps (K1's ``stats``, or K3's
+    ``lse_c``, ``m`` and ``Z``) through
     the emulated backward of each route hold chip_smoke.py's gradient
     limits and stay within 1.2x the rel-L2 of the plain gradients rounded
     to bf16, the results' own rounding, as the backward's emulation does
@@ -365,8 +349,8 @@ def test_emulation_masks_exactly(route):
     out_c, lse_c, skipped = emulate_forward_core(q, k, v, mask, segs, ratios,
                                                  SCALE, "once")
     length, heads = q.shape[1:3]
-    mixed, m, z, stats, branch_out = emulate_mix(out_c, lse_c, length, segs,
-                                                 ratios, route == "mega")
+    mixed, m, z, stats = emulate_mix(out_c, lse_c, length, segs, ratios,
+                                     route == "mega")
     assert torch.isfinite(out_c.float()).all() and torch.isfinite(lse_c).all()
     assert torch.isfinite(mixed.float()).all()
     assert (mixed[1] == 0).all() and (out_c[1] == 0).all()
@@ -375,7 +359,6 @@ def test_emulation_masks_exactly(route):
     if route == "mega":
         assert (stats.reshape(2, heads, -1, length)[1, :, :len(segs)]
                 == NEG_INF).all()
-        assert (branch_out[:, 1] == 0).all()
     want = 0
     for b in range(2):
         for h in range(heads):

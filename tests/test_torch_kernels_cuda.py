@@ -38,8 +38,8 @@ bit-equal, masked keys' dk and dv exactly 0, both routes against each
 other, and the family rule of the C entry points against the CPU's copy
 (K3b's compact gradients at D = 48 are the K3 cases' above); for the same
 family of K1f (with and without stats) and K3f the same geometries, the
-outputs by ``chip_smoke.check_out``, K1's stats plane and ``branch_out``,
-K3's compact pieces and (m, Z), reruns bit-equal, both routes' outputs
+outputs by ``chip_smoke.check_out``, K1's stats plane, K3's compact
+pieces and (m, Z), reruns bit-equal, both routes' outputs
 bit-equal, and a misaligned operand raising in either forward. For the ALiBi
 kernels (K4) besides:
 a sequence of the cls token and a handful of cells, masks and coordinates
@@ -56,7 +56,7 @@ import pytest
 import torch
 
 from modaltune_tpu_torch.ops import NEG_INF
-from modaltune_tpu_torch.ops.dilated import (_branches, dilated_attention,
+from modaltune_tpu_torch.ops.dilated import (dilated_attention,
                                              dilated_attention_stats)
 
 def _load_chip_smoke():
@@ -239,16 +239,12 @@ def test_dilated_stats_match_plain(cuda_device, b, length, h, d, segs, ratios,
     q, k, v, _, mask, valid = _dilated_inputs(b, length, h, d, masked,
                                               cuda_device)
     kw = dict(segment_lengths=segs, dilated_ratios=ratios, mask=mask)
-    out, stats, branch_out = dm.mega_dilated_attention_cuda(
+    out, stats = dm.mega_dilated_attention_cuda(
         q, k, v, mask, segs, ratios, d ** -0.5, with_stats=True)
     want = dilated_attention_stats(q, k, v, **kw)
-    outs, _ = _branches(q, k, v, mask, segs, ratios, None)
     torch.cuda.synchronize()
     torch.testing.assert_close(stats, want, atol=TOL, rtol=TOL)
     assert ((stats == NEG_INF) == (want == NEG_INF)).all()
-    for i, o in enumerate(outs):
-        torch.testing.assert_close(branch_out[i] * valid, o * valid,
-                                   atol=TOL, rtol=TOL)
     # the training variant mixes to the same output
     torch.testing.assert_close(
         out * valid, dilated_attention(q, k, v, **kw) * valid,
@@ -263,10 +259,10 @@ def test_dilated_backward_kernel_matches_autograd(cuda_device, b, length, h,
     kw = dict(segment_lengths=segs, dilated_ratios=ratios, mask=mask)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     (dilated_attention(*leaves, **kw) * dmix).sum().backward()
-    _, stats, branch_out = dm.mega_dilated_attention_cuda(
+    _, stats = dm.mega_dilated_attention_cuda(
         q, k, v, mask, segs, ratios, d ** -0.5, with_stats=True)
     got = dm.mega_dilated_attention_backward_cuda(
-        q, k, v, mask, dmix, stats, branch_out, segs, ratios, d ** -0.5)
+        q, k, v, mask, dmix, stats, segs, ratios, d ** -0.5)
     torch.cuda.synchronize()
     for name, g_, x in zip(("dq", "dk", "dv"), got, leaves):
         _assert_grad_close(g_ * valid, x.grad * valid, name)
@@ -309,14 +305,14 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
         dm.mega_dilated_attention(z, z, z, segment_lengths=(8,),
                                   dilated_ratios=(1,))
     w = _randn((1, 16, 4, 16), 9, cuda_device)
-    _, stats, bo = dm.mega_dilated_attention_cuda(w, w, w, None, (8,), (1,),
-                                                  0.25, with_stats=True)
+    _, stats = dm.mega_dilated_attention_cuda(w, w, w, None, (8,), (1,),
+                                              0.25, with_stats=True)
     with pytest.raises(ValueError):                    # dmix in another dtype
         dm.mega_dilated_attention_backward_cuda(
-            w, w, w, None, w.bfloat16(), stats, bo, (8,), (1,), 0.25)
+            w, w, w, None, w.bfloat16(), stats, (8,), (1,), 0.25)
     with pytest.raises(ValueError):                    # stats of other branches
         dm.mega_dilated_attention_backward_cuda(
-            w, w, w, None, w, stats, bo, (8, 16), (1, 2), 0.25)
+            w, w, w, None, w, stats, (8, 16), (1, 2), 0.25)
 
 
 # ---------------------------------------------------------------------------
@@ -908,7 +904,7 @@ def test_fused_backward_kernel_matches_autograd(cuda_device, b, length, h, d,
     _, out_c, lse_c, stats = df.fused_dilated_attention_cuda(
         q, k, v, m, segs, ratios, scale)
     dq, dk, dv, grads_c = df.fused_dilated_attention_backward_cuda(
-        q, k, v, m, dmix, out_c, lse_c, stats, segs, ratios, scale,
+        q, k, v, m, dmix, lse_c, stats, segs, ratios, scale,
         return_compact=True)
     torch.cuda.synchronize()
     for name, g_, x in zip(("dq", "dk", "dv"), (dq, dk, dv), leaves):
@@ -925,7 +921,7 @@ def test_fused_backward_kernel_matches_autograd(cuda_device, b, length, h, d,
             dmix.float(), w, r, scale)
         for g_, w_ in zip(df.split_branches(grads_c.movedim(0, -1), length,
                                             segs, ratios)[i].unbind(-1), want):
-            # bf16: delta comes from the saved out_b, rounded to bf16
+            # bf16: q, k, v, dmix rounded; delta from P and dP in fp32
             err = (g_ - w_).abs().max().item()
             assert err <= (GRAD_TOL if dtype == torch.float32 else 2e-2) * \
                 max(1.0, w_.abs().max().item()), (i, err)
@@ -962,11 +958,11 @@ def test_fused_wrapper_raises_instead_of_falling_back(cuda_device):
     with pytest.raises(TypeError):
         df.fused_dilated_attention(x.half(), x.half(), x.half(),
                                    segment_lengths=(8,), dilated_ratios=(1,))
-    _, out_c, lse_c, stats = df.fused_dilated_attention_cuda(
+    _, _, lse_c, stats = df.fused_dilated_attention_cuda(
         x, x, x, None, (8,), (1,), 0.25)
     with pytest.raises(ValueError):                    # other branches' rows
         df.fused_dilated_attention_backward_cuda(
-            x, x, x, None, x, out_c, lse_c, stats, (8, 16), (1, 2), 0.25)
+            x, x, x, None, x, lse_c, stats, (8, 16), (1, 2), 0.25)
 
 
 # ---------------------------------------------------------------------------
@@ -1007,14 +1003,14 @@ def _wgmma_inputs(b, length, h, mask, device):
 def _wgmma_backward(route, q, k, v, m, dmix, segs, ratios):
     scale = 48 ** -0.5
     if route == "mega":
-        _, stats, branch_out = dm.mega_dilated_attention_cuda(
+        _, stats = dm.mega_dilated_attention_cuda(
             q, k, v, m, segs, ratios, scale, with_stats=True)
         return dm.mega_dilated_attention_backward_cuda(
-            q, k, v, m, dmix, stats, branch_out, segs, ratios, scale)
-    _, out_c, lse_c, stats = df.fused_dilated_attention_cuda(
+            q, k, v, m, dmix, stats, segs, ratios, scale)
+    _, _, lse_c, stats = df.fused_dilated_attention_cuda(
         q, k, v, m, segs, ratios, scale)
     return df.fused_dilated_attention_backward_cuda(
-        q, k, v, m, dmix, out_c, lse_c, stats, segs, ratios, scale)
+        q, k, v, m, dmix, lse_c, stats, segs, ratios, scale)
 
 
 @pytest.mark.parametrize("route", ROUTES)
@@ -1083,11 +1079,87 @@ def test_wgmma_family_raises_on_a_misaligned_tensor(cuda_device):
     with pytest.raises(RuntimeError):
         dm.mega_dilated_attention_cuda(q, q, q, None, (64,), (1,), scale)
     a = q.clone()                          # a fresh, aligned allocation
-    _, out_c, lse_c, stats = df.fused_dilated_attention_cuda(
+    _, _, lse_c, stats = df.fused_dilated_attention_cuda(
         a, a, a, None, (64,), (1,), scale)
     with pytest.raises(RuntimeError):
         df.fused_dilated_attention_backward_cuda(
-            q, q, q, None, a, out_c, lse_c, stats, (64,), (1,), scale)
+            q, q, q, None, a, lse_c, stats, (64,), (1,), scale)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_k1b_in_two_parts_gives_the_whole_calls_bits(cuda_device, n):
+    """K1b's two parts over each of ``n`` token ranges, as the
+    sequence-parallel island runs them (one process here, the ranks in
+    turn): part 0 gives each range's dq, and dk, dv 0; the ranges' delta
+    planes summed, part 1 gives each range's dk and dv; every range's rows
+    of dq, dk and dv are the whole call's bits. The CUDA-core family
+    refuses the parts."""
+    b, length, h, segs, ratios, mask = WGMMA_CASES[1]
+    q, k, v, dmix, m, arg = _wgmma_inputs(b, length, h, mask, cuda_device)
+    scale = 48 ** -0.5
+    _, whole_stats = dm.mega_dilated_attention_cuda(
+        q, k, v, arg, segs, ratios, scale, with_stats=True)
+    whole = dm.mega_dilated_attention_backward_cuda(
+        q, k, v, arg, dmix, whole_stats, segs, ratios, scale)
+    size = length // n
+    ranges = [(i * size, (i + 1) * size) for i in range(n)]
+    parts = []
+    for rng in ranges:
+        _, stats = dm.mega_dilated_attention_cuda(
+            q, k, v, arg, segs, ratios, scale, with_stats=True,
+            q_token_range=rng)
+        local = torch.zeros_like(dmix)
+        local[:, rng[0]:rng[1]] = dmix[:, rng[0]:rng[1]]
+        scratch = dm.part_scratch(q, segs, ratios)
+        dq, dk, dv = dm.mega_dilated_attention_backward_part_cuda(
+            q, k, v, arg, local, stats, segs, ratios, scale, 0, rng, scratch)
+        assert not dk.any() and not dv.any()
+        outside = torch.ones(length, dtype=torch.bool, device=cuda_device)
+        outside[rng[0]:rng[1]] = False
+        assert not dq[:, outside].any()
+        parts.append((rng, scratch, dq))
+    delta = sum(scratch[0][2] for _, scratch, _ in parts)
+    for rng, scratch, dq in parts:
+        scratch[0][2] = delta
+        _, dk, dv = dm.mega_dilated_attention_backward_part_cuda(
+            q, k, v, arg, dmix, whole_stats, segs, ratios, scale, 1, rng,
+            scratch)
+        rows = slice(rng[0], rng[1])
+        for got, want in zip((dq, dk, dv), whole):
+            assert torch.equal(got[:, rows], want[:, rows])
+    x = _randn((1, 64, 4, 48), 9, cuda_device)
+    _, st = dm.mega_dilated_attention_cuda(x, x, x, None, (32,), (1,), 0.25,
+                                           with_stats=True)
+    with pytest.raises(RuntimeError):
+        dm.mega_dilated_attention_backward_part_cuda(
+            x, x, x, None, x, st, (32,), (1,), 0.25, 0, (0, 32),
+            dm.part_scratch(x, (32,), (1,)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [2, 4])
+def test_k1f_range_stats_are_the_whole_calls_columns(cuda_device, dtype, n):
+    """The sequence-parallel island's backward gathers each rank's stats
+    columns from K1f with its token range: in either family (bf16 at
+    D = 48 the tensor-core one, fp32 the CUDA-core one) they are the whole
+    call's bits, so the backward on them is the whole call's."""
+    b, length, h, segs, ratios, mask = WGMMA_CASES[1]
+    q, k, v, _, _, arg = _wgmma_inputs(b, length, h, mask, cuda_device)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    scale = 48 ** -0.5
+    _, whole_stats = dm.mega_dilated_attention_cuda(
+        q, k, v, arg, segs, ratios, scale, with_stats=True)
+    size = length // n
+    assert size * n == length
+    cols = []
+    for i in range(n):
+        rng = (i * size, (i + 1) * size)
+        _, stats = dm.mega_dilated_attention_cuda(
+            q, k, v, arg, segs, ratios, scale, with_stats=True,
+            q_token_range=rng)
+        cols.append(stats[..., rng[0]:rng[1]])
+    gathered = torch.cat(cols, dim=2)
+    assert torch.equal(gathered, whole_stats)
 
 
 # ---------------------------------------------------------------------------
@@ -1098,8 +1170,8 @@ FWD_ROUTES = ["mega", "mega_stats", "fused"]
 
 
 def _wgmma_forward(route, q, k, v, m, segs, ratios):
-    """``(out, planes)``: the route's output and its saved planes, K1's
-    ``(stats, branch_out)`` or K3's ``(out_c, lse_c, stats)``."""
+    """``(out, planes)``: the route's output and its planes, K1's
+    ``(stats,)`` or K3's ``(out_c, lse_c, stats)``."""
     scale = 48 ** -0.5
     if route == "fused":
         mixed, *planes = df.fused_dilated_attention_cuda(q, k, v, m, segs,
@@ -1123,8 +1195,7 @@ def test_wgmma_forward_matches_plain(cuda_device, route, b, length, h, segs,
     by ``chip_smoke.check_out`` (rel-L2 <= 1e-2, row-scaled <= 2e-2) and
     the max-scaled bound 1.6e-2 on the valid rows; K1's stats plane and
     K3's (m, Z) and compact lse within 1e-3 with NEG_INF exactly where the
-    plain version has it; every branch output (K1's ``branch_out``, K3's
-    compact ``out_b``) by ``check_out``; a batch row without a valid key
+    plain version has it; K3's compact ``out_b`` by ``check_out``; a batch row without a valid key
     all 0; a rerun bit-equal; the family the entry points' rule names."""
     assert df.card_family(48, torch.bfloat16) == \
         df.family(48, torch.bfloat16) == "wgmma"
@@ -1145,17 +1216,9 @@ def test_wgmma_forward_matches_plain(cuda_device, route, b, length, h, segs,
     branches = [df.fused_branch_reference(qf, kf, vf, arg, w, r, scale)
                 for w, r in zip(segs, ratios)]
     if route == "mega_stats":
-        stats, branch_out = planes
+        stats, = planes
         assert ((stats == NEG_INF) == (want_st == NEG_INF)).all()
         assert (stats - want_st).abs().max().item() <= 1e-3
-        for i, ((o, _), w, r) in enumerate(zip(branches, segs, ratios)):
-            dense = df.from_compact(o, length, w, r).permute(0, 2, 1, 3)
-            assert torch.isfinite(branch_out[i].float()).all()
-            chip_smoke.check_out(branch_out[i].float(), dense, "bfloat16",
-                                 f"branch_out {i}")
-            covered = df.from_compact(torch.ones_like(o[..., 0]), length, w,
-                                      r).permute(0, 2, 1).bool()
-            assert (branch_out[i][~covered] == 0).all()
     if route == "fused":
         out_c, lse_c, stats = planes
         got_st = stats.reshape(2, b * h, length).transpose(0, 1)
@@ -1181,7 +1244,7 @@ def test_wgmma_forward_routes_agree(cuda_device):
     their outputs are the same bits, and K1's stats carry K3's (m, Z)."""
     b, length, h, segs, ratios, mask = WGMMA_CASES[0]
     q, k, v, _, _, m = _wgmma_inputs(b, length, h, mask, cuda_device)
-    out1, (stats, _) = _wgmma_forward("mega_stats", q, k, v, m, segs, ratios)
+    out1, (stats,) = _wgmma_forward("mega_stats", q, k, v, m, segs, ratios)
     out3, (_, _, mz) = _wgmma_forward("fused", q, k, v, m, segs, ratios)
     n = len(segs)
     assert torch.equal(out1, out3)

@@ -12,10 +12,21 @@
   the dropout generator where remat off leaves it, its backward run on
   a thread of its own. This fails if the recompute draws new bits or
   loses the generator's context.
-* What is recomputed: the attention call runs once a layer a step under
-  ``"flash"`` and ``"flash_ffn"`` and twice under ``"full"``; the FFN past
-  fc1 (K5f on the fused route) twice under every policy; once each with
-  remat off or without grad.
+* What is recomputed, with CPU stand-ins for the card's kernels behind the
+  card's autograd Functions (``card_functions``: K1's and K3's Functions
+  on plain versions of their kernels, K2's Function as it runs on the
+  CPU): the attention's forward kernels run once a layer a step under
+  ``"flash"`` (whose recompute takes their outputs back) and
+  ``"flash_ffn"``, twice under ``"full"``; the FFN past fc1 (K5f on the
+  fused route) twice under every policy; once each with remat off or
+  without grad.
+* What a layer keeps under ``"flash"``, on every route behind those
+  Functions: the bytes of the storages its forward made that are still
+  alive after it are exactly its output, the attention's output and what
+  the attention's backward reads besides q/k/v (K1's stats; K3's compact
+  lses, m and Z; each branch's K2 out and lse), JAX's tagged set; with
+  remat off and under ``"flash_ffn"`` q/k/v (or the branches' gathered
+  copies) are kept besides.
 * The tiny ModalTune model's grad step (dropout on) is bit-equal under
   every policy to remat off.
 * Against JAX: the encoder with remat on against JAX's with remat on,
@@ -31,6 +42,7 @@ heads, segments (32, 64), ratios (1, 2), fp32.
 
 import contextlib
 import dataclasses
+import importlib
 import threading
 from unittest import mock
 
@@ -51,7 +63,14 @@ from modaltune_tpu_torch.configs import LongNetConfig, TrainConfig
 from modaltune_tpu_torch.models import dropout_generator, fill_normal_
 from modaltune_tpu_torch.models import longnet
 from modaltune_tpu_torch.models.longnet import LongNetEncoder, remat_policy
+from modaltune_tpu_torch.ops import dilated_fused as df
+from modaltune_tpu_torch.ops import dilated_mega as dm
+from modaltune_tpu_torch.ops.dilated import (_round_up, dilated_attention,
+                                             dilated_attention_stats)
 from modaltune_tpu_torch.utils.convert import params_from_jax
+from torch.multiprocessing.reductions import StorageWeakRef
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 
 from test_torch_dilated_sp import LOSS_TOL, NULL_GRAD, sp_payload
 
@@ -165,14 +184,111 @@ def test_policy_is_bit_neutral_with_dropout(route, policy):
     assert torch.isfinite(dx1).all() and dx1.abs().max() > 0
 
 
+fa = importlib.import_module("modaltune_tpu_torch.ops.flash_attention")
+
+
+def _plain_backward(q, k, v, mask, dmix, segs, ratios, scale):
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        out = dilated_attention(*leaves, segment_lengths=segs,
+                                dilated_ratios=ratios, mask=mask, scale=scale)
+    return torch.autograd.grad(out, leaves, dmix)
+
+
+@contextlib.contextmanager
+def card_functions(counts):
+    """The attention routes as the card runs them, on the CPU: the
+    layer's ``mega_dilated_attention`` and ``fused_dilated_attention``
+    apply K1's and K3's autograd Functions as their CUDA branch does,
+    whose kernel wrappers become plain versions returning what the
+    kernels return (K1f: out and stats; K3f: mixed, compact outs and
+    lses, m and Z; their backwards by autograd through the plain
+    version). K2's Function runs as it does on CPU tensors.
+    ``counts["kernel"]`` counts the forward kernels' runs (K1f, K3f, each
+    branch's K2f)."""
+    def k1f(q, k, v, mask, segs, ratios, scale, with_stats=False,
+            q_token_range=None):
+        counts["kernel"] += 1
+        kw = dict(segment_lengths=segs, dilated_ratios=ratios, mask=mask,
+                  scale=scale)
+        out = dilated_attention(q, k, v, **kw)
+        return (out, dilated_attention_stats(q, k, v, **kw)) if with_stats \
+            else out
+
+    def k3f(q, k, v, mask, segs, ratios, scale):
+        counts["kernel"] += 1
+        outs, lses = zip(*(df.fused_branch_reference(q, k, v, mask, w, r,
+                                                     scale)
+                           for w, r in zip(segs, ratios)))
+        mixed, m, z = df.fused_mix_reference(outs, lses, q.shape[1], segs,
+                                             ratios)
+        return (mixed.contiguous(), torch.cat(outs, dim=2),
+                torch.cat(lses, dim=2), torch.stack([m, z]))
+
+    def k2f(*a):
+        counts["kernel"] += 1
+        return plain_k2f(*a)
+    plain_k2f = fa.flash_attention_reference
+
+    def entry(function, launch):
+        def attention(q, k, v, *, segment_lengths, dilated_ratios,
+                      mask=None):
+            branches = (tuple(segment_lengths), tuple(dilated_ratios),
+                        q.shape[-1] ** -0.5)
+            if torch.is_grad_enabled() and q.requires_grad:
+                extra = (None,) if function is dm._MegaDilatedAttention \
+                    else ()
+                return function.apply(q, k, v, mask, *branches, *extra)
+            out = launch(q, k, v, mask, *branches)
+            return out[0] if isinstance(out, tuple) else out
+        return attention
+
+    patches = [
+        mock.patch.object(dm, "mega_dilated_attention_cuda", k1f),
+        mock.patch.object(dm, "mega_dilated_attention_backward_cuda",
+                          lambda q, k, v, mask, dmix, stats, *b, **kw:
+                          _plain_backward(q, k, v, mask, dmix, *b[:3])),
+        mock.patch.object(df, "fused_dilated_attention_cuda", k3f),
+        mock.patch.object(df, "fused_dilated_attention_backward_cuda",
+                          lambda q, k, v, mask, dmix, lse_c, stats, *b:
+                          _plain_backward(q, k, v, mask, dmix, *b)),
+        mock.patch.object(fa, "flash_attention_reference", k2f),
+        mock.patch.object(longnet, "mega_dilated_attention",
+                          entry(dm._MegaDilatedAttention, k1f)),
+        mock.patch.object(longnet, "fused_dilated_attention",
+                          entry(df._FusedDilatedAttention, k3f))]
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        yield counts
+
+
+@pytest.mark.parametrize("route", ["mega", "fused"])
+def test_flash_is_bit_neutral_behind_card_functions(route):
+    """K1's and K3's Functions behind :func:`card_functions`, with dropout
+    on: under ``"flash"`` the recompute takes their kept outputs back and
+    gives remat off's loss and gradients bit for bit."""
+    kw = dict(dropout=0.25, drop_path_rate=0.1)
+    off = _encoder(_cfg(route, remat=False, **kw))
+    on = _encoder(_cfg(route, policy="flash", **kw))
+    on.load_state_dict(off.state_dict())
+    with card_functions({"kernel": 0}) as counts:
+        loss0, dx0, dp0, g0 = _step(off)
+        launched = counts["kernel"]
+        loss1, dx1, dp1, g1 = _step(on, thread=True)
+    assert counts["kernel"] == 2 * launched == 2 * LN_KW["num_layers"]
+    assert torch.equal(loss0, loss1) and torch.equal(dx0, dx1)
+    for n in dp0:
+        assert torch.equal(dp0[n], dp1[n]), n
+    assert torch.equal(g0, g1)
+
+
 def _calls(route, remat, policy, grad=True):
-    """The attention calls, FFN tails (past fc1) and fused GELU ->
-    LayerNorm calls of one eval-mode step of the route's encoder."""
-    attn = {"mega": "mega_dilated_attention",
-            "fused": "fused_dilated_attention", "branch": "dilated_attention",
-            "lora": None}[route]
+    """The attention's forward kernel runs (:func:`card_functions`), FFN
+    tails (past fc1) and fused GELU -> LayerNorm calls of one eval-mode
+    step of the route's encoder."""
     enc = _encoder(_cfg(route, remat=remat, policy=policy)).eval()
-    counts = {"attention": 0, "ffn": 0, "gelu_ln": 0}
+    counts = {"kernel": 0, "ffn": 0, "gelu_ln": 0}
 
     def counted(key, fn):
         def call(*a, **k):
@@ -184,15 +300,8 @@ def _calls(route, remat, policy, grad=True):
         longnet.FeedForwardNetwork, "after_fc1",
         counted("ffn", longnet.FeedForwardNetwork.after_fc1)),
         mock.patch.object(longnet, "gelu_ln",
-                          counted("gelu_ln", longnet.gelu_ln))]
-    if attn is None:
-        from modaltune_tpu_torch.models import extras
-        patches.append(mock.patch.object(
-            extras, "dilated_attention",
-            counted("attention", extras.dilated_attention)))
-    else:
-        patches.append(mock.patch.object(
-            longnet, attn, counted("attention", getattr(longnet, attn))))
+                          counted("gelu_ln", longnet.gelu_ln)),
+        card_functions(counts)]
     x, cot, mask = (torch.from_numpy(a) for a in _inputs())
     with contextlib.ExitStack() as stack:
         for p in patches:
@@ -203,7 +312,11 @@ def _calls(route, remat, policy, grad=True):
         else:
             with torch.no_grad():
                 enc(x, mask)
-    return counts
+    # a call's forward kernels: K1f or K3f, or each branch's K2f
+    per_call = 1 if route in ("mega", "fused") else \
+        len(LN_KW["segment_lengths"])
+    assert counts["kernel"] % per_call == 0, counts
+    return dict(attention=counts.pop("kernel") // per_call, **counts)
 
 
 @pytest.mark.parametrize("policy", ["off", "flash", "flash_ffn", "full"])
@@ -217,6 +330,83 @@ def test_what_each_policy_recomputes(route, policy):
     assert got["attention"] == attn * layers, got
     assert got["ffn"] == ffn * layers, got
     assert got["gelu_ln"] == (ffn * layers if route == "fused" else 0), got
+
+
+class _Made(TorchDispatchMode):
+    """Every storage an op makes while the mode is on (not a view of its
+    inputs'), by weak reference with its size: what is still alive after
+    is what was kept."""
+
+    def __init__(self):
+        super().__init__()
+        self.made = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        inputs = {t.untyped_storage().data_ptr()
+                  for t in tree_flatten((args, kwargs))[0]
+                  if isinstance(t, torch.Tensor)}
+        for t in tree_flatten(out)[0]:
+            if isinstance(t, torch.Tensor) and t.untyped_storage().nbytes():
+                st = t.untyped_storage()
+                if st.data_ptr() not in inputs:
+                    self.made.append((StorageWeakRef(st), st.data_ptr(),
+                                      st.nbytes()))
+        return out
+
+    def alive_bytes(self):
+        alive = {ptr: n for ref, ptr, n in self.made if not ref.expired()}
+        return sum(alive.values())
+
+
+def _kept_bytes(route, remat, policy):
+    """The bytes of the storages that layer 0's training-mode forward
+    makes and its backward keeps (its output included), its attention
+    behind :func:`card_functions`."""
+    enc = _encoder(_cfg(route, remat=remat, policy=policy))
+    x, _, mask = (torch.from_numpy(a) for a in _inputs())
+    x.requires_grad_()
+    made = _Made()
+    with card_functions({"kernel": 0}), dropout_generator(
+            torch.Generator().manual_seed(0)):
+        with made:
+            out = enc.layers[0](x, mask)
+        kept = made.alive_bytes()
+    assert out.grad_fn is not None
+    return kept
+
+
+def _flash_set(route):
+    """JAX's ``"flash"`` set for layer 0 at the test's shapes, in bytes:
+    the layer's output and the attention's output, (B, L, d) fp32 each,
+    and what the attention's backward kernel reads besides q/k/v."""
+    b, length, d, h = 2, L, LN_KW["embed_dim"], LN_KW["num_heads"]
+    segs, ratios = LN_KW["segment_lengths"], LN_KW["dilated_ratios"]
+    plane = b * length * d * 4
+    if route == "mega":       # K1's stats (B*H, n + 2, L)
+        extra = b * h * (len(segs) + 2) * length * 4
+    elif route == "fused":    # K3's compact lses (B, H, M) and m, Z
+        extra = b * h * (df.total_rows(length, segs, ratios) + 2 * length) * 4
+    else:                     # each branch's K2 out (BnH, S, D) and lse
+        extra = 0
+        for w, r in zip(segs, ratios):
+            sl = min(w, length)
+            rows = b * (_round_up(length, sl) // sl) * h * (sl // r)
+            extra += rows * (d // h + 1) * 4
+    return 2 * plane + extra
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_flash_keeps_what_jax_keeps(route):
+    """Under ``"flash"`` a layer keeps exactly JAX's tagged set: no q/k/v,
+    no gathered branch q/k/v, no branch output of K1 or K3; with remat off
+    and under ``"flash_ffn"`` q/k/v (or the branches' gathered copies,
+    as large) are kept besides."""
+    want = _flash_set(route)
+    assert _kept_bytes(route, True, "flash") == want
+    qkv = 3 * 2 * L * LN_KW["embed_dim"] * 4
+    for remat, policy in ((False, "flash"), (True, "flash_ffn")):
+        assert _kept_bytes(route, remat, policy) >= want + qkv, policy
 
 
 @pytest.mark.parametrize("policy", ["flash", "full"])
