@@ -11,7 +11,7 @@ K3f; the backward kernels K1b, K2b, K3b, K4b, K5b; K1f and K1b also with a
 plain version and, where one PyTorch call computes the same function,
 beside that call (``scaled_dot_product_attention``; timed here, used
 nowhere in the port), and computes the least time the card could take for
-the same work. Then it drives twenty-seven paths end to end at full
+the same work. Then it drives twenty-nine paths end to end at full
 published width with random weights from a seeded generator, each with
 every launch count set to 0 just before and read just after. Every train
 step runs the LongNet layers rematerialized under the configuration's
@@ -70,7 +70,13 @@ kernel. The paths:
   route's train step with and without remat and its embed step, B = 2
   under ``"flash"``, the train step at 10,239 and 2,047 with remat off
   beside ``"flash"``, and the train CLI at ``--threshold 25000`` with the default
-  buckets on bags of 24,000-30,000 tiles.
+  buckets on bags of 24,000-30,000 tiles;
+* the reference's whole training schedule (14 epochs, ten of warmup,
+  ``kd_loss_scale`` 10) through ``ModalTuneTrainer.run`` on a learnable
+  cohort at the 2,047 bucket, four times from the same weights, data and
+  dropout bits: on the kernels and on the plain versions, with a bf16 and
+  with an fp32 backbone; the kernel paths' epoch losses and test readouts
+  held to the plain fp32 path's.
 
 Then it trains the supervised baselines through the CLI (ABMIL, TransMIL
 "(cat)" survival, the gene-only model; they run no kernel of the port, so
@@ -4421,6 +4427,354 @@ def phase_flagship(device, card="", build_kw=None, ref_kws=None, layer=6,
                        for n, r in runs.items()})
 
 
+# ---------------------------------------------------------------------------
+# A whole training schedule: the kernel paths against the plain paths
+# ---------------------------------------------------------------------------
+
+# the reference's schedule (train_modaltune.py:64-65,151-154): ten warmup
+# epochs from lr/20, then four cosine ones; kd_loss_scale at its default, 10
+MULTIEPOCH_TRAIN = dict(lr=5e-4, weight_decay=0.01, num_epochs=14,
+                        warmup_epochs=10, warmup_factor=20.0,
+                        temperature=1.0)
+# a learnable synthetic cohort at the 2,047 bucket, where the plain path's
+# saved scores fit: 6 train cases (the reference's epoch cap), 8 val, 8
+# test (12 each took the phase past its 240 s budget), from seeds 0, 1, 2
+MULTIEPOCH_DATA = dict(cases=(6, 8, 8), in_chans=1536,
+                       bag_range=GIGAPATH_2047["bag_range"],
+                       bucket=GIGAPATH_2047["bucket"])
+# run -> (the frozen backbone's dtype, plain): bf16 under autocast as
+# ``--bf16 1`` users train, or fp32; the kernels or every kernel entry
+# point patched to its plain version (``run_plain``)
+MULTIEPOCH_RUNS = {"k16": ("bfloat16", False), "p16": ("bfloat16", True),
+                   "k32": ("float32", False), "p32": ("float32", True)}
+# kernel path against plain path, epoch by epoch (PERF.md section 2)
+TRAJECTORY_FP32 = 5e-3
+TRAJECTORY_BF16_FLOOR = 5e-3
+# the readout bands of tests/test_multiepoch_parity.py
+BAND_C_INDEX = 0.10
+BAND_BAL_ACC = 0.17
+
+
+def learnable_cohort(cases, in_chans, bag_range, bucket, n_genes=4987,
+                     n_groups=331, max_size=100):
+    """``SyntheticSlideDataset(learnable=True)`` train, val and test splits
+    of ``cases`` slides each (seeds 0, 1, 2), over the synthetic pathway
+    table; every bag fits ``bucket``."""
+    from modaltune_tpu_torch.data import SyntheticSlideDataset
+    packer = synthetic_packer(n_genes, n_groups, max_size)
+    check(bag_range[1] <= bucket,
+          f"bags of up to {bag_range[1]} tiles do not fit the {bucket} "
+          f"bucket")
+    return {name: SyntheticSlideDataset(
+        n_cases=n, in_chans=in_chans, bag_range=bag_range, packer=packer,
+        n_genes=n_genes, seed=seed, learnable=True)
+        for seed, (name, n) in enumerate(zip(("train", "val", "test"),
+                                              cases))}
+
+
+def family_times(device, bucket, n_valid, iters=10):
+    """The kernels a train step at ``bucket`` launches, timed in each
+    dtype's family on random inputs at its shapes (K1f with its stats and
+    K1b at (3, bucket + 1, 16, 48) with ``n_valid`` valid tokens, K1b's
+    split by kernel on the card; K2f and K2b at the adapter's Injector,
+    Extractor and prompt shapes) -> {dtype: {kernel: ms}}; printed."""
+    import torch
+    from modaltune_tpu_torch.configs import SlideEncoderConfig
+    dm = importlib.import_module(COUNTERS["K1f"][0])
+    fa = importlib.import_module(COUNTERS["K2f"][0])
+    ln = SlideEncoderConfig().longnet()
+    seg, rat = ln.segment_lengths, ln.dilated_ratios
+    shape = (3, bucket + 1, 16, 48)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dtn = str(dtype)[6:]
+        r = out[dtn] = {}
+        (q, k, v, dmix), mask = k1_inputs(shape, n_valid, device, dtype,
+                                          seed=9, n_tensors=4)
+
+        def fwd():
+            return dm.mega_dilated_attention_cuda(q, k, v, mask, seg, rat,
+                                                  48 ** -0.5, with_stats=True)
+        _, stats = fwd()
+
+        def bwd():
+            return dm.mega_dilated_attention_backward_cuda(
+                q, k, v, mask, dmix, stats, seg, rat, 48 ** -0.5)
+        r["K1f"], r["K1b"] = time_ms(fwd, iters), time_ms(bwd, iters)
+        _, split = device_times(bwd, iters=3, warmup=1)
+        r["K1b_split"] = split and {name.split("(")[0]: round(ms, 4)
+                                    for name, ms in split.items()}
+        for tag, lq, lk in (("injector", bucket, 65), ("extractor", 65,
+                                                       bucket),
+                            ("prompt", 65, 65)):
+            q2, k2, v2, bias = k2_inputs(36, lq, lk, 16, 0.05, False, dtype,
+                                         device, seed=3)
+
+            def k2f():
+                return fa.flash_attention_cuda(q2, k2, v2, bias, 0.25)
+            o, lse = k2f()
+            do = torch.randn_like(o)
+            r[f"K2f_{tag}"] = time_ms(k2f, iters)
+            r[f"K2b_{tag}"] = time_ms(
+                lambda: fa.flash_attention_backward_cuda(
+                    q2, k2, v2, bias, o, lse, do, 0.25), iters)
+        print(f"multiepoch: kernel times at bucket {bucket}, {dtn} "
+              f"({fa.card_family(bucket, 65, 16, dtype)} K2): "
+              f"{ {k: round(x, 4) for k, x in r.items() if k != 'K1b_split'} }"
+              f"; K1b on the card by kernel {r['K1b_split']}", flush=True)
+        del q, k, v, dmix, stats
+        torch.cuda.empty_cache()
+    return out
+
+
+def draws_digest(u) -> tuple:
+    """A digest of one dropout draw, equal for equal bits: the shape and
+    the sums of the draw's words and of their squares (mod 2^64)."""
+    import torch
+    words = u.contiguous().view(torch.int32).to(torch.int64)
+    return (tuple(u.shape), int(words.sum()), int((words * words).sum()))
+
+
+def train_schedule(device, name, base, params, tcfg, datasets, bucket, dtype,
+                   plain, out_dir):
+    """``ModalTuneTrainer.run`` of a copy of ``base`` from ``params`` on
+    ``datasets`` with the frozen backbone in ``dtype`` (bf16: the steps
+    autocast to it), every kernel entry point patched to its plain version
+    where ``plain``; every launch count set to 0 just before the run and
+    read just after -> the epochs' losses, the val rows, the test row, the
+    epochs that saved the best weights, the train steps' ms, the launches
+    (all, and those of the train epochs alone), the batches the trainer
+    moved outside the train epochs (the readout's and eval's forwards),
+    and the digests of the first train step's dropout draws."""
+    import torch
+    from modaltune_tpu_torch.models import layers as model_layers
+    from modaltune_tpu_torch.train.trainer import ModalTuneTrainer
+    model = copy.deepcopy(base)
+    trainer = ModalTuneTrainer(model, tcfg, datasets, str(out_dir),
+                               buckets=(bucket,), device=device)
+    best, draws, recording, in_epoch = [], [], [False], [False]
+    in_train = {k: 0 for k in COUNTERS}
+    forwards, epoch_ms = [0], []
+    uniform = model_layers._uniform
+
+    def recorded_uniform(shape, x):
+        u = uniform(shape, x)
+        if recording[0]:
+            draws.append(draws_digest(u))
+        return u
+
+    init_state = trainer.init_state
+
+    def recorded_init_state(p, frozen_dtype=None):
+        opt = init_state(p, frozen_dtype=frozen_dtype)
+        step = trainer._train_step
+
+        def first_recorded(*args):
+            recording[0] = not draws
+            try:
+                return step(*args)
+            finally:
+                recording[0] = False
+
+        trainer._train_step = first_recorded
+        return opt
+
+    train_one_epoch, save_weights = (trainer.train_one_epoch,
+                                     trainer.save_weights)
+    to_device = trainer._batch
+
+    def counted_epoch():
+        before = read_counts()
+        t = time.perf_counter()
+        in_epoch[0] = True
+        try:
+            loss = train_one_epoch()
+        finally:
+            in_epoch[0] = False
+        torch.cuda.synchronize()
+        epoch_ms.append((time.perf_counter() - t) * 1e3)
+        for k, n in read_counts().items():
+            in_train[k] += n - before[k]
+        return loss
+
+    def counted_batch(batch):
+        forwards[0] += not in_epoch[0]
+        return to_device(batch)
+
+    def recorded_save_weights(weights):
+        best.append(trainer.current_epoch)
+        save_weights(weights)
+
+    trainer.init_state = recorded_init_state
+    trainer.train_one_epoch = counted_epoch
+    trainer.save_weights = recorded_save_weights
+    trainer._batch = counted_batch
+
+    def run():
+        return trainer.run(params, frozen_dtype=getattr(torch, dtype))
+
+    with mock.patch.object(model_layers, "_uniform", recorded_uniform):
+        # the main path: every launch count starts at 0 just before it
+        reset_counts()
+        t0 = time.perf_counter()
+        run_plain(run) if plain else run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+    rows = [json.loads(line) for line in open(out_dir / "run_metrics.jsonl")]
+    epochs = [r for r in rows if "train_loss" in r]
+    (test,) = [r for r in rows if "test_cls_bal_acc" in r]
+    out = dict(name=name, losses=[r["train_loss"] for r in epochs],
+               val=[(r["val_cls_bal_acc"], r["val_c_index"])
+                    for r in epochs],
+               test=test, best=best, step_ms=list(trainer.step_ms),
+               ms=statistics.median(trainer.step_ms), epoch_ms=epoch_ms,
+               launches=launches, in_train=in_train, forwards=forwards[0],
+               steps=len(trainer.step_ms), draws=draws, seconds=seconds,
+               per_forward=calls_per_forward(model),
+               again=recomputed_per_step(model))
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_multiepoch(device, card="", build_kw=None, data_kw=None,
+                     train_kw=None, runs=None):
+    """ModalTune-GigaPath at full width trained through
+    ``ModalTuneTrainer.run`` over the reference's whole schedule
+    (``MULTIEPOCH_TRAIN``: 14 epochs, ten of warmup, lr 5e-4,
+    ``kd_loss_scale`` 10, eval every epoch, the test stage with the best
+    weights) on a learnable cohort at the 2,047 bucket
+    (``MULTIEPOCH_DATA``), four times from the same weights, data order
+    and dropout bits (``MULTIEPOCH_RUNS``): k16, the kernels with a bf16
+    backbone under autocast; p16, the same on the plain versions; k32 and
+    p32, the same with an fp32 backbone (the kernels' fp32 families).
+    First it times the kernels those runs launch, in each dtype's family,
+    at the phase's shapes (:func:`family_times`).
+
+    Prints each run's epoch losses, val bal-acc and c-index per epoch, the
+    epochs that saved the best weights, the test row, the median ms/step
+    and its seconds. Checks: each run learns (its last epoch's loss below
+    0.8 of its first); the first train step's dropout draws are the same
+    bits in every run; fp32, ``max_e |k32 - p32| / p32`` within
+    ``TRAJECTORY_FP32``; bf16, ``max_e |k16 - p32| / p32`` within twice
+    ``max_e |p16 - p32| / p32`` or ``TRAJECTORY_BF16_FLOOR``, whichever is
+    larger (the kernel path may stray from fp32 no more than twice as far
+    as bf16 rounding alone does); k16's and k32's test bal-acc and
+    c-index within ``BAND_BAL_ACC`` and ``BAND_C_INDEX`` of p32's; on k16
+    and k32 per train step K1f, K1b, K2f and K2b as many as the model's
+    layers and adapter attentions (``calls_per_forward``, with what the
+    remat runs again) and per readout or eval forward K1f and K2f, no K3,
+    K4 or K5; on p16 and p32 no kernel launch at all, the recompute of
+    the remat included. -> the k16 and k32 launches summed, for the
+    kernels line."""
+    import tempfile
+
+    import torch
+    from modaltune_tpu_torch.configs import TrainConfig
+    build_kw = build_kw or GIGAPATH
+    data_kw = data_kw or MULTIEPOCH_DATA
+    runs = runs or MULTIEPOCH_RUNS
+    tcfg = TrainConfig(**(train_kw or MULTIEPOCH_TRAIN))
+    t0 = time.perf_counter()
+    datasets = learnable_cohort(**data_kw)
+    base = build_model(device, **build_kw)
+    params = {k: v.detach().clone() for k, v in base.state_dict().items()}
+    print(f"multiepoch: cohort {[len(d) for d in datasets.values()]} cases "
+          f"(train, val, test) in bucket {data_kw['bucket']}, model built, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    family_times(device, data_kw["bucket"],
+                 n_valid=sum(data_kw["bag_range"]) // 2)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (dtype, plain) in runs.items():
+            r = res[name] = train_schedule(
+                device, name, base, params, tcfg, datasets,
+                data_kw["bucket"], dtype, plain, Path(tmp) / name)
+            print(f"multiepoch {name} ({dtype} backbone, "
+                  f"{'plain versions' if plain else 'kernels'}): "
+                  f"{r['seconds']:.1f} s, {r['steps']} train steps, median "
+                  f"{r['ms']:.2f} ms/step, s/epoch "
+                  f"{[round(x / 1e3, 2) for x in r['epoch_ms']]}; "
+                  f"{r['forwards']} readout and eval forwards; "
+                  f"launches {r['launches']}; {card}", flush=True)
+            print(f"multiepoch {name}: epoch losses {r['losses']}",
+                  flush=True)
+            print(f"multiepoch {name}: val (bal-acc, c-index) by epoch "
+                  f"{[(round(a, 4), round(c, 4)) for a, c in r['val']]}; "
+                  f"best weights saved at epochs {r['best']}; test "
+                  f"{json.dumps({k: v for k, v in r['test'].items() if k[0] != '_'})}",
+                  flush=True)
+    del base, params
+    torch.cuda.empty_cache()
+
+    def worst(a, b):
+        return max(abs(x - y) / y for x, y in zip(res[a]["losses"],
+                                                  res[b]["losses"]))
+
+    for name, r in res.items():
+        check(r["losses"][-1] < 0.8 * r["losses"][0],
+              f"multiepoch {name}: the loss went {r['losses'][0]:.6f} -> "
+              f"{r['losses'][-1]:.6f}, not below 0.8 of the first epoch's")
+        check(r["draws"] and r["draws"] == res["k16"]["draws"],
+              f"multiepoch {name}: the first step's {len(r['draws'])} "
+              f"dropout draws differ from k16's {len(res['k16']['draws'])}")
+    fp32 = worst("k32", "p32")
+    bf16, rounding = worst("k16", "p32"), worst("p16", "p32")
+    bf16_limit = max(2 * rounding, TRAJECTORY_BF16_FLOOR)
+    want = res["p32"]["test"]
+    bands = {name: (abs(res[name]["test"]["test_cls_bal_acc"]
+                        - want["test_cls_bal_acc"]),
+                    abs(res[name]["test"]["test_c_index"]
+                        - want["test_c_index"])) for name in ("k16", "k32")}
+    print(f"multiepoch: the first step's {len(res['k16']['draws'])} dropout "
+          f"draws the same bits in every run; max over epochs of |run - "
+          f"p32| / p32: k32 {fp32:.3e} (limit {TRAJECTORY_FP32:.0e}), k16 "
+          f"{bf16:.3e}, p16 {rounding:.3e} (k16's limit {bf16_limit:.3e}); "
+          f"test |bal-acc - p32's|, |c-index - p32's|: "
+          f"{ {n: (round(a, 4), round(c, 4)) for n, (a, c) in bands.items()} }"
+          f"; {card}", flush=True)
+    check(fp32 <= TRAJECTORY_FP32,
+          f"multiepoch: k32 strays {fp32:.3e} from p32 (limit "
+          f"{TRAJECTORY_FP32:.0e})")
+    check(bf16 <= bf16_limit,
+          f"multiepoch: k16 strays {bf16:.3e} from p32, bf16 rounding alone "
+          f"{rounding:.3e} (limit {bf16_limit:.3e})")
+    for name, (a, c) in bands.items():
+        check(a <= BAND_BAL_ACC and c <= BAND_C_INDEX,
+              f"multiepoch {name}: test bal-acc {a:.4f} and c-index {c:.4f} "
+              f"from p32's (bands {BAND_BAL_ACC}, {BAND_C_INDEX})")
+
+    kernels = list(COUNTERS)
+    for name, r in res.items():
+        if runs[name][1]:
+            check(not any(r["launches"].values()),
+                  f"multiepoch {name}: the plain path launched {r['launches']}")
+            continue
+        per, again = r["per_forward"], r["again"]
+        step = {f"{k}{d}": n + (again.get(k, 0) if d == "f" else 0)
+                for k, n in per.items() for d in "fb"}
+        want_train = {k: step[k] * r["steps"] for k in kernels}
+        forwards = r["forwards"]
+        want_all = {k: want_train[k] + (per[k[:2]] * forwards
+                                        if k.endswith("f") else 0)
+                    for k in kernels}
+        check(r["in_train"] == want_train and r["launches"] == want_all
+              and step == dict(K1f=12, K1b=12, K2f=10, K2b=10, K3f=0, K3b=0,
+                               K4f=0, K4b=0, K5f=0, K5b=0),
+              f"multiepoch {name}: launches {r['launches']} ({r['in_train']} "
+              f"in {r['steps']} train steps), want {step} a step and "
+              f"{ {k: per[k[:2]] for k in kernels if k.endswith('f')} } a "
+              f"forward over {forwards} forwards")
+    print(f"multiepoch: k16 and k32 launched per train step "
+          f"{ {k: res['k16']['in_train'][k] // res['k16']['steps'] for k in kernels} }"
+          f" and K1f 12, K2f 10 per readout or eval forward; p16 and p32 "
+          f"no kernel", flush=True)
+    return dict(launches={k: res["k16"]["launches"][k]
+                          + res["k32"]["launches"][k] for k in kernels})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4562,6 +4916,11 @@ def main() -> int:
     flagship = phase_flagship(device, card=card)
     paths.update(flagship["paths"])
     lap("flagship")
+    # the reference's whole warmup -> cosine schedule through the trainer:
+    # the kernel paths' trajectories against the plain paths' (k16 and k32
+    # count here)
+    paths["gigapath_multiepoch"] = phase_multiepoch(device, card=card)
+    lap("multiepoch")
     print(f"time: the run {clock[-1] - clock[0]:.1f} s", flush=True)
 
     def kernel(key, name, replaces, res, by_shape=None, source=None,

@@ -27,6 +27,9 @@
 // and L (every row).
 #pragma once
 
+#include <cstdint>
+#include <type_traits>
+
 #include "attention_bwd_common.cuh"
 
 namespace mt {
@@ -160,6 +163,39 @@ inline cudaError_t launch_range_fill(void* rows, float* stats, int B, int L, int
   return cudaGetLastError();
 }
 
+// q.k_j scale (s) and dmix.v_j (dp) of one key's rows against the staged
+// qd, in order of d. With `wide` (fp32 rows, D % 4 == 0, 16-byte aligned)
+// each load reads four floats: a lane a key leaves a warp's loads
+// uncoalesced, so their count bounds window_pdp (one float a load: 60.36 of
+// K1b's 68.69 ms at (3, 2048, 16, 48), fp32).
+template <typename T>
+__device__ __forceinline__ void key_dots(const T* kr, const T* vr, const float* qd, int D,
+                                         bool wide, float& s, float& dp) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (wide) {
+      const float4* k4 = reinterpret_cast<const float4*>(kr);
+      const float4* v4 = reinterpret_cast<const float4*>(vr);
+#pragma unroll 4
+      for (int d = 0; d < D; d += 4) {
+        const float4 a = __ldg(k4 + d / 4), c = __ldg(v4 + d / 4);
+        s = fmaf(qd[d], a.x, s);
+        s = fmaf(qd[d + 1], a.y, s);
+        s = fmaf(qd[d + 2], a.z, s);
+        s = fmaf(qd[d + 3], a.w, s);
+        dp = fmaf(qd[D + d], c.x, dp);
+        dp = fmaf(qd[D + d + 1], c.y, dp);
+        dp = fmaf(qd[D + d + 2], c.z, dp);
+        dp = fmaf(qd[D + d + 3], c.w, dp);
+      }
+      return;
+    }
+  }
+  for (int d = 0; d < D; ++d) {
+    s = fmaf(qd[d], to_float<T>(kr[d]), s);
+    dp = fmaf(qd[D + d], to_float<T>(vr[d]), dp);
+  }
+}
+
 // rowsum(P dP) of one query row over its (segment, head group)'s keys, the
 // CUDA-core families' delta (the tensor-core core takes it in its dq
 // kernel): the keys lie at positions first + r j, j < n_keys, of the head's
@@ -177,17 +213,14 @@ __device__ float window_pdp(const T* q_row, const T* dm_row, const T* k, const T
     qd[D + d] = to_float<T>(dm_row[d]);
   }
   __syncwarp();
+  const bool wide = D % 4 == 0 && tok % 4 == 0 &&
+                    ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) & 15) == 0;
   float sum = 0.f;
   for (int j = lane; j < n_keys; j += 32) {
     const size_t pos = static_cast<size_t>(first) + static_cast<size_t>(r) * j;
     if (maskb != nullptr && !maskb[pos]) continue;
-    const T* kr = k + pos * tok;
-    const T* vr = v + pos * tok;
     float s = 0.f, dp = 0.f;
-    for (int d = 0; d < D; ++d) {
-      s = fmaf(qd[d], to_float<T>(kr[d]), s);
-      dp = fmaf(qd[D + d], to_float<T>(vr[d]), dp);
-    }
+    key_dots(k + pos * tok, v + pos * tok, qd, D, wide, s, dp);
     sum = fmaf(expf(s - lse), dp, sum);
   }
   __syncwarp();   // the warp's next row overwrites qd

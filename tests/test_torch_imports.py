@@ -2,10 +2,10 @@
 framework-free layers have not drifted.
 
 * No module of ``modaltune_tpu_torch``, nor ``chip_smoke.py``,
-  ``profile_train.py`` or ``ab_branch_route.py``, imports ``jax``,
-  ``flax``, ``optax`` or anything of ``modaltune_tpu``, nor ``sklearn``
-  or ``pandas``, which the card's machine does not have (walked with
-  ``ast``, so an import inside a function counts too).
+  ``profile_train.py``, ``ab_branch_route.py`` or ``ab_prep.py``,
+  imports ``jax``, ``flax``, ``optax`` or anything of ``modaltune_tpu``,
+  nor ``sklearn`` or ``pandas``, which the card's machine does not have
+  (walked with ``ast``, so an import inside a function counts too).
 * The copied ``configs`` dataclasses equal the JAX package's field for
   field, default for default; the copied data layer gives the same arrays
   for a seed (its file readers: ``test_torch_data_readers.py``); the
@@ -34,7 +34,7 @@ FORBIDDEN = ("jax", "flax", "optax", "modaltune_tpu")
 FORBIDDEN_HOST = ("sklearn", "pandas")
 PORT_FILES = sorted((REPO / "modaltune_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "profile_train.py",
-    REPO / "ab_branch_route.py"]
+    REPO / "ab_branch_route.py", REPO / "ab_prep.py"]
 
 
 def _imports(path):
@@ -65,7 +65,7 @@ def test_port_files_are_found():
             "modaltune_tpu_torch/data/pipeline.py",
             "modaltune_tpu_torch/data/extract.py",
             "modaltune_tpu_torch/utils/profiling.py", "chip_smoke.py",
-            "profile_train.py", "ab_branch_route.py"} <= names
+            "profile_train.py", "ab_branch_route.py", "ab_prep.py"} <= names
 
 
 @pytest.mark.parametrize(
