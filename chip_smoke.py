@@ -7,11 +7,12 @@ Builds the port's CUDA kernels from ``modaltune_tpu_torch/csrc``, holds
 each against its plain PyTorch version at the shapes of the model steps
 (the forward kernels K1f, K2f, K3f, K4f, K5f and the statistics of K1f and
 K3f; the backward kernels K1b, K2b, K3b, K4b, K5b; K1f and K1b also with a
-``q_token_range``, a sequence-parallel shard's rows), times each beside its
-plain version and, where one PyTorch call computes the same function,
-beside that call (``scaled_dot_product_attention``; timed here, used
-nowhere in the port), and computes the least time the card could take for
-the same work. Then it drives twenty-nine paths end to end at full
+``q_token_range``, a sequence-parallel shard's rows; K1b and K3b in both
+of their tensor-core families, bf16 on wgmma and fp32 on 3xTF32), times
+each beside its plain version and, where one PyTorch call computes the
+same function, beside that call (``scaled_dot_product_attention``; timed
+here, used nowhere in the port), and computes the least time the card
+could take for the same work. Then it drives thirty paths end to end at full
 published width with random weights from a seeded generator, each with
 every launch count set to 0 just before and read just after. Every train
 step runs the LongNet layers rematerialized under the configuration's
@@ -23,6 +24,9 @@ kernel. The paths:
   Adapter, gene mixer over 331 pathways, 3 task tokens): the embed step on
   three synthetic 10,239-patch slides, and a few train steps (KD loss,
   AdamW on the adapter, bf16 compute, dropout on) on one;
+* the same train step with the frozen backbone in fp32 and no autocast,
+  the CLI's ``--bf16 0`` (K1b on its 3xTF32 family, K1f and K2 on the
+  CUDA cores), timed beside the bf16 step;
 * the same model on its other kernel route (``mega_attention=False``: the
   per-branch attention kernels K3 in place of K1; ``fused_gelu_ln=True``:
   the fused GELU -> LayerNorm K5 in place of two ops), the same two steps
@@ -247,9 +251,11 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-# NVIDIA H100 SXM, dense rates of the data sheet: bf16 tensor cores, fp32
-# outside the tensor cores (elementwise work has no other unit), HBM3.
+# NVIDIA H100 SXM, dense rates of the data sheet: bf16 tensor cores, TF32
+# tensor cores, fp32 outside the tensor cores (elementwise work has no
+# other unit), HBM3.
 PEAK_FLOPS = 989e12
+PEAK_FLOPS_TF32 = 495e12
 PEAK_FLOPS_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -273,6 +279,18 @@ def attention_bound(pairs: float, d: int, tensors, backward: bool):
     backward (q.k, dout.v, dS.k, dS^T.q, P^T.dout), 2 flop per
     multiply-add; ``tensors`` are its inputs and outputs."""
     return bound_ms((10 if backward else 4) * pairs * d, tensor_bytes(tensors))
+
+
+def tf32x3_bounds(pairs: float, d: int, tensors, backward: bool = True):
+    """An fp32 attention's bounds over ``pairs`` at head dimension ``d``
+    (backward: five products, forward: two): ``(ms, by)`` of its products
+    at fp32 accuracy on the TF32 tensor cores (three TF32 products each,
+    3xTF32, at :data:`PEAK_FLOPS_TF32`), and ``(ms, by)`` of them on the
+    CUDA cores (:data:`PEAK_FLOPS_FP32`), beside it."""
+    flops = (10 if backward else 4) * pairs * d
+    nbytes = tensor_bytes(tensors)
+    return (bound_ms(3 * flops, nbytes, PEAK_FLOPS_TF32),
+            bound_ms(flops, nbytes, PEAK_FLOPS_FP32))
 
 
 # name -> (module of the wrapper, its launch counter)
@@ -305,19 +323,52 @@ def reset_counts() -> None:
     for attr in K5_ROUTES:
         setattr(gl, attr, 0)
     fa = importlib.import_module(COUNTERS["K2f"][0])
-    for counts in (fa.FAMILY_LAUNCHES, fa.BWD_FAMILY_LAUNCHES):
+    for counts in (fa.FAMILY_LAUNCHES, fa.BWD_FAMILY_LAUNCHES,
+                   *bwd_family_counts().values()):
         counts.update(dict.fromkeys(counts, 0))
 
 
+def bwd_family_counts() -> dict:
+    """K1b's and K3b's launch counts by family (``ops/dilated_fused.py``'s
+    FAMILIES), the wrappers' own dicts."""
+    return {k: getattr(importlib.import_module(COUNTERS[k][0]),
+                       "BWD_FAMILY_LAUNCHES") for k in ("K1b", "K3b")}
+
+
+def check_bwd_families(tag: str, launches: dict, dtype) -> dict:
+    """On a path's run: every K1b and K3b launch took the family of the
+    backbone's dtype at D = 48 (``wgmma`` at bf16, ``tf32x3`` at fp32).
+    Returns the launches by family."""
+    df = importlib.import_module(COUNTERS["K3b"][0])
+    want = df.family(48, dtype)
+    got = {k: dict(c) for k, c in bwd_family_counts().items()}
+    check(all(got[k][want] == launches[k] == sum(got[k].values())
+              for k in got),
+          f"{tag}: K1b and K3b launches by family {got}, want all "
+          f"{launches['K1b']} and {launches['K3b']} on {want}")
+    if launches["K1b"] or launches["K3b"]:
+        print(f"{tag}: K1b and K3b by family {got}: all on {want}",
+              flush=True)
+    return got
+
+
 def check_k2_families(tag: str, launches: dict, d48: int,
-                      again: int = 0) -> dict:
+                      again: int = 0, fp32: bool = False) -> dict:
     """On a path's run: its ``d48`` K2 calls at D = 48 (each launching K2f,
     and K2b where ``launches`` counts one; ``again`` more K2f that the
     backward's recompute runs) all ran the wgmma family, the rest the
-    short-side family, and no K2 ran on the CUDA cores. Returns the
-    launches by family, forward and backward."""
+    short-side family, and no K2 ran on the CUDA cores; with ``fp32`` (an
+    fp32 backbone, no autocast: K2's fp32 family is the CUDA cores) every
+    K2 ran on the CUDA cores. Returns the launches by family, forward and
+    backward."""
     fa = importlib.import_module(COUNTERS["K2f"][0])
     fwd, bwd = dict(fa.FAMILY_LAUNCHES), dict(fa.BWD_FAMILY_LAUNCHES)
+    if fp32:
+        check(fwd["cuda_cores"] == launches["K2f"] == sum(fwd.values()) and
+              bwd["cuda_cores"] == launches["K2b"] == sum(bwd.values()),
+              f"{tag}: K2 launches by family {fwd} forward, {bwd} "
+              f"backward; want all on the CUDA cores (fp32)")
+        return dict(fwd=fwd, bwd=bwd)
     d48_b = d48 if launches["K2b"] else 0
     d48 += again
     check(fwd["wgmma"] == d48 and bwd["wgmma"] == d48_b and
@@ -765,7 +816,9 @@ def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
     ``dilated_attention_stats`` (within 1e-3, NEG_INF exactly where the
     plain version has it). In bf16 a rerun of either variant
     bit-equal, the family the C entry points chose, and times on both
-    clocks without and with stats, the mix kernel's among them. With
+    clocks without and with stats, the mix kernel's among them; in fp32
+    the CUDA-core kernel's times and the plain version's, beside its bound
+    at 3xTF32 and on the CUDA cores. With
     ``plain_rows`` the plain versions run a batch row at a time
     (:func:`by_rows`)."""
     import torch
@@ -815,6 +868,17 @@ def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
               f"{tag} stats: max|err| {r['stats_err']:.3e}")
         del want_st
         res[dtn] = r
+        pairs = b * dilated_pairs(length, n_valid, segments, ratios, h)
+        if dtype == torch.float32:   # the CUDA-core forward, timed
+            def inference32():
+                return dm.mega_dilated_attention(q, k, v, **kw)
+            r.update(family="cuda_cores", ms=time_ms(inference32, iters),
+                     device_ms=device_ms(inference32, iters=3, warmup=1),
+                     stats_ms=time_ms(with_stats, iters),
+                     plain_ms=time_ms(
+                         lambda: plain(dilated_attention, (q, k, v)), iters))
+            (r["bound_ms"], r["bound_by"]), (r["cuda_cores_bound_ms"], _) = \
+                tf32x3_bounds(pairs, d, (q, k, v, mask, got), backward=False)
         if dtype == torch.bfloat16:
             check(torch.equal(dm.mega_dilated_attention(q, k, v, **kw), got),
                   f"{tag}: a rerun gives other bits")
@@ -835,7 +899,6 @@ def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
             res["stats_mix_device_ms"] = mix_share(split)
             res["plain_ms"] = time_ms(
                 lambda: plain(dilated_attention, (q, k, v)), iters)
-            pairs = b * dilated_pairs(length, n_valid, segments, ratios, h)
             res["bound_ms"], res["bound_by"] = attention_bound(
                 pairs, d, (q, k, v, mask, got), backward=False)
             res["stats_bound_ms"], _ = attention_bound(
@@ -856,7 +919,73 @@ def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
           f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.5f} ms "
           f"({res['bound_by']}; with stats {res['stats_bound_ms']:.5f}), no "
           f"library call", flush=True)
+    print(fmt_fp32_fwd(f"K1f B={b} L={length}", f32) + f", with stats "
+          f"{f32['stats_ms']:.4f} ms", flush=True)
     return res
+
+
+def plain_backward_times(q, k, v, dmix, mask, kw, rows, plain_iters):
+    """``(ms, card ms)`` of autograd through the plain ``dilated_attention``
+    on ``q``, ``k``, ``v`` (their dtype), summed over ``rows`` (batch-row
+    slices)."""
+    import torch
+    from modaltune_tpu_torch.ops.dilated import dilated_attention
+    ms = card = 0.0
+    for c in rows:
+        leaves = [x[c].detach().requires_grad_() for x in (q, k, v)]
+        plain_out = dilated_attention(*leaves, **dict(kw, mask=mask[c]))
+
+        def plain():
+            return torch.autograd.grad(plain_out, leaves, dmix[c],
+                                       retain_graph=True)
+        ms += time_ms(plain, plain_iters, warmup=1)
+        card += device_ms(plain, iters=1, warmup=0)
+        del plain_out, leaves
+    return ms, card
+
+
+def fp32_family_readings(kernel, got, pairs, d, tensors, iters, plain=None):
+    """The fp32 backward's readings (K1b, K3b at fp32): a rerun bit-equal to
+    ``got``, its family, times on both clocks (CUDA events; the profiler's
+    sum) and the card's split by kernel, its bound at 3xTF32 and on the
+    CUDA cores (:func:`tf32x3_bounds`); with ``plain`` (a function of no
+    arguments) the plain backward's times too."""
+    import torch
+    df = importlib.import_module(COUNTERS["K3b"][0])
+    check(all(torch.equal(a, b_) for a, b_ in zip(kernel(), got)),
+          "fp32: a rerun gives other bits")
+    r = dict(family=df.card_family(d, torch.float32),
+             ms=time_ms(kernel, iters))
+    r["device_ms"], split = device_times(kernel, iters=3, warmup=1)
+    r["split"] = split and {name.split("(")[0]: round(ms, 4)
+                            for name, ms in split.items()}
+    (r["bound_ms"], r["bound_by"]), (r["cuda_cores_bound_ms"], _) = \
+        tf32x3_bounds(pairs, d, tensors)
+    if plain is not None:
+        r["plain_ms"], r["plain_device_ms"] = plain()
+    return r
+
+
+def fmt_fp32_fwd(tag, r) -> str:
+    """One line of an fp32 forward's times (K1f, K3f on the CUDA cores)."""
+    return (f"{tag} fp32 ({r['family']}): kernel {r['ms']:.4f} ms (card "
+            f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound at "
+            f"3xTF32 {r['bound_ms']:.5f} ms ({r['bound_by']}; on the CUDA "
+            f"cores at {PEAK_FLOPS_FP32 / 1e12:.0f} TFLOP/s "
+            f"{r['cuda_cores_bound_ms']:.5f} ms)")
+
+
+def fmt_fp32(tag, r) -> str:
+    """One line of :func:`fp32_family_readings`."""
+    plain = (f", plain backward {r['plain_ms']:.4f} ms (card "
+             f"{r['plain_device_ms']:.4f})" if "plain_ms" in r else "")
+    return (f"{tag} fp32 ({r['family']}): kernel {r['ms']:.4f} ms (card "
+            f"{r['device_ms']:.4f}; by kernel {r['split']}){plain}, bound at "
+            f"3xTF32 {r['bound_ms']:.5f} ms ({r['bound_by']}, "
+            f"{PEAK_FLOPS_TF32 / 1e12:.0f} TFLOP/s TF32; on the CUDA cores "
+            f"at {PEAK_FLOPS_FP32 / 1e12:.0f} TFLOP/s "
+            f"{r['cuda_cores_bound_ms']:.5f} ms), "
+            f"{r['ms'] / r['bound_ms']:.2f}x it, rerun bit-equal")
 
 
 def phase_k1b(device, shape=(3, 10240, 16, 48), n_valid=9000,
@@ -866,7 +995,10 @@ def phase_k1b(device, shape=(3, 10240, 16, 48), n_valid=9000,
     version (its statistics, and autograd through it) at the train step's
     shape, fp32 and bf16, on the valid rows, by the max-scaled bound and by
     :func:`check_grads`; in bf16 a rerun bit-equal, the family the C entry
-    points chose, times on both clocks. The plain side keeps every branch's
+    points chose, times on both clocks; in fp32 the same
+    (:func:`fp32_family_readings`: the 3xTF32 family at D = 48, its split
+    by kernel, its bound at 3xTF32 and on the CUDA cores, the plain fp32
+    backward's time). The plain side keeps every branch's
     fp32 probabilities for its backward, 6.9 GB at this shape (35.9 M
     query-key pairs per (batch, head) x 48 x 4 bytes), about 15 GB at its
     peak: it fits at B = 3. With ``plain_rows`` the plain side runs a batch
@@ -929,6 +1061,12 @@ def phase_k1b(device, shape=(3, 10240, 16, 48), n_valid=9000,
         res[str(dtype)[6:]] = dict(grad_err=err, stats_err=st_err, rel=rel,
                                    row=row)
         del want, got_valid
+        pairs = b * dilated_pairs(length, n_valid, segments, ratios, h)
+        if dtype == torch.float32:
+            res["fp32"] = fp32_family_readings(
+                kernel, got, pairs, d, (q, k, v, mask, dmix, stats, *got),
+                iters, lambda: plain_backward_times(q, k, v, dmix, mask, kw,
+                                                    rows, plain_iters))
         if dtype == torch.bfloat16:
             check(all(torch.equal(a, b_) for a, b_ in zip(kernel(), got)),
                   f"{tag}: a rerun gives other bits")
@@ -938,21 +1076,10 @@ def phase_k1b(device, shape=(3, 10240, 16, 48), n_valid=9000,
                 lambda: dm.mega_dilated_attention_cuda(
                     q, k, v, mask, segments, ratios, scale, with_stats=True),
                 iters)
-            res["plain_ms"] = res["plain_device_ms"] = 0.0
-            for c in rows:
-                leaves = [x[c].detach().requires_grad_() for x in (q, k, v)]
-                plain_out = dilated_attention(*leaves,
-                                              **dict(kw, mask=mask[c]))
-
-                def plain():
-                    return torch.autograd.grad(plain_out, leaves, dmix[c],
-                                               retain_graph=True)
-                res["plain_ms"] += time_ms(plain, plain_iters, warmup=1)
-                res["plain_device_ms"] += device_ms(plain, iters=1, warmup=0)
-                del plain_out, leaves
+            res["plain_ms"], res["plain_device_ms"] = plain_backward_times(
+                q, k, v, dmix, mask, kw, rows, plain_iters)
             res["bound_ms"], res["bound_by"] = attention_bound(
-                b * dilated_pairs(length, n_valid, segments, ratios, h), d,
-                (q, k, v, mask, dmix, stats, *got), backward=True)
+                pairs, d, (q, k, v, mask, dmix, stats, *got), backward=True)
         torch.cuda.empty_cache()
     f32, bf = res["float32"], res["bfloat16"]
     print(f"K1b B={b} L={length} H={h} D={d} valid={n_valid}: "
@@ -965,6 +1092,7 @@ def phase_k1b(device, shape=(3, 10240, 16, 48), n_valid=9000,
           f"{res['plain_ms']:.4f} ms (card {res['plain_device_ms']:.4f}), "
           f"bound {res['bound_ms']:.5f} ms ({res['bound_by']}), no library "
           f"call | K1f with stats {res['fwd_stats_ms']:.4f} ms", flush=True)
+    print(fmt_fp32(f"K1b B={b} L={length}", res["fp32"]), flush=True)
     return res
 
 
@@ -983,18 +1111,21 @@ def phase_k1_qrange(device, shape=(3, 10240, 16, 48), n_valid=9000,
       rows and the sum of their dk, dv against the full K1b by
       :func:`check_grads`;
     * in bf16 one middle shard's time against the full call, K1f and K1b,
-      on both clocks, beside the bound at the range's share of the pairs."""
+      on both clocks, beside the bound at the range's share of the pairs;
+      in fp32 the same of K1b (the 3xTF32 family at D = 48), its split by
+      kernel, its bound at 3xTF32 and on the CUDA cores."""
     import torch
     from modaltune_tpu_torch.configs import SlideEncoderConfig
     from modaltune_tpu_torch.ops.dilated import dilated_attention
     dm = importlib.import_module("modaltune_tpu_torch.ops.dilated_mega")
+    df = importlib.import_module("modaltune_tpu_torch.ops.dilated_fused")
     if segments is None:
         ln = SlideEncoderConfig().longnet()
         segments, ratios = ln.segment_lengths, ln.dilated_ratios
     b, length, h, d = shape
     scale = d ** -0.5
     res = {"fwd_err": 0.0, "bwd_err": 0.0, "plain_rel": 0.0,
-           "bwd_rel": 0.0, "by_n": {}}
+           "bwd_rel": 0.0, "by_n": {}, "fp32_by_n": {}}
     for dtype in (torch.float32, torch.bfloat16):
         dtn = str(dtype)[6:]
         (q, k, v, dmix), mask = k1_inputs(shape, n_valid, device, dtype,
@@ -1076,6 +1207,32 @@ def phase_k1_qrange(device, shape=(3, 10240, 16, 48), n_valid=9000,
                   f"max|err| {bwd_err:.3e}; outside rows and dq 0",
                   flush=True)
             del rows, dq_rows, dk_sum, dv_sum, got
+            if dtype == torch.float32:   # K1b's middle shard, 3xTF32
+                i = n // 2
+                rng = (i * sl, (i + 1) * sl)
+                _, st = dm.mega_dilated_attention_cuda(
+                    q, k, v, mask, segments, ratios, scale, with_stats=True,
+                    q_token_range=rng)
+
+                def bwd32(st=st, rng=rng):
+                    return dm.mega_dilated_attention_backward_cuda(
+                        q, k, v, mask, dmix, st, segments, ratios, scale,
+                        q_token_range=rng)
+                q_rows = q[:, rng[0]:rng[1]]
+                r = dict(family=df.card_family(d, dtype),
+                         bwd_ms=time_ms(bwd32, iters))
+                r["bwd_device_ms"], split = device_times(bwd32, iters=3,
+                                                         warmup=1)
+                r["split"] = split and {name.split("(")[0]: round(ms, 4)
+                                        for name, ms in split.items()}
+                (r["bwd_bound_ms"], r["bwd_bound_by"]), \
+                    (r["cuda_cores_bound_ms"], _) = tf32x3_bounds(
+                        b * dilated_pairs(length, n_valid, segments, ratios,
+                                          h, q_range=rng), d,
+                        (q_rows, k, v, mask, dmix[:, rng[0]:rng[1]], st,
+                         q_rows, k, v))
+                res["fp32_by_n"][n] = r
+                del st
             if dtype == torch.bfloat16:
                 i = n // 2
                 rng = (i * sl, (i + 1) * sl)
@@ -1107,6 +1264,11 @@ def phase_k1_qrange(device, shape=(3, 10240, 16, 48), n_valid=9000,
                                st, q_rows, k, v), backward=True)
                 res["by_n"][n] = r
                 del st
+        if dtype == torch.float32:
+            res["fp32_full_bwd_ms"] = time_ms(
+                lambda: dm.mega_dilated_attention_backward_cuda(
+                    q, k, v, mask, dmix, f_st, segments, ratios, scale),
+                iters)
         if dtype == torch.bfloat16:
             res["full_ms"] = time_ms(
                 lambda: dm.mega_dilated_attention(q, k, v, **kw), iters)
@@ -1130,6 +1292,14 @@ def phase_k1_qrange(device, shape=(3, 10240, 16, 48), n_valid=9000,
               f"the pairs {r['pairs_share']:.4f}, bound {r['bound_ms']:.5f} ms "
               f"({r['bound_by']}), backward {r['bwd_bound_ms']:.5f} ms "
               f"({r['bwd_bound_by']})", flush=True)
+    for n, r in res["fp32_by_n"].items():
+        print(f"K1 q_token_range fp32 ({r['family']}) one shard of {n} "
+              f"(middle): K1b {r['bwd_ms']:.4f} ms (card "
+              f"{r['bwd_device_ms']:.4f}; by kernel {r['split']}) against the "
+              f"full call's {res['fp32_full_bwd_ms']:.4f} ms, ratio "
+              f"{r['bwd_ms'] / res['fp32_full_bwd_ms']:.3f}; bound at 3xTF32 "
+              f"{r['bwd_bound_ms']:.5f} ms ({r['bwd_bound_by']}; on the CUDA "
+              f"cores {r['cuda_cores_bound_ms']:.5f} ms)", flush=True)
     return res
 
 
@@ -1145,7 +1315,9 @@ def phase_k3(device, shape=(3, 10240, 16, 48), n_valid=9000,
     every branch's compact ``(out_b, lse_b)`` against the plain branch, and
     the mix kernel alone against the plain mix of the kernel's own compact
     pieces; in bf16 a rerun bit-equal, the family, times on both clocks (the
-    mix kernel's among them), K1f's on the same inputs beside them. With
+    mix kernel's among them), K1f's on the same inputs beside them; in
+    fp32 the CUDA-core kernels' times and the plain version's, beside the
+    bound at 3xTF32 and on the CUDA cores. With
     ``plain_rows`` the plain versions run a batch row at a time
     (:func:`by_rows`)."""
     import torch
@@ -1220,6 +1392,16 @@ def phase_k3(device, shape=(3, 10240, 16, 48), n_valid=9000,
         r["mix_err"] = compare(mixed, want_mix, tol, f"{tag} mix kernel")
         del want_mix
         res[dtn] = r
+        if dtype == torch.float32:   # the CUDA-core forward, timed
+            r.update(family="cuda_cores", ms=time_ms(kernel, iters),
+                     device_ms=device_ms(kernel, iters=3, warmup=1),
+                     plain_ms=time_ms(
+                         lambda: plain(dilated_attention, (q, k, v)), iters))
+            (r["bound_ms"], r["bound_by"]), (r["cuda_cores_bound_ms"], _) = \
+                tf32x3_bounds(
+                    b * dilated_pairs(length, n_valid, segments, ratios, h),
+                    d, (q, k, v, mask, mixed, out_c, lse_c, stats),
+                    backward=False)
         if dtype == torch.bfloat16:
             check(all(torch.equal(x, y) for x, y in
                       zip(kernel(), (mixed, out_c, lse_c, stats))),
@@ -1252,6 +1434,7 @@ def phase_k3(device, shape=(3, 10240, 16, 48), n_valid=9000,
           f"plain {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.5f} ms "
           f"({res['bound_by']}), no library call | K1f on the same inputs "
           f"{res['k1f_ms']:.4f} ms", flush=True)
+    print(fmt_fp32_fwd(f"K3f B={b} L={length}", f32), flush=True)
     return res
 
 
@@ -1261,7 +1444,9 @@ def phase_k3b(device, shape=(3, 10240, 16, 48), n_valid=9000,
     """K3b against autograd through the plain version at the train step's
     shape, fp32 and bf16, on the valid rows, by the max-scaled bound and
     by :func:`check_grads`; in bf16 a rerun bit-equal, the family, times
-    on both clocks, K1b's on the same inputs beside them. The plain side's
+    on both clocks, K1b's on the same inputs beside them; in fp32 the
+    readings of :func:`fp32_family_readings` and K1b's time on the same
+    inputs. The plain side's
     memory is :func:`phase_k1b`'s; with ``plain_rows`` it runs a batch row
     at a time, its time the sum of the rows'."""
     import torch
@@ -1311,6 +1496,20 @@ def phase_k3b(device, shape=(3, 10240, 16, 48), n_valid=9000,
                                str(dtype)[6:], tag)
         res[str(dtype)[6:]] = dict(grad_err=err, rel=rel, row=row)
         del want, got_valid
+        if dtype == torch.float32:
+            res["fp32"] = fp32_family_readings(
+                kernel, got,
+                b * dilated_pairs(length, n_valid, segments, ratios, h), d,
+                (q, k, v, mask, dmix, lse_c, stats, *got), iters,
+                lambda: plain_backward_times(q, k, v, dmix, mask, kw, rows,
+                                             plain_iters))
+            _, k1_stats = dm.mega_dilated_attention_cuda(
+                q, k, v, mask, segments, ratios, scale, with_stats=True)
+            res["fp32"]["k1b_ms"] = time_ms(
+                lambda: dm.mega_dilated_attention_backward_cuda(
+                    q, k, v, mask, dmix, k1_stats, segments, ratios, scale),
+                iters)
+            del k1_stats
         if dtype == torch.bfloat16:
             check(all(torch.equal(a, b_) for a, b_ in zip(kernel(), got)),
                   f"{tag}: a rerun gives other bits")
@@ -1329,18 +1528,8 @@ def phase_k3b(device, shape=(3, 10240, 16, 48), n_valid=9000,
                 iters)
             res["k1_saved_bytes"] = tensor_bytes((k1_stats,))
             del k1_stats
-            res["plain_ms"] = res["plain_device_ms"] = 0.0
-            for c in rows:
-                leaves = [x[c].detach().requires_grad_() for x in (q, k, v)]
-                plain_out = dilated_attention(*leaves,
-                                              **dict(kw, mask=mask[c]))
-
-                def plain():
-                    return torch.autograd.grad(plain_out, leaves, dmix[c],
-                                               retain_graph=True)
-                res["plain_ms"] += time_ms(plain, plain_iters, warmup=1)
-                res["plain_device_ms"] += device_ms(plain, iters=1, warmup=0)
-                del plain_out, leaves
+            res["plain_ms"], res["plain_device_ms"] = plain_backward_times(
+                q, k, v, dmix, mask, kw, rows, plain_iters)
         torch.cuda.empty_cache()
     f32, bf = res["float32"], res["bfloat16"]
     print(f"K3b B={b} L={length} H={h} D={d} valid={n_valid}: dq/dk/dv fp32 "
@@ -1353,6 +1542,8 @@ def phase_k3b(device, shape=(3, 10240, 16, 48), n_valid=9000,
           f"ms ({res['bound_by']}), no library call | K1b on the same inputs {res['k1b_ms']:.4f} ms | saved for "
           f"the backward besides q, k, v: {res['saved_bytes'] / 1e6:.1f} MB "
           f"(K1: {res['k1_saved_bytes'] / 1e6:.1f} MB)", flush=True)
+    print(fmt_fp32(f"K3b B={b} L={length}", res["fp32"]) + f" | K1b fp32 on "
+          f"the same inputs {res['fp32']['k1b_ms']:.4f} ms", flush=True)
     return res
 
 
@@ -2132,12 +2323,12 @@ def phase_slice(device, dtype, build_kw=None, timing_rounds=3, card="",
 NULL_GRAD = ("k_proj.bias", "token.b2", "compress_bias")
 
 
-def build_train(device, seed=0, **data_kw):
-    """The train step's model (frozen backbone in bf16, trainable adapter
-    in fp32), optimizer, projected text targets and batch on ``device``;
-    ``data_kw`` goes to :func:`build_model` and :func:`build_batches` (one
-    slide unless it names ``n_slides``, in batches of its
-    ``batch_size``)."""
+def build_train(device, seed=0, frozen="bfloat16", **data_kw):
+    """The train step's model (frozen backbone in ``frozen``, bf16 unless
+    given: the steps then autocast to it; trainable adapter in fp32),
+    optimizer, projected text targets and batch on ``device``; ``data_kw``
+    goes to :func:`build_model` and :func:`build_batches` (one slide unless
+    it names ``n_slides``, in batches of its ``batch_size``)."""
     import torch
     from modaltune_tpu_torch import (TextProjector, freeze_backbone,
                                      init_weights, make_optimizer,
@@ -2147,7 +2338,7 @@ def build_train(device, seed=0, **data_kw):
     model = build_model(device, seed=seed, **data_kw)
     (host,) = build_batches(**{"n_slides": 1, **data_kw}, seed=seed)
     tcfg = TrainConfig()
-    opt = make_optimizer(tcfg, freeze_backbone(model, torch.bfloat16),
+    opt = make_optimizer(tcfg, freeze_backbone(model, getattr(torch, frozen)),
                          steps_per_epoch=1)
     projector = init_weights(TextProjector(),
                              torch.Generator().manual_seed(seed + 99))
@@ -2226,7 +2417,8 @@ def timed_build(device, tag, build_kw):
     print(f"{tag}: model built in {time.perf_counter() - t0:.1f} s, "
           f"{sum(p.numel() for p in params if p.requires_grad)} trainable "
           f"fp32 and {sum(p.numel() for p in params if not p.requires_grad)}"
-          f" frozen bf16 parameters, {batch['bag'].shape[0]} slide(s) of "
+          f" frozen {str(next(model.backbone.parameters()).dtype)[6:]} "
+          f"parameters, {batch['bag'].shape[0]} slide(s) of "
           f"bucket {batch['bag'].shape[1]} with "
           f"{batch['mask'].sum(1).tolist()} valid tokens", flush=True)
     return model, tcfg, opt, text, batch
@@ -2260,9 +2452,12 @@ def drive_train(device, model, tcfg, opt, text, batch, tag, card="",
     launches = read_counts()
     again = recomputed_per_step(model)
     check_k5_routes(tag, launches)
+    frozen_dtype = next(model.backbone.parameters()).dtype
     k2_families = check_k2_families(tag, launches,
                                     k2_branch_calls(model) * steps,
-                                    again.get("K2", 0) * steps)
+                                    again.get("K2", 0) * steps,
+                                    fp32=frozen_dtype == torch.float32)
+    bwd_families = check_bwd_families(tag, launches, frozen_dtype)
     per = calls_per_forward(model)
     per_step = {f"{k}{d}": n + (again.get(k, 0) if d == "f" else 0)
                 for k, n in per.items() for d in "fb"}
@@ -2309,7 +2504,8 @@ def drive_train(device, model, tcfg, opt, text, batch, tag, card="",
           f"{'; ' + card if card else ''}", flush=True)
     return dict(launches=launches, per_step=per_step, ms=ms, peak_bytes=peak,
                 base_bytes=base, losses=losses, k2_families=k2_families,
-                times=times, gc_ms=statistics.median(in_gc), gc_times=in_gc)
+                bwd_families=bwd_families, times=times,
+                gc_ms=statistics.median(in_gc), gc_times=in_gc)
 
 
 def phase_train(device, steps=3, timed_steps=5, compare_kw=None,
@@ -2405,6 +2601,28 @@ def phase_train(device, steps=3, timed_steps=5, compare_kw=None,
     return dict(res, grad_cosine=cos, loss_rel=rel,
                 grad_rel_fp32=err32[w32], worst_tensor=(e_k[wk], e_p[wp]),
                 k2_calls=held)
+
+
+def phase_train_fp32(device, bf16, card="", build_kw=None, tag="fp32 train"):
+    """The ``--bf16 0`` user's step: the default route's train step at
+    10,239 under ``"flash"`` with the frozen backbone in fp32 (no autocast),
+    on the kernels alone: :func:`drive_train`'s checked and timed steps
+    (every K1b on the 3xTF32 family, K1f and K2 on the CUDA cores); its
+    ms/step and peak printed beside the bf16 step's (``bf16``,
+    :func:`phase_train`'s result)."""
+    import torch
+    build_kw = dict(build_kw or GIGAPATH, frozen="float32")
+    model, tcfg, opt, text, batch = timed_build(device, tag, build_kw)
+    res = drive_train(device, model, tcfg, opt, text, batch, tag, card)
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    check(res["bwd_families"]["K1b"]["tf32x3"] > 0,
+          f"{tag}: no K1b on the 3xTF32 family")
+    print(f"{tag}: {res['ms']:.2f} ms/step, peak "
+          f"{res['peak_bytes'] / 2**30:.3f} GiB, against the bf16 step's "
+          f"{bf16['ms']:.2f} ms/step, {bf16['peak_bytes'] / 2**30:.3f} GiB "
+          f"({res['ms'] / bf16['ms']:.2f}x); {card}", flush=True)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -4476,11 +4694,14 @@ def family_times(device, bucket, n_valid, iters=10):
     """The kernels a train step at ``bucket`` launches, timed in each
     dtype's family on random inputs at its shapes (K1f with its stats and
     K1b at (3, bucket + 1, 16, 48) with ``n_valid`` valid tokens, K1b's
-    split by kernel on the card; K2f and K2b at the adapter's Injector,
-    Extractor and prompt shapes) -> {dtype: {kernel: ms}}; printed."""
+    family, its time on the card and split by kernel there, its bound: at
+    fp32 at 3xTF32 and on the CUDA cores; K2f and K2b at the adapter's
+    Injector, Extractor and prompt shapes) -> {dtype: {kernel: ms}};
+    printed."""
     import torch
     from modaltune_tpu_torch.configs import SlideEncoderConfig
     dm = importlib.import_module(COUNTERS["K1f"][0])
+    df = importlib.import_module(COUNTERS["K3b"][0])
     fa = importlib.import_module(COUNTERS["K2f"][0])
     ln = SlideEncoderConfig().longnet()
     seg, rat = ln.segment_lengths, ln.dilated_ratios
@@ -4501,9 +4722,19 @@ def family_times(device, bucket, n_valid, iters=10):
             return dm.mega_dilated_attention_backward_cuda(
                 q, k, v, mask, dmix, stats, seg, rat, 48 ** -0.5)
         r["K1f"], r["K1b"] = time_ms(fwd, iters), time_ms(bwd, iters)
-        _, split = device_times(bwd, iters=3, warmup=1)
+        r["K1b_device"], split = device_times(bwd, iters=3, warmup=1)
         r["K1b_split"] = split and {name.split("(")[0]: round(ms, 4)
                                     for name, ms in split.items()}
+        pairs = shape[0] * dilated_pairs(shape[1], n_valid, seg, rat,
+                                         shape[2])
+        tensors = (q, k, v, mask, dmix, stats, q, k, v)
+        if dtype == torch.float32:
+            (r["K1b_bound"], _), (r["K1b_cuda_cores_bound"], _) = \
+                tf32x3_bounds(pairs, 48, tensors)
+        else:
+            r["K1b_bound"], _ = attention_bound(pairs, 48, tensors,
+                                                backward=True)
+        family = df.card_family(48, dtype)
         for tag, lq, lk in (("injector", bucket, 65), ("extractor", 65,
                                                        bucket),
                             ("prompt", 65, 65)):
@@ -4519,7 +4750,9 @@ def family_times(device, bucket, n_valid, iters=10):
                 lambda: fa.flash_attention_backward_cuda(
                     q2, k2, v2, bias, o, lse, do, 0.25), iters)
         print(f"multiepoch: kernel times at bucket {bucket}, {dtn} "
-              f"({fa.card_family(bucket, 65, 16, dtype)} K2): "
+              f"({fa.card_family(bucket, 65, 16, dtype)} K2, {family} K1b; "
+              f"K1b's bound at "
+              f"{'3xTF32' if dtype == torch.float32 else 'bf16'}): "
               f"{ {k: round(x, 4) for k, x in r.items() if k != 'K1b_split'} }"
               f"; K1b on the card by kernel {r['K1b_split']}", flush=True)
         del q, k, v, dmix, stats
@@ -4621,6 +4854,7 @@ def train_schedule(device, name, base, params, tcfg, datasets, bucket, dtype,
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = read_counts()
+        bwd_families = {k: dict(c) for k, c in bwd_family_counts().items()}
     rows = [json.loads(line) for line in open(out_dir / "run_metrics.jsonl")]
     epochs = [r for r in rows if "train_loss" in r]
     (test,) = [r for r in rows if "test_cls_bal_acc" in r]
@@ -4629,7 +4863,8 @@ def train_schedule(device, name, base, params, tcfg, datasets, bucket, dtype,
                     for r in epochs],
                test=test, best=best, step_ms=list(trainer.step_ms),
                ms=statistics.median(trainer.step_ms), epoch_ms=epoch_ms,
-               launches=launches, in_train=in_train, forwards=forwards[0],
+               launches=launches, bwd_families=bwd_families,
+               in_train=in_train, forwards=forwards[0],
                steps=len(trainer.step_ms), draws=draws, seconds=seconds,
                per_forward=calls_per_forward(model),
                again=recomputed_per_step(model))
@@ -4771,8 +5006,26 @@ def phase_multiepoch(device, card="", build_kw=None, data_kw=None,
           f"{ {k: res['k16']['in_train'][k] // res['k16']['steps'] for k in kernels} }"
           f" and K1f 12, K2f 10 per readout or eval forward; p16 and p32 "
           f"no kernel", flush=True)
+    df = importlib.import_module(COUNTERS["K3b"][0])
+    for name in ("k16", "k32"):
+        fams = res[name]["bwd_families"]["K1b"]
+        n = res[name]["launches"]["K1b"]
+        want = df.family(48, getattr(torch, runs[name][0]))
+        check(fams[want] == n == sum(fams.values()),
+              f"multiepoch {name}: K1b launches by family {fams}, want all "
+              f"{n} on {want}")
+    k32, p32 = res["k32"]["ms"], res["p32"]["ms"]
+    print(f"multiepoch: ms/step, median: k32 {k32:.2f} against p32 "
+          f"{p32:.2f} ({k32 / p32:.3f}x); k16 {res['k16']['ms']:.2f}, p16 "
+          f"{res['p16']['ms']:.2f}; K1b by "
+          f"family: k16 {res['k16']['bwd_families']['K1b']}, k32 "
+          f"{res['k32']['bwd_families']['K1b']}; {card}", flush=True)
     return dict(launches={k: res["k16"]["launches"][k]
-                          + res["k32"]["launches"][k] for k in kernels})
+                          + res["k32"]["launches"][k] for k in kernels},
+                bwd_families={k: {f: res["k16"]["bwd_families"][k][f]
+                                  + res["k32"]["bwd_families"][k][f]
+                                  for f in df.FAMILIES}
+                              for k in ("K1b", "K3b")})
 
 
 def main() -> int:
@@ -4812,15 +5065,16 @@ def main() -> int:
         print(f"build: {len(regs)} kernels, at most {max(regs)} registers; "
               f"{sum(1 for x in spills if x)} spill, at most {max(spills)} "
               f"bytes of spill loads")
-    # K2's wgmma kernels one by one (namespace mt::fwg): none may spill
+    # K2's wgmma kernels (namespace mt::fwg) and the 3xTF32 dilated core
+    # (mt::dtf) one by one: none may spill
     for block in info["log"].split("Compiling entry function")[1:]:
         name = block.split("'")[1]
-        if "3fwg" not in name:
+        if "3fwg" not in name and "3dtf" not in name:
             continue
         used = re.search(r"Used (\d+) registers", block).group(1)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", block).groups()
-        short = re.search(r"\d+(flash_\w+?_kernel)", name).group(1)
+        short = re.search(r"\d+((?:flash|dilated)_\w+?_kernel)", name).group(1)
         print(f"build: {short}: {used} registers at launch, spill stores "
               f"{spill[0]}, loads {spill[1]} bytes")
         check(spill == ("0", "0"), f"{short} spills registers")
@@ -4868,7 +5122,11 @@ def main() -> int:
     paths["gigapath_branch_train"] = phase_train(
         device, card=card, build_kw=GIGAPATH_BRANCH, compare_kw=GIGAPATH_2047,
         tag="branch train", k2_calls=True)
-    lap("GigaPath embed and train steps, three routes")
+    # the --bf16 0 user's step: the default route with an fp32 backbone
+    # (K1b on the 3xTF32 family)
+    paths["gigapath_fp32_train"] = phase_train_fp32(
+        device, paths["gigapath_train"], card=card)
+    lap("GigaPath embed and train steps, three routes, the fp32 step")
     # ModalTune-TITAN: the embed step, the train step
     paths["titan_embed"] = phase_slice(
         device, torch.bfloat16, card=card, build_kw=TITAN, timing_rounds=2,
@@ -5002,6 +5260,36 @@ def main() -> int:
                          for p, r in paths.items()}
                 out["part1_launches_by_path"] = {p: n for p, n in
                                                  part1.items() if n}
+        if key in ("K1b", "K3b"):
+            # by family: the gradient core of each (bf16 wgmma, fp32
+            # 3xTF32) and the CUDA-core kernels; launches summed over the
+            # paths that record them (drive_train's, the schedule's); the
+            # fp32 family's readings beside the bf16 ones
+            out["source_by_family"] = {
+                "wgmma": "modaltune_tpu_torch/csrc/dilated_bwd_wgmma.cu",
+                "tf32x3": "modaltune_tpu_torch/csrc/dilated_bwd_tf32.cu",
+                "cuda_cores": f"modaltune_tpu_torch/csrc/{name}.cu"}
+            out["launches_by_family"] = {
+                fam: sum(r["bwd_families"][key][fam] for r in paths.values()
+                         if "bwd_families" in r)
+                for fam in out["source_by_family"]}
+            out["fp32"] = res["fp32"]
+            if big is not None:
+                out["at_25600"]["fp32"] = big["fp32"]
+            if key == "K1b":
+                out["fp32"]["qrange_by_n"] = k1q["fp32_by_n"]
+                check(out["launches_by_family"]["tf32x3"] > 0,
+                      f"{name}: the 3xTF32 family was launched on no path")
+        if key in ("K1f", "K3f"):   # fp32: the CUDA-core forward's times
+            keep = ("family", "ms", "device_ms", "plain_ms", "bound_ms",
+                    "bound_by", "cuda_cores_bound_ms", "stats_ms")
+
+            def fp32_of(r):
+                return {k: r["float32"][k] for k in keep
+                        if k in r["float32"]}
+            out["fp32"] = fp32_of(res)
+            if big is not None:
+                out["at_25600"]["fp32"] = fp32_of(big)
         if sources:
             side = "bwd" if key.endswith("b") else "fwd"
             out["source_by_family"] = {

@@ -20,19 +20,20 @@
 // and dq, dk, dv sum dS_b k * scale, dS_b^T q * scale and P_b^T dO_b over
 // the branches, each over the branch's (segment, residue class) pairs.
 //
-// Two families (mt::dilated_family), neither with atomics:
-// * bf16 at D = 48 (GigaPath's head size), four launches: a prep kernel
+// Three families (mt::dilated_family), none with atomics:
+// * at D = 48 (GigaPath's head size), four launches: a prep kernel
 //   (dilated_bwd_compact_prep_kernel) reads the stats plane at every
 //   compact row of ops/dilated_fused.py's layout (dilated_fused_common.cuh)
-//   and writes lse_b and w_b there, (B, H, M) fp32 each; the tensor-core
-//   gradient core (dilated_bwd_wgmma.cu), which K3b shares, takes delta_b
-//   from P and dP in its dq kernel and writes fp32 compact dq, dk, dv,
-//   (B, H, M, D) each; K3b's combine sums them into dense gradients in
-//   branch order. Compact tiles keep every row of a 64-row wgmma tile in
-//   one (segment, head group); this kernel's own blocks of 64 consecutive
-//   positions hold 64 / r rows of a branch of ratio r, 2.56 times the
-//   products at GigaPath's shape.
-// * fp32 at any D and bf16 at any other D, three launches on CUDA cores: a
+//   and writes lse_b and w_b there, (B, H, M) fp32 each; a tensor-core
+//   gradient core, which K3b shares, takes delta_b from P and dP in its dq
+//   kernel and writes fp32 compact dq, dk, dv, (B, H, M, D) each; K3b's
+//   combine sums them into dense gradients in branch order. The core is
+//   dilated_bwd_wgmma.cu at bf16 (family 1) and the 3xTF32 core
+//   dilated_bwd_tf32.cu at fp32 (family 2). Compact tiles keep every row of
+//   a 64-row tile in one (segment, head group); this file's CUDA-core
+//   blocks of 64 consecutive positions hold 64 / r rows of a branch of
+//   ratio r, 2.56 times the products at GigaPath's shape.
+// * fp32 and bf16 at any other D, three launches on CUDA cores: a
 //   prep kernel writes w_b and delta_b (B*H, n_br, L) fp32 (a warp per
 //   (token, head), delta_b rebuilt over the row's keys by window_pdp, a
 //   lane a key); the dq kernel's block owns 64 query positions of one
@@ -53,7 +54,8 @@
 // What bounds it on the H100: five products per query-key pair (q.k and
 // dmix.v in both kernels, dS k in one, P dmix and dS q in the other) against
 // the forward's two: operations (dilated_bwd_wgmma.cu, which also counts
-// what delta adds). The CUDA-core kernels run them in fp32 and are bound by
+// what delta adds; at fp32 each product is three TF32 products,
+// dilated_bwd_tf32.cu). The CUDA-core kernels run them in fp32 and are bound by
 // the fp32 instruction rate and shared-memory bandwidth
 // (attention_bwd_common.cuh); their delta prep repeats the dq kernel's q.k
 // and dmix.v.
@@ -104,7 +106,7 @@ dilated_bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // K1's stats plane at every compact row (a thread per row): lse_b (NEG_INF
 // where the row is no real position or lies outside the query range) and
-// w_b, each (B, H, M) fp32; the tensor-core family's prep.
+// w_b, each (B, H, M) fp32; the tensor-core families' prep.
 __global__ void __launch_bounds__(kThreads)
 dilated_bwd_compact_prep_kernel(const float* __restrict__ stats, float* __restrict__ lse_c,
                                 float* __restrict__ w_c, int B, int L, int H, FusedBranches fb) {
@@ -133,15 +135,16 @@ dilated_bwd_compact_prep_kernel(const float* __restrict__ stats, float* __restri
   w_c[gw] = wb;
 }
 
-// The tensor-core family: the compact prep, the gradient core, the combine.
-// rows_c (3, B, H, M) (lse, w, delta) and grads_c (3, B, H, M, 48) fp32
-// scratch.
-inline cudaError_t launch_dilated_bwd_wgmma(const void* q, const void* k, const void* v,
-                                            const unsigned char* mask, const void* dmix,
-                                            const float* stats, float* rows_c, float* grads_c,
-                                            void* dq, void* dk, void* dv, int B, int L, int H,
-                                            float scale, const FusedBranches& fb,
-                                            cudaStream_t stream) {
+// A tensor-core family (1: bf16, 2: fp32): the compact prep, the family's
+// gradient core, the combine. rows_c (3, B, H, M) (lse, w, delta) and
+// grads_c (3, B, H, M, 48) fp32 scratch.
+inline cudaError_t launch_dilated_bwd_compact(const void* q, const void* k, const void* v,
+                                              const unsigned char* mask, const void* dmix,
+                                              const float* stats, float* rows_c,
+                                              float* grads_c, void* dq, void* dk, void* dv,
+                                              int B, int L, int H, float scale,
+                                              const FusedBranches& fb, int family,
+                                              cudaStream_t stream) {
   const size_t rows = static_cast<size_t>(B) * H * fb.off[fb.n];
   float *lse_c = rows_c, *w_c = rows_c + rows, *delta_c = rows_c + 2 * rows;
   float *dq_c = grads_c, *dk_c = grads_c + rows * kWgmmaD, *dv_c = dk_c + rows * kWgmmaD;
@@ -151,13 +154,13 @@ inline cudaError_t launch_dilated_bwd_wgmma(const void* q, const void* k, const 
   if (err != cudaSuccess) return err;
   const DilatedBwdCore c{q, k, v, dmix, mask, lse_c, w_c, delta_c, dq_c, dk_c, dv_c,
                          B, L, H, scale};
-  err = launch_dilated_bwd_core(c, fb, stream);
+  err = launch_bwd_core(family, c, fb, stream);
   if (err != cudaSuccess) return err;
-  return launch_compact_combine(dq_c, dk_c, dv_c, dq, dk, dv, B, L, H, kWgmmaD, fb, 1,
-                                stream);
+  return launch_compact_combine(dq_c, dk_c, dv_c, dq, dk, dv, B, L, H, kWgmmaD, fb,
+                                family == 2 ? 0 : 1, stream);
 }
 
-// The tensor-core family's K1b in two parts over a token range [r0, r1),
+// The bf16 tensor-core family's K1b in two parts over a token range [r0, r1),
 // for a sequence-parallel rank whose query rows and keys are that range
 // (ops/dilated_sp.py); fb covers the whole sequence. Part 0: the prep onto
 // the range's rows, the dq kernel on their tiles, the combine: dq of the
@@ -393,8 +396,8 @@ cudaError_t dispatch_dilated_bwd(int DP, const void* q, const void* k, const voi
 // 1 = bfloat16); mask (B, L) bytes (1 = valid) or null; stats as the
 // forward wrote them. fp32 scratch by family (mt::dilated_family):
 // the CUDA-core kernels take w and delta (B*H, n_branches, L); the
-// tensor-core family (bf16, D = 48; q/k/v/dmix 16-byte aligned) takes rows_c
-// (3, B, H, M) and grads_c (3, B, H, M, D), M the compact rows of a head
+// tensor-core families (D = 48, bf16 or fp32; q/k/v/dmix 16-byte aligned)
+// take rows_c (3, B, H, M) and grads_c (3, B, H, M, D), M the compact rows of a head
 // (ops/dilated_fused.py::total_rows). [q0, q1) is the forward's query range
 // (0, L: every row): dq is 0 outside it, and dk/dv sum over its queries
 // alone, this shard's part of the whole gradient; an empty range or one
@@ -420,15 +423,16 @@ extern "C" int mt_dilated_attention_bwd(const void* q, const void* k, const void
   const auto s = static_cast<cudaStream_t>(stream);
   const auto m = static_cast<const unsigned char*>(mask);
   const auto st = static_cast<const float*>(stats);
-  if (mt::dilated_family(D, dtype) == 1) {
+  const int family = mt::dilated_family(D, dtype);
+  if (family != 0) {
     mt::FusedBranches fb{};
     if (rows_c == nullptr || grads_c == nullptr ||
         !mt::make_fused_branches(fb, L, segments, ratios, n_branches) ||
         !mt::set_query_range(fb, L, q0, q1))
       return cudaErrorInvalidValue;
-    return mt::launch_dilated_bwd_wgmma(q, k, v, m, dmix, st, static_cast<float*>(rows_c),
-                                        static_cast<float*>(grads_c), dq, dk, dv, B, L, H,
-                                        scale, fb, s);
+    return mt::launch_dilated_bwd_compact(q, k, v, m, dmix, st, static_cast<float*>(rows_c),
+                                          static_cast<float*>(grads_c), dq, dk, dv, B, L, H,
+                                          scale, fb, family, s);
   }
   if (w == nullptr || delta == nullptr) return cudaErrorInvalidValue;
   const auto wf = static_cast<float*>(w);
@@ -443,7 +447,7 @@ extern "C" int mt_dilated_attention_bwd(const void* q, const void* k, const void
 }
 
 // K1b in two parts over the token range [r0, r1) (launch_dilated_bwd_part),
-// the tensor-core family only (bf16, D = 48; q/k/v/dmix 16-byte aligned):
+// the bf16 tensor-core family only (D = 48; q/k/v/dmix 16-byte aligned):
 // the arguments of mt_dilated_attention_bwd without w and delta, and part
 // (0 or 1). Returns a cudaError_t; 0 means every kernel was launched.
 extern "C" int mt_dilated_attention_bwd_part(const void* q, const void* k, const void* v,

@@ -76,50 +76,6 @@
 namespace mt {
 namespace dwg {
 
-// Zero rows [0, n) of compact fp32 gradients at `dst`, the whole block.
-__device__ __forceinline__ void zero_rows(float* dst, int n) {
-  for (int i = threadIdx.x; i < n * kD / 4; i += kThreads)
-    reinterpret_cast<float4*>(dst)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-// Rows row0 + lane's row and + 8 of a 64 x 48 accumulator times `scale`
-// into fp32 compact rows at `dst` (row stride 48), rows below n only; rows
-// past the group's n_real hold zeros (their P is 0).
-__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[24], int n,
-                                           float scale, const wg::Lane& ln) {
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int row = ln.row0 + 8 * rr;
-    if (row >= n) continue;
-    float* d = dst + static_cast<size_t>(row) * kD + ln.col0;
-#pragma unroll
-    for (int j = 0; j < 6; ++j) {
-      const int i = 4 * j + 2 * rr;
-      *reinterpret_cast<float2*>(d + 8 * j) = make_float2(acc[i] * scale, acc[i + 1] * scale);
-    }
-  }
-}
-
-// One live key tile's P (into s, from the scores) for the thread's two
-// rows, and rowsum(P dP) over its columns added to rs.
-__device__ __forceinline__ void probabilities(float (&s)[32], const float (&dp)[32],
-                                              float (&rs)[2], const float* kterm,
-                                              const float (&lse2)[2], float scale2,
-                                              const wg::Lane& ln) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float2 kt = *reinterpret_cast<const float2*>(kterm + 8 * j + ln.col0);
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int i = 4 * j + 2 * rr;
-      s[i] = wg::exp2_fast(fmaf(s[i], scale2, kt.x - lse2[rr]));
-      s[i + 1] = wg::exp2_fast(fmaf(s[i + 1], scale2, kt.y - lse2[rr]));
-      rs[rr] = fmaf(s[i], dp[i], rs[rr]);
-      rs[rr] = fmaf(s[i + 1], dp[i + 1], rs[rr]);
-    }
-  }
-}
-
 // dq and delta: the own rows are queries (their q and dmix tiles stay in
 // shared memory; lse2, w and delta in registers); a stage is a live key
 // tile's k and v with the keys' terms (0 or -inf).
@@ -413,9 +369,10 @@ cudaError_t launch_dilated_bwd_core(const DilatedBwdCore& a, const FusedBranches
 
 }  // namespace mt
 
-// Which kernels serve a dilated attention, forward and backward
-// (mt::dilated_family): 0 the CUDA-core kernels, 1 the tensor-core cores of
-// this file and dilated_fwd_wgmma.cu.
+// Which kernels serve a dilated attention (mt::dilated_family): 0 the
+// CUDA-core kernels, 1 the tensor-core cores of this file and
+// dilated_fwd_wgmma.cu, 2 the 3xTF32 gradient core of dilated_bwd_tf32.cu
+// (the backward alone).
 extern "C" int mt_dilated_family(int D, int dtype) {
   return mt::dilated_family(D, dtype);
 }

@@ -33,17 +33,19 @@
 // block owns 64 compact key rows and streams its queries; the combine
 // kernel (a warp per (token, head)) adds the branches' rows. The compact
 // gradients are an fp32 scratch, so bf16 inputs round each dense gradient
-// once. No atomics. Two families of the dq and dk/dv kernels
-// (mt::dilated_family):
-// * bf16 at D = 48 (GigaPath's head size): the tensor-core gradient core of
-//   dilated_bwd_wgmma.cu, which K1b shares;
-// * fp32 at any D and bf16 at any other D: the CUDA-core kernels below.
+// once. No atomics. Three families of the dq and dk/dv kernels
+// (mt::dilated_family), the tensor-core cores shared with K1b:
+// * bf16 at D = 48 (GigaPath's head size): the wgmma core of
+//   dilated_bwd_wgmma.cu;
+// * fp32 at D = 48: the 3xTF32 core of dilated_bwd_tf32.cu;
+// * fp32 and bf16 at any other D: the CUDA-core kernels below.
 //
 // What bounds it on the H100: operations, five products per query-key pair
-// (dilated_bwd_wgmma.cu). The CUDA-core kernels run them in fp32 and are
+// (dilated_bwd_wgmma.cu; at fp32 three TF32 products each,
+// dilated_bwd_tf32.cu). The CUDA-core kernels run them in fp32 and are
 // bound by that arithmetic rate and shared-memory bandwidth. The combine
 // kernel is bound by device memory (about 12.5 times q's bytes), and so is
-// the tensor-core family's prep.
+// the tensor-core families' prep.
 //
 // What the CUDA-core kernels do about it: q/k/v/dmix are read in place with
 // strided rows; every row of a block's tile takes part in every streamed
@@ -337,17 +339,19 @@ cudaError_t dispatch_fused_bwd(int DP, const FusedBwdArgs& a, const FusedBranche
   }
 }
 
-// The tensor-core family: prep, the gradient core, combine.
-inline cudaError_t launch_fused_bwd_wgmma(const FusedBwdArgs& a, const FusedBranches& fb,
-                                          cudaStream_t s) {
-  cudaError_t err = launch_fused_bwd_prep<__nv_bfloat16, false>(a, fb, s);
+// A tensor-core family (1: bf16, 2: fp32): prep, the family's gradient
+// core, combine.
+inline cudaError_t launch_fused_bwd_compact(const FusedBwdArgs& a, const FusedBranches& fb,
+                                            int family, cudaStream_t s) {
+  cudaError_t err = family == 2 ? launch_fused_bwd_prep<float, false>(a, fb, s)
+                                : launch_fused_bwd_prep<__nv_bfloat16, false>(a, fb, s);
   if (err != cudaSuccess) return err;
   const DilatedBwdCore c{a.q,    a.k,     a.v,       a.dmix, a.mask, a.lse_c, a.w_c, a.delta_c,
                          a.dq_c, a.dk_c,  a.dv_c,    a.B,    a.L,    a.H,     a.scale};
-  err = launch_dilated_bwd_core(c, fb, s);
+  err = launch_bwd_core(family, c, fb, s);
   if (err != cudaSuccess) return err;
   return launch_compact_combine(a.dq_c, a.dk_c, a.dv_c, a.dq, a.dk, a.dv, a.B, a.L, a.H, a.D,
-                                fb, 1, s);
+                                fb, family == 2 ? 0 : 1, s);
 }
 
 }  // namespace mt
@@ -356,7 +360,7 @@ inline cudaError_t launch_fused_bwd_wgmma(const FusedBwdArgs& a, const FusedBran
 // 1 = bfloat16); mask (B, L) bytes (1 = valid) or null; lse_c (B, H, M),
 // m_in and z_in (B, H, L) as the forward wrote them; w_c and delta_c
 // (B, H, M) and dq_c, dk_c, dv_c (B, H, M, D) fp32 scratch; the tensor-core
-// family (bf16 at D = 48) takes q/k/v/dmix 16-byte aligned.
+// families (D = 48, bf16 or fp32) take q/k/v/dmix 16-byte aligned.
 // Returns a cudaError_t; 0 means all four kernels were launched.
 extern "C" int mt_dilated_fused_bwd(const void* q, const void* k, const void* v, const void* mask,
                                     const void* dmix, const void* lse_c,
@@ -377,7 +381,8 @@ extern "C" int mt_dilated_fused_bwd(const void* q, const void* k, const void* v,
                            static_cast<float*>(dk_c), static_cast<float*>(dv_c), dq, dk, dv,
                            B, L, H, D, scale};
   const auto s = static_cast<cudaStream_t>(stream);
-  if (mt::dilated_family(D, dtype) == 1) return mt::launch_fused_bwd_wgmma(a, fb, s);
+  const int family = mt::dilated_family(D, dtype);
+  if (family != 0) return mt::launch_fused_bwd_compact(a, fb, family, s);
   if (dtype == 0) return mt::dispatch_fused_bwd<float>(DP, a, fb, s);
   if (dtype == 1) return mt::dispatch_fused_bwd<__nv_bfloat16>(DP, a, fb, s);
   return cudaErrorInvalidValue;

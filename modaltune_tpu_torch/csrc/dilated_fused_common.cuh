@@ -167,7 +167,9 @@ inline cudaError_t launch_range_fill(void* rows, float* stats, int B, int L, int
 // qd, in order of d. With `wide` (fp32 rows, D % 4 == 0, 16-byte aligned)
 // each load reads four floats: a lane a key leaves a warp's loads
 // uncoalesced, so their count bounds window_pdp (one float a load: 60.36 of
-// K1b's 68.69 ms at (3, 2048, 16, 48), fp32).
+// the CUDA-core K1b's 68.69 ms at (3, 2048, 16, 48), fp32; fp32 at D = 48
+// has since run on the 3xTF32 core, dilated_bwd_tf32.cu, which takes delta
+// in its dq kernel and never calls window_pdp).
 template <typename T>
 __device__ __forceinline__ void key_dots(const T* kr, const T* vr, const float* qd, int D,
                                          bool wide, float& s, float& dp) {
@@ -197,8 +199,8 @@ __device__ __forceinline__ void key_dots(const T* kr, const T* vr, const float* 
 }
 
 // rowsum(P dP) of one query row over its (segment, head group)'s keys, the
-// CUDA-core families' delta (the tensor-core core takes it in its dq
-// kernel): the keys lie at positions first + r j, j < n_keys, of the head's
+// CUDA-core families' delta (fp32 and bf16 at D != 48; the tensor-core
+// cores take it in their dq kernels): the keys lie at positions first + r j, j < n_keys, of the head's
 // rows `k` and `v` (position stride tok); P_j = exp(q.k_j scale - lse) for a
 // valid key (mask byte 1, or no mask), dP_j = dmix.v_j. A warp per row, a
 // lane per key, the query's q and dmix rows staged in `qd` (2 D floats of

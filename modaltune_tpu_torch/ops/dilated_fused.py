@@ -21,7 +21,9 @@ for the gradient, ``csrc/dilated_fused_bwd.cu`` (K3b: the demix weights and
 ``delta``, the branch dq and dk/dv kernels, the combine). At bf16 and
 D = 48 (:func:`card_family`) the branch attention is the tensor-core forward
 core ``csrc/dilated_fwd_wgmma.cu`` and the dq and dk/dv kernels the
-gradient core ``csrc/dilated_bwd_wgmma.cu``, both shared with K1. A CPU
+gradient core ``csrc/dilated_bwd_wgmma.cu``; at fp32 and D = 48 the dq and
+dk/dv kernels are the 3xTF32 gradient core ``csrc/dilated_bwd_tf32.cu``;
+every core is shared with K1. A CPU
 tensor goes to the plain version :func:`.dilated.dilated_attention` under
 autograd. The four ``fused_*_reference`` functions are the plain
 versions of the four kernels, piece by piece.
@@ -51,9 +53,10 @@ from .kept import kept
 
 # Kernel launches since the last reset (read by chip_smoke.py): K3f (one per
 # forward: the branch kernel and the mix kernel) and K3b (one per backward:
-# its four kernels).
+# its four kernels), K3b's also by family (FAMILIES).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+BWD_FAMILY_LAUNCHES = {"cuda_cores": 0, "wgmma": 0, "tf32x3": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -244,20 +247,24 @@ def split_branches(x: torch.Tensor, length: int,
 # ---------------------------------------------------------------------------
 
 # csrc/dilated_wgmma.cuh::dilated_family, by code
-FAMILIES = ("cuda_cores", "wgmma")
-WGMMA_D = 48    # the head dimension of the tensor-core family
+FAMILIES = ("cuda_cores", "wgmma", "tf32x3")
+WGMMA_D = 48    # the head dimension of the tensor-core families
 
 
 def family(d: int, dtype: torch.dtype) -> str:
-    """The kernels that serve a dilated attention, forward and backward,
-    K1's and K3's alike: ``"wgmma"`` (the compact-tile tensor-core cores,
-    bf16 at D = :data:`WGMMA_D`, GigaPath's head size) or ``"cuda_cores"``
-    (fp32 at any D, bf16 at any other D). The C entry points own the rule
+    """The kernels that serve a dilated attention, K1's and K3's alike:
+    ``"wgmma"`` (the compact-tile tensor-core cores, forward and backward,
+    bf16 at D = :data:`WGMMA_D`, GigaPath's head size), ``"tf32x3"`` (the
+    backward's 3xTF32 tensor-core core at fp32 and D = :data:`WGMMA_D`; the
+    forward runs the CUDA-core kernel there) or ``"cuda_cores"`` (fp32 and
+    bf16 at any other D). The C entry points own the rule
     (``mt_dilated_family``) and the wrappers ask them (:func:`card_family`);
     this copy serves the CPU tests, and ``tests/test_torch_kernels_cuda.py``
     holds it equal to the library's."""
-    return "wgmma" if dtype == torch.bfloat16 and d == WGMMA_D \
-        else "cuda_cores"
+    if d != WGMMA_D:
+        return "cuda_cores"
+    return {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}.get(
+        dtype, "cuda_cores")
 
 
 def card_family(d: int, dtype: torch.dtype) -> str:
@@ -315,7 +322,7 @@ def fused_dilated_attention_backward_cuda(
         segment_lengths: Sequence[int], dilated_ratios: Sequence[int],
         scale: float, return_compact: bool = False):
     """Launch K3b (the demix weights, with the CUDA-core kernels also
-    ``delta``; every branch's dq, with the tensor-core core also ``delta``;
+    ``delta``; every branch's dq, with a tensor-core core also ``delta``;
     every branch's dk/dv; the combine; the dq and dk/dv kernels in the
     family the C entry points choose) on ``q``'s device and current stream;
     returns ``(dq, dk, dv)``, and with ``return_compact`` also the fp32
@@ -353,6 +360,7 @@ def fused_dilated_attention_backward_cuda(
             float(scale), _DTYPE_CODES[q.dtype], stream)
     check_launch(err, "mt_dilated_fused_bwd")
     BWD_LAUNCHES += 1
+    BWD_FAMILY_LAUNCHES[card_family(d, q.dtype)] += 1
     return (dq, dk, dv, grads_c) if return_compact else (dq, dk, dv)
 
 

@@ -9,8 +9,10 @@ at bf16 and D = 48 K1f is the tensor-core forward core
 ``csrc/dilated_fwd_wgmma.cu`` into K3's compact rows and K3f's mix, and K1b
 a prep onto those rows, the tensor-core gradient core
 ``csrc/dilated_bwd_wgmma.cu`` and K3b's combine, every core shared with K3;
-else K1f is one CUDA-core kernel (every branch and the mix, q/k/v read in
-place) and K1b CUDA-core kernels. A CPU tensor goes to the plain version
+at fp32 and D = 48 K1b is the same prep and combine around the 3xTF32
+gradient core ``csrc/dilated_bwd_tf32.cu``; else K1f is one CUDA-core
+kernel (every branch and the mix, q/k/v read in place) and K1b CUDA-core
+kernels. A CPU tensor goes to the plain version
 :func:`.dilated.dilated_attention`, and autograd differentiates it.
 
 When the forward is recorded for autograd, K1f also writes what K1b needs:
@@ -45,11 +47,13 @@ from ._build import check_launch, load_library
 from .dilated import check_q_token_range, dilated_attention
 from .kept import kept
 
-# Kernel launches since the last reset (read by chip_smoke.py): K1f and K1b,
-# and apart from them their launches with a q_token_range (K1b in two parts:
-# part 0 with the range's, part 1 on its own).
+# Kernel launches since the last reset (read by chip_smoke.py): K1f and K1b
+# (K1b's also by family, dilated_fused.FAMILIES), and apart from them their
+# launches with a q_token_range (K1b in two parts: part 0 with the range's,
+# part 1 on its own).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+BWD_FAMILY_LAUNCHES = {"cuda_cores": 0, "wgmma": 0, "tf32x3": 0}
 QRANGE_LAUNCHES = 0
 BWD_QRANGE_LAUNCHES = 0
 BWD_PART1_LAUNCHES = 0
@@ -181,11 +185,12 @@ def mega_dilated_attention_backward_cuda(
         dilated_ratios: Sequence[int], scale: float,
         q_token_range: Optional[Tuple[int, int]] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch K1b on ``q``'s device and current stream: in the tensor-core
-    family the compact prep, the dq and dk/dv kernels of the gradient core
-    (the dq kernel takes ``delta_b``) and the combine, over fp32 compact
-    scratch (``(3, B, H, M)`` row statistics and ``(3, B, H, M, D)``
-    gradients, 567 MB at the train step's shape); in the CUDA-core family
+    """Launch K1b on ``q``'s device and current stream: in a tensor-core
+    family (``"wgmma"`` at bf16, ``"tf32x3"`` at fp32) the compact prep, the
+    dq and dk/dv kernels of its gradient core (the dq kernel takes
+    ``delta_b``) and the combine, over fp32 compact scratch (``(3, B, H,
+    M)`` row statistics and ``(3, B, H, M, D)`` gradients, 567 MB at the
+    train step's shape); in the CUDA-core family
     the mix weights and ``delta_b`` (rebuilt over each row's keys), then
     dq, then dk/dv. Returns ``(dq, dk, dv)``; with the forward's
     ``q_token_range``, dq zero outside it and the range's share of dk/dv."""
@@ -207,7 +212,8 @@ def mega_dilated_attention_backward_cuda(
         raise ValueError("stats do not match the forward's")
     f32 = dict(dtype=torch.float32, device=q.device)
     wd = rows_c = grads_c = None
-    if card_family(d, q.dtype) == "wgmma":
+    fam = card_family(d, q.dtype)
+    if fam != "cuda_cores":
         rows = total_rows(length, segs, ratios)
         rows_c = torch.empty((3, b, h, rows), **f32)
         grads_c = torch.empty((3, b, h, rows, d), **f32)
@@ -228,6 +234,7 @@ def mega_dilated_attention_backward_cuda(
     check_launch(err, "mt_dilated_attention_bwd")
     if q_token_range is None:
         BWD_LAUNCHES += 1
+        BWD_FAMILY_LAUNCHES[fam] += 1
     else:
         BWD_QRANGE_LAUNCHES += 1
     return dq, dk, dv
@@ -240,9 +247,9 @@ def mega_dilated_attention_backward_part_cuda(
         scale: float, part: int, token_range: Tuple[int, int],
         scratch: Tuple[torch.Tensor, torch.Tensor]
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K1b of the tensor-core family in two parts over ``token_range`` (a
-    sequence-parallel rank's rows, :mod:`.dilated_sp`), on ``q``'s device
-    and current stream. ``scratch`` is ``(rows_c (3, B, H, M), grads_c (3,
+    """K1b of the bf16 tensor-core family in two parts over
+    ``token_range`` (a sequence-parallel rank's rows, :mod:`.dilated_sp`),
+    on ``q``'s device and current stream. ``scratch`` is ``(rows_c (3, B, H, M), grads_c (3,
     B, H, M, D))`` fp32, the same for both parts (:func:`part_scratch`).
     Part 0 (``dmix`` nonzero on the range's rows at least): ``dq`` of the
     range, 0 elsewhere, and in ``rows_c[2]`` every compact row's delta, 0

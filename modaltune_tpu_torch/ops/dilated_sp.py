@@ -17,15 +17,15 @@ each layer's attention is the island here:
 * backward: every rank's cotangent rows (and, on the card, its stats
   columns) are gathered, and each rank takes dq of its own queries and
   dk/dv of its own keys over every query, so the step's gradients are one
-  process's bits. In K1b's tensor-core family (bf16, D = 48, GigaPath's
+  process's bits. In K1b's bf16 tensor-core family (D = 48, GigaPath's
   path) each rank does half the work: K1b's part 0 gives its dq and its
   queries' delta, the group sums the delta planes (each row is one
   rank's), and part 1 streams every query tile over the rank's key tiles
   in the whole call's order
   (:func:`.dilated_mega.mega_dilated_attention_backward_part_cuda`).
-  Elsewhere (K1b's CUDA-core family, fp32 or another D; the plain version
-  on CPU tensors) the rank runs the whole sequence's backward and keeps
-  its rows. JAX's island instead sums every rank's partial dk/dv over the
+  Elsewhere (K1b's fp32 families, the 3xTF32 core at D = 48 and the CUDA
+  cores at another D, and bf16 at another D; the plain version on CPU
+  tensors) the rank runs the whole sequence's backward and keeps its rows. JAX's island instead sums every rank's partial dk/dv over the
   group (a reduce-scatter): partial sums added across ranks round
   otherwise than one sequential sum, which in bf16 read 2.344e-2 against
   the 2e-2 row-scaled gate of ``chip_smoke.phase_parallel``.

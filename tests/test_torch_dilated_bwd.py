@@ -1,9 +1,10 @@
-"""The tensor-core family of the dilated attention backward (K1b and K3b at
-bf16, D = 48) emulated step by step on the CPU, against the plain versions
-and JAX's Pallas kernels.
+"""The tensor-core families of the dilated attention backward (K1b and K3b
+at D = 48: bf16 on wgmma, fp32 on 3xTF32) emulated step by step on the CPU,
+against the plain versions and JAX's Pallas kernels.
 
-``csrc/dilated_bwd_wgmma.cu`` cannot run here. What it computes is written
-out below in the order the card computes it:
+``csrc/dilated_bwd_wgmma.cu`` and ``csrc/dilated_bwd_tf32.cu`` cannot run
+here. What they compute is written out below in the order the card
+computes it (the fp32 core's differences after the list):
 
 * a prep writes per compact row (``ops/dilated_fused.py``'s layout) the
   branch's lse and the demix weight ``w = exp(lse - m) / Z``: K1b's from
@@ -29,6 +30,17 @@ out below in the order the card computes it:
 
 The compact gradients and delta start as NaN; the core writes every row,
 zeros in the rows that are no real position.
+
+The fp32 core (``"tf32x3"``) runs the same tiles, preps, delta and combine
+on fp32 operands, every product as ``mma.sync`` m16n8k8 steps of 8 along
+its inner dimension: each operand, P, P w dP and dS included, split into
+hi = tf32(x) and lo = tf32(x - hi) (``cvt.rna.tf32.f32``: nearest, ties
+away from zero, 10 mantissa bits), and each step adding lo hi, hi lo and
+hi hi to the fp32 accumulator in that order; dq's, dk's and dv's products
+sum each half tile (32 keys or queries) into a fresh accumulator, added to
+the running sum in fp32.
+It is held to the plain version and to JAX's kernels at the fp32 limits
+below; one TF32 product (``"tf32"``) is shown to miss them.
 
 In fp32 the emulation is held against JAX's ``mega_dilated_attention`` and
 ``fused_dilated_attention`` (their backward Pallas kernels in interpret
@@ -88,9 +100,16 @@ def _load_chip_smoke():
 chip_smoke = _load_chip_smoke()
 
 
+# The roundings of the bf16 core (``"parts"``, the card's; ``"once"``) and
+# of the fp32 core (``"tf32x3"``, the card's; ``"tf32"``, one TF32 product).
+BF16 = ("parts", "once")
+TF32 = ("tf32x3", "tf32")
+
+
 def _round(x, rounding):
-    """The bf16 operands: x rounded to bf16 under any rounding."""
-    return x.bfloat16().float() if rounding else x
+    """The bf16 operands: x rounded to bf16 under a bf16 rounding; fp32
+    operands as they are (the TF32 roundings split them in the products)."""
+    return x.bfloat16().float() if rounding in BF16 else x
 
 
 def _operand(x, rounding):
@@ -102,6 +121,66 @@ def _operand(x, rounding):
         return x
     hi = x.bfloat16().float()
     return hi + (x - hi).bfloat16().float() if rounding == "parts" else hi
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: x rounded to nearest, ties away from zero, to
+    10 mantissa bits (the low 13 bits of its fp32 encoding zero); inf and
+    nan as they are."""
+    bits = x.contiguous().numpy().view(np.uint32)
+    rounded = (bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    return torch.where(torch.isfinite(x),
+                       torch.from_numpy(rounded.view(np.float32).copy()), x)
+
+
+def _tf32_parts(x):
+    """x as the 3xTF32 core splits it: hi = tf32(x), lo = tf32(x - hi)."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _product(acc, a, b, rounding):
+    """``acc + a @ b`` as the fp32 core's ``mma.sync`` m16n8k8 steps add it
+    into its accumulator, step by step of 8 along the inner dimension:
+    under ``"tf32x3"`` lo(a) hi(b), then hi(a) lo(b), then hi(a) hi(b)
+    (the card's order); under ``"tf32"`` hi(a) hi(b) alone. The 8 products
+    of a step are summed in fp32 (inside the tensor core on the card, in
+    an order this does not model)."""
+    k = a.shape[1]
+    ah, al = _tf32_parts(a)
+    bh, bl = _tf32_parts(b)
+
+    def steps(x, y):   # (k / 8, M, N): each 8-deep step's product
+        return torch.einsum("mkc,kcn->kmn", x.reshape(-1, k // 8, 8),
+                            y.reshape(k // 8, 8, -1))
+    terms = ([steps(al, bh), steps(ah, bl), steps(ah, bh)]
+             if rounding == "tf32x3" else [steps(ah, bh)])
+    for s in range(k // 8):
+        for term in terms:
+            acc = acc + term[s]
+    return acc
+
+
+def _scores(a, b, rounding):
+    """A score tile ``a @ b.T`` (q k^T, dmix v^T and their transposes)."""
+    if rounding in TF32:
+        return _product(torch.zeros(a.shape[0], b.shape[0]), a, b.T,
+                        rounding)
+    return a @ b.T
+
+
+def _accumulate(acc, x, b, rounding):
+    """``acc + x @ b`` for a register tile x (P, P w dP, P^T w, dS^T); the
+    fp32 core multiplies a tile in two halves of 32 keys (queries), each
+    summed into a fresh accumulator that is added to ``acc`` in fp32 (its
+    tensor cores add by truncation, so a long stream is not left in one of
+    their accumulators)."""
+    if rounding in TF32:
+        for h in (slice(0, TILE // 2), slice(TILE // 2, TILE)):
+            acc = acc + _product(torch.zeros_like(acc), x[:, h], b[h],
+                                 rounding)
+        return acc
+    return acc + _operand(x, rounding) @ b
 
 
 # ---------------------------------------------------------------------------
@@ -242,10 +321,12 @@ def emulate_core(q, k, v, mask, dmix, lse_c, w_c, segs, ratios, scale,
     """The dq and dk/dv kernels: compact fp32 ``(3, B, H, M, D)`` dq, dk,
     dv, zeros in the rows that are no real position, and the dq kernel's
     ``delta_c (B, H, M)``; a row no block writes would stay NaN.
-    ``rounding``: None (fp32), ``"parts"`` (the card: bf16 operands, P and
-    dS as hi + lo bf16 parts) or ``"once"`` (P and dS rounded once to
-    bf16). Returns the gradients, delta and the number of key tiles the dq
-    kernel skipped."""
+    ``rounding``: None (fp32), ``"parts"`` (the bf16 core: bf16 operands, P
+    and dS as hi + lo bf16 parts), ``"once"`` (P and dS rounded once to
+    bf16), ``"tf32x3"`` (the fp32 core: every operand of every product, P
+    and dS included, split into TF32 hi + lo parts, :func:`_product`) or
+    ``"tf32"`` (one TF32 product). Returns the gradients, delta and the
+    number of key tiles the dq kernel skipped."""
     b_, length, heads, d = q.shape
     valid = torch.ones(b_, length, dtype=torch.bool) if mask is None \
         else mask.bool()
@@ -306,12 +387,12 @@ def emulate_core(q, k, v, mask, dmix, lse_c, w_c, segs, ratios, scale,
             k_t, pos, real = _gather_tile(k, b, h, ft, t, length)
             v_t, _, _ = _gather_tile(v, b, h, ft, t, length)
             k_t, v_t = _round(k_t, rounding), _round(v_t, rounding)
-            p = torch.exp2((q_o @ k_t.T) * scale2 + (
+            p = torch.exp2(_scores(q_o, k_t, rounding) * scale2 + (
                 key_term(b, pos, real)[None, :] - lse2[:, None]))
-            dp = do_o @ v_t.T
+            dp = _scores(do_o, v_t, rounding)
             rs = rs + _quad_rowsum(p * dp)
-            acc = acc + _operand(p * (w[:, None] * dp), rounding) @ k_t
-            acc_b = acc_b + _operand(p, rounding) @ k_t
+            acc = _accumulate(acc, p * (w[:, None] * dp), k_t, rounding)
+            acc_b = _accumulate(acc_b, p, k_t, rounding)
         delta = w * ((rs[:, 0] + rs[:, 1]) + (rs[:, 2] + rs[:, 3]))
         acc = acc - delta[:, None] * acc_b
         delta = torch.where(torch.arange(TILE) < n_own, delta, 0.0)
@@ -335,11 +416,12 @@ def emulate_core(q, k, v, mask, dmix, lse_c, w_c, segs, ratios, scale,
             do_t, _, _ = _gather_tile(dmix, b, h, ft, t, length)
             q_t, do_t = _round(q_t, rounding), _round(do_t, rounding)
             lse2_t, w_t, delta_t = other_stats(b, h, ft, t)
-            pt = torch.exp2((k_o @ q_t.T) * scale2 + (kadd[:, None]
-                                                       - lse2_t[None, :]))
-            dst = pt * (w_t[None, :] * (v_o @ do_t.T) - delta_t[None, :])
-            acc_v = acc_v + _operand(pt * w_t[None, :], rounding) @ do_t
-            acc_k = acc_k + _operand(dst, rounding) @ q_t
+            pt = torch.exp2(_scores(k_o, q_t, rounding) * scale2 + (
+                kadd[:, None] - lse2_t[None, :]))
+            dst = pt * (w_t[None, :] * _scores(v_o, do_t, rounding)
+                        - delta_t[None, :])
+            acc_v = _accumulate(acc_v, pt * w_t[None, :], do_t, rounding)
+            acc_k = _accumulate(acc_k, dst, q_t, rounding)
         grads[1, b, h, rows] = (acc_k * scale)[:n_rows]
         grads[2, b, h, rows] = acc_v[:n_rows]
     return grads, delta_c, skipped
@@ -613,11 +695,116 @@ def test_emulation_masks_exactly(route):
     assert skipped == want > 0
 
 
-# (Lq, D, dtype) -> family: GigaPath's head size in bf16 and fp32, the
+@pytest.mark.parametrize("route", ["mega", "fused"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_tf32x3_emulation_matches_plain(route, name):
+    """The fp32 core as the card runs it (3xTF32): both routes' emulation
+    computes autograd through the plain ``dilated_attention`` in fp32 on
+    every row within ``PLAIN_TOL``, and writes every compact row, zeros
+    where a row is no real position."""
+    q, k, v, mask, cot, segs, ratios = (_t(x) if i < 5 else x for i, x in
+                                        enumerate(_case(name)))
+    got, grads_c, _ = EMULATIONS[route](q, k, v, mask, cot, segs, ratios,
+                                        48 ** -0.5, "tf32x3")
+    real, _ = _compact_positions(q.shape[1], q.shape[2], segs, ratios)
+    assert torch.isfinite(grads_c).all()
+    assert (grads_c[:, :, ~real] == 0).all()
+    want = _plain_grads(q, k, v, mask, cot, segs, ratios)
+    for n, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=PLAIN_TOL,
+                                   rtol=PLAIN_TOL, err_msg=f"{route} {n}")
+
+
+def _jax_case(route, seed=3):
+    """A geometry JAX's kernel for ``route`` takes, fp32, and its
+    gradients through that kernel in interpret mode."""
+    b, length, h, segs, ratios, lens = JAX_CASES[route]
+    rng = np.random.RandomState(seed)
+    q, k, v, cot = (rng.randn(b, length, h, 48).astype(np.float32)
+                    for _ in range(4))
+    mask = np.arange(length)[None, :] < np.array(lens)[:, None]
+    cot = cot * mask[:, :, None, None]
+    want = _jax_grads(j_mega if route == "mega" else j_fused, q, k, v, mask,
+                      cot, segs, ratios)
+    return (q, k, v, mask, cot, segs, ratios), want
+
+
+@pytest.mark.parametrize("route", sorted(JAX_CASES))
+def test_tf32x3_emulation_matches_jax_kernels(route):
+    """The fp32 core (3xTF32) computes the gradients of JAX's Pallas
+    kernels at fp32 (every dot at ``Precision.HIGHEST``), on the valid
+    rows within ``JAX_TOL``: ``_mega_bwd_call`` and ``_branch_bwd_call`` +
+    ``_combine_call``."""
+    (q, k, v, mask, cot, segs, ratios), want = _jax_case(route)
+    got, _, _ = EMULATIONS[route](_t(q), _t(k), _t(v), _t(mask), _t(cot),
+                                  segs, ratios, 48 ** -0.5, "tf32x3")
+    m = mask[:, :, None, None]
+    for n, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy() * m, np.asarray(w) * m,
+                                   atol=JAX_TOL, rtol=JAX_TOL,
+                                   err_msg=f"{route} {n}")
+
+
+def _excess(got, want, tol):
+    """How far the worst element lies past ``assert_allclose``'s bound
+    ``tol + tol |want|`` (positive: the bound is missed)."""
+    return max(((g - w).abs() - tol - tol * w.abs()).max().item()
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("reference", ["plain", "jax"])
+def test_single_tf32_misses_the_fp32_gates(reference):
+    """One TF32 product (hi hi alone, about three decimal digits) misses
+    the fp32 limits where three hold them, on the same inputs: against
+    the plain version ``PLAIN_TOL`` and chip_smoke.py's fp32 gradient
+    limit (rel-L2 ``GRAD_LIMITS["float32"]``, 5e-4 read against 4e-7),
+    against JAX's kernels ``JAX_TOL``. The reason the fp32 core takes
+    three TF32 products for each fp32 one."""
+    if reference == "plain":
+        q, k, v, mask, cot, segs, ratios = (
+            _t(x) if i < 5 else x for i, x in
+            enumerate(_case("no_segment_divides")))
+        want, tol, m = _plain_grads(q, k, v, mask, cot, segs, ratios), \
+            PLAIN_TOL, 1.0
+    else:
+        (q, k, v, mask, cot, segs, ratios), want = _jax_case("mega")
+        q, k, v, mask, cot = (_t(x) for x in (q, k, v, mask, cot))
+        want = [torch.from_numpy(np.array(w)) for w in want]
+        tol, m = JAX_TOL, mask[:, :, None, None]
+    want = [w * m for w in want]
+    rel_limit = chip_smoke.GRAD_LIMITS["float32"][0]
+    for rounding, misses in (("tf32x3", False), ("tf32", True)):
+        got, _, _ = emulate_mega_backward(q, k, v, mask, cot, segs, ratios,
+                                          48 ** -0.5, rounding)
+        got = [g * m for g in got]
+        rel = max(chip_smoke.grad_readings(g, w, cot)[0]
+                  for g, w in zip(got, want))
+        excess = _excess(got, want, tol)
+        assert (excess > 0) == misses and (rel > rel_limit) == misses, \
+            (rounding, excess, rel)
+
+
+@pytest.mark.parametrize("route", ["mega", "fused"])
+def test_tf32x3_emulation_masks_exactly(route):
+    """In fp32 as the card runs it: a masked key's dk and dv are exactly 0,
+    a batch row without a valid key has zero gradients, and the dq kernel
+    skips the key tiles without a valid key, as in bf16."""
+    q, k, v, mask, cot, segs, ratios = (_t(x) if i < 5 else x for i, x in
+                                        enumerate(_case("dead_tiles", 2)))
+    (dq, dk, dv), _, skipped = EMULATIONS[route](
+        q, k, v, mask, cot, segs, ratios, 48 ** -0.5, "tf32x3")
+    assert (dk[~mask] == 0).all() and (dv[~mask] == 0).all()
+    assert all((g[1] == 0).all() for g in (dq, dk, dv))
+    assert skipped > 0
+
+
+# (D, dtype) -> family: GigaPath's head size in bf16 and fp32, the
 # adapter's D = 16, the other padded head sizes
 FAMILY_CASES = [
     (48, torch.bfloat16, "wgmma"),
-    (48, torch.float32, "cuda_cores"),
+    (48, torch.float32, "tf32x3"),
+    (32, torch.float32, "cuda_cores"),
+    (16, torch.float32, "cuda_cores"),
     (16, torch.bfloat16, "cuda_cores"),
     (32, torch.bfloat16, "cuda_cores"),
     (64, torch.bfloat16, "cuda_cores"),

@@ -30,13 +30,15 @@ dilated attention's): the five branch geometries at 2,048 tokens, lengths
 off the 64-row tile, Lq != Lk both ways, dead key tiles between live ones,
 a dead bh, a finite bias, bit-equal reruns, the launch counts by family, the
 family rule on both sides and a misaligned view raising. For the
-tensor-core family of K1b and K3b (bf16, D = 48): every ratio at a length
-no segment divides with L % 16 != 0, one
+tensor-core families of K1b and K3b (bf16 on wgmma, fp32 on 3xTF32;
+D = 48): every ratio at a length no segment divides with L % 16 != 0, one
 and three batch rows, a prefix mask and masked stretches that leave dead
 key tiles between live ones, a batch row without a valid key, reruns
 bit-equal, masked keys' dk and dv exactly 0, both routes against each
-other, and the family rule of the C entry points against the CPU's copy
-(K3b's compact gradients at D = 48 are the K3 cases' above); for the same
+other, the family rule of the C entry points against the CPU's copy
+(K3b's compact gradients at D = 48 are the K3 cases' above), and at fp32
+the launches by family, a misaligned operand raising and K1b's token
+ranges against the whole call; for the bf16
 family of K1f (with and without stats) and K3f the same geometries, the
 outputs by ``chip_smoke.check_out``, K1's stats plane, K3's compact
 pieces and (m, Z), reruns bit-equal, both routes' outputs
@@ -983,8 +985,8 @@ WGMMA_IDS = ["every_ratio", "gigapath_2048", "dead_row", "no_mask"]
 ROUTES = ["mega", "fused"]
 
 
-def _wgmma_inputs(b, length, h, mask, device):
-    q, k, v, dmix = (_randn((b, length, h, 48), s, device, torch.bfloat16)
+def _wgmma_inputs(b, length, h, mask, device, dtype=torch.bfloat16):
+    q, k, v, dmix = (_randn((b, length, h, 48), s, device, dtype)
                      for s in (31, 32, 33, 34))
     m = torch.ones(b, length, dtype=torch.bool)
     pos = torch.arange(length)
@@ -1160,6 +1162,130 @@ def test_k1f_range_stats_are_the_whole_calls_columns(cuda_device, dtype, n):
         cols.append(stats[..., rng[0]:rng[1]])
     gathered = torch.cat(cols, dim=2)
     assert torch.equal(gathered, whole_stats)
+
+
+# ---------------------------------------------------------------------------
+# K1b and K3b: the 3xTF32 family (fp32, D = 48)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("b,length,h,segs,ratios,mask", WGMMA_CASES,
+                         ids=WGMMA_IDS)
+def test_tf32x3_backward_matches_autograd(cuda_device, route, b, length, h,
+                                          segs, ratios, mask):
+    """K1b and K3b at fp32 and D = 48 (the 3xTF32 core, the family the
+    entry points choose) against autograd through the plain version in
+    fp32 on the valid rows: by the max-scaled bound ``GRAD_TOL`` and by
+    ``chip_smoke.check_grads``' fp32 limits (rel-L2 <= 1e-5, row-scaled
+    <= 5e-5); a masked key's dk and dv exactly 0, a batch row without a
+    valid key all 0, a rerun bit-equal."""
+    assert df.card_family(48, torch.float32) == "tf32x3"
+    q, k, v, dmix, m, arg = _wgmma_inputs(b, length, h, mask, cuda_device,
+                                          torch.float32)
+    valid = m[:, :, None, None]
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    torch.autograd.backward(dilated_attention(
+        *leaves, segment_lengths=segs, dilated_ratios=ratios, mask=arg), dmix)
+    want = [x.grad * valid for x in leaves]
+    got = _wgmma_backward(route, q, k, v, arg, dmix, segs, ratios)
+    torch.cuda.synchronize()
+    got_valid = [g_ * valid for g_ in got]
+    for name, g_, w_ in zip(("dq", "dk", "dv"), got_valid, want):
+        assert g_.dtype == torch.float32, name
+        _assert_grad_close(g_, w_, f"{route} {name}")
+    chip_smoke.check_grads(("dq", "dk", "dv"), got_valid, want, dmix,
+                           "float32", route)
+    for name, g_ in zip(("dk", "dv"), got[1:]):
+        assert (g_[~m] == 0).all(), f"{name} of masked keys"
+    if mask == "dead":
+        assert all((g_[1] == 0).all() for g_ in got)
+    again = _wgmma_backward(route, q, k, v, arg, dmix, segs, ratios)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+def test_tf32x3_routes_agree(cuda_device):
+    """At fp32 K1b and K3b share the 3xTF32 core and the combine; their
+    gradients differ only through their forwards' statistics and preps,
+    within the fp32 limits."""
+    b, length, h, segs, ratios, mask = WGMMA_CASES[0]
+    q, k, v, dmix, _, m = _wgmma_inputs(b, length, h, mask, cuda_device,
+                                        torch.float32)
+    g1 = _wgmma_backward("mega", q, k, v, m, dmix, segs, ratios)
+    g3 = _wgmma_backward("fused", q, k, v, m, dmix, segs, ratios)
+    chip_smoke.check_grads(("dq", "dk", "dv"), g1, g3, dmix, "float32",
+                           "mega vs fused")
+
+
+def test_tf32x3_functions_count_by_family(cuda_device):
+    """The autograd Functions at fp32, D = 48 run K1b and K3b on the 3xTF32
+    family, counted in BWD_LAUNCHES and by family; at D = 16 on the CUDA
+    cores."""
+    kw = dict(segment_lengths=(64, 128), dilated_ratios=(1, 2))
+    for d, fam in ((48, "tf32x3"), (16, "cuda_cores")):
+        q, k, v = (_randn((1, 128, 4, d), s, cuda_device).requires_grad_()
+                   for s in (36, 37, 38))
+        for mod, fn in ((dm, dm.mega_dilated_attention),
+                        (df, df.fused_dilated_attention)):
+            mod.BWD_LAUNCHES = 0
+            mod.BWD_FAMILY_LAUNCHES.update(
+                dict.fromkeys(mod.BWD_FAMILY_LAUNCHES, 0))
+            fn(q, k, v, **kw).sum().backward()
+            assert mod.BWD_LAUNCHES == mod.BWD_FAMILY_LAUNCHES[fam] == 1, \
+                (mod.__name__, d, mod.BWD_FAMILY_LAUNCHES)
+
+
+def test_tf32x3_raises_on_a_misaligned_tensor(cuda_device):
+    """The 3xTF32 core gathers 16-byte chunks: an operand off 16 bytes
+    raises in either route's backward; it never falls back to the CUDA
+    cores."""
+    x = _randn((1, 64 * 16 * 48 + 4), 39, cuda_device)
+    q = x[0, 1:1 + 64 * 16 * 48].view(1, 64, 16, 48)   # 4 bytes off
+    a = q.clone()                          # a fresh, aligned allocation
+    scale = 48 ** -0.5
+    _, stats = dm.mega_dilated_attention_cuda(a, a, a, None, (64,), (1,),
+                                              scale, with_stats=True)
+    with pytest.raises(RuntimeError):
+        dm.mega_dilated_attention_backward_cuda(q, q, q, None, a, stats,
+                                                (64,), (1,), scale)
+    _, _, lse_c, st = df.fused_dilated_attention_cuda(
+        a, a, a, None, (64,), (1,), scale)
+    with pytest.raises(RuntimeError):
+        df.fused_dilated_attention_backward_cuda(
+            q, q, q, None, a, lse_c, st, (64,), (1,), scale)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_tf32x3_range_gives_the_whole_calls_rows(cuda_device, n):
+    """K1b at fp32 with each of ``n`` token ranges (the sequence-parallel
+    shards' rows, fed K1f's stats with the range): dq is 0 outside the
+    range and the whole call's bits inside it; the ranges' dk and dv sum
+    to the whole call's within the fp32 limits."""
+    b, length, h, segs, ratios, mask = WGMMA_CASES[1]
+    q, k, v, dmix, m, arg = _wgmma_inputs(b, length, h, mask, cuda_device,
+                                          torch.float32)
+    scale = 48 ** -0.5
+    _, whole_stats = dm.mega_dilated_attention_cuda(
+        q, k, v, arg, segs, ratios, scale, with_stats=True)
+    whole = dm.mega_dilated_attention_backward_cuda(
+        q, k, v, arg, dmix, whole_stats, segs, ratios, scale)
+    size = length // n
+    dk_sum, dv_sum = torch.zeros_like(q), torch.zeros_like(q)
+    for i in range(n):
+        rng = (i * size, (i + 1) * size)
+        _, stats = dm.mega_dilated_attention_cuda(
+            q, k, v, arg, segs, ratios, scale, with_stats=True,
+            q_token_range=rng)
+        dq, dk, dv = dm.mega_dilated_attention_backward_cuda(
+            q, k, v, arg, dmix, stats, segs, ratios, scale,
+            q_token_range=rng)
+        outside = torch.ones(length, dtype=torch.bool, device=cuda_device)
+        outside[rng[0]:rng[1]] = False
+        assert not dq[:, outside].any()
+        assert torch.equal(dq[:, rng[0]:rng[1]], whole[0][:, rng[0]:rng[1]])
+        dk_sum += dk
+        dv_sum += dv
+    chip_smoke.check_grads(("dk", "dv"), (dk_sum, dv_sum), whole[1:], dmix,
+                           "float32", f"{n} ranges")
 
 
 # ---------------------------------------------------------------------------
