@@ -7,13 +7,14 @@ Builds the port's CUDA kernels from ``modaltune_tpu_torch/csrc``, holds
 each against its plain PyTorch version at the shapes of the model steps
 (the forward kernels K1f, K2f, K3f, K4f, K5f and the statistics of K1f and
 K3f; the backward kernels K1b, K2b, K3b, K4b, K5b; K1f and K1b also with a
-``q_token_range``, a sequence-parallel shard's rows; K1b and K3b in both
-of their tensor-core families, bf16 on wgmma and fp32 on 3xTF32), times
+``q_token_range``, a sequence-parallel shard's rows; K1f, K3f, K1b and K3b
+in both of their tensor-core families, bf16 on wgmma and fp32 on 3xTF32,
+the forward core and the mix also each alone), times
 each beside its plain version and, where one PyTorch call computes the
 same function, beside that call (``scaled_dot_product_attention``; timed
 here, used nowhere in the port), and computes the least time the card
-could take for the same work. Then it drives thirty paths end to end at full
-published width with random weights from a seeded generator, each with
+could take for the same work. Then it drives thirty-one paths end to end at
+full published width with random weights from a seeded generator, each with
 every launch count set to 0 just before and read just after. Every train
 step runs the LongNet layers rematerialized under the configuration's
 default policy, ``"flash"`` (``models/longnet.py``): the backward runs
@@ -25,8 +26,10 @@ kernel. The paths:
   three synthetic 10,239-patch slides, and a few train steps (KD loss,
   AdamW on the adapter, bf16 compute, dropout on) on one;
 * the same train step with the frozen backbone in fp32 and no autocast,
-  the CLI's ``--bf16 0`` (K1b on its 3xTF32 family, K1f and K2 on the
-  CUDA cores), timed beside the bf16 step;
+  the CLI's ``--bf16 0`` (K1f and K1b on their 3xTF32 family, K2 on the
+  CUDA cores), and the same on the fused route (K3f and K3b on 3xTF32, K5
+  on its generic fp32 kernels, held to their plain versions), each timed
+  beside the bf16 step;
 * the same model on its other kernel route (``mega_attention=False``: the
   per-branch attention kernels K3 in place of K1; ``fused_gelu_ln=True``:
   the fused GELU -> LayerNorm K5 in place of two ops), the same two steps
@@ -174,12 +177,13 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+def device_ms(fn, iters: int = 10, warmup: int = 2):
     """Mean device time of one ``fn()`` call: the summed duration of the
     kernels, copies and sets that ``iters`` calls ran on the card, from
-    ``torch.profiler``, over ``iters``. Unlike :func:`time_ms` it leaves
-    out the host's time to enqueue them, which a call of a few tens of
-    microseconds on the card does not hide."""
+    ``torch.profiler``, over ``iters``; ``None`` where the profiler
+    recorded no device event (:func:`device_times`). Unlike
+    :func:`time_ms` it leaves out the host's time to enqueue them, which a
+    call of a few tens of microseconds on the card does not hide."""
     return device_times(fn, iters, warmup)[0]
 
 
@@ -194,8 +198,9 @@ def device_times(fn, iters: int = 10, warmup: int = 2):
     back no device event at all, at any shape: it is profiled again, up
     to three times, and if none of the three holds a device event the
     ``iters`` calls are timed by CUDA events instead (the host's enqueue
-    time included), the split is ``None``, and the fallback is printed
-    and counted in :data:`DEVICE_TIMES`."""
+    time included), that time is printed and counted in
+    :data:`DEVICE_TIMES`, and the reading is ``(None, None)``: not a card
+    time (printed "not measured", null in the kernels line)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -225,8 +230,9 @@ def device_times(fn, iters: int = 10, warmup: int = 2):
         ms = start.elapsed_time(end) / iters
         print(f"device time: the profiler recorded no device event in three "
               f"runs; {iters} calls timed by CUDA events instead, {ms:.4f} "
-              f"ms a call (host enqueue included)", flush=True)
-        return ms, None
+              f"ms a call (host enqueue included; not a card time)",
+              flush=True)
+        return None, None
     by_name = {}
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + \
@@ -237,6 +243,12 @@ def device_times(fn, iters: int = 10, warmup: int = 2):
 def fmt_ms(ms) -> str:
     """``ms`` to four places, or "not measured" for ``None``."""
     return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def fmt_ratio(a, b) -> str:
+    """``a / b`` to three places, or "not measured" where either is
+    ``None`` (a card time the profiler did not record)."""
+    return "not measured" if a is None or b is None else f"{a / b:.3f}"
 
 
 def timed_once(fn):
@@ -315,8 +327,8 @@ K5_ROUTES = ("ROWS_LAUNCHES", "BWD_ROWS_LAUNCHES", "BWD_DX_ONLY_LAUNCHES")
 
 
 def reset_counts() -> None:
-    """Set every kernel's launch count to 0, K5's by route and K2's by
-    family too."""
+    """Set every kernel's launch count to 0, K5's by route and K2's, K1's
+    and K3's by family too."""
     for module, attr in COUNTERS.values():
         setattr(importlib.import_module(module), attr, 0)
     gl = importlib.import_module(COUNTERS["K5f"][0])
@@ -324,31 +336,33 @@ def reset_counts() -> None:
         setattr(gl, attr, 0)
     fa = importlib.import_module(COUNTERS["K2f"][0])
     for counts in (fa.FAMILY_LAUNCHES, fa.BWD_FAMILY_LAUNCHES,
-                   *bwd_family_counts().values()):
+                   *dilated_family_counts().values()):
         counts.update(dict.fromkeys(counts, 0))
 
 
-def bwd_family_counts() -> dict:
-    """K1b's and K3b's launch counts by family (``ops/dilated_fused.py``'s
-    FAMILIES), the wrappers' own dicts."""
+def dilated_family_counts() -> dict:
+    """K1f's, K3f's, K1b's and K3b's launch counts by family
+    (``ops/dilated_fused.py``'s FAMILIES), the wrappers' own dicts."""
     return {k: getattr(importlib.import_module(COUNTERS[k][0]),
-                       "BWD_FAMILY_LAUNCHES") for k in ("K1b", "K3b")}
+                       "BWD_FAMILY_LAUNCHES" if k.endswith("b")
+                       else "FAMILY_LAUNCHES")
+            for k in ("K1f", "K3f", "K1b", "K3b")}
 
 
-def check_bwd_families(tag: str, launches: dict, dtype) -> dict:
-    """On a path's run: every K1b and K3b launch took the family of the
-    backbone's dtype at D = 48 (``wgmma`` at bf16, ``tf32x3`` at fp32).
-    Returns the launches by family."""
+def check_dilated_families(tag: str, launches: dict, dtype) -> dict:
+    """On a path's run: every K1f, K3f, K1b and K3b launch took the family
+    of the backbone's dtype at D = 48 (``wgmma`` at bf16, ``tf32x3`` at
+    fp32), forward and backward. Returns the launches by family."""
     df = importlib.import_module(COUNTERS["K3b"][0])
     want = df.family(48, dtype)
-    got = {k: dict(c) for k, c in bwd_family_counts().items()}
+    got = {k: dict(c) for k, c in dilated_family_counts().items()}
     check(all(got[k][want] == launches[k] == sum(got[k].values())
               for k in got),
-          f"{tag}: K1b and K3b launches by family {got}, want all "
-          f"{launches['K1b']} and {launches['K3b']} on {want}")
-    if launches["K1b"] or launches["K3b"]:
-        print(f"{tag}: K1b and K3b by family {got}: all on {want}",
-              flush=True)
+          f"{tag}: K1 and K3 launches by family {got}, want all "
+          f"{ {k: launches[k] for k in got} } on {want}")
+    if any(launches[k] for k in got):
+        print(f"{tag}: K1f, K3f, K1b and K3b by family {got}: all on "
+              f"{want}", flush=True)
     return got
 
 
@@ -384,21 +398,23 @@ def check_k2_families(tag: str, launches: dict, d48: int,
     return dict(fwd=fwd, bwd=bwd)
 
 
-def check_k5_routes(tag: str, launches: dict) -> None:
+def check_k5_routes(tag: str, launches: dict, fp32: bool = False) -> None:
     """On a path's run: every K5f and K5b launch took the row-resident
-    kernels, and every K5b launch the variant without dgamma and dbeta
-    (the train steps freeze the backbone)."""
+    kernels (with ``fp32``, an fp32 backbone, the generic ones: the
+    row-resident kernels are bf16's), and every K5b launch the variant
+    without dgamma and dbeta (the train steps freeze the backbone)."""
     gl = importlib.import_module(COUNTERS["K5f"][0])
     rows_f, rows_b, dx_only = (getattr(gl, a) for a in K5_ROUTES)
-    check((rows_f, rows_b, dx_only) ==
-          (launches["K5f"], launches["K5b"], launches["K5b"]),
+    want = (0, 0) if fp32 else (launches["K5f"], launches["K5b"])
+    check((rows_f, rows_b, dx_only) == (*want, launches["K5b"]),
           f"{tag}: K5 launches {launches['K5f']} forward, {launches['K5b']} "
           f"backward, of which row-resident {rows_f} and {rows_b}, without "
           f"dgamma/dbeta {dx_only}")
     if launches["K5f"]:
-        print(f"{tag}: K5f {rows_f} and K5b {rows_b} launches, all on the "
-              f"row-resident kernels; K5b without dgamma/dbeta {dx_only}",
-              flush=True)
+        print(f"{tag}: K5f {launches['K5f']} and K5b {launches['K5b']} "
+              f"launches, all on the "
+              f"{'generic (fp32)' if fp32 else 'row-resident'} kernels; K5b "
+              f"without dgamma/dbeta {dx_only}", flush=True)
 
 
 def read_counts() -> dict:
@@ -592,7 +608,8 @@ def check_out(got, want, dtype_name, what):
 def phase_k2(device, shapes=K2_SHAPES, iters=20):
     """Kernel vs plain version at every shape, fp32 and bf16, the bf16
     output also by :func:`check_out`; times in bf16, where a rerun must
-    give the same bits. Each shape names the kernel family that ran in
+    give the same bits, and in fp32 at :data:`FP32_K2_SHAPES`
+    (:func:`k2_fp32_times`). Each shape names the kernel family that ran in
     bf16 (fp32 runs the CUDA-core kernels). Returns {name: result dict}."""
     import torch
     fa = importlib.import_module("modaltune_tpu_torch.ops.flash_attention")
@@ -617,6 +634,13 @@ def phase_k2(device, shapes=K2_SHAPES, iters=20):
                       bool((got_l[0] == fa.NEG_INF).all()),
                       f"{tag}: a fully masked row is not 0 / NEG_INF")
             res[str(dtype)[6:]] = dict(out_err=err_o, lse_err=err_l)
+            if dtype == torch.float32 and name in FP32_K2_SHAPES:
+                res["fp32"] = k2_fp32_times(
+                    lambda: fa.flash_attention(q, k, v, bias),
+                    lambda: fa.flash_attention_reference(q, k, v, bias),
+                    lambda: sdpa_key_bias(q, k, v, bias), iters,
+                    4 * k2_pairs(bh, lq, lk, bias) * d,
+                    (q, k, v, bias, got_o, got_l))
             if dtype == torch.bfloat16:
                 res["out_rel"], res["out_row"] = check_out(
                     got_o, want_o, "bfloat16", f"{tag} out")
@@ -647,12 +671,46 @@ def phase_k2(device, shapes=K2_SHAPES, iters=20):
               f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
               f"library (SDPA, no lse) {res['library_ms']:.4f} ms, "
               f"kernel / library {res['ms'] / res['library_ms']:.3f}; on the "
-              f"card alone (profiler) kernel {res['device_ms']:.4f} ms, "
-              f"library {res['library_device_ms']:.4f} ms, kernel / library "
-              f"{res['device_ms'] / res['library_device_ms']:.3f}; bound "
+              f"card alone (profiler) kernel {fmt_ms(res['device_ms'])} ms, "
+              f"library {fmt_ms(res['library_device_ms'])} ms, kernel / library "
+              f"{fmt_ratio(res['device_ms'], res['library_device_ms'])}; bound "
               f"{res['bound_ms']:.5f} ms ({res['bound_by']})", flush=True)
+        if "fp32" in res:
+            print(fmt_k2_fp32(f"K2 {name} BH={bh} Lq={lq} Lk={lk} D={d}",
+                              res["fp32"]), flush=True)
         results[name] = res
     return results
+
+
+# The shapes of an fp32 backbone's K2 calls that are timed in fp32 (the
+# CUDA-core family: the adapter's Injector and Extractor at 10,239)
+FP32_K2_SHAPES = ("injector", "extractor")
+
+
+def k2_fp32_times(kernel, plain, library, iters, flops, tensors):
+    """An fp32 K2 call's times: the kernel's, the plain version's and the
+    library call's (``library``, at fp32 with TF32 off, as ``main`` sets
+    it) on both clocks, and the bound on the CUDA cores (``flops`` at
+    :data:`PEAK_FLOPS_FP32`) or by the bytes of ``tensors``."""
+    r = dict(family="cuda_cores", ms=time_ms(kernel, iters),
+             device_ms=device_ms(kernel, iters=3, warmup=1),
+             plain_ms=time_ms(plain, iters),
+             library_ms=time_ms(library, iters),
+             library_device_ms=device_ms(library, iters=3, warmup=1))
+    r["bound_ms"], r["bound_by"] = bound_ms(flops, tensor_bytes(tensors),
+                                            PEAK_FLOPS_FP32)
+    return r
+
+
+def fmt_k2_fp32(tag, r) -> str:
+    return (f"{tag} fp32 ({r['family']}): kernel {r['ms']:.4f} ms (card "
+            f"{fmt_ms(r['device_ms'])}), plain {r['plain_ms']:.4f} ms, library "
+            f"(fp32, TF32 off) {r['library_ms']:.4f} ms (card "
+            f"{fmt_ms(r['library_device_ms'])}), kernel / library "
+            f"{r['ms'] / r['library_ms']:.3f} (card "
+            f"{fmt_ratio(r['device_ms'], r['library_device_ms'])}); bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}, fp32 at "
+            f"{PEAK_FLOPS_FP32 / 1e12:.0f} TFLOP/s)")
 
 
 def phase_k2b(device, shapes=K2_SHAPES, iters=20):
@@ -660,8 +718,10 @@ def phase_k2b(device, shapes=K2_SHAPES, iters=20):
     fp32 and bf16 (the plain version in fp32 on the same values); times in
     bf16, where a rerun must give the same bits and the gradients from the
     kernel's own out and lse are held to the same limits, so that a fault
-    of the forward reaches them too; the bf16 family as in
-    :func:`phase_k2`. Returns {name: result dict}."""
+    of the forward reaches them too, and in fp32 at
+    :data:`FP32_K2_SHAPES` (:func:`k2_fp32_times`, the library call
+    autograd through SDPA); the bf16 family as in :func:`phase_k2`.
+    Returns {name: result dict}."""
     import torch
     fa = importlib.import_module("modaltune_tpu_torch.ops.flash_attention")
     results = {}
@@ -694,6 +754,19 @@ def phase_k2b(device, shapes=K2_SHAPES, iters=20):
                 check(all(bool((gt[0] == 0).all()) for gt in got),
                       f"{tag}: a bh with every key masked has non-zero "
                       f"gradients")
+            if dtype == torch.float32 and name in FP32_K2_SHAPES:
+                leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+                lib_out = sdpa_key_bias(*leaves, bias)
+                res["fp32"] = k2_fp32_times(
+                    lambda: fa.flash_attention_backward_cuda(
+                        q, k, v, bias, out, lse, dout, scale),
+                    lambda: fa.flash_attention_backward_reference(
+                        q, k, v, bias, out, lse, dout),
+                    lambda: torch.autograd.grad(lib_out, leaves, dout,
+                                                retain_graph=True),
+                    iters, 10 * k2_pairs(bh, lq, lk, bias) * d,
+                    (q, k, v, bias, out, lse, dout, *got))
+                del lib_out, leaves
             if dtype == torch.bfloat16:
                 again = fa.flash_attention_backward_cuda(q, k, v, bias, out,
                                                          lse, dout, scale)
@@ -739,11 +812,14 @@ def phase_k2b(device, shapes=K2_SHAPES, iters=20):
               f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
               f"library (autograd through SDPA) {res['library_ms']:.4f} ms, "
               f"kernel / library {res['ms'] / res['library_ms']:.3f}; on the "
-              f"card alone (profiler) kernel {res['device_ms']:.4f} ms, "
-              f"library {res['library_device_ms']:.4f} ms, kernel / library "
-              f"{res['device_ms'] / res['library_device_ms']:.3f}; "
+              f"card alone (profiler) kernel {fmt_ms(res['device_ms'])} ms, "
+              f"library {fmt_ms(res['library_device_ms'])} ms, kernel / library "
+              f"{fmt_ratio(res['device_ms'], res['library_device_ms'])}; "
               f"bound {res['bound_ms']:.5f} ms ({res['bound_by']})",
               flush=True)
+        if "fp32" in res:
+            print(fmt_k2_fp32(f"K2b {name} BH={bh} Lq={lq} Lk={lk} D={d}",
+                              res["fp32"]), flush=True)
         results[name] = res
     return results
 
@@ -808,19 +884,151 @@ def by_rows(fn, tensors, mask, rows):
     return torch.cat(parts)
 
 
+def core_mix_readings(q, k, v, mask, segments, ratios, scale, pairs, iters):
+    """The tensor-core family's forward core and the mix, which K1f and K3f
+    share, each launched alone (``fused_forward_part_cuda``) and timed on
+    both clocks beside its bound: the core's products (three TF32 products
+    each at fp32, :func:`tf32x3_bounds`; the bf16 tensor cores at bf16) and
+    the mix's bytes. The events clock of each kernel alone is what the
+    profiler's split of the whole call cannot give; a card time the
+    profiler did not record is ``None``."""
+    import torch
+    df = importlib.import_module(COUNTERS["K3f"][0])
+    kw = dict(q=q, k=k, v=v, mask=mask, segment_lengths=segments,
+              dilated_ratios=ratios, scale=scale)
+    pieces = df.fused_forward_part_cuda("core", **kw)
+    mixed, stats = df.fused_forward_part_cuda("mix", pieces=pieces, **kw)
+
+    def core():
+        return df.fused_forward_part_cuda("core", **kw)
+
+    def mix():
+        return df.fused_forward_part_cuda("mix", pieces=pieces, **kw)
+    r = dict(core_ms=time_ms(core, iters),
+             core_device_ms=device_ms(core, iters=3, warmup=1),
+             mix_alone_ms=time_ms(mix, iters),
+             mix_alone_device_ms=device_ms(mix, iters=3, warmup=1))
+    core_tensors = (q, k, v, mask, *pieces)
+    if q.dtype == torch.float32:
+        r["core_bound_ms"], r["core_bound_by"] = tf32x3_bounds(
+            pairs, q.shape[-1], core_tensors, backward=False)[0]
+    else:
+        r["core_bound_ms"], r["core_bound_by"] = attention_bound(
+            pairs, q.shape[-1], core_tensors, backward=False)
+    r["mix_bound_ms"], r["mix_bound_by"] = bound_ms(
+        0.0, tensor_bytes((*pieces, mixed, stats)))
+    return r
+
+
+def fmt_parts(r) -> str:
+    """The core and the mix alone, from :func:`core_mix_readings`."""
+    return (f"core alone {r['core_ms']:.4f} ms (card "
+            f"{fmt_ms(r['core_device_ms'])}; bound {r['core_bound_ms']:.5f}, "
+            f"{r['core_bound_by']}), mix alone {r['mix_alone_ms']:.4f} ms "
+            f"(card {fmt_ms(r['mix_alone_device_ms'])}; bound "
+            f"{r['mix_bound_ms']:.5f}, "
+            f"{r['mix_bound_by']})")
+
+
+def cuda_cores_fwd(key, device, shape, n_valid, segments, ratios, iters):
+    """K1f (``key="K1f"``, with stats) or K3f (``"K3f"``) on the CUDA-core
+    family, which serves every head size but 48, in fp32 at ``shape``: the
+    family the C entry point chose, one launch counted on it, the output
+    against ``dilated_attention`` by the max-scaled bound (2e-4) and
+    :func:`check_out`'s fp32 limits, the stats (K1f's planes, K3f's
+    ``(m, Z)``) against ``dilated_attention_stats`` (within 1e-3, NEG_INF
+    exactly where the plain version has it), a rerun bit-equal, times on
+    both clocks, the plain version's, and the bound on the CUDA cores
+    (:data:`PEAK_FLOPS_FP32`) with the 3xTF32 one beside it. Printed."""
+    import torch
+    from modaltune_tpu_torch.ops.dilated import (dilated_attention,
+                                                 dilated_attention_stats)
+    dm = importlib.import_module(COUNTERS["K1f"][0])
+    df = importlib.import_module(COUNTERS["K3f"][0])
+    b, length, h, d = shape
+    scale = d ** -0.5
+    n = len(segments)
+    (q, k, v), mask = k1_inputs(shape, n_valid, device, torch.float32,
+                                seed=11)
+    valid = mask[:, :, None, None]
+    kw = dict(segment_lengths=segments, dilated_ratios=ratios, mask=mask)
+    tag = f"{key} float32 D={d}"
+    counts = dilated_family_counts()[key]
+    if key == "K1f":
+        def kernel():
+            return dm.mega_dilated_attention_cuda(
+                q, k, v, mask, segments, ratios, scale, with_stats=True)
+    else:
+        def kernel():
+            return df.fused_dilated_attention_cuda(q, k, v, mask, segments,
+                                                   ratios, scale)
+    r = dict(family=df.card_family(d, torch.float32))
+    check(r["family"] == df.family(d, torch.float32) == "cuda_cores",
+          f"{tag}: family {r['family']}, want cuda_cores")
+    before = dict(counts)
+    got = kernel()
+    check(counts["cuda_cores"] == before["cuda_cores"] + 1 and
+          sum(counts.values()) == sum(before.values()) + 1,
+          f"{tag}: launches by family {before} -> {counts}")
+    out = got[0]
+    if key == "K1f":
+        stats = got[1]
+        want_st = dilated_attention_stats(q, k, v, **kw)
+    else:
+        stats = got[3].reshape(2, b * h, length).transpose(0, 1)
+        want_st = dilated_attention_stats(q, k, v, **kw)[:, n:]
+    want = dilated_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()),
+          f"{tag}: non-finite output (padded rows included)")
+    r["out_err"] = compare(out * valid, want * valid, 2e-4, f"{tag} out")
+    r["rel"], r["row"] = check_out(out * valid, want * valid, "float32",
+                                   f"{tag} out")
+    r["stats_err"] = (stats - want_st).abs().max().item()
+    check(r["stats_err"] <= 1e-3 and bool(((stats == -1e9) ==
+                                            (want_st == -1e9)).all()),
+          f"{tag} stats: max|err| {r['stats_err']:.3e}")
+    del want, want_st, stats
+    check(all(torch.equal(x, y) for x, y in zip(kernel(), got)),
+          f"{tag}: a rerun gives other bits")
+    pairs = b * dilated_pairs(length, n_valid, segments, ratios, h)
+    r["ms"] = time_ms(kernel, iters)
+    r["device_ms"] = device_ms(kernel, iters=3, warmup=1)
+    r["plain_ms"] = time_ms(lambda: dilated_attention(q, k, v, **kw), iters)
+    (r["tf32x3_bound_ms"], _), (r["bound_ms"], r["bound_by"]) = \
+        tf32x3_bounds(pairs, d, (q, k, v, mask, *got), backward=False)
+    print(f"{key} float32 B={b} L={length} H={h} D={d} valid={n_valid} "
+          f"({r['family']}): out {r['out_err']:.3e}, rel-L2 {r['rel']:.3e}, "
+          f"row-scaled {r['row']:.3e}, stats {r['stats_err']:.3e}, rerun "
+          f"bit-equal | kernel {r['ms']:.4f} ms (card "
+          f"{fmt_ms(r['device_ms'])}) | plain {r['plain_ms']:.4f} ms, bound "
+          f"on the CUDA cores at {PEAK_FLOPS_FP32 / 1e12:.0f} TFLOP/s "
+          f"{r['bound_ms']:.5f} ms ({r['bound_by']}; at 3xTF32 "
+          f"{r['tf32x3_bound_ms']:.5f}), {r['ms'] / r['bound_ms']:.2f}x it, "
+          f"no library call", flush=True)
+    del got
+    torch.cuda.empty_cache()
+    return r
+
+
 def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
-             segments=None, ratios=None, iters=20, plain_rows=False):
+             segments=None, ratios=None, iters=20, plain_rows=False,
+             cuda_cores_shape=(3, 10240, 16, 64)):
     """K1f against the plain version at the GigaPath steps' shape, fp32 and
-    bf16, on the valid rows: the output by the max-scaled bound and, in
-    bf16, by :func:`check_out`; with stats its plane against
-    ``dilated_attention_stats`` (within 1e-3, NEG_INF exactly where the
-    plain version has it). In bf16 a rerun of either variant
-    bit-equal, the family the C entry points chose, and times on both
-    clocks without and with stats, the mix kernel's among them; in fp32
-    the CUDA-core kernel's times and the plain version's, beside its bound
-    at 3xTF32 and on the CUDA cores. With
+    bf16, on the valid rows: the output by the max-scaled bound and by
+    :func:`check_out` (``GRAD_LIMITS`` of the dtype: at fp32 rel-L2
+    <= 1e-5); with stats its plane against ``dilated_attention_stats``
+    (within 1e-3, NEG_INF exactly where the plain version has it). In each
+    dtype the family the C entry points chose (``wgmma`` at bf16,
+    ``tf32x3`` at fp32), a rerun of either variant bit-equal, and times on
+    both clocks without and with stats, the mix kernel's among them, the
+    forward core and the mix each alone (:func:`core_mix_readings`), the
+    plain version's, and the bound (at fp32: at 3xTF32, and on the CUDA
+    cores beside it). The bf16 readings also stand at the top level. With
     ``plain_rows`` the plain versions run a batch row at a time
-    (:func:`by_rows`)."""
+    (:func:`by_rows`). With ``cuda_cores_shape`` also the CUDA-core family
+    at that shape (D != 48), :func:`cuda_cores_fwd`, under
+    ``"cuda_cores"``."""
     import torch
     from modaltune_tpu_torch.configs import SlideEncoderConfig
     dm = importlib.import_module("modaltune_tpu_torch.ops.dilated_mega")
@@ -832,7 +1040,7 @@ def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
         segments, ratios = ln.segment_lengths, ln.dilated_ratios
     b, length, h, d = shape
     scale = d ** -0.5
-    res = {"family": df.card_family(d, torch.bfloat16)}
+    res = {}
     for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 1.6e-2)):
         dtn = str(dtype)[6:]
         (q, k, v), mask = k1_inputs(shape, n_valid, device, dtype, seed=7)
@@ -843,22 +1051,27 @@ def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
         def plain(fn, tensors):
             return by_rows(lambda *t: fn(*t[:-1], **dict(kw, mask=t[-1])),
                            tensors, mask, plain_rows)
-        got = dm.mega_dilated_attention(q, k, v, **kw)
-        want = plain(dilated_attention, (qf, kf, vf))
-        torch.cuda.synchronize()
-        tag = f"K1 {dtn}"
-        check(bool(torch.isfinite(got.float()).all()),
-              f"{tag}: non-finite output (padded rows included)")
-        r = dict(out_err=compare(got.float() * valid, want * valid, tol,
-                                 f"{tag} out"))
-        if dtype == torch.bfloat16:
-            r["rel"], r["row"] = check_out(got.float() * valid, want * valid,
-                                           dtn, f"{tag} out")
-        del want
+
+        def inference():
+            return dm.mega_dilated_attention(q, k, v, **kw)
 
         def with_stats():
             return dm.mega_dilated_attention_cuda(
                 q, k, v, mask, segments, ratios, scale, with_stats=True)
+        tag = f"K1 {dtn}"
+        r = dict(family=df.card_family(d, dtype))
+        check(r["family"] == df.family(d, dtype) != "cuda_cores",
+              f"{tag}: family {r['family']}, want {df.family(d, dtype)}")
+        got = inference()
+        want = plain(dilated_attention, (qf, kf, vf))
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got.float()).all()),
+              f"{tag}: non-finite output (padded rows included)")
+        r["out_err"] = compare(got.float() * valid, want * valid, tol,
+                               f"{tag} out")
+        r["rel"], r["row"] = check_out(got.float() * valid, want * valid,
+                                       dtn, f"{tag} out")
+        del want
         _, stats = with_stats()
         want_st = plain(dilated_attention_stats, (qf, kf, vf))
         torch.cuda.synchronize()
@@ -867,67 +1080,69 @@ def phase_k1(device, shape=(3, 10240, 16, 48), n_valid=9000,
                                                 (want_st == -1e9)).all()),
               f"{tag} stats: max|err| {r['stats_err']:.3e}")
         del want_st
-        res[dtn] = r
+        check(torch.equal(inference(), got),
+              f"{tag}: a rerun gives other bits")
+        again = with_stats()
+        check(torch.equal(again[0], got) and torch.equal(again[1], stats),
+              f"{tag} with stats: a rerun gives other bits")
+        del again
         pairs = b * dilated_pairs(length, n_valid, segments, ratios, h)
-        if dtype == torch.float32:   # the CUDA-core forward, timed
-            def inference32():
-                return dm.mega_dilated_attention(q, k, v, **kw)
-            r.update(family="cuda_cores", ms=time_ms(inference32, iters),
-                     device_ms=device_ms(inference32, iters=3, warmup=1),
-                     stats_ms=time_ms(with_stats, iters),
-                     plain_ms=time_ms(
-                         lambda: plain(dilated_attention, (q, k, v)), iters))
+        r["ms"] = time_ms(inference, iters)
+        r["device_ms"], split = device_times(inference, iters=3, warmup=1)
+        r["mix_device_ms"] = mix_share(split)
+        r["stats_ms"] = time_ms(with_stats, iters)
+        r["stats_device_ms"], split = device_times(with_stats, iters=3,
+                                                   warmup=1)
+        r["stats_mix_device_ms"] = mix_share(split)
+        r["plain_ms"] = time_ms(lambda: plain(dilated_attention, (q, k, v)),
+                                iters)
+        r.update(core_mix_readings(q, k, v, mask, segments, ratios, scale,
+                                   pairs, iters))
+        if dtype == torch.float32:
             (r["bound_ms"], r["bound_by"]), (r["cuda_cores_bound_ms"], _) = \
                 tf32x3_bounds(pairs, d, (q, k, v, mask, got), backward=False)
-        if dtype == torch.bfloat16:
-            check(torch.equal(dm.mega_dilated_attention(q, k, v, **kw), got),
-                  f"{tag}: a rerun gives other bits")
-            again = with_stats()
-            check(torch.equal(again[0], got) and torch.equal(again[1], stats),
-                  f"{tag} with stats: a rerun gives other bits")
-            del again
-
-            def inference():
-                return dm.mega_dilated_attention(q, k, v, **kw)
-            res["ms"] = time_ms(inference, iters)
-            res["device_ms"], split = device_times(inference, iters=3,
-                                                   warmup=1)
-            res["mix_device_ms"] = mix_share(split)
-            res["stats_ms"] = time_ms(with_stats, iters)
-            res["stats_device_ms"], split = device_times(with_stats, iters=3,
-                                                         warmup=1)
-            res["stats_mix_device_ms"] = mix_share(split)
-            res["plain_ms"] = time_ms(
-                lambda: plain(dilated_attention, (q, k, v)), iters)
-            res["bound_ms"], res["bound_by"] = attention_bound(
+            r["stats_bound_ms"] = tf32x3_bounds(
+                pairs, d, (q, k, v, mask, got, stats), backward=False)[0][0]
+        else:
+            r["bound_ms"], r["bound_by"] = attention_bound(
                 pairs, d, (q, k, v, mask, got), backward=False)
-            res["stats_bound_ms"], _ = attention_bound(
+            r["stats_bound_ms"], _ = attention_bound(
                 pairs, d, (q, k, v, mask, got, stats), backward=False)
-        del stats
+        res[dtn] = r
+        del stats, got
         torch.cuda.empty_cache()
-    f32, bf = res["float32"], res["bfloat16"]
-    print(f"K1 B={b} L={length} H={h} D={d} valid={n_valid} "
-          f"segments={tuple(segments)} ratios={tuple(ratios)}: "
-          f"fp32 out {f32['out_err']:.3e}, stats {f32['stats_err']:.3e} | "
-          f"bf16 ({res['family']}) out {bf['out_err']:.3e}, rel-L2 "
-          f"{bf['rel']:.3e}, row-scaled {bf['row']:.3e}, stats "
-          f"{bf['stats_err']:.3e}, reruns bit-equal | kernel "
-          f"{res['ms']:.4f} ms (card {res['device_ms']:.4f}, mix "
-          f"{fmt_ms(res['mix_device_ms'])}), with stats "
-          f"{res['stats_ms']:.4f} ms (card {res['stats_device_ms']:.4f}, "
-          f"mix {fmt_ms(res['stats_mix_device_ms'])}), plain "
-          f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.5f} ms "
-          f"({res['bound_by']}; with stats {res['stats_bound_ms']:.5f}), no "
-          f"library call", flush=True)
-    print(fmt_fp32_fwd(f"K1f B={b} L={length}", f32) + f", with stats "
-          f"{f32['stats_ms']:.4f} ms", flush=True)
+    res.update({key: res["bfloat16"][key] for key in (
+        "family", "ms", "device_ms", "mix_device_ms", "stats_ms",
+        "stats_device_ms", "stats_mix_device_ms", "plain_ms", "bound_ms",
+        "bound_by", "stats_bound_ms")})
+    for dtn, r in ((n, res[n]) for n in ("float32", "bfloat16")):
+        print(f"K1f {dtn} B={b} L={length} H={h} D={d} valid={n_valid} "
+              f"segments={tuple(segments)} ratios={tuple(ratios)} "
+              f"({r['family']}): out {r['out_err']:.3e}, rel-L2 "
+              f"{r['rel']:.3e}, row-scaled {r['row']:.3e}, stats "
+              f"{r['stats_err']:.3e}, reruns bit-equal | kernel "
+              f"{r['ms']:.4f} ms (card {fmt_ms(r['device_ms'])}, mix "
+              f"{fmt_ms(r['mix_device_ms'])}), with stats "
+              f"{r['stats_ms']:.4f} ms (card {fmt_ms(r['stats_device_ms'])}, "
+              f"mix {fmt_ms(r['stats_mix_device_ms'])}) | {fmt_parts(r)} | "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}; with stats {r['stats_bound_ms']:.5f})"
+              + (f", on the CUDA cores at "
+                 f"{PEAK_FLOPS_FP32 / 1e12:.0f} TFLOP/s "
+                 f"{r['cuda_cores_bound_ms']:.5f}"
+                 if "cuda_cores_bound_ms" in r else "")
+              + f", {r['ms'] / r['bound_ms']:.2f}x it, no library call",
+              flush=True)
+    if cuda_cores_shape:
+        res["cuda_cores"] = cuda_cores_fwd("K1f", device, cuda_cores_shape,
+                                           n_valid, segments, ratios, iters)
     return res
 
 
 def plain_backward_times(q, k, v, dmix, mask, kw, rows, plain_iters):
     """``(ms, card ms)`` of autograd through the plain ``dilated_attention``
     on ``q``, ``k``, ``v`` (their dtype), summed over ``rows`` (batch-row
-    slices)."""
+    slices); the card's ``None`` if the profiler missed any slice."""
     import torch
     from modaltune_tpu_torch.ops.dilated import dilated_attention
     ms = card = 0.0
@@ -939,7 +1154,8 @@ def plain_backward_times(q, k, v, dmix, mask, kw, rows, plain_iters):
             return torch.autograd.grad(plain_out, leaves, dmix[c],
                                        retain_graph=True)
         ms += time_ms(plain, plain_iters, warmup=1)
-        card += device_ms(plain, iters=1, warmup=0)
+        one = device_ms(plain, iters=1, warmup=0)
+        card = None if card is None or one is None else card + one
         del plain_out, leaves
     return ms, card
 
@@ -966,21 +1182,12 @@ def fp32_family_readings(kernel, got, pairs, d, tensors, iters, plain=None):
     return r
 
 
-def fmt_fp32_fwd(tag, r) -> str:
-    """One line of an fp32 forward's times (K1f, K3f on the CUDA cores)."""
-    return (f"{tag} fp32 ({r['family']}): kernel {r['ms']:.4f} ms (card "
-            f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound at "
-            f"3xTF32 {r['bound_ms']:.5f} ms ({r['bound_by']}; on the CUDA "
-            f"cores at {PEAK_FLOPS_FP32 / 1e12:.0f} TFLOP/s "
-            f"{r['cuda_cores_bound_ms']:.5f} ms)")
-
-
 def fmt_fp32(tag, r) -> str:
     """One line of :func:`fp32_family_readings`."""
     plain = (f", plain backward {r['plain_ms']:.4f} ms (card "
-             f"{r['plain_device_ms']:.4f})" if "plain_ms" in r else "")
+             f"{fmt_ms(r['plain_device_ms'])})" if "plain_ms" in r else "")
     return (f"{tag} fp32 ({r['family']}): kernel {r['ms']:.4f} ms (card "
-            f"{r['device_ms']:.4f}; by kernel {r['split']}){plain}, bound at "
+            f"{fmt_ms(r['device_ms'])}; by kernel {r['split']}){plain}, bound at "
             f"3xTF32 {r['bound_ms']:.5f} ms ({r['bound_by']}, "
             f"{PEAK_FLOPS_TF32 / 1e12:.0f} TFLOP/s TF32; on the CUDA cores "
             f"at {PEAK_FLOPS_FP32 / 1e12:.0f} TFLOP/s "
@@ -1088,8 +1295,8 @@ def phase_k1b(device, shape=(3, 10240, 16, 48), n_valid=9000,
           f"row-scaled {f32['row']:.3e} | bf16 ({res['family']}) "
           f"{bf['grad_err']:.3e}, rel-L2 {bf['rel']:.3e}, row-scaled "
           f"{bf['row']:.3e}, rerun bit-equal | K1b kernel {res['ms']:.4f} "
-          f"ms (card {res['device_ms']:.4f}), plain backward "
-          f"{res['plain_ms']:.4f} ms (card {res['plain_device_ms']:.4f}), "
+          f"ms (card {fmt_ms(res['device_ms'])}), plain backward "
+          f"{res['plain_ms']:.4f} ms (card {fmt_ms(res['plain_device_ms'])}), "
           f"bound {res['bound_ms']:.5f} ms ({res['bound_by']}), no library "
           f"call | K1f with stats {res['fwd_stats_ms']:.4f} ms", flush=True)
     print(fmt_fp32(f"K1b B={b} L={length}", res["fp32"]), flush=True)
@@ -1102,11 +1309,12 @@ def phase_k1_qrange(device, shape=(3, 10240, 16, 48), n_valid=9000,
     sequence-parallel group, at K1's shape in fp32 and bf16, the sequence
     cut into ``n`` equal shards for each n of ``shards``:
 
-    * every shard's K1f rows, concatenated, against the full K1f (bf16
-      bit-equal; fp32 by the max-scaled bound at 1e-5) and against the
-      plain version with the range (:func:`check_out`, the valid rows);
-      rows outside the range exactly 0, and with stats the range's planes
-      equal to the full call's;
+    * every shard's K1f rows, concatenated, against the full K1f (by the
+      max-scaled bound at 1e-5, and bit-equal: in both tensor-core
+      families a range runs the same tiles' core and the same mix) and
+      against the plain version with the range (:func:`check_out`, the
+      valid rows); rows outside the range exactly 0, and with stats the
+      range's planes and output the full call's bits;
     * K1b with each shard's range: dq exactly 0 outside it, the shards' dq
       rows and the sum of their dk, dv against the full K1b by
       :func:`check_grads`;
@@ -1153,22 +1361,16 @@ def phase_k1_qrange(device, shape=(3, 10240, 16, 48), n_valid=9000,
                 out, st = dm.mega_dilated_attention_cuda(
                     q, k, v, mask, segments, ratios, scale, with_stats=True,
                     q_token_range=rng)
-                if dtype == torch.bfloat16:   # one mix, the same bits
-                    check(torch.equal(out, part), f"{tag}: with stats, "
-                          f"other output rows")
-                else:   # the CUDA-core kernel mixes otherwise with stats
-                    compare(out, part, 1e-5, f"{tag} with stats")
+                # one core and one mix with or without stats: the same bits
+                check(torch.equal(out, part), f"{tag}: with stats, other "
+                      f"output rows")
                 outside = torch.ones(length, dtype=torch.bool, device=device)
                 outside[rng[0]:rng[1]] = False
                 check(not bool(part[:, outside].any()),
                       f"{tag} shard {i}: rows outside the range not 0")
-                if dtype == torch.bfloat16:
-                    check(torch.equal(st[..., rng[0]:rng[1]],
-                                      f_st[..., rng[0]:rng[1]]),
-                          f"{tag} shard {i}: stats of the range differ")
-                else:
-                    compare(st[..., rng[0]:rng[1]], f_st[..., rng[0]:rng[1]],
-                            1e-5, f"{tag} shard {i} stats")
+                check(torch.equal(st[..., rng[0]:rng[1]],
+                                  f_st[..., rng[0]:rng[1]]),
+                      f"{tag} shard {i}: stats of the range differ")
                 dq, dk, dv = dm.mega_dilated_attention_backward_cuda(
                     q, k, v, mask, dmix, st, segments, ratios, scale,
                     q_token_range=rng)
@@ -1180,10 +1382,9 @@ def phase_k1_qrange(device, shape=(3, 10240, 16, 48), n_valid=9000,
                 dv_sum += dv.float()
                 del out, st, dq, dk, dv, part
             got = torch.cat(rows, dim=1)
-            if dtype == torch.bfloat16:
-                check(torch.equal(got, full),
-                      f"{tag}: shards' rows differ from the full K1f's bits")
             err = compare(got.float(), full.float(), 1e-5, f"{tag} vs full")
+            check(torch.equal(got, full),
+                  f"{tag}: shards' rows differ from the full K1f's bits")
             rel, row = check_out(got.float() * valid, plain * valid, dtn,
                                  f"{tag} vs plain")
             grels = check_grads(
@@ -1200,9 +1401,9 @@ def phase_k1_qrange(device, shape=(3, 10240, 16, 48), n_valid=9000,
             res["bwd_err"] = max(res["bwd_err"], bwd_err)
             res["plain_rel"] = max(res["plain_rel"], rel)
             res["bwd_rel"] = max(res["bwd_rel"], grels[0])
-            print(f"{tag}: rows vs full K1f max|err| {err:.3e}"
-                  f"{' (bit-equal)' if dtype == torch.bfloat16 else ''}, vs "
-                  f"plain rel-L2 {rel:.3e} row-scaled {row:.3e}; K1b shards "
+            print(f"{tag}: rows vs full K1f max|err| {err:.3e} (bit-equal), "
+                  f"vs plain rel-L2 {rel:.3e} row-scaled {row:.3e}; K1b "
+                  f"shards "
                   f"vs full rel-L2 {grels[0]:.3e} row-scaled {grels[1]:.3e}, "
                   f"max|err| {bwd_err:.3e}; outside rows and dq 0",
                   flush=True)
@@ -1283,10 +1484,10 @@ def phase_k1_qrange(device, shape=(3, 10240, 16, 48), n_valid=9000,
         torch.cuda.empty_cache()
     for n, r in res["by_n"].items():
         print(f"K1 q_token_range bf16 one shard of {n} (middle): K1f "
-              f"{r['ms']:.4f} ms (card {r['device_ms']:.4f}) against the full "
-              f"call's {res['full_ms']:.4f} ms (card {res['full_device_ms']:.4f}"
+              f"{r['ms']:.4f} ms (card {fmt_ms(r['device_ms'])}) against the full "
+              f"call's {res['full_ms']:.4f} ms (card {fmt_ms(res['full_device_ms'])}"
               f"), ratio {r['ms'] / res['full_ms']:.3f}; K1b {r['bwd_ms']:.4f} "
-              f"ms (card {r['bwd_device_ms']:.4f}) against "
+              f"ms (card {fmt_ms(r['bwd_device_ms'])}) against "
               f"{res['full_bwd_ms']:.4f} ms, ratio "
               f"{r['bwd_ms'] / res['full_bwd_ms']:.3f}; the range's share of "
               f"the pairs {r['pairs_share']:.4f}, bound {r['bound_ms']:.5f} ms "
@@ -1295,7 +1496,7 @@ def phase_k1_qrange(device, shape=(3, 10240, 16, 48), n_valid=9000,
     for n, r in res["fp32_by_n"].items():
         print(f"K1 q_token_range fp32 ({r['family']}) one shard of {n} "
               f"(middle): K1b {r['bwd_ms']:.4f} ms (card "
-              f"{r['bwd_device_ms']:.4f}; by kernel {r['split']}) against the "
+              f"{fmt_ms(r['bwd_device_ms'])}; by kernel {r['split']}) against the "
               f"full call's {res['fp32_full_bwd_ms']:.4f} ms, ratio "
               f"{r['bwd_ms'] / res['fp32_full_bwd_ms']:.3f}; bound at 3xTF32 "
               f"{r['bwd_bound_ms']:.5f} ms ({r['bwd_bound_by']}; on the CUDA "
@@ -1308,18 +1509,23 @@ def phase_k1_qrange(device, shape=(3, 10240, 16, 48), n_valid=9000,
 # ---------------------------------------------------------------------------
 
 def phase_k3(device, shape=(3, 10240, 16, 48), n_valid=9000,
-             segments=None, ratios=None, iters=10, plain_rows=False):
+             segments=None, ratios=None, iters=10, plain_rows=False,
+             cuda_cores_shape=(3, 10240, 16, 64)):
     """K3f at K1's shape, fp32 and bf16: the mixed output against
-    ``dilated_attention`` (by the max-scaled bound and, in bf16, by
-    :func:`check_out`), ``(m, Z)`` against ``dilated_attention_stats``,
-    every branch's compact ``(out_b, lse_b)`` against the plain branch, and
-    the mix kernel alone against the plain mix of the kernel's own compact
-    pieces; in bf16 a rerun bit-equal, the family, times on both clocks (the
-    mix kernel's among them), K1f's on the same inputs beside them; in
-    fp32 the CUDA-core kernels' times and the plain version's, beside the
-    bound at 3xTF32 and on the CUDA cores. With
+    ``dilated_attention`` (by the max-scaled bound and by
+    :func:`check_out`, ``GRAD_LIMITS`` of the dtype), ``(m, Z)`` against
+    ``dilated_attention_stats``, every branch's compact ``(out_b, lse_b)``
+    against the plain branch, and the mix against the plain mix of the
+    kernel's own compact pieces. In each dtype the family (``wgmma`` at
+    bf16, ``tf32x3`` at fp32), a rerun bit-equal, times on both clocks (the
+    mix kernel's among them), the forward core and the mix each alone
+    (:func:`core_mix_readings`), K1f's on the same inputs, the plain
+    version's, and the bound (at fp32: at 3xTF32, and on the CUDA cores
+    beside it). The bf16 readings also stand at the top level. With
     ``plain_rows`` the plain versions run a batch row at a time
-    (:func:`by_rows`)."""
+    (:func:`by_rows`). With ``cuda_cores_shape`` also the CUDA-core family
+    at that shape (D != 48), :func:`cuda_cores_fwd`, under
+    ``"cuda_cores"``."""
     import torch
     from modaltune_tpu_torch.configs import SlideEncoderConfig
     from modaltune_tpu_torch.ops.dilated import (dilated_attention,
@@ -1332,7 +1538,7 @@ def phase_k3(device, shape=(3, 10240, 16, 48), n_valid=9000,
     b, length, h, d = shape
     scale = d ** -0.5
     n = len(segments)
-    res = {"family": df.card_family(d, torch.bfloat16)}
+    res = {}
     for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 1.6e-2)):
         dtn = str(dtype)[6:]
         (q, k, v), mask = k1_inputs(shape, n_valid, device, dtype, seed=7)
@@ -1346,18 +1552,20 @@ def phase_k3(device, shape=(3, 10240, 16, 48), n_valid=9000,
         def plain(fn, tensors):
             return by_rows(lambda *t: fn(*t[:-1], **dict(kw, mask=t[-1])),
                            tensors, mask, plain_rows)
+        tag = f"K3 {dtn}"
+        r = dict(family=df.card_family(d, dtype))
+        check(r["family"] == df.family(d, dtype) != "cuda_cores",
+              f"{tag}: family {r['family']}, want {df.family(d, dtype)}")
         mixed, out_c, lse_c, stats = kernel()
         qf, kf, vf = q.float(), k.float(), v.float()
         want = plain(dilated_attention, (qf, kf, vf))
         torch.cuda.synchronize()
-        tag = f"K3 {dtn}"
         check(bool(torch.isfinite(mixed.float()).all()),
               f"{tag}: non-finite output (padded rows included)")
-        r = dict(out_err=compare(mixed.float() * valid, want * valid, tol,
-                                 f"{tag} out"))
-        if dtype == torch.bfloat16:
-            r["rel"], r["row"] = check_out(mixed.float() * valid,
-                                           want * valid, dtn, f"{tag} out")
+        r["out_err"] = compare(mixed.float() * valid, want * valid, tol,
+                               f"{tag} out")
+        r["rel"], r["row"] = check_out(mixed.float() * valid, want * valid,
+                                       dtn, f"{tag} out")
         del want
         want_st = plain(dilated_attention_stats, (qf, kf, vf))[:, n:]
         got_st = stats.reshape(2, b * h, length).transpose(0, 1)
@@ -1376,11 +1584,10 @@ def phase_k3(device, shape=(3, 10240, 16, 48), n_valid=9000,
                 (qf, kf, vf), mask, plain_rows)
             r["piece_err"] = max(r["piece_err"], compare(
                 outs[i], want_o, tol, f"{tag} branch {i} compact out"))
-            if dtype == torch.bfloat16:
-                rel, row = check_out(outs[i].float(), want_o, dtn,
-                                     f"{tag} branch {i} compact out")
-                r["piece_rel"] = max(r["piece_rel"], rel)
-                r["piece_row"] = max(r["piece_row"], row)
+            rel, row = check_out(outs[i].float(), want_o, dtn,
+                                 f"{tag} branch {i} compact out")
+            r["piece_rel"] = max(r["piece_rel"], rel)
+            r["piece_row"] = max(r["piece_row"], row)
             e = (lses[i] - want_l).abs().max().item()
             check(e <= 1e-3 and bool(((lses[i] == -1e9) ==
                                       (want_l == -1e9)).all()),
@@ -1391,50 +1598,52 @@ def phase_k3(device, shape=(3, 10240, 16, 48), n_valid=9000,
                                                 ratios)
         r["mix_err"] = compare(mixed, want_mix, tol, f"{tag} mix kernel")
         del want_mix
-        res[dtn] = r
-        if dtype == torch.float32:   # the CUDA-core forward, timed
-            r.update(family="cuda_cores", ms=time_ms(kernel, iters),
-                     device_ms=device_ms(kernel, iters=3, warmup=1),
-                     plain_ms=time_ms(
-                         lambda: plain(dilated_attention, (q, k, v)), iters))
+        check(all(torch.equal(x, y) for x, y in
+                  zip(kernel(), (mixed, out_c, lse_c, stats))),
+              f"{tag}: a rerun gives other bits")
+        pairs = b * dilated_pairs(length, n_valid, segments, ratios, h)
+        r["ms"] = time_ms(kernel, iters)
+        r["device_ms"], split = device_times(kernel, iters=3, warmup=1)
+        r["mix_device_ms"] = mix_share(split)
+        r["k1f_ms"] = time_ms(lambda: dm.mega_dilated_attention_cuda(
+            q, k, v, mask, segments, ratios, scale), iters)
+        r["plain_ms"] = time_ms(
+            lambda: plain(dilated_attention, (q, k, v)), iters)
+        r.update(core_mix_readings(q, k, v, mask, segments, ratios, scale,
+                                   pairs, iters))
+        tensors = (q, k, v, mask, mixed, out_c, lse_c, stats)
+        if dtype == torch.float32:
             (r["bound_ms"], r["bound_by"]), (r["cuda_cores_bound_ms"], _) = \
-                tf32x3_bounds(
-                    b * dilated_pairs(length, n_valid, segments, ratios, h),
-                    d, (q, k, v, mask, mixed, out_c, lse_c, stats),
-                    backward=False)
-        if dtype == torch.bfloat16:
-            check(all(torch.equal(x, y) for x, y in
-                      zip(kernel(), (mixed, out_c, lse_c, stats))),
-                  f"{tag}: a rerun gives other bits")
-            res["ms"] = time_ms(kernel, iters)
-            res["device_ms"], split = device_times(kernel, iters=3, warmup=1)
-            res["mix_device_ms"] = mix_share(split)
-            res["k1f_ms"] = time_ms(lambda: dm.mega_dilated_attention_cuda(
-                q, k, v, mask, segments, ratios, scale), iters)
-            res["plain_ms"] = time_ms(
-                lambda: plain(dilated_attention, (q, k, v)), iters)
-            res["bound_ms"], res["bound_by"] = attention_bound(
-                b * dilated_pairs(length, n_valid, segments, ratios, h), d,
-                (q, k, v, mask, mixed, out_c, lse_c, stats), backward=False)
+                tf32x3_bounds(pairs, d, tensors, backward=False)
+        else:
+            r["bound_ms"], r["bound_by"] = attention_bound(
+                pairs, d, tensors, backward=False)
+        res[dtn] = r
         del mixed, out_c, lse_c, stats, outs, lses
         torch.cuda.empty_cache()
-    f32, bf = res["float32"], res["bfloat16"]
-    print(f"K3 B={b} L={length} H={h} D={d} valid={n_valid}, "
-          f"{df.total_rows(length, segments, ratios)} compact rows per head: "
-          f"fp32 out {f32['out_err']:.3e}, compact out {f32['piece_err']:.3e} "
-          f"lse {f32['lse_err']:.3e}, (m, Z) {f32['stats_err']:.3e}, mix "
-          f"{f32['mix_err']:.3e} | bf16 ({res['family']}) out "
-          f"{bf['out_err']:.3e}, rel-L2 {bf['rel']:.3e}, row-scaled "
-          f"{bf['row']:.3e}, compact out {bf['piece_err']:.3e}, rel-L2 "
-          f"{bf['piece_rel']:.3e}, row-scaled {bf['piece_row']:.3e}, lse "
-          f"{bf['lse_err']:.3e}, (m, Z) {bf['stats_err']:.3e}, mix "
-          f"{bf['mix_err']:.3e}, rerun bit-equal | kernel {res['ms']:.4f} ms "
-          f"(card {res['device_ms']:.4f}, mix "
-          f"{fmt_ms(res['mix_device_ms'])}), "
-          f"plain {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.5f} ms "
-          f"({res['bound_by']}), no library call | K1f on the same inputs "
-          f"{res['k1f_ms']:.4f} ms", flush=True)
-    print(fmt_fp32_fwd(f"K3f B={b} L={length}", f32), flush=True)
+    res.update({key: res["bfloat16"][key] for key in (
+        "family", "ms", "device_ms", "mix_device_ms", "k1f_ms", "plain_ms",
+        "bound_ms", "bound_by")})
+    for dtn, r in ((n, res[n]) for n in ("float32", "bfloat16")):
+        print(f"K3f {dtn} B={b} L={length} H={h} D={d} valid={n_valid}, "
+              f"{df.total_rows(length, segments, ratios)} compact rows per "
+              f"head ({r['family']}): out {r['out_err']:.3e}, rel-L2 "
+              f"{r['rel']:.3e}, row-scaled {r['row']:.3e}, compact out "
+              f"{r['piece_err']:.3e}, rel-L2 {r['piece_rel']:.3e}, "
+              f"row-scaled {r['piece_row']:.3e}, lse {r['lse_err']:.3e}, "
+              f"(m, Z) {r['stats_err']:.3e}, mix {r['mix_err']:.3e}, rerun "
+              f"bit-equal | kernel {r['ms']:.4f} ms (card "
+              f"{fmt_ms(r['device_ms'])}, mix {fmt_ms(r['mix_device_ms'])}) | "
+              f"{fmt_parts(r)} | plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']})"
+              + (f", on the CUDA cores {r['cuda_cores_bound_ms']:.5f}"
+                 if "cuda_cores_bound_ms" in r else "")
+              + f", {r['ms'] / r['bound_ms']:.2f}x it, no library call | K1f "
+              f"on the same inputs {r['k1f_ms']:.4f} ms, K3f / K1f "
+              f"{r['ms'] / r['k1f_ms']:.3f}", flush=True)
+    if cuda_cores_shape:
+        res["cuda_cores"] = cuda_cores_fwd("K3f", device, cuda_cores_shape,
+                                           n_valid, segments, ratios, iters)
     return res
 
 
@@ -1537,8 +1746,8 @@ def phase_k3b(device, shape=(3, 10240, 16, 48), n_valid=9000,
           f"{f32['row']:.3e} | bf16 ({res['family']}) {bf['grad_err']:.3e}, "
           f"rel-L2 {bf['rel']:.3e}, row-scaled {bf['row']:.3e}, rerun "
           f"bit-equal | kernel {res['ms']:.4f} ms (card "
-          f"{res['device_ms']:.4f}), plain backward {res['plain_ms']:.4f} ms "
-          f"(card {res['plain_device_ms']:.4f}), bound {res['bound_ms']:.5f} "
+          f"{fmt_ms(res['device_ms'])}), plain backward {res['plain_ms']:.4f} ms "
+          f"(card {fmt_ms(res['plain_device_ms'])}), bound {res['bound_ms']:.5f} "
           f"ms ({res['bound_by']}), no library call | K1b on the same inputs {res['k1b_ms']:.4f} ms | saved for "
           f"the backward besides q, k, v: {res['saved_bytes'] / 1e6:.1f} MB "
           f"(K1: {res['k1_saved_bytes'] / 1e6:.1f} MB)", flush=True)
@@ -1625,7 +1834,7 @@ def phase_k5(device, shape=(30720, 3072), eps=1e-5, iters=20):
           f"out {res['bfloat16']:.3e}, rel-L2 {res['out_rel']:.3e}, "
           f"row-scaled {res['out_row']:.3e} (from the unfused chain "
           f"{res['bfloat16_vs_unfused']:.3e}), rerun bit-equal | kernel "
-          f"{res['ms']:.4f} ms (card {res['device_ms']:.4f}), unfused chain "
+          f"{res['ms']:.4f} ms (card {fmt_ms(res['device_ms'])}), unfused chain "
           f"{res['plain_ms']:.4f} ms, plain version {res['reference_ms']:.4f} "
           f"ms, bound {res['bound_ms']:.5f} ms ({res['bound_by']}), no "
           f"library call", flush=True)
@@ -1721,10 +1930,10 @@ def phase_k5b(device, shape=(30720, 3072), eps=1e-5, iters=20):
           f"dx of both variants the same bits, two runs of each bit-identical",
           flush=True)
     print(f"K5b x={tuple(shape)} bf16: with dgamma/dbeta {res['ms']:.4f} ms "
-          f"(card {res['device_ms']:.4f}; bound {res['bound_ms']:.5f} ms, "
+          f"(card {fmt_ms(res['device_ms'])}; bound {res['bound_ms']:.5f} ms, "
           f"{res['bound_by']}; autograd through the unfused chain "
           f"{res['plain_ms']:.4f} ms) | without them (the train step's) "
-          f"{res['dx_only_ms']:.4f} ms (card {res['dx_only_device_ms']:.4f}; "
+          f"{res['dx_only_ms']:.4f} ms (card {fmt_ms(res['dx_only_device_ms'])}; "
           f"bound {res['dx_only_bound_ms']:.5f} ms, "
           f"{res['dx_only_bound_by']}; unfused chain, x alone "
           f"{res['dx_only_plain_ms']:.4f} ms) | plain version "
@@ -2247,6 +2456,7 @@ def phase_slice(device, dtype, build_kw=None, timing_rounds=3, card="",
     check_k5_routes(tag, launches)
     k2_families = check_k2_families(
         tag, launches, k2_branch_calls(model) * len(batches))
+    families = check_dilated_families(tag, launches, dtype)
     per = calls_per_forward(model)
     for i, out in enumerate(outs):
         check(tuple(out.shape) == (1, 3, model.cfg.adapter.output_dim),
@@ -2313,7 +2523,7 @@ def phase_slice(device, dtype, build_kw=None, timing_rounds=3, card="",
           f"{'; ' + card if card else ''}", flush=True)
     return dict(launches=launches, cosine=cos, rel_l2=rel, ms=ms,
                 peak_bytes=peak, per_slide=per, k2_families=k2_families,
-                outs=[o.detach().cpu() for o in outs])
+                families=families, outs=[o.detach().cpu() for o in outs])
 
 
 # Trainable tensors whose gradient is exactly zero in exact arithmetic and
@@ -2451,13 +2661,13 @@ def drive_train(device, model, tcfg, opt, text, batch, tag, card="",
     torch.cuda.synchronize()
     launches = read_counts()
     again = recomputed_per_step(model)
-    check_k5_routes(tag, launches)
     frozen_dtype = next(model.backbone.parameters()).dtype
+    check_k5_routes(tag, launches, fp32=frozen_dtype == torch.float32)
     k2_families = check_k2_families(tag, launches,
                                     k2_branch_calls(model) * steps,
                                     again.get("K2", 0) * steps,
                                     fp32=frozen_dtype == torch.float32)
-    bwd_families = check_bwd_families(tag, launches, frozen_dtype)
+    families = check_dilated_families(tag, launches, frozen_dtype)
     per = calls_per_forward(model)
     per_step = {f"{k}{d}": n + (again.get(k, 0) if d == "f" else 0)
                 for k, n in per.items() for d in "fb"}
@@ -2504,7 +2714,7 @@ def drive_train(device, model, tcfg, opt, text, batch, tag, card="",
           f"{'; ' + card if card else ''}", flush=True)
     return dict(launches=launches, per_step=per_step, ms=ms, peak_bytes=peak,
                 base_bytes=base, losses=losses, k2_families=k2_families,
-                bwd_families=bwd_families, times=times,
+                families=families, times=times,
                 gc_ms=statistics.median(in_gc), gc_times=in_gc)
 
 
@@ -2603,26 +2813,78 @@ def phase_train(device, steps=3, timed_steps=5, compare_kw=None,
                 k2_calls=held)
 
 
-def phase_train_fp32(device, bf16, card="", build_kw=None, tag="fp32 train"):
-    """The ``--bf16 0`` user's step: the default route's train step at
-    10,239 under ``"flash"`` with the frozen backbone in fp32 (no autocast),
-    on the kernels alone: :func:`drive_train`'s checked and timed steps
-    (every K1b on the 3xTF32 family, K1f and K2 on the CUDA cores); its
-    ms/step and peak printed beside the bf16 step's (``bf16``,
-    :func:`phase_train`'s result)."""
+def k5_fp32_readings(device, shape=(30720, 3072), eps=1e-5, iters=10):
+    """K5's generic kernels in fp32 (an fp32 backbone's fused FFN) against
+    their plain versions at ``shape`` (3 tasks x 10,240 tokens, ffn 3072):
+    K5f within :func:`phase_k5`'s fp32 bound, K5b without dgamma/dbeta (the
+    train step's variant) by :func:`check_grads`' fp32 limits; both on the
+    generic route, and their times on both clocks."""
     import torch
-    build_kw = dict(build_kw or GIGAPATH, frozen="float32")
-    model, tcfg, opt, text, batch = timed_build(device, tag, build_kw)
-    res = drive_train(device, model, tcfg, opt, text, batch, tag, card)
-    del model, opt, batch
-    torch.cuda.empty_cache()
-    check(res["bwd_families"]["K1b"]["tf32x3"] > 0,
-          f"{tag}: no K1b on the 3xTF32 family")
-    print(f"{tag}: {res['ms']:.2f} ms/step, peak "
-          f"{res['peak_bytes'] / 2**30:.3f} GiB, against the bf16 step's "
-          f"{bf16['ms']:.2f} ms/step, {bf16['peak_bytes'] / 2**30:.3f} GiB "
-          f"({res['ms'] / bf16['ms']:.2f}x); {card}", flush=True)
-    return res
+    gl = importlib.import_module(COUNTERS["K5f"][0])
+    x, dy, scale, bias = k5_inputs(shape, device, torch.float32, seed=13)
+    rows = (gl.ROWS_LAUNCHES, gl.BWD_ROWS_LAUNCHES)
+
+    def fwd():
+        return gl.gelu_ln_cuda(x, scale, bias, eps)
+
+    def bwd():
+        return gl.gelu_ln_backward_cuda(x, scale, dy, eps,
+                                        param_grads=False)[0]
+    r = dict(out_err=compare(fwd(), gl.gelu_ln_reference(x, scale, bias,
+                                                         eps), 2e-5,
+                             "K5f fp32"))
+    r["dx_rel"], r["dx_row"] = check_grads(
+        ("dx",), (bwd(),), gl.gelu_ln_backward_reference(x, scale, dy,
+                                                         eps)[:1],
+        dy, "float32", "K5b fp32")
+    check((gl.ROWS_LAUNCHES, gl.BWD_ROWS_LAUNCHES) == rows,
+          "K5 fp32 took the row-resident kernels")
+    for key, fn in (("fwd", fwd), ("bwd", bwd)):
+        r[key + "_ms"] = time_ms(fn, iters)
+        r[key + "_device_ms"] = device_ms(fn, iters=3, warmup=1)
+    print(f"K5 fp32 x={tuple(shape)} (generic): K5f out {r['out_err']:.3e}, "
+          f"{r['fwd_ms']:.4f} ms (card {fmt_ms(r['fwd_device_ms'])}); K5b "
+          f"without dgamma/dbeta dx rel-L2 {r['dx_rel']:.3e}, row-scaled "
+          f"{r['dx_row']:.3e}, {r['bwd_ms']:.4f} ms (card "
+          f"{fmt_ms(r['bwd_device_ms'])})", flush=True)
+    return r
+
+
+def phase_train_fp32(device, bf16, card="", build_kw=None,
+                     fused_kw=None):
+    """The ``--bf16 0`` user's step: the train step at 10,239 under
+    ``"flash"`` with the frozen backbone in fp32 (no autocast), on the
+    kernels alone, on the default route and on the fused route
+    (``mega_attention=False`` with the fused GELU -> LayerNorm):
+    :func:`drive_train`'s checked and timed steps (every K1f and K1b, or
+    K3f and K3b, on the 3xTF32 family, K2 and K5 on their fp32 kernels,
+    the CUDA cores' and the generic ones), the generic K5 kernels held to
+    their plain versions at the step's FFN shape (:func:`k5_fp32_readings`);
+    each step's ms/step and peak printed beside the bf16 step's (``bf16``,
+    :func:`phase_train`'s result). Returns both paths' results."""
+    import torch
+    out = {}
+    for tag, kw, pair in (("fp32 train", build_kw or GIGAPATH, ("K1f", "K1b")),
+                          ("fused fp32 train", fused_kw or GIGAPATH_FUSED,
+                           ("K3f", "K3b"))):
+        model, tcfg, opt, text, batch = timed_build(
+            device, tag, dict(kw, frozen="float32"))
+        res = drive_train(device, model, tcfg, opt, text, batch, tag, card)
+        del model, opt, batch
+        torch.cuda.empty_cache()
+        check(all(res["families"][key]["tf32x3"] == res["launches"][key] > 0
+                  for key in pair),
+              f"{tag}: {pair} launches by family {res['families']}, want "
+              f"all on the 3xTF32 family")
+        if res["launches"]["K5f"]:
+            res["k5_fp32"] = k5_fp32_readings(device)
+        print(f"{tag}: {res['ms']:.2f} ms/step, peak "
+              f"{res['peak_bytes'] / 2**30:.3f} GiB, against the bf16 step's "
+              f"{bf16['ms']:.2f} ms/step, "
+              f"{bf16['peak_bytes'] / 2**30:.3f} GiB "
+              f"({res['ms'] / bf16['ms']:.2f}x); {card}", flush=True)
+        out[tag] = res
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4257,6 +4519,9 @@ def phase_profile(device, card="", build_kw=None, steps=2):
                                      steps=steps)
     dev_ms, _ = device_times(lambda: step(batch, text, gen), iters=steps,
                              warmup=0)
+    if dev_ms is None:   # the profiler saw nothing: the steps by events
+        dev_ms = time_ms(lambda: step(batch, text, gen), iters=steps,
+                         warmup=0)
     print(f"profile: trace_report over {steps} traced train steps at "
           f"bucket {batch['bag'].shape[1]}, the ten op classes with the "
           f"most device time:", flush=True)
@@ -4599,9 +4864,10 @@ def phase_flagship(device, card="", build_kw=None, ref_kws=None, layer=6,
                       plain_rows=True), **(k1_kw or {}))
     shape, n_valid = k1_kw["shape"], k1_kw["n_valid"]
     k2_shapes = flagship_k2_shapes(shape[1], n_valid)
-    big = {"K1f": phase_k1(device, iters=5, **k1_kw),
+    big = {"K1f": phase_k1(device, iters=5, cuda_cores_shape=None, **k1_kw),
            "K1b": phase_k1b(device, **k1_kw),
-           "K3f": phase_k3(device, iters=5, **k1_kw),
+           "K3f": phase_k3(device, iters=5, cuda_cores_shape=None,
+                           **k1_kw),
            "K3b": phase_k3b(device, **k1_kw),
            "K2f": phase_k2(device, shapes=k2_shapes, iters=10),
            "K2b": phase_k2b(device, shapes=k2_shapes, iters=10),
@@ -4753,7 +5019,7 @@ def family_times(device, bucket, n_valid, iters=10):
               f"({fa.card_family(bucket, 65, 16, dtype)} K2, {family} K1b; "
               f"K1b's bound at "
               f"{'3xTF32' if dtype == torch.float32 else 'bf16'}): "
-              f"{ {k: round(x, 4) for k, x in r.items() if k != 'K1b_split'} }"
+              f"{ {k: x if x is None else round(x, 4) for k, x in r.items() if k != 'K1b_split'} }"
               f"; K1b on the card by kernel {r['K1b_split']}", flush=True)
         del q, k, v, dmix, stats
         torch.cuda.empty_cache()
@@ -4854,7 +5120,7 @@ def train_schedule(device, name, base, params, tcfg, datasets, bucket, dtype,
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = read_counts()
-        bwd_families = {k: dict(c) for k, c in bwd_family_counts().items()}
+        families = {k: dict(c) for k, c in dilated_family_counts().items()}
     rows = [json.loads(line) for line in open(out_dir / "run_metrics.jsonl")]
     epochs = [r for r in rows if "train_loss" in r]
     (test,) = [r for r in rows if "test_cls_bal_acc" in r]
@@ -4863,7 +5129,7 @@ def train_schedule(device, name, base, params, tcfg, datasets, bucket, dtype,
                     for r in epochs],
                test=test, best=best, step_ms=list(trainer.step_ms),
                ms=statistics.median(trainer.step_ms), epoch_ms=epoch_ms,
-               launches=launches, bwd_families=bwd_families,
+               launches=launches, families=families,
                in_train=in_train, forwards=forwards[0],
                steps=len(trainer.step_ms), draws=draws, seconds=seconds,
                per_forward=calls_per_forward(model),
@@ -5007,25 +5273,28 @@ def phase_multiepoch(device, card="", build_kw=None, data_kw=None,
           f" and K1f 12, K2f 10 per readout or eval forward; p16 and p32 "
           f"no kernel", flush=True)
     df = importlib.import_module(COUNTERS["K3b"][0])
-    for name in ("k16", "k32"):
-        fams = res[name]["bwd_families"]["K1b"]
-        n = res[name]["launches"]["K1b"]
+    for name in ("k16", "k32"):   # K1f and K1b, forward and backward
         want = df.family(48, getattr(torch, runs[name][0]))
-        check(fams[want] == n == sum(fams.values()),
-              f"multiepoch {name}: K1b launches by family {fams}, want all "
-              f"{n} on {want}")
+        for key in ("K1f", "K1b"):
+            fams = res[name]["families"][key]
+            n = res[name]["launches"][key]
+            check(fams[want] == n == sum(fams.values()),
+                  f"multiepoch {name}: {key} launches by family {fams}, "
+                  f"want all {n} on {want}")
     k32, p32 = res["k32"]["ms"], res["p32"]["ms"]
     print(f"multiepoch: ms/step, median: k32 {k32:.2f} against p32 "
           f"{p32:.2f} ({k32 / p32:.3f}x); k16 {res['k16']['ms']:.2f}, p16 "
-          f"{res['p16']['ms']:.2f}; K1b by "
-          f"family: k16 {res['k16']['bwd_families']['K1b']}, k32 "
-          f"{res['k32']['bwd_families']['K1b']}; {card}", flush=True)
+          f"{res['p16']['ms']:.2f}; K1f and K1b by family: k16 "
+          f"{res['k16']['families']['K1f']}, "
+          f"{res['k16']['families']['K1b']}, k32 "
+          f"{res['k32']['families']['K1f']}, "
+          f"{res['k32']['families']['K1b']}; {card}", flush=True)
     return dict(launches={k: res["k16"]["launches"][k]
                           + res["k32"]["launches"][k] for k in kernels},
-                bwd_families={k: {f: res["k16"]["bwd_families"][k][f]
-                                  + res["k32"]["bwd_families"][k][f]
-                                  for f in df.FAMILIES}
-                              for k in ("K1b", "K3b")})
+                families={k: {f: res["k16"]["families"][k][f]
+                              + res["k32"]["families"][k][f]
+                              for f in df.FAMILIES}
+                          for k in res["k16"]["families"]})
 
 
 def main() -> int:
@@ -5122,10 +5391,11 @@ def main() -> int:
     paths["gigapath_branch_train"] = phase_train(
         device, card=card, build_kw=GIGAPATH_BRANCH, compare_kw=GIGAPATH_2047,
         tag="branch train", k2_calls=True)
-    # the --bf16 0 user's step: the default route with an fp32 backbone
-    # (K1b on the 3xTF32 family)
-    paths["gigapath_fp32_train"] = phase_train_fp32(
-        device, paths["gigapath_train"], card=card)
+    # the --bf16 0 user's step: the default and the fused route with an
+    # fp32 backbone (K1 and K3 on the 3xTF32 family)
+    fp32 = phase_train_fp32(device, paths["gigapath_train"], card=card)
+    paths["gigapath_fp32_train"] = fp32["fp32 train"]
+    paths["gigapath_fused_fp32_train"] = fp32["fused fp32 train"]
     lap("GigaPath embed and train steps, three routes, the fp32 step")
     # ModalTune-TITAN: the embed step, the train step
     paths["titan_embed"] = phase_slice(
@@ -5198,7 +5468,10 @@ def main() -> int:
         given; family: the kernel family of the paths' bf16 calls, as the
         C entry points chose it where they export their rule (K1, K2,
         K3), else ``family``; device_ms where measured, and K1f's and
-        K3f's mix kernel on the card and K1f's times with stats. sources
+        K3f's mix kernel on the card and K1f's times with stats; K1f's
+        and K3f's fp32 readings (``fp32``) and their CUDA-core family's at
+        D = 64 (``cuda_cores``). A card time the profiler did not record
+        is null. sources
         (K2): the file of each family, and the launches by family summed
         over the paths that count them (``launches_by_family``)."""
         big = flagship["at_25600"].get(key)
@@ -5260,29 +5533,36 @@ def main() -> int:
                          for p, r in paths.items()}
                 out["part1_launches_by_path"] = {p: n for p, n in
                                                  part1.items() if n}
-        if key in ("K1b", "K3b"):
-            # by family: the gradient core of each (bf16 wgmma, fp32
-            # 3xTF32) and the CUDA-core kernels; launches summed over the
-            # paths that record them (drive_train's, the schedule's); the
-            # fp32 family's readings beside the bf16 ones
+        if key in ("K1f", "K3f", "K1b", "K3b"):
+            # by family: the cores of each (bf16 wgmma, fp32 3xTF32; the
+            # kernels of `name`.cu beside them) and the CUDA-core kernels;
+            # launches summed over the paths that record them (the embed
+            # and train steps', the schedule's); the fp32 family's readings
+            # beside the bf16 ones
+            side = 0 if key.endswith("f") else 1
             out["source_by_family"] = {
-                "wgmma": "modaltune_tpu_torch/csrc/dilated_bwd_wgmma.cu",
-                "tf32x3": "modaltune_tpu_torch/csrc/dilated_bwd_tf32.cu",
-                "cuda_cores": f"modaltune_tpu_torch/csrc/{name}.cu"}
+                fam: f"modaltune_tpu_torch/csrc/{pair[side]}"
+                for fam, pair in df.CORE_SOURCES.items()}
+            out["source_by_family"]["cuda_cores"] = (
+                f"modaltune_tpu_torch/csrc/{name}.cu")
             out["launches_by_family"] = {
-                fam: sum(r["bwd_families"][key][fam] for r in paths.values()
-                         if "bwd_families" in r)
+                fam: sum(r["families"][key][fam] for r in paths.values()
+                         if "families" in r)
                 for fam in out["source_by_family"]}
+            check(out["launches_by_family"]["tf32x3"] > 0,
+                  f"{name}: the 3xTF32 family was launched on no path")
+        if key in ("K1b", "K3b"):
             out["fp32"] = res["fp32"]
             if big is not None:
                 out["at_25600"]["fp32"] = big["fp32"]
             if key == "K1b":
                 out["fp32"]["qrange_by_n"] = k1q["fp32_by_n"]
-                check(out["launches_by_family"]["tf32x3"] > 0,
-                      f"{name}: the 3xTF32 family was launched on no path")
-        if key in ("K1f", "K3f"):   # fp32: the CUDA-core forward's times
-            keep = ("family", "ms", "device_ms", "plain_ms", "bound_ms",
-                    "bound_by", "cuda_cores_bound_ms", "stats_ms")
+        if key in ("K1f", "K3f"):   # fp32: the 3xTF32 family's readings
+            keep = ("family", "ms", "device_ms", "mix_device_ms",
+                    "plain_ms", "bound_ms", "bound_by", "cuda_cores_bound_ms",
+                    "stats_ms", "stats_device_ms", "rel", "row", "core_ms",
+                    "core_device_ms", "core_bound_ms", "mix_alone_ms",
+                    "mix_alone_device_ms", "mix_bound_ms", "k1f_ms")
 
             def fp32_of(r):
                 return {k: r["float32"][k] for k in keep
@@ -5290,6 +5570,9 @@ def main() -> int:
             out["fp32"] = fp32_of(res)
             if big is not None:
                 out["at_25600"]["fp32"] = fp32_of(big)
+            # the CUDA-core family (D != 48) at its own shape; no path
+            # launches it
+            out["cuda_cores"] = res["cuda_cores"]
         if sources:
             side = "bwd" if key.endswith("b") else "fwd"
             out["source_by_family"] = {
@@ -5304,7 +5587,8 @@ def main() -> int:
                                               "bound_by", "library_ms")}
                 for shape, r in by_shape.items()}
             for shape, r in by_shape.items():   # K2's family, device times
-                for k in ("family", "device_ms", "library_device_ms"):
+                for k in ("family", "device_ms", "library_device_ms",
+                          "fp32"):
                     if k in r:
                         out["by_shape"][shape][k] = r[k]
         check(out["launches"] > 0, f"{name} was launched on no path")
@@ -5317,15 +5601,19 @@ def main() -> int:
                 "wgmma": f"flash_wgmma_{side}"}
 
     both = ("float32", "bfloat16")
+
+    def both_cores(r):
+        """K1f's and K3f's readings: both dtypes, the CUDA-core leg's."""
+        return both + (("cuda_cores",) if "cuda_cores" in r else ())
     # the largest output or gradient error of a kernel's readings (K2, K4:
     # of every shape's)
     errors = {
-        "K1f": lambda r: max(r[dt]["out_err"] for dt in both),
+        "K1f": lambda r: max(r[dt]["out_err"] for dt in both_cores(r)),
         "K1b": lambda r: max(r[dt]["grad_err"] for dt in both),
         "K2f": lambda rs: max(r[dt]["out_err"] for r in rs.values()
                               for dt in both),
         "K2b": lambda rs: max(r[dt] for r in rs.values() for dt in both),
-        "K3f": lambda r: max(r[dt][e] for dt in both
+        "K3f": lambda r: max(r[dt].get(e, 0.0) for dt in both_cores(r)
                              for e in ("out_err", "piece_err", "mix_err")),
         "K3b": lambda r: max(r[dt]["grad_err"] for dt in both),
         "K4f": lambda rs: max(r[dt]["out_err"] for r in rs.values()
@@ -5334,15 +5622,15 @@ def main() -> int:
         "K5f": lambda r: max(r[dt] for dt in both),
         "K5b": lambda r: max(r[dt] for dt in both),
     }
+    df = importlib.import_module(COUNTERS["K3f"][0])
     kernels = [
-        # bf16 at D = 48 runs the tensor-core forward core of
-        # dilated_fwd_wgmma.cu and the mix; fp32 the CUDA-core kernel of
-        # `name`.cu
+        # at D = 48 the family's tensor-core forward core (bf16
+        # dilated_fwd_wgmma.cu, fp32 dilated_fwd_tf32.cu) and the mix
         kernel("K1f", "dilated_attention_fwd",
                "modaltune_tpu/ops/dilated_mega.py:426", k1,
                source="dilated_fwd_wgmma"),
-        # bf16 at D = 48 runs the tensor-core core of dilated_bwd_wgmma.cu
-        # behind each route's prep; fp32 the CUDA-core kernels of `name`.cu
+        # at D = 48 the family's gradient core (bf16 dilated_bwd_wgmma.cu,
+        # fp32 dilated_bwd_tf32.cu) behind each route's prep
         kernel("K1b", "dilated_attention_bwd",
                "modaltune_tpu/ops/dilated_mega.py:641", k1b,
                source="dilated_bwd_wgmma"),

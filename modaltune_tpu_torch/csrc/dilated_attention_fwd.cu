@@ -29,21 +29,24 @@
 // query_tiles) and the mix writes the zeros; the CUDA-core kernel's blocks
 // start at q0 and range_fill_kernel writes the rows outside.
 //
-// Two families (mt::dilated_family), neither with atomics:
-// * bf16 at D = 48 (GigaPath's head size, every call of the model), two
-//   launches with or without stats: the tensor-core forward core
-//   (dilated_fwd_wgmma.cu, which K3f shares) writes every branch's compact
-//   out_b and lse_b into scratch (ops/dilated_fused.py's layout, 98 MB at
-//   (3, 10240, 16, 48)); K3f's mix kernel (dilated_fused_fwd.cu) writes out
-//   and, with stats, the planes above. The branches are attended apart, so
-//   the inference variant computes the mix from each branch's (out_b,
-//   lse_b) as the training variant does; the union-softmax identity below
-//   serves the CUDA-core kernel alone. What bounds it is operations
-//   (dilated_fwd_wgmma.cu: 0.268 ms at that shape); compact tiles keep every
-//   row of a 64-row wgmma tile in one (segment, head group), where this
-//   file's blocks of 64 consecutive positions hold 64 / r rows of a branch
-//   of ratio r (2.56 times the products at GigaPath's shape).
-// * fp32 at any D and bf16 at any other D: dilated_fwd_kernel, one launch on
+// Three families (mt::dilated_family), none with atomics:
+// * at D = 48 (GigaPath's head size, every call of the model), bf16 and
+//   fp32, two launches with or without stats: the family's tensor-core
+//   forward core (bf16: dilated_fwd_wgmma.cu; fp32: the 3xTF32 core
+//   dilated_fwd_tf32.cu; K3f shares both) writes every branch's compact
+//   out_b and lse_b into scratch in the inputs' dtype (ops/dilated_fused.py's
+//   layout, 98 MB in bf16 and 196 MB in fp32 at (3, 10240, 16, 48)); K3f's
+//   mix kernel (dilated_fused_fwd.cu) writes out and, with stats, the planes
+//   above. The branches are attended apart, so the inference variant
+//   computes the mix from each branch's (out_b, lse_b) as the training
+//   variant does; the union-softmax identity below serves the CUDA-core
+//   kernel alone. What bounds it is operations (dilated_fwd_wgmma.cu: 0.268
+//   ms at that shape; dilated_fwd_tf32.cu: 1.60 ms, its products as three
+//   TF32 products each); compact tiles keep every row of a 64-row tile in
+//   one (segment, head group), where this file's blocks of 64 consecutive
+//   positions hold 64 / r rows of a branch of ratio r (2.56 times the
+//   products at GigaPath's shape).
+// * fp32 and bf16 at any other D: dilated_fwd_kernel, one launch on
 //   CUDA cores in fp32, bound by fp32 issue and shared-memory bandwidth. A
 //   block owns 64 consecutive query positions of one (batch, head). For each
 //   branch and each segment the tile touches (tiles straddle segment
@@ -212,15 +215,15 @@ cudaError_t dispatch_dilated(int DP, const void* q, const void* k, const void* v
   }
 }
 
-// The tensor-core family: the forward core into compact scratch, then the
-// mix, which writes out and, with stats, K1's planes.
-inline cudaError_t launch_dilated_fwd_wgmma(const void* q, const void* k, const void* v,
-                                            const unsigned char* mask, void* out, float* stats,
-                                            void* out_c, float* lse_c, int B, int L, int H,
-                                            float scale, const FusedBranches& fb,
-                                            cudaStream_t stream) {
+// A tensor-core family (1 bf16, 2 fp32): its forward core into compact
+// scratch, then the mix, which writes out and, with stats, K1's planes.
+inline cudaError_t launch_dilated_fwd_compact(int family, const void* q, const void* k,
+                                              const void* v, const unsigned char* mask,
+                                              void* out, float* stats, void* out_c,
+                                              float* lse_c, int B, int L, int H, float scale,
+                                              const FusedBranches& fb, cudaStream_t stream) {
   const DilatedFwdCore c{q, k, v, mask, out_c, lse_c, B, L, H, scale};
-  const cudaError_t err = launch_dilated_fwd_core(c, fb, stream);
+  const cudaError_t err = launch_fwd_core(family, c, fb, stream);
   if (err != cudaSuccess) return err;
   const int n = fb.n;
   const size_t plane = static_cast<size_t>(L);
@@ -229,7 +232,8 @@ inline cudaError_t launch_dilated_fwd_wgmma(const void* q, const void* k, const 
                  stats == nullptr ? nullptr : stats + (n + 1) * plane,
                  (n + 2) * plane,
                  stats};
-  return launch_compact_mix(out_c, lse_c, o, B, L, H, kWgmmaD, fb, 1, stream);
+  return launch_compact_mix(out_c, lse_c, o, B, L, H, kWgmmaD, fb, family == 1 ? 1 : 0,
+                            stream);
 }
 
 template <typename T>
@@ -248,10 +252,10 @@ cudaError_t dispatch_dilated(int DP, const void* q, const void* k, const void* v
 // q/k/v/out (B, L, H, D) contiguous; mask (B, L) bytes (1 = valid) or null.
 // stats (B*H, n_branches + 2, L) fp32, or null (inference).
 // segments/ratios: n_branches host ints. dtype: 0 = float32, 1 = bfloat16.
-// The tensor-core family (mt::dilated_family: bf16, D = 48; q/k/v 16-byte
-// aligned) takes compact scratch out_c (B, H, M, 48) bf16 and lse_c (B, H, M)
-// fp32, M the compact rows of a head (ops/dilated_fused.py::total_rows);
-// the CUDA-core kernels take them null.
+// The tensor-core families (mt::dilated_family: bf16 and fp32 at D = 48;
+// q/k/v 16-byte aligned) take compact scratch out_c (B, H, M, 48) in q's
+// dtype and lse_c (B, H, M) fp32, M the compact rows of a head
+// (ops/dilated_fused.py::total_rows); the CUDA-core kernels take them null.
 // [q0, q1): the query range (K1's q_token_range; 0, L: every row). Only the
 // query tiles that meet it are computed; every slot outside it gets out 0,
 // with stats lse_b and m NEG_INF and Z 0 (a row without a valid key). An
@@ -276,14 +280,15 @@ extern "C" int mt_dilated_attention_fwd(const void* q, const void* k, const void
   const auto s = static_cast<cudaStream_t>(stream);
   const auto m = static_cast<const unsigned char*>(mask);
   const auto st = static_cast<float*>(stats);
-  if (mt::dilated_family(D, dtype) == 1) {
+  const int family = mt::dilated_family(D, dtype);
+  if (family != 0) {
     mt::FusedBranches fb{};
     if (out_c == nullptr || lse_c == nullptr ||
         !mt::make_fused_branches(fb, L, segments, ratios, n_branches) ||
         !mt::set_query_range(fb, L, q0, q1))
       return cudaErrorInvalidValue;
-    return mt::launch_dilated_fwd_wgmma(q, k, v, m, out, st, out_c,
-                                        static_cast<float*>(lse_c), B, L, H, scale, fb, s);
+    return mt::launch_dilated_fwd_compact(family, q, k, v, m, out, st, out_c,
+                                          static_cast<float*>(lse_c), B, L, H, scale, fb, s);
   }
   if (dtype == 0)
     return mt::dispatch_dilated<float>(DP, q, k, v, m, out, st, B, L, H, D, scale, br, q0, q1,

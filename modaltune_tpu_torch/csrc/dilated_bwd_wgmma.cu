@@ -371,8 +371,8 @@ cudaError_t launch_dilated_bwd_core(const DilatedBwdCore& a, const FusedBranches
 
 // Which kernels serve a dilated attention (mt::dilated_family): 0 the
 // CUDA-core kernels, 1 the tensor-core cores of this file and
-// dilated_fwd_wgmma.cu, 2 the 3xTF32 gradient core of dilated_bwd_tf32.cu
-// (the backward alone).
+// dilated_fwd_wgmma.cu, 2 the 3xTF32 cores of dilated_fwd_tf32.cu and
+// dilated_bwd_tf32.cu.
 extern "C" int mt_dilated_family(int D, int dtype) {
   return mt::dilated_family(D, dtype);
 }

@@ -20,11 +20,13 @@
 // enumerates the 64-row tiles of all branches), the mix kernel every
 // (token, head).
 //
-// Two families of the branch kernel (mt::dilated_family), neither with
-// atomics; the mix kernel serves both, and K1f's tensor-core family too:
-// * bf16 at D = 48 (GigaPath's head size): the tensor-core forward core of
-//   dilated_fwd_wgmma.cu, which K1f shares; bound by operations.
-// * fp32 at any D and bf16 at any other D: fused_branch_fwd_kernel below,
+// Three families of the branch kernel (mt::dilated_family), none with
+// atomics; the mix kernel serves them all, and K1f's tensor-core families
+// too:
+// * at D = 48 (GigaPath's head size) the family's tensor-core forward core,
+//   which K1f shares: bf16 dilated_fwd_wgmma.cu, fp32 the 3xTF32 core
+//   dilated_fwd_tf32.cu; bound by operations.
+// * fp32 and bf16 at any other D: fused_branch_fwd_kernel below,
 //   products on CUDA cores in fp32, bound by the fp32 arithmetic rate and
 //   shared-memory bandwidth. q/k/v are read in place in (B, L, H, D) with
 //   strided rows, so no gathered copy of them is ever written; a block's 64
@@ -273,9 +275,10 @@ extern "C" int mt_dilated_fused_fwd(const void* q, const void* k, const void* v,
   const auto lc = static_cast<float*>(lse_c);
   const auto mo = static_cast<float*>(m_out);
   const auto zo = static_cast<float*>(z_out);
-  if (mt::dilated_family(D, dtype) == 1) {
+  const int family = mt::dilated_family(D, dtype);
+  if (family != 0) {
     const mt::DilatedFwdCore c{q, k, v, m, out_c, lc, B, L, H, scale};
-    cudaError_t err = mt::launch_dilated_fwd_core(c, fb, s);
+    cudaError_t err = mt::launch_fwd_core(family, c, fb, s);
     if (err != cudaSuccess) return err;
     const mt::MixOut o{mixed, mo, zo, static_cast<size_t>(L), nullptr};
     return mt::launch_compact_mix(out_c, lc, o, B, L, H, D, fb, dtype, s);
@@ -287,4 +290,34 @@ extern "C" int mt_dilated_fused_fwd(const void* q, const void* k, const void* v,
     return mt::dispatch_fused_fwd<__nv_bfloat16>(DP, q, k, v, m, mixed, out_c, lc, mo, zo, B, L,
                                                  H, D, scale, fb, s);
   return cudaErrorInvalidValue;
+}
+
+// K3f's two kernels one at a time, as JAX's _branch_fwd_call and _mix_call
+// are two calls, so that each can be timed alone: part 0, the tensor-core
+// family's forward core from q, k, v into out_c and lse_c (the CUDA-core
+// family is refused: its branch kernel is timed inside K3f); part 1, the
+// mix from out_c and lse_c into mixed, m_out and z_out (q, k, v and the
+// mask unread). The other arguments are mt_dilated_fused_fwd's.
+extern "C" int mt_dilated_fused_fwd_part(int part, const void* q, const void* k, const void* v,
+                                         const void* mask, void* mixed, void* out_c,
+                                         void* lse_c, void* m_out, void* z_out, int B, int L,
+                                         int H, int D, const int* segments, const int* ratios,
+                                         int n_branches, float scale, int dtype, void* stream) {
+  mt::FusedBranches fb{};
+  if (mt::padded_head_dim(D) < 0 || B < 1 || B > 65535 || H < 1 || H > 65535 ||
+      (dtype != 0 && dtype != 1) || !mt::make_fused_branches(fb, L, segments, ratios, n_branches))
+    return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto lc = static_cast<float*>(lse_c);
+  if (part == 0) {
+    const int family = mt::dilated_family(D, dtype);
+    if (family == 0) return cudaErrorInvalidValue;
+    const mt::DilatedFwdCore c{q, k, v, static_cast<const unsigned char*>(mask), out_c, lc,
+                               B, L, H, scale};
+    return mt::launch_fwd_core(family, c, fb, s);
+  }
+  if (part != 1) return cudaErrorInvalidValue;
+  const mt::MixOut o{mixed, static_cast<float*>(m_out), static_cast<float*>(z_out),
+                     static_cast<size_t>(L), nullptr};
+  return mt::launch_compact_mix(out_c, lc, o, B, L, H, D, fb, dtype, s);
 }

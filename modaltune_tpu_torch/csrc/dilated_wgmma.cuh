@@ -1,9 +1,9 @@
 // The tensor-core families of the dilated attention kernels at GigaPath's
-// head size, D = 48. bf16 (K1 and K3): one forward core
-// (dilated_fwd_wgmma.cu) and one gradient core (dilated_bwd_wgmma.cu) on the
-// Hopper frame (attention_wgmma.cuh, dilated_wgmma_frame.cuh), which both
-// routes reach. fp32 (K1b and K3b alone): the 3xTF32 gradient core
-// (dilated_bwd_tf32.cu) with the same contract. Declared here with the two
+// head size, D = 48, each a forward core and a gradient core with one
+// contract, which both routes (K1 and K3) reach: bf16 on the Hopper frame
+// (attention_wgmma.cuh, dilated_wgmma_frame.cuh; dilated_fwd_wgmma.cu,
+// dilated_bwd_wgmma.cu), fp32 on 3xTF32 (dilated_tf32.cuh;
+// dilated_fwd_tf32.cu, dilated_bwd_tf32.cu). Declared here with the two
 // kernels around them that both routes share, the mix
 // (dilated_fused_fwd.cu) and the combine (dilated_fused_bwd.cu).
 //
@@ -11,12 +11,13 @@
 // owns one 64-row compact tile of one (batch, head, branch, segment) and
 // streams the 64-row tiles of the same (segment, head group), whose rows are
 // at once its queries and its keys. Their inputs are q, k, v (and dmix) in
-// place, (B, L, H, 48) bf16 (fp32 for the 3xTF32 core), and the (B, L) mask.
+// place, (B, L, H, 48) bf16 or fp32 (the family's dtype), and the (B, L)
+// mask.
 // * The forward core writes per compact row the branch's output out_c
-//   (B, H, M, 48) bf16 and lse_c (B, H, M) fp32 (natural log): 0 and NEG_INF
-//   where the row is no real position or has no valid key, as K3f's
-//   CUDA-core branch kernel writes them. The mix turns them into a route's
-//   outputs.
+//   (B, H, M, 48) in the inputs' dtype and lse_c (B, H, M) fp32 (natural
+//   log): 0 and NEG_INF where the row is no real position or has no valid
+//   key, as K3f's CUDA-core branch kernel writes them. The mix turns them
+//   into a route's outputs.
 // * A gradient core takes per compact row the branch's lse and the demix
 //   weight w, (B, H, M) fp32 each, which a route's prep kernel writes, and
 //   writes delta = w * rowsum(dmix * o_b) there itself, from P and dP (no
@@ -31,29 +32,38 @@ namespace mt {
 
 // Which kernels serve a dilated attention, by code: 0 the CUDA-core kernels
 // (fp32 and bf16 at any other D), 1 the wgmma cores of this header (bf16 at
-// D = 48, forward and backward), 2 the 3xTF32 gradient core (fp32 at
-// D = 48; the backward alone: the forward runs the CUDA-core kernels there,
-// so a forward takes its tensor-core core on code 1 only). The C entry
-// points own the rule (mt_dilated_family); ops/dilated_fused.py::family is
-// its copy.
+// D = 48), 2 the 3xTF32 cores (fp32 at D = 48); a family's forward and
+// backward alike. The C entry points own the rule (mt_dilated_family);
+// ops/dilated_fused.py::family is its copy.
 constexpr int kWgmmaD = 48;
 inline int dilated_family(int D, int dtype) {
   return D != kWgmmaD ? 0 : dtype == 1 ? 1 : dtype == 0 ? 2 : 0;
 }
 
 struct DilatedFwdCore {
-  const void *q, *k, *v;             // (B, L, H, 48) bf16, 16-byte aligned
+  const void *q, *k, *v;             // (B, L, H, 48) bf16 or fp32, 16-byte aligned
   const unsigned char* mask;         // (B, L), 1 = valid; or null
-  void* out_c;                       // (B, H, M, 48) bf16
+  void* out_c;                       // (B, H, M, 48) in q's dtype
   float* lse_c;                      // (B, H, M)
   int B, L, H;
   float scale;
 };
 
-// The forward core (dilated_fwd_wgmma.cu); cudaErrorMisalignedAddress when
-// q, k or v is not 16-byte aligned.
+// The bf16 forward core (dilated_fwd_wgmma.cu); cudaErrorMisalignedAddress
+// when q, k or v is not 16-byte aligned.
 cudaError_t launch_dilated_fwd_core(const DilatedFwdCore& a, const FusedBranches& fb,
                                     cudaStream_t stream);
+// The 3xTF32 forward core (dilated_fwd_tf32.cu) on fp32 q, k, v; the same
+// refusal.
+cudaError_t launch_dilated_fwd_core_tf32(const DilatedFwdCore& a, const FusedBranches& fb,
+                                         cudaStream_t stream);
+
+// The forward core of tensor-core family `family` (1 or 2).
+inline cudaError_t launch_fwd_core(int family, const DilatedFwdCore& a, const FusedBranches& fb,
+                                   cudaStream_t stream) {
+  return family == 2 ? launch_dilated_fwd_core_tf32(a, fb, stream)
+                     : launch_dilated_fwd_core(a, fb, stream);
+}
 
 struct DilatedBwdCore {
   const void *q, *k, *v, *dmix;      // (B, L, H, 48) bf16 or fp32, 16-byte aligned

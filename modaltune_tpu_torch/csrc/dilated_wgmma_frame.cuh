@@ -104,15 +104,17 @@ __device__ __forceinline__ void hold(float (&d)[N]) {
 
 // ---- the consumers' arithmetic ----------------------------------------------
 
-// One key tile's scores `s` (64 x 64, q k^T unscaled) into the online
-// softmax of the thread's two rows: P packed to bf16 into `p`, O rescaled.
-__device__ __forceinline__ void softmax_tile(float (&s)[32], uint32_t (&p)[16], float (&o)[24],
-                                             float (&m_run)[2], float (&l_run)[2],
-                                             const float* kterm, float scale2,
-                                             const wg::Lane& ln) {
+// Scores `s` of N / 4 tiles of 8 keys (q k^T unscaled; the thread's two
+// rows, in the accumulator layout) into the online softmax of those rows:
+// P in s, O (the rows' 48 output columns) rescaled. The bf16 cores take a
+// 64-key tile (N = 32), the 3xTF32 forward core a half of 32 keys (N = 16).
+template <int N>
+__device__ __forceinline__ void online_softmax(float (&s)[N], float (&o)[24], float (&m_run)[2],
+                                               float (&l_run)[2], const float* kterm,
+                                               float scale2, const wg::Lane& ln) {
   float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     const float2 kt = *reinterpret_cast<const float2*>(kterm + 8 * j + ln.col0);
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
@@ -130,7 +132,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], uint32_t (&p)[16], 
     m_run[rr] = m_new;
     float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < N / 4; ++j) {
       const int i = 4 * j + 2 * rr;
       s[i] = wg::exp2_fast(s[i] - m_new);
       s[i + 1] = wg::exp2_fast(s[i + 1] - m_new);
@@ -143,6 +145,15 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], uint32_t (&p)[16], 
     }
     l_run[rr] = l_run[rr] * c_old + sum;
   }
+}
+
+// One key tile's scores `s` (64 x 64, q k^T unscaled) into the online
+// softmax of the thread's two rows: P packed to bf16 into `p`, O rescaled.
+__device__ __forceinline__ void softmax_tile(float (&s)[32], uint32_t (&p)[16], float (&o)[24],
+                                             float (&m_run)[2], float (&l_run)[2],
+                                             const float* kterm, float scale2,
+                                             const wg::Lane& ln) {
+  online_softmax(s, o, m_run, l_run, kterm, scale2, ln);
   wg::pack_tile(p, s);
 }
 

@@ -50,6 +50,9 @@ SIGNATURES = {
                                _P, _P, _P],
     "mt_dilated_fused_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _P, _P, _I, ctypes.c_float, _I, _P],
+    "mt_dilated_fused_fwd_part": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                  _I, _I, _I, _P, _P, _I, ctypes.c_float, _I,
+                                  _P],
     "mt_dilated_fused_bwd": [_P] * 16 + [_I, _I, _I, _I, _P, _P, _I,
                                          ctypes.c_float, _I, _P],
     "mt_gelu_ln_fwd": [_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _I,

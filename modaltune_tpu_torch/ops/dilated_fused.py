@@ -18,12 +18,13 @@ rows are concatenated along that axis (``branch_rows`` gives the offsets).
 A CUDA tensor goes to the hand-written Hopper kernels
 ``csrc/dilated_fused_fwd.cu`` (K3f: the branch attention and the mix) and,
 for the gradient, ``csrc/dilated_fused_bwd.cu`` (K3b: the demix weights and
-``delta``, the branch dq and dk/dv kernels, the combine). At bf16 and
-D = 48 (:func:`card_family`) the branch attention is the tensor-core forward
-core ``csrc/dilated_fwd_wgmma.cu`` and the dq and dk/dv kernels the
-gradient core ``csrc/dilated_bwd_wgmma.cu``; at fp32 and D = 48 the dq and
-dk/dv kernels are the 3xTF32 gradient core ``csrc/dilated_bwd_tf32.cu``;
-every core is shared with K1. A CPU
+``delta``, the branch dq and dk/dv kernels, the combine). At D = 48
+(:func:`card_family`) the branch attention is a tensor-core forward core
+and the dq and dk/dv kernels a gradient core: at bf16
+``csrc/dilated_fwd_wgmma.cu`` and ``csrc/dilated_bwd_wgmma.cu``, at fp32
+the 3xTF32 cores ``csrc/dilated_fwd_tf32.cu`` and
+``csrc/dilated_bwd_tf32.cu`` (:data:`CORE_SOURCES`); every core is shared
+with K1. A CPU
 tensor goes to the plain version :func:`.dilated.dilated_attention` under
 autograd. The four ``fused_*_reference`` functions are the plain
 versions of the four kernels, piece by piece.
@@ -53,10 +54,13 @@ from .kept import kept
 
 # Kernel launches since the last reset (read by chip_smoke.py): K3f (one per
 # forward: the branch kernel and the mix kernel) and K3b (one per backward:
-# its four kernels), K3b's also by family (FAMILIES).
+# its four kernels), each also by family (FAMILIES).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+FAMILY_LAUNCHES = {"cuda_cores": 0, "wgmma": 0, "tf32x3": 0}
 BWD_FAMILY_LAUNCHES = {"cuda_cores": 0, "wgmma": 0, "tf32x3": 0}
+# K3f's two kernels launched one at a time (fused_forward_part_cuda)
+PART_LAUNCHES = {"core": 0, "mix": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -249,18 +253,25 @@ def split_branches(x: torch.Tensor, length: int,
 # csrc/dilated_wgmma.cuh::dilated_family, by code
 FAMILIES = ("cuda_cores", "wgmma", "tf32x3")
 WGMMA_D = 48    # the head dimension of the tensor-core families
+# tensor-core family -> (its forward core, its gradient core), under csrc/:
+# both routes run them between their own prep, mix and combine kernels (the
+# CUDA-core family's kernels are each route's own file)
+CORE_SOURCES = {
+    "wgmma": ("dilated_fwd_wgmma.cu", "dilated_bwd_wgmma.cu"),
+    "tf32x3": ("dilated_fwd_tf32.cu", "dilated_bwd_tf32.cu"),
+}
 
 
 def family(d: int, dtype: torch.dtype) -> str:
-    """The kernels that serve a dilated attention, K1's and K3's alike:
-    ``"wgmma"`` (the compact-tile tensor-core cores, forward and backward,
+    """The kernels that serve a dilated attention, K1's and K3's alike,
+    forward and backward: ``"wgmma"`` (the compact-tile tensor-core cores,
     bf16 at D = :data:`WGMMA_D`, GigaPath's head size), ``"tf32x3"`` (the
-    backward's 3xTF32 tensor-core core at fp32 and D = :data:`WGMMA_D`; the
-    forward runs the CUDA-core kernel there) or ``"cuda_cores"`` (fp32 and
-    bf16 at any other D). The C entry points own the rule
-    (``mt_dilated_family``) and the wrappers ask them (:func:`card_family`);
-    this copy serves the CPU tests, and ``tests/test_torch_kernels_cuda.py``
-    holds it equal to the library's."""
+    3xTF32 tensor-core cores on the same tiles at fp32 and D =
+    :data:`WGMMA_D`) or ``"cuda_cores"`` (fp32 and bf16 at any other D).
+    A tensor-core family's cores are :data:`CORE_SOURCES`'. The C entry
+    points own the rule (``mt_dilated_family``) and the wrappers ask them
+    (:func:`card_family`); this copy serves the CPU tests, and
+    ``tests/test_torch_kernels_cuda.py`` holds it equal to the library's."""
     if d != WGMMA_D:
         return "cuda_cores"
     return {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}.get(
@@ -312,7 +323,62 @@ def fused_dilated_attention_cuda(q: torch.Tensor, k: torch.Tensor,
             stream)
     check_launch(err, "mt_dilated_fused_fwd")
     LAUNCHES += 1
+    FAMILY_LAUNCHES[card_family(d, q.dtype)] += 1
     return mixed, out_c, lse_c, stats
+
+
+def fused_forward_part_cuda(part: str, q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, mask: Optional[torch.Tensor],
+                            segment_lengths: Sequence[int],
+                            dilated_ratios: Sequence[int], scale: float,
+                            pieces: Optional[Tuple[torch.Tensor,
+                                                   torch.Tensor]] = None):
+    """K3f's two kernels one at a time on ``q``'s device and current
+    stream, as JAX's ``_branch_fwd_call`` and ``_mix_call`` are two calls:
+    ``part="core"``, the tensor-core family's forward core alone (a
+    CUDA-core family raises), returns ``(out_c, lse_c)``; ``part="mix"``,
+    the mix alone of ``pieces = (out_c, lse_c)``, returns ``(mixed, stats
+    (2, B, H, L))``. Their plain versions are :func:`fused_branch_reference`
+    and :func:`fused_mix_reference`. It serves to time each kernel alone
+    on the host's clock as well as the card's (a profiler's split of the
+    whole call gives only the card's); the routes launch both in one call
+    (:func:`fused_dilated_attention_cuda`). Counted in ``PART_LAUNCHES``,
+    not in ``LAUNCHES``."""
+    segs, ratios, c_segs, c_ratios = _branch_args(segment_lengths,
+                                                  dilated_ratios)
+    _check(q, k, v, mask, segs, ratios)
+    b, length, h, d = q.shape
+    rows = total_rows(length, segs, ratios)
+    if part == "core":
+        out_c = torch.empty((b, h, rows, d), dtype=q.dtype, device=q.device)
+        lse_c = torch.empty((b, h, rows), dtype=torch.float32,
+                            device=q.device)
+        mixed = stats = None
+    elif part == "mix":
+        out_c, lse_c = pieces
+        if out_c.shape != (b, h, rows, d) or out_c.dtype != q.dtype or \
+                lse_c.shape != (b, h, rows) or \
+                lse_c.dtype != torch.float32 or not out_c.is_contiguous() \
+                or not lse_c.is_contiguous():
+            raise ValueError("pieces do not match the forward core's")
+        mixed = torch.empty_like(q)
+        stats = torch.empty((2, b, h, length), dtype=torch.float32,
+                            device=q.device)
+    else:
+        raise ValueError(f"part must be 'core' or 'mix', got {part!r}")
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.mt_dilated_fused_fwd_part(
+            0 if part == "core" else 1, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), _ptr(mask), _ptr(mixed), out_c.data_ptr(),
+            lse_c.data_ptr(), *((None, None) if stats is None else
+                                (stats[0].data_ptr(), stats[1].data_ptr())),
+            b, length, h, d, c_segs, c_ratios, len(segs), float(scale),
+            _DTYPE_CODES[q.dtype], stream)
+    check_launch(err, "mt_dilated_fused_fwd_part")
+    PART_LAUNCHES[part] += 1
+    return (out_c, lse_c) if part == "core" else (mixed, stats)
 
 
 def fused_dilated_attention_backward_cuda(

@@ -5,14 +5,13 @@ same signature and semantics as :func:`.dilated.dilated_attention`. A CUDA
 tensor goes to the hand-written Hopper kernels ``csrc/dilated_attention_fwd.cu``
 (K1f) and, for the gradient, ``csrc/dilated_attention_bwd.cu`` (K1b), in the
 family that the C entry points choose (:func:`.dilated_fused.card_family`):
-at bf16 and D = 48 K1f is the tensor-core forward core
-``csrc/dilated_fwd_wgmma.cu`` into K3's compact rows and K3f's mix, and K1b
-a prep onto those rows, the tensor-core gradient core
-``csrc/dilated_bwd_wgmma.cu`` and K3b's combine, every core shared with K3;
-at fp32 and D = 48 K1b is the same prep and combine around the 3xTF32
-gradient core ``csrc/dilated_bwd_tf32.cu``; else K1f is one CUDA-core
-kernel (every branch and the mix, q/k/v read in place) and K1b CUDA-core
-kernels. A CPU tensor goes to the plain version
+at D = 48 K1f is the family's tensor-core forward core into K3's compact
+rows and K3f's mix, and K1b a prep onto those rows, the family's gradient
+core and K3b's combine, every core shared with K3 (bf16:
+``csrc/dilated_fwd_wgmma.cu``, ``csrc/dilated_bwd_wgmma.cu``; fp32: the
+3xTF32 cores ``csrc/dilated_fwd_tf32.cu``, ``csrc/dilated_bwd_tf32.cu``);
+else K1f is one CUDA-core kernel (every branch and the mix, q/k/v read in
+place) and K1b CUDA-core kernels. A CPU tensor goes to the plain version
 :func:`.dilated.dilated_attention`, and autograd differentiates it.
 
 When the forward is recorded for autograd, K1f also writes what K1b needs:
@@ -48,11 +47,12 @@ from .dilated import check_q_token_range, dilated_attention
 from .kept import kept
 
 # Kernel launches since the last reset (read by chip_smoke.py): K1f and K1b
-# (K1b's also by family, dilated_fused.FAMILIES), and apart from them their
+# (each also by family, dilated_fused.FAMILIES), and apart from them their
 # launches with a q_token_range (K1b in two parts: part 0 with the range's,
 # part 1 on its own).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+FAMILY_LAUNCHES = {"cuda_cores": 0, "wgmma": 0, "tf32x3": 0}
 BWD_FAMILY_LAUNCHES = {"cuda_cores": 0, "wgmma": 0, "tf32x3": 0}
 QRANGE_LAUNCHES = 0
 BWD_QRANGE_LAUNCHES = 0
@@ -134,11 +134,12 @@ def mega_dilated_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                                 scale: float, with_stats: bool = False,
                                 q_token_range: Optional[Tuple[int, int]]
                                 = None):
-    """Launch K1f on ``q``'s device and current stream: in the tensor-core
-    family the forward core into compact scratch (``(B, H, M, D)`` in q's
-    dtype and ``(B, H, M)`` fp32, 98 MB at the train step's shape) and the
-    mix; in the CUDA-core family one kernel (and, with a range, the fill of
-    the rows outside it).
+    """Launch K1f on ``q``'s device and current stream: in a tensor-core
+    family (``"wgmma"`` at bf16, ``"tf32x3"`` at fp32) its forward core
+    into compact scratch (``(B, H, M, D)`` in q's dtype and ``(B, H, M)``
+    fp32, 98 MB in bf16 and 196 MB in fp32 at the train step's shape, freed
+    after the mix) and the mix; in the CUDA-core family one kernel (and,
+    with a range, the fill of the rows outside it).
 
     Returns ``out``, or with ``with_stats`` ``(out, stats)`` (see the
     module docstring)."""
@@ -152,7 +153,8 @@ def mega_dilated_attention_cuda(q: torch.Tensor, k: torch.Tensor,
         check_q_token_range(q_token_range, ratios, length)
     n = len(segs)
     out_c = lse_c = None
-    if card_family(d, q.dtype) == "wgmma":
+    fam = card_family(d, q.dtype)
+    if fam != "cuda_cores":
         rows = total_rows(length, segs, ratios)
         out_c = torch.empty((b, h, rows, d), dtype=q.dtype, device=q.device)
         lse_c = torch.empty((b, h, rows), dtype=torch.float32,
@@ -173,6 +175,7 @@ def mega_dilated_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     check_launch(err, "mt_dilated_attention_fwd")
     if q_token_range is None:
         LAUNCHES += 1
+        FAMILY_LAUNCHES[fam] += 1
     else:
         QRANGE_LAUNCHES += 1
     return (out, stats) if with_stats else out

@@ -815,7 +815,18 @@ FAMILY_CASES = [
 
 @pytest.mark.parametrize("d,dtype,want", FAMILY_CASES)
 def test_family_choice(d, dtype, want):
+    """The family rule, forward and backward alike: each tensor-core family
+    (bf16 and fp32 at D = 48) has a forward core and a gradient core of
+    its own in ``csrc/``; the CUDA-core family has none."""
     assert df.family(d, dtype) == want
+    if want == "cuda_cores":
+        assert want not in df.CORE_SOURCES
+        return
+    csrc = Path(df.__file__).resolve().parent.parent / "csrc"
+    fwd, bwd = df.CORE_SOURCES[want]
+    assert (csrc / fwd).is_file() and (csrc / bwd).is_file()
+    others = [s for f, s in df.CORE_SOURCES.items() if f != want]
+    assert all({fwd, bwd}.isdisjoint(s) for s in others)
 
 
 GIGAPATH = (10240, (1024, 5792, 10240, 10240, 10240), (1, 2, 4, 8, 16))

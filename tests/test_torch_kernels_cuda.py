@@ -38,11 +38,13 @@ bit-equal, masked keys' dk and dv exactly 0, both routes against each
 other, the family rule of the C entry points against the CPU's copy
 (K3b's compact gradients at D = 48 are the K3 cases' above), and at fp32
 the launches by family, a misaligned operand raising and K1b's token
-ranges against the whole call; for the bf16
-family of K1f (with and without stats) and K3f the same geometries, the
-outputs by ``chip_smoke.check_out``, K1's stats plane, K3's compact
-pieces and (m, Z), reruns bit-equal, both routes' outputs
-bit-equal, and a misaligned operand raising in either forward. For the ALiBi
+ranges against the whole call; for the tensor-core
+families of K1f (with and without stats) and K3f (bf16 on wgmma, fp32 on
+3xTF32) the same geometries, the outputs by ``chip_smoke.check_out``, K1's
+stats plane, K3's compact pieces and (m, Z), reruns bit-equal, both
+routes' outputs bit-equal, a misaligned operand raising in either forward,
+and at fp32 the launches by family and K1f's token ranges against the
+whole call. For the ALiBi
 kernels (K4) besides:
 a sequence of the cls token and a handful of cells, masks and coordinates
 that differ between batch rows (the kernels index them by ``bh / H``), and
@@ -1142,9 +1144,9 @@ def test_k1b_in_two_parts_gives_the_whole_calls_bits(cuda_device, n):
 @pytest.mark.parametrize("n", [2, 4])
 def test_k1f_range_stats_are_the_whole_calls_columns(cuda_device, dtype, n):
     """The sequence-parallel island's backward gathers each rank's stats
-    columns from K1f with its token range: in either family (bf16 at
-    D = 48 the tensor-core one, fp32 the CUDA-core one) they are the whole
-    call's bits, so the backward on them is the whole call's."""
+    columns from K1f with its token range: in either tensor-core family
+    (bf16 at D = 48 wgmma, fp32 3xTF32) they are the whole call's bits,
+    so the backward on them is the whole call's."""
     b, length, h, segs, ratios, mask = WGMMA_CASES[1]
     q, k, v, _, _, arg = _wgmma_inputs(b, length, h, mask, cuda_device)
     q, k, v = (t.to(dtype) for t in (q, k, v))
@@ -1376,6 +1378,170 @@ def test_wgmma_forward_routes_agree(cuda_device):
     assert torch.equal(out1, out3)
     assert torch.equal(stats[:, n:], mz.reshape(2, b * h, length)
                        .transpose(0, 1))
+
+
+# ---------------------------------------------------------------------------
+# K1f and K3f: the 3xTF32 family (fp32, D = 48)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("route", FWD_ROUTES)
+@pytest.mark.parametrize("b,length,h,segs,ratios,mask", WGMMA_CASES,
+                         ids=WGMMA_IDS)
+def test_tf32x3_forward_matches_plain(cuda_device, route, b, length, h, segs,
+                                      ratios, mask):
+    """K1f (with and without stats) and K3f at fp32 and D = 48 (the 3xTF32
+    forward core, the family the entry points choose) against the plain
+    versions in fp32 on the valid rows: the output by
+    ``chip_smoke.check_out``'s fp32 limits (rel-L2 <= 1e-5, row-scaled
+    <= 5e-5) and the max-scaled bound 2e-4; K1's stats plane and K3's
+    (m, Z) and compact lse within 1e-3 with NEG_INF exactly where the
+    plain version has it; K3's compact ``out_b`` by ``check_out``; a batch
+    row without a valid key all 0; a rerun bit-equal."""
+    assert df.card_family(48, torch.float32) == \
+        df.family(48, torch.float32) == "tf32x3"
+    q, k, v, _, m, arg = _wgmma_inputs(b, length, h, mask, cuda_device,
+                                       torch.float32)
+    valid = m[:, :, None, None]
+    kw = dict(segment_lengths=segs, dilated_ratios=ratios, mask=arg)
+    scale = 48 ** -0.5
+    got, planes = _wgmma_forward(route, q, k, v, arg, segs, ratios)
+    want = dilated_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    chip_smoke.compare(got * valid, want * valid, 2e-4, route)
+    chip_smoke.check_out(got * valid, want * valid, "float32", route)
+    n = len(segs)
+    want_st = dilated_attention_stats(q, k, v, **kw)
+    if route == "mega_stats":
+        stats, = planes
+        assert ((stats == NEG_INF) == (want_st == NEG_INF)).all()
+        assert (stats - want_st).abs().max().item() <= 1e-3
+    if route == "fused":
+        out_c, lse_c, stats = planes
+        assert out_c.dtype == torch.float32
+        got_st = stats.reshape(2, b * h, length).transpose(0, 1)
+        assert ((got_st == NEG_INF) == (want_st[:, n:] == NEG_INF)).all()
+        assert (got_st - want_st[:, n:]).abs().max().item() <= 1e-3
+        outs = df.split_branches(out_c, length, segs, ratios)
+        lses = df.split_branches(lse_c, length, segs, ratios)
+        for i, (w, r) in enumerate(zip(segs, ratios)):
+            want_o, want_l = df.fused_branch_reference(q, k, v, arg, w, r,
+                                                       scale)
+            assert ((lses[i] == NEG_INF) == (want_l == NEG_INF)).all()
+            assert (lses[i] - want_l).abs().max().item() <= 1e-3
+            chip_smoke.check_out(outs[i], want_o, "float32", f"out_c {i}")
+            assert (outs[i][want_l == NEG_INF] == 0).all()
+    if mask == "dead":
+        assert (got[1] == 0).all()
+    again, planes_again = _wgmma_forward(route, q, k, v, arg, segs, ratios)
+    assert torch.equal(got, again)
+    assert all(torch.equal(x, y) for x, y in zip(planes, planes_again))
+
+
+def test_tf32x3_forward_routes_agree(cuda_device):
+    """At fp32 K1f and K3f share the 3xTF32 forward core and the mix: from
+    the same inputs their outputs are the same bits, and K1's stats carry
+    K3's (m, Z)."""
+    b, length, h, segs, ratios, mask = WGMMA_CASES[0]
+    q, k, v, _, _, m = _wgmma_inputs(b, length, h, mask, cuda_device,
+                                     torch.float32)
+    out1, (stats,) = _wgmma_forward("mega_stats", q, k, v, m, segs, ratios)
+    out3, (_, _, mz) = _wgmma_forward("fused", q, k, v, m, segs, ratios)
+    n = len(segs)
+    assert torch.equal(out1, out3)
+    assert torch.equal(stats[:, n:], mz.reshape(2, b * h, length)
+                       .transpose(0, 1))
+
+
+def test_forwards_count_by_family(cuda_device):
+    """K1f and K3f count their launches by family: at D = 48 bf16 on
+    wgmma and fp32 on 3xTF32, at D = 16 on the CUDA cores; K1f with a
+    token range in QRANGE_LAUNCHES alone."""
+    kw = dict(segment_lengths=(64, 128), dilated_ratios=(1, 2))
+    for d, dtype, fam in ((48, torch.bfloat16, "wgmma"),
+                          (48, torch.float32, "tf32x3"),
+                          (16, torch.float32, "cuda_cores")):
+        q = _randn((1, 128, 4, d), 40, cuda_device, dtype)
+        for mod, fn in ((dm, dm.mega_dilated_attention),
+                        (df, df.fused_dilated_attention)):
+            mod.LAUNCHES = 0
+            mod.FAMILY_LAUNCHES.update(dict.fromkeys(mod.FAMILY_LAUNCHES, 0))
+            fn(q, q, q, **kw)
+            assert mod.LAUNCHES == mod.FAMILY_LAUNCHES[fam] == 1, \
+                (mod.__name__, d, dtype, mod.FAMILY_LAUNCHES)
+        dm.mega_dilated_attention(q, q, q, q_token_range=(0, 64), **kw)
+        assert dm.LAUNCHES == sum(dm.FAMILY_LAUNCHES.values()) == 1
+
+
+def test_tf32x3_forward_raises_on_a_misaligned_tensor(cuda_device):
+    """The 3xTF32 forward core gathers 16-byte chunks: an operand off 16
+    bytes raises in either route's forward; it never falls back to the
+    CUDA cores."""
+    x = _randn((1, 64 * 16 * 48 + 4), 41, cuda_device)
+    q = x[0, 1:1 + 64 * 16 * 48].view(1, 64, 16, 48)   # 4 bytes off
+    a = q.clone()                          # a fresh, aligned allocation
+    scale = 48 ** -0.5
+    with pytest.raises(RuntimeError):
+        dm.mega_dilated_attention_cuda(q, a, a, None, (64,), (1,), scale)
+    with pytest.raises(RuntimeError):
+        dm.mega_dilated_attention_cuda(a, a, q, None, (64,), (1,), scale,
+                                       with_stats=True)
+    with pytest.raises(RuntimeError):
+        df.fused_dilated_attention_cuda(a, q, a, None, (64,), (1,), scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_forward_parts_give_the_whole_calls_bits(cuda_device, dtype):
+    """K3f's forward core and mix launched one at a time (as chip_smoke.py
+    times them) give the whole call's bits in both tensor-core families,
+    and count in PART_LAUNCHES alone; the CUDA-core family's core is
+    refused."""
+    b, length, h, segs, ratios, mask = WGMMA_CASES[0]
+    q, k, v, _, _, m = _wgmma_inputs(b, length, h, mask, cuda_device, dtype)
+    scale = 48 ** -0.5
+    mixed, out_c, lse_c, stats = df.fused_dilated_attention_cuda(
+        q, k, v, m, segs, ratios, scale)
+    df.LAUNCHES = 0
+    df.PART_LAUNCHES.update(core=0, mix=0)
+    pieces = df.fused_forward_part_cuda("core", q, k, v, m, segs, ratios,
+                                        scale)
+    mixed2, stats2 = df.fused_forward_part_cuda("mix", q, k, v, m, segs,
+                                                ratios, scale, pieces)
+    assert torch.equal(pieces[0], out_c) and torch.equal(pieces[1], lse_c)
+    assert torch.equal(mixed2, mixed) and torch.equal(stats2, stats)
+    assert df.LAUNCHES == 0 and df.PART_LAUNCHES == dict(core=1, mix=1)
+    x = _randn((1, 64, 4, 16), 42, cuda_device, dtype)
+    with pytest.raises(RuntimeError):
+        df.fused_forward_part_cuda("core", x, x, x, None, (64,), (1,), 0.25)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_tf32x3_forward_range_gives_the_whole_calls_rows(cuda_device, n):
+    """K1f at fp32 with each of ``n`` token ranges (the sequence-parallel
+    shards' rows): with and without stats the rows of the range are the
+    whole call's bits, every row outside it exactly 0, and the range's
+    stats columns the whole call's."""
+    b, length, h, segs, ratios, mask = WGMMA_CASES[1]
+    q, k, v, _, _, arg = _wgmma_inputs(b, length, h, mask, cuda_device,
+                                       torch.float32)
+    scale = 48 ** -0.5
+    whole, whole_stats = dm.mega_dilated_attention_cuda(
+        q, k, v, arg, segs, ratios, scale, with_stats=True)
+    size = length // n
+    for i in range(n):
+        rng = (i * size, (i + 1) * size)
+        part = dm.mega_dilated_attention_cuda(q, k, v, arg, segs, ratios,
+                                              scale, q_token_range=rng)
+        out, stats = dm.mega_dilated_attention_cuda(
+            q, k, v, arg, segs, ratios, scale, with_stats=True,
+            q_token_range=rng)
+        assert torch.equal(part, out)
+        assert torch.equal(out[:, rng[0]:rng[1]], whole[:, rng[0]:rng[1]])
+        outside = torch.ones(length, dtype=torch.bool, device=cuda_device)
+        outside[rng[0]:rng[1]] = False
+        assert not out[:, outside].any()
+        assert torch.equal(stats[..., rng[0]:rng[1]],
+                           whole_stats[..., rng[0]:rng[1]])
 
 
 # ---------------------------------------------------------------------------
