@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""A/B of the dilated attention kernels on an earlier tree's port and on
-this one: the fp32 times of K1f (with stats), K3f, K1b and K3b, and the
-bits of the bf16 family and of the fp32 backward.
+"""A/B of the dilated attention kernels and the key-bias flash attention
+on an earlier tree's port and on this one: the fp32 times of K1f (with
+stats), K3f, K1b and K3b, of K2f and K2b at the adapter's shapes, the
+``--bf16 0`` train step, and the bits of the bf16 families and of the fp32
+dilated backward.
 
     python3 ab_prep.py PARENT_DIR
 
@@ -15,15 +17,22 @@ package, and prints:
   1,919 and 9,000 valid tokens, with the 3xTF32 bounds of the forward and
   the backward (their products at fp32 accuracy as three TF32 products
   each at 495 TFLOP/s, or the bytes at 3.35 TB/s);
+* k2 fp32: K2f's and K2b's median ms (CUDA events) and card ms (the
+  profiler's) at the adapter's Injector (36 x 10,239 x 65) and Extractor
+  (36 x 65 x 10,239, 1,239 keys masked, a dead bh) on random fp32 inputs,
+  with the family that ran (K2b of the CUDA-core family includes the
+  delta its wrapper makes in torch);
 * step: the ``--bf16 0`` user's train step (chip_smoke.py's GigaPath
   model with the frozen backbone in fp32, the default route, ``"flash"``)
-  at the 10,239 and the 2,047 bucket: the median ms of 5 steps after 2,
+  at the 10,239 and the 2,047 bucket: the median ms of 9 steps after 2,
   and the peak allocated GiB;
 * bits: a SHA-256 digest of every output of K1f (with stats), K3f, K1b
   and K3b at bf16, and of K1b and K3b at fp32 fed the plain version's
   statistics (so that a change of the fp32 forward does not reach them),
-  at (3, 2048, 16, 48); the run fails unless every run's digests are the
-  same.
+  at (3, 2048, 16, 48), and of K2f and K2b at bf16 in the short-side
+  family (36 x 2,047 x 65, 36 x 65 x 2,047, 36 x 65 x 65) and the wgmma
+  family (96 x 1,024 x 1,024, D = 48); the run fails unless every run's
+  digests are the same.
 
 Needs one GPU.
 """
@@ -75,6 +84,28 @@ for shape, n_valid in (((3, 2048, 16, 48), 1919), ((3, 10240, 16, 48), 9000)):
     torch.cuda.empty_cache()
 print("fp32: " + "; ".join(out), flush=True)
 
+# K2 at fp32: the adapter's Injector and Extractor at 10,239
+fa = importlib.import_module("modaltune_tpu_torch.ops.flash_attention")
+out = []
+for name, lq, lk, masked, dead in (("Injector", 10239, 65, 0.0, False),
+                                   ("Extractor", 65, 10239, 1239 / 10239,
+                                    True)):
+    q, k, v, bias = cs.k2_inputs(36, lq, lk, 16, masked, dead, torch.float32,
+                                 dev, seed=7)
+    o, lse = fa.flash_attention_cuda(q, k, v, bias, 0.25)
+    do = torch.randn_like(o)
+
+    def k2f():
+        return fa.flash_attention_cuda(q, k, v, bias, 0.25)
+
+    def k2b():
+        return fa.flash_attention_backward_cuda(q, k, v, bias, o, lse, do, 0.25)
+    out.append(f"{name} ({fa.card_family(lq, lk, 16, torch.float32)}) K2f "
+               f"{cs.time_ms(k2f, 20):.4f} ms (card "
+               f"{cs.fmt_ms(cs.device_ms(k2f))}), K2b {cs.time_ms(k2b, 20):.4f}"
+               f" ms (card {cs.fmt_ms(cs.device_ms(k2b))})")
+print("k2 fp32: " + "; ".join(out), flush=True)
+
 # the --bf16 0 train step at two buckets
 import statistics, time
 from modaltune_tpu_torch import make_train_step
@@ -89,7 +120,7 @@ for bucket_kw in ({}, cs.GIGAPATH_2047):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(5):
+    for _ in range(9):
         t = time.perf_counter()
         step(batch, text, gen)
         torch.cuda.synchronize()
@@ -133,6 +164,14 @@ for dtype in (torch.bfloat16, torch.float32):
         q, k, v, mask, dmix, stats, seg, rat, scale))
     note(*df.fused_dilated_attention_backward_cuda(
         q, k, v, mask, dmix, lse_c, st, seg, rat, scale))
+for bh, lq, lk, d in ((36, 2047, 65, 16), (36, 65, 2047, 16), (36, 65, 65, 16),
+                      (96, 1024, 1024, 48)):   # bf16 K2: short side, wgmma
+    q, k, v, bias = cs.k2_inputs(bh, lq, lk, d, 0.12, True, torch.bfloat16,
+                                 dev, seed=11)
+    o, lse = fa.flash_attention_cuda(q, k, v, bias, d ** -0.5)
+    do = torch.randn(o.shape, generator=torch.Generator().manual_seed(12))
+    note(o, lse, *fa.flash_attention_backward_cuda(
+        q, k, v, bias, o, lse, do.to(dev, torch.bfloat16), d ** -0.5))
 torch.cuda.synchronize()
 print("bits: " + digest.hexdigest(), flush=True)
 '''
@@ -151,7 +190,7 @@ def main() -> int:
             print(f"{name}: failed\n{run.stderr[-3000:]}", file=sys.stderr)
             return 1
         lines = [ln for ln in run.stdout.splitlines()
-                 if ln.startswith(("fp32:", "step (", "bits:"))]
+                 if ln.startswith(("fp32:", "k2 fp32:", "step (", "bits:"))]
         for line in lines:
             print(f"{name}: {line}", flush=True)
         bits.add(lines[-1])

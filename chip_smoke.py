@@ -366,35 +366,44 @@ def check_dilated_families(tag: str, launches: dict, dtype) -> dict:
     return got
 
 
+def k2_family_counts() -> dict:
+    """K2f's and K2b's launches by family now, the wrappers' own dicts
+    copied."""
+    fa = importlib.import_module(COUNTERS["K2f"][0])
+    return dict(fwd=dict(fa.FAMILY_LAUNCHES), bwd=dict(fa.BWD_FAMILY_LAUNCHES))
+
+
 def check_k2_families(tag: str, launches: dict, d48: int,
-                      again: int = 0, fp32: bool = False) -> dict:
+                      again: int = 0, fp32: bool = False,
+                      counts: dict = None) -> dict:
     """On a path's run: its ``d48`` K2 calls at D = 48 (each launching K2f,
     and K2b where ``launches`` counts one; ``again`` more K2f that the
-    backward's recompute runs) all ran the wgmma family, the rest the
-    short-side family, and no K2 ran on the CUDA cores; with ``fp32`` (an
-    fp32 backbone, no autocast: K2's fp32 family is the CUDA cores) every
-    K2 ran on the CUDA cores. Returns the launches by family, forward and
-    backward."""
-    fa = importlib.import_module(COUNTERS["K2f"][0])
-    fwd, bwd = dict(fa.FAMILY_LAUNCHES), dict(fa.BWD_FAMILY_LAUNCHES)
-    if fp32:
-        check(fwd["cuda_cores"] == launches["K2f"] == sum(fwd.values()) and
-              bwd["cuda_cores"] == launches["K2b"] == sum(bwd.values()),
-              f"{tag}: K2 launches by family {fwd} forward, {bwd} "
-              f"backward; want all on the CUDA cores (fp32)")
-        return dict(fwd=fwd, bwd=bwd)
+    backward's recompute runs) all ran the wgmma family, the rest (the
+    adapter's calls at D = 16) the bf16 short-side family, and no K2 ran on
+    the CUDA cores; with ``fp32`` (an fp32 backbone, no autocast) the
+    adapter's calls all ran the fp32 short-side family (3xTF32) and the
+    D = 48 calls the CUDA cores, none else. ``counts``: the launches by
+    family recorded just after the run (:func:`k2_family_counts`, the
+    default). Returns the launches by family, forward and backward."""
+    counts = counts or k2_family_counts()
+    fwd, bwd = counts["fwd"], counts["bwd"]
     d48_b = d48 if launches["K2b"] else 0
     d48 += again
-    check(fwd["wgmma"] == d48 and bwd["wgmma"] == d48_b and
-          fwd["cuda_cores"] == 0 and bwd["cuda_cores"] == 0 and
+    wide = "cuda_cores" if fp32 else "wgmma"
+    short = (("short_keys_tf32", "short_queries_tf32") if fp32
+             else ("short_keys", "short_queries"))
+    check(fwd[wide] == d48 and bwd[wide] == d48_b and
+          sum(fwd[f] for f in short) == launches["K2f"] - d48 and
+          sum(bwd[f] for f in short) == launches["K2b"] - d48_b and
           sum(fwd.values()) == launches["K2f"] and
           sum(bwd.values()) == launches["K2b"],
           f"{tag}: K2 launches by family {fwd} forward, {bwd} backward; "
-          f"want {d48} and {d48_b} on wgmma (D = 48), none on the CUDA "
-          f"cores")
-    if d48:
-        print(f"{tag}: K2f by family {fwd}, K2b {bwd}: every D = 48 call "
-              f"on wgmma, none on the CUDA cores", flush=True)
+          f"want {d48} and {d48_b} on {wide} (D = 48), the rest on "
+          f"{' and '.join(short)}, none elsewhere")
+    if d48 or fp32:
+        wides = f"every D = 48 call on {wide}, " if d48 else ""
+        print(f"{tag}: K2f by family {fwd}, K2b {bwd}: {wides}every "
+              f"adapter call on {' or '.join(short)}", flush=True)
     return dict(fwd=fwd, bwd=bwd)
 
 
@@ -606,16 +615,19 @@ def check_out(got, want, dtype_name, what):
 
 
 def phase_k2(device, shapes=K2_SHAPES, iters=20):
-    """Kernel vs plain version at every shape, fp32 and bf16, the bf16
-    output also by :func:`check_out`; times in bf16, where a rerun must
-    give the same bits, and in fp32 at :data:`FP32_K2_SHAPES`
+    """Kernel vs plain version at every shape, fp32 and bf16, the output
+    also by :func:`check_out` at its dtype's limits, a rerun giving the same
+    bits in both; times in bf16 and in fp32 at :data:`FP32_K2_SHAPES`
     (:func:`k2_fp32_times`). Each shape names the kernel family that ran in
-    bf16 (fp32 runs the CUDA-core kernels). Returns {name: result dict}."""
+    bf16 (``family``) and in fp32 (``fp32_family``: the 3xTF32 short-side
+    family at D = 16, the CUDA cores at D = 48). Returns {name: result
+    dict}."""
     import torch
     fa = importlib.import_module("modaltune_tpu_torch.ops.flash_attention")
     results = {}
     for i, (name, bh, lq, lk, d, masked, dead) in enumerate(shapes):
-        res = {"family": fa.card_family(lq, lk, d, torch.bfloat16)}
+        res = {"family": fa.card_family(lq, lk, d, torch.bfloat16),
+               "fp32_family": fa.card_family(lq, lk, d, torch.float32)}
         for dtype, out_tol, lse_tol in ((torch.float32, 2e-4, 1e-4),
                                         (torch.bfloat16, 1.6e-2, 1e-2)):
             q, k, v, bias = k2_inputs(bh, lq, lk, d, masked, dead, dtype,
@@ -634,20 +646,23 @@ def phase_k2(device, shapes=K2_SHAPES, iters=20):
                       bool((got_l[0] == fa.NEG_INF).all()),
                       f"{tag}: a fully masked row is not 0 / NEG_INF")
             res[str(dtype)[6:]] = dict(out_err=err_o, lse_err=err_l)
+            res[str(dtype)[6:]]["out_rel"], res[str(dtype)[6:]]["out_row"] = \
+                check_out(got_o, want_o, str(dtype)[6:], f"{tag} out")
+            again = fa.flash_attention(q, k, v, bias)
+            check(torch.equal(again[0], got_o) and
+                  torch.equal(again[1], got_l),
+                  f"{tag}: a rerun gives other bits")
             if dtype == torch.float32 and name in FP32_K2_SHAPES:
                 res["fp32"] = k2_fp32_times(
+                    res["fp32_family"],
                     lambda: fa.flash_attention(q, k, v, bias),
                     lambda: fa.flash_attention_reference(q, k, v, bias),
                     lambda: sdpa_key_bias(q, k, v, bias), iters,
                     4 * k2_pairs(bh, lq, lk, bias) * d,
                     (q, k, v, bias, got_o, got_l))
             if dtype == torch.bfloat16:
-                res["out_rel"], res["out_row"] = check_out(
-                    got_o, want_o, "bfloat16", f"{tag} out")
-                again = fa.flash_attention(q, k, v, bias)
-                check(torch.equal(again[0], got_o) and
-                      torch.equal(again[1], got_l),
-                      f"{tag}: a rerun gives other bits")
+                res["out_rel"], res["out_row"] = (res["bfloat16"]["out_rel"],
+                                                  res["bfloat16"]["out_row"])
                 res["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, bias),
                                     iters)
                 res["plain_ms"] = time_ms(
@@ -662,8 +677,11 @@ def phase_k2(device, shapes=K2_SHAPES, iters=20):
                     k2_pairs(bh, lq, lk, bias), d,
                     (q, k, v, bias, got_o, got_l), backward=False)
         print(f"K2 {name} BH={bh} Lq={lq} Lk={lk} D={d}: "
-              f"fp32 out {res['float32']['out_err']:.3e} "
-              f"lse {res['float32']['lse_err']:.3e} | "
+              f"fp32 ({res['fp32_family']}) out "
+              f"{res['float32']['out_err']:.3e} (rel-L2 "
+              f"{res['float32']['out_rel']:.3e}, row-scaled "
+              f"{res['float32']['out_row']:.3e}) lse "
+              f"{res['float32']['lse_err']:.3e}, rerun bit-equal | "
               f"bf16 ({res['family']}) out {res['bfloat16']['out_err']:.3e} "
               f"(rel-L2 {res['out_rel']:.3e}, row-scaled "
               f"{res['out_row']:.3e}) lse {res['bfloat16']['lse_err']:.3e}, "
@@ -682,23 +700,31 @@ def phase_k2(device, shapes=K2_SHAPES, iters=20):
     return results
 
 
-# The shapes of an fp32 backbone's K2 calls that are timed in fp32 (the
-# CUDA-core family: the adapter's Injector and Extractor at 10,239)
-FP32_K2_SHAPES = ("injector", "extractor")
+# The shapes of an fp32 backbone's K2 calls that are timed in fp32: the
+# adapter's at 10,239 (the 3xTF32 short-side family), and the per-branch
+# route's r = 2 branch (the CUDA-core family at D = 48, which the
+# per-branch route under an fp32 backbone runs)
+FP32_K2_SHAPES = ("injector", "extractor", "prompt_sa", "d48_r2")
 
 
-def k2_fp32_times(kernel, plain, library, iters, flops, tensors):
+def k2_fp32_times(family, kernel, plain, library, iters, flops, tensors):
     """An fp32 K2 call's times: the kernel's, the plain version's and the
     library call's (``library``, at fp32 with TF32 off, as ``main`` sets
-    it) on both clocks, and the bound on the CUDA cores (``flops`` at
-    :data:`PEAK_FLOPS_FP32`) or by the bytes of ``tensors``."""
-    r = dict(family="cuda_cores", ms=time_ms(kernel, iters),
+    it) on both clocks, and the bound at ``family``'s peak: its products
+    (``flops``) as three TF32 products at :data:`PEAK_FLOPS_TF32` on the
+    3xTF32 families, on the CUDA cores at :data:`PEAK_FLOPS_FP32`, or the
+    bytes of ``tensors``."""
+    r = dict(family=family, ms=time_ms(kernel, iters),
              device_ms=device_ms(kernel, iters=3, warmup=1),
              plain_ms=time_ms(plain, iters),
              library_ms=time_ms(library, iters),
              library_device_ms=device_ms(library, iters=3, warmup=1))
-    r["bound_ms"], r["bound_by"] = bound_ms(flops, tensor_bytes(tensors),
-                                            PEAK_FLOPS_FP32)
+    tf32 = family.endswith("_tf32")
+    r["bound_ms"], r["bound_by"] = bound_ms(
+        3 * flops if tf32 else flops, tensor_bytes(tensors),
+        PEAK_FLOPS_TF32 if tf32 else PEAK_FLOPS_FP32)
+    r["bound_at"] = (f"3xTF32 at {PEAK_FLOPS_TF32 / 1e12:.0f} TFLOP/s" if tf32
+                     else f"fp32 at {PEAK_FLOPS_FP32 / 1e12:.0f} TFLOP/s")
     return r
 
 
@@ -709,24 +735,24 @@ def fmt_k2_fp32(tag, r) -> str:
             f"{fmt_ms(r['library_device_ms'])}), kernel / library "
             f"{r['ms'] / r['library_ms']:.3f} (card "
             f"{fmt_ratio(r['device_ms'], r['library_device_ms'])}); bound "
-            f"{r['bound_ms']:.5f} ms ({r['bound_by']}, fp32 at "
-            f"{PEAK_FLOPS_FP32 / 1e12:.0f} TFLOP/s)")
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}, {r['bound_at']})")
 
 
 def phase_k2b(device, shapes=K2_SHAPES, iters=20):
     """The K2 backward kernels against their plain version at every shape,
-    fp32 and bf16 (the plain version in fp32 on the same values); times in
-    bf16, where a rerun must give the same bits and the gradients from the
-    kernel's own out and lse are held to the same limits, so that a fault
-    of the forward reaches them too, and in fp32 at
+    fp32 and bf16 (the plain version in fp32 on the same values), a rerun
+    giving the same bits in both; times in bf16, where the gradients from
+    the kernel's own out and lse are held to the same limits, so that a
+    fault of the forward reaches them too (in fp32 as well), and in fp32 at
     :data:`FP32_K2_SHAPES` (:func:`k2_fp32_times`, the library call
-    autograd through SDPA); the bf16 family as in :func:`phase_k2`.
+    autograd through SDPA); the families as in :func:`phase_k2`.
     Returns {name: result dict}."""
     import torch
     fa = importlib.import_module("modaltune_tpu_torch.ops.flash_attention")
     results = {}
     for i, (name, bh, lq, lk, d, masked, dead) in enumerate(shapes):
-        res = {"family": fa.card_family(lq, lk, d, torch.bfloat16)}
+        res = {"family": fa.card_family(lq, lk, d, torch.bfloat16),
+               "fp32_family": fa.card_family(lq, lk, d, torch.float32)}
         scale = d ** -0.5
         for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
             q, k, v, bias = k2_inputs(bh, lq, lk, d, masked, dead, dtype,
@@ -754,10 +780,23 @@ def phase_k2b(device, shapes=K2_SHAPES, iters=20):
                 check(all(bool((gt[0] == 0).all()) for gt in got),
                       f"{tag}: a bh with every key masked has non-zero "
                       f"gradients")
+            again = fa.flash_attention_backward_cuda(q, k, v, bias, out, lse,
+                                                     dout, scale)
+            check(all(torch.equal(a, b) for a, b in zip(again, got)),
+                  f"{tag}: a rerun gives other bits")
+            if dtype == torch.float32:
+                own = fa.flash_attention_backward_cuda(
+                    q, k, v, bias, *fa.flash_attention_cuda(q, k, v, bias,
+                                                            scale),
+                    dout, scale)
+                res["fp32_own_rel"], res["fp32_own_row"] = check_grads(
+                    ("dq", "dk", "dv"), own, want, dout, "float32",
+                    f"{tag} from the kernel's out and lse")
             if dtype == torch.float32 and name in FP32_K2_SHAPES:
                 leaves = [x.detach().requires_grad_() for x in (q, k, v)]
                 lib_out = sdpa_key_bias(*leaves, bias)
                 res["fp32"] = k2_fp32_times(
+                    res["fp32_family"],
                     lambda: fa.flash_attention_backward_cuda(
                         q, k, v, bias, out, lse, dout, scale),
                     lambda: fa.flash_attention_backward_reference(
@@ -768,10 +807,6 @@ def phase_k2b(device, shapes=K2_SHAPES, iters=20):
                     (q, k, v, bias, out, lse, dout, *got))
                 del lib_out, leaves
             if dtype == torch.bfloat16:
-                again = fa.flash_attention_backward_cuda(q, k, v, bias, out,
-                                                         lse, dout, scale)
-                check(all(torch.equal(a, b) for a, b in zip(again, got)),
-                      f"{tag}: a rerun gives other bits")
                 own = fa.flash_attention_backward_cuda(
                     q, k, v, bias, *fa.flash_attention_cuda(q, k, v, bias,
                                                             scale),
@@ -800,9 +835,12 @@ def phase_k2b(device, shapes=K2_SHAPES, iters=20):
                     k2_pairs(bh, lq, lk, bias), d,
                     (q, k, v, bias, out, lse, dout, *got), backward=True)
         print(f"K2b {name} BH={bh} Lq={lq} Lk={lk} D={d}: "
-              f"fp32 dq/dk/dv {res['float32']:.3e} (bound "
-              f"{res['float32_bound']:.2e}), rel-L2 "
-              f"{res['float32_rel']:.3e}, row-scaled {res['float32_row']:.3e} "
+              f"fp32 ({res['fp32_family']}) dq/dk/dv {res['float32']:.3e} "
+              f"(bound {res['float32_bound']:.2e}), rel-L2 "
+              f"{res['float32_rel']:.3e}, row-scaled {res['float32_row']:.3e}"
+              f", rerun bit-equal, from the kernel's own out and lse rel-L2 "
+              f"{res['fp32_own_rel']:.3e}, row-scaled "
+              f"{res['fp32_own_row']:.3e} "
               f"| bf16 ({res['family']}) {res['bfloat16']:.3e} (bound "
               f"{res['bfloat16_bound']:.2e}), rel-L2 "
               f"{res['bfloat16_rel']:.3e}, row-scaled "
@@ -2818,7 +2856,8 @@ def k5_fp32_readings(device, shape=(30720, 3072), eps=1e-5, iters=10):
     their plain versions at ``shape`` (3 tasks x 10,240 tokens, ffn 3072):
     K5f within :func:`phase_k5`'s fp32 bound, K5b without dgamma/dbeta (the
     train step's variant) by :func:`check_grads`' fp32 limits; both on the
-    generic route, and their times on both clocks."""
+    generic route, and their times on both clocks beside their bytes
+    bounds (each input read once, each output written once)."""
     import torch
     gl = importlib.import_module(COUNTERS["K5f"][0])
     x, dy, scale, bias = k5_inputs(shape, device, torch.float32, seed=13)
@@ -2842,11 +2881,14 @@ def k5_fp32_readings(device, shape=(30720, 3072), eps=1e-5, iters=10):
     for key, fn in (("fwd", fwd), ("bwd", bwd)):
         r[key + "_ms"] = time_ms(fn, iters)
         r[key + "_device_ms"] = device_ms(fn, iters=3, warmup=1)
+    r["fwd_bound_ms"] = bound_ms(0.0, tensor_bytes((x, scale, bias, x)))[0]
+    r["bwd_bound_ms"] = bound_ms(0.0, tensor_bytes((x, scale, dy, x)))[0]
     print(f"K5 fp32 x={tuple(shape)} (generic): K5f out {r['out_err']:.3e}, "
-          f"{r['fwd_ms']:.4f} ms (card {fmt_ms(r['fwd_device_ms'])}); K5b "
-          f"without dgamma/dbeta dx rel-L2 {r['dx_rel']:.3e}, row-scaled "
-          f"{r['dx_row']:.3e}, {r['bwd_ms']:.4f} ms (card "
-          f"{fmt_ms(r['bwd_device_ms'])})", flush=True)
+          f"{r['fwd_ms']:.4f} ms (card {fmt_ms(r['fwd_device_ms'])}), bound "
+          f"{r['fwd_bound_ms']:.4f} ms (bytes); K5b without dgamma/dbeta dx "
+          f"rel-L2 {r['dx_rel']:.3e}, row-scaled {r['dx_row']:.3e}, "
+          f"{r['bwd_ms']:.4f} ms (card {fmt_ms(r['bwd_device_ms'])}), bound "
+          f"{r['bwd_bound_ms']:.4f} ms (bytes)", flush=True)
     return r
 
 
@@ -2857,9 +2899,10 @@ def phase_train_fp32(device, bf16, card="", build_kw=None,
     kernels alone, on the default route and on the fused route
     (``mega_attention=False`` with the fused GELU -> LayerNorm):
     :func:`drive_train`'s checked and timed steps (every K1f and K1b, or
-    K3f and K3b, on the 3xTF32 family, K2 and K5 on their fp32 kernels,
-    the CUDA cores' and the generic ones), the generic K5 kernels held to
-    their plain versions at the step's FFN shape (:func:`k5_fp32_readings`);
+    K3f and K3b, on the 3xTF32 family, every K2 on the fp32 short-side
+    family, 3xTF32 too, K5 on the generic kernels), the generic K5 kernels
+    held to their plain versions at the step's FFN shape
+    (:func:`k5_fp32_readings`);
     each step's ms/step and peak printed beside the bf16 step's (``bf16``,
     :func:`phase_train`'s result). Returns both paths' results."""
     import torch
@@ -5121,6 +5164,7 @@ def train_schedule(device, name, base, params, tcfg, datasets, bucket, dtype,
         seconds = time.perf_counter() - t0
         launches = read_counts()
         families = {k: dict(c) for k, c in dilated_family_counts().items()}
+        k2_families = k2_family_counts()
     rows = [json.loads(line) for line in open(out_dir / "run_metrics.jsonl")]
     epochs = [r for r in rows if "train_loss" in r]
     (test,) = [r for r in rows if "test_cls_bal_acc" in r]
@@ -5129,7 +5173,7 @@ def train_schedule(device, name, base, params, tcfg, datasets, bucket, dtype,
                     for r in epochs],
                test=test, best=best, step_ms=list(trainer.step_ms),
                ms=statistics.median(trainer.step_ms), epoch_ms=epoch_ms,
-               launches=launches, families=families,
+               launches=launches, families=families, k2_families=k2_families,
                in_train=in_train, forwards=forwards[0],
                steps=len(trainer.step_ms), draws=draws, seconds=seconds,
                per_forward=calls_per_forward(model),
@@ -5281,6 +5325,10 @@ def phase_multiepoch(device, card="", build_kw=None, data_kw=None,
             check(fams[want] == n == sum(fams.values()),
                   f"multiepoch {name}: {key} launches by family {fams}, "
                   f"want all {n} on {want}")
+        # K2: every adapter call on its dtype's short-side family
+        check_k2_families(f"multiepoch {name}", res[name]["launches"], 0,
+                          fp32=runs[name][0] == "float32",
+                          counts=res[name]["k2_families"])
     k32, p32 = res["k32"]["ms"], res["p32"]["ms"]
     print(f"multiepoch: ms/step, median: k32 {k32:.2f} against p32 "
           f"{p32:.2f} ({k32 / p32:.3f}x); k16 {res['k16']['ms']:.2f}, p16 "
@@ -5294,7 +5342,11 @@ def phase_multiepoch(device, card="", build_kw=None, data_kw=None,
                 families={k: {f: res["k16"]["families"][k][f]
                               + res["k32"]["families"][k][f]
                               for f in df.FAMILIES}
-                          for k in res["k16"]["families"]})
+                          for k in res["k16"]["families"]},
+                k2_families={side: {f: res["k16"]["k2_families"][side][f]
+                                    + res["k32"]["k2_families"][side][f]
+                                    for f in res["k16"]["k2_families"][side]}
+                             for side in ("fwd", "bwd")})
 
 
 def main() -> int:
@@ -5334,18 +5386,20 @@ def main() -> int:
         print(f"build: {len(regs)} kernels, at most {max(regs)} registers; "
               f"{sum(1 for x in spills if x)} spill, at most {max(spills)} "
               f"bytes of spill loads")
-    # K2's wgmma kernels (namespace mt::fwg) and the 3xTF32 dilated core
-    # (mt::dtf) one by one: none may spill
+    # K2's wgmma kernels (namespace mt::fwg), the 3xTF32 dilated core
+    # (mt::dtf) and K2's fp32 short-side kernels (mt::sst, printed at the
+    # adapter's 65 resident rows, ILi5E) one by one: none may spill
     for block in info["log"].split("Compiling entry function")[1:]:
         name = block.split("'")[1]
-        if "3fwg" not in name and "3dtf" not in name:
+        if not any(ns in name for ns in ("3fwg", "3dtf", "3sst")):
             continue
         used = re.search(r"Used (\d+) registers", block).group(1)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", block).groups()
         short = re.search(r"\d+((?:flash|dilated)_\w+?_kernel)", name).group(1)
-        print(f"build: {short}: {used} registers at launch, spill stores "
-              f"{spill[0]}, loads {spill[1]} bytes")
+        if "3sst" not in name or "ILi5E" in name:
+            print(f"build: {short}: {used} registers at launch, spill stores "
+                  f"{spill[0]}, loads {spill[1]} bytes")
         check(spill == ("0", "0"), f"{short} spills registers")
 
     lap("environment and build")
@@ -5392,7 +5446,7 @@ def main() -> int:
         device, card=card, build_kw=GIGAPATH_BRANCH, compare_kw=GIGAPATH_2047,
         tag="branch train", k2_calls=True)
     # the --bf16 0 user's step: the default and the fused route with an
-    # fp32 backbone (K1 and K3 on the 3xTF32 family)
+    # fp32 backbone (K1, K3 and the adapter's K2 on 3xTF32 families)
     fp32 = phase_train_fp32(device, paths["gigapath_train"], card=card)
     paths["gigapath_fp32_train"] = fp32["fp32 train"]
     paths["gigapath_fused_fp32_train"] = fp32["fused fp32 train"]
@@ -5587,8 +5641,8 @@ def main() -> int:
                                               "bound_by", "library_ms")}
                 for shape, r in by_shape.items()}
             for shape, r in by_shape.items():   # K2's family, device times
-                for k in ("family", "device_ms", "library_device_ms",
-                          "fp32"):
+                for k in ("family", "fp32_family", "device_ms",
+                          "library_device_ms", "fp32"):
                     if k in r:
                         out["by_shape"][shape][k] = r[k]
         check(out["launches"] > 0, f"{name} was launched on no path")
@@ -5598,7 +5652,9 @@ def main() -> int:
         return {"cuda_cores": f"flash_attention_{side}",
                 "short_keys": f"flash_short_side_{side}",
                 "short_queries": f"flash_short_side_{side}",
-                "wgmma": f"flash_wgmma_{side}"}
+                "wgmma": f"flash_wgmma_{side}",
+                "short_keys_tf32": f"flash_short_side_tf32_{side}",
+                "short_queries_tf32": f"flash_short_side_tf32_{side}"}
 
     both = ("float32", "bfloat16")
 
@@ -5634,9 +5690,10 @@ def main() -> int:
         kernel("K1b", "dilated_attention_bwd",
                "modaltune_tpu/ops/dilated_mega.py:641", k1b,
                source="dilated_bwd_wgmma"),
-        # the adapter's calls run the short-side family (bf16, D = 16), the
-        # per-branch route's the wgmma family (bf16, D = 48); fp32 the
-        # CUDA-core kernels of `name`.cu
+        # the adapter's calls run the short-side family (bf16, D = 16; at
+        # fp32 its 3xTF32 sibling, flash_short_side_tf32_*.cu), the
+        # per-branch route's the wgmma family (bf16, D = 48); fp32 at
+        # D = 48 the CUDA-core kernels of `name`.cu
         kernel("K2f", "flash_attention_fwd",
                "modaltune_tpu/ops/flash_attention.py:155",
                k2["extractor"], k2, source="flash_short_side_fwd",

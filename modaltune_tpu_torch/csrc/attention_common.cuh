@@ -18,6 +18,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <cstdint>
+
 namespace mt {
 
 constexpr float kNegInf = -1e9f;          // NEG_INF of the Python side
@@ -302,6 +304,8 @@ inline int padded_head_dim(int D) {
   if (D <= 128) return 128;
   return -1;
 }
+
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {

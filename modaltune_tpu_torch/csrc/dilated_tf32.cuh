@@ -3,12 +3,12 @@
 // shared memory, their gather, products at fp32 accuracy on the TF32 tensor
 // cores, and the stream of a group's live key tiles.
 //
-// * 3xTF32. An fp32 operand x is split into hi = cvt.rna.tf32.f32(x) and
-//   lo = cvt.rna.tf32.f32(x - hi), and a product is lo hi + hi lo + hi hi
-//   accumulated in fp32 (the small terms first), lo lo dropped: about 2^-21
-//   of each product, where one TF32 product keeps 2^-11 and misses the fp32
-//   gates (tests/test_torch_dilated_{fwd,bwd}.py emulate both). A register
-//   tile (P, dS) is split the same way. The tensor cores add into their
+// * 3xTF32 (tf32x3.cuh, shared with the fp32 short-side flash attention):
+//   an fp32 operand x is split into hi and lo TF32 parts and a product is
+//   lo hi + hi lo + hi hi, about 2^-21 of each product, where one TF32
+//   product keeps 2^-11 and misses the fp32 gates
+//   (tests/test_torch_dilated_{fwd,bwd}.py emulate both). A register tile
+//   (P, dS) is split the same way. The tensor cores add into their
 //   accumulator by truncation, so a product over a stream sums each half
 //   tile into fresh fragments and adds them to nearest (product()).
 // * mma.sync m16n8k8 for every product, not wgmma: wgmma takes TF32
@@ -29,11 +29,18 @@
 #pragma once
 
 #include "dilated_wgmma_frame.cuh"
+#include "tf32x3.cuh"
 
 namespace mt {
 namespace dtf {
 
 using dwg::Group;
+using tf32::cp_async_commit;
+using tf32::cp_async_wait;
+using tf32::Frag;
+using tf32::from_scores;
+using tf32::mma3;
+using tf32::split;
 
 constexpr int kD = kWgmmaD;
 constexpr int kTile = 64;
@@ -45,15 +52,6 @@ constexpr int kStages = 2;
 constexpr int kHalf = kTile / 2;              // rows of a stage multiplied at once
 static_assert(kStride % 4 == 0, "16-byte rows");
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N of this thread's groups of copies are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Tile t of x's group (64 rows of 48 floats, 12 chunks each) into d, chunk
 // threadIdx.x + 128 i by thread threadIdx.x; rows past n_real as zeros.
 __device__ __forceinline__ void gather(float* d, const float* x, const Group& g, int t) {
@@ -64,42 +62,6 @@ __device__ __forceinline__ void gather(float* d, const float* x, const Group& g,
     const bool real = l < g.ft.n_real;
     dwg::cp_async16(d + row * kStride + 4 * ch, x + (real ? g.element(l) : 0) + 4 * ch, real);
   }
-}
-
-// ---- 3xTF32 ---------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t y;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
-  return y;
-}
-
-// x = hi + lo + (what lo's rounding drops)
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// An A fragment (16 x 8) in two parts.
-struct Frag {
-  uint32_t hi[4], lo[4];
-};
-
-// c (16 x 8) += a b for one 8-deep step, TF32 operands (a: four registers),
-// fp32 sums.
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a b at fp32 accuracy: lo hi, then hi lo, then hi hi.
-__device__ __forceinline__ void mma3(float* c, const uint32_t* a_hi, const uint32_t* a_lo,
-                                     const uint32_t (&bh)[2], const uint32_t (&bl)[2]) {
-  mma(c, a_lo, bh[0], bh[1]);
-  mma(c, a_hi, bl[0], bl[1]);
-  mma(c, a_hi, bh[0], bh[1]);
 }
 
 // ---- the products -----------------------------------------------------------
@@ -146,17 +108,6 @@ __device__ __forceinline__ void scores(float (&s)[16], const float* a, const flo
   for (int kk = 0; kk < kD / 8; ++kk) scores_step(s, row_frag(a, kk, ln), b, kk, ln);
 }
 
-// The A fragment of the next product's 8-deep step j from the C fragment of
-// score tile j: logical column t is key 2t, column t + 4 key 2t + 1.
-__device__ __forceinline__ Frag from_scores(const float (&x)[16], int j) {
-  Frag f;
-  split(x[4 * j], f.hi[0], f.lo[0]);          // (g, key 2t)
-  split(x[4 * j + 2], f.hi[1], f.lo[1]);      // (g + 8, key 2t)
-  split(x[4 * j + 1], f.hi[2], f.lo[2]);      // (g, key 2t + 1)
-  split(x[4 * j + 3], f.hi[3], f.lo[3]);      // (g + 8, key 2t + 1)
-  return f;
-}
-
 // The B fragment of step j (rows 8 j + 2 t and + 1 at b, in from_scores'
 // order) for output columns 8 m + g.
 __device__ __forceinline__ void row_pair(const float* b, int j, int m, const wg::Lane& ln,
@@ -166,28 +117,14 @@ __device__ __forceinline__ void row_pair(const float* b, int j, int m, const wg:
   split(br[kStride], bh[1], bl[1]);
 }
 
-// acc (the warp's 16 rows x 48) += X B over a half: X the 16 x 32 register
-// tile, B the 32 rows at b (their 48 columns are N). The tensor cores add
-// into their fp32 accumulator by truncation, not to nearest, and one
-// accumulator over a whole stream of tiles read dq at rel-L2 1.104e-05
-// against the plain fp32 backward at (3, 10240, 16, 48), past the 1e-5 gate
-// (NVIDIA H100 80GB HBM3, 700 W): so the half's products go into a fresh
-// fragment t, which fp32 adds (to nearest) add to acc.
+// acc (the warp's 16 rows x 48) += X B over a half, in a fresh fragment
+// (tf32::product): X the 16 x 32 register tile, B the 32 rows at b (their
+// 48 columns are N).
 __device__ __forceinline__ void product(float (&acc)[24], const float (&x)[16], const float* b,
                                         const wg::Lane& ln) {
-  float t[24] = {};
-#pragma unroll
-  for (int j = 0; j < kHalf / 8; ++j) {
-    const Frag f = from_scores(x, j);
-#pragma unroll
-    for (int m = 0; m < 6; ++m) {
-      uint32_t bh[2], bl[2];
-      row_pair(b, j, m, ln, bh, bl);
-      mma3(t + 4 * m, f.hi, f.lo, bh, bl);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 24; ++i) acc[i] += t[i];
+  tf32::product<6, kHalf / 8>(acc, x, [&](int j, int m, uint32_t(&bh)[2], uint32_t(&bl)[2]) {
+    row_pair(b, j, m, ln, bh, bl);
+  });
 }
 
 // ---- the streams ------------------------------------------------------------

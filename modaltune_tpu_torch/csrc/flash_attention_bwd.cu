@@ -22,14 +22,17 @@
 // What the design does about it: two kernels and no atomics. The dq kernel's
 // block owns 64 query rows and streams 64-key tiles; the dk/dv kernel's
 // block owns 64 key rows and streams 64-query tiles (attention_bwd_common.cuh
-// has the shared update). The adapter's own shapes (bf16, D = 16, one side
-// of at most 128 rows) do not come here: the entry point below hands them to
-// the short-side family (flash_short_side_bwd.cu), which splits the long side
-// over the card, makes delta itself and runs its products on the tensor
-// cores; bf16 at D = 48 (the per-branch dilated attention) goes to the wgmma
-// family (flash_wgmma_bwd.cu). This file serves fp32 (the oracle family) and
-// every other bf16 shape.
+// has the shared update). The adapter's own shapes (D = 16, one side of at
+// most 128 rows) do not come here: the entry point below hands them to the
+// short-side families (bf16: flash_short_side_bwd.cu, fp32 on 3xTF32:
+// flash_short_side_tf32_bwd.cu), which split the long side over the card,
+// make delta themselves and run their products on the tensor cores; bf16 at
+// D = 48 (the per-branch dilated attention) goes to the wgmma family
+// (flash_wgmma_bwd.cu). This file serves every other shape: fp32 at D = 48
+// (the per-branch route under an fp32 backbone) and at other D, and both
+// sides longer than 128.
 #include "attention_bwd_common.cuh"
+#include "flash_short_side_tf32.cuh"
 #include "flash_wgmma.cuh"
 
 namespace mt {
@@ -170,8 +173,9 @@ cudaError_t dispatch_flash_bwd(int DP, const void* q, const void* k, const void*
 // q/k/v/dout/out/dq/dk/dv (BH, L, D) contiguous in one dtype (0 = float32,
 // 1 = bfloat16); bias (BH, Lk) fp32 or null; lse and delta (BH, Lq) fp32.
 // The CUDA-core kernels read delta = rowsum(dout * out) and not out; the
-// short-side family reads out, makes delta itself, and takes chunks and the
-// fp32 scratch `work` that the wrapper sizes (ops/flash_attention.py); the
+// short-side families (bf16 and fp32) read out, make delta themselves, and
+// take chunks and the fp32 scratch `work` that the wrapper sizes
+// (ops/flash_attention.py); the
 // wgmma family reads out and makes delta into `work`, (BH, Lq) floats.
 // Returns a cudaError_t; 0 means every kernel was launched.
 extern "C" int mt_flash_attention_bwd(const void* q, const void* k, const void* v,
@@ -192,6 +196,12 @@ extern "C" int mt_flash_attention_bwd(const void* q, const void* k, const void* 
         static_cast<const bf16*>(dout), static_cast<const bf16*>(out), l,
         static_cast<float*>(work), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
         static_cast<bf16*>(dv), BH, Lq, Lk, scale, s);
+  if (fam == mt::ss::kShortKeysTf32 || fam == mt::ss::kShortQueriesTf32)
+    return mt::sst::launch_bwd(fam, static_cast<const float*>(q), static_cast<const float*>(k),
+                               static_cast<const float*>(v), b, static_cast<const float*>(dout),
+                               static_cast<const float*>(out), l, static_cast<float*>(dq),
+                               static_cast<float*>(dk), static_cast<float*>(dv), BH, Lq, Lk,
+                               scale, chunks, static_cast<float*>(work), s);
   if (fam != mt::ss::kCudaCores) {
     return mt::ss::launch_bwd(fam, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                               static_cast<const bf16*>(v), b, static_cast<const bf16*>(dout),

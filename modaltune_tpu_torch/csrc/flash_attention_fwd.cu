@@ -24,14 +24,16 @@
 // shared memory, so K/V are read from device memory once per query tile.
 // One warp updates four rows per key tile with the online-softmax recurrence
 // (lanes over keys for q.k, over (row, head dimension) for p.V). It runs
-// on CUDA cores in fp32. The adapter's own shapes (bf16, D = 16, one side of
-// at most 128 rows) do not come here: the entry point below hands them to the
-// short-side family (flash_short_side_fwd.cu), which splits the long side
-// over the card and runs its products on the tensor cores; bf16 at D = 48 (the
-// per-branch dilated attention) goes to the wgmma family
-// (flash_wgmma_fwd.cu). This file serves fp32 (the oracle family) and every
-// other bf16 shape.
+// on CUDA cores in fp32. The adapter's own shapes (D = 16, one side of at
+// most 128 rows) do not come here: the entry point below hands them to the
+// short-side families (bf16: flash_short_side_fwd.cu, fp32 on 3xTF32:
+// flash_short_side_tf32_fwd.cu), which split the long side over the card and
+// run their products on the tensor cores; bf16 at D = 48 (the per-branch
+// dilated attention) goes to the wgmma family (flash_wgmma_fwd.cu). This
+// file serves every other shape: fp32 at D = 48 (the per-branch route under
+// an fp32 backbone) and at other D, and both sides longer than 128.
 #include "attention_common.cuh"
+#include "flash_short_side_tf32.cuh"
 #include "flash_wgmma.cuh"
 
 namespace mt {
@@ -117,14 +119,15 @@ extern "C" const char* mt_error_name(int err) {
 
 // Which kernels serve a call (mt::ss::Family): 0 the CUDA-core kernels of
 // this file, 1 short keys, 2 short queries, 3 the wgmma family
-// (flash_wgmma.cuh).
+// (flash_wgmma.cuh), 4 and 5 short keys and short queries at fp32
+// (flash_short_side_tf32.cuh).
 extern "C" int mt_flash_attention_family(int Lq, int Lk, int D, int dtype) {
   return mt::ss::family(Lq, Lk, D, dtype);
 }
 
 // dtype: 0 = float32, 1 = bfloat16. bias may be null (no masking). chunks and
 // work: the split of the long side and the fp32 scratch of the short-side
-// family, which the wrapper sizes (ops/flash_attention.py); the CUDA-core
+// families, which the wrapper sizes (ops/flash_attention.py); the CUDA-core
 // kernels and the wgmma family take neither. Returns a cudaError_t; 0 means
 // the kernels were launched.
 extern "C" int mt_flash_attention_fwd(const void* q, const void* k, const void* v,
@@ -142,6 +145,10 @@ extern "C" int mt_flash_attention_fwd(const void* q, const void* k, const void* 
     return mt::launch_flash_wgmma_fwd(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                                       static_cast<const bf16*>(v), b, static_cast<bf16*>(out), l,
                                       BH, Lq, Lk, scale, s);
+  if (fam == mt::ss::kShortKeysTf32 || fam == mt::ss::kShortQueriesTf32)
+    return mt::sst::launch_fwd(fam, static_cast<const float*>(q), static_cast<const float*>(k),
+                               static_cast<const float*>(v), b, static_cast<float*>(out), l, BH,
+                               Lq, Lk, scale, chunks, static_cast<float*>(work), s);
   if (fam != mt::ss::kCudaCores) {
     return mt::ss::launch_fwd(fam, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                               static_cast<const bf16*>(v), b, static_cast<bf16*>(out), l, BH, Lq,

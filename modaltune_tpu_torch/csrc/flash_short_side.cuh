@@ -38,7 +38,9 @@
 //
 // Cross-block sums (the C chunks' softmax partials, partial dq or dk/dv) go
 // through fp32 scratch that the wrapper allocates and a second kernel that
-// adds them in a fixed order: no atomics, so reruns are bit-equal.
+// adds them in a fixed order: no atomics, so reruns are bit-equal. The fp32
+// family (flash_short_side_tf32.cuh) keeps this plan and these second
+// kernels.
 #pragma once
 
 #include "attention_wgmma.cuh"  // mbarrier, bulk copy, bf16 packing, quad reductions
@@ -57,24 +59,33 @@ constexpr int kMaxChunkTiles = 64;              // the wrapper keeps a chunk wit
 constexpr int kWarps = 4;                       // except the short-queries forward: one per 16 rows
 constexpr float kLowerLse = 5e8f;               // +|NEG_INF/2|: P of a row without a valid key is 0
 
-enum Family { kCudaCores = 0, kShortKeys = 1, kShortQueries = 2, kWgmma = 3 };
+// The fp32 short-side family (*Tf32) runs flash_short_side_tf32.cuh's
+// kernels on the TF32 tensor cores (3xTF32) with this plan.
+enum Family {
+  kCudaCores = 0,
+  kShortKeys = 1,
+  kShortQueries = 2,
+  kWgmma = 3,
+  kShortKeysTf32 = 4,
+  kShortQueriesTf32 = 5
+};
 
 // The head dimension of the wgmma family (flash_wgmma.cuh), GigaPath's: every
 // call of the per-branch dilated attention.
 constexpr int kWgmmaD = 48;
 
 // Which kernels serve a call. dtype: 0 float32, 1 bfloat16. bf16 at D = 48
-// takes the wgmma family at every Lq and Lk; bf16 at D = 16 with a short
-// side the short-side kernels, both sides short (the prompt
-// self-attention) the short-keys ones. The wrapper asks this rule
-// (mt_flash_attention_family); ops/flash_attention.py::family is its copy
-// for the CPU.
+// takes the wgmma family at every Lq and Lk; D = 16 with a short side the
+// short-side kernels (bf16 on mma.sync bf16, fp32 on 3xTF32), both sides
+// short (the prompt self-attention) the short-keys ones; everything else
+// (fp32 at D = 48, other D, both sides long) the CUDA cores. The wrapper
+// asks this rule (mt_flash_attention_family); ops/flash_attention.py::family
+// is its copy for the CPU.
 inline int family(int Lq, int Lk, int D, int dtype) {
-  if (dtype != 1) return kCudaCores;
-  if (D == kWgmmaD) return kWgmma;
-  if (D != kD) return kCudaCores;
-  if (Lk <= kMaxShort) return kShortKeys;
-  if (Lq <= kMaxShort) return kShortQueries;
+  if (dtype == 1 && D == kWgmmaD) return kWgmma;
+  if ((dtype != 0 && dtype != 1) || D != kD) return kCudaCores;
+  if (Lk <= kMaxShort) return dtype == 0 ? kShortKeysTf32 : kShortKeys;
+  if (Lq <= kMaxShort) return dtype == 0 ? kShortQueriesTf32 : kShortQueries;
   return kCudaCores;
 }
 
@@ -227,6 +238,66 @@ __device__ __forceinline__ float key_term(const float* bias, int j, int n, float
   if (j >= n) return -INFINITY;
   const float b = bias == nullptr ? 0.f : bias[j];
   return b > kMaskThreshold ? b * log2e : -INFINITY;
+}
+
+// lse in base 2 as the backward uses it: +|NEG_INF/2| for a row without a
+// valid key (and for a padded row), so that its P underflows to 0.
+__device__ __forceinline__ float lse2_for_bwd(const float* lse, int i, int n) {
+  const float x = i < n ? lse[i] : kNegInf;
+  return (x > kMaskThreshold ? x : kLowerLse) * wg::kLog2e;
+}
+
+__device__ __forceinline__ void put(bf16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+
+// ---- the cross-chunk kernels of both dtypes (T: bf16 or float) --------------
+
+// out and lse of (bh, row) from the C short-queries partials of the row
+// (acc [BH][C][QP][16], then m and l [BH][C][QP] each, m in base 2), in chunk
+// order. A partial with l = 0 (a chunk without a valid key) takes no part; a
+// row without any gets out 0 and lse NEG_INF. One thread per output element.
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_fwd_combine_kernel(const float* __restrict__ work, T* __restrict__ out,
+                         float* __restrict__ lse, int BH, int Lq, int QP, int C) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= BH * Lq * kD) return;
+  const int d = i % kD, row = i / kD % Lq, bh = i / (kD * Lq);
+  const size_t planes = static_cast<size_t>(BH) * C * QP;
+  const float* acc = work + static_cast<size_t>(bh) * C * QP * kD + row * kD + d;
+  const float* ms = work + planes * kD + static_cast<size_t>(bh) * C * QP + row;
+  const float* ls = ms + planes;
+  float mx = kNegInf;
+  for (int c = 0; c < C; ++c)
+    if (ls[c * QP] > 0.f) mx = fmaxf(mx, ms[c * QP]);
+  float l = 0.f, o = 0.f;
+  for (int c = 0; c < C; ++c) {
+    const float lc = ls[c * QP];
+    if (lc > 0.f) {
+      const float w = exp2f(ms[c * QP] - mx);
+      l = fmaf(w, lc, l);
+      o = fmaf(w, acc[static_cast<size_t>(c) * QP * kD], o);
+    }
+  }
+  put(out + i, l > 0.f ? o / l : 0.f);
+  if (d == 0) lse[static_cast<size_t>(bh) * Lq + row] = l > 0.f ? (mx + log2f(l)) * wg::kLn2 : kNegInf;
+}
+
+// dst_y[bh][r][d] = mul_y * sum over chunks c of part_y[bh][c][r][d], r < n,
+// in chunk order; y = blockIdx.y picks one of two (part, dst, mul), the
+// parts RP rows a chunk and BH * C * RP * 16 floats apart.
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_bwd_sum_kernel(const float* __restrict__ part, T* __restrict__ dst0, T* __restrict__ dst1,
+                     float mul0, float mul1, int BH, int n, int RP, int C) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= BH * n * kD) return;
+  const int d = i % kD, r = i / kD % n, bh = i / (kD * n);
+  const float* p = part + static_cast<size_t>(blockIdx.y) * BH * C * RP * kD +
+                   static_cast<size_t>(bh) * C * RP * kD + r * kD + d;
+  float x = 0.f;
+  for (int c = 0; c < C; ++c) x += p[static_cast<size_t>(c) * RP * kD];
+  put((blockIdx.y ? dst1 : dst0) + i, x * (blockIdx.y ? mul1 : mul0));
 }
 
 // ---- launchers (flash_short_side_fwd.cu, flash_short_side_bwd.cu) ----------

@@ -1,7 +1,8 @@
 // Flash attention backward with an additive key bias (K2b), the short-side
 // family: bf16 at head dimension 16 with one side of at most 128 rows
 // (flash_short_side.cuh has the frame). flash_attention_bwd.cu's entry point
-// picks it; everything else runs that file's CUDA-core kernels.
+// picks it; fp32 at these shapes runs flash_short_side_tf32_bwd.cu, the rest
+// that file's CUDA-core kernels.
 //
 // Replaces: modaltune_tpu/ops/flash_attention.py::_dq_kernel and
 // ::_dkv_kernel (the Pallas TPU kernels launched by _bwd_pallas), for the
@@ -50,13 +51,6 @@ struct BwdArgs {
   float* work;
   cudaStream_t stream;
 };
-
-// lse in base 2 as the backward uses it: +|NEG_INF/2| for a row without a
-// valid key (and for a padded row), so that its P underflows to 0.
-__device__ __forceinline__ float lse2_for_bwd(const float* lse, int i, int n) {
-  const float x = i < n ? lse[i] : kNegInf;
-  return (x > kMaskThreshold ? x : kLowerLse) * wg::kLog2e;
-}
 
 // Row r of a (.., 16) bf16 tile at `a` dotted with the same row at `b`: the
 // four threads of a quad take four columns each.
@@ -437,23 +431,6 @@ flash_bwd_short_queries_kernel(const bf16* __restrict__ q, const bf16* __restric
   }
 }
 
-// dst_y[bh][r][d] = mul_y * sum over chunks c of part_y[bh][c][r][d], r < n,
-// in chunk order; y = blockIdx.y picks one of two (part, dst, mul), the
-// parts RP rows a chunk and BH * C * RP * 16 floats apart.
-__global__ void __launch_bounds__(256)
-flash_bwd_sum_kernel(const float* __restrict__ part, bf16* __restrict__ dst0,
-                     bf16* __restrict__ dst1, float mul0, float mul1, int BH, int n, int RP,
-                     int C) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= BH * n * kD) return;
-  const int d = i % kD, r = i / kD % n, bh = i / (kD * n);
-  const float* p = part + static_cast<size_t>(blockIdx.y) * BH * C * RP * kD +
-                   static_cast<size_t>(bh) * C * RP * kD + r * kD + d;
-  float x = 0.f;
-  for (int c = 0; c < C; ++c) x += p[static_cast<size_t>(c) * RP * kD];
-  (blockIdx.y ? dst1 : dst0)[i] = __float2bfloat16(x * (blockIdx.y ? mul1 : mul0));
-}
-
 template <int KT>
 cudaError_t bwd_short_keys(const BwdArgs& a) {
   using P = KeysPlan<KT>;
@@ -467,7 +444,7 @@ cudaError_t bwd_short_keys(const BwdArgs& a) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int n = a.BH * a.Lk * kD;
-  flash_bwd_sum_kernel<<<dim3((n + 255) / 256, 2), 256, 0, a.stream>>>(
+  flash_bwd_sum_kernel<bf16><<<dim3((n + 255) / 256, 2), 256, 0, a.stream>>>(
       a.work, a.dv, a.dk, 1.f, a.scale, a.BH, a.Lk, P::KP, a.C);
   return cudaGetLastError();
 }
@@ -485,7 +462,7 @@ cudaError_t bwd_short_queries(const BwdArgs& a) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int n = a.BH * a.Lq * kD;
-  flash_bwd_sum_kernel<<<dim3((n + 255) / 256, 1), 256, 0, a.stream>>>(
+  flash_bwd_sum_kernel<bf16><<<dim3((n + 255) / 256, 1), 256, 0, a.stream>>>(
       a.work, a.dq, a.dq, a.scale, a.scale, a.BH, a.Lq, P::QP, a.C);
   return cudaGetLastError();
 }

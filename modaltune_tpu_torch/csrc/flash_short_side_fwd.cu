@@ -1,7 +1,8 @@
 // Flash attention forward with an additive key bias (K2f), the short-side
 // family: bf16 at head dimension 16 with one side of at most 128 rows
 // (flash_short_side.cuh has the frame). flash_attention_fwd.cu's entry point
-// picks it; everything else runs that file's CUDA-core kernels.
+// picks it; fp32 at these shapes runs flash_short_side_tf32_fwd.cu, the rest
+// that file's CUDA-core kernels.
 //
 // Replaces: modaltune_tpu/ops/flash_attention.py::_fwd_kernel (the Pallas
 // TPU kernel launched by _fwd_pallas), for the adapter's attentions.
@@ -254,35 +255,6 @@ flash_fwd_short_queries_kernel(const bf16* __restrict__ q, const bf16* __restric
   }
 }
 
-// out and lse of (bh, row) from the C partials of the row, in chunk order. A
-// partial with l = 0 (a chunk without a valid key) takes no part; a row
-// without any gets out 0 and lse NEG_INF. One thread per output element.
-__global__ void __launch_bounds__(256)
-flash_fwd_combine_kernel(const float* __restrict__ work, bf16* __restrict__ out,
-                         float* __restrict__ lse, int BH, int Lq, int QP, int C) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= BH * Lq * kD) return;
-  const int d = i % kD, row = i / kD % Lq, bh = i / (kD * Lq);
-  const size_t planes = static_cast<size_t>(BH) * C * QP;
-  const float* acc = work + static_cast<size_t>(bh) * C * QP * kD + row * kD + d;
-  const float* ms = work + planes * kD + static_cast<size_t>(bh) * C * QP + row;
-  const float* ls = ms + planes;
-  float mx = kNegInf;
-  for (int c = 0; c < C; ++c)
-    if (ls[c * QP] > 0.f) mx = fmaxf(mx, ms[c * QP]);
-  float l = 0.f, o = 0.f;
-  for (int c = 0; c < C; ++c) {
-    const float lc = ls[c * QP];
-    if (lc > 0.f) {
-      const float w = exp2f(ms[c * QP] - mx);
-      l = fmaf(w, lc, l);
-      o = fmaf(w, acc[static_cast<size_t>(c) * QP * kD], o);
-    }
-  }
-  out[i] = __float2bfloat16(l > 0.f ? o / l : 0.f);
-  if (d == 0) lse[static_cast<size_t>(bh) * Lq + row] = l > 0.f ? (mx + log2f(l)) * wg::kLn2 : kNegInf;
-}
-
 template <int KT>
 cudaError_t fwd_short_keys(const FwdArgs& a) {
   flash_fwd_short_keys_kernel<KT><<<dim3(a.C, a.BH), kWarps * 32, 0, a.stream>>>(
@@ -301,8 +273,8 @@ cudaError_t fwd_short_queries(const FwdArgs& a) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int n = a.BH * a.Lq * kD;
-  flash_fwd_combine_kernel<<<(n + 255) / 256, 256, 0, a.stream>>>(a.work, a.out, a.lse, a.BH, a.Lq,
-                                                                  QT * 16, a.C);
+  flash_fwd_combine_kernel<bf16><<<(n + 255) / 256, 256, 0, a.stream>>>(a.work, a.out, a.lse, a.BH,
+                                                                        a.Lq, QT * 16, a.C);
   return cudaGetLastError();
 }
 

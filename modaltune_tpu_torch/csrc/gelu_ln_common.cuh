@@ -236,8 +236,6 @@ __device__ __forceinline__ float2 group_sum2(float a, float b, float2* red, int&
   return s;
 }
 
-inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
 // Whether rows of width F in dtype (0 = float32, 1 = bfloat16) whose
 // tensors are all 16-byte aligned take the row-resident kernels.
 inline bool row_route(int dtype, int F, bool aligned) {

@@ -5,12 +5,16 @@ goes to the hand-written Hopper kernels of K2f and, for the gradient, K2b,
 in one of three families that the C entry points choose from the shape and
 the dtype (:func:`card_family`; :func:`family` is its copy for the CPU):
 
-* the short-side family (``csrc/flash_short_side_{fwd,bwd}.cu``): bf16 at
-  head dimension 16 with one side of at most :data:`SHORT_SIDE` rows, which
-  is every adapter attention of the models. That side is resident in every
-  block, the other is split into :func:`long_side_chunks` chunks streamed
-  once, and the chunks' partials are added in a fixed order in fp32 scratch
-  that this module allocates (:func:`workspace_floats`);
+* the short-side families: head dimension 16 with one side of at most
+  :data:`SHORT_SIDE` rows, which is every adapter attention of the models,
+  in bf16 (``csrc/flash_short_side_{fwd,bwd}.cu``, ``"short_keys"`` and
+  ``"short_queries"``: ``mma.sync`` bf16) and in fp32
+  (``csrc/flash_short_side_tf32_{fwd,bwd}.cu``, ``"short_keys_tf32"`` and
+  ``"short_queries_tf32"``: 3xTF32 on the TF32 tensor cores, every product
+  at fp32 accuracy). That side is resident in every block, the other is
+  split into :func:`long_side_chunks` chunks streamed once, and the chunks'
+  partials are added in a fixed order in fp32 scratch that this module
+  allocates (:func:`workspace_floats`);
 * the wgmma family (``csrc/flash_wgmma_{fwd,bwd}.cu``): bf16 at head
   dimension :data:`WGMMA_D` (48), any Lq and Lk, which is every call of
   the per-branch dilated attention (:mod:`.dilated`, the CLI's
@@ -18,8 +22,9 @@ the dtype (:func:`card_family`; :func:`family` is its copy for the CPU):
   tiles skipped, P rounded once to bf16 in the forward, P and dS as hi +
   lo bf16 parts in the backward, whose dq kernel makes delta into fp32
   scratch that this module allocates;
-* the CUDA-core kernels (``csrc/flash_attention_{fwd,bwd}.cu``) for fp32
-  (the oracle family) and every other bf16 shape.
+* the CUDA-core kernels (``csrc/flash_attention_{fwd,bwd}.cu``) for every
+  other shape: fp32 at D = 48 (the per-branch route under an fp32
+  backbone) and at other D, bf16 at other D, both sides long.
 
 The short-side and wgmma families read their tensors in 16-byte chunks and
 raise on one that is not 16-byte aligned. No family falls back to another.
@@ -55,8 +60,9 @@ BWD_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# The short-side family (csrc/flash_short_side.cuh): bf16 at head dimension
-# SHORT_SIDE_D with one side of at most SHORT_SIDE rows. The long side is cut
+# The short-side families (csrc/flash_short_side.cuh, bf16;
+# csrc/flash_short_side_tf32.cuh, fp32): head dimension SHORT_SIDE_D with one
+# side of at most SHORT_SIDE rows. The long side is cut
 # into TILE-row tiles and split into chunks of MIN_CHUNK_TILES to
 # MAX_CHUNK_TILES tiles, one block per (bh, chunk), aiming at BLOCKS_PER_SM
 # blocks on each SM of the card.
@@ -71,7 +77,8 @@ MIN_CHUNK_TILES, MAX_CHUNK_TILES = 2, 64
 WGMMA_D = 48
 
 # csrc/flash_short_side.cuh::Family, by code
-FAMILIES = ("cuda_cores", "short_keys", "short_queries", "wgmma")
+FAMILIES = ("cuda_cores", "short_keys", "short_queries", "wgmma",
+            "short_keys_tf32", "short_queries_tf32")
 
 # The same launches by family, keyed by FAMILIES (read by chip_smoke.py).
 FAMILY_LAUNCHES = dict.fromkeys(FAMILIES, 0)
@@ -83,7 +90,9 @@ def family(lq: int, lk: int, d: int, dtype: torch.dtype) -> str:
     :data:`WGMMA_D`, any Lq and Lk), ``"short_keys"`` (at most
     :data:`SHORT_SIDE` keys, the Injector and the prompt self-attention),
     ``"short_queries"`` (at most that many queries, the Extractor), both
-    bf16 at D = 16, or ``"cuda_cores"`` (fp32, and every other bf16 shape).
+    bf16 at D = 16, ``"short_keys_tf32"`` and ``"short_queries_tf32"``
+    (the same sides in fp32 at D = 16), or ``"cuda_cores"`` (every other
+    shape: fp32 at D = 48, other D, both sides long).
 
     The C entry points own this rule (``csrc/flash_short_side.cuh::family``)
     and the card's calls ask them (:func:`card_family`). This copy serves
@@ -93,11 +102,12 @@ def family(lq: int, lk: int, d: int, dtype: torch.dtype) -> str:
     """
     if dtype == torch.bfloat16 and d == WGMMA_D:
         return "wgmma"
-    if dtype == torch.bfloat16 and d == SHORT_SIDE_D:
+    if dtype in _DTYPE_CODES and d == SHORT_SIDE_D:
+        tail = "_tf32" if dtype == torch.float32 else ""
         if lk <= SHORT_SIDE:
-            return "short_keys"
+            return "short_keys" + tail
         if lq <= SHORT_SIDE:
-            return "short_queries"
+            return "short_queries" + tail
     return "cuda_cores"
 
 
@@ -119,7 +129,9 @@ def workspace_floats(fam: str, backward: bool, bh: int, lq: int, lk: int,
     partials (acc, m, l of every (bh, chunk, padded query)), the short-side
     backward's partial dk and dv (short keys) or dq (short queries) of
     every (bh, chunk, padded resident row), the wgmma backward's delta of
-    every (bh, query); 0 where the family needs none."""
+    every (bh, query); 0 where the family needs none. The fp32 short-side
+    family's scratch is the bf16 one's."""
+    fam = fam.removesuffix("_tf32")
     if fam == "wgmma":
         return bh * lq if backward else 0
     if fam == "cuda_cores" or (fam == "short_keys" and not backward):
@@ -146,9 +158,9 @@ def _sm_count(index: int) -> int:
 
 def _plan(q, k, backward, tensors):
     """``(family, chunks, scratch or None)`` of a call on the card, the
-    family as the C entry points choose it. The short-side family's bulk
-    copies and the wgmma family's 16-byte chunks need 16-byte aligned
-    ``tensors`` (q/k/v, dout/out, the gradients)."""
+    family as the C entry points choose it. The short-side families' bulk
+    copies or 16-byte ``cp.async`` and the wgmma family's 16-byte chunks
+    need 16-byte aligned ``tensors`` (q/k/v, dout/out, the gradients)."""
     bh, lq, d = q.shape
     lk = k.shape[1]
     fam = card_family(lq, lk, d, q.dtype)
@@ -159,7 +171,7 @@ def _plan(q, k, backward, tensors):
                          f"aligned tensors")
     chunks = 0
     if fam != "wgmma":
-        long_len = lq if fam == "short_keys" else lk
+        long_len = lq if fam.startswith("short_keys") else lk
         chunks = long_side_chunks(bh, long_len,
                                   _sm_count(q.device.index or 0))
     n = workspace_floats(fam, backward, bh, lq, lk, chunks)
@@ -258,7 +270,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          bias: Optional[torch.Tensor], scale: float
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K2f on ``q``'s device and current stream: the wgmma family's
-    kernel, the short-side family's (and, for short queries, its combine)
+    kernel, a short-side family's (and, for short queries, its combine)
     or the CUDA-core kernel, as :func:`card_family` says."""
     global LAUNCHES
     _check(q, k, v, bias)
@@ -283,7 +295,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_backward_cuda(q, k, v, bias, out, lse, dout, scale: float):
     """Launch the K2b kernels on ``q``'s device and current stream: the
-    wgmma family's dq and dk/dv kernels, or the short-side family's
+    wgmma family's dq and dk/dv kernels, or a short-side family's
     gradient kernel and its fixed-order sum, which make ``delta =
     rowsum(dout * out)`` themselves, or the CUDA-core dq and dk/dv
     kernels, for which it is computed here in torch, as the JAX package

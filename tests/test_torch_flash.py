@@ -61,6 +61,7 @@ from modaltune_tpu_torch.ops.flash_attention import (
     MASK_THRESHOLD, MAX_CHUNK_TILES, NEG_INF, SHORT_SIDE, TILE, family,
     flash_attention_backward_reference, flash_attention_reference,
     long_side_chunks, workspace_floats)
+from test_torch_dilated_bwd import TF32, _product
 
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
@@ -89,15 +90,51 @@ chip_smoke = _load_chip_smoke()
 
 
 def _round(x, on):
-    return x.bfloat16().float() if on else x
+    """The results in bf16 (``on`` True); fp32 as they are."""
+    return x.bfloat16().float() if on is True else x
 
 
 def _parts(x, on):
     """x as the kernels' products take P and dS in bf16: hi + lo."""
-    if not on:
+    if on is not True:
         return x
     hi = x.bfloat16().float()
     return hi + (x - hi).bfloat16().float()
+
+
+def _scores(a, b, rounding):
+    """``a @ b.T`` over D = 16: under a TF32 rounding its two 8-deep
+    ``mma.sync`` steps (:func:`_product`), else one fp32 product."""
+    if rounding in TF32:
+        return _product(torch.zeros(a.shape[0], b.shape[0]), a, b.T,
+                        rounding)
+    return a @ b.T
+
+
+def _sum_groups(acc, x, b, rounding):
+    """``acc + x @ b`` for a register tile x (P, dS and their transposes).
+    Under a TF32 rounding the fp32 family sums each 32 of the inner index
+    (a half of a 64-row tile, or a group of the resident rows, the last of
+    which may hold 16) into a fresh fragment, which fp32 adds add to
+    ``acc``: its tensor cores add by truncation. In bf16 x enters as hi +
+    lo parts."""
+    if rounding not in TF32:
+        return acc + _parts(x, rounding) @ b
+    for g0 in range(0, x.shape[1], 32):
+        acc = acc + _product(torch.zeros_like(acc), x[:, g0:g0 + 32],
+                             b[g0:g0 + 32], rounding)
+    return acc
+
+
+def _tile64(x, rounding, dim=0):
+    """A ragged tile padded with zero rows (along ``dim``) to 64, as the
+    fp32 family's stages hold it, so that its halves are 32 rows each;
+    the other roundings multiply the rows there are."""
+    if rounding not in TF32 or x.shape[dim] == TILE:
+        return x
+    if dim == 1:
+        return _tile64(x.T, rounding).T
+    return torch.cat([x, x.new_zeros(TILE - x.shape[0], *x.shape[1:])])
 
 
 def _pad16(n):
@@ -126,7 +163,9 @@ def _key_terms(bias, bh, lk, n):
 
 
 def emulate_forward(q, k, v, bias, scale, chunks, rounding):
-    """K2f's short-side kernels. Returns (out, lse, chunks skipped)."""
+    """K2f's short-side kernels: ``rounding`` True (bf16), ``"tf32x3"``
+    (the fp32 family), ``"tf32"`` (one TF32 product) or False (fp32
+    products). Returns (out, lse, chunks skipped)."""
     bh, lq, d = q.shape
     lk = k.shape[1]
     scale2 = scale * LOG2E
@@ -142,11 +181,13 @@ def emulate_forward(q, k, v, bias, scale, chunks, rounding):
                 r0, r1 = _chunk(c, chunks, lq)
                 for t0 in range(r0, r1, TILE):
                     rows = slice(t0, min(t0 + TILE, r1))
-                    s = qf[b, rows] @ kr[b].T * scale2 + kadd[b]
+                    s = _scores(qf[b, rows], kr[b], rounding) * scale2 \
+                        + kadd[b]
                     mx = s.amax(dim=-1).clamp_min(NEG_INF)
                     p = torch.exp2(s - mx[:, None])
                     l = p.sum(dim=-1)
-                    o = _parts(p, rounding) @ vr[b]
+                    o = _sum_groups(torch.zeros(p.shape[0], d), p, vr[b],
+                                    rounding)
                     live = l > 0
                     out[b, rows] = o * torch.where(live, 1 / l, 0.0)[:, None]
                     lse[b, rows] = torch.where(
@@ -168,12 +209,14 @@ def emulate_forward(q, k, v, bias, scale, chunks, rounding):
             acc = torch.zeros(qp, d)
             for t0 in range(r0, r1, TILE):
                 cols = slice(t0, min(t0 + TILE, r1))
-                s = qr[b] @ kf[b, cols].T * scale2 + kadd[b, cols]
+                s = _scores(qr[b], kf[b, cols], rounding) * scale2 \
+                    + kadd[b, cols]
                 m_new = torch.maximum(m, s.amax(dim=-1))
                 corr = torch.exp2(m - m_new)
                 p = torch.exp2(s - m_new[:, None])
                 l = l * corr + p.sum(dim=-1)
-                acc = acc * corr[:, None] + _parts(p, rounding) @ vf[b, cols]
+                acc = _sum_groups(acc * corr[:, None], _tile64(p, rounding, 1),
+                                  _tile64(vf[b, cols], rounding), rounding)
                 m = m_new
             parts.append((acc, m, l))
         # the combine: chunk order, a partial with l = 0 takes no part
@@ -193,7 +236,8 @@ def emulate_forward(q, k, v, bias, scale, chunks, rounding):
 
 
 def emulate_backward(q, k, v, bias, out, lse, dout, scale, chunks, rounding):
-    """K2b's short-side kernels and their fixed-order sums: (dq, dk, dv)."""
+    """K2b's short-side kernels and their fixed-order sums, ``rounding`` as
+    :func:`emulate_forward`'s: (dq, dk, dv)."""
     bh, lq, d = q.shape
     lk = k.shape[1]
     scale2 = scale * LOG2E
@@ -212,13 +256,18 @@ def emulate_backward(q, k, v, bias, out, lse, dout, scale, chunks, rounding):
                 r0, r1 = _chunk(c, chunks, lq)
                 for t0 in range(r0, r1, TILE):
                     rows = slice(t0, min(t0 + TILE, r1))
-                    p = torch.exp2(qf[b, rows] @ kr[b].T * scale2 + kadd[b]
-                                   - lse2[b, rows, None])
-                    dp = dof[b, rows] @ vr[b].T
+                    p = torch.exp2(_scores(qf[b, rows], kr[b], rounding)
+                                   * scale2 + kadd[b] - lse2[b, rows, None])
+                    dp = _scores(dof[b, rows], vr[b], rounding)
                     ds = p * (dp - delta[b, rows, None])
-                    dq[b, rows] = _parts(ds, rounding) @ kr[b] * scale
-                    dv_c += _parts(p, rounding).T @ dof[b, rows]
-                    dk_c += _parts(ds, rounding).T @ qf[b, rows]
+                    dq[b, rows] = _sum_groups(torch.zeros(ds.shape[0], d), ds,
+                                              kr[b], rounding) * scale
+                    do_t, q_t = (_tile64(x[b, rows], rounding)
+                                 for x in (dof, qf))
+                    dv_c = _sum_groups(dv_c, _tile64(p.T, rounding, 1), do_t,
+                                       rounding)
+                    dk_c = _sum_groups(dk_c, _tile64(ds.T, rounding, 1), q_t,
+                                       rounding)
                 dk_sum, dv_sum = dk_sum + dk_c, dv_sum + dv_c
             dk[b], dv[b] = dk_sum[:lk] * scale, dv_sum[:lk]
         return tuple(_round(t, rounding) for t in (dq, dk, dv))
@@ -235,13 +284,18 @@ def emulate_backward(q, k, v, bias, out, lse, dout, scale, chunks, rounding):
             if bool((kadd[b, r0:r1] > -math.inf).any()):
                 for t0 in range(r0, r1, TILE):
                     cols = slice(t0, min(t0 + TILE, r1))
-                    pt = torch.exp2(kf[b, cols] @ qr[b].T * scale2
-                                    + kadd[b, cols, None] - lq2[b][None, :])
-                    dpt = vf[b, cols] @ dor[b].T
+                    pt = torch.exp2(_scores(kf[b, cols], qr[b], rounding)
+                                    * scale2 + kadd[b, cols, None]
+                                    - lq2[b][None, :])
+                    dpt = _scores(vf[b, cols], dor[b], rounding)
                     dst = pt * (dpt - deltap[b][None, :])
-                    dv[b, cols] = _parts(pt, rounding) @ dor[b]
-                    dk[b, cols] = _parts(dst, rounding) @ qr[b] * scale
-                    dq_c += _parts(dst, rounding).T @ kf[b, cols]
+                    zero = torch.zeros(pt.shape[0], d)
+                    dv[b, cols] = _sum_groups(zero, pt, dor[b], rounding)
+                    dk[b, cols] = _sum_groups(zero, dst, qr[b],
+                                              rounding) * scale
+                    dq_c = _sum_groups(dq_c, _tile64(dst.T, rounding, 1),
+                                       _tile64(kf[b, cols], rounding),
+                                       rounding)
             dq_sum = dq_sum + dq_c             # a dead chunk adds zeros
         dq[b] = dq_sum[:lq] * scale
     return tuple(_round(t, rounding) for t in (dq, dk, dv))
@@ -450,9 +504,112 @@ def test_emulation_masks_exactly(name):
     assert (skipped > 0) == (name in ("dead_chunk", "dead_bh_queries"))
 
 
+def _one_key_bound(k, v, dout, scale):
+    """Where a row's one valid key takes P = 1, dS = dP - delta cancels
+    exactly and dq, dk are rounding noise: the bound of what 3xTF32's dP
+    leaves of it, 2^-20 sum_d |dout_d v_d| (each product kept to about
+    2^-21, against fp32's 2^-24) times max|k| (dq) or max|q| (dk) and the
+    scale."""
+    row = (dout.abs() @ v.abs().amax(dim=1, keepdim=True).transpose(1, 2))
+    return 2.0 ** -20 * row.max().item() * scale
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_tf32x3_emulation_matches_jax_kernels_and_plain(name):
+    """The fp32 family as the card runs it (3xTF32 products, a fresh
+    fragment for each 32 of a product's inner index, the chunks' partials
+    merged in order, delta made in the kernel) computes JAX's Pallas
+    kernels' function at fp32 (``Precision.HIGHEST``) within ``TOL`` at
+    every chunk count, and holds the plain versions at chip_smoke.py's
+    fp32 limits (rel-L2 1e-5 and row-scaled 5e-5, ``GRAD_LIMITS``; lse
+    1e-4): out and lse, then dq, dk, dv from JAX's out and lse. At one key
+    (``"one_key"``) dq and dk are exact zeros plus rounding
+    (:func:`_one_key_bound`); dv and the forward hold the limits there
+    too."""
+    q, k, v, bias, cot, chunk_counts = _case(name)
+    scale = 16 ** -0.5
+    (jout, jlse), jgrads = _jax(q, k, v, bias, cot, scale)
+    tq, tk, tv, tb, tcot = (_t(x) for x in (q, k, v, bias, cot))
+    want_o, want_l = flash_attention_reference(tq, tk, tv, tb, scale)
+    want = flash_attention_backward_reference(tq, tk, tv, tb, _t(jout),
+                                              _t(jlse), tcot, scale)
+    for chunks in chunk_counts:
+        out, lse, _ = emulate_forward(tq, tk, tv, tb, scale, chunks,
+                                      "tf32x3")
+        np.testing.assert_allclose(out.numpy(), jout, atol=TOL, rtol=TOL,
+                                   err_msg=f"out, C = {chunks}")
+        np.testing.assert_allclose(lse.numpy(), jlse, atol=TOL, rtol=TOL,
+                                   err_msg=f"lse, C = {chunks}")
+        chip_smoke.check_out(out, want_o, "float32", f"out, C = {chunks}")
+        assert (lse - want_l).abs().max().item() <= 1e-4
+        grads = emulate_backward(tq, tk, tv, tb, _t(jout), _t(jlse), tcot,
+                                 scale, chunks, "tf32x3")
+        held = slice(0, 3)
+        if name == "one_key":
+            for g, w, x in zip(grads[:2], want[:2], (tk, tq)):
+                bound = _one_key_bound(tk, tv, tcot, scale) * \
+                    x.abs().max().item()
+                assert (g - w).abs().max().item() <= bound
+            held = slice(2, 3)
+        names = ("dq", "dk", "dv")[held]
+        for g, w, n in zip(grads[held], jgrads[held], names):
+            np.testing.assert_allclose(g.numpy(), w, atol=TOL, rtol=TOL,
+                                       err_msg=f"{n}, C = {chunks}")
+        chip_smoke.check_grads(names, grads[held], want[held], tcot,
+                               "float32", f"{name}, C = {chunks}")
+
+
+@pytest.mark.parametrize("name", ["injector", "extractor", "prompt_sa"])
+def test_single_tf32_misses_the_fp32_limits(name):
+    """One TF32 product (hi hi alone, about three decimal digits) misses
+    the fp32 limit (rel-L2 ``GRAD_LIMITS["float32"]``, 1e-5) of out and of
+    every gradient where three hold it, on the same inputs: the reason the
+    fp32 family takes three TF32 products for each fp32 one."""
+    q, k, v, bias, cot, chunk_counts = _case(name, seed=3)
+    tq, tk, tv, tb, tcot = (_t(x) for x in (q, k, v, bias, cot))
+    scale = 16 ** -0.5
+    want_o, want_l = flash_attention_reference(tq, tk, tv, tb, scale)
+    want = flash_attention_backward_reference(tq, tk, tv, tb, want_o,
+                                              want_l, tcot, scale)
+    limit = chip_smoke.GRAD_LIMITS["float32"][0]
+    for rounding, misses in (("tf32x3", False), ("tf32", True)):
+        out, _, _ = emulate_forward(tq, tk, tv, tb, scale, chunk_counts[-1],
+                                    rounding)
+        grads = emulate_backward(tq, tk, tv, tb, want_o, want_l, tcot, scale,
+                                 chunk_counts[-1], rounding)
+        rel = [chip_smoke.grad_readings(out, want_o, want_o)[0]] + [
+            chip_smoke.grad_readings(g, w, tcot)[0]
+            for g, w in zip(grads, want)]
+        assert all((r > limit) == misses for r in rel), (rounding, rel)
+
+
+@pytest.mark.parametrize("name", ["dead_chunk", "dead_bh_keys",
+                                  "dead_bh_queries", "injector"])
+def test_tf32x3_emulation_masks_exactly(name):
+    """In fp32 as the card runs it: a masked key gets exactly zero dk and
+    dv, a bh without a valid key exactly out 0, lse NEG_INF and zero
+    gradients, and a chunk without a valid key is skipped."""
+    q, k, v, bias, cot, chunk_counts = _case(name, seed=2)
+    tq, tk, tv, tb, tcot = (_t(x) for x in (q, k, v, bias, cot))
+    chunks = chunk_counts[-1]
+    out, lse, skipped = emulate_forward(tq, tk, tv, tb, 0.25, chunks,
+                                        "tf32x3")
+    grads = emulate_backward(tq, tk, tv, tb, out, lse, tcot, 0.25, chunks,
+                             "tf32x3")
+    masked = tb <= MASK_THRESHOLD
+    assert (grads[1][masked] == 0).all() and (grads[2][masked] == 0).all()
+    dead = masked.all(dim=-1)
+    assert bool(dead.any()) == (CASES[name][4] == "dead_bh")
+    assert (out[dead] == 0).all() and (lse[dead] == NEG_INF).all()
+    assert all((g[dead] == 0).all() for g in grads)
+    assert (skipped > 0) == (name in ("dead_chunk", "dead_bh_queries"))
+
+
 # (Lq, Lk, D, dtype) -> family: the adapter's five shapes, both sides
-# long, D = 48 in bf16 (wgmma at every Lq and Lk) and fp32, D = 32, and the
-# short-side domain's edge at 128 / 129 rows.
+# long, D = 48 in bf16 (wgmma at every Lq and Lk) and fp32 (the CUDA cores:
+# the per-branch route under an fp32 backbone), D = 32, and the short-side
+# domain's edge at 128 / 129 rows, in bf16 and in fp32 (the 3xTF32 family
+# at D = 16).
 FAMILY_CASES = [
     (10239, 65, 16, torch.bfloat16, "short_keys"),
     (65, 10239, 16, torch.bfloat16, "short_queries"),
@@ -460,7 +617,17 @@ FAMILY_CASES = [
     (16383, 65, 16, torch.bfloat16, "short_keys"),
     (65, 16383, 16, torch.bfloat16, "short_queries"),
     (1024, 1024, 48, torch.bfloat16, "wgmma"),
-    (10239, 65, 16, torch.float32, "cuda_cores"),
+    (10239, 65, 16, torch.float32, "short_keys_tf32"),
+    (65, 10239, 16, torch.float32, "short_queries_tf32"),
+    (65, 65, 16, torch.float32, "short_keys_tf32"),
+    (2047, 65, 16, torch.float32, "short_keys_tf32"),
+    (65, 16383, 16, torch.float32, "short_queries_tf32"),
+    (300, 128, 16, torch.float32, "short_keys_tf32"),
+    (128, 300, 16, torch.float32, "short_queries_tf32"),
+    (300, 129, 16, torch.float32, "cuda_cores"),
+    (129, 300, 16, torch.float32, "cuda_cores"),
+    (10239, 65, 48, torch.float32, "cuda_cores"),
+    (10239, 65, 32, torch.float32, "cuda_cores"),
     (65, 10239, 48, torch.bfloat16, "wgmma"),
     (300, 128, 16, torch.bfloat16, "short_keys"),
     (128, 300, 16, torch.bfloat16, "short_queries"),
@@ -514,6 +681,35 @@ def test_chunk_plan():
     # the wgmma family: the backward's delta, one float a (bh, query)
     assert workspace_floats("wgmma", False, 96, 2896, 2896, 0) == 0
     assert workspace_floats("wgmma", True, 96, 2896, 2896, 0) == 96 * 2896
+
+
+def test_tf32_workspace():
+    """The fp32 short-side family's scratch is the bf16 family's: the
+    short-queries forward's partials (acc 16, m and l of every (bh, chunk,
+    query padded to 80)), the backward's partial dk and dv (short keys) or
+    dq (short queries); a few MB at the adapter's shapes; the CUDA-core
+    family at fp32 takes none."""
+    for fam in ("short_keys", "short_queries"):
+        for backward in (False, True):
+            for lq, lk in ((10239, 65), (65, 10239), (65, 65), (300, 128),
+                           (128, 300)):
+                assert workspace_floats(fam + "_tf32", backward, 36, lq, lk,
+                                        15) == \
+                    workspace_floats(fam, backward, 36, lq, lk, 15)
+    assert workspace_floats("short_keys_tf32", False, 36, 10239, 65, 15) == 0
+    assert workspace_floats("short_queries_tf32", False, 36, 65, 10239,
+                            15) == 36 * 15 * 80 * 18
+    assert workspace_floats("short_keys_tf32", True, 36, 10239, 65, 15) == \
+        36 * 15 * 80 * 32
+    assert workspace_floats("short_queries_tf32", True, 36, 65, 10239,
+                            15) == 36 * 15 * 80 * 16
+    assert workspace_floats("cuda_cores", True, 96, 2896, 2896, 0) == 0
+    for lq, lk in ((10239, 65), (65, 10239)):
+        fam = family(lq, lk, 16, torch.float32)
+        chunks = long_side_chunks(36, max(lq, lk), 132)
+        for backward in (False, True):
+            assert workspace_floats(fam, backward, 36, lq, lk,
+                                    chunks) * 4e-6 <= 8.0
 
 
 # name -> (BH, Lq, Lk, keys): small cuts of the per-branch route's five

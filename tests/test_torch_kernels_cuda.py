@@ -25,7 +25,12 @@ kernels' short-side family (bf16, D = 16): the adapter's five shapes, a
 short side of every remainder mod 16 on either side, chunks without a
 valid key, a dead bh, bit-equal reruns, the C entry points' family choice
 against the CPU's copy of the rule, and the CUDA-core kernels still serving
-the other bf16 shapes. For its wgmma family (bf16, D = 48, the per-branch
+the other bf16 shapes; for its fp32 family (3xTF32): the adapter's shapes
+at 10,239 and 2,047, short sides on either side, dead chunks and a dead
+bh at the fp32 limits, one key, the gradients from the kernel's own out
+and lse, bit-equal reruns, the launches by family through the autograd
+Function, a misaligned view raising, and the CUDA-core kernels still
+serving the other fp32 shapes (D = 48, both sides long). For its wgmma family (bf16, D = 48, the per-branch
 dilated attention's): the five branch geometries at 2,048 tokens, lengths
 off the 64-row tile, Lq != Lk both ways, dead key tiles between live ones,
 a dead bh, a finite bias, bit-equal reruns, the launch counts by family, the
@@ -346,10 +351,11 @@ SHORT_SIDE_IDS = [f"{bh}x{lq}x{lk}" + ("-dead" if dead else "")
                   for bh, lq, lk, _, dead in SHORT_SIDE_CASES]
 
 
-def _short_side_inputs(bh, lq, lk, masked, dead, device, seed=30):
-    q, k, v = (_randn((bh, n, 16), seed + i, device, torch.bfloat16)
+def _short_side_inputs(bh, lq, lk, masked, dead, device, seed=30,
+                       dtype=torch.bfloat16):
+    q, k, v = (_randn((bh, n, 16), seed + i, device, dtype)
                for i, n in enumerate((lq, lk, lk)))
-    dout = _randn((bh, lq, 16), seed + 3, device, torch.bfloat16)
+    dout = _randn((bh, lq, 16), seed + 3, device, dtype)
     valid = torch.ones(bh, lk, dtype=torch.bool)
     if masked is not None:
         valid[:, int(masked[0] * lk):int(masked[1] * lk)] = False
@@ -413,6 +419,13 @@ def test_short_side_family_matches_the_entry_points(cuda_device):
                              (4000, 128, 16, torch.bfloat16),
                              (1024, 1024, 48, torch.bfloat16),
                              (10239, 65, 16, torch.float32),
+                             (65, 10239, 16, torch.float32),
+                             (65, 65, 16, torch.float32),
+                             (129, 129, 16, torch.float32),
+                             (128, 4000, 16, torch.float32),
+                             (4000, 128, 16, torch.float32),
+                             (10239, 65, 48, torch.float32),
+                             (300, 65, 64, torch.float32),
                              (65, 10239, 48, torch.bfloat16)]:
         assert fa.card_family(lq, lk, d, dtype) == fa.family(lq, lk, d, dtype)
 
@@ -452,6 +465,148 @@ def test_short_side_wrapper_raises_on_a_misaligned_tensor(cuda_device):
     k = _randn((2, 65, 16), 46, cuda_device, torch.bfloat16)
     with pytest.raises(ValueError):
         fa.flash_attention(q, k, k)
+
+
+# ---------------------------------------------------------------------------
+# K2: the fp32 short-side family (3xTF32, D = 16, one side of at most 128)
+# ---------------------------------------------------------------------------
+
+# (BH, Lq, Lk, masked keys, a bh with every key masked), as
+# SHORT_SIDE_CASES: the adapter's shapes at fp32 (the --bf16 0 step's at
+# 10,239, the schedule's at 2,047), a short side of several remainders mod
+# 16 on either side, dead chunks between live ones, chunks of many tiles.
+TF32_SHORT_SIDE_CASES = [
+    (36, 10239, 65, None, False),
+    (36, 65, 10239, (9000 / 10239, 1.0), True),
+    (36, 65, 65, None, False),
+    (36, 2047, 65, None, False),
+    (36, 65, 2047, (1900 / 2047, 1.0), True),
+    *((3, 333, n, (0.75, 1.0), True) for n in (1, 17, 65, 80, 113, 128)),
+    *((3, n, 333, (0.75, 1.0), True) for n in (1, 17, 65, 80, 113, 128)),
+    (2, 65, 5000, (0.2, 0.6), False),        # dead chunks between live ones
+    (64, 8191, 65, (0.5, 1.0), True),        # chunks of many tiles
+]
+TF32_SHORT_SIDE_IDS = [f"{bh}x{lq}x{lk}" + ("-dead" if dead else "")
+                       for bh, lq, lk, _, dead in TF32_SHORT_SIDE_CASES]
+
+
+@pytest.mark.parametrize("bh,lq,lk,masked,dead", TF32_SHORT_SIDE_CASES,
+                         ids=TF32_SHORT_SIDE_IDS)
+def test_tf32_short_side_kernels_match_plain(cuda_device, bh, lq, lk, masked,
+                                             dead):
+    """Forward and backward of the fp32 short-side family (3xTF32) against
+    the plain versions in fp32, at ``chip_smoke.py``'s fp32 limits: out by
+    ``check_out`` and lse within 1e-4; dq, dk, dv from the plain out and
+    lse and from the kernel's own by ``check_grads`` (rel-L2 1e-5,
+    row-scaled 5e-5), and by the max-scaled ``GRAD_TOL`` of the CUDA-core
+    tests; a dead bh exactly 0, NEG_INF and zero gradients, a masked key
+    exactly zero dk and dv, a rerun the same bits. At one key (Lk = 1)
+    P = 1 and dS = dP - delta cancels exactly: dq and dk are rounding noise
+    there, held by ``GRAD_TOL`` alone (3xTF32 keeps dP to about 2^-21 of
+    |dout||v|, fp32 to 2^-24; tests/test_torch_flash.py bounds it)."""
+    fam = fa.card_family(lq, lk, 16, torch.float32)
+    assert fam == fa.family(lq, lk, 16, torch.float32)
+    assert fam in ("short_keys_tf32", "short_queries_tf32")
+    q, k, v, dout, bias, valid = _short_side_inputs(
+        bh, lq, lk, masked, dead, cuda_device, seed=70, dtype=torch.float32)
+    out, lse = fa.flash_attention_cuda(q, k, v, bias, 0.25)
+    want_o, want_l = fa.flash_attention_reference(q, k, v, bias, 0.25)
+    grads = fa.flash_attention_backward_cuda(q, k, v, bias, want_o, want_l,
+                                             dout, 0.25)
+    own = fa.flash_attention_backward_cuda(q, k, v, bias, out, lse, dout,
+                                           0.25)
+    want = fa.flash_attention_backward_reference(q, k, v, bias, want_o,
+                                                 want_l, dout, 0.25)
+    again = (*fa.flash_attention_cuda(q, k, v, bias, 0.25),
+             *fa.flash_attention_backward_cuda(q, k, v, bias, want_o, want_l,
+                                               dout, 0.25))
+    torch.cuda.synchronize()
+    chip_smoke.check_out(out, want_o, "float32", "out")
+    assert (lse - want_l).abs().max().item() <= 1e-4
+    assert ((lse == NEG_INF) == (want_l == NEG_INF)).all()
+    names = ("dq", "dk", "dv")
+    held = slice(2, 3) if lk == 1 else slice(0, 3)
+    for gs in (grads, own):
+        for name, g_, w_ in zip(names, gs, want):
+            _assert_grad_close(g_, w_, name)
+        chip_smoke.check_grads(names[held], gs[held], want[held], dout,
+                               "float32", f"{bh}x{lq}x{lk}")
+    assert ((grads[1] == 0) | valid[..., None]).all()      # masked keys
+    assert ((grads[2] == 0) | valid[..., None]).all()
+    if dead:
+        assert (out[0] == 0).all() and (lse[0] == NEG_INF).all()
+        assert all((g_[0] == 0).all() for g_ in grads)
+    for a, b in zip((out, lse, *grads), again):
+        assert torch.equal(a, b)
+
+
+def test_tf32_short_side_function_counts_by_family(cuda_device):
+    """``flash_attention`` at fp32 / D = 16 runs the fp32 short-side family
+    forward and backward, short keys and short queries, counted in
+    LAUNCHES and by family and none on the CUDA cores; its gradients equal
+    the wrapper's called directly."""
+    fa.LAUNCHES = fa.BWD_LAUNCHES = 0
+    for counts in (fa.FAMILY_LAUNCHES, fa.BWD_FAMILY_LAUNCHES):
+        counts.update(dict.fromkeys(counts, 0))
+    runs = []
+    for i, (lq, lk) in enumerate(((700, 65), (65, 700))):
+        q, k, v = (_randn((3, n, 16), 80 + 3 * i + j, cuda_device)
+                   .requires_grad_() for j, n in enumerate((lq, lk, lk)))
+        out, lse = fa.flash_attention(q, k, v)
+        out.pow(2).sum().backward()
+        runs.append((q, k, v, out.detach(), lse))
+    assert (fa.LAUNCHES, fa.BWD_LAUNCHES) == (2, 2)
+    for counts in (fa.FAMILY_LAUNCHES, fa.BWD_FAMILY_LAUNCHES):
+        assert counts["short_keys_tf32"] == counts["short_queries_tf32"] == 1
+        assert counts["cuda_cores"] == 0
+    for q, k, v, out, lse in runs:
+        want = fa.flash_attention_backward_cuda(
+            q.detach(), k.detach(), v.detach(), None, out, lse, 2 * out,
+            16 ** -0.5)
+        for x, w_ in zip((q, k, v), want):
+            assert torch.equal(x.grad, w_)
+
+
+def test_tf32_short_side_wrapper_raises_on_a_misaligned_tensor(cuda_device):
+    """16-byte cp.async: an fp32 view 8 bytes off raises, forward and
+    backward, where the CUDA-core kernels would take it; no fallback."""
+    base = _randn((2 * 300 * 16 + 2,), 90, cuda_device)
+    q = base[2:].view(2, 300, 16)                   # 8 bytes off
+    k = _randn((2, 65, 16), 91, cuda_device)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, k)
+    qa = _randn((2, 300, 16), 92, cuda_device)
+    out, lse = fa.flash_attention_cuda(qa, k, k, None, 0.25)
+    with pytest.raises(ValueError):
+        fa.flash_attention_backward_cuda(qa, k, k, None, out, lse, q, 0.25)
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", [(4, 300, 200, 48), (6, 130, 129, 16),
+                                        (4, 200, 65, 64)])
+def test_cuda_core_family_serves_other_fp32_shapes(cuda_device, bh, lq, lk,
+                                                   d):
+    """fp32 outside the short-side domain (D = 48, the per-branch route
+    under an fp32 backbone; both sides long at D = 16; D = 64) stays on the
+    CUDA-core kernels, at the fp32 limits."""
+    assert fa.card_family(lq, lk, d, torch.float32) == "cuda_cores"
+    q, k, v = (_randn((bh, n, d), 93 + i, cuda_device)
+               for i, n in enumerate((lq, lk, lk)))
+    dout = _randn((bh, lq, d), 96, cuda_device)
+    g = torch.Generator().manual_seed(97)
+    valid = torch.rand(bh, lk, generator=g) > 0.12
+    valid[-1] = False
+    bias = torch.where(valid, 0.0, NEG_INF).to(cuda_device)
+    out, lse = fa.flash_attention_cuda(q, k, v, bias, d ** -0.5)
+    want_o, want_l = fa.flash_attention_reference(q, k, v, bias)
+    grads = fa.flash_attention_backward_cuda(q, k, v, bias, want_o, want_l,
+                                             dout, d ** -0.5)
+    want = fa.flash_attention_backward_reference(q, k, v, bias, want_o,
+                                                 want_l, dout)
+    torch.cuda.synchronize()
+    chip_smoke.check_out(out, want_o, "float32", "out")
+    assert (lse - want_l).abs().max().item() <= 1e-4
+    chip_smoke.check_grads(("dq", "dk", "dv"), grads, want, dout, "float32",
+                           f"{bh}x{lq}x{lk}x{d}")
 
 
 # ---------------------------------------------------------------------------
