@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """A/B of the dilated attention kernels and the key-bias flash attention
 on an earlier tree's port and on this one: the fp32 times of K1f (with
-stats), K3f, K1b and K3b, of K2f and K2b at the adapter's shapes, the
-``--bf16 0`` train step, and the bits of the bf16 families and of the fp32
-dilated backward.
+stats), K3f, K1b and K3b, of K2f and K2b at the adapter's shapes and the
+per-branch route's r = 2 branch, the ``--bf16 0`` train step on the
+default and the per-branch route, and the bits of the bf16 families and
+of the fp32 dilated kernels.
 
     python3 ab_prep.py PARENT_DIR
 
@@ -19,20 +20,22 @@ package, and prints:
   each at 495 TFLOP/s, or the bytes at 3.35 TB/s);
 * k2 fp32: K2f's and K2b's median ms (CUDA events) and card ms (the
   profiler's) at the adapter's Injector (36 x 10,239 x 65) and Extractor
-  (36 x 65 x 10,239, 1,239 keys masked, a dead bh) on random fp32 inputs,
-  with the family that ran (K2b of the CUDA-core family includes the
-  delta its wrapper makes in torch);
+  (36 x 65 x 10,239, 1,239 keys masked, a dead bh) and at the per-branch
+  route's r = 2 branch (96 x 2,896 x 2,896 at D = 48, 12 % of the keys
+  masked) on random fp32 inputs, with the family that ran (K2b of the
+  CUDA-core family includes the delta its wrapper makes in torch);
 * step: the ``--bf16 0`` user's train step (chip_smoke.py's GigaPath
-  model with the frozen backbone in fp32, the default route, ``"flash"``)
-  at the 10,239 and the 2,047 bucket: the median ms of 9 steps after 2,
-  and the peak allocated GiB;
+  model with the frozen backbone in fp32, ``"flash"``) on the default
+  route at the 10,239 and the 2,047 bucket and on the per-branch route
+  (``chip_smoke.GIGAPATH_BRANCH``, the CLI's ``--fused_attention 0``) at
+  10,239: the median ms of 9 steps after 2, and the peak allocated GiB;
 * bits: a SHA-256 digest of every output of K1f (with stats), K3f, K1b
-  and K3b at bf16, and of K1b and K3b at fp32 fed the plain version's
-  statistics (so that a change of the fp32 forward does not reach them),
-  at (3, 2048, 16, 48), and of K2f and K2b at bf16 in the short-side
-  family (36 x 2,047 x 65, 36 x 65 x 2,047, 36 x 65 x 65) and the wgmma
-  family (96 x 1,024 x 1,024, D = 48); the run fails unless every run's
-  digests are the same.
+  and K3b at bf16, of K1f (with stats) and K3f at fp32, and of K1b and
+  K3b at fp32 fed the plain version's statistics (so that a change of
+  the fp32 forward does not reach them), at (3, 2048, 16, 48), and of K2f
+  and K2b at bf16 in the short-side family (36 x 2,047 x 65, 36 x 65 x
+  2,047, 36 x 65 x 65) and the wgmma family (96 x 1,024 x 1,024, D = 48);
+  the run fails unless every run's digests are the same.
 
 Needs one GPU.
 """
@@ -84,35 +87,41 @@ for shape, n_valid in (((3, 2048, 16, 48), 1919), ((3, 10240, 16, 48), 9000)):
     torch.cuda.empty_cache()
 print("fp32: " + "; ".join(out), flush=True)
 
-# K2 at fp32: the adapter's Injector and Extractor at 10,239
+# K2 at fp32: the adapter's Injector and Extractor at 10,239, the r = 2
+# branch of the per-branch route
 fa = importlib.import_module("modaltune_tpu_torch.ops.flash_attention")
 out = []
-for name, lq, lk, masked, dead in (("Injector", 10239, 65, 0.0, False),
-                                   ("Extractor", 65, 10239, 1239 / 10239,
-                                    True)):
-    q, k, v, bias = cs.k2_inputs(36, lq, lk, 16, masked, dead, torch.float32,
+for name, bh, lq, lk, d, masked, dead in (
+        ("Injector", 36, 10239, 65, 16, 0.0, False),
+        ("Extractor", 36, 65, 10239, 16, 1239 / 10239, True),
+        ("r = 2", 96, 2896, 2896, 48, 0.12, False)):
+    q, k, v, bias = cs.k2_inputs(bh, lq, lk, d, masked, dead, torch.float32,
                                  dev, seed=7)
-    o, lse = fa.flash_attention_cuda(q, k, v, bias, 0.25)
+    o, lse = fa.flash_attention_cuda(q, k, v, bias, d ** -0.5)
     do = torch.randn_like(o)
 
     def k2f():
-        return fa.flash_attention_cuda(q, k, v, bias, 0.25)
+        return fa.flash_attention_cuda(q, k, v, bias, d ** -0.5)
 
     def k2b():
-        return fa.flash_attention_backward_cuda(q, k, v, bias, o, lse, do, 0.25)
-    out.append(f"{name} ({fa.card_family(lq, lk, 16, torch.float32)}) K2f "
+        return fa.flash_attention_backward_cuda(q, k, v, bias, o, lse, do,
+                                                d ** -0.5)
+    out.append(f"{name} ({fa.card_family(lq, lk, d, torch.float32)}) K2f "
                f"{cs.time_ms(k2f, 20):.4f} ms (card "
                f"{cs.fmt_ms(cs.device_ms(k2f))}), K2b {cs.time_ms(k2b, 20):.4f}"
                f" ms (card {cs.fmt_ms(cs.device_ms(k2b))})")
 print("k2 fp32: " + "; ".join(out), flush=True)
 
-# the --bf16 0 train step at two buckets
+# the --bf16 0 train step: the default route at two buckets, the
+# per-branch route at 10,239
 import statistics, time
 from modaltune_tpu_torch import make_train_step
 steps = []
-for bucket_kw in ({}, cs.GIGAPATH_2047):
+for route, model_kw in (("default", cs.GIGAPATH),
+                        ("default", dict(cs.GIGAPATH, **cs.GIGAPATH_2047)),
+                        ("per-branch", cs.GIGAPATH_BRANCH)):
     model, tcfg, opt, text, batch = cs.build_train(
-        dev, frozen="float32", **dict(cs.GIGAPATH, **bucket_kw))
+        dev, frozen="float32", **model_kw)
     step = make_train_step(model, tcfg, opt)
     gen = torch.Generator(device=dev).manual_seed(1)
     for _ in range(2):
@@ -125,14 +134,16 @@ for bucket_kw in ({}, cs.GIGAPATH_2047):
         step(batch, text, gen)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
-    steps.append(f"{batch['bag'].shape[1]}: {statistics.median(times):.2f} "
+    steps.append(f"{route} {batch['bag'].shape[1]}: "
+                 f"{statistics.median(times):.2f} "
                  f"ms/step, peak "
                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     del model, opt, batch, step
     torch.cuda.empty_cache()
 print("step (--bf16 0): " + "; ".join(steps), flush=True)
 
-# the bits: bf16 K1f, K3f, K1b, K3b; fp32 K1b, K3b on the plain statistics
+# the bits: bf16 K1f, K3f, K1b, K3b; fp32 K1f, K3f, and K1b, K3b on the
+# plain statistics
 from modaltune_tpu_torch.ops.dilated import dilated_attention_stats
 digest = hashlib.sha256()
 
@@ -145,11 +156,11 @@ def note(*tensors):
 for dtype in (torch.bfloat16, torch.float32):
     (q, k, v, dmix), mask = cs.k1_inputs((3, 2048, 16, 48), 1919, dev, dtype,
                                          seed=5, n_tensors=4)
+    out_, stats = dm.mega_dilated_attention_cuda(q, k, v, mask, seg, rat,
+                                                 scale, with_stats=True)
+    fused = df.fused_dilated_attention_cuda(q, k, v, mask, seg, rat, scale)
+    note(out_, stats, *fused)
     if dtype == torch.bfloat16:
-        out_, stats = dm.mega_dilated_attention_cuda(q, k, v, mask, seg, rat,
-                                                     scale, with_stats=True)
-        fused = df.fused_dilated_attention_cuda(q, k, v, mask, seg, rat, scale)
-        note(out_, stats, *fused)
         lse_c, st = fused[2], fused[3]
     else:
         stats = dilated_attention_stats(q, k, v, segment_lengths=seg,

@@ -382,14 +382,14 @@ def check_k2_families(tag: str, launches: dict, d48: int,
     adapter's calls at D = 16) the bf16 short-side family, and no K2 ran on
     the CUDA cores; with ``fp32`` (an fp32 backbone, no autocast) the
     adapter's calls all ran the fp32 short-side family (3xTF32) and the
-    D = 48 calls the CUDA cores, none else. ``counts``: the launches by
+    D = 48 calls the 3xTF32 family, none else. ``counts``: the launches by
     family recorded just after the run (:func:`k2_family_counts`, the
     default). Returns the launches by family, forward and backward."""
     counts = counts or k2_family_counts()
     fwd, bwd = counts["fwd"], counts["bwd"]
     d48_b = d48 if launches["K2b"] else 0
     d48 += again
-    wide = "cuda_cores" if fp32 else "wgmma"
+    wide = "tf32x3" if fp32 else "wgmma"
     short = (("short_keys_tf32", "short_queries_tf32") if fp32
              else ("short_keys", "short_queries"))
     check(fwd[wide] == d48 and bwd[wide] == d48_b and
@@ -495,8 +495,10 @@ def recomputed_per_step(model) -> dict:
 # (3 task rows x 16 heads, D = 48; segments from
 # ``configs.optimal_segment_lengths()`` at ratios 1, 2, 4, 8, 16; the first
 # has ten 1,024-token segments a row, its last one all padding at 9,000
-# valid tokens); the last two are the TITAN adapter's cross-attentions over
-# the 16,383-cell bucket.
+# valid tokens); then the TITAN adapter's cross-attentions over the
+# 16,383-cell bucket; the last, at D = 32 (no model's), holds the CUDA-core
+# kernels of flash_attention_{fwd,bwd}.cu, which serve every D but 16 and
+# 48 and which no path of the models launches.
 BRANCH_SHAPES = [
     ("d48_r1", 480, 1024, 1024, 48, 0.12, True),
     ("d48_r2", 96, 2896, 2896, 48, 0.12, False),
@@ -511,6 +513,7 @@ K2_SHAPES = [
     *BRANCH_SHAPES,
     ("titan_injector", 36, 16383, 65, 16, 0.0, False),
     ("titan_extractor", 36, 65, 16383, 16, 1800 / 16383, True),
+    ("d32_cuda_cores", 48, 1280, 1280, 32, 0.12, False),
 ]
 
 
@@ -620,24 +623,32 @@ def phase_k2(device, shapes=K2_SHAPES, iters=20):
     bits in both; times in bf16 and in fp32 at :data:`FP32_K2_SHAPES`
     (:func:`k2_fp32_times`). Each shape names the kernel family that ran in
     bf16 (``family``) and in fp32 (``fp32_family``: the 3xTF32 short-side
-    family at D = 16, the CUDA cores at D = 48). Returns {name: result
-    dict}."""
+    family at D = 16, the 3xTF32 family ``tf32x3`` at D = 48). Returns
+    {name: result dict}."""
     import torch
     fa = importlib.import_module("modaltune_tpu_torch.ops.flash_attention")
     results = {}
     for i, (name, bh, lq, lk, d, masked, dead) in enumerate(shapes):
         res = {"family": fa.card_family(lq, lk, d, torch.bfloat16),
                "fp32_family": fa.card_family(lq, lk, d, torch.float32)}
+        check((res["family"], res["fp32_family"]) ==
+              (fa.family(lq, lk, d, torch.bfloat16),
+               fa.family(lq, lk, d, torch.float32)),
+              f"K2 {name}: the card's families {res['family']}, "
+              f"{res['fp32_family']} are not the rule's")
         for dtype, out_tol, lse_tol in ((torch.float32, 2e-4, 1e-4),
                                         (torch.bfloat16, 1.6e-2, 1e-2)):
             q, k, v, bias = k2_inputs(bh, lq, lk, d, masked, dead, dtype,
                                       device, seed=100 + i)
-            got_o, got_l = fa.flash_attention(q, k, v, bias)
+            tag = f"K2 {name} {str(dtype)[6:]}"
+            got_o, got_l = check_one_launch(
+                "fwd", res["fp32_family" if dtype == torch.float32
+                           else "family"],
+                lambda: fa.flash_attention(q, k, v, bias), tag)
             # the plain version runs in fp32 on the same (rounded) values
             want_o, want_l = fa.flash_attention_reference(
                 q.float(), k.float(), v.float(), bias)
             torch.cuda.synchronize()
-            tag = f"K2 {name} {str(dtype)[6:]}"
             err_o = compare(got_o, want_o, out_tol, f"{tag} out")
             err_l = (got_l - want_l).abs().max().item()
             check(err_l <= lse_tol, f"{tag} lse: max|err| {err_l:.3e}")
@@ -694,7 +705,7 @@ def phase_k2(device, shapes=K2_SHAPES, iters=20):
               f"{fmt_ratio(res['device_ms'], res['library_device_ms'])}; bound "
               f"{res['bound_ms']:.5f} ms ({res['bound_by']})", flush=True)
         if "fp32" in res:
-            print(fmt_k2_fp32(f"K2 {name} BH={bh} Lq={lq} Lk={lk} D={d}",
+            print(fmt_fp32_times(f"K2 {name} BH={bh} Lq={lq} Lk={lk} D={d}",
                               res["fp32"]), flush=True)
         results[name] = res
     return results
@@ -702,9 +713,22 @@ def phase_k2(device, shapes=K2_SHAPES, iters=20):
 
 # The shapes of an fp32 backbone's K2 calls that are timed in fp32: the
 # adapter's at 10,239 (the 3xTF32 short-side family), and the per-branch
-# route's r = 2 branch (the CUDA-core family at D = 48, which the
-# per-branch route under an fp32 backbone runs)
-FP32_K2_SHAPES = ("injector", "extractor", "prompt_sa", "d48_r2")
+# route's five branches (the 3xTF32 family at D = 48, which the per-branch
+# route under an fp32 backbone runs); and the CUDA-core kernels' shape
+FP32_K2_SHAPES = ("injector", "extractor", "prompt_sa",
+                  *(shape[0] for shape in BRANCH_SHAPES), "d32_cuda_cores")
+
+
+def check_one_launch(side, fam, fn, tag):
+    """``fn()``, checked to launch K2f (``side="fwd"``) or K2b
+    (``"bwd"``) once, on family ``fam``."""
+    before = k2_family_counts()[side]
+    result = fn()
+    after = k2_family_counts()[side]
+    check(after[fam] == before[fam] + 1 and
+          sum(after.values()) == sum(before.values()) + 1,
+          f"{tag}: launches by family {before} -> {after}, want one on {fam}")
+    return result
 
 
 def k2_fp32_times(family, kernel, plain, library, iters, flops, tensors):
@@ -712,14 +736,14 @@ def k2_fp32_times(family, kernel, plain, library, iters, flops, tensors):
     library call's (``library``, at fp32 with TF32 off, as ``main`` sets
     it) on both clocks, and the bound at ``family``'s peak: its products
     (``flops``) as three TF32 products at :data:`PEAK_FLOPS_TF32` on the
-    3xTF32 families, on the CUDA cores at :data:`PEAK_FLOPS_FP32`, or the
-    bytes of ``tensors``."""
+    3xTF32 families (the short side's and ``tf32x3``), on the CUDA cores
+    at :data:`PEAK_FLOPS_FP32`, or the bytes of ``tensors``."""
     r = dict(family=family, ms=time_ms(kernel, iters),
              device_ms=device_ms(kernel, iters=3, warmup=1),
              plain_ms=time_ms(plain, iters),
              library_ms=time_ms(library, iters),
              library_device_ms=device_ms(library, iters=3, warmup=1))
-    tf32 = family.endswith("_tf32")
+    tf32 = "tf32" in family
     r["bound_ms"], r["bound_by"] = bound_ms(
         3 * flops if tf32 else flops, tensor_bytes(tensors),
         PEAK_FLOPS_TF32 if tf32 else PEAK_FLOPS_FP32)
@@ -728,7 +752,7 @@ def k2_fp32_times(family, kernel, plain, library, iters, flops, tensors):
     return r
 
 
-def fmt_k2_fp32(tag, r) -> str:
+def fmt_fp32_times(tag, r) -> str:
     return (f"{tag} fp32 ({r['family']}): kernel {r['ms']:.4f} ms (card "
             f"{fmt_ms(r['device_ms'])}), plain {r['plain_ms']:.4f} ms, library "
             f"(fp32, TF32 off) {r['library_ms']:.4f} ms (card "
@@ -761,13 +785,16 @@ def phase_k2b(device, shapes=K2_SHAPES, iters=20):
             dout = torch.randn(bh, lq, d, generator=g).to(device, dtype)
             out, lse = fa.flash_attention_reference(q, k, v, bias)
             out = out.to(dtype)
-            got = fa.flash_attention_backward_cuda(q, k, v, bias, out, lse,
-                                                   dout, scale)
+            tag = f"K2b {name} {str(dtype)[6:]}"
+            got = check_one_launch(
+                "bwd", res["fp32_family" if dtype == torch.float32
+                           else "family"],
+                lambda: fa.flash_attention_backward_cuda(
+                    q, k, v, bias, out, lse, dout, scale), tag)
             want = fa.flash_attention_backward_reference(
                 q.float(), k.float(), v.float(), bias, out.float(), lse,
                 dout.float())
             torch.cuda.synchronize()
-            tag = f"K2b {name} {str(dtype)[6:]}"
             # (max|err|, its bound tol * max(1, max|want|)) of the worst grad
             res[str(dtype)[6:]], res[str(dtype)[6:] + "_bound"] = max(
                 (compare(gt, wt, tol, f"{tag} {gn}"),
@@ -856,7 +883,7 @@ def phase_k2b(device, shapes=K2_SHAPES, iters=20):
               f"bound {res['bound_ms']:.5f} ms ({res['bound_by']})",
               flush=True)
         if "fp32" in res:
-            print(fmt_k2_fp32(f"K2b {name} BH={bh} Lq={lq} Lk={lk} D={d}",
+            print(fmt_fp32_times(f"K2b {name} BH={bh} Lq={lq} Lk={lk} D={d}",
                               res["fp32"]), flush=True)
         results[name] = res
     return results
@@ -2072,14 +2099,78 @@ def k4_forward_errors(af, tensors, chunk, out_tol, lse_tol, tag):
     return err_o, err_l, got_o, got_l
 
 
+def k4_fp32_times(af, tensors, chunk, out_lse=None, iters=3):
+    """fp32 K4f, or K4b from K4f's ``out_lse``, on ``tensors``
+    (:func:`k4_inputs` at fp32): the kernel on both clocks (the CUDA-core
+    family, K4's only one at fp32), the plain version (the sum over its
+    slices, the first one warmed up), one ``scaled_dot_product_attention``
+    at fp32 with TF32 off (as ``main`` sets it) on the dense bias built
+    beforehand, and autograd through it for K4b, on both clocks; the bound
+    at the CUDA cores' fp32 rate (``bound_ms``) and the 3xTF32 bound
+    beside it (``tf32x3_bound_ms``). :func:`fmt_fp32_times` prints it."""
+    import torch
+    import torch.nn.functional as F
+    q, k, v, dout, coords3, slopes, key_mask = tensors
+    b, h, n, d = q.shape
+    scale = d ** -0.5
+    backward = out_lse is not None
+    if backward:
+        out, lse = out_lse
+
+        def kernel():
+            return af.alibi_flash_attention_backward_cuda(
+                q, k, v, coords3, slopes, key_mask, out, lse, dout, scale)
+
+        def plain(bs, hs):
+            return af.alibi_attention_backward_reference(
+                q[bs, hs], k[bs, hs], v[bs, hs], coords3[bs], slopes[hs],
+                key_mask[bs], out[bs, hs], lse[bs, hs], dout[bs, hs])
+        io = (q, k, v, coords3, slopes, key_mask, out, lse, dout, q, k, v)
+    else:
+        def kernel():
+            return af.alibi_flash_attention_cuda(q, k, v, coords3, slopes,
+                                                 key_mask, scale)
+
+        def plain(bs, hs):
+            return af.alibi_attention_reference(
+                q[bs, hs], k[bs, hs], v[bs, hs], coords3[bs], slopes[hs],
+                key_mask[bs])
+        io = (q, k, v, coords3, slopes, key_mask, q, q[..., 0])
+    r = dict(family="cuda_cores", ms=time_ms(kernel, iters, warmup=1),
+             device_ms=device_ms(kernel, iters=1, warmup=1))
+    slices = k4_slices(b, h, chunk)
+    plain(*slices[0])
+    r["plain_ms"] = sum(timed_once(lambda: plain(bs, hs))[1]
+                        for bs, hs in slices)
+    (r["tf32x3_bound_ms"], _), (r["bound_ms"], r["bound_by"]) = \
+        tf32x3_bounds(float(h * n * int(key_mask.sum())), d, io, backward)
+    r["bound_at"] = f"fp32 at {PEAK_FLOPS_FP32 / 1e12:.0f} TFLOP/s"
+    torch.cuda.empty_cache()
+    dense = dense_alibi_bias(coords3, slopes, key_mask, torch.float32)
+    if backward:
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=dense)
+
+        def library():
+            return torch.autograd.grad(lib_out, leaves, dout,
+                                       retain_graph=True)
+    else:
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=dense)
+    r["library_ms"] = time_ms(library, iters, warmup=1)
+    r["library_device_ms"] = device_ms(library, iters=1, warmup=1)
+    return r
+
+
 def phase_k4(device, shapes=K4_SHAPES, iters=10):
     """K4f against its plain version, fp32 and bf16 (the plain version in
     fp32 on the same values), whole or slice by slice, in bf16 also on a
     mask with dead key tiles between live ones, and two runs bit-equal;
     times in bf16 of the kernel, the plain version and one
     ``scaled_dot_product_attention`` call with the dense bias built
-    beforehand (its build is not timed; it returns no lse). Returns
-    {name: result dict}."""
+    beforehand (its build is not timed; it returns no lse), and in fp32
+    the same on both clocks (:func:`k4_fp32_times`). Returns {name:
+    result dict}."""
     import torch
     import torch.nn.functional as F
     af = importlib.import_module("modaltune_tpu_torch.ops.alibi_flash")
@@ -2095,6 +2186,9 @@ def phase_k4(device, shapes=K4_SHAPES, iters=10):
             err_o, err_l, got_o, got_l = k4_forward_errors(
                 af, tensors, chunk, out_tol, lse_tol, tag)
             res[str(dtype)[6:]] = dict(out_err=err_o, lse_err=err_l)
+            if dtype == torch.float32:
+                del got_o, got_l
+                res["fp32"] = k4_fp32_times(af, tensors, chunk)
             if dtype == torch.bfloat16:
                 again = af.alibi_flash_attention_cuda(
                     q, k, v, coords3, slopes, key_mask, scale)
@@ -2153,6 +2247,9 @@ def phase_k4(device, shapes=K4_SHAPES, iters=10):
               f"({res['bound_by']})", flush=True)
         print(f"K4 {name}: kernel / library = "
               f"{res['ms'] / res['library_ms']:.3f}", flush=True)
+        print(fmt_fp32_times(f"K4 {name} B={b} H={h} N={n} D={d}",
+                             res["fp32"]) + f", 3xTF32 bound "
+              f"{res['fp32']['tf32x3_bound_ms']:.5f} ms", flush=True)
         results[name] = res
     return results
 
@@ -2206,8 +2303,9 @@ def phase_k4b(device, shapes=K4_SHAPES, iters=10):
     fp32 and bf16, whole or slice by slice, in bf16 also on a mask with
     dead key tiles between live ones, and two runs bit-equal; times in
     bf16 of the kernel, the plain version and autograd through one
-    ``scaled_dot_product_attention`` call with the dense bias. Returns
-    {name: result dict}."""
+    ``scaled_dot_product_attention`` call with the dense bias, and in fp32
+    the same on both clocks (:func:`k4_fp32_times`). Returns {name: result
+    dict}."""
     import torch
     import torch.nn.functional as F
     af = importlib.import_module("modaltune_tpu_torch.ops.alibi_flash")
@@ -2225,6 +2323,9 @@ def phase_k4b(device, shapes=K4_SHAPES, iters=10):
                 time_plain=dtype == torch.bfloat16)
             res[dt], res[dt + "_bound"] = r["err"], r["bound"]
             res[dt + "_rel"], res[dt + "_row"] = r["rel"], r["row"]
+            if dtype == torch.float32:
+                del got
+                res["fp32"] = k4_fp32_times(af, tensors, chunk, (out, lse))
             if dtype == torch.bfloat16:
                 def kernel():
                     return af.alibi_flash_attention_backward_cuda(
@@ -2271,6 +2372,9 @@ def phase_k4b(device, shapes=K4_SHAPES, iters=10):
               f"{res['bound_ms']:.5f} ms ({res['bound_by']})", flush=True)
         print(f"K4b {name}: kernel / library = "
               f"{res['ms'] / res['library_ms']:.3f}", flush=True)
+        print(fmt_fp32_times(f"K4b {name} B={b} H={h} N={n} D={d}",
+                             res["fp32"]) + f", 3xTF32 bound "
+              f"{res['fp32']['tf32x3_bound_ms']:.5f} ms", flush=True)
         results[name] = res
     return results
 
@@ -2595,63 +2699,92 @@ def build_train(device, seed=0, frozen="bfloat16", **data_kw):
     return model, tcfg, opt, text, batch_to_device(host, device)
 
 
-def k2_call_readings(fn, tag):
+def k2_call_readings(fn, tag, dtype_name="bfloat16"):
     """``(fn(), readings)``: every K2f and K2b launch while ``fn()`` runs
     held to its plain version on the same inputs, computed in fp32 on the
-    same bf16 values (the plain versions turn autocast off, which the
+    same values (the plain versions turn autocast off, which the bf16
     train step's forward runs under): out by :func:`check_out`, lse
     within :data:`K2_LSE_LIMIT`, dq, dk and dv by :func:`check_grads`, at
-    the bf16 limits. readings: by family, the launches and the worst
-    (rel-L2, row-scaled) of out and of the gradients, and lse's largest
-    max|err|."""
+    the limits of ``dtype_name`` (the step's: bf16, or fp32 for an fp32
+    backbone, whose D = 48 calls run the 3xTF32 family, not wgmma). At
+    fp32 the plain version runs in fp64: on an fp32 step's inputs the
+    gradient of some rows nearly cancels (dP close to delta, dS = P (dP -
+    delta) small), and there the plain version's own fp32 rounding reads
+    most of the fp32 row-scaled limit it would hold the kernel to; its
+    fp32 evaluation's readings against the fp64 one are printed beside the
+    kernel's (``plain_out``, ``plain_grads``). readings: by family, the
+    launches and the worst (rel-L2, row-scaled) of out and of the
+    gradients, and lse's largest max|err|."""
+    import torch
     fa = importlib.import_module(COUNTERS["K2f"][0])
     fwd, bwd = fa.flash_attention_cuda, fa.flash_attention_backward_cuda
+    exact = torch.float64 if dtype_name == "float32" else torch.float32
     seen = {}
 
     def note(q, k, key, r):
         fam = fa.card_family(q.shape[1], k.shape[1], q.shape[2], q.dtype)
         got = seen.setdefault(fam, dict(fwd=0, bwd=0, out=(0.0, 0.0),
-                                        grads=(0.0, 0.0), lse=0.0))
+                                        grads=(0.0, 0.0), lse=0.0,
+                                        plain_out=(0.0, 0.0),
+                                        plain_grads=(0.0, 0.0)))
         if key == "lse":
             got["lse"] = max(got["lse"], r)
             return
         got[key] = tuple(map(max, got[key], r))
-        got["fwd" if key == "out" else "bwd"] += 1
+        if key in ("out", "grads"):
+            got["fwd" if key == "out" else "bwd"] += 1
 
     def fwd_read(q, k, v, bias, scale):
         out, lse = fwd(q, k, v, bias, scale)
         want_o, want_l = fa.flash_attention_reference(
-            q.float(), k.float(), v.float(), bias, scale)
+            q.to(exact), k.to(exact), v.to(exact), bias, scale)
         what = f"{tag}: K2f {tuple(q.shape)} x {k.shape[1]} keys"
-        note(q, k, "out", check_out(out, want_o, "bfloat16", what))
+        note(q, k, "out", check_out(out, want_o, dtype_name, what))
         err = (lse - want_l).abs().max().item()
         check(err <= K2_LSE_LIMIT, f"{what} lse: max|err| {err:.3e}")
         note(q, k, "lse", err)
+        if exact == torch.float64:
+            plain = fa.flash_attention_reference(q, k, v, bias, scale)[0]
+            note(q, k, "plain_out", grad_readings(plain, want_o, want_o))
         return out, lse
 
     def bwd_read(q, k, v, bias, out, lse, dout, scale):
         got = bwd(q, k, v, bias, out, lse, dout, scale)
         want = fa.flash_attention_backward_reference(
-            q.float(), k.float(), v.float(), bias, out.float(), lse,
-            dout.float(), scale)
+            q.to(exact), k.to(exact), v.to(exact), bias, out.to(exact), lse,
+            dout.to(exact), scale)
         note(q, k, "grads", check_grads(
-            ("dq", "dk", "dv"), got, want, dout, "bfloat16",
+            ("dq", "dk", "dv"), got, want, dout, dtype_name,
             f"{tag}: K2b {tuple(q.shape)} x {k.shape[1]} keys"))
+        if exact == torch.float64:
+            plain = fa.flash_attention_backward_reference(
+                q, k, v, bias, out, lse, dout, scale)
+            for p_, w_ in zip(plain, want):
+                note(q, k, "plain_grads", grad_readings(p_, w_, dout))
         return got
 
     with mock.patch.object(fa, "flash_attention_cuda", fwd_read), \
             mock.patch.object(fa, "flash_attention_backward_cuda", bwd_read):
         result = fn()
-    w = seen.get("wgmma", {})
+    wide = "wgmma" if dtype_name == "bfloat16" else "tf32x3"
+    w = seen.get(wide, {})
     check(w.get("fwd", 0) > 0 and w.get("bwd", 0) > 0,
-          f"{tag}: no wgmma K2 launch to hold in the grad step")
+          f"{tag}: no {wide} K2 launch to hold in the grad step")
     for fam, r in seen.items():
-        print(f"{tag}: the bf16 grad step's {fam} K2 launches held to the "
-              f"plain version on the same inputs: {r['fwd']} K2f, worst "
-              f"out rel-L2 {r['out'][0]:.3e}, "
+        print(f"{tag}: the {dtype_name} grad step's {fam} K2 launches held "
+              f"to the plain version on the same inputs"
+              f"{' in fp64' if exact == torch.float64 else ''}: {r['fwd']} "
+              f"K2f, worst out rel-L2 {r['out'][0]:.3e}, "
               f"row-scaled {r['out'][1]:.3e}, lse max|err| {r['lse']:.3e}; "
               f"{r['bwd']} K2b, worst gradient rel-L2 {r['grads'][0]:.3e}, "
               f"row-scaled {r['grads'][1]:.3e}", flush=True)
+        if exact == torch.float64:
+            print(f"{tag}: beside them the plain version in fp32 against "
+                  f"itself in fp64 on the same {fam} calls: worst out rel-L2 "
+                  f"{r['plain_out'][0]:.3e}, row-scaled "
+                  f"{r['plain_out'][1]:.3e}; worst gradient rel-L2 "
+                  f"{r['plain_grads'][0]:.3e}, row-scaled "
+                  f"{r['plain_grads'][1]:.3e}", flush=True)
     return result, seen
 
 
@@ -2893,26 +3026,41 @@ def k5_fp32_readings(device, shape=(30720, 3072), eps=1e-5, iters=10):
 
 
 def phase_train_fp32(device, bf16, card="", build_kw=None,
-                     fused_kw=None):
+                     fused_kw=None, branch_bf16=None):
     """The ``--bf16 0`` user's step: the train step at 10,239 under
     ``"flash"`` with the frozen backbone in fp32 (no autocast), on the
-    kernels alone, on the default route and on the fused route
-    (``mega_attention=False`` with the fused GELU -> LayerNorm):
-    :func:`drive_train`'s checked and timed steps (every K1f and K1b, or
-    K3f and K3b, on the 3xTF32 family, every K2 on the fp32 short-side
-    family, 3xTF32 too, K5 on the generic kernels), the generic K5 kernels
-    held to their plain versions at the step's FFN shape
-    (:func:`k5_fp32_readings`);
-    each step's ms/step and peak printed beside the bf16 step's (``bf16``,
-    :func:`phase_train`'s result). Returns both paths' results."""
+    kernels alone, on the default route, on the fused route
+    (``mega_attention=False`` with the fused GELU -> LayerNorm) and on the
+    per-branch route (``fused_attention=False``, the CLI's
+    ``--fused_attention 0 --bf16 0``): :func:`drive_train`'s checked and
+    timed steps (every K1f and K1b, or K3f and K3b, on the 3xTF32 family;
+    every K2 at D = 48 on K2's 3xTF32 family ``tf32x3`` and every adapter
+    K2 on the fp32 short-side family, 3xTF32 too, none on the CUDA cores;
+    K5 on the generic kernels), the generic K5 kernels held to their plain
+    versions at the step's FFN shape (:func:`k5_fp32_readings`), and on
+    the per-branch route every K2 launch of one grad step at 10,239 held
+    to its plain version on the same inputs at the fp32 limits
+    (:func:`k2_call_readings`); each step's ms/step and peak printed
+    beside the bf16 step's (``bf16``, :func:`phase_train`'s result; on the
+    per-branch route ``branch_bf16``, that route's, where given).
+    Returns the three paths' results."""
     import torch
+    from modaltune_tpu_torch import make_grad_step
     out = {}
     for tag, kw, pair in (("fp32 train", build_kw or GIGAPATH, ("K1f", "K1b")),
                           ("fused fp32 train", fused_kw or GIGAPATH_FUSED,
-                           ("K3f", "K3b"))):
+                           ("K3f", "K3b")),
+                          ("branch fp32 train", GIGAPATH_BRANCH, ())):
         model, tcfg, opt, text, batch = timed_build(
             device, tag, dict(kw, frozen="float32"))
         res = drive_train(device, model, tcfg, opt, text, batch, tag, card)
+        if not pair:   # the per-branch route: every K2 of a grad step held
+            def grad_step():
+                gen = torch.Generator(device=device).manual_seed(2)
+                loss = make_grad_step(model, tcfg)(batch, text, gen)[0]
+                torch.cuda.synchronize()
+                return float(loss)
+            _, res["k2_calls"] = k2_call_readings(grad_step, tag, "float32")
         del model, opt, batch
         torch.cuda.empty_cache()
         check(all(res["families"][key]["tf32x3"] == res["launches"][key] > 0
@@ -2921,11 +3069,12 @@ def phase_train_fp32(device, bf16, card="", build_kw=None,
               f"all on the 3xTF32 family")
         if res["launches"]["K5f"]:
             res["k5_fp32"] = k5_fp32_readings(device)
+        ref = branch_bf16 if not pair and branch_bf16 else bf16
         print(f"{tag}: {res['ms']:.2f} ms/step, peak "
               f"{res['peak_bytes'] / 2**30:.3f} GiB, against the bf16 step's "
-              f"{bf16['ms']:.2f} ms/step, "
-              f"{bf16['peak_bytes'] / 2**30:.3f} GiB "
-              f"({res['ms'] / bf16['ms']:.2f}x); {card}", flush=True)
+              f"{ref['ms']:.2f} ms/step, "
+              f"{ref['peak_bytes'] / 2**30:.3f} GiB "
+              f"({res['ms'] / ref['ms']:.2f}x); {card}", flush=True)
         out[tag] = res
     return out
 
@@ -5387,11 +5536,12 @@ def main() -> int:
               f"{sum(1 for x in spills if x)} spill, at most {max(spills)} "
               f"bytes of spill loads")
     # K2's wgmma kernels (namespace mt::fwg), the 3xTF32 dilated core
-    # (mt::dtf) and K2's fp32 short-side kernels (mt::sst, printed at the
-    # adapter's 65 resident rows, ILi5E) one by one: none may spill
+    # (mt::dtf), K2's 3xTF32 kernels at D = 48 (mt::ftf) and its fp32
+    # short-side kernels (mt::sst, printed at the adapter's 65 resident
+    # rows, ILi5E) one by one: none may spill
     for block in info["log"].split("Compiling entry function")[1:]:
         name = block.split("'")[1]
-        if not any(ns in name for ns in ("3fwg", "3dtf", "3sst")):
+        if not any(ns in name for ns in ("3fwg", "3dtf", "3ftf", "3sst")):
             continue
         used = re.search(r"Used (\d+) registers", block).group(1)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -5445,11 +5595,13 @@ def main() -> int:
     paths["gigapath_branch_train"] = phase_train(
         device, card=card, build_kw=GIGAPATH_BRANCH, compare_kw=GIGAPATH_2047,
         tag="branch train", k2_calls=True)
-    # the --bf16 0 user's step: the default and the fused route with an
-    # fp32 backbone (K1, K3 and the adapter's K2 on 3xTF32 families)
-    fp32 = phase_train_fp32(device, paths["gigapath_train"], card=card)
+    # the --bf16 0 user's step: the default, the fused and the per-branch
+    # route with an fp32 backbone (K1, K3 and K2 on 3xTF32 families)
+    fp32 = phase_train_fp32(device, paths["gigapath_train"], card=card,
+                            branch_bf16=paths["gigapath_branch_train"])
     paths["gigapath_fp32_train"] = fp32["fp32 train"]
     paths["gigapath_fused_fp32_train"] = fp32["fused fp32 train"]
+    paths["gigapath_branch_fp32_train"] = fp32["branch fp32 train"]
     lap("GigaPath embed and train steps, three routes, the fp32 step")
     # ModalTune-TITAN: the embed step, the train step
     paths["titan_embed"] = phase_slice(
@@ -5635,6 +5787,15 @@ def main() -> int:
             out["launches_by_family"] = {
                 fam: sum(r["k2_families"][side][fam] for r in paths.values()
                          if "k2_families" in r) for fam in sources}
+            # the CUDA-core kernels, which no path launches, held and
+            # timed at a shape of their own instead
+            held = {r[f] for r in by_shape.values()
+                    for f in ("family", "fp32_family")}
+            check(all(out["launches_by_family"][fam] > 0 or
+                      (fam == "cuda_cores" and fam in held)
+                      for fam in sources),
+                  f"{name}: a family launched on no path and not held at a "
+                  f"shape of its own: {out['launches_by_family']}")
         if by_shape:
             out["by_shape"] = {
                 shape: {k: r.get(k) for k in ("ms", "plain_ms", "bound_ms",
@@ -5654,7 +5815,8 @@ def main() -> int:
                 "short_queries": f"flash_short_side_{side}",
                 "wgmma": f"flash_wgmma_{side}",
                 "short_keys_tf32": f"flash_short_side_tf32_{side}",
-                "short_queries_tf32": f"flash_short_side_tf32_{side}"}
+                "short_queries_tf32": f"flash_short_side_tf32_{side}",
+                "tf32x3": f"flash_tf32_{side}"}
 
     both = ("float32", "bfloat16")
 
@@ -5692,8 +5854,9 @@ def main() -> int:
                source="dilated_bwd_wgmma"),
         # the adapter's calls run the short-side family (bf16, D = 16; at
         # fp32 its 3xTF32 sibling, flash_short_side_tf32_*.cu), the
-        # per-branch route's the wgmma family (bf16, D = 48); fp32 at
-        # D = 48 the CUDA-core kernels of `name`.cu
+        # per-branch route's the wgmma family (bf16, D = 48; at fp32 the
+        # 3xTF32 family, flash_tf32_*.cu); other D the CUDA-core kernels of
+        # `name`.cu
         kernel("K2f", "flash_attention_fwd",
                "modaltune_tpu/ops/flash_attention.py:155",
                k2["extractor"], k2, source="flash_short_side_fwd",

@@ -56,17 +56,6 @@
 namespace mt {
 namespace dtf {
 
-// Shared memory, in floats: the two own tiles, then the ring; a stage is
-// two tiles and three planes of per-row terms.
-struct Smem {
-  static constexpr int kRing = 2 * kTileFloats;
-  static constexpr int kTerms = 2 * kTileFloats;
-  static constexpr int kStageFloats = kTerms + 3 * kTile;
-  static constexpr size_t bytes = sizeof(float) * (kRing + kStages * kStageFloats);
-  static_assert(kStageFloats % 4 == 0 && kStride % 4 == 0, "16-byte rows and stages");
-  static_assert(2 * bytes <= 232448, "two blocks an SM");
-};
-
 // acc1 += X1 B and acc2 += X2 B on one load of B's fragments.
 __device__ __forceinline__ void product2(float (&acc1)[24], const float (&x1)[16],
                                          float (&acc2)[24], const float (&x2)[16],

@@ -47,17 +47,6 @@
 namespace mt {
 namespace dtf {
 
-// Shared memory of the forward core, in floats: the own q tile, then the
-// ring; a stage is a key tile's k and v and its keys' terms.
-struct FwdSmem {
-  static constexpr int kRing = kTileFloats;
-  static constexpr int kTerms = 2 * kTileFloats;
-  static constexpr int kStageFloats = kTerms + kTile;
-  static constexpr size_t bytes = sizeof(float) * (kRing + kStages * kStageFloats);
-  static_assert(kStageFloats % 4 == 0, "16-byte stages");
-  static_assert(2 * bytes <= 232448, "two blocks an SM");
-};
-
 __global__ void __launch_bounds__(kThreads, 2)
 dilated_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const unsigned char* __restrict__ mask,
@@ -110,15 +99,9 @@ dilated_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k
     __syncthreads();
     const float* st = ring + stage * FwdSmem::kStageFloats;
 #pragma unroll 1
-    for (int h = 0; h < kTile; h += kHalf) {   // keys [h, h + 32) of the tile
-      float s[16];
-#pragma unroll
-      for (int i = 0; i < 16; ++i) s[i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kD / 8; ++kk) scores_step(s, qf[kk], st + h * kStride, kk, ln);
-      dwg::online_softmax(s, o, m_run, l_run, st + FwdSmem::kTerms + h, scale2, ln);
-      product(o, s, st + kTileFloats + h * kStride, ln);        // O += P v
-    }
+    for (int h = 0; h < kTile; h += kHalf)   // keys [h, h + 32) of the tile
+      attend_half(o, m_run, l_run, qf, st + h * kStride, st + kTileFloats + h * kStride,
+                  st + FwdSmem::kTerms + h, scale2, ln);
     t = next;
   }
   cp_async_wait<0>();

@@ -1,7 +1,10 @@
-// The device frame of the 3xTF32 dilated attention cores at fp32, D = 48
-// (dilated_fwd_tf32.cu, dilated_bwd_tf32.cu): fp32 compact 64-row tiles in
-// shared memory, their gather, products at fp32 accuracy on the TF32 tensor
-// cores, and the stream of a group's live key tiles.
+// The device frame of the 3xTF32 attention cores at fp32, D = 48: the
+// dilated attention's (dilated_fwd_tf32.cu, dilated_bwd_tf32.cu) and the
+// key-bias flash attention's (flash_tf32.cuh, on contiguous rows): fp32
+// 64-row tiles in shared memory, the dilated cores' gather of compact rows,
+// products at fp32 accuracy on the TF32 tensor cores, the forward's
+// half-tile step, the shared-memory layouts, and the stream of a group's
+// live key tiles.
 //
 // * 3xTF32 (tf32x3.cuh, shared with the fp32 short-side flash attention):
 //   an fp32 operand x is split into hi and lo TF32 parts and a product is
@@ -126,6 +129,48 @@ __device__ __forceinline__ void product(float (&acc)[24], const float (&x)[16], 
     row_pair(b, j, m, ln, bh, bl);
   });
 }
+
+// One half of a forward stage (keys [h, h + 32) of a key tile): S = q k^T
+// from the own rows' split fragments qf and the 32 k rows at kt, the online
+// softmax of the thread's two rows in registers (dwg::online_softmax, the
+// keys' base-2 terms at terms), then O += P v from the 32 v rows at vt.
+__device__ __forceinline__ void attend_half(float (&o)[24], float (&m_run)[2], float (&l_run)[2],
+                                            const Frag (&qf)[kD / 8], const float* kt,
+                                            const float* vt, const float* terms, float scale2,
+                                            const wg::Lane& ln) {
+  float s[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kD / 8; ++kk) scores_step(s, qf[kk], kt, kk, ln);
+  dwg::online_softmax(s, o, m_run, l_run, terms, scale2, ln);
+  product(o, s, vt, ln);   // O += P v
+}
+
+// ---- shared memory ----------------------------------------------------------
+
+// The forward cores, in floats: the own q tile, then the ring; a stage is a
+// key tile's k and v and its keys' terms. 67,072 bytes, two blocks an SM.
+struct FwdSmem {
+  static constexpr int kRing = kTileFloats;
+  static constexpr int kTerms = 2 * kTileFloats;
+  static constexpr int kStageFloats = kTerms + kTile;
+  static constexpr size_t bytes = sizeof(float) * (kRing + kStages * kStageFloats);
+  static_assert(kStageFloats % 4 == 0, "16-byte stages");
+  static_assert(2 * bytes <= 232448, "two blocks an SM");
+};
+
+// The gradient cores, in floats: the two own tiles, then the ring; a stage
+// is two tiles and three planes of per-row terms. 81,408 bytes, two blocks
+// an SM.
+struct Smem {
+  static constexpr int kRing = 2 * kTileFloats;
+  static constexpr int kTerms = 2 * kTileFloats;
+  static constexpr int kStageFloats = kTerms + 3 * kTile;
+  static constexpr size_t bytes = sizeof(float) * (kRing + kStages * kStageFloats);
+  static_assert(kStageFloats % 4 == 0 && kStride % 4 == 0, "16-byte rows and stages");
+  static_assert(2 * bytes <= 232448, "two blocks an SM");
+};
 
 // ---- the streams ------------------------------------------------------------
 

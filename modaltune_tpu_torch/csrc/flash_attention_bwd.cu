@@ -26,13 +26,14 @@
 // most 128 rows) do not come here: the entry point below hands them to the
 // short-side families (bf16: flash_short_side_bwd.cu, fp32 on 3xTF32:
 // flash_short_side_tf32_bwd.cu), which split the long side over the card,
-// make delta themselves and run their products on the tensor cores; bf16 at
-// D = 48 (the per-branch dilated attention) goes to the wgmma family
-// (flash_wgmma_bwd.cu). This file serves every other shape: fp32 at D = 48
-// (the per-branch route under an fp32 backbone) and at other D, and both
-// sides longer than 128.
+// make delta themselves and run their products on the tensor cores; D = 48
+// (the per-branch dilated attention) goes to the wgmma family in bf16
+// (flash_wgmma_bwd.cu) and to the 3xTF32 family in fp32
+// (flash_tf32_bwd.cu). This file serves every other shape: other D, and
+// both sides longer than 128 at D = 16.
 #include "attention_bwd_common.cuh"
 #include "flash_short_side_tf32.cuh"
+#include "flash_tf32.cuh"
 #include "flash_wgmma.cuh"
 
 namespace mt {
@@ -176,7 +177,9 @@ cudaError_t dispatch_flash_bwd(int DP, const void* q, const void* k, const void*
 // short-side families (bf16 and fp32) read out, make delta themselves, and
 // take chunks and the fp32 scratch `work` that the wrapper sizes
 // (ops/flash_attention.py); the
-// wgmma family reads out and makes delta into `work`, (BH, Lq) floats.
+// wgmma family reads out and makes delta into `work`, (BH, Lq) floats; the
+// 3xTF32 family writes vbar of every bh and then delta into `work`, (BH,
+// 48) and (BH, Lq) floats.
 // Returns a cudaError_t; 0 means every kernel was launched.
 extern "C" int mt_flash_attention_bwd(const void* q, const void* k, const void* v,
                                       const void* bias, const void* dout, const void* out,
@@ -196,6 +199,12 @@ extern "C" int mt_flash_attention_bwd(const void* q, const void* k, const void* 
         static_cast<const bf16*>(dout), static_cast<const bf16*>(out), l,
         static_cast<float*>(work), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
         static_cast<bf16*>(dv), BH, Lq, Lk, scale, s);
+  if (fam == mt::ss::kTf32x3)
+    return mt::launch_flash_tf32_bwd(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        b, static_cast<const float*>(dout), static_cast<const float*>(out), l,
+        static_cast<float*>(work), static_cast<float*>(dq), static_cast<float*>(dk),
+        static_cast<float*>(dv), BH, Lq, Lk, scale, s);
   if (fam == mt::ss::kShortKeysTf32 || fam == mt::ss::kShortQueriesTf32)
     return mt::sst::launch_bwd(fam, static_cast<const float*>(q), static_cast<const float*>(k),
                                static_cast<const float*>(v), b, static_cast<const float*>(dout),

@@ -28,12 +28,13 @@
 // most 128 rows) do not come here: the entry point below hands them to the
 // short-side families (bf16: flash_short_side_fwd.cu, fp32 on 3xTF32:
 // flash_short_side_tf32_fwd.cu), which split the long side over the card and
-// run their products on the tensor cores; bf16 at D = 48 (the per-branch
-// dilated attention) goes to the wgmma family (flash_wgmma_fwd.cu). This
-// file serves every other shape: fp32 at D = 48 (the per-branch route under
-// an fp32 backbone) and at other D, and both sides longer than 128.
+// run their products on the tensor cores; D = 48 (the per-branch dilated
+// attention) goes to the wgmma family in bf16 (flash_wgmma_fwd.cu) and to
+// the 3xTF32 family in fp32 (flash_tf32_fwd.cu). This file serves every
+// other shape: other D, and both sides longer than 128 at D = 16.
 #include "attention_common.cuh"
 #include "flash_short_side_tf32.cuh"
+#include "flash_tf32.cuh"
 #include "flash_wgmma.cuh"
 
 namespace mt {
@@ -120,7 +121,8 @@ extern "C" const char* mt_error_name(int err) {
 // Which kernels serve a call (mt::ss::Family): 0 the CUDA-core kernels of
 // this file, 1 short keys, 2 short queries, 3 the wgmma family
 // (flash_wgmma.cuh), 4 and 5 short keys and short queries at fp32
-// (flash_short_side_tf32.cuh).
+// (flash_short_side_tf32.cuh), 6 the 3xTF32 family at D = 48
+// (flash_tf32.cuh).
 extern "C" int mt_flash_attention_family(int Lq, int Lk, int D, int dtype) {
   return mt::ss::family(Lq, Lk, D, dtype);
 }
@@ -145,6 +147,10 @@ extern "C" int mt_flash_attention_fwd(const void* q, const void* k, const void* 
     return mt::launch_flash_wgmma_fwd(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                                       static_cast<const bf16*>(v), b, static_cast<bf16*>(out), l,
                                       BH, Lq, Lk, scale, s);
+  if (fam == mt::ss::kTf32x3)
+    return mt::launch_flash_tf32_fwd(static_cast<const float*>(q), static_cast<const float*>(k),
+                                     static_cast<const float*>(v), b, static_cast<float*>(out), l,
+                                     BH, Lq, Lk, scale, s);
   if (fam == mt::ss::kShortKeysTf32 || fam == mt::ss::kShortQueriesTf32)
     return mt::sst::launch_fwd(fam, static_cast<const float*>(q), static_cast<const float*>(k),
                                static_cast<const float*>(v), b, static_cast<float*>(out), l, BH,

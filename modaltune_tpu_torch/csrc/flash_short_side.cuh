@@ -60,29 +60,32 @@ constexpr int kWarps = 4;                       // except the short-queries forw
 constexpr float kLowerLse = 5e8f;               // +|NEG_INF/2|: P of a row without a valid key is 0
 
 // The fp32 short-side family (*Tf32) runs flash_short_side_tf32.cuh's
-// kernels on the TF32 tensor cores (3xTF32) with this plan.
+// kernels on the TF32 tensor cores (3xTF32) with this plan; kTf32x3 is the
+// fp32 sibling of the wgmma family at D = 48 (flash_tf32.cuh).
 enum Family {
   kCudaCores = 0,
   kShortKeys = 1,
   kShortQueries = 2,
   kWgmma = 3,
   kShortKeysTf32 = 4,
-  kShortQueriesTf32 = 5
+  kShortQueriesTf32 = 5,
+  kTf32x3 = 6
 };
 
 // The head dimension of the wgmma family (flash_wgmma.cuh), GigaPath's: every
 // call of the per-branch dilated attention.
 constexpr int kWgmmaD = 48;
 
-// Which kernels serve a call. dtype: 0 float32, 1 bfloat16. bf16 at D = 48
-// takes the wgmma family at every Lq and Lk; D = 16 with a short side the
-// short-side kernels (bf16 on mma.sync bf16, fp32 on 3xTF32), both sides
-// short (the prompt self-attention) the short-keys ones; everything else
-// (fp32 at D = 48, other D, both sides long) the CUDA cores. The wrapper
-// asks this rule (mt_flash_attention_family); ops/flash_attention.py::family
-// is its copy for the CPU.
+// Which kernels serve a call. dtype: 0 float32, 1 bfloat16. D = 48 takes
+// the wgmma family (bf16) or the 3xTF32 family (fp32) at every Lq and Lk;
+// D = 16 with a short side the short-side kernels (bf16 on mma.sync bf16,
+// fp32 on 3xTF32), both sides short (the prompt self-attention) the
+// short-keys ones; everything else (other D, both sides long at D = 16) the
+// CUDA cores. The wrapper asks this rule (mt_flash_attention_family);
+// ops/flash_attention.py::family is its copy for the CPU.
 inline int family(int Lq, int Lk, int D, int dtype) {
   if (dtype == 1 && D == kWgmmaD) return kWgmma;
+  if (dtype == 0 && D == kWgmmaD) return kTf32x3;
   if ((dtype != 0 && dtype != 1) || D != kD) return kCudaCores;
   if (Lk <= kMaxShort) return dtype == 0 ? kShortKeysTf32 : kShortKeys;
   if (Lq <= kMaxShort) return dtype == 0 ? kShortQueriesTf32 : kShortQueries;

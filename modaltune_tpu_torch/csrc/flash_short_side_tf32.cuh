@@ -81,14 +81,22 @@ __device__ __forceinline__ void load_tile(float* d, const float* src, int n) {
   }
 }
 
-// A resident side: rows [0, n) of a (.., 16) fp32 array into `rows` rows of
-// TF32 hi and lo planes (kStride words a row), zeros past n.
+// A resident side: rows [0, n) of a (.., 16) fp32 array, less the 16-float
+// row `shift` where given, into `rows` rows of TF32 hi and lo planes
+// (kStride words a row), zeros past n.
 __device__ __forceinline__ void split_resident(uint32_t* hi, uint32_t* lo, const float* src,
-                                               int n, int rows) {
+                                               int n, int rows,
+                                               const float* shift = nullptr) {
   for (int c = threadIdx.x; c < rows * kChunks; c += blockDim.x) {
     const int row = c / kChunks, ch = c % kChunks;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < n) x = reinterpret_cast<const float4*>(src)[c];
+    if (row < n) {
+      x = reinterpret_cast<const float4*>(src)[c];
+      if (shift != nullptr) {
+        const float4 m = reinterpret_cast<const float4*>(shift)[ch];
+        x = make_float4(x.x - m.x, x.y - m.y, x.z - m.z, x.w - m.w);
+      }
+    }
     uint4 h, l;
     split(x.x, h.x, l.x);
     split(x.y, h.y, l.y);

@@ -30,10 +30,11 @@
 // per chunk; flash_bwd_sum_kernel<float> adds the partials in chunk order
 // (no atomics). Every product is 3xTF32; products over the streamed tiles
 // or the resident rows sum 32 of their inner index a fresh fragment.
-// * Short keys (Injector): K and V are resident as TF32 hi and lo planes;
-//   the block streams tiles of q, dout and out; a warp takes delta, P and dS
-//   of 16 query rows against every key and stores their dq (dS k over the
-//   resident keys); P and dS go to shared memory in fp32, from which the
+// * Short keys (Injector): K and V are resident as TF32 hi and lo planes,
+//   V less vbar, the mean of the valid keys' v rows; the block streams tiles
+//   of q, dout and out; a warp takes delta, P and dS of 16 query rows
+//   against every key and stores their dq (dS k over the resident keys); P
+//   and dS go to shared memory in fp32, from which the
 //   warps add P^T dout and dS^T q of the tile (two fresh halves of 32
 //   queries) to the chunk's partial dv and dk, split over the warps by (dk
 //   or dv, 16 keys).
@@ -45,6 +46,16 @@
 //   add dS k of the tile (two fresh halves of 32 keys) to the chunk's
 //   partial dq, split over the warps by 16 queries. A chunk whose keys are
 //   all masked writes zero dk, dv and partial dq and skips its tiles.
+// * Short keys take dP - delta as dout.(v - vbar) - dout.(out - vbar): the
+//   same value for any vbar, since P sums to 1. On an fp32 train step's
+//   Injector the keys' v rows lie close together, so dP and delta agree to
+//   three or four digits and dS is what is left of their difference; the
+//   3xTF32 error of dP (about 2^-21 of |dout| |v|) then read 5.9e-5 of a
+//   dq row's scale against the plain version in fp64, past the fp32 limit
+//   (the plain version's own fp32 rounding read 3.1e-5 there; NVIDIA H100
+//   80GB HBM3, 700 W, k2_fp32_precision.py on chip_smoke.py's per-branch
+//   fp32 step). Less vbar, the products' error shrinks with |v - vbar|:
+//   7.5e-6 in that script's emulation on the same inputs.
 #include "flash_short_side_tf32.cuh"
 
 namespace mt {
@@ -80,7 +91,7 @@ __device__ __forceinline__ void transposed(float (&xr)[16], const float* x, int 
 }
 
 // Shared memory of the short-keys kernel, in 4-byte words: the K and V
-// planes (hi, lo), the key terms, the P and dS planes of a query tile
+// planes (hi, lo), the key terms, vbar, the P and dS planes of a query tile
 // ([query][key], PS floats a row), the ring of (q, dout, out) tiles, then
 // the chunk's rows' lse in base 2.
 template <int KT>
@@ -88,7 +99,8 @@ struct KeysBwdPlan {
   static constexpr int KP = KT * 16, PS = KP + 4;
   static constexpr int plane = KP * kStride;
   static constexpr int kadd = 4 * plane;
-  static constexpr int pds = kadd + KP;
+  static constexpr int vbar = kadd + KP;
+  static constexpr int pds = vbar + kD;
   static constexpr int stage = 3 * kTileFloats;
   static constexpr int ring = pds + 2 * kTile * PS;
   static constexpr int lrow = ring + kBwdStages * stage;
@@ -116,6 +128,7 @@ flash_bwd_short_keys_tf32_kernel(const float* __restrict__ q, const float* __res
   uint32_t* const vhi = klo + P::plane;
   uint32_t* const vlo = vhi + P::plane;
   float* const kadd = base + P::kadd;
+  float* const vbar = base + P::vbar;
   float* const pp = base + P::pds;   // P, [query][key]
   float* const dsp = pp + kTile * PS;  // dS
   float* const ring = base + P::ring;
@@ -139,10 +152,22 @@ flash_bwd_short_keys_tf32_kernel(const float* __restrict__ q, const float* __res
   for (int t = 0; t < kBwdStages - 1; ++t) issue(t);
 
   const size_t krow0 = static_cast<size_t>(bh) * Lk;
-  split_resident(khi, klo, k + krow0 * kD, Lk, KP);
-  split_resident(vhi, vlo, v + krow0 * kD, Lk, KP);
   const float* bb = bias == nullptr ? nullptr : bias + krow0;
   for (int j = threadIdx.x; j < KP; j += blockDim.x) kadd[j] = ss::key_term(bb, j, Lk, wg::kLog2e);
+  split_resident(khi, klo, k + krow0 * kD, Lk, KP);
+  __syncthreads();   // the key terms are in
+  if (threadIdx.x < kD) {   // vbar: the valid keys' mean v row (0 if none)
+    float sum = 0.f;
+    int n = 0;
+    for (int j = 0; j < Lk; ++j)
+      if (kadd[j] != -INFINITY) {
+        sum += v[(krow0 + j) * kD + threadIdx.x];
+        ++n;
+      }
+    vbar[threadIdx.x] = n > 0 ? sum / n : 0.f;
+  }
+  __syncthreads();
+  split_resident(vhi, vlo, v + krow0 * kD, Lk, KP, vbar);
   for (int i = threadIdx.x; i < ch.tiles * kTile; i += blockDim.x)
     lrow[i] = ss::lse2_for_bwd(lse + qrow0, ch.row0 + i, Lq);
 
@@ -156,16 +181,19 @@ flash_bwd_short_keys_tf32_kernel(const float* __restrict__ q, const float* __res
     const float* qt = ring + t % kBwdStages * P::stage;
     const float* dt = qt + kTileFloats;
     const float* ot = dt + kTileFloats;
-    // delta of the warp's two rows: each thread of a quad four columns
+    // delta = dout.(out - vbar) of the warp's two rows: each thread of a
+    // quad four columns
+    const float4 m = *reinterpret_cast<const float4*>(vbar + 4 * t4);
     float delta[2], lr[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const float4 a = *reinterpret_cast<const float4*>(dt + (rl + 8 * h) * kStride + 4 * t4);
       const float4 b = *reinterpret_cast<const float4*>(ot + (rl + 8 * h) * kStride + 4 * t4);
-      delta[h] = wg::quad_sum(fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, a.x * b.x))));
+      delta[h] = wg::quad_sum(
+          fmaf(a.w, b.w - m.w, fmaf(a.z, b.z - m.z, fmaf(a.y, b.y - m.y, a.x * (b.x - m.x)))));
       lr[h] = lrow[t * kTile + rl + 8 * h];
     }
-    // P and dS of the warp's 16 rows against every key
+    // P and dS of the warp's 16 rows against every key (dp = dout.(v - vbar))
     float s[8 * KT], dp[8 * KT];
     {
       const float* q16 = qt + 16 * warp * kStride;

@@ -2,7 +2,7 @@
 
 Counterpart of ``modaltune_tpu/ops/flash_attention.py``. A CUDA tensor
 goes to the hand-written Hopper kernels of K2f and, for the gradient, K2b,
-in one of three families that the C entry points choose from the shape and
+in one of four families that the C entry points choose from the shape and
 the dtype (:func:`card_family`; :func:`family` is its copy for the CPU):
 
 * the short-side families: head dimension 16 with one side of at most
@@ -22,12 +22,21 @@ the dtype (:func:`card_family`; :func:`family` is its copy for the CPU):
   tiles skipped, P rounded once to bf16 in the forward, P and dS as hi +
   lo bf16 parts in the backward, whose dq kernel makes delta into fp32
   scratch that this module allocates;
+* its fp32 sibling, the 3xTF32 family (``csrc/flash_tf32_{fwd,bwd}.cu``):
+  fp32 at head dimension 48, any Lq and Lk, which is every call of the
+  per-branch route under an fp32 backbone (the CLI's ``--bf16 0``): the
+  dilated 3xTF32 cores' frame on contiguous rows, every product as three
+  TF32 products on the tensor cores (fp32 accuracy), summed a half tile
+  at a time in fresh fragments, delta made by the dq kernel into fp32
+  scratch as in the wgmma family, dP - delta taken against v and out less
+  vbar, the valid keys' mean v row, which a first kernel writes there
+  (as the fp32 short-keys kernel takes it);
 * the CUDA-core kernels (``csrc/flash_attention_{fwd,bwd}.cu``) for every
-  other shape: fp32 at D = 48 (the per-branch route under an fp32
-  backbone) and at other D, bf16 at other D, both sides long.
+  other shape: other D in fp32 and bf16, both sides long at D = 16.
 
-The short-side and wgmma families read their tensors in 16-byte chunks and
-raise on one that is not 16-byte aligned. No family falls back to another.
+The short-side, wgmma and 3xTF32 families read their tensors in 16-byte
+chunks and raise on one that is not 16-byte aligned. No family falls back
+to another.
 
 A CPU tensor goes to :func:`flash_attention_reference` and
 :func:`flash_attention_backward_reference`, the plain PyTorch versions of
@@ -73,12 +82,13 @@ BLOCKS_PER_SM = 4
 MIN_CHUNK_TILES, MAX_CHUNK_TILES = 2, 64
 
 
-# The wgmma family (csrc/flash_wgmma.cuh): bf16 at this head dimension.
+# The wgmma family (csrc/flash_wgmma.cuh, bf16) and the 3xTF32 family
+# (csrc/flash_tf32.cuh, fp32): this head dimension.
 WGMMA_D = 48
 
 # csrc/flash_short_side.cuh::Family, by code
 FAMILIES = ("cuda_cores", "short_keys", "short_queries", "wgmma",
-            "short_keys_tf32", "short_queries_tf32")
+            "short_keys_tf32", "short_queries_tf32", "tf32x3")
 
 # The same launches by family, keyed by FAMILIES (read by chip_smoke.py).
 FAMILY_LAUNCHES = dict.fromkeys(FAMILIES, 0)
@@ -87,12 +97,12 @@ BWD_FAMILY_LAUNCHES = dict.fromkeys(FAMILIES, 0)
 
 def family(lq: int, lk: int, d: int, dtype: torch.dtype) -> str:
     """The kernels that serve a call: ``"wgmma"`` (bf16 at D =
-    :data:`WGMMA_D`, any Lq and Lk), ``"short_keys"`` (at most
-    :data:`SHORT_SIDE` keys, the Injector and the prompt self-attention),
-    ``"short_queries"`` (at most that many queries, the Extractor), both
-    bf16 at D = 16, ``"short_keys_tf32"`` and ``"short_queries_tf32"``
-    (the same sides in fp32 at D = 16), or ``"cuda_cores"`` (every other
-    shape: fp32 at D = 48, other D, both sides long).
+    :data:`WGMMA_D`, any Lq and Lk), ``"tf32x3"`` (fp32 there),
+    ``"short_keys"`` (at most :data:`SHORT_SIDE` keys, the Injector and
+    the prompt self-attention), ``"short_queries"`` (at most that many
+    queries, the Extractor), both bf16 at D = 16, ``"short_keys_tf32"``
+    and ``"short_queries_tf32"`` (the same sides in fp32 at D = 16), or
+    ``"cuda_cores"`` (every other shape: other D, both sides long).
 
     The C entry points own this rule (``csrc/flash_short_side.cuh::family``)
     and the card's calls ask them (:func:`card_family`). This copy serves
@@ -100,8 +110,8 @@ def family(lq: int, lk: int, d: int, dtype: torch.dtype) -> str:
     chunk plan's tests. ``tests/test_torch_kernels_cuda.py`` holds it equal
     to the library's on the card.
     """
-    if dtype == torch.bfloat16 and d == WGMMA_D:
-        return "wgmma"
+    if d == WGMMA_D and dtype in _DTYPE_CODES:
+        return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     if dtype in _DTYPE_CODES and d == SHORT_SIDE_D:
         tail = "_tf32" if dtype == torch.float32 else ""
         if lk <= SHORT_SIDE:
@@ -129,11 +139,15 @@ def workspace_floats(fam: str, backward: bool, bh: int, lq: int, lk: int,
     partials (acc, m, l of every (bh, chunk, padded query)), the short-side
     backward's partial dk and dv (short keys) or dq (short queries) of
     every (bh, chunk, padded resident row), the wgmma backward's delta of
-    every (bh, query); 0 where the family needs none. The fp32 short-side
-    family's scratch is the bf16 one's."""
+    every (bh, query), the 3xTF32 backward's vbar of every bh (the mean of
+    its valid keys' v rows, :data:`WGMMA_D` floats) and then that delta;
+    0 where the family needs none. The fp32 short-side family's scratch is
+    the bf16 one's."""
     fam = fam.removesuffix("_tf32")
     if fam == "wgmma":
         return bh * lq if backward else 0
+    if fam == "tf32x3":
+        return bh * (WGMMA_D + lq) if backward else 0
     if fam == "cuda_cores" or (fam == "short_keys" and not backward):
         return 0
     short = -(-(lk if fam == "short_keys" else lq) // 16) * 16
@@ -159,8 +173,9 @@ def _sm_count(index: int) -> int:
 def _plan(q, k, backward, tensors):
     """``(family, chunks, scratch or None)`` of a call on the card, the
     family as the C entry points choose it. The short-side families' bulk
-    copies or 16-byte ``cp.async`` and the wgmma family's 16-byte chunks
-    need 16-byte aligned ``tensors`` (q/k/v, dout/out, the gradients)."""
+    copies or 16-byte ``cp.async`` and the wgmma and 3xTF32 families'
+    16-byte chunks need 16-byte aligned ``tensors`` (q/k/v, dout/out, the
+    gradients)."""
     bh, lq, d = q.shape
     lk = k.shape[1]
     fam = card_family(lq, lk, d, q.dtype)
@@ -170,7 +185,7 @@ def _plan(q, k, backward, tensors):
         raise ValueError(f"the {fam} flash attention kernels take 16-byte "
                          f"aligned tensors")
     chunks = 0
-    if fam != "wgmma":
+    if fam.startswith("short"):
         long_len = lq if fam.startswith("short_keys") else lk
         chunks = long_side_chunks(bh, long_len,
                                   _sm_count(q.device.index or 0))
@@ -179,25 +194,32 @@ def _plan(q, k, backward, tensors):
     return fam, chunks, work
 
 
+def _compute_dtype(q: torch.Tensor) -> torch.dtype:
+    """fp32 for the plain versions' products, fp64 for fp64 inputs."""
+    return torch.float64 if q.dtype == torch.float64 else torch.float32
+
+
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               bias: Optional[torch.Tensor] = None,
                               scale: Optional[float] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch attention with the kernel's semantics, in fp32.
+    """Plain PyTorch attention with the kernel's semantics, in fp32 (in
+    fp64 for fp64 q, a more exact oracle for the fp32 kernels).
 
     ``q``: (BH, Lq, D); ``k``/``v``: (BH, Lk, D); ``bias``: (BH, Lk)
-    additive. Returns ``(out (BH, Lq, D) in q's dtype, lse (BH, Lq) fp32)``.
-    Out of place, so autograd differentiates ``out``; ``lse`` is detached.
-    Autocast is off inside, so the products stay in fp32 under the train
-    step's bf16 autocast too, as the JAX package's reference computes them
-    at HIGHEST precision.
+    additive. Returns ``(out (BH, Lq, D) in q's dtype, lse (BH, Lq) fp32 or
+    fp64)``. Out of place, so autograd differentiates ``out``; ``lse`` is
+    detached. Autocast is off inside, so the products stay in fp32 under
+    the train step's bf16 autocast too, as the JAX package's reference
+    computes them at HIGHEST precision.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    acc = _compute_dtype(q)
     with torch.autocast(q.device.type, enabled=False):
-        s = torch.bmm(q.float(), k.float().transpose(1, 2)) * scale
+        s = torch.bmm(q.to(acc), k.to(acc).transpose(1, 2)) * scale
         if bias is not None:
-            s = s + bias[:, None, :].float()
+            s = s + bias[:, None, :].to(acc)
         # the shift cancels in the softmax, so it carries no gradient
         m = s.detach().amax(dim=-1, keepdim=True)
         # With one valid key in a row, a masked key's exp(NEG_INF - m) is
@@ -205,7 +227,7 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.exp(s - m)
         live = m > MASK_THRESHOLD
         l_safe = torch.where(live, p.sum(dim=-1, keepdim=True), 1.0)
-        out = (torch.bmm(p, v.float()) / l_safe * live).to(q.dtype)
+        out = (torch.bmm(p, v.to(acc)) / l_safe * live).to(q.dtype)
         lse = torch.where(live[..., 0],
                           m[..., 0] + torch.log(l_safe[..., 0]), NEG_INF)
     return out, lse.detach()
@@ -221,19 +243,20 @@ def flash_attention_backward_reference(q, k, v, bias, out, lse, dout,
     ``dq = dS K scale``, ``dk = dS^T Q scale``, ``dv = P^T dout``. A row
     whose keys are all masked (lse ``NEG_INF``) takes ``+|NEG_INF/2|`` in
     lse's place, so its P underflows to 0. Returns ``(dq, dk, dv)`` in
-    the dtypes of q, k and v. In fp32 under autocast too, as
-    :func:`flash_attention_reference`.
+    the dtypes of q, k and v. In fp32 (fp64 for fp64 q) under autocast
+    too, as :func:`flash_attention_reference`.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    qf, kf, vf, do = q.float(), k.float(), v.float(), dout.float()
+    acc = _compute_dtype(q)
+    qf, kf, vf, do = (x.to(acc) for x in (q, k, v, dout))
     with torch.autocast(q.device.type, enabled=False):
-        delta = (do * out.float()).sum(dim=-1, keepdim=True)
+        delta = (do * out.to(acc)).sum(dim=-1, keepdim=True)
         s = torch.bmm(qf, kf.transpose(1, 2)) * scale
         if bias is not None:
-            s = s + bias[:, None, :].float()
+            s = s + bias[:, None, :].to(acc)
         lse_use = torch.where(lse > MASK_THRESHOLD, lse, -MASK_THRESHOLD)
-        p = torch.exp(s - lse_use[..., None])
+        p = torch.exp(s - lse_use[..., None].to(acc))
         if bias is not None:
             p = torch.where(bias[:, None, :] > MASK_THRESHOLD, p, 0.0)
         ds = p * (torch.bmm(do, vf.transpose(1, 2)) - delta)
@@ -269,9 +292,9 @@ def _check(q, k, v, bias):
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          bias: Optional[torch.Tensor], scale: float
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K2f on ``q``'s device and current stream: the wgmma family's
-    kernel, a short-side family's (and, for short queries, its combine)
-    or the CUDA-core kernel, as :func:`card_family` says."""
+    """Launch K2f on ``q``'s device and current stream: the wgmma or
+    3xTF32 family's kernel, a short-side family's (and, for short queries,
+    its combine) or the CUDA-core kernel, as :func:`card_family` says."""
     global LAUNCHES
     _check(q, k, v, bias)
     bh, lq, d = q.shape
@@ -295,9 +318,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_backward_cuda(q, k, v, bias, out, lse, dout, scale: float):
     """Launch the K2b kernels on ``q``'s device and current stream: the
-    wgmma family's dq and dk/dv kernels, or a short-side family's
-    gradient kernel and its fixed-order sum, which make ``delta =
-    rowsum(dout * out)`` themselves, or the CUDA-core dq and dk/dv
+    wgmma or 3xTF32 family's dq and dk/dv kernels, or a short-side
+    family's gradient kernel and its fixed-order sum, which make ``delta
+    = rowsum(dout * out)`` themselves, or the CUDA-core dq and dk/dv
     kernels, for which it is computed here in torch, as the JAX package
     computes it outside its Pallas kernels."""
     global BWD_LAUNCHES

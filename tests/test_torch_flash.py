@@ -13,10 +13,11 @@ is written out below in the order the card computes it:
   online softmax of every resident row over each chunk's keys into a
   partial (acc, m, l), a chunk without a valid key skipped, then the
   partials merged in chunk order;
-* the backward: delta made from the dout and out rows read, the resident
-  side's gradient complete, the long side's as a partial per chunk, the
-  partials added in chunk order, the scale applied where the kernels
-  apply it;
+* the backward: delta made from the dout and out rows read (in the fp32
+  family's short-keys kernel against v and out less vbar, the valid keys'
+  mean v row), the resident side's gradient complete, the long side's as
+  a partial per chunk, the partials added in chunk order, the scale
+  applied where the kernels apply it;
 * in bf16, P and dS entering every product that takes them as two bf16
   parts, hi = bf16(x) and lo = bf16(x - hi), and the results rounded to
   bf16.
@@ -33,6 +34,14 @@ attention's calls) likewise:
   over the live key tiles, the dk and dv of a key tile over every query
   tile (zeros for a tile without a valid key), P and dS as hi + lo bf16
   parts, the scale applied where the kernels apply it.
+
+``csrc/flash_tf32_{fwd,bwd}.cu`` (the 3xTF32 family: fp32 at D = 48, the
+per-branch route under an fp32 backbone) likewise: the same tiles and
+skipped key tiles, each stage in two halves of 32 keys (queries in the
+dk/dv kernel), every product as three TF32 products from hi + lo splits
+(P and dS included), a product over keys or queries summed a half at a
+time in a fresh fragment added to nearest, delta made in the dq pass, and
+dP - delta taken against v and out less vbar, the valid keys' mean v row.
 
 The same numpy inputs, made from a seed, go through the emulation, the
 port's plain versions (``flash_attention_reference`` and
@@ -235,9 +244,13 @@ def emulate_forward(q, k, v, bias, scale, chunks, rounding):
     return _round(out, rounding), lse, skipped
 
 
-def emulate_backward(q, k, v, bias, out, lse, dout, scale, chunks, rounding):
+def emulate_backward(q, k, v, bias, out, lse, dout, scale, chunks, rounding,
+                     center=True):
     """K2b's short-side kernels and their fixed-order sums, ``rounding`` as
-    :func:`emulate_forward`'s: (dq, dk, dv)."""
+    :func:`emulate_forward`'s: (dq, dk, dv). The fp32 family's short-keys
+    kernel takes dP - delta as dout.(v - vbar) - dout.(out - vbar), vbar
+    the mean of the valid keys' v rows (``center``; without it, as the
+    other families, dout.v - dout.out)."""
     bh, lq, d = q.shape
     lk = k.shape[1]
     scale2 = scale * LOG2E
@@ -247,8 +260,14 @@ def emulate_backward(q, k, v, bias, out, lse, dout, scale, chunks, rounding):
     dq, dk, dv = (torch.zeros(bh, n, d) for n in (lq, lk, lk))
     if lk <= SHORT_SIDE:                       # short keys
         kp = _pad16(lk)
-        kr, vr = _pad_rows(kf, kp), _pad_rows(vf, kp)
         kadd = _key_terms(bias, bh, lk, kp)
+        if rounding in TF32 and center:   # dout.(v - vbar) - dout.(out - vbar)
+            valid = (kadd[:, :lk] > -math.inf).float()[..., None]
+            vbar = (vf * valid).sum(dim=1, keepdim=True) / \
+                valid.sum(dim=1, keepdim=True).clamp_min(1.0)
+            vf = vf - vbar
+            delta = (dof * (out.float() - vbar)).sum(dim=-1)
+        kr, vr = _pad_rows(kf, kp), _pad_rows(vf, kp)
         for b in range(bh):
             dk_sum, dv_sum = torch.zeros(kp, d), torch.zeros(kp, d)
             for c in range(chunks):
@@ -559,6 +578,34 @@ def test_tf32x3_emulation_matches_jax_kernels_and_plain(name):
                                "float32", f"{name}, C = {chunks}")
 
 
+def test_tf32x3_short_keys_centering_holds_close_values():
+    """Where the keys' v rows lie close together, as on an fp32 train
+    step's Injector, dP and delta agree to a few digits and dq is what is
+    left of their difference: taken as dout.v - dout.out, 3xTF32's error of
+    dP (about 2^-21 of |dout| |v|) misses the fp32 row-scaled limit against
+    the plain version in fp64; less vbar, the fp32 family's short-keys
+    kernel holds it."""
+    rng = np.random.RandomState(5)
+    bh, lq, lk = 3, 300, 65
+    q, k = (rng.randn(bh, n, 16).astype(np.float32) for n in (lq, lk))
+    v = (rng.randn(bh, 1, 16) + 1e-3 * rng.randn(bh, lk, 16)).astype(
+        np.float32)
+    cot = rng.randn(bh, lq, 16).astype(np.float32)
+    tq, tk, tv, tcot = (_t(x) for x in (q, k, v, cot))
+    scale = 0.25
+    out, lse = flash_attention_reference(tq, tk, tv, None, scale)
+    want = flash_attention_backward_reference(
+        tq.double(), tk.double(), tv.double(), None, out.double(), lse,
+        tcot.double(), scale)
+    row_limit = chip_smoke.GRAD_LIMITS["float32"][1]
+    rows = {}
+    for center in (True, False):
+        dq = emulate_backward(tq, tk, tv, None, out, lse, tcot, scale, 1,
+                              "tf32x3", center=center)[0]
+        rows[center] = chip_smoke.grad_readings(dq, want[0], tcot)[1]
+    assert rows[True] <= row_limit < rows[False], rows
+
+
 @pytest.mark.parametrize("name", ["injector", "extractor", "prompt_sa"])
 def test_single_tf32_misses_the_fp32_limits(name):
     """One TF32 product (hi hi alone, about three decimal digits) misses
@@ -606,10 +653,10 @@ def test_tf32x3_emulation_masks_exactly(name):
 
 
 # (Lq, Lk, D, dtype) -> family: the adapter's five shapes, both sides
-# long, D = 48 in bf16 (wgmma at every Lq and Lk) and fp32 (the CUDA cores:
-# the per-branch route under an fp32 backbone), D = 32, and the short-side
-# domain's edge at 128 / 129 rows, in bf16 and in fp32 (the 3xTF32 family
-# at D = 16).
+# long, D = 48 in bf16 (wgmma at every Lq and Lk) and fp32 (the 3xTF32
+# family at every Lq and Lk: the per-branch route under an fp32 backbone),
+# D = 32 (the CUDA cores), and the short-side domain's edge at 128 / 129
+# rows, in bf16 and in fp32 (the 3xTF32 short-side family at D = 16).
 FAMILY_CASES = [
     (10239, 65, 16, torch.bfloat16, "short_keys"),
     (65, 10239, 16, torch.bfloat16, "short_queries"),
@@ -626,7 +673,7 @@ FAMILY_CASES = [
     (128, 300, 16, torch.float32, "short_queries_tf32"),
     (300, 129, 16, torch.float32, "cuda_cores"),
     (129, 300, 16, torch.float32, "cuda_cores"),
-    (10239, 65, 48, torch.float32, "cuda_cores"),
+    (10239, 65, 48, torch.float32, "tf32x3"),
     (10239, 65, 32, torch.float32, "cuda_cores"),
     (65, 10239, 48, torch.bfloat16, "wgmma"),
     (300, 128, 16, torch.bfloat16, "short_keys"),
@@ -638,8 +685,10 @@ FAMILY_CASES = [
     (2896, 2896, 48, torch.bfloat16, "wgmma"),
     (65, 65, 48, torch.bfloat16, "wgmma"),
     (1, 1, 48, torch.bfloat16, "wgmma"),
-    (2896, 2896, 48, torch.float32, "cuda_cores"),
+    (2896, 2896, 48, torch.float32, "tf32x3"),
     (640, 640, 32, torch.bfloat16, "cuda_cores"),
+    (65, 10239, 48, torch.float32, "tf32x3"),
+    (640, 640, 32, torch.float32, "cuda_cores"),
 ]
 
 
@@ -688,7 +737,8 @@ def test_tf32_workspace():
     short-queries forward's partials (acc 16, m and l of every (bh, chunk,
     query padded to 80)), the backward's partial dk and dv (short keys) or
     dq (short queries); a few MB at the adapter's shapes; the CUDA-core
-    family at fp32 takes none."""
+    family at fp32 takes none, the 3xTF32 family at D = 48 the backward's
+    vbar of every bh (48 floats) and delta of every (bh, query)."""
     for fam in ("short_keys", "short_queries"):
         for backward in (False, True):
             for lq, lk in ((10239, 65), (65, 10239), (65, 65), (300, 128),
@@ -704,6 +754,12 @@ def test_tf32_workspace():
     assert workspace_floats("short_queries_tf32", True, 36, 65, 10239,
                             15) == 36 * 15 * 80 * 16
     assert workspace_floats("cuda_cores", True, 96, 2896, 2896, 0) == 0
+    # the 3xTF32 family at D = 48: the backward's vbar, then its delta
+    assert workspace_floats("tf32x3", False, 96, 2896, 2896, 0) == 0
+    assert workspace_floats("tf32x3", True, 96, 2896, 2896, 0) == \
+        96 * (48 + 2896)
+    assert workspace_floats("tf32x3", True, 36, 65, 10239, 0) == \
+        36 * (48 + 65)
     for lq, lk in ((10239, 65), (65, 10239)):
         fam = family(lq, lk, 16, torch.float32)
         chunks = long_side_chunks(36, max(lq, lk), 132)
@@ -730,8 +786,8 @@ WGMMA_CASES = {
 }
 
 
-def _wgmma_case(name, seed=0):
-    bh, lq, lk, keys = WGMMA_CASES[name]
+def _wgmma_case(name, seed=0, cases=WGMMA_CASES):
+    bh, lq, lk, keys = cases[name]
     rng = np.random.RandomState(seed)
     q, k, v, cot = (rng.randn(bh, n, 48).astype(np.float32)
                     for n in (lq, lk, lk, lq))
@@ -820,6 +876,280 @@ def test_wgmma_emulation_masks_exactly(name):
     assert skipped == {"holes": 18, "dead_bh": 11, "finite_bias": 0}[name]
 
 
+def _rows64(x, r0, r1):
+    """Rows [r0, r1) of x, padded with zero rows to the 64 of a tile."""
+    tile = x[r0:r1]
+    return torch.cat([tile, tile.new_zeros(TILE - tile.shape[0],
+                                           *tile.shape[1:])])
+
+
+def _tf32x3_products(rounding):
+    """(score tile, fresh product) as the 3xTF32 family takes them: a
+    score tile over D = 48 in one accumulator from zero, a product over a
+    half (32 keys or queries) into a fresh fragment; fp32 products under
+    another ``rounding``."""
+    if rounding in TF32:
+        def scores(a, b):
+            return _product(torch.zeros(a.shape[0], b.shape[0]), a, b.T,
+                            rounding)
+
+        def fresh(x, b):
+            return _product(torch.zeros(x.shape[0], b.shape[1]), x, b,
+                            rounding)
+        return scores, fresh
+    return (lambda a, b: a @ b.T), (lambda x, b: x @ b)
+
+
+def emulate_tf32x3_forward(q, k, v, bias, scale, rounding="tf32x3"):
+    """K2f's 3xTF32 kernel: each 64-row query tile over the bh's live
+    64-key tiles in order, a tile in two halves of 32 keys: S from zero,
+    the online softmax in base 2 (the running max from NEG_INF), O
+    rescaled and then O += P v summed in a fresh fragment. ``rounding``
+    ``"tf32x3"`` (the card), ``"tf32"`` (one TF32 product) or None (fp32
+    products). Returns (out, lse, key tiles skipped)."""
+    bh, lq, d = q.shape
+    lk = k.shape[1]
+    scale2 = scale * LOG2E
+    scores, fresh = _tf32x3_products(rounding)
+    kadd = _key_terms(bias, bh, lk, -(-lk // TILE) * TILE)
+    out, lse = torch.zeros(bh, lq, d), torch.zeros(bh, lq)
+    skipped = 0
+    for b in range(bh):
+        live = [t0 for t0 in range(0, lk, TILE)
+                if bool((kadd[b, t0:t0 + TILE] > -math.inf).any())]
+        skipped += -(-lk // TILE) - len(live)
+        for q0 in range(0, lq, TILE):
+            qt = _rows64(q[b], q0, min(q0 + TILE, lq))
+            m, l = torch.full((TILE,), NEG_INF), torch.zeros(TILE)
+            acc = torch.zeros(TILE, d)
+            for t0 in live:
+                kt, vt = (_rows64(x[b], t0, min(t0 + TILE, lk)) for x in (k, v))
+                for h in (0, TILE // 2):
+                    half = slice(h, h + TILE // 2)
+                    s = scores(qt, kt[half]) * scale2 + kadd[b, t0 + h:
+                                                             t0 + h + 32]
+                    m_new = torch.maximum(m, s.amax(dim=-1))
+                    corr = torch.exp2(m - m_new)
+                    p = torch.exp2(s - m_new[:, None])
+                    l = l * corr + p.sum(dim=-1)
+                    acc = acc * corr[:, None] + fresh(p, vt[half])
+                    m = m_new
+            n = min(TILE, lq - q0)
+            ok = l[:n] > 0
+            out[b, q0:q0 + n] = acc[:n] * torch.where(ok, 1 / l[:n],
+                                                      0.0)[:, None]
+            lse[b, q0:q0 + n] = torch.where(
+                ok, (m[:n] + torch.log2(l[:n])) * LN2, NEG_INF)
+    return out, lse, skipped
+
+
+def emulate_tf32x3_backward(q, k, v, bias, out, lse, dout, scale,
+                            rounding="tf32x3", center=True):
+    """K2b's 3xTF32 kernels: vbar, the mean of each bh's valid keys' v
+    rows (0 without one), then the dq kernel (delta = dout.(out - vbar)
+    from its rows' dout and out, the live key tiles in halves of 32 keys,
+    dP = dout.(v - vbar), dq += dS k in a fresh fragment a half), then the
+    dk/dv kernel (zeros for a key tile without a valid key, else every
+    query tile in halves of 32 queries, dv += P^T dout and dk += dS^T q in
+    fresh fragments); rows past Lq and Lk zero, their P exactly 0. Without
+    ``center``, vbar = 0 (delta = dout.out, as the wgmma family takes it).
+    Returns (dq, dk, dv)."""
+    bh, lq, d = q.shape
+    lk = k.shape[1]
+    scale2 = scale * LOG2E
+    scores, fresh = _tf32x3_products(rounding)
+    lq64, lk64 = -(-lq // TILE) * TILE, -(-lk // TILE) * TILE
+    kadd = _key_terms(bias, bh, lk, lk64)
+    vbar = torch.zeros(bh, 1, d)
+    if center:
+        valid = (kadd[:, :lk] > -math.inf).float()[..., None]
+        vbar = (v * valid).sum(dim=1, keepdim=True) / \
+            valid.sum(dim=1, keepdim=True).clamp_min(1.0)
+    v = v - vbar
+    delta = (dout * (out - vbar)).sum(dim=-1)
+    lse2 = _pad_rows(torch.where(lse > MASK_THRESHOLD, lse * LOG2E, 1e30),
+                     lq64, 1e30)
+    delta = _pad_rows(delta, lq64)
+    dq, dk, dv = (torch.zeros(bh, n, d) for n in (lq, lk, lk))
+    for b in range(bh):
+        live = [t0 for t0 in range(0, lk, TILE)
+                if bool((kadd[b, t0:t0 + TILE] > -math.inf).any())]
+        for q0 in range(0, lq, TILE):           # the dq kernel
+            qt, dt = (_rows64(x[b], q0, min(q0 + TILE, lq))
+                      for x in (q, dout))
+            rows = slice(q0, q0 + TILE)
+            acc = torch.zeros(TILE, d)
+            for t0 in live:
+                kt, vt = (_rows64(x[b], t0, min(t0 + TILE, lk)) for x in (k, v))
+                for h in (0, TILE // 2):
+                    half = slice(h, h + TILE // 2)
+                    p = torch.exp2(scores(qt, kt[half]) * scale2
+                                   + kadd[b, t0 + h:t0 + h + 32]
+                                   - lse2[b, rows, None])
+                    ds = p * (scores(dt, vt[half]) - delta[b, rows, None])
+                    acc = acc + fresh(ds, kt[half])
+            n = min(TILE, lq - q0)
+            dq[b, q0:q0 + n] = acc[:n] * scale
+        for t0 in live:                         # the dk/dv kernel
+            kt, vt = (_rows64(x[b], t0, min(t0 + TILE, lk)) for x in (k, v))
+            kterm = kadd[b, t0:t0 + TILE, None]
+            acc_k, acc_v = torch.zeros(TILE, d), torch.zeros(TILE, d)
+            for q0 in range(0, lq, TILE):
+                qt, dt = (_rows64(x[b], q0, min(q0 + TILE, lq))
+                          for x in (q, dout))
+                for h in (0, TILE // 2):
+                    cols = slice(q0 + h, q0 + h + 32)
+                    half = slice(h, h + TILE // 2)
+                    pt = torch.exp2(scores(kt, qt[half]) * scale2 + kterm
+                                    - lse2[b, None, cols])
+                    dst = pt * (scores(vt, dt[half]) - delta[b, None, cols])
+                    acc_v = acc_v + fresh(pt, dt[half])
+                    acc_k = acc_k + fresh(dst, qt[half])
+            n = min(TILE, lk - t0)
+            dk[b, t0:t0 + n], dv[b, t0:t0 + n] = acc_k[:n] * scale, acc_v[:n]
+    return dq, dk, dv
+
+
+# the wgmma family's cases at fp32, and one key
+TF32X3_CASES = {**WGMMA_CASES, "one_key": (3, 200, 1, None)}
+
+
+@pytest.mark.parametrize("name", list(TF32X3_CASES))
+def test_tf32x3_d48_emulation_matches_jax_kernels_and_plain(name):
+    """The 3xTF32 family at D = 48 as the card runs it computes JAX's
+    Pallas kernels' function at fp32 (``Precision.HIGHEST``) within
+    ``TOL``, and holds the plain versions at chip_smoke.py's fp32 limits
+    (rel-L2 1e-5 and row-scaled 5e-5, ``GRAD_LIMITS``; lse 1e-4): out and
+    lse, then dq, dk, dv from JAX's out and lse. At one key dq and dk are
+    exact zeros plus rounding (:func:`_one_key_bound`); dv and the forward
+    hold the limits there too."""
+    q, k, v, bias, cot = _wgmma_case(name, cases=TF32X3_CASES)
+    scale = 48 ** -0.5
+    (jout, jlse), jgrads = _jax(q, k, v, bias, cot, scale)
+    tq, tk, tv, tb, tcot = (_t(x) for x in (q, k, v, bias, cot))
+    want_o, want_l = flash_attention_reference(tq, tk, tv, tb, scale)
+    out, lse, _ = emulate_tf32x3_forward(tq, tk, tv, tb, scale)
+    np.testing.assert_allclose(out.numpy(), jout, atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(lse.numpy(), jlse, atol=TOL, rtol=TOL)
+    chip_smoke.check_out(out, want_o, "float32", f"{name} out")
+    assert (lse - want_l).abs().max().item() <= chip_smoke.K2_LSE_LIMIT
+    grads = emulate_tf32x3_backward(tq, tk, tv, tb, _t(jout), _t(jlse), tcot,
+                                    scale)
+    want = flash_attention_backward_reference(tq, tk, tv, tb, _t(jout),
+                                              _t(jlse), tcot, scale)
+    held = slice(0, 3)
+    if name == "one_key":
+        for g, w, x in zip(grads[:2], want[:2], (tk, tq)):
+            bound = _one_key_bound(tk, tv, tcot, scale) * x.abs().max().item()
+            assert (g - w).abs().max().item() <= bound
+        held = slice(2, 3)
+    names = ("dq", "dk", "dv")[held]
+    for g, w, n in zip(grads[held], jgrads[held], names):
+        np.testing.assert_allclose(g.numpy(), w, atol=TOL, rtol=TOL,
+                                   err_msg=n)
+    chip_smoke.check_grads(names, grads[held], want[held], tcot, "float32",
+                           name)
+
+
+@pytest.mark.parametrize("name", ["ragged", "finite_bias", "lq_lt_lk"])
+def test_tf32x3_d48_single_tf32_misses_the_fp32_limits(name):
+    """One TF32 product (hi hi alone) misses the fp32 limit (rel-L2
+    ``GRAD_LIMITS["float32"]``, 1e-5) of out and of every gradient where
+    three hold it, on the same inputs at D = 48."""
+    q, k, v, bias, cot = _wgmma_case(name, seed=3)
+    tq, tk, tv, tb, tcot = (_t(x) for x in (q, k, v, bias, cot))
+    scale = 48 ** -0.5
+    want_o, want_l = flash_attention_reference(tq, tk, tv, tb, scale)
+    want = flash_attention_backward_reference(tq, tk, tv, tb, want_o,
+                                              want_l, tcot, scale)
+    limit = chip_smoke.GRAD_LIMITS["float32"][0]
+    for rounding, misses in (("tf32x3", False), ("tf32", True)):
+        out, _, _ = emulate_tf32x3_forward(tq, tk, tv, tb, scale, rounding)
+        grads = emulate_tf32x3_backward(tq, tk, tv, tb, want_o, want_l, tcot,
+                                        scale, rounding)
+        rel = [chip_smoke.grad_readings(out, want_o, want_o)[0]] + [
+            chip_smoke.grad_readings(g, w, tcot)[0]
+            for g, w in zip(grads, want)]
+        assert all((r > limit) == misses for r in rel), (rounding, rel)
+
+
+def test_tf32x3_d48_centering_holds_close_values():
+    """Where a plane's v rows lie close together, as on an fp32 train
+    step's inputs, dP and delta agree to a few digits and dq and dk are
+    what is left of their difference: taken as dout.v - dout.out (vbar =
+    0), 3xTF32's error of dP misses the fp32 limits against the plain
+    version in fp64; less vbar, the 3xTF32 family at D = 48 holds them."""
+    rng = np.random.RandomState(6)
+    bh, lq, lk = 2, 100, 150
+    q, k = (rng.randn(bh, n, 48).astype(np.float32) for n in (lq, lk))
+    v = (rng.randn(bh, 1, 48) + 1e-3 * rng.randn(bh, lk, 48)).astype(
+        np.float32)
+    cot = rng.randn(bh, lq, 48).astype(np.float32)
+    bias = np.where(rng.rand(bh, lk) < 0.1, NEG_INF, 0.0).astype(np.float32)
+    tq, tk, tv, tb, tcot = (_t(x) for x in (q, k, v, bias, cot))
+    scale = 48 ** -0.5
+    out, lse = flash_attention_reference(tq, tk, tv, tb, scale)
+    want = flash_attention_backward_reference(
+        tq.double(), tk.double(), tv.double(), tb, out.double(), lse,
+        tcot.double(), scale)
+    readings = {}
+    for center in (True, False):
+        grads = emulate_tf32x3_backward(tq, tk, tv, tb, out, lse, tcot,
+                                        scale, center=center)
+        readings[center] = [chip_smoke.grad_readings(g, w, tcot)
+                            for g, w in zip(grads[:2], want[:2])]
+    limits = chip_smoke.GRAD_LIMITS["float32"]
+    assert all(r[0] <= limits[0] and r[1] <= limits[1]
+               for r in readings[True]), readings
+    assert all(r[0] > limits[0] or r[1] > limits[1]
+               for r in readings[False]), readings
+
+
+@pytest.mark.parametrize("name", ["holes", "dead_bh", "finite_bias"])
+def test_tf32x3_d48_emulation_masks_exactly(name):
+    """In fp32 as the 3xTF32 family runs it: a masked key gets exactly
+    zero dk and dv, a bh without a valid key exactly out 0, lse NEG_INF
+    and zero gradients, and a key tile without a valid key is skipped."""
+    q, k, v, bias, cot = _wgmma_case(name, seed=2)
+    tq, tk, tv, tb, tcot = (_t(x) for x in (q, k, v, bias, cot))
+    out, lse, skipped = emulate_tf32x3_forward(tq, tk, tv, tb, 0.2)
+    grads = emulate_tf32x3_backward(tq, tk, tv, tb, out, lse, tcot, 0.2)
+    masked = tb <= MASK_THRESHOLD
+    assert (grads[1][masked] == 0).all() and (grads[2][masked] == 0).all()
+    dead = masked.all(dim=-1)
+    assert bool(dead[-1]) == (name == "dead_bh")
+    assert (out[dead] == 0).all() and (lse[dead] == NEG_INF).all()
+    assert all((g[dead] == 0).all() for g in grads)
+    assert skipped == {"holes": 18, "dead_bh": 11, "finite_bias": 0}[name]
+
+
+def test_plain_versions_in_fp64_agree_with_fp32():
+    """Given fp64 inputs the plain versions compute in fp64 (the oracle
+    chip_smoke.py holds an fp32 step's K2 launches to): fp64 results that
+    agree with the fp32 evaluation to its rounding, and with JAX's Pallas
+    kernels in interpret mode."""
+    q, k, v, bias, cot = _wgmma_case("finite_bias", seed=4)
+    (jout, jlse), jgrads = _jax(q, k, v, bias, cot, 0.2)
+    tq, tk, tv, tb, tcot = (_t(x) for x in (q, k, v, bias, cot))
+    out, lse = flash_attention_reference(tq, tk, tv, tb, 0.2)
+    out64, lse64 = flash_attention_reference(tq.double(), tk.double(),
+                                             tv.double(), tb, 0.2)
+    assert out64.dtype == lse64.dtype == torch.float64
+    grads = flash_attention_backward_reference(tq, tk, tv, tb, out, lse, tcot,
+                                               0.2)
+    grads64 = flash_attention_backward_reference(
+        tq.double(), tk.double(), tv.double(), tb, out64, lse64,
+        tcot.double(), 0.2)
+    np.testing.assert_allclose(out64.numpy(), jout, atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(lse64.numpy(), jlse, atol=TOL, rtol=TOL)
+    chip_smoke.check_out(out, out64, "float32", "out")
+    for g, g64, jg in zip(grads, grads64, jgrads):
+        assert g64.dtype == torch.float64
+        np.testing.assert_allclose(g64.numpy(), jg, atol=TOL, rtol=TOL)
+    chip_smoke.check_grads(("dq", "dk", "dv"), grads, grads64, tcot,
+                           "float32", "fp32 against fp64")
+
+
 def test_plain_versions_stay_fp32_under_autocast():
     """The plain versions compute in fp32 under bf16 autocast too, as JAX's
     reference does at HIGHEST precision: bit-equal to the calls outside
@@ -837,3 +1167,80 @@ def test_plain_versions_stay_fp32_under_autocast():
                                                      lse, tcot, 0.2)
     assert torch.equal(out_a, out) and torch.equal(lse_a, lse)
     assert all(torch.equal(a, g) for a, g in zip(grads_a, grads))
+
+
+def _plain_wrappers(monkeypatch, fa, skew=1.0):
+    """The module's card wrappers replaced by its plain versions (dq
+    scaled by ``skew``), each counting its launch by the CPU rule's
+    family, in counts of the test's own, as the wrappers do on the card."""
+    def fwd(q, k, v, bias, scale):
+        fa.FAMILY_LAUNCHES[fa.family(q.shape[1], k.shape[1], q.shape[2],
+                                     q.dtype)] += 1
+        return fa.flash_attention_reference(q, k, v, bias, scale)
+
+    def bwd(q, k, v, bias, out, lse, dout, scale):
+        fa.BWD_FAMILY_LAUNCHES[fa.family(q.shape[1], k.shape[1], q.shape[2],
+                                         q.dtype)] += 1
+        dq, dk, dv = fa.flash_attention_backward_reference(
+            q, k, v, bias, out, lse, dout, scale)
+        return dq * skew, dk, dv
+    for name in ("FAMILY_LAUNCHES", "BWD_FAMILY_LAUNCHES"):
+        monkeypatch.setattr(fa, name, dict.fromkeys(fa.FAMILIES, 0))
+    monkeypatch.setattr(fa, "flash_attention_cuda", fwd)
+    monkeypatch.setattr(fa, "flash_attention_backward_cuda", bwd)
+    monkeypatch.setattr(fa, "card_family", fa.family)
+
+
+def _k2_step(fa, shapes, seed=0):
+    """One forward and backward through the module's wrappers at each
+    (Lq, Lk, D) of ``shapes``, fp32."""
+    g = torch.Generator().manual_seed(seed)
+    for lq, lk, d in shapes:
+        q, dout = (torch.randn(2, lq, d, generator=g) for _ in range(2))
+        k, v = (torch.randn(2, lk, d, generator=g) for _ in range(2))
+        out, lse = fa.flash_attention_cuda(q, k, v, None, d ** -0.5)
+        fa.flash_attention_backward_cuda(q, k, v, None, out, lse, dout,
+                                         d ** -0.5)
+
+
+def test_k2_call_readings_hold_fp32_launches_to_fp64(monkeypatch):
+    """chip_smoke.py's gate on an fp32 step's K2 launches: each family's
+    launches counted, out, lse and the gradients held to the plain
+    version in fp64, the plain version's own fp32 readings beside them
+    (here the "kernel" is that fp32 plain version, so both readings are
+    the same); a dq off by 1e-4 of itself fails the gate."""
+    fa = importlib.import_module("modaltune_tpu_torch.ops.flash_attention")
+    _plain_wrappers(monkeypatch, fa)
+    shapes = [(70, 90, 48), (130, 65, 16)]
+    _, seen = chip_smoke.k2_call_readings(lambda: _k2_step(fa, shapes),
+                                          "cpu", "float32")
+    assert set(seen) == {"tf32x3", "short_keys_tf32"}
+    for r in seen.values():
+        assert (r["fwd"], r["bwd"]) == (1, 1)
+        assert r["plain_out"] == r["out"] and r["plain_grads"] == r["grads"]
+        assert r["grads"][0] <= chip_smoke.GRAD_LIMITS["float32"][0]
+    _plain_wrappers(monkeypatch, fa, skew=1 + 1e-4)
+    with pytest.raises(chip_smoke.SmokeFailure):
+        chip_smoke.k2_call_readings(lambda: _k2_step(fa, shapes[:1]), "cpu",
+                                    "float32")
+
+
+def test_check_one_launch_wants_one_launch_on_the_family(monkeypatch):
+    """chip_smoke.py's per-call check in phase_k2 and phase_k2b: a call
+    that launches once on the named family passes and returns its result;
+    one on another family, or none, fails."""
+    fa = importlib.import_module("modaltune_tpu_torch.ops.flash_attention")
+    _plain_wrappers(monkeypatch, fa)
+    g = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(2, 80, 48, generator=g) for _ in range(3))
+    out, lse = chip_smoke.check_one_launch(
+        "fwd", "tf32x3", lambda: fa.flash_attention_cuda(q, k, v, None, 0.2),
+        "tf32x3 forward")
+    assert torch.equal(out, fa.flash_attention_reference(q, k, v, None,
+                                                         0.2)[0])
+    with pytest.raises(chip_smoke.SmokeFailure):
+        chip_smoke.check_one_launch(
+            "bwd", "cuda_cores", lambda: fa.flash_attention_backward_cuda(
+                q, k, v, None, out, lse, q, 0.2), "the wrong family")
+    with pytest.raises(chip_smoke.SmokeFailure):
+        chip_smoke.check_one_launch("fwd", "tf32x3", lambda: None, "none")

@@ -30,11 +30,16 @@ at 10,239 and 2,047, short sides on either side, dead chunks and a dead
 bh at the fp32 limits, one key, the gradients from the kernel's own out
 and lse, bit-equal reruns, the launches by family through the autograd
 Function, a misaligned view raising, and the CUDA-core kernels still
-serving the other fp32 shapes (D = 48, both sides long). For its wgmma family (bf16, D = 48, the per-branch
-dilated attention's): the five branch geometries at 2,048 tokens, lengths
-off the 64-row tile, Lq != Lk both ways, dead key tiles between live ones,
-a dead bh, a finite bias, bit-equal reruns, the launch counts by family, the
-family rule on both sides and a misaligned view raising. For the
+serving the other fp32 shapes (other D, both sides long). For its wgmma
+family (bf16, D = 48, the per-branch dilated attention's): the five branch
+geometries at 2,048 tokens, lengths off the 64-row tile, Lq != Lk both
+ways, dead key tiles between live ones, a dead bh, a finite bias,
+bit-equal reruns, the launch counts by family, the family rule on both
+sides and a misaligned view raising; the same for its fp32 sibling, the
+3xTF32 family at D = 48 (``-k tf32x3_flash``), with the whole r = 2
+branch at 10,240 tokens besides, the gradients also from the kernel's
+own out and lse, at the fp32 limits, and close v rows held against the
+plain version in fp64. For the
 tensor-core families of K1b and K3b (bf16 on wgmma, fp32 on 3xTF32;
 D = 48): every ratio at a length no segment divides with L % 16 != 0, one
 and three batch rows, a prefix mask and masked stretches that leave dead
@@ -581,13 +586,13 @@ def test_tf32_short_side_wrapper_raises_on_a_misaligned_tensor(cuda_device):
         fa.flash_attention_backward_cuda(qa, k, k, None, out, lse, q, 0.25)
 
 
-@pytest.mark.parametrize("bh,lq,lk,d", [(4, 300, 200, 48), (6, 130, 129, 16),
+@pytest.mark.parametrize("bh,lq,lk,d", [(4, 300, 200, 32), (6, 130, 129, 16),
                                         (4, 200, 65, 64)])
 def test_cuda_core_family_serves_other_fp32_shapes(cuda_device, bh, lq, lk,
                                                    d):
-    """fp32 outside the short-side domain (D = 48, the per-branch route
-    under an fp32 backbone; both sides long at D = 16; D = 64) stays on the
-    CUDA-core kernels, at the fp32 limits."""
+    """fp32 outside the short-side and 3xTF32 domains (D = 32; both sides
+    long at D = 16; D = 64) stays on the CUDA-core kernels, at the fp32
+    limits."""
     assert fa.card_family(lq, lk, d, torch.float32) == "cuda_cores"
     q, k, v = (_randn((bh, n, d), 93 + i, cuda_device)
                for i, n in enumerate((lq, lk, lk)))
@@ -700,7 +705,7 @@ def test_wgmma_flash_kernels_match_plain(cuda_device, bh, lq, lk, keys,
 def test_wgmma_flash_family_matches_the_entry_points(cuda_device):
     """bf16 at D = 48 takes the wgmma family at every Lq and Lk, on the
     card (``mt_flash_attention_family``) and in the CPU's copy of the
-    rule; fp32 at D = 48 stays on the CUDA-core kernels."""
+    rule; fp32 at D = 48 the 3xTF32 family."""
     for lq, lk, d, dtype in [(1024, 1024, 48, torch.bfloat16),
                              (65, 10239, 48, torch.bfloat16),
                              (10239, 65, 48, torch.bfloat16),
@@ -710,7 +715,7 @@ def test_wgmma_flash_family_matches_the_entry_points(cuda_device):
                              (1024, 1024, 32, torch.bfloat16)]:
         assert fa.card_family(lq, lk, d, dtype) == fa.family(lq, lk, d, dtype)
     assert fa.card_family(640, 640, 48, torch.bfloat16) == "wgmma"
-    assert fa.card_family(640, 640, 48, torch.float32) == "cuda_cores"
+    assert fa.card_family(640, 640, 48, torch.float32) == "tf32x3"
 
 
 def test_wgmma_flash_function_counts_by_family(cuda_device):
@@ -739,6 +744,140 @@ def test_wgmma_flash_wrapper_raises_on_a_misaligned_tensor(cuda_device):
     base = _randn((2 * 300 * 48 + 4,), 63, cuda_device, torch.bfloat16)
     q = base[4:].view(2, 300, 48)                   # 8 bytes off
     k = _randn((2, 300, 48), 64, cuda_device, torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, k)
+    out, lse = fa.flash_attention_cuda(k, k, k, None, 0.25)
+    with pytest.raises(ValueError):
+        fa.flash_attention_backward_cuda(k, k, k, None, q, lse, out, 0.25)
+
+
+# ---------------------------------------------------------------------------
+# K2: the 3xTF32 family (fp32, D = 48, any Lq and Lk)
+# ---------------------------------------------------------------------------
+
+# The wgmma family's cases at fp32, then the per-branch route's whole r = 2
+# branch at 10,240 tokens (96 x 2,896 x 2,896, 12 % of the keys masked)
+TF32X3_FLASH_CASES = WGMMA_FLASH_CASES + [(96, 2896, 2896, "tail", False)]
+TF32X3_FLASH_IDS = WGMMA_FLASH_IDS + ["96x2896x2896-tail-r2"]
+
+
+@pytest.mark.parametrize("bh,lq,lk,keys,dead", TF32X3_FLASH_CASES,
+                         ids=TF32X3_FLASH_IDS)
+def test_tf32x3_flash_kernels_match_plain(cuda_device, bh, lq, lk, keys,
+                                          dead):
+    """K2f and K2b of the 3xTF32 family against the plain versions at
+    ``chip_smoke.py``'s fp32 limits (out by ``check_out``, lse within
+    ``K2_LSE_LIMIT``, the gradients by ``check_grads``, from the plain
+    and from the kernel's own out and lse); a dead bh gives exactly 0,
+    NEG_INF and zero gradients, a masked key exactly zero dk and dv, a
+    rerun the same bits. At one key dq and dk are exact zeros plus
+    rounding (P = 1, so dS = dP - delta cancels) and are held by the
+    max-scaled bound alone."""
+    assert fa.card_family(lq, lk, 48, torch.float32) == "tf32x3"
+    q, k, v, dout, bias, valid = _wgmma_flash_inputs(bh, lq, lk, keys, dead,
+                                                     cuda_device)
+    q, k, v, dout = (x.float() for x in (q, k, v, dout))
+    out, lse = fa.flash_attention_cuda(q, k, v, bias, 48 ** -0.5)
+    want_o, want_l = fa.flash_attention_reference(q, k, v, bias)
+    grads = fa.flash_attention_backward_cuda(q, k, v, bias, want_o, want_l,
+                                             dout, 48 ** -0.5)
+    want = fa.flash_attention_backward_reference(q, k, v, bias, want_o,
+                                                 want_l, dout)
+    own = fa.flash_attention_backward_cuda(q, k, v, bias, out, lse, dout,
+                                           48 ** -0.5)
+    again = (*fa.flash_attention_cuda(q, k, v, bias, 48 ** -0.5),
+             *fa.flash_attention_backward_cuda(q, k, v, bias, want_o, want_l,
+                                               dout, 48 ** -0.5))
+    torch.cuda.synchronize()
+    chip_smoke.check_out(out, want_o, "float32", "out")
+    assert (lse - want_l).abs().max().item() <= chip_smoke.K2_LSE_LIMIT
+    held = ("dq", "dk", "dv") if lk > 1 else ("dv",)
+    for got in (grads, own):
+        chip_smoke.check_grads(held, got[3 - len(held):],
+                               want[3 - len(held):], dout, "float32",
+                               f"{bh}x{lq}x{lk}")
+        for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+            _assert_grad_close(g_, w_, name)
+    assert ((grads[1] == 0) | valid[..., None]).all()      # masked keys
+    assert ((grads[2] == 0) | valid[..., None]).all()
+    if dead:
+        assert (out[0] == 0).all() and (lse[0] == NEG_INF).all()
+        assert all((g_[0] == 0).all() for g_ in grads)
+    for a, b in zip((out, lse, *grads), again):
+        assert torch.equal(a, b)
+
+
+def test_tf32x3_flash_centering_holds_close_values(cuda_device):
+    """Where a plane's v rows lie close together, as on an fp32 train
+    step's inputs, dq and dk are what is left of dP - delta; the kernels
+    take it against v and out less vbar, the valid keys' mean v row, and
+    hold the fp32 limits against the plain version in fp64 there, with a
+    dead bh and masked keys exact."""
+    bh, lq, lk = 4, 300, 1000
+    q, k, dout = (_randn((bh, n, 48), 70 + i, cuda_device)
+                  for i, n in enumerate((lq, lk, lq)))
+    g = torch.Generator(device="cpu").manual_seed(73)
+    v = (torch.randn(bh, 1, 48, generator=g)
+         + 1e-3 * torch.randn(bh, lk, 48, generator=g)).to(cuda_device)
+    valid = torch.rand(bh, lk, generator=g).to(cuda_device) > 0.1
+    valid[0] = False
+    bias = torch.where(valid, 0.0, NEG_INF)
+    out, lse = fa.flash_attention_reference(q, k, v, bias)
+    got = fa.flash_attention_backward_cuda(q, k, v, bias, out, lse, dout,
+                                           48 ** -0.5)
+    want = fa.flash_attention_backward_reference(
+        q.double(), k.double(), v.double(), bias, out.double(), lse,
+        dout.double())
+    torch.cuda.synchronize()
+    chip_smoke.check_grads(("dq", "dk", "dv"), got, want, dout, "float32",
+                           "close v rows")
+    assert ((got[1] == 0) | valid[..., None]).all()
+    assert ((got[2] == 0) | valid[..., None]).all()
+    assert all((g_[0] == 0).all() for g_ in got)
+
+
+def test_tf32x3_flash_family_matches_the_entry_points(cuda_device):
+    """fp32 at D = 48 takes the 3xTF32 family at every Lq and Lk (the five
+    branch shapes, the LoRA attention's, short sides), on the card
+    (``mt_flash_attention_family``) and in the CPU's copy of the rule;
+    other D stay where they were."""
+    for lq, lk, d in [(1024, 1024, 48), (2896, 2896, 48), (2560, 2560, 48),
+                      (1280, 1280, 48), (640, 640, 48), (65, 10239, 48),
+                      (10239, 65, 48), (1, 1, 48), (640, 640, 32),
+                      (10239, 65, 16), (65, 10239, 16)]:
+        assert (fa.card_family(lq, lk, d, torch.float32)
+                == fa.family(lq, lk, d, torch.float32))
+    assert fa.card_family(65, 10239, 48, torch.float32) == "tf32x3"
+    assert fa.card_family(640, 640, 32, torch.float32) == "cuda_cores"
+
+
+def test_tf32x3_flash_function_counts_by_family(cuda_device):
+    """``flash_attention`` at fp32 / D = 48 runs the 3xTF32 family forward
+    and backward, counted in LAUNCHES and by family under ``"tf32x3"``;
+    its gradients equal the wrapper's called directly."""
+    q, k, v = (_randn((3, 200, 48), s, cuda_device).requires_grad_()
+               for s in (65, 66, 67))
+    fa.LAUNCHES = fa.BWD_LAUNCHES = 0
+    for counts in (fa.FAMILY_LAUNCHES, fa.BWD_FAMILY_LAUNCHES):
+        counts.update(dict.fromkeys(counts, 0))
+    out, lse = fa.flash_attention(q, k, v)
+    out.pow(2).sum().backward()
+    assert (fa.LAUNCHES, fa.BWD_LAUNCHES) == (1, 1)
+    assert fa.FAMILY_LAUNCHES["tf32x3"] == fa.BWD_FAMILY_LAUNCHES["tf32x3"] == 1
+    assert sum(fa.FAMILY_LAUNCHES.values()) == 1
+    want = fa.flash_attention_backward_cuda(
+        q.detach(), k.detach(), v.detach(), None, out.detach(), lse,
+        2 * out.detach(), 48 ** -0.5)
+    for x, w_ in zip((q, k, v), want):
+        assert torch.equal(x.grad, w_)
+
+
+def test_tf32x3_flash_wrapper_raises_on_a_misaligned_tensor(cuda_device):
+    """16-byte cp.async chunks: a view 8 bytes off raises, forward and
+    backward, where the CUDA-core kernels would take it; no fallback."""
+    base = _randn((2 * 300 * 48 + 2,), 68, cuda_device)
+    q = base[2:].view(2, 300, 48)                   # 8 bytes off
+    k = _randn((2, 300, 48), 69, cuda_device)
     with pytest.raises(ValueError):
         fa.flash_attention(q, k, k)
     out, lse = fa.flash_attention_cuda(k, k, k, None, 0.25)
