@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""A/B of the dilated attention kernels and the key-bias flash attention
-on an earlier tree's port and on this one: the fp32 times of K1f (with
-stats), K3f, K1b and K3b, of K2f and K2b at the adapter's shapes and the
-per-branch route's r = 2 branch, the ``--bf16 0`` train step on the
-default and the per-branch route, and the bits of the bf16 families and
-of the fp32 dilated kernels.
+"""A/B of the attention kernels on an earlier tree's port and on this one:
+the fp32 times of K1f (with stats), K3f, K1b and K3b, of K2f and K2b at
+the adapter's shapes and the per-branch route's r = 2 branch, of K4f and
+K4b at TITAN's shapes, the ``--bf16 0`` train step of GigaPath on the
+default and the per-branch route and of TITAN, and the bits of the bf16
+families and of the fp32 dilated and key-bias kernels.
 
     python3 ab_prep.py PARENT_DIR
 
@@ -24,18 +24,27 @@ package, and prints:
   route's r = 2 branch (96 x 2,896 x 2,896 at D = 48, 12 % of the keys
   masked) on random fp32 inputs, with the family that ran (K2b of the
   CUDA-core family includes the delta its wrapper makes in torch);
+* k4 fp32: K4f's and K4b's median ms (CUDA events) and card ms (the
+  profiler's) at ``chip_smoke.K4_SHAPES``, (3, 12, 4096, 64) and
+  (3, 12, 16384, 64), on ``chip_smoke.k4_inputs`` at fp32, with the family
+  that ran (an older tree's fp32 K4 ran on the CUDA cores, its K4b with the
+  delta its wrapper makes in torch) and the 3xTF32 bounds;
 * step: the ``--bf16 0`` user's train step (chip_smoke.py's GigaPath
   model with the frozen backbone in fp32, ``"flash"``) on the default
   route at the 10,239 and the 2,047 bucket and on the per-branch route
   (``chip_smoke.GIGAPATH_BRANCH``, the CLI's ``--fused_attention 0``) at
   10,239: the median ms of 9 steps after 2, and the peak allocated GiB;
+  and TITAN's (``chip_smoke.TITAN``, 16,383 cells, 6 K4f and 6 K4b a
+  step): the median of 5 steps after 2;
 * bits: a SHA-256 digest of every output of K1f (with stats), K3f, K1b
   and K3b at bf16, of K1f (with stats) and K3f at fp32, and of K1b and
   K3b at fp32 fed the plain version's statistics (so that a change of
   the fp32 forward does not reach them), at (3, 2048, 16, 48), and of K2f
   and K2b at bf16 in the short-side family (36 x 2,047 x 65, 36 x 65 x
-  2,047, 36 x 65 x 65) and the wgmma family (96 x 1,024 x 1,024, D = 48);
-  the run fails unless every run's digests are the same.
+  2,047, 36 x 65 x 65) and the wgmma family (96 x 1,024 x 1,024, D = 48),
+  of K2f and K2b at fp32 in the 3xTF32 family at D = 48 (the same shape),
+  and of K4f and K4b at bf16 (the wgmma family, (3, 12, 2048, 64) with the
+  holes mask); the run fails unless every run's digests are the same.
 
 Needs one GPU.
 """
@@ -112,14 +121,47 @@ for name, bh, lq, lk, d, masked, dead in (
                f" ms (card {cs.fmt_ms(cs.device_ms(k2b))})")
 print("k2 fp32: " + "; ".join(out), flush=True)
 
+# K4 at fp32: TITAN's shapes
+af = importlib.import_module("modaltune_tpu_torch.ops.alibi_flash")
+out = []
+for name, b, h, n, d, _ in cs.K4_SHAPES:
+    q, k, v, do, coords3, slopes, km = cs.k4_inputs(b, h, n, d, torch.float32,
+                                                    dev, seed=400)
+    o, lse = af.alibi_flash_attention_cuda(q, k, v, coords3, slopes, km,
+                                           d ** -0.5)
+
+    def k4f():
+        return af.alibi_flash_attention_cuda(q, k, v, coords3, slopes, km,
+                                             d ** -0.5)
+
+    def k4b():
+        return af.alibi_flash_attention_backward_cuda(
+            q, k, v, coords3, slopes, km, o, lse, do, d ** -0.5)
+    pairs = float(h * n * int(km.sum()))
+    fwd_bound = cs.bound_ms(3 * 4 * pairs * d, cs.tensor_bytes(
+        (q, k, v, coords3, slopes, km, o, lse)), 495e12)[0]
+    bwd_bound = cs.bound_ms(3 * 10 * pairs * d, cs.tensor_bytes(
+        (q, k, v, coords3, slopes, km, o, lse, do, q, k, v)), 495e12)[0]
+    fam = getattr(af, "card_family", lambda x: "cuda_cores")(q)
+    iters = 5 if fam == "tf32x3" or n < 16384 else 2
+    out.append(f"{name} ({fam}) K4f {cs.time_ms(k4f, iters, 1):.4f} ms (card "
+               f"{cs.fmt_ms(cs.device_ms(k4f, 1, 1))}), K4b "
+               f"{cs.time_ms(k4b, iters, 1):.4f} ms (card "
+               f"{cs.fmt_ms(cs.device_ms(k4b, 1, 1))}); 3xTF32 bounds "
+               f"{fwd_bound:.4f}, {bwd_bound:.4f} ms")
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+print("k4 fp32: " + "; ".join(out), flush=True)
+
 # the --bf16 0 train step: the default route at two buckets, the
 # per-branch route at 10,239
 import statistics, time
 from modaltune_tpu_torch import make_train_step
 steps = []
-for route, model_kw in (("default", cs.GIGAPATH),
-                        ("default", dict(cs.GIGAPATH, **cs.GIGAPATH_2047)),
-                        ("per-branch", cs.GIGAPATH_BRANCH)):
+for route, model_kw, n_steps in (
+        ("default", cs.GIGAPATH, 9),
+        ("default", dict(cs.GIGAPATH, **cs.GIGAPATH_2047), 9),
+        ("per-branch", cs.GIGAPATH_BRANCH, 9), ("TITAN", cs.TITAN, 5)):
     model, tcfg, opt, text, batch = cs.build_train(
         dev, frozen="float32", **model_kw)
     step = make_train_step(model, tcfg, opt)
@@ -129,7 +171,7 @@ for route, model_kw in (("default", cs.GIGAPATH),
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(9):
+    for _ in range(n_steps):
         t = time.perf_counter()
         step(batch, text, gen)
         torch.cuda.synchronize()
@@ -143,7 +185,7 @@ for route, model_kw in (("default", cs.GIGAPATH),
 print("step (--bf16 0): " + "; ".join(steps), flush=True)
 
 # the bits: bf16 K1f, K3f, K1b, K3b; fp32 K1f, K3f, and K1b, K3b on the
-# plain statistics
+# plain statistics; K2 in the bf16 families and fp32 tf32x3; bf16 K4
 from modaltune_tpu_torch.ops.dilated import dilated_attention_stats
 digest = hashlib.sha256()
 
@@ -183,6 +225,17 @@ for bh, lq, lk, d in ((36, 2047, 65, 16), (36, 65, 2047, 16), (36, 65, 65, 16),
     do = torch.randn(o.shape, generator=torch.Generator().manual_seed(12))
     note(o, lse, *fa.flash_attention_backward_cuda(
         q, k, v, bias, o, lse, do.to(dev, torch.bfloat16), d ** -0.5))
+q, k, v, bias = cs.k2_inputs(96, 1024, 1024, 48, 0.12, True, torch.float32,
+                             dev, seed=13)             # fp32 K2: tf32x3
+o, lse = fa.flash_attention_cuda(q, k, v, bias, 48 ** -0.5)
+do = torch.randn(o.shape, generator=torch.Generator().manual_seed(14))
+note(o, lse, *fa.flash_attention_backward_cuda(q, k, v, bias, o, lse,
+                                               do.to(dev), 48 ** -0.5))
+q, k, v, do, coords3, slopes, km = cs.k4_inputs(   # bf16 K4: wgmma
+    3, 12, 2048, 64, torch.bfloat16, dev, seed=15, holes=True)
+o, lse = af.alibi_flash_attention_cuda(q, k, v, coords3, slopes, km, 0.125)
+note(o, lse, *af.alibi_flash_attention_backward_cuda(
+    q, k, v, coords3, slopes, km, o, lse, do, 0.125))
 torch.cuda.synchronize()
 print("bits: " + digest.hexdigest(), flush=True)
 '''
@@ -201,7 +254,8 @@ def main() -> int:
             print(f"{name}: failed\n{run.stderr[-3000:]}", file=sys.stderr)
             return 1
         lines = [ln for ln in run.stdout.splitlines()
-                 if ln.startswith(("fp32:", "k2 fp32:", "step (", "bits:"))]
+                 if ln.startswith(("fp32:", "k2 fp32:", "k4 fp32:", "step (",
+                                   "bits:"))]
         for line in lines:
             print(f"{name}: {line}", flush=True)
         bits.add(lines[-1])

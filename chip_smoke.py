@@ -335,7 +335,9 @@ def reset_counts() -> None:
     for attr in K5_ROUTES:
         setattr(gl, attr, 0)
     fa = importlib.import_module(COUNTERS["K2f"][0])
+    af = importlib.import_module(COUNTERS["K4f"][0])
     for counts in (fa.FAMILY_LAUNCHES, fa.BWD_FAMILY_LAUNCHES,
+                   af.FAMILY_LAUNCHES, af.BWD_FAMILY_LAUNCHES,
                    *dilated_family_counts().values()):
         counts.update(dict.fromkeys(counts, 0))
 
@@ -362,6 +364,31 @@ def check_dilated_families(tag: str, launches: dict, dtype) -> dict:
           f"{ {k: launches[k] for k in got} } on {want}")
     if any(launches[k] for k in got):
         print(f"{tag}: K1f, K3f, K1b and K3b by family {got}: all on "
+              f"{want}", flush=True)
+    return got
+
+
+def k4_family_counts() -> dict:
+    """K4f's and K4b's launches by family now (``ops/alibi_flash.py``'s
+    FAMILIES), the wrappers' own dicts copied."""
+    af = importlib.import_module(COUNTERS["K4f"][0])
+    return dict(fwd=dict(af.FAMILY_LAUNCHES), bwd=dict(af.BWD_FAMILY_LAUNCHES))
+
+
+def check_k4_families(tag: str, launches: dict, dtype) -> dict:
+    """On a path's run: every K4f and K4b launch took the family of the
+    backbone's dtype at D = 64 (``wgmma`` at bf16, ``tf32x3`` at fp32), none
+    the CUDA cores. Returns the launches by family, forward and backward."""
+    import torch
+    af = importlib.import_module(COUNTERS["K4f"][0])
+    want = af.family(torch.empty(0, 64, dtype=dtype))
+    got = k4_family_counts()
+    check(got["fwd"][want] == launches["K4f"] == sum(got["fwd"].values())
+          and got["bwd"][want] == launches["K4b"] == sum(got["bwd"].values()),
+          f"{tag}: K4 launches by family {got}, want {launches['K4f']} and "
+          f"{launches['K4b']} on {want}")
+    if launches["K4f"]:
+        print(f"{tag}: K4f by family {got['fwd']}, K4b {got['bwd']}: all on "
               f"{want}", flush=True)
     return got
 
@@ -2049,6 +2076,98 @@ def k4_inputs(b, h, n, d, dtype, device, seed, masked=0.12, holes=False):
             coords3.to(device), slopes.to(device), key_mask.to(device))
 
 
+# The CUDA-core K4 kernels serve every D but 64, which no model has: held
+# and timed at a shape of their own, both dtypes.
+K4_CUDA_CORES = ("d32_cuda_cores", 3, 12, 2048, 32, 12)
+
+
+def k4_cuda_cores(af, device, backward, iters=5):
+    """The CUDA-core K4f (or K4b from K4f's out and lse) at
+    :data:`K4_CUDA_CORES` in fp32 and bf16: against the plain version (in
+    fp32 on the same values, the delta it takes) by :func:`compare`, two
+    runs bit-equal, the family checked; the kernel's, the plain version's
+    and the library call's times (SDPA on the dense bias, autograd through
+    it for K4b) and the bound (fp32 products at the CUDA cores' rate, bf16
+    at the tensor cores'). Returns {dtype: readings} with the fp32 times at
+    the top, as a shape's result of :func:`phase_k4` / :func:`phase_k4b`."""
+    import torch
+    import torch.nn.functional as F
+    name, b, h, n, d, chunk = K4_CUDA_CORES
+    res = {}
+    for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
+        dt = str(dtype)[6:]
+        tensors = k4_inputs(b, h, n, d, dtype, device, seed=470)
+        q, k, v, dout, coords3, slopes, key_mask = tensors
+        tag = f"K4{'b' if backward else ''} {name} {dt}"
+        if backward:
+            r, got, out, lse = k4_backward_errors(af, tensors, chunk, tol, dt,
+                                                  tag)
+
+            def kernel():
+                return af.alibi_flash_attention_backward_cuda(
+                    q, k, v, coords3, slopes, key_mask, out, lse, dout,
+                    d ** -0.5)
+
+            def library():
+                return torch.autograd.grad(lib_out, leaves, dout,
+                                           retain_graph=True)
+            res[dt], res[dt + "_family"] = r["err"], r["family"]
+            io = (q, k, v, coords3, slopes, key_mask, out, lse, dout, *got)
+        else:
+            err_o, err_l, out, lse, r = k4_forward_errors(
+                af, tensors, chunk, tol, 1e-4 if dt == "float32" else 1e-2,
+                tag)
+
+            def kernel():
+                return af.alibi_flash_attention_cuda(
+                    q, k, v, coords3, slopes, key_mask, d ** -0.5)
+
+            def library():
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      attn_mask=dense)
+            res[dt] = dict(r, out_err=err_o, lse_err=err_l)
+            got = (out, lse)
+            io = (q, k, v, coords3, slopes, key_mask, out, lse)
+        check(r["family"] == "cuda_cores", f"{tag}: ran {r['family']}")
+        check(all(torch.equal(x, y) for x, y in zip(kernel(), got)),
+              f"{tag}: two runs are not bit-equal")
+        dense = dense_alibi_bias(coords3, slopes, key_mask, dtype)
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=dense)
+        pairs = float(h * n * int(key_mask.sum()))
+        t = dict(ms=time_ms(kernel, iters, warmup=1),
+                 device_ms=device_ms(kernel, iters=2, warmup=1),
+                 library_ms=time_ms(library, iters, warmup=1),
+                 plain_ms=timed_once(
+                     lambda: (af.alibi_attention_backward_reference(
+                         q, k, v, coords3, slopes, key_mask, out, lse, dout)
+                         if backward else af.alibi_attention_reference(
+                             q, k, v, coords3, slopes, key_mask)))[1])
+        t["bound_ms"], t["bound_by"] = (
+            tf32x3_bounds(pairs, d, io, backward)[1] if dtype == torch.float32
+            else attention_bound(pairs, d, io, backward))
+        if dtype == torch.float32:
+            res.update(t)
+        else:
+            res.update({f"bf16_{key}": x for key, x in t.items()})
+        del tensors, q, k, v, dout, out, lse, dense, leaves, lib_out, got
+        torch.cuda.empty_cache()
+    res["family"] = "cuda_cores"
+    print(f"K4{'b' if backward else 'f'} {name} B={b} H={h} N={n} D={d} "
+          f"(cuda_cores, no path runs it): fp32 "
+          f"{res['float32'] if backward else res['float32']['out_err']:.3e}"
+          f", bf16 "
+          f"{res['bfloat16'] if backward else res['bfloat16']['out_err']:.3e}"
+          f" against the plain version, two runs bit-equal; fp32 kernel "
+          f"{res['ms']:.4f} ms (card {fmt_ms(res['device_ms'])}), plain "
+          f"{res['plain_ms']:.4f} ms, library {res['library_ms']:.4f} ms, "
+          f"bound {res['bound_ms']:.5f} ms ({res['bound_by']}, fp32 at "
+          f"{PEAK_FLOPS_FP32 / 1e12:.0f} TFLOP/s); bf16 kernel "
+          f"{res['bf16_ms']:.4f} ms, library {res['bf16_library_ms']:.4f} ms, "
+          f"bound {res['bf16_bound_ms']:.5f} ms", flush=True)
+    return res
+
+
 def k4_slices(b, h, chunk):
     """(batch row, head range) slices that the plain version fits in."""
     return [(slice(i, i + 1), slice(j, j + chunk))
@@ -2073,22 +2192,43 @@ def dense_alibi_bias(coords3, slopes, key_mask, dtype):
 
 def k4_forward_errors(af, tensors, chunk, out_tol, lse_tol, tag):
     """K4f on ``tensors`` (as ``k4_inputs`` returns them) against the plain
-    version, slice by slice; fails over a tolerance. Returns (largest out
-    error, largest lse error, the kernel's out, its lse)."""
+    version, slice by slice: the 3xTF32 family (fp32 at D = 64) against it
+    in fp64 (by :func:`check_out` at the fp32 limits besides: its error is
+    below the fp32 plain version's own), the others against it in fp32 on
+    the same values; out within ``out_tol`` of max(1, max|want|), lse
+    within ``lse_tol``; fails over a limit. Checks that the call launched
+    once, on the family the C rule names (and its CPU copy). Returns (largest
+    out error, largest lse error, the kernel's out, its lse, a dict of the
+    family and, in fp32, out's worst (rel-L2, row-scaled))."""
     import torch
     q, k, v, _, coords3, slopes, key_mask = tensors
     b, h, _, d = q.shape
+    fam = af.card_family(q)
+    check(fam == af.family(q), f"{tag}: the C rule's family {fam} is not "
+          f"the CPU copy's {af.family(q)}")
+    before = k4_family_counts()["fwd"]
     got_o, got_l = af.alibi_flash_attention_cuda(q, k, v, coords3, slopes,
                                                  key_mask, d ** -0.5)
+    after = k4_family_counts()["fwd"]
+    check(after[fam] == before[fam] + 1 and
+          sum(after.values()) == sum(before.values()) + 1,
+          f"{tag}: launches by family {before} -> {after}, want one on {fam}")
     torch.cuda.synchronize()
+    exact = torch.float64 if fam == "tf32x3" else torch.float32
     err_o = err_l = 0.0
+    readings = dict(family=fam)
     for bs, hs in k4_slices(b, h, chunk):
         want_o, want_l = af.alibi_attention_reference(
-            q[bs, hs].float(), k[bs, hs].float(), v[bs, hs].float(),
+            q[bs, hs].to(exact), k[bs, hs].to(exact), v[bs, hs].to(exact),
             coords3[bs], slopes[hs], key_mask[bs])
         err_o = max(err_o, compare(got_o[bs, hs], want_o, out_tol,
                                    f"{tag} out {bs} {hs}"))
-        e = (got_l[bs, hs] - want_l).abs().max().item()
+        if exact == torch.float64:
+            readings["rel"], readings["row"] = map(
+                max, (readings.get("rel", 0.0), readings.get("row", 0.0)),
+                check_out(got_o[bs, hs], want_o, "float32",
+                          f"{tag} out {bs} {hs}"))
+        e = (got_l[bs, hs].to(exact) - want_l).abs().max().item()
         check(e <= lse_tol, f"{tag} lse {bs} {hs}: max|err| {e:.3e}")
         err_l = max(err_l, e)
         del want_o, want_l
@@ -2096,18 +2236,20 @@ def k4_forward_errors(af, tensors, chunk, out_tol, lse_tol, tag):
     check(bool(torch.allclose(
         got_o[0].float(), v[0, :, :1].float().expand_as(got_o[0]),
         atol=1e-6)), f"{tag}: a cls-only row is not v[cls]")
-    return err_o, err_l, got_o, got_l
+    return err_o, err_l, got_o, got_l, readings
 
 
 def k4_fp32_times(af, tensors, chunk, out_lse=None, iters=3):
     """fp32 K4f, or K4b from K4f's ``out_lse``, on ``tensors``
-    (:func:`k4_inputs` at fp32): the kernel on both clocks (the CUDA-core
-    family, K4's only one at fp32), the plain version (the sum over its
+    (:func:`k4_inputs` at fp32): the kernel on both clocks and the family
+    that ran it (``tf32x3`` at D = 64), the plain version (the sum over its
     slices, the first one warmed up), one ``scaled_dot_product_attention``
     at fp32 with TF32 off (as ``main`` sets it) on the dense bias built
     beforehand, and autograd through it for K4b, on both clocks; the bound
-    at the CUDA cores' fp32 rate (``bound_ms``) and the 3xTF32 bound
-    beside it (``tf32x3_bound_ms``). :func:`fmt_fp32_times` prints it."""
+    of the function's products at fp32 accuracy on the TF32 tensor cores
+    (three TF32 products each, ``bound_ms``) and on the CUDA cores' fp32
+    rate beside it (``cuda_cores_bound_ms``). :func:`fmt_fp32_times` prints
+    it."""
     import torch
     import torch.nn.functional as F
     q, k, v, dout, coords3, slopes, key_mask = tensors
@@ -2136,15 +2278,15 @@ def k4_fp32_times(af, tensors, chunk, out_lse=None, iters=3):
                 q[bs, hs], k[bs, hs], v[bs, hs], coords3[bs], slopes[hs],
                 key_mask[bs])
         io = (q, k, v, coords3, slopes, key_mask, q, q[..., 0])
-    r = dict(family="cuda_cores", ms=time_ms(kernel, iters, warmup=1),
+    r = dict(family=af.card_family(q), ms=time_ms(kernel, iters, warmup=1),
              device_ms=device_ms(kernel, iters=1, warmup=1))
     slices = k4_slices(b, h, chunk)
     plain(*slices[0])
     r["plain_ms"] = sum(timed_once(lambda: plain(bs, hs))[1]
                         for bs, hs in slices)
-    (r["tf32x3_bound_ms"], _), (r["bound_ms"], r["bound_by"]) = \
+    (r["bound_ms"], r["bound_by"]), (r["cuda_cores_bound_ms"], _) = \
         tf32x3_bounds(float(h * n * int(key_mask.sum())), d, io, backward)
-    r["bound_at"] = f"fp32 at {PEAK_FLOPS_FP32 / 1e12:.0f} TFLOP/s"
+    r["bound_at"] = f"3xTF32 at {PEAK_FLOPS_TF32 / 1e12:.0f} TFLOP/s"
     torch.cuda.empty_cache()
     dense = dense_alibi_bias(coords3, slopes, key_mask, torch.float32)
     if backward:
@@ -2163,14 +2305,15 @@ def k4_fp32_times(af, tensors, chunk, out_lse=None, iters=3):
 
 
 def phase_k4(device, shapes=K4_SHAPES, iters=10):
-    """K4f against its plain version, fp32 and bf16 (the plain version in
-    fp32 on the same values), whole or slice by slice, in bf16 also on a
-    mask with dead key tiles between live ones, and two runs bit-equal;
-    times in bf16 of the kernel, the plain version and one
-    ``scaled_dot_product_attention`` call with the dense bias built
-    beforehand (its build is not timed; it returns no lse), and in fp32
-    the same on both clocks (:func:`k4_fp32_times`). Returns {name:
-    result dict}."""
+    """K4f against its plain version in both dtypes: bf16 (the wgmma
+    family) against the plain version in fp32 on the same values, fp32 (the
+    3xTF32 family) against it in fp64, slice by slice, each also on a mask
+    with dead key tiles between live ones, the family that ran checked, and
+    two runs bit-equal; times in bf16 of the kernel, the plain version and
+    one ``scaled_dot_product_attention`` call with the dense bias built
+    beforehand (its build is not timed; it returns no lse), and in fp32 the
+    same on both clocks (:func:`k4_fp32_times`). Returns {name: result
+    dict}."""
     import torch
     import torch.nn.functional as F
     af = importlib.import_module("modaltune_tpu_torch.ops.alibi_flash")
@@ -2180,22 +2323,33 @@ def phase_k4(device, shapes=K4_SHAPES, iters=10):
         scale = d ** -0.5
         for dtype, out_tol, lse_tol in ((torch.float32, 2e-4, 1e-4),
                                         (torch.bfloat16, 1.6e-2, 1e-2)):
+            dt = str(dtype)[6:]
             tensors = k4_inputs(b, h, n, d, dtype, device, seed=400 + i)
             q, k, v, _, coords3, slopes, key_mask = tensors
-            tag = f"K4 {name} {str(dtype)[6:]}"
-            err_o, err_l, got_o, got_l = k4_forward_errors(
+            tag = f"K4 {name} {dt}"
+            err_o, err_l, got_o, got_l, rd = k4_forward_errors(
                 af, tensors, chunk, out_tol, lse_tol, tag)
-            res[str(dtype)[6:]] = dict(out_err=err_o, lse_err=err_l)
+            res[dt] = dict(rd, out_err=err_o, lse_err=err_l)
+            again = af.alibi_flash_attention_cuda(
+                q, k, v, coords3, slopes, key_mask, scale)
+            check(torch.equal(again[0], got_o)
+                  and torch.equal(again[1], got_l),
+                  f"{tag}: two runs are not bit-equal")
+            del again
+            # dead key tiles between live ones
+            holes = k4_inputs(b, h, n, d, dtype, device, seed=450 + i,
+                              holes=True)
+            err_ho, err_hl, _, _, rdh = k4_forward_errors(
+                af, holes, chunk, out_tol, lse_tol, f"{tag} holes")
+            res[dt]["holes"] = dict(rdh, out_err=err_ho, lse_err=err_hl)
+            res[dt]["holes"]["live_tiles"] = af.live_key_tiles(
+                af.padded_key_mask(holes[6], b, n, device)).sum(
+                    dim=-1).tolist()
+            del holes
             if dtype == torch.float32:
                 del got_o, got_l
                 res["fp32"] = k4_fp32_times(af, tensors, chunk)
             if dtype == torch.bfloat16:
-                again = af.alibi_flash_attention_cuda(
-                    q, k, v, coords3, slopes, key_mask, scale)
-                check(torch.equal(again[0], got_o)
-                      and torch.equal(again[1], got_l),
-                      f"{tag}: two runs are not bit-equal")
-                del again
                 # the plain version's time on the bf16 tensors the kernel
                 # gets: the sum over its slices, the first one warmed up
                 def plain(bs, hs):
@@ -2220,57 +2374,63 @@ def phase_k4(device, shapes=K4_SHAPES, iters=10):
                     lambda: F.scaled_dot_product_attention(
                         q, k, v, attn_mask=dense), iters, warmup=1)
                 del dense
-                # dead key tiles between live ones
-                holes = k4_inputs(b, h, n, d, dtype, device, seed=450 + i,
-                                  holes=True)
-                res["holes"] = dict(zip(("out_err", "lse_err"),
-                                        k4_forward_errors(
-                    af, holes, chunk, out_tol, lse_tol, f"{tag} holes")[:2]))
-                res["holes"]["live_tiles"] = af.live_key_tiles(
-                    af.padded_key_mask(holes[6], b, n, device)).sum(
-                        dim=-1).tolist()
-                del holes
+            del tensors, q, k, v
             torch.cuda.empty_cache()
+        f32, b16 = res["float32"], res["bfloat16"]
         print(f"K4 {name} B={b} H={h} N={n} D={d} (plain version in "
-              f"{len(k4_slices(b, h, chunk))} slice(s)): "
-              f"fp32 out {res['float32']['out_err']:.3e} "
-              f"lse {res['float32']['lse_err']:.3e} | "
-              f"bf16 out {res['bfloat16']['out_err']:.3e} "
-              f"lse {res['bfloat16']['lse_err']:.3e}, two runs bit-equal | "
-              f"bf16 with dead tiles between live ones (live 64-key tiles "
-              f"per batch row {res['holes']['live_tiles']} of "
-              f"{-(-n // 64)}) out {res['holes']['out_err']:.3e} lse "
-              f"{res['holes']['lse_err']:.3e} | "
-              f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
-              f"library (SDPA with a dense bias, no lse) "
+              f"{len(k4_slices(b, h, chunk))} slice(s); each dtype also with "
+              f"dead tiles between live ones, live 64-key tiles per batch "
+              f"row {b16['holes']['live_tiles']} of {-(-n // 64)}; two runs "
+              f"bit-equal in each): fp32 ({f32['family']}) against fp64 out "
+              f"{f32['out_err']:.3e}, rel-L2 {f32['rel']:.3e}, row-scaled "
+              f"{f32['row']:.3e}, lse {f32['lse_err']:.3e}; with holes rel-L2 "
+              f"{f32['holes']['rel']:.3e}, row-scaled "
+              f"{f32['holes']['row']:.3e} | bf16 ({b16['family']}) out "
+              f"{b16['out_err']:.3e} lse {b16['lse_err']:.3e}; with holes out "
+              f"{b16['holes']['out_err']:.3e} lse {b16['holes']['lse_err']:.3e}"
+              f" | bf16 kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f}"
+              f" ms, library (SDPA with a dense bias, no lse) "
               f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.5f} ms "
               f"({res['bound_by']})", flush=True)
         print(f"K4 {name}: kernel / library = "
               f"{res['ms'] / res['library_ms']:.3f}", flush=True)
         print(fmt_fp32_times(f"K4 {name} B={b} H={h} N={n} D={d}",
-                             res["fp32"]) + f", 3xTF32 bound "
-              f"{res['fp32']['tf32x3_bound_ms']:.5f} ms", flush=True)
+                             res["fp32"]) + f", CUDA-core bound "
+              f"{res['fp32']['cuda_cores_bound_ms']:.5f} ms", flush=True)
         results[name] = res
+    results[K4_CUDA_CORES[0]] = k4_cuda_cores(af, device, backward=False)
     return results
 
 
 def k4_backward_errors(af, tensors, chunk, tol, dtype_name, tag,
                        time_plain=False):
     """K4b on ``tensors`` (as ``k4_inputs`` returns them) from K4f's out and
-    lse against the plain version, slice by slice; fails over a limit.
-    Returns a dict of the readings, the kernel's gradients, out and lse."""
+    lse against the plain version, slice by slice (the 3xTF32 family against
+    it in fp64, which the family's centered delta needs: the fp32 plain
+    version's own gradients read up to 1e-4 against fp64 where dP nearly
+    cancels delta; the others, which take delta as it does, against it in
+    fp32 on the same values); fails over a limit. Checks that the
+    call launched once, on the family the C rule names. Returns a dict of
+    the readings, the kernel's gradients, out and lse."""
     import torch
     q, k, v, dout, coords3, slopes, key_mask = tensors
     b, h, _, d = q.shape
     scale = d ** -0.5
+    fam = af.card_family(q)
     out, lse = af.alibi_flash_attention_cuda(q, k, v, coords3, slopes,
                                              key_mask, scale)
+    before = k4_family_counts()["bwd"]
     got = af.alibi_flash_attention_backward_cuda(
         q, k, v, coords3, slopes, key_mask, out, lse, dout, scale)
+    after = k4_family_counts()["bwd"]
+    check(after[fam] == before[fam] + 1 and
+          sum(after.values()) == sum(before.values()) + 1,
+          f"{tag}: launches by family {before} -> {after}, want one on {fam}")
     torch.cuda.synchronize()
+    exact = torch.float64 if fam == "tf32x3" else torch.float32
     err = bound = plain_ms = rel = row = 0.0
     for n_done, (bs, hs) in enumerate(k4_slices(b, h, chunk)):
-        def plain(cast=torch.Tensor.float):
+        def plain(cast=lambda t: t.to(exact)):
             return af.alibi_attention_backward_reference(
                 cast(q[bs, hs]), cast(k[bs, hs]), cast(v[bs, hs]),
                 coords3[bs], slopes[hs], key_mask[bs],
@@ -2294,15 +2454,17 @@ def k4_backward_errors(af, tensors, chunk, tol, dtype_name, tag,
     dead = ~key_mask
     check(all(bool((gt.transpose(1, 2)[dead] == 0).all()) for gt in got[1:]),
           f"{tag}: a masked key has non-zero dk or dv")
-    return (dict(err=err, bound=bound, rel=rel, row=row, plain_ms=plain_ms),
-            got, out, lse)
+    return (dict(err=err, bound=bound, rel=rel, row=row, plain_ms=plain_ms,
+                 family=fam), got, out, lse)
 
 
 def phase_k4b(device, shapes=K4_SHAPES, iters=10):
-    """K4b against its plain version from the same out and lse (K4f's),
-    fp32 and bf16, whole or slice by slice, in bf16 also on a mask with
-    dead key tiles between live ones, and two runs bit-equal; times in
-    bf16 of the kernel, the plain version and autograd through one
+    """K4b against its plain version from the same out and lse (K4f's) in
+    both dtypes: bf16 (the wgmma family) against the plain version in fp32
+    on the same values, fp32 (the 3xTF32 family) against it in fp64, slice
+    by slice, each also on a mask with dead key tiles between live ones,
+    the family checked, and two runs bit-equal; times in bf16 of the
+    kernel, the plain version and autograd through one
     ``scaled_dot_product_attention`` call with the dense bias, and in fp32
     the same on both clocks (:func:`k4_fp32_times`). Returns {name: result
     dict}."""
@@ -2323,16 +2485,24 @@ def phase_k4b(device, shapes=K4_SHAPES, iters=10):
                 time_plain=dtype == torch.bfloat16)
             res[dt], res[dt + "_bound"] = r["err"], r["bound"]
             res[dt + "_rel"], res[dt + "_row"] = r["rel"], r["row"]
+            res[dt + "_family"] = r["family"]
+
+            def kernel():
+                return af.alibi_flash_attention_backward_cuda(
+                    q, k, v, coords3, slopes, key_mask, out, lse, dout,
+                    scale)
+            check(all(torch.equal(x, y) for x, y in zip(kernel(), got)),
+                  f"{tag}: two runs are not bit-equal")
+            # dead key tiles between live ones
+            holes = k4_inputs(b, h, n, d, dtype, device, seed=550 + i,
+                              holes=True)
+            res[dt + "_holes"] = k4_backward_errors(
+                af, holes, chunk, tol, dt, f"{tag} holes")[0]
+            del holes
             if dtype == torch.float32:
                 del got
                 res["fp32"] = k4_fp32_times(af, tensors, chunk, (out, lse))
             if dtype == torch.bfloat16:
-                def kernel():
-                    return af.alibi_flash_attention_backward_cuda(
-                        q, k, v, coords3, slopes, key_mask, out, lse, dout,
-                        scale)
-                check(all(torch.equal(x, y) for x, y in zip(kernel(), got)),
-                      f"{tag}: two runs are not bit-equal")
                 res["plain_ms"] = r["plain_ms"]
                 res["ms"] = time_ms(kernel, iters, warmup=1)
                 res["bound_ms"], res["bound_by"] = attention_bound(
@@ -2349,33 +2519,33 @@ def phase_k4b(device, shapes=K4_SHAPES, iters=10):
                     lib_out, leaves, dout, retain_graph=True), iters,
                     warmup=1)
                 del dense, leaves, lib_out
-                # dead key tiles between live ones
-                holes = k4_inputs(b, h, n, d, dtype, device, seed=550 + i,
-                                  holes=True)
-                res["holes"] = k4_backward_errors(
-                    af, holes, chunk, tol, dt, f"{tag} holes")[0]
-                del holes
             del tensors, q, k, v, dout, out, lse
             torch.cuda.empty_cache()
-        print(f"K4b {name} B={b} H={h} N={n} D={d}: fp32 dq/dk/dv "
+        print(f"K4b {name} B={b} H={h} N={n} D={d} (each dtype also with "
+              f"dead tiles between live ones; two runs bit-equal in each): "
+              f"fp32 ({res['float32_family']}) against fp64 dq/dk/dv "
               f"{res['float32']:.3e} (bound {res['float32_bound']:.2e}), "
               f"rel-L2 {res['float32_rel']:.3e}, row-scaled "
-              f"{res['float32_row']:.3e} | bf16 {res['bfloat16']:.3e} (bound "
+              f"{res['float32_row']:.3e}; with holes rel-L2 "
+              f"{res['float32_holes']['rel']:.3e}, row-scaled "
+              f"{res['float32_holes']['row']:.3e} | bf16 "
+              f"({res['bfloat16_family']}) {res['bfloat16']:.3e} (bound "
               f"{res['bfloat16_bound']:.2e}), rel-L2 "
               f"{res['bfloat16_rel']:.3e}, row-scaled "
-              f"{res['bfloat16_row']:.3e}, two runs bit-equal | bf16 with "
-              f"dead tiles between live ones rel-L2 "
-              f"{res['holes']['rel']:.3e}, row-scaled "
-              f"{res['holes']['row']:.3e} | kernel {res['ms']:.4f} ms, "
-              f"plain {res['plain_ms']:.4f} ms, library (autograd through "
-              f"SDPA with a dense bias) {res['library_ms']:.4f} ms, bound "
-              f"{res['bound_ms']:.5f} ms ({res['bound_by']})", flush=True)
+              f"{res['bfloat16_row']:.3e}; with holes rel-L2 "
+              f"{res['bfloat16_holes']['rel']:.3e}, row-scaled "
+              f"{res['bfloat16_holes']['row']:.3e} | bf16 kernel "
+              f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, library "
+              f"(autograd through SDPA with a dense bias) "
+              f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.5f} ms "
+              f"({res['bound_by']})", flush=True)
         print(f"K4b {name}: kernel / library = "
               f"{res['ms'] / res['library_ms']:.3f}", flush=True)
         print(fmt_fp32_times(f"K4b {name} B={b} H={h} N={n} D={d}",
-                             res["fp32"]) + f", 3xTF32 bound "
-              f"{res['fp32']['tf32x3_bound_ms']:.5f} ms", flush=True)
+                             res["fp32"]) + f", CUDA-core bound "
+              f"{res['fp32']['cuda_cores_bound_ms']:.5f} ms", flush=True)
         results[name] = res
+    results[K4_CUDA_CORES[0]] = k4_cuda_cores(af, device, backward=True)
     return results
 
 
@@ -2599,6 +2769,7 @@ def phase_slice(device, dtype, build_kw=None, timing_rounds=3, card="",
     k2_families = check_k2_families(
         tag, launches, k2_branch_calls(model) * len(batches))
     families = check_dilated_families(tag, launches, dtype)
+    k4_families = check_k4_families(tag, launches, dtype)
     per = calls_per_forward(model)
     for i, out in enumerate(outs):
         check(tuple(out.shape) == (1, 3, model.cfg.adapter.output_dim),
@@ -2665,7 +2836,8 @@ def phase_slice(device, dtype, build_kw=None, timing_rounds=3, card="",
           f"{'; ' + card if card else ''}", flush=True)
     return dict(launches=launches, cosine=cos, rel_l2=rel, ms=ms,
                 peak_bytes=peak, per_slide=per, k2_families=k2_families,
-                families=families, outs=[o.detach().cpu() for o in outs])
+                families=families, k4_families=k4_families,
+                outs=[o.detach().cpu() for o in outs])
 
 
 # Trainable tensors whose gradient is exactly zero in exact arithmetic and
@@ -2788,6 +2960,97 @@ def k2_call_readings(fn, tag, dtype_name="bfloat16"):
     return result, seen
 
 
+def k4_call_readings(fn, tag, chunk=2):
+    """``(fn(), readings)``: every K4f and K4b launch while ``fn()`` runs
+    (an fp32 TITAN step's) held to the plain version in fp64 on the same
+    inputs, a (batch row, head chunk) slice at a time (:func:`k4_slices`),
+    with the plain version in fp32 against the same fp64 beside it: out's
+    and the gradients' worst (rel-L2, row-scaled) by
+    :func:`grad_readings` and lse's max|err| over the launches. Fails
+    unless every launch ran the 3xTF32 family, every reading is within the
+    fp32 limits (:data:`GRAD_LIMITS`, lse :data:`K2_LSE_LIMIT`) and the
+    kernels' worst within 2x the fp32 plain version's worst."""
+    import torch
+    af = importlib.import_module(COUNTERS["K4f"][0])
+    fwd, bwd = af.alibi_flash_attention_cuda, af.alibi_flash_attention_backward_cuda
+    r = dict(fwd=0, bwd=0, families=set(), lse=0.0, plain_lse=0.0,
+             **{key: (0.0, 0.0) for key in ("out", "grads", "plain_out",
+                                            "plain_grads")})
+
+    def worst(key, reading):
+        r[key] = tuple(map(max, r[key], reading))
+
+    def fwd_read(q, k, v, coords3, slopes, key_mask, scale, side=None):
+        out, lse = fwd(q, k, v, coords3, slopes, key_mask, scale, side=side)
+        r["fwd"] += 1
+        r["families"].add(af.card_family(q))
+        for bs, hs in k4_slices(q.shape[0], q.shape[1], chunk):
+            rest = (coords3[bs], slopes[hs],
+                    None if key_mask is None else key_mask[bs], scale)
+            want_o, want_l = af.alibi_attention_reference(
+                *(t[bs, hs].double() for t in (q, k, v)), *rest)
+            plain_o, plain_l = af.alibi_attention_reference(
+                *(t[bs, hs] for t in (q, k, v)), *rest)
+            worst("out", grad_readings(out[bs, hs], want_o, want_o))
+            worst("plain_out", grad_readings(plain_o, want_o, want_o))
+            r["lse"] = max(r["lse"], (lse[bs, hs].double() - want_l).abs()
+                           .max().item())
+            r["plain_lse"] = max(r["plain_lse"], (plain_l.double() - want_l)
+                                 .abs().max().item())
+            del want_o, want_l, plain_o, plain_l
+        return out, lse
+
+    def bwd_read(q, k, v, coords3, slopes, key_mask, out, lse, dout, scale,
+                 side=None):
+        got = bwd(q, k, v, coords3, slopes, key_mask, out, lse, dout, scale,
+                  side=side)
+        r["bwd"] += 1
+        r["families"].add(af.card_family(q))
+        for bs, hs in k4_slices(q.shape[0], q.shape[1], chunk):
+            mask = None if key_mask is None else key_mask[bs]
+
+            def plain(cast):
+                return af.alibi_attention_backward_reference(
+                    *(cast(t[bs, hs]) for t in (q, k, v)), coords3[bs],
+                    slopes[hs], mask, cast(out[bs, hs]), lse[bs, hs],
+                    cast(dout[bs, hs]), scale)
+            want, plain32 = plain(torch.Tensor.double), plain(lambda t: t)
+            for g, w, p_ in zip(got, want, plain32):
+                worst("grads", grad_readings(g[bs, hs], w, dout[bs, hs]))
+                worst("plain_grads", grad_readings(p_, w, dout[bs, hs]))
+            del want, plain32
+        return got
+
+    with mock.patch.object(af, "alibi_flash_attention_cuda", fwd_read), \
+            mock.patch.object(af, "alibi_flash_attention_backward_cuda",
+                              bwd_read):
+        result = fn()
+    torch.cuda.synchronize()
+    print(f"{tag}: the fp32 grad step's K4 launches on {sorted(r['families'])}"
+          f" held to the plain version in fp64 on the same inputs: {r['fwd']} "
+          f"K4f, worst out rel-L2 {r['out'][0]:.3e}, row-scaled "
+          f"{r['out'][1]:.3e}, lse max|err| {r['lse']:.3e}; {r['bwd']} K4b, "
+          f"worst gradient rel-L2 {r['grads'][0]:.3e}, row-scaled "
+          f"{r['grads'][1]:.3e}; the plain version in fp32 against itself in "
+          f"fp64 on the same calls: out {r['plain_out'][0]:.3e} / "
+          f"{r['plain_out'][1]:.3e}, lse {r['plain_lse']:.3e}, gradients "
+          f"{r['plain_grads'][0]:.3e} / {r['plain_grads'][1]:.3e}",
+          flush=True)
+    lim = GRAD_LIMITS["float32"]
+    check(r["families"] == {"tf32x3"} and r["fwd"] > 0 and r["bwd"] > 0,
+          f"{tag}: K4 launches {r['fwd']} and {r['bwd']} on "
+          f"{r['families']}, want some, all on tf32x3")
+    check(all(r[key][0] <= lim[0] and r[key][1] <= lim[1]
+              for key in ("out", "grads")) and r["lse"] <= K2_LSE_LIMIT,
+          f"{tag}: K4 against fp64 past the fp32 limits {lim}: {r}")
+    check(all(r[key][i] <= 2 * r["plain_" + key][i]
+              for key in ("out", "grads") for i in (0, 1)),
+          f"{tag}: K4 against fp64 past 2x the fp32 plain version's own "
+          f"error: {r}")
+    r["families"] = sorted(r["families"])
+    return result, r
+
+
 def timed_build(device, tag, build_kw):
     """:func:`build_train` of ``build_kw``, its time and sizes printed."""
     import torch
@@ -2839,6 +3102,7 @@ def drive_train(device, model, tcfg, opt, text, batch, tag, card="",
                                     again.get("K2", 0) * steps,
                                     fp32=frozen_dtype == torch.float32)
     families = check_dilated_families(tag, launches, frozen_dtype)
+    k4_families = check_k4_families(tag, launches, frozen_dtype)
     per = calls_per_forward(model)
     per_step = {f"{k}{d}": n + (again.get(k, 0) if d == "f" else 0)
                 for k, n in per.items() for d in "fb"}
@@ -2885,7 +3149,7 @@ def drive_train(device, model, tcfg, opt, text, batch, tag, card="",
           f"{'; ' + card if card else ''}", flush=True)
     return dict(launches=launches, per_step=per_step, ms=ms, peak_bytes=peak,
                 base_bytes=base, losses=losses, k2_families=k2_families,
-                families=families, times=times,
+                families=families, k4_families=k4_families, times=times,
                 gc_ms=statistics.median(in_gc), gc_times=in_gc)
 
 
@@ -3026,50 +3290,61 @@ def k5_fp32_readings(device, shape=(30720, 3072), eps=1e-5, iters=10):
 
 
 def phase_train_fp32(device, bf16, card="", build_kw=None,
-                     fused_kw=None, branch_bf16=None):
-    """The ``--bf16 0`` user's step: the train step at 10,239 under
-    ``"flash"`` with the frozen backbone in fp32 (no autocast), on the
-    kernels alone, on the default route, on the fused route
+                     fused_kw=None, branch_bf16=None, titan_bf16=None,
+                     titan_kw=None):
+    """The ``--bf16 0`` user's step: the train step under ``"flash"`` with
+    the frozen backbone in fp32 (no autocast), on the kernels alone:
+    GigaPath at 10,239 on the default route, on the fused route
     (``mega_attention=False`` with the fused GELU -> LayerNorm) and on the
     per-branch route (``fused_attention=False``, the CLI's
-    ``--fused_attention 0 --bf16 0``): :func:`drive_train`'s checked and
-    timed steps (every K1f and K1b, or K3f and K3b, on the 3xTF32 family;
-    every K2 at D = 48 on K2's 3xTF32 family ``tf32x3`` and every adapter
-    K2 on the fp32 short-side family, 3xTF32 too, none on the CUDA cores;
-    K5 on the generic kernels), the generic K5 kernels held to their plain
-    versions at the step's FFN shape (:func:`k5_fp32_readings`), and on
-    the per-branch route every K2 launch of one grad step at 10,239 held
-    to its plain version on the same inputs at the fp32 limits
-    (:func:`k2_call_readings`); each step's ms/step and peak printed
-    beside the bf16 step's (``bf16``, :func:`phase_train`'s result; on the
-    per-branch route ``branch_bf16``, that route's, where given).
-    Returns the three paths' results."""
+    ``--fused_attention 0 --bf16 0``), and TITAN at 16,383 (``TITAN``, or
+    ``titan_kw``): :func:`drive_train`'s checked and timed steps (every K1f
+    and K1b, or K3f and K3b, on the 3xTF32 family; every K2 at D = 48 on
+    K2's 3xTF32 family ``tf32x3`` and every adapter K2 on the fp32
+    short-side family, 3xTF32 too, none on the CUDA cores; K5 on the
+    generic kernels; every K4f and K4b on K4's 3xTF32 family ``tf32x3``),
+    the generic K5 kernels held to their plain versions at the step's FFN
+    shape (:func:`k5_fp32_readings`), on the per-branch route every K2
+    launch of one grad step at 10,239 held to its plain version on the
+    same inputs at the fp32 limits (:func:`k2_call_readings`) and on TITAN
+    every K4 launch of one grad step held to the plain version in fp64
+    (:func:`k4_call_readings`); each step's ms/step and peak printed beside
+    the bf16 step's (``bf16``, :func:`phase_train`'s result; on the
+    per-branch route ``branch_bf16`` and on TITAN ``titan_bf16``, that
+    path's, where given). Returns the four paths' results."""
     import torch
     from modaltune_tpu_torch import make_grad_step
     out = {}
-    for tag, kw, pair in (("fp32 train", build_kw or GIGAPATH, ("K1f", "K1b")),
-                          ("fused fp32 train", fused_kw or GIGAPATH_FUSED,
-                           ("K3f", "K3b")),
-                          ("branch fp32 train", GIGAPATH_BRANCH, ())):
+    for tag, kw, pair, ref in (
+            ("fp32 train", build_kw or GIGAPATH, ("K1f", "K1b"), bf16),
+            ("fused fp32 train", fused_kw or GIGAPATH_FUSED, ("K3f", "K3b"),
+             bf16),
+            ("branch fp32 train", GIGAPATH_BRANCH, (), branch_bf16 or bf16),
+            ("titan fp32 train", titan_kw or TITAN, ("K4f", "K4b"),
+             titan_bf16 or bf16)):
         model, tcfg, opt, text, batch = timed_build(
             device, tag, dict(kw, frozen="float32"))
         res = drive_train(device, model, tcfg, opt, text, batch, tag, card)
+
+        def grad_step():
+            gen = torch.Generator(device=device).manual_seed(2)
+            loss = make_grad_step(model, tcfg)(batch, text, gen)[0]
+            torch.cuda.synchronize()
+            return float(loss)
         if not pair:   # the per-branch route: every K2 of a grad step held
-            def grad_step():
-                gen = torch.Generator(device=device).manual_seed(2)
-                loss = make_grad_step(model, tcfg)(batch, text, gen)[0]
-                torch.cuda.synchronize()
-                return float(loss)
             _, res["k2_calls"] = k2_call_readings(grad_step, tag, "float32")
+        if pair == ("K4f", "K4b"):   # TITAN: every K4 of a grad step held
+            _, res["k4_calls"] = k4_call_readings(grad_step, tag)
         del model, opt, batch
         torch.cuda.empty_cache()
-        check(all(res["families"][key]["tf32x3"] == res["launches"][key] > 0
+        fams = {"K4f": res["k4_families"]["fwd"],
+                "K4b": res["k4_families"]["bwd"], **res["families"]}
+        check(all(fams[key]["tf32x3"] == res["launches"][key] > 0
                   for key in pair),
-              f"{tag}: {pair} launches by family {res['families']}, want "
-              f"all on the 3xTF32 family")
+              f"{tag}: {pair} launches by family {fams}, want all on the "
+              f"3xTF32 family")
         if res["launches"]["K5f"]:
             res["k5_fp32"] = k5_fp32_readings(device)
-        ref = branch_bf16 if not pair and branch_bf16 else bf16
         print(f"{tag}: {res['ms']:.2f} ms/step, peak "
               f"{res['peak_bytes'] / 2**30:.3f} GiB, against the bf16 step's "
               f"{ref['ms']:.2f} ms/step, "
@@ -5536,17 +5811,20 @@ def main() -> int:
               f"{sum(1 for x in spills if x)} spill, at most {max(spills)} "
               f"bytes of spill loads")
     # K2's wgmma kernels (namespace mt::fwg), the 3xTF32 dilated core
-    # (mt::dtf), K2's 3xTF32 kernels at D = 48 (mt::ftf) and its fp32
+    # (mt::dtf), K2's 3xTF32 kernels at D = 48 (mt::ftf), its fp32
     # short-side kernels (mt::sst, printed at the adapter's 65 resident
-    # rows, ILi5E) one by one: none may spill
+    # rows, ILi5E) and K4's 3xTF32 kernels at D = 64 (mt::atf) one by one:
+    # none may spill
     for block in info["log"].split("Compiling entry function")[1:]:
         name = block.split("'")[1]
-        if not any(ns in name for ns in ("3fwg", "3dtf", "3ftf", "3sst")):
+        if not any(ns in name for ns in ("3fwg", "3dtf", "3ftf", "3sst",
+                                         "3atf")):
             continue
         used = re.search(r"Used (\d+) registers", block).group(1)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", block).groups()
-        short = re.search(r"\d+((?:flash|dilated)_\w+?_kernel)", name).group(1)
+        short = re.search(r"\d+((?:flash|dilated|alibi)_\w+?_kernel)",
+                          name).group(1)
         if "3sst" not in name or "ILi5E" in name:
             print(f"build: {short}: {used} registers at launch, spill stores "
                   f"{spill[0]}, loads {spill[1]} bytes")
@@ -5595,14 +5873,7 @@ def main() -> int:
     paths["gigapath_branch_train"] = phase_train(
         device, card=card, build_kw=GIGAPATH_BRANCH, compare_kw=GIGAPATH_2047,
         tag="branch train", k2_calls=True)
-    # the --bf16 0 user's step: the default, the fused and the per-branch
-    # route with an fp32 backbone (K1, K3 and K2 on 3xTF32 families)
-    fp32 = phase_train_fp32(device, paths["gigapath_train"], card=card,
-                            branch_bf16=paths["gigapath_branch_train"])
-    paths["gigapath_fp32_train"] = fp32["fp32 train"]
-    paths["gigapath_fused_fp32_train"] = fp32["fused fp32 train"]
-    paths["gigapath_branch_fp32_train"] = fp32["branch fp32 train"]
-    lap("GigaPath embed and train steps, three routes, the fp32 step")
+    lap("GigaPath embed and train steps, three routes")
     # ModalTune-TITAN: the embed step, the train step
     paths["titan_embed"] = phase_slice(
         device, torch.bfloat16, card=card, build_kw=TITAN, timing_rounds=2,
@@ -5610,9 +5881,20 @@ def main() -> int:
     paths["titan_train"] = phase_train(
         device, card=card, build_kw=TITAN, compare_kw=TITAN_2047,
         tag="titan train")
+    lap("TITAN embed and train steps")
+    # the --bf16 0 user's step: GigaPath on the default, the fused and the
+    # per-branch route and TITAN, with an fp32 backbone (K1, K3, K2 and K4
+    # on 3xTF32 families)
+    fp32 = phase_train_fp32(device, paths["gigapath_train"], card=card,
+                            branch_bf16=paths["gigapath_branch_train"],
+                            titan_bf16=paths["titan_train"])
+    paths["gigapath_fp32_train"] = fp32["fp32 train"]
+    paths["gigapath_fused_fp32_train"] = fp32["fused fp32 train"]
+    paths["gigapath_branch_fp32_train"] = fp32["branch fp32 train"]
+    paths["titan_fp32_train"] = fp32["titan fp32 train"]
+    lap("the fp32 steps: GigaPath's three routes, TITAN")
     # data parallelism over a world of one (NCCL) and the 2-rank
     # sequence-parallel step (gloo), each held to the single-device step
-    lap("TITAN embed and train steps")
     par = phase_parallel(device, card=card)
     lap("parallel")
     paths["gigapath_dp_train"] = dict(launches=par["dp_launches"])
@@ -5757,6 +6039,24 @@ def main() -> int:
                 for fam in out["source_by_family"]}
             check(out["launches_by_family"]["tf32x3"] > 0,
                   f"{name}: the 3xTF32 family was launched on no path")
+        if key in ("K4f", "K4b"):
+            # by family: bf16 wgmma and the CUDA cores in `name`.cu, fp32
+            # 3xTF32 in alibi_tf32_*.cu; launches summed over the paths that
+            # record them; the fp32 family's readings at N = 16,384
+            side = "bwd" if key.endswith("b") else "fwd"
+            af = importlib.import_module(COUNTERS[key][0])
+            out["source_by_family"] = {
+                fam: f"modaltune_tpu_torch/csrc/"
+                     f"{f'alibi_tf32_{side}' if fam == 'tf32x3' else name}.cu"
+                for fam in af.FAMILIES}
+            out["launches_by_family"] = {
+                fam: sum(r["k4_families"][side][fam] for r in paths.values()
+                         if "k4_families" in r) for fam in af.FAMILIES}
+            check(out["launches_by_family"]["tf32x3"] > 0
+                  and out["launches_by_family"]["wgmma"] > 0,
+                  f"{name}: a Hopper family launched on no path: "
+                  f"{out['launches_by_family']}")
+            out["fp32"] = res["fp32"]
         if key in ("K1b", "K3b"):
             out["fp32"] = res["fp32"]
             if big is not None:

@@ -46,6 +46,7 @@
 // * fp32 (tests and oracles), and bf16 at any other D <= 128 (no model of the
 //   package has one): K2b's kernels on CUDA cores with fp32 arithmetic. The
 //   Hopper frame serves D = 64 alone.
+#include "alibi_tf32.cuh"
 #include "attention_bwd_common.cuh"
 #include "attention_wgmma.cuh"
 
@@ -630,15 +631,18 @@ cudaError_t dispatch_alibi_bwd(int DP, const void* q, const void* k, const void*
 // 1 = bfloat16); coords (B, N, 3), slopes (H,), bias (B, N) or null, lse and
 // delta (B, H, N), all fp32. bf16 at D = 64 runs on the Hopper frame and
 // needs the side inputs (see wg::SideInputs), lse2 and delta_pad
-// (B, H, NP); every other case ignores them. Returns a cudaError_t; 0 means
-// both kernels were launched.
+// (B, H, NP); fp32 at D = 64 runs the 3xTF32 family and needs the side
+// inputs, out and the fp32 scratch `work` (see launch_alibi_tf32_bwd), and makes its
+// own delta (it reads neither delta, lse2 nor delta_pad); every other case
+// ignores them. Returns a cudaError_t; 0 means the kernels were launched.
 extern "C" int mt_alibi_attention_bwd(const void* q, const void* k, const void* v,
                                       const void* coords, const void* slopes, const void* bias,
                                       const void* dout, const void* lse, const void* delta,
                                       void* dq, void* dk, void* dv, int B, int H, int N, int D,
                                       float scale, int dtype, const void* coords_t,
                                       const void* key_add, const void* tile_live,
-                                      const void* lse2, const void* delta_pad, void* stream) {
+                                      const void* lse2, const void* delta_pad, const void* out,
+                                      void* work, void* stream) {
   const int DP = mt::padded_head_dim(D);
   if (DP < 0 || B < 1 || H < 1 || B * H > 65535 || N < 1) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
@@ -647,10 +651,24 @@ extern "C" int mt_alibi_attention_bwd(const void* q, const void* k, const void* 
   const auto bs = static_cast<const float*>(bias);
   const auto l = static_cast<const float*>(lse);
   const auto dl = static_cast<const float*>(delta);
+  const int fam = mt::alibi_family(D, dtype);
+  if (fam == mt::kAlibiTf32x3) {
+    if (coords_t == nullptr || key_add == nullptr || tile_live == nullptr || out == nullptr ||
+        work == nullptr)
+      return cudaErrorInvalidValue;
+    const mt::wg::SideInputs side{static_cast<const float*>(coords_t),
+                                  static_cast<const float*>(key_add),
+                                  static_cast<const int*>(tile_live)};
+    return mt::launch_alibi_tf32_bwd(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        side, sl, static_cast<const float*>(dout), static_cast<const float*>(out), l,
+        static_cast<float*>(work), static_cast<float*>(dq), static_cast<float*>(dk),
+        static_cast<float*>(dv), B, H, N, scale, s);
+  }
   if (dtype == 0)
     return mt::dispatch_alibi_bwd<float>(DP, q, k, v, c, sl, bs, dout, l, dl, dq, dk, dv, B, H,
                                          N, D, scale, s);
-  if (dtype == 1 && D == mt::wg::kD) {
+  if (fam == mt::kAlibiWgmma) {
     if (coords_t == nullptr || key_add == nullptr || tile_live == nullptr || lse2 == nullptr ||
         delta_pad == nullptr)
       return cudaErrorInvalidValue;

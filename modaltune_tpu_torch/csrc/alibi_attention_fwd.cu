@@ -52,6 +52,7 @@
 //   fp32 arithmetic and IEEE sqrt, four rows per warp. The Hopper frame
 //   serves D = 64 alone, where a row of a tile is exactly one 128-byte
 //   swizzled line.
+#include "alibi_tf32.cuh"
 #include "attention_wgmma.cuh"
 
 namespace mt {
@@ -360,10 +361,15 @@ cudaError_t dispatch_alibi(int DP, const void* q, const void* k, const void* v,
 
 }  // namespace mt
 
-// dtype: 0 = float32, 1 = bfloat16. bias may be null (no masking). bf16 at
-// D = 64 runs on the Hopper frame and needs the side inputs (see
-// wg::SideInputs); every other case ignores them. Returns a cudaError_t;
-// 0 means the kernel was launched.
+// The family that serves (D, dtype) (0 = float32, 1 = bfloat16): 0 the
+// CUDA-core kernels, 1 the bf16 Hopper frame (attention_wgmma.cuh), 2 the
+// fp32 3xTF32 family (alibi_tf32.cuh). ops/alibi_flash.py asks it.
+extern "C" int mt_alibi_family(int D, int dtype) { return mt::alibi_family(D, dtype); }
+
+// dtype: 0 = float32, 1 = bfloat16. bias may be null (no masking). At D = 64
+// bf16 runs on the Hopper frame and fp32 on the 3xTF32 family; both need the
+// side inputs (see wg::SideInputs); every other case ignores them. Returns a
+// cudaError_t; 0 means the kernel was launched.
 extern "C" int mt_alibi_attention_fwd(const void* q, const void* k, const void* v,
                                       const void* coords, const void* slopes, const void* bias,
                                       void* out, void* lse, int B, int H, int N, int D,
@@ -377,16 +383,21 @@ extern "C" int mt_alibi_attention_fwd(const void* q, const void* k, const void* 
   const auto sl = static_cast<const float*>(slopes);
   const auto bs = static_cast<const float*>(bias);
   const auto l = static_cast<float*>(lse);
-  if (dtype == 0)
-    return mt::dispatch_alibi<float>(DP, q, k, v, c, sl, bs, out, l, B, H, N, D, scale, s);
-  if (dtype == 1 && D == mt::wg::kD) {
+  const int fam = mt::alibi_family(D, dtype);
+  if (fam != mt::kAlibiCudaCores) {
     if (coords_t == nullptr || key_add == nullptr || tile_live == nullptr)
       return cudaErrorInvalidValue;
     const mt::wg::SideInputs side{static_cast<const float*>(coords_t),
                                   static_cast<const float*>(key_add),
                                   static_cast<const int*>(tile_live)};
+    if (fam == mt::kAlibiTf32x3)
+      return mt::launch_alibi_tf32_fwd(static_cast<const float*>(q), static_cast<const float*>(k),
+                                       static_cast<const float*>(v), side, sl,
+                                       static_cast<float*>(out), l, B, H, N, scale, s);
     return mt::launch_alibi_wg(q, k, v, side, sl, out, l, B, H, N, scale, s);
   }
+  if (dtype == 0)
+    return mt::dispatch_alibi<float>(DP, q, k, v, c, sl, bs, out, l, B, H, N, D, scale, s);
   if (dtype == 1)
     return mt::dispatch_alibi<__nv_bfloat16>(DP, q, k, v, c, sl, bs, out, l, B, H, N, D, scale,
                                              s);

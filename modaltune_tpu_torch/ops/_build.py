@@ -47,7 +47,8 @@ SIGNATURES = {
                                ctypes.c_float, _I, _P, _P, _P, _P],
     "mt_alibi_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, ctypes.c_float, _I, _P, _P, _P,
-                               _P, _P, _P],
+                               _P, _P, _P, _P, _P],
+    "mt_alibi_family": [_I, _I],
     "mt_dilated_fused_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _P, _P, _I, ctypes.c_float, _I, _P],
     "mt_dilated_fused_fwd_part": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,

@@ -2,13 +2,15 @@
 (the TITAN backbone's attention).
 
 Counterpart of ``modaltune_tpu/ops/alibi_flash.py``. A CUDA tensor goes to
-the hand-written Hopper kernels ``csrc/alibi_attention_fwd.cu`` (K4f) and,
-for the gradient, ``csrc/alibi_attention_bwd.cu`` (K4b): bf16 at D = 64
-(the model's case) on the Hopper frame ``csrc/attention_wgmma.cuh``, which
-reads the side inputs made here once per forward and kept for its backward
-(lane-major coordinates, a key term of 0 or ``-inf``, the live 64-key
-tiles); fp32, and bf16 at any other D, on CUDA cores. A CPU tensor goes
-to :func:`alibi_attention_reference` and
+the hand-written Hopper kernels behind ``csrc/alibi_attention_fwd.cu``
+(K4f) and, for the gradient, ``csrc/alibi_attention_bwd.cu`` (K4b), in
+three families (:func:`family`): at D = 64 (the model's case) bf16 on the
+Hopper frame ``csrc/attention_wgmma.cuh`` (``"wgmma"``) and fp32 on the
+3xTF32 kernels ``csrc/alibi_tf32_{fwd,bwd}.cu`` (``"tf32x3"``), both
+reading the side inputs made here once per forward and kept for its
+backward (lane-major coordinates, a key term of 0 or ``-inf``, the live
+64-key tiles); any other D on CUDA cores (``"cuda_cores"``). A CPU tensor
+goes to :func:`alibi_attention_reference` and
 :func:`alibi_attention_backward_reference`, the plain PyTorch versions of
 the same functions, which are also the kernels' oracles.
 
@@ -37,20 +39,32 @@ import torch.nn.functional as F
 from ._build import check_launch, load_library
 from .flash_attention import _DTYPE_CODES, MASK_THRESHOLD, NEG_INF
 
-# Kernel launches since the last reset (read by chip_smoke.py): K4f and K4b.
+# The kernel families, by the code of the C rule (mt_alibi_family).
+FAMILIES = ("cuda_cores", "wgmma", "tf32x3")
+
+# Kernel launches since the last reset (read by chip_smoke.py): K4f and K4b,
+# and the same by family.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+FAMILY_LAUNCHES = dict.fromkeys(FAMILIES, 0)
+BWD_FAMILY_LAUNCHES = dict.fromkeys(FAMILIES, 0)
 
 
-def alibi_scores_bias(coords3: torch.Tensor, slopes: torch.Tensor
-                      ) -> torch.Tensor:
-    """The dense (B, H, N, N) fp32 ALiBi term of the scores, for the plain
-    versions: ``-slope_h * dist_ij * not_cls_ij``."""
-    c = coords3.float()
+def _plain_dtype(q: torch.Tensor) -> torch.dtype:
+    """fp32 for fp32 and bf16 inputs; fp64 for fp64 ones (the fp64 oracle)."""
+    return torch.promote_types(q.dtype, torch.float32)
+
+
+def alibi_scores_bias(coords3: torch.Tensor, slopes: torch.Tensor,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The dense (B, H, N, N) ALiBi term of the scores in ``dtype`` (fp32
+    unless given), for the plain versions: ``-slope_h * dist_ij *
+    not_cls_ij``."""
+    c = coords3.to(dtype)
     d = c[:, :, None, :2] - c[:, None, :, :2]
     dist = torch.sqrt((d * d).sum(dim=-1))
     not_cls = (1.0 - c[:, :, None, 2]) * (1.0 - c[:, None, :, 2])
-    return -slopes.float()[None, :, None, None] * (dist * not_cls)[:, None]
+    return -slopes.to(dtype)[None, :, None, None] * (dist * not_cls)[:, None]
 
 
 def alibi_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -59,22 +73,24 @@ def alibi_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               key_mask: Optional[torch.Tensor] = None,
                               scale: Optional[float] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch ALiBi attention with the kernel's semantics, in fp32.
+    """Plain PyTorch ALiBi attention with the kernel's semantics, in fp32
+    (in fp64 for fp64 inputs: the oracle of the fp32 kernels on the card).
 
     q/k/v: (B, H, N, D); coords3: (B, N, 3); slopes: (H,); key_mask:
     (B, N) bool. Returns ``(out (B, H, N, D) in q's dtype, lse (B, H, N)
-    fp32)``. The softmax runs over the valid keys only (a masked key's
-    probability is exactly 0 and the rest sum to 1, as the JAX oracle
-    re-normalises them). Out of place, so autograd differentiates
+    fp32, or fp64 for fp64 inputs)``. The softmax runs over the valid keys
+    only (a masked key's probability is exactly 0 and the rest sum to 1, as
+    the JAX oracle re-normalises them). Out of place, so autograd differentiates
     ``out``; ``lse`` is detached. Autocast is off inside, so the products
     stay in fp32 under the train step's bf16 autocast too, as the JAX
     package's reference computes them at HIGHEST precision.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    dt = _plain_dtype(q)
     with torch.autocast(q.device.type, enabled=False):
-        s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale \
-            + alibi_scores_bias(coords3, slopes)
+        s = torch.einsum("bhqd,bhkd->bhqk", q.to(dt), k.to(dt)) * scale \
+            + alibi_scores_bias(coords3, slopes, dt)
         if key_mask is not None:
             s = torch.where(key_mask[:, None, None, :], s, NEG_INF)
         # the shift cancels in the softmax, so it carries no gradient
@@ -84,7 +100,7 @@ def alibi_attention_reference(q: torch.Tensor, k: torch.Tensor,
         p = torch.exp(s - m)
         live = m > MASK_THRESHOLD
         l_safe = torch.where(live, p.sum(dim=-1, keepdim=True), 1.0)
-        out = (torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / l_safe
+        out = (torch.einsum("bhqk,bhkd->bhqd", p, v.to(dt)) / l_safe
                * live).to(q.dtype)
         lse = torch.where(live[..., 0],
                           m[..., 0] + torch.log(l_safe[..., 0]), NEG_INF)
@@ -104,15 +120,16 @@ def alibi_attention_backward_reference(q, k, v, coords3, slopes, key_mask,
     without a valid key (lse ``NEG_INF``) takes ``+|NEG_INF/2|`` in lse's
     place, so its P underflows to 0. Returns ``(dq, dk, dv)`` in the dtypes
     of q, k and v. In fp32 under autocast too, as
-    :func:`alibi_attention_reference`.
+    :func:`alibi_attention_reference` (in fp64 for fp64 inputs).
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    qf, kf, vf, do = q.float(), k.float(), v.float(), dout.float()
+    dt = _plain_dtype(q)
+    qf, kf, vf, do = q.to(dt), k.to(dt), v.to(dt), dout.to(dt)
     with torch.autocast(q.device.type, enabled=False):
-        delta = (do * out.float()).sum(dim=-1, keepdim=True)
+        delta = (do * out.to(dt)).sum(dim=-1, keepdim=True)
         s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale \
-            + alibi_scores_bias(coords3, slopes)
+            + alibi_scores_bias(coords3, slopes, dt)
         lse_use = torch.where(lse > MASK_THRESHOLD, lse, -MASK_THRESHOLD)
         p = torch.exp(s - lse_use[..., None])
         if key_mask is not None:
@@ -124,8 +141,8 @@ def alibi_attention_backward_reference(q, k, v, coords3, slopes, key_mask,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-# The Hopper frame of the bf16 kernels at D = 64 (csrc/attention_wgmma.cuh)
-# works on 64-row tiles.
+# The Hopper families at D = 64 (csrc/attention_wgmma.cuh for bf16,
+# csrc/alibi_tf32.cuh for fp32) work on 64-row tiles.
 TILE = 64
 WGMMA_HEAD_DIM = 64
 # a row without a valid key has lse NEG_INF; the backward puts this in its
@@ -134,10 +151,36 @@ _LSE_DEAD = 1e30
 _LOG2E = 1.4426950408889634
 
 
-def uses_wgmma(q: torch.Tensor) -> bool:
-    """Whether K4f/K4b take ``q`` to the Hopper frame (bf16, D = 64) rather
-    than to the CUDA-core kernels (fp32, and bf16 at any other D)."""
-    return q.dtype == torch.bfloat16 and q.shape[-1] == WGMMA_HEAD_DIM
+def family(q: torch.Tensor) -> str:
+    """The kernels that serve ``q``: ``"wgmma"`` (bf16 at D =
+    :data:`WGMMA_HEAD_DIM`), ``"tf32x3"`` (fp32 there) or ``"cuda_cores"``
+    (every other D).
+
+    The C entry points own this rule (``csrc/alibi_tf32.cuh::
+    alibi_family``) and the card's calls ask them (:func:`card_family`).
+    This copy serves the CPU, where no library is built;
+    ``tests/test_torch_kernels_cuda.py`` holds it equal to the library's on
+    the card."""
+    if q.shape[-1] != WGMMA_HEAD_DIM:
+        return "cuda_cores"
+    return {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}.get(
+        q.dtype, "cuda_cores")
+
+
+def card_family(q: torch.Tensor) -> str:
+    """The family that the C entry points choose for ``q`` on the card
+    (``mt_alibi_family``; a dtype no kernel takes asks with code -1, and the
+    launch raises); builds the library on first use."""
+    return FAMILIES[load_library().mt_alibi_family(
+        q.shape[-1], _DTYPE_CODES.get(q.dtype, -1))]
+
+
+def work_floats(b: int, h: int, n: int) -> int:
+    """fp32 scratch of the 3xTF32 backward: every (b, h)'s vbar (the mean of
+    its valid keys' v rows, D = 64 floats), then its delta and its lse in
+    base 2, each padded to whole 64-row tiles, in that order
+    (``csrc/alibi_tf32_bwd.cu::launch_alibi_tf32_bwd``)."""
+    return b * h * (WGMMA_HEAD_DIM + 2 * (-(-n // TILE) * TILE))
 
 
 def lane_major_coords(coords3: torch.Tensor) -> torch.Tensor:
@@ -227,6 +270,14 @@ def _check(q, k, v, coords3, slopes, key_mask):
                          f"{q.device}")
 
 
+def _check_aligned(fam: str, *tensors) -> None:
+    """The Hopper families read and write 16-byte chunks (TMA, cp.async):
+    a view that does not start on a 16-byte boundary raises."""
+    if fam != "cuda_cores" and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"the {fam} kernels take 16-byte aligned q, k, v, "
+                         f"out and dout")
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
@@ -234,7 +285,8 @@ def _ptr(t: Optional[torch.Tensor]):
 def alibi_flash_attention_cuda(q, k, v, coords3, slopes, key_mask,
                                scale: float, side=None
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the K4f kernel on ``q``'s device and current stream. ``side``:
+    """Launch the K4f kernel of ``q``'s family (:func:`card_family`) on
+    ``q``'s device and current stream, or raise. ``side``:
     :func:`wgmma_side_inputs` of these coords and mask, where the caller
     holds them already."""
     global LAUNCHES
@@ -243,7 +295,9 @@ def alibi_flash_attention_cuda(q, k, v, coords3, slopes, key_mask,
     out = torch.empty_like(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     bias = None
-    if not uses_wgmma(q):
+    fam = card_family(q)
+    _check_aligned(fam, q, k, v)
+    if fam == "cuda_cores":
         bias, side = _key_bias(key_mask), [None] * 3
     elif side is None:
         side = wgmma_side_inputs(coords3, key_mask, b, n)
@@ -257,16 +311,20 @@ def alibi_flash_attention_cuda(q, k, v, coords3, slopes, key_mask,
             *map(_ptr, side), stream)
     check_launch(err, "mt_alibi_attention_fwd")
     LAUNCHES += 1
+    FAMILY_LAUNCHES[fam] += 1
     return out, lse
 
 
 def alibi_flash_attention_backward_cuda(q, k, v, coords3, slopes, key_mask,
                                         out, lse, dout, scale: float,
                                         side=None):
-    """Launch the K4b kernels (dq, then dk/dv) on ``q``'s device and current
-    stream. ``delta = rowsum(dout * out)`` is computed here in torch, as
-    the JAX package computes it outside its Pallas kernels. ``side``: the
-    forward's :func:`wgmma_side_inputs`, where the caller kept them."""
+    """Launch the K4b kernels of ``q``'s family (:func:`card_family`; dq,
+    then dk/dv) on ``q``'s device and current stream, or raise. The
+    ``"tf32x3"`` kernels make ``delta = rowsum(dout * out)`` themselves
+    (centered, ``csrc/alibi_tf32_bwd.cu``) in fp32 scratch allocated here;
+    for the other families it is computed here in torch, as the JAX package
+    computes it outside its Pallas kernels. ``side``: the forward's
+    :func:`wgmma_side_inputs`, where the caller kept them."""
     global BWD_LAUNCHES
     _check(q, k, v, coords3, slopes, key_mask)
     b, h, n, d = q.shape
@@ -278,39 +336,53 @@ def alibi_flash_attention_backward_cuda(q, k, v, coords3, slopes, key_mask,
             not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous float32 {(b, h, n)} "
                          f"tensor")
-    delta = (dout.float() * out.float()).sum(dim=-1).contiguous()
+    if out.shape != q.shape or out.dtype != q.dtype or \
+            out.device != q.device or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous {q.dtype} "
+                         f"{tuple(q.shape)} tensor on {q.device}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    bias = None
-    if not uses_wgmma(q):
+    fam = card_family(q)
+    _check_aligned(fam, q, k, v, out, dout)
+    bias = delta = work = None
+    if fam != "tf32x3":
+        delta = (dout.float() * out.float()).sum(dim=-1).contiguous()
+    if fam == "cuda_cores":
         bias, side = _key_bias(key_mask), [None] * 5
     else:
         if side is None:
             side = wgmma_side_inputs(coords3, key_mask, b, n)
-        side = [*side, *backward_rows(lse, delta)]
+        if fam == "wgmma":
+            side = [*side, *backward_rows(lse, delta)]
+        else:
+            side = [*side, None, None]
+            work = torch.empty(work_floats(b, h, n), dtype=torch.float32,
+                               device=q.device)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mt_alibi_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), coords3.data_ptr(),
             slopes.data_ptr(), _ptr(bias), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _ptr(delta), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, h, n, d, float(scale), _DTYPE_CODES[q.dtype],
-            *map(_ptr, side), stream)
+            *map(_ptr, side), out.data_ptr(), _ptr(work), stream)
     check_launch(err, "mt_alibi_attention_bwd")
     BWD_LAUNCHES += 1
+    BWD_FAMILY_LAUNCHES[fam] += 1
     return dq, dk, dv
 
 
 class _AlibiFlashAttention(torch.autograd.Function):
     """K4f forward, K4b backward on CUDA tensors; the plain versions on
     CPU tensors. ``lse`` is an output without a gradient. The Hopper
-    frame's side inputs are made in the forward and kept for the backward."""
+    families' side inputs are made in the forward and kept for the
+    backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, coords3, slopes, key_mask, scale):
         ctx.side = None
         if q.device.type == "cuda":
-            if uses_wgmma(q):
+            if card_family(q) != "cuda_cores":
                 ctx.side = wgmma_side_inputs(coords3, key_mask, q.shape[0],
                                              q.shape[2])
             out, lse = alibi_flash_attention_cuda(

@@ -644,8 +644,12 @@ def test_lane_major_coords_and_backward_rows():
 
 
 def test_uses_wgmma_only_for_bf16_at_64():
-    for dtype, d, want in ((torch.bfloat16, 64, True), (torch.float32, 64,
-                                                        False),
-                           (torch.bfloat16, 48, False),
-                           (torch.bfloat16, 128, False)):
-        assert af.uses_wgmma(torch.zeros(1, 1, 2, d, dtype=dtype)) is want
+    """The family rule's CPU copy: the wgmma family for bf16 at D = 64
+    alone (fp32 there takes the 3xTF32 family, every other D the CUDA
+    cores)."""
+    for dtype, d, want in ((torch.bfloat16, 64, "wgmma"),
+                           (torch.float32, 64, "tf32x3"),
+                           (torch.bfloat16, 48, "cuda_cores"),
+                           (torch.bfloat16, 128, "cuda_cores"),
+                           (torch.float32, 48, "cuda_cores")):
+        assert af.family(torch.zeros(1, 1, 2, d, dtype=dtype)) == want

@@ -58,7 +58,10 @@ whole call. For the ALiBi
 kernels (K4) besides:
 a sequence of the cls token and a handful of cells, masks and coordinates
 that differ between batch rows (the kernels index them by ``bh / H``), and
-a batch row whose keys are all masked but the cls token. And the LongNet
+a batch row whose keys are all masked but the cls token; for K4's 3xTF32
+family (fp32 at D = 64, ``-k tf32x3_alibi``) the same masks against the
+plain version in fp64 at the fp32 limits, bit-equal reruns, the launches
+by family through the autograd Function and a misaligned view raising. And the LongNet
 layers' rematerialization: one full-width default-route grad step at the
 2,047 bucket under each policy bit-equal to remat off, with K1f's
 launches (once a layer, twice under ``"full"``).
@@ -1112,6 +1115,124 @@ def test_alibi_wrapper_raises_instead_of_falling_back(cuda_device):
     z = torch.zeros(1, 2, 20, 136, device=cuda_device)     # D > 128
     with pytest.raises(ValueError):
         af.alibi_flash_attention(z, z, z, coords3, slopes)
+
+
+# K4's 3xTF32 family (fp32 at D = 64, csrc/alibi_tf32_{fwd,bwd}.cu): N off
+# the tile and on it, less than a tile, one head, masks per batch row, dead
+# key tiles between live ones, a cls-only row, a dead batch row, no mask.
+TF32X3_ALIBI_CASES = [
+    (2, 3, 200, "rows"), (1, 12, 257, "rows"), (2, 5, 321, "rows"),
+    (1, 7, 40, "rows"), (2, 3, 321, None), (2, 4, 700, "holes"),
+    (2, 5, 1000, "cls_only"), (2, 2, 300, "dead"), (3, 1, 128, "rows"),
+]
+
+
+def _tf32x3_alibi_readings(q, k, v, dout, coords3, slopes, key_mask, out,
+                           lse, grads):
+    """out, lse and the gradients against the plain version in fp64, at
+    chip_smoke.py's fp32 limits (the family's centered delta is more exact
+    than the plain version in fp32, whose gradients read up to 1e-4 against
+    fp64 where dP nearly cancels delta)."""
+    want_o, want_l = af.alibi_attention_reference(
+        q.double(), k.double(), v.double(), coords3, slopes, key_mask)
+    chip_smoke.check_out(out, want_o, "float32", "out")
+    assert (lse.double() - want_l).abs().max().item() <= 1e-4
+    want = af.alibi_attention_backward_reference(
+        q.double(), k.double(), v.double(), coords3, slopes, key_mask,
+        out.double(), lse, dout.double())
+    chip_smoke.check_grads(("dq", "dk", "dv"), grads, want, dout, "float32",
+                           "grads")
+
+
+@pytest.mark.parametrize("b,h,n,mask", TF32X3_ALIBI_CASES)
+def test_tf32x3_alibi_kernels_match_plain(cuda_device, b, h, n, mask):
+    """fp32 at D = 64 runs the 3xTF32 family: K4f, then K4b from the
+    kernel's own out and lse, against the plain version in fp64 at the fp32
+    limits; masked keys get exactly zero dk and dv, a cls-only row the cls
+    key's v row, a dead batch row out 0, lse NEG_INF and zero gradients."""
+    q, k, v, dout, coords3, slopes, key_mask = _alibi_inputs(
+        b, h, n, 64, mask, cuda_device)
+    assert af.card_family(q) == "tf32x3"
+    if key_mask is not None:
+        dout = dout * key_mask[:, None, :, None]
+    out, lse = af.alibi_flash_attention_cuda(q, k, v, coords3, slopes,
+                                             key_mask, 0.125)
+    grads = af.alibi_flash_attention_backward_cuda(
+        q, k, v, coords3, slopes, key_mask, out, lse, dout, 0.125)
+    torch.cuda.synchronize()
+    _tf32x3_alibi_readings(q, k, v, dout, coords3, slopes, key_mask, out,
+                           lse, grads)
+    if key_mask is not None:
+        dead = ~key_mask[:, None, :, None].expand_as(grads[1])
+        assert (grads[1][dead] == 0).all() and (grads[2][dead] == 0).all()
+    if mask == "cls_only":
+        assert torch.allclose(out[0], v[0, :, :1].expand_as(out[0]),
+                              atol=1e-6)
+    if mask == "dead":
+        assert (out[1] == 0).all() and (lse[1] == NEG_INF).all()
+        assert all((g[1] == 0).all() for g in grads)
+
+
+def test_tf32x3_alibi_reruns_are_bit_equal(cuda_device):
+    """No atomics: two runs of K4f and of K4b give the same bits."""
+    q, k, v, dout, coords3, slopes, key_mask = _alibi_inputs(
+        2, 4, 700, 64, "holes", cuda_device)
+    runs = []
+    for _ in range(2):
+        out, lse = af.alibi_flash_attention_cuda(q, k, v, coords3, slopes,
+                                                 key_mask, 0.125)
+        runs.append((out, lse, *af.alibi_flash_attention_backward_cuda(
+            q, k, v, coords3, slopes, key_mask, out, lse, dout, 0.125)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+def test_tf32x3_alibi_launches_by_family(cuda_device):
+    """The C entry points' rule equals the CPU's copy; the autograd
+    Function launches K4f and K4b once each on the dtype's family (fp32
+    3xTF32, bf16 wgmma at D = 64; the CUDA cores at D = 32), counted by
+    family, and at fp32 agrees with autograd through the plain version in
+    fp64."""
+    for d in (16, 32, 48, 64, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.zeros(1, 1, 2, d, dtype=dtype, device=cuda_device)
+            assert af.card_family(x) == af.family(x), (d, dtype)
+    for d, dtype, fam in ((64, torch.float32, "tf32x3"),
+                          (64, torch.bfloat16, "wgmma"),
+                          (32, torch.float32, "cuda_cores")):
+        q, k, v, dout, coords3, slopes, key_mask = _alibi_inputs(
+            2, 3, 150, d, "rows", cuda_device, dtype)
+        dout = dout * key_mask[:, None, :, None]
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        for counts in (af.FAMILY_LAUNCHES, af.BWD_FAMILY_LAUNCHES):
+            counts.update(dict.fromkeys(counts, 0))
+        out = af.alibi_flash_attention(*leaves, coords3, slopes,
+                                       key_mask=key_mask)
+        got = torch.autograd.grad(out, leaves, dout)
+        want = {f: int(f == fam) for f in af.FAMILIES}
+        assert af.FAMILY_LAUNCHES == want and af.BWD_FAMILY_LAUNCHES == want
+        if fam == "tf32x3":
+            ref = [x.detach().double().requires_grad_() for x in (q, k, v)]
+            want_g = torch.autograd.grad(af.alibi_attention_reference(
+                *ref, coords3, slopes, key_mask)[0], ref, dout.double())
+            chip_smoke.check_grads(("dq", "dk", "dv"), got, want_g, dout,
+                                   "float32", "autograd")
+
+
+def test_tf32x3_alibi_wrapper_raises_on_a_misaligned_tensor(cuda_device):
+    """16-byte cp.async: an fp32 view 8 bytes off raises, forward and
+    backward; no fallback to the CUDA cores or the plain version."""
+    q, k, v, dout, coords3, slopes, key_mask = _alibi_inputs(
+        1, 2, 100, 64, "rows", cuda_device)
+    base = _randn((2 * 100 * 64 + 2,), 98, cuda_device)
+    off = base[2:].view(1, 2, 100, 64)              # 8 bytes off
+    with pytest.raises(ValueError):
+        af.alibi_flash_attention(off, k, v, coords3, slopes, key_mask)
+    out, lse = af.alibi_flash_attention_cuda(q, k, v, coords3, slopes,
+                                             key_mask, 0.125)
+    with pytest.raises(ValueError):
+        af.alibi_flash_attention_backward_cuda(q, k, v, coords3, slopes,
+                                               key_mask, out, lse, off, 0.125)
 
 
 # ---------------------------------------------------------------------------
