@@ -13,7 +13,7 @@ the forward core and the mix also each alone), times
 each beside its plain version and, where one PyTorch call computes the
 same function, beside that call (``scaled_dot_product_attention``; timed
 here, used nowhere in the port), and computes the least time the card
-could take for the same work. Then it drives thirty-one paths end to end at
+could take for the same work. Then it drives thirty-eight paths end to end at
 full published width with random weights from a seeded generator, each with
 every launch count set to 0 just before and read just after. Every train
 step runs the LongNet layers rematerialized under the configuration's
@@ -26,8 +26,9 @@ kernel. The paths:
   three synthetic 10,239-patch slides, and a few train steps (KD loss,
   AdamW on the adapter, bf16 compute, dropout on) on one;
 * the same train step with the frozen backbone in fp32 and no autocast,
-  the CLI's ``--bf16 0`` (K1f and K1b on their 3xTF32 family, K2 on the
-  CUDA cores), and the same on the fused route (K3f and K3b on 3xTF32, K5
+  the CLI's ``--bf16 0`` (K1f and K1b on their 3xTF32 family, the
+  adapter's K2 on its fp32 short-side family), and the same on the fused
+  route (K3f and K3b on 3xTF32, K5
   on its generic fp32 kernels, held to their plain versions), each timed
   beside the bf16 step;
 * the same model on its other kernel route (``mega_attention=False``: the
@@ -35,6 +36,10 @@ kernel. The paths:
   the fused GELU -> LayerNorm K5 in place of two ops), the same two steps
   on the same slides and weights, its embeddings held to the first
   route's;
+* the same on the default attention with the fused FFN (K1 with K5,
+  ``fused_gelu_ln=True`` alone: the JAX package's
+  ``MODALTUNE_FUSED_GELU_LN=1`` on its default route), both steps and the
+  ``--bf16 0`` step, its embeddings held to the first route's;
 * the same again on the per-branch route (``fused_attention=False``, the
   CLI's ``--fused_attention 0``: each of a layer's five dilated branches
   on the flash kernels K2f and K2b, their wgmma family at D = 48), its
@@ -74,7 +79,8 @@ kernel. The paths:
   25,599 bucket that ``--threshold 25000`` fills): the default route's
   train step under remat off, ``"flash"`` and ``"full"`` (one grad step
   of each held bit for bit to remat off), its embed step, the fused
-  route's train step with and without remat and its embed step, B = 2
+  route's train step with and without remat and its embed step, K1 with
+  K5's train step under ``"flash"`` and its embed step, B = 2 and B = 4
   under ``"flash"``, the train step at 10,239 and 2,047 with remat off
   beside ``"flash"``, and the train CLI at ``--threshold 25000`` with the default
   buckets on bags of 24,000-30,000 tiles;
@@ -509,6 +515,16 @@ def recomputed_per_step(model) -> dict:
     if bb.encoder.layers[0].split is None:
         again.update(K1=per["K1"], K3=per["K3"], K2=k2_branch_calls(model))
     return again
+
+
+def launches_per_step(model) -> dict:
+    """Kernel launches of one train step of ``model``: each kernel's calls
+    of a forward (:func:`calls_per_forward`), forward and backward, and
+    the forward calls that the backward's remat runs again
+    (:func:`recomputed_per_step`)."""
+    per, again = calls_per_forward(model), recomputed_per_step(model)
+    return {f"{k}{d}": n + (again.get(k, 0) if d == "f" else 0)
+            for k, n in per.items() for d in "fb"}
 
 
 # ---------------------------------------------------------------------------
@@ -2164,7 +2180,8 @@ def k4_cuda_cores(af, device, backward, iters=5):
           f"bound {res['bound_ms']:.5f} ms ({res['bound_by']}, fp32 at "
           f"{PEAK_FLOPS_FP32 / 1e12:.0f} TFLOP/s); bf16 kernel "
           f"{res['bf16_ms']:.4f} ms, library {res['bf16_library_ms']:.4f} ms, "
-          f"bound {res['bf16_bound_ms']:.5f} ms", flush=True)
+          f"bound {res['bf16_bound_ms']:.5f} ms ({res['bf16_bound_by']}, "
+          f"bf16 at {PEAK_FLOPS / 1e12:.0f} TFLOP/s)", flush=True)
     return res
 
 
@@ -2566,6 +2583,9 @@ GIGAPATH_25599 = dict(bucket=25599, bag_range=(24000, 25599))
 # the same model, slides and weights on its other kernel routes
 GIGAPATH_FUSED = dict(GIGAPATH, route="fused")
 GIGAPATH_BRANCH = dict(GIGAPATH, route="branch")
+# the default attention (K1) with the fused GELU -> LayerNorm (K5): the JAX
+# package's MODALTUNE_FUSED_GELU_LN=1 on its default mega route
+GIGAPATH_K5 = dict(GIGAPATH, route="k5")
 # ModalTune-GigaPath with the LoRA encoder variant (every layer's attention
 # per branch on K2, LoRA B nonzero), the same slides
 GIGAPATH_LORA = dict(GIGAPATH, route="lora")
@@ -2630,14 +2650,19 @@ def route_kw(cfg, route):
     """``create_aggregator``'s keywords for a kernel route of the LongNet
     backbone: None is the default (K1, the unfused FFN chain), "fused" the
     per-branch attention kernels (K3) and the fused GELU -> LayerNorm (K5),
-    "branch" the per-branch dilated attention with each branch on the K2
-    flash kernels (``fused_attention`` off, the CLI's ``--fused_attention
-    0``) and the unfused FFN chain, "lora" the LoRA encoder variant
-    (``lora_adapter``: per-modality LoRA deltas on q/k/v around the same
-    per-branch attention)."""
+    "k5" the default attention (K1) with the fused GELU -> LayerNorm (K5),
+    as ``MODALTUNE_FUSED_GELU_LN=1`` builds it, "branch" the per-branch
+    dilated attention with each branch on the K2 flash kernels
+    (``fused_attention`` off, the CLI's ``--fused_attention 0``) and the
+    unfused FFN chain, "lora" the LoRA encoder variant (``lora_adapter``:
+    per-modality LoRA deltas on q/k/v around the same per-branch
+    attention)."""
     if route is None:
         return {}
-    check(route in ("fused", "branch", "lora"), f"unknown route {route!r}")
+    check(route in ("fused", "k5", "branch", "lora"),
+          f"unknown route {route!r}")
+    if route == "k5":
+        return dict(fused_gelu_ln=True)
     if route == "branch":
         return dict(longnet=cfg.backbone.longnet(fused_attention=False))
     if route == "lora":
@@ -2741,8 +2766,9 @@ def phase_slice(device, dtype, build_kw=None, timing_rounds=3, card="",
                 tag="slice", compare_kw=None, agree_with=None):
     """The full-width embed step on the slides of ``build_kw``: shapes,
     finite values and the launch counts of the main path (per LongNet
-    layer K1f or, on the fused route, K3f and K5f; K4f once per TITAN
-    block; K2f once per adapter attention; no backward kernel); the
+    layer K1f or, on the fused route, K3f, and K5f where the FFN runs the
+    fused GELU -> LayerNorm (the fused and ``"k5"`` routes); K4f once per
+    TITAN block; K2f once per adapter attention; no backward kernel); the
     embeddings against the plain path, on slide 0, or where the plain path
     does not fit the bucket on a slide of ``compare_kw``'s bucket and bag
     range; against ``agree_with``, another route's embeddings of the same
@@ -3051,6 +3077,15 @@ def k4_call_readings(fn, tag, chunk=2):
     return result, r
 
 
+def print_routes(tag, runs, unit, card=""):
+    """One line of each route's ms (in ``unit``) and peak, side by side:
+    ``runs`` holds (route, a path's result) pairs of one run."""
+    print(f"{tag}: " + ", ".join(
+        f"{route} {r['ms']:.2f} {unit}, peak "
+        f"{r['peak_bytes'] / 2**30:.3f} GiB" for route, r in runs)
+        + (f"; {card}" if card else ""), flush=True)
+
+
 def timed_build(device, tag, build_kw):
     """:func:`build_train` of ``build_kw``, its time and sizes printed."""
     import torch
@@ -3072,9 +3107,10 @@ def drive_train(device, model, tcfg, opt, text, batch, tag, card="",
                 steps=3, timed_steps=5):
     """A train step's main path on ``model``: ``steps`` steps with the
     launch counts checked (per LongNet layer K1f and K1b or, on the fused
-    route, K3f, K3b, K5f and K5b; K4f and K4b once per TITAN block; K2f and
-    K2b once per adapter attention; and the forward kernels that the
-    backward's remat runs again, :func:`recomputed_per_step`), loss
+    route, K3f and K3b, and K5f and K5b on the fused and ``"k5"`` routes;
+    K4f and K4b once per TITAN block; K2f and K2b once per adapter
+    attention; and the forward kernels that the backward's remat runs
+    again: :func:`launches_per_step`), loss
     finite, trainable parameters moved, frozen backbone bit-identical;
     then ms/step (median) and peak memory over ``timed_steps`` (and the
     bytes allocated before them: weights, optimizer state, batch), and the
@@ -3103,9 +3139,7 @@ def drive_train(device, model, tcfg, opt, text, batch, tag, card="",
                                     fp32=frozen_dtype == torch.float32)
     families = check_dilated_families(tag, launches, frozen_dtype)
     k4_families = check_k4_families(tag, launches, frozen_dtype)
-    per = calls_per_forward(model)
-    per_step = {f"{k}{d}": n + (again.get(k, 0) if d == "f" else 0)
-                for k, n in per.items() for d in "fb"}
+    per_step = launches_per_step(model)
     check(launches == {k: n * steps for k, n in per_step.items()},
           f"{tag} launch counts {launches} != {per_step} per step x {steps}")
     check(all(math.isfinite(x) for x in losses), f"{tag} losses {losses}")
@@ -3291,14 +3325,17 @@ def k5_fp32_readings(device, shape=(30720, 3072), eps=1e-5, iters=10):
 
 def phase_train_fp32(device, bf16, card="", build_kw=None,
                      fused_kw=None, branch_bf16=None, titan_bf16=None,
-                     titan_kw=None):
+                     titan_kw=None, k5_bf16=None, k5_kw=None):
     """The ``--bf16 0`` user's step: the train step under ``"flash"`` with
     the frozen backbone in fp32 (no autocast), on the kernels alone:
     GigaPath at 10,239 on the default route, on the fused route
     (``mega_attention=False`` with the fused GELU -> LayerNorm) and on the
     per-branch route (``fused_attention=False``, the CLI's
-    ``--fused_attention 0 --bf16 0``), and TITAN at 16,383 (``TITAN``, or
-    ``titan_kw``): :func:`drive_train`'s checked and timed steps (every K1f
+    ``--fused_attention 0 --bf16 0``), TITAN at 16,383 (``TITAN``, or
+    ``titan_kw``), and last GigaPath on the default attention with the
+    fused GELU -> LayerNorm (``GIGAPATH_K5``, or ``k5_kw``; the JAX
+    package's ``MODALTUNE_FUSED_GELU_LN=1``): :func:`drive_train`'s
+    checked and timed steps (every K1f
     and K1b, or K3f and K3b, on the 3xTF32 family; every K2 at D = 48 on
     K2's 3xTF32 family ``tf32x3`` and every adapter K2 on the fp32
     short-side family, 3xTF32 too, none on the CUDA cores; K5 on the
@@ -3310,8 +3347,10 @@ def phase_train_fp32(device, bf16, card="", build_kw=None,
     every K4 launch of one grad step held to the plain version in fp64
     (:func:`k4_call_readings`); each step's ms/step and peak printed beside
     the bf16 step's (``bf16``, :func:`phase_train`'s result; on the
-    per-branch route ``branch_bf16`` and on TITAN ``titan_bf16``, that
-    path's, where given). Returns the four paths' results."""
+    per-branch route ``branch_bf16``, on TITAN ``titan_bf16`` and on the
+    ``"k5"`` route ``k5_bf16``, that path's, where given), and the
+    ``"k5"`` route's beside the default and fused routes' of this run.
+    Returns the five paths' results."""
     import torch
     from modaltune_tpu_torch import make_grad_step
     out = {}
@@ -3321,7 +3360,9 @@ def phase_train_fp32(device, bf16, card="", build_kw=None,
              bf16),
             ("branch fp32 train", GIGAPATH_BRANCH, (), branch_bf16 or bf16),
             ("titan fp32 train", titan_kw or TITAN, ("K4f", "K4b"),
-             titan_bf16 or bf16)):
+             titan_bf16 or bf16),
+            ("k5 fp32 train", k5_kw or GIGAPATH_K5, ("K1f", "K1b"),
+             k5_bf16 or bf16)):
         model, tcfg, opt, text, batch = timed_build(
             device, tag, dict(kw, frozen="float32"))
         res = drive_train(device, model, tcfg, opt, text, batch, tag, card)
@@ -3351,6 +3392,10 @@ def phase_train_fp32(device, bf16, card="", build_kw=None,
               f"{ref['peak_bytes'] / 2**30:.3f} GiB "
               f"({res['ms'] / ref['ms']:.2f}x); {card}", flush=True)
         out[tag] = res
+    print_routes("k5 fp32 train", [
+        (route, out[f"{key}fp32 train"]) for route, key in (
+            ("K1 + K5", "k5 "), ("default", ""), ("fused", "fused "))],
+        "ms/step", card)
     return out
 
 
@@ -5175,6 +5220,10 @@ def phase_flagship(device, card="", build_kw=None, ref_kws=None, layer=6,
       ``"flash"``, one grad step each held bit for bit to remat off as
       above (the bytes layer ``layer`` keeps printed beside JAX's
       ``"flash"`` set), its embeddings held to the default route's;
+    * the default attention with the fused GELU -> LayerNorm (K1 + K5,
+      ``"k5"``): its train step under ``"flash"`` (ms/step and peak beside
+      the default and fused routes' under ``"flash"``) and its embed step,
+      its embeddings held to the default route's;
     * B = 2 and B = 4 on the default route under ``"flash"``: ``b2_steps``
       and ``b4_steps`` checked steps, ms/step and peak; remat off's peak at
       B = 2 predicted from B = 1's readings, not run;
@@ -5303,6 +5352,11 @@ def phase_flagship(device, card="", build_kw=None, ref_kws=None, layer=6,
         tag="flagship fused slice", compare_kw=GIGAPATH_2047,
         agree_with=embed["outs"])
 
+    k5 = flagship_k5(device, build_kw, runs, embed["outs"], card,
+                     timed_steps)
+    runs["k5_flash"] = k5["gigapath_flagship_k5_train"]
+    paths.update(k5)
+
     for n_rows, steps in ((2, b2_steps), (4, b4_steps)):
         tag = f"flagship B={n_rows} train remat flash"
         model, tcfg, opt, text, batch = timed_build(
@@ -5376,6 +5430,35 @@ def phase_flagship(device, card="", build_kw=None, ref_kws=None, layer=6,
                                **({"kept_in_storages": sum(r["live"])}
                                   if r.get("live") is not None else {}))
                        for n, r in runs.items()})
+
+
+def flagship_k5(device, build_kw, runs, default_outs, card="",
+                timed_steps=5, compare_kw=None):
+    """The flagship's K1 with K5 (``"k5"``): the train step under
+    ``"flash"`` (:func:`drive_train`), its ms/step and peak beside the
+    default and fused routes' under ``"flash"`` (``runs["flash"]``,
+    ``runs["fused_flash"]``), then the embed step, its embeddings held to
+    the default route's (``default_outs``) and, at ``compare_kw``'s bucket
+    (``GIGAPATH_2047``), to the plain path's. -> the two paths' results by
+    name."""
+    import torch
+    tag = "flagship k5 train remat flash"
+    model, tcfg, opt, text, batch = timed_build(
+        device, tag, with_remat(dict(build_kw, route="k5"), True, "flash"))
+    train = drive_train(device, model, tcfg, opt, text, batch, tag, card,
+                        timed_steps=timed_steps)
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    print_routes("flagship k5 train, all under 'flash'", [
+        ("K1 + K5", train), ("default", runs["flash"]),
+        ("fused", runs["fused_flash"])], "ms/step", card)
+    embed = phase_slice(
+        device, torch.bfloat16, card=card,
+        build_kw=dict(build_kw, route="k5"), timing_rounds=2,
+        tag="flagship k5 slice", compare_kw=compare_kw or GIGAPATH_2047,
+        agree_with=default_outs)
+    return {"gigapath_flagship_k5_train": train,
+            "gigapath_flagship_k5_embed": embed}
 
 
 # ---------------------------------------------------------------------------
@@ -5865,6 +5948,20 @@ def main() -> int:
     paths["gigapath_fused_train"] = phase_train(
         device, card=card, build_kw=GIGAPATH_FUSED, compare_kw=GIGAPATH_2047,
         tag="fused train")
+    # the default attention (K1) with the fused GELU -> LayerNorm (K5), the
+    # JAX package's MODALTUNE_FUSED_GELU_LN=1 on its default route
+    paths["gigapath_k5_embed"] = phase_slice(
+        device, torch.bfloat16, card=card, build_kw=GIGAPATH_K5,
+        timing_rounds=2, tag="k5 slice",
+        agree_with=paths["gigapath_embed"]["outs"])
+    paths["gigapath_k5_train"] = phase_train(
+        device, card=card, build_kw=GIGAPATH_K5, compare_kw=GIGAPATH_2047,
+        tag="k5 train")
+    for kind, unit in (("embed", "ms/slide"), ("train", "ms/step")):
+        print_routes(f"k5 {kind}", [
+            (route, paths[f"gigapath_{key}{kind}"]) for route, key in (
+                ("K1 + K5", "k5_"), ("default", ""), ("fused", "fused_"))],
+            unit, card)
     # the same on the per-branch route (every branch on K2's wgmma family)
     paths["gigapath_branch_embed"] = phase_slice(
         device, torch.bfloat16, card=card, build_kw=GIGAPATH_BRANCH,
@@ -5873,7 +5970,7 @@ def main() -> int:
     paths["gigapath_branch_train"] = phase_train(
         device, card=card, build_kw=GIGAPATH_BRANCH, compare_kw=GIGAPATH_2047,
         tag="branch train", k2_calls=True)
-    lap("GigaPath embed and train steps, three routes")
+    lap("GigaPath embed and train steps, four routes")
     # ModalTune-TITAN: the embed step, the train step
     paths["titan_embed"] = phase_slice(
         device, torch.bfloat16, card=card, build_kw=TITAN, timing_rounds=2,
@@ -5883,16 +5980,19 @@ def main() -> int:
         tag="titan train")
     lap("TITAN embed and train steps")
     # the --bf16 0 user's step: GigaPath on the default, the fused and the
-    # per-branch route and TITAN, with an fp32 backbone (K1, K3, K2 and K4
-    # on 3xTF32 families)
+    # per-branch route, TITAN, and GigaPath on K1 with K5, with an fp32
+    # backbone (K1, K3, K2 and K4 on 3xTF32 families, K5 on its generic
+    # kernels)
     fp32 = phase_train_fp32(device, paths["gigapath_train"], card=card,
                             branch_bf16=paths["gigapath_branch_train"],
-                            titan_bf16=paths["titan_train"])
+                            titan_bf16=paths["titan_train"],
+                            k5_bf16=paths["gigapath_k5_train"])
     paths["gigapath_fp32_train"] = fp32["fp32 train"]
     paths["gigapath_fused_fp32_train"] = fp32["fused fp32 train"]
     paths["gigapath_branch_fp32_train"] = fp32["branch fp32 train"]
     paths["titan_fp32_train"] = fp32["titan fp32 train"]
-    lap("the fp32 steps: GigaPath's three routes, TITAN")
+    paths["gigapath_k5_fp32_train"] = fp32["k5 fp32 train"]
+    lap("the fp32 steps: GigaPath's four routes, TITAN")
     # data parallelism over a world of one (NCCL) and the 2-rank
     # sequence-parallel step (gloo), each held to the single-device step
     par = phase_parallel(device, card=card)
@@ -5927,8 +6027,9 @@ def main() -> int:
     phase_profile(device, card=card)
     lap("profile")
     # the reference's 25,599-token geometry: the train step under each
-    # remat setting, the embed step, the fused route, B = 2, K1 at 25,600
-    # tokens, the cost of remat at 10,239, the CLI at --threshold 25000
+    # remat setting, the embed step, the fused route, K1 with K5, B = 2, K1
+    # at 25,600 tokens, the cost of remat at 10,239, the CLI at --threshold
+    # 25000
     flagship = phase_flagship(device, card=card)
     paths.update(flagship["paths"])
     lap("flagship")

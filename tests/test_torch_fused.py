@@ -280,28 +280,24 @@ FUSED_ENV = {"MODALTUNE_FUSED_GELU_LN": "1", "MODALTUNE_PALLAS_INTERPRET": "1"}
 JAX_BACKBONE = dict(fused_attention=False)
 
 
-def _fused_port_model(cfg, packer, name):
-    return create_aggregator(
-        name, device="cpu", cfg=cfg, n_gene_groups=packer.n_groups,
-        max_group_len=packer.max_group_len,
-        longnet=cfg.backbone.longnet(mega_attention=False),
-        fused_gelu_ln=True)
-
-
-@pytest.mark.parametrize("name,clinical", [
-    ("longnetvit_gene_adapter", False),
-    ("longnetvit_gene_clinical_adapter", True)])
-def test_fused_route_embed_step_matches_jax(monkeypatch, name, clinical):
+def route_embed_step_against_jax(monkeypatch, name, clinical, port_kw,
+                                 jax_backbone_kw, counted, absent):
     """One bag of 300-400 tokens in the 511 bucket through JAX
-    ``multitask_logits`` (its FFN through the Pallas GELU -> LayerNorm in
-    interpret mode) and the port's embed step on the fused route, from the
-    same parameters: <= 1e-4, the bar of ``test_torch_slice.py``. The JAX
-    tree converts with no new mapping and loads with ``strict=True``."""
+    ``multitask_logits`` (with ``FUSED_ENV`` set, its FFN through the
+    Pallas GELU -> LayerNorm in interpret mode) and the port's embed step
+    on a kernel route (``port_kw`` to ``create_aggregator``), from the same
+    parameters: <= 1e-4, the bar of ``test_torch_slice.py``. The JAX tree
+    converts with no new mapping and loads with ``strict=True``.
+    ``jax_backbone_kw`` replaces fields of the JAX backbone's
+    configuration. ``counted`` names attributes of the port's
+    ``models/longnet.py`` (the route's entry points) whose calls are
+    counted, each once a layer; ``absent`` those the route must not reach.
+    -> the port's model."""
     for key, value in FUSED_ENV.items():
         monkeypatch.setenv(key, value)
     cfg = _config(clinical, "cat" if clinical else "sum")
-    jcfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
-        cfg.backbone, **JAX_BACKBONE))
+    jcfg = cfg if not jax_backbone_kw else dataclasses.replace(
+        cfg, backbone=dataclasses.replace(cfg.backbone, **jax_backbone_kw))
     packer, batch = _batch(clinical, bucket=511, bag_range=(300, 400))
     jmodel = JaxModalTune(jcfg, n_gene_groups=packer.n_groups,
                           max_group_len=packer.max_group_len)
@@ -331,29 +327,47 @@ def test_fused_route_embed_step_matches_jax(monkeypatch, name, clinical):
     want = np.asarray(jax.jit(lambda p: j_logits(
         jmodel, p, jb, 3, deterministic=True))(params))
 
-    model = _fused_port_model(cfg, packer, name)
+    model = create_aggregator(
+        name, device="cpu", cfg=cfg, n_gene_groups=packer.n_groups,
+        max_group_len=packer.max_group_len, **port_kw)
     layers = model.backbone.encoder.layers
-    assert not model.backbone.encoder.cfg.mega_attention
     assert all(layer.ffn.fused_gelu_ln for layer in layers)
     model.load_state_dict(params_from_jax(params, model), strict=True)
-    calls = {"k3": 0, "k5": 0}
+    calls = dict.fromkeys(counted, 0)
 
-    def counted(fn, key):
+    def counted_call(fn, key):
         def wrapper(*a, **kw):
             calls[key] += 1
             return fn(*a, **kw)
         return wrapper
 
     import modaltune_tpu_torch.models.longnet as port_longnet
-    monkeypatch.setattr(port_longnet, "fused_dilated_attention",
-                        counted(port_longnet.fused_dilated_attention, "k3"))
-    monkeypatch.setattr(port_longnet, "gelu_ln",
-                        counted(port_longnet.gelu_ln, "k5"))
-    monkeypatch.setattr(port_longnet, "mega_dilated_attention", None)
+    for key in counted:
+        monkeypatch.setattr(port_longnet, key,
+                            counted_call(getattr(port_longnet, key), key))
+    for key in absent:
+        monkeypatch.setattr(port_longnet, key, None)
     got = make_embed_step(model, TrainConfig())(batch_to_device(batch, "cpu"))
-    assert calls == {"k3": len(layers), "k5": len(layers)}
+    assert calls == dict.fromkeys(counted, len(layers))
     assert got.shape == (1, 3, 256) == want.shape
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
+    return model
+
+
+@pytest.mark.parametrize("name,clinical", [
+    ("longnetvit_gene_adapter", False),
+    ("longnetvit_gene_clinical_adapter", True)])
+def test_fused_route_embed_step_matches_jax(monkeypatch, name, clinical):
+    """:func:`route_embed_step_against_jax` on the fused route (K3 and K5
+    once a layer, no K1), JAX on its plain attention (``JAX_BACKBONE``)."""
+    cfg = _config(clinical, "cat" if clinical else "sum")
+    model = route_embed_step_against_jax(
+        monkeypatch, name, clinical,
+        dict(longnet=cfg.backbone.longnet(mega_attention=False),
+             fused_gelu_ln=True),
+        JAX_BACKBONE, counted=("fused_dilated_attention", "gelu_ln"),
+        absent=("mega_dilated_attention",))
+    assert not model.backbone.encoder.cfg.mega_attention
 
 
 def test_fused_route_train_step_matches_jax(monkeypatch):

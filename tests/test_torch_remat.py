@@ -6,8 +6,8 @@
   is built, as JAX's raises when its layer is set up.
 * Neutral with dropout on: a training-mode encoder (dropout 0.25, drop
   path 0.1, padded tokens) on every attention route (K1's ``mega``, K3's
-  ``fused`` with the fused GELU -> LayerNorm, the per-branch ``branch``,
-  the LoRA layer) gives under every policy the loss and the gradients of
+  ``fused`` with the fused GELU -> LayerNorm, K1 with the fused GELU ->
+  LayerNorm ``k5``, the per-branch ``branch``, the LoRA layer) gives under every policy the loss and the gradients of
   the input and of every parameter of remat off bit for bit, and leaves
   the dropout generator where remat off leaves it, its backward run on
   a thread of its own. This fails if the recompute draws new bits or
@@ -18,7 +18,7 @@
   CPU): the attention's forward kernels run once a layer a step under
   ``"flash"`` (whose recompute takes their outputs back) and
   ``"flash_ffn"``, twice under ``"full"``; the FFN past fc1 (K5f on the
-  fused route) twice under every policy; once each with remat off or
+  fused and ``k5`` routes) twice under every policy; once each with remat off or
   without grad.
 * What a layer keeps under ``"flash"``, on every route behind those
   Functions: the bytes of the storages its forward made that are still
@@ -76,7 +76,9 @@ from test_torch_dilated_sp import LOSS_TOL, NULL_GRAD, sp_payload
 
 TOL = 1e-5
 POLICIES = ["flash", "flash_ffn", "full", "none", ""]
-ROUTES = ["mega", "fused", "branch", "lora"]
+ROUTES = ["mega", "fused", "k5", "branch", "lora"]
+# the routes whose FFN runs the fused GELU -> LayerNorm (K5)
+K5_ROUTES = ("fused", "k5")
 LN_KW = dict(num_layers=2, embed_dim=64, ffn_dim=128, num_heads=4,
              segment_lengths=(32, 64), dilated_ratios=(1, 2))
 L = 96
@@ -93,10 +95,10 @@ def _cfg(route="mega", remat=True, policy="flash", **kw):
     return LongNetConfig(**kw)
 
 
-def _encoder(cfg, seed=1):
+def _encoder(cfg, seed=1, fused_gelu_ln=False):
     """The encoder of ``cfg`` with seeded weights (LoRA B matrices drawn
-    too, else the deltas vanish), the K5 route on the fused one."""
-    enc = LongNetEncoder(cfg, fused_gelu_ln=not cfg.mega_attention)
+    too, else the deltas vanish), its FFN on K5 with ``fused_gelu_ln``."""
+    enc = LongNetEncoder(cfg, fused_gelu_ln=fused_gelu_ln)
     g = torch.Generator().manual_seed(seed)
     init_weights(enc, g)
     with torch.no_grad():
@@ -104,6 +106,12 @@ def _encoder(cfg, seed=1):
             if "_lora_B_" in name:
                 fill_normal_(p, 0.05, g)
     return enc
+
+
+def _route_encoder(route, seed=1, **kw):
+    """:func:`_encoder` of the route's configuration (``_cfg(route,
+    **kw)``), K5 in the FFN on the routes of ``K5_ROUTES``."""
+    return _encoder(_cfg(route, **kw), seed, route in K5_ROUTES)
 
 
 def _inputs(seed=0, n_valid=80):
@@ -170,8 +178,8 @@ def test_policy_is_bit_neutral_with_dropout(route, policy):
     kw = dict(dropout=0.25, drop_path_rate=0.1)
     if route == "lora":
         kw["lora_dropout"] = 0.1
-    off = _encoder(_cfg(route, remat=False, **kw))
-    on = _encoder(_cfg(route, policy=policy, **kw))
+    off = _route_encoder(route, remat=False, **kw)
+    on = _route_encoder(route, policy=policy, **kw)
     on.load_state_dict(off.state_dict())
     loss0, dx0, dp0, g0 = _step(off)
     loss1, dx1, dp1, g1 = _step(on, thread=True)
@@ -263,14 +271,15 @@ def card_functions(counts):
         yield counts
 
 
-@pytest.mark.parametrize("route", ["mega", "fused"])
+@pytest.mark.parametrize("route", ["mega", "fused", "k5"])
 def test_flash_is_bit_neutral_behind_card_functions(route):
-    """K1's and K3's Functions behind :func:`card_functions`, with dropout
-    on: under ``"flash"`` the recompute takes their kept outputs back and
-    gives remat off's loss and gradients bit for bit."""
+    """K1's and K3's Functions behind :func:`card_functions` (K1's beside
+    K5 on the ``k5`` route), with dropout on: under ``"flash"`` the
+    recompute takes their kept outputs back and gives remat off's loss and
+    gradients bit for bit."""
     kw = dict(dropout=0.25, drop_path_rate=0.1)
-    off = _encoder(_cfg(route, remat=False, **kw))
-    on = _encoder(_cfg(route, policy="flash", **kw))
+    off = _route_encoder(route, remat=False, **kw)
+    on = _route_encoder(route, policy="flash", **kw)
     on.load_state_dict(off.state_dict())
     with card_functions({"kernel": 0}) as counts:
         loss0, dx0, dp0, g0 = _step(off)
@@ -287,7 +296,7 @@ def _calls(route, remat, policy, grad=True):
     """The attention's forward kernel runs (:func:`card_functions`), FFN
     tails (past fc1) and fused GELU -> LayerNorm calls of one eval-mode
     step of the route's encoder."""
-    enc = _encoder(_cfg(route, remat=remat, policy=policy)).eval()
+    enc = _route_encoder(route, remat=remat, policy=policy).eval()
     counts = {"kernel": 0, "ffn": 0, "gelu_ln": 0}
 
     def counted(key, fn):
@@ -313,7 +322,7 @@ def _calls(route, remat, policy, grad=True):
             with torch.no_grad():
                 enc(x, mask)
     # a call's forward kernels: K1f or K3f, or each branch's K2f
-    per_call = 1 if route in ("mega", "fused") else \
+    per_call = 1 if route in ("mega", "fused", "k5") else \
         len(LN_KW["segment_lengths"])
     assert counts["kernel"] % per_call == 0, counts
     return dict(attention=counts.pop("kernel") // per_call, **counts)
@@ -329,7 +338,7 @@ def test_what_each_policy_recomputes(route, policy):
     ffn = 1 if policy == "off" else 2
     assert got["attention"] == attn * layers, got
     assert got["ffn"] == ffn * layers, got
-    assert got["gelu_ln"] == (ffn * layers if route == "fused" else 0), got
+    assert got["gelu_ln"] == (ffn * layers if route in K5_ROUTES else 0), got
 
 
 class _Made(TorchDispatchMode):
@@ -363,7 +372,7 @@ def _kept_bytes(route, remat, policy):
     """The bytes of the storages that layer 0's training-mode forward
     makes and its backward keeps (its output included), its attention
     behind :func:`card_functions`."""
-    enc = _encoder(_cfg(route, remat=remat, policy=policy))
+    enc = _route_encoder(route, remat=remat, policy=policy)
     x, _, mask = (torch.from_numpy(a) for a in _inputs())
     x.requires_grad_()
     made = _Made()
@@ -383,7 +392,7 @@ def _flash_set(route):
     b, length, d, h = 2, L, LN_KW["embed_dim"], LN_KW["num_heads"]
     segs, ratios = LN_KW["segment_lengths"], LN_KW["dilated_ratios"]
     plane = b * length * d * 4
-    if route == "mega":       # K1's stats (B*H, n + 2, L)
+    if route in ("mega", "k5"):   # K1's stats (B*H, n + 2, L)
         extra = b * h * (len(segs) + 2) * length * 4
     elif route == "fused":    # K3's compact lses (B, H, M) and m, Z
         extra = b * h * (df.total_rows(length, segs, ratios) + 2 * length) * 4
