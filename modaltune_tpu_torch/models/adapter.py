@@ -15,6 +15,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from ..utils.tracing import span
 from .layers import CrossAttentionLayer, DropPath, FFNLayer
 
 
@@ -35,8 +36,9 @@ class Injector(nn.Module):
 
     def forward(self, query: torch.Tensor, feat: torch.Tensor,
                 pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-        attn = self.attn(query, feat, pos=pos, query_pos=None)
-        return query + self.gamma.to(query.dtype) * attn
+        with span("mt.adapter.injector"):
+            attn = self.attn(query, feat, pos=pos, query_pos=None)
+            return query + self.gamma.to(query.dtype) * attn
 
 
 class Extractor(nn.Module):
@@ -53,11 +55,12 @@ class Extractor(nn.Module):
     def forward(self, query: torch.Tensor, feat: torch.Tensor,
                 pos: Optional[torch.Tensor] = None,
                 feat_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        query = query + self.attn(query, feat, pos=None, query_pos=pos,
-                                  memory_mask=feat_mask)
-        if self.ffn is not None:
-            query = query + self.drop_path(self.ffn(query))
-        return query
+        with span("mt.adapter.extractor"):
+            query = query + self.attn(query, feat, pos=None, query_pos=pos,
+                                      memory_mask=feat_mask)
+            if self.ffn is not None:
+                query = query + self.drop_path(self.ffn(query))
+            return query
 
 
 class InteractionBlock(nn.Module):

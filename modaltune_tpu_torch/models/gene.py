@@ -17,6 +17,7 @@ from torch import nn
 
 from ..configs import GeneEncoderConfig
 from ..ops.activations import gelu_exact
+from ..utils.tracing import span
 from .heads import add_head, check_mode, head_outputs, init_head
 from .layers import AlphaDropout, Dense, Dropout, fill_normal_
 
@@ -120,19 +121,21 @@ class GeneMixerEncoder(nn.Module):
         if tuple(genes.shape[-2:]) != (self.n_groups, self.max_group_len):
             raise ValueError(f"genes {tuple(genes.shape)} do not match "
                              f"({self.n_groups}, {self.max_group_len})")
-        x = torch.einsum("bgm,gml->bgl", genes, self.snn1_kernel) \
-            + self.snn1_bias
-        x = self.snn1_drop(F.elu(x))
-        x = torch.einsum("bgl,glk->bgk", x, self.snn2_kernel) + self.snn2_bias
-        x = self.snn2_drop(F.elu(x))
-        if self.cls_token is not None:
-            cls = self.cls_token.to(x.dtype).expand(x.shape[0], 1, -1)
-            x = torch.cat([cls, x], dim=1)
-        for block in self.mix:
-            x = block(x)
-        x = self.mixer_out(self.mixer_norm(x))
-        return torch.einsum("bgc,gf->bfc", x, self.compress_kernel) \
-            + self.compress_bias[None, :, None]
+        with span("mt.gene.mixer"):
+            x = torch.einsum("bgm,gml->bgl", genes, self.snn1_kernel) \
+                + self.snn1_bias
+            x = self.snn1_drop(F.elu(x))
+            x = torch.einsum("bgl,glk->bgk", x, self.snn2_kernel) \
+                + self.snn2_bias
+            x = self.snn2_drop(F.elu(x))
+            if self.cls_token is not None:
+                cls = self.cls_token.to(x.dtype).expand(x.shape[0], 1, -1)
+                x = torch.cat([cls, x], dim=1)
+            for block in self.mix:
+                x = block(x)
+            x = self.mixer_out(self.mixer_norm(x))
+            return torch.einsum("bgc,gf->bfc", x, self.compress_kernel) \
+                + self.compress_bias[None, :, None]
 
 
 class GeneOnlyModel(nn.Module):

@@ -66,6 +66,7 @@ from ..ops.dilated_sp import (SeqShard, enter_span, leave_span,
                               local_tokens, sp_mega_dilated_attention,
                               span_shard)
 from ..ops.gelu_ln import gelu_ln
+from ..utils.tracing import span
 from .layers import Dense, DropPath, Dropout, rematerialized
 
 
@@ -229,16 +230,19 @@ class LongNetEncoderLayer(nn.Module):
             out = rematerialized(self._attention, x, mask, shard,
                                  keep_attention=True)
             return rematerialized(self._rest, x, out, mask)
-        q, k, v = rematerialized(self._qkv, x)
-        out = self.self_attn.attend(q, k, v, mask, shard)
-        x, h = rematerialized(self._to_fc1, x, out)
-        return rematerialized(self._from_fc1, x, h, mask)
+        with span("mt.backbone.attention"):
+            q, k, v = rematerialized(self._qkv, x)
+            out = self.self_attn.attend(q, k, v, mask, shard)
+        with span("mt.backbone.ffn"):
+            x, h = rematerialized(self._to_fc1, x, out)
+            return rematerialized(self._from_fc1, x, h, mask)
 
     def _layer(self, x, mask, shard):
         return self._rest(x, self._attention(x, mask, shard), mask)
 
     def _attention(self, x, mask, shard):
-        return self.self_attn.attend(*self._qkv(x), mask, shard)
+        with span("mt.backbone.attention"):
+            return self.self_attn.attend(*self._qkv(x), mask, shard)
 
     def _qkv(self, x):
         h = self.self_attn_layer_norm(x)
@@ -248,7 +252,8 @@ class LongNetEncoderLayer(nn.Module):
         return self.self_attn.project(h)
 
     def _rest(self, x, out, mask):
-        return self._from_fc1(*self._to_fc1(x, out), mask)
+        with span("mt.backbone.ffn"):
+            return self._from_fc1(*self._to_fc1(x, out), mask)
 
     def _to_fc1(self, x, out):
         x = x + self.drop_path(self.dropout(self.self_attn.output(out)))

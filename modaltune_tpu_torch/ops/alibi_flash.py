@@ -36,6 +36,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.tracing import span
 from ._build import check_launch, load_library
 from .flash_attention import _DTYPE_CODES, MASK_THRESHOLD, NEG_INF
 
@@ -302,7 +303,7 @@ def alibi_flash_attention_cuda(q, k, v, coords3, slopes, key_mask,
     elif side is None:
         side = wgmma_side_inputs(coords3, key_mask, b, n)
     lib = load_library()
-    with torch.cuda.device(q.device):
+    with span("mt.op.k4f"), torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mt_alibi_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), coords3.data_ptr(),
@@ -358,7 +359,7 @@ def alibi_flash_attention_backward_cuda(q, k, v, coords3, slopes, key_mask,
             work = torch.empty(work_floats(b, h, n), dtype=torch.float32,
                                device=q.device)
     lib = load_library()
-    with torch.cuda.device(q.device):
+    with span("mt.op.k4b"), torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mt_alibi_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), coords3.data_ptr(),

@@ -45,6 +45,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.tracing import span
 from ._build import check_launch, load_library
 from .dilated import _round_up, dense_to_sparse, dilated_attention
 from .dilated_mega import _DTYPE_CODES, _branch_args, _check, _ptr
@@ -313,7 +314,7 @@ def fused_dilated_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     stats = torch.empty((2, b, h, length), dtype=torch.float32,
                         device=q.device)
     lib = load_library()
-    with torch.cuda.device(q.device):
+    with span("mt.op.k3f"), torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mt_dilated_fused_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
@@ -367,7 +368,7 @@ def fused_forward_part_cuda(part: str, q: torch.Tensor, k: torch.Tensor,
     else:
         raise ValueError(f"part must be 'core' or 'mix', got {part!r}")
     lib = load_library()
-    with torch.cuda.device(q.device):
+    with span("mt.op.k3f"), torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mt_dilated_fused_fwd_part(
             0 if part == "core" else 1, q.data_ptr(), k.data_ptr(),
@@ -414,7 +415,7 @@ def fused_dilated_attention_backward_cuda(
                           device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = load_library()
-    with torch.cuda.device(q.device):
+    with span("mt.op.k3b"), torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mt_dilated_fused_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),

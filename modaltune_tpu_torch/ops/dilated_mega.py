@@ -42,6 +42,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils.tracing import span
 from ._build import check_launch, load_library
 from .dilated import check_q_token_range, dilated_attention
 from .kept import kept
@@ -165,7 +166,7 @@ def mega_dilated_attention_cuda(q: torch.Tensor, k: torch.Tensor,
         stats = torch.empty((b * h, n + 2, length), dtype=torch.float32,
                             device=q.device)
     lib = load_library()
-    with torch.cuda.device(q.device):
+    with span("mt.op.k1f"), torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mt_dilated_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
@@ -224,7 +225,7 @@ def mega_dilated_attention_backward_cuda(
         wd = torch.empty((2, b * h, n, length), **f32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = load_library()
-    with torch.cuda.device(q.device):
+    with span("mt.op.k1b"), torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mt_dilated_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
@@ -270,7 +271,7 @@ def mega_dilated_attention_backward_part_cuda(
     rows_c, grads_c = scratch
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = load_library()
-    with torch.cuda.device(q.device):
+    with span("mt.op.k1b"), torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mt_dilated_attention_bwd_part(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),

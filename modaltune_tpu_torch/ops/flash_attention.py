@@ -57,6 +57,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.tracing import span
 from ._build import check_launch, load_library
 from .kept import kept
 
@@ -302,7 +303,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fam, chunks, work = _plan(q, k, False, (q, k, v, out))
     lse = torch.empty((bh, lq), dtype=torch.float32, device=q.device)
     lib = load_library()
-    with torch.cuda.device(q.device):
+    with span("mt.op.k2f"), torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mt_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -340,7 +341,7 @@ def flash_attention_backward_cuda(q, k, v, bias, out, lse, dout, scale: float):
     if fam == "cuda_cores":
         delta = (dout.float() * out.float()).sum(dim=-1).contiguous()
     lib = load_library()
-    with torch.cuda.device(q.device):
+    with span("mt.op.k2b"), torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mt_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),

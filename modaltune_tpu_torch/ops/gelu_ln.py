@@ -35,6 +35,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..utils.tracing import span
 from ._build import check_launch, load_library
 
 # Kernel launches since the last reset (read by chip_smoke.py): K5f and K5b,
@@ -195,7 +196,7 @@ def gelu_ln_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     way = card_route(x.dtype, f, x.data_ptr(), y.data_ptr(),
                      scale.data_ptr(), bias.data_ptr())
     lib = load_library()
-    with torch.cuda.device(x.device):
+    with span("mt.op.k5f"), torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.mt_gelu_ln_fwd(
             x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
@@ -228,7 +229,7 @@ def gelu_ln_backward_cuda(x: torch.Tensor, scale: torch.Tensor,
     codes = (_DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype],
              _ROUTE_CODES[way])
     lib = load_library()
-    with torch.cuda.device(x.device):
+    with span("mt.op.k5b"), torch.cuda.device(x.device):
         n_blocks = lib.mt_gelu_ln_bwd_blocks(rows, f, *codes,
                                              int(param_grads))
         check_launch(-min(n_blocks, 0), "mt_gelu_ln_bwd_blocks")

@@ -1,7 +1,7 @@
 """Sum a ``torch.profiler`` Chrome trace by op class.
 
     python -m modaltune_tpu_torch.tools.trace_report TRACE_DIR
-        [--steps N] [--top K] [--shapes CLASS | --breakdown CLASS]
+        [--steps N] [--top K] [--shapes CLASS | --breakdown CLASS] [--spans]
 
 Counterpart of the JAX package's ``tools/trace_report.py``, with its
 flags. Loads the newest trace that :func:`..utils.profiling.trace` wrote
@@ -10,12 +10,15 @@ the GPU) or, in a trace without any, its outermost CPU ops, sums their
 durations by op class (:func:`op_class`) and prints a ms/step table over
 ``--steps`` traced steps. ``--shapes CLASS`` (or ``--breakdown CLASS``)
 splits that class by the input shapes the profiler recorded for the op
-that launched each event.
+that launched each event. ``--spans`` adds a table of device ms and host
+self ms a step by the innermost ``mt.*`` span (:mod:`..utils.tracing`),
+:func:`span_summary`.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import gzip
 import json
@@ -25,6 +28,8 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+# host events: these categories and every CUDA API category (``cuda_*``)
+HOST_CATEGORIES = ("cpu_op", "user_annotation", "python_function")
 
 
 def newest_trace(trace_dir: str) -> Path:
@@ -135,6 +140,135 @@ def print_report(rep: dict, top: int = 18,
             print(f"{ms:>10.4f} ms  {s}")
 
 
+OUTSIDE = "(outside any span)"
+SPAN_PREFIX = "mt."
+
+
+class _Lanes:
+    """The host events of every thread, nested by time, and the profiler's
+    links: a kernel's ``correlation`` to the runtime call that launched
+    it, a backward op's ``fwdbwd`` flow to its forward op (the flow the
+    profiler draws from the ops' ``Sequence number`` and ``Fwd thread
+    id``)."""
+
+    def __init__(self, events: List[dict]):
+        complete = [e for e in events if e.get("ph") == "X"]
+        self.host = sorted((e for e in complete
+                            if e.get("cat") in HOST_CATEGORIES
+                            or str(e.get("cat", "")).startswith("cuda_")),
+                           key=lambda e: (e["pid"], e["tid"], e["ts"],
+                                          -e["dur"]))
+        self.parent: List[int] = []
+        self.lanes: Dict[tuple, List[int]] = collections.defaultdict(list)
+        stack: List[int] = []
+        for i, e in enumerate(self.host):
+            lane = (e["pid"], e["tid"])
+            while stack and (self._lane(stack[-1]) != lane or
+                             e["ts"] >= self._end(stack[-1])):
+                stack.pop()
+            self.parent.append(stack[-1] if stack else -1)
+            stack.append(i)
+            self.lanes[lane].append(i)
+        self.starts = {lane: [self.host[i]["ts"] for i in idx]
+                       for lane, idx in self.lanes.items()}
+        self.launch = {}        # correlation -> the CUDA API call
+        for i, e in enumerate(self.host):
+            c = (e.get("args") or {}).get("correlation")
+            if c is not None:
+                self.launch[c] = i
+        starts, self.forward = {}, {}
+        for e in events:
+            if e.get("cat") == "fwdbwd" and e.get("ph") == "s":
+                starts[e["id"]] = (e["pid"], e["tid"], e["ts"])
+        for e in events:
+            if e.get("cat") == "fwdbwd" and e.get("ph") == "f" and \
+                    e["id"] in starts:
+                bwd = self.at(e["pid"], e["tid"], e["ts"])
+                fwd = self.at(*starts[e["id"]])
+                if bwd >= 0 and fwd >= 0:
+                    self.forward[bwd] = fwd
+        self._memo: Dict[int, Optional[str]] = {}
+
+    def _lane(self, i):
+        return self.host[i]["pid"], self.host[i]["tid"]
+
+    def _end(self, i):
+        return self.host[i]["ts"] + self.host[i]["dur"]
+
+    def at(self, pid, tid, ts) -> int:
+        """The innermost host event of the thread holding ``ts``, or -1."""
+        idx = self.lanes.get((pid, tid))
+        if not idx:
+            return -1
+        k = bisect.bisect_right(self.starts[(pid, tid)], ts) - 1
+        i = idx[k] if k >= 0 else -1
+        while i >= 0 and self._end(i) < ts:
+            i = self.parent[i]
+        return i
+
+    def span_of(self, i: int) -> Optional[str]:
+        """The innermost ``mt.*`` span around host event ``i``; where a
+        backward op comes first, its forward op's span, if it has one."""
+        if i < 0:
+            return None
+        if i not in self._memo:
+            self._memo[i] = None    # a link back to itself ends here
+            name = self.host[i]["name"]
+            if self.host[i].get("cat") == "user_annotation" and \
+                    name.startswith(SPAN_PREFIX):
+                got = name
+            else:
+                got = self.span_of(self.forward[i]) \
+                    if i in self.forward else None
+                got = got or self.span_of(self.parent[i])
+            self._memo[i] = got
+        return self._memo[i]
+
+
+def span_summary(events: List[dict], steps: int = 2) -> dict:
+    """``{"device_ms_per_step": {span: ms}, "host_ms_per_step": {span:
+    ms}, "count_per_step": {span: n}}`` by the innermost ``mt.*`` span
+    (``(outside any span)`` for the rest). A kernel, copy or set counts
+    under the span around the CUDA API call that launched it (its
+    ``correlation``); a host event's self time (its duration less its
+    children's) under its own; a backward op under its forward op's."""
+    lanes = _Lanes(events)
+    dev, host, count = (collections.Counter(), collections.Counter(),
+                        collections.Counter())
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES:
+            c = (e.get("args") or {}).get("correlation")
+            dev[lanes.span_of(lanes.launch.get(c, -1)) or OUTSIDE] += \
+                e["dur"]
+    child = collections.Counter()
+    for i, p in enumerate(lanes.parent):
+        if p >= 0:
+            child[p] += lanes.host[i]["dur"]
+    for i, e in enumerate(lanes.host):
+        name = lanes.span_of(i) or OUTSIDE
+        host[name] += e["dur"] - child[i]
+        if name == e["name"]:
+            count[name] += 1
+    names = sorted(set(dev) | set(host) | {OUTSIDE},
+                   key=lambda n: (-dev[n], -host[n]))
+    return {"device_ms_per_step": {n: dev[n] / 1e3 / steps for n in names},
+            "host_ms_per_step": {n: host[n] / 1e3 / steps for n in names},
+            "count_per_step": {n: count[n] / steps for n in names}}
+
+
+def print_spans(rep: dict, top: int = 18) -> None:
+    dev, host = rep["device_ms_per_step"], rep["host_ms_per_step"]
+    print(f"{'span':<40}{'device ms/step':>16}{'host self ms/step':>20}"
+          f"{'opens/step':>12}")
+    rows = list(dev)
+    rows = rows[:top] + ([OUTSIDE] if OUTSIDE not in rows[:top] else [])
+    for n in rows:
+        print(f"{n[:39]:<40}{dev[n]:>16.4f}{host[n]:>20.4f}"
+              f"{rep['count_per_step'][n]:>12g}")
+    print(f"{'TOTAL':<40}{sum(dev.values()):>16.4f}"
+          f"{sum(host.values()):>20.4f}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trace_dir")
@@ -143,12 +277,18 @@ def main(argv=None) -> int:
     ap.add_argument("--top", type=int, default=18)
     ap.add_argument("--shapes", "--breakdown", dest="shapes", default="",
                     help="break this op class down by shape")
+    ap.add_argument("--spans", action="store_true",
+                    help="add device and host self ms by mt.* span")
     a = ap.parse_args(argv)
-    rep = summarize(load_events(a.trace_dir), a.steps, a.shapes or None)
+    events = load_events(a.trace_dir)
+    rep = summarize(events, a.steps, a.shapes or None)
     if not rep["ms_per_step"]:
         print("no op events found in the trace", file=sys.stderr)
         return 1
     print_report(rep, a.top, a.shapes or None)
+    if a.spans:
+        print()
+        print_spans(span_summary(events, a.steps), a.top)
     return 0
 
 

@@ -23,6 +23,7 @@ from torch import nn
 from ..configs import TrainConfig
 from ..data import Batch, device_put
 from ..models.layers import dropout_generator
+from ..utils.tracing import span
 from .losses import kd_kl_per_slide, kd_loss
 from .state import FROZEN_KEY, TrainOptimizer
 
@@ -113,11 +114,12 @@ def _train_loss(model: nn.Module, cfg: TrainConfig, batch: Inputs,
                 text_targets: torch.Tensor,
                 generator: torch.Generator) -> torch.Tensor:
     model.train()
-    with dropout_generator(generator), \
+    with span("mt.step.forward"), dropout_generator(generator), \
             _autocast(model, batch["bag"].device):
         logits = multitask_logits(model, batch, cfg.num_tasks)
-    return kd_loss(logits, text_targets, temperature=cfg.temperature,
-                   scale=cfg.kd_loss_scale)
+    with span("mt.step.loss"):
+        return kd_loss(logits, text_targets, temperature=cfg.temperature,
+                       scale=cfg.kd_loss_scale)
 
 
 def make_train_step(model: nn.Module, cfg: TrainConfig,
@@ -132,8 +134,10 @@ def make_train_step(model: nn.Module, cfg: TrainConfig,
     def step(batch: Inputs, text_targets: torch.Tensor,
              generator: torch.Generator) -> torch.Tensor:
         loss = _train_loss(model, cfg, batch, text_targets, generator)
-        loss.backward()
-        optimizer.step()
+        with span("mt.step.backward"):
+            loss.backward()
+        with span("mt.step.optimizer"):
+            optimizer.step()
         return loss.detach()
 
     return step
@@ -150,7 +154,8 @@ def make_grad_step(model: nn.Module, cfg: TrainConfig
              generator: torch.Generator):
         named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         loss = _train_loss(model, cfg, batch, text_targets, generator)
-        grads = torch.autograd.grad(loss, [p for _, p in named])
+        with span("mt.step.backward"):
+            grads = torch.autograd.grad(loss, [p for _, p in named])
         return loss.detach(), {n: g for (n, _), g in zip(named, grads)}
 
     return step

@@ -56,6 +56,7 @@ from ..models.layers import init_weights
 from ..utils.convert import port_names
 from ..utils.logging import MetricsLogger, dump_config
 from ..utils.params_io import load_params_npz
+from ..utils.tracing import span
 from .losses import TextProjector, project_text
 from .state import FROZEN_KEY, TrainOptimizer, freeze_backbone
 from .train_step import (batch_to_device, make_embed_step, make_eval_step,
@@ -259,15 +260,20 @@ class ModalTuneTrainer:
         try:
             while True:
                 t0 = time.perf_counter()
-                batch = next(batches, None)
+                with span("mt.train.next"):
+                    batch = next(batches, None)
                 t1 = time.perf_counter()
                 if batch is None or n >= cap:
                     break
                 self.loader_ms.append((t1 - t0) * 1e3)
-                loss = self._train_step(self._batch(batch),
-                                        self._text_targets(batch),
-                                        self._step_gen)
-                total += float(loss)
+                with span("mt.train.h2d"):
+                    inputs = self._batch(batch)
+                with span("mt.train.text"):
+                    targets = self._text_targets(batch)
+                with span("mt.train.step"):
+                    loss = self._train_step(inputs, targets, self._step_gen)
+                with span("mt.train.loss_read"):
+                    total += float(loss)
                 self.step_ms.append((time.perf_counter() - t1) * 1e3)
                 n += 1
         finally:
